@@ -1,0 +1,104 @@
+"""Scene compilation of the PyTorch port against the JAX package.
+
+Both builds are host numpy, so every table must be equal exactly, field by
+field; ``compiled_from_arrays`` of the JAX scene's tables must give the same
+scene.  Features of later slices raise NotImplementedError."""
+
+import numpy as np
+import pytest
+import torch
+
+import zig_weekend_raytracer_tpu as zj
+import zig_weekend_raytracer_tpu_torch as zt
+from zig_weekend_raytracer_tpu_torch.scene import (
+    ARRAY_FIELDS,
+    STATIC_FIELDS,
+    V3_FIELDS,
+    SceneBuilder,
+    compiled_from_arrays,
+)
+
+
+def _np(value):
+    if isinstance(value, tuple):
+        return np.stack([_np(v) for v in value])
+    return value.cpu().numpy()
+
+
+def _assert_same(cs_t, cs_j):
+    for f in ARRAY_FIELDS:
+        got, want = _np(getattr(cs_t, f)), np.asarray(getattr(cs_j, f))
+        assert got.shape == want.shape, f
+        assert got.dtype == want.dtype, f
+        np.testing.assert_array_equal(got, want, err_msg=f)
+    for f in STATIC_FIELDS:
+        assert getattr(cs_t, f) == getattr(cs_j, f), f
+
+
+@pytest.fixture(scope="module")
+def cornell_j():
+    return zj.models.load_scene("cornell_box")
+
+
+def test_cornell_tables_equal_jax(cornell_j):
+    st = zt.models.load_scene("cornell_box")
+    _assert_same(st.compiled, cornell_j.compiled)
+    assert st.camera == zt.scene.Camera(**cornell_j.camera.__dict__)
+    assert st.compiled.device == torch.device("cpu")
+
+
+def test_compiled_from_arrays_of_jax_tables(cornell_j):
+    cs = cornell_j.compiled
+    fields = {f: np.asarray(getattr(cs, f)) for f in ARRAY_FIELDS}
+    static = {f: getattr(cs, f) for f in STATIC_FIELDS + ("has_bvh", "has_image_textures")}
+    got = compiled_from_arrays(fields, static, "cpu")
+    _assert_same(got, cs)
+    for f in V3_FIELDS:
+        assert all(c.dtype == torch.float32 for c in getattr(got, f)), f
+
+
+def test_compiled_from_arrays_refuses_later_slices(cornell_j):
+    cs = cornell_j.compiled
+    fields = {f: np.asarray(getattr(cs, f)) for f in ARRAY_FIELDS}
+    static = {f: getattr(cs, f) for f in STATIC_FIELDS}
+    for flag in ("has_bvh", "has_sph_tree", "has_image_textures", "has_nested_checker"):
+        with pytest.raises(NotImplementedError, match="slice"):
+            compiled_from_arrays(fields, {**static, flag: True}, "cpu")
+
+
+@pytest.mark.parametrize("name", ["emissive", "balls", "earth", "shrek_quads", "rtw_final"])
+def test_later_scenes_raise(name):
+    with pytest.raises(NotImplementedError, match="slice"):
+        zt.models.load_scene(name)
+
+
+def test_builder_refuses_images_and_trees():
+    b = SceneBuilder()
+    with pytest.raises(NotImplementedError, match="slice 4"):
+        b.image_texture(np.zeros((2, 2, 3), np.uint8))
+    m = b.lambertian(b.solid_color((0.5, 0.5, 0.5)))
+    for i in range(40):
+        b.add(b.sphere((i, 0, 0), 0.4, m))
+    b.use_bvh(True)
+    with pytest.raises(NotImplementedError, match="slice 3"):
+        b.compile()
+
+
+def test_checker_moving_sphere_scene_equal_jax():
+    """A scene with a checker, a moving sphere, fuzzy metal and isotropic
+    media builds the same tables on both sides."""
+
+    def build(mod):
+        b = mod.scene.SceneBuilder()
+        chk = b.checkerboard(0.3, b.solid_color((0.2, 0.3, 0.1)), b.solid_color((0.9, 0.9, 0.9)))
+        b.add(b.quad((-5, -1, -5), (10, 0, 0), (0, 0, 10), b.lambertian(chk)))
+        b.add(b.sphere((0, 0.5, 0), 1.0, b.metal((0.8, 0.6, 0.2), 0.3)))
+        b.add(b.moving_sphere((2, 0.5, 0), (2, 1.0, 0), 0.7,
+                              b.isotropic(b.solid_color((0.5, 0.5, 0.9)))))
+        light = b.add(b.quad((-1, 4, -1), (2, 0, 0), (0, 0, 2),
+                             b.diffuse_light(b.solid_color((8, 8, 8)))))
+        b.set_lights([light])
+        b.set_background((0.3, 0.4, 0.6))
+        return b.compile()
+
+    _assert_same(build(zt).compiled, build(zj).compiled)

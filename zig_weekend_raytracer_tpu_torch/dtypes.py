@@ -1,0 +1,34 @@
+"""Precision policy of the PyTorch port (counterpart of
+``zig_weekend_raytracer_tpu/dtypes.py``).
+
+Every float is float32.  The constants are Python floats holding the
+float32 value, so they combine with float32 tensors without promoting them
+(a Python scalar never widens a tensor's dtype, a numpy float64 array
+would).
+"""
+
+import numpy as np
+import torch
+
+# Compute dtype for all geometry/shading math.
+real = torch.float32
+real_np = np.float32
+
+# t_min used when tracing bounce rays (shadow-acne epsilon).
+T_MIN = float(np.float32(1e-3))
+
+# t_min used inside light-PDF evaluation re-traces.
+T_MIN_PDF = float(np.float32(1e-3))
+
+# Parallel-ray epsilon in the quad plane test.
+QUAD_PARALLEL_EPS = float(np.float32(1e-8))
+
+INF = float("inf")
+
+# Largest float strictly below 1.0 in f32.
+ONE_MINUS_EPS = float(np.nextafter(np.float32(1.0), np.float32(0.0)))
+
+# Rec.709 luminance weights.
+LUM_R = float(np.float32(0.2126))
+LUM_G = float(np.float32(0.7152))
+LUM_B = float(np.float32(0.0722))

@@ -1,0 +1,34 @@
+"""Material helpers for the masked integrator (counterpart of
+``materials.py``): the scattering PDF and Schlick Fresnel."""
+
+from __future__ import annotations
+
+import math
+
+import torch
+
+from .math import v3
+from .math.v3 import V3
+from .scene import MAT_ISOTROPIC
+
+INV_4PI = 1.0 / (4.0 * math.pi)
+INV_PI = 1.0 / math.pi
+
+
+def scattering_pdf(mat_type, normal: V3, scattered_dir: V3) -> torch.Tensor:
+    """PDF of the material's own scatter distribution for an outgoing
+    direction: lambertian max(0, cos/pi), isotropic 1/(4 pi)."""
+    unit = v3.normalize(scattered_dir)
+    cos_theta = v3.dot(normal, unit)
+    lam = torch.clamp(cos_theta * INV_PI, min=0.0)
+    return torch.where(mat_type == MAT_ISOTROPIC, INV_4PI, lam)
+
+
+def schlick_reflectance(cos_theta, refraction_index) -> torch.Tensor:
+    """Schlick Fresnel approximation with the material's base index.
+    ``x ** 5`` is spelled x * (x^2)^2, the order XLA's integer power uses."""
+    r0 = (1.0 - refraction_index) / (1.0 + refraction_index)
+    r0 = r0 * r0
+    x = 1.0 - cos_theta
+    x2 = x * x
+    return r0 + (1.0 - r0) * (x * (x2 * x2))

@@ -1,0 +1,185 @@
+"""The whole-render kernel (counterpart of
+``ops/pallas_bounce.py:render_fused`` and its ``_fused_render_kernel``).
+
+``render_fused`` renders every lane's sample window [s0, s1) of pixel
+(px, py) and returns per-lane radiance sums.  For CUDA tensors it launches
+``fused_render_kernel`` (``csrc/fused_render.cu`` over the device functions
+in ``csrc/zwrt_device.cuh``); for CPU tensors it runs the kernel's plain
+PyTorch version, ``render/integrator.py:render_fused_reference``.  Any
+other device raises.  ``render_fused.launches`` counts kernel launches.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import numpy as np
+import torch
+
+from ..dtypes import real
+from ..math.v3 import V3
+from ..render.integrator import render_fused_reference
+from ..sampling import sobol as _sobol
+from ..sampling.sampler import SamplerKind, sobol_log2_scale
+from ..scene import PRIM_QUAD, PRIM_SPHERE, CompiledScene
+from . import _build
+
+# Must match csrc/zwrt_device.cuh.
+MAX_LIGHTS = 8
+LIGHT_FLOATS = 17
+_SAMPLER_CODE = {
+    SamplerKind.INDEPENDENT: 0, SamplerKind.STRATIFIED: 1, SamplerKind.SOBOL: 2,
+}
+
+
+@functools.lru_cache(maxsize=16)
+def sobol_table(device: torch.device, log2_scale: int) -> torch.Tensor:
+    """The kernel's Sobol table for one pixel-space scale, uploaded once per
+    (device, scale): dims 0 and 1, the van der Corput columns (the first 28,
+    zero-padded) and the inverse columns' low and high words, 52 u32 each,
+    as int32 bit patterns."""
+    d = _sobol._data()
+    vdc = np.zeros(52, np.uint32)
+    inv_lo = np.zeros(52, np.uint32)
+    inv_hi = np.zeros(52, np.uint32)
+    if log2_scale > 0:
+        delta_cols = _sobol.MAX_SPP_LOG2
+        vdc[:delta_cols] = d["vdc_lo"][log2_scale - 1][:delta_cols]
+        inv_lo[:] = d["vdc_inv_lo"][log2_scale - 1]
+        inv_hi[:] = d["vdc_inv_hi"][log2_scale - 1]
+    tab = np.concatenate(
+        [d["sobol32"][0], d["sobol32"][1], vdc, inv_lo, inv_hi]
+    ).astype(np.uint32)
+    return torch.from_numpy(tab.view(np.int32).copy()).to(device)
+
+
+def kernel_tables(scene: CompiledScene):
+    """(sph_tab (S, 8), quad_tab (Q, 16)) float32 on the scene's device:
+    spheres as [cx cy cz r^2 mx my mz 0]; quads as [start, normal,
+    A = v x w, B = w x u, offset, 0 0 0], the products in the plain
+    version's operation order."""
+    n_s, n_q = max(scene.n_spheres, 1), max(scene.n_quads, 1)
+    c, m, r = scene.sph_center, scene.sph_move, scene.sph_radius
+    zs = torch.zeros_like(r)
+    sph = torch.stack([c.x, c.y, c.z, r * r, m.x, m.y, m.z, zs], dim=1)[:n_s]
+    qu, qv, qw = scene.quad_u, scene.quad_v, scene.quad_w
+    s, nrm = scene.quad_start, scene.quad_normal
+    zq = torch.zeros_like(scene.quad_offset)
+    quad = torch.stack([
+        s.x, s.y, s.z, nrm.x, nrm.y, nrm.z,
+        qv.y * qw.z - qv.z * qw.y,
+        qv.z * qw.x - qv.x * qw.z,
+        qv.x * qw.y - qv.y * qw.x,
+        qw.y * qu.z - qw.z * qu.y,
+        qw.z * qu.x - qw.x * qu.z,
+        qw.x * qu.y - qw.y * qu.x,
+        scene.quad_offset, zq, zq, zq,
+    ], dim=1)[:n_q]
+    return sph.contiguous(), quad.contiguous()
+
+
+def _params(scene, seed, t_min, camera_consts, sampler, width, height, spp,
+            stride, max_depth):
+    """Host arrays (int32, float32) in the order the C launcher reads them."""
+    n_l = len(scene.light_params)
+    if n_l > MAX_LIGHTS:
+        raise NotImplementedError(
+            f"the fused kernel takes at most {MAX_LIGHTS} lights, got {n_l}"
+        )
+    strat_sqrt = max(1, int(np.sqrt(spp)))
+    kinds = [k for k, _ in scene.light_params] + [0] * (MAX_LIGHTS - n_l)
+    ints = np.array(
+        [width, height, spp, stride, max_depth, _SAMPLER_CODE[sampler],
+         sobol_log2_scale(width, height), strat_sqrt, int(seed) & 0xFFFFFFFF,
+         scene.n_spheres, scene.n_quads, scene.shade_rows.shape[0], n_l,
+         int(bool(scene.needs_gauss)), *kinds],
+        dtype=np.int64,
+    ).astype(np.uint32).view(np.int32)
+    lights = np.zeros((MAX_LIGHTS, LIGHT_FLOATS), np.float32)
+    for k, (kind, p) in enumerate(scene.light_params):
+        lights[k, : len(p)] = p
+        if kind not in (PRIM_SPHERE, PRIM_QUAD):
+            raise ValueError(f"unknown light kind {kind}")
+    position, pixel00, du, dv, _, _ = camera_consts
+    floats = np.concatenate([
+        np.array([t_min, 1.0 / strat_sqrt], np.float32),
+        np.asarray(position, np.float32), np.asarray(pixel00, np.float32),
+        np.asarray(du, np.float32), np.asarray(dv, np.float32),
+        np.asarray(scene.background_rgb, np.float32), lights.reshape(-1),
+    ]).astype(np.float32)
+    return np.ascontiguousarray(ints), np.ascontiguousarray(floats)
+
+
+def _check_lane_tensor(name, t, device, n):
+    if t.device != device:
+        raise ValueError(f"{name} is on {t.device}, expected {device}")
+    if t.dtype != torch.int32:
+        raise ValueError(f"{name} must be int32, got {t.dtype}")
+    if t.dim() != 1 or t.shape[0] != n:
+        raise ValueError(f"{name} must have shape ({n},), got {tuple(t.shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+
+
+def render_fused(
+    scene: CompiledScene,
+    px: torch.Tensor, py: torch.Tensor, s0: torch.Tensor, s1: torch.Tensor,
+    seed: int, t_min: float, *,
+    camera_consts, sampler: SamplerKind, width: int, height: int, spp: int,
+    stride: int, max_depth: int, has_dof: bool, want_work: bool = False,
+):
+    """Render each lane's samples s0, s0 + stride, ... below s1 of pixel
+    (px, py).  Lane tensors are (N,) int32.  Returns the per-lane radiance
+    sums as V3 of (N,) float32, plus the per-lane work count (int32: loop
+    passes in which the lane's path was alive) when ``want_work``."""
+    if has_dof:
+        raise NotImplementedError(
+            "depth of field is slice 3 of the port (ROADMAP.md)"
+        )
+    device = px.device
+    if device.type == "cpu":
+        return render_fused_reference(
+            scene, px, py, s0, s1, seed, t_min,
+            camera_consts=camera_consts, sampler=sampler, width=width,
+            height=height, spp=spp, stride=stride, max_depth=max_depth,
+            has_dof=has_dof, want_work=want_work,
+        )
+    if device.type != "cuda":
+        raise ValueError(f"render_fused runs on cuda or cpu tensors, not {device}")
+    n = px.shape[0]
+    for name, t in (("px", px), ("py", py), ("s0", s0), ("s1", s1)):
+        _check_lane_tensor(name, t, device, n)
+    if scene.device != device:
+        raise ValueError(f"scene is on {scene.device}, lanes on {device}")
+
+    lib = _build.load_library()
+    ints, floats = _params(
+        scene, seed, t_min, camera_consts, sampler, width, height, spp,
+        stride, max_depth,
+    )
+    sph_tab, quad_tab = kernel_tables(scene)
+    shade_rows = scene.shade_rows.contiguous()
+    sobol = sobol_table(device, sobol_log2_scale(width, height))
+    rad = torch.empty((3, n), dtype=real, device=device)
+    work = torch.empty((n,), dtype=torch.int32, device=device) if want_work else None
+    stream = torch.cuda.current_stream(device).cuda_stream
+    err = lib.zwrt_fused_render(
+        ints.ctypes.data_as(ctypes.c_void_p),
+        floats.ctypes.data_as(ctypes.c_void_p),
+        px.data_ptr(), py.data_ptr(), s0.data_ptr(), s1.data_ptr(),
+        sph_tab.data_ptr(), quad_tab.data_ptr(), shade_rows.data_ptr(),
+        sobol.data_ptr(), rad.data_ptr(),
+        work.data_ptr() if want_work else None,
+        n, stream,
+    )
+    if err != 0:
+        raise RuntimeError(f"fused_render_kernel launch failed: cudaError {err}")
+    render_fused.launches += 1
+    radiance = V3(rad[0], rad[1], rad[2])
+    if want_work:
+        return radiance, work
+    return radiance
+
+
+render_fused.launches = 0

@@ -1,0 +1,216 @@
+"""The regenerating wavefront integrator in plain PyTorch (counterpart of
+``render/integrator.py:trace_paths_regen`` with the bounce of
+``ops/pallas_bounce.py:_bounce_core``).
+
+``render_fused_reference`` is the plain version of the CUDA kernel in
+``ops/fused_render.py``: the same estimator, bounce for bounce, on (N,)
+tensors.  Each lane owns one pixel and a sample window [s0, s1) walked with
+``stride``; a lane whose path ended respawns its pixel's next sample, so a
+pass of the loop is: respawn, ``work += alive``, trace, shade, scatter.
+
+Semantics (the reference's rayColor, unrolled into a throughput product):
+miss -> background and the path ends; emission on front faces; emissive
+hits and absorbed metal end the path; specular materials multiply by their
+attenuation; diffuse scatter uses the 50/50 mixture of the light-list PDF
+and the material PDF when the scene has lights; a zero-probability sample
+or a path whose throughput hits exactly zero ends; a path ends after
+``max_depth`` bounces.  All randomness is content-addressed by
+(seed, ray id, site): bounce d draws at sites 8 + 4d + k
+(k = 0 scatter, 1 light mixture, 2 gaussian triple).
+"""
+
+from __future__ import annotations
+
+import torch
+
+from ..dtypes import INF, real
+from ..materials import schlick_reflectance, scattering_pdf
+from ..math import v3
+from ..math.v3 import V3
+from ..ops.shade import shade_attrs
+from ..ops.trace import closest_hit_brute
+from ..sampling import hashrng
+from ..scene import (
+    MAT_DIELECTRIC,
+    MAT_DIFFUSE_LIGHT,
+    MAT_ISOTROPIC,
+    MAT_METAL,
+    CompiledScene,
+)
+from ..textures import checker_parity
+from .camera import camera_params_from_consts, generate_rays
+from .pdfs import light_pdf_value, sample_light_direction
+
+BOUNCE_BASE = 8
+SITES_PER_BOUNCE = 4
+
+
+def bounce(
+    scene: CompiledScene, seed, t_min, depth: torch.Tensor,
+    origin: V3, direction: V3, time, ray_id, throughput: V3, radiance: V3,
+    alive: torch.Tensor,
+):
+    """One masked integrator bounce for every lane.  ``depth`` is each
+    lane's bounce index.  Returns (origin', direction', throughput',
+    radiance', survives)."""
+    n = origin.shape[0]
+    dev = origin.x.device
+    site = BOUNCE_BASE + depth.to(torch.int64) * SITES_PER_BOUNCE
+    u0, u1, u2, u3 = hashrng.uniform4(seed, ray_id, site)
+    if scene.has_lights:
+        u4, u5, u6, _ = hashrng.uniform4(seed, ray_id, site + 1)
+    if scene.needs_gauss:
+        gauss = hashrng.gauss3(seed, ray_id, site + 2)
+
+    hit = closest_hit_brute(scene, origin, direction, time, t_min, INF)
+    det = shade_attrs(scene, hit, origin, direction, time)
+
+    hit_any = hit.kind >= 0
+    hitmask = alive & hit_any
+    missed = alive & ~hit_any
+    zeros = V3.zeros((n,), dev)
+    radiance = radiance + V3.where(missed, throughput * scene.background, zeros)
+
+    mat_type = det.mat_type
+    odd = (det.tex_kind == 1) & (checker_parity(det.inv_scale, det.point) != 0)
+    tex_rgb = V3.where(odd, det.rgb2, det.rgb)
+
+    # ---- emission ----
+    is_emissive = mat_type == MAT_DIFFUSE_LIGHT
+    emits = hitmask & is_emissive & det.front
+    radiance = V3.where(emits, radiance + throughput * tex_rgb, radiance)
+
+    # ---- metal ----
+    reflected = v3.reflect(direction, det.normal)
+    if scene.needs_gauss:
+        fuzz = torch.clamp(det.fuzz, 0.0, 1.0)
+        metal_dir = reflected + hashrng.unit_sphere(gauss) * fuzz
+    else:
+        metal_dir = reflected
+    metal_ok = v3.dot(metal_dir, det.normal) > 0.0
+
+    # ---- dielectric ----
+    ri = det.refract
+    index = torch.where(det.front, 1.0 / ri, ri)
+    unit_in = v3.normalize(direction)
+    cos_theta = torch.clamp(v3.dot(-unit_in, det.normal), max=1.0)
+    sin_theta = torch.sqrt(torch.clamp(1.0 - cos_theta * cos_theta, min=0.0))
+    must_reflect = (index * sin_theta > 1.0) | (schlick_reflectance(cos_theta, ri) > u0)
+    diel_dir = V3.where(
+        must_reflect,
+        v3.reflect(unit_in, det.normal),
+        v3.refract(unit_in, det.normal, index),
+    )
+
+    # ---- diffuse sampling (lambertian cosine / isotropic sphere) ----
+    basis = v3.ortho_basis(det.normal)
+    cosine_dir = v3.onb_transform(basis, hashrng.cosine_direction_z(u1, u2))
+    if scene.needs_gauss:
+        is_iso = mat_type == MAT_ISOTROPIC
+        mat_sample_dir = V3.where(is_iso, hashrng.unit_sphere(gauss), cosine_dir)
+    else:
+        mat_sample_dir = cosine_dir
+
+    if scene.has_lights:
+        light_dir = sample_light_direction(scene, det.point, u4, u5, u6)
+        diff_dir = V3.where(u3 < 0.5, light_dir, mat_sample_dir)
+        mat_pdf = scattering_pdf(mat_type, det.normal, diff_dir)
+        l_pdf = light_pdf_value(scene, det.point, diff_dir)
+        sample_pdf = 0.5 * l_pdf + 0.5 * mat_pdf
+        scatter_pdf = mat_pdf
+    else:
+        diff_dir = mat_sample_dir
+        scatter_pdf = scattering_pdf(mat_type, det.normal, diff_dir)
+        sample_pdf = scatter_pdf
+
+    pdf_ok = sample_pdf > 0.0
+    pdf_ratio = torch.where(
+        pdf_ok, scatter_pdf / torch.where(pdf_ok, sample_pdf, 1.0), 0.0
+    )
+    diffuse_mult = tex_rgb * pdf_ratio
+
+    # ---- combine by material type ----
+    is_metal = mat_type == MAT_METAL
+    is_diel = mat_type == MAT_DIELECTRIC
+    new_dir = V3.where(
+        is_metal | is_diel, V3.where(is_metal, metal_dir, diel_dir), diff_dir
+    )
+    one = V3.full((n,), 1.0, 1.0, 1.0, dev)
+    mult = V3.where(is_metal, det.rgb, V3.where(is_diel, one, diffuse_mult))
+
+    survives = hitmask & ~is_emissive & ~(is_metal & ~metal_ok)
+    throughput = V3.where(survives, throughput * mult, throughput)
+    nonzero = (throughput.x != 0.0) | (throughput.y != 0.0) | (throughput.z != 0.0)
+    survives = survives & nonzero
+    return (
+        V3.where(hitmask, det.point, origin),
+        V3.where(hitmask, new_dir, direction),
+        throughput,
+        radiance,
+        survives,
+    )
+
+
+def render_fused_reference(
+    scene: CompiledScene,
+    px: torch.Tensor, py: torch.Tensor, s0: torch.Tensor, s1: torch.Tensor,
+    seed: int, t_min: float, *,
+    camera_consts, sampler, width: int, height: int, spp: int, stride: int,
+    max_depth: int, has_dof: bool, want_work: bool = False,
+):
+    """Plain PyTorch version of the fused render kernel.  Per lane, renders
+    samples s0, s0 + stride, ... below s1 of pixel (px, py) and returns the
+    radiance sum as V3 (+ the per-lane count of loop passes in which the
+    lane was alive, int32, when ``want_work``)."""
+    render_fused_reference.calls += 1
+    n = px.shape[0]
+    dev = px.device
+    cam = camera_params_from_consts(camera_consts)
+    px = px.to(torch.int64)
+    py = py.to(torch.int64)
+    limit = s1.to(torch.int64)
+    sample = s0.to(torch.int64) - stride
+    origin = V3.zeros((n,), dev)
+    direction = V3.full((n,), 0.0, 0.0, 1.0, dev)
+    time = torch.zeros((n,), dtype=real, device=dev)
+    ray_id = torch.zeros((n,), dtype=torch.int64, device=dev)
+    throughput = V3.full((n,), 1.0, 1.0, 1.0, dev)
+    radiance = V3.zeros((n,), dev)
+    alive = torch.zeros((n,), dtype=torch.bool, device=dev)
+    depth = torch.zeros((n,), dtype=torch.int64, device=dev)
+    work = torch.zeros((n,), dtype=torch.int32, device=dev)
+    one = V3.full((n,), 1.0, 1.0, 1.0, dev)
+
+    while bool(torch.any(alive | (sample + stride < limit))):
+        # respawn: dead lanes take their pixel's next sample
+        next_sample = sample + stride
+        respawn = ~alive & (next_sample < limit)
+        sample = torch.where(respawn, next_sample, sample)
+        new_rid = ((sample * height + py) * width + px) & hashrng.U32_MASK
+        ray_id = torch.where(respawn, new_rid, ray_id)
+        o_new, d_new, t_new = generate_rays(
+            cam, has_dof, sampler, seed, new_rid, px, py, sample,
+            spp, width, height,
+        )
+        origin = V3.where(respawn, o_new, origin)
+        direction = V3.where(respawn, d_new, direction)
+        time = torch.where(respawn, t_new, time)
+        throughput = V3.where(respawn, one, throughput)
+        depth = torch.where(respawn, 0, depth)
+        alive = alive | respawn
+        work = work + alive.to(torch.int32)
+
+        origin, direction, throughput, radiance, survives = bounce(
+            scene, seed, t_min, depth, origin, direction, time, ray_id,
+            throughput, radiance, alive,
+        )
+        depth = depth + 1
+        alive = survives & (depth < max_depth)
+
+    if want_work:
+        return radiance, work
+    return radiance
+
+
+render_fused_reference.calls = 0
+

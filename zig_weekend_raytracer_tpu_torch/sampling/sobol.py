@@ -1,0 +1,160 @@
+"""Sobol quasi-Monte-Carlo sampler over torch tensors (counterpart of
+``sampling/sobol.py``, bitwise equal to it).
+
+The JAX package carries 64-bit sample indices as (hi, lo) u32 pairs because
+the TPU has no u64; here they are plain int64 tensors (the bit pattern of
+the u64 index), and the CUDA kernel uses ``uint64_t``.  u32 values are
+int64 tensors in [0, 2^32) as in ``hashrng``.
+
+The direction-number tables are read from the JAX package's
+``sampling/sobol_data.npz`` by file path: a data read, not an import, so the
+table keeps a single copy in the repository.
+"""
+
+from __future__ import annotations
+
+import functools
+import os
+
+import numpy as np
+import torch
+
+from ..dtypes import ONE_MINUS_EPS, real
+from .hashrng import U32_MASK
+
+N_SOBOL_DIMENSIONS = 1024
+SOBOL_MATRIX_SIZE = 52
+# Sample-index bits the interval-to-index delta covers (as the JAX package).
+MAX_SPP_LOG2 = 28
+
+SOBOL_DATA_PATH = os.path.join(
+    os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__)))),
+    "zig_weekend_raytracer_tpu", "sampling", "sobol_data.npz",
+)
+
+
+@functools.lru_cache(maxsize=1)
+def _data():
+    with np.load(SOBOL_DATA_PATH) as z:
+        return {k: z[k] for k in z.files}
+
+
+def sobol_matrix(dim: int) -> np.ndarray:
+    """The 52 u32 generator-matrix columns for one Sobol dimension."""
+    return _data()["sobol32"][dim]
+
+
+def vdc_columns(log2_scale: int):
+    """(vdc_lo, vdc_inv) for a pixel-space scale: the 52 u32 van der Corput
+    columns and the 52 u64 inverse columns (hi << 32 | lo) as Python ints."""
+    d = _data()
+    vdc_lo = [int(c) for c in d["vdc_lo"][log2_scale - 1]]
+    vdc_inv = [
+        (int(h) << 32) | int(l)
+        for h, l in zip(d["vdc_inv_hi"][log2_scale - 1], d["vdc_inv_lo"][log2_scale - 1])
+    ]
+    return vdc_lo, vdc_inv
+
+
+def _xor_columns(bits_src: torch.Tensor, cols) -> torch.Tensor:
+    """XOR of ``cols[i]`` over the set bits i of ``bits_src`` (int64).
+
+    Vectorised as an (N, C) masked table folded by halves with ``^``; the
+    columns are Python ints (u32 or u64 bit patterns)."""
+    cols = [c - (1 << 64) if c >= (1 << 63) else c for c in cols]
+    width = 1 << max(0, (len(cols) - 1).bit_length())
+    cols = cols + [0] * (width - len(cols))
+    dev = bits_src.device
+    col_t = torch.tensor(cols, dtype=torch.int64, device=dev)
+    shifts = torch.arange(width, dtype=torch.int64, device=dev)
+    bits = (bits_src.unsqueeze(-1) >> shifts) & 1
+    v = bits * col_t
+    while v.shape[-1] > 1:
+        half = v.shape[-1] // 2
+        v = v[..., :half] ^ v[..., half:]
+    return v[..., 0]
+
+
+def bit_reverse32(v: torch.Tensor) -> torch.Tensor:
+    """Reverse the bits of u32 values (5 masked swaps)."""
+    v = ((v >> 1) & 0x55555555) | ((v & 0x55555555) << 1)
+    v = ((v >> 2) & 0x33333333) | ((v & 0x33333333) << 2)
+    v = ((v >> 4) & 0x0F0F0F0F) | ((v & 0x0F0F0F0F) << 4)
+    v = ((v >> 8) & 0x00FF00FF) | ((v & 0x00FF00FF) << 8)
+    return ((v >> 16) | (v << 16)) & U32_MASK
+
+
+def owen_fast_scramble(v: torch.Tensor, seed: int) -> torch.Tensor:
+    """Owen-fast hash scrambling of u32 values with a u32 ``seed``."""
+    m = U32_MASK
+    seed = int(seed) & m
+    v = bit_reverse32(v)
+    v = v ^ ((v * 0x3D20ADEA) & m)
+    v = (v + seed) & m
+    v = (v * ((seed >> 16) | 1)) & m
+    v = v ^ ((v * 0x05526C56) & m)
+    v = v ^ ((v * 0x53A22864) & m)
+    return bit_reverse32(v)
+
+
+def murmur2_32(key: int, seed: int) -> int:
+    """Murmur2 hash of a single u32 (per-dimension scramble seed)."""
+    mask = U32_MASK
+    m = 0x5BD1E995
+    k = int(key) & mask
+    h = (int(seed) & mask) ^ 4
+    k = (k * m) & mask
+    k ^= k >> 24
+    k = (k * m) & mask
+    h = (h * m) & mask
+    h ^= k
+    h ^= h >> 13
+    h = (h * m) & mask
+    h ^= h >> 15
+    return h
+
+
+def sobol_sample_u32(idx: torch.Tensor, dim: int) -> torch.Tensor:
+    """Raw u32 Sobol value of the int64 sample index ``idx`` in ``dim``."""
+    return _xor_columns(idx, [int(c) for c in sobol_matrix(dim)])
+
+
+def u32_to_unit_float(v: torch.Tensor) -> torch.Tensor:
+    """u32 -> [0, 1) float as ``min(v * 2^-32, 1-eps)`` (round to nearest)."""
+    vf = v.to(torch.float64).to(real) * (2.0 ** -32)
+    return torch.clamp(vf, max=ONE_MINUS_EPS)
+
+
+def sobol_sample(idx: torch.Tensor, dim: int, scramble_seed=None) -> torch.Tensor:
+    """[0,1) Sobol sample; optionally Owen-fast scrambled."""
+    v = sobol_sample_u32(idx, dim)
+    if scramble_seed is not None:
+        v = owen_fast_scramble(v, scramble_seed)
+    return u32_to_unit_float(v)
+
+
+def sobol_interval_to_index(
+    log2_scale: int,
+    sample_idx: torch.Tensor,
+    px: torch.Tensor,
+    py: torch.Tensor,
+) -> torch.Tensor:
+    """Global Sobol index (int64 bit pattern of the u64) of the
+    ``sample_idx``-th sample landing in pixel (px, py), for a sampling
+    domain scaled by 2^log2_scale."""
+    sample_idx = sample_idx.to(torch.int64) & U32_MASK
+    if log2_scale == 0:
+        return sample_idx
+    vdc_lo, vdc_inv = vdc_columns(log2_scale)
+    index = sample_idx << (2 * log2_scale)
+    delta = _xor_columns(sample_idx, vdc_lo[:MAX_SPP_LOG2])
+    b = ((px.to(torch.int64) << log2_scale) | py.to(torch.int64)) ^ delta
+    b = b & U32_MASK
+    return index ^ _xor_columns(b, vdc_inv[: 2 * log2_scale])
+
+
+def ceil_pow2(x: int) -> int:
+    p = 1
+    while p < x:
+        p <<= 1
+    return p

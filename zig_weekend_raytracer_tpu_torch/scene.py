@@ -1,0 +1,730 @@
+"""Scene description and compilation to flat tables of torch tensors
+(counterpart of ``scene.py``).
+
+``SceneBuilder`` mirrors the JAX package's construction surface and its
+host build is the same numpy code, so every table comes out bit-identical;
+only the last step differs, where the tables become tensors on the scene's
+explicit ``device``.  ``compiled_from_arrays`` builds the same
+``CompiledScene`` from another build's tables (the JAX scene's, in the
+tests), so both renderers can start from identical state.
+
+Out of scope for this slice (ROADMAP.md): image textures and nested
+checkers (slice 4), BVH and group trees (slice 3).  Asking for one raises
+``NotImplementedError``.
+"""
+
+from __future__ import annotations
+
+import math as _math
+from dataclasses import dataclass, field
+from typing import List, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from .dtypes import real, real_np
+from .math.v3 import V3
+
+# Type codes (tagged-union tags become table codes).
+MAT_LAMBERTIAN = 0
+MAT_ISOTROPIC = 1
+MAT_METAL = 2
+MAT_DIELECTRIC = 3
+MAT_DIFFUSE_LIGHT = 4
+
+TEX_SOLID = 0
+TEX_CHECKER = 1
+TEX_IMAGE = 2
+
+PRIM_SPHERE = 0
+PRIM_QUAD = 1
+
+# Primitive count from which the JAX package builds group trees for a kind.
+TREE_MIN_PRIMS = 64
+
+_F = real_np
+_I = np.int32
+
+_SLICE_TREES = "BVH and group-tree scenes are slice 3 of the port (ROADMAP.md)"
+_SLICE_IMAGES = (
+    "image textures and nested checkers are slice 4 of the port (ROADMAP.md)"
+)
+
+
+# ---------------------------------------------------------------------------
+# Camera (host-side)
+# ---------------------------------------------------------------------------
+
+@dataclass(frozen=True)
+class Camera:
+    """Look-at camera with optional defocus (depth of field)."""
+
+    look_from: Tuple[float, float, float]
+    look_at: Tuple[float, float, float]
+    view_up: Tuple[float, float, float] = (0.0, 1.0, 0.0)
+    vfov_degrees: float = 40.0
+    focus_dist: float = 10.0
+    defocus_angle_degrees: float = 0.0
+    # Raster-grid shift in pixel units applied to pixel00 (default none).
+    raster_shift: Tuple[float, float] = (0.0, 0.0)
+
+    def basis(self):
+        lf = np.asarray(self.look_from, np.float64)
+        la = np.asarray(self.look_at, np.float64)
+        vup = np.asarray(self.view_up, np.float64)
+        w = lf - la
+        w = w / np.linalg.norm(w)
+        u = np.cross(vup, w)
+        u = u / np.linalg.norm(u)
+        v = np.cross(w, u)
+        return u, v, w
+
+    @property
+    def has_depth_of_field(self) -> bool:
+        return self.defocus_angle_degrees > 0.0
+
+    def defocus_disk(self):
+        u, v, _ = self.basis()
+        radius = self.focus_dist * _math.tan(
+            _math.radians(self.defocus_angle_degrees / 2.0)
+        )
+        return u * radius, v * radius
+
+    def viewport(self, width: int, height: int):
+        """Returns (pixel00_loc, pixel_delta_u, pixel_delta_v) as f32."""
+        u, v, w = self.basis()
+        aspect = width / height
+        theta = _math.radians(self.vfov_degrees)
+        h = _math.tan(theta / 2.0)
+        vp_height = 2.0 * h * self.focus_dist
+        vp_width = vp_height * aspect
+        vp_u = vp_width * u
+        vp_v = -vp_height * v
+        lf = np.asarray(self.look_from, np.float64)
+        upper_left = lf - self.focus_dist * w - vp_u / 2 - vp_v / 2
+        du = vp_u / width
+        dv = vp_v / height
+        pixel00 = (
+            upper_left + 0.5 * (du + dv)
+            + self.raster_shift[0] * du + self.raster_shift[1] * dv
+        )
+        return pixel00.astype(_F), du.astype(_F), dv.astype(_F)
+
+
+# ---------------------------------------------------------------------------
+# Host-side entity nodes (flattened away at compile time)
+# ---------------------------------------------------------------------------
+
+@dataclass
+class _Node:
+    pass
+
+
+@dataclass
+class SphereNode(_Node):
+    center: np.ndarray
+    radius: float
+    material: int
+    move_to: Optional[np.ndarray] = None  # animated endpoint (motion blur)
+
+
+@dataclass
+class QuadNode(_Node):
+    start: np.ndarray
+    edge_u: np.ndarray
+    edge_v: np.ndarray
+    material: int
+
+
+@dataclass
+class ListNode(_Node):
+    children: List[_Node] = field(default_factory=list)
+
+
+@dataclass
+class TranslateNode(_Node):
+    offset: np.ndarray
+    child: _Node
+
+
+@dataclass
+class RotateYNode(_Node):
+    angle_degrees: float
+    child: _Node
+
+
+# ---------------------------------------------------------------------------
+# Compiled scene
+# ---------------------------------------------------------------------------
+
+# Tensor fields the slice reads; V3 fields hold three (S,) tensors.
+V3_FIELDS = (
+    "sph_center", "sph_move", "quad_start", "quad_u", "quad_v",
+    "quad_normal", "quad_w", "mat_albedo", "tex_rgb", "background",
+)
+ARRAY_FIELDS = (
+    "sph_center", "sph_radius", "sph_move", "sph_uv_cos", "sph_uv_sin",
+    "sph_mat",
+    "quad_start", "quad_u", "quad_v", "quad_normal", "quad_w", "quad_offset",
+    "quad_area", "quad_mat",
+    "mat_type", "mat_tex", "mat_albedo", "mat_fuzz", "mat_refract",
+    "tex_type", "tex_rgb", "tex_inv_scale", "tex_even", "tex_odd",
+    "background", "shade_rows",
+)
+STATIC_FIELDS = (
+    "n_spheres", "n_quads", "n_materials", "n_textures", "has_moving",
+    "needs_gauss", "lights", "light_params", "background_rgb",
+)
+# Feature flags of the JAX scene that this slice cannot render when set.
+_UNSUPPORTED_FLAGS = {
+    "has_bvh": _SLICE_TREES,
+    "has_sph_tree": _SLICE_TREES,
+    "has_quad_tree": _SLICE_TREES,
+    "has_uni_tree": _SLICE_TREES,
+    "has_image_textures": _SLICE_IMAGES,
+    "has_emissive_image": _SLICE_IMAGES,
+    "has_nested_checker": _SLICE_IMAGES,
+}
+
+
+@dataclass(frozen=True, eq=False)
+class CompiledScene:
+    """SoA scene tables as tensors on ``device``, plus static metadata.
+
+    ``eq=False`` keeps identity hashing: the renderer's cost-map cache keys
+    scenes weakly by object."""
+
+    sph_center: V3
+    sph_radius: torch.Tensor
+    sph_move: V3
+    sph_uv_cos: torch.Tensor
+    sph_uv_sin: torch.Tensor
+    sph_mat: torch.Tensor
+    quad_start: V3
+    quad_u: V3
+    quad_v: V3
+    quad_normal: V3
+    quad_w: V3
+    quad_offset: torch.Tensor
+    quad_area: torch.Tensor
+    quad_mat: torch.Tensor
+    mat_type: torch.Tensor
+    mat_tex: torch.Tensor
+    mat_albedo: V3
+    mat_fuzz: torch.Tensor
+    mat_refract: torch.Tensor
+    tex_type: torch.Tensor
+    tex_rgb: V3
+    tex_inv_scale: torch.Tensor
+    tex_even: torch.Tensor
+    tex_odd: torch.Tensor
+    background: V3
+    # (n_spheres + n_quads, 32) per-prim shading records (ops/shade.py)
+    shade_rows: torch.Tensor
+    device: torch.device
+    n_spheres: int = 0
+    n_quads: int = 0
+    n_materials: int = 0
+    n_textures: int = 0
+    has_moving: bool = False
+    # True iff a material consumes the per-bounce gaussian triple
+    # (isotropic scatter or fuzzy metal).
+    needs_gauss: bool = True
+    # Importance-sampled light list ((kind, idx), ...) and its geometry:
+    # (PRIM_SPHERE, (cx, cy, cz, r)) or (PRIM_QUAD, (sx, sy, sz, ux, uy, uz,
+    # vx, vy, vz, nx, ny, nz, wx, wy, wz, offset, area)).
+    lights: Tuple[Tuple[int, int], ...] = ()
+    light_params: Tuple = ()
+    background_rgb: Tuple[float, float, float] = (0.0, 0.0, 0.0)
+
+    @property
+    def has_lights(self) -> bool:
+        return len(self.lights) > 0
+
+
+@dataclass(frozen=True)
+class Scene:
+    """A compiled scene plus its host-side render parameters."""
+
+    compiled: CompiledScene
+    camera: Camera
+    background: Tuple[float, float, float]
+    name: str = "scene"
+
+
+def compiled_from_arrays(fields: dict, static: dict, device) -> CompiledScene:
+    """Build a ``CompiledScene`` on ``device`` from another build's tables.
+
+    ``fields`` maps each name in ``ARRAY_FIELDS`` to a numpy array (a V3
+    field as its (3, S) stack, e.g. ``np.asarray(cs.sph_center)`` of a JAX
+    scene); ``static`` maps each name in ``STATIC_FIELDS`` to its value and
+    may carry the JAX scene's feature flags, which are checked."""
+    for flag, why in _UNSUPPORTED_FLAGS.items():
+        if static.get(flag):
+            raise NotImplementedError(why)
+    device = torch.device(device)
+
+    def tensor(a):
+        a = np.asarray(a)
+        dtype = real if a.dtype.kind == "f" else torch.int32
+        return torch.tensor(a, dtype=dtype, device=device)
+
+    kw = {}
+    for name in ARRAY_FIELDS:
+        a = np.asarray(fields[name])
+        kw[name] = V3(*(tensor(a[i]) for i in range(3))) if name in V3_FIELDS else tensor(a)
+    for name in STATIC_FIELDS:
+        kw[name] = static[name]
+    kw["lights"] = tuple((int(k), int(i)) for k, i in kw["lights"])
+    kw["light_params"] = tuple(
+        (int(k), tuple(float(v) for v in p)) for k, p in kw["light_params"]
+    )
+    kw["background_rgb"] = tuple(float(v) for v in kw["background_rgb"])
+    # the tensors' device carries the index ("cuda" -> "cuda:0")
+    return CompiledScene(device=kw["shade_rows"].device, **kw)
+
+
+# ---------------------------------------------------------------------------
+# Builder
+# ---------------------------------------------------------------------------
+
+def _rot_y(angle_degrees: float) -> np.ndarray:
+    """Object->world Y-rotation."""
+    th = _math.radians(angle_degrees)
+    c, s = _math.cos(th), _math.sin(th)
+    return np.array([[c, 0.0, s], [0.0, 1.0, 0.0], [-s, 0.0, c]], np.float64)
+
+
+class SceneBuilder:
+    """Host-side scene construction producing flat tables."""
+
+    def __init__(self) -> None:
+        self._textures: List[dict] = []
+        self._materials: List[dict] = []
+        self._roots: List[_Node] = []
+        self._lights: List[_Node] = []
+        self._camera: Optional[Camera] = None
+        self._background = (0.0, 0.0, 0.0)
+        self._root_bvh = False
+        self._bvh_min_prims = 32
+
+    # -- textures ----------------------------------------------------------
+    def solid_color(self, rgb) -> int:
+        self._textures.append({"kind": TEX_SOLID, "rgb": tuple(rgb)})
+        return len(self._textures) - 1
+
+    def checkerboard(self, inv_scale: float, tex_even: int, tex_odd: int) -> int:
+        self._textures.append(
+            {"kind": TEX_CHECKER, "inv_scale": inv_scale,
+             "even": tex_even, "odd": tex_odd}
+        )
+        return len(self._textures) - 1
+
+    def image_texture(self, image: np.ndarray) -> int:
+        raise NotImplementedError(_SLICE_IMAGES)
+
+    # -- materials ----------------------------------------------------------
+    def lambertian(self, texture: int) -> int:
+        self._materials.append({"type": MAT_LAMBERTIAN, "tex": texture})
+        return len(self._materials) - 1
+
+    def isotropic(self, texture: int) -> int:
+        self._materials.append({"type": MAT_ISOTROPIC, "tex": texture})
+        return len(self._materials) - 1
+
+    def metal(self, albedo, fuzz: float) -> int:
+        self._materials.append(
+            {"type": MAT_METAL, "albedo": tuple(albedo), "fuzz": float(fuzz)}
+        )
+        return len(self._materials) - 1
+
+    def dielectric(self, refraction_index: float) -> int:
+        self._materials.append(
+            {"type": MAT_DIELECTRIC, "refract": float(refraction_index)}
+        )
+        return len(self._materials) - 1
+
+    def diffuse_light(self, texture: int) -> int:
+        self._materials.append({"type": MAT_DIFFUSE_LIGHT, "tex": texture})
+        return len(self._materials) - 1
+
+    # -- entities ------------------------------------------------------------
+    def sphere(self, center, radius: float, material: int) -> SphereNode:
+        return SphereNode(np.asarray(center, np.float64), float(radius), material)
+
+    def moving_sphere(self, center0, center1, radius: float, material: int) -> SphereNode:
+        return SphereNode(
+            np.asarray(center0, np.float64), float(radius), material,
+            move_to=np.asarray(center1, np.float64),
+        )
+
+    def quad(self, start, edge_u, edge_v, material: int) -> QuadNode:
+        return QuadNode(
+            np.asarray(start, np.float64),
+            np.asarray(edge_u, np.float64),
+            np.asarray(edge_v, np.float64),
+            material,
+        )
+
+    def box(self, point_a, point_b, material: int) -> ListNode:
+        """Six quads spanning two opposite corners."""
+        a = np.asarray(point_a, np.float64)
+        b = np.asarray(point_b, np.float64)
+        mn, mx = np.minimum(a, b), np.maximum(a, b)
+        d = mx - mn
+        dx = np.array([d[0], 0, 0])
+        dy = np.array([0, d[1], 0])
+        dz = np.array([0, 0, d[2]])
+        faces = [
+            (np.array([mn[0], mn[1], mx[2]]), dx, dy),    # front
+            (np.array([mx[0], mn[1], mx[2]]), -dz, dy),   # right
+            (np.array([mx[0], mn[1], mn[2]]), -dx, dy),   # back
+            (np.array([mn[0], mn[1], mn[2]]), dz, dy),    # left
+            (np.array([mn[0], mx[1], mx[2]]), dx, -dz),   # top
+            (np.array([mn[0], mn[1], mn[2]]), dx, dz),    # bottom
+        ]
+        return ListNode([QuadNode(p, u, v, material) for p, u, v in faces])
+
+    def collection(self, children: Sequence[_Node]) -> ListNode:
+        return ListNode(list(children))
+
+    def translate(self, offset, child: _Node) -> TranslateNode:
+        return TranslateNode(np.asarray(offset, np.float64), child)
+
+    def rotate_y(self, angle_degrees: float, child: _Node) -> RotateYNode:
+        return RotateYNode(float(angle_degrees), child)
+
+    # -- scene assembly -------------------------------------------------------
+    def add(self, node: _Node) -> _Node:
+        self._roots.append(node)
+        return node
+
+    def set_lights(self, lights: Sequence[_Node]) -> None:
+        """Entities to importance-sample; collections expand to leaves."""
+        self._lights = list(lights)
+
+    def set_camera(self, camera: Camera) -> None:
+        self._camera = camera
+
+    def set_background(self, rgb) -> None:
+        self._background = tuple(rgb)
+
+    def use_bvh(self, enable: bool = True, min_prims: int = 32) -> None:
+        """Request a BVH over the flattened primitives; below ``min_prims``
+        primitives none is built and the trace stays brute force."""
+        self._root_bvh = enable
+        self._bvh_min_prims = min_prims
+
+    # -- compile --------------------------------------------------------------
+    def compile(self, name: str = "scene", *, device="cpu") -> Scene:
+        spheres: List[dict] = []
+        quads: List[dict] = []
+        prim_of_node: dict = {}
+
+        def walk(node: _Node, R: np.ndarray, t: np.ndarray, yrot: float):
+            if isinstance(node, SphereNode):
+                c = R @ node.center + t
+                move = (
+                    R @ (node.move_to - node.center)
+                    if node.move_to is not None
+                    else np.zeros(3)
+                )
+                prim_of_node[id(node)] = (PRIM_SPHERE, len(spheres))
+                spheres.append(
+                    {"center": c, "radius": node.radius, "move": move,
+                     "mat": node.material, "yrot": yrot}
+                )
+            elif isinstance(node, QuadNode):
+                prim_of_node[id(node)] = (PRIM_QUAD, len(quads))
+                quads.append(
+                    {"start": R @ node.start + t, "u": R @ node.edge_u,
+                     "v": R @ node.edge_v, "mat": node.material}
+                )
+            elif isinstance(node, ListNode):
+                for ch in node.children:
+                    walk(ch, R, t, yrot)
+            elif isinstance(node, TranslateNode):
+                # a translate nested inside a rotate offsets in the rotated
+                # frame: world = R @ (p + offset)
+                walk(node.child, R, t + R @ node.offset, yrot)
+            elif isinstance(node, RotateYNode):
+                walk(node.child, R @ _rot_y(node.angle_degrees), t,
+                     yrot + node.angle_degrees)
+            else:
+                raise TypeError(f"unknown node type {type(node)}")
+
+        for root in self._roots:
+            walk(root, np.eye(3), np.zeros(3), 0.0)
+
+        light_entries: List[Tuple[int, int]] = []
+
+        def collect_light(node: _Node):
+            if isinstance(node, ListNode):
+                for ch in node.children:
+                    collect_light(ch)
+            elif id(node) not in prim_of_node:
+                raise ValueError("light entity was never added to the scene")
+            else:
+                light_entries.append(prim_of_node[id(node)])
+
+        for ln in self._lights:
+            collect_light(ln)
+
+        build_bvh = (
+            self._root_bvh and (len(spheres) + len(quads)) >= self._bvh_min_prims
+        )
+        if build_bvh:
+            raise NotImplementedError(_SLICE_TREES)
+        compiled = _compile_tables(
+            spheres, quads, self._materials, self._textures,
+            light_entries, self._background, device,
+        )
+        camera = self._camera or Camera(look_from=(0, 0, 9), look_at=(0, 0, 0))
+        return Scene(
+            compiled=compiled, camera=camera,
+            background=self._background, name=name,
+        )
+
+
+def _morton_code(points: np.ndarray) -> np.ndarray:
+    """30-bit 3D Morton codes for an (N, 3) point cloud (normalized to its
+    own bounding box)."""
+    lo = points.min(0)
+    span = np.maximum(points.max(0) - lo, 1e-12)
+    q = np.clip(((points - lo) / span * 1023.0), 0, 1023).astype(np.uint64)
+
+    def spread(v):
+        v = (v | (v << 16)) & np.uint64(0x030000FF)
+        v = (v | (v << 8)) & np.uint64(0x0300F00F)
+        v = (v | (v << 4)) & np.uint64(0x030C30C3)
+        v = (v | (v << 2)) & np.uint64(0x09249249)
+        return v
+
+    return spread(q[:, 0]) | (spread(q[:, 1]) << np.uint64(1)) | (
+        spread(q[:, 2]) << np.uint64(2)
+    )
+
+
+def _morton_sort(prims: list, center_fn):
+    """Primitive tables are stored in Morton order, as the JAX package
+    stores them; returns (sorted_prims, old->new index map)."""
+    if len(prims) < 2:
+        return prims, {i: i for i in range(len(prims))}
+    pts = np.stack([center_fn(p) for p in prims])
+    order = np.argsort(_morton_code(pts), kind="stable")
+    perm = {int(old): new for new, old in enumerate(order)}
+    return [prims[i] for i in order], perm
+
+
+def _round_up(n: int, m: int) -> int:
+    return ((n + m - 1) // m) * m
+
+
+def _shade_block(materials, textures, mat_id: int) -> list:
+    """The 14 shading columns of one material's record (ops/shade.py)."""
+    m = materials[mat_id] if materials else {"type": MAT_LAMBERTIAN}
+    mt = m["type"]
+    tex_kind, img, img2, texid = TEX_SOLID, -1, -1, 0
+    rgb, rgb2 = (0.0, 0.0, 0.0), (0.0, 0.0, 0.0)
+    inv_scale, fz, refract = 0.0, 0.0, 1.0
+    if mt == MAT_METAL:
+        rgb = m.get("albedo", (0, 0, 0))
+        fz = m.get("fuzz", 0.0)
+    elif mt == MAT_DIELECTRIC:
+        refract = m.get("refract", 1.5)
+    else:  # lambertian / isotropic / diffuse-light: texture-driven
+        texid = m.get("tex", 0)
+        t = textures[texid] if textures else {"kind": TEX_SOLID, "rgb": (0, 0, 0)}
+        if t["kind"] == TEX_SOLID:
+            rgb = t["rgb"]
+        else:
+            tex_kind = TEX_CHECKER
+            inv_scale = t["inv_scale"]
+            rgb = textures[t["even"]]["rgb"]
+            rgb2 = textures[t["odd"]]["rgb"]
+    return [float(mt), float(tex_kind), float(img), *map(float, rgb),
+            *map(float, rgb2), float(inv_scale), float(fz),
+            float(refract), float(img2), float(texid)]
+
+
+def _compile_tables(
+    spheres, quads, materials, textures, light_entries, background, device,
+) -> CompiledScene:
+    for t in textures:
+        children = (
+            [textures[t["even"]], textures[t["odd"]]]
+            if t["kind"] == TEX_CHECKER else []
+        )
+        if any(c["kind"] != TEX_SOLID for c in children):
+            raise NotImplementedError(_SLICE_IMAGES)
+
+    spheres, sph_perm = _morton_sort(
+        spheres, lambda s: np.asarray(s["center"], np.float64)
+    )
+    quads, quad_perm = _morton_sort(
+        quads,
+        lambda q: np.asarray(q["start"], np.float64)
+        + 0.5 * (np.asarray(q["u"], np.float64) + np.asarray(q["v"], np.float64)),
+    )
+    lights = tuple(
+        (int(k), int(sph_perm[i] if k == PRIM_SPHERE else quad_perm[i]))
+        for k, i in light_entries
+    )
+
+    n_s, n_q = len(spheres), len(quads)
+    # Tables padded to a multiple of 8 (>= 8) as in the JAX package; dummy
+    # prims are unhittable.
+    s_pad = max(8, _round_up(max(n_s, 1), 8))
+    q_pad = max(8, _round_up(max(n_q, 1), 8))
+
+    sph_center = np.full((s_pad, 3), 1e30, _F)
+    sph_radius = np.zeros((s_pad,), _F)
+    sph_move = np.zeros((s_pad, 3), _F)
+    sph_uv_cos = np.ones((s_pad,), _F)
+    sph_uv_sin = np.zeros((s_pad,), _F)
+    sph_mat = np.zeros((s_pad,), _I)
+    for i, s in enumerate(spheres):
+        sph_center[i] = s["center"]
+        sph_radius[i] = s["radius"]
+        sph_move[i] = s["move"]
+        th = _math.radians(s["yrot"])
+        sph_uv_cos[i] = _math.cos(th)
+        sph_uv_sin[i] = _math.sin(th)
+        sph_mat[i] = s["mat"]
+
+    quad_start = np.zeros((q_pad, 3), _F)
+    quad_u = np.zeros((q_pad, 3), _F)
+    quad_v = np.zeros((q_pad, 3), _F)
+    quad_normal = np.zeros((q_pad, 3), _F)  # zero normal => parallel => miss
+    quad_w = np.zeros((q_pad, 3), _F)
+    quad_offset = np.zeros((q_pad,), _F)
+    quad_area = np.zeros((q_pad,), _F)
+    quad_mat = np.zeros((q_pad,), _I)
+    for i, q in enumerate(quads):
+        n_raw = np.cross(q["u"], q["v"])
+        nn = float(n_raw @ n_raw)
+        n_unit = n_raw / _math.sqrt(nn)
+        quad_start[i] = q["start"]
+        quad_u[i] = q["u"]
+        quad_v[i] = q["v"]
+        quad_normal[i] = n_unit
+        quad_w[i] = n_raw / nn
+        quad_offset[i] = float(n_unit @ q["start"])
+        quad_area[i] = _math.sqrt(nn)
+        quad_mat[i] = q["mat"]
+
+    n_m = max(len(materials), 1)
+    mat_type = np.zeros((n_m,), _I)
+    mat_tex = np.zeros((n_m,), _I)
+    mat_albedo = np.zeros((n_m, 3), _F)
+    mat_fuzz = np.zeros((n_m,), _F)
+    mat_refract = np.ones((n_m,), _F)
+    for i, m in enumerate(materials):
+        mat_type[i] = m["type"]
+        mat_tex[i] = m.get("tex", 0)
+        mat_albedo[i] = m.get("albedo", (0, 0, 0))
+        mat_fuzz[i] = m.get("fuzz", 0.0)
+        mat_refract[i] = m.get("refract", 1.0)
+
+    n_t = max(len(textures), 1)
+    tex_type = np.zeros((n_t,), _I)
+    tex_rgb = np.zeros((n_t, 3), _F)
+    tex_inv_scale = np.zeros((n_t,), _F)
+    tex_even = np.zeros((n_t,), _I)
+    tex_odd = np.zeros((n_t,), _I)
+    for i, t in enumerate(textures):
+        tex_type[i] = t["kind"]
+        if t["kind"] == TEX_SOLID:
+            tex_rgb[i] = t["rgb"]
+        else:
+            tex_inv_scale[i] = t["inv_scale"]
+            tex_even[i] = t["even"]
+            tex_odd[i] = t["odd"]
+
+    from .ops.shade import SHADE_BLOCK, build_shade_rows, dedupe_material_ids
+
+    def shade(prims):
+        if not prims:
+            return np.zeros((0, SHADE_BLOCK), _F)
+        return np.array(
+            [_shade_block(materials, textures, p["mat"]) for p in prims], _F
+        ).reshape(len(prims), SHADE_BLOCK)
+
+    shade_rows = build_shade_rows(
+        {
+            "cx": sph_center[:n_s, 0], "cy": sph_center[:n_s, 1],
+            "cz": sph_center[:n_s, 2],
+            "mx": sph_move[:n_s, 0], "my": sph_move[:n_s, 1],
+            "mz": sph_move[:n_s, 2],
+            "r": sph_radius[:n_s],
+            "uv_cos": sph_uv_cos[:n_s], "uv_sin": sph_uv_sin[:n_s],
+        },
+        {
+            "sx": quad_start[:n_q, 0], "sy": quad_start[:n_q, 1],
+            "sz": quad_start[:n_q, 2],
+            "nx": quad_normal[:n_q, 0], "ny": quad_normal[:n_q, 1],
+            "nz": quad_normal[:n_q, 2],
+            "wx": quad_w[:n_q, 0], "wy": quad_w[:n_q, 1],
+            "wz": quad_w[:n_q, 2],
+            "ux": quad_u[:n_q, 0], "uy": quad_u[:n_q, 1],
+            "uz": quad_u[:n_q, 2],
+            "vx": quad_v[:n_q, 0], "vy": quad_v[:n_q, 1],
+            "vz": quad_v[:n_q, 2],
+        },
+        shade(spheres),
+        shade(quads),
+    )
+    if shade_rows.shape[0] == 0:
+        shade_rows = np.zeros((1, shade_rows.shape[1]), _F)
+    dedupe_material_ids(shade_rows)
+
+    light_params = []
+    for kind, idx in lights:
+        if kind == PRIM_SPHERE:
+            light_params.append((
+                PRIM_SPHERE,
+                (float(sph_center[idx, 0]), float(sph_center[idx, 1]),
+                 float(sph_center[idx, 2]), float(sph_radius[idx])),
+            ))
+        else:
+            light_params.append((
+                PRIM_QUAD,
+                tuple(float(v) for v in (
+                    *quad_start[idx], *quad_u[idx], *quad_v[idx],
+                    *quad_normal[idx], *quad_w[idx],
+                    quad_offset[idx], quad_area[idx],
+                )),
+            ))
+
+    bg = np.asarray(background, _F)
+    fields = {
+        "sph_center": sph_center.T, "sph_radius": sph_radius,
+        "sph_move": sph_move.T, "sph_uv_cos": sph_uv_cos,
+        "sph_uv_sin": sph_uv_sin, "sph_mat": sph_mat,
+        "quad_start": quad_start.T, "quad_u": quad_u.T, "quad_v": quad_v.T,
+        "quad_normal": quad_normal.T, "quad_w": quad_w.T,
+        "quad_offset": quad_offset, "quad_area": quad_area,
+        "quad_mat": quad_mat,
+        "mat_type": mat_type, "mat_tex": mat_tex, "mat_albedo": mat_albedo.T,
+        "mat_fuzz": mat_fuzz, "mat_refract": mat_refract,
+        "tex_type": tex_type, "tex_rgb": tex_rgb.T,
+        "tex_inv_scale": tex_inv_scale, "tex_even": tex_even,
+        "tex_odd": tex_odd,
+        "background": bg, "shade_rows": shade_rows,
+    }
+    static = {
+        "n_spheres": n_s,
+        "n_quads": n_q,
+        "n_materials": len(materials),
+        "n_textures": len(textures),
+        "has_moving": any(np.any(s["move"] != 0) for s in spheres),
+        "needs_gauss": any(
+            m["type"] == MAT_ISOTROPIC
+            or (m["type"] == MAT_METAL and float(m.get("fuzz", 0.0)) > 0.0)
+            for m in materials
+        ),
+        "lights": lights,
+        "light_params": tuple(light_params),
+        "background_rgb": tuple(float(v) for v in background),
+    }
+    return compiled_from_arrays(fields, static, device)
