@@ -259,11 +259,16 @@ def test_kernel_tables_and_params(cornell):
     cam = tcam.camera_consts(st.camera, 400, 400)
     ints, floats = fused_render._params(
         cs, 0, zt.dtypes.T_MIN, cam, zt.sampling.SamplerKind.SOBOL, 400, 400,
-        1024, 1, 10,
+        1024, 1, 10, False,
     )
     assert ints.dtype == np.int32 and floats.dtype == np.float32
-    assert list(ints[:14]) == [400, 400, 1024, 1, 10, 2, 9, 32, 0, 1, 12, 13, 2, 0]
-    assert len(ints) == 14 + fused_render.MAX_LIGHTS
-    assert len(floats) == 17 + fused_render.MAX_LIGHTS * fused_render.LIGHT_FLOATS
+    assert list(ints[:15]) == [400, 400, 1024, 1, 10, 2, 9, 32, 0, 1, 12, 13, 2, 0, 0]
+    assert len(ints) == 15 + fused_render.MAX_LIGHTS
+    assert len(floats) == 23 + fused_render.MAX_LIGHTS * fused_render.LIGHT_FLOATS
+    # brute spheres and quads: two row tables, no tree tables
+    t_ints, t_ptrs, tables = fused_render.trace_args(cs)
+    assert list(t_ints) == [fused_render.TRACE_BRUTE, 1, 0, 0, fused_render.TRACE_BRUTE, 12, 0, 0, 0]
+    assert t_ptrs.dtype == np.uint64 and list(t_ptrs[[1, 2, 3, 5, 6, 7]]) == [0] * 6
+    assert [tuple(t.shape) for t in tables] == [(1, 8), (12, 16)]
     tab = fused_render.sobol_table(torch.device("cpu"), 9)
     assert tab.shape == (5 * 52,) and tab.dtype == torch.int32

@@ -29,7 +29,7 @@ from zig_weekend_raytracer_tpu_torch.geometry import sphere as tsph
 from zig_weekend_raytracer_tpu_torch.math.v3 import V3 as TV3
 from zig_weekend_raytracer_tpu_torch.ops import shade as tshade
 from zig_weekend_raytracer_tpu_torch.ops.trace import Hit as THit
-from zig_weekend_raytracer_tpu_torch.ops.trace import closest_hit_brute
+from zig_weekend_raytracer_tpu_torch.ops.trace import closest_hit
 from zig_weekend_raytracer_tpu_torch.render import camera as tcam
 from zig_weekend_raytracer_tpu_torch.render import pdfs as tpdfs
 
@@ -99,7 +99,7 @@ def test_closest_hit_brute(cornell):
     rng, (oj, ot), (dj, dt) = _rays(2)
     time = rng.uniform(0, 1, N).astype(np.float32)
     hj = _closest_hit_brute(sj.compiled, oj, dj, jnp.asarray(time), np.float32(1e-3), jnp.inf)
-    ht = closest_hit_brute(st.compiled, ot, dt, torch.from_numpy(time), 1e-3, float("inf"))
+    ht = closest_hit(st.compiled, ot, dt, torch.from_numpy(time), 1e-3, float("inf"))
     tj, tt = np.asarray(hj.t), ht.t.numpy()
     np.testing.assert_array_equal(np.isfinite(tj), np.isfinite(tt))
     fin = np.isfinite(tj)

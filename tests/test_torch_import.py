@@ -3,7 +3,8 @@
 A subprocess installs a meta-path hook that refuses ``jax``, ``jaxlib`` and
 ``zig_weekend_raytracer_tpu`` before anything is imported, then imports
 ``zig_weekend_raytracer_tpu_torch``, every module in it, and
-``chip_smoke``."""
+``chip_smoke``.  The modules of the tree-scene slice are named, so that
+the walk cannot miss them."""
 
 import os
 import subprocess
@@ -34,6 +35,9 @@ _SCRIPT = textwrap.dedent(
     for mod in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + "."):
         importlib.import_module(mod.name)
         names.append(mod.name)
+    for name in ("math.aabb", "math.interval", "geometry.bvh", "ops.closest_hit",
+                 "ops.trace", "models.balls", "render.renderer"):
+        assert pkg.__name__ + "." + name in names, name
     import chip_smoke
     leaked = [m for m in sys.modules if m.split(".")[0] in BLOCKED]
     assert not leaked, leaked
@@ -51,4 +55,4 @@ def test_port_imports_with_jax_blocked():
     )
     assert proc.returncode == 0, proc.stderr
     # the package, its subpackages and every module in them
-    assert int(proc.stdout.strip().splitlines()[-1]) >= 25, proc.stdout
+    assert int(proc.stdout.strip().splitlines()[-1]) >= 30, proc.stdout

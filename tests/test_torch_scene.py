@@ -2,7 +2,8 @@
 
 Both builds are host numpy, so every table must be equal exactly, field by
 field; ``compiled_from_arrays`` of the JAX scene's tables must give the same
-scene.  Features of later slices raise NotImplementedError."""
+scene.  Features of later slices raise NotImplementedError.  Group trees
+are held to JAX's in test_torch_bvh.py."""
 
 import numpy as np
 import pytest
@@ -61,18 +62,22 @@ def test_compiled_from_arrays_refuses_later_slices(cornell_j):
     cs = cornell_j.compiled
     fields = {f: np.asarray(getattr(cs, f)) for f in ARRAY_FIELDS}
     static = {f: getattr(cs, f) for f in STATIC_FIELDS}
-    for flag in ("has_bvh", "has_sph_tree", "has_image_textures", "has_nested_checker"):
+    for flag in ("has_uni_tree", "has_image_textures", "has_nested_checker"):
         with pytest.raises(NotImplementedError, match="slice"):
             compiled_from_arrays(fields, {**static, flag: True}, "cpu")
+    # the binary BVH flag is accepted: the port walks the group trees
+    assert not compiled_from_arrays(fields, {**static, "has_bvh": True}, "cpu").has_sph_tree
 
 
-@pytest.mark.parametrize("name", ["emissive", "balls", "earth", "shrek_quads", "rtw_final"])
+@pytest.mark.parametrize("name", ["emissive", "earth", "shrek_quads", "rtw_final"])
 def test_later_scenes_raise(name):
     with pytest.raises(NotImplementedError, match="slice"):
         zt.models.load_scene(name)
 
 
-def test_builder_refuses_images_and_trees():
+def test_builder_refuses_images_and_trees(monkeypatch):
+    """Images raise; use_bvh builds group trees from TREE_MIN_PRIMS
+    primitives of a kind on, and the unified tree (K4) raises."""
     b = SceneBuilder()
     with pytest.raises(NotImplementedError, match="slice 4"):
         b.image_texture(np.zeros((2, 2, 3), np.uint8))
@@ -80,7 +85,16 @@ def test_builder_refuses_images_and_trees():
     for i in range(40):
         b.add(b.sphere((i, 0, 0), 0.4, m))
     b.use_bvh(True)
-    with pytest.raises(NotImplementedError, match="slice 3"):
+    assert not b.compile().compiled.has_sph_tree  # 40 < TREE_MIN_PRIMS
+    for i in range(40):
+        b.add(b.sphere((i, 2, 0), 0.4, m))
+        b.add(b.quad((i, 4, 0), (0.5, 0, 0), (0, 0.5, 0), m))
+    cs = b.compile().compiled
+    assert cs.has_sph_tree and not cs.has_quad_tree and cs.n_quads == 40
+    for i in range(40):
+        b.add(b.quad((i, 6, 0), (0.5, 0, 0), (0, 0.5, 0), m))
+    monkeypatch.setenv("ZWRT_UNI_TREE", "1")
+    with pytest.raises(NotImplementedError, match="K4"):
         b.compile()
 
 

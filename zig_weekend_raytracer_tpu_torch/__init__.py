@@ -3,14 +3,15 @@ CUDA for one NVIDIA H100.
 
 The JAX package ``zig_weekend_raytracer_tpu`` is the reference; this
 package mirrors its layout (math/, sampling/, geometry/, render/, ops/,
-io/, utils/, models/) and never imports it or JAX.  The main path renders
-through one hand-written CUDA kernel (``csrc/fused_render.cu``); on CPU
-tensors the same entry points run its plain PyTorch version.
+io/, utils/, models/) and never imports it or JAX.  Renders go through
+hand-written CUDA kernels: ``csrc/fused_render.cu`` (the whole render) and
+``csrc/closest_hit.cu`` (the first-hit probe of tree scenes); on CPU
+tensors the same entry points run their plain PyTorch versions.
 
 Typical usage:
 
     import zig_weekend_raytracer_tpu_torch as zwrt_torch
-    scene = zwrt_torch.models.load_scene("cornell_box", device="cuda")
+    scene = zwrt_torch.models.load_scene("balls", device="cuda")
     img = zwrt_torch.render.Renderer(samples_per_pixel=128).render(scene, 400, 400)
     zwrt_torch.io.write_ppm("out.ppm", img)
 """

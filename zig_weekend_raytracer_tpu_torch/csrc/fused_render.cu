@@ -1,8 +1,11 @@
-// fused_render_kernel: the whole regenerating path-tracing render of a
-// brute-trace scene, one thread per lane.
+// fused_render_kernel: the whole regenerating path-tracing render, one
+// thread per lane, for brute-trace and group-tree scenes, with depth of
+// field in the camera.
 //
 // Replaces the TPU kernel zig_weekend_raytracer_tpu/ops/pallas_bounce.py:
-// _fused_render_kernel (driven by render_fused).  Its plain PyTorch version
+// _fused_render_kernel (driven by render_fused), including its per-kind
+// trace modes (_scene_trace_inputs: brute, tree or none) and its tree walk
+// (_tree_pass, _leaf_visit, _node_slab_test).  Its plain PyTorch version
 // is render/integrator.py:render_fused_reference, which this kernel follows
 // bounce for bounce.
 //
@@ -11,17 +14,25 @@
 // light PDF) and warp divergence, since each lane's path has its own length
 // and material sequence.  A lane's live state is about 20 values held in
 // registers and it touches device memory only for 16 input bytes, its
-// 12-16 output bytes and the small scene tables, which stay in L1; device
-// bandwidth does not bound it.
+// 12-16 output bytes and the scene tables (balls: 512 leaf slots of 32
+// bytes), which stay in L1; device bandwidth does not bound it.
+//
+// The trace is trace_closest (zwrt_device.cuh), shared with
+// closest_hit_kernel: each thread walks the group tree alone, where the TPU
+// kernel walked an (8, 128) tile in lockstep over the union of its rays'
+// nodes.
 //
 // What the design does about that: each thread loops on its own until its
 // sample window [s0, s1) is used up, respawning its pixel's next sample as
 // soon as a path ends, so a lane never idles waiting for a tile as the TPU
 // kernel's (8, 128) tiles do; the caller orders lanes by their measured cost
 // (renderer's sorted plan) so the threads of a warp run similar path
-// counts.  Scene tables are read with uniform addresses across the warp
-// (broadcast loads); the shade record is one indexed row read.  No
-// shared-memory staging, persistent blocks or work queues yet.
+// counts, or for tree scenes by their first hit (coherent plan) so the
+// threads of a warp walk the same nodes.  Scene tables are read with
+// uniform addresses across the warp wherever its threads agree (brute
+// scans, a leaf they all visit: broadcast loads); the shade record is one
+// indexed row read.  No shared-memory staging of leaves, packets,
+// persistent blocks or work queues yet.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -31,9 +42,9 @@
 namespace zwrt {
 
 __global__ void __launch_bounds__(128) fused_render_kernel(
-    const __grid_constant__ Params p, const int* __restrict__ lane_px, const int* __restrict__ lane_py,
-    const int* __restrict__ lane_s0, const int* __restrict__ lane_s1,
-    const float* __restrict__ sph_tab, const float* __restrict__ quad_tab,
+    const __grid_constant__ Params p, const int* __restrict__ lane_px,
+    const int* __restrict__ lane_py, const int* __restrict__ lane_s0,
+    const int* __restrict__ lane_s1, const __grid_constant__ TraceScene scene,
     const float* __restrict__ shade_rows, const uint32_t* __restrict__ sobol,
     float* __restrict__ out_rad, int* __restrict__ out_work, int n) {
   int i = blockIdx.x * blockDim.x + threadIdx.x;
@@ -61,32 +72,10 @@ __global__ void __launch_bounds__(128) fused_render_kernel(
     }
     work += 1;
 
-    // ---- closest hit: spheres, then quads; strictly closer replaces ----
-    float best = INFINITY;
-    int kind = -1, idx = 0;
-    const float a = dot(d, d);
-    const float inv_a = 1.0f / a;
-    for (int s = 0; s < p.n_sph; ++s) {
-      const float* r = sph_tab + s * kSphereCols;
-      V3 center = mk(r[0], r[1], r[2]) + mk(r[4], r[5], r[6]) * time;
-      float t;
-      if (sphere_hit(center, r[3], o, d, a, inv_a, p.t_min, best, &t) && t < best) {
-        best = t;
-        kind = kSphere;
-        idx = s;
-      }
-    }
-    for (int q = 0; q < p.n_quad; ++q) {
-      const float* r = quad_tab + q * kQuadCols;
-      float t;
-      if (quad_hit(mk(r[0], r[1], r[2]), mk(r[3], r[4], r[5]), mk(r[6], r[7], r[8]),
-                   mk(r[9], r[10], r[11]), r[12], o, d, p.t_min, best, &t) &&
-          t < best) {
-        best = t;
-        kind = kQuad;
-        idx = q;
-      }
-    }
+    // ---- closest hit: sphere stage, then quad stage ----
+    float best;
+    int kind, idx;
+    trace_closest(scene, o, d, time, p.t_min, kBig, &best, &kind, &idx);
 
     bool survives = false;
     if (kind < 0) {
@@ -191,14 +180,15 @@ __global__ void __launch_bounds__(128) fused_render_kernel(
 
 }  // namespace zwrt
 
-// Host launcher with a plain C interface (loaded with ctypes).  ``iparams``
-// and ``fparams`` are host arrays in the order ops/fused_render.py packs
-// them.  Launches on ``stream`` and returns the launch's cudaError_t.
+// Host launcher with a plain C interface (loaded with ctypes).  ``iparams``,
+// ``fparams``, ``trace_ints`` and ``trace_ptrs`` are host arrays in the
+// order ops/fused_render.py packs them.  Launches on ``stream`` and returns
+// the launch's cudaError_t.
 extern "C" int zwrt_fused_render(
-    const int* iparams, const float* fparams, const int* px, const int* py,
-    const int* s0, const int* s1, const float* sph_tab, const float* quad_tab,
-    const float* shade_rows, const uint32_t* sobol, float* out_rad, int* out_work,
-    int n, void* stream) {
+    const int* iparams, const float* fparams, const int* trace_ints,
+    const void* const* trace_ptrs, const int* px, const int* py, const int* s0,
+    const int* s1, const float* shade_rows, const uint32_t* sobol, float* out_rad,
+    int* out_work, int n, void* stream) {
   using namespace zwrt;
   Params p;
   int k = 0;
@@ -216,6 +206,7 @@ extern "C" int zwrt_fused_render(
   p.n_rows = iparams[k++];
   p.n_lights = iparams[k++];
   p.needs_gauss = iparams[k++];
+  p.has_dof = iparams[k++];
   for (int l = 0; l < kMaxLights; ++l) p.light_kind[l] = iparams[k++];
   int f = 0;
   p.t_min = fparams[f++];
@@ -224,6 +215,8 @@ extern "C" int zwrt_fused_render(
   for (int c = 0; c < 3; ++c) p.pixel00[c] = fparams[f++];
   for (int c = 0; c < 3; ++c) p.du[c] = fparams[f++];
   for (int c = 0; c < 3; ++c) p.dv[c] = fparams[f++];
+  for (int c = 0; c < 3; ++c) p.defocus_u[c] = fparams[f++];
+  for (int c = 0; c < 3; ++c) p.defocus_v[c] = fparams[f++];
   for (int c = 0; c < 3; ++c) p.bg[c] = fparams[f++];
   for (int l = 0; l < kMaxLights; ++l)
     for (int c = 0; c < kLightFloats; ++c) p.light[l][c] = fparams[f++];
@@ -231,7 +224,8 @@ extern "C" int zwrt_fused_render(
   if (n <= 0) return 0;
   const int threads = 128;
   const int blocks = (n + threads - 1) / threads;
+  TraceScene scene = read_trace_scene(trace_ints, trace_ptrs);
   fused_render_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(
-      p, px, py, s0, s1, sph_tab, quad_tab, shade_rows, sobol, out_rad, out_work, n);
+      p, px, py, s0, s1, scene, shade_rows, sobol, out_rad, out_work, n);
   return (int)cudaGetLastError();
 }

@@ -1,12 +1,16 @@
 // Device functions of the path tracer, shared by the CUDA kernels of
-// zig_weekend_raytracer_tpu_torch: PCG4D, Sobol, camera rays, sphere and
-// quad hits, shade-record reads, the five materials and the light-list PDF.
+// zig_weekend_raytracer_tpu_torch: PCG4D, Sobol, camera rays with the
+// defocus disk, sphere and quad hits, the closest-hit stages (brute scan,
+// slab test, leaf sweep, skip-link tree walk), shade-record reads, the five
+// materials and the light-list PDF.  fused_render.cu and closest_hit.cu
+// both trace through trace_closest below.
 //
 // Every function follows the plain PyTorch version in the package
 // (sampling/, geometry/, render/, ops/) operation for operation, so that a
 // build with -fmad=false rounds as the unfused torch ops do: sums are
 // evaluated left to right, x ** 5 is x * (x^2)^2, clamps pass NaN through as
-// torch.clamp does.  Integer streams (PCG4D, Sobol, ray ids) are bitwise the
+// torch.clamp does, and the slab test's min/max propagate NaN as
+// torch.minimum/maximum do (fminf/fmaxf would drop it).  Integer streams (PCG4D, Sobol, ray ids) are bitwise the
 // JAX package's.
 #pragma once
 
@@ -52,7 +56,16 @@ constexpr int kColRefract = 27;
 
 constexpr int kBounceBase = 8;
 constexpr int kSitesPerBounce = 4;
+constexpr int kSiteDof = 1;
 constexpr int kSiteTime = 2;
+
+// Closest-hit stages (ops/trace.py): the running best t before any hit,
+// the identity sentinel of a leaf sweep, the slab test's 4-ULP slack.
+constexpr float kBig = 3.0e38f;
+constexpr int kBigIdx = 1 << 30;
+constexpr float kAabbMaxMult = 1.00000024f;
+constexpr int kGroup = 8;  // slots per leaf group (the JAX kernels' sublanes)
+enum TraceMode { kTraceNone = 0, kTraceBrute = 1, kTraceTree = 2 };
 
 constexpr float kTwoPi = 6.283185307179586f;
 constexpr float kInvPi = 0.3183098861837907f;
@@ -66,9 +79,9 @@ struct Params {
   int width, height, spp, stride, max_depth;
   int sampler, log2_scale, strat_sqrt;
   uint32_t seed;
-  int n_sph, n_quad, n_rows, n_lights, needs_gauss;
+  int n_sph, n_quad, n_rows, n_lights, needs_gauss, has_dof;
   float t_min, strat_recip;
-  float cam_pos[3], pixel00[3], du[3], dv[3], bg[3];
+  float cam_pos[3], pixel00[3], du[3], dv[3], defocus_u[3], defocus_v[3], bg[3];
   int light_kind[kMaxLights];
   float light[kMaxLights][kLightFloats];
 };
@@ -171,6 +184,15 @@ __device__ __forceinline__ V3 gauss3(uint32_t seed, uint32_t ray_id, uint32_t st
   return mk(r1 * cosf(kTwoPi * u.y), r1 * sinf(kTwoPi * u.y), r2 * cosf(kTwoPi * u.w));
 }
 
+// Two standard normals (hashrng.gauss2).
+__device__ __forceinline__ void gauss2(uint32_t seed, uint32_t ray_id, uint32_t stream, float* gx,
+                                       float* gy) {
+  F4 u = uniform4(seed, ray_id, stream);
+  float r = sqrtf(-2.0f * logf(clamp_min(u.x, 1e-10f)));
+  *gx = r * cosf(kTwoPi * u.y);
+  *gy = r * sinf(kTwoPi * u.y);
+}
+
 __device__ __forceinline__ V3 unit_sphere(V3 g) {
   float norm = sqrtf(clamp_min(dot(g, g), 1e-24f));
   return g * (1.0f / norm);
@@ -250,6 +272,17 @@ __device__ __forceinline__ float generate_ray(
   sample_pos.y = p.pixel00[1] + p.du[1] * (pxf + ox) + p.dv[1] * (pyf + oy);
   sample_pos.z = p.pixel00[2] + p.du[2] * (pxf + ox) + p.dv[2] * (pyf + oy);
   *origin = mk(p.cam_pos[0], p.cam_pos[1], p.cam_pos[2]);
+  if (p.has_dof) {
+    // defocus disk (render/camera.py, hashrng.unit_disk_xy)
+    float ud = uniform4(p.seed, rid, (uint32_t)kSiteDof).x;
+    float gx, gy;
+    gauss2(p.seed, rid, (uint32_t)(kSiteDof + 4), &gx, &gy);
+    float norm = sqrtf(clamp_min(gx * gx + gy * gy, 1e-24f));
+    float dx = ud * gx / norm, dy = ud * gy / norm;
+    V3 du = mk(p.defocus_u[0], p.defocus_u[1], p.defocus_u[2]);
+    V3 dv = mk(p.defocus_v[0], p.defocus_v[1], p.defocus_v[2]);
+    *origin = *origin + du * dx + dv * dy;
+  }
   *direction = sample_pos - *origin;
   return uniform4(p.seed, rid, (uint32_t)kSiteTime).x;
 }
@@ -290,6 +323,181 @@ __device__ __forceinline__ bool quad_hit(
   bool interior = (alpha >= 0.0f) && (alpha <= 1.0f) && (beta >= 0.0f) && (beta <= 1.0f);
   *t_out = t;
   return not_parallel && in_range && interior;
+}
+
+// ---------------------------------------------------------------------------
+// Closest hit (ops/trace.py:closest_hit): a sphere stage, then a quad stage
+// seeded with it, each brute or a group-tree walk
+// ---------------------------------------------------------------------------
+
+// torch.minimum / torch.maximum: NaN in either operand gives NaN.
+__device__ __forceinline__ float nan_min(float a, float b) { return (a < b || a != a) ? a : b; }
+__device__ __forceinline__ float nan_max(float a, float b) { return (a > b || a != a) ? a : b; }
+
+// One kind's tables.  Brute: ``tab`` has one row per primitive.  Tree:
+// ``box`` (n_nodes, 6) [min xyz, max xyz], ``link`` (n_nodes, 2) [miss
+// link, first leaf group or -1], ``tab`` one row per leaf slot and ``oi``
+// each slot's original index.  Rows: spheres kSphereCols, quads kQuadCols.
+struct KindTables {
+  int mode, n_prims, n_nodes, span;
+  const float* tab;
+  const float* box;
+  const int* link;
+  const int* oi;
+};
+
+struct TraceScene {
+  KindTables sph, quad;
+  int has_moving;
+};
+
+// Robust slab test (math/aabb.py:aabb_hit) against the running best t.
+__device__ __forceinline__ bool slab_hit(const float* b, V3 o, V3 inv_d, float t_min, float t) {
+  float tx0 = (b[0] - o.x) * inv_d.x;
+  float tx1 = (b[3] - o.x) * inv_d.x;
+  float ty0 = (b[1] - o.y) * inv_d.y;
+  float ty1 = (b[4] - o.y) * inv_d.y;
+  float tz0 = (b[2] - o.z) * inv_d.z;
+  float tz1 = (b[5] - o.z) * inv_d.z;
+  float near = nan_max(nan_max(nan_min(tx0, tx1), nan_min(ty0, ty1)),
+                       nan_max(nan_min(tz0, tz1), t_min));
+  float far = nan_min(nan_min(nan_max(tx0, tx1), nan_max(ty0, ty1)),
+                      nan_min(nan_max(tz0, tz1), t)) * kAabbMaxMult;
+  return far > near;
+}
+
+// A ray with its derived values.
+struct Ray {
+  V3 o, d, inv_d;
+  float a, inv_a, t_min, time;
+};
+
+// Hit distance of one table row strictly below ``t_max``; false on a miss.
+template <int KIND>
+__device__ __forceinline__ bool row_hit(const float* r, const Ray& ray, bool moving, float t_max,
+                                        float* t) {
+  if (KIND == kSphere) {
+    V3 center = mk(r[0], r[1], r[2]);
+    if (moving) center = center + mk(r[4], r[5], r[6]) * ray.time;
+    return sphere_hit(center, r[3], ray.o, ray.d, ray.a, ray.inv_a, ray.t_min, t_max, t);
+  }
+  return quad_hit(mk(r[0], r[1], r[2]), mk(r[3], r[4], r[5]), mk(r[6], r[7], r[8]),
+                  mk(r[9], r[10], r[11]), r[12], ray.o, ray.d, ray.t_min, t_max, t) &&
+         *t < t_max;
+}
+
+// Brute stage: every primitive in index order, a strictly smaller t wins.
+template <int KIND>
+__device__ __forceinline__ void brute_stage(const KindTables& k, const Ray& ray, bool moving,
+                                            float* best, int* kind, int* idx) {
+  constexpr int cols = KIND == kSphere ? kSphereCols : kQuadCols;
+  for (int i = 0; i < k.n_prims; ++i) {
+    float t;
+    if (row_hit<KIND>(k.tab + (size_t)i * cols, ray, moving, *best, &t)) {
+      *best = t;
+      *kind = KIND;
+      *idx = i;
+    }
+  }
+}
+
+// Leaf sweep: the ``span`` groups of 8 slots from ``group0``.  Each slot
+// column keeps its first strictly-closer slot; the leaf's hit is the
+// smallest original index among the columns at the leaf's best t, and it
+// replaces the running best only when strictly closer.
+template <int KIND>
+__device__ __forceinline__ void leaf_sweep(const KindTables& k, int group0, const Ray& ray,
+                                           bool moving, float* best, int* kind, int* idx) {
+  constexpr int cols = KIND == kSphere ? kSphereCols : kQuadCols;
+  float t8[kGroup];
+  int i8[kGroup];
+#pragma unroll
+  for (int s = 0; s < kGroup; ++s) {
+    t8[s] = kBig;
+    i8[s] = kBigIdx;
+  }
+  for (int g = 0; g < k.span; ++g) {
+    const int slot0 = (group0 + g) * kGroup;
+#pragma unroll
+    for (int s = 0; s < kGroup; ++s) {
+      float t;
+      if (row_hit<KIND>(k.tab + (size_t)(slot0 + s) * cols, ray, moving, t8[s], &t)) {
+        t8[s] = t;
+        i8[s] = k.oi[slot0 + s];
+      }
+    }
+  }
+  float t_row = t8[0];
+#pragma unroll
+  for (int s = 1; s < kGroup; ++s) t_row = t8[s] < t_row ? t8[s] : t_row;
+  int i_row = kBigIdx;
+#pragma unroll
+  for (int s = 0; s < kGroup; ++s)
+    if (t8[s] <= t_row && i8[s] < i_row) i_row = i8[s];
+  if (t_row < *best) {
+    *best = t_row;
+    *kind = KIND;
+    *idx = i_row;
+  }
+}
+
+// Skip-link walk of one kind's group tree by this thread alone: a hit
+// leaf is swept, a hit interior node descends to node + 1, anything else
+// jumps to the miss link.
+template <int KIND>
+__device__ __forceinline__ void tree_walk(const KindTables& k, const Ray& ray, bool moving,
+                                          float* best, int* kind, int* idx) {
+  int node = 0;
+  while (node < k.n_nodes) {
+    bool hit = slab_hit(k.box + (size_t)node * 6, ray.o, ray.inv_d, ray.t_min, *best);
+    int miss = k.link[2 * node], leaf = k.link[2 * node + 1];
+    if (hit && leaf >= 0) leaf_sweep<KIND>(k, leaf, ray, moving, best, kind, idx);
+    node = (hit && leaf < 0) ? node + 1 : miss;
+  }
+}
+
+// The closest hit of one ray below ``t_start``; kind -1 on a miss, with
+// *best then still t_start.
+__device__ __forceinline__ void trace_closest(const TraceScene& s, V3 o, V3 d, float time,
+                                              float t_min, float t_start, float* best,
+                                              int* kind, int* idx) {
+  Ray ray;
+  ray.o = o;
+  ray.d = d;
+  ray.inv_d = mk(1.0f / d.x, 1.0f / d.y, 1.0f / d.z);
+  ray.a = dot(d, d);
+  ray.inv_a = 1.0f / ray.a;
+  ray.t_min = t_min;
+  ray.time = time;
+  *best = t_start;
+  *kind = -1;
+  *idx = 0;
+  const bool moving = s.has_moving != 0;
+  if (s.sph.mode == kTraceBrute) brute_stage<kSphere>(s.sph, ray, moving, best, kind, idx);
+  else if (s.sph.mode == kTraceTree) tree_walk<kSphere>(s.sph, ray, moving, best, kind, idx);
+  if (s.quad.mode == kTraceBrute) brute_stage<kQuad>(s.quad, ray, false, best, kind, idx);
+  else if (s.quad.mode == kTraceTree) tree_walk<kQuad>(s.quad, ray, false, best, kind, idx);
+}
+
+// Host side: the TraceScene from the ints and pointers the wrappers pack
+// (ops/fused_render.py:trace_args): per kind mode, n_prims, n_nodes,
+// span, then has_moving; per kind tab, box, link, oi.
+inline TraceScene read_trace_scene(const int* ints, const void* const* ptrs) {
+  TraceScene s;
+  KindTables* kinds[2] = {&s.sph, &s.quad};
+  for (int j = 0; j < 2; ++j) {
+    KindTables* k = kinds[j];
+    k->mode = ints[4 * j];
+    k->n_prims = ints[4 * j + 1];
+    k->n_nodes = ints[4 * j + 2];
+    k->span = ints[4 * j + 3];
+    k->tab = static_cast<const float*>(ptrs[4 * j]);
+    k->box = static_cast<const float*>(ptrs[4 * j + 1]);
+    k->link = static_cast<const int*>(ptrs[4 * j + 2]);
+    k->oi = static_cast<const int*>(ptrs[4 * j + 3]);
+  }
+  s.has_moving = ints[8];
+  return s;
 }
 
 // ---------------------------------------------------------------------------

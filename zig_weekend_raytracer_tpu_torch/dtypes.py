@@ -14,8 +14,17 @@ import torch
 real = torch.float32
 real_np = np.float32
 
+# 4-ULP MaxMult robustness factor for the f32 AABB slab test.
+AABB_MAX_MULT = float(np.float32(1.00000024))
+
 # t_min used when tracing bounce rays (shadow-acne epsilon).
 T_MIN = float(np.float32(1e-3))
+
+# Running best t of the closest-hit stages before any hit (finite, so the
+# slab test's far clip stays finite) and the identity sentinel of a leaf
+# sweep; a stage that found nothing reports INF.
+BIG = float(np.float32(3.0e38))
+BIG_IDX = 2**30
 
 # t_min used inside light-PDF evaluation re-traces.
 T_MIN_PDF = float(np.float32(1e-3))

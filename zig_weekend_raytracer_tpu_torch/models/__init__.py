@@ -1,18 +1,20 @@
-"""The scene library.  This slice ports ``cornell_box``; the other scenes
-of the JAX package follow in later slices (ROADMAP.md)."""
+"""The scene library.  The port has ``cornell_box`` and ``balls``; the
+other scenes of the JAX package follow in later slices (ROADMAP.md)."""
 
 from __future__ import annotations
 
 from typing import Callable, Dict
 
 from ..scene import Scene
+from .balls import load_scene_balls
 from .cornell_box import load_scene_cornell_box
 
 SCENE_BUILDERS: Dict[str, Callable[..., Scene]] = {
     "cornell_box": load_scene_cornell_box,
+    "balls": load_scene_balls,
 }
 _LATER_SLICES = {
-    "emissive": 2, "balls": 3, "earth": 4, "shrek_quads": 4, "rtw_final": 4,
+    "emissive": 2, "earth": 4, "shrek_quads": 4, "rtw_final": 4,
 }
 
 

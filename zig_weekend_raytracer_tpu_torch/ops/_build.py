@@ -1,6 +1,7 @@
 """Build and load the package's CUDA kernels.
 
-``nvcc`` compiles every ``csrc/*.cu`` into one shared library with a plain
+``nvcc`` compiles every ``csrc/*.cu`` to an object, one process per source,
+all started together, then links them into one shared library with a plain
 C interface (no PyTorch headers, so a build takes seconds), which is loaded
 with ``ctypes``.  The build runs at first use, writes into ``build/`` inside
 the package, and is redone when a source or the flags change: the library's
@@ -25,7 +26,7 @@ BUILD_DIR = os.path.join(PKG_DIR, "build")
 
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-fmad=false", "-Xptxas", "-v", "-shared", "-Xcompiler", "-fPIC",
+    "-fmad=false", "-Xptxas", "-v", "-Xcompiler", "-fPIC",
 )
 
 
@@ -74,15 +75,34 @@ def build() -> dict:
     nvcc = find_nvcc()
     os.makedirs(BUILD_DIR, exist_ok=True)
     tmp = f"{lib}.{os.getpid()}.tmp"
-    cmd = [nvcc, *NVCC_FLAGS, "-I", CSRC_DIR, "-o", tmp, *_sources()]
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
+    objs, procs = [], []
+    for src in _sources():
+        obj = f"{tmp}.{os.path.basename(src)}.o"
+        cmd = [nvcc, *NVCC_FLAGS, "-I", CSRC_DIR, "-c", "-o", obj, src]
+        objs.append(obj)
+        procs.append((cmd, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
+        )))
+    log = ""
+    failed = []
+    for cmd, proc in procs:
+        out, _ = proc.communicate()
+        log += out
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}")
+    if not failed:
+        cmd = [nvcc, *NVCC_FLAGS[:2], "-shared", "-o", tmp, *objs]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        log += proc.stdout + proc.stderr
+        if proc.returncode != 0:
+            failed.append(f"nvcc link failed ({proc.returncode}): {' '.join(cmd)}")
+    for obj in objs:
+        if os.path.exists(obj):
+            os.remove(obj)
     seconds = time.perf_counter() - t0
-    log = proc.stdout + proc.stderr
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{log}"
-        )
+    if failed:
+        raise RuntimeError("\n".join(failed) + "\n" + log)
     with open(log_path, "w") as f:
         f.write(log)
     os.replace(tmp, lib)
@@ -94,8 +114,9 @@ def load_library() -> ctypes.CDLL:
     """Build (if needed) and load the kernel library, with ``argtypes`` and
     ``restype`` declared for every launcher."""
     lib = ctypes.CDLL(build()["path"])
-    p, i = ctypes.c_void_p, ctypes.c_int
-    fn = lib.zwrt_fused_render
-    fn.argtypes = [p] * 12 + [i, p]
-    fn.restype = ctypes.c_int
+    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    lib.zwrt_fused_render.argtypes = [p] * 12 + [i, p]
+    lib.zwrt_fused_render.restype = ctypes.c_int
+    lib.zwrt_closest_hit.argtypes = [p] * 4 + [f, f] + [p] * 3 + [i, p]
+    lib.zwrt_closest_hit.restype = ctypes.c_int
     return lib

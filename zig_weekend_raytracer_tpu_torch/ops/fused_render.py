@@ -7,12 +7,16 @@
 in ``csrc/zwrt_device.cuh``); for CPU tensors it runs the kernel's plain
 PyTorch version, ``render/integrator.py:render_fused_reference``.  Any
 other device raises.  ``render_fused.launches`` counts kernel launches.
+
+``kernel_tables`` and ``trace_args`` pack the scene for the kernels' shared
+trace (``trace_closest``), which ``ops/closest_hit.py`` launches too.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
+import weakref
 
 import numpy as np
 import torch
@@ -79,8 +83,60 @@ def kernel_tables(scene: CompiledScene):
     return sph.contiguous(), quad.contiguous()
 
 
+# Per-kind trace modes of csrc/zwrt_device.cuh (TraceMode), as
+# pallas_bounce._scene_trace_inputs chooses them.
+TRACE_NONE, TRACE_BRUTE, TRACE_TREE = 0, 1, 2
+_TRACE_CACHE: "weakref.WeakKeyDictionary" = weakref.WeakKeyDictionary()
+
+
+def _leaf_table(attrs, width):
+    """Tree leaf-slot attributes (all but the last, original-index entry)
+    as an (n_slots, width) float32 table, zero-padded on the right."""
+    cols = list(attrs[:-1])
+    cols += [torch.zeros_like(cols[0])] * (width - len(cols))
+    return torch.stack(cols, dim=1).contiguous()
+
+
+def trace_args(scene: CompiledScene):
+    """(ints, ptrs, tensors) of the kernels' trace over ``scene``, cached
+    per scene: ``ints`` (int32) per kind mode, n_prims, n_nodes, span, then
+    has_moving; ``ptrs`` (uint64) per kind the row table, node boxes,
+    links and leaf-slot original indices (0 where the mode reads none);
+    ``tensors`` keeps the device tables alive."""
+    cached = _TRACE_CACHE.get(scene)
+    if cached is not None:
+        return cached
+    sph_tab, quad_tab = kernel_tables(scene)
+    ints, ptrs, tensors = [], [], []
+    kinds = (
+        ("sph", scene.n_spheres, sph_tab, 8),
+        ("quad", scene.n_quads, quad_tab, 16),
+    )
+    for kind, n_prims, brute_tab, width in kinds:
+        if getattr(scene, f"has_{kind}_tree"):
+            box = getattr(scene, f"{kind}_tree_box").contiguous()
+            link = getattr(scene, f"{kind}_tree_link").contiguous()
+            attrs = getattr(scene, f"{kind}_tree_attrs")
+            tab = _leaf_table(attrs, width)
+            oi = attrs[-1].contiguous()
+            ints += [TRACE_TREE, n_prims, box.shape[0], getattr(scene, f"{kind}_leaf_span")]
+            group = (tab, box, link, oi)
+        elif n_prims > 0:
+            ints += [TRACE_BRUTE, n_prims, 0, 0]
+            group = (brute_tab, None, None, None)
+        else:
+            ints += [TRACE_NONE, 0, 0, 0]
+            group = (None, None, None, None)
+        ptrs += [0 if t is None else t.data_ptr() for t in group]
+        tensors += [t for t in group if t is not None]
+    ints.append(int(bool(scene.has_moving)))
+    out = (np.array(ints, np.int32), np.array(ptrs, np.uint64), tuple(tensors))
+    _TRACE_CACHE[scene] = out
+    return out
+
+
 def _params(scene, seed, t_min, camera_consts, sampler, width, height, spp,
-            stride, max_depth):
+            stride, max_depth, has_dof):
     """Host arrays (int32, float32) in the order the C launcher reads them."""
     n_l = len(scene.light_params)
     if n_l > MAX_LIGHTS:
@@ -93,7 +149,7 @@ def _params(scene, seed, t_min, camera_consts, sampler, width, height, spp,
         [width, height, spp, stride, max_depth, _SAMPLER_CODE[sampler],
          sobol_log2_scale(width, height), strat_sqrt, int(seed) & 0xFFFFFFFF,
          scene.n_spheres, scene.n_quads, scene.shade_rows.shape[0], n_l,
-         int(bool(scene.needs_gauss)), *kinds],
+         int(bool(scene.needs_gauss)), int(bool(has_dof)), *kinds],
         dtype=np.int64,
     ).astype(np.uint32).view(np.int32)
     lights = np.zeros((MAX_LIGHTS, LIGHT_FLOATS), np.float32)
@@ -101,11 +157,11 @@ def _params(scene, seed, t_min, camera_consts, sampler, width, height, spp,
         lights[k, : len(p)] = p
         if kind not in (PRIM_SPHERE, PRIM_QUAD):
             raise ValueError(f"unknown light kind {kind}")
-    position, pixel00, du, dv, _, _ = camera_consts
+    position, pixel00, du, dv, defocus_u, defocus_v = camera_consts
     floats = np.concatenate([
         np.array([t_min, 1.0 / strat_sqrt], np.float32),
-        np.asarray(position, np.float32), np.asarray(pixel00, np.float32),
-        np.asarray(du, np.float32), np.asarray(dv, np.float32),
+        *(np.asarray(v, np.float32)
+          for v in (position, pixel00, du, dv, defocus_u, defocus_v)),
         np.asarray(scene.background_rgb, np.float32), lights.reshape(-1),
     ]).astype(np.float32)
     return np.ascontiguousarray(ints), np.ascontiguousarray(floats)
@@ -132,11 +188,8 @@ def render_fused(
     """Render each lane's samples s0, s0 + stride, ... below s1 of pixel
     (px, py).  Lane tensors are (N,) int32.  Returns the per-lane radiance
     sums as V3 of (N,) float32, plus the per-lane work count (int32: loop
-    passes in which the lane's path was alive) when ``want_work``."""
-    if has_dof:
-        raise NotImplementedError(
-            "depth of field is slice 3 of the port (ROADMAP.md)"
-        )
+    passes in which the lane's path was alive) when ``want_work``.  With
+    ``has_dof`` camera rays start on the defocus disk of ``camera_consts``."""
     device = px.device
     if device.type == "cpu":
         return render_fused_reference(
@@ -156,9 +209,9 @@ def render_fused(
     lib = _build.load_library()
     ints, floats = _params(
         scene, seed, t_min, camera_consts, sampler, width, height, spp,
-        stride, max_depth,
+        stride, max_depth, has_dof,
     )
-    sph_tab, quad_tab = kernel_tables(scene)
+    trace_ints, trace_ptrs, _tables = trace_args(scene)
     shade_rows = scene.shade_rows.contiguous()
     sobol = sobol_table(device, sobol_log2_scale(width, height))
     rad = torch.empty((3, n), dtype=real, device=device)
@@ -167,9 +220,10 @@ def render_fused(
     err = lib.zwrt_fused_render(
         ints.ctypes.data_as(ctypes.c_void_p),
         floats.ctypes.data_as(ctypes.c_void_p),
+        trace_ints.ctypes.data_as(ctypes.c_void_p),
+        trace_ptrs.ctypes.data_as(ctypes.c_void_p),
         px.data_ptr(), py.data_ptr(), s0.data_ptr(), s1.data_ptr(),
-        sph_tab.data_ptr(), quad_tab.data_ptr(), shade_rows.data_ptr(),
-        sobol.data_ptr(), rad.data_ptr(),
+        shade_rows.data_ptr(), sobol.data_ptr(), rad.data_ptr(),
         work.data_ptr() if want_work else None,
         n, stream,
     )

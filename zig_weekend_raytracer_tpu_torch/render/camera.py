@@ -69,11 +69,9 @@ def generate_rays(
     width: int,
     height: int,
 ):
-    """Returns (origin V3, direction V3, time (N,))."""
-    if has_dof:
-        raise NotImplementedError(
-            "depth of field is slice 3 of the port (ROADMAP.md)"
-        )
+    """Returns (origin V3, direction V3, time (N,)).  With ``has_dof`` the
+    origin is a point of the defocus disk: radius from uniform4(SITE_DOF),
+    angle from the gaussian pair at SITE_DOF + 4."""
     ox, oy = pixel_offsets(sampler, seed, ray_id, px, py, sample_idx, spp, width, height)
     sample_pos = (
         cam.pixel00
@@ -84,6 +82,11 @@ def generate_rays(
     origin = V3(*(
         torch.full(shape, c, dtype=real, device=px.device) for c in cam.position
     ))
+    if has_dof:
+        ud, _, _, _ = hashrng.uniform4(seed, ray_id, SITE_DOF)
+        gx, gy = hashrng.gauss2(seed, ray_id, SITE_DOF + 4)
+        dx, dy = hashrng.unit_disk_xy(ud, gx, gy)
+        origin = origin + cam.defocus_u * dx + cam.defocus_v * dy
     direction = sample_pos - origin
     time = hashrng.uniform1(seed, ray_id, SITE_TIME)
     return origin, direction, time

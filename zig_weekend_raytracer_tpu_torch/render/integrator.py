@@ -14,7 +14,10 @@ hits and absorbed metal end the path; specular materials multiply by their
 attenuation; diffuse scatter uses the 50/50 mixture of the light-list PDF
 and the material PDF when the scene has lights; a zero-probability sample
 or a path whose throughput hits exactly zero ends; a path ends after
-``max_depth`` bounces.  All randomness is content-addressed by
+``max_depth`` bounces.  The trace is ``ops/trace.py:closest_hit`` (brute
+scan or group-tree walk per primitive kind, as the kernel's
+``trace_closest``); camera rays start on the defocus disk when the camera
+has depth of field.  All randomness is content-addressed by
 (seed, ray id, site): bounce d draws at sites 8 + 4d + k
 (k = 0 scatter, 1 light mixture, 2 gaussian triple).
 """
@@ -28,7 +31,7 @@ from ..materials import schlick_reflectance, scattering_pdf
 from ..math import v3
 from ..math.v3 import V3
 from ..ops.shade import shade_attrs
-from ..ops.trace import closest_hit_brute
+from ..ops.trace import closest_hit
 from ..sampling import hashrng
 from ..scene import (
     MAT_DIELECTRIC,
@@ -62,7 +65,7 @@ def bounce(
     if scene.needs_gauss:
         gauss = hashrng.gauss3(seed, ray_id, site + 2)
 
-    hit = closest_hit_brute(scene, origin, direction, time, t_min, INF)
+    hit = closest_hit(scene, origin, direction, time, t_min, INF, active=alive)
     det = shade_attrs(scene, hit, origin, direction, time)
 
     hit_any = hit.kind >= 0

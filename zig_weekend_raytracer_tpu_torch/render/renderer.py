@@ -1,12 +1,18 @@
 """Render driver (counterpart of ``render/renderer.py``, regenerating path).
 
 An image renders as row bands; each band is one call of the fused kernel
-(``ops/fused_render.py``) over lanes that each own one pixel.  The first
-render of a (scene, size, config) measures each lane's work count and
-caches it; later renders sort pixels by that cost, so each warp holds
-lanes of similar cost, and scatter-add the lane sums into the band.  The
-content-addressed RNG makes the image invariant to how samples are
-assigned to lanes.
+(``ops/fused_render.py``) over lanes that each own one pixel.  With one
+sample in flight per pixel (s_par = 1) the lanes follow a cached plan:
+
+  * brute scenes: the first render of a (scene, size, config) measures each
+    lane's work count; later renders sort pixels by that cost, so each warp
+    holds lanes of similar cost;
+  * tree scenes: pixels are ordered by the first hit of their sample-0
+    camera ray (``_first_hit_probe``, through the closest-hit kernel), so
+    the threads of a warp start in the same part of the tree.
+
+Lane sums are scatter-added into the band.  The content-addressed RNG makes
+the image invariant to how samples are assigned to lanes.
 """
 
 from __future__ import annotations
@@ -20,10 +26,11 @@ import numpy as np
 import torch
 
 from ..dtypes import T_MIN, real
+from ..ops.closest_hit import closest_hit
 from ..ops.fused_render import render_fused
 from ..sampling.sampler import SamplerKind
 from ..scene import Scene
-from .camera import camera_consts
+from .camera import camera_consts, camera_params_from_consts, generate_rays
 
 log = logging.getLogger("zwrt")
 
@@ -122,6 +129,24 @@ def _render_band_regen(
     if want_work:
         return fb, out[1]
     return fb
+
+
+def _first_hit_probe(
+    scene: Scene, seed: int, px, py, *, width: int, height: int, spp: int,
+    sampler: SamplerKind, has_dof: bool, cam_consts,
+):
+    """First-hit (kind, idx) of each pixel's sample-0 camera ray, traced
+    with t_min 1e-4 and no shading: the coherence key of tree scenes.
+    ``px``, ``py`` are (N,) int64 on the scene's device."""
+    cs = scene.compiled
+    sidx = torch.zeros_like(px)
+    ray_id = py * width + px
+    origin, direction, time = generate_rays(
+        camera_params_from_consts(cam_consts), has_dof, sampler, seed, ray_id,
+        px, py, sidx, spp, width, height,
+    )
+    hit = closest_hit(cs, origin, direction, time, float(np.float32(1e-4)))
+    return hit.kind, hit.idx
 
 
 def _render_band_balanced(
@@ -249,6 +274,55 @@ class Renderer:
             sampler=self.sampler, has_dof=has_dof, cam_consts=cam_c,
         )
 
+    def _render_band_coherent_driver(
+        self, scene: Scene, seed: int, band_y0: int, rows_eff: int,
+        band_rows: int, width: int, height: int, spp: int, has_dof, cam_c,
+    ):
+        """Coherence-sorted lanes for tree scenes: pixels ordered by the
+        first-hit key (kind << 24) + idx of their sample-0 ray (misses -1
+        first), ties in image-tile order.  Primitives of a leaf sit together
+        in the tables, so nearby keys start in the same part of the tree.
+        The plan is cached per (scene, size, config); a pure pixel
+        permutation."""
+        cs = scene.compiled
+        scene_cache = self._plan_cache.get(cs)
+        if scene_cache is None:
+            scene_cache = self._plan_cache.setdefault(cs, {})
+        key = (
+            "coh", width, height, band_y0, spp,
+            self.max_ray_bounce_depth, self.sampler, self.seed,
+        )
+        entry = scene_cache.get(key)
+        if entry is None:
+            ys, xs = np.divmod(np.arange(rows_eff * width), width)
+            i64 = lambda a: torch.as_tensor(a.astype(np.int64), device=cs.device)
+            kind, idx = _first_hit_probe(
+                scene, seed, i64(xs), i64(ys + band_y0), width=width,
+                height=height, spp=spp, sampler=self.sampler, has_dof=has_dof,
+                cam_consts=cam_c,
+            )
+            kind = kind.cpu().numpy().astype(np.int64)
+            idx = idx.cpu().numpy().astype(np.int64)
+            hit_key = np.where(kind < 0, -1, (kind << 24) + idx)
+            tile = pick_tile(width, band_rows)
+            lane_ord = tile_order_lane_index(width, band_rows, tile)[:rows_eff].reshape(-1)
+            order = np.lexsort((lane_ord, hit_key))
+            while len(scene_cache) >= self._plan_cache_max_configs:
+                scene_cache.pop(next(iter(scene_cache)))
+            entry = scene_cache[key] = {
+                "plan": tuple(
+                    torch.as_tensor(np.asarray(a, np.int32), device=cs.device)
+                    for a in (xs[order], ys[order] + band_y0, np.zeros(order.size),
+                              np.full(order.size, spp))
+                )
+            }
+        px, py, s0, s1 = entry["plan"]
+        return _render_band_balanced(
+            scene, seed, band_y0, px, py, s0, s1, width=width, height=height,
+            band_rows=band_rows, spp=spp, max_depth=self.max_ray_bounce_depth,
+            sampler=self.sampler, has_dof=has_dof, cam_consts=cam_c,
+        )
+
     def render(self, scene: Scene, width: int, height: int) -> np.ndarray:
         """Renders and returns the linear-space framebuffer (H, W, 3) f32
         averaged over samples, as numpy."""
@@ -276,10 +350,14 @@ class Renderer:
         n_bands = -(-height // band_rows)
         fb = torch.zeros((n_bands * band_rows, width, 3), dtype=real, device=cs.device)
         cam_c = camera_consts(scene.camera, width, height)
+        # s_par = 1: coherence-sorted lanes for tree scenes, cost-sorted
+        # lanes for brute scenes; otherwise the plain lane layout
+        tree = cs.has_sph_tree or cs.has_quad_tree
+        planned = self._render_band_coherent_driver if tree else self._render_band_sorted_driver
         for b in range(n_bands):
             y0 = b * band_rows
             if s_par == 1:
-                out = self._render_band_sorted_driver(
+                out = planned(
                     scene, self.seed, y0, min(band_rows, height - y0),
                     band_rows, width, height, spp, has_dof, cam_c,
                 )

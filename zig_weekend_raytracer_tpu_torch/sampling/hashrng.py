@@ -90,6 +90,20 @@ def gauss3(seed, ray_id, stream) -> V3:
     )
 
 
+def gauss2(seed, ray_id, stream) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Two standard normals per ray via Box-Muller."""
+    u1, u2, _, _ = uniform4(seed, ray_id, stream)
+    r = torch.sqrt(-2.0 * torch.log(torch.clamp(u1, min=1e-10)))
+    return r * torch.cos(TWO_PI * u2), r * torch.sin(TWO_PI * u2)
+
+
+def unit_disk_xy(u_radius, gx, gy):
+    """Point in the unit disk: radius-uniform ``u_radius`` times the
+    normalized 2D gaussian (gx, gy)."""
+    norm = torch.sqrt(torch.clamp(gx * gx + gy * gy, min=1e-24))
+    return u_radius * gx / norm, u_radius * gy / norm
+
+
 def unit_sphere(g: V3) -> V3:
     """Gaussian-normalize direct sampling."""
     norm = torch.sqrt(torch.clamp(_v3.dot(g, g), min=1e-24))

@@ -8,14 +8,18 @@ explicit ``device``.  ``compiled_from_arrays`` builds the same
 ``CompiledScene`` from another build's tables (the JAX scene's, in the
 tests), so both renderers can start from identical state.
 
-Out of scope for this slice (ROADMAP.md): image textures and nested
-checkers (slice 4), BVH and group trees (slice 3).  Asking for one raises
+``SceneBuilder.use_bvh`` builds the per-kind group trees that the
+closest-hit and render kernels walk (``geometry/bvh.py``), for each kind
+with at least ``TREE_MIN_PRIMS`` primitives.  Out of scope (ROADMAP.md):
+image textures and nested checkers (slice 4) and the unified both-kind
+tree (``ZWRT_UNI_TREE``, kernel K4).  Asking for one raises
 ``NotImplementedError``.
 """
 
 from __future__ import annotations
 
 import math as _math
+import os
 from dataclasses import dataclass, field
 from typing import List, Optional, Sequence, Tuple
 
@@ -45,7 +49,10 @@ TREE_MIN_PRIMS = 64
 _F = real_np
 _I = np.int32
 
-_SLICE_TREES = "BVH and group-tree scenes are slice 3 of the port (ROADMAP.md)"
+_SLICE_UNI_TREE = (
+    "the unified group tree (ZWRT_UNI_TREE) is kernel K4, a later slice of "
+    "the port (ROADMAP.md)"
+)
 _SLICE_IMAGES = (
     "image textures and nested checkers are slice 4 of the port (ROADMAP.md)"
 )
@@ -175,12 +182,19 @@ STATIC_FIELDS = (
     "n_spheres", "n_quads", "n_materials", "n_textures", "has_moving",
     "needs_gauss", "lights", "light_params", "background_rgb",
 )
-# Feature flags of the JAX scene that this slice cannot render when set.
+# Per-kind group trees (``CompiledScene.sph_tree_*`` / ``quad_tree_*``):
+# node boxes, links and the leaf-slot attribute tuple (7 sphere or 13 quad
+# f32 columns, then the i32 original index of each slot).
+TREE_FIELDS = (
+    "sph_tree_box", "sph_tree_link", "sph_tree_attrs",
+    "quad_tree_box", "quad_tree_link", "quad_tree_attrs",
+)
+TREE_STATIC_FIELDS = (
+    "has_sph_tree", "has_quad_tree", "sph_leaf_span", "quad_leaf_span",
+)
+# Feature flags of the JAX scene that the port cannot render when set.
 _UNSUPPORTED_FLAGS = {
-    "has_bvh": _SLICE_TREES,
-    "has_sph_tree": _SLICE_TREES,
-    "has_quad_tree": _SLICE_TREES,
-    "has_uni_tree": _SLICE_TREES,
+    "has_uni_tree": _SLICE_UNI_TREE,
     "has_image_textures": _SLICE_IMAGES,
     "has_emissive_image": _SLICE_IMAGES,
     "has_nested_checker": _SLICE_IMAGES,
@@ -222,6 +236,19 @@ class CompiledScene:
     # (n_spheres + n_quads, 32) per-prim shading records (ops/shade.py)
     shade_rows: torch.Tensor
     device: torch.device
+    # Per-kind group trees (geometry/bvh.py:build_group_tree): node boxes
+    # (n_nodes, 6) f32 [min xyz, max xyz], links (n_nodes, 2) i32 [miss
+    # link, first leaf group or -1], and the leaf-slot attributes as flat
+    # (n_groups * 8,) tensors: spheres cx cy cz r^2 mx my mz, quads sx sy sz
+    # nx ny nz A = v x w, B = w x u, offset; the last entry is each slot's
+    # original primitive index (i32).  Padding slots are unhittable.
+    # Placeholders ((1, 6), (1, 2), ()) when the kind has no tree.
+    sph_tree_box: torch.Tensor
+    sph_tree_link: torch.Tensor
+    sph_tree_attrs: tuple
+    quad_tree_box: torch.Tensor
+    quad_tree_link: torch.Tensor
+    quad_tree_attrs: tuple
     n_spheres: int = 0
     n_quads: int = 0
     n_materials: int = 0
@@ -236,6 +263,12 @@ class CompiledScene:
     lights: Tuple[Tuple[int, int], ...] = ()
     light_params: Tuple = ()
     background_rgb: Tuple[float, float, float] = (0.0, 0.0, 0.0)
+    has_sph_tree: bool = False
+    has_quad_tree: bool = False
+    # Leaf spans in groups of 8 slots (geometry/bvh.py:pick_leaf_span),
+    # recorded so that tree layout and traversal always agree.
+    sph_leaf_span: int = 32
+    quad_leaf_span: int = 32
 
     @property
     def has_lights(self) -> bool:
@@ -257,8 +290,10 @@ def compiled_from_arrays(fields: dict, static: dict, device) -> CompiledScene:
 
     ``fields`` maps each name in ``ARRAY_FIELDS`` to a numpy array (a V3
     field as its (3, S) stack, e.g. ``np.asarray(cs.sph_center)`` of a JAX
-    scene); ``static`` maps each name in ``STATIC_FIELDS`` to its value and
-    may carry the JAX scene's feature flags, which are checked."""
+    scene) and may map the names in ``TREE_FIELDS`` to a scene's group
+    trees (``*_tree_attrs`` as a tuple of arrays); ``static`` maps each name
+    in ``STATIC_FIELDS`` to its value, may carry ``TREE_STATIC_FIELDS``,
+    and may carry the JAX scene's other feature flags, which are checked."""
     for flag, why in _UNSUPPORTED_FLAGS.items():
         if static.get(flag):
             raise NotImplementedError(why)
@@ -275,6 +310,19 @@ def compiled_from_arrays(fields: dict, static: dict, device) -> CompiledScene:
         kw[name] = V3(*(tensor(a[i]) for i in range(3))) if name in V3_FIELDS else tensor(a)
     for name in STATIC_FIELDS:
         kw[name] = static[name]
+    for kind in ("sph", "quad"):
+        has_tree = bool(static.get(f"has_{kind}_tree", False))
+        kw[f"has_{kind}_tree"] = has_tree
+        kw[f"{kind}_leaf_span"] = int(static.get(f"{kind}_leaf_span", 32))
+        if has_tree:
+            box = np.asarray(fields[f"{kind}_tree_box"], _F)
+            link = np.asarray(fields[f"{kind}_tree_link"], _I)
+            attrs = tuple(np.asarray(a) for a in fields[f"{kind}_tree_attrs"])
+        else:
+            box, link, attrs = np.zeros((1, 6), _F), np.zeros((1, 2), _I), ()
+        kw[f"{kind}_tree_box"] = tensor(box)
+        kw[f"{kind}_tree_link"] = tensor(link)
+        kw[f"{kind}_tree_attrs"] = tuple(tensor(a) for a in attrs)
     kw["lights"] = tuple((int(k), int(i)) for k, i in kw["lights"])
     kw["light_params"] = tuple(
         (int(k), tuple(float(v) for v in p)) for k, p in kw["light_params"]
@@ -410,8 +458,10 @@ class SceneBuilder:
         self._background = tuple(rgb)
 
     def use_bvh(self, enable: bool = True, min_prims: int = 32) -> None:
-        """Request a BVH over the flattened primitives; below ``min_prims``
-        primitives none is built and the trace stays brute force."""
+        """Request acceleration trees over the flattened primitives: from
+        ``min_prims`` primitives on, each kind with at least
+        ``TREE_MIN_PRIMS`` primitives gets a group tree; the rest stays
+        brute force."""
         self._root_bvh = enable
         self._bvh_min_prims = min_prims
 
@@ -470,14 +520,12 @@ class SceneBuilder:
         for ln in self._lights:
             collect_light(ln)
 
-        build_bvh = (
+        build_trees = (
             self._root_bvh and (len(spheres) + len(quads)) >= self._bvh_min_prims
         )
-        if build_bvh:
-            raise NotImplementedError(_SLICE_TREES)
         compiled = _compile_tables(
             spheres, quads, self._materials, self._textures,
-            light_entries, self._background, device,
+            light_entries, self._background, device, build_trees,
         )
         camera = self._camera or Camera(look_from=(0, 0, 9), look_at=(0, 0, 0))
         return Scene(
@@ -547,8 +595,86 @@ def _shade_block(materials, textures, mat_id: int) -> list:
             float(refract), float(img2), float(texid)]
 
 
+def _leaf_attrs(slots, cols_and_fills):
+    """Leaf-slot-ordered attribute arrays; -1 slots get the unhittable fill
+    value.  The last array is each slot's original primitive index."""
+    padm = slots < 0
+    safe = np.where(padm, 0, slots)
+    out = [np.where(padm, fill, col[safe]).astype(_F) for col, fill in cols_and_fills]
+    out.append(np.where(padm, 0, slots).astype(_I))
+    return tuple(out)
+
+
+def _cross32(a, b):
+    a = a.astype(np.float32)
+    b = b.astype(np.float32)
+    return np.stack([
+        a[:, 1] * b[:, 2] - a[:, 2] * b[:, 1],
+        a[:, 2] * b[:, 0] - a[:, 0] * b[:, 2],
+        a[:, 0] * b[:, 1] - a[:, 1] * b[:, 0],
+    ], axis=1)
+
+
+def _group_trees(sph_center, sph_radius, sph_move, quad_start, quad_u, quad_v,
+                 quad_normal, quad_w, quad_offset, n_s, n_q, build_trees):
+    """The per-kind group trees, as the JAX package builds them: boxes from
+    the float32 tables, padded on thin axes in float64, a tree for each
+    kind with at least TREE_MIN_PRIMS primitives."""
+    from .geometry.bvh import build_group_tree, pick_leaf_span
+    from .math.aabb import aabb_pad_to_minimum
+
+    out = {"sph_leaf_span": pick_leaf_span(n_s), "quad_leaf_span": pick_leaf_span(n_q)}
+    sph_lo = np.minimum(sph_center[:n_s] - sph_radius[:n_s, None],
+                        sph_center[:n_s] + sph_move[:n_s] - sph_radius[:n_s, None])
+    sph_hi = np.maximum(sph_center[:n_s] + sph_radius[:n_s, None],
+                        sph_center[:n_s] + sph_move[:n_s] + sph_radius[:n_s, None])
+    c0 = quad_start[:n_q]
+    c1 = c0 + quad_u[:n_q]
+    c2 = c0 + quad_v[:n_q]
+    c3 = c1 + quad_v[:n_q]
+    quad_lo = np.minimum(np.minimum(c0, c1), np.minimum(c2, c3))
+    quad_hi = np.maximum(np.maximum(c0, c1), np.maximum(c2, c3))
+    qa = _cross32(quad_v[:n_q], quad_w[:n_q])
+    qb = _cross32(quad_w[:n_q], quad_u[:n_q])
+    cols = {
+        "sph": [
+            (sph_center[:n_s, 0], 1e30), (sph_center[:n_s, 1], 1e30),
+            (sph_center[:n_s, 2], 1e30), (sph_radius[:n_s] ** 2, 0.0),
+            (sph_move[:n_s, 0], 0.0), (sph_move[:n_s, 1], 0.0),
+            (sph_move[:n_s, 2], 0.0),
+        ],
+        # zero normal -> parallel -> unhittable padding; A and B in f32
+        # with v3.cross's operation order
+        "quad": [
+            (quad_start[:n_q, 0], 0.0), (quad_start[:n_q, 1], 0.0),
+            (quad_start[:n_q, 2], 0.0),
+            (quad_normal[:n_q, 0], 0.0), (quad_normal[:n_q, 1], 0.0),
+            (quad_normal[:n_q, 2], 0.0),
+            (qa[:, 0], 0.0), (qa[:, 1], 0.0), (qa[:, 2], 0.0),
+            (qb[:, 0], 0.0), (qb[:, 1], 0.0), (qb[:, 2], 0.0),
+            (quad_offset[:n_q], 0.0),
+        ],
+    }
+    boxes = {"sph": (sph_lo, sph_hi, n_s), "quad": (quad_lo, quad_hi, n_q)}
+    for kind, (lo, hi, n) in boxes.items():
+        has_tree = build_trees and n >= TREE_MIN_PRIMS
+        out[f"has_{kind}_tree"] = has_tree
+        if has_tree:
+            lo, hi = aabb_pad_to_minimum(lo, hi)
+            tr = build_group_tree(lo, hi, leaf_groups=out[f"{kind}_leaf_span"])
+            out[f"{kind}_tree_box"] = tr["node_box"]
+            out[f"{kind}_tree_link"] = tr["node_link"]
+            out[f"{kind}_tree_attrs"] = _leaf_attrs(tr["prim_slots"], cols[kind])
+    # the JAX package walks one unified tree instead when both kinds have
+    # trees and ZWRT_UNI_TREE is set
+    if out["has_sph_tree"] and out["has_quad_tree"] and os.environ.get("ZWRT_UNI_TREE"):
+        raise NotImplementedError(_SLICE_UNI_TREE)
+    return out
+
+
 def _compile_tables(
     spheres, quads, materials, textures, light_entries, background, device,
+    build_trees,
 ) -> CompiledScene:
     for t in textures:
         children = (
@@ -696,8 +822,13 @@ def _compile_tables(
                 )),
             ))
 
+    trees = _group_trees(
+        sph_center, sph_radius, sph_move, quad_start, quad_u, quad_v,
+        quad_normal, quad_w, quad_offset, n_s, n_q, build_trees,
+    )
     bg = np.asarray(background, _F)
     fields = {
+        **{k: v for k, v in trees.items() if k in TREE_FIELDS},
         "sph_center": sph_center.T, "sph_radius": sph_radius,
         "sph_move": sph_move.T, "sph_uv_cos": sph_uv_cos,
         "sph_uv_sin": sph_uv_sin, "sph_mat": sph_mat,
@@ -726,5 +857,6 @@ def _compile_tables(
         "lights": lights,
         "light_params": tuple(light_params),
         "background_rgb": tuple(float(v) for v in background),
+        **{k: trees[k] for k in TREE_STATIC_FIELDS},
     }
     return compiled_from_arrays(fields, static, device)
