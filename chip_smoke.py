@@ -45,7 +45,39 @@ Phases (any failure exits nonzero):
      full 128 spp;
   8. the balls region gates on the card, both through utils/goldengate.py:
      200x200, 32 spp, depth 10 against tests/golden/scene_regions.json,
-     and 64x64, 32 spp, depth 10 against tests/golden/balls.npz.
+     and 64x64, 32 spp, depth 10 against tests/golden/balls.npz;
+  9. bounce_kernel's one-bounce mode against its plain version
+     (render/integrator.py:bounce): rtw_final camera rays at 400x400
+     (160,000 lanes) through three chained bounces, and one bounce each on
+     shrek_quads and earth; alive equal on >= 99.9% of lanes, the state
+     within rtol 1e-5 / atol 1e-6 where alive agrees (origin and direction
+     where the path goes on) on >= 99.9%; the counts that differ and both
+     times printed;
+ 10. bounce_kernel's regenerating mode against its plain version
+     (bounce_regen_reference): earth and shrek_quads at 32x32, 8 spp, depth
+     10, rtw_final at 32x32, 8 spp, depth 8, with phase 2's tolerances (its
+     1% lane allowance covers earth's texel boundaries); every lane drained;
+ 11. the rtw_final main path: Renderer(samples_per_pixel=64,
+     max_ray_bounce_depth=8).render_device(load_scene("rtw_final"), 400,
+     400), one warmup render and three timed; over the four renders the
+     coherent plan was built, closest_hit_kernel and bounce_kernel launched,
+     fused_render_kernel did not and no plain version ran; the driver
+     loop's passes per band, Mpaths/s beside the card, bounce_kernel's time
+     at the coherent plan, the kernel against its plain version on a spread
+     slice of 4,096 plan lanes at 64 spp, and the peak device memory;
+ 12. the region gates of earth, shrek_quads and rtw_final on the card:
+     200x200 against tests/golden/scene_regions.json (rtw_final at 32 spp,
+     depth 8; the others at their recorded spp and depth 10), and 64x64,
+     32 spp, depth 10 against tests/golden/{earth,shrek_quads,rtw_final}.npz
+     (rtw_final on 4x4 regions, its 8x8-region verdict printed: see
+     phase 12's comment).
+
+Each kernel's entry in the record carries its roofline bound: FP32
+operations (utils/roofline.py's per-unit counts times the work that the
+plain version counted on a parity run of the same scene, scaled to the
+kernel's own bounce count) and bytes (inputs once, outputs once) over the
+H100's peak rates.  No single PyTorch call computes path radiance or a
+closest hit, so ``library_ms`` is null.
 
 The line before the last is the kernels' JSON record, the line before it
 the card's name and power limit; the last line is {"ok": true, "device":
@@ -68,7 +100,6 @@ SPP = 1024
 DEPTH = 10
 GOLDEN = os.path.join(REPO, "tests", "golden", "bench_cornell_regions.json")
 SCENE_REGIONS = os.path.join(REPO, "tests", "golden", "scene_regions.json")
-BALLS_GOLDEN = os.path.join(REPO, "tests", "golden", "balls.npz")
 KERNEL_SOURCE = "zig_weekend_raytracer_tpu_torch/csrc/fused_render.cu"
 KERNEL_REPLACES = "zig_weekend_raytracer_tpu/ops/pallas_bounce.py:1531"
 HIT_SOURCE = "zig_weekend_raytracer_tpu_torch/csrc/closest_hit.cu"
@@ -76,10 +107,14 @@ HIT_REPLACES = (
     "zig_weekend_raytracer_tpu/ops/pallas_trace.py:300 (_sphere_kernel), "
     ":371 (_quad_kernel), :432 (_tree_kernel)"
 )
+BOUNCE_SOURCE = "zig_weekend_raytracer_tpu_torch/csrc/bounce.cu"
+BOUNCE_REPLACES = "zig_weekend_raytracer_tpu/ops/pallas_bounce.py:842 (_bounce_kernel)"
 PLAIN_BUDGET_S = 20.0
 SLICE_LANES = 4096
 BALLS_SPP = 128
+RTW_SPP, RTW_DEPTH = 64, 8
 HIT_RTOL, HIT_ATOL, HIT_AGREE = 1e-5, 1e-6, 0.999
+LIBRARY_NOTE = "none: no single PyTorch call computes path radiance or a closest hit"
 
 
 def log(msg: str) -> None:
@@ -260,6 +295,8 @@ def phase_closest_hit(zt, ch, ttrace, torch) -> list:
     """closest_hit_kernel vs its plain version on the card, four cases."""
     import numpy as np
 
+    from zig_weekend_raytracer_tpu_torch.utils import roofline, workcount
+
     t_probe = float(np.float32(1e-4))
     cornell = zt.models.load_scene("cornell_box", device="cuda")
     balls = zt.models.load_scene("balls", device="cuda")
@@ -281,19 +318,35 @@ def phase_closest_hit(zt, ch, ttrace, torch) -> list:
         quad = "tree" if cs.has_quad_tree else ("brute" if cs.n_quads else "none")
         nodes = (cs.sph_tree_box.shape[0], cs.quad_tree_box.shape[0])
         ms_k, hit_k = cuda_time_ms(lambda: ch.closest_hit(cs, *rays, t_min), 3)
-        ms_p, hit_p = cuda_time_ms(lambda: ttrace.closest_hit(cs, *rays, t_min))
+        with workcount.counting() as counts:
+            ms_p, hit_p = cuda_time_ms(lambda: ttrace.closest_hit(cs, *rays, t_min))
         check = compare_hits(tag, hit_k, hit_p)
+        # rays in (origin, direction, time), hits out (t, kind, idx)
+        nbytes = rays[2].numel() * (28 + 12) + roofline.trace_bytes(cs)
+        bound, by = roofline.bound_ms(roofline.trace_ops(counts), nbytes)
         log(f"closest hit {tag}: spheres {sph}, quads {quad}, tree nodes {nodes}; "
-            f"kernel {ms_k:.3f} ms, plain {ms_p:.1f} ms")
-        out.append({**check, "spheres": sph, "quads": quad, "ms": ms_k, "plain_ms": ms_p})
+            f"kernel {ms_k:.3f} ms, plain {ms_p:.1f} ms, bound {bound:.4f} ms ({by})")
+        out.append({**check, "spheres": sph, "quads": quad, "ms": ms_k, "plain_ms": ms_p,
+                    "bound_ms": bound, "bound_by": by})
     return out
 
 
-def reset_counts(fused, integrator, ch, ttrace) -> None:
+def reset_counts(fused, integrator, ch, ttrace, tb) -> None:
     fused.render_fused.launches = 0
     integrator.render_fused_reference.calls = 0
     ch.closest_hit.launches = 0
     ttrace.closest_hit.calls = 0
+    tb.bounce.launches = 0
+    tb.bounce_regen.launches = 0
+    integrator.bounce.calls = 0
+    integrator.bounce_regen_reference.calls = 0
+    integrator.trace_paths_regen.passes = 0
+    integrator.trace_paths_regen.bands = 0
+
+
+def plain_calls(integrator, ttrace) -> int:
+    return (integrator.render_fused_reference.calls + integrator.bounce_regen_reference.calls
+            + integrator.bounce.calls + ttrace.closest_hit.calls)
 
 
 def timed_renders(renderer, scene, torch, w, h):
@@ -312,10 +365,12 @@ def timed_renders(renderer, scene, torch, w, h):
     return warm_s, times, fb
 
 
-def plan_parity(zt, fused, integrator, scene, plan, spp, card, tag) -> dict:
+def plan_parity(zt, fused, integrator, scene, plan, spp, card, tag):
     """Kernel vs plain version at a spread slice of SLICE_LANES lanes of a
-    lane plan, at the full spp; both timed."""
+    lane plan, at the full spp; both timed.  Returns the check and the
+    plain version's work counts (utils/workcount.py)."""
     from zig_weekend_raytracer_tpu_torch.render.camera import camera_consts
+    from zig_weekend_raytracer_tpu_torch.utils import workcount
 
     step = max(1, plan[0].shape[0] // SLICE_LANES)
     px, py, s0, _ = (a[::step][:SLICE_LANES].contiguous() for a in plan)
@@ -327,16 +382,159 @@ def plan_parity(zt, fused, integrator, scene, plan, spp, card, tag) -> dict:
     )
     lim = s0 + spp
     t_min = zt.dtypes.T_MIN
-    ms_p, out_p = cuda_time_ms(
-        lambda: integrator.render_fused_reference(scene.compiled, px, py, s0, lim, 0, t_min, **kw)
-    )
+    with workcount.counting() as counts:
+        ms_p, out_p = cuda_time_ms(
+            lambda: integrator.render_fused_reference(scene.compiled, px, py, s0, lim, 0, t_min, **kw)
+        )
     ms_k, out_k = cuda_time_ms(
         lambda: fused.render_fused(scene.compiled, px, py, s0, lim, 0, t_min, **kw)
     )
     log(f"plain version at {px.shape[0]} {tag} lanes, {spp} spp: {ms_p:.1f} ms; "
         f"kernel {ms_k:.3f} ms ({card})")
-    return {**compare(f"{px.shape[0]} {tag} lanes {spp} spp d{DEPTH}", out_k, out_p),
-            "ms": ms_k, "plain_ms": ms_p}
+    check = compare(f"{px.shape[0]} {tag} lanes {spp} spp d{DEPTH}", out_k, out_p)
+    return {**check, "ms": ms_k, "plain_ms": ms_p}, dict(counts)
+
+
+def render_bound(zt, scene, counts, kernel_work, lane_bytes, has_dof) -> dict:
+    """The roofline bound of a render-kernel run whose lanes did
+    ``kernel_work`` bounces in all, from the plain version's ``counts`` on a
+    slice scaled by that bounce count; ``lane_bytes`` is what the lanes
+    read and write."""
+    from zig_weekend_raytracer_tpu_torch.utils import roofline
+
+    factor = float(kernel_work) / max(counts.get("bounce", 0), 1)
+    ops = roofline.render_ops(roofline.scaled(counts, factor), scene.compiled, has_dof)
+    nbytes = lane_bytes + roofline.render_table_bytes(scene.compiled)
+    ms, by = roofline.bound_ms(ops, nbytes)
+    log(f"bound: {float(kernel_work):.0f} bounces, {ops:.4g} FP32 operations, {nbytes:.4g} bytes "
+        f"-> {ms:.3f} ms ({by})")
+    return {"bound_ms": ms, "bound_by": by, "bound_ops": ops, "bound_bytes": nbytes}
+
+
+def compare_bounce(tag, out_k, out_p) -> dict:
+    """One bounce's state, kernel against plain version: alive equal on >=
+    99.9% of lanes; where it agrees, throughput and radiance (and, where the
+    path goes on, origin and direction) within rtol 1e-5 / atol 1e-6 on >=
+    99.9% of lanes."""
+    import numpy as np
+    import torch
+
+    arr = lambda *vs: torch.stack([c for v in vs for c in v]).cpu().numpy()
+    ak, ap = out_k[4].cpu().numpy(), out_p[4].cpu().numpy()
+    n = ak.size
+    agree = ak == ap
+    live = agree & ap
+    pos_k, pos_p = arr(*out_k[:2]), arr(*out_p[:2])
+    val_k, val_p = arr(*out_k[2:4]), arr(*out_p[2:4])
+    pos_bad = live & ~np.isclose(pos_k, pos_p, rtol=HIT_RTOL, atol=HIT_ATOL).all(0)
+    val_bad = agree & ~np.isclose(val_k, val_p, rtol=HIT_RTOL, atol=HIT_ATOL).all(0)
+    bad = int((pos_bad | val_bad).sum())
+    max_abs = max(float(np.abs(pos_k - pos_p)[:, live].max(initial=0.0)),
+                  float(np.abs(val_k - val_p)[:, agree].max(initial=0.0)))
+    differ = int(n - agree.sum())
+    log(f"bounce {tag}: {n} lanes, {int(ap.sum())} go on, alive differs on {differ}, "
+        f"state outside rtol {HIT_RTOL}/atol {HIT_ATOL} on {bad}, max |diff| {max_abs:.3e}")
+    if not (np.isfinite(val_k).all() and np.isfinite(pos_k[:, ak]).all()):
+        raise AssertionError(f"bounce {tag}: kernel state is not finite")
+    if differ > (1.0 - HIT_AGREE) * n or bad > (1.0 - HIT_AGREE) * n:
+        raise AssertionError(f"bounce {tag}: kernel disagrees with its plain version")
+    return {"check": tag, "lanes": n, "alive_diff": differ, "state_bad": bad,
+            "max_abs_err": max_abs}
+
+
+def phase_one_bounce(zt, tb, integrator, torch, scenes) -> list:
+    """bounce_kernel's one-bounce mode vs integrator.bounce on 400x400
+    camera rays: rtw_final through three chained bounces (each bounce
+    starts both from the plain version's state), shrek_quads and earth
+    one bounce each."""
+    from zig_weekend_raytracer_tpu_torch.math.v3 import V3
+
+    t_min = zt.dtypes.T_MIN
+    out = []
+    for name, depths in (("rtw_final", (0, 1, 2)), ("shrek_quads", (0,)), ("earth", (0,))):
+        cs = scenes[name].compiled
+        ys, xs = torch.meshgrid(torch.arange(H, device="cuda"), torch.arange(W, device="cuda"),
+                                indexing="ij")
+        rid = (ys * W + xs).reshape(-1)
+        o, d, tm = camera_rays(zt, torch, scenes[name], W, H, RTW_SPP)
+        n = rid.shape[0]
+        state = (o, d, V3.full((n,), 1.0, 1.0, 1.0, "cuda"), V3.zeros((n,), "cuda"),
+                 torch.ones((n,), dtype=torch.bool, device="cuda"))
+        for depth in depths:
+            o, d, thr, rad, alive = state
+            dep = torch.full((n,), depth, dtype=torch.int64, device="cuda")
+            ms_k, out_k = cuda_time_ms(
+                lambda: tb.bounce(cs, 0, t_min, depth, o, d, tm, rid, thr, rad, alive), 3)
+            ms_p, out_p = cuda_time_ms(
+                lambda: integrator.bounce(cs, 0, t_min, dep, o, d, tm, rid, thr, rad, alive))
+            check = compare_bounce(f"{name} 400x400 camera rays, depth {depth}", out_k, out_p)
+            log(f"bounce {name} depth {depth}: kernel {ms_k:.3f} ms, plain {ms_p:.1f} ms")
+            out.append({**check, "ms": ms_k, "plain_ms": ms_p})
+            state = out_p
+    return out
+
+
+def regen_parity(zt, tb, integrator, torch, scene, w, spp, depth, tag, lanes=None):
+    """bounce_kernel's regenerating mode vs bounce_regen_reference from
+    fresh lanes (every pixel of a w x w image, or ``lanes`` = (px, py) of
+    a plan), checked with phase 2's tolerances; every lane must end
+    drained.  Returns the check (with both times), the plain version's work
+    counts and the kernel's total bounces."""
+    from zig_weekend_raytracer_tpu_torch.render.camera import camera_consts
+    from zig_weekend_raytracer_tpu_torch.utils import workcount
+
+    if lanes is None:
+        ys, xs = torch.meshgrid(torch.arange(w, device="cuda"), torch.arange(w, device="cuda"),
+                                indexing="ij")
+        lanes = (xs.reshape(-1).to(torch.int32).contiguous(),
+                 ys.reshape(-1).to(torch.int32).contiguous())
+    px, py = lanes
+    s0 = torch.zeros_like(px)
+    s1 = torch.full_like(px, spp)
+    kw = dict(camera_consts=camera_consts(scene.camera, w, w),
+              sampler=zt.sampling.SamplerKind.SOBOL, width=w, height=w, spp=spp, stride=1,
+              max_depth=depth, has_dof=scene.camera.has_depth_of_field)
+    st0 = integrator.initial_regen_state(s0, 1)
+    t_min = zt.dtypes.T_MIN
+    ms_k, st_k = cuda_time_ms(
+        lambda: tb.bounce_regen(scene.compiled, st0, px, py, s1, 0, t_min, **kw), 3)
+    with workcount.counting() as counts:
+        ms_p, st_p = cuda_time_ms(
+            lambda: integrator.bounce_regen_reference(scene.compiled, st0, px, py, s1, 0, t_min, **kw))
+    if bool(st_k.alive.any()) or bool((st_k.sample + 1 < s1).any()):
+        raise AssertionError(f"regen {tag}: the kernel left lanes undrained")
+    check = compare(tag, (st_k.radiance, st_k.work), (st_p.radiance, st_p.work))
+    log(f"regen {tag}: kernel {ms_k:.3f} ms, plain {ms_p:.1f} ms")
+    return {**check, "ms": ms_k, "plain_ms": ms_p}, dict(counts), int(st_k.work.sum())
+
+
+def region_gates(zt, np, scene, name, grid64=8) -> list:
+    """The scene's region gates through utils/goldengate.py: 200x200
+    against tests/golden/scene_regions.json and 64x64 against
+    tests/golden/<name>.npz, each at the spp and depth recorded there; the
+    64x64 gate on ``grid64`` x ``grid64`` regions."""
+    from zig_weekend_raytracer_tpu_torch.utils.goldengate import check_framebuffer, region_means
+
+    with open(SCENE_REGIONS) as f:
+        reg = json.load(f)["scenes"][name]
+    fb200 = zt.render.Renderer(
+        samples_per_pixel=reg["spp"], max_ray_bounce_depth=reg["depth"]
+    ).render_device(scene, reg["width"], reg["height"])
+    out = [gate(f"{name} 200x200 spp{reg['spp']} d{reg['depth']}", fb200, reg["mean"],
+                reg["region_means"])]
+    golden = np.load(os.path.join(REPO, "tests", "golden", f"{name}.npz"))
+    fb64 = zt.render.Renderer(
+        samples_per_pixel=int(golden["spp"]), max_ray_bounce_depth=int(golden["depth"]),
+        seed=int(golden["seed"]),
+    ).render_device(scene, int(golden["width"]), int(golden["height"]))
+    tag = f"{name} 64x64 spp{int(golden['spp'])} d{int(golden['depth'])}"
+    if grid64 != 8:
+        fine = check_framebuffer(fb64.cpu().numpy(), float(golden["fb"].mean()),
+                                 region_means(golden["fb"], 8))
+        log(f"region gate {tag} on 8x8 regions (not gated): {fine}")
+        tag += f", {grid64}x{grid64} regions"
+    out.append(gate(tag, fb64, golden["fb"].mean(), region_means(golden["fb"], grid64)))
+    return out
 
 
 def gate(tag, fb, ref_mean, ref_regions) -> str:
@@ -369,11 +567,11 @@ def main() -> int:
 
         import zig_weekend_raytracer_tpu_torch as zt
         from zig_weekend_raytracer_tpu_torch.ops import _build
+        from zig_weekend_raytracer_tpu_torch.ops import bounce as tb
         from zig_weekend_raytracer_tpu_torch.ops import closest_hit as ch
         from zig_weekend_raytracer_tpu_torch.ops import fused_render as fused
         from zig_weekend_raytracer_tpu_torch.ops import trace as ttrace
         from zig_weekend_raytracer_tpu_torch.render import integrator
-        from zig_weekend_raytracer_tpu_torch.utils.goldengate import region_means
     except ImportError as e:
         print(f"chip_smoke: the port is not importable here: {e}", file=sys.stderr)
         return 2
@@ -399,15 +597,15 @@ def main() -> int:
 
     # ---- 3. the main path ----
     renderer = zt.render.Renderer(samples_per_pixel=SPP, max_ray_bounce_depth=DEPTH)
-    reset_counts(fused, integrator, ch, ttrace)
+    reset_counts(fused, integrator, ch, ttrace, tb)
     warm_s, times, fb = timed_renders(renderer, cornell, torch, W, H)
     launches = fused.render_fused.launches
-    plain_calls = integrator.render_fused_reference.calls + ttrace.closest_hit.calls
+    n_plain = plain_calls(integrator, ttrace)
     log(f"main path: warmup {warm_s:.3f} s, renders {[round(t, 4) for t in times]} s")
-    log(f"main path: kernel launches {launches}, plain-version calls {plain_calls}")
+    log(f"main path: kernel launches {launches}, plain-version calls {n_plain}")
     if launches < 1:
         raise AssertionError("the main path launched no kernel")
-    if plain_calls != 0:
+    if n_plain != 0:
         raise AssertionError("the main path ran the plain version")
     if tuple(fb.shape) != (H, W, 3):
         raise AssertionError(f"bad framebuffer: shape {tuple(fb.shape)}")
@@ -432,8 +630,9 @@ def main() -> int:
         width=W, height=H, spp=SPP, stride=1, max_depth=DEPTH, has_dof=False,
     )
     t_min = zt.dtypes.T_MIN
-    kernel_ms, _ = cuda_time_ms(
-        lambda: fused.render_fused(cornell.compiled, px, py, s0, s1, 0, t_min, **kw), 3
+    kernel_ms, (_, main_work) = cuda_time_ms(
+        lambda: fused.render_fused(cornell.compiled, px, py, s0, s1, 0, t_min,
+                                   want_work=True, **kw), 3
     )
     log(f"kernel at main-path lanes ({n} lanes, {SPP} spp): {kernel_ms:.3f} ms")
 
@@ -469,7 +668,10 @@ def main() -> int:
     checks.append(compare(f"main-path lanes {plain_spp} spp d{DEPTH}", out_k, out_p))
     # every sample bit of the main path: a slice spread over the cost-sorted
     # plan, at the full spp (the Sobol scale comes from W and H)
-    checks.append(plan_parity(zt, fused, integrator, cornell, plan, SPP, card, "main-path"))
+    check, k1_counts = plan_parity(zt, fused, integrator, cornell, plan, SPP, card, "main-path")
+    checks.append(check)
+    # the timed run's lanes read (px, py, s0, s1) and write radiance and work
+    k1_bound = render_bound(zt, cornell, k1_counts, main_work.sum().item(), n * (16 + 16), False)
 
     # ---- 5. closest-hit kernel against plain ----
     hit_checks = phase_closest_hit(zt, ch, ttrace, torch)
@@ -485,11 +687,11 @@ def main() -> int:
 
     # ---- 7. the balls main path ----
     b_renderer = zt.render.Renderer(samples_per_pixel=BALLS_SPP, max_ray_bounce_depth=DEPTH)
-    reset_counts(fused, integrator, ch, ttrace)
+    reset_counts(fused, integrator, ch, ttrace, tb)
     b_warm_s, b_times, b_fb = timed_renders(b_renderer, balls, torch, W, H)
     b_launches = fused.render_fused.launches
     b_hit_launches = ch.closest_hit.launches
-    b_plain = integrator.render_fused_reference.calls + ttrace.closest_hit.calls
+    b_plain = plain_calls(integrator, ttrace)
     plans = b_renderer._plan_cache[balls.compiled]
     coherent = [k for k in plans if k[0] == "coh"]
     log(f"balls main path: warmup {b_warm_s:.3f} s, renders {[round(t, 4) for t in b_times]} s")
@@ -519,35 +721,99 @@ def main() -> int:
     log(f"kernel at the coherent plan ({b_plan[0].shape[0]} lanes, {BALLS_SPP} spp): "
         f"{b_kernel_ms:.3f} ms ({card})")
     tree_checks.append(
-        plan_parity(zt, fused, integrator, balls, b_plan, BALLS_SPP, card, "coherent-plan")
+        plan_parity(zt, fused, integrator, balls, b_plan, BALLS_SPP, card, "coherent-plan")[0]
     )
 
     # ---- 8. the balls region gates ----
-    with open(SCENE_REGIONS) as f:
-        reg = json.load(f)["scenes"]["balls"]
-    fb200 = zt.render.Renderer(
-        samples_per_pixel=reg["spp"], max_ray_bounce_depth=reg["depth"]
-    ).render_device(balls, reg["width"], reg["height"])
-    v200 = gate("balls 200x200 spp32 d10", fb200, reg["mean"], reg["region_means"])
-    golden = np.load(BALLS_GOLDEN)
-    fb64 = zt.render.Renderer(
-        samples_per_pixel=int(golden["spp"]), max_ray_bounce_depth=int(golden["depth"]),
-        seed=int(golden["seed"]),
-    ).render_device(balls, int(golden["width"]), int(golden["height"]))
-    v64 = gate("balls 64x64 spp32 d10", fb64, golden["fb"].mean(), region_means(golden["fb"], 8))
+    balls_gates = region_gates(zt, np, balls, "balls")
+
+    # ---- 9. bounce kernel, one-bounce mode, against plain ----
+    images = {name: zt.models.load_scene(name, device="cuda")
+              for name in ("rtw_final", "shrek_quads", "earth")}
+    rtw = images["rtw_final"]
+    k2_checks = phase_one_bounce(zt, tb, integrator, torch, images)
+
+    # ---- 10. bounce kernel, regenerating mode, against plain ----
+    for name, depth in (("earth", 10), ("shrek_quads", 10), ("rtw_final", RTW_DEPTH)):
+        tag = f"{name} 32x32 spp8 d{depth}"
+        k2_checks.append(regen_parity(zt, tb, integrator, torch, images[name], 32, 8, depth, tag)[0])
+
+    # ---- 11. the rtw_final main path ----
+    r_renderer = zt.render.Renderer(samples_per_pixel=RTW_SPP, max_ray_bounce_depth=RTW_DEPTH)
+    reset_counts(fused, integrator, ch, ttrace, tb)
+    torch.cuda.reset_peak_memory_stats()
+    r_warm_s, r_times, r_fb = timed_renders(r_renderer, rtw, torch, W, H)
+    peak_mb = torch.cuda.max_memory_allocated() / 2**20
+    r_k2 = tb.bounce_regen.launches + tb.bounce.launches
+    r_hit = ch.closest_hit.launches
+    r_k1 = fused.render_fused.launches
+    r_plain = plain_calls(integrator, ttrace)
+    passes, bands = integrator.trace_paths_regen.passes, integrator.trace_paths_regen.bands
+    plans = r_renderer._plan_cache[rtw.compiled]
+    coherent = [k for k in plans if k[0] == "coh"]
+    log(f"rtw_final main path: warmup {r_warm_s:.3f} s, renders {[round(t, 4) for t in r_times]} s")
+    log(f"rtw_final main path: bounce kernel launches {r_k2}, closest-hit kernel launches "
+        f"{r_hit}, render kernel launches {r_k1}, plain-version calls {r_plain}, coherent "
+        f"plans {len(coherent)}; driver loop {passes} passes over {bands} bands "
+        f"({passes / max(bands, 1):.2f} per band)")
+    if r_k2 < 1 or r_hit < 1:
+        raise AssertionError("the rtw_final main path did not launch both kernels")
+    if r_k1 != 0 or r_plain != 0:
+        raise AssertionError("the rtw_final main path ran the render kernel or a plain version")
+    if len(coherent) != 1 or len(plans) != 1:
+        raise AssertionError("the rtw_final main path did not take the coherent driver")
+    if tuple(r_fb.shape) != (H, W, 3) or not bool(torch.isfinite(r_fb).all()):
+        raise AssertionError("bad rtw_final framebuffer")
+    r_best = min(r_times)
+    r_mpaths = W * H * RTW_SPP / r_best / 1e6
+    log(f"rtw_final main path best {r_best:.4f} s = {r_mpaths:.2f} Mpaths/s "
+        f"(rtw_final {W}x{H}@{RTW_SPP} spp d{RTW_DEPTH}; {card}); peak device memory "
+        f"{peak_mb:.1f} MiB")
+    r_plan = plans[coherent[0]]["plan"]
+    r_kw = dict(
+        camera_consts=camera_consts(rtw.camera, W, H), sampler=r_renderer.sampler, width=W,
+        height=H, spp=RTW_SPP, stride=1, max_depth=RTW_DEPTH, has_dof=False,
+    )
+    st0 = integrator.initial_regen_state(r_plan[2], 1)
+    k2_ms, k2_state = cuda_time_ms(
+        lambda: tb.bounce_regen(rtw.compiled, st0, r_plan[0], r_plan[1], r_plan[3], 0, t_min,
+                                **r_kw), 3)
+    log(f"bounce kernel at the coherent plan ({r_plan[0].shape[0]} lanes, {RTW_SPP} spp): "
+        f"{k2_ms:.3f} ms ({card})")
+    step = max(1, r_plan[0].shape[0] // SLICE_LANES)
+    slice_lanes = tuple(a[::step][:SLICE_LANES].contiguous() for a in r_plan[:2])
+    k2_slice, k2_counts, _ = regen_parity(
+        zt, tb, integrator, torch, rtw, W, RTW_SPP, RTW_DEPTH,
+        f"{SLICE_LANES} coherent-plan lanes {RTW_SPP} spp d{RTW_DEPTH}", lanes=slice_lanes)
+    k2_checks.append(k2_slice)
+    # lanes read 13 float and 5 int state rows and (px, py, limit), and
+    # write the 18 state rows
+    k2_bound = render_bound(zt, rtw, k2_counts, k2_state.work.sum().item(),
+                            r_plan[0].shape[0] * (84 + 72), False)
+
+    # ---- 12. the image scenes' region gates ----
+    # rtw_final's 64x64 golden holds 2,048 samples per 8x8-pixel region,
+    # too few for its dark regions, whose light comes from rare paths: those
+    # decorrelate from the golden's (XLA's contracted multiply-adds; the
+    # port equals the JAX integrator run unfused, lane for lane), so its
+    # gate takes 4x4 regions of 8,192 samples
+    image_gates = {name: region_gates(zt, np, images[name], name,
+                                      grid64=4 if name == "rtw_final" else 8)
+                   for name in ("earth", "shrek_quads", "rtw_final")}
 
     b_hit = hit_checks[1]
+    common = {"route": "cuda", "library_ms": None, "library_note": LIBRARY_NOTE, "card": card}
     record = {"kernels": [
         {
             "name": "fused_render_kernel",
-            "route": "cuda",
             "source": KERNEL_SOURCE,
             "replaces": KERNEL_REPLACES,
             "launches": launches + b_launches,
-            "launches_by_path": {"cornell": launches, "balls": b_launches},
+            "launches_by_path": {"cornell": launches, "balls": b_launches, "rtw_final": r_k1},
             "max_abs_err": max(c["max_abs_err"] for c in checks + tree_checks),
             "ms": kernel_ms,
             "plain_ms": plain_ms,
+            **k1_bound,
             "plain_spp": plain_spp,
             "kernel_ms_at_plain_spp": kernel_ms_same,
             "balls_ms": b_kernel_ms,
@@ -558,22 +824,47 @@ def main() -> int:
             "region_gate": verdict,
             "balls_render_s_best": b_best,
             "balls_mpaths_per_s": b_mpaths,
-            "balls_region_gates": [v200, v64],
-            "card": card,
+            "balls_region_gates": balls_gates,
+            **common,
         },
         {
             "name": "closest_hit_kernel",
-            "route": "cuda",
             "source": HIT_SOURCE,
             "replaces": HIT_REPLACES,
-            "launches": b_hit_launches,
+            "launches": b_hit_launches + r_hit,
+            "launches_by_path": {"balls": b_hit_launches, "rtw_final": r_hit},
             "max_abs_err": max(c["max_abs_err"] for c in hit_checks),
             "ms": b_hit["ms"],
             "plain_ms": b_hit["plain_ms"],
+            "bound_ms": b_hit["bound_ms"],
+            "bound_by": b_hit["bound_by"],
             "parity": hit_checks,
             "tolerance": f"(kind, idx) equal on >= {HIT_AGREE:.1%} of rays; "
                          f"t rtol {HIT_RTOL}, atol {HIT_ATOL}",
-            "card": card,
+            **common,
+        },
+        {
+            "name": "bounce_kernel",
+            "source": BOUNCE_SOURCE,
+            "replaces": BOUNCE_REPLACES,
+            "launches": r_k2,
+            "launches_by_path": {"rtw_final": r_k2},
+            "max_abs_err": max(c["max_abs_err"] for c in k2_checks),
+            "ms": k2_ms,
+            "plain_ms": k2_slice["plain_ms"],
+            **k2_bound,
+            "plain_lanes": SLICE_LANES,
+            "kernel_ms_at_plain_lanes": k2_slice["ms"],
+            "parity": k2_checks,
+            "tolerance": "one bounce: alive equal and state rtol 1e-5, atol 1e-6 on >= 99.9% "
+                         "of lanes; regenerating: rtol 1e-4, atol 1e-5 on >= 99% of lanes, "
+                         "mean 1e-4 rel",
+            "driver_passes_per_band": passes / max(bands, 1),
+            "rtw_final_render_s_best": r_best,
+            "rtw_final_mpaths_per_s": r_mpaths,
+            "rtw_final_peak_mib": peak_mb,
+            "region_gates": image_gates,
+            **common,
         },
     ]}
     print(card, flush=True)

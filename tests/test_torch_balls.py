@@ -79,13 +79,13 @@ def _render_port(scene, lanes):
 
 @pytest.fixture(scope="module")
 def balls():
-    return zt.models.load_scene("balls")
+    return zt.models.load_scene("balls", device="cpu")
 
 
 @pytest.mark.parametrize("span", ["4", "2"])
 def test_render_fused_matches_jax_kernel(pallas_interpret, monkeypatch, span):
     monkeypatch.setenv("ZWRT_LEAF_GROUPS", span)
-    sj, st = zj.models.load_scene("balls"), zt.models.load_scene("balls")
+    sj, st = zj.models.load_scene("balls"), zt.models.load_scene("balls", device="cpu")
     assert st.camera.has_depth_of_field and st.compiled.needs_gauss
     assert st.compiled.sph_leaf_span == int(span) and st.compiled.sph_tree_box.shape[0] > 1
     assert not st.compiled.light_params
@@ -107,11 +107,11 @@ def test_render_fused_single_leaf_equals_deep_tree(monkeypatch):
     """The package default span makes balls one leaf; its render equals the
     span-4 render (a 31-node tree), which the test above holds to JAX."""
     monkeypatch.delenv("ZWRT_LEAF_GROUPS", raising=False)
-    one_leaf = zt.models.load_scene("balls")
+    one_leaf = zt.models.load_scene("balls", device="cpu")
     assert one_leaf.compiled.sph_leaf_span == 64
     assert one_leaf.compiled.sph_tree_box.shape[0] == 1
     monkeypatch.setenv("ZWRT_LEAF_GROUPS", "4")
-    deep = zt.models.load_scene("balls")
+    deep = zt.models.load_scene("balls", device="cpu")
     lanes = _lanes()
     r1, w1 = _render_port(one_leaf, lanes)
     r4, w4 = _render_port(deep, lanes)

@@ -50,7 +50,7 @@ def random_scene(mod, seed, n_s, n_q, moving=False):
         b.add(b.quad(rng.uniform(-10, 10, 3), rng.uniform(-2, 2, 3), rng.uniform(-2, 2, 3), mat))
     b.use_bvh(True, min_prims=2)
     b.set_camera(mod.scene.Camera(look_from=(0, 0, 30), look_at=(0, 0, 0)))
-    return b.compile().compiled, rng
+    return b.compile(**({"device": "cpu"} if mod is zt else {})).compiled, rng
 
 
 def assert_same_trees(ct, cj):
@@ -80,7 +80,7 @@ def test_balls_trees_equal_jax(monkeypatch, span):
         monkeypatch.delenv("ZWRT_LEAF_GROUPS", raising=False)
     else:
         monkeypatch.setenv("ZWRT_LEAF_GROUPS", span)
-    ct = zt.models.load_scene("balls").compiled
+    ct = zt.models.load_scene("balls", device="cpu").compiled
     assert_same_trees(ct, zj.models.load_scene("balls").compiled)
     assert ct.has_sph_tree and not ct.has_quad_tree
     n_nodes = ct.sph_tree_box.shape[0]

@@ -83,7 +83,7 @@ def test_unit_disk_xy_matches_jax():
 
 @pytest.mark.parametrize("sampler", ["sobol", "independent"])
 def test_generate_rays_with_dof(sampler):
-    sj, st = zj.models.load_scene("balls"), zt.models.load_scene("balls")
+    sj, st = zj.models.load_scene("balls"), zt.models.load_scene("balls", device="cpu")
     assert st.camera.has_depth_of_field
     w, h, spp = 40, 30, 16
     rng = np.random.default_rng(6)

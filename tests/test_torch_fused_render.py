@@ -96,7 +96,7 @@ def _compare(scene_pair, width, height, spp, depth, edge_lanes=()):
 
 @pytest.fixture(scope="module")
 def cornell():
-    return zj.models.load_scene("cornell_box"), zt.models.load_scene("cornell_box")
+    return zj.models.load_scene("cornell_box"), zt.models.load_scene("cornell_box", device="cpu")
 
 
 def test_render_fused_matches_jax_kernel(pallas_interpret, cornell):
@@ -177,7 +177,7 @@ def _feature_scene(mod):
     b.set_lights([light])
     b.set_background((0.3, 0.4, 0.6))
     b.set_camera(mod.scene.Camera(look_from=(0.3, 2, 8), look_at=(0, 0.5, 0)))
-    return b.compile()
+    return b.compile(**({"device": "cpu"} if mod is zt else {}))
 
 
 def test_render_fused_matches_jax_kernel_all_materials(pallas_interpret):
@@ -257,7 +257,7 @@ def test_kernel_tables_and_params(cornell):
     qw = np.stack([c.numpy() for c in cs.quad_w], 1)[:12]
     np.testing.assert_allclose(quad[:, 6:9].numpy(), np.cross(qv, qw), rtol=1e-6, atol=1e-12)
     cam = tcam.camera_consts(st.camera, 400, 400)
-    ints, floats = fused_render._params(
+    ints, floats = fused_render.launch_params(
         cs, 0, zt.dtypes.T_MIN, cam, zt.sampling.SamplerKind.SOBOL, 400, 400,
         1024, 1, 10, False,
     )

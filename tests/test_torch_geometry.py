@@ -56,7 +56,7 @@ def _close(j, t):
 
 @pytest.fixture(scope="module")
 def cornell():
-    return zj.models.load_scene("cornell_box"), zt.models.load_scene("cornell_box")
+    return zj.models.load_scene("cornell_box"), zt.models.load_scene("cornell_box", device="cpu")
 
 
 def _rays(seed, n=N):
@@ -180,7 +180,7 @@ def test_camera_viewport_with_raster_shift():
     import dataclasses
 
     cam_j = zj.models.load_scene("cornell_box").camera
-    cam_t = zt.models.load_scene("cornell_box").camera
+    cam_t = zt.models.load_scene("cornell_box", device="cpu").camera
     cam_j = dataclasses.replace(cam_j, raster_shift=(0.5, 0.5))
     cam_t = dataclasses.replace(cam_t, raster_shift=(0.5, 0.5))
     for a, b in zip(cam_j.viewport(64, 48), cam_t.viewport(64, 48)):

@@ -3,8 +3,8 @@
 A subprocess installs a meta-path hook that refuses ``jax``, ``jaxlib`` and
 ``zig_weekend_raytracer_tpu`` before anything is imported, then imports
 ``zig_weekend_raytracer_tpu_torch``, every module in it, and
-``chip_smoke``.  The modules of the tree-scene slice are named, so that
-the walk cannot miss them."""
+``chip_smoke``.  The modules of the tree-scene and image-texture slices
+are named, so that the walk cannot miss them."""
 
 import os
 import subprocess
@@ -36,7 +36,10 @@ _SCRIPT = textwrap.dedent(
         importlib.import_module(mod.name)
         names.append(mod.name)
     for name in ("math.aabb", "math.interval", "geometry.bvh", "ops.closest_hit",
-                 "ops.trace", "models.balls", "render.renderer"):
+                 "ops.trace", "models.balls", "render.renderer", "io.native",
+                 "io.image", "textures", "ops.bounce", "models.earth",
+                 "models.shrek_quads", "models.rtw_final", "utils.workcount",
+                 "utils.roofline"):
         assert pkg.__name__ + "." + name in names, name
     import chip_smoke
     leaked = [m for m in sys.modules if m.split(".")[0] in BLOCKED]

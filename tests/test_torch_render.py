@@ -33,7 +33,7 @@ EDGE_PIXELS = ((12, 12), (13, 13), (14, 14))
 
 @pytest.fixture(scope="module")
 def cornell():
-    return zt.models.load_scene("cornell_box")
+    return zt.models.load_scene("cornell_box", device="cpu")
 
 
 def test_render_matches_jax_renderer(cornell):

@@ -140,3 +140,20 @@ def test_ray_grid_bitwise(width, height, band_y0, band_rows, sample0, spp_chunk)
         jr.tile_order_lane_index(width, band_rows, tile),
         tr.tile_order_lane_index(width, band_rows, tile),
     )
+
+
+def test_sobol_data_is_the_ports_own_copy():
+    """The port reads its own copy of the direction numbers, inside its
+    package, and every array equals the JAX package's."""
+    import os
+
+    import zig_weekend_raytracer_tpu_torch as pkg
+
+    assert os.path.dirname(tsob.SOBOL_DATA_PATH) == os.path.join(
+        os.path.dirname(pkg.__file__), "sampling"
+    )
+    with np.load(tsob.SOBOL_DATA_PATH) as t, np.load(jsob.__file__.replace("sobol.py", "sobol_data.npz")) as j:
+        assert sorted(t.files) == sorted(j.files)
+        for k in j.files:
+            assert t[k].dtype == j[k].dtype, k
+            np.testing.assert_array_equal(t[k], j[k], err_msg=k)

@@ -4,15 +4,17 @@ CUDA for one NVIDIA H100.
 The JAX package ``zig_weekend_raytracer_tpu`` is the reference; this
 package mirrors its layout (math/, sampling/, geometry/, render/, ops/,
 io/, utils/, models/) and never imports it or JAX.  Renders go through
-hand-written CUDA kernels: ``csrc/fused_render.cu`` (the whole render) and
-``csrc/closest_hit.cu`` (the first-hit probe of tree scenes); on CPU
-tensors the same entry points run their plain PyTorch versions.
+hand-written CUDA kernels: ``csrc/fused_render.cu`` (the whole render of
+a scene without images), ``csrc/bounce.cu`` (the bounce of image-texture
+scenes) and ``csrc/closest_hit.cu`` (the first-hit probe of tree scenes);
+scenes live on the card unless built with ``device="cpu"``, where the
+same entry points run the kernels' plain PyTorch versions.
 
 Typical usage:
 
     import zig_weekend_raytracer_tpu_torch as zwrt_torch
-    scene = zwrt_torch.models.load_scene("balls", device="cuda")
-    img = zwrt_torch.render.Renderer(samples_per_pixel=128).render(scene, 400, 400)
+    scene = zwrt_torch.models.load_scene("rtw_final")
+    img = zwrt_torch.render.Renderer(samples_per_pixel=64, max_ray_bounce_depth=8).render(scene, 400, 400)
     zwrt_torch.io.write_ppm("out.ppm", img)
 """
 

@@ -2,8 +2,9 @@
 // zig_weekend_raytracer_tpu_torch: PCG4D, Sobol, camera rays with the
 // defocus disk, sphere and quad hits, the closest-hit stages (brute scan,
 // slab test, leaf sweep, skip-link tree walk), shade-record reads, the five
-// materials and the light-list PDF.  fused_render.cu and closest_hit.cu
-// both trace through trace_closest below.
+// materials, the light-list PDF, sphere and quad UVs with the atlas texel
+// fetch, and the bounce step and regenerating drain that fused_render.cu
+// and bounce.cu share.  All three kernels trace through trace_closest.
 //
 // Every function follows the plain PyTorch version in the package
 // (sampling/, geometry/, render/, ops/) operation for operation, so that a
@@ -48,11 +49,13 @@ enum MatType {
 // record columns (ops/shade.py)
 constexpr int kColMat = 16;
 constexpr int kColTexKind = 17;
+constexpr int kColImg = 18;
 constexpr int kColRgb = 19;
 constexpr int kColRgb2 = 22;
 constexpr int kColInvScale = 25;
 constexpr int kColFuzz = 26;
 constexpr int kColRefract = 27;
+constexpr int kColImg2 = 28;
 
 constexpr int kBounceBase = 8;
 constexpr int kSitesPerBounce = 4;
@@ -67,8 +70,11 @@ constexpr float kAabbMaxMult = 1.00000024f;
 constexpr int kGroup = 8;  // slots per leaf group (the JAX kernels' sublanes)
 enum TraceMode { kTraceNone = 0, kTraceBrute = 1, kTraceTree = 2 };
 
+constexpr float kPi = 3.141592653589793f;
 constexpr float kTwoPi = 6.283185307179586f;
 constexpr float kInvPi = 0.3183098861837907f;
+constexpr float kHalfInvPi = 0.15915494309189535f;
+constexpr float kInv255 = 0.00392156862745098f;
 constexpr float kInv4Pi = 0.07957747154594767f;
 constexpr float kOneMinusEps = 0.99999994f;
 constexpr float kTMinPdf = 1e-3f;
@@ -572,6 +578,258 @@ __device__ __forceinline__ float schlick_reflectance(float cos_theta, float ri) 
   float x = 1.0f - cos_theta;
   float x2 = x * x;
   return r0 + (1.0f - r0) * (x * (x2 * x2));
+}
+
+// ---------------------------------------------------------------------------
+// Image textures (geometry/sphere.py:uv, ops/shade.py, textures.py)
+// ---------------------------------------------------------------------------
+
+constexpr int kMaxImages = 16;
+
+// The packed atlas: (n_images, ah, aw) texels r | g << 8 | b << 16 and each
+// image's static (width, height).
+struct Atlas {
+  const int* texels;
+  int n_images, ah, aw;
+  int w[kMaxImages], h[kMaxImages];
+};
+
+// Spherical UVs from the object-space outward normal.
+__device__ __forceinline__ void sphere_uv(V3 n, float* u, float* v) {
+  float theta = acosf(clamp_max(clamp_min(-n.y, -1.0f), 1.0f));
+  float phi = atan2f(-n.z, n.x) + kPi;
+  *u = phi * kHalfInvPi;
+  *v = theta * kInvPi;
+}
+
+// Nearest texel of image ``img`` at (u, v), byte -> linear by the gamma-2
+// square: textures.py:atlas_flat_index's arithmetic, then one 4-byte load.
+__device__ __forceinline__ V3 atlas_texel(const Atlas& a, int img, float u, float v) {
+  float wf = 0.0f, hf = 0.0f;
+  int wi = 0, hi = 0;
+#pragma unroll
+  for (int i = 0; i < kMaxImages; ++i) {
+    if (i < a.n_images && img == i) {
+      wf = (float)a.w[i];
+      hf = (float)a.h[i];
+      wi = a.w[i];
+      hi = a.h[i];
+    }
+  }
+  float uc = clamp_max(clamp_min(u, 0.0f), 1.0f);
+  float vc = 1.0f - clamp_max(clamp_min(v, 0.0f), 1.0f);
+  int x = (int)(uc * wf);
+  int y = (int)(vc * hf);
+  x = x < 0 ? 0 : (x > wi - 1 ? wi - 1 : x);
+  y = y < 0 ? 0 : (y > hi - 1 ? hi - 1 : y);
+  uint32_t t = (uint32_t)__ldg(a.texels + (size_t)img * a.ah * a.aw + (size_t)y * a.aw + x);
+  V3 c = mk((float)(t & 0xFFu) * kInv255, (float)((t >> 8) & 0xFFu) * kInv255,
+            (float)((t >> 16) & 0xFFu) * kInv255);
+  return c * c;
+}
+
+// ---------------------------------------------------------------------------
+// The bounce (render/integrator.py:bounce) and the regenerating drain
+// (render/integrator.py:_drain)
+// ---------------------------------------------------------------------------
+
+// One path's state between bounces.
+struct Path {
+  V3 o, d, thr, rad;
+  float time;
+  uint32_t rid;
+  int depth;
+};
+
+// One bounce of a live path: closest hit, shade record, texture, the
+// material's scatter.  Returns whether the path goes on (before the depth
+// cutoff).  IMAGES compiles the atlas fetch: the texel of an image texture
+// (or a checker's image child) replaces the record colour at the hit, as
+// the XLA integrator orders it.  Without IMAGES ``atlas`` is never read.
+template <bool IMAGES>
+__device__ __forceinline__ bool bounce_step(const Params& p, const TraceScene& scene,
+                                            const float* __restrict__ shade_rows,
+                                            const Atlas* atlas, Path& s) {
+  // ---- closest hit: sphere stage, then quad stage ----
+  float best;
+  int kind, idx;
+  trace_closest(scene, s.o, s.d, s.time, p.t_min, kBig, &best, &kind, &idx);
+  if (kind < 0) {
+    // ---- miss: background, the path ends ----
+    s.rad = s.rad + s.thr * mk(p.bg[0], p.bg[1], p.bg[2]);
+    return false;
+  }
+
+  // ---- shade record and hit attributes (ops/shade.py) ----
+  int row = kind == kSphere ? idx : p.n_sph + idx;
+  row = row < 0 ? 0 : (row > p.n_rows - 1 ? p.n_rows - 1 : row);
+  const float* rec = shade_rows + (size_t)row * kRecordWidth;
+  V3 point = s.o + s.d * best;
+  V3 outward;
+  if (kind == kSphere) {
+    V3 center = mk(rec[0], rec[1], rec[2]) + mk(rec[3], rec[4], rec[5]) * s.time;
+    outward = (point - center) * rec[6];
+  } else {
+    outward = mk(rec[3], rec[4], rec[5]);
+  }
+  bool front = dot(s.d, outward) < 0.0f;
+  V3 normal = front ? outward : -outward;
+  int mat = (int)rec[kColMat];
+  V3 rgb = mk(rec[kColRgb], rec[kColRgb + 1], rec[kColRgb + 2]);
+  bool odd = false;
+  if ((int)rec[kColTexKind] == 1) {
+    float inv_scale = rec[kColInvScale];
+    int xi = (int)floorf(inv_scale * point.x);
+    int yi = (int)floorf(inv_scale * point.y);
+    int zi = (int)floorf(inv_scale * point.z);
+    odd = ((xi + yi + zi) & 1) != 0;
+  }
+  V3 tex_rgb = odd ? mk(rec[kColRgb2], rec[kColRgb2 + 1], rec[kColRgb2 + 2]) : rgb;
+  if (IMAGES) {
+    int img = (int)rec[odd ? kColImg2 : kColImg];
+    if (img >= 0) {
+      float u, v;
+      if (kind == kSphere) {
+        // object-space normal: undo the instance's y rotation (cols 7-8)
+        float c = rec[7], sn = rec[8];
+        sphere_uv(mk(c * outward.x - sn * outward.z, outward.y, sn * outward.x + c * outward.z),
+                  &u, &v);
+      } else {
+        // plane coordinates (alpha, beta) through w (cols 6-8), edges u
+        // (9-11) and v (12-14)
+        V3 w = mk(rec[6], rec[7], rec[8]);
+        V3 planar = point - mk(rec[0], rec[1], rec[2]);
+        u = dot(w, cross(planar, mk(rec[12], rec[13], rec[14])));
+        v = dot(w, cross(mk(rec[9], rec[10], rec[11]), planar));
+      }
+      tex_rgb = atlas_texel(*atlas, img, u, v);
+    }
+  }
+
+  // ---- RNG draws of this bounce ----
+  uint32_t site = (uint32_t)(kBounceBase + s.depth * kSitesPerBounce);
+  F4 u = uniform4(p.seed, s.rid, site);
+
+  bool survives = false;
+  V3 mult = mk(1.0f, 1.0f, 1.0f);
+  V3 new_dir = s.d;
+  if (mat == kDiffuseLight) {
+    // ---- emission on front faces; the path ends ----
+    if (front) s.rad = s.rad + s.thr * tex_rgb;
+  } else if (mat == kMetal) {
+    V3 metal_dir = reflect(s.d, normal);
+    if (p.needs_gauss) {
+      float fuzz = clamp_max(clamp_min(rec[kColFuzz], 0.0f), 1.0f);
+      metal_dir = metal_dir + unit_sphere(gauss3(p.seed, s.rid, site + 2u)) * fuzz;
+    }
+    survives = dot(metal_dir, normal) > 0.0f;
+    new_dir = metal_dir;
+    mult = rgb;
+  } else if (mat == kDielectric) {
+    float ri = rec[kColRefract];
+    float index = front ? 1.0f / ri : ri;
+    V3 unit_in = normalize(s.d);
+    float cos_theta = clamp_max(dot(-unit_in, normal), 1.0f);
+    float sin_theta = sqrtf(clamp_min(1.0f - cos_theta * cos_theta, 0.0f));
+    bool must_reflect =
+        (index * sin_theta > 1.0f) || (schlick_reflectance(cos_theta, ri) > u.x);
+    new_dir = must_reflect ? reflect(unit_in, normal) : refract(unit_in, normal, index);
+    survives = true;
+  } else {
+    // ---- diffuse: cosine or isotropic sample, light mixture ----
+    V3 mat_dir;
+    if (mat == kIsotropic) {
+      mat_dir = unit_sphere(gauss3(p.seed, s.rid, site + 2u));
+    } else {
+      mat_dir = onb_transform(ortho_basis(normal), cosine_direction_z(u.y, u.z));
+    }
+    float scatter_pdf, sample_pdf;
+    if (p.n_lights > 0) {
+      F4 ul = uniform4(p.seed, s.rid, site + 1u);
+      V3 diff_dir = u.w < 0.5f ? light_sample(p, point, ul.x, ul.y, ul.z) : mat_dir;
+      float mat_pdf = scattering_pdf(mat, normal, diff_dir);
+      float l_pdf = light_pdf(p, point, diff_dir);
+      sample_pdf = 0.5f * l_pdf + 0.5f * mat_pdf;
+      scatter_pdf = mat_pdf;
+      new_dir = diff_dir;
+    } else {
+      scatter_pdf = scattering_pdf(mat, normal, mat_dir);
+      sample_pdf = scatter_pdf;
+      new_dir = mat_dir;
+    }
+    float ratio = sample_pdf > 0.0f ? scatter_pdf / sample_pdf : 0.0f;
+    mult = tex_rgb * ratio;
+    survives = true;
+  }
+  if (survives) {
+    s.thr = s.thr * mult;
+    survives = (s.thr.x != 0.0f) || (s.thr.y != 0.0f) || (s.thr.z != 0.0f);
+  }
+  s.o = point;
+  s.d = new_dir;
+  return survives;
+}
+
+// Runs one lane until its sample window is used up: a dead lane respawns
+// its pixel's next sample (sample += stride, while below ``limit``), every
+// pass counts one unit of work and runs one bounce, and a path ends after
+// p.max_depth bounces.
+template <bool IMAGES>
+__device__ __forceinline__ void drain(const Params& p, const TraceScene& scene,
+                                      const float* __restrict__ shade_rows, const Atlas* atlas,
+                                      const uint32_t* __restrict__ sobol, int px, int py,
+                                      int limit, Path& s, bool& alive, int& sample, int& work) {
+  const int stride = p.stride;
+  while (alive || sample + stride < limit) {
+    if (!alive) {
+      sample += stride;
+      s.rid = ray_id_of(p, sample, px, py);
+      s.time = generate_ray(p, sobol, s.rid, px, py, sample, &s.o, &s.d);
+      s.thr = mk(1.0f, 1.0f, 1.0f);
+      s.depth = 0;
+      alive = true;
+    }
+    work += 1;
+    bool survives = bounce_step<IMAGES>(p, scene, shade_rows, atlas, s);
+    s.depth += 1;
+    alive = survives && s.depth < p.max_depth;
+  }
+}
+
+// Host side: Params from the int32 and float32 arrays the wrappers pack
+// (ops/fused_render.py:_params), in their order.
+inline Params read_params(const int* iparams, const float* fparams) {
+  Params p;
+  int k = 0;
+  p.width = iparams[k++];
+  p.height = iparams[k++];
+  p.spp = iparams[k++];
+  p.stride = iparams[k++];
+  p.max_depth = iparams[k++];
+  p.sampler = iparams[k++];
+  p.log2_scale = iparams[k++];
+  p.strat_sqrt = iparams[k++];
+  p.seed = (uint32_t)iparams[k++];
+  p.n_sph = iparams[k++];
+  p.n_quad = iparams[k++];
+  p.n_rows = iparams[k++];
+  p.n_lights = iparams[k++];
+  p.needs_gauss = iparams[k++];
+  p.has_dof = iparams[k++];
+  for (int l = 0; l < kMaxLights; ++l) p.light_kind[l] = iparams[k++];
+  int f = 0;
+  p.t_min = fparams[f++];
+  p.strat_recip = fparams[f++];
+  for (int c = 0; c < 3; ++c) p.cam_pos[c] = fparams[f++];
+  for (int c = 0; c < 3; ++c) p.pixel00[c] = fparams[f++];
+  for (int c = 0; c < 3; ++c) p.du[c] = fparams[f++];
+  for (int c = 0; c < 3; ++c) p.dv[c] = fparams[f++];
+  for (int c = 0; c < 3; ++c) p.defocus_u[c] = fparams[f++];
+  for (int c = 0; c < 3; ++c) p.defocus_v[c] = fparams[f++];
+  for (int c = 0; c < 3; ++c) p.bg[c] = fparams[f++];
+  for (int l = 0; l < kMaxLights; ++l)
+    for (int c = 0; c < kLightFloats; ++c) p.light[l][c] = fparams[f++];
+  return p;
 }
 
 }  // namespace zwrt

@@ -9,7 +9,7 @@ import numpy as np
 from ..scene import Camera, Scene, SceneBuilder
 
 
-def load_scene_balls(seed: int = 0, device="cpu") -> Scene:
+def load_scene_balls(seed: int = 0, asset_dir: str = "", device="cuda") -> Scene:
     rand = np.random.default_rng(seed)
     b = SceneBuilder()
 

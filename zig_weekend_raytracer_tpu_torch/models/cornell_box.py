@@ -6,7 +6,7 @@ from __future__ import annotations
 from ..scene import Camera, Scene, SceneBuilder
 
 
-def load_scene_cornell_box(device="cpu") -> Scene:
+def load_scene_cornell_box(seed: int = 0, asset_dir: str = "", device="cuda") -> Scene:
     b = SceneBuilder()
 
     tex_red = b.solid_color((0.65, 0.05, 0.05))

@@ -119,4 +119,6 @@ def load_library() -> ctypes.CDLL:
     lib.zwrt_fused_render.restype = ctypes.c_int
     lib.zwrt_closest_hit.argtypes = [p] * 4 + [f, f] + [p] * 3 + [i, p]
     lib.zwrt_closest_hit.restype = ctypes.c_int
+    lib.zwrt_bounce.argtypes = [p] * 13 + [i, i, i, p]
+    lib.zwrt_bounce.restype = ctypes.c_int
     return lib

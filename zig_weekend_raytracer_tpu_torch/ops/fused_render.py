@@ -135,8 +135,8 @@ def trace_args(scene: CompiledScene):
     return out
 
 
-def _params(scene, seed, t_min, camera_consts, sampler, width, height, spp,
-            stride, max_depth, has_dof):
+def launch_params(scene, seed, t_min, camera_consts, sampler, width, height,
+                  spp, stride, max_depth, has_dof):
     """Host arrays (int32, float32) in the order the C launcher reads them."""
     n_l = len(scene.light_params)
     if n_l > MAX_LIGHTS:
@@ -167,11 +167,11 @@ def _params(scene, seed, t_min, camera_consts, sampler, width, height, spp,
     return np.ascontiguousarray(ints), np.ascontiguousarray(floats)
 
 
-def _check_lane_tensor(name, t, device, n):
+def check_lane_tensor(name, t, device, n, dtype=torch.int32):
     if t.device != device:
         raise ValueError(f"{name} is on {t.device}, expected {device}")
-    if t.dtype != torch.int32:
-        raise ValueError(f"{name} must be int32, got {t.dtype}")
+    if t.dtype != dtype:
+        raise ValueError(f"{name} must be {dtype}, got {t.dtype}")
     if t.dim() != 1 or t.shape[0] != n:
         raise ValueError(f"{name} must have shape ({n},), got {tuple(t.shape)}")
     if not t.is_contiguous():
@@ -189,7 +189,14 @@ def render_fused(
     (px, py).  Lane tensors are (N,) int32.  Returns the per-lane radiance
     sums as V3 of (N,) float32, plus the per-lane work count (int32: loop
     passes in which the lane's path was alive) when ``want_work``.  With
-    ``has_dof`` camera rays start on the defocus disk of ``camera_consts``."""
+    ``has_dof`` camera rays start on the defocus disk of ``camera_consts``.
+    Image scenes raise: the kernel has no atlas fetch (they take
+    ``ops/bounce.py:bounce_regen``)."""
+    if scene.has_image_textures:
+        raise NotImplementedError(
+            "render_fused takes no image-texture scene; trace_paths_regen "
+            "sends those to the bounce kernel (ops/bounce.py)"
+        )
     device = px.device
     if device.type == "cpu":
         return render_fused_reference(
@@ -202,12 +209,12 @@ def render_fused(
         raise ValueError(f"render_fused runs on cuda or cpu tensors, not {device}")
     n = px.shape[0]
     for name, t in (("px", px), ("py", py), ("s0", s0), ("s1", s1)):
-        _check_lane_tensor(name, t, device, n)
+        check_lane_tensor(name, t, device, n)
     if scene.device != device:
         raise ValueError(f"scene is on {scene.device}, lanes on {device}")
 
     lib = _build.load_library()
-    ints, floats = _params(
+    ints, floats = launch_params(
         scene, seed, t_min, camera_consts, sampler, width, height, spp,
         stride, max_depth, has_dof,
     )

@@ -25,7 +25,7 @@ from .trace import Hit
 # quads:   0-2 start, 3-5 normal, 6-8 w, 9-11 edge_u, 12-14 edge_v
 C_MAT = 16       # material type code
 C_TEXKIND = 17   # texture kind code
-C_IMG = 18       # atlas image id (-1 = none; images are a later slice)
+C_IMG = 18       # atlas image id (-1 = none)
 C_RGB = 19       # 19-21: solid / checker-even rgb, metal albedo, emission
 C_RGB2 = 22      # 22-24: checker-odd rgb
 C_INVSCALE = 25  # checker inverse scale
@@ -53,6 +53,8 @@ class ShadeAttrs(NamedTuple):
     inv_scale: torch.Tensor
     fuzz: torch.Tensor
     refract: torch.Tensor
+    img: torch.Tensor     # atlas image id of the texture (-1 = none)
+    img2: torch.Tensor    # a checker's odd-child image id (-1 = none)
 
 
 def build_shade_rows(
@@ -144,4 +146,6 @@ def shade_attrs(
         inv_scale=cols[C_INVSCALE],
         fuzz=cols[C_FUZZ],
         refract=cols[C_REFRACT],
+        img=cols[C_IMG].to(torch.int32),
+        img2=cols[C_IMG2].to(torch.int32),
     )

@@ -35,8 +35,11 @@ from ..geometry import sphere as sphere_g
 from ..math.aabb import aabb_hit
 from ..math.v3 import V3
 from ..scene import PRIM_QUAD, PRIM_SPHERE, CompiledScene
+from ..utils import workcount
 
 NO_HIT = -1
+# workcount keys of one primitive test per kind
+_TEST = {PRIM_SPHERE: "sphere_test", PRIM_QUAD: "quad_test"}
 # Leaf sweeps handle at most this many (lane, slot) pairs at once.
 _SWEEP_ELEMS = 1 << 22
 
@@ -175,6 +178,11 @@ def _tree_stage(code, box, link, attrs, span, o: V3, d: V3, tm, t_min, walking, 
         )
         leaf = link[nd, 1]
         visit = hit & (leaf >= 0)
+        if workcount.enabled():
+            n_visit = int(visit.sum())
+            workcount.add("slab_test", lanes.numel())
+            workcount.add("leaf_visit", n_visit)
+            workcount.add(_TEST[code], n_visit * span * 8)
         if bool(visit.any()):
             vl = lanes[visit]
             t_row, i_row = _leaf_sweep(
@@ -210,6 +218,15 @@ def closest_hit(
     )
     best = _fresh(n, min(float(t_max), BIG), dev)
     tm = time if scene.has_moving else None
+    if workcount.enabled():
+        n_rays = int(alive.sum())
+        workcount.add("trace", n_rays)
+        for code, has_tree, n_prims in (
+            (PRIM_SPHERE, scene.has_sph_tree, scene.n_spheres),
+            (PRIM_QUAD, scene.has_quad_tree, scene.n_quads),
+        ):
+            if not has_tree:
+                workcount.add(_TEST[code], n_rays * n_prims)
     if scene.has_sph_tree:
         best = _tree_stage(
             PRIM_SPHERE, scene.sph_tree_box, scene.sph_tree_link,

@@ -2,5 +2,5 @@
 driver."""
 
 from .camera import CameraParams, camera_consts, camera_params, generate_rays
-from .integrator import render_fused_reference
+from .integrator import render_fused_reference, trace_paths_regen
 from .renderer import Renderer

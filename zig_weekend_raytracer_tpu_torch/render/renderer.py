@@ -1,8 +1,11 @@
 """Render driver (counterpart of ``render/renderer.py``, regenerating path).
 
-An image renders as row bands; each band is one call of the fused kernel
-(``ops/fused_render.py``) over lanes that each own one pixel.  With one
-sample in flight per pixel (s_par = 1) the lanes follow a cached plan:
+An image renders as row bands; each band is one call of
+``render/integrator.py:trace_paths_regen`` over lanes that each own one
+pixel: one launch of the fused render kernel (``ops/fused_render.py``), or
+for image-texture scenes of the bounce kernel's regenerating mode
+(``ops/bounce.py``).  With one sample in flight per pixel (s_par = 1) the
+lanes follow a cached plan:
 
   * brute scenes: the first render of a (scene, size, config) measures each
     lane's work count; later renders sort pixels by that cost, so each warp
@@ -25,12 +28,12 @@ from typing import Optional
 import numpy as np
 import torch
 
-from ..dtypes import T_MIN, real
+from ..dtypes import real
 from ..ops.closest_hit import closest_hit
-from ..ops.fused_render import render_fused
 from ..sampling.sampler import SamplerKind
 from ..scene import Scene
 from .camera import camera_consts, camera_params_from_consts, generate_rays
+from .integrator import trace_paths_regen
 
 log = logging.getLogger("zwrt")
 
@@ -116,11 +119,10 @@ def _render_band_regen(
     )
     i32 = torch.int32
     limit = torch.full_like(px, sample_limit, dtype=i32)
-    out = render_fused(
-        cs, px.to(i32), py.to(i32), sidx.to(i32), limit, seed, T_MIN,
-        camera_consts=cam_consts, sampler=sampler, width=width,
-        height=height, spp=spp, stride=s_par, max_depth=max_depth,
-        has_dof=has_dof, want_work=want_work,
+    out = trace_paths_regen(
+        cs, cam_consts, seed, px.to(i32), py.to(i32), sidx.to(i32), limit,
+        sampler=sampler, width=width, height=height, spp=spp, stride=s_par,
+        max_depth=max_depth, has_dof=has_dof, want_work=want_work,
     )
     radiance = out[0] if want_work else out
     fb = unflatten_radiance(
@@ -159,10 +161,10 @@ def _render_band_balanced(
     Each (pixel, sample) pair belongs to one lane, so the sum is the same
     whatever the lane order."""
     cs = scene.compiled
-    radiance = render_fused(
-        cs, px, py, s0, s1, seed, T_MIN, camera_consts=cam_consts,
-        sampler=sampler, width=width, height=height, spp=spp, stride=1,
-        max_depth=max_depth, has_dof=has_dof,
+    radiance = trace_paths_regen(
+        cs, cam_consts, seed, px, py, s0, s1, sampler=sampler, width=width,
+        height=height, spp=spp, stride=1, max_depth=max_depth,
+        has_dof=has_dof,
     )
     pixflat = ((py - band_y0) * width + px).to(torch.int64)
     fb = torch.zeros((band_rows * width, 3), dtype=real, device=cs.device)

@@ -6,9 +6,9 @@ the TPU has no u64; here they are plain int64 tensors (the bit pattern of
 the u64 index), and the CUDA kernel uses ``uint64_t``.  u32 values are
 int64 tensors in [0, 2^32) as in ``hashrng``.
 
-The direction-number tables are read from the JAX package's
-``sampling/sobol_data.npz`` by file path: a data read, not an import, so the
-table keeps a single copy in the repository.
+The direction-number tables are the port's own copy of the JAX package's
+``sampling/sobol_data.npz`` (``sampling/sobol_data.npz`` here, byte for
+byte), so the port reads nothing of the JAX package.
 """
 
 from __future__ import annotations
@@ -28,8 +28,7 @@ SOBOL_MATRIX_SIZE = 52
 MAX_SPP_LOG2 = 28
 
 SOBOL_DATA_PATH = os.path.join(
-    os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__)))),
-    "zig_weekend_raytracer_tpu", "sampling", "sobol_data.npz",
+    os.path.dirname(os.path.abspath(__file__)), "sobol_data.npz"
 )
 
 

@@ -10,10 +10,11 @@ tests), so both renderers can start from identical state.
 
 ``SceneBuilder.use_bvh`` builds the per-kind group trees that the
 closest-hit and render kernels walk (``geometry/bvh.py``), for each kind
-with at least ``TREE_MIN_PRIMS`` primitives.  Out of scope (ROADMAP.md):
-image textures and nested checkers (slice 4) and the unified both-kind
-tree (``ZWRT_UNI_TREE``, kernel K4).  Asking for one raises
-``NotImplementedError``.
+with at least ``TREE_MIN_PRIMS`` primitives.  Image textures are packed
+into one atlas of r | g << 8 | b << 16 texels.  Out of scope (ROADMAP.md):
+nested checkers and image-textured emitters (the rest of slice 4) and the
+unified both-kind tree (``ZWRT_UNI_TREE``, kernel K4).  Asking for one
+raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -53,8 +54,9 @@ _SLICE_UNI_TREE = (
     "the unified group tree (ZWRT_UNI_TREE) is kernel K4, a later slice of "
     "the port (ROADMAP.md)"
 )
-_SLICE_IMAGES = (
-    "image textures and nested checkers are slice 4 of the port (ROADMAP.md)"
+_SLICE_NESTED = (
+    "nested checkers and image-textured emitters are the rest of slice 4 of "
+    "the port (ROADMAP.md)"
 )
 
 
@@ -176,11 +178,12 @@ ARRAY_FIELDS = (
     "quad_area", "quad_mat",
     "mat_type", "mat_tex", "mat_albedo", "mat_fuzz", "mat_refract",
     "tex_type", "tex_rgb", "tex_inv_scale", "tex_even", "tex_odd",
-    "background", "shade_rows",
+    "background", "shade_rows", "atlas_packed", "atlas_wh",
 )
 STATIC_FIELDS = (
     "n_spheres", "n_quads", "n_materials", "n_textures", "has_moving",
     "needs_gauss", "lights", "light_params", "background_rgb",
+    "has_image_textures", "image_dims",
 )
 # Per-kind group trees (``CompiledScene.sph_tree_*`` / ``quad_tree_*``):
 # node boxes, links and the leaf-slot attribute tuple (7 sphere or 13 quad
@@ -195,9 +198,8 @@ TREE_STATIC_FIELDS = (
 # Feature flags of the JAX scene that the port cannot render when set.
 _UNSUPPORTED_FLAGS = {
     "has_uni_tree": _SLICE_UNI_TREE,
-    "has_image_textures": _SLICE_IMAGES,
-    "has_emissive_image": _SLICE_IMAGES,
-    "has_nested_checker": _SLICE_IMAGES,
+    "has_emissive_image": _SLICE_NESTED,
+    "has_nested_checker": _SLICE_NESTED,
 }
 
 
@@ -235,6 +237,11 @@ class CompiledScene:
     background: V3
     # (n_spheres + n_quads, 32) per-prim shading records (ops/shade.py)
     shade_rows: torch.Tensor
+    # (I, h_max, w_max) int32 atlas of r | g << 8 | b << 16 texels, each
+    # image top-left aligned (magenta 1x1 without images), and each image's
+    # (width, height) as (I, 2) int32
+    atlas_packed: torch.Tensor
+    atlas_wh: torch.Tensor
     device: torch.device
     # Per-kind group trees (geometry/bvh.py:build_group_tree): node boxes
     # (n_nodes, 6) f32 [min xyz, max xyz], links (n_nodes, 2) i32 [miss
@@ -263,6 +270,10 @@ class CompiledScene:
     lights: Tuple[Tuple[int, int], ...] = ()
     light_params: Tuple = ()
     background_rgb: Tuple[float, float, float] = (0.0, 0.0, 0.0)
+    # True iff a texture, or a checker's child, is an image
+    has_image_textures: bool = False
+    # static (width, height) of each atlas image
+    image_dims: Tuple[Tuple[int, int], ...] = ((1, 1),)
     has_sph_tree: bool = False
     has_quad_tree: bool = False
     # Leaf spans in groups of 8 slots (geometry/bvh.py:pick_leaf_span),
@@ -293,15 +304,23 @@ def compiled_from_arrays(fields: dict, static: dict, device) -> CompiledScene:
     scene) and may map the names in ``TREE_FIELDS`` to a scene's group
     trees (``*_tree_attrs`` as a tuple of arrays); ``static`` maps each name
     in ``STATIC_FIELDS`` to its value, may carry ``TREE_STATIC_FIELDS``,
-    and may carry the JAX scene's other feature flags, which are checked."""
+    and may carry the JAX scene's other feature flags, which are checked.
+    A CUDA ``device`` without a GPU raises."""
     for flag, why in _UNSUPPORTED_FLAGS.items():
         if static.get(flag):
             raise NotImplementedError(why)
     device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            f"scene device {device}: CUDA is not available (pass device='cpu' "
+            "for the plain versions)"
+        )
 
     def tensor(a):
         a = np.asarray(a)
         dtype = real if a.dtype.kind == "f" else torch.int32
+        if a.dtype == np.uint32:  # the atlas: 24-bit texels fit int32
+            a = a.astype(np.int32)
         return torch.tensor(a, dtype=dtype, device=device)
 
     kw = {}
@@ -328,6 +347,8 @@ def compiled_from_arrays(fields: dict, static: dict, device) -> CompiledScene:
         (int(k), tuple(float(v) for v in p)) for k, p in kw["light_params"]
     )
     kw["background_rgb"] = tuple(float(v) for v in kw["background_rgb"])
+    kw["has_image_textures"] = bool(kw["has_image_textures"])
+    kw["image_dims"] = tuple((int(w), int(h)) for w, h in kw["image_dims"])
     # the tensors' device carries the index ("cuda" -> "cuda:0")
     return CompiledScene(device=kw["shade_rows"].device, **kw)
 
@@ -348,6 +369,7 @@ class SceneBuilder:
 
     def __init__(self) -> None:
         self._textures: List[dict] = []
+        self._images: List[np.ndarray] = []
         self._materials: List[dict] = []
         self._roots: List[_Node] = []
         self._lights: List[_Node] = []
@@ -369,7 +391,10 @@ class SceneBuilder:
         return len(self._textures) - 1
 
     def image_texture(self, image: np.ndarray) -> int:
-        raise NotImplementedError(_SLICE_IMAGES)
+        """``image`` is (H, W, 3) uint8."""
+        self._images.append(np.ascontiguousarray(image[..., :3], dtype=np.uint8))
+        self._textures.append({"kind": TEX_IMAGE, "img": len(self._images) - 1})
+        return len(self._textures) - 1
 
     # -- materials ----------------------------------------------------------
     def lambertian(self, texture: int) -> int:
@@ -433,7 +458,9 @@ class SceneBuilder:
         ]
         return ListNode([QuadNode(p, u, v, material) for p, u, v in faces])
 
-    def collection(self, children: Sequence[_Node]) -> ListNode:
+    def collection(self, children: Sequence[_Node], bvh: bool = False) -> ListNode:
+        """``bvh`` is accepted as the JAX package accepts it: the compile
+        flattens every collection and builds trees over the whole scene."""
         return ListNode(list(children))
 
     def translate(self, offset, child: _Node) -> TranslateNode:
@@ -466,7 +493,9 @@ class SceneBuilder:
         self._bvh_min_prims = min_prims
 
     # -- compile --------------------------------------------------------------
-    def compile(self, name: str = "scene", *, device="cpu") -> Scene:
+    def compile(self, name: str = "scene", *, device="cuda") -> Scene:
+        """The scene's tables on ``device`` (the card unless asked for the
+        CPU; a CUDA device without a GPU raises)."""
         spheres: List[dict] = []
         quads: List[dict] = []
         prim_of_node: dict = {}
@@ -524,7 +553,7 @@ class SceneBuilder:
             self._root_bvh and (len(spheres) + len(quads)) >= self._bvh_min_prims
         )
         compiled = _compile_tables(
-            spheres, quads, self._materials, self._textures,
+            spheres, quads, self._materials, self._textures, self._images,
             light_entries, self._background, device, build_trees,
         )
         camera = self._camera or Camera(look_from=(0, 0, 9), look_at=(0, 0, 0))
@@ -585,11 +614,23 @@ def _shade_block(materials, textures, mat_id: int) -> list:
         t = textures[texid] if textures else {"kind": TEX_SOLID, "rgb": (0, 0, 0)}
         if t["kind"] == TEX_SOLID:
             rgb = t["rgb"]
-        else:
+        elif t["kind"] == TEX_CHECKER:
             tex_kind = TEX_CHECKER
             inv_scale = t["inv_scale"]
-            rgb = textures[t["even"]]["rgb"]
-            rgb2 = textures[t["odd"]]["rgb"]
+
+            def child_rgb_img(tid):
+                # an image child gets the neutral albedo and its image id;
+                # the atlas colour replaces it at the hit
+                child = textures[tid]
+                if child["kind"] == TEX_IMAGE:
+                    return (1.0, 1.0, 1.0), child["img"]
+                return child["rgb"], -1
+
+            rgb, img = child_rgb_img(t["even"])
+            rgb2, img2 = child_rgb_img(t["odd"])
+        else:
+            tex_kind = TEX_IMAGE
+            img = t["img"]
     return [float(mt), float(tex_kind), float(img), *map(float, rgb),
             *map(float, rgb2), float(inv_scale), float(fz),
             float(refract), float(img2), float(texid)]
@@ -672,17 +713,46 @@ def _group_trees(sph_center, sph_radius, sph_move, quad_start, quad_u, quad_v,
     return out
 
 
+def _checker_children(textures, t) -> list:
+    if t["kind"] != TEX_CHECKER:
+        return []
+    return [textures[t["even"]], textures[t["odd"]]]
+
+
+def _atlas(images):
+    """(atlas_packed (I, h_max, w_max) uint32, atlas_wh (I, 2) int32): each
+    image top-left aligned and packed r | g << 8 | b << 16; the magenta 1x1
+    debug image when there are none."""
+    if images:
+        h_max = max(im.shape[0] for im in images)
+        w_max = max(im.shape[1] for im in images)
+        atlas = np.zeros((len(images), h_max, w_max, 3), np.uint8)
+        atlas_wh = np.zeros((len(images), 2), _I)
+        for i, im in enumerate(images):
+            atlas[i, : im.shape[0], : im.shape[1]] = im
+            atlas_wh[i] = (im.shape[1], im.shape[0])
+    else:
+        atlas = np.full((1, 1, 1, 3), (255, 0, 255), np.uint8)
+        atlas_wh = np.array([[1, 1]], _I)
+    a = atlas.astype(np.uint32)
+    return a[..., 0] | (a[..., 1] << 8) | (a[..., 2] << 16), atlas_wh
+
+
 def _compile_tables(
-    spheres, quads, materials, textures, light_entries, background, device,
-    build_trees,
+    spheres, quads, materials, textures, images, light_entries, background,
+    device, build_trees,
 ) -> CompiledScene:
-    for t in textures:
-        children = (
-            [textures[t["even"]], textures[t["odd"]]]
-            if t["kind"] == TEX_CHECKER else []
-        )
-        if any(c["kind"] != TEX_SOLID for c in children):
-            raise NotImplementedError(_SLICE_IMAGES)
+    # a checker of checkers cannot flatten into one shade record, and an
+    # image-textured emitter needs the atlas in the emission term
+    if any(c["kind"] == TEX_CHECKER for t in textures for c in _checker_children(textures, t)):
+        raise NotImplementedError(_SLICE_NESTED)
+    for m in materials:
+        if m["type"] == MAT_DIFFUSE_LIGHT and textures:
+            t = textures[m.get("tex", 0)]
+            if t["kind"] == TEX_IMAGE or any(
+                c["kind"] != TEX_SOLID for c in _checker_children(textures, t)
+            ):
+                raise NotImplementedError(_SLICE_NESTED)
 
     spheres, sph_perm = _morton_sort(
         spheres, lambda s: np.asarray(s["center"], np.float64)
@@ -762,7 +832,7 @@ def _compile_tables(
         tex_type[i] = t["kind"]
         if t["kind"] == TEX_SOLID:
             tex_rgb[i] = t["rgb"]
-        else:
+        elif t["kind"] == TEX_CHECKER:
             tex_inv_scale[i] = t["inv_scale"]
             tex_even[i] = t["even"]
             tex_odd[i] = t["odd"]
@@ -827,6 +897,7 @@ def _compile_tables(
         quad_normal, quad_w, quad_offset, n_s, n_q, build_trees,
     )
     bg = np.asarray(background, _F)
+    atlas_packed, atlas_wh = _atlas(images)
     fields = {
         **{k: v for k, v in trees.items() if k in TREE_FIELDS},
         "sph_center": sph_center.T, "sph_radius": sph_radius,
@@ -842,6 +913,7 @@ def _compile_tables(
         "tex_inv_scale": tex_inv_scale, "tex_even": tex_even,
         "tex_odd": tex_odd,
         "background": bg, "shade_rows": shade_rows,
+        "atlas_packed": atlas_packed, "atlas_wh": atlas_wh,
     }
     static = {
         "n_spheres": n_s,
@@ -857,6 +929,12 @@ def _compile_tables(
         "lights": lights,
         "light_params": tuple(light_params),
         "background_rgb": tuple(float(v) for v in background),
+        "has_image_textures": any(
+            t["kind"] == TEX_IMAGE
+            or any(c["kind"] == TEX_IMAGE for c in _checker_children(textures, t))
+            for t in textures
+        ),
+        "image_dims": tuple((int(w), int(h)) for w, h in atlas_wh),
         **{k: trees[k] for k in TREE_STATIC_FIELDS},
     }
     return compiled_from_arrays(fields, static, device)
