@@ -70,14 +70,53 @@ Phases (any failure exits nonzero):
      depth 8; the others at their recorded spp and depth 10), and 64x64,
      32 spp, depth 10 against tests/golden/{earth,shrek_quads,rtw_final}.npz
      (rtw_final on 4x4 regions, its 8x8-region verdict printed: see
-     phase 12's comment).
+     phase 12's comment);
+ 13. the render kernel with a texture LUT against its plain version, with
+     phase 2's tolerances: rtw_final 32x32, 8 spp, depth 8 at a native
+     budget and at 32768 texels, shrek_quads and earth at 8192 (depth 10),
+     and a small scene whose lamp is image-textured, with a LUT (render
+     kernel) and without (bounce kernel, regenerating mode); then the bounce
+     kernel's one-bounce mode with a LUT on rtw_final's 160,000 camera rays
+     with phase 9's tolerances;
+ 14. the LUT main path: Renderer(samples_per_pixel=64,
+     max_ray_bounce_depth=8).render_device(load_scene("rtw_final",
+     texture_lut=<native>), 400, 400), one warmup render and three timed;
+     over the four renders the render kernel launched 4 times, the bounce
+     kernel and every plain version never, the closest-hit kernel built
+     the coherent plan; Mpaths/s, the render kernel's time at the plan's
+     lanes, peak device memory; the framebuffer against phase 11's atlas
+     render (same texels, same drain) within rtol 1e-5 / atol 1e-6 on >=
+     99.9% of pixels; the render kernel with the LUT and the bounce kernel
+     with the atlas timed on the same lanes in 10 alternating pairs; the
+     kernel against its plain version on a spread slice of 2,048 plan
+     lanes; the rtw_final region gates of phase 12 on the LUT scene; the
+     same render at a 32768-texel budget, its Mpaths/s and mean
+     |diff| to the native render printed (lossy by design, not gated);
+ 15. emissive (the CLI's default scene): the render kernel against its
+     plain version at 32x32, 8 spp, depth 10; Renderer(samples_per_pixel=
+     256, max_ray_bounce_depth=10).render_device at 400x400 through the
+     render kernel only (sorted plan), Mpaths/s; its region gates at 200x200
+     (scene_regions.json) and 64x64 (tests/golden/emissive.npz);
+ 16. the CLI (python -m zig_weekend_raytracer_tpu_torch.cli) as
+     subprocesses: emissive 200x200, 64 spp, depth 10 and rtw_final with
+     --texture_lut=32768 at 128x128, 16 spp, depth 10, each exiting 0 with
+     the three stage log lines and the stats line, its PPM byte-equal to
+     write_ppm of the same render made in this process; --scene=bogus
+     exiting 1 with the usage text; --profile=device on cornell printing a
+     device table that names fused_render_kernel.
 
-Each kernel's entry in the record carries its roofline bound: FP32
-operations (utils/roofline.py's per-unit counts times the work that the
-plain version counted on a parity run of the same scene, scaled to the
-kernel's own bounce count) and bytes (inputs once, outputs once) over the
-H100's peak rates.  No single PyTorch call computes path radiance or a
-closest hit, so ``library_ms`` is null.
+The record has one entry per kernel and mode: the render kernel on brute
+scenes (cornell, emissive), on tree scenes (balls) and with the texture LUT
+(rtw_final), the bounce kernel's one-bounce mode with the atlas and with
+the LUT (parity checks only: no main path runs it, so its launches are 0)
+and its regenerating mode (rtw_final), and the closest-hit kernel.  Each
+carries its registers and spill from the build, its times, its launches on
+the main paths and its roofline bound: FP32 operations (utils/roofline.py's
+per-unit counts times the work that the plain version counted on a parity
+run of the same scene, scaled to the kernel's own bounce count) and bytes
+(inputs once, outputs once) over the H100's peak rates.  No single PyTorch
+call computes path radiance, a bounce or a closest hit, so ``library_ms``
+is null.
 
 The line before the last is the kernels' JSON record, the line before it
 the card's name and power limit; the last line is {"ok": true, "device":
@@ -102,6 +141,8 @@ GOLDEN = os.path.join(REPO, "tests", "golden", "bench_cornell_regions.json")
 SCENE_REGIONS = os.path.join(REPO, "tests", "golden", "scene_regions.json")
 KERNEL_SOURCE = "zig_weekend_raytracer_tpu_torch/csrc/fused_render.cu"
 KERNEL_REPLACES = "zig_weekend_raytracer_tpu/ops/pallas_bounce.py:1531"
+KERNEL_LUT_REPLACES = ("zig_weekend_raytracer_tpu/ops/pallas_bounce.py:1531 "
+                       "(_fused_render_kernel), :189 (_texlut_fetch)")
 HIT_SOURCE = "zig_weekend_raytracer_tpu_torch/csrc/closest_hit.cu"
 HIT_REPLACES = (
     "zig_weekend_raytracer_tpu/ops/pallas_trace.py:300 (_sphere_kernel), "
@@ -114,7 +155,13 @@ SLICE_LANES = 4096
 BALLS_SPP = 128
 RTW_SPP, RTW_DEPTH = 64, 8
 HIT_RTOL, HIT_ATOL, HIT_AGREE = 1e-5, 1e-6, 0.999
-LIBRARY_NOTE = "none: no single PyTorch call computes path radiance or a closest hit"
+LIBRARY_NOTE = "none: no single PyTorch call computes path radiance, a bounce or a closest hit"
+# texel budgets of the texture LUT: native holds rtw_final's images
+# unpadded (7,151,808 + 87,600 texels), the others box-downsample them
+LUT_NATIVE, LUT_32K, LUT_8K = 1 << 23, 32768, 8192
+EMISSIVE_SPP = 256
+LUT_PAIRS = 10
+STAGES = ("scene initialized", "scene rendered", "scene written to file")
 
 
 def log(msg: str) -> None:
@@ -191,13 +238,14 @@ def leaf_span(span):
             os.environ["ZWRT_LEAF_GROUPS"] = old
 
 
-def render_parity(zt, fused, integrator, torch, scene, tag) -> dict:
-    """Kernel vs plain version on the card at 32x32, 8 spp, depth 10, with
-    the scene's own depth of field; both timed by CUDA events."""
+def render_parity(zt, fused, integrator, torch, scene, tag, depth=10) -> dict:
+    """Kernel vs plain version on the card at 32x32, 8 spp, depth 10 (or
+    ``depth``), with the scene's own depth of field; both timed by CUDA
+    events."""
     from zig_weekend_raytracer_tpu_torch.render.camera import camera_consts
 
     w = h = 32
-    spp, depth = 8, 10
+    spp = 8
     ys, xs = torch.meshgrid(
         torch.arange(h, device="cuda"), torch.arange(w, device="cuda"), indexing="ij"
     )
@@ -365,19 +413,20 @@ def timed_renders(renderer, scene, torch, w, h):
     return warm_s, times, fb
 
 
-def plan_parity(zt, fused, integrator, scene, plan, spp, card, tag):
-    """Kernel vs plain version at a spread slice of SLICE_LANES lanes of a
-    lane plan, at the full spp; both timed.  Returns the check and the
-    plain version's work counts (utils/workcount.py)."""
+def plan_parity(zt, fused, integrator, scene, plan, spp, card, tag, depth=DEPTH,
+                lanes=SLICE_LANES):
+    """Kernel vs plain version at a spread slice of ``lanes`` lanes of a
+    lane plan, at the full spp and ``depth``; both timed.  Returns the check
+    and the plain version's work counts (utils/workcount.py)."""
     from zig_weekend_raytracer_tpu_torch.render.camera import camera_consts
     from zig_weekend_raytracer_tpu_torch.utils import workcount
 
-    step = max(1, plan[0].shape[0] // SLICE_LANES)
-    px, py, s0, _ = (a[::step][:SLICE_LANES].contiguous() for a in plan)
+    step = max(1, plan[0].shape[0] // lanes)
+    px, py, s0, _ = (a[::step][:lanes].contiguous() for a in plan)
     kw = dict(
         camera_consts=camera_consts(scene.camera, W, H),
         sampler=zt.sampling.SamplerKind.SOBOL, width=W, height=H, spp=spp,
-        stride=1, max_depth=DEPTH, has_dof=scene.camera.has_depth_of_field,
+        stride=1, max_depth=depth, has_dof=scene.camera.has_depth_of_field,
         want_work=True,
     )
     lim = s0 + spp
@@ -391,7 +440,7 @@ def plan_parity(zt, fused, integrator, scene, plan, spp, card, tag):
     )
     log(f"plain version at {px.shape[0]} {tag} lanes, {spp} spp: {ms_p:.1f} ms; "
         f"kernel {ms_k:.3f} ms ({card})")
-    check = compare(f"{px.shape[0]} {tag} lanes {spp} spp d{DEPTH}", out_k, out_p)
+    check = compare(f"{px.shape[0]} {tag} lanes {spp} spp d{depth}", out_k, out_p)
     return {**check, "ms": ms_k, "plain_ms": ms_p}, dict(counts)
 
 
@@ -442,36 +491,179 @@ def compare_bounce(tag, out_k, out_p) -> dict:
             "max_abs_err": max_abs}
 
 
-def phase_one_bounce(zt, tb, integrator, torch, scenes) -> list:
+def one_bounce_parity(zt, tb, integrator, torch, scene, name, depths) -> list:
     """bounce_kernel's one-bounce mode vs integrator.bounce on 400x400
-    camera rays: rtw_final through three chained bounces (each bounce
-    starts both from the plain version's state), shrek_quads and earth
-    one bounce each."""
+    camera rays through the chained ``depths`` (each bounce starts both
+    from the plain version's state).  The first bounce also carries its
+    roofline bound, from the plain version's work counts: lanes read and
+    write 13 float and 2 int state rows."""
     from zig_weekend_raytracer_tpu_torch.math.v3 import V3
+    from zig_weekend_raytracer_tpu_torch.utils import roofline, workcount
 
     t_min = zt.dtypes.T_MIN
+    cs = scene.compiled
+    ys, xs = torch.meshgrid(torch.arange(H, device="cuda"), torch.arange(W, device="cuda"),
+                            indexing="ij")
+    rid = (ys * W + xs).reshape(-1)
+    o, d, tm = camera_rays(zt, torch, scene, W, H, RTW_SPP)
+    n = rid.shape[0]
+    state = (o, d, V3.full((n,), 1.0, 1.0, 1.0, "cuda"), V3.zeros((n,), "cuda"),
+             torch.ones((n,), dtype=torch.bool, device="cuda"))
     out = []
-    for name, depths in (("rtw_final", (0, 1, 2)), ("shrek_quads", (0,)), ("earth", (0,))):
-        cs = scenes[name].compiled
-        ys, xs = torch.meshgrid(torch.arange(H, device="cuda"), torch.arange(W, device="cuda"),
-                                indexing="ij")
-        rid = (ys * W + xs).reshape(-1)
-        o, d, tm = camera_rays(zt, torch, scenes[name], W, H, RTW_SPP)
-        n = rid.shape[0]
-        state = (o, d, V3.full((n,), 1.0, 1.0, 1.0, "cuda"), V3.zeros((n,), "cuda"),
-                 torch.ones((n,), dtype=torch.bool, device="cuda"))
-        for depth in depths:
-            o, d, thr, rad, alive = state
-            dep = torch.full((n,), depth, dtype=torch.int64, device="cuda")
-            ms_k, out_k = cuda_time_ms(
-                lambda: tb.bounce(cs, 0, t_min, depth, o, d, tm, rid, thr, rad, alive), 3)
+    for depth in depths:
+        o, d, thr, rad, alive = state
+        dep = torch.full((n,), depth, dtype=torch.int64, device="cuda")
+        ms_k, out_k = cuda_time_ms(
+            lambda: tb.bounce(cs, 0, t_min, depth, o, d, tm, rid, thr, rad, alive), 3)
+        with workcount.counting() as counts:
             ms_p, out_p = cuda_time_ms(
                 lambda: integrator.bounce(cs, 0, t_min, dep, o, d, tm, rid, thr, rad, alive))
-            check = compare_bounce(f"{name} 400x400 camera rays, depth {depth}", out_k, out_p)
-            log(f"bounce {name} depth {depth}: kernel {ms_k:.3f} ms, plain {ms_p:.1f} ms")
-            out.append({**check, "ms": ms_k, "plain_ms": ms_p})
-            state = out_p
+        check = compare_bounce(f"{name} 400x400 camera rays, depth {depth}", out_k, out_p)
+        bound, by = roofline.bound_ms(roofline.render_ops(dict(counts), cs, False),
+                                      n * 15 * 4 * 2 + roofline.render_table_bytes(cs))
+        log(f"bounce {name} depth {depth}: kernel {ms_k:.3f} ms, plain {ms_p:.1f} ms, "
+            f"bound {bound:.4f} ms ({by})")
+        out.append({**check, "ms": ms_k, "plain_ms": ms_p, "bound_ms": bound, "bound_by": by})
+        state = out_p
     return out
+
+
+def phase_one_bounce(zt, tb, integrator, torch, scenes) -> list:
+    """bounce_kernel's one-bounce mode vs integrator.bounce: rtw_final
+    through three chained bounces, shrek_quads and earth one bounce each."""
+    out = []
+    for name, depths in (("rtw_final", (0, 1, 2)), ("shrek_quads", (0,)), ("earth", (0,))):
+        out += one_bounce_parity(zt, tb, integrator, torch, scenes[name], name, depths)
+    return out
+
+
+def kernel_resources(build_log: str) -> dict:
+    """{kernel instantiation: {"registers", "spill_bytes"}} from ptxas -v:
+    fused_render_kernel<false> / <true> (without and with the image fetch),
+    bounce_kernel<false> / <true> (one-bounce and regenerating modes) and
+    closest_hit_kernel."""
+    import re
+
+    names = (("fused_render_kernelILb0E", "fused_render_kernel<false>"),
+             ("fused_render_kernelILb1E", "fused_render_kernel<true>"),
+             ("bounce_kernelILb0E", "bounce_kernel<false>"),
+             ("bounce_kernelILb1E", "bounce_kernel<true>"),
+             ("closest_hit_kernel", "closest_hit_kernel"))
+    out, cur = {}, None
+    for line in build_log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            cur = next((v for k, v in names if k in m.group(1)), None)
+            if cur:
+                out[cur] = {"registers": None, "spill_bytes": None}
+            continue
+        if cur is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores", line)
+        if m:
+            out[cur]["spill_bytes"] = int(m.group(1))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            out[cur]["registers"] = int(m.group(1))
+    return out
+
+
+def emitter_scene(zt, budget):
+    """tests/test_texlut.py's image-lamp scene: a quad lamp textured with a
+    4x4 checker image over a gray floor, with a LUT of ``budget`` texels
+    (0: none)."""
+    import numpy as np
+
+    img = np.zeros((4, 4, 3), np.uint8)
+    img[::2, ::2] = (200, 40, 40)
+    img[1::2, 1::2] = (40, 200, 40)
+    b = zt.scene.SceneBuilder()
+    m_lamp = b.diffuse_light(b.image_texture(img))
+    m_gray = b.lambertian(b.solid_color((0.6, 0.6, 0.6)))
+    b.add(b.quad((-4, -1, -4), (8, 0, 0), (0, 0, 8), m_gray))
+    b.add(b.quad((-2, 0, -2), (4, 0, 0), (0, 4, 0), m_lamp))
+    b.set_background((0.0, 0.0, 0.0))
+    b.set_camera(zt.scene.Camera(look_from=(0, 2, 8), look_at=(0, 1, 0)))
+    return b.compile(name="image_lamp", device="cuda", texture_lut=budget)
+
+
+def run_cli(args, timeout=300):
+    """The port's CLI as a subprocess from the repository root."""
+    env = dict(os.environ)
+    env["PYTHONPATH"] = REPO + os.pathsep + env.get("PYTHONPATH", "")
+    return subprocess.run(
+        [sys.executable, "-m", "zig_weekend_raytracer_tpu_torch.cli", *args],
+        cwd=REPO, env=env, capture_output=True, text=True, timeout=timeout,
+    )
+
+
+def cli_render_check(zt, torch, tmp, scene_name, w, spp, depth, lut=0) -> dict:
+    """One CLI render with --stats: exit 0, the three stage lines and the
+    stats line, and the PPM byte-equal to write_ppm of the same render made
+    in this process (a fresh Renderer: the same lanes, and the RNG is
+    content-addressed)."""
+    import re
+
+    from zig_weekend_raytracer_tpu_torch.io.ppm import write_ppm
+
+    out = os.path.join(tmp, f"{scene_name}.ppm")
+    args = [f"--image_width={w}", f"--image_height={w}", f"--samples_per_pixel={spp}",
+            f"--ray_bounce_max_depth={depth}", f"--scene={scene_name}",
+            f"--image_out_path={out}", "--stats=true"]
+    if lut:
+        args.append(f"--texture_lut={lut}")
+    t0 = time.perf_counter()
+    proc = run_cli(args)
+    wall = time.perf_counter() - t0
+    tag = f"cli {scene_name} {w}x{w} spp{spp} d{depth}" + (f" lut {lut}" if lut else "")
+    if proc.returncode != 0:
+        raise AssertionError(f"{tag}: exit {proc.returncode}\n{proc.stderr[-2000:]}")
+    for stage in STAGES:
+        if not re.search(r"^\[\d+\.\d+ ms\]\t" + re.escape(stage) + "$", proc.stderr, re.M):
+            raise AssertionError(f"{tag}: no stage line {stage!r}\n{proc.stderr[-2000:]}")
+    stats = [ln for ln in proc.stdout.splitlines() if ln.startswith("stats: ")]
+    if len(stats) != 1 or "Mpaths/s" not in stats[0]:
+        raise AssertionError(f"{tag}: no stats line\n{proc.stdout[-2000:]}")
+    scene = zt.models.load_scene(scene_name, device="cuda", texture_lut=lut)
+    fb = zt.render.Renderer(samples_per_pixel=spp, max_ray_bounce_depth=depth).render_device(
+        scene, w, w)
+    ref = os.path.join(tmp, f"{scene_name}.ref.ppm")
+    write_ppm(ref, fb.cpu().numpy())
+    with open(out, "rb") as f_cli, open(ref, "rb") as f_ref:
+        same = f_cli.read() == f_ref.read()
+    log(f"{tag}: exit 0 in {wall:.1f} s, {stats[0]!r}; PPM byte-equal to the in-process "
+        f"render: {same}")
+    if not same:
+        raise AssertionError(f"{tag}: the CLI's PPM differs from the in-process render's")
+    return {"check": tag, "wall_s": wall, "stats": stats[0]}
+
+
+def phase_cli(zt, torch) -> list:
+    """Phase 16: the CLI as subprocesses."""
+    import tempfile
+
+    checks = []
+    with tempfile.TemporaryDirectory() as tmp:
+        checks.append(cli_render_check(zt, torch, tmp, "emissive", 200, 64, 10))
+        checks.append(cli_render_check(zt, torch, tmp, "rtw_final", 128, 16, 10, lut=LUT_32K))
+        proc = run_cli(["--image_width=8", "--image_height=8", "--scene=bogus"])
+        if proc.returncode != 1 or "Usage: --key=value" not in proc.stderr:
+            raise AssertionError(f"cli --scene=bogus: exit {proc.returncode}, no usage text\n"
+                                 f"{proc.stderr[-2000:]}")
+        log(f"cli --scene=bogus: exit 1, usage on stderr, {proc.stderr.strip().splitlines()[-1]!r}")
+        checks.append({"check": "cli --scene=bogus", "exit": 1})
+        proc = run_cli(["--image_width=64", "--image_height=64", "--samples_per_pixel=8",
+                        "--ray_bounce_max_depth=10", "--scene=cornell_box", "--profile=device",
+                        f"--image_out_path={os.path.join(tmp, 'c.ppm')}"])
+        rows = [ln for ln in proc.stdout.splitlines() if ln.startswith("fused_render_kernel ")]
+        if proc.returncode != 0 or not rows:
+            raise AssertionError(f"cli --profile=device: exit {proc.returncode}, no "
+                                 f"fused_render_kernel row\n{proc.stdout[-2000:]}\n"
+                                 f"{proc.stderr[-2000:]}")
+        log("cli --profile=device on cornell 64x64: " + " | ".join(
+            ln for ln in proc.stdout.splitlines() if ln.strip() and not ln.startswith("stats")))
+        checks.append({"check": "cli --profile=device", "row": rows[0]})
+    return checks
 
 
 def regen_parity(zt, tb, integrator, torch, scene, w, spp, depth, tag, lanes=None):
@@ -589,6 +781,11 @@ def main() -> int:
     for line in built["log"].splitlines():
         if "Compiling entry" in line or "registers" in line or "spill" in line or "stack frame" in line:
             log(f"  ptxas: {line.strip()}")
+    resources = kernel_resources(built["log"])
+    for name, res in resources.items():
+        log(f"  {name}: {res['registers']} registers, {res['spill_bytes']} bytes spill stores")
+    if len(resources) != 5 or any(r["registers"] is None for r in resources.values()):
+        raise AssertionError(f"ptxas did not report every kernel: {resources}")
     _build.load_library()
 
     # ---- 2. kernel against plain ----
@@ -715,14 +912,16 @@ def main() -> int:
         camera_consts=camera_consts(balls.camera, W, H), sampler=b_renderer.sampler,
         width=W, height=H, spp=BALLS_SPP, stride=1, max_depth=DEPTH, has_dof=True,
     )
-    b_kernel_ms, _ = cuda_time_ms(
-        lambda: fused.render_fused(balls.compiled, *b_plan, 0, t_min, **b_kw), 3
+    b_kernel_ms, (_, b_work) = cuda_time_ms(
+        lambda: fused.render_fused(balls.compiled, *b_plan, 0, t_min, want_work=True, **b_kw), 3
     )
     log(f"kernel at the coherent plan ({b_plan[0].shape[0]} lanes, {BALLS_SPP} spp): "
         f"{b_kernel_ms:.3f} ms ({card})")
-    tree_checks.append(
-        plan_parity(zt, fused, integrator, balls, b_plan, BALLS_SPP, card, "coherent-plan")[0]
-    )
+    b_slice, b_counts = plan_parity(zt, fused, integrator, balls, b_plan, BALLS_SPP, card,
+                                    "coherent-plan")
+    tree_checks.append(b_slice)
+    k1_tree_bound = render_bound(zt, balls, b_counts, b_work.sum().item(),
+                                 b_plan[0].shape[0] * (16 + 12), True)
 
     # ---- 8. the balls region gates ----
     balls_gates = region_gates(zt, np, balls, "balls")
@@ -731,7 +930,8 @@ def main() -> int:
     images = {name: zt.models.load_scene(name, device="cuda")
               for name in ("rtw_final", "shrek_quads", "earth")}
     rtw = images["rtw_final"]
-    k2_checks = phase_one_bounce(zt, tb, integrator, torch, images)
+    k2_one = phase_one_bounce(zt, tb, integrator, torch, images)
+    k2_checks = []
 
     # ---- 10. bounce kernel, regenerating mode, against plain ----
     for name, depth in (("earth", 10), ("shrek_quads", 10), ("rtw_final", RTW_DEPTH)):
@@ -801,72 +1001,197 @@ def main() -> int:
                                       grid64=4 if name == "rtw_final" else 8)
                    for name in ("earth", "shrek_quads", "rtw_final")}
 
+    # ---- 13. the render kernel with a texture LUT against plain ----
+    luts = {f"{name} {budget}": zt.models.load_scene(name, device="cuda", texture_lut=budget)
+            for name, budget in (("rtw_final", LUT_NATIVE), ("rtw_final", LUT_32K),
+                                 ("shrek_quads", LUT_8K), ("earth", LUT_8K))}
+    rtw_lut = luts[f"rtw_final {LUT_NATIVE}"]
+    lc = rtw_lut.compiled
+    log(f"texture LUT rtw_final at {LUT_NATIVE}: dims {lc.tex_lut_dims}, "
+        f"{lc.tex_lut_tab.numel() * 4 / 1e6:.1f} MB; atlas {tuple(lc.atlas_packed.shape)}, "
+        f"{lc.atlas_packed.numel() * 4 / 1e6:.1f} MB")
+    lut_checks = []
+    for tag, scene in luts.items():
+        depth = RTW_DEPTH if tag.startswith("rtw_final") else DEPTH
+        lut_checks.append(render_parity(zt, fused, integrator, torch, scene,
+                                        f"{tag} 32x32 spp8 d{depth}", depth))
+    lut_checks.append(render_parity(zt, fused, integrator, torch, emitter_scene(zt, LUT_NATIVE),
+                                    f"image lamp, LUT {LUT_NATIVE} 32x32 spp8 d{DEPTH}"))
+    k2_checks.append(regen_parity(zt, tb, integrator, torch, emitter_scene(zt, 0), 32, 8, DEPTH,
+                                  f"image lamp, atlas 32x32 spp8 d{DEPTH}")[0])
+    k2_lut = one_bounce_parity(zt, tb, integrator, torch, rtw_lut, f"rtw_final LUT {LUT_NATIVE}",
+                               (0,))
+
+    # ---- 14. the LUT main path ----
+    l_renderer = zt.render.Renderer(samples_per_pixel=RTW_SPP, max_ray_bounce_depth=RTW_DEPTH)
+    reset_counts(fused, integrator, ch, ttrace, tb)
+    torch.cuda.reset_peak_memory_stats()
+    l_warm_s, l_times, l_fb = timed_renders(l_renderer, rtw_lut, torch, W, H)
+    l_peak_mb = torch.cuda.max_memory_allocated() / 2**20
+    l_k1 = fused.render_fused.launches
+    l_k2 = tb.bounce_regen.launches + tb.bounce.launches
+    l_hit = ch.closest_hit.launches
+    l_plain = plain_calls(integrator, ttrace)
+    plans = l_renderer._plan_cache[lc]
+    coherent = [k for k in plans if k[0] == "coh"]
+    log(f"rtw_final LUT main path: warmup {l_warm_s:.3f} s, renders "
+        f"{[round(t, 4) for t in l_times]} s")
+    log(f"rtw_final LUT main path: render kernel launches {l_k1}, bounce kernel launches "
+        f"{l_k2}, closest-hit kernel launches {l_hit}, plain-version calls {l_plain}, "
+        f"coherent plans {len(coherent)}")
+    if l_k1 != 4 or l_k2 != 0 or l_plain != 0 or l_hit < 1:
+        raise AssertionError("the LUT main path did not run the render kernel alone "
+                             "(4 launches, no bounce kernel, no plain version)")
+    if len(coherent) != 1 or len(plans) != 1:
+        raise AssertionError("the LUT main path did not take the coherent driver")
+    if tuple(l_fb.shape) != (H, W, 3) or not bool(torch.isfinite(l_fb).all()):
+        raise AssertionError("bad rtw_final LUT framebuffer")
+    l_best = min(l_times)
+    l_mpaths = W * H * RTW_SPP / l_best / 1e6
+    l_close = torch.isclose(l_fb, r_fb, rtol=1e-5, atol=1e-6).all(-1).float().mean().item()
+    l_vs_atlas = (l_fb - r_fb).abs().max().item()
+    log(f"rtw_final LUT main path best {l_best:.4f} s = {l_mpaths:.2f} Mpaths/s (atlas, bounce "
+        f"kernel: {r_mpaths:.2f}; {card}); peak device memory {l_peak_mb:.1f} MiB; against "
+        f"the atlas render: {l_close:.4%} of pixels within rtol 1e-5/atol 1e-6, "
+        f"max |diff| {l_vs_atlas:.3e}")
+    if l_close < 0.999:
+        raise AssertionError("the LUT render disagrees with the atlas render")
+    l_plan = plans[coherent[0]]["plan"]
+    l_kernel_ms, (_, l_work) = cuda_time_ms(
+        lambda: fused.render_fused(lc, *l_plan, 0, t_min, want_work=True, **r_kw), 3)
+    log(f"render kernel with the LUT at the coherent plan ({l_plan[0].shape[0]} lanes, "
+        f"{RTW_SPP} spp): {l_kernel_ms:.3f} ms; bounce kernel with the atlas: {k2_ms:.3f} ms "
+        f"({card})")
+    # Does the LUT, which fits the 50 MB L2, make the image path cheaper
+    # than the atlas, which does not?  One best-of-3 pair is within the
+    # run-to-run spread, so time both kernels on the same lanes in
+    # alternating pairs.
+    time_k1 = lambda: cuda_time_ms(
+        lambda: fused.render_fused(lc, *l_plan, 0, t_min, **r_kw))[0]
+    time_k2 = lambda: cuda_time_ms(
+        lambda: tb.bounce_regen(rtw.compiled, st0, r_plan[0], r_plan[1], r_plan[3], 0, t_min,
+                                **r_kw))[0]
+    lut_same_lanes = all(torch.equal(a, b) for a, b in zip(l_plan, r_plan))
+    lut_pairs = []
+    for i in range(LUT_PAIRS):
+        if i % 2:
+            t2 = time_k2()
+            lut_pairs.append((time_k1(), t2))
+        else:
+            lut_pairs.append((time_k1(), time_k2()))
+    lut_wins = sum(t1 < t2 for t1, t2 in lut_pairs)
+    lut_med = [sorted(ts)[LUT_PAIRS // 2] for ts in zip(*lut_pairs)]
+    log(f"render kernel with the LUT vs bounce kernel with the atlas, same lanes, {LUT_PAIRS} "
+        f"alternating pairs (same lanes: {lut_same_lanes}): LUT faster in {lut_wins}; medians {lut_med[0]:.3f} vs "
+        f"{lut_med[1]:.3f} ms; pairs {[(round(a, 3), round(b, 3)) for a, b in lut_pairs]} "
+        f"({card})")
+    # half phase 11's slice: the LUT render equals the atlas render already
+    l_slice, l_counts = plan_parity(zt, fused, integrator, rtw_lut, l_plan, RTW_SPP, card,
+                                    "LUT coherent-plan", depth=RTW_DEPTH,
+                                    lanes=SLICE_LANES // 2)
+    lut_checks.append(l_slice)
+    k1_lut_bound = render_bound(zt, rtw_lut, l_counts, l_work.sum().item(),
+                                l_plan[0].shape[0] * (16 + 16), False)
+    lut_gates = region_gates(zt, np, rtw_lut, "rtw_final", grid64=4)
+    s_renderer = zt.render.Renderer(samples_per_pixel=RTW_SPP, max_ray_bounce_depth=RTW_DEPTH)
+    _, s_times, s_fb = timed_renders(s_renderer, luts[f"rtw_final {LUT_32K}"], torch, W, H)
+    s_mpaths = W * H * RTW_SPP / min(s_times) / 1e6
+    s_diff = (s_fb - l_fb).abs().mean().item()
+    log(f"rtw_final LUT {LUT_32K} texels: best {min(s_times):.4f} s = {s_mpaths:.2f} Mpaths/s; "
+        f"mean |diff| to the native-budget render {s_diff:.4e} (not gated; {card})")
+
+    # ---- 15. emissive ----
+    emissive = zt.models.load_scene("emissive", device="cuda")
+    checks.append(render_parity(zt, fused, integrator, torch, emissive, "emissive 32x32 spp8 d10"))
+    e_renderer = zt.render.Renderer(samples_per_pixel=EMISSIVE_SPP, max_ray_bounce_depth=DEPTH)
+    reset_counts(fused, integrator, ch, ttrace, tb)
+    e_warm_s, e_times, e_fb = timed_renders(e_renderer, emissive, torch, W, H)
+    e_k1 = fused.render_fused.launches
+    e_other = tb.bounce.launches + tb.bounce_regen.launches + ch.closest_hit.launches
+    e_plain = plain_calls(integrator, ttrace)
+    log(f"emissive main path: warmup {e_warm_s:.3f} s, renders {[round(t, 4) for t in e_times]} "
+        f"s; render kernel launches {e_k1}, other kernels {e_other}, plain-version calls "
+        f"{e_plain}")
+    if e_k1 < 1 or e_other or e_plain:
+        raise AssertionError("the emissive main path did not run the render kernel alone")
+    if tuple(e_fb.shape) != (H, W, 3) or not bool(torch.isfinite(e_fb).all()):
+        raise AssertionError("bad emissive framebuffer")
+    e_best = min(e_times)
+    e_mpaths = W * H * EMISSIVE_SPP / e_best / 1e6
+    log(f"emissive main path best {e_best:.4f} s = {e_mpaths:.2f} Mpaths/s "
+        f"(emissive {W}x{H}@{EMISSIVE_SPP} spp d{DEPTH}; {card})")
+    emissive_gates = region_gates(zt, np, emissive, "emissive")
+
+    # ---- 16. the CLI ----
+    cli_checks = phase_cli(zt, torch)
+
     b_hit = hit_checks[1]
-    common = {"route": "cuda", "library_ms": None, "library_note": LIBRARY_NOTE, "card": card}
+    k2_first = k2_one[0]
+    k2_lut_first = k2_lut[0]
+    bound_of = lambda c: {"bound_ms": c["bound_ms"], "bound_by": c["bound_by"]}
+
+    def entry(name, source, replaces, res, launches, by_path, parity, ms, plain_ms, bound,
+              tolerance, **extra):
+        return {
+            "name": name, "route": "cuda", "source": source, "replaces": replaces,
+            "launches": launches, "launches_by_path": by_path,
+            "max_abs_err": max(c["max_abs_err"] for c in parity),
+            "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound["bound_ms"], "bound_by": bound["bound_by"],
+            **{k: v for k, v in bound.items() if k not in ("bound_ms", "bound_by")},
+            "library_ms": None, "library_note": LIBRARY_NOTE,
+            "registers": resources[res]["registers"],
+            "spill_bytes": resources[res]["spill_bytes"],
+            "parity": parity, "tolerance": tolerance, "card": card, **extra,
+        }
+
+    render_tol = "rtol 1e-4, atol 1e-5 on >= 99% of lanes; mean 1e-4 rel"
+    bounce_tol = "alive equal and state rtol 1e-5, atol 1e-6 on >= 99.9% of lanes"
     record = {"kernels": [
-        {
-            "name": "fused_render_kernel",
-            "source": KERNEL_SOURCE,
-            "replaces": KERNEL_REPLACES,
-            "launches": launches + b_launches,
-            "launches_by_path": {"cornell": launches, "balls": b_launches, "rtw_final": r_k1},
-            "max_abs_err": max(c["max_abs_err"] for c in checks + tree_checks),
-            "ms": kernel_ms,
-            "plain_ms": plain_ms,
-            **k1_bound,
-            "plain_spp": plain_spp,
-            "kernel_ms_at_plain_spp": kernel_ms_same,
-            "balls_ms": b_kernel_ms,
-            "parity": checks + tree_checks,
-            "tolerance": "rtol 1e-4, atol 1e-5 on >= 99% of lanes; mean 1e-4 rel",
-            "render_s_best": best,
-            "mpaths_per_s": mpaths,
-            "region_gate": verdict,
-            "balls_render_s_best": b_best,
-            "balls_mpaths_per_s": b_mpaths,
-            "balls_region_gates": balls_gates,
-            **common,
-        },
-        {
-            "name": "closest_hit_kernel",
-            "source": HIT_SOURCE,
-            "replaces": HIT_REPLACES,
-            "launches": b_hit_launches + r_hit,
-            "launches_by_path": {"balls": b_hit_launches, "rtw_final": r_hit},
-            "max_abs_err": max(c["max_abs_err"] for c in hit_checks),
-            "ms": b_hit["ms"],
-            "plain_ms": b_hit["plain_ms"],
-            "bound_ms": b_hit["bound_ms"],
-            "bound_by": b_hit["bound_by"],
-            "parity": hit_checks,
-            "tolerance": f"(kind, idx) equal on >= {HIT_AGREE:.1%} of rays; "
-                         f"t rtol {HIT_RTOL}, atol {HIT_ATOL}",
-            **common,
-        },
-        {
-            "name": "bounce_kernel",
-            "source": BOUNCE_SOURCE,
-            "replaces": BOUNCE_REPLACES,
-            "launches": r_k2,
-            "launches_by_path": {"rtw_final": r_k2},
-            "max_abs_err": max(c["max_abs_err"] for c in k2_checks),
-            "ms": k2_ms,
-            "plain_ms": k2_slice["plain_ms"],
-            **k2_bound,
-            "plain_lanes": SLICE_LANES,
-            "kernel_ms_at_plain_lanes": k2_slice["ms"],
-            "parity": k2_checks,
-            "tolerance": "one bounce: alive equal and state rtol 1e-5, atol 1e-6 on >= 99.9% "
-                         "of lanes; regenerating: rtol 1e-4, atol 1e-5 on >= 99% of lanes, "
-                         "mean 1e-4 rel",
-            "driver_passes_per_band": passes / max(bands, 1),
-            "rtw_final_render_s_best": r_best,
-            "rtw_final_mpaths_per_s": r_mpaths,
-            "rtw_final_peak_mib": peak_mb,
-            "region_gates": image_gates,
-            **common,
-        },
-    ]}
+        entry("fused_render_kernel (brute)", KERNEL_SOURCE, KERNEL_REPLACES,
+              "fused_render_kernel<false>", launches + e_k1,
+              {"cornell": launches, "emissive": e_k1}, checks, kernel_ms, plain_ms, k1_bound,
+              render_tol, plain_spp=plain_spp, kernel_ms_at_plain_spp=kernel_ms_same,
+              render_s_best=best, mpaths_per_s=mpaths, region_gate=verdict,
+              emissive_render_s_best=e_best, emissive_mpaths_per_s=e_mpaths,
+              emissive_region_gates=emissive_gates),
+        entry("fused_render_kernel (tree)", KERNEL_SOURCE, KERNEL_REPLACES,
+              "fused_render_kernel<false>", b_launches, {"balls": b_launches}, tree_checks,
+              b_kernel_ms, b_slice["plain_ms"], k1_tree_bound, render_tol,
+              plain_lanes=SLICE_LANES, kernel_ms_at_plain_lanes=b_slice["ms"],
+              balls_render_s_best=b_best, balls_mpaths_per_s=b_mpaths,
+              balls_region_gates=balls_gates),
+        entry("fused_render_kernel (texture LUT)", KERNEL_SOURCE, KERNEL_LUT_REPLACES,
+              "fused_render_kernel<true>", l_k1, {"rtw_final LUT": l_k1}, lut_checks,
+              l_kernel_ms, l_slice["plain_ms"], k1_lut_bound, render_tol,
+              plain_lanes=SLICE_LANES // 2, kernel_ms_at_plain_lanes=l_slice["ms"],
+              rtw_final_render_s_best=l_best, rtw_final_mpaths_per_s=l_mpaths,
+              rtw_final_peak_mib=l_peak_mb, atlas_render_agree=l_close,
+              atlas_render_max_abs_diff=l_vs_atlas, region_gates=lut_gates,
+              lut_32k_mpaths_per_s=s_mpaths, lut_32k_mean_abs_diff=s_diff,
+              lut_vs_atlas_pairs_ms=lut_pairs, lut_vs_atlas_same_lanes=lut_same_lanes),
+        entry("bounce_kernel (one bounce)", BOUNCE_SOURCE, BOUNCE_REPLACES, "bounce_kernel<false>",
+              0, {}, k2_one, k2_first["ms"], k2_first["plain_ms"], bound_of(k2_first), bounce_tol,
+              note="parity only: no main path runs the one-bounce mode; times and bound "
+                   "are rtw_final's first bounce at 160,000 lanes"),
+        entry("bounce_kernel (one bounce, texture LUT)", BOUNCE_SOURCE, BOUNCE_REPLACES,
+              "bounce_kernel<false>", 0, {}, k2_lut, k2_lut_first["ms"],
+              k2_lut_first["plain_ms"], bound_of(k2_lut_first), bounce_tol,
+              note="parity only: no main path runs the one-bounce mode"),
+        entry("bounce_kernel (regenerating)", BOUNCE_SOURCE, BOUNCE_REPLACES,
+              "bounce_kernel<true>", r_k2, {"rtw_final": r_k2}, k2_checks, k2_ms,
+              k2_slice["plain_ms"], k2_bound, render_tol, plain_lanes=SLICE_LANES,
+              kernel_ms_at_plain_lanes=k2_slice["ms"],
+              driver_passes_per_band=passes / max(bands, 1), rtw_final_render_s_best=r_best,
+              rtw_final_mpaths_per_s=r_mpaths, rtw_final_peak_mib=peak_mb,
+              region_gates=image_gates),
+        entry("closest_hit_kernel", HIT_SOURCE, HIT_REPLACES, "closest_hit_kernel",
+              b_hit_launches + r_hit + l_hit,
+              {"balls": b_hit_launches, "rtw_final": r_hit, "rtw_final LUT": l_hit}, hit_checks,
+              b_hit["ms"], b_hit["plain_ms"], bound_of(b_hit),
+              f"(kind, idx) equal on >= {HIT_AGREE:.1%} of rays; t rtol {HIT_RTOL}, "
+              f"atol {HIT_ATOL}"),
+    ], "cli": cli_checks}
     print(card, flush=True)
     print(json.dumps(record), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,0 +1,192 @@
+"""The port's CLI on the CPU, against the JAX package's CLI.
+
+  1. Every flag parses to the same ``UserArgs`` values as the JAX parser
+     (enums by value), and the usage text is identical.
+  2. ``--help`` exits 0 and bad flags exit 1, both with the usage text on
+     stderr.
+  3. Each flag of a later slice exits 1 with its error and writes nothing.
+  4. ``main([... emissive 16x16 ...], device="cpu")`` logs the three stage
+     lines and the ``stats:`` line, and writes a PPM whose pixels equal
+     those of the JAX CLI's PPM for the same flags, to +-1 level on at most
+     1% of pixels; a ``--texture_lut`` render takes the whole-render path.
+  5. The native writer's bytes equal the numpy encoder's and the JAX
+     package's writer's for a seeded framebuffer; a failed write raises.
+  6. ``--profile=host`` prints the zone table; the device table's zones are
+     the kernels' names.
+"""
+
+import dataclasses
+import enum
+import logging
+
+import numpy as np
+import pytest
+
+from zig_weekend_raytracer_tpu import cli as jcli
+from zig_weekend_raytracer_tpu.io import ppm as jppm
+from zig_weekend_raytracer_tpu_torch import cli as tcli
+from zig_weekend_raytracer_tpu_torch.io import native as tnative
+from zig_weekend_raytracer_tpu_torch.io import ppm as tppm
+from zig_weekend_raytracer_tpu_torch.render import integrator
+from zig_weekend_raytracer_tpu_torch.utils import profiler
+from zig_weekend_raytracer_tpu_torch.utils.argparser import ArgParser, ParseArgsError
+
+STAGES = ("scene initialized", "scene rendered", "scene written to file")
+
+
+def _values(args) -> dict:
+    return {k: v.value if isinstance(v, enum.Enum) else v
+            for k, v in dataclasses.asdict(args).items()}
+
+
+def _read_ppm(path) -> np.ndarray:
+    tok = open(path, "rb").read().split()
+    assert tok[0] == b"P3" and tok[3] == b"255"
+    w, h = int(tok[1]), int(tok[2])
+    return np.array([int(t) for t in tok[4:]], np.int32).reshape(h, w, 3)
+
+
+# ---- 1. flags and usage ----
+
+@pytest.mark.parametrize("argv", [
+    ["--image_width=4", "--image_height=3"],
+    ["--image_width=400", "--image_height=200", "--image_out_path=x.png",
+     "--thread_pool_size=3", "--scene=rtw_final", "--samples_per_pixel=64",
+     "--ray_bounce_max_depth=8", "--sampler=stratified", "--seed=7",
+     "--asset_dir=/a", "--texture_lut=32768", "--stats=true", "--profile=device"],
+    ["--image_width=1", "--image_height=1", "--scene_file=s.json", "--shard=rows",
+     "--russian_roulette=3", "--clamp_indirect=2.5", "--adaptive=1",
+     "--checkpoint=c.npz", "--checkpoint_batch_spp=4", "--denoise=2",
+     "--supersample=2", "--aov=true", "--stats=false", "--profile=true"],
+    ["--image_width=8", "--image_height=8", "--scene=earth", "--sampler=independent"],
+])
+def test_flags_parse_as_jax(argv):
+    assert [f.name for f in dataclasses.fields(tcli.UserArgs)] == [
+        f.name for f in dataclasses.fields(jcli.UserArgs)]
+    assert _values(ArgParser(tcli.UserArgs).parse(argv)) == _values(
+        ArgParser(jcli.UserArgs).parse(argv))
+
+
+def test_usage_is_jax_usage():
+    assert ArgParser(tcli.UserArgs).usage() == ArgParser(jcli.UserArgs).usage()
+    assert [s.value for s in tcli.SceneType] == [s.value for s in jcli.SceneType]
+
+
+# ---- 2. help and bad flags ----
+
+def test_help_exits_0(capsys):
+    assert tcli.main(["--help"], device="cpu") == 0
+    assert capsys.readouterr().err == ArgParser(tcli.UserArgs).usage() + "\n"
+
+
+@pytest.mark.parametrize("argv", [
+    ["--image_width=8", "--image_height=8", "--scene=bogus"],
+    ["--image_width=8"],
+    ["--image_width=8", "--image_height=8", "--nope=1"],
+    ["--image_width=eight", "--image_height=8"],
+])
+def test_bad_flags_exit_1_with_usage(argv, capsys):
+    assert tcli.main(argv, device="cpu") == 1
+    err = capsys.readouterr().err
+    assert ArgParser(tcli.UserArgs).usage() in err and "error:" in err
+    with pytest.raises(ParseArgsError):
+        ArgParser(jcli.UserArgs).parse(argv)
+
+
+def test_bad_profile_mode_exits_1(capsys):
+    assert tcli.main(["--image_width=8", "--image_height=8", "--profile=gpu"], device="cpu") == 1
+    assert "unknown --profile mode" in capsys.readouterr().err
+
+
+# ---- 3. flags of later slices ----
+
+@pytest.mark.parametrize("flag,n", [
+    ("--shard=samples", 6), ("--adaptive=1", 5), ("--checkpoint=c.npz", 5),
+    ("--denoise=1", 5), ("--aov=true", 5), ("--supersample=2", 5),
+    ("--scene_file=s.json", 5), ("--russian_roulette=3", 5),
+    ("--clamp_indirect=1.5", 5),
+])
+def test_later_slice_flags_exit_1(flag, n, tmp_path, capsys):
+    out = tmp_path / "x.ppm"
+    argv = ["--image_width=4", "--image_height=4", f"--image_out_path={out}", flag]
+    assert tcli.main(argv, device="cpu") == 1
+    name = flag[2:].split("=")[0]
+    assert f"error: --{name} is slice {n} of the port (ROADMAP.md)" in capsys.readouterr().err
+    assert not out.exists()
+
+
+# ---- 4. renders ----
+
+def test_emissive_cli_matches_jax_cli(tmp_path, capsys, caplog):
+    flags = ["--image_width=16", "--image_height=16", "--samples_per_pixel=2",
+             "--ray_bounce_max_depth=3"]
+    with caplog.at_level(logging.INFO, logger="zwrt"):
+        assert tcli.main(flags + [f"--image_out_path={tmp_path / 't.ppm'}", "--stats=true"],
+                         device="cpu") == 0
+    logged = [r.getMessage() for r in caplog.records if r.name == "zwrt"]
+    assert [m.split("\t")[1] for m in logged] == list(STAGES)
+    assert capsys.readouterr().out.startswith("stats: 512 paths in ")
+    assert jcli.main(flags + [f"--image_out_path={tmp_path / 'j.ppm'}"]) == 0
+    got, want = _read_ppm(tmp_path / "t.ppm"), _read_ppm(tmp_path / "j.ppm")
+    assert got.shape == want.shape == (16, 16, 3) and got.max() > 0
+    diff = np.abs(got - want).max(-1)
+    assert diff.max() <= 1 and (diff > 0).mean() <= 0.01
+
+
+def test_texture_lut_flag_takes_the_whole_render_path(tmp_path):
+    calls, passes = integrator.render_fused_reference.calls, integrator.trace_paths_regen.passes
+    out = tmp_path / "s.ppm"
+    argv = ["--image_width=8", "--image_height=8", "--samples_per_pixel=1",
+            "--ray_bounce_max_depth=2", "--scene=shrek_quads", "--texture_lut=8192",
+            f"--image_out_path={out}"]
+    assert tcli.main(argv, device="cpu") == 0
+    assert integrator.render_fused_reference.calls > calls
+    assert integrator.trace_paths_regen.passes == passes
+    assert _read_ppm(out).shape == (8, 8, 3)
+
+
+# ---- 5. the writer ----
+
+def test_native_writer_bytes(tmp_path):
+    fb = np.random.default_rng(5).uniform(-0.1, 1.3, (7, 11, 3)).astype(np.float32)
+    fb[0, 0, 0] = np.nan
+    pixels = tppm.encode_pixels(fb)
+    np.testing.assert_array_equal(pixels, jppm.encode_pixels(fb))
+    tppm.write_ppm(str(tmp_path / "t.ppm"), fb, n_threads=3)
+    jppm.write_ppm(str(tmp_path / "j.ppm"), fb)
+    got = (tmp_path / "t.ppm").read_bytes()
+    assert got == tppm.encode_ppm_bytes(pixels) == (tmp_path / "j.ppm").read_bytes()
+    tppm.write_image(str(tmp_path / "w.ppm"), fb)
+    assert (tmp_path / "w.ppm").read_bytes() == got
+    with pytest.raises(OSError, match="native PPM write failed at open"):
+        tnative.write_ppm(str(tmp_path / "missing" / "x.ppm"), pixels)
+    with pytest.raises(ValueError, match="uint8"):
+        tnative.write_ppm(str(tmp_path / "f.ppm"), fb)
+
+
+# ---- 6. profiler ----
+
+def test_profile_host_prints_zones(tmp_path, capsys):
+    profiler.reset_zones()
+    argv = ["--image_width=8", "--image_height=8", "--samples_per_pixel=1",
+            "--ray_bounce_max_depth=2", "--scene=cornell_box", "--profile=host",
+            f"--image_out_path={tmp_path / 'c.ppm'}"]
+    assert tcli.main(argv, device="cpu") == 0
+    out = capsys.readouterr().out
+    assert out.splitlines()[0].split()[:2] == ["zone", "count"]
+    assert "Renderer::render" in out and "rayColorLine" in out
+    assert not profiler.profiling_enabled()  # restored after the run
+    profiler.reset_zones()
+
+
+def test_device_zones_are_kernel_names():
+    agg = profiler.aggregate_device_events([
+        ("void zwrt::fused_render_kernel<true>(zwrt::Params, ...)", 1500.0),
+        ("void zwrt::fused_render_kernel<false>(zwrt::Params, ...)", 500.0),
+        ("void zwrt::bounce_kernel<false>(...)", 250.0),
+        ("zwrt::closest_hit_kernel(...)", 100.0),
+    ])
+    assert agg == {"fused_render_kernel": (2, 2.0), "bounce_kernel": (1, 0.25),
+                   "closest_hit_kernel": (1, 0.1)}
+    table = profiler.format_device_summary(agg)
+    assert table.splitlines()[1].startswith("fused_render_kernel") and "TOTAL" in table

@@ -3,8 +3,8 @@
 A subprocess installs a meta-path hook that refuses ``jax``, ``jaxlib`` and
 ``zig_weekend_raytracer_tpu`` before anything is imported, then imports
 ``zig_weekend_raytracer_tpu_torch``, every module in it, and
-``chip_smoke``.  The modules of the tree-scene and image-texture slices
-are named, so that the walk cannot miss them."""
+``chip_smoke``.  The modules of the tree-scene, image-texture and CLI
+slices are named, so that the walk cannot miss them."""
 
 import os
 import subprocess
@@ -39,7 +39,8 @@ _SCRIPT = textwrap.dedent(
                  "ops.trace", "models.balls", "render.renderer", "io.native",
                  "io.image", "textures", "ops.bounce", "models.earth",
                  "models.shrek_quads", "models.rtw_final", "utils.workcount",
-                 "utils.roofline"):
+                 "utils.roofline", "cli", "utils.profiler", "utils.argparser",
+                 "utils.timer", "io.ppm", "models.emissive"):
         assert pkg.__name__ + "." + name in names, name
     import chip_smoke
     leaked = [m for m in sys.modules if m.split(".")[0] in BLOCKED]

@@ -10,6 +10,7 @@ plain versions did on the CPU.
      leaf-slot tests by kind, each slot test a whole leaf's 8 x span slots.
   3. The bound: operations from the per-unit table, bytes, and which of
      the two bounds it.
+  4. A texture-LUT render: the fetch's operations and the LUT's bytes.
 """
 
 import numpy as np
@@ -96,3 +97,31 @@ def test_table_bytes_count_the_atlas():
     assert roofline.trace_bytes(cs) == cs.n_quads * 16 * 4
     assert roofline.render_table_bytes(cs) == (
         roofline.trace_bytes(cs) + cs.shade_rows.numel() * 4 + 5 * 52 * 4 + 292 * 300 * 4)
+
+
+def test_lut_fetch_counts_and_bytes():
+    """A texture-LUT render counts each texel fetch with the atlas fetch's
+    operations (26 on a sphere, 44 on a quad) and its bound reads the LUT
+    once in place of the atlas: shrek_quads' 300 x 292 image (w x h)
+    box-downsampled to 75 x 73 texels at an 8192 budget, padded to 128."""
+    sc = zt.models.load_scene("shrek_quads", device="cpu", texture_lut=8192)
+    cs = sc.compiled
+    assert cs.tex_lut_dims == ((75, 73, 0),) and cs.tex_lut_tab.numel() == 5504
+    assert roofline.image_table_bytes(cs) == 5504 * 4
+    assert roofline.render_table_bytes(cs) == (
+        roofline.trace_bytes(cs) + cs.shade_rows.numel() * 4 + 5 * 52 * 4 + 5504 * 4)
+    w, spp, depth = 8, 2, 3
+    px, py, s0 = _lanes(w)
+    kw = dict(camera_consts=tcam.camera_consts(sc.camera, w, w),
+              sampler=zt.sampling.SamplerKind.SOBOL, width=w, height=w, spp=spp, stride=1,
+              max_depth=depth, has_dof=False)
+    with workcount.counting() as c:
+        integrator.render_fused_reference(cs, px, py, s0, s0 + spp, 0, zt.dtypes.T_MIN, **kw)
+    hits = c["bounce"] - c["miss"]
+    assert c["texel_quad"] == hits > 0 and c.get("texel_sphere", 0) == 0
+    no_texel = {k: v for k, v in c.items() if not k.startswith("texel_")}
+    ops = roofline.render_ops(c, cs, has_dof=False)
+    assert ops - roofline.render_ops(no_texel, cs, has_dof=False) == 44 * c["texel_quad"]
+    ms, by = roofline.bound_ms(ops, w * w * 32 + roofline.render_table_bytes(cs))
+    assert by == "bytes" and np.isclose(ms, (w * w * 32 + roofline.render_table_bytes(cs))
+                                        / roofline.PEAK_BYTES * 1e3)

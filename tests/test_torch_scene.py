@@ -2,8 +2,8 @@
 
 Both builds are host numpy, so every table must be equal exactly, field by
 field, the image atlas included; ``compiled_from_arrays`` of the JAX
-scene's tables must give the same scene.  Features of later slices raise
-NotImplementedError.  Group trees are held to JAX's in test_torch_bvh.py
+scene's tables must give the same scene.  Features of later slices (nested
+checkers, the unified tree) raise NotImplementedError.  Group trees are held to JAX's in test_torch_bvh.py
 and, for the image scenes, here."""
 
 import numpy as np
@@ -66,17 +66,24 @@ def test_compiled_from_arrays_refuses_later_slices(cornell_j):
     cs = cornell_j.compiled
     fields = {f: np.asarray(getattr(cs, f)) for f in ARRAY_FIELDS}
     static = {f: getattr(cs, f) for f in STATIC_FIELDS}
-    for flag in ("has_uni_tree", "has_emissive_image", "has_nested_checker"):
+    for flag in ("has_uni_tree", "has_nested_checker"):
         with pytest.raises(NotImplementedError, match="slice"):
             compiled_from_arrays(fields, {**static, flag: True}, "cpu")
+    # image emitters are this slice's: the flag is carried
+    assert compiled_from_arrays(fields, {**static, "has_emissive_image": True},
+                                "cpu").has_emissive_image
     # the binary BVH flag is accepted: the port walks the group trees
     assert not compiled_from_arrays(fields, {**static, "has_bvh": True}, "cpu").has_sph_tree
 
 
 @pytest.mark.parametrize("name", ["emissive"])
 def test_later_scenes_raise(name):
-    with pytest.raises(NotImplementedError, match="slice"):
-        zt.models.load_scene(name, device="cpu")
+    """emissive was the last scene of a later slice: it loads now, by name
+    or SceneType, and an unknown scene raises."""
+    assert zt.models.load_scene(name, device="cpu").name == name
+    assert zt.models.load_scene(zt.models.SceneType(name), device="cpu").name == name
+    with pytest.raises(ValueError, match="unknown scene"):
+        zt.models.load_scene("bogus", device="cpu")
 
 
 @pytest.mark.parametrize("name", ["earth", "shrek_quads", "rtw_final"])
@@ -116,8 +123,8 @@ def test_default_device_is_the_card():
 
 
 def test_builder_refuses_images_and_trees(monkeypatch):
-    """Images build into the atlas, while nested checkers and image
-    emitters raise (the rest of slice 4); use_bvh builds group trees from
+    """Images build into the atlas and image emitters compile, while
+    nested checkers raise (a later slice); use_bvh builds group trees from
     TREE_MIN_PRIMS primitives of a kind on, and the unified tree (K4)
     raises."""
     for nested in (False, True):
@@ -126,8 +133,12 @@ def test_builder_refuses_images_and_trees(monkeypatch):
         solid = b.solid_color((0.5, 0.5, 0.5))
         tex = b.checkerboard(1.0, b.checkerboard(1.0, solid, img), solid) if nested else img
         b.add(b.sphere((0, 0, 0), 1.0, b.diffuse_light(tex) if not nested else b.lambertian(tex)))
-        with pytest.raises(NotImplementedError, match="rest of slice 4"):
-            b.compile(device="cpu")
+        if nested:
+            with pytest.raises(NotImplementedError, match="nested checkers"):
+                b.compile(device="cpu")
+        else:
+            cs = b.compile(device="cpu").compiled
+            assert cs.has_emissive_image and cs.has_image_textures
     b = SceneBuilder()
     chk = b.checkerboard(1.0, b.solid_color((0.5, 0.5, 0.5)), b.image_texture(np.zeros((2, 3, 3), np.uint8)))
     b.add(b.sphere((0, 0, 0), 1.0, b.lambertian(chk)))

@@ -5,10 +5,12 @@ The JAX package ``zig_weekend_raytracer_tpu`` is the reference; this
 package mirrors its layout (math/, sampling/, geometry/, render/, ops/,
 io/, utils/, models/) and never imports it or JAX.  Renders go through
 hand-written CUDA kernels: ``csrc/fused_render.cu`` (the whole render of
-a scene without images), ``csrc/bounce.cu`` (the bounce of image-texture
-scenes) and ``csrc/closest_hit.cu`` (the first-hit probe of tree scenes);
-scenes live on the card unless built with ``device="cpu"``, where the
-same entry points run the kernels' plain PyTorch versions.
+a scene without images, or of an image scene with a texture LUT),
+``csrc/bounce.cu`` (the bounce of image-texture scenes) and
+``csrc/closest_hit.cu`` (the first-hit probe of tree scenes); scenes live
+on the card unless built with ``device="cpu"``, where the same entry
+points run the kernels' plain PyTorch versions.  The command line is
+``python -m zig_weekend_raytracer_tpu_torch.cli`` (``cli.py``).
 
 Typical usage:
 

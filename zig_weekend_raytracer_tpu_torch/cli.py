@@ -1,0 +1,206 @@
+"""CLI entry point of the port (counterpart of ``cli.py``; reference:
+src/main.zig).
+
+The same flags, defaults and usage text as the JAX package's ``UserArgs``,
+and the same three stage log lines (src/main.zig:94,97,105) and ``--stats``
+line.  The command line renders on the card through the hand-written
+kernels; ``main(argv, device="cpu")`` runs the same path on the kernels'
+plain versions (the tests' way in).  Flags whose features are later slices
+of the port exit 1 with an error naming the slice; they never render
+something else.
+
+Run:  python -m zig_weekend_raytracer_tpu_torch.cli --image_width=400 --image_height=400
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import logging
+import sys
+import time
+
+import torch
+
+from .io.ppm import write_image
+from .models import DEFAULT_ASSET_DIR, SceneType, load_scene
+from .render.renderer import Renderer
+from .sampling.sampler import SamplerKind
+from .utils.argparser import ArgParser, HelpPassedInArgs, ParseArgsError
+from .utils.timer import Timer
+
+
+@dataclasses.dataclass
+class UserArgs:
+    image_width: int
+    image_height: int
+    image_out_path: str = "image.ppm"
+    # the native PPM writer's thread count
+    thread_pool_size: int = 8
+    scene: SceneType = SceneType.EMISSIVE
+    samples_per_pixel: int = 10
+    ray_bounce_max_depth: int = 20
+    # --- extensions beyond the reference flag set ---
+    sampler: SamplerKind = SamplerKind.SOBOL
+    seed: int = 0
+    asset_dir: str = DEFAULT_ASSET_DIR
+    # declarative JSON scene (slice 5 of the port)
+    scene_file: str = ""
+    # none | samples | rows: multi-device sharding (slice 6)
+    shard: str = "none"
+    # Russian roulette start bounce, 0 = off (slice 5)
+    russian_roulette: int = 0
+    # indirect luminance clamp, 0 = off (slice 5)
+    clamp_indirect: float = 0.0
+    # variance-guided adaptive sampling, 0 = off (slice 5)
+    adaptive: int = 0
+    # progressive rendering with checkpoint/resume (slice 5)
+    checkpoint: str = ""
+    checkpoint_batch_spp: int = 16
+    # a-trous denoise iterations, 0 = off (slice 5)
+    denoise: int = 0
+    # supersampling factor, 1 = off (slice 5)
+    supersample: int = 1
+    # texture LUT texel budget, 0 = off: every image box-downsampled to at
+    # most this many texels and read by the whole-render kernel
+    # (scene.py:_build_tex_lut); a budget >= an image's size keeps it exact
+    texture_lut: int = 0
+    # print paths traced, wall-clock and Mpaths/s after the render
+    stats: bool = False
+    # first-hit AOV buffers (slice 5)
+    aov: bool = False
+    # zone tables after the render: host (wall-clock per named_zone) or
+    # device (per-kernel device ms from a torch.profiler capture)
+    profile: str = "off"
+
+
+# Later-slice flags: (flag, slice, is the flag set).
+_LATER_SLICE_FLAGS = (
+    ("shard", 6, lambda a: a.shard != "none"),
+    ("adaptive", 5, lambda a: a.adaptive != 0),
+    ("checkpoint", 5, lambda a: a.checkpoint != ""),
+    ("denoise", 5, lambda a: a.denoise != 0),
+    ("aov", 5, lambda a: a.aov),
+    ("supersample", 5, lambda a: a.supersample > 1),
+    ("scene_file", 5, lambda a: a.scene_file != ""),
+    ("russian_roulette", 5, lambda a: a.russian_roulette != 0),
+    ("clamp_indirect", 5, lambda a: a.clamp_indirect != 0.0),
+)
+
+
+def normalize_profile_mode(text: str) -> str | None:
+    """--profile value -> 'off' | 'host' | 'device', or None if invalid
+    (the legacy bool spellings included)."""
+    mode = text.lower()
+    if mode in ("true", "1", "yes", "on"):
+        return "host"
+    if mode in ("false", "0", "no"):
+        return "off"
+    return mode if mode in ("off", "host", "device") else None
+
+
+def parse_user_args(argv) -> UserArgs:
+    parser = ArgParser(UserArgs)
+    try:
+        return parser.parse(argv)
+    except ParseArgsError:  # --help included
+        print(parser.usage(), file=sys.stderr)
+        raise
+
+
+def later_slice_error(args: UserArgs) -> str | None:
+    """The error of the first set flag whose feature is a later slice."""
+    for flag, n, is_set in _LATER_SLICE_FLAGS:
+        if is_set(args):
+            return f"--{flag} is slice {n} of the port (ROADMAP.md)"
+    return None
+
+
+def main(argv=None, device="cuda") -> int:
+    """Run the CLI on ``argv`` (default: the command line); renders on
+    ``device``, the card unless a caller asks for the CPU."""
+    logging.basicConfig(level=logging.INFO, format="%(message)s")
+    timer = Timer()
+    try:
+        args = parse_user_args(argv if argv is not None else sys.argv[1:])
+    except HelpPassedInArgs:
+        return 0
+    except ParseArgsError as e:
+        print(f"error: {e}", file=sys.stderr)
+        return 1
+
+    profile_mode = normalize_profile_mode(args.profile)
+    if profile_mode is None:
+        print(f"error: unknown --profile mode {args.profile!r} "
+              "(off | host | device)", file=sys.stderr)
+        return 1
+    if args.supersample < 1:
+        print("error: --supersample must be >= 1", file=sys.stderr)
+        return 1
+    why = later_slice_error(args)
+    if why is not None:
+        print(f"error: {why}", file=sys.stderr)
+        return 1
+    if torch.device(device).type == "cuda" and not torch.cuda.is_available():
+        print("error: CUDA is not available: the port's CLI renders on the card",
+              file=sys.stderr)
+        return 1
+
+    from .utils import profiler
+
+    was_profiling = profiler.profiling_enabled()
+    if profile_mode == "host":
+        profiler.set_profiling(True)
+    try:
+        return _run(args, device, profile_mode, timer)
+    finally:
+        profiler.set_profiling(was_profiling)
+
+
+def _run(args: UserArgs, device, profile_mode: str, timer: Timer) -> int:
+    """Load, render, write and report, after the flags were checked."""
+    from .utils import profiler
+
+    scene = load_scene(args.scene, seed=args.seed, asset_dir=args.asset_dir,
+                       device=device, texture_lut=args.texture_lut)
+    timer.log_info_elapsed("scene initialized")
+
+    renderer = Renderer(
+        samples_per_pixel=args.samples_per_pixel,
+        max_ray_bounce_depth=args.ray_bounce_max_depth,
+        sampler=args.sampler,
+        seed=args.seed,
+    )
+
+    def do_render():
+        return renderer.render(scene, args.image_width, args.image_height)
+
+    device_table = None
+    t_render0 = time.perf_counter()
+    if profile_mode == "device":
+        fb, agg = profiler.run_with_device_trace(do_render)
+        device_table = profiler.format_device_summary(agg)
+    else:
+        fb = do_render()
+    render_s = time.perf_counter() - t_render0
+    timer.log_info_elapsed("scene rendered")
+
+    write_image(args.image_out_path, fb, n_threads=args.thread_pool_size)
+    timer.log_info_elapsed("scene written to file")
+
+    if args.stats:
+        paths = args.image_width * args.image_height * args.samples_per_pixel
+        print(
+            f"stats: {paths:,} paths in {render_s:.3f} s "
+            f"(incl. compile on first run) = "
+            f"{paths / render_s / 1e6:.2f} Mpaths/s"
+        )
+
+    if profiler.profiling_enabled():
+        print(profiler.format_zone_summary())
+    if device_table is not None:
+        print(device_table)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

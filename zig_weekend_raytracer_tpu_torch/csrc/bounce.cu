@@ -18,10 +18,13 @@
 // once and writes 72; the scene tables stay in L1 and L2.  The exception is
 // the atlas: texel reads are scattered 4-byte loads from a table of up to
 // 57 MB (rtw_final's two images), which fits the 50 MB L2 only in part.
+// With a texture LUT the one-bounce mode reads the LUT instead (unpadded:
+// 29 MB at rtw_final's native size); the wrappers hand either table to the
+// same fetch (zwrt_device.cuh:image_texel).
 //
 // What the design does about that: one thread per path, looping on its own
 // until its window is used up (the shared zwrt_device.cuh:drain, which K1
-// runs without the atlas fetch), so no lane idles for a tile; the caller
+// runs too), so no lane idles for a tile; the caller
 // orders lanes by the first hit of their camera ray (coherent plan) or by
 // measured cost (sorted plan), so neighbouring threads hit neighbouring
 // texels and walk the same nodes; and the texel is read only on a hit whose
@@ -44,7 +47,7 @@ namespace zwrt {
 template <bool REGEN>
 __global__ void __launch_bounds__(128) bounce_kernel(
     const __grid_constant__ Params p, const __grid_constant__ TraceScene scene,
-    const __grid_constant__ Atlas atlas, const float* __restrict__ shade_rows,
+    const __grid_constant__ Images images, const float* __restrict__ shade_rows,
     const uint32_t* __restrict__ sobol, float* __restrict__ fstate, int* __restrict__ istate,
     const int* __restrict__ lane_px, const int* __restrict__ lane_py,
     const int* __restrict__ lane_limit, int depth, int n) {
@@ -63,7 +66,7 @@ __global__ void __launch_bounds__(128) bounce_kernel(
   if (REGEN) {
     int sample = st[2 * n], work = st[4 * n];
     s.depth = st[3 * n];
-    drain<true>(p, scene, shade_rows, &atlas, sobol, lane_px[i], lane_py[i], lane_limit[i], s,
+    drain<true>(p, scene, shade_rows, &images, sobol, lane_px[i], lane_py[i], lane_limit[i], s,
                 alive, sample, work);
     f[12 * n] = s.time;
     st[0] = (int)s.rid;
@@ -72,7 +75,7 @@ __global__ void __launch_bounds__(128) bounce_kernel(
     st[4 * n] = work;
   } else if (alive) {
     s.depth = depth;
-    alive = bounce_step<true>(p, scene, shade_rows, &atlas, s);
+    alive = bounce_step<true>(p, scene, shade_rows, &images, s);
   }
   f[0] = s.o.x;
   f[n] = s.o.y;
@@ -93,40 +96,34 @@ __global__ void __launch_bounds__(128) bounce_kernel(
 
 // Host launcher with a plain C interface (loaded with ctypes).  ``iparams``,
 // ``fparams``, ``trace_ints`` and ``trace_ptrs`` are host arrays in the
-// order ops/fused_render.py packs them; ``atlas_ints`` is [n_images, ah,
-// aw, then (width, height) per image].  ``fstate`` (13, n) and ``istate``
+// order ops/fused_render.py packs them; ``image_ints`` and ``image_texels``
+// are the image table, the atlas or the texture LUT (ops/fused_render.py:
+// image_args: [n_images, then w, h, base, stride per image]).  ``fstate``
+// (13, n) and ``istate``
 // (2 or 5, n) are updated in place; ``px``, ``py`` and ``limit`` are read
 // only in the regenerating mode (``regen`` != 0), ``depth`` only in the
 // one-bounce mode.  Launches on ``stream`` and returns the launch's
 // cudaError_t.
 extern "C" int zwrt_bounce(const int* iparams, const float* fparams, const int* trace_ints,
-                           const void* const* trace_ptrs, const int* atlas_ints,
-                           const int* atlas_texels, const float* shade_rows,
+                           const void* const* trace_ptrs, const int* image_ints,
+                           const int* image_texels, const float* shade_rows,
                            const uint32_t* sobol, float* fstate, int* istate, const int* px,
                            const int* py, const int* limit, int regen, int depth, int n,
                            void* stream) {
   using namespace zwrt;
   if (n <= 0) return 0;
-  if (atlas_ints[0] < 1 || atlas_ints[0] > kMaxImages) return (int)cudaErrorInvalidValue;
+  Images images;
+  if (!read_images(image_ints, image_texels, &images)) return (int)cudaErrorInvalidValue;
   Params p = read_params(iparams, fparams);
   TraceScene scene = read_trace_scene(trace_ints, trace_ptrs);
-  Atlas atlas = {};
-  atlas.texels = atlas_texels;
-  atlas.n_images = atlas_ints[0];
-  atlas.ah = atlas_ints[1];
-  atlas.aw = atlas_ints[2];
-  for (int k = 0; k < atlas.n_images; ++k) {
-    atlas.w[k] = atlas_ints[3 + 2 * k];
-    atlas.h[k] = atlas_ints[4 + 2 * k];
-  }
   const int threads = 128;
   const int blocks = (n + threads - 1) / threads;
   cudaStream_t s = (cudaStream_t)stream;
   if (regen) {
-    bounce_kernel<true><<<blocks, threads, 0, s>>>(p, scene, atlas, shade_rows, sobol, fstate,
+    bounce_kernel<true><<<blocks, threads, 0, s>>>(p, scene, images, shade_rows, sobol, fstate,
                                                    istate, px, py, limit, depth, n);
   } else {
-    bounce_kernel<false><<<blocks, threads, 0, s>>>(p, scene, atlas, shade_rows, sobol, fstate,
+    bounce_kernel<false><<<blocks, threads, 0, s>>>(p, scene, images, shade_rows, sobol, fstate,
                                                     istate, px, py, limit, depth, n);
   }
   return (int)cudaGetLastError();

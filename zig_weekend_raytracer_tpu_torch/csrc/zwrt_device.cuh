@@ -2,9 +2,9 @@
 // zig_weekend_raytracer_tpu_torch: PCG4D, Sobol, camera rays with the
 // defocus disk, sphere and quad hits, the closest-hit stages (brute scan,
 // slab test, leaf sweep, skip-link tree walk), shade-record reads, the five
-// materials, the light-list PDF, sphere and quad UVs with the atlas texel
-// fetch, and the bounce step and regenerating drain that fused_render.cu
-// and bounce.cu share.  All three kernels trace through trace_closest.
+// materials, the light-list PDF, sphere and quad UVs with the image texel
+// fetch (from the atlas or the texture LUT), and the bounce step and
+// regenerating drain that fused_render.cu and bounce.cu share.  All three kernels trace through trace_closest.
 //
 // Every function follows the plain PyTorch version in the package
 // (sampling/, geometry/, render/, ops/) operation for operation, so that a
@@ -586,12 +586,15 @@ __device__ __forceinline__ float schlick_reflectance(float cos_theta, float ri) 
 
 constexpr int kMaxImages = 16;
 
-// The packed atlas: (n_images, ah, aw) texels r | g << 8 | b << 16 and each
-// image's static (width, height).
-struct Atlas {
+// One table of images, texels r | g << 8 | b << 16: image i is w[i] x h[i]
+// texels, texel (x, y) at texels[base[i] + y * stride[i] + x].  The atlas
+// (n_images, ah, aw) has base = i * ah * aw and stride = aw
+// (textures.py:atlas_flat_index); the texture LUT has each image's own base
+// and stride = w (textures.py:lut_flat_index).
+struct Images {
   const int* texels;
-  int n_images, ah, aw;
-  int w[kMaxImages], h[kMaxImages];
+  int n_images;
+  int w[kMaxImages], h[kMaxImages], base[kMaxImages], stride[kMaxImages];
 };
 
 // Spherical UVs from the object-space outward normal.
@@ -603,10 +606,11 @@ __device__ __forceinline__ void sphere_uv(V3 n, float* u, float* v) {
 }
 
 // Nearest texel of image ``img`` at (u, v), byte -> linear by the gamma-2
-// square: textures.py:atlas_flat_index's arithmetic, then one 4-byte load.
-__device__ __forceinline__ V3 atlas_texel(const Atlas& a, int img, float u, float v) {
+// square: textures.py:atlas_flat_index's (or lut_flat_index's) arithmetic,
+// then one 4-byte load.
+__device__ __forceinline__ V3 image_texel(const Images& a, int img, float u, float v) {
   float wf = 0.0f, hf = 0.0f;
-  int wi = 0, hi = 0;
+  int wi = 0, hi = 0, base = 0, stride = 0;
 #pragma unroll
   for (int i = 0; i < kMaxImages; ++i) {
     if (i < a.n_images && img == i) {
@@ -614,6 +618,8 @@ __device__ __forceinline__ V3 atlas_texel(const Atlas& a, int img, float u, floa
       hf = (float)a.h[i];
       wi = a.w[i];
       hi = a.h[i];
+      base = a.base[i];
+      stride = a.stride[i];
     }
   }
   float uc = clamp_max(clamp_min(u, 0.0f), 1.0f);
@@ -622,7 +628,7 @@ __device__ __forceinline__ V3 atlas_texel(const Atlas& a, int img, float u, floa
   int y = (int)(vc * hf);
   x = x < 0 ? 0 : (x > wi - 1 ? wi - 1 : x);
   y = y < 0 ? 0 : (y > hi - 1 ? hi - 1 : y);
-  uint32_t t = (uint32_t)__ldg(a.texels + (size_t)img * a.ah * a.aw + (size_t)y * a.aw + x);
+  uint32_t t = (uint32_t)__ldg(a.texels + (size_t)base + (size_t)y * stride + x);
   V3 c = mk((float)(t & 0xFFu) * kInv255, (float)((t >> 8) & 0xFFu) * kInv255,
             (float)((t >> 16) & 0xFFu) * kInv255);
   return c * c;
@@ -643,13 +649,15 @@ struct Path {
 
 // One bounce of a live path: closest hit, shade record, texture, the
 // material's scatter.  Returns whether the path goes on (before the depth
-// cutoff).  IMAGES compiles the atlas fetch: the texel of an image texture
-// (or a checker's image child) replaces the record colour at the hit, as
-// the XLA integrator orders it.  Without IMAGES ``atlas`` is never read.
+// cutoff).  IMAGES compiles the image fetch: the texel of an image texture
+// (or a checker's image child) replaces the record colour at the hit,
+// before emission and scatter, as the XLA integrator and the JAX
+// whole-render kernel's LUT fetch order it.  Without IMAGES ``images`` is
+// never read.
 template <bool IMAGES>
 __device__ __forceinline__ bool bounce_step(const Params& p, const TraceScene& scene,
                                             const float* __restrict__ shade_rows,
-                                            const Atlas* atlas, Path& s) {
+                                            const Images* images, Path& s) {
   // ---- closest hit: sphere stage, then quad stage ----
   float best;
   int kind, idx;
@@ -702,7 +710,7 @@ __device__ __forceinline__ bool bounce_step(const Params& p, const TraceScene& s
         u = dot(w, cross(planar, mk(rec[12], rec[13], rec[14])));
         v = dot(w, cross(mk(rec[9], rec[10], rec[11]), planar));
       }
-      tex_rgb = atlas_texel(*atlas, img, u, v);
+      tex_rgb = image_texel(*images, img, u, v);
     }
   }
 
@@ -776,7 +784,7 @@ __device__ __forceinline__ bool bounce_step(const Params& p, const TraceScene& s
 // p.max_depth bounces.
 template <bool IMAGES>
 __device__ __forceinline__ void drain(const Params& p, const TraceScene& scene,
-                                      const float* __restrict__ shade_rows, const Atlas* atlas,
+                                      const float* __restrict__ shade_rows, const Images* images,
                                       const uint32_t* __restrict__ sobol, int px, int py,
                                       int limit, Path& s, bool& alive, int& sample, int& work) {
   const int stride = p.stride;
@@ -790,10 +798,27 @@ __device__ __forceinline__ void drain(const Params& p, const TraceScene& scene,
       alive = true;
     }
     work += 1;
-    bool survives = bounce_step<IMAGES>(p, scene, shade_rows, atlas, s);
+    bool survives = bounce_step<IMAGES>(p, scene, shade_rows, images, s);
     s.depth += 1;
     alive = survives && s.depth < p.max_depth;
   }
+}
+
+// Host side: the image table from [n_images, then w, h, base, stride per
+// image] as the wrappers pack it (ops/fused_render.py:image_args); false when
+// n_images is out of range.
+inline bool read_images(const int* ints, const int* texels, Images* out) {
+  *out = Images{};
+  out->texels = texels;
+  out->n_images = ints[0];
+  if (out->n_images < 1 || out->n_images > kMaxImages) return false;
+  for (int k = 0; k < out->n_images; ++k) {
+    out->w[k] = ints[1 + 4 * k];
+    out->h[k] = ints[2 + 4 * k];
+    out->base[k] = ints[3 + 4 * k];
+    out->stride[k] = ints[4 + 4 * k];
+  }
+  return true;
 }
 
 // Host side: Params from the int32 and float32 arrays the wrappers pack

@@ -1,12 +1,13 @@
-"""Image decode through the repository's native library (counterpart of
-``io/native.py``, decode only).
+"""Image decode and the PPM writer through the repository's native library
+(counterpart of ``io/native.py``).
 
 ``native/zwrt_native.cpp`` wraps the vendored stb_image
 (``native/third_party/stb/``), the decoder the JAX package uses, so both
-packages get the same bytes from a JPEG.  At first use ``g++`` builds it
-into the port's ``build/`` directory (named by a hash of the sources and
-flags) and ``ctypes`` binds ``zwrt_decode_image`` and ``zwrt_free``.  A
-failed build raises; there is no fallback decoder.
+packages get the same bytes from a JPEG, and holds the threaded mmap'd P3
+writer.  At first use ``g++`` builds it into the port's ``build/``
+directory (named by a hash of the sources and flags) and ``ctypes`` binds
+``zwrt_decode_image``, ``zwrt_free`` and ``zwrt_write_ppm``.  A failed
+build raises; there is no fallback decoder or writer.
 """
 
 from __future__ import annotations
@@ -53,13 +54,39 @@ def build() -> str:
 
 @functools.lru_cache(maxsize=1)
 def load_library() -> ctypes.CDLL:
-    lib = ctypes.CDLL(build())
+    lib = ctypes.CDLL(build(), use_errno=True)
     u8p, ip = ctypes.POINTER(ctypes.c_uint8), ctypes.POINTER(ctypes.c_int)
     lib.zwrt_decode_image.restype = u8p
     lib.zwrt_decode_image.argtypes = [u8p, ctypes.c_int64, ip, ip, ip]
     lib.zwrt_free.restype = None
     lib.zwrt_free.argtypes = [ctypes.c_void_p]
+    lib.zwrt_write_ppm.restype = ctypes.c_int
+    lib.zwrt_write_ppm.argtypes = [ctypes.c_char_p, u8p, ctypes.c_int64, ctypes.c_int64,
+                                   ctypes.c_int]
     return lib
+
+
+def write_ppm(path: str, pixels_u8: np.ndarray, n_threads: int = 0) -> None:
+    """Write (H, W, 3) uint8 pixels as a P3 PPM with the native writer
+    (``n_threads`` 0: one per core); raises ``OSError`` naming the failed
+    stage."""
+    if pixels_u8.dtype != np.uint8 or pixels_u8.ndim != 3 or pixels_u8.shape[2] != 3:
+        raise ValueError(f"pixels must be (H, W, 3) uint8, got {pixels_u8.dtype} "
+                         f"{pixels_u8.shape}")
+    lib = load_library()
+    h, w, _ = pixels_u8.shape
+    buf = np.ascontiguousarray(pixels_u8)
+    ctypes.set_errno(0)
+    rc = lib.zwrt_write_ppm(
+        os.fsencode(path), buf.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)), w, h,
+        int(n_threads),
+    )
+    if rc != 0:
+        # rc names the failing stage (native/zwrt_native.cpp); errno the cause
+        stage = {-1: "open", -2: "ftruncate", -3: "mmap"}.get(rc, "write")
+        err = ctypes.get_errno()
+        detail = f": {os.strerror(err)}" if err else ""
+        raise OSError(err, f"native PPM write failed at {stage} (rc={rc}){detail}: {path}")
 
 
 def decode_image(data: bytes) -> np.ndarray:

@@ -1,13 +1,19 @@
-"""PPM (P3) output (counterpart of ``io/ppm.py``'s numpy path): NaN scrub,
-gamma-2 sqrt, clamp to [0, 0.999], * 256 truncated to u8, one "r g b"
-line per pixel."""
+"""PPM (P3) output, byte-compatible with the reference writer (counterpart
+of ``io/ppm.py``).
+
+Encoding (reference: src/writer/writer.zig:68-94): NaN scrub to 0, gamma-2
+sqrt, clamp to [0, 0.999], * 256 truncated to u8, one "r g b" line per
+pixel.  ``write_ppm`` formats the text with the native threaded writer
+(``io/native.py``); a failed build or write raises.  ``encode_ppm_bytes``
+is its plain numpy version, which the tests hold the native bytes to.
+"""
 
 from __future__ import annotations
 
 import numpy as np
 
 
-def encode_pixels(fb: np.ndarray) -> np.ndarray:
+def encode_pixels(fb) -> np.ndarray:
     """Linear f32 (H, W, 3) -> u8 (H, W, 3)."""
     color = np.asarray(fb, np.float32)
     color = np.where(np.isnan(color), 0.0, color)
@@ -16,13 +22,31 @@ def encode_pixels(fb: np.ndarray) -> np.ndarray:
     return (color * 256.0).astype(np.uint8)
 
 
-def write_ppm(path: str, fb: np.ndarray) -> None:
-    """Write a linear-space framebuffer to a P3 PPM file."""
-    pixels = encode_pixels(fb)
-    h, w, _ = pixels.shape
+def encode_ppm_bytes(pixels_u8: np.ndarray) -> bytes:
+    """The P3 file of (H, W, 3) uint8 pixels, formatted in numpy."""
+    h, w, _ = pixels_u8.shape
     lut = np.array([str(i).encode() for i in range(256)], dtype=object)
-    flat = pixels.reshape(-1, 3)
+    flat = pixels_u8.reshape(-1, 3)
     lines = lut[flat[:, 0]] + b" " + lut[flat[:, 1]] + b" " + lut[flat[:, 2]] + b"\n"
-    with open(path, "wb") as f:
-        f.write(f"P3\n{w} {h}\n255\n".encode())
-        f.write(b"".join(lines.tolist()))
+    return f"P3\n{w} {h}\n255\n".encode() + b"".join(lines.tolist())
+
+
+def write_ppm(path: str, fb, n_threads: int = 0) -> None:
+    """Write a linear-space framebuffer to a P3 PPM file with the native
+    writer (``n_threads`` sizes its pool, 0 = one per core)."""
+    from . import native
+
+    native.write_ppm(path, encode_pixels(fb), n_threads=n_threads)
+
+
+def write_image(path: str, fb, n_threads: int = 0) -> None:
+    """Write a linear-space framebuffer, the format chosen by extension:
+    ``.png`` / ``.jpg`` / ``.jpeg`` / ``.bmp`` encode the same pixel bytes
+    through PIL (imported only then); anything else is a P3 PPM."""
+    ext = path.rsplit(".", 1)[-1].lower() if "." in path else ""
+    if ext in ("png", "jpg", "jpeg", "bmp"):
+        from PIL import Image
+
+        Image.fromarray(encode_pixels(fb), "RGB").save(path)
+    else:
+        write_ppm(path, fb, n_threads=n_threads)

@@ -1,9 +1,10 @@
-"""The scene library.  The port has ``cornell_box``, ``balls``,
-``shrek_quads``, ``earth`` and ``rtw_final``; ``emissive`` follows in a
-later slice (ROADMAP.md)."""
+"""The scene library (counterpart of ``models/__init__.py``): the six
+built-in scenes, constant for constant, and ``SceneType``, the CLI's
+``--scene`` choices in the JAX package's order."""
 
 from __future__ import annotations
 
+import enum
 import os
 from typing import Callable, Dict, Optional
 
@@ -11,6 +12,7 @@ from ..scene import Scene
 from .balls import load_scene_balls
 from .cornell_box import load_scene_cornell_box
 from .earth import load_scene_earth
+from .emissive import load_scene_emissive
 from .rtw_final import load_scene_rtw_final
 from .shrek_quads import load_scene_shrek_quads
 
@@ -19,30 +21,41 @@ DEFAULT_ASSET_DIR = os.path.abspath(
     os.path.join(os.path.dirname(__file__), "..", "..", "assets")
 )
 
+
+class SceneType(enum.Enum):
+    """--scene choices (reference: src/scene.zig:18-24, plus earth)."""
+
+    BALLS = "balls"
+    SHREK_QUADS = "shrek_quads"
+    EMISSIVE = "emissive"
+    CORNELL_BOX = "cornell_box"
+    RTW_FINAL = "rtw_final"
+    EARTH = "earth"
+
+
 SCENE_BUILDERS: Dict[str, Callable[..., Scene]] = {
-    "cornell_box": load_scene_cornell_box,
     "balls": load_scene_balls,
     "shrek_quads": load_scene_shrek_quads,
-    "earth": load_scene_earth,
+    "emissive": load_scene_emissive,
+    "cornell_box": load_scene_cornell_box,
     "rtw_final": load_scene_rtw_final,
+    "earth": load_scene_earth,
 }
-_LATER_SLICES = {"emissive": 2}
 
 
 def load_scene(
-    name: str, seed: int = 0, asset_dir: Optional[str] = None, device="cuda"
+    name, seed: int = 0, asset_dir: Optional[str] = None, device="cuda",
+    texture_lut: Optional[int] = None,
 ) -> Scene:
-    """Build a scene with its tables on ``device``: the card unless asked
-    for the CPU (``device="cpu"`` runs the kernels' plain versions); a CUDA
-    device without a GPU raises."""
+    """Build a scene (a name or a ``SceneType``) with its tables on
+    ``device``: the card unless asked for the CPU (``device="cpu"`` runs
+    the kernels' plain versions); a CUDA device without a GPU raises.
+    ``texture_lut`` is the texel budget of the texture LUT
+    (``SceneBuilder.compile``; None reads ``ZWRT_TEX_LUT``)."""
     name = getattr(name, "value", name)
-    if name in _LATER_SLICES:
-        raise NotImplementedError(
-            f"scene {name!r} is slice {_LATER_SLICES[name]} of the port "
-            "(ROADMAP.md)"
-        )
     if name not in SCENE_BUILDERS:
         raise ValueError(f"unknown scene {name!r}")
     return SCENE_BUILDERS[name](
-        seed=seed, asset_dir=asset_dir or DEFAULT_ASSET_DIR, device=device
+        seed=seed, asset_dir=asset_dir or DEFAULT_ASSET_DIR, device=device,
+        texture_lut=texture_lut,
     )

@@ -9,7 +9,8 @@ import numpy as np
 from ..scene import Camera, Scene, SceneBuilder
 
 
-def load_scene_balls(seed: int = 0, asset_dir: str = "", device="cuda") -> Scene:
+def load_scene_balls(seed: int = 0, asset_dir: str = "", device="cuda",
+                     texture_lut=None) -> Scene:
     rand = np.random.default_rng(seed)
     b = SceneBuilder()
 
@@ -56,4 +57,4 @@ def load_scene_balls(seed: int = 0, asset_dir: str = "", device="cuda") -> Scene
             defocus_angle_degrees=0.6,
         )
     )
-    return b.compile(name="balls", device=device)
+    return b.compile(name="balls", device=device, texture_lut=texture_lut)

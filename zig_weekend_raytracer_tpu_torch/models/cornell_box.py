@@ -6,7 +6,8 @@ from __future__ import annotations
 from ..scene import Camera, Scene, SceneBuilder
 
 
-def load_scene_cornell_box(seed: int = 0, asset_dir: str = "", device="cuda") -> Scene:
+def load_scene_cornell_box(seed: int = 0, asset_dir: str = "", device="cuda",
+                           texture_lut=None) -> Scene:
     b = SceneBuilder()
 
     tex_red = b.solid_color((0.65, 0.05, 0.05))
@@ -50,4 +51,4 @@ def load_scene_cornell_box(seed: int = 0, asset_dir: str = "", device="cuda") ->
             defocus_angle_degrees=0.0,
         )
     )
-    return b.compile(name="cornell_box", device=device)
+    return b.compile(name="cornell_box", device=device, texture_lut=texture_lut)

@@ -9,7 +9,8 @@ from ..io.image import load_image
 from ..scene import Camera, Scene, SceneBuilder
 
 
-def load_scene_earth(seed: int = 0, asset_dir: str = "", device="cuda") -> Scene:
+def load_scene_earth(seed: int = 0, asset_dir: str = "", device="cuda",
+                     texture_lut=None) -> Scene:
     b = SceneBuilder()
 
     checker = b.checkerboard(
@@ -39,4 +40,4 @@ def load_scene_earth(seed: int = 0, asset_dir: str = "", device="cuda") -> Scene
             defocus_angle_degrees=0.0,
         )
     )
-    return b.compile(name="earth", device=device)
+    return b.compile(name="earth", device=device, texture_lut=texture_lut)

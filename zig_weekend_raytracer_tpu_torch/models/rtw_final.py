@@ -13,7 +13,8 @@ from ..io.image import load_image
 from ..scene import Camera, Scene, SceneBuilder
 
 
-def load_scene_rtw_final(seed: int = 0, asset_dir: str = "", device="cuda") -> Scene:
+def load_scene_rtw_final(seed: int = 0, asset_dir: str = "", device="cuda",
+                         texture_lut=None) -> Scene:
     rand = np.random.default_rng(seed)
     b = SceneBuilder()
 
@@ -63,4 +64,4 @@ def load_scene_rtw_final(seed: int = 0, asset_dir: str = "", device="cuda") -> S
             defocus_angle_degrees=0.0,
         )
     )
-    return b.compile(name="rtw_final", device=device)
+    return b.compile(name="rtw_final", device=device, texture_lut=texture_lut)

@@ -9,7 +9,8 @@ from ..io.image import load_image
 from ..scene import Camera, Scene, SceneBuilder
 
 
-def load_scene_shrek_quads(seed: int = 0, asset_dir: str = "", device="cuda") -> Scene:
+def load_scene_shrek_quads(seed: int = 0, asset_dir: str = "", device="cuda",
+                           texture_lut=None) -> Scene:
     b = SceneBuilder()
     tex = b.image_texture(load_image(os.path.join(asset_dir, "wap.jpg")))
     # one material per quad, as the reference has
@@ -32,4 +33,4 @@ def load_scene_shrek_quads(seed: int = 0, asset_dir: str = "", device="cuda") ->
             defocus_angle_degrees=0.0,
         )
     )
-    return b.compile(name="shrek_quads", device=device)
+    return b.compile(name="shrek_quads", device=device, texture_lut=texture_lut)

@@ -1,25 +1,27 @@
 """The bounce kernel of image-texture scenes (counterpart of
-``ops/pallas_bounce.py``: ``bounce_pallas``, ``bounce_pallas_regen`` and
-``supports_fused_render``, over ``_bounce_kernel``).
+``ops/pallas_bounce.py``: ``bounce_pallas``, ``bounce_pallas_regen``,
+``supports_bounce_kernel`` and ``supports_fused_render``, over
+``_bounce_kernel``).
 
 ``bounce`` runs one bounce of a wavefront and ``bounce_regen`` drains each
 lane's sample window from a ``RegenState``.  For CUDA tensors both launch
 ``bounce_kernel`` (``csrc/bounce.cu`` over ``csrc/zwrt_device.cuh``), which
-reads the atlas texel at the hit; for CPU tensors they run its plain
-PyTorch versions, ``render/integrator.py:bounce`` and
-``bounce_regen_reference``.  Any other device raises.  ``bounce.launches``
-and ``bounce_regen.launches`` count kernel launches.
+reads the texel at the hit, from the texture LUT when the scene has one
+and from the atlas otherwise; for CPU tensors they run its plain PyTorch
+versions, ``render/integrator.py:bounce`` and ``bounce_regen_reference``.
+Any other device raises.  ``bounce.launches`` and ``bounce_regen.launches``
+count kernel launches.
 
-The JAX package sends two kinds of scene past its bounce kernel (nested
-checkers, image-textured emitters: ``supports_bounce_kernel``); the port's
-scene compile refuses both, so every scene it builds takes the kernel.
+Image-textured emitters take the kernel with or without a LUT, since the
+texel is read at the hit, before emission (the JAX kernel needs the LUT
+for them).  Nested checkers take no kernel in the JAX package; the port's
+scene compile refuses them.
 """
 
 from __future__ import annotations
 
 import ctypes
 
-import numpy as np
 import torch
 
 from ..dtypes import real
@@ -29,25 +31,24 @@ from ..render.integrator import RegenState
 from ..sampling.sampler import SamplerKind, sobol_log2_scale
 from ..scene import CompiledScene
 from . import _build
-from .fused_render import check_lane_tensor, launch_params, sobol_table, trace_args
+from .fused_render import (
+    check_lane_tensor, image_args, launch_params, sobol_table, trace_args,
+)
 
-MAX_IMAGES = 16  # csrc/zwrt_device.cuh kMaxImages
+
+def supports_bounce_kernel(scene: CompiledScene) -> bool:
+    """True for every scene the port compiles.  Image emitters read their
+    texel at the hit, LUT or not, where JAX's gate lifts only with a LUT
+    (pallas_bounce.py:1626-1635); nested checkers, which would not fit one
+    shade record, are refused by the scene compile."""
+    return True
 
 
 def supports_fused_render(scene: CompiledScene) -> bool:
-    """The whole-render kernel has no atlas fetch: image scenes take the
-    bounce kernel's regenerating mode instead."""
-    return not scene.has_image_textures
-
-
-def _atlas_ints(scene: CompiledScene) -> np.ndarray:
-    n_img, ah, aw = scene.atlas_packed.shape
-    if n_img > MAX_IMAGES:
-        raise NotImplementedError(
-            f"the bounce kernel takes at most {MAX_IMAGES} images, got {n_img}"
-        )
-    dims = [v for wh in scene.image_dims for v in wh]
-    return np.array([n_img, ah, aw, *dims], np.int32)
+    """The whole-render kernel reads images only from a texture LUT: scenes
+    without images, or with a LUT (pallas_bounce.py:1638-1644); other image
+    scenes take the bounce kernel's regenerating mode."""
+    return not scene.has_image_textures or bool(scene.tex_lut_dims)
 
 
 def _launch(scene, params, fstate, istate, lanes, regen, depth):
@@ -58,8 +59,7 @@ def _launch(scene, params, fstate, istate, lanes, regen, depth):
     lib = _build.load_library()
     ints, floats, width, height = params
     trace_ints, trace_ptrs, _tables = trace_args(scene)
-    atlas_ints = _atlas_ints(scene)
-    atlas = scene.atlas_packed.contiguous()
+    image_ints, texels = image_args(scene)
     shade_rows = scene.shade_rows.contiguous()
     sobol = sobol_table(device, sobol_log2_scale(width, height))
     px, py, limit = (None, None, None) if lanes is None else (t.data_ptr() for t in lanes)
@@ -68,8 +68,8 @@ def _launch(scene, params, fstate, istate, lanes, regen, depth):
         floats.ctypes.data_as(ctypes.c_void_p),
         trace_ints.ctypes.data_as(ctypes.c_void_p),
         trace_ptrs.ctypes.data_as(ctypes.c_void_p),
-        atlas_ints.ctypes.data_as(ctypes.c_void_p),
-        atlas.data_ptr(), shade_rows.data_ptr(), sobol.data_ptr(),
+        image_ints.ctypes.data_as(ctypes.c_void_p),
+        texels.data_ptr(), shade_rows.data_ptr(), sobol.data_ptr(),
         fstate.data_ptr(), istate.data_ptr(), px, py, limit,
         int(regen), int(depth), n, torch.cuda.current_stream(device).cuda_stream,
     )
@@ -100,7 +100,8 @@ def bounce(
 ):
     """One bounce of every lane at bounce index ``depth``: trace, shade,
     texture and scatter (one-bounce mode, the counterpart of
-    ``bounce_pallas`` with its atlas multiply).  ``ray_id`` is (N,) int64
+    ``bounce_pallas`` with its atlas multiply, or with its in-kernel LUT
+    fetch when the scene has a texture LUT).  ``ray_id`` is (N,) int64
     holding u32 values, ``alive`` (N,) bool.  Returns (origin', direction',
     throughput', radiance', alive')."""
     device = origin.x.device

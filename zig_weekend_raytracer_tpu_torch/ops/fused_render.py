@@ -9,7 +9,11 @@ PyTorch version, ``render/integrator.py:render_fused_reference``.  Any
 other device raises.  ``render_fused.launches`` counts kernel launches.
 
 ``kernel_tables`` and ``trace_args`` pack the scene for the kernels' shared
-trace (``trace_closest``), which ``ops/closest_hit.py`` launches too.
+trace (``trace_closest``), which ``ops/closest_hit.py`` launches too;
+``image_args`` packs its image table (the texture LUT, or else the atlas)
+for the kernels' shared texel fetch.  The kernel takes image scenes that
+have a texture LUT (instantiated with the fetch) and scenes without
+images (instantiated without it).
 """
 
 from __future__ import annotations
@@ -27,9 +31,11 @@ from ..render.integrator import render_fused_reference
 from ..sampling import sobol as _sobol
 from ..sampling.sampler import SamplerKind, sobol_log2_scale
 from ..scene import PRIM_QUAD, PRIM_SPHERE, CompiledScene
+from ..textures import image_table
 from . import _build
 
 # Must match csrc/zwrt_device.cuh.
+MAX_IMAGES = 16
 MAX_LIGHTS = 8
 LIGHT_FLOATS = 17
 _SAMPLER_CODE = {
@@ -135,6 +141,21 @@ def trace_args(scene: CompiledScene):
     return out
 
 
+def image_args(scene: CompiledScene):
+    """(ints, texels) of the kernels' image table: ``ints`` (int32) is
+    [n_images, then width, height, base, row stride per image] and
+    ``texels`` the int32 table on the scene's device.  The texture LUT when
+    the scene has one (each image at its own base, stride its width), else
+    the atlas (image i at i * ah * aw, stride aw)."""
+    dims, texels = image_table(scene)
+    if len(dims) > MAX_IMAGES:
+        raise NotImplementedError(
+            f"the kernels take at most {MAX_IMAGES} images, got {len(dims)}"
+        )
+    ints = np.array([len(dims), *(v for d in dims for v in d)], np.int32)
+    return ints, texels.contiguous()
+
+
 def launch_params(scene, seed, t_min, camera_consts, sampler, width, height,
                   spp, stride, max_depth, has_dof):
     """Host arrays (int32, float32) in the order the C launcher reads them."""
@@ -190,12 +211,14 @@ def render_fused(
     sums as V3 of (N,) float32, plus the per-lane work count (int32: loop
     passes in which the lane's path was alive) when ``want_work``.  With
     ``has_dof`` camera rays start on the defocus disk of ``camera_consts``.
-    Image scenes raise: the kernel has no atlas fetch (they take
+    An image scene needs a texture LUT: without one it raises, since the
+    kernel reads no atlas (``trace_paths_regen`` sends such scenes to
     ``ops/bounce.py:bounce_regen``)."""
-    if scene.has_image_textures:
+    if scene.has_image_textures and not scene.tex_lut_dims:
         raise NotImplementedError(
-            "render_fused takes no image-texture scene; trace_paths_regen "
-            "sends those to the bounce kernel (ops/bounce.py)"
+            "render_fused takes an image-texture scene only with a texture "
+            "LUT; trace_paths_regen sends the others to the bounce kernel "
+            "(ops/bounce.py)"
         )
     device = px.device
     if device.type == "cpu":
@@ -219,6 +242,9 @@ def render_fused(
         stride, max_depth, has_dof,
     )
     trace_ints, trace_ptrs, _tables = trace_args(scene)
+    image_ints = texels = None
+    if scene.has_image_textures:
+        image_ints, texels = image_args(scene)
     shade_rows = scene.shade_rows.contiguous()
     sobol = sobol_table(device, sobol_log2_scale(width, height))
     rad = torch.empty((3, n), dtype=real, device=device)
@@ -229,6 +255,8 @@ def render_fused(
         floats.ctypes.data_as(ctypes.c_void_p),
         trace_ints.ctypes.data_as(ctypes.c_void_p),
         trace_ptrs.ctypes.data_as(ctypes.c_void_p),
+        None if image_ints is None else image_ints.ctypes.data_as(ctypes.c_void_p),
+        None if texels is None else texels.data_ptr(),
         px.data_ptr(), py.data_ptr(), s0.data_ptr(), s1.data_ptr(),
         shade_rows.data_ptr(), sobol.data_ptr(), rad.data_ptr(),
         work.data_ptr() if want_work else None,

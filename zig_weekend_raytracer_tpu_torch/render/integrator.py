@@ -2,10 +2,11 @@
 ``render/integrator.py``) and the plain PyTorch versions of the render
 kernels.
 
-``trace_paths_regen`` renders a lane plan: scenes without image textures
-go to the whole-render kernel (``ops/fused_render.py``), image scenes to
-the bounce kernel's regenerating mode (``ops/bounce.py``) under the
-driver's ``while any(alive | sample + stride < limit)`` loop.  That kernel
+``trace_paths_regen`` renders a lane plan: scenes without image textures,
+and image scenes with a texture LUT, go to the whole-render kernel
+(``ops/fused_render.py``); other image scenes to the bounce kernel's
+regenerating mode (``ops/bounce.py``) under the driver's
+``while any(alive | sample + stride < limit)`` loop.  That kernel
 reads the texel at the hit and drains every lane's window in one launch,
 so the loop runs one pass per band (``trace_paths_regen.passes``).
 
@@ -23,9 +24,10 @@ hits and absorbed metal end the path; specular materials multiply by their
 attenuation; diffuse scatter uses the 50/50 mixture of the light-list PDF
 and the material PDF when the scene has lights; a zero-probability sample
 or a path whose throughput hits exactly zero ends; a path ends after
-``max_depth`` bounces.  An image texture's colour is the atlas texel at
-the hit's (u, v), multiplied in at the hit as the JAX package's XLA
-integrator does (its TPU kernel defers it to a later fold).  The trace is ``ops/trace.py:closest_hit`` (brute
+``max_depth`` bounces.  An image texture's colour is the texel at the
+hit's (u, v), from the texture LUT or the atlas, multiplied in at the hit
+(and added on emission) as the JAX package's XLA integrator and its
+whole-render kernel do.  The trace is ``ops/trace.py:closest_hit`` (brute
 scan or group-tree walk per primitive kind, as the kernel's
 ``trace_closest``); camera rays start on the defocus disk when the camera
 has depth of field.  All randomness is content-addressed by
@@ -55,7 +57,7 @@ from ..scene import (
     PRIM_SPHERE,
     CompiledScene,
 )
-from ..textures import atlas_lookup, checker_parity
+from ..textures import checker_parity, image_lookup
 from ..utils import workcount
 from .camera import camera_params_from_consts, generate_rays
 from .pdfs import light_pdf_value, sample_light_direction
@@ -72,13 +74,15 @@ _MATERIALS = (
 def texture_rgb(scene: CompiledScene, det):
     """Texture value at a hit from its shade record: solid -> rgb; checker
     -> the lattice parity picks rgb / rgb2 or an image child; image -> the
-    atlas texel at (u, v).  Returns (colour, image id or -1)."""
+    texel at (u, v), from the texture LUT when the scene has one (as the
+    JAX whole-render kernel fetches it, pallas_bounce.py:1391-1401) and
+    from the atlas otherwise.  Returns (colour, image id or -1)."""
     odd = (det.tex_kind == 1) & (checker_parity(det.inv_scale, det.point) != 0)
     rgb = V3.where(odd, det.rgb2, det.rgb)
     if not scene.has_image_textures:
         return rgb, None
     img_id = torch.where(odd, det.img2, det.img)
-    img_rgb = atlas_lookup(scene, torch.clamp(img_id, min=0), det.u, det.v)
+    img_rgb = image_lookup(scene, torch.clamp(img_id, min=0), det.u, det.v)
     return V3.where(img_id >= 0, img_rgb, rgb), img_id
 
 
@@ -351,9 +355,10 @@ def trace_paths_regen(
     """Render each lane's samples first_sample, + stride, ... below
     sample_limit of pixel (px, py); lane tensors are (N,) int32.  Returns
     the per-lane radiance sum as V3 (+ the per-lane work count when
-    ``want_work``).  Scenes without image textures take the whole-render
-    kernel; image scenes take the bounce kernel's regenerating mode under
-    the driver loop, whose passes ``trace_paths_regen.passes`` counts."""
+    ``want_work``).  Scenes the whole-render kernel takes
+    (``supports_fused_render``: no images, or a texture LUT) go there; other
+    image scenes take the bounce kernel's regenerating mode under the
+    driver loop, whose passes ``trace_paths_regen.passes`` counts."""
     from ..ops.bounce import bounce_regen, supports_fused_render
     from ..ops.fused_render import render_fused
 

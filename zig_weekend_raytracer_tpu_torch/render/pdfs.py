@@ -32,7 +32,10 @@ def light_pdf_value(scene: CompiledScene, origin: V3, direction: V3) -> torch.Te
     total = torch.zeros(origin.shape, dtype=origin.x.dtype, device=origin.x.device)
     for kind, idx in scene.lights:
         total = total + _slot_pdf(scene, kind, idx, origin, direction)
-    return total / len(scene.lights)
+    # A tensor divisor: CUDA torch turns division by a Python scalar into a
+    # multiply by its reciprocal, one rounding off the kernels' division
+    # whenever the light count is not a power of two.
+    return total / torch.full_like(total, len(scene.lights))
 
 
 def sample_light_direction(scene: CompiledScene, origin: V3, u_choice, u1, u2) -> V3:

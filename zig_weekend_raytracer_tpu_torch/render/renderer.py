@@ -15,7 +15,9 @@ lanes follow a cached plan:
     the threads of a warp start in the same part of the tree.
 
 Lane sums are scatter-added into the band.  The content-addressed RNG makes
-the image invariant to how samples are assigned to lanes.
+the image invariant to how samples are assigned to lanes.  Profiler zones
+(``utils/profiler.py``, off by default): ``Renderer::render`` around a
+render, ``rayColorLine`` around each band's trace.
 """
 
 from __future__ import annotations
@@ -32,6 +34,7 @@ from ..dtypes import real
 from ..ops.closest_hit import closest_hit
 from ..sampling.sampler import SamplerKind
 from ..scene import Scene
+from ..utils.profiler import named_zone
 from .camera import camera_consts, camera_params_from_consts, generate_rays
 from .integrator import trace_paths_regen
 
@@ -119,11 +122,12 @@ def _render_band_regen(
     )
     i32 = torch.int32
     limit = torch.full_like(px, sample_limit, dtype=i32)
-    out = trace_paths_regen(
-        cs, cam_consts, seed, px.to(i32), py.to(i32), sidx.to(i32), limit,
-        sampler=sampler, width=width, height=height, spp=spp, stride=s_par,
-        max_depth=max_depth, has_dof=has_dof, want_work=want_work,
-    )
+    with named_zone("rayColorLine"):
+        out = trace_paths_regen(
+            cs, cam_consts, seed, px.to(i32), py.to(i32), sidx.to(i32), limit,
+            sampler=sampler, width=width, height=height, spp=spp, stride=s_par,
+            max_depth=max_depth, has_dof=has_dof, want_work=want_work,
+        )
     radiance = out[0] if want_work else out
     fb = unflatten_radiance(
         radiance.to_array(), width, band_rows, s_par, tile
@@ -161,11 +165,12 @@ def _render_band_balanced(
     Each (pixel, sample) pair belongs to one lane, so the sum is the same
     whatever the lane order."""
     cs = scene.compiled
-    radiance = trace_paths_regen(
-        cs, cam_consts, seed, px, py, s0, s1, sampler=sampler, width=width,
-        height=height, spp=spp, stride=1, max_depth=max_depth,
-        has_dof=has_dof,
-    )
+    with named_zone("rayColorLine"):
+        radiance = trace_paths_regen(
+            cs, cam_consts, seed, px, py, s0, s1, sampler=sampler, width=width,
+            height=height, spp=spp, stride=1, max_depth=max_depth,
+            has_dof=has_dof,
+        )
     pixflat = ((py - band_y0) * width + px).to(torch.int64)
     fb = torch.zeros((band_rows * width, 3), dtype=real, device=cs.device)
     fb.index_add_(0, pixflat, radiance.to_array())
@@ -332,6 +337,10 @@ class Renderer:
 
     def render_device(self, scene: Scene, width: int, height: int) -> torch.Tensor:
         """Renders on the scene's device; returns the (H, W, 3) f32 tensor."""
+        with named_zone("Renderer::render"):
+            return self._render_device(scene, width, height)
+
+    def _render_device(self, scene: Scene, width: int, height: int) -> torch.Tensor:
         cs = scene.compiled
         if self.device is not None and torch.empty(0, device=self.device).device != cs.device:
             raise ValueError(

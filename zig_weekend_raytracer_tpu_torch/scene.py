@@ -11,10 +11,14 @@ tests), so both renderers can start from identical state.
 ``SceneBuilder.use_bvh`` builds the per-kind group trees that the
 closest-hit and render kernels walk (``geometry/bvh.py``), for each kind
 with at least ``TREE_MIN_PRIMS`` primitives.  Image textures are packed
-into one atlas of r | g << 8 | b << 16 texels.  Out of scope (ROADMAP.md):
-nested checkers and image-textured emitters (the rest of slice 4) and the
-unified both-kind tree (``ZWRT_UNI_TREE``, kernel K4).  Asking for one
-raises ``NotImplementedError``.
+into one atlas of r | g << 8 | b << 16 texels and, with a texel budget
+(``compile(texture_lut=N)`` or ``ZWRT_TEX_LUT``), into the texture LUT as
+well: every image box-downsampled to at most N texels and stored unpadded
+in one flat table, which the whole-render kernel reads.  Image-textured
+emitters are ordinary materials.  Out of scope (ROADMAP.md): nested
+checkers, which the JAX package renders only on XLA, and the unified
+both-kind tree (``ZWRT_UNI_TREE``, kernel K4).  Asking for one raises
+``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -55,8 +59,8 @@ _SLICE_UNI_TREE = (
     "the port (ROADMAP.md)"
 )
 _SLICE_NESTED = (
-    "nested checkers and image-textured emitters are the rest of slice 4 of "
-    "the port (ROADMAP.md)"
+    "nested checkers (a checker of checkers) are a later slice of the port: "
+    "the JAX package renders them only on XLA, never in a kernel (ROADMAP.md)"
 )
 
 
@@ -183,7 +187,7 @@ ARRAY_FIELDS = (
 STATIC_FIELDS = (
     "n_spheres", "n_quads", "n_materials", "n_textures", "has_moving",
     "needs_gauss", "lights", "light_params", "background_rgb",
-    "has_image_textures", "image_dims",
+    "has_image_textures", "image_dims", "has_emissive_image", "tex_lut_dims",
 )
 # Per-kind group trees (``CompiledScene.sph_tree_*`` / ``quad_tree_*``):
 # node boxes, links and the leaf-slot attribute tuple (7 sphere or 13 quad
@@ -198,7 +202,6 @@ TREE_STATIC_FIELDS = (
 # Feature flags of the JAX scene that the port cannot render when set.
 _UNSUPPORTED_FLAGS = {
     "has_uni_tree": _SLICE_UNI_TREE,
-    "has_emissive_image": _SLICE_NESTED,
     "has_nested_checker": _SLICE_NESTED,
 }
 
@@ -274,6 +277,14 @@ class CompiledScene:
     has_image_textures: bool = False
     # static (width, height) of each atlas image
     image_dims: Tuple[Tuple[int, int], ...] = ((1, 1),)
+    # True iff an emissive material's texture is an image (or a checker
+    # with an image child)
+    has_emissive_image: bool = False
+    # The texture LUT (None / () without one): every image, box-downsampled
+    # to the budget, as flat int32 r | g << 8 | b << 16 texels, each image
+    # 128-aligned, and its static (width, height, base offset)
+    tex_lut_tab: Optional[torch.Tensor] = None
+    tex_lut_dims: Tuple[Tuple[int, int, int], ...] = ()
     has_sph_tree: bool = False
     has_quad_tree: bool = False
     # Leaf spans in groups of 8 slots (geometry/bvh.py:pick_leaf_span),
@@ -301,11 +312,13 @@ def compiled_from_arrays(fields: dict, static: dict, device) -> CompiledScene:
 
     ``fields`` maps each name in ``ARRAY_FIELDS`` to a numpy array (a V3
     field as its (3, S) stack, e.g. ``np.asarray(cs.sph_center)`` of a JAX
-    scene) and may map the names in ``TREE_FIELDS`` to a scene's group
-    trees (``*_tree_attrs`` as a tuple of arrays); ``static`` maps each name
-    in ``STATIC_FIELDS`` to its value, may carry ``TREE_STATIC_FIELDS``,
-    and may carry the JAX scene's other feature flags, which are checked.
-    A CUDA ``device`` without a GPU raises."""
+    scene), may map the names in ``TREE_FIELDS`` to a scene's group trees
+    (``*_tree_attrs`` as a tuple of arrays) and, when ``static`` has
+    a nonempty ``tex_lut_dims``, maps ``tex_lut_tab`` to the texture LUT in
+    any shape (the JAX scene's (R, 128) table is taken flat); ``static``
+    maps each name in ``STATIC_FIELDS`` to its value, may carry ``TREE_STATIC_FIELDS``, and may carry the JAX scene's other
+    feature flags, which are checked.  A CUDA ``device`` without a GPU
+    raises."""
     for flag, why in _UNSUPPORTED_FLAGS.items():
         if static.get(flag):
             raise NotImplementedError(why)
@@ -329,6 +342,9 @@ def compiled_from_arrays(fields: dict, static: dict, device) -> CompiledScene:
         kw[name] = V3(*(tensor(a[i]) for i in range(3))) if name in V3_FIELDS else tensor(a)
     for name in STATIC_FIELDS:
         kw[name] = static[name]
+    kw["tex_lut_dims"] = tuple((int(w), int(h), int(base)) for w, h, base in kw["tex_lut_dims"])
+    if kw["tex_lut_dims"]:
+        kw["tex_lut_tab"] = tensor(np.asarray(fields["tex_lut_tab"]).reshape(-1))
     for kind in ("sph", "quad"):
         has_tree = bool(static.get(f"has_{kind}_tree", False))
         kw[f"has_{kind}_tree"] = has_tree
@@ -493,9 +509,15 @@ class SceneBuilder:
         self._bvh_min_prims = min_prims
 
     # -- compile --------------------------------------------------------------
-    def compile(self, name: str = "scene", *, device="cuda") -> Scene:
+    def compile(self, name: str = "scene", *, device="cuda",
+                texture_lut: Optional[int] = None) -> Scene:
         """The scene's tables on ``device`` (the card unless asked for the
-        CPU; a CUDA device without a GPU raises)."""
+        CPU; a CUDA device without a GPU raises).  ``texture_lut`` > 0 also
+        packs the images into the texture LUT at that texel budget (a
+        budget of at least an image's size keeps it exact); None takes the
+        budget from ``ZWRT_TEX_LUT``, as the JAX package does."""
+        if texture_lut is None:
+            texture_lut = int(os.environ.get("ZWRT_TEX_LUT", "0") or 0)
         spheres: List[dict] = []
         quads: List[dict] = []
         prim_of_node: dict = {}
@@ -555,6 +577,7 @@ class SceneBuilder:
         compiled = _compile_tables(
             spheres, quads, self._materials, self._textures, self._images,
             light_entries, self._background, device, build_trees,
+            int(texture_lut),
         )
         camera = self._camera or Camera(look_from=(0, 0, 9), look_at=(0, 0, 0))
         return Scene(
@@ -713,6 +736,48 @@ def _group_trees(sph_center, sph_radius, sph_move, quad_start, quad_u, quad_v,
     return out
 
 
+def _box_downsample(im: np.ndarray, max_texels: int) -> np.ndarray:
+    """Box-average an (H, W, 3) u8 image down until h*w <= max_texels
+    (edge-padded to an integer factor).  Identity when it already fits."""
+    h, w = im.shape[:2]
+    if h * w <= max_texels:
+        return im
+    s = int(np.ceil(np.sqrt(h * w / max_texels)))
+    while (-(-h // s)) * (-(-w // s)) > max_texels:
+        s += 1
+    hp, wp = -(-h // s) * s, -(-w // s) * s
+    pad = np.pad(im, ((0, hp - h), (0, wp - w), (0, 0)), mode="edge")
+    box = pad.reshape(hp // s, s, wp // s, s, 3).mean(axis=(1, 3))
+    return np.rint(box).astype(np.uint8)
+
+
+def _build_tex_lut(images, max_texels: int):
+    """Pack (possibly downsampled) images into one flat int32 LUT of
+    r | g << 8 | b << 16 texels, each image 128-aligned as in the JAX
+    package (whose (R, 128) table holds the same values in rows), and the
+    static ((w, h, base), ...) dims."""
+    dims = []
+    chunks = []
+    base = 0
+    for im in images:
+        ds = _box_downsample(np.asarray(im), max_texels)
+        h, w = ds.shape[:2]
+        packed = (
+            ds[..., 0].astype(np.uint32)
+            | (ds[..., 1].astype(np.uint32) << 8)
+            | (ds[..., 2].astype(np.uint32) << 16)
+        ).reshape(-1)
+        dims.append((int(w), int(h), int(base)))
+        aligned = -(-packed.size // 128) * 128
+        if aligned != packed.size:
+            packed = np.concatenate(
+                [packed, np.zeros(aligned - packed.size, np.uint32)]
+            )
+        chunks.append(packed)
+        base += aligned
+    return np.concatenate(chunks).astype(np.int32), tuple(dims)
+
+
 def _checker_children(textures, t) -> list:
     if t["kind"] != TEX_CHECKER:
         return []
@@ -740,19 +805,11 @@ def _atlas(images):
 
 def _compile_tables(
     spheres, quads, materials, textures, images, light_entries, background,
-    device, build_trees,
+    device, build_trees, lut_budget,
 ) -> CompiledScene:
-    # a checker of checkers cannot flatten into one shade record, and an
-    # image-textured emitter needs the atlas in the emission term
+    # a checker of checkers cannot flatten into one shade record
     if any(c["kind"] == TEX_CHECKER for t in textures for c in _checker_children(textures, t)):
         raise NotImplementedError(_SLICE_NESTED)
-    for m in materials:
-        if m["type"] == MAT_DIFFUSE_LIGHT and textures:
-            t = textures[m.get("tex", 0)]
-            if t["kind"] == TEX_IMAGE or any(
-                c["kind"] != TEX_SOLID for c in _checker_children(textures, t)
-            ):
-                raise NotImplementedError(_SLICE_NESTED)
 
     spheres, sph_perm = _morton_sort(
         spheres, lambda s: np.asarray(s["center"], np.float64)
@@ -898,6 +955,9 @@ def _compile_tables(
     )
     bg = np.asarray(background, _F)
     atlas_packed, atlas_wh = _atlas(images)
+    tex_lut_tab, tex_lut_dims = None, ()
+    if lut_budget > 0 and images:
+        tex_lut_tab, tex_lut_dims = _build_tex_lut(images, lut_budget)
     fields = {
         **{k: v for k, v in trees.items() if k in TREE_FIELDS},
         "sph_center": sph_center.T, "sph_radius": sph_radius,
@@ -914,6 +974,7 @@ def _compile_tables(
         "tex_odd": tex_odd,
         "background": bg, "shade_rows": shade_rows,
         "atlas_packed": atlas_packed, "atlas_wh": atlas_wh,
+        "tex_lut_tab": tex_lut_tab,
     }
     static = {
         "n_spheres": n_s,
@@ -935,6 +996,17 @@ def _compile_tables(
             for t in textures
         ),
         "image_dims": tuple((int(w), int(h)) for w, h in atlas_wh),
+        "has_emissive_image": any(
+            m["type"] == MAT_DIFFUSE_LIGHT
+            and textures
+            and (
+                textures[m.get("tex", 0)]["kind"] == TEX_IMAGE
+                or any(c["kind"] != TEX_SOLID
+                       for c in _checker_children(textures, textures[m.get("tex", 0)]))
+            )
+            for m in materials
+        ),
+        "tex_lut_dims": tex_lut_dims,
         **{k: trees[k] for k in TREE_STATIC_FIELDS},
     }
     return compiled_from_arrays(fields, static, device)

@@ -1,9 +1,10 @@
 """Texture evaluation (counterpart of ``textures.py``): solid colours come
 straight from the shade record; a checker picks one of its two record
 colours by the 3D lattice parity of the hit point; an image is a
-nearest-texel fetch from the scene's packed atlas, byte -> linear by the
-gamma-2 square.  The texture LUT (``lut_*``) and the general walk of
-nested checkers belong to a later slice (ROADMAP.md)."""
+nearest-texel fetch, byte -> linear by the gamma-2 square, from the
+scene's packed atlas (``atlas_*``) or, when the scene has one, from its
+texture LUT (``lut_*``).  The general walk of nested checkers belongs to a
+later slice (ROADMAP.md)."""
 
 from __future__ import annotations
 
@@ -23,27 +24,42 @@ def checker_parity(inv_scale, point: V3) -> torch.Tensor:
     return torch.remainder(xi + yi + zi, 2)
 
 
-def atlas_flat_index(image_dims, atlas_hw, img_id, u, v) -> torch.Tensor:
-    """(u, v, image) -> flat index into the packed atlas plane from the
-    static per-image (width, height): u and v clamped to [0, 1], v flipped
-    to image rows, the texel coordinate truncated and clamped to the
-    image."""
-    ah, aw = atlas_hw
+def _flat_index(dims, img_id, u, v) -> torch.Tensor:
+    """(u, v, image) -> flat texel index into an image table from the static
+    per-image (width, height, base, row stride): u and v clamped to [0, 1],
+    v flipped to image rows, the texel coordinate truncated and clamped to
+    the image (the kernels' zwrt_device.cuh:image_texel)."""
     w = torch.zeros_like(u)
     h = torch.zeros_like(u)
     wi = torch.zeros_like(img_id)
     hi = torch.zeros_like(img_id)
-    for i, (iw, ih) in enumerate(image_dims):
+    base = torch.zeros_like(img_id)
+    stride = torch.zeros_like(img_id)
+    for i, (iw, ih, ib, st) in enumerate(dims):
         sel = img_id == i
         w = torch.where(sel, float(iw), w)
         h = torch.where(sel, float(ih), h)
         wi = torch.where(sel, iw, wi)
         hi = torch.where(sel, ih, hi)
+        base = torch.where(sel, ib, base)
+        stride = torch.where(sel, st, stride)
     uc = torch.clamp(u, 0.0, 1.0)
     vc = 1.0 - torch.clamp(v, 0.0, 1.0)  # flip to image rows
     x = torch.minimum(torch.clamp((uc * w).to(torch.int32), min=0), wi - 1)
     y = torch.minimum(torch.clamp((vc * h).to(torch.int32), min=0), hi - 1)
-    return img_id * (ah * aw) + y * aw + x
+    return base + y * stride + x
+
+
+def _atlas_dims(image_dims, ah, aw):
+    """The atlas's (width, height, base, row stride) per image: image i at
+    i * ah * aw, rows aw apart."""
+    return [(w, h, i * ah * aw, aw) for i, (w, h) in enumerate(image_dims)]
+
+
+def _lut_dims(lut_dims):
+    """The texture LUT's (width, height, base, row stride) per image: each
+    image unpadded at its own base, rows its own width apart."""
+    return [(w, h, base, w) for w, h, base in lut_dims]
 
 
 def _unpack_texel(packed) -> V3:
@@ -55,15 +71,47 @@ def _unpack_texel(packed) -> V3:
     return texel * texel  # gamma-2 linearize
 
 
-def atlas_lookup_flat(scene, flat) -> V3:
-    """Packed-atlas fetch by flat texel index: one gather of the
-    r | g << 8 | b << 16 texel, byte -> linear."""
-    return _unpack_texel(scene.atlas_packed.reshape(-1)[flat.to(torch.int64)])
+def _lookup(dims, texels, img_id, u, v) -> V3:
+    """One gather of the r | g << 8 | b << 16 texel, byte -> linear."""
+    return _unpack_texel(texels[_flat_index(dims, img_id, u, v).to(torch.int64)])
+
+
+def image_table(scene):
+    """(dims, texels) of the image table that a scene's texel fetch reads:
+    the texture LUT when the scene has one, else the atlas, with each
+    image's (width, height, base, row stride); ``texels`` is flat int32."""
+    if scene.tex_lut_dims:
+        return _lut_dims(scene.tex_lut_dims), scene.tex_lut_tab
+    _, ah, aw = scene.atlas_packed.shape
+    return _atlas_dims(scene.image_dims, ah, aw), scene.atlas_packed.reshape(-1)
+
+
+def image_lookup(scene, img_id, u, v) -> V3:
+    """Nearest-texel fetch of image ``img_id`` at (u, v) from the scene's
+    image table (``image_table``)."""
+    return _lookup(*image_table(scene), img_id, u, v)
+
+
+def atlas_flat_index(image_dims, atlas_hw, img_id, u, v) -> torch.Tensor:
+    """(u, v, image) -> flat index into the packed atlas plane from the
+    static per-image (width, height)."""
+    return _flat_index(_atlas_dims(image_dims, *atlas_hw), img_id, u, v)
 
 
 def atlas_lookup(scene, img_id, u, v) -> V3:
     """Nearest-texel atlas fetch of image ``img_id`` at (u, v)."""
     _, ah, aw = scene.atlas_packed.shape
-    return atlas_lookup_flat(
-        scene, atlas_flat_index(scene.image_dims, (ah, aw), img_id, u, v)
-    )
+    return _lookup(_atlas_dims(scene.image_dims, ah, aw), scene.atlas_packed.reshape(-1),
+                   img_id, u, v)
+
+
+def lut_flat_index(lut_dims, img_id, u, v) -> torch.Tensor:
+    """(u, v, image) -> flat index into the texture LUT from the static
+    per-image (width, height, base)."""
+    return _flat_index(_lut_dims(lut_dims), img_id, u, v)
+
+
+def lut_lookup(scene, img_id, u, v) -> V3:
+    """Nearest-texel fetch of image ``img_id`` at (u, v) from the scene's
+    texture LUT."""
+    return _lookup(_lut_dims(scene.tex_lut_dims), scene.tex_lut_tab, img_id, u, v)

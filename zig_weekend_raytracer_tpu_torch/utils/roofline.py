@@ -17,6 +17,7 @@ to the kernel's own bounce count.
 from __future__ import annotations
 
 from ..scene import PRIM_SPHERE
+from ..textures import image_table
 
 PEAK_FP32_OPS = 67e12    # FP32 operations per second, CUDA cores
 PEAK_BYTES = 3.35e12     # HBM3 bytes per second
@@ -51,7 +52,8 @@ OPS = {
     "hit_metal_gauss": 60,
     "hit_dielectric": 68,
     # UVs and the texel's unpack: sphere (rotation, acos, atan2), quad
-    # (two cross-dot products)
+    # (two cross-dot products); the same whether the texel comes from the
+    # atlas or the texture LUT (one fetch, zwrt_device.cuh:image_texel)
     "texel_sphere": 26,
     "texel_quad": 44,
     # the light list: one light's PDF and sample, by kind
@@ -115,13 +117,19 @@ def trace_bytes(scene) -> int:
     return n
 
 
+def image_table_bytes(scene) -> int:
+    """Bytes of the image table the kernels read: the texture LUT when the
+    scene has one, else the atlas; none without images."""
+    if not scene.has_image_textures:
+        return 0
+    return image_table(scene)[1].numel() * 4
+
+
 def render_table_bytes(scene) -> int:
     """Bytes of the tables a render kernel reads: the trace's, the shade
-    records, the Sobol table and, for an image scene, the atlas."""
-    n = trace_bytes(scene) + scene.shade_rows.numel() * 4 + 5 * 52 * 4
-    if scene.has_image_textures:
-        n += scene.atlas_packed.numel() * 4
-    return n
+    records, the Sobol table and, for an image scene, its image table."""
+    return (trace_bytes(scene) + scene.shade_rows.numel() * 4 + 5 * 52 * 4
+            + image_table_bytes(scene))
 
 
 def bound_ms(ops: float, nbytes: float):
