@@ -5,7 +5,16 @@
 
 Phases (any failure exits nonzero):
   1. device: the card's name and power limit, then the kernel build from
-     zig_weekend_raytracer_tpu_torch/csrc/ (seconds, registers, spills);
+     zig_weekend_raytracer_tpu_torch/csrc/ (seconds, registers, spills of
+     every instantiation); the default walk's instantiations must keep the
+     previous slice's registers and spill (DEFAULT_RESOURCES);
+ 1b. the FP32 peak (tools/fp32_peak.py, kernel K5): chain_kernel against
+     its plain version on the card for the four ops at every (blocks per
+     SM, chains, unroll) of the sweep, on the sweep's own grid with 256
+     steps (rtol 1e-6), the fma chain's SASS (FFMA, not FMUL + FADD), then
+     the sweep with its iters-scaling check (4x / 1x time ratio in [3, 5])
+     and the physics bound (no rate past 105%); the measured add rate, in
+     lane-operations per second, is the rate every later bound divides by;
   2. kernel against plain: render_fused on CUDA tensors at cornell 32x32,
      8 spp, depth 10, through the kernel and through its plain PyTorch
      version; work counts equal on >= 99% of lanes, radiance within
@@ -18,10 +27,15 @@ Phases (any failure exits nonzero):
      phase and the plain version did not run;
   4. kernel against plain at the main path's lanes: the plain version at
      the sorted plan's 160,000 lanes with the largest spp <= 1024 expected
-     to finish in about 60 s, beside the kernel at the same spp, and both
-     at the full 1024 spp on a spread slice of 4,096 of those lanes (every
-     Sobol sample bit); both outputs held to the tolerances of phase 2,
-     both times printed;
+     to finish in about 20 s, beside the kernel at the same spp (its work
+     counts give the bound); both on a spread slice of 4,096 of those
+     lanes, each rendering one 64-sample window of the 1024, the windows
+     together covering every sample index (every Sobol sample bit); and
+     both on a spread slice of 1,024 lanes, each draining all 1024 samples
+     of its pixel as the main path's lanes do, at depth 2 (the plain
+     version's time grows with its loop passes: 226 s at depth 10 on an
+     H100); all outputs held to the tolerances of phase 2, both times
+     printed;
   5. closest_hit_kernel against its plain version (ops/trace.py) on the
      card, 160,000 rays each: (a) cornell camera rays at 400x400 (brute
      spheres and quads), (b) balls first-hit probe rays at 400x400 (sphere
@@ -103,20 +117,45 @@ Phases (any failure exits nonzero):
      the three stage log lines and the stats line, its PPM byte-equal to
      write_ppm of the same render made in this process; --scene=bogus
      exiting 1 with the usage text; --profile=device on cornell printing a
-     device table that names fused_render_kernel.
+     device table that names fused_render_kernel;
+ 17. the tree walks (kernel K4: ZWRT_TRAV=queue|rowqueue|spec, and the
+     unified tree of ZWRT_UNI_TREE=1) against their plain versions, with
+     the tolerances of phases 2 and 9: for each walk the render kernel on
+     balls at leaf span 2, 32x32, 4 spp, depth 10 (not under uni: balls has
+     no quads), the bounce kernel's regenerating mode on rtw_final 32x32, 4
+     spp, depth 8 and its one-bounce mode on rtw_final's 160,000 camera
+     rays, all of them live and with every other lane dead (the warp's
+     lanes diverge at the trace), and under uni the render kernel with a
+     native-budget LUT on rtw_final; each walk's plain version against the
+     default walk's plain version on the same inputs;
+ 18. the walks on the slice's path at full width, each with its counts set
+     to 0 just before and read just after: Renderer(samples_per_pixel=64,
+     max_ray_bounce_depth=8).render_device of rtw_final at 400x400 under
+     each of queue, rowqueue and spec (bounce kernel) and compiled with the
+     unified tree through the bounce kernel and through the render kernel
+     with the LUT; balls 400x400@128 d10 at leaf span 2 under the default
+     walk and each of queue, rowqueue and spec (render kernel); one warmup
+     and three timed renders each, Mpaths/s, the walk's instantiation
+     launched and nothing else of the kind, no plain version, the kernel's
+     time at the plan's lanes, each framebuffer within rtol 1e-5 / atol 1e-6
+     of the default walk's render of the same scene on >= 99.9% of pixels,
+     and rtw_final's region gates of phase 12 on the unified-tree render.
 
 The record has one entry per kernel and mode: the render kernel on brute
 scenes (cornell, emissive), on tree scenes (balls) and with the texture LUT
 (rtw_final), the bounce kernel's one-bounce mode with the atlas and with
 the LUT (parity checks only: no main path runs it, so its launches are 0)
-and its regenerating mode (rtw_final), and the closest-hit kernel.  Each
-carries its registers and spill from the build, its times, its launches on
-the main paths and its roofline bound: FP32 operations (utils/roofline.py's
-per-unit counts times the work that the plain version counted on a parity
-run of the same scene, scaled to the kernel's own bounce count) and bytes
-(inputs once, outputs once) over the H100's peak rates.  No single PyTorch
-call computes path radiance, a bounce or a closest hit, so ``library_ms``
-is null.
+and its regenerating mode (rtw_final), and the closest-hit kernel; then one
+per walk of the render kernel (queue, rowqueue and spec on balls at span 2,
+uni with the LUT on rtw_final) and of the bounce kernel's regenerating mode
+(rtw_final), and the FP32-peak chain kernel.  Each carries its registers
+and spill from the build, its times, its launches on its path and its
+roofline bound: FP32 lane-operations (utils/roofline.py's per-unit counts
+times the work that the plain version counted on a parity run of the same
+scene, scaled to the kernel's own bounce count) over phase 1b's measured
+add rate (``peak_source``), and bytes (inputs once, outputs once) over the
+H100's HBM3 rate.  No single PyTorch call computes path radiance, a bounce,
+a closest hit or an operation chain, so ``library_ms`` is null.
 
 The line before the last is the kernels' JSON record, the line before it
 the card's name and power limit; the last line is {"ok": true, "device":
@@ -152,6 +191,13 @@ BOUNCE_SOURCE = "zig_weekend_raytracer_tpu_torch/csrc/bounce.cu"
 BOUNCE_REPLACES = "zig_weekend_raytracer_tpu/ops/pallas_bounce.py:842 (_bounce_kernel)"
 PLAIN_BUDGET_S = 20.0
 SLICE_LANES = 4096
+# phase 4's full drain: each lane of the slice renders all 1024 samples of
+# its pixel as the main path's lanes do; the plain version's time grows
+# with its loop passes, not its lanes (about 4.5 passes per sample at
+# depth 10: 226 s on an H100), so the slice runs at a cut depth
+FULL_DRAIN_LANES, FULL_DRAIN_DEPTH = 1024, 2
+# phase 17's parity renders: 32x32 at this spp
+WALK_SPP = 4
 BALLS_SPP = 128
 RTW_SPP, RTW_DEPTH = 64, 8
 HIT_RTOL, HIT_ATOL, HIT_AGREE = 1e-5, 1e-6, 0.999
@@ -162,10 +208,42 @@ LUT_NATIVE, LUT_32K, LUT_8K = 1 << 23, 32768, 8192
 EMISSIVE_SPP = 256
 LUT_PAIRS = 10
 STAGES = ("scene initialized", "scene rendered", "scene written to file")
+PEAK_SOURCE = "zig_weekend_raytracer_tpu_torch/csrc/fp32_peak.cu"
+PEAK_REPLACES = "tools/vpu_peak.py:59 (_chain_kernel; pallas_call :123 in build :119)"
+WALK_REPLACES = {
+    "queue": "zig_weekend_raytracer_tpu/ops/pallas_bounce.py:466 (_tree_pass_queue, per_row=False)",
+    "rowqueue": "zig_weekend_raytracer_tpu/ops/pallas_bounce.py:466 (_tree_pass_queue, per_row=True)",
+    "spec": "zig_weekend_raytracer_tpu/ops/pallas_bounce.py:640 (_tree_pass_spec)",
+    "uni": "zig_weekend_raytracer_tpu/ops/pallas_bounce.py:713 (_uni_tree_pass)",
+}
+NEW_WALKS = ("queue", "rowqueue", "spec", "uni")
+# a chain kernel's plain version against it: the plain fma is float64
+# arithmetic rounded once to float32, which can differ from fmaf by one ulp
+CHAIN_RTOL = 1e-6
+# iters x unroll of each parity run: the sweep's own instantiations and
+# grids, with iters cut so that the plain version stays short
+CHAIN_STEPS = 256
+# registers and spill of the default instantiations in the previous slice
+DEFAULT_RESOURCES = {
+    "fused_render_kernel<false, cond>": (64, 32), "fused_render_kernel<true, cond>": (64, 28),
+    "bounce_kernel<false, cond>": (64, 0), "bounce_kernel<true, cond>": (64, 12),
+    "closest_hit_kernel": (56, 0),
+}
+# the measured add rate (lane-operations per second) every bound divides by
+# once phase 1b has run
+OPS_RATE = {"rate": None}
 
 
 def log(msg: str) -> None:
     print(msg, flush=True)
+
+
+START = time.perf_counter()
+
+
+def phase(name: str) -> None:
+    """Mark the start of a phase with the script's elapsed time."""
+    log(f"==== phase {name} at {time.perf_counter() - START:.1f} s")
 
 
 def gpu_info() -> str:
@@ -225,27 +303,40 @@ def compare(tag: str, out_k, out_p) -> dict:
 
 
 @contextlib.contextmanager
-def leaf_span(span):
-    """ZWRT_LEAF_GROUPS=span while a scene compiles (None: the default)."""
-    old = os.environ.pop("ZWRT_LEAF_GROUPS", None)
-    if span is not None:
-        os.environ["ZWRT_LEAF_GROUPS"] = str(span)
+def env(name, value):
+    """``name`` set to ``value`` (None: unset) for the block."""
+    old = os.environ.pop(name, None)
+    if value is not None:
+        os.environ[name] = value
     try:
         yield
     finally:
-        os.environ.pop("ZWRT_LEAF_GROUPS", None)
+        os.environ.pop(name, None)
         if old is not None:
-            os.environ["ZWRT_LEAF_GROUPS"] = old
+            os.environ[name] = old
 
 
-def render_parity(zt, fused, integrator, torch, scene, tag, depth=10) -> dict:
-    """Kernel vs plain version on the card at 32x32, 8 spp, depth 10 (or
-    ``depth``), with the scene's own depth of field; both timed by CUDA
-    events."""
+def leaf_span(span):
+    """ZWRT_LEAF_GROUPS=span while a scene compiles (None: the default)."""
+    return env("ZWRT_LEAF_GROUPS", None if span is None else str(span))
+
+
+def trav(walk):
+    """ZWRT_TRAV for ``walk`` while the kernels launch; the default walk and
+    the unified tree (a property of the scene) leave it unset."""
+    return env("ZWRT_TRAV", walk if walk in ("queue", "rowqueue", "spec") else None)
+
+
+def render_parity(zt, fused, integrator, torch, scene, tag, depth=10, plains=None,
+                  spp=8) -> dict:
+    """Kernel vs plain version on the card at 32x32, ``spp`` spp, depth 10
+    (or ``depth``), with the scene's own depth of field; both timed by CUDA
+    events.  ``plains``, a list, collects the plain version's output and
+    its work counts."""
     from zig_weekend_raytracer_tpu_torch.render.camera import camera_consts
+    from zig_weekend_raytracer_tpu_torch.utils import workcount
 
     w = h = 32
-    spp = 8
     ys, xs = torch.meshgrid(
         torch.arange(h, device="cuda"), torch.arange(w, device="cuda"), indexing="ij"
     )
@@ -264,11 +355,14 @@ def render_parity(zt, fused, integrator, torch, scene, tag, depth=10) -> dict:
     ms_k, out_k = cuda_time_ms(
         lambda: fused.render_fused(scene.compiled, px, py, s0, s1, 0, t_min, **kw), 3
     )
-    ms_p, out_p = cuda_time_ms(
-        lambda: integrator.render_fused_reference(scene.compiled, px, py, s0, s1, 0, t_min, **kw)
-    )
+    with workcount.counting() if plains is not None else contextlib.nullcontext({}) as counts:
+        ms_p, out_p = cuda_time_ms(
+            lambda: integrator.render_fused_reference(scene.compiled, px, py, s0, s1, 0, t_min, **kw)
+        )
     check = compare(tag, out_k, out_p)
     log(f"parity {tag}: kernel {ms_k:.3f} ms, plain {ms_p:.1f} ms")
+    if plains is not None:
+        plains.append((out_p, dict(counts)))
     return {**check, "ms": ms_k, "plain_ms": ms_p}
 
 
@@ -371,25 +465,30 @@ def phase_closest_hit(zt, ch, ttrace, torch) -> list:
         check = compare_hits(tag, hit_k, hit_p)
         # rays in (origin, direction, time), hits out (t, kind, idx)
         nbytes = rays[2].numel() * (28 + 12) + roofline.trace_bytes(cs)
-        bound, by = roofline.bound_ms(roofline.trace_ops(counts), nbytes)
+        bound, by = roofline.bound_ms(roofline.trace_ops(counts), nbytes, OPS_RATE["rate"])
         log(f"closest hit {tag}: spheres {sph}, quads {quad}, tree nodes {nodes}; "
             f"kernel {ms_k:.3f} ms, plain {ms_p:.1f} ms, bound {bound:.4f} ms ({by})")
         out.append({**check, "spheres": sph, "quads": quad, "ms": ms_k, "plain_ms": ms_p,
-                    "bound_ms": bound, "bound_by": by})
+                    "bound_ms": bound, "bound_by": by,
+                    "peak_source": roofline.peak_source(OPS_RATE["rate"])})
     return out
 
 
 def reset_counts(fused, integrator, ch, ttrace, tb) -> None:
-    fused.render_fused.launches = 0
     integrator.render_fused_reference.calls = 0
     ch.closest_hit.launches = 0
     ttrace.closest_hit.calls = 0
-    tb.bounce.launches = 0
-    tb.bounce_regen.launches = 0
     integrator.bounce.calls = 0
     integrator.bounce_regen_reference.calls = 0
     integrator.trace_paths_regen.passes = 0
     integrator.trace_paths_regen.bands = 0
+    for host in (fused.render_fused, tb.bounce, tb.bounce_regen):
+        host.launches = dict.fromkeys(host.launches, 0)
+
+
+def launched(host) -> int:
+    """The launches of a render or bounce kernel wrapper, over every walk."""
+    return sum(host.launches.values())
 
 
 def plain_calls(integrator, ttrace) -> int:
@@ -414,10 +513,16 @@ def timed_renders(renderer, scene, torch, w, h):
 
 
 def plan_parity(zt, fused, integrator, scene, plan, spp, card, tag, depth=DEPTH,
-                lanes=SLICE_LANES):
+                lanes=SLICE_LANES, window=None):
     """Kernel vs plain version at a spread slice of ``lanes`` lanes of a
-    lane plan, at the full spp and ``depth``; both timed.  Returns the check
-    and the plain version's work counts (utils/workcount.py)."""
+    lane plan, at the full spp and ``depth``; both timed.  With ``window``
+    each lane renders only one ``window``-sample window of the spp samples,
+    lane i the (i mod spp / window)-th, so that the slice covers every
+    sample index (every Sobol sample bit) in a window's drain passes.
+    Returns the check and the plain version's work counts
+    (utils/workcount.py)."""
+    import torch
+
     from zig_weekend_raytracer_tpu_torch.render.camera import camera_consts
     from zig_weekend_raytracer_tpu_torch.utils import workcount
 
@@ -430,6 +535,13 @@ def plan_parity(zt, fused, integrator, scene, plan, spp, card, tag, depth=DEPTH,
         want_work=True,
     )
     lim = s0 + spp
+    if window:
+        lane = torch.arange(s0.shape[0], dtype=s0.dtype, device=s0.device)
+        s0 = (s0 + lane % (spp // window) * window).contiguous()
+        lim = s0 + window
+        tag = f"{tag} lanes, {spp} spp in {window}-sample windows"
+    else:
+        tag = f"{tag} lanes, {spp} spp"
     t_min = zt.dtypes.T_MIN
     with workcount.counting() as counts:
         ms_p, out_p = cuda_time_ms(
@@ -438,9 +550,8 @@ def plan_parity(zt, fused, integrator, scene, plan, spp, card, tag, depth=DEPTH,
     ms_k, out_k = cuda_time_ms(
         lambda: fused.render_fused(scene.compiled, px, py, s0, lim, 0, t_min, **kw)
     )
-    log(f"plain version at {px.shape[0]} {tag} lanes, {spp} spp: {ms_p:.1f} ms; "
-        f"kernel {ms_k:.3f} ms ({card})")
-    check = compare(f"{px.shape[0]} {tag} lanes {spp} spp d{depth}", out_k, out_p)
+    log(f"plain version at {px.shape[0]} {tag}: {ms_p:.1f} ms; kernel {ms_k:.3f} ms ({card})")
+    check = compare(f"{px.shape[0]} {tag} d{depth}", out_k, out_p)
     return {**check, "ms": ms_k, "plain_ms": ms_p}, dict(counts)
 
 
@@ -454,10 +565,12 @@ def render_bound(zt, scene, counts, kernel_work, lane_bytes, has_dof) -> dict:
     factor = float(kernel_work) / max(counts.get("bounce", 0), 1)
     ops = roofline.render_ops(roofline.scaled(counts, factor), scene.compiled, has_dof)
     nbytes = lane_bytes + roofline.render_table_bytes(scene.compiled)
-    ms, by = roofline.bound_ms(ops, nbytes)
+    ms, by = roofline.bound_ms(ops, nbytes, OPS_RATE["rate"])
+    source = roofline.peak_source(OPS_RATE["rate"])
     log(f"bound: {float(kernel_work):.0f} bounces, {ops:.4g} FP32 operations, {nbytes:.4g} bytes "
-        f"-> {ms:.3f} ms ({by})")
-    return {"bound_ms": ms, "bound_by": by, "bound_ops": ops, "bound_bytes": nbytes}
+        f"-> {ms:.3f} ms ({by}, {source} rate)")
+    return {"bound_ms": ms, "bound_by": by, "bound_ops": ops, "bound_bytes": nbytes,
+            "peak_source": source}
 
 
 def compare_bounce(tag, out_k, out_p) -> dict:
@@ -491,12 +604,15 @@ def compare_bounce(tag, out_k, out_p) -> dict:
             "max_abs_err": max_abs}
 
 
-def one_bounce_parity(zt, tb, integrator, torch, scene, name, depths) -> list:
+def one_bounce_parity(zt, tb, integrator, torch, scene, name, depths, plains=None,
+                      alive0=None) -> list:
     """bounce_kernel's one-bounce mode vs integrator.bounce on 400x400
     camera rays through the chained ``depths`` (each bounce starts both
-    from the plain version's state).  The first bounce also carries its
-    roofline bound, from the plain version's work counts: lanes read and
-    write 13 float and 2 int state rows."""
+    from the plain version's state), every lane live at first or those of
+    the mask ``alive0``.  The first bounce also carries its roofline bound,
+    from the plain version's work counts: lanes read and write 13 float and
+    2 int state rows.  ``plains``, a list, collects the plain version's
+    outputs."""
     from zig_weekend_raytracer_tpu_torch.math.v3 import V3
     from zig_weekend_raytracer_tpu_torch.utils import roofline, workcount
 
@@ -508,7 +624,7 @@ def one_bounce_parity(zt, tb, integrator, torch, scene, name, depths) -> list:
     o, d, tm = camera_rays(zt, torch, scene, W, H, RTW_SPP)
     n = rid.shape[0]
     state = (o, d, V3.full((n,), 1.0, 1.0, 1.0, "cuda"), V3.zeros((n,), "cuda"),
-             torch.ones((n,), dtype=torch.bool, device="cuda"))
+             torch.ones((n,), dtype=torch.bool, device="cuda") if alive0 is None else alive0)
     out = []
     for depth in depths:
         o, d, thr, rad, alive = state
@@ -520,10 +636,14 @@ def one_bounce_parity(zt, tb, integrator, torch, scene, name, depths) -> list:
                 lambda: integrator.bounce(cs, 0, t_min, dep, o, d, tm, rid, thr, rad, alive))
         check = compare_bounce(f"{name} 400x400 camera rays, depth {depth}", out_k, out_p)
         bound, by = roofline.bound_ms(roofline.render_ops(dict(counts), cs, False),
-                                      n * 15 * 4 * 2 + roofline.render_table_bytes(cs))
+                                      n * 15 * 4 * 2 + roofline.render_table_bytes(cs),
+                                      OPS_RATE["rate"])
         log(f"bounce {name} depth {depth}: kernel {ms_k:.3f} ms, plain {ms_p:.1f} ms, "
             f"bound {bound:.4f} ms ({by})")
-        out.append({**check, "ms": ms_k, "plain_ms": ms_p, "bound_ms": bound, "bound_by": by})
+        out.append({**check, "ms": ms_k, "plain_ms": ms_p, "bound_ms": bound, "bound_by": by,
+                    "peak_source": roofline.peak_source(OPS_RATE["rate"])})
+        if plains is not None:
+            plains.append(out_p)
         state = out_p
     return out
 
@@ -539,21 +659,29 @@ def phase_one_bounce(zt, tb, integrator, torch, scenes) -> list:
 
 def kernel_resources(build_log: str) -> dict:
     """{kernel instantiation: {"registers", "spill_bytes"}} from ptxas -v:
-    fused_render_kernel<false> / <true> (without and with the image fetch),
-    bounce_kernel<false> / <true> (one-bounce and regenerating modes) and
-    closest_hit_kernel."""
+    fused_render_kernel<IMAGES, walk> (without and with the image fetch)
+    and bounce_kernel<REGEN, walk> (one-bounce and regenerating modes) for
+    each tree walk, closest_hit_kernel, and chain_kernel<op, chains,
+    unroll>."""
     import re
 
-    names = (("fused_render_kernelILb0E", "fused_render_kernel<false>"),
-             ("fused_render_kernelILb1E", "fused_render_kernel<true>"),
-             ("bounce_kernelILb0E", "bounce_kernel<false>"),
-             ("bounce_kernelILb1E", "bounce_kernel<true>"),
-             ("closest_hit_kernel", "closest_hit_kernel"))
+    from zig_weekend_raytracer_tpu_torch.ops.trace import WALKS
+    from zig_weekend_raytracer_tpu_torch.tools.fp32_peak import OPS
+
+    def name_of(mangled):
+        m = re.search(r"(fused_render_kernel|bounce_kernel)ILb([01])ELi(\d)E", mangled)
+        if m:
+            return f"{m.group(1)}<{'true' if m.group(2) == '1' else 'false'}, {WALKS[int(m.group(3))]}>"
+        m = re.search(r"chain_kernelILi(\d)ELi(\d+)ELi(\d+)E", mangled)
+        if m:
+            return f"chain_kernel<{OPS[int(m.group(1))]}, {m.group(2)}, {m.group(3)}>"
+        return "closest_hit_kernel" if "closest_hit_kernel" in mangled else None
+
     out, cur = {}, None
     for line in build_log.splitlines():
         m = re.search(r"Compiling entry function '([^']+)'", line)
         if m:
-            cur = next((v for k, v in names if k in m.group(1)), None)
+            cur = name_of(m.group(1))
             if cur:
                 out[cur] = {"registers": None, "spill_bytes": None}
             continue
@@ -566,6 +694,105 @@ def kernel_resources(build_log: str) -> dict:
         if m:
             out[cur]["registers"] = int(m.group(1))
     return out
+
+
+def sass_counts(lib_path: str) -> dict:
+    """{chain_kernel<op, chains, unroll>: {opcode: count}} of the FP32
+    opcodes in each chain kernel's SASS (cuobjdump -sass): the fma chain
+    must be FFMA, not an FMUL and an FADD (the build has -fmad=false)."""
+    import re
+    import shutil
+
+    from zig_weekend_raytracer_tpu_torch.tools.fp32_peak import OPS
+
+    tool = shutil.which("cuobjdump") or os.path.join(
+        os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
+    proc = subprocess.Popen([tool, "-sass", lib_path], stdout=subprocess.PIPE, text=True)
+    out, cur = {}, None
+    for line in proc.stdout:
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            k = re.search(r"chain_kernelILi(\d)ELi(\d+)ELi(\d+)E", m.group(1))
+            cur = f"chain_kernel<{OPS[int(k.group(1))]}, {k.group(2)}, {k.group(3)}>" if k else None
+            if cur:
+                out[cur] = {}
+            continue
+        if cur:
+            m = re.search(r"\b(FFMA|FADD|FMUL|FSETP|FSEL|FMNMX)\b", line)
+            if m:
+                out[cur][m.group(1)] = out[cur].get(m.group(1), 0) + 1
+    if proc.wait() != 0:
+        raise AssertionError(f"cuobjdump -sass failed ({proc.returncode})")
+    return out
+
+
+def phase_fp32_peak(torch, built, card) -> dict:
+    """Phase 1b: chain_kernel against its plain version on the card for the
+    four ops at every (blocks per SM, chains, unroll) of the sweep, on the
+    sweep's own grid with CHAIN_STEPS steps, its SASS, then the sweep with
+    the scaling check (its launches counted); sets OPS_RATE to the measured
+    add rate."""
+    import numpy as np
+
+    from zig_weekend_raytracer_tpu_torch.tools import fp32_peak as fp
+    from zig_weekend_raytracer_tpu_torch.utils import roofline
+
+    c = fp.multipliers("cuda")
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    parity = []
+    for blocks, chains, unroll in fp.SWEEP:
+        n = sms * blocks * fp.THREADS
+        iters = CHAIN_STEPS // unroll
+        for op in fp.OPS:
+            ms_k, out_k = cuda_time_ms(lambda: fp.chain(op, c, n, iters, chains, unroll), 3)
+            ms_p, out_p = cuda_time_ms(lambda: fp.chain_reference(op, c, n, iters, chains, unroll))
+            k, p = out_k.cpu().numpy(), out_p.cpu().numpy()
+            err = float(np.abs(k - p).max())
+            bad = int((~np.isclose(k, p, rtol=CHAIN_RTOL, atol=0.0)).sum())
+            tag = f"chain {op}, {blocks} blocks/SM, {chains} chains, unroll {unroll}"
+            log(f"{tag}: {n} threads, {iters} iters: outside rtol {CHAIN_RTOL} on {bad}, "
+                f"max |diff| {err:.3e}; kernel {ms_k:.3f} ms, plain {ms_p:.1f} ms")
+            if bad or not np.isfinite(k).all():
+                raise AssertionError(f"{tag}: chain_kernel disagrees with its plain version")
+            parity.append({"check": tag, "op": op, "shape": [blocks, chains, unroll],
+                           "threads": n, "iters": iters, "max_abs_err": err, "ms": ms_k,
+                           "plain_ms": ms_p})
+    sass = sass_counts(built["path"])
+    for name, ops in sorted(sass.items()):
+        log(f"  sass {name}: {ops}")
+    fma = sass.get("chain_kernel<fma, 8, 64>", {})
+    if fma.get("FFMA", 0) < 8 * 64 or fma.get("FMUL", 0) + fma.get("FADD", 0) >= 8 * 64:
+        raise AssertionError(f"the fma chain is not FFMA in the SASS: {fma}")
+    fp.chain.launches = 0
+    res = fp.run(fp.ITERS_QUICK)
+    launches = fp.chain.launches
+    for r in res["sweep"]:
+        log(f"  sweep {r['op']} blocks/SM {r['blocks_per_sm']} chains {r['chains']} unroll "
+            f"{r['unroll']}: {r['time_s'] * 1e3:.3f} ms, {r['gops']:.1f} Gops/s, "
+            f"{r['gflops']:.1f} GFLOP/s")
+    sc = res["iters_scaling"]
+    log(f"fp32 peak (best of 3, {card}): Gops/s {res['gops']}, GFLOP/s {res['gflops']}; "
+        f"physics bound {res['physics_bound']}; 4x/1x iters time ratio "
+        f"{sc['time_ratio_4x']:.3f}; {launches} launches")
+    if not res["ok"]:
+        raise AssertionError(f"fp32 peak: over the physics bound {res['over_physics']} or "
+                             f"not linear in iters ({sc['time_ratio_4x']:.3f})")
+    OPS_RATE["rate"] = res["add_gops"] * 1e9
+    best = next(r for r in res["sweep"] if r["op"] == "add"
+                and [r["blocks_per_sm"], r["chains"], r["unroll"]] == res["best_shape"]["add"])
+    # the headline add run: its lane-operations over the data sheet's rate,
+    # 128 multipliers in and one float per thread out
+    ops = best["threads"] * best["chains"] * best["iters"] * best["unroll"]
+    bound, by = roofline.bound_ms(ops, 128 * 4 + best["threads"] * 4)
+    add_parity = next(p for p in parity
+                      if p["op"] == "add" and p["shape"] == res["best_shape"]["add"])
+    return {"parity": parity, "ms": best["time_s"] * 1e3, "plain_ms": add_parity["plain_ms"],
+            "kernel_ms_at_plain_shape": add_parity["ms"], "bound_ms": bound, "bound_by": by,
+            "instantiation": f"chain_kernel<add, {best['chains']}, {best['unroll']}>",
+            "peak_source": roofline.peak_source(None), "launches": launches,
+            "gops": res["gops"], "gflops": res["gflops"], "best_shape": res["best_shape"],
+            "physics_bound": res["physics_bound"], "time_ratio_4x": sc["time_ratio_4x"],
+            "sass": sass}
 
 
 def emitter_scene(zt, budget):
@@ -666,12 +893,14 @@ def phase_cli(zt, torch) -> list:
     return checks
 
 
-def regen_parity(zt, tb, integrator, torch, scene, w, spp, depth, tag, lanes=None):
+def regen_parity(zt, tb, integrator, torch, scene, w, spp, depth, tag, lanes=None,
+                 plains=None):
     """bounce_kernel's regenerating mode vs bounce_regen_reference from
     fresh lanes (every pixel of a w x w image, or ``lanes`` = (px, py) of
     a plan), checked with phase 2's tolerances; every lane must end
     drained.  Returns the check (with both times), the plain version's work
-    counts and the kernel's total bounces."""
+    counts and the kernel's total bounces; ``plains``, a list, collects the
+    plain version's final state."""
     from zig_weekend_raytracer_tpu_torch.render.camera import camera_consts
     from zig_weekend_raytracer_tpu_torch.utils import workcount
 
@@ -697,6 +926,8 @@ def regen_parity(zt, tb, integrator, torch, scene, w, spp, depth, tag, lanes=Non
         raise AssertionError(f"regen {tag}: the kernel left lanes undrained")
     check = compare(tag, (st_k.radiance, st_k.work), (st_p.radiance, st_p.work))
     log(f"regen {tag}: kernel {ms_k:.3f} ms, plain {ms_p:.1f} ms")
+    if plains is not None:
+        plains.append(st_p)
     return {**check, "ms": ms_k, "plain_ms": ms_p}, dict(counts), int(st_k.work.sum())
 
 
@@ -744,6 +975,156 @@ def gate(tag, fb, ref_mean, ref_regions) -> str:
     return verdict
 
 
+def walk_scenes(zt) -> dict:
+    """The scenes of phases 17 and 18: balls at leaf span 2, rtw_final with
+    the atlas, and rtw_final compiled with ZWRT_UNI_TREE=1 with the atlas
+    and with a native-budget texture LUT."""
+    out = {}
+    with leaf_span(2):
+        out["balls2"] = zt.models.load_scene("balls", device="cuda")
+    out["rtw"] = zt.models.load_scene("rtw_final", device="cuda")
+    with env("ZWRT_UNI_TREE", "1"):
+        out["rtw_uni"] = zt.models.load_scene("rtw_final", device="cuda")
+        out["rtw_uni_lut"] = zt.models.load_scene("rtw_final", device="cuda",
+                                                  texture_lut=LUT_NATIVE)
+    out["rtw_lut"] = zt.models.load_scene("rtw_final", device="cuda", texture_lut=LUT_NATIVE)
+    cu = out["rtw_uni"].compiled
+    log(f"unified tree of rtw_final: {cu.uni_tree_box.shape[0]} nodes at leaf span "
+        f"{cu.uni_leaf_span} (per-kind trees {cu.sph_tree_box.shape[0]} + "
+        f"{cu.quad_tree_box.shape[0]} nodes)")
+    if not (cu.has_uni_tree and out["rtw_uni_lut"].compiled.has_uni_tree):
+        raise AssertionError("rtw_final compiled without its unified tree under ZWRT_UNI_TREE=1")
+    return out
+
+
+def phase_walk_parity(zt, fused, tb, integrator, torch, sc) -> dict:
+    """Phase 17: each walk's instantiations against their plain versions on
+    the card (K1 on balls at span 2, K2's regenerating mode and its
+    one-bounce mode with every lane live and with every other lane dead on
+    rtw_final, K1 with the LUT on rtw_final under uni), and each walk's
+    plain version against the default walk's plain version on the same
+    inputs.  Returns {walk: {case: (check, plain work counts or None)}} and
+    the plain-vs-plain checks under "plain"."""
+
+    def cases(walk):
+        """{case: (check, plain output, plain work counts or None)}."""
+        rtw = sc["rtw_uni" if walk == "uni" else "rtw"]
+        out = {}
+        if walk != "uni":  # balls has no quads, so no unified tree
+            plains = []
+            check = render_parity(zt, fused, integrator, torch, sc["balls2"],
+                                  f"{walk} walk: balls span 2 32x32 spp{WALK_SPP} d{DEPTH}",
+                                  plains=plains, spp=WALK_SPP)
+            out["K1 balls"] = (check, *plains[0])
+        plains = []
+        check, counts, _ = regen_parity(zt, tb, integrator, torch, rtw, 32, WALK_SPP, RTW_DEPTH,
+                                        f"{walk} walk: rtw_final 32x32 spp{WALK_SPP} "
+                                        f"d{RTW_DEPTH}", plains=plains)
+        out["K2 regen"] = (check, plains[0], counts)
+        if walk in ("uni", "cond"):
+            plains = []
+            check = render_parity(zt, fused, integrator, torch,
+                                  sc["rtw_uni_lut" if walk == "uni" else "rtw_lut"],
+                                  f"{walk} walk: rtw_final LUT 32x32 spp{WALK_SPP} d{RTW_DEPTH}",
+                                  RTW_DEPTH, plains=plains, spp=WALK_SPP)
+            out["K1 LUT"] = (check, *plains[0])
+        plains = []
+        check = one_bounce_parity(zt, tb, integrator, torch, rtw, f"{walk} walk: rtw_final",
+                                  (0,), plains)[0]
+        out["K2 one bounce"] = (check, plains[0], None)
+        # every other lane dead: the live lanes of a warp reach the trace
+        # from a divergent branch (the rowqueue walk's group is half a warp)
+        plains = []
+        odd = torch.arange(W * H, device="cuda") % 2 == 1
+        check = one_bounce_parity(zt, tb, integrator, torch, rtw,
+                                  f"{walk} walk: rtw_final, every other lane dead", (0,), plains,
+                                  alive0=odd)[0]
+        out["K2 one bounce, half dead"] = (check, plains[0], None)
+        return out
+
+    result, default = {"plain": []}, None
+    for walk in ("cond",) + NEW_WALKS:
+        with trav(walk):
+            got = cases(walk)
+        result[walk] = {name: (check, counts) for name, (check, _, counts) in got.items()}
+        if default is None:
+            default = got
+            continue
+        for name, (_, mine, _) in got.items():
+            ref = default[name][1]
+            tag = f"plain {walk} walk vs plain default walk: {name}"
+            if name.startswith("K2 one bounce"):
+                result["plain"].append(compare_bounce(tag, mine, ref))
+            elif name == "K2 regen":
+                result["plain"].append(compare(tag, (mine.radiance, mine.work),
+                                               (ref.radiance, ref.work)))
+            else:
+                result["plain"].append(compare(tag, mine, ref))
+    return result
+
+
+def walk_render(zt, fused, integrator, ch, ttrace, tb, torch, scene, spp, depth, walk, card,
+                ref_fb=None) -> dict:
+    """Phase 18, one path: ``scene`` at 400x400 under ``walk`` (one warmup
+    render, three timed), with the counts set to 0 just before and read just
+    after; the walk's instantiation of K1 (scenes it takes) or K2 must have
+    launched and nothing else of the kind, no plain version; then the
+    kernel's time at the coherent plan's lanes (its work), and the
+    framebuffer against ``ref_fb`` within rtol 1e-5 / atol 1e-6 on >= 99.9%
+    of pixels."""
+    from zig_weekend_raytracer_tpu_torch.ops.bounce import supports_fused_render
+    from zig_weekend_raytracer_tpu_torch.render.camera import camera_consts
+
+    cs = scene.compiled
+    k1 = supports_fused_render(cs)
+    renderer = zt.render.Renderer(samples_per_pixel=spp, max_ray_bounce_depth=depth)
+    tag = f"{scene.name} {W}x{H}@{spp} d{depth}, {walk} walk"
+    with trav(walk):
+        reset_counts(fused, integrator, ch, ttrace, tb)
+        warm_s, times, fb = timed_renders(renderer, scene, torch, W, H)
+        host = fused.render_fused if k1 else tb.bounce_regen
+        other = ((launched(tb.bounce_regen) + launched(tb.bounce)) if k1
+                 else launched(fused.render_fused))
+        by_walk = dict(host.launches)
+        launches = sum(by_walk.values())
+        n_plain = plain_calls(integrator, ttrace)
+        log(f"{tag}: warmup {warm_s:.3f} s, renders {[round(t, 4) for t in times]} s; "
+            f"{'render' if k1 else 'bounce'} kernel launches by walk {by_walk}, other render "
+            f"kernel {other}, plain-version calls {n_plain}")
+        if by_walk[walk] < 1 or by_walk[walk] != launches or other or n_plain:
+            raise AssertionError(f"{tag}: did not run the {walk} instantiation alone")
+        if tuple(fb.shape) != (H, W, 3) or not bool(torch.isfinite(fb).all()):
+            raise AssertionError(f"{tag}: bad framebuffer")
+        plans = renderer._plan_cache[cs]
+        plan = plans[next(k for k in plans if k[0] == "coh")]["plan"]
+        kw = dict(camera_consts=camera_consts(scene.camera, W, H), sampler=renderer.sampler,
+                  width=W, height=H, spp=spp, stride=1, max_depth=depth,
+                  has_dof=scene.camera.has_depth_of_field)
+        t_min = zt.dtypes.T_MIN
+        if k1:
+            ms, (_, work) = cuda_time_ms(
+                lambda: fused.render_fused(cs, *plan, 0, t_min, want_work=True, **kw), 3)
+        else:
+            st0 = integrator.initial_regen_state(plan[2], 1)
+            ms, st = cuda_time_ms(
+                lambda: tb.bounce_regen(cs, st0, plan[0], plan[1], plan[3], 0, t_min, **kw), 3)
+            work = st.work
+    best = min(times)
+    mpaths = W * H * spp / best / 1e6
+    out = {"render_s_best": best, "mpaths_per_s": mpaths, "launches": launches, "ms": ms,
+           "work": int(work.sum().item()), "lanes": int(plan[0].shape[0])}
+    msg = f"{tag}: best {best:.4f} s = {mpaths:.2f} Mpaths/s; kernel at the plan {ms:.3f} ms"
+    if ref_fb is not None:
+        close = torch.isclose(fb, ref_fb, rtol=1e-5, atol=1e-6).all(-1).float().mean().item()
+        out.update(default_agree=close, default_max_abs_diff=(fb - ref_fb).abs().max().item())
+        msg += (f"; against the default walk's render {close:.4%} of pixels within rtol "
+                f"1e-5/atol 1e-6, max |diff| {out['default_max_abs_diff']:.3e}")
+        if close < 0.999:
+            raise AssertionError(f"{tag}: disagrees with the default walk's render")
+    log(f"{msg} ({card})")
+    return out, fb
+
+
 def main() -> int:
     try:
         import torch
@@ -764,6 +1145,7 @@ def main() -> int:
         from zig_weekend_raytracer_tpu_torch.ops import fused_render as fused
         from zig_weekend_raytracer_tpu_torch.ops import trace as ttrace
         from zig_weekend_raytracer_tpu_torch.render import integrator
+        from zig_weekend_raytracer_tpu_torch.utils import workcount
     except ImportError as e:
         print(f"chip_smoke: the port is not importable here: {e}", file=sys.stderr)
         return 2
@@ -772,6 +1154,7 @@ def main() -> int:
         return 1
 
     # ---- 1. device and build ----
+    phase("1")
     card = gpu_info()
     kind = torch.cuda.get_device_name(0)
     log(f"gpu: {card}")
@@ -784,19 +1167,32 @@ def main() -> int:
     resources = kernel_resources(built["log"])
     for name, res in resources.items():
         log(f"  {name}: {res['registers']} registers, {res['spill_bytes']} bytes spill stores")
-    if len(resources) != 5 or any(r["registers"] is None for r in resources.values()):
-        raise AssertionError(f"ptxas did not report every kernel: {resources}")
+    n_chain = 4 * 2 * 4  # ops x chain counts x unrolls
+    if len(resources) != 2 * 2 * 5 + 1 + n_chain or any(
+            r["registers"] is None for r in resources.values()):
+        raise AssertionError(f"ptxas did not report every kernel: {sorted(resources)}")
+    for name, (regs, spill) in DEFAULT_RESOURCES.items():
+        got = (resources[name]["registers"], resources[name]["spill_bytes"])
+        if got != (regs, spill):
+            raise AssertionError(f"{name}: {got} registers and spill bytes, not the previous "
+                                 f"slice's {(regs, spill)}")
     _build.load_library()
 
+    # ---- 1b. the FP32 peak: every later bound divides by its add rate ----
+    phase("1b")
+    peak = phase_fp32_peak(torch, built, card)
+
     # ---- 2. kernel against plain ----
+    phase("2")
     cornell = zt.models.load_scene("cornell_box", device="cuda")
     checks = [render_parity(zt, fused, integrator, torch, cornell, "cornell 32x32 spp8 d10")]
 
     # ---- 3. the main path ----
+    phase("3")
     renderer = zt.render.Renderer(samples_per_pixel=SPP, max_ray_bounce_depth=DEPTH)
     reset_counts(fused, integrator, ch, ttrace, tb)
     warm_s, times, fb = timed_renders(renderer, cornell, torch, W, H)
-    launches = fused.render_fused.launches
+    launches = launched(fused.render_fused)
     n_plain = plain_calls(integrator, ttrace)
     log(f"main path: warmup {warm_s:.3f} s, renders {[round(t, 4) for t in times]} s")
     log(f"main path: kernel launches {launches}, plain-version calls {n_plain}")
@@ -817,6 +1213,7 @@ def main() -> int:
     )
 
     # ---- 4. kernel against plain at the main path's lanes ----
+    phase("4")
     key = (W, H, 0, SPP, DEPTH, renderer.sampler, renderer.seed)
     px, py, s0, s1 = renderer._plan_cache[cornell.compiled][key]["plan"]
     n = px.shape[0]
@@ -855,7 +1252,8 @@ def main() -> int:
     plain_spp = probe_spp
     while plain_spp * 2 <= SPP and probe_ms * (plain_spp * 2) / probe_spp <= PLAIN_BUDGET_S * 1e3:
         plain_spp *= 2
-    plain_ms, out_p = plain(plan, plain_spp, want_work=True)
+    with workcount.counting() as k1_counts:
+        plain_ms, out_p = plain(plan, plain_spp, want_work=True)
     kernel_ms_same, out_k = kernel(plan, plain_spp, 3)
     log(
         f"plain version at main-path lanes, {plain_spp} spp: {plain_ms:.1f} ms; "
@@ -864,16 +1262,25 @@ def main() -> int:
     )
     checks.append(compare(f"main-path lanes {plain_spp} spp d{DEPTH}", out_k, out_p))
     # every sample bit of the main path: a slice spread over the cost-sorted
-    # plan, at the full spp (the Sobol scale comes from W and H)
-    check, k1_counts = plan_parity(zt, fused, integrator, cornell, plan, SPP, card, "main-path")
-    checks.append(check)
-    # the timed run's lanes read (px, py, s0, s1) and write radiance and work
-    k1_bound = render_bound(zt, cornell, k1_counts, main_work.sum().item(), n * (16 + 16), False)
+    # plan, its lanes in 64-sample windows that together cover the full spp
+    # (the Sobol scale comes from W and H)
+    checks.append(plan_parity(zt, fused, integrator, cornell, plan, SPP, card, "main-path",
+                              window=64)[0])
+    # each lane's accumulation over the full 1024 samples, on a smaller
+    # slice at a cut depth
+    checks.append(plan_parity(zt, fused, integrator, cornell, plan, SPP, card, "main-path",
+                              depth=FULL_DRAIN_DEPTH, lanes=FULL_DRAIN_LANES)[0])
+    # the timed run's lanes read (px, py, s0, s1) and write radiance and
+    # work; its bound from the work of every lane at plain_spp
+    k1_bound = render_bound(zt, cornell, dict(k1_counts), main_work.sum().item(), n * (16 + 16),
+                            False)
 
     # ---- 5. closest-hit kernel against plain ----
+    phase("5")
     hit_checks = phase_closest_hit(zt, ch, ttrace, torch)
 
     # ---- 6. render kernel with the tree walk and depth of field ----
+    phase("6")
     balls = zt.models.load_scene("balls", device="cuda")
     with leaf_span(2):
         balls2 = zt.models.load_scene("balls", device="cuda")
@@ -883,10 +1290,11 @@ def main() -> int:
     ]
 
     # ---- 7. the balls main path ----
+    phase("7")
     b_renderer = zt.render.Renderer(samples_per_pixel=BALLS_SPP, max_ray_bounce_depth=DEPTH)
     reset_counts(fused, integrator, ch, ttrace, tb)
     b_warm_s, b_times, b_fb = timed_renders(b_renderer, balls, torch, W, H)
-    b_launches = fused.render_fused.launches
+    b_launches = launched(fused.render_fused)
     b_hit_launches = ch.closest_hit.launches
     b_plain = plain_calls(integrator, ttrace)
     plans = b_renderer._plan_cache[balls.compiled]
@@ -924,9 +1332,11 @@ def main() -> int:
                                  b_plan[0].shape[0] * (16 + 12), True)
 
     # ---- 8. the balls region gates ----
+    phase("8")
     balls_gates = region_gates(zt, np, balls, "balls")
 
     # ---- 9. bounce kernel, one-bounce mode, against plain ----
+    phase("9")
     images = {name: zt.models.load_scene(name, device="cuda")
               for name in ("rtw_final", "shrek_quads", "earth")}
     rtw = images["rtw_final"]
@@ -934,19 +1344,21 @@ def main() -> int:
     k2_checks = []
 
     # ---- 10. bounce kernel, regenerating mode, against plain ----
+    phase("10")
     for name, depth in (("earth", 10), ("shrek_quads", 10), ("rtw_final", RTW_DEPTH)):
         tag = f"{name} 32x32 spp8 d{depth}"
         k2_checks.append(regen_parity(zt, tb, integrator, torch, images[name], 32, 8, depth, tag)[0])
 
     # ---- 11. the rtw_final main path ----
+    phase("11")
     r_renderer = zt.render.Renderer(samples_per_pixel=RTW_SPP, max_ray_bounce_depth=RTW_DEPTH)
     reset_counts(fused, integrator, ch, ttrace, tb)
     torch.cuda.reset_peak_memory_stats()
     r_warm_s, r_times, r_fb = timed_renders(r_renderer, rtw, torch, W, H)
     peak_mb = torch.cuda.max_memory_allocated() / 2**20
-    r_k2 = tb.bounce_regen.launches + tb.bounce.launches
+    r_k2 = launched(tb.bounce_regen) + launched(tb.bounce)
     r_hit = ch.closest_hit.launches
-    r_k1 = fused.render_fused.launches
+    r_k1 = launched(fused.render_fused)
     r_plain = plain_calls(integrator, ttrace)
     passes, bands = integrator.trace_paths_regen.passes, integrator.trace_paths_regen.bands
     plans = r_renderer._plan_cache[rtw.compiled]
@@ -992,6 +1404,7 @@ def main() -> int:
                             r_plan[0].shape[0] * (84 + 72), False)
 
     # ---- 12. the image scenes' region gates ----
+    phase("12")
     # rtw_final's 64x64 golden holds 2,048 samples per 8x8-pixel region,
     # too few for its dark regions, whose light comes from rare paths: those
     # decorrelate from the golden's (XLA's contracted multiply-adds; the
@@ -1002,6 +1415,7 @@ def main() -> int:
                    for name in ("earth", "shrek_quads", "rtw_final")}
 
     # ---- 13. the render kernel with a texture LUT against plain ----
+    phase("13")
     luts = {f"{name} {budget}": zt.models.load_scene(name, device="cuda", texture_lut=budget)
             for name, budget in (("rtw_final", LUT_NATIVE), ("rtw_final", LUT_32K),
                                  ("shrek_quads", LUT_8K), ("earth", LUT_8K))}
@@ -1023,13 +1437,14 @@ def main() -> int:
                                (0,))
 
     # ---- 14. the LUT main path ----
+    phase("14")
     l_renderer = zt.render.Renderer(samples_per_pixel=RTW_SPP, max_ray_bounce_depth=RTW_DEPTH)
     reset_counts(fused, integrator, ch, ttrace, tb)
     torch.cuda.reset_peak_memory_stats()
     l_warm_s, l_times, l_fb = timed_renders(l_renderer, rtw_lut, torch, W, H)
     l_peak_mb = torch.cuda.max_memory_allocated() / 2**20
-    l_k1 = fused.render_fused.launches
-    l_k2 = tb.bounce_regen.launches + tb.bounce.launches
+    l_k1 = launched(fused.render_fused)
+    l_k2 = launched(tb.bounce_regen) + launched(tb.bounce)
     l_hit = ch.closest_hit.launches
     l_plain = plain_calls(integrator, ttrace)
     plans = l_renderer._plan_cache[lc]
@@ -1101,13 +1516,14 @@ def main() -> int:
         f"mean |diff| to the native-budget render {s_diff:.4e} (not gated; {card})")
 
     # ---- 15. emissive ----
+    phase("15")
     emissive = zt.models.load_scene("emissive", device="cuda")
     checks.append(render_parity(zt, fused, integrator, torch, emissive, "emissive 32x32 spp8 d10"))
     e_renderer = zt.render.Renderer(samples_per_pixel=EMISSIVE_SPP, max_ray_bounce_depth=DEPTH)
     reset_counts(fused, integrator, ch, ttrace, tb)
     e_warm_s, e_times, e_fb = timed_renders(e_renderer, emissive, torch, W, H)
-    e_k1 = fused.render_fused.launches
-    e_other = tb.bounce.launches + tb.bounce_regen.launches + ch.closest_hit.launches
+    e_k1 = launched(fused.render_fused)
+    e_other = launched(tb.bounce) + launched(tb.bounce_regen) + ch.closest_hit.launches
     e_plain = plain_calls(integrator, ttrace)
     log(f"emissive main path: warmup {e_warm_s:.3f} s, renders {[round(t, 4) for t in e_times]} "
         f"s; render kernel launches {e_k1}, other kernels {e_other}, plain-version calls "
@@ -1123,12 +1539,38 @@ def main() -> int:
     emissive_gates = region_gates(zt, np, emissive, "emissive")
 
     # ---- 16. the CLI ----
+    phase("16")
     cli_checks = phase_cli(zt, torch)
+
+    # ---- 17. the tree walks against their plain versions ----
+    phase("17")
+    wsc = walk_scenes(zt)
+    wpar = phase_walk_parity(zt, fused, tb, integrator, torch, wsc)
+
+    # ---- 18. the walks on the slice's path at full width ----
+    phase("18")
+    wr = lambda scene, spp, depth, walk, ref=None: walk_render(
+        zt, fused, integrator, ch, ttrace, tb, torch, scene, spp, depth, walk, card, ref)
+    paths = {}
+    b_default, b2_fb = wr(wsc["balls2"], BALLS_SPP, DEPTH, "cond")
+    b_default.update(render_bound(zt, wsc["balls2"], wpar["cond"]["K1 balls"][1],
+                                  b_default["work"], b_default["lanes"] * (16 + 12), True))
+    paths[("K1", "cond")] = b_default
+    for walk in ("queue", "rowqueue", "spec"):
+        paths[("K1", walk)] = wr(wsc["balls2"], BALLS_SPP, DEPTH, walk, b2_fb)[0]
+        paths[("K2", walk)] = wr(rtw, RTW_SPP, RTW_DEPTH, walk, r_fb)[0]
+    paths[("K2", "uni")], uni_fb = wr(wsc["rtw_uni"], RTW_SPP, RTW_DEPTH, "uni", r_fb)
+    paths[("K1", "uni")] = wr(wsc["rtw_uni_lut"], RTW_SPP, RTW_DEPTH, "uni", l_fb)[0]
+    uni_gates = region_gates(zt, np, wsc["rtw_uni"], "rtw_final", grid64=4)
+    log("walks at full width (Mpaths/s; " + card + "): " + ", ".join(
+        f"{k} {w} {v['mpaths_per_s']:.2f}" for (k, w), v in paths.items())
+        + f"; default walk: balls span 2 {b_default['mpaths_per_s']:.2f}, rtw_final (K2) "
+        f"{r_mpaths:.2f}, rtw_final LUT (K1) {l_mpaths:.2f}")
 
     b_hit = hit_checks[1]
     k2_first = k2_one[0]
     k2_lut_first = k2_lut[0]
-    bound_of = lambda c: {"bound_ms": c["bound_ms"], "bound_by": c["bound_by"]}
+    bound_of = lambda c: {k: c[k] for k in ("bound_ms", "bound_by", "peak_source")}
 
     def entry(name, source, replaces, res, launches, by_path, parity, ms, plain_ms, bound,
               tolerance, **extra):
@@ -1147,22 +1589,58 @@ def main() -> int:
 
     render_tol = "rtol 1e-4, atol 1e-5 on >= 99% of lanes; mean 1e-4 rel"
     bounce_tol = "alive equal and state rtol 1e-5, atol 1e-6 on >= 99.9% of lanes"
+
+    def walk_entry(kernel, walk):
+        """The record of one walk's instantiation on its phase 18 path; its
+        bound from phase 17's plain work counts (32x32) scaled to the
+        kernel's bounces at the plan."""
+        path = paths[(kernel, walk)]
+        checks = wpar[walk]
+        if kernel == "K1":
+            case = "K1 LUT" if walk == "uni" else "K1 balls"
+            scene = wsc["rtw_uni_lut"] if walk == "uni" else wsc["balls2"]
+            name = f"fused_render_kernel ({walk} walk" + (", texture LUT)" if walk == "uni" else ")")
+            res = f"fused_render_kernel<{'true' if walk == 'uni' else 'false'}, {walk}>"
+            parity = [checks[case][0]]
+            lane_bytes = path["lanes"] * (16 + (16 if walk == "uni" else 12))
+            src, by_path = KERNEL_SOURCE, {scene.name + (" uni LUT" if walk == "uni" else
+                                                         " span 2"): path["launches"]}
+        else:
+            case = "K2 regen"
+            scene = wsc["rtw_uni"] if walk == "uni" else rtw
+            name = f"bounce_kernel ({walk} walk, regenerating)"
+            res = f"bounce_kernel<true, {walk}>"
+            parity = [checks[c][0] for c in ("K2 regen", "K2 one bounce",
+                                             "K2 one bounce, half dead")]
+            lane_bytes = path["lanes"] * (84 + 72)
+            src, by_path = BOUNCE_SOURCE, {"rtw_final" + (" uni" if walk == "uni" else ""):
+                                           path["launches"]}
+        bound = render_bound(zt, scene, checks[case][1], path["work"], lane_bytes,
+                             scene.camera.has_depth_of_field)
+        return entry(name, src, WALK_REPLACES[walk], res, path["launches"], by_path, parity,
+                     path["ms"], parity[0]["plain_ms"], bound, render_tol,
+                     plain_lanes=32 * 32, render_s_best=path["render_s_best"],
+                     mpaths_per_s=path["mpaths_per_s"],
+                     default_agree=path.get("default_agree"),
+                     plain_vs_default_plain=[c for c in wpar["plain"] if f" {walk} walk" in c["check"]],
+                     **({"region_gates": uni_gates} if (kernel, walk) == ("K2", "uni") else {}))
+
     record = {"kernels": [
         entry("fused_render_kernel (brute)", KERNEL_SOURCE, KERNEL_REPLACES,
-              "fused_render_kernel<false>", launches + e_k1,
+              "fused_render_kernel<false, cond>", launches + e_k1,
               {"cornell": launches, "emissive": e_k1}, checks, kernel_ms, plain_ms, k1_bound,
               render_tol, plain_spp=plain_spp, kernel_ms_at_plain_spp=kernel_ms_same,
               render_s_best=best, mpaths_per_s=mpaths, region_gate=verdict,
               emissive_render_s_best=e_best, emissive_mpaths_per_s=e_mpaths,
               emissive_region_gates=emissive_gates),
         entry("fused_render_kernel (tree)", KERNEL_SOURCE, KERNEL_REPLACES,
-              "fused_render_kernel<false>", b_launches, {"balls": b_launches}, tree_checks,
+              "fused_render_kernel<false, cond>", b_launches, {"balls": b_launches}, tree_checks,
               b_kernel_ms, b_slice["plain_ms"], k1_tree_bound, render_tol,
               plain_lanes=SLICE_LANES, kernel_ms_at_plain_lanes=b_slice["ms"],
               balls_render_s_best=b_best, balls_mpaths_per_s=b_mpaths,
               balls_region_gates=balls_gates),
         entry("fused_render_kernel (texture LUT)", KERNEL_SOURCE, KERNEL_LUT_REPLACES,
-              "fused_render_kernel<true>", l_k1, {"rtw_final LUT": l_k1}, lut_checks,
+              "fused_render_kernel<true, cond>", l_k1, {"rtw_final LUT": l_k1}, lut_checks,
               l_kernel_ms, l_slice["plain_ms"], k1_lut_bound, render_tol,
               plain_lanes=SLICE_LANES // 2, kernel_ms_at_plain_lanes=l_slice["ms"],
               rtw_final_render_s_best=l_best, rtw_final_mpaths_per_s=l_mpaths,
@@ -1170,16 +1648,16 @@ def main() -> int:
               atlas_render_max_abs_diff=l_vs_atlas, region_gates=lut_gates,
               lut_32k_mpaths_per_s=s_mpaths, lut_32k_mean_abs_diff=s_diff,
               lut_vs_atlas_pairs_ms=lut_pairs, lut_vs_atlas_same_lanes=lut_same_lanes),
-        entry("bounce_kernel (one bounce)", BOUNCE_SOURCE, BOUNCE_REPLACES, "bounce_kernel<false>",
+        entry("bounce_kernel (one bounce)", BOUNCE_SOURCE, BOUNCE_REPLACES, "bounce_kernel<false, cond>",
               0, {}, k2_one, k2_first["ms"], k2_first["plain_ms"], bound_of(k2_first), bounce_tol,
               note="parity only: no main path runs the one-bounce mode; times and bound "
                    "are rtw_final's first bounce at 160,000 lanes"),
         entry("bounce_kernel (one bounce, texture LUT)", BOUNCE_SOURCE, BOUNCE_REPLACES,
-              "bounce_kernel<false>", 0, {}, k2_lut, k2_lut_first["ms"],
+              "bounce_kernel<false, cond>", 0, {}, k2_lut, k2_lut_first["ms"],
               k2_lut_first["plain_ms"], bound_of(k2_lut_first), bounce_tol,
               note="parity only: no main path runs the one-bounce mode"),
         entry("bounce_kernel (regenerating)", BOUNCE_SOURCE, BOUNCE_REPLACES,
-              "bounce_kernel<true>", r_k2, {"rtw_final": r_k2}, k2_checks, k2_ms,
+              "bounce_kernel<true, cond>", r_k2, {"rtw_final": r_k2}, k2_checks, k2_ms,
               k2_slice["plain_ms"], k2_bound, render_tol, plain_lanes=SLICE_LANES,
               kernel_ms_at_plain_lanes=k2_slice["ms"],
               driver_passes_per_band=passes / max(bands, 1), rtw_final_render_s_best=r_best,
@@ -1191,7 +1669,25 @@ def main() -> int:
               b_hit["ms"], b_hit["plain_ms"], bound_of(b_hit),
               f"(kind, idx) equal on >= {HIT_AGREE:.1%} of rays; t rtol {HIT_RTOL}, "
               f"atol {HIT_ATOL}"),
-    ], "cli": cli_checks}
+        *(walk_entry(kernel, walk) for kernel in ("K1", "K2") for walk in NEW_WALKS),
+        {"name": "chain_kernel (fp32 peak)", "route": "cuda", "source": PEAK_SOURCE,
+         "replaces": PEAK_REPLACES, "launches": peak["launches"],
+         "launches_by_path": {"fp32 peak sweep": peak["launches"]},
+         "max_abs_err": max(c["max_abs_err"] for c in peak["parity"]), "ms": peak["ms"],
+         "plain_ms": peak["plain_ms"], "bound_ms": peak["bound_ms"],
+         "bound_by": peak["bound_by"], "peak_source": peak["peak_source"], "library_ms": None,
+         "library_note": "none: no single PyTorch call runs a register-resident operation chain",
+         "registers": resources[peak["instantiation"]]["registers"],
+         "spill_bytes": resources[peak["instantiation"]]["spill_bytes"],
+         "parity": peak["parity"], "tolerance": f"rtol {CHAIN_RTOL}", "card": card,
+         "note": f"ms: {peak['instantiation']} at the best add shape of the sweep; "
+                 f"plain_ms at that shape with {CHAIN_STEPS} steps (iters x unroll), "
+                 f"where the kernel took {peak['kernel_ms_at_plain_shape']:.4f} ms",
+         **{k: peak[k] for k in ("gops", "gflops", "best_shape", "physics_bound",
+                                 "time_ratio_4x", "sass")}},
+    ], "cli": cli_checks, "ops_rate": OPS_RATE["rate"],
+        "default_walk_balls_span2": b_default}
+    log(f"script: {time.perf_counter() - START:.1f} s")
     print(card, flush=True)
     print(json.dumps(record), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -138,7 +138,8 @@ def test_closest_hit_refuses_without_gpu_and_other_devices(monkeypatch):
 def test_trace_args_of_tree_scenes(monkeypatch):
     """The kernels' trace tables: a tree kind passes its node boxes, links,
     a leaf-slot row table (8 sphere or 16 quad columns) and the slots'
-    original indices, cached per scene."""
+    original indices, cached per scene; a scene without the unified tree
+    passes no node and null pointers for it."""
     from zig_weekend_raytracer_tpu_torch.ops import fused_render
 
     monkeypatch.setenv("ZWRT_LEAF_GROUPS", "2")
@@ -147,8 +148,8 @@ def test_trace_args_of_tree_scenes(monkeypatch):
     assert fused_render.trace_args(ct) is fused_render.trace_args(ct)
     n_sph, n_quad = ct.sph_tree_box.shape[0], ct.quad_tree_box.shape[0]
     tree = fused_render.TRACE_TREE
-    assert list(ints) == [tree, 100, n_sph, 2, tree, 70, n_quad, 2, 0]
-    assert (ptrs != 0).all()
+    assert list(ints) == [tree, 100, n_sph, 2, tree, 70, n_quad, 2, 0, 0, 2]
+    assert (ptrs[:8] != 0).all() and (ptrs[8:] == 0).all() and len(ptrs) == 14
     sph_tab, sph_box, sph_link, sph_oi, quad_tab, *_ = tables
     assert sph_tab.shape == (ct.sph_tree_attrs[0].shape[0], 8)
     assert quad_tab.shape == (ct.quad_tree_attrs[0].shape[0], 16)

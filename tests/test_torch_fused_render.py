@@ -69,7 +69,7 @@ def _compare(scene_pair, width, height, spp, depth, edge_lanes=()):
         max_depth=depth, has_dof=False, want_work=True,
     )
     calls = integrator.render_fused_reference.calls
-    launches = fused_render.render_fused.launches
+    launches = dict(fused_render.render_fused.launches)
     rad_t, work_t = fused_render.render_fused(
         st.compiled, *(torch.from_numpy(a) for a in (px, py, s0, s1)), 0,
         zt.dtypes.T_MIN, camera_consts=tcam.camera_consts(st.camera, width, height),
@@ -221,7 +221,7 @@ def test_cuda_refuses_without_gpu():
 def test_render_fused_refuses_other_devices(cornell):
     _, st = cornell
     lanes = [torch.zeros(4, dtype=torch.int32, device="meta") for _ in range(4)]
-    launches = fused_render.render_fused.launches
+    launches = dict(fused_render.render_fused.launches)
     with pytest.raises(ValueError, match="cuda or cpu"):
         fused_render.render_fused(
             st.compiled, *lanes, 0, zt.dtypes.T_MIN,
@@ -267,8 +267,10 @@ def test_kernel_tables_and_params(cornell):
     assert len(floats) == 23 + fused_render.MAX_LIGHTS * fused_render.LIGHT_FLOATS
     # brute spheres and quads: two row tables, no tree tables
     t_ints, t_ptrs, tables = fused_render.trace_args(cs)
-    assert list(t_ints) == [fused_render.TRACE_BRUTE, 1, 0, 0, fused_render.TRACE_BRUTE, 12, 0, 0, 0]
+    assert list(t_ints) == [fused_render.TRACE_BRUTE, 1, 0, 0, fused_render.TRACE_BRUTE, 12, 0, 0, 0,
+                            0, cs.uni_leaf_span]
     assert t_ptrs.dtype == np.uint64 and list(t_ptrs[[1, 2, 3, 5, 6, 7]]) == [0] * 6
+    assert list(t_ptrs[8:]) == [0] * 6  # no unified tree
     assert [tuple(t.shape) for t in tables] == [(1, 8), (12, 16)]
     tab = fused_render.sobol_table(torch.device("cpu"), 9)
     assert tab.shape == (5 * 52,) and tab.dtype == torch.int32

@@ -1,10 +1,11 @@
 """The PyTorch port imports without JAX and without the JAX package.
 
-A subprocess installs a meta-path hook that refuses ``jax``, ``jaxlib`` and
-``zig_weekend_raytracer_tpu`` before anything is imported, then imports
-``zig_weekend_raytracer_tpu_torch``, every module in it, and
-``chip_smoke``.  The modules of the tree-scene, image-texture and CLI
-slices are named, so that the walk cannot miss them."""
+A subprocess installs a meta-path hook that refuses ``jax``, ``jaxlib``,
+``zig_weekend_raytracer_tpu`` and the repository's JAX ``tools`` before
+anything is imported, then imports ``zig_weekend_raytracer_tpu_torch``,
+every module in it, and ``chip_smoke``.  The modules of the tree-scene,
+image-texture, CLI and FP32-peak slices are named, so that the walk cannot
+miss them."""
 
 import os
 import subprocess
@@ -17,7 +18,7 @@ _SCRIPT = textwrap.dedent(
     """
     import importlib, importlib.abc, pkgutil, sys
 
-    BLOCKED = ("jax", "jaxlib", "zig_weekend_raytracer_tpu")
+    BLOCKED = ("jax", "jaxlib", "zig_weekend_raytracer_tpu", "tools")
 
     class Block(importlib.abc.MetaPathFinder):
         def find_spec(self, name, path=None, target=None):
@@ -40,7 +41,8 @@ _SCRIPT = textwrap.dedent(
                  "io.image", "textures", "ops.bounce", "models.earth",
                  "models.shrek_quads", "models.rtw_final", "utils.workcount",
                  "utils.roofline", "cli", "utils.profiler", "utils.argparser",
-                 "utils.timer", "io.ppm", "models.emissive"):
+                 "utils.timer", "io.ppm", "models.emissive", "tools",
+                 "tools.fp32_peak"):
         assert pkg.__name__ + "." + name in names, name
     import chip_smoke
     leaked = [m for m in sys.modules if m.split(".")[0] in BLOCKED]

@@ -85,10 +85,23 @@ def test_tree_walk_counts():
     assert roofline.trace_ops(c) > c["slab_test"] * roofline.OPS["slab_test"]
 
 
-@pytest.mark.parametrize("ops,nbytes,by", [(67e12, 1.0, "operations"), (1.0, 3.35e12, "bytes")])
+@pytest.mark.parametrize("ops,nbytes,by", [(33.5e12, 1.0, "operations"), (1.0, 3.35e12, "bytes")])
 def test_bound(ops, nbytes, by):
+    """One second of the data sheet's lane-operation rate (67 TFLOP/s
+    counts an FMA as two FLOPs, so 33.5e12 lane-operations) or of its
+    bytes."""
     ms, got = roofline.bound_ms(ops, nbytes)
     assert got == by and np.isclose(ms, 1e3)
+    assert roofline.PEAK_FP32_OPS == 67e12 / 2
+
+
+def test_bound_with_a_measured_rate():
+    """A rate measured by tools/fp32_peak.py replaces the data sheet's, and
+    the bound says so."""
+    ms, by = roofline.bound_ms(30e12, 1.0, ops_rate=30e12)
+    assert by == "operations" and np.isclose(ms, 1e3)
+    assert roofline.peak_source(30e12) == "fp32_peak"
+    assert roofline.peak_source(None) == "data_sheet"
 
 
 def test_table_bytes_count_the_atlas():

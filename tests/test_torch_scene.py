@@ -2,9 +2,10 @@
 
 Both builds are host numpy, so every table must be equal exactly, field by
 field, the image atlas included; ``compiled_from_arrays`` of the JAX
-scene's tables must give the same scene.  Features of later slices (nested
-checkers, the unified tree) raise NotImplementedError.  Group trees are held to JAX's in test_torch_bvh.py
-and, for the image scenes, here."""
+scene's tables must give the same scene.  Nested checkers, a later slice,
+raise NotImplementedError; the unified tree (``ZWRT_UNI_TREE``) compiles and
+carries across.  Group trees are held to JAX's in test_torch_bvh.py and,
+for the image scenes, here."""
 
 import numpy as np
 import pytest
@@ -13,9 +14,14 @@ import torch
 import zig_weekend_raytracer_tpu as zj
 import zig_weekend_raytracer_tpu_torch as zt
 from test_torch_bvh import assert_same_trees
+from test_torch_bvh import random_scene
 from zig_weekend_raytracer_tpu_torch.scene import (
     ARRAY_FIELDS,
     STATIC_FIELDS,
+    TREE_FIELDS,
+    TREE_STATIC_FIELDS,
+    UNI_FIELDS,
+    UNI_STATIC_FIELDS,
     V3_FIELDS,
     SceneBuilder,
     compiled_from_arrays,
@@ -62,13 +68,26 @@ def test_compiled_from_arrays_of_jax_tables(cornell_j):
         assert all(c.dtype == torch.float32 for c in getattr(got, f)), f
 
 
-def test_compiled_from_arrays_refuses_later_slices(cornell_j):
+def test_compiled_from_arrays_refuses_later_slices(cornell_j, monkeypatch):
+    """Nested checkers are refused; a JAX scene with the unified tree
+    carries across with its tree."""
     cs = cornell_j.compiled
     fields = {f: np.asarray(getattr(cs, f)) for f in ARRAY_FIELDS}
     static = {f: getattr(cs, f) for f in STATIC_FIELDS}
-    for flag in ("has_uni_tree", "has_nested_checker"):
-        with pytest.raises(NotImplementedError, match="slice"):
-            compiled_from_arrays(fields, {**static, flag: True}, "cpu")
+    with pytest.raises(NotImplementedError, match="slice"):
+        compiled_from_arrays(fields, {**static, "has_nested_checker": True}, "cpu")
+    monkeypatch.setenv("ZWRT_UNI_TREE", "1")
+    cu = random_scene(zj, 11, 70, 70)[0]
+    assert cu.has_uni_tree
+    carried = compiled_from_arrays(
+        {**{f: np.asarray(getattr(cu, f)) for f in ARRAY_FIELDS},
+         **{f: getattr(cu, f) for f in TREE_FIELDS + UNI_FIELDS}},
+        {f: getattr(cu, f) for f in STATIC_FIELDS + TREE_STATIC_FIELDS + UNI_STATIC_FIELDS},
+        "cpu")
+    assert carried.has_uni_tree and carried.uni_leaf_span == cu.uni_leaf_span
+    np.testing.assert_array_equal(carried.uni_tree_link.numpy(), np.asarray(cu.uni_tree_link))
+    for a_t, a_j in zip(carried.uni_quad_attrs, cu.uni_quad_attrs):
+        np.testing.assert_array_equal(a_t.numpy(), np.asarray(a_j))
     # image emitters are this slice's: the flag is carried
     assert compiled_from_arrays(fields, {**static, "has_emissive_image": True},
                                 "cpu").has_emissive_image
@@ -125,8 +144,8 @@ def test_default_device_is_the_card():
 def test_builder_refuses_images_and_trees(monkeypatch):
     """Images build into the atlas and image emitters compile, while
     nested checkers raise (a later slice); use_bvh builds group trees from
-    TREE_MIN_PRIMS primitives of a kind on, and the unified tree (K4)
-    raises."""
+    TREE_MIN_PRIMS primitives of a kind on, and with ZWRT_UNI_TREE the
+    unified tree as well, once both kinds have trees."""
     for nested in (False, True):
         b = SceneBuilder()
         img = b.image_texture(np.zeros((2, 2, 3), np.uint8))
@@ -160,8 +179,13 @@ def test_builder_refuses_images_and_trees(monkeypatch):
     for i in range(40):
         b.add(b.quad((i, 6, 0), (0.5, 0, 0), (0, 0.5, 0), m))
     monkeypatch.setenv("ZWRT_UNI_TREE", "1")
-    with pytest.raises(NotImplementedError, match="K4"):
-        b.compile(device="cpu")
+    cs = b.compile(device="cpu").compiled
+    assert cs.has_sph_tree and cs.has_quad_tree and cs.has_uni_tree
+    n = cs.uni_tree_box.shape[0]
+    assert n > 1 and cs.uni_tree_link.shape == (n, 3)
+    kinds = cs.uni_tree_link[:, 2]
+    assert set(kinds.tolist()) == {-1, 0, 1}
+    assert ((kinds == -1) == (cs.uni_tree_link[:, 1] == -1)).all()
 
 
 def test_checker_moving_sphere_scene_equal_jax():

@@ -7,10 +7,14 @@ io/, utils/, models/) and never imports it or JAX.  Renders go through
 hand-written CUDA kernels: ``csrc/fused_render.cu`` (the whole render of
 a scene without images, or of an image scene with a texture LUT),
 ``csrc/bounce.cu`` (the bounce of image-texture scenes) and
-``csrc/closest_hit.cu`` (the first-hit probe of tree scenes); scenes live
+``csrc/closest_hit.cu`` (the first-hit probe of tree scenes); the render
+and bounce kernels take the tree walk that ``ZWRT_TRAV`` (queue, rowqueue,
+spec) or a scene compiled with ``ZWRT_UNI_TREE=1`` asks for.  Scenes live
 on the card unless built with ``device="cpu"``, where the same entry
 points run the kernels' plain PyTorch versions.  The command line is
-``python -m zig_weekend_raytracer_tpu_torch.cli`` (``cli.py``).
+``python -m zig_weekend_raytracer_tpu_torch.cli`` (``cli.py``);
+``python -m zig_weekend_raytracer_tpu_torch.tools.fp32_peak`` measures the
+card's FP32 peak (``csrc/fp32_peak.cu``), the roofline's rate.
 
 Typical usage:
 

@@ -33,6 +33,11 @@
 // atlas events and chained up to 12 of them per lane for an XLA fold.  Here
 // there are no events, no chain and no suspend, and the driver loop's body
 // runs once per band.  No shared-memory staging of texels or leaves yet.
+//
+// It also replaces the TPU traversal variants that K2 hosts (kernel K4:
+// _tree_pass_queue, _tree_pass_spec, _uni_tree_pass), as one instantiation
+// per walk (zwrt_device.cuh:Walk) and mode, chosen at launch; WALK is a
+// template parameter so that the default walk's code stays as it was.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -44,7 +49,7 @@ namespace zwrt {
 // State rows, as ops/bounce.py packs them: floats ox oy oz dx dy dz thx
 // thy thz rx ry rz time; ints ray_id alive, then in the regenerating mode
 // sample bounce work.
-template <bool REGEN>
+template <bool REGEN, int WALK>
 __global__ void __launch_bounds__(128) bounce_kernel(
     const __grid_constant__ Params p, const __grid_constant__ TraceScene scene,
     const __grid_constant__ Images images, const float* __restrict__ shade_rows,
@@ -66,16 +71,20 @@ __global__ void __launch_bounds__(128) bounce_kernel(
   if (REGEN) {
     int sample = st[2 * n], work = st[4 * n];
     s.depth = st[3 * n];
-    drain<true>(p, scene, shade_rows, &images, sobol, lane_px[i], lane_py[i], lane_limit[i], s,
-                alive, sample, work);
+    drain<true, WALK>(p, scene, shade_rows, &images, sobol, lane_px[i], lane_py[i],
+                      lane_limit[i], s, alive, sample, work);
     f[12 * n] = s.time;
     st[0] = (int)s.rid;
     st[2 * n] = sample;
     st[3 * n] = s.depth;
     st[4 * n] = work;
-  } else if (alive) {
-    s.depth = depth;
-    alive = bounce_step<true>(p, scene, shade_rows, &images, s);
+  } else {
+    // the live lanes of this warp, for the kWalkRowQueue trace
+    const unsigned group = WALK == kWalkRowQueue ? __ballot_sync(kAllLanes, alive) : kAllLanes;
+    if (alive) {
+      s.depth = depth;
+      alive = bounce_step<true, WALK>(p, scene, shade_rows, &images, s, group);
+    }
   }
   f[0] = s.o.x;
   f[n] = s.o.y;
@@ -99,17 +108,18 @@ __global__ void __launch_bounds__(128) bounce_kernel(
 // order ops/fused_render.py packs them; ``image_ints`` and ``image_texels``
 // are the image table, the atlas or the texture LUT (ops/fused_render.py:
 // image_args: [n_images, then w, h, base, stride per image]).  ``fstate``
-// (13, n) and ``istate``
-// (2 or 5, n) are updated in place; ``px``, ``py`` and ``limit`` are read
-// only in the regenerating mode (``regen`` != 0), ``depth`` only in the
-// one-bounce mode.  Launches on ``stream`` and returns the launch's
-// cudaError_t.
+// (13, n) and ``istate`` (2 or 5, n) are updated in place; ``px``, ``py``
+// and ``limit`` are read only in the regenerating mode (``regen`` != 0),
+// ``depth`` only in the one-bounce mode.  ``walk`` picks the tree walk,
+// ``q_cap`` and ``queue`` (``queue_len`` ints) its leaf queue
+// (zwrt_device.cuh:set_walk).  Launches on ``stream`` and returns the
+// launch's cudaError_t.
 extern "C" int zwrt_bounce(const int* iparams, const float* fparams, const int* trace_ints,
                            const void* const* trace_ptrs, const int* image_ints,
                            const int* image_texels, const float* shade_rows,
                            const uint32_t* sobol, float* fstate, int* istate, const int* px,
-                           const int* py, const int* limit, int regen, int depth, int n,
-                           void* stream) {
+                           const int* py, const int* limit, int regen, int depth, int walk,
+                           int q_cap, int* queue, int queue_len, int n, void* stream) {
   using namespace zwrt;
   if (n <= 0) return 0;
   Images images;
@@ -118,13 +128,18 @@ extern "C" int zwrt_bounce(const int* iparams, const float* fparams, const int* 
   TraceScene scene = read_trace_scene(trace_ints, trace_ptrs);
   const int threads = 128;
   const int blocks = (n + threads - 1) / threads;
+  size_t smem = 0;
+  int err = set_walk(&scene, walk, q_cap, queue, queue_len, blocks, threads, &smem);
+  if (err != 0) return err;
   cudaStream_t s = (cudaStream_t)stream;
-  if (regen) {
-    bounce_kernel<true><<<blocks, threads, 0, s>>>(p, scene, images, shade_rows, sobol, fstate,
-                                                   istate, px, py, limit, depth, n);
-  } else {
-    bounce_kernel<false><<<blocks, threads, 0, s>>>(p, scene, images, shade_rows, sobol, fstate,
-                                                    istate, px, py, limit, depth, n);
-  }
-  return (int)cudaGetLastError();
+  return dispatch_walk(walk, [&](auto w) {
+    constexpr int W = decltype(w)::value;
+    auto kernel = bounce_kernel<false, W>;
+    if (regen) kernel = bounce_kernel<true, W>;
+    int e = allow_smem(kernel, smem);
+    if (e != 0) return e;
+    kernel<<<blocks, threads, smem, s>>>(p, scene, images, shade_rows, sobol, fstate, istate, px,
+                                         py, limit, depth, n);
+    return (int)cudaGetLastError();
+  });
 }

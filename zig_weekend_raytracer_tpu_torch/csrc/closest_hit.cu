@@ -43,7 +43,7 @@ __global__ void __launch_bounds__(128) closest_hit_kernel(
   if (active == nullptr || active[i] != 0) {
     V3 o = mk(rays[i], rays[n + i], rays[2 * n + i]);
     V3 d = mk(rays[3 * n + i], rays[4 * n + i], rays[5 * n + i]);
-    trace_closest(scene, o, d, rays[6 * n + i], t_min, t_start, &best, &kind, &idx);
+    trace_closest<kWalkCond>(scene, o, d, rays[6 * n + i], t_min, t_start, &best, &kind, &idx);
   }
   out_t[i] = kind < 0 ? INFINITY : best;
   out_kind[i] = kind;

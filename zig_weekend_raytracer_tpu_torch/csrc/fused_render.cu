@@ -44,6 +44,12 @@
 // scans, a leaf they all visit: broadcast loads); the shade record is one
 // indexed row read.  No shared-memory staging of leaves, packets,
 // persistent blocks or work queues yet.
+//
+// It also replaces the TPU traversal variants that K1 hosts (kernel K4:
+// _tree_pass_queue, _tree_pass_spec, _uni_tree_pass), as one instantiation
+// per walk (zwrt_device.cuh:Walk), chosen at launch: WALK is a template
+// parameter, not a runtime branch, so the default walk's code (64
+// registers under __launch_bounds__(128)) does not carry the others'.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -52,7 +58,7 @@
 
 namespace zwrt {
 
-template <bool IMAGES>
+template <bool IMAGES, int WALK>
 __global__ void __launch_bounds__(128) fused_render_kernel(
     const __grid_constant__ Params p, const int* __restrict__ lane_px,
     const int* __restrict__ lane_py, const int* __restrict__ lane_s0,
@@ -72,8 +78,8 @@ __global__ void __launch_bounds__(128) fused_render_kernel(
   s.depth = 0;
   bool alive = false;
   int sample = lane_s0[i] - p.stride, work = 0;
-  drain<IMAGES>(p, scene, shade_rows, &images, sobol, lane_px[i], lane_py[i], lane_s1[i], s,
-                alive, sample, work);
+  drain<IMAGES, WALK>(p, scene, shade_rows, &images, sobol, lane_px[i], lane_py[i], lane_s1[i],
+                      s, alive, sample, work);
   out_rad[i] = s.rad.x;
   out_rad[n + i] = s.rad.y;
   out_rad[2 * n + i] = s.rad.z;
@@ -86,28 +92,37 @@ __global__ void __launch_bounds__(128) fused_render_kernel(
 // ``fparams``, ``trace_ints`` and ``trace_ptrs`` are host arrays in the
 // order ops/fused_render.py packs them; ``image_ints`` (ops/fused_render.py:
 // image_args) and ``image_texels`` are the texture LUT of an image scene,
-// or both null for a scene without images.  Launches on ``stream`` and
-// returns the launch's cudaError_t.
+// or both null for a scene without images.  ``walk`` picks the tree walk,
+// ``q_cap`` and ``queue`` (``queue_len`` ints) its leaf queue
+// (zwrt_device.cuh:set_walk).  Launches on ``stream`` and returns the
+// launch's cudaError_t.
 extern "C" int zwrt_fused_render(
     const int* iparams, const float* fparams, const int* trace_ints,
     const void* const* trace_ptrs, const int* image_ints, const int* image_texels,
     const int* px, const int* py, const int* s0, const int* s1, const float* shade_rows,
-    const uint32_t* sobol, float* out_rad, int* out_work, int n, void* stream) {
+    const uint32_t* sobol, float* out_rad, int* out_work, int walk, int q_cap, int* queue,
+    int queue_len, int n, void* stream) {
   using namespace zwrt;
   if (n <= 0) return 0;
   Params p = read_params(iparams, fparams);
   const int threads = 128;
   const int blocks = (n + threads - 1) / threads;
   TraceScene scene = read_trace_scene(trace_ints, trace_ptrs);
+  size_t smem = 0;
+  int err = set_walk(&scene, walk, q_cap, queue, queue_len, blocks, threads, &smem);
+  if (err != 0) return err;
   cudaStream_t st = (cudaStream_t)stream;
-  if (image_ints) {
-    Images images;
-    if (!read_images(image_ints, image_texels, &images)) return (int)cudaErrorInvalidValue;
-    fused_render_kernel<true><<<blocks, threads, 0, st>>>(
-        p, px, py, s0, s1, scene, images, shade_rows, sobol, out_rad, out_work, n);
-  } else {
-    fused_render_kernel<false><<<blocks, threads, 0, st>>>(
-        p, px, py, s0, s1, scene, Images{}, shade_rows, sobol, out_rad, out_work, n);
-  }
-  return (int)cudaGetLastError();
+  Images images = {};
+  if (image_ints && !read_images(image_ints, image_texels, &images))
+    return (int)cudaErrorInvalidValue;
+  return dispatch_walk(walk, [&](auto w) {
+    constexpr int W = decltype(w)::value;
+    auto kernel = fused_render_kernel<false, W>;
+    if (image_ints) kernel = fused_render_kernel<true, W>;
+    int e = allow_smem(kernel, smem);
+    if (e != 0) return e;
+    kernel<<<blocks, threads, smem, st>>>(p, px, py, s0, s1, scene, images, shade_rows, sobol,
+                                          out_rad, out_work, n);
+    return (int)cudaGetLastError();
+  });
 }

@@ -4,7 +4,10 @@
 // slab test, leaf sweep, skip-link tree walk), shade-record reads, the five
 // materials, the light-list PDF, sphere and quad UVs with the image texel
 // fetch (from the atlas or the texture LUT), and the bounce step and
-// regenerating drain that fused_render.cu and bounce.cu share.  All three kernels trace through trace_closest.
+// regenerating drain that fused_render.cu and bounce.cu share.  All three
+// kernels trace through trace_closest, a template on the tree walk (Walk):
+// the default per-thread walk, the leaf queue per thread, the leaf queue
+// per warp, the speculative two-successor walk, or the unified tree.
 //
 // Every function follows the plain PyTorch version in the package
 // (sampling/, geometry/, render/, ops/) operation for operation, so that a
@@ -15,8 +18,11 @@
 // JAX package's.
 #pragma once
 
+#include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace zwrt {
 
@@ -69,6 +75,10 @@ constexpr int kBigIdx = 1 << 30;
 constexpr float kAabbMaxMult = 1.00000024f;
 constexpr int kGroup = 8;  // slots per leaf group (the JAX kernels' sublanes)
 enum TraceMode { kTraceNone = 0, kTraceBrute = 1, kTraceTree = 2 };
+// Tree walks (ops/trace.py:WALKS, in its order).
+enum Walk { kWalkCond = 0, kWalkQueue = 1, kWalkRowQueue = 2, kWalkSpec = 3, kWalkUni = 4 };
+constexpr int kWarp = 32;
+constexpr unsigned kAllLanes = 0xffffffffu;
 
 constexpr float kPi = 3.141592653589793f;
 constexpr float kTwoPi = 6.283185307179586f;
@@ -352,9 +362,21 @@ struct KindTables {
   const int* oi;
 };
 
+// ``usph`` and ``uquad`` are the unified tree's leaf tables (tab, oi and
+// span read), ``ubox`` (u_nodes, 6) and ``ulink`` (u_nodes, 3) [miss
+// link, first leaf group or -1, leaf kind] its nodes.  ``queue`` is the
+// per-thread leaf queue of kWalkQueue, lane-major: entry j of thread t at
+// queue[j * q_stride + t], q_stride the launch's thread count;
+// kWalkRowQueue keeps q_cap entries per warp in dynamic shared memory.
 struct TraceScene {
   KindTables sph, quad;
   int has_moving;
+  KindTables usph, uquad;
+  int u_nodes;
+  const float* ubox;
+  const int* ulink;
+  int* queue;
+  int q_stride, q_cap;
 };
 
 // Robust slab test (math/aabb.py:aabb_hit) against the running best t.
@@ -462,11 +484,130 @@ __device__ __forceinline__ void tree_walk(const KindTables& k, const Ray& ray, b
   }
 }
 
+// kWalkQueue (pallas_bounce.py:_tree_pass_queue, per_row=False): walk with
+// the stage's seed t and only (node, cursor) live, push each hit leaf to
+// this thread's queue in preorder, then sweep the queue with the fresh t.
+// A tree of n nodes has at most (n + 1) / 2 leaves, which the wrapper's
+// capacity covers, so a push never overflows.
+template <int KIND>
+__device__ __forceinline__ void tree_walk_queue(const KindTables& k, const TraceScene& s,
+                                                const Ray& ray, bool moving, float* best,
+                                                int* kind, int* idx) {
+  int* q = s.queue + blockIdx.x * blockDim.x + threadIdx.x;
+  const int stride = s.q_stride;
+  const float t_seed = *best;
+  int node = 0, sp = 0;
+  while (node < k.n_nodes) {
+    bool hit = slab_hit(k.box + (size_t)node * 6, ray.o, ray.inv_d, ray.t_min, t_seed);
+    int miss = k.link[2 * node], leaf = k.link[2 * node + 1];
+    if (hit && leaf >= 0) q[(sp++) * stride] = leaf;
+    node = (hit && leaf < 0) ? node + 1 : miss;
+  }
+  for (int j = 0; j < sp; ++j) leaf_sweep<KIND>(k, q[j * stride], ray, moving, best, kind, idx);
+}
+
+__device__ __forceinline__ int2* warp_queues() {
+  extern __shared__ int2 zwrt_warp_queue_smem[];
+  return zwrt_warp_queue_smem;
+}
+
+// kWalkRowQueue (_tree_pass_queue, per_row=True): the lanes of ``group``
+// walk one node pointer, descending when any of them hits with its seed t.
+// ``group`` names the lanes of this warp that trace in this step, and the
+// caller takes it with a ballot that all of them reach (drain's loop head,
+// the one-bounce mode's entry): __activemask() would name only the lanes
+// that happen to run converged, which independent thread scheduling does
+// not promise, and two such subsets would share the warp's queue.  Each
+// __ballot_sync(group, ...) makes the group meet.  A hit leaf goes to the
+// warp's queue in shared memory with the ballot of the lanes that hit it;
+// every lane writes the same entry, so each reads back its own write.  Each
+// lane then sweeps, in queue order, only the leaves its bit marks, and the
+// group meets before the queue is reused.
+template <int KIND>
+__device__ __forceinline__ void tree_walk_warpqueue(const KindTables& k, const TraceScene& s,
+                                                    const Ray& ray, bool moving, unsigned group,
+                                                    float* best, int* kind, int* idx) {
+  const unsigned me = 1u << (threadIdx.x % kWarp);
+  int2* q = warp_queues() + (threadIdx.x / kWarp) * s.q_cap;
+  const float t_seed = *best;
+  int node = 0, sp = 0;
+  while (node < k.n_nodes) {
+    bool hit = slab_hit(k.box + (size_t)node * 6, ray.o, ray.inv_d, ray.t_min, t_seed);
+    unsigned bits = __ballot_sync(group, hit);
+    int miss = k.link[2 * node], leaf = k.link[2 * node + 1];
+    if (bits != 0u && leaf >= 0) q[sp++] = make_int2(leaf, (int)bits);
+    node = (bits != 0u && leaf < 0) ? node + 1 : miss;
+  }
+  for (int j = 0; j < sp; ++j) {
+    int2 e = q[j];
+    if ((unsigned)e.y & me) leaf_sweep<KIND>(k, e.x, ray, moving, best, kind, idx);
+  }
+  __syncwarp(group);
+}
+
+// kWalkSpec (_tree_pass_spec): the default walk, but each step loads and
+// slab-tests both successors (node + 1 and the miss link, clamped for the
+// load only) against the t from before this step's leaf sweep, so the box
+// loads are in flight while the sweep runs.  A stale t only admits more
+// boxes; the sweep always uses the fresh t.
+template <int KIND>
+__device__ __forceinline__ void tree_walk_spec(const KindTables& k, const Ray& ray, bool moving,
+                                               float* best, int* kind, int* idx) {
+  const int last = k.n_nodes - 1;
+  bool hit = slab_hit(k.box, ray.o, ray.inv_d, ray.t_min, *best);
+  int node = 0;
+  while (node < k.n_nodes) {
+    int miss = k.link[2 * node], leaf = k.link[2 * node + 1];
+    const float t_pre = *best;
+    const int desc_node = node + 1 < last ? node + 1 : last;
+    const int miss_node = miss < last ? miss : last;
+    bool hit_desc = slab_hit(k.box + (size_t)desc_node * 6, ray.o, ray.inv_d, ray.t_min, t_pre);
+    bool hit_miss = slab_hit(k.box + (size_t)miss_node * 6, ray.o, ray.inv_d, ray.t_min, t_pre);
+    if (hit && leaf >= 0) leaf_sweep<KIND>(k, leaf, ray, moving, best, kind, idx);
+    bool desc = hit && leaf < 0;
+    node = desc ? node + 1 : miss;
+    hit = desc ? hit_desc : hit_miss;
+  }
+}
+
+// kWalkUni (_uni_tree_pass): one default walk over the unified tree, each
+// kind-pure leaf swept by its kind.
+__device__ __forceinline__ void uni_tree_walk(const TraceScene& s, const Ray& ray, bool moving,
+                                              float* best, int* kind, int* idx) {
+  int node = 0;
+  while (node < s.u_nodes) {
+    bool hit = slab_hit(s.ubox + (size_t)node * 6, ray.o, ray.inv_d, ray.t_min, *best);
+    int miss = s.ulink[3 * node], leaf = s.ulink[3 * node + 1];
+    if (hit && leaf >= 0) {
+      if (s.ulink[3 * node + 2] == kSphere) leaf_sweep<kSphere>(s.usph, leaf, ray, moving, best, kind, idx);
+      else leaf_sweep<kQuad>(s.uquad, leaf, ray, false, best, kind, idx);
+    }
+    node = (hit && leaf < 0) ? node + 1 : miss;
+  }
+}
+
+// One kind's tree stage in the walk WALK (not kWalkUni); ``group`` as
+// tree_walk_warpqueue takes it.
+template <int KIND, int WALK>
+__device__ __forceinline__ void tree_stage(const KindTables& k, const TraceScene& s,
+                                           const Ray& ray, bool moving, unsigned group,
+                                           float* best, int* kind, int* idx) {
+  if (WALK == kWalkQueue) tree_walk_queue<KIND>(k, s, ray, moving, best, kind, idx);
+  else if (WALK == kWalkRowQueue)
+    tree_walk_warpqueue<KIND>(k, s, ray, moving, group, best, kind, idx);
+  else if (WALK == kWalkSpec) tree_walk_spec<KIND>(k, ray, moving, best, kind, idx);
+  else tree_walk<KIND>(k, ray, moving, best, kind, idx);
+}
+
 // The closest hit of one ray below ``t_start``; kind -1 on a miss, with
-// *best then still t_start.
+// *best then still t_start.  WALK picks the tree walk at compile time;
+// kWalkRowQueue reads ``group``, the lanes of the warp that call it
+// together (tree_walk_warpqueue).
+template <int WALK>
 __device__ __forceinline__ void trace_closest(const TraceScene& s, V3 o, V3 d, float time,
                                               float t_min, float t_start, float* best,
-                                              int* kind, int* idx) {
+                                              int* kind, int* idx,
+                                              unsigned group = kAllLanes) {
   Ray ray;
   ray.o = o;
   ray.d = d;
@@ -479,17 +620,25 @@ __device__ __forceinline__ void trace_closest(const TraceScene& s, V3 o, V3 d, f
   *kind = -1;
   *idx = 0;
   const bool moving = s.has_moving != 0;
+  if (WALK == kWalkUni) {
+    uni_tree_walk(s, ray, moving, best, kind, idx);
+    return;
+  }
   if (s.sph.mode == kTraceBrute) brute_stage<kSphere>(s.sph, ray, moving, best, kind, idx);
-  else if (s.sph.mode == kTraceTree) tree_walk<kSphere>(s.sph, ray, moving, best, kind, idx);
+  else if (s.sph.mode == kTraceTree)
+    tree_stage<kSphere, WALK>(s.sph, s, ray, moving, group, best, kind, idx);
   if (s.quad.mode == kTraceBrute) brute_stage<kQuad>(s.quad, ray, false, best, kind, idx);
-  else if (s.quad.mode == kTraceTree) tree_walk<kQuad>(s.quad, ray, false, best, kind, idx);
+  else if (s.quad.mode == kTraceTree)
+    tree_stage<kQuad, WALK>(s.quad, s, ray, false, group, best, kind, idx);
 }
 
 // Host side: the TraceScene from the ints and pointers the wrappers pack
 // (ops/fused_render.py:trace_args): per kind mode, n_prims, n_nodes,
-// span, then has_moving; per kind tab, box, link, oi.
+// span, then has_moving, the unified tree's n_nodes (0 without one) and
+// span; per kind tab, box, link, oi, then the unified tree's box, link,
+// sphere tab and oi, quad tab and oi.  No queue yet (set_walk).
 inline TraceScene read_trace_scene(const int* ints, const void* const* ptrs) {
-  TraceScene s;
+  TraceScene s = {};
   KindTables* kinds[2] = {&s.sph, &s.quad};
   for (int j = 0; j < 2; ++j) {
     KindTables* k = kinds[j];
@@ -503,7 +652,59 @@ inline TraceScene read_trace_scene(const int* ints, const void* const* ptrs) {
     k->oi = static_cast<const int*>(ptrs[4 * j + 3]);
   }
   s.has_moving = ints[8];
+  s.u_nodes = ints[9];
+  s.usph.span = s.uquad.span = ints[10];
+  s.ubox = static_cast<const float*>(ptrs[8]);
+  s.ulink = static_cast<const int*>(ptrs[9]);
+  s.usph.tab = static_cast<const float*>(ptrs[10]);
+  s.usph.oi = static_cast<const int*>(ptrs[11]);
+  s.uquad.tab = static_cast<const float*>(ptrs[12]);
+  s.uquad.oi = static_cast<const int*>(ptrs[13]);
   return s;
+}
+
+// Host side: checks a launch's walk against the scene and sets up its leaf
+// queue: ``queue`` holds ``queue_len`` ints, ``q_cap`` entries per thread
+// (kWalkQueue) or per warp (kWalkRowQueue, whose dynamic shared memory per
+// block is returned in *smem).  Returns a cudaError_t: invalid for an
+// unknown walk, a uni walk without the unified tree, or a queue too short.
+inline int set_walk(TraceScene* s, int walk, int q_cap, int* queue, int queue_len, int blocks,
+                    int threads, size_t* smem) {
+  s->queue = queue;
+  s->q_stride = blocks * threads;
+  s->q_cap = q_cap;
+  *smem = 0;
+  if (walk < kWalkCond || walk > kWalkUni || q_cap < 0) return (int)cudaErrorInvalidValue;
+  if (walk == kWalkUni && s->u_nodes < 1) return (int)cudaErrorInvalidValue;
+  if (walk == kWalkQueue && q_cap > 0 &&
+      (queue == nullptr || (long long)queue_len < (long long)q_cap * s->q_stride))
+    return (int)cudaErrorInvalidValue;
+  if (walk == kWalkRowQueue) *smem = (size_t)(threads / kWarp) * q_cap * sizeof(int2);
+  return 0;
+}
+
+// Host side: f(std::integral_constant<int, W>{}) for the walk W that
+// ``walk`` names, so that each launcher picks its kernel's instantiation in
+// one place; cudaErrorInvalidValue for an unknown walk.
+template <typename F>
+inline int dispatch_walk(int walk, F f) {
+  switch (walk) {
+    case kWalkCond: return f(std::integral_constant<int, kWalkCond>{});
+    case kWalkQueue: return f(std::integral_constant<int, kWalkQueue>{});
+    case kWalkRowQueue: return f(std::integral_constant<int, kWalkRowQueue>{});
+    case kWalkSpec: return f(std::integral_constant<int, kWalkSpec>{});
+    case kWalkUni: return f(std::integral_constant<int, kWalkUni>{});
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+// Host side: lets ``kernel`` take ``smem`` bytes of dynamic shared memory
+// (past 48 KB a kernel must ask for it); returns a cudaError_t.
+template <typename K>
+inline int allow_smem(K* kernel, size_t smem) {
+  if (smem <= 48 * 1024) return 0;
+  return (int)cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                   (int)smem);
 }
 
 // ---------------------------------------------------------------------------
@@ -649,19 +850,20 @@ struct Path {
 
 // One bounce of a live path: closest hit, shade record, texture, the
 // material's scatter.  Returns whether the path goes on (before the depth
-// cutoff).  IMAGES compiles the image fetch: the texel of an image texture
-// (or a checker's image child) replaces the record colour at the hit,
-// before emission and scatter, as the XLA integrator and the JAX
-// whole-render kernel's LUT fetch order it.  Without IMAGES ``images`` is
-// never read.
-template <bool IMAGES>
+// cutoff).  ``group`` is the warp's lanes that bounce together, read by the
+// kWalkRowQueue trace only.  IMAGES compiles the image fetch: the texel of
+// an image texture (or a checker's image child) replaces the record colour
+// at the hit, before emission and scatter, as the XLA integrator and the
+// JAX whole-render kernel's LUT fetch order it.  Without IMAGES ``images``
+// is never read.
+template <bool IMAGES, int WALK>
 __device__ __forceinline__ bool bounce_step(const Params& p, const TraceScene& scene,
                                             const float* __restrict__ shade_rows,
-                                            const Images* images, Path& s) {
-  // ---- closest hit: sphere stage, then quad stage ----
+                                            const Images* images, Path& s, unsigned group) {
+  // ---- closest hit: sphere stage, then quad stage (or the unified walk) ----
   float best;
   int kind, idx;
-  trace_closest(scene, s.o, s.d, s.time, p.t_min, kBig, &best, &kind, &idx);
+  trace_closest<WALK>(scene, s.o, s.d, s.time, p.t_min, kBig, &best, &kind, &idx, group);
   if (kind < 0) {
     // ---- miss: background, the path ends ----
     s.rad = s.rad + s.thr * mk(p.bg[0], p.bg[1], p.bg[2]);
@@ -781,14 +983,20 @@ __device__ __forceinline__ bool bounce_step(const Params& p, const TraceScene& s
 // Runs one lane until its sample window is used up: a dead lane respawns
 // its pixel's next sample (sample += stride, while below ``limit``), every
 // pass counts one unit of work and runs one bounce, and a path ends after
-// p.max_depth bounces.
-template <bool IMAGES>
+// p.max_depth bounces.  Under kWalkRowQueue a ballot at the loop head, which
+// every lane of the warp still in the loop reaches, names the lanes that
+// bounce in this pass (the group of tree_walk_warpqueue).
+template <bool IMAGES, int WALK>
 __device__ __forceinline__ void drain(const Params& p, const TraceScene& scene,
                                       const float* __restrict__ shade_rows, const Images* images,
                                       const uint32_t* __restrict__ sobol, int px, int py,
                                       int limit, Path& s, bool& alive, int& sample, int& work) {
   const int stride = p.stride;
-  while (alive || sample + stride < limit) {
+  unsigned group = kAllLanes;
+  for (;;) {
+    const bool more = alive || sample + stride < limit;
+    if (WALK == kWalkRowQueue) group = __ballot_sync(group, more);
+    if (!more) break;
     if (!alive) {
       sample += stride;
       s.rid = ray_id_of(p, sample, px, py);
@@ -798,7 +1006,7 @@ __device__ __forceinline__ void drain(const Params& p, const TraceScene& scene,
       alive = true;
     }
     work += 1;
-    bool survives = bounce_step<IMAGES>(p, scene, shade_rows, images, s);
+    bool survives = bounce_step<IMAGES, WALK>(p, scene, shade_rows, images, s, group);
     s.depth += 1;
     alive = survives && s.depth < p.max_depth;
   }

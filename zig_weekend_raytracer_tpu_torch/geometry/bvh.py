@@ -7,6 +7,8 @@ Each leaf holds ``leaf_groups`` groups of 8 primitive slots (padded with
 through to node i + 1, a miss (or a finished leaf) jumps to the node's miss
 link.  A ray then walks the tree with one node pointer and no stack, which
 is how each CUDA thread walks it (``csrc/zwrt_device.cuh:tree_walk``).
+``build_group_tree_unified`` builds one such tree over both kinds, with
+kind-pure leaves (the ``ZWRT_UNI_TREE`` walk, ``uni_tree_walk``).
 
 The JAX package's binary BVH (``build_bvh``, the ``bvh_*`` fields) serves
 only its XLA path and is not carried into the port (ROADMAP.md).
@@ -74,6 +76,30 @@ def _prim_bboxes(sph_center, sph_radius, sph_move, quad_start, quad_u, quad_v):
     return np.array(kinds, _I), np.array(idxs, _I), np.stack(bmins), np.stack(bmaxs)
 
 
+def _emit_preorder(root, node_box, node_link, leaf):
+    """Write ``root``'s nodes in DFS preorder: boxes, miss links, and for
+    each node ``leaf(i, node)``, which fills the rest of its link row."""
+    cursor = [0]
+
+    def emit(node: "_Tree", miss: int) -> None:
+        i = cursor[0]
+        cursor[0] += 1
+        node_box[i, 0:3] = node.bmin
+        node_box[i, 3:6] = node.bmax
+        node_link[i, 0] = miss
+        leaf(i, node)
+        if node.prims is None:
+            emit(node.left, miss=i + 1 + node.left.size)
+            emit(node.right, miss=miss)
+
+    old_limit = sys.getrecursionlimit()
+    sys.setrecursionlimit(max(old_limit, 4 * root.size + 64))
+    try:
+        emit(root, miss=root.size)
+    finally:
+        sys.setrecursionlimit(old_limit)
+
+
 class _Tree:
     __slots__ = ("bmin", "bmax", "left", "right", "prims", "size")
 
@@ -118,36 +144,85 @@ def build_group_tree(
 
     root = build(np.arange(n))
 
-    n_nodes = root.size
-    node_box = np.zeros((n_nodes, 6), _F)
-    node_link = np.zeros((n_nodes, 2), _I)
+    node_box = np.zeros((root.size, 6), _F)
+    node_link = np.zeros((root.size, 2), _I)
     slots: List[int] = []
-    cursor = [0]
 
-    def emit(node: _Tree, miss: int) -> None:
-        i = cursor[0]
-        cursor[0] += 1
-        node_box[i, 0:3] = node.bmin
-        node_box[i, 3:6] = node.bmax
-        node_link[i, 0] = miss
-        if node.prims is not None:
-            node_link[i, 1] = len(slots) // group_size
-            slots.extend(int(p) for p in node.prims)
-            slots.extend([-1] * (leaf_span - len(node.prims)))
-        else:
+    def leaf(i, node):
+        if node.prims is None:
             node_link[i, 1] = -1
-            emit(node.left, miss=i + 1 + node.left.size)
-            emit(node.right, miss=miss)
+            return
+        node_link[i, 1] = len(slots) // group_size
+        slots.extend(int(p) for p in node.prims)
+        slots.extend([-1] * (leaf_span - len(node.prims)))
 
-    old_limit = sys.getrecursionlimit()
-    sys.setrecursionlimit(max(old_limit, 4 * n_nodes + 64))
-    try:
-        emit(root, miss=n_nodes)
-    finally:
-        sys.setrecursionlimit(old_limit)
-
+    _emit_preorder(root, node_box, node_link, leaf)
     return {
         "node_box": node_box,
         "node_link": node_link,
         "prim_slots": np.array(slots, _I),
+    }
+
+
+def build_group_tree_unified(
+    bmins: np.ndarray, bmaxs: np.ndarray, kinds: np.ndarray,
+    local_idx: np.ndarray, group_size: int = 8, leaf_groups: int = 1,
+):
+    """One preorder skip-link tree over both primitive kinds, with
+    kind-pure leaves: ``build_group_tree``'s median split, where a span
+    that fits a leaf but mixes kinds becomes an interior node over two
+    kind-pure leaves.  Each leaf owns ``leaf_groups`` consecutive groups of
+    its own kind's slot array.
+
+    Returns a dict with ``node_box`` (n_nodes, 6) f32, ``node_link``
+    (n_nodes, 3) i32 [miss link, first leaf group or -1, leaf kind
+    (PRIM_SPHERE / PRIM_QUAD) or -1], and ``sph_slots`` / ``quad_slots``,
+    the kind-local primitive index (``local_idx``) of each slot or -1; a
+    kind without leaves gets one leaf of padding slots."""
+    n = int(bmins.shape[0])
+    assert n > 0
+    leaf_span = group_size * leaf_groups
+
+    def build(span: np.ndarray) -> _Tree:
+        bmin = bmins[span].min(0)
+        bmax = bmaxs[span].max(0)
+        k = kinds[span]
+        if span.shape[0] <= leaf_span:
+            if (k == k[0]).all():
+                return _Tree(bmin, bmax, prims=list(span))
+            left, right = span[k == k[0]], span[k != k[0]]
+            return _Tree(
+                bmin, bmax,
+                left=_Tree(bmins[left].min(0), bmaxs[left].max(0), prims=list(left)),
+                right=_Tree(bmins[right].min(0), bmaxs[right].max(0), prims=list(right)),
+            )
+        axis = int(np.argmax(bmax - bmin))
+        span = span[np.argsort(bmins[span, axis], kind="stable")]
+        mid = (span.shape[0] // 2 + leaf_span - 1) // leaf_span * leaf_span
+        mid = min(mid, span.shape[0] - 1)
+        return _Tree(bmin, bmax, left=build(span[:mid]), right=build(span[mid:]))
+
+    root = build(np.arange(n))
+    node_box = np.zeros((root.size, 6), _F)
+    node_link = np.zeros((root.size, 3), _I)
+    slot_lists = {PRIM_SPHERE: [], PRIM_QUAD: []}
+
+    def leaf(i, node):
+        if node.prims is None:
+            node_link[i, 1:] = -1
+            return
+        kind = int(kinds[node.prims[0]])
+        slots = slot_lists[kind]
+        node_link[i, 1] = len(slots) // group_size
+        node_link[i, 2] = kind
+        slots.extend(int(local_idx[p]) for p in node.prims)
+        slots.extend([-1] * (leaf_span - len(node.prims)))
+
+    _emit_preorder(root, node_box, node_link, leaf)
+    pad = [-1] * leaf_span
+    return {
+        "node_box": node_box,
+        "node_link": node_link,
+        "sph_slots": np.array(slot_lists[PRIM_SPHERE] or pad, _I),
+        "quad_slots": np.array(slot_lists[PRIM_QUAD] or pad, _I),
     }

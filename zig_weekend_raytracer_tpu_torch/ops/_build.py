@@ -115,10 +115,12 @@ def load_library() -> ctypes.CDLL:
     ``restype`` declared for every launcher."""
     lib = ctypes.CDLL(build()["path"])
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.zwrt_fused_render.argtypes = [p] * 14 + [i, p]
+    lib.zwrt_fused_render.argtypes = [p] * 14 + [i, i, p, i, i, p]
     lib.zwrt_fused_render.restype = ctypes.c_int
     lib.zwrt_closest_hit.argtypes = [p] * 4 + [f, f] + [p] * 3 + [i, p]
     lib.zwrt_closest_hit.restype = ctypes.c_int
-    lib.zwrt_bounce.argtypes = [p] * 13 + [i, i, i, p]
+    lib.zwrt_bounce.argtypes = [p] * 13 + [i, i, i, i, p, i, i, p]
     lib.zwrt_bounce.restype = ctypes.c_int
+    lib.zwrt_fp32_chain.argtypes = [i, i, i, p, p, i, i, p]
+    lib.zwrt_fp32_chain.restype = ctypes.c_int
     return lib

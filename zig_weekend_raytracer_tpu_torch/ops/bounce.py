@@ -10,7 +10,8 @@ reads the texel at the hit, from the texture LUT when the scene has one
 and from the atlas otherwise; for CPU tensors they run its plain PyTorch
 versions, ``render/integrator.py:bounce`` and ``bounce_regen_reference``.
 Any other device raises.  ``bounce.launches`` and ``bounce_regen.launches``
-count kernel launches.
+count kernel launches per tree walk ({walk: launches}; the walk is read at
+each launch, as ``ops/fused_render.py:walk_args`` says).
 
 Image-textured emitters take the kernel with or without a LUT, since the
 texel is read at the hit, before emission (the JAX kernel needs the LUT
@@ -32,8 +33,9 @@ from ..sampling.sampler import SamplerKind, sobol_log2_scale
 from ..scene import CompiledScene
 from . import _build
 from .fused_render import (
-    check_lane_tensor, image_args, launch_params, sobol_table, trace_args,
+    check_lane_tensor, image_args, launch_params, sobol_table, trace_args, walk_args,
 )
+from .trace import WALKS
 
 
 def supports_bounce_kernel(scene: CompiledScene) -> bool:
@@ -51,7 +53,8 @@ def supports_fused_render(scene: CompiledScene) -> bool:
     return not scene.has_image_textures or bool(scene.tex_lut_dims)
 
 
-def _launch(scene, params, fstate, istate, lanes, regen, depth):
+def _launch(scene, params, fstate, istate, lanes, regen, depth) -> str:
+    """One launch of the bounce kernel; returns the tree walk it took."""
     device = fstate.device
     if scene.device != device:
         raise ValueError(f"scene is on {scene.device}, lanes on {device}")
@@ -63,6 +66,7 @@ def _launch(scene, params, fstate, istate, lanes, regen, depth):
     shade_rows = scene.shade_rows.contiguous()
     sobol = sobol_table(device, sobol_log2_scale(width, height))
     px, py, limit = (None, None, None) if lanes is None else (t.data_ptr() for t in lanes)
+    walk, code, cap, queue = walk_args(scene, n)
     err = lib.zwrt_bounce(
         ints.ctypes.data_as(ctypes.c_void_p),
         floats.ctypes.data_as(ctypes.c_void_p),
@@ -71,10 +75,13 @@ def _launch(scene, params, fstate, istate, lanes, regen, depth):
         image_ints.ctypes.data_as(ctypes.c_void_p),
         texels.data_ptr(), shade_rows.data_ptr(), sobol.data_ptr(),
         fstate.data_ptr(), istate.data_ptr(), px, py, limit,
-        int(regen), int(depth), n, torch.cuda.current_stream(device).cuda_stream,
+        int(regen), int(depth), code, cap, None if queue is None else queue.data_ptr(),
+        0 if queue is None else queue.numel(), n,
+        torch.cuda.current_stream(device).cuda_stream,
     )
     if err != 0:
-        raise RuntimeError(f"bounce_kernel launch failed: cudaError {err}")
+        raise RuntimeError(f"bounce_kernel ({walk} walk) launch failed: cudaError {err}")
+    return walk
 
 
 def _pack(origin, direction, throughput, radiance, time, ints, device, n):
@@ -124,8 +131,8 @@ def bounce(
         scene, seed, t_min, ((0.0,) * 3,) * 6, SamplerKind.SOBOL, 1, 1, 1,
         1, 1, False,
     )
-    _launch(scene, (ints, floats, 1, 1), fstate, istate, None, False, depth)
-    bounce.launches += 1
+    walk = _launch(scene, (ints, floats, 1, 1), fstate, istate, None, False, depth)
+    bounce.launches[walk] += 1
     f = fstate
     return (
         V3(f[0], f[1], f[2]), V3(f[3], f[4], f[5]), V3(f[6], f[7], f[8]),
@@ -133,7 +140,7 @@ def bounce(
     )
 
 
-bounce.launches = 0
+bounce.launches = dict.fromkeys(WALKS, 0)
 
 
 def bounce_regen(
@@ -176,9 +183,9 @@ def bounce_regen(
         scene, seed, t_min, camera_consts, sampler, width, height, spp,
         stride, max_depth, has_dof,
     )
-    _launch(scene, (ints, floats, width, height), fstate, istate,
-            (px, py, sample_limit), True, 0)
-    bounce_regen.launches += 1
+    walk = _launch(scene, (ints, floats, width, height), fstate, istate,
+                   (px, py, sample_limit), True, 0)
+    bounce_regen.launches[walk] += 1
     f, s = fstate, istate
     return RegenState(
         origin=V3(f[0], f[1], f[2]), direction=V3(f[3], f[4], f[5]),
@@ -188,4 +195,4 @@ def bounce_regen(
     )
 
 
-bounce_regen.launches = 0
+bounce_regen.launches = dict.fromkeys(WALKS, 0)

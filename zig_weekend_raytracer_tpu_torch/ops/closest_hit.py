@@ -5,7 +5,9 @@
 ``closest_hit`` does.  For CUDA tensors it launches ``closest_hit_kernel``
 (``csrc/closest_hit.cu`` over the trace in ``csrc/zwrt_device.cuh``); for
 CPU tensors it runs that plain PyTorch version.  Any other device raises.
-``closest_hit.launches`` counts kernel launches.
+``closest_hit.launches`` counts kernel launches.  Like the TPU's
+``_tree_kernel`` it walks the per-kind trees with the default walk, whatever
+``ZWRT_TRAV`` or the unified tree ask of the render and bounce kernels.
 """
 
 from __future__ import annotations
@@ -33,7 +35,7 @@ def closest_hit(
     device = origin.x.device
     if device.type == "cpu":
         return _trace.closest_hit(
-            scene, origin, direction, time, t_min, t_max, active=active
+            scene, origin, direction, time, t_min, t_max, active=active, walk="cond"
         )
     if device.type != "cuda":
         raise ValueError(f"closest_hit runs on cuda or cpu tensors, not {device}")

@@ -6,7 +6,8 @@
 ``fused_render_kernel`` (``csrc/fused_render.cu`` over the device functions
 in ``csrc/zwrt_device.cuh``); for CPU tensors it runs the kernel's plain
 PyTorch version, ``render/integrator.py:render_fused_reference``.  Any
-other device raises.  ``render_fused.launches`` counts kernel launches.
+other device raises.  ``render_fused.launches`` counts kernel launches,
+per tree walk ({walk: launches}).
 
 ``kernel_tables`` and ``trace_args`` pack the scene for the kernels' shared
 trace (``trace_closest``), which ``ops/closest_hit.py`` launches too;
@@ -14,6 +15,12 @@ trace (``trace_closest``), which ``ops/closest_hit.py`` launches too;
 for the kernels' shared texel fetch.  The kernel takes image scenes that
 have a texture LUT (instantiated with the fetch) and scenes without
 images (instantiated without it).
+
+Each launch of the render and bounce kernels takes the tree walk of
+``ops/trace.py:walk_of`` as it reads then (the unified tree when the scene
+has one, else ``ZWRT_TRAV``) and the instantiation compiled for that walk;
+``walk_args`` allocates the walk's leaf queue.  The walk is never cached
+with the scene, so one process can launch every walk.
 """
 
 from __future__ import annotations
@@ -33,11 +40,14 @@ from ..sampling.sampler import SamplerKind, sobol_log2_scale
 from ..scene import PRIM_QUAD, PRIM_SPHERE, CompiledScene
 from ..textures import image_table
 from . import _build
+from .trace import WALKS, WARP, walk_of
 
 # Must match csrc/zwrt_device.cuh.
 MAX_IMAGES = 16
 MAX_LIGHTS = 8
 LIGHT_FLOATS = 17
+THREADS = 128           # threads per block of every launcher
+SMEM_LIMIT = 232448     # dynamic shared memory a block can have (227 KB)
 _SAMPLER_CODE = {
     SamplerKind.INDEPENDENT: 0, SamplerKind.STRATIFIED: 1, SamplerKind.SOBOL: 2,
 }
@@ -106,9 +116,11 @@ def _leaf_table(attrs, width):
 def trace_args(scene: CompiledScene):
     """(ints, ptrs, tensors) of the kernels' trace over ``scene``, cached
     per scene: ``ints`` (int32) per kind mode, n_prims, n_nodes, span, then
-    has_moving; ``ptrs`` (uint64) per kind the row table, node boxes,
-    links and leaf-slot original indices (0 where the mode reads none);
-    ``tensors`` keeps the device tables alive."""
+    has_moving and the unified tree's node count (0 without one) and span;
+    ``ptrs`` (uint64) per kind the row table, node boxes, links and
+    leaf-slot original indices (0 where the mode reads none), then the
+    unified tree's boxes and links and its sphere and quad leaf tables and
+    original indices; ``tensors`` keeps the device tables alive."""
     cached = _TRACE_CACHE.get(scene)
     if cached is not None:
         return cached
@@ -136,9 +148,56 @@ def trace_args(scene: CompiledScene):
         ptrs += [0 if t is None else t.data_ptr() for t in group]
         tensors += [t for t in group if t is not None]
     ints.append(int(bool(scene.has_moving)))
+    uni = (None,) * 6
+    if scene.has_uni_tree:
+        sph, quad = scene.uni_sph_attrs, scene.uni_quad_attrs
+        uni = (scene.uni_tree_box.contiguous(), scene.uni_tree_link.contiguous(),
+               _leaf_table(sph, 8), sph[-1].contiguous(), _leaf_table(quad, 16),
+               quad[-1].contiguous())
+    ints += [uni[0].shape[0] if scene.has_uni_tree else 0, scene.uni_leaf_span]
+    ptrs += [0 if t is None else t.data_ptr() for t in uni]
+    tensors += [t for t in uni if t is not None]
     out = (np.array(ints, np.int32), np.array(ptrs, np.uint64), tuple(tensors))
     _TRACE_CACHE[scene] = out
     return out
+
+
+def queue_capacity(scene: CompiledScene, walk: str) -> int:
+    """Leaf-queue entries of the queue walks, per thread (``queue``) or per
+    warp (``rowqueue``): a skip-link tree of n nodes has at most
+    (n + 1) // 2 leaves, plus one as in pallas_bounce.py:_queue_cap, over
+    the kinds that have trees; 0 for the other walks."""
+    if walk not in ("queue", "rowqueue"):
+        return 0
+    nodes = [getattr(scene, f"{k}_tree_box").shape[0] for k in ("sph", "quad")
+             if getattr(scene, f"has_{k}_tree")]
+    return max(((n + 1) // 2 + 1 for n in nodes), default=0)
+
+
+def walk_args(scene: CompiledScene, n: int):
+    """(walk, walk code, queue capacity, queue tensor or None) of a launch
+    over ``n`` lanes, the walk as ``walk_of`` reads it now.  ``queue`` keeps
+    a lane-major int32 queue per thread of the launch; ``rowqueue`` keeps
+    one per warp in shared memory.  Raises when the queue does not fit:
+    past 2**31 - 1 entries (the kernel indexes it with 32-bit ints), or
+    past a block's 227 KB of shared memory."""
+    walk = walk_of(scene)
+    cap = queue_capacity(scene, walk)
+    queue = None
+    if walk == "queue" and cap:
+        threads = -(-n // THREADS) * THREADS
+        if cap * threads > 2**31 - 1:
+            raise ValueError(
+                f"the queue walk needs {cap} leaf entries for each of {threads} threads, "
+                "past the kernel's 32-bit queue index"
+            )
+        queue = torch.empty((cap * threads,), dtype=torch.int32, device=scene.device)
+    if walk == "rowqueue" and THREADS // WARP * cap * 8 > SMEM_LIMIT:
+        raise ValueError(
+            f"the rowqueue walk needs {THREADS // WARP * cap * 8} bytes of shared memory per "
+            f"block ({cap} leaf entries per warp), past the card's {SMEM_LIMIT}"
+        )
+    return walk, WALKS.index(walk), cap, queue
 
 
 def image_args(scene: CompiledScene):
@@ -247,6 +306,7 @@ def render_fused(
         image_ints, texels = image_args(scene)
     shade_rows = scene.shade_rows.contiguous()
     sobol = sobol_table(device, sobol_log2_scale(width, height))
+    walk, code, cap, queue = walk_args(scene, n)
     rad = torch.empty((3, n), dtype=real, device=device)
     work = torch.empty((n,), dtype=torch.int32, device=device) if want_work else None
     stream = torch.cuda.current_stream(device).cuda_stream
@@ -260,15 +320,16 @@ def render_fused(
         px.data_ptr(), py.data_ptr(), s0.data_ptr(), s1.data_ptr(),
         shade_rows.data_ptr(), sobol.data_ptr(), rad.data_ptr(),
         work.data_ptr() if want_work else None,
-        n, stream,
+        code, cap, None if queue is None else queue.data_ptr(),
+        0 if queue is None else queue.numel(), n, stream,
     )
     if err != 0:
-        raise RuntimeError(f"fused_render_kernel launch failed: cudaError {err}")
-    render_fused.launches += 1
+        raise RuntimeError(f"fused_render_kernel ({walk} walk) launch failed: cudaError {err}")
+    render_fused.launches[walk] += 1
     radiance = V3(rad[0], rad[1], rad[2])
     if want_work:
         return radiance, work
     return radiance
 
 
-render_fused.launches = 0
+render_fused.launches = dict.fromkeys(WALKS, 0)

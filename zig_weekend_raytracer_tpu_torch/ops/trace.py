@@ -17,14 +17,35 @@ and the trace of the fused render kernel's plain version.  Tie rules:
 
 The running best starts at ``min(t_max, BIG)`` (finite, so the slab
 test's far clip stays finite) and a ray that found nothing reports +inf
-and kind -1.  The tree walk is per lane: every ray follows its own node
-pointer through the skip links, as each CUDA thread does; the lanes are
-stepped together, one node each per pass.  On a scene without trees both
-stages are brute, which is the JAX package's ``_closest_hit_brute``.
+and kind -1.  On a scene without trees both stages are brute, which is the
+JAX package's ``_closest_hit_brute``.
+
+A tree stage walks the skip links in one of the JAX package's traversal
+variants (``pallas_bounce.py:_trace_values``), each the plain version of
+one walk of the kernels' shared trace (``csrc/zwrt_device.cuh``):
+
+  * ``cond`` (the default): each lane follows its own node pointer and
+    sweeps a hit leaf at once, so its running t culls the rest of the walk;
+  * ``queue``: each lane walks with the stage's seed t, queues its hit
+    leaves in preorder, then sweeps them with the fresh t;
+  * ``rowqueue``: lanes in groups of 32 consecutive indices walk one node
+    pointer, descending when any walking lane of the group hits; a hit
+    leaf is queued with the group's mask of lanes that hit it, and each
+    lane sweeps only the leaves its bit marks (a warp of the kernel);
+  * ``spec``: the ``cond`` walk that slab-tests both successors of a node
+    with the t from before its leaf sweep;
+  * ``uni``: one ``cond`` walk over the unified tree, whose kind-pure
+    leaves are swept by their kind; a sphere and a quad at exactly equal t
+    may then resolve otherwise than in the per-kind stages.
+
+All of them keep the tie rules above.  ``closest_hit`` takes the unified
+walk when the scene has that tree and otherwise reads ``ZWRT_TRAV`` at
+each call (an unknown value walks ``queue``, as in the JAX package).
 """
 
 from __future__ import annotations
 
+import os
 from typing import NamedTuple
 
 import torch
@@ -38,6 +59,9 @@ from ..scene import PRIM_QUAD, PRIM_SPHERE, CompiledScene
 from ..utils import workcount
 
 NO_HIT = -1
+# Tree walks, as the kernels' trace number them (zwrt_device.cuh:Walk).
+WALKS = ("cond", "queue", "rowqueue", "spec", "uni")
+WARP = 32  # lanes that walk together in ``rowqueue``
 # workcount keys of one primitive test per kind
 _TEST = {PRIM_SPHERE: "sphere_test", PRIM_QUAD: "quad_test"}
 # Leaf sweeps handle at most this many (lane, slot) pairs at once.
@@ -154,62 +178,173 @@ def _leaf_sweep(code, attrs, span, group0, o: V3, d: V3, tm, t_min):
     return torch.cat(lanes_t), torch.cat(lanes_i)
 
 
-def _tree_stage(code, box, link, attrs, span, o: V3, d: V3, tm, t_min, walking, best: Hit) -> Hit:
+def _sweep_into(code, attrs, span, lanes, group0, o: V3, d: V3, tm, t_min, best: Hit):
+    """Sweep leaf ``group0`` (k,) for ``lanes`` (k,), each lane at most once,
+    and keep a strictly closer hit in ``best`` (in place)."""
+    t_best, kind, idx = best
+    if workcount.enabled():
+        workcount.add("leaf_visit", lanes.numel())
+        workcount.add(_TEST[code], lanes.numel() * span * 8)
+    if lanes.numel() == 0:
+        return
+    t_row, i_row = _leaf_sweep(
+        code, attrs, span, group0,
+        V3(o.x[lanes], o.y[lanes], o.z[lanes]), V3(d.x[lanes], d.y[lanes], d.z[lanes]),
+        None if tm is None else tm[lanes],
+        t_min[lanes] if torch.is_tensor(t_min) else t_min,
+    )
+    better = t_row < t_best[lanes]
+    t_best[lanes] = torch.where(better, t_row, t_best[lanes])
+    kind[lanes] = torch.where(better, code, kind[lanes])
+    idx[lanes] = torch.where(better, i_row.to(torch.int32), idx[lanes])
+
+
+def _slab(box, nd, o: V3, inv_d: V3, t_min, t, lanes):
+    """Slab test of node ``nd`` (k,) for ``lanes`` (k,) against t (k,)."""
+    if workcount.enabled():
+        workcount.add("slab_test", lanes.numel())
+    b = box[nd]
+    sub = lambda v: V3(v.x[lanes], v.y[lanes], v.z[lanes])
+    return aabb_hit(
+        V3(b[:, 0], b[:, 1], b[:, 2]), V3(b[:, 3], b[:, 4], b[:, 5]),
+        sub(o), sub(inv_d), t_min[lanes] if torch.is_tensor(t_min) else t_min, t,
+    )
+
+
+def _walk_cond(box, link, o, d, t_min, walking, best, sweep, spec=False):
     """Per-lane skip-link walk: a lane tests its node's box against its
-    running best t; a hit leaf is swept, a hit interior node descends to
-    node + 1, anything else jumps to the miss link."""
-    t_best, kind, idx = (x.clone() for x in best)
+    running best t; a hit leaf is swept at once by ``sweep(lanes, node)``,
+    a hit interior node descends to node + 1, anything else jumps to the
+    miss link.  ``spec`` tests the box of each step's node while at its
+    parent, both successors at once, with the parent's t from before its
+    sweep."""
+    t_best = best.t
     n_nodes = box.shape[0]
-    node = torch.zeros_like(kind, dtype=torch.int64)
+    node = torch.zeros_like(best.kind, dtype=torch.int64)
     inv_d = V3(1.0 / d.x, 1.0 / d.y, 1.0 / d.z)
     walking = walking.clone()
+    if spec:
+        every = torch.nonzero(walking).squeeze(1)
+        carried = torch.zeros_like(walking)
+        carried[every] = _slab(box, node[every], o, inv_d, t_min, t_best[every], every)
     while True:
         lanes = torch.nonzero(walking).squeeze(1)
         if lanes.numel() == 0:
             break
         nd = node[lanes]
-        b = box[nd]
-        sub = lambda v: V3(v.x[lanes], v.y[lanes], v.z[lanes])
-        t_lane = t_best[lanes]
-        tmin_lane = t_min[lanes] if torch.is_tensor(t_min) else t_min
-        hit = aabb_hit(
-            V3(b[:, 0], b[:, 1], b[:, 2]), V3(b[:, 3], b[:, 4], b[:, 5]),
-            sub(o), sub(inv_d), tmin_lane, t_lane,
-        )
+        miss = link[nd, 0].to(torch.int64)
+        if spec:
+            t_pre = t_best[lanes]
+            hit_desc = _slab(box, torch.clamp(nd + 1, max=n_nodes - 1), o, inv_d, t_min, t_pre, lanes)
+            hit_miss = _slab(box, torch.clamp(miss, max=n_nodes - 1), o, inv_d, t_min, t_pre, lanes)
+            hit = carried[lanes]
+        else:
+            hit = _slab(box, nd, o, inv_d, t_min, t_best[lanes], lanes)
         leaf = link[nd, 1]
         visit = hit & (leaf >= 0)
-        if workcount.enabled():
-            n_visit = int(visit.sum())
-            workcount.add("slab_test", lanes.numel())
-            workcount.add("leaf_visit", n_visit)
-            workcount.add(_TEST[code], n_visit * span * 8)
-        if bool(visit.any()):
-            vl = lanes[visit]
-            t_row, i_row = _leaf_sweep(
-                code, attrs, span, leaf[visit],
-                V3(o.x[vl], o.y[vl], o.z[vl]), V3(d.x[vl], d.y[vl], d.z[vl]),
-                None if tm is None else tm[vl],
-                t_min[vl] if torch.is_tensor(t_min) else t_min,
-            )
-            better = t_row < t_best[vl]
-            t_best[vl] = torch.where(better, t_row, t_best[vl])
-            kind[vl] = torch.where(better, code, kind[vl])
-            idx[vl] = torch.where(better, i_row.to(torch.int32), idx[vl])
-        nxt = torch.where(hit & (leaf < 0), nd + 1, link[nd, 0].to(torch.int64))
+        sweep(lanes[visit], nd[visit])
+        desc = hit & (leaf < 0)
+        nxt = torch.where(desc, nd + 1, miss)
+        if spec:
+            carried[lanes] = torch.where(desc, hit_desc, hit_miss)
         node[lanes] = nxt
         walking[lanes] = nxt < n_nodes
-    return Hit(t_best, kind, idx)
+
+
+def _walk_queue(box, link, o, d, t_min, walking, t_seed, per_warp):
+    """The queue walks' first pass: cull with the seed t, per lane or (with
+    ``per_warp``) in lockstep groups of WARP consecutive lanes.  Returns the
+    hit leaves as a list of (lanes, nodes) in walk order; a lane is in each
+    entry at most once, so the list is every lane's queue in preorder."""
+    n_nodes = box.shape[0]
+    inv_d = V3(1.0 / d.x, 1.0 / d.y, 1.0 / d.z)
+    n = walking.shape[0]
+    owner = torch.arange(n, device=walking.device) // (WARP if per_warp else 1)
+    node = torch.zeros((int(owner[-1]) + 1 if n else 0,), dtype=torch.int64,
+                       device=walking.device)
+    running = torch.zeros_like(node, dtype=torch.bool)
+    running.index_fill_(0, owner[walking], True)
+    queue = []
+    while True:
+        lanes = torch.nonzero(walking & running[owner]).squeeze(1)
+        if lanes.numel() == 0:
+            break
+        nd = node[owner[lanes]]
+        hit = _slab(box, nd, o, inv_d, t_min, t_seed[lanes], lanes)
+        any_hit = torch.zeros_like(running)
+        any_hit.index_fill_(0, owner[lanes[hit]], True)
+        leaf = link[nd, 1]
+        marked = hit & (leaf >= 0)
+        if bool(marked.any()):
+            queue.append((lanes[marked], nd[marked]))
+        groups = torch.unique(owner[lanes])
+        g_node = node[groups]
+        desc = any_hit[groups] & (link[g_node, 1] < 0)
+        nxt = torch.where(desc, g_node + 1, link[g_node, 0].to(torch.int64))
+        node[groups] = nxt
+        running[groups] = nxt < n_nodes
+    return queue
+
+
+def _tree_stage(code, box, link, attrs, span, o: V3, d: V3, tm, t_min, walking, best: Hit,
+                walk) -> Hit:
+    """One kind's group tree, walked as ``walk`` says (module doc)."""
+    best = Hit(*(x.clone() for x in best))
+    sweep = lambda lanes, nd: _sweep_into(code, attrs, span, lanes, link[nd, 1], o, d, tm,
+                                          t_min, best)
+    if walk in ("cond", "spec"):
+        _walk_cond(box, link, o, d, t_min, walking, best, sweep, spec=walk == "spec")
+    else:
+        for lanes, nd in _walk_queue(box, link, o, d, t_min, walking, best.t.clone(),
+                                     per_warp=walk == "rowqueue"):
+            sweep(lanes, nd)
+    return best
+
+
+def _uni_tree_stage(scene, o: V3, d: V3, tm, t_min, walking, best: Hit) -> Hit:
+    """One per-lane walk of the unified tree: a hit leaf is swept by its
+    kind (link column 2) with that kind's leaf slots."""
+    best = Hit(*(x.clone() for x in best))
+    link = scene.uni_tree_link
+    span = scene.uni_leaf_span
+
+    def sweep(lanes, nd):
+        kinds = link[nd, 2]
+        for code, attrs, tmv in ((PRIM_SPHERE, scene.uni_sph_attrs, tm),
+                                 (PRIM_QUAD, scene.uni_quad_attrs, None)):
+            mine = kinds == code
+            _sweep_into(code, attrs, span, lanes[mine], link[nd[mine], 1], o, d, tmv, t_min,
+                        best)
+
+    _walk_cond(scene.uni_tree_box, link, o, d, t_min, walking, best, sweep)
+    return best
+
+
+def walk_of(scene: CompiledScene) -> str:
+    """The tree walk the kernels take for ``scene``: ``uni`` when it has
+    the unified tree, else ``ZWRT_TRAV`` as read now (``cond`` when unset;
+    an unknown value walks ``queue``, as in the JAX package)."""
+    if scene.has_uni_tree:
+        return "uni"
+    trav = os.environ.get("ZWRT_TRAV", "cond")
+    return trav if trav in ("cond", "rowqueue", "spec") else "queue"
 
 
 def closest_hit(
     scene: CompiledScene, origin: V3, direction: V3, time, t_min,
-    t_max=INF, active=None,
+    t_max=INF, active=None, walk=None,
 ) -> Hit:
     """Closest hit of each ray: the sphere stage (brute or tree), then the
-    quad stage seeded with it.  ``time`` is (N,); ``t_min`` a float or (N,)
-    tensor; ``active`` an optional (N,) bool mask whose False rays report
-    no hit."""
+    quad stage seeded with it, or one walk of the unified tree.  ``time``
+    is (N,); ``t_min`` a float or (N,) tensor; ``active`` an optional (N,)
+    bool mask whose False rays report no hit; ``walk`` one of ``WALKS``,
+    ``walk_of(scene)`` when None."""
     closest_hit.calls += 1
+    walk = walk_of(scene) if walk is None else walk
+    if walk not in WALKS:
+        raise ValueError(f"unknown tree walk {walk!r}; one of {WALKS}")
+    if walk == "uni" and not scene.has_uni_tree:
+        raise ValueError("the uni walk needs a scene compiled with its unified tree")
     n = origin.shape[0]
     dev = origin.x.device
     alive = (
@@ -225,24 +360,20 @@ def closest_hit(
             (PRIM_SPHERE, scene.has_sph_tree, scene.n_spheres),
             (PRIM_QUAD, scene.has_quad_tree, scene.n_quads),
         ):
-            if not has_tree:
+            if not has_tree and walk != "uni":
                 workcount.add(_TEST[code], n_rays * n_prims)
-    if scene.has_sph_tree:
-        best = _tree_stage(
-            PRIM_SPHERE, scene.sph_tree_box, scene.sph_tree_link,
-            scene.sph_tree_attrs, scene.sph_leaf_span, origin, direction, tm,
-            t_min, alive, best,
-        )
+    if walk == "uni":
+        best = _uni_tree_stage(scene, origin, direction, tm, t_min, alive, best)
     else:
-        best = _brute_stage(scene, PRIM_SPHERE, origin, direction, time, t_min, best)
-    if scene.has_quad_tree:
-        best = _tree_stage(
-            PRIM_QUAD, scene.quad_tree_box, scene.quad_tree_link,
-            scene.quad_tree_attrs, scene.quad_leaf_span, origin, direction,
-            None, t_min, alive, best,
-        )
-    else:
-        best = _brute_stage(scene, PRIM_QUAD, origin, direction, time, t_min, best)
+        for code, kind, tmv in ((PRIM_SPHERE, "sph", tm), (PRIM_QUAD, "quad", None)):
+            if getattr(scene, f"has_{kind}_tree"):
+                best = _tree_stage(
+                    code, getattr(scene, f"{kind}_tree_box"), getattr(scene, f"{kind}_tree_link"),
+                    getattr(scene, f"{kind}_tree_attrs"), getattr(scene, f"{kind}_leaf_span"),
+                    origin, direction, tmv, t_min, alive, best, walk,
+                )
+            else:
+                best = _brute_stage(scene, code, origin, direction, time, t_min, best)
     t, kind, idx = best
     missed = (kind == NO_HIT) | ~alive
     return Hit(

@@ -28,9 +28,10 @@ or a path whose throughput hits exactly zero ends; a path ends after
 hit's (u, v), from the texture LUT or the atlas, multiplied in at the hit
 (and added on emission) as the JAX package's XLA integrator and its
 whole-render kernel do.  The trace is ``ops/trace.py:closest_hit`` (brute
-scan or group-tree walk per primitive kind, as the kernel's
-``trace_closest``); camera rays start on the defocus disk when the camera
-has depth of field.  All randomness is content-addressed by
+scan or group-tree walk per primitive kind, or one walk of the unified
+tree, in the walk that ``ZWRT_TRAV`` names at each call, as the kernels'
+``trace_closest<WALK>``); camera rays start on the defocus disk when the
+camera has depth of field.  All randomness is content-addressed by
 (seed, ray id, site): bounce d draws at sites 8 + 4d + k
 (k = 0 scatter, 1 light mixture, 2 gaussian triple).
 """

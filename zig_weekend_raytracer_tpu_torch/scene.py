@@ -15,9 +15,12 @@ into one atlas of r | g << 8 | b << 16 texels and, with a texel budget
 (``compile(texture_lut=N)`` or ``ZWRT_TEX_LUT``), into the texture LUT as
 well: every image box-downsampled to at most N texels and stored unpadded
 in one flat table, which the whole-render kernel reads.  Image-textured
-emitters are ordinary materials.  Out of scope (ROADMAP.md): nested
-checkers, which the JAX package renders only on XLA, and the unified
-both-kind tree (``ZWRT_UNI_TREE``, kernel K4).  Asking for one raises
+emitters are ordinary materials.  With ``ZWRT_UNI_TREE`` set at compile,
+a scene whose two kinds both have trees also gets the unified both-kind
+tree (``uni_tree_*``), which the render and bounce kernels then walk in
+place of the two per-kind trees; the per-kind trees stay for the
+first-hit probe.  Out of scope (ROADMAP.md): nested checkers, which the
+JAX package renders only on XLA; asking for one raises
 ``NotImplementedError``.
 """
 
@@ -54,10 +57,6 @@ TREE_MIN_PRIMS = 64
 _F = real_np
 _I = np.int32
 
-_SLICE_UNI_TREE = (
-    "the unified group tree (ZWRT_UNI_TREE) is kernel K4, a later slice of "
-    "the port (ROADMAP.md)"
-)
 _SLICE_NESTED = (
     "nested checkers (a checker of checkers) are a later slice of the port: "
     "the JAX package renders them only on XLA, never in a kernel (ROADMAP.md)"
@@ -199,9 +198,13 @@ TREE_FIELDS = (
 TREE_STATIC_FIELDS = (
     "has_sph_tree", "has_quad_tree", "sph_leaf_span", "quad_leaf_span",
 )
+# The unified both-kind tree (``CompiledScene.uni_*``): node boxes, links
+# [miss, first leaf group or -1, leaf kind or -1] and each kind's
+# leaf-slot attribute tuple, laid out as the per-kind trees' attributes.
+UNI_FIELDS = ("uni_tree_box", "uni_tree_link", "uni_sph_attrs", "uni_quad_attrs")
+UNI_STATIC_FIELDS = ("has_uni_tree", "uni_leaf_span")
 # Feature flags of the JAX scene that the port cannot render when set.
 _UNSUPPORTED_FLAGS = {
-    "has_uni_tree": _SLICE_UNI_TREE,
     "has_nested_checker": _SLICE_NESTED,
 }
 
@@ -259,6 +262,15 @@ class CompiledScene:
     quad_tree_box: torch.Tensor
     quad_tree_link: torch.Tensor
     quad_tree_attrs: tuple
+    # The unified tree (geometry/bvh.py:build_group_tree_unified) when
+    # has_uni_tree: boxes (n_nodes, 6), links (n_nodes, 3) [miss link,
+    # first leaf group or -1, leaf kind or -1], and the sphere and quad
+    # leaf-slot attributes as in ``*_tree_attrs``.  Placeholders ((1, 6),
+    # (1, 3), (), ()) otherwise.
+    uni_tree_box: torch.Tensor
+    uni_tree_link: torch.Tensor
+    uni_sph_attrs: tuple
+    uni_quad_attrs: tuple
     n_spheres: int = 0
     n_quads: int = 0
     n_materials: int = 0
@@ -291,6 +303,8 @@ class CompiledScene:
     # recorded so that tree layout and traversal always agree.
     sph_leaf_span: int = 32
     quad_leaf_span: int = 32
+    has_uni_tree: bool = False
+    uni_leaf_span: int = 32
 
     @property
     def has_lights(self) -> bool:
@@ -313,12 +327,14 @@ def compiled_from_arrays(fields: dict, static: dict, device) -> CompiledScene:
     ``fields`` maps each name in ``ARRAY_FIELDS`` to a numpy array (a V3
     field as its (3, S) stack, e.g. ``np.asarray(cs.sph_center)`` of a JAX
     scene), may map the names in ``TREE_FIELDS`` to a scene's group trees
-    (``*_tree_attrs`` as a tuple of arrays) and, when ``static`` has
-    a nonempty ``tex_lut_dims``, maps ``tex_lut_tab`` to the texture LUT in
-    any shape (the JAX scene's (R, 128) table is taken flat); ``static``
-    maps each name in ``STATIC_FIELDS`` to its value, may carry ``TREE_STATIC_FIELDS``, and may carry the JAX scene's other
-    feature flags, which are checked.  A CUDA ``device`` without a GPU
-    raises."""
+    (``*_tree_attrs`` as a tuple of arrays) and, when ``static`` says
+    ``has_uni_tree``, the names in ``UNI_FIELDS`` to the unified tree; when
+    ``static`` has a nonempty ``tex_lut_dims``, ``fields`` maps
+    ``tex_lut_tab`` to the texture LUT in any shape (the JAX scene's
+    (R, 128) table is taken flat).  ``static`` maps each name in
+    ``STATIC_FIELDS`` to its value, may carry ``TREE_STATIC_FIELDS`` and
+    ``UNI_STATIC_FIELDS``, and may carry the JAX scene's other feature
+    flags, which are checked.  A CUDA ``device`` without a GPU raises."""
     for flag, why in _UNSUPPORTED_FLAGS.items():
         if static.get(flag):
             raise NotImplementedError(why)
@@ -358,6 +374,19 @@ def compiled_from_arrays(fields: dict, static: dict, device) -> CompiledScene:
         kw[f"{kind}_tree_box"] = tensor(box)
         kw[f"{kind}_tree_link"] = tensor(link)
         kw[f"{kind}_tree_attrs"] = tuple(tensor(a) for a in attrs)
+    kw["has_uni_tree"] = bool(static.get("has_uni_tree", False))
+    kw["uni_leaf_span"] = int(static.get("uni_leaf_span", 32))
+    if kw["has_uni_tree"]:
+        box = np.asarray(fields["uni_tree_box"], _F)
+        link = np.asarray(fields["uni_tree_link"], _I)
+        sph, quad = (tuple(np.asarray(a) for a in fields[f"uni_{k}_attrs"])
+                     for k in ("sph", "quad"))
+    else:
+        box, link, sph, quad = np.zeros((1, 6), _F), np.zeros((1, 3), _I), (), ()
+    kw["uni_tree_box"] = tensor(box)
+    kw["uni_tree_link"] = tensor(link)
+    kw["uni_sph_attrs"] = tuple(tensor(a) for a in sph)
+    kw["uni_quad_attrs"] = tuple(tensor(a) for a in quad)
     kw["lights"] = tuple((int(k), int(i)) for k, i in kw["lights"])
     kw["light_params"] = tuple(
         (int(k), tuple(float(v) for v in p)) for k, p in kw["light_params"]
@@ -683,8 +712,9 @@ def _group_trees(sph_center, sph_radius, sph_move, quad_start, quad_u, quad_v,
                  quad_normal, quad_w, quad_offset, n_s, n_q, build_trees):
     """The per-kind group trees, as the JAX package builds them: boxes from
     the float32 tables, padded on thin axes in float64, a tree for each
-    kind with at least TREE_MIN_PRIMS primitives."""
-    from .geometry.bvh import build_group_tree, pick_leaf_span
+    kind with at least TREE_MIN_PRIMS primitives; and, when both kinds
+    have one and ``ZWRT_UNI_TREE`` is set, the unified tree over both."""
+    from .geometry.bvh import build_group_tree, build_group_tree_unified, pick_leaf_span
     from .math.aabb import aabb_pad_to_minimum
 
     out = {"sph_leaf_span": pick_leaf_span(n_s), "quad_leaf_span": pick_leaf_span(n_q)}
@@ -719,20 +749,31 @@ def _group_trees(sph_center, sph_radius, sph_move, quad_start, quad_u, quad_v,
             (quad_offset[:n_q], 0.0),
         ],
     }
-    boxes = {"sph": (sph_lo, sph_hi, n_s), "quad": (quad_lo, quad_hi, n_q)}
-    for kind, (lo, hi, n) in boxes.items():
+    padded = {"sph": aabb_pad_to_minimum(sph_lo, sph_hi),
+              "quad": aabb_pad_to_minimum(quad_lo, quad_hi)}
+    for kind, n in (("sph", n_s), ("quad", n_q)):
         has_tree = build_trees and n >= TREE_MIN_PRIMS
         out[f"has_{kind}_tree"] = has_tree
         if has_tree:
-            lo, hi = aabb_pad_to_minimum(lo, hi)
-            tr = build_group_tree(lo, hi, leaf_groups=out[f"{kind}_leaf_span"])
+            tr = build_group_tree(*padded[kind], leaf_groups=out[f"{kind}_leaf_span"])
             out[f"{kind}_tree_box"] = tr["node_box"]
             out[f"{kind}_tree_link"] = tr["node_link"]
             out[f"{kind}_tree_attrs"] = _leaf_attrs(tr["prim_slots"], cols[kind])
-    # the JAX package walks one unified tree instead when both kinds have
-    # trees and ZWRT_UNI_TREE is set
-    if out["has_sph_tree"] and out["has_quad_tree"] and os.environ.get("ZWRT_UNI_TREE"):
-        raise NotImplementedError(_SLICE_UNI_TREE)
+    out["has_uni_tree"] = bool(
+        out["has_sph_tree"] and out["has_quad_tree"] and os.environ.get("ZWRT_UNI_TREE"))
+    out["uni_leaf_span"] = pick_leaf_span(n_s + n_q)
+    if out["has_uni_tree"]:
+        tr = build_group_tree_unified(
+            np.concatenate([padded["sph"][0], padded["quad"][0]]),
+            np.concatenate([padded["sph"][1], padded["quad"][1]]),
+            np.concatenate([np.zeros(n_s, _I), np.ones(n_q, _I)]),
+            np.concatenate([np.arange(n_s, dtype=_I), np.arange(n_q, dtype=_I)]),
+            leaf_groups=out["uni_leaf_span"],
+        )
+        out["uni_tree_box"] = tr["node_box"]
+        out["uni_tree_link"] = tr["node_link"]
+        out["uni_sph_attrs"] = _leaf_attrs(tr["sph_slots"], cols["sph"])
+        out["uni_quad_attrs"] = _leaf_attrs(tr["quad_slots"], cols["quad"])
     return out
 
 
@@ -959,7 +1000,7 @@ def _compile_tables(
     if lut_budget > 0 and images:
         tex_lut_tab, tex_lut_dims = _build_tex_lut(images, lut_budget)
     fields = {
-        **{k: v for k, v in trees.items() if k in TREE_FIELDS},
+        **{k: v for k, v in trees.items() if k in TREE_FIELDS + UNI_FIELDS},
         "sph_center": sph_center.T, "sph_radius": sph_radius,
         "sph_move": sph_move.T, "sph_uv_cos": sph_uv_cos,
         "sph_uv_sin": sph_uv_sin, "sph_mat": sph_mat,
@@ -1007,6 +1048,6 @@ def _compile_tables(
             for m in materials
         ),
         "tex_lut_dims": tex_lut_dims,
-        **{k: trees[k] for k in TREE_STATIC_FIELDS},
+        **{k: trees[k] for k in TREE_STATIC_FIELDS + UNI_STATIC_FIELDS},
     }
     return compiled_from_arrays(fields, static, device)

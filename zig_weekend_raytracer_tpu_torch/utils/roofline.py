@@ -1,9 +1,16 @@
 """Roofline bounds of the port's kernels on one NVIDIA H100 SXM.
 
-A kernel's bound is the larger of two times: its FP32 operations over the
-card's peak FP32 rate outside the tensor cores (67 TFLOP/s), and the bytes
-it must move (each input read once, each output written once) over the
-HBM3 rate (3.35 TB/s), both from NVIDIA's data sheet at the 700 W limit.
+A kernel's bound is the larger of two times: its FP32 lane-operations
+over the card's FP32 lane-operation rate outside the tensor cores, and the
+bytes it must move (each input read once, each output written once) over
+the HBM3 rate (3.35 TB/s, NVIDIA's data sheet at the 700 W limit).
+
+The lane-operation rate is the one that ``OPS`` needs: every operation
+counts one, an FMA too, where the data sheet's 67 TFLOP/s counts an FMA
+as two FLOPs (132 SMs x 128 FP32 lanes x 2 x 1.98 GHz).  So the data-sheet
+value is ``PEAK_FP32_OPS`` = 67e12 / 2; a run that measured the rate with
+the FP32-peak microbenchmark (``tools/fp32_peak.py``, its ``add`` chain)
+passes that instead, and ``peak_source`` names which one a bound used.
 
 ``OPS`` counts the FP32 operations of each unit of work in the device code
 (``csrc/zwrt_device.cuh``): each float add, sub, mul, div, compare, min or
@@ -19,7 +26,10 @@ from __future__ import annotations
 from ..scene import PRIM_SPHERE
 from ..textures import image_table
 
-PEAK_FP32_OPS = 67e12    # FP32 operations per second, CUDA cores
+# FP32 lane-operations per second, CUDA cores: the data sheet's 67 TFLOP/s
+# counts an FMA as two FLOPs, and the card issues one FP32 operation per
+# lane per clock (132 x 128 x 1.98 GHz = 33.45e12)
+PEAK_FP32_OPS = 33.5e12
 PEAK_BYTES = 3.35e12     # HBM3 bytes per second
 
 OPS = {
@@ -132,7 +142,16 @@ def render_table_bytes(scene) -> int:
             + image_table_bytes(scene))
 
 
-def bound_ms(ops: float, nbytes: float):
-    """(least time in ms, "operations" or "bytes")."""
-    t_ops, t_bytes = ops / PEAK_FP32_OPS, nbytes / PEAK_BYTES
+def peak_source(ops_rate=None) -> str:
+    """Which lane-operation rate a bound divided by: "fp32_peak" for a rate
+    measured by tools/fp32_peak.py, "data_sheet" for ``PEAK_FP32_OPS``."""
+    return "data_sheet" if ops_rate is None else "fp32_peak"
+
+
+def bound_ms(ops: float, nbytes: float, ops_rate=None):
+    """(least time in ms, "operations" or "bytes"): ``ops`` lane-operations
+    over ``ops_rate`` (lane-operations per second; the data sheet's
+    ``PEAK_FP32_OPS`` when None), ``nbytes`` over ``PEAK_BYTES``."""
+    rate = PEAK_FP32_OPS if ops_rate is None else float(ops_rate)
+    t_ops, t_bytes = ops / rate, nbytes / PEAK_BYTES
     return (max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes")
