@@ -6,15 +6,18 @@
 Phases (any failure exits nonzero):
   1. device: the card's name and power limit, then the kernel build from
      zig_weekend_raytracer_tpu_torch/csrc/ (seconds, registers, spills of
-     every instantiation); the default walk's instantiations must keep the
-     previous slice's registers and spill (DEFAULT_RESOURCES);
+     every instantiation, the measurement variants included); the default
+     and cond walks' instantiations must have the recorded registers and
+     spill (DEFAULT_RESOURCES);
  1b. the FP32 peak (tools/fp32_peak.py, kernel K5): chain_kernel against
-     its plain version on the card for the four ops at every (blocks per
+     its plain version on the card for the five ops at every (blocks per
      SM, chains, unroll) of the sweep, on the sweep's own grid with 256
-     steps (rtol 1e-6), the fma chain's SASS (FFMA, not FMUL + FADD), then
-     the sweep with its iters-scaling check (4x / 1x time ratio in [3, 5])
-     and the physics bound (no rate past 105%); the measured add rate, in
-     lane-operations per second, is the rate every later bound divides by;
+     steps (rtol 1e-6; the int chain's bits exactly), the fma chain's SASS
+     (FFMA, not FMUL + FADD) and the int chain's (IMAD and LOP3), then the
+     sweep with its iters-scaling check (4x / 1x time ratio in [3, 5]) and
+     the physics bound (no rate past 105%); the measured add, select and
+     int rates, in lane-operations per second, price every later bound's
+     fp, cmp and int operations (utils/roofline.py);
   2. kernel against plain: render_fused on CUDA tensors at cornell 32x32,
      8 spp, depth 10, through the kernel and through its plain PyTorch
      version; work counts equal on >= 99% of lanes, radiance within
@@ -27,20 +30,20 @@ Phases (any failure exits nonzero):
      phase and the plain version did not run;
   4. kernel against plain at the main path's lanes: the plain version at
      the sorted plan's 160,000 lanes with the largest spp <= 1024 expected
-     to finish in about 20 s, beside the kernel at the same spp (its work
+     to finish in about 10 s, beside the kernel at the same spp (its work
      counts give the bound); both on a spread slice of 4,096 of those
      lanes, each rendering one 64-sample window of the 1024, the windows
      together covering every sample index (every Sobol sample bit); and
-     both on a spread slice of 1,024 lanes, each draining all 1024 samples
-     of its pixel as the main path's lanes do, at depth 2 (the plain
-     version's time grows with its loop passes: 226 s at depth 10 on an
-     H100); all outputs held to the tolerances of phase 2, both times
-     printed;
+     both on a spread slice of 256 lanes, each draining all 1024 samples
+     of its pixel as the main path's lanes do (every respawn of the sample
+     range), at depth 1 (the plain version's time grows with its loop
+     passes: 226 s at depth 10 on an H100); all outputs held to the
+     tolerances of phase 2, both times printed;
   5. closest_hit_kernel against its plain version (ops/trace.py) on the
      card, 160,000 rays each: (a) cornell camera rays at 400x400 (brute
      spheres and quads), (b) balls first-hit probe rays at 400x400 (sphere
-     tree, one 512-slot leaf), (c) the same rays on balls compiled with
-     leaf span 2 (a multi-node walk), (d) random rays in a seeded random
+     tree at the port's span), (c) the same rays on balls compiled with
+     leaf span 2, (d) random rays in a seeded random
      scene of 100 spheres and 600 quads with use_bvh (a multi-node quad
      tree seeded with the sphere result); (kind, idx) equal on >= 99.9%
      of rays, t within rtol 1e-5 / atol 1e-6 where they agree; the counts
@@ -55,8 +58,8 @@ Phases (any failure exits nonzero):
      renders the coherent driver ran, closest_hit_kernel and
      fused_render_kernel each launched, and neither plain version ran;
      Mpaths/s printed beside the card; then the kernel against its plain
-     version on a spread slice of 4,096 lanes of the coherent plan at the
-     full 128 spp;
+     version on a spread slice of 4,096 lanes of the coherent plan, each
+     rendering one 8-sample window of the 128 (every sample index);
   8. the balls region gates on the card, both through utils/goldengate.py:
      200x200, 32 spp, depth 10 against tests/golden/scene_regions.json,
      and 64x64, 32 spp, depth 10 against tests/golden/balls.npz;
@@ -69,7 +72,7 @@ Phases (any failure exits nonzero):
      times printed;
  10. bounce_kernel's regenerating mode against its plain version
      (bounce_regen_reference): earth and shrek_quads at 32x32, 8 spp, depth
-     10, rtw_final at 32x32, 8 spp, depth 8, with phase 2's tolerances (its
+     10, rtw_final at 32x32, 4 spp, depth 8, with phase 2's tolerances (its
      1% lane allowance covers earth's texel boundaries); every lane drained;
  11. the rtw_final main path: Renderer(samples_per_pixel=64,
      max_ray_bounce_depth=8).render_device(load_scene("rtw_final"), 400,
@@ -78,7 +81,8 @@ Phases (any failure exits nonzero):
      fused_render_kernel did not and no plain version ran; the driver
      loop's passes per band, Mpaths/s beside the card, bounce_kernel's time
      at the coherent plan, the kernel against its plain version on a spread
-     slice of 4,096 plan lanes at 64 spp, and the peak device memory;
+     slice of 4,096 plan lanes in 8-sample windows of the 64 (every sample
+     index), and the peak device memory;
  12. the region gates of earth, shrek_quads and rtw_final on the card:
      200x200 against tests/golden/scene_regions.json (rtw_final at 32 spp,
      depth 8; the others at their recorded spp and depth 10), and 64x64,
@@ -86,7 +90,7 @@ Phases (any failure exits nonzero):
      (rtw_final on 4x4 regions, its 8x8-region verdict printed: see
      phase 12's comment);
  13. the render kernel with a texture LUT against its plain version, with
-     phase 2's tolerances: rtw_final 32x32, 8 spp, depth 8 at a native
+     phase 2's tolerances: rtw_final 32x32, 4 spp, depth 8 at a native
      budget and at 32768 texels, shrek_quads and earth at 8192 (depth 10),
      and a small scene whose lamp is image-textured, with a LUT (render
      kernel) and without (bounce kernel, regenerating mode); then the bounce
@@ -103,58 +107,85 @@ Phases (any failure exits nonzero):
      99.9% of pixels; the render kernel with the LUT and the bounce kernel
      with the atlas timed on the same lanes in 10 alternating pairs; the
      kernel against its plain version on a spread slice of 2,048 plan
-     lanes; the rtw_final region gates of phase 12 on the LUT scene; the
+     lanes in 8-sample windows; the rtw_final region gates of phase 12 on the LUT scene; the
      same render at a 32768-texel budget, its Mpaths/s and mean
      |diff| to the native render printed (lossy by design, not gated);
  15. emissive (the CLI's default scene): the render kernel against its
      plain version at 32x32, 8 spp, depth 10; Renderer(samples_per_pixel=
      256, max_ray_bounce_depth=10).render_device at 400x400 through the
      render kernel only (sorted plan), Mpaths/s; its region gates at 200x200
-     (scene_regions.json) and 64x64 (tests/golden/emissive.npz);
+     (scene_regions.json) and 64x64 (tests/golden/emissive.npz); the render
+     kernel's time at the sorted plan and its bound;
  16. the CLI (python -m zig_weekend_raytracer_tpu_torch.cli) as
-     subprocesses: emissive 200x200, 64 spp, depth 10 and rtw_final with
-     --texture_lut=32768 at 128x128, 16 spp, depth 10, each exiting 0 with
+     subprocesses: emissive 96x96, 16 spp, depth 10 and rtw_final with
+     --texture_lut=32768 at 64x64, 4 spp, depth 10, each exiting 0 with
      the three stage log lines and the stats line, its PPM byte-equal to
      write_ppm of the same render made in this process; --scene=bogus
      exiting 1 with the usage text; --profile=device on cornell printing a
      device table that names fused_render_kernel;
- 17. the tree walks (kernel K4: ZWRT_TRAV=queue|rowqueue|spec, and the
-     unified tree of ZWRT_UNI_TREE=1) against their plain versions, with
-     the tolerances of phases 2 and 9: for each walk the render kernel on
-     balls at leaf span 2, 32x32, 4 spp, depth 10 (not under uni: balls has
-     no quads), the bounce kernel's regenerating mode on rtw_final 32x32, 4
-     spp, depth 8 and its one-bounce mode on rtw_final's 160,000 camera
-     rays, all of them live and with every other lane dead (the warp's
-     lanes diverge at the trace), and under uni the render kernel with a
-     native-budget LUT on rtw_final; each walk's plain version against the
-     default walk's plain version on the same inputs;
- 18. the walks on the slice's path at full width, each with its counts set
-     to 0 just before and read just after: Renderer(samples_per_pixel=64,
-     max_ray_bounce_depth=8).render_device of rtw_final at 400x400 under
-     each of queue, rowqueue and spec (bounce kernel) and compiled with the
-     unified tree through the bounce kernel and through the render kernel
-     with the LUT; balls 400x400@128 d10 at leaf span 2 under the default
-     walk and each of queue, rowqueue and spec (render kernel); one warmup
-     and three timed renders each, Mpaths/s, the walk's instantiation
-     launched and nothing else of the kind, no plain version, the kernel's
-     time at the plan's lanes, each framebuffer within rtol 1e-5 / atol 1e-6
-     of the default walk's render of the same scene on >= 99.9% of pixels,
-     and rtw_final's region gates of phase 12 on the unified-tree render.
+ 17. the tree walks (kernel K4: ZWRT_TRAV=cond|queue|rowqueue|spec, and
+     the unified tree of ZWRT_UNI_TREE=1) against their plain versions,
+     with the tolerances of phases 2 and 9, all on scenes at leaf span 2:
+     for each walk the render kernel on balls, 32x32, 2 spp, depth 10 (not
+     under uni: balls has no quads), the bounce kernel's regenerating mode
+     on rtw_final 32x32, 2 spp, depth 8 and its one-bounce mode on
+     rtw_final's 160,000 camera rays, all of them live and with every other
+     lane dead (the warp's lanes diverge at the trace), and under cond and
+     uni the render kernel with a native-budget LUT on rtw_final; each
+     walk's plain version against the cond walk's on the same inputs;
+ 18. the walks on the slice's path at full width and a cut spp, on phase
+     17's scenes at leaf span 2, each with its counts set to 0 just before
+     and read just after: rtw_final 400x400@16 d8 under the default walk
+     and each of cond, rowqueue and spec (bounce kernel), with the LUT under
+     the default walk (render kernel), and compiled with the unified tree
+     through the bounce kernel and through the render kernel with the LUT;
+     balls 400x400@32 d10 under the default walk and each of cond, rowqueue
+     and spec (render kernel); one warmup and three timed renders each, Mpaths/s, the
+     walk's instantiation launched and nothing else of the kind, no plain
+     version, the kernel's time at the plan's lanes, each framebuffer within
+     rtol 1e-5 / atol 1e-6 of the default walk's render of the same scene
+     on >= 99.9% of pixels, and rtw_final's region gates of phase 12 on the
+     unified-tree render;
+ 19. the respawn under every sampler: the render kernel on the
+     all-materials scene (a moving sphere, an isotropic medium) and the
+     bounce kernel's regenerating mode on it with an image quad, at 32x32,
+     8 spp, depth 10, under the independent, stratified and Sobol samplers,
+     and the render kernel on a 9-light scene, each against its plain
+     version with phase 2's tolerances;
+ 20. the redesign of the render and bounce kernels, measured inside them,
+     for cornell, balls, rtw_final through the bounce kernel, rtw_final
+     with the LUT through the render kernel, and emissive at their main
+     paths' configurations: the old design (the JAX package's leaf span,
+     the cond walk, the Sobol bit loops in the respawn) and the new (the
+     port's span and default walk, the factored Sobol tables in shared
+     memory), each at its own plan: the instrumented variant's cycle share
+     of respawn, trace and shade, the warp-time share and the mean
+     converged lanes per warp entering each phase; the two designs' default
+     builds in 5 alternating pairs (Mpaths/s from the kernel's time at the
+     plan), and the lanes whose radiance differs;
+ 21. tools/span_sweep.py: leaf spans 1, 2, 4 and 8 under the cond and
+     queue walks on balls 400x400@128 d10 and rtw_final 400x400@64 d8,
+     Mpaths/s, kernel time and peak device memory, every render against the
+     JAX-span cond render (differing pixels counted); rtw_final with the
+     LUT at the winning setting; cond against queue at the port's span in
+     5 alternating pairs on both scenes.
 
 The record has one entry per kernel and mode: the render kernel on brute
 scenes (cornell, emissive), on tree scenes (balls) and with the texture LUT
 (rtw_final), the bounce kernel's one-bounce mode with the atlas and with
 the LUT (parity checks only: no main path runs it, so its launches are 0)
 and its regenerating mode (rtw_final), and the closest-hit kernel; then one
-per walk of the render kernel (queue, rowqueue and spec on balls at span 2,
-uni with the LUT on rtw_final) and of the bounce kernel's regenerating mode
-(rtw_final), and the FP32-peak chain kernel.  Each carries its registers
+per walk other than the default of the render kernel (cond, rowqueue and
+spec on balls at span 2, uni with the LUT on rtw_final) and of the bounce
+kernel's regenerating mode (rtw_final), and the FP32-peak chain kernel.
+The measurement variants of phase 20 are not kernels of any path: their
+launches are counted apart (``variant_launches``).  Each carries its registers
 and spill from the build, its times, its launches on its path and its
-roofline bound: FP32 lane-operations (utils/roofline.py's per-unit counts
-times the work that the plain version counted on a parity run of the same
-scene, scaled to the kernel's own bounce count) over phase 1b's measured
-add rate (``peak_source``), and bytes (inputs once, outputs once) over the
-H100's HBM3 rate.  No single PyTorch call computes path radiance, a bounce,
+roofline bound: lane-operations by class (utils/roofline.py's per-unit
+counts times the work that the plain version counted on a parity run of
+the same scene, scaled to the kernel's own bounce count) at phase 1b's
+measured rates (``peak_source``), and bytes (inputs once, outputs once)
+over the H100's HBM3 rate.  No single PyTorch call computes path radiance, a bounce,
 a closest hit or an operation chain, so ``library_ms`` is null.
 
 The line before the last is the kernels' JSON record, the line before it
@@ -189,17 +220,25 @@ HIT_REPLACES = (
 )
 BOUNCE_SOURCE = "zig_weekend_raytracer_tpu_torch/csrc/bounce.cu"
 BOUNCE_REPLACES = "zig_weekend_raytracer_tpu/ops/pallas_bounce.py:842 (_bounce_kernel)"
-PLAIN_BUDGET_S = 20.0
+PLAIN_BUDGET_S = 10.0
 SLICE_LANES = 4096
+# the tree scenes' plan slices: each lane renders one window of this many
+# samples, the windows together covering every sample index (the plain
+# version's time grows with its loop passes)
+PLAN_WINDOW = 8
 # phase 4's full drain: each lane of the slice renders all 1024 samples of
-# its pixel as the main path's lanes do; the plain version's time grows
-# with its loop passes, not its lanes (about 4.5 passes per sample at
-# depth 10: 226 s on an H100), so the slice runs at a cut depth
-FULL_DRAIN_LANES, FULL_DRAIN_DEPTH = 1024, 2
+# its pixel as the main path's lanes do, so every respawn of the main
+# path's sample range; the plain version's time grows with its loop passes
+# (about 4.5 passes per sample at depth 10: 226 s on an H100), so the slice
+# runs at one bounce per sample
+FULL_DRAIN_LANES, FULL_DRAIN_DEPTH = 256, 1
 # phase 17's parity renders: 32x32 at this spp
-WALK_SPP = 4
+WALK_SPP = 2
 BALLS_SPP = 128
 RTW_SPP, RTW_DEPTH = 64, 8
+# rtw_final's 32x32 parity renders (phases 10 and 13): its plain walk at the
+# port's span takes about 2 s per sample there
+RTW_SMALL_SPP = 4
 HIT_RTOL, HIT_ATOL, HIT_AGREE = 1e-5, 1e-6, 0.999
 LIBRARY_NOTE = "none: no single PyTorch call computes path radiance, a bounce or a closest hit"
 # texel budgets of the texture LUT: native holds rtw_final's images
@@ -207,30 +246,44 @@ LIBRARY_NOTE = "none: no single PyTorch call computes path radiance, a bounce or
 LUT_NATIVE, LUT_32K, LUT_8K = 1 << 23, 32768, 8192
 EMISSIVE_SPP = 256
 LUT_PAIRS = 10
+DESIGN_PAIRS = 5
+# phase 18's renders: every walk at full width, at a cut spp
+WALK18_BALLS_SPP, WALK18_RTW_SPP = 32, 16
 STAGES = ("scene initialized", "scene rendered", "scene written to file")
 PEAK_SOURCE = "zig_weekend_raytracer_tpu_torch/csrc/fp32_peak.cu"
 PEAK_REPLACES = "tools/vpu_peak.py:59 (_chain_kernel; pallas_call :123 in build :119)"
 WALK_REPLACES = {
+    "cond": "zig_weekend_raytracer_tpu/ops/pallas_bounce.py:597 (_tree_pass)",
     "queue": "zig_weekend_raytracer_tpu/ops/pallas_bounce.py:466 (_tree_pass_queue, per_row=False)",
     "rowqueue": "zig_weekend_raytracer_tpu/ops/pallas_bounce.py:466 (_tree_pass_queue, per_row=True)",
     "spec": "zig_weekend_raytracer_tpu/ops/pallas_bounce.py:640 (_tree_pass_spec)",
     "uni": "zig_weekend_raytracer_tpu/ops/pallas_bounce.py:713 (_uni_tree_pass)",
 }
 NEW_WALKS = ("queue", "rowqueue", "spec", "uni")
+# the package's default walk (ops/trace.py:DEFAULT_WALK) and the others,
+# each of which phase 18 renders and the record lists
+DEFAULT_WALK = "queue"
+OTHER_WALKS = ("cond", "rowqueue", "spec", "uni")
 # a chain kernel's plain version against it: the plain fma is float64
 # arithmetic rounded once to float32, which can differ from fmaf by one ulp
 CHAIN_RTOL = 1e-6
 # iters x unroll of each parity run: the sweep's own instantiations and
 # grids, with iters cut so that the plain version stays short
 CHAIN_STEPS = 256
-# registers and spill of the default instantiations in the previous slice
+# registers and spill bytes of the default walk's instantiations and of
+# the cond walk's, as this build gives them (the factored Sobol respawn and
+# the device light and image tables); the previous slice's cond walk:
+# 64/32, 64/28, 64/0, 64/12
 DEFAULT_RESOURCES = {
-    "fused_render_kernel<false, cond>": (64, 32), "fused_render_kernel<true, cond>": (64, 28),
-    "bounce_kernel<false, cond>": (64, 0), "bounce_kernel<true, cond>": (64, 12),
+    "fused_render_kernel<false, queue>": (64, 28), "fused_render_kernel<true, queue>": (64, 28),
+    "bounce_kernel<false, queue>": (64, 0), "bounce_kernel<true, queue>": (64, 56),
+    "fused_render_kernel<false, cond>": (64, 52), "fused_render_kernel<true, cond>": (64, 52),
+    "bounce_kernel<false, cond>": (64, 0), "bounce_kernel<true, cond>": (64, 80),
     "closest_hit_kernel": (56, 0),
 }
-# the measured add rate (lane-operations per second) every bound divides by
-# once phase 1b has run
+# the measured rates (lane-operations per second) of the roofline's classes
+# (fp: the add chain, cmp: select, int: the int chain), which every bound
+# divides by once phase 1b has run
 OPS_RATE = {"rate": None}
 
 
@@ -322,17 +375,18 @@ def leaf_span(span):
 
 
 def trav(walk):
-    """ZWRT_TRAV for ``walk`` while the kernels launch; the default walk and
-    the unified tree (a property of the scene) leave it unset."""
-    return env("ZWRT_TRAV", walk if walk in ("queue", "rowqueue", "spec") else None)
+    """ZWRT_TRAV for ``walk`` while the kernels launch; None (the package's
+    default walk) and the unified tree (a property of the scene) leave it
+    unset."""
+    return env("ZWRT_TRAV", walk if walk in ("cond", "queue", "rowqueue", "spec") else None)
 
 
 def render_parity(zt, fused, integrator, torch, scene, tag, depth=10, plains=None,
-                  spp=8) -> dict:
+                  spp=8, sampler=None) -> dict:
     """Kernel vs plain version on the card at 32x32, ``spp`` spp, depth 10
-    (or ``depth``), with the scene's own depth of field; both timed by CUDA
-    events.  ``plains``, a list, collects the plain version's output and
-    its work counts."""
+    (or ``depth``), with the scene's own depth of field, under ``sampler``
+    (Sobol when None); both timed by CUDA events.  ``plains``, a list,
+    collects the plain version's output and its work counts."""
     from zig_weekend_raytracer_tpu_torch.render.camera import camera_consts
     from zig_weekend_raytracer_tpu_torch.utils import workcount
 
@@ -347,7 +401,7 @@ def render_parity(zt, fused, integrator, torch, scene, tag, depth=10, plains=Non
     s1 = torch.full_like(px, spp)
     kw = dict(
         camera_consts=camera_consts(scene.camera, w, h),
-        sampler=zt.sampling.SamplerKind.SOBOL, width=w, height=h, spp=spp,
+        sampler=sampler or zt.sampling.SamplerKind.SOBOL, width=w, height=h, spp=spp,
         stride=1, max_depth=depth, has_dof=scene.camera.has_depth_of_field,
         want_work=True,
     )
@@ -555,20 +609,27 @@ def plan_parity(zt, fused, integrator, scene, plan, spp, card, tag, depth=DEPTH,
     return {**check, "ms": ms_k, "plain_ms": ms_p}, dict(counts)
 
 
-def render_bound(zt, scene, counts, kernel_work, lane_bytes, has_dof) -> dict:
-    """The roofline bound of a render-kernel run whose lanes did
-    ``kernel_work`` bounces in all, from the plain version's ``counts`` on a
-    slice scaled by that bounce count; ``lane_bytes`` is what the lanes
-    read and write."""
+def render_bound(zt, scene, counts, kernel_work, lane_bytes, has_dof, spp,
+                 loop_sobol=False) -> dict:
+    """The roofline bound of a render-kernel run at W x H, ``spp`` spp,
+    whose lanes did ``kernel_work`` bounces in all, from the plain
+    version's ``counts`` on a slice scaled by that bounce count, the Sobol
+    respawn in its factored form (or its bit loops); ``lane_bytes`` is what
+    the lanes read and write.  Each operation class at phase 1b's rate."""
+    from zig_weekend_raytracer_tpu_torch.sampling.sampler import sobol_log2_scale
+    from zig_weekend_raytracer_tpu_torch.sampling.sobol import sobol_sample_bytes
     from zig_weekend_raytracer_tpu_torch.utils import roofline
 
     factor = float(kernel_work) / max(counts.get("bounce", 0), 1)
-    ops = roofline.render_ops(roofline.scaled(counts, factor), scene.compiled, has_dof)
-    nbytes = lane_bytes + roofline.render_table_bytes(scene.compiled)
+    n_bytes = sobol_sample_bytes(spp)
+    ops = roofline.render_ops(roofline.scaled(counts, factor), scene.compiled, has_dof,
+                              sobol=(sobol_log2_scale(W, H), n_bytes, loop_sobol))
+    nbytes = lane_bytes + roofline.render_table_bytes(scene.compiled, 0 if loop_sobol else n_bytes)
     ms, by = roofline.bound_ms(ops, nbytes, OPS_RATE["rate"])
     source = roofline.peak_source(OPS_RATE["rate"])
-    log(f"bound: {float(kernel_work):.0f} bounces, {ops:.4g} FP32 operations, {nbytes:.4g} bytes "
-        f"-> {ms:.3f} ms ({by}, {source} rate)")
+    log(f"bound: {float(kernel_work):.0f} bounces, operations "
+        f"{ {k: f'{v:.4g}' for k, v in ops.items()} }, {nbytes:.4g} bytes -> {ms:.3f} ms "
+        f"({by}, {source} rates)")
     return {"bound_ms": ms, "bound_by": by, "bound_ops": ops, "bound_bytes": nbytes,
             "peak_source": source}
 
@@ -668,10 +729,14 @@ def kernel_resources(build_log: str) -> dict:
     from zig_weekend_raytracer_tpu_torch.ops.trace import WALKS
     from zig_weekend_raytracer_tpu_torch.tools.fp32_peak import OPS
 
+    flag_names = {1: "prof", 2: "loop_sobol", 3: "prof, loop_sobol"}
+
     def name_of(mangled):
-        m = re.search(r"(fused_render_kernel|bounce_kernel)ILb([01])ELi(\d)E", mangled)
+        m = re.search(r"(fused_render_kernel|bounce_kernel)ILb([01])ELi(\d)ELi(\d)E", mangled)
         if m:
-            return f"{m.group(1)}<{'true' if m.group(2) == '1' else 'false'}, {WALKS[int(m.group(3))]}>"
+            flags = int(m.group(4))
+            return (f"{m.group(1)}<{'true' if m.group(2) == '1' else 'false'}, "
+                    f"{WALKS[int(m.group(3))]}" + (f", {flag_names[flags]}>" if flags else ">"))
         m = re.search(r"chain_kernelILi(\d)ELi(\d+)ELi(\d+)E", mangled)
         if m:
             return f"chain_kernel<{OPS[int(m.group(1))]}, {m.group(2)}, {m.group(3)}>"
@@ -718,8 +783,7 @@ def sass_counts(lib_path: str) -> dict:
                 out[cur] = {}
             continue
         if cur:
-            m = re.search(r"\b(FFMA|FADD|FMUL|FSETP|FSEL|FMNMX)\b", line)
-            if m:
+            for m in re.finditer(r"\b(FFMA|FADD|FMUL|FSETP|FSEL|FMNMX|IMAD|LOP3)\b", line):
                 out[cur][m.group(1)] = out[cur].get(m.group(1), 0) + 1
     if proc.wait() != 0:
         raise AssertionError(f"cuobjdump -sass failed ({proc.returncode})")
@@ -746,9 +810,14 @@ def phase_fp32_peak(torch, built, card) -> dict:
         for op in fp.OPS:
             ms_k, out_k = cuda_time_ms(lambda: fp.chain(op, c, n, iters, chains, unroll), 3)
             ms_p, out_p = cuda_time_ms(lambda: fp.chain_reference(op, c, n, iters, chains, unroll))
-            k, p = out_k.cpu().numpy(), out_p.cpu().numpy()
-            err = float(np.abs(k - p).max())
-            bad = int((~np.isclose(k, p, rtol=CHAIN_RTOL, atol=0.0)).sum())
+            if op == "int":  # the bits of a u32 sum: equal exactly
+                k, p = (o.view(torch.int32).cpu().numpy().astype(np.int64) for o in (out_k, out_p))
+                err = float(np.abs(k - p).max())
+                bad = int((k != p).sum())
+            else:
+                k, p = out_k.cpu().numpy(), out_p.cpu().numpy()
+                err = float(np.abs(k - p).max())
+                bad = int((~np.isclose(k, p, rtol=CHAIN_RTOL, atol=0.0)).sum())
             tag = f"chain {op}, {blocks} blocks/SM, {chains} chains, unroll {unroll}"
             log(f"{tag}: {n} threads, {iters} iters: outside rtol {CHAIN_RTOL} on {bad}, "
                 f"max |diff| {err:.3e}; kernel {ms_k:.3f} ms, plain {ms_p:.1f} ms")
@@ -763,6 +832,9 @@ def phase_fp32_peak(torch, built, card) -> dict:
     fma = sass.get("chain_kernel<fma, 8, 64>", {})
     if fma.get("FFMA", 0) < 8 * 64 or fma.get("FMUL", 0) + fma.get("FADD", 0) >= 8 * 64:
         raise AssertionError(f"the fma chain is not FFMA in the SASS: {fma}")
+    ints = sass.get("chain_kernel<int, 8, 64>", {})
+    if ints.get("IMAD", 0) < 8 * 64 or ints.get("LOP3", 0) < 8 * 64:
+        raise AssertionError(f"the int chain is not IMAD and LOP3 in the SASS: {ints}")
     fp.chain.launches = 0
     res = fp.run(fp.ITERS_QUICK)
     launches = fp.chain.launches
@@ -777,7 +849,8 @@ def phase_fp32_peak(torch, built, card) -> dict:
     if not res["ok"]:
         raise AssertionError(f"fp32 peak: over the physics bound {res['over_physics']} or "
                              f"not linear in iters ({sc['time_ratio_4x']:.3f})")
-    OPS_RATE["rate"] = res["add_gops"] * 1e9
+    OPS_RATE["rate"] = res["rates"]
+    log(f"roofline rates (lane-operations/s): {res['rates']}")
     best = next(r for r in res["sweep"] if r["op"] == "add"
                 and [r["blocks_per_sm"], r["chains"], r["unroll"]] == res["best_shape"]["add"])
     # the headline add run: its lane-operations over the data sheet's rate,
@@ -871,8 +944,8 @@ def phase_cli(zt, torch) -> list:
 
     checks = []
     with tempfile.TemporaryDirectory() as tmp:
-        checks.append(cli_render_check(zt, torch, tmp, "emissive", 200, 64, 10))
-        checks.append(cli_render_check(zt, torch, tmp, "rtw_final", 128, 16, 10, lut=LUT_32K))
+        checks.append(cli_render_check(zt, torch, tmp, "emissive", 96, 16, 10))
+        checks.append(cli_render_check(zt, torch, tmp, "rtw_final", 64, 4, 10, lut=LUT_32K))
         proc = run_cli(["--image_width=8", "--image_height=8", "--scene=bogus"])
         if proc.returncode != 1 or "Usage: --key=value" not in proc.stderr:
             raise AssertionError(f"cli --scene=bogus: exit {proc.returncode}, no usage text\n"
@@ -894,11 +967,12 @@ def phase_cli(zt, torch) -> list:
 
 
 def regen_parity(zt, tb, integrator, torch, scene, w, spp, depth, tag, lanes=None,
-                 plains=None):
+                 plains=None, sampler=None, window=None):
     """bounce_kernel's regenerating mode vs bounce_regen_reference from
     fresh lanes (every pixel of a w x w image, or ``lanes`` = (px, py) of
-    a plan), checked with phase 2's tolerances; every lane must end
-    drained.  Returns the check (with both times), the plain version's work
+    a plan) under ``sampler`` (Sobol when None), checked with phase 2's
+    tolerances; every lane must end drained.  With ``window`` each lane
+    renders one ``window``-sample window of the spp, as plan_parity's.  Returns the check (with both times), the plain version's work
     counts and the kernel's total bounces; ``plains``, a list, collects the
     plain version's final state."""
     from zig_weekend_raytracer_tpu_torch.render.camera import camera_consts
@@ -912,9 +986,13 @@ def regen_parity(zt, tb, integrator, torch, scene, w, spp, depth, tag, lanes=Non
     px, py = lanes
     s0 = torch.zeros_like(px)
     s1 = torch.full_like(px, spp)
+    if window:
+        lane = torch.arange(px.shape[0], dtype=px.dtype, device=px.device)
+        s0 = (lane % (spp // window) * window).contiguous()
+        s1 = (s0 + window).contiguous()
     kw = dict(camera_consts=camera_consts(scene.camera, w, w),
-              sampler=zt.sampling.SamplerKind.SOBOL, width=w, height=w, spp=spp, stride=1,
-              max_depth=depth, has_dof=scene.camera.has_depth_of_field)
+              sampler=sampler or zt.sampling.SamplerKind.SOBOL, width=w, height=w, spp=spp,
+              stride=1, max_depth=depth, has_dof=scene.camera.has_depth_of_field)
     st0 = integrator.initial_regen_state(s0, 1)
     t_min = zt.dtypes.T_MIN
     ms_k, st_k = cuda_time_ms(
@@ -975,19 +1053,240 @@ def gate(tag, fb, ref_mean, ref_regions) -> str:
     return verdict
 
 
+def feature_scene(zt, image=False):
+    """tests/test_torch_fused_render.py's all-materials scene (checker
+    texture, fuzzy metal, an isotropic medium in a moving sphere, glass, a
+    quad light), with one image-textured quad added when ``image``."""
+    import numpy as np
+
+    b = zt.scene.SceneBuilder()
+    chk = b.checkerboard(0.3, b.solid_color((0.2, 0.3, 0.1)), b.solid_color((0.9, 0.9, 0.9)))
+    b.add(b.quad((-5, -1, -5), (10, 0, 0), (0, 0, 10), b.lambertian(chk)))
+    b.add(b.sphere((0.1, 0.5, 0), 1.0, b.metal((0.8, 0.6, 0.2), 0.3)))
+    b.add(b.moving_sphere((2.1, 0.5, 0), (2.1, 1.0, 0), 0.7,
+                          b.isotropic(b.solid_color((0.5, 0.5, 0.9)))))
+    b.add(b.sphere((-2.1, 0.5, 0.3), 0.8, b.dielectric(1.5)))
+    light = b.add(b.quad((-1, 4, -1), (2, 0, 0), (0, 0, 2),
+                         b.diffuse_light(b.solid_color((8, 8, 8)))))
+    if image:
+        img = np.random.default_rng(6).integers(0, 256, (24, 40, 3), dtype=np.uint8)
+        b.add(b.quad((-3, -1, -2), (6, 0, 0), (0, 3, 0), b.lambertian(b.image_texture(img))))
+    b.set_lights([light])
+    b.set_background((0.3, 0.4, 0.6))
+    b.set_camera(zt.scene.Camera(look_from=(0.3, 2, 8), look_at=(0, 0.5, 0)))
+    return b.compile(name="features" + ("_image" if image else ""), device="cuda")
+
+
+def nine_light_scene(zt):
+    """tests/test_torch_device_tables.py's floor under 9 lights (5 quads,
+    4 spheres), past the 8 lights the kernels once took."""
+    b = zt.scene.SceneBuilder()
+    gray = b.lambertian(b.solid_color((0.6, 0.6, 0.6)))
+    b.add(b.quad((-6, 0, -6), (12, 0, 0), (0, 0, 12), gray))
+    lights = []
+    for k in range(9):
+        lamp = b.diffuse_light(b.solid_color((1.0 + k, 2.0, 3.0)))
+        x = -4.0 + k
+        if k % 2 == 0:
+            lights.append(b.add(b.quad((x, 3.0, -0.5), (0.8, 0, 0), (0, 0, 0.8), lamp)))
+        else:
+            lights.append(b.add(b.sphere((x, 2.5, 0.5), 0.3, lamp)))
+    b.set_lights(lights)
+    b.set_background((0.0, 0.0, 0.0))
+    b.set_camera(zt.scene.Camera(look_from=(0, 4, 9), look_at=(0, 1, 0)))
+    return b.compile(name="nine_lights", device="cuda")
+
+
+def phase_samplers(zt, fused, tb, integrator, torch) -> list:
+    """Phase 19: the respawn that all three samplers share, held on the
+    card: the render kernel on the all-materials scene and the bounce
+    kernel's regenerating mode on it with an image quad, under the
+    independent, stratified and Sobol samplers (32x32, 8 spp, depth 10),
+    then the render kernel on the 9-light scene; phase 2's tolerances."""
+    kinds = zt.sampling.SamplerKind
+    feat, feat_img = feature_scene(zt), feature_scene(zt, image=True)
+    if not (feat.compiled.has_moving and feat.compiled.needs_gauss
+            and feat_img.compiled.has_image_textures):
+        raise AssertionError("the all-materials scenes lack a feature")
+    out = []
+    for kind in (kinds.INDEPENDENT, kinds.STRATIFIED, kinds.SOBOL):
+        out.append(render_parity(zt, fused, integrator, torch, feat,
+                                 f"all materials, {kind.value} 32x32 spp8 d{DEPTH}",
+                                 sampler=kind))
+        out.append(regen_parity(zt, tb, integrator, torch, feat_img, 32, 8, DEPTH,
+                                f"all materials + image quad, {kind.value} 32x32 spp8 d{DEPTH}",
+                                sampler=kind)[0])
+    out.append(render_parity(zt, fused, integrator, torch, nine_light_scene(zt),
+                             f"9 lights 32x32 spp8 d{DEPTH}"))
+    return out
+
+
+def plan_of(renderer, cs):
+    """The lane plan a renderer cached for a scene (after the renders that
+    build it: one for a coherent plan, two for a cost-sorted one)."""
+    return next(e["plan"] for e in renderer._plan_cache[cs].values() if "plan" in e)
+
+
+def prof_summary(prof) -> dict:
+    """Cycle shares and mean converged lanes per warp at each phase's entry
+    from a (PROF_COLS, N) profile."""
+    from zig_weekend_raytracer_tpu_torch.ops.fused_render import PROF_PHASES
+
+    c = prof.sum(1).tolist()
+    k = len(PROF_PHASES)
+    total = max(c[3 * k], 1)
+    shares = {ph: c[i] / total for i, ph in enumerate(PROF_PHASES)}
+    shares["other"] = 1.0 - sum(shares.values())
+    active = {ph: c[2 * k + i] / max(c[k + i], 1) for i, ph in enumerate(PROF_PHASES)}
+    entries = {ph: c[k + i] for i, ph in enumerate(PROF_PHASES)}
+    # a phase's lanes run it together, so its warp time is its lane cycles
+    # over the lanes that entered; a warp's time is a lane's whole drain
+    warp = {ph: shares[ph] / max(active[ph], 1e-9) * 32 for ph in PROF_PHASES}
+    return {"cycle_share": shares, "warp_time_share": warp, "active_lanes": active,
+            "entries": entries}
+
+
+def phase_design(zt, fused, tb, integrator, torch, configs, card) -> dict:
+    """Phase 20, the redesign of K1 and K2 measured inside the kernels:
+    for each configuration (name, new scene, old scene, spp, depth), the old
+    design (the JAX package's leaf span, the cond walk, the Sobol bit loops
+    in the respawn) and the new (the port's span and default walk, the
+    factored Sobol tables), each at its own plan: (1) the instrumented
+    kernel's cycle share of respawn, trace and shade and the mean converged
+    lanes per warp entering each; (2) the two default-build kernels in
+    PAIRS alternating pairs (Mpaths/s from their CUDA-event times at the
+    plan), and the lanes where their radiance differs."""
+    from zig_weekend_raytracer_tpu_torch.ops.bounce import supports_fused_render
+    from zig_weekend_raytracer_tpu_torch.render.camera import camera_consts
+
+    t_min = zt.dtypes.T_MIN
+    out = {}
+    for name, new, old, spp, depth in configs:
+        renderer = zt.render.Renderer(samples_per_pixel=spp, max_ray_bounce_depth=depth)
+        k1 = supports_fused_render(new.compiled)
+        kw = dict(camera_consts=camera_consts(new.camera, W, H), sampler=renderer.sampler,
+                  width=W, height=H, spp=spp, stride=1, max_depth=depth,
+                  has_dof=new.camera.has_depth_of_field)
+        runs = {}
+        for design, scene, walk in (("old", old, "cond"), ("new", new, None)):
+            cs = scene.compiled
+            with trav(walk):
+                for _ in range(2):
+                    renderer.render_device(scene, W, H)
+            plan = plan_of(renderer, cs)
+            loop = design == "old"
+            if k1:
+                def run(variant, cs=cs, plan=plan, loop=loop, walk=walk):
+                    with trav(walk):
+                        if variant == "prof":
+                            r, _, pr = fused.render_fused_variant(
+                                cs, *plan, 0, t_min, profile=True, loop_sobol=loop, **kw)
+                            return r.to_array(), pr
+                        if loop:
+                            return fused.render_fused_variant(cs, *plan, 0, t_min,
+                                                              loop_sobol=True, **kw)[0].to_array()
+                        return fused.render_fused(cs, *plan, 0, t_min, **kw).to_array()
+            else:
+                st0 = integrator.initial_regen_state(plan[2], 1)
+
+                def run(variant, cs=cs, plan=plan, loop=loop, walk=walk, st0=st0):
+                    args = (cs, st0, plan[0], plan[1], plan[3], 0, t_min)
+                    with trav(walk):
+                        if variant == "prof":
+                            st, pr = tb.bounce_regen_variant(*args, profile=True, loop_sobol=loop,
+                                                             **kw)
+                            return st.radiance.to_array(), pr
+                        if loop:
+                            return tb.bounce_regen_variant(*args, loop_sobol=True,
+                                                           **kw)[0].radiance.to_array()
+                        return tb.bounce_regen(*args, **kw).radiance.to_array()
+            rad_p, prof = run("prof")
+            summ = prof_summary(prof)
+            runs[design] = {"run": run, "plan": plan, "prof": summ, "rad": run("time")}
+            if not torch.equal(rad_p, runs[design]["rad"]):
+                raise AssertionError(f"{name} {design}: the instrumented kernel's radiance "
+                                     "differs from the timed kernel's")
+            log(f"design {name} {design} ({'K1' if k1 else 'K2'}, {ttrace_walk(zt, cs, walk)} "
+                f"walk, leaf spans {leaf_spans(cs)}): cycle share "
+                f"{ {k: round(v, 4) for k, v in summ['cycle_share'].items()} }, warp-time share "
+                f"{ {k: round(v, 4) for k, v in summ['warp_time_share'].items()} }, mean active "
+                f"lanes per warp entering { {k: round(v, 2) for k, v in summ['active_lanes'].items()} }, "
+                f"entries {summ['entries']}")
+        same_plan = all(torch.equal(a, b) for a, b in zip(runs["old"]["plan"], runs["new"]["plan"]))
+        differ = (int((runs["old"]["rad"] != runs["new"]["rad"]).any(1).sum().item())
+                  if same_plan else None)
+        pairs = []
+        for i in range(DESIGN_PAIRS):
+            order = ("new", "old") if i % 2 == 0 else ("old", "new")
+            t = {d: cuda_time_ms(lambda: runs[d]["run"]("time"))[0] for d in order}
+            pairs.append((t["old"], t["new"]))
+        mp = lambda ms: W * H * spp / (ms / 1e3) / 1e6
+        med = [sorted(ts)[DESIGN_PAIRS // 2] for ts in zip(*pairs)]
+        new_wins = sum(b < a for a, b in pairs)
+        log(f"design {name} old vs new, {DESIGN_PAIRS} alternating pairs of the kernel at the "
+            f"plan: new faster in {new_wins}; medians {med[0]:.3f} vs {med[1]:.3f} ms = "
+            f"{mp(med[0]):.2f} vs {mp(med[1]):.2f} Mpaths/s; pairs (old, new) ms "
+            f"{[(round(a, 3), round(b, 3)) for a, b in pairs]}; same plan {same_plan}, lanes "
+            f"whose radiance differs {differ} ({card})")
+        out[name] = {"old_prof": runs["old"]["prof"], "new_prof": runs["new"]["prof"],
+                     "pairs_ms": pairs, "new_wins": new_wins, "median_ms": med,
+                     "median_mpaths_per_s": [mp(m) for m in med], "same_plan": same_plan,
+                     "lanes_differ": differ}
+    return out
+
+
+def ttrace_walk(zt, cs, walk):
+    from zig_weekend_raytracer_tpu_torch.ops.trace import walk_of
+
+    with trav(walk):
+        return walk_of(cs)
+
+
+def leaf_spans(cs):
+    return {k: getattr(cs, f"{k}_leaf_span") for k in ("sph", "quad")
+            if getattr(cs, f"has_{k}_tree")}
+
+
+def phase_sweep(zt, card) -> dict:
+    """Phase 21: tools/span_sweep.py on the card: leaf spans 1, 2, 4, 8
+    under the cond and queue walks on balls 400x400@128 d10 (render
+    kernel) and rtw_final 400x400@64 d8 (bounce kernel), each render
+    against the JAX-span cond render of this run (differing pixels counted
+    and printed); rtw_final with the LUT (render kernel) at the winning
+    setting; then cond against queue at the port's span in 5 alternating
+    pairs on both scenes, which decide the default walk."""
+    from zig_weekend_raytracer_tpu_torch.geometry.bvh import pick_leaf_span
+    from zig_weekend_raytracer_tpu_torch.tools import span_sweep
+
+    res = span_sweep.sweep(log)
+    best = {name: max(r["cells"].items(), key=lambda kv: kv[1]["mpaths_per_s"])[0]
+            for name, r in res.items()}
+    span, walk = best["rtw_final"].split(",")
+    lut = span_sweep.lut_cell(int(span), walk, res["rtw_final"]["ref_fb"], log)
+    pairs = {name: span_sweep.pairs(name, (("cond", None, "cond"), ("queue", None, "queue")),
+                                    log=log) for name in span_sweep.SCENES}
+    for r in res.values():
+        r.pop("ref_fb")
+    log(f"sweep ({card}): best cell per scene {best}; the port's spans: balls "
+        f"{pick_leaf_span(485)}, rtw_final {pick_leaf_span(1005)} / {pick_leaf_span(2401)}")
+    return {"sweep": res, "best": best, "lut": lut, "walk_pairs": pairs}
+
+
 def walk_scenes(zt) -> dict:
-    """The scenes of phases 17 and 18: balls at leaf span 2, rtw_final with
-    the atlas, and rtw_final compiled with ZWRT_UNI_TREE=1 with the atlas
-    and with a native-budget texture LUT."""
+    """The scenes of phases 17 and 18, all at leaf span 2 (the plain walks'
+    time grows with the tree's nodes): balls, rtw_final with the atlas,
+    and rtw_final compiled with ZWRT_UNI_TREE=1 with the atlas and with a
+    native-budget texture LUT."""
     out = {}
     with leaf_span(2):
         out["balls2"] = zt.models.load_scene("balls", device="cuda")
-    out["rtw"] = zt.models.load_scene("rtw_final", device="cuda")
-    with env("ZWRT_UNI_TREE", "1"):
-        out["rtw_uni"] = zt.models.load_scene("rtw_final", device="cuda")
-        out["rtw_uni_lut"] = zt.models.load_scene("rtw_final", device="cuda",
-                                                  texture_lut=LUT_NATIVE)
-    out["rtw_lut"] = zt.models.load_scene("rtw_final", device="cuda", texture_lut=LUT_NATIVE)
+        out["rtw"] = zt.models.load_scene("rtw_final", device="cuda")
+        with env("ZWRT_UNI_TREE", "1"):
+            out["rtw_uni"] = zt.models.load_scene("rtw_final", device="cuda")
+            out["rtw_uni_lut"] = zt.models.load_scene("rtw_final", device="cuda",
+                                                      texture_lut=LUT_NATIVE)
+        out["rtw_lut"] = zt.models.load_scene("rtw_final", device="cuda",
+                                              texture_lut=LUT_NATIVE)
     cu = out["rtw_uni"].compiled
     log(f"unified tree of rtw_final: {cu.uni_tree_box.shape[0]} nodes at leaf span "
         f"{cu.uni_leaf_span} (per-kind trees {cu.sph_tree_box.shape[0]} + "
@@ -1112,7 +1411,7 @@ def walk_render(zt, fused, integrator, ch, ttrace, tb, torch, scene, spp, depth,
     best = min(times)
     mpaths = W * H * spp / best / 1e6
     out = {"render_s_best": best, "mpaths_per_s": mpaths, "launches": launches, "ms": ms,
-           "work": int(work.sum().item()), "lanes": int(plan[0].shape[0])}
+           "work": int(work.sum().item()), "lanes": int(plan[0].shape[0]), "spp": spp}
     msg = f"{tag}: best {best:.4f} s = {mpaths:.2f} Mpaths/s; kernel at the plan {ms:.3f} ms"
     if ref_fb is not None:
         close = torch.isclose(fb, ref_fb, rtol=1e-5, atol=1e-6).all(-1).float().mean().item()
@@ -1167,15 +1466,18 @@ def main() -> int:
     resources = kernel_resources(built["log"])
     for name, res in resources.items():
         log(f"  {name}: {res['registers']} registers, {res['spill_bytes']} bytes spill stores")
-    n_chain = 4 * 2 * 4  # ops x chain counts x unrolls
-    if len(resources) != 2 * 2 * 5 + 1 + n_chain or any(
+    n_chain = 5 * 2 * 4  # ops x chain counts x unrolls
+    # per kernel: 2 modes x 5 walks, and 3 variants for 2 walks (K1 in both
+    # modes, K2's regenerating mode)
+    n_render = 2 * 5 + 2 * 2 * 3 + 2 * 5 + 2 * 3
+    if len(resources) != n_render + 1 + n_chain or any(
             r["registers"] is None for r in resources.values()):
         raise AssertionError(f"ptxas did not report every kernel: {sorted(resources)}")
     for name, (regs, spill) in DEFAULT_RESOURCES.items():
         got = (resources[name]["registers"], resources[name]["spill_bytes"])
         if got != (regs, spill):
-            raise AssertionError(f"{name}: {got} registers and spill bytes, not the previous "
-                                 f"slice's {(regs, spill)}")
+            raise AssertionError(f"{name}: {got} registers and spill bytes, not the recorded "
+                                 f"{(regs, spill)}")
     _build.load_library()
 
     # ---- 1b. the FP32 peak: every later bound divides by its add rate ----
@@ -1273,7 +1575,7 @@ def main() -> int:
     # the timed run's lanes read (px, py, s0, s1) and write radiance and
     # work; its bound from the work of every lane at plain_spp
     k1_bound = render_bound(zt, cornell, dict(k1_counts), main_work.sum().item(), n * (16 + 16),
-                            False)
+                            False, SPP)
 
     # ---- 5. closest-hit kernel against plain ----
     phase("5")
@@ -1326,10 +1628,10 @@ def main() -> int:
     log(f"kernel at the coherent plan ({b_plan[0].shape[0]} lanes, {BALLS_SPP} spp): "
         f"{b_kernel_ms:.3f} ms ({card})")
     b_slice, b_counts = plan_parity(zt, fused, integrator, balls, b_plan, BALLS_SPP, card,
-                                    "coherent-plan")
+                                    "coherent-plan", window=PLAN_WINDOW)
     tree_checks.append(b_slice)
     k1_tree_bound = render_bound(zt, balls, b_counts, b_work.sum().item(),
-                                 b_plan[0].shape[0] * (16 + 12), True)
+                                 b_plan[0].shape[0] * (16 + 12), True, BALLS_SPP)
 
     # ---- 8. the balls region gates ----
     phase("8")
@@ -1345,9 +1647,11 @@ def main() -> int:
 
     # ---- 10. bounce kernel, regenerating mode, against plain ----
     phase("10")
-    for name, depth in (("earth", 10), ("shrek_quads", 10), ("rtw_final", RTW_DEPTH)):
-        tag = f"{name} 32x32 spp8 d{depth}"
-        k2_checks.append(regen_parity(zt, tb, integrator, torch, images[name], 32, 8, depth, tag)[0])
+    for name, depth, spp in (("earth", 10, 8), ("shrek_quads", 10, 8),
+                             ("rtw_final", RTW_DEPTH, RTW_SMALL_SPP)):
+        tag = f"{name} 32x32 spp{spp} d{depth}"
+        k2_checks.append(regen_parity(zt, tb, integrator, torch, images[name], 32, spp, depth,
+                                      tag)[0])
 
     # ---- 11. the rtw_final main path ----
     phase("11")
@@ -1396,12 +1700,13 @@ def main() -> int:
     slice_lanes = tuple(a[::step][:SLICE_LANES].contiguous() for a in r_plan[:2])
     k2_slice, k2_counts, _ = regen_parity(
         zt, tb, integrator, torch, rtw, W, RTW_SPP, RTW_DEPTH,
-        f"{SLICE_LANES} coherent-plan lanes {RTW_SPP} spp d{RTW_DEPTH}", lanes=slice_lanes)
+        f"{SLICE_LANES} coherent-plan lanes, {RTW_SPP} spp in {PLAN_WINDOW}-sample windows "
+        f"d{RTW_DEPTH}", lanes=slice_lanes, window=PLAN_WINDOW)
     k2_checks.append(k2_slice)
     # lanes read 13 float and 5 int state rows and (px, py, limit), and
     # write the 18 state rows
     k2_bound = render_bound(zt, rtw, k2_counts, k2_state.work.sum().item(),
-                            r_plan[0].shape[0] * (84 + 72), False)
+                            r_plan[0].shape[0] * (84 + 72), False, RTW_SPP)
 
     # ---- 12. the image scenes' region gates ----
     phase("12")
@@ -1426,9 +1731,10 @@ def main() -> int:
         f"{lc.atlas_packed.numel() * 4 / 1e6:.1f} MB")
     lut_checks = []
     for tag, scene in luts.items():
-        depth = RTW_DEPTH if tag.startswith("rtw_final") else DEPTH
+        rtw_lut_scene = tag.startswith("rtw_final")
+        depth, spp = (RTW_DEPTH, RTW_SMALL_SPP) if rtw_lut_scene else (DEPTH, 8)
         lut_checks.append(render_parity(zt, fused, integrator, torch, scene,
-                                        f"{tag} 32x32 spp8 d{depth}", depth))
+                                        f"{tag} 32x32 spp{spp} d{depth}", depth, spp=spp))
     lut_checks.append(render_parity(zt, fused, integrator, torch, emitter_scene(zt, LUT_NATIVE),
                                     f"image lamp, LUT {LUT_NATIVE} 32x32 spp8 d{DEPTH}"))
     k2_checks.append(regen_parity(zt, tb, integrator, torch, emitter_scene(zt, 0), 32, 8, DEPTH,
@@ -1503,10 +1809,10 @@ def main() -> int:
     # half phase 11's slice: the LUT render equals the atlas render already
     l_slice, l_counts = plan_parity(zt, fused, integrator, rtw_lut, l_plan, RTW_SPP, card,
                                     "LUT coherent-plan", depth=RTW_DEPTH,
-                                    lanes=SLICE_LANES // 2)
+                                    lanes=SLICE_LANES // 2, window=PLAN_WINDOW)
     lut_checks.append(l_slice)
     k1_lut_bound = render_bound(zt, rtw_lut, l_counts, l_work.sum().item(),
-                                l_plan[0].shape[0] * (16 + 16), False)
+                                l_plan[0].shape[0] * (16 + 16), False, RTW_SPP)
     lut_gates = region_gates(zt, np, rtw_lut, "rtw_final", grid64=4)
     s_renderer = zt.render.Renderer(samples_per_pixel=RTW_SPP, max_ray_bounce_depth=RTW_DEPTH)
     _, s_times, s_fb = timed_renders(s_renderer, luts[f"rtw_final {LUT_32K}"], torch, W, H)
@@ -1518,7 +1824,9 @@ def main() -> int:
     # ---- 15. emissive ----
     phase("15")
     emissive = zt.models.load_scene("emissive", device="cuda")
-    checks.append(render_parity(zt, fused, integrator, torch, emissive, "emissive 32x32 spp8 d10"))
+    e_plains = []
+    checks.append(render_parity(zt, fused, integrator, torch, emissive, "emissive 32x32 spp8 d10",
+                                plains=e_plains))
     e_renderer = zt.render.Renderer(samples_per_pixel=EMISSIVE_SPP, max_ray_bounce_depth=DEPTH)
     reset_counts(fused, integrator, ch, ttrace, tb)
     e_warm_s, e_times, e_fb = timed_renders(e_renderer, emissive, torch, W, H)
@@ -1537,6 +1845,16 @@ def main() -> int:
     log(f"emissive main path best {e_best:.4f} s = {e_mpaths:.2f} Mpaths/s "
         f"(emissive {W}x{H}@{EMISSIVE_SPP} spp d{DEPTH}; {card})")
     emissive_gates = region_gates(zt, np, emissive, "emissive")
+    e_plan = plan_of(e_renderer, emissive.compiled)
+    e_kw = dict(camera_consts=camera_consts(emissive.camera, W, H), sampler=e_renderer.sampler,
+                width=W, height=H, spp=EMISSIVE_SPP, stride=1, max_depth=DEPTH, has_dof=False)
+    e_kernel_ms, (_, e_work) = cuda_time_ms(
+        lambda: fused.render_fused(emissive.compiled, *e_plan, 0, t_min, want_work=True, **e_kw), 3)
+    log(f"render kernel at emissive's sorted plan ({e_plan[0].shape[0]} lanes, {EMISSIVE_SPP} "
+        f"spp): {e_kernel_ms:.3f} ms ({card})")
+    # its bound from the 32x32 parity run's plain work counts, scaled
+    e_bound = render_bound(zt, emissive, e_plains[0][1], e_work.sum().item(),
+                           e_plan[0].shape[0] * (16 + 16), False, EMISSIVE_SPP)
 
     # ---- 16. the CLI ----
     phase("16")
@@ -1547,25 +1865,56 @@ def main() -> int:
     wsc = walk_scenes(zt)
     wpar = phase_walk_parity(zt, fused, tb, integrator, torch, wsc)
 
-    # ---- 18. the walks on the slice's path at full width ----
+    # ---- 18. the walks on the slice's path at full width, cut spp ----
     phase("18")
     wr = lambda scene, spp, depth, walk, ref=None: walk_render(
         zt, fused, integrator, ch, ttrace, tb, torch, scene, spp, depth, walk, card, ref)
     paths = {}
-    b_default, b2_fb = wr(wsc["balls2"], BALLS_SPP, DEPTH, "cond")
-    b_default.update(render_bound(zt, wsc["balls2"], wpar["cond"]["K1 balls"][1],
-                                  b_default["work"], b_default["lanes"] * (16 + 12), True))
-    paths[("K1", "cond")] = b_default
-    for walk in ("queue", "rowqueue", "spec"):
-        paths[("K1", walk)] = wr(wsc["balls2"], BALLS_SPP, DEPTH, walk, b2_fb)[0]
-        paths[("K2", walk)] = wr(rtw, RTW_SPP, RTW_DEPTH, walk, r_fb)[0]
-    paths[("K2", "uni")], uni_fb = wr(wsc["rtw_uni"], RTW_SPP, RTW_DEPTH, "uni", r_fb)
-    paths[("K1", "uni")] = wr(wsc["rtw_uni_lut"], RTW_SPP, RTW_DEPTH, "uni", l_fb)[0]
+    b_default, b2_fb = wr(wsc["balls2"], WALK18_BALLS_SPP, DEPTH, DEFAULT_WALK)
+    b_default.update(render_bound(zt, wsc["balls2"], wpar[DEFAULT_WALK]["K1 balls"][1],
+                                  b_default["work"], b_default["lanes"] * (16 + 12), True,
+                                  WALK18_BALLS_SPP))
+    r18_default, r18_fb = wr(wsc["rtw"], WALK18_RTW_SPP, RTW_DEPTH, DEFAULT_WALK)
+    l18_default, l18_fb = wr(wsc["rtw_lut"], WALK18_RTW_SPP, RTW_DEPTH, DEFAULT_WALK)
+    for walk in OTHER_WALKS[:-1]:
+        paths[("K1", walk)] = wr(wsc["balls2"], WALK18_BALLS_SPP, DEPTH, walk, b2_fb)[0]
+        paths[("K2", walk)] = wr(wsc["rtw"], WALK18_RTW_SPP, RTW_DEPTH, walk, r18_fb)[0]
+    paths[("K2", "uni")], uni_fb = wr(wsc["rtw_uni"], WALK18_RTW_SPP, RTW_DEPTH, "uni", r18_fb)
+    paths[("K1", "uni")] = wr(wsc["rtw_uni_lut"], WALK18_RTW_SPP, RTW_DEPTH, "uni", l18_fb)[0]
     uni_gates = region_gates(zt, np, wsc["rtw_uni"], "rtw_final", grid64=4)
-    log("walks at full width (Mpaths/s; " + card + "): " + ", ".join(
-        f"{k} {w} {v['mpaths_per_s']:.2f}" for (k, w), v in paths.items())
-        + f"; default walk: balls span 2 {b_default['mpaths_per_s']:.2f}, rtw_final (K2) "
-        f"{r_mpaths:.2f}, rtw_final LUT (K1) {l_mpaths:.2f}")
+    log("walks at full width, span 2, balls at " + str(WALK18_BALLS_SPP) + " spp, rtw_final at "
+        + str(WALK18_RTW_SPP) + " spp (Mpaths/s; " + card + "): " + ", ".join(
+            f"{k} {w} {v['mpaths_per_s']:.2f}" for (k, w), v in paths.items())
+        + f"; default walk: balls {b_default['mpaths_per_s']:.2f}, rtw_final (K2) "
+        f"{r18_default['mpaths_per_s']:.2f}, rtw_final LUT (K1) {l18_default['mpaths_per_s']:.2f}")
+
+    # ---- 19. the three samplers and nine lights ----
+    phase("19")
+    sampler_checks = phase_samplers(zt, fused, tb, integrator, torch)
+
+    # ---- 20. the redesign, measured inside the kernels ----
+    phase("20")
+    with leaf_span(64):
+        balls_jax = zt.models.load_scene("balls", device="cuda")
+    with leaf_span(32):
+        rtw_jax = zt.models.load_scene("rtw_final", device="cuda")
+        rtw_lut_jax = zt.models.load_scene("rtw_final", device="cuda", texture_lut=LUT_NATIVE)
+    fused.render_fused_variant.launches = dict.fromkeys(fused.render_fused_variant.launches, 0)
+    tb.bounce_regen_variant.launches = dict.fromkeys(tb.bounce_regen_variant.launches, 0)
+    design = phase_design(zt, fused, tb, integrator, torch, (
+        ("cornell", cornell, cornell, SPP, DEPTH),
+        ("balls", balls, balls_jax, BALLS_SPP, DEPTH),
+        ("rtw_final K2", rtw, rtw_jax, RTW_SPP, RTW_DEPTH),
+        ("rtw_final LUT K1", rtw_lut, rtw_lut_jax, RTW_SPP, RTW_DEPTH),
+        ("emissive", emissive, emissive, EMISSIVE_SPP, DEPTH),
+    ), card)
+    variant_launches = {"render_fused_variant": dict(fused.render_fused_variant.launches),
+                        "bounce_regen_variant": dict(tb.bounce_regen_variant.launches)}
+    log(f"measurement variants launched (apart from every path): {variant_launches}")
+
+    # ---- 21. leaf span x walk sweep ----
+    phase("21")
+    sweep = phase_sweep(zt, card)
 
     b_hit = hit_checks[1]
     k2_first = k2_one[0]
@@ -1607,7 +1956,7 @@ def main() -> int:
                                                          " span 2"): path["launches"]}
         else:
             case = "K2 regen"
-            scene = wsc["rtw_uni"] if walk == "uni" else rtw
+            scene = wsc["rtw_uni"] if walk == "uni" else wsc["rtw"]
             name = f"bounce_kernel ({walk} walk, regenerating)"
             res = f"bounce_kernel<true, {walk}>"
             parity = [checks[c][0] for c in ("K2 regen", "K2 one bounce",
@@ -1616,7 +1965,7 @@ def main() -> int:
             src, by_path = BOUNCE_SOURCE, {"rtw_final" + (" uni" if walk == "uni" else ""):
                                            path["launches"]}
         bound = render_bound(zt, scene, checks[case][1], path["work"], lane_bytes,
-                             scene.camera.has_depth_of_field)
+                             scene.camera.has_depth_of_field, path["spp"])
         return entry(name, src, WALK_REPLACES[walk], res, path["launches"], by_path, parity,
                      path["ms"], parity[0]["plain_ms"], bound, render_tol,
                      plain_lanes=32 * 32, render_s_best=path["render_s_best"],
@@ -1627,20 +1976,23 @@ def main() -> int:
 
     record = {"kernels": [
         entry("fused_render_kernel (brute)", KERNEL_SOURCE, KERNEL_REPLACES,
-              "fused_render_kernel<false, cond>", launches + e_k1,
+              f"fused_render_kernel<false, {DEFAULT_WALK}>", launches + e_k1,
               {"cornell": launches, "emissive": e_k1}, checks, kernel_ms, plain_ms, k1_bound,
               render_tol, plain_spp=plain_spp, kernel_ms_at_plain_spp=kernel_ms_same,
               render_s_best=best, mpaths_per_s=mpaths, region_gate=verdict,
               emissive_render_s_best=e_best, emissive_mpaths_per_s=e_mpaths,
-              emissive_region_gates=emissive_gates),
+              emissive_region_gates=emissive_gates, emissive_ms=e_kernel_ms,
+              emissive_bound_ms=e_bound["bound_ms"], emissive_bound_by=e_bound["bound_by"]),
         entry("fused_render_kernel (tree)", KERNEL_SOURCE, KERNEL_REPLACES,
-              "fused_render_kernel<false, cond>", b_launches, {"balls": b_launches}, tree_checks,
+              f"fused_render_kernel<false, {DEFAULT_WALK}>", b_launches, {"balls": b_launches},
+              tree_checks,
               b_kernel_ms, b_slice["plain_ms"], k1_tree_bound, render_tol,
               plain_lanes=SLICE_LANES, kernel_ms_at_plain_lanes=b_slice["ms"],
               balls_render_s_best=b_best, balls_mpaths_per_s=b_mpaths,
               balls_region_gates=balls_gates),
         entry("fused_render_kernel (texture LUT)", KERNEL_SOURCE, KERNEL_LUT_REPLACES,
-              "fused_render_kernel<true, cond>", l_k1, {"rtw_final LUT": l_k1}, lut_checks,
+              f"fused_render_kernel<true, {DEFAULT_WALK}>", l_k1, {"rtw_final LUT": l_k1},
+              lut_checks,
               l_kernel_ms, l_slice["plain_ms"], k1_lut_bound, render_tol,
               plain_lanes=SLICE_LANES // 2, kernel_ms_at_plain_lanes=l_slice["ms"],
               rtw_final_render_s_best=l_best, rtw_final_mpaths_per_s=l_mpaths,
@@ -1648,16 +2000,17 @@ def main() -> int:
               atlas_render_max_abs_diff=l_vs_atlas, region_gates=lut_gates,
               lut_32k_mpaths_per_s=s_mpaths, lut_32k_mean_abs_diff=s_diff,
               lut_vs_atlas_pairs_ms=lut_pairs, lut_vs_atlas_same_lanes=lut_same_lanes),
-        entry("bounce_kernel (one bounce)", BOUNCE_SOURCE, BOUNCE_REPLACES, "bounce_kernel<false, cond>",
+        entry("bounce_kernel (one bounce)", BOUNCE_SOURCE, BOUNCE_REPLACES,
+              f"bounce_kernel<false, {DEFAULT_WALK}>",
               0, {}, k2_one, k2_first["ms"], k2_first["plain_ms"], bound_of(k2_first), bounce_tol,
               note="parity only: no main path runs the one-bounce mode; times and bound "
                    "are rtw_final's first bounce at 160,000 lanes"),
         entry("bounce_kernel (one bounce, texture LUT)", BOUNCE_SOURCE, BOUNCE_REPLACES,
-              "bounce_kernel<false, cond>", 0, {}, k2_lut, k2_lut_first["ms"],
+              f"bounce_kernel<false, {DEFAULT_WALK}>", 0, {}, k2_lut, k2_lut_first["ms"],
               k2_lut_first["plain_ms"], bound_of(k2_lut_first), bounce_tol,
               note="parity only: no main path runs the one-bounce mode"),
         entry("bounce_kernel (regenerating)", BOUNCE_SOURCE, BOUNCE_REPLACES,
-              "bounce_kernel<true, cond>", r_k2, {"rtw_final": r_k2}, k2_checks, k2_ms,
+              f"bounce_kernel<true, {DEFAULT_WALK}>", r_k2, {"rtw_final": r_k2}, k2_checks, k2_ms,
               k2_slice["plain_ms"], k2_bound, render_tol, plain_lanes=SLICE_LANES,
               kernel_ms_at_plain_lanes=k2_slice["ms"],
               driver_passes_per_band=passes / max(bands, 1), rtw_final_render_s_best=r_best,
@@ -1669,7 +2022,7 @@ def main() -> int:
               b_hit["ms"], b_hit["plain_ms"], bound_of(b_hit),
               f"(kind, idx) equal on >= {HIT_AGREE:.1%} of rays; t rtol {HIT_RTOL}, "
               f"atol {HIT_ATOL}"),
-        *(walk_entry(kernel, walk) for kernel in ("K1", "K2") for walk in NEW_WALKS),
+        *(walk_entry(kernel, walk) for kernel in ("K1", "K2") for walk in OTHER_WALKS),
         {"name": "chain_kernel (fp32 peak)", "route": "cuda", "source": PEAK_SOURCE,
          "replaces": PEAK_REPLACES, "launches": peak["launches"],
          "launches_by_path": {"fp32 peak sweep": peak["launches"]},
@@ -1685,8 +2038,9 @@ def main() -> int:
                  f"where the kernel took {peak['kernel_ms_at_plain_shape']:.4f} ms",
          **{k: peak[k] for k in ("gops", "gflops", "best_shape", "physics_bound",
                                  "time_ratio_4x", "sass")}},
-    ], "cli": cli_checks, "ops_rate": OPS_RATE["rate"],
-        "default_walk_balls_span2": b_default}
+    ], "cli": cli_checks, "ops_rates": OPS_RATE["rate"],
+        "default_walk_balls_span2": b_default, "samplers": sampler_checks, "design": design,
+        "variant_launches": variant_launches, "sweep": sweep, "resources": resources}
     log(f"script: {time.perf_counter() - START:.1f} s")
     print(card, flush=True)
     print(json.dumps(record), flush=True)

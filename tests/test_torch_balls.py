@@ -104,19 +104,24 @@ def test_render_fused_matches_jax_kernel(pallas_interpret, monkeypatch, span):
 
 
 def test_render_fused_single_leaf_equals_deep_tree(monkeypatch):
-    """The package default span makes balls one leaf; its render equals the
-    span-4 render (a 31-node tree), which the test above holds to JAX."""
-    monkeypatch.delenv("ZWRT_LEAF_GROUPS", raising=False)
+    """The JAX package's span makes balls one leaf, the port's default one
+    group per leaf (a 121-node tree); both renders equal the span-4 render
+    (a 31-node tree), which the test above holds to JAX."""
+    monkeypatch.setenv("ZWRT_LEAF_GROUPS", "64")
     one_leaf = zt.models.load_scene("balls", device="cpu")
-    assert one_leaf.compiled.sph_leaf_span == 64
     assert one_leaf.compiled.sph_tree_box.shape[0] == 1
+    monkeypatch.delenv("ZWRT_LEAF_GROUPS", raising=False)
+    default = zt.models.load_scene("balls", device="cpu")
+    assert default.compiled.sph_leaf_span == 1
+    assert default.compiled.sph_tree_box.shape[0] == 121
     monkeypatch.setenv("ZWRT_LEAF_GROUPS", "4")
     deep = zt.models.load_scene("balls", device="cpu")
     lanes = _lanes()
-    r1, w1 = _render_port(one_leaf, lanes)
     r4, w4 = _render_port(deep, lanes)
-    np.testing.assert_array_equal(w1, w4)
-    np.testing.assert_array_equal(r1, r4)
+    for scene in (one_leaf, default):
+        r, w = _render_port(scene, lanes)
+        np.testing.assert_array_equal(w, w4)
+        np.testing.assert_array_equal(r, r4)
 
 
 def test_renderer_coherent_plan_matches_jax(pallas_interpret, balls):

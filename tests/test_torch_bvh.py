@@ -2,9 +2,12 @@
 package.
 
 The tree build is host numpy on both sides, so node boxes, links, leaf-slot
-attributes and spans must be equal exactly: for balls at the package
-default span (one 512-slot leaf), at this suite's span 4 and at span 2, and
-for the random scenes of tests/test_pallas.py:57-64.  ``aabb_hit`` must
+attributes and spans must be equal exactly whenever ``ZWRT_LEAF_GROUPS``
+sets the span (the pin every JAX-parity test rests on): for balls at the
+port's default span (the JAX package built at that span), at this suite's
+span 4 and at span 2, for balls and rtw_final at spans 1, 8, 32 and 64,
+and for the random scenes of tests/test_pallas.py:57-64.  Unset, the port
+takes its own span policy, the JAX package its own.  ``aabb_hit`` must
 give JAX's verdicts, including rays with a zero direction component whose
 origin lies on a box face, where 0 * inf = NaN fails the test on both
 sides."""
@@ -76,15 +79,36 @@ def assert_same_trees(ct, cj):
 
 @pytest.mark.parametrize("span", [None, "4", "2"])
 def test_balls_trees_equal_jax(monkeypatch, span):
+    """None: the port's default span, the JAX package built at it."""
     if span is None:
         monkeypatch.delenv("ZWRT_LEAF_GROUPS", raising=False)
     else:
         monkeypatch.setenv("ZWRT_LEAF_GROUPS", span)
     ct = zt.models.load_scene("balls", device="cpu").compiled
+    if span is None:
+        assert ct.sph_leaf_span == tbvh.pick_leaf_span(485) == 1
+        monkeypatch.setenv("ZWRT_LEAF_GROUPS", str(ct.sph_leaf_span))
     assert_same_trees(ct, zj.models.load_scene("balls").compiled)
     assert ct.has_sph_tree and not ct.has_quad_tree
     n_nodes = ct.sph_tree_box.shape[0]
-    assert (n_nodes == 1) if span is None else (n_nodes > 3)
+    assert (n_nodes == 121) if span is None else (n_nodes > 3)
+
+
+@pytest.mark.parametrize("span", ["1", "8", "32", "64"])
+def test_trees_equal_jax_whenever_the_span_is_set(monkeypatch, span):
+    """The per-kind trees of balls and rtw_final, and rtw_final's unified
+    tree, equal the JAX package's at any span ZWRT_LEAF_GROUPS sets."""
+    monkeypatch.setenv("ZWRT_LEAF_GROUPS", span)
+    for name in ("balls", "rtw_final"):
+        ct = zt.models.load_scene(name, device="cpu").compiled
+        assert ct.sph_leaf_span == int(span)
+        assert_same_trees(ct, zj.models.load_scene(name).compiled)
+    monkeypatch.setenv("ZWRT_UNI_TREE", "1")
+    ct = zt.models.load_scene("rtw_final", device="cpu").compiled
+    cj = zj.models.load_scene("rtw_final").compiled
+    assert ct.uni_leaf_span == cj.uni_leaf_span == int(span)
+    for f in ("uni_tree_box", "uni_tree_link"):
+        np.testing.assert_array_equal(getattr(ct, f).numpy(), np.asarray(getattr(cj, f)))
 
 
 @pytest.mark.parametrize("seed,n_s,n_q,moving", RANDOM_SCENES)
@@ -119,8 +143,12 @@ def test_build_group_tree_and_prim_boxes_equal_jax():
 
 @pytest.mark.parametrize("n", [1, 64, 300, 512, 513, 5000])
 def test_pick_leaf_span_equals_jax(monkeypatch, n):
+    """Set, ZWRT_LEAF_GROUPS gives both packages the same span; unset, the
+    port sizes leaves for one thread's walk (one group up to 4,096
+    primitives, then two) where the JAX package takes 64 or 32."""
     monkeypatch.delenv("ZWRT_LEAF_GROUPS", raising=False)
-    assert tbvh.pick_leaf_span(n) == j_pick_leaf_span(n)
+    assert tbvh.pick_leaf_span(n) == (1 if n <= tbvh.SMALL_SPAN_MAX_PRIMS else 2)
+    assert j_pick_leaf_span(n) == (64 if n <= 512 else 32)
     monkeypatch.setenv("ZWRT_LEAF_GROUPS", "3")
     assert tbvh.pick_leaf_span(n) == j_pick_leaf_span(n) == 3
 

@@ -2,9 +2,10 @@
 on the CPU.
 
   1. The chain kernel's plain version against the JAX package's
-     ``tools/vpu_peak.py`` chains, built with ``interpret=True``, for all
-     four ops, within rtol 1e-5 (XLA on the CPU may contract the fma chain
-     differently; the port's plain fma rounds once, as fmaf does).
+     ``tools/vpu_peak.py`` chains, built with ``interpret=True``, for its
+     four FP32 ops, within rtol 1e-5 (XLA on the CPU may contract the fma
+     chain differently; the port's plain fma rounds once, as fmaf does);
+     the int chain, which vpu_peak.py has not, against Python integers.
   2. The closed forms the rate accounting assumes: the chains are genuine
      recurrences, not foldable no-ops.
   3. The wrapper: CPU multipliers run the plain version and launch nothing;
@@ -28,7 +29,7 @@ from zig_weekend_raytracer_tpu_torch.tools import fp32_peak as fp
 C = fp.C_VALUE
 
 
-@pytest.mark.parametrize("op", fp.OPS)
+@pytest.mark.parametrize("op", [op for op in fp.OPS if op != "int"])
 @pytest.mark.parametrize("iters,chains,rows,unroll", [(40, 3, 8, 1), (10, 4, 8, 4)])
 def test_chain_reference_matches_vpu_peak(op, iters, chains, rows, unroll):
     build = vpu_peak._kernels()
@@ -37,6 +38,24 @@ def test_chain_reference_matches_vpu_peak(op, iters, chains, rows, unroll):
     got = fp.chain_reference(op, fp.multipliers("cpu"), rows * 128, iters, chains, unroll)
     assert got.dtype == torch.float32 and got.shape == (rows * 128,)
     np.testing.assert_allclose(got.numpy().reshape(rows, 128), want, rtol=1e-5)
+
+
+@pytest.mark.parametrize("iters,chains,unroll", [(40, 3, 1), (10, 4, 4)])
+def test_int_chain_reference(iters, chains, unroll):
+    """a = (a * m + k) ^ x on u32 from a = 1 + chain, m, k and x from the
+    bits of the multiplier; the output holds the bits of the u32 sum."""
+    c = fp.multipliers("cpu").clone()
+    c[3] = 0.5
+    got = fp.chain_reference("int", c, 256, iters, chains, unroll).view(torch.int32).numpy()
+    for lane in (0, 3, 131):
+        b = int(np.float32(c[lane % 128]).view(np.uint32))
+        m, k = b | 1, b >> 3
+        acc = [1 + j for j in range(chains)]
+        for _ in range(iters * unroll):
+            acc = [((a * m + k) & 0xFFFFFFFF) ^ (0x9E3779B9 ^ k) for a in acc]
+        assert got[lane] == np.uint32(sum(acc) & 0xFFFFFFFF).view(np.int32)
+    assert got[3] != got[0] and got[131] == got[3]
+    assert fp.RATE_OF_CLASS == {"fp": "add", "cmp": "select", "int": "int"}
 
 
 def test_chain_closed_forms():
@@ -97,17 +116,20 @@ def _fake_card(monkeypatch, gops, ratio, clock_mhz=1980.0):
 
 def test_run_accepts_a_reading_under_the_physics_bound(monkeypatch):
     _fake_card(monkeypatch, {"fma": 33000.0, "add": 33100.0, "select": 16000.0,
-                             "newton": 32900.0}, ratio=4.0)
+                             "newton": 32900.0, "int": 16500.0}, ratio=4.0)
     out = fp.run(fp.ITERS_QUICK)
     assert out["ok"] and out["over_physics"] == []
     assert out["add_gops"] == 33100.0 and out["best_shape"]["add"][2] == 64
+    assert out["rates"] == {"fp": 33100e9, "cmp": 16000e9, "int": 16500e9}
     assert out["iters_scaling"]["linear"] and np.isclose(out["iters_scaling"]["time_ratio_4x"], 4.0)
     assert len(out["sweep"]) == len(fp.OPS) * len(fp.SWEEP)
 
 
 @pytest.mark.parametrize("gops,ratio,why", [
-    ({"fma": 36000.0, "add": 33000.0, "select": 16000.0, "newton": 33000.0}, 4.0, "physics"),
-    ({"fma": 33000.0, "add": 33000.0, "select": 16000.0, "newton": 33000.0}, 2.0, "linear"),
+    ({"fma": 36000.0, "add": 33000.0, "select": 16000.0, "newton": 33000.0, "int": 16000.0},
+     4.0, "physics"),
+    ({"fma": 33000.0, "add": 33000.0, "select": 16000.0, "newton": 33000.0, "int": 16000.0},
+     2.0, "linear"),
 ])
 def test_run_rejects_an_implausible_reading(monkeypatch, gops, ratio, why):
     _fake_card(monkeypatch, gops, ratio)

@@ -262,9 +262,20 @@ def test_kernel_tables_and_params(cornell):
         1024, 1, 10, False,
     )
     assert ints.dtype == np.int32 and floats.dtype == np.float32
-    assert list(ints[:15]) == [400, 400, 1024, 1, 10, 2, 9, 32, 0, 1, 12, 13, 2, 0, 0]
-    assert len(ints) == 15 + fused_render.MAX_LIGHTS
-    assert len(floats) == 23 + fused_render.MAX_LIGHTS * fused_render.LIGHT_FLOATS
+    # the last int is the Sobol tables' bytes per dimension: samples < 1024
+    assert list(ints) == [400, 400, 1024, 1, 10, 2, 9, 32, 0, 1, 12, 13, 2, 0, 0, 2]
+    assert len(floats) == 23
+    # the light list is a device table: the sphere light, then the ceiling quad
+    kinds, rows = fused_render.light_table(cs)
+    assert kinds.tolist() == [k for k, _ in cs.light_params]
+    assert rows.shape == (2, fused_render.LIGHT_FLOATS)
+    for row, (_, p) in zip(rows.numpy(), cs.light_params):
+        np.testing.assert_array_equal(row[: len(p)], np.asarray(p, np.float32))
+    ptrs, keep = fused_render.launch_tables(cs, zt.sampling.SamplerKind.SOBOL, 400, 400, 1024)
+    assert list(ptrs) == [t.data_ptr() for t in keep] and keep[2].shape == (2 * 2 * 256,)
+    ptrs, keep = fused_render.launch_tables(cs, zt.sampling.SamplerKind.STRATIFIED, 400, 400,
+                                            1024)
+    assert ptrs[2] == 0 and len(keep) == 2
     # brute spheres and quads: two row tables, no tree tables
     t_ints, t_ptrs, tables = fused_render.trace_args(cs)
     assert list(t_ints) == [fused_render.TRACE_BRUTE, 1, 0, 0, fused_render.TRACE_BRUTE, 12, 0, 0, 0,

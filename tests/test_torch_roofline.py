@@ -9,8 +9,10 @@ plain versions did on the CPU.
   2. The tree walk on rtw_final's camera rays: slab tests, leaf visits and
      leaf-slot tests by kind, each slot test a whole leaf's 8 x span slots.
   3. The bound: operations from the per-unit table, bytes, and which of
-     the two bounds it.
+     the two bounds it; each operation class at its own rate.
   4. A texture-LUT render: the fetch's operations and the LUT's bytes.
+  5. The per-unit table against its earlier FP32 counts, and the Sobol
+     sampler's integer work in its two forms.
 """
 
 import numpy as np
@@ -58,7 +60,7 @@ def test_render_counts_match_the_render():
     assert sum(c[f"hit_{m}"] for _, m in integrator._MATERIALS) == hits > 0
     assert c["hit_sphere"] <= hits and c["slab_test"] == 0
     ops = roofline.render_ops(c, cs, has_dof=False)
-    per_bounce = ops / c["bounce"]
+    per_bounce = roofline.total(ops) / c["bounce"]
     # at least the trace of every primitive, at most every unit at once
     assert cs.n_spheres * 28 + cs.n_quads * 39 < per_bounce < 2000
 
@@ -82,7 +84,8 @@ def test_tree_walk_counts():
     assert c["sphere_test"] % (cs.sph_leaf_span * 8) == 0
     assert c["quad_test"] % (cs.quad_leaf_span * 8) == 0
     assert c["sphere_test"] + c["quad_test"] <= c["leaf_visit"] * spans
-    assert roofline.trace_ops(c) > c["slab_test"] * roofline.OPS["slab_test"]
+    assert (roofline.total(roofline.trace_ops(c))
+            > c["slab_test"] * roofline.total(roofline.OPS["slab_test"]))
 
 
 @pytest.mark.parametrize("ops,nbytes,by", [(33.5e12, 1.0, "operations"), (1.0, 3.35e12, "bytes")])
@@ -134,7 +137,66 @@ def test_lut_fetch_counts_and_bytes():
     assert c["texel_quad"] == hits > 0 and c.get("texel_sphere", 0) == 0
     no_texel = {k: v for k, v in c.items() if not k.startswith("texel_")}
     ops = roofline.render_ops(c, cs, has_dof=False)
-    assert ops - roofline.render_ops(no_texel, cs, has_dof=False) == 44 * c["texel_quad"]
+    fetch = roofline.OPS["texel_quad"]
+    assert fetch["fp"] + fetch["cmp"] == 44
+    assert roofline.total(ops) - roofline.total(roofline.render_ops(no_texel, cs, has_dof=False)) \
+        == roofline.total(fetch) * c["texel_quad"]
     ms, by = roofline.bound_ms(ops, w * w * 32 + roofline.render_table_bytes(cs))
     assert by == "bytes" and np.isclose(ms, (w * w * 32 + roofline.render_table_bytes(cs))
                                         / roofline.PEAK_BYTES * 1e3)
+
+
+def test_bound_prices_each_class_at_its_rate():
+    """Every operation passes the one dispatch slot at the fp rate, and
+    each class its own pipe: compares at half the rate bound a
+    compare-heavy count, the dispatch slot a mixed one."""
+    rates = {"fp": 32e12, "cmp": 16e12, "int": 8e12}
+    ms, by = roofline.bound_ms({"fp": 0, "cmp": 16e12, "int": 0}, 1.0, rates)
+    assert by == "operations" and np.isclose(ms, 1e3)
+    ms, _ = roofline.bound_ms({"fp": 16e12, "cmp": 8e12, "int": 8e12}, 1.0, rates)
+    assert np.isclose(ms, 1e3)  # the int pipe: 8e12 / 8e12
+    ms, _ = roofline.bound_ms({"fp": 24e12, "cmp": 4e12, "int": 4e12}, 1.0, rates)
+    assert np.isclose(ms, 1e3)  # the dispatch slot: 32e12 / 32e12
+    # one number is the fp rate, the others at the data sheet's ratio
+    assert np.isclose(roofline.ops_seconds({"fp": 0, "cmp": 1e12, "int": 0}, 32e12), 1 / 16)
+    assert roofline.DATA_SHEET_RATES["cmp"] == roofline.PEAK_FP32_OPS / 2
+
+
+# The per-unit FP32 counts before the classes (compares and selects
+# counted as FP32)
+PR5_FP32 = {
+    "camera_ray": 30, "camera_dof": 31, "trace": 9, "sphere_test": 28, "quad_test": 39,
+    "leaf_visit": 16, "shade": 16, "hit_sphere": 12, "checker": 6, "miss": 6,
+    "hit_emissive": 6, "hit_lambertian": 87, "hit_isotropic": 55, "hit_metal": 24,
+    "hit_metal_gauss": 60, "hit_dielectric": 68, "texel_sphere": 26, "texel_quad": 44,
+    "light_pdf_sphere": 52, "light_pdf_quad": 73, "light_sample_sphere": 77,
+    "light_sample_quad": 15,
+}
+
+
+@pytest.mark.parametrize("unit", sorted(PR5_FP32))
+def test_ops_split_keeps_the_fp32_counts(unit):
+    """Each unit's fp and cmp classes add up to the earlier FP32 count;
+    only the slab test grew, its 12 NaN-propagating min/max now a compare
+    and a select each."""
+    ops = roofline.OPS[unit]
+    assert ops["fp"] + ops["cmp"] == PR5_FP32[unit] and ops["int"] >= 0
+
+
+def test_slab_and_sobol_integer_counts():
+    slab = roofline.OPS["slab_test"]
+    assert slab["fp"] == 13 and slab["cmp"] == 2 * 12 + 1
+    # the bit loops: 28 VdC columns, 2L inverse columns, 2 x 52 generator columns
+    loop = roofline.sobol_ops(9, 2, loop=True)
+    assert loop == {"fp": 0, "cmp": 0, "int": 3 * 28 + 6 * 18 + 8 * 52}
+    assert roofline.sobol_ops(0, 2, loop=True)["int"] == 8 * 52
+    # the factored form: three per byte and dimension, two XORs with Q
+    table = roofline.sobol_ops(9, 2, loop=False)
+    assert table["int"] == 14 < loop["int"] / 40
+    pcg = roofline.OPS["shade"]["int"]
+    assert pcg >= 20  # one PCG4D draw per bounce
+    counts = {"camera_ray": 10, "bounce": 0}
+    sc = zt.models.load_scene("cornell_box", device="cpu")
+    with_loop = roofline.render_ops(counts, sc.compiled, False, sobol=(9, 2, True))
+    plain = roofline.render_ops(counts, sc.compiled, False)
+    assert with_loop["int"] - plain["int"] == 10 * loop["int"]

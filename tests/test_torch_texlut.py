@@ -285,14 +285,14 @@ def test_image_args_pack_the_fetched_table(budget):
     on the host) is the LUT when the scene has one, else the atlas, each
     image at the base and row stride of the plain fetch."""
     cs = _image_scene(zt).compile(device="cpu", texture_lut=budget).compiled
-    ints, texels = tfused.image_args(cs)
+    dims, texels = tfused.image_args(cs)
     if budget:
         (w, h, base), = cs.tex_lut_dims
-        want, table = [1, w, h, base, w], cs.tex_lut_tab
+        want, table = [[w, h, base, w]], cs.tex_lut_tab
     else:
         (w, h), = cs.image_dims
-        want, table = [1, w, h, 0, cs.atlas_packed.shape[2]], cs.atlas_packed.reshape(-1)
-    assert ints.dtype == np.int32 and ints.tolist() == want
+        want, table = [[w, h, 0, cs.atlas_packed.shape[2]]], cs.atlas_packed.reshape(-1)
+    assert dims.dtype == torch.int32 and dims.tolist() == want
     assert torch.equal(texels, table)
 
 

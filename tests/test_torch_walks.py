@@ -91,15 +91,17 @@ def test_uni_fields_equal_jax_random_scene(monkeypatch):
 
 @pytest.mark.parametrize("span", ["4", None])
 def test_uni_fields_equal_jax_rtw_final(monkeypatch, span):
-    """At this suite's span and at the package default (32)."""
+    """At this suite's span and at the port's default (1 for rtw_final's
+    3,406 primitives), the JAX package built at that span."""
     if span is None:
         monkeypatch.delenv("ZWRT_LEAF_GROUPS", raising=False)
     else:
         monkeypatch.setenv("ZWRT_LEAF_GROUPS", span)
     monkeypatch.setenv("ZWRT_UNI_TREE", "1")
     ct = zt.models.load_scene("rtw_final", device="cpu").compiled
+    assert ct.uni_leaf_span == (1 if span is None else 4)
+    monkeypatch.setenv("ZWRT_LEAF_GROUPS", str(ct.uni_leaf_span))
     cj = zj.models.load_scene("rtw_final").compiled
-    assert ct.uni_leaf_span == (32 if span is None else 4)
     assert_same_uni(ct, cj)
 
 
@@ -188,7 +190,9 @@ def test_walk_work_counts(big_scene):
 def test_walk_of_reads_the_environment(monkeypatch, big_scene):
     per_kind, uni, _ = big_scene
     monkeypatch.delenv("ZWRT_TRAV", raising=False)
-    assert ttrace.walk_of(per_kind) == "cond" and ttrace.walk_of(uni) == "uni"
+    # the port's default walk (the JAX package's is cond)
+    assert ttrace.walk_of(per_kind) == ttrace.DEFAULT_WALK == "queue"
+    assert ttrace.walk_of(uni) == "uni"
     for value, walk in (("queue", "queue"), ("rowqueue", "rowqueue"), ("spec", "spec"),
                         ("cond", "cond"), ("bogus", "queue")):
         monkeypatch.setenv("ZWRT_TRAV", value)
@@ -224,7 +228,7 @@ def test_walk_args_and_queue_capacity(monkeypatch, big_scene):
     per_kind, uni, _ = big_scene
     n_s, n_q = per_kind.sph_tree_box.shape[0], per_kind.quad_tree_box.shape[0]
     cap = (max(n_s, n_q) + 1) // 2 + 1  # a skip-link tree's most leaves, plus one
-    for value, code in (("queue", 1), ("rowqueue", 2), ("spec", 3), (None, 0)):
+    for value, code in (("queue", 1), ("rowqueue", 2), ("spec", 3), ("cond", 0), (None, 1)):
         if value is None:
             monkeypatch.delenv("ZWRT_TRAV", raising=False)
         else:

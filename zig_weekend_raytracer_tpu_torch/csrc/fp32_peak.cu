@@ -1,5 +1,5 @@
-// chain_kernel: register-resident FP32 operation chains, the issue-limited
-// peak rate of one operation class on this card.
+// chain_kernel: register-resident FP32 (and int32) operation chains, the
+// dispatch-limited peak rate of one operation class on this card.
 //
 // Replaces the TPU kernel tools/vpu_peak.py:_chain_kernel (built by
 // vpu_peak.build): each thread carries CHAINS independent accumulators,
@@ -23,7 +23,10 @@
 // chain is written with __fmaf_rn, which is one FFMA in the SASS; the add
 // chain is one FADD (its product c * 0.0005 is loop-invariant and hoisted),
 // the select chain a compare and a select, the newton chain an FFMA and an
-// FMUL.
+// FMUL.  The int chain (a = (a * m + k) ^ x on u32, m, k and x from the
+// bits of c) is an IMAD and a LOP3: the rate of the integer work (PCG4D,
+// Sobol bits, indices) that utils/roofline.py prices; it writes the bits of
+// its u32 sum.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -31,7 +34,16 @@
 namespace zwrt {
 
 // Operation classes, as tools/fp32_peak.py:OPS numbers them.
-enum ChainOp { kChainFma = 0, kChainAdd = 1, kChainSelect = 2, kChainNewton = 3 };
+enum ChainOp { kChainFma = 0, kChainAdd = 1, kChainSelect = 2, kChainNewton = 3, kChainInt = 4 };
+
+// The int chain's constants from the bits of the multiplier (as
+// tools/fp32_peak.py:int_constants).
+__device__ __forceinline__ void int_constants(float c, uint32_t* m, uint32_t* k, uint32_t* x) {
+  const uint32_t b = __float_as_uint(c);
+  *m = b | 1u;
+  *k = b >> 3;
+  *x = 0x9E3779B9u ^ *k;
+}
 
 template <int OP>
 __device__ __forceinline__ float chain_step(float a, float c, float add_c, float sel_c) {
@@ -42,11 +54,35 @@ __device__ __forceinline__ float chain_step(float a, float c, float add_c, float
   return a * __fmaf_rn(-c, a, 2.0f);
 }
 
+template <int CHAINS, int UNROLL>
+__device__ __forceinline__ float int_chain(float cv, int iters) {
+  uint32_t m, k, x;
+  int_constants(cv, &m, &k, &x);
+  uint32_t acc[CHAINS];
+#pragma unroll
+  for (int j = 0; j < CHAINS; ++j) acc[j] = 1u + (uint32_t)j;
+  for (int it = 0; it < iters; ++it) {
+#pragma unroll
+    for (int u = 0; u < UNROLL; ++u) {
+#pragma unroll
+      for (int j = 0; j < CHAINS; ++j) acc[j] = (acc[j] * m + k) ^ x;
+    }
+  }
+  uint32_t sum = acc[0];
+#pragma unroll
+  for (int j = 1; j < CHAINS; ++j) sum += acc[j];
+  return __uint_as_float(sum);
+}
+
 template <int OP, int CHAINS, int UNROLL>
 __global__ void __launch_bounds__(128) chain_kernel(const float* __restrict__ c,
                                                     float* __restrict__ out, int iters) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   const float cv = c[i % 128];
+  if (OP == kChainInt) {
+    out[i] = int_chain<CHAINS, UNROLL>(cv, iters);
+    return;
+  }
   const float add_c = cv * 0.0005f;
   const float sel_c = cv + 2.0f;
   float acc[CHAINS];
@@ -93,7 +129,7 @@ int launch_chain(int chains, int unroll, int blocks, cudaStream_t st, const floa
 // Host launcher with a plain C interface (loaded with ctypes): ``n`` threads
 // (a multiple of 128, one output each) run chain_kernel<op, chains, unroll>
 // (op as ChainOp; chains 4 or 8; unroll 1, 4, 16 or 64) reading the 128
-// multipliers ``c`` and writing ``out``.  Launches on ``stream`` and returns
+// multipliers ``c`` and writing ``out`` (the int chain: its u32 bits).  Launches on ``stream`` and returns
 // the launch's cudaError_t.
 extern "C" int zwrt_fp32_chain(int op, int chains, int unroll, const float* c, float* out,
                                int iters, int n, void* stream) {
@@ -108,6 +144,7 @@ extern "C" int zwrt_fp32_chain(int op, int chains, int unroll, const float* c, f
       return launch_chain<kChainSelect>(chains, unroll, blocks, st, c, out, iters);
     case kChainNewton:
       return launch_chain<kChainNewton>(chains, unroll, blocks, st, c, out, iters);
+    case kChainInt: return launch_chain<kChainInt>(chains, unroll, blocks, st, c, out, iters);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -45,6 +45,18 @@
 // indexed row read.  No shared-memory staging of leaves, packets,
 // persistent blocks or work queues yet.
 //
+// Redesigned for Hopper.  (1) Each thread walks its tree alone, so
+// the port sizes leaves for one thread's walk (geometry/bvh.py:
+// pick_leaf_span), not for the TPU's (8, 128) tile, whose 64-group leaf made
+// balls' every bounce a brute sweep of 485 spheres.  (2) A lane whose path
+// ended respawns its pixel's next camera ray inside a divergent branch, so
+// a warp pays the whole respawn whenever any lane restarts; the Sobol
+// sampler's ~150 bit-loop steps there became a few shared-memory loads:
+// v_d = P_d(s) ^ Q_d(px, py) (zwrt_device.cuh:SobolPixel), P_d read from
+// byte tables that each block stages in shared memory at its start, Q_d
+// computed once per lane.  The lights and the image dims are device tables
+// of any length.
+//
 // It also replaces the TPU traversal variants that K1 hosts (kernel K4:
 // _tree_pass_queue, _tree_pass_spec, _uni_tree_pass), as one instantiation
 // per walk (zwrt_device.cuh:Walk), chosen at launch: WALK is a template
@@ -54,75 +66,31 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include "zwrt_device.cuh"
-
-namespace zwrt {
-
-template <bool IMAGES, int WALK>
-__global__ void __launch_bounds__(128) fused_render_kernel(
-    const __grid_constant__ Params p, const int* __restrict__ lane_px,
-    const int* __restrict__ lane_py, const int* __restrict__ lane_s0,
-    const int* __restrict__ lane_s1, const __grid_constant__ TraceScene scene,
-    const __grid_constant__ Images images, const float* __restrict__ shade_rows,
-    const uint32_t* __restrict__ sobol, float* __restrict__ out_rad,
-    int* __restrict__ out_work, int n) {
-  int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  Path s;
-  s.o = mk(0.0f, 0.0f, 0.0f);
-  s.d = mk(0.0f, 0.0f, 1.0f);
-  s.thr = mk(1.0f, 1.0f, 1.0f);
-  s.rad = mk(0.0f, 0.0f, 0.0f);
-  s.time = 0.0f;
-  s.rid = 0;
-  s.depth = 0;
-  bool alive = false;
-  int sample = lane_s0[i] - p.stride, work = 0;
-  drain<IMAGES, WALK>(p, scene, shade_rows, &images, sobol, lane_px[i], lane_py[i], lane_s1[i],
-                      s, alive, sample, work);
-  out_rad[i] = s.rad.x;
-  out_rad[n + i] = s.rad.y;
-  out_rad[2 * n + i] = s.rad.z;
-  if (out_work) out_work[i] = work;
-}
-
-}  // namespace zwrt
+#include "render_kernels.cuh"
 
 // Host launcher with a plain C interface (loaded with ctypes).  ``iparams``,
-// ``fparams``, ``trace_ints`` and ``trace_ptrs`` are host arrays in the
-// order ops/fused_render.py packs them; ``image_ints`` (ops/fused_render.py:
-// image_args) and ``image_texels`` are the texture LUT of an image scene,
-// or both null for a scene without images.  ``walk`` picks the tree walk,
-// ``q_cap`` and ``queue`` (``queue_len`` ints) its leaf queue
-// (zwrt_device.cuh:set_walk).  Launches on ``stream`` and returns the
-// launch's cudaError_t.
+// ``fparams``, ``tables`` (device pointers: light kinds, light rows, the
+// factored Sobol tables), ``trace_ints`` and ``trace_ptrs`` are host arrays
+// in the order ops/fused_render.py packs them; ``image_dims`` ((n_images,
+// 4) on the card) and ``image_texels`` are the texture LUT of an image
+// scene (n_images 0 and both null for a scene without images).  ``walk``
+// picks the tree walk, ``q_cap`` and ``queue`` (``queue_len`` ints) its leaf
+// queue (zwrt_device.cuh:set_walk); ``flags`` a measurement variant
+// (render_kernels.cuh), 0 by default, whose kFlagProf writes ``out_prof``.
+// Launches on ``stream`` and returns the launch's cudaError_t.
 extern "C" int zwrt_fused_render(
-    const int* iparams, const float* fparams, const int* trace_ints,
-    const void* const* trace_ptrs, const int* image_ints, const int* image_texels,
+    const int* iparams, const float* fparams, const void* const* tables, const int* trace_ints,
+    const void* const* trace_ptrs, int n_images, const int* image_dims, const int* image_texels,
     const int* px, const int* py, const int* s0, const int* s1, const float* shade_rows,
-    const uint32_t* sobol, float* out_rad, int* out_work, int walk, int q_cap, int* queue,
-    int queue_len, int n, void* stream) {
+    const uint32_t* sobol, float* out_rad, int* out_work, long long* out_prof, int walk,
+    int flags, int q_cap, int* queue, int queue_len, int n, void* stream) {
   using namespace zwrt;
   if (n <= 0) return 0;
-  Params p = read_params(iparams, fparams);
-  const int threads = 128;
-  const int blocks = (n + threads - 1) / threads;
-  TraceScene scene = read_trace_scene(trace_ints, trace_ptrs);
-  size_t smem = 0;
-  int err = set_walk(&scene, walk, q_cap, queue, queue_len, blocks, threads, &smem);
+  RenderLaunch L;
+  int err = read_launch(&L, iparams, fparams, tables, trace_ints, trace_ptrs, n_images,
+                        image_dims, image_texels, shade_rows, sobol, walk, q_cap, queue,
+                        queue_len, n, stream);
   if (err != 0) return err;
-  cudaStream_t st = (cudaStream_t)stream;
-  Images images = {};
-  if (image_ints && !read_images(image_ints, image_texels, &images))
-    return (int)cudaErrorInvalidValue;
-  return dispatch_walk(walk, [&](auto w) {
-    constexpr int W = decltype(w)::value;
-    auto kernel = fused_render_kernel<false, W>;
-    if (image_ints) kernel = fused_render_kernel<true, W>;
-    int e = allow_smem(kernel, smem);
-    if (e != 0) return e;
-    kernel<<<blocks, threads, smem, st>>>(p, px, py, s0, s1, scene, images, shade_rows, sobol,
-                                          out_rad, out_work, n);
-    return (int)cudaGetLastError();
-  });
+  if (flags != 0) return fused_render_variant(flags, L, px, py, s0, s1, out_rad, out_work, out_prof);
+  return launch_fused_render<0>(L, px, py, s0, s1, out_rad, out_work, nullptr);
 }

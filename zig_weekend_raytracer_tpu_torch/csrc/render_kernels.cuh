@@ -1,0 +1,240 @@
+// The render kernel (fused_render_kernel, K1) and the bounce kernel
+// (bounce_kernel, K2) as templates, with their host-side launch helpers, so
+// that the default instantiations (fused_render.cu, bounce.cu) and the
+// measurement variants (fused_render_variants.cu, bounce_variants.cu)
+// compile in separate nvcc processes.  The design notes are in
+// fused_render.cu and bounce.cu.
+//
+// FLAGS (zwrt_device.cuh:DrainFlags) is 0 in every instantiation the
+// wrappers launch by default.  The variants, for the walks kWalkCond and
+// kWalkQueue only: kFlagProf writes each lane's phase profile (kProfCols
+// int64 columns) to ``out_prof``; kFlagLoopSobol keeps the Sobol bit loops
+// in the respawn and stages no tables.
+#pragma once
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+#include "zwrt_device.cuh"
+
+namespace zwrt {
+
+constexpr int kThreads = 128;  // threads per block of every launcher
+
+__device__ __forceinline__ void write_prof(long long* out, const Prof& pr, int i, int n) {
+  for (int ph = 0; ph < kPhases; ++ph) {
+    out[(size_t)ph * n + i] = pr.cycles[ph];
+    out[(size_t)(kPhases + ph) * n + i] = pr.entries[ph];
+    out[(size_t)(2 * kPhases + ph) * n + i] = pr.active[ph];
+  }
+  out[(size_t)(3 * kPhases) * n + i] = pr.total;
+}
+
+template <bool IMAGES, int WALK, int FLAGS>
+__global__ void __launch_bounds__(kThreads) fused_render_kernel(
+    const __grid_constant__ Params p, const int* __restrict__ lane_px,
+    const int* __restrict__ lane_py, const int* __restrict__ lane_s0,
+    const int* __restrict__ lane_s1, const __grid_constant__ TraceScene scene,
+    const __grid_constant__ Images images, const float* __restrict__ shade_rows,
+    const uint32_t* __restrict__ sobol, float* __restrict__ out_rad,
+    int* __restrict__ out_work, long long* __restrict__ out_prof, int n) {
+  if (!(FLAGS & kFlagLoopSobol)) stage_sobol(p);
+  int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  Path s;
+  s.o = mk(0.0f, 0.0f, 0.0f);
+  s.d = mk(0.0f, 0.0f, 1.0f);
+  s.thr = mk(1.0f, 1.0f, 1.0f);
+  s.rad = mk(0.0f, 0.0f, 0.0f);
+  s.time = 0.0f;
+  s.rid = 0;
+  s.depth = 0;
+  bool alive = false;
+  int sample = lane_s0[i] - p.stride, work = 0;
+  Prof prof = {};
+  drain<IMAGES, WALK, FLAGS>(p, scene, shade_rows, &images, sobol, lane_px[i], lane_py[i],
+                             lane_s1[i], s, alive, sample, work, &prof);
+  out_rad[i] = s.rad.x;
+  out_rad[n + i] = s.rad.y;
+  out_rad[2 * n + i] = s.rad.z;
+  if (out_work) out_work[i] = work;
+  if (FLAGS & kFlagProf) write_prof(out_prof, prof, i, n);
+}
+
+// State rows, as ops/bounce.py packs them: floats ox oy oz dx dy dz thx
+// thy thz rx ry rz time; ints ray_id alive, then in the regenerating mode
+// sample bounce work.
+template <bool REGEN, int WALK, int FLAGS>
+__global__ void __launch_bounds__(kThreads) bounce_kernel(
+    const __grid_constant__ Params p, const __grid_constant__ TraceScene scene,
+    const __grid_constant__ Images images, const float* __restrict__ shade_rows,
+    const uint32_t* __restrict__ sobol, float* __restrict__ fstate, int* __restrict__ istate,
+    const int* __restrict__ lane_px, const int* __restrict__ lane_py,
+    const int* __restrict__ lane_limit, long long* __restrict__ out_prof, int depth, int n) {
+  if (REGEN && !(FLAGS & kFlagLoopSobol)) stage_sobol(p);
+  int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  float* f = fstate + i;
+  int* st = istate + i;
+  Path s;
+  s.o = mk(f[0], f[n], f[2 * n]);
+  s.d = mk(f[3 * n], f[4 * n], f[5 * n]);
+  s.thr = mk(f[6 * n], f[7 * n], f[8 * n]);
+  s.rad = mk(f[9 * n], f[10 * n], f[11 * n]);
+  s.time = f[12 * n];
+  s.rid = (uint32_t)st[0];
+  bool alive = st[n] != 0;
+  if (REGEN) {
+    int sample = st[2 * n], work = st[4 * n];
+    s.depth = st[3 * n];
+    Prof prof = {};
+    drain<true, WALK, FLAGS>(p, scene, shade_rows, &images, sobol, lane_px[i], lane_py[i],
+                             lane_limit[i], s, alive, sample, work, &prof);
+    f[12 * n] = s.time;
+    st[0] = (int)s.rid;
+    st[2 * n] = sample;
+    st[3 * n] = s.depth;
+    st[4 * n] = work;
+    if (FLAGS & kFlagProf) write_prof(out_prof, prof, i, n);
+  } else {
+    // the live lanes of this warp, for the kWalkRowQueue trace
+    const unsigned group = WALK == kWalkRowQueue ? __ballot_sync(kAllLanes, alive) : kAllLanes;
+    if (alive) {
+      s.depth = depth;
+      alive = bounce_step<true, WALK>(p, scene, shade_rows, &images, s, group);
+    }
+  }
+  f[0] = s.o.x;
+  f[n] = s.o.y;
+  f[2 * n] = s.o.z;
+  f[3 * n] = s.d.x;
+  f[4 * n] = s.d.y;
+  f[5 * n] = s.d.z;
+  f[6 * n] = s.thr.x;
+  f[7 * n] = s.thr.y;
+  f[8 * n] = s.thr.z;
+  f[9 * n] = s.rad.x;
+  f[10 * n] = s.rad.y;
+  f[11 * n] = s.rad.z;
+  st[n] = alive ? 1 : 0;
+}
+
+// ---------------------------------------------------------------------------
+// Host side
+// ---------------------------------------------------------------------------
+
+// What a launch of either kernel reads, from the wrappers' host arrays.
+struct RenderLaunch {
+  Params p;
+  TraceScene scene;
+  Images images;
+  const float* shade_rows;
+  const uint32_t* sobol;
+  int walk, q_cap, queue_len, n;
+  int* queue;
+  cudaStream_t stream;
+};
+
+// f(std::integral_constant<int, W>{}) for the walk W: every walk for the
+// default instantiations, kWalkCond and kWalkQueue for the variants.
+template <int FLAGS, typename F>
+inline int dispatch_flags_walk(int walk, F f) {
+  if constexpr (FLAGS == 0) {
+    return dispatch_walk(walk, f);
+  } else {
+    switch (walk) {
+      case kWalkCond: return f(std::integral_constant<int, kWalkCond>{});
+      case kWalkQueue: return f(std::integral_constant<int, kWalkQueue>{});
+      default: return (int)cudaErrorInvalidValue;
+    }
+  }
+}
+
+template <int FLAGS>
+int launch_fused_render(const RenderLaunch& L, const int* px, const int* py, const int* s0,
+                        const int* s1, float* out_rad, int* out_work, long long* out_prof) {
+  if ((FLAGS & kFlagProf) && out_prof == nullptr) return (int)cudaErrorInvalidValue;
+  const int blocks = (L.n + kThreads - 1) / kThreads;
+  TraceScene scene = L.scene;
+  size_t smem = 0;
+  const size_t tables = (FLAGS & kFlagLoopSobol) ? 0 : sobol_smem_bytes(L.p);
+  int err = set_walk(&scene, L.walk, L.q_cap, L.queue, L.queue_len, blocks, kThreads, tables,
+                     &smem);
+  if (err != 0) return err;
+  return dispatch_flags_walk<FLAGS>(L.walk, [&](auto w) {
+    constexpr int W = decltype(w)::value;
+    auto kernel = fused_render_kernel<false, W, FLAGS>;
+    if (L.images.texels) kernel = fused_render_kernel<true, W, FLAGS>;
+    int e = allow_smem(kernel, smem);
+    if (e != 0) return e;
+    kernel<<<blocks, kThreads, smem, L.stream>>>(L.p, px, py, s0, s1, scene, L.images,
+                                                 L.shade_rows, L.sobol, out_rad, out_work,
+                                                 out_prof, L.n);
+    return (int)cudaGetLastError();
+  });
+}
+
+template <int FLAGS>
+int launch_bounce(const RenderLaunch& L, float* fstate, int* istate, const int* px,
+                  const int* py, const int* limit, long long* out_prof, int regen, int depth) {
+  if (FLAGS != 0 && !regen) return (int)cudaErrorInvalidValue;
+  if ((FLAGS & kFlagProf) && out_prof == nullptr) return (int)cudaErrorInvalidValue;
+  const int blocks = (L.n + kThreads - 1) / kThreads;
+  TraceScene scene = L.scene;
+  size_t smem = 0;
+  const size_t tables = (regen && !(FLAGS & kFlagLoopSobol)) ? sobol_smem_bytes(L.p) : 0;
+  int err = set_walk(&scene, L.walk, L.q_cap, L.queue, L.queue_len, blocks, kThreads, tables,
+                     &smem);
+  if (err != 0) return err;
+  return dispatch_flags_walk<FLAGS>(L.walk, [&](auto w) {
+    constexpr int W = decltype(w)::value;
+    auto kernel = bounce_kernel<true, W, FLAGS>;
+    if constexpr (FLAGS == 0) {
+      if (!regen) kernel = bounce_kernel<false, W, 0>;
+    }
+    int e = allow_smem(kernel, smem);
+    if (e != 0) return e;
+    kernel<<<blocks, kThreads, smem, L.stream>>>(L.p, scene, L.images, L.shade_rows, L.sobol,
+                                                 fstate, istate, px, py, limit, out_prof, depth,
+                                                 L.n);
+    return (int)cudaGetLastError();
+  });
+}
+
+// The launch from the wrappers' arrays (ops/fused_render.py packs them):
+// ``iparams``/``fparams`` and the device ``tables`` as read_params takes
+// them, the trace as read_trace_scene, the image table as read_images
+// (n_images 0: none).  Returns a cudaError_t.
+inline int read_launch(RenderLaunch* L, const int* iparams, const float* fparams,
+                       const void* const* tables, const int* trace_ints,
+                       const void* const* trace_ptrs, int n_images, const int* image_dims,
+                       const int* image_texels, const float* shade_rows, const uint32_t* sobol,
+                       int walk, int q_cap, int* queue, int queue_len, int n, void* stream) {
+  L->p = read_params(iparams, fparams, tables);
+  if (L->p.n_lights > 0 && (L->p.light_kind == nullptr || L->p.light == nullptr))
+    return (int)cudaErrorInvalidValue;
+  if (L->p.sampler == kSobol && (L->p.sobol_p == nullptr || L->p.sobol_bytes < 1))
+    return (int)cudaErrorInvalidValue;
+  L->scene = read_trace_scene(trace_ints, trace_ptrs);
+  L->images = Images{};
+  if (n_images != 0 && !read_images(n_images, image_dims, image_texels, &L->images))
+    return (int)cudaErrorInvalidValue;
+  L->shade_rows = shade_rows;
+  L->sobol = sobol;
+  L->walk = walk;
+  L->q_cap = q_cap;
+  L->queue = queue;
+  L->queue_len = queue_len;
+  L->n = n;
+  L->stream = (cudaStream_t)stream;
+  return 0;
+}
+
+// The variants, defined in fused_render_variants.cu and bounce_variants.cu.
+int fused_render_variant(int flags, const RenderLaunch& L, const int* px, const int* py,
+                         const int* s0, const int* s1, float* out_rad, int* out_work,
+                         long long* out_prof);
+int bounce_variant(int flags, const RenderLaunch& L, float* fstate, int* istate, const int* px,
+                   const int* py, const int* limit, long long* out_prof);
+
+}  // namespace zwrt

@@ -4,8 +4,9 @@
 // slab test, leaf sweep, skip-link tree walk), shade-record reads, the five
 // materials, the light-list PDF, sphere and quad UVs with the image texel
 // fetch (from the atlas or the texture LUT), and the bounce step and
-// regenerating drain that fused_render.cu and bounce.cu share.  All three
-// kernels trace through trace_closest, a template on the tree walk (Walk):
+// regenerating drain that the render and bounce kernels share
+// (render_kernels.cuh).  All three kernels trace through trace_closest, a
+// template on the tree walk (Walk):
 // the default per-thread walk, the leaf queue per thread, the leaf queue
 // per warp, the speculative two-successor walk, or the unified tree.
 //
@@ -30,7 +31,6 @@ namespace zwrt {
 // Constants shared with the host wrapper (ops/fused_render.py)
 // ---------------------------------------------------------------------------
 
-constexpr int kMaxLights = 8;
 constexpr int kLightFloats = 17;   // quad: s3 u3 v3 n3 w3 offset area
 constexpr int kRecordWidth = 32;   // shade_rows columns (ops/shade.py)
 constexpr int kSphereCols = 8;     // cx cy cz r2 mx my mz pad
@@ -45,6 +45,9 @@ constexpr int kSobolVdc = 2 * kSobolCols;
 constexpr int kSobolInvLo = 3 * kSobolCols;
 constexpr int kSobolInvHi = 4 * kSobolCols;
 constexpr int kSobolTable = 5 * kSobolCols;
+// The factored sampler's tables (sampling/sobol.py:sobol_p_tables): per
+// dimension and per byte of the sample index, 256 u32.
+constexpr int kSobolByteVals = 256;
 
 enum SamplerKind { kIndependent = 0, kStratified = 1, kSobol = 2 };
 enum PrimKind { kSphere = 0, kQuad = 1 };
@@ -90,16 +93,21 @@ constexpr float kOneMinusEps = 0.99999994f;
 constexpr float kTMinPdf = 1e-3f;
 constexpr float kQuadParallelEps = 1e-8f;
 
-// Everything a launch needs besides the tables, passed by value.
+// Everything a launch needs besides the scene tables, passed by value: the
+// light list is a device table of any length (``light_kind`` (n_lights,),
+// ``light`` (n_lights, kLightFloats)), and ``sobol_p`` the factored
+// sampler's (2, sobol_bytes, 256) u32 tables, which the kernels stage in
+// shared memory (stage_sobol).
 struct Params {
   int width, height, spp, stride, max_depth;
   int sampler, log2_scale, strat_sqrt;
   uint32_t seed;
-  int n_sph, n_quad, n_rows, n_lights, needs_gauss, has_dof;
+  int n_sph, n_quad, n_rows, n_lights, needs_gauss, has_dof, sobol_bytes;
   float t_min, strat_recip;
   float cam_pos[3], pixel00[3], du[3], dv[3], defocus_u[3], defocus_v[3], bg[3];
-  int light_kind[kMaxLights];
-  float light[kMaxLights][kLightFloats];
+  const int* light_kind;
+  const float* light;
+  const uint32_t* sobol_p;
 };
 
 // ---------------------------------------------------------------------------
@@ -246,29 +254,97 @@ __device__ __forceinline__ uint64_t sobol_interval_to_index(
   return index;
 }
 
-__device__ __forceinline__ float sobol_sample(const uint32_t* cols, uint64_t index) {
+__device__ __forceinline__ uint32_t sobol_u32(const uint32_t* cols, uint64_t index) {
   uint32_t v = 0;
   for (int i = 0; i < kSobolCols; ++i)
     v ^= cols[i] & (0u - (uint32_t)((index >> i) & 1ull));
+  return v;
+}
+
+__device__ __forceinline__ float sobol_unit(uint32_t v) {
   return clamp_max(__uint2float_rn(v) * 2.3283064365386963e-10f, kOneMinusEps);
+}
+
+// The dynamic shared memory of a block: the factored Sobol tables first
+// (stage_sobol), then kWalkRowQueue's warp queues (warp_queues).
+__device__ __forceinline__ uint32_t* dyn_smem() {
+  extern __shared__ __align__(16) uint32_t zwrt_dyn_smem[];
+  return zwrt_dyn_smem;
+}
+
+// Every step of the pixel sampler is an XOR of table columns, so the u32
+// of dimension d at (sample s, pixel px, py) factors into a sample part
+// and a pixel part, v_d = P_d(s) ^ Q_d(px, py) (sampling/sobol.py:
+// sobol_pixel_u32_factored).  Q_d is this lane's, computed once at drain
+// entry by the bit loops with s = 0; P_d is read from byte tables that
+// each block stages in shared memory, so a respawn costs sobol_bytes
+// shared loads and XORs per dimension in place of ~150 loop steps.
+struct SobolPixel {
+  uint32_t q0, q1;
+};
+
+__device__ __forceinline__ SobolPixel sobol_pixel(const Params& p, const uint32_t* tab, int px,
+                                                  int py) {
+  SobolPixel q{0u, 0u};
+  if (p.sampler == kSobol) {
+    uint64_t idx = sobol_interval_to_index(tab, p.log2_scale, 0u, (uint32_t)px, (uint32_t)py);
+    q.q0 = sobol_u32(tab + kSobolDim0, idx);
+    q.q1 = sobol_u32(tab + kSobolDim1, idx);
+  }
+  return q;
+}
+
+// P_d(s) from dimension ``dim``'s byte tables in shared memory.
+__device__ __forceinline__ uint32_t sobol_sample_part(const Params& p, int dim, uint32_t s) {
+  const uint32_t* t = dyn_smem() + dim * p.sobol_bytes * kSobolByteVals;
+  uint32_t v = 0;
+  for (int k = 0; k < p.sobol_bytes; ++k) v ^= t[k * kSobolByteVals + ((s >> (8 * k)) & 0xFFu)];
+  return v;
+}
+
+// Copies the factored sampler's tables to the start of the block's dynamic
+// shared memory.  Every thread of the block calls it before any returns.
+__device__ __forceinline__ void stage_sobol(const Params& p) {
+  if (p.sampler != kSobol) return;
+  uint32_t* dst = dyn_smem();
+  const int words = 2 * p.sobol_bytes * kSobolByteVals;
+  for (int k = threadIdx.x; k < words; k += blockDim.x) dst[k] = __ldg(p.sobol_p + k);
+  __syncthreads();
+}
+
+// Host side: the bytes of the staged tables.
+inline size_t sobol_smem_bytes(const Params& p) {
+  return p.sampler == kSobol ? (size_t)2 * p.sobol_bytes * kSobolByteVals * sizeof(uint32_t) : 0;
 }
 
 __device__ __forceinline__ uint32_t ray_id_of(const Params& p, int sample, int px, int py) {
   return ((uint32_t)sample * (uint32_t)p.height + (uint32_t)py) * (uint32_t)p.width + (uint32_t)px;
 }
 
-// Camera ray of one (pixel, sample); returns the time draw.
+// Camera ray of one (pixel, sample); returns the time draw.  LOOP_SOBOL
+// takes the Sobol u32s from the bit loops over ``sobol`` (the respawn up
+// before the factored tables, kept for measurement: kFlagLoopSobol), else from the factored
+// tables and this lane's ``q``: the same bits.
+template <bool LOOP_SOBOL>
 __device__ __forceinline__ float generate_ray(
-    const Params& p, const uint32_t* sobol, uint32_t rid, int px, int py, int sample,
-    V3* origin, V3* direction) {
+    const Params& p, const uint32_t* sobol, SobolPixel q, uint32_t rid, int px, int py,
+    int sample, V3* origin, V3* direction) {
   float pxf = (float)px, pyf = (float)py;
   float ox, oy;
   if (p.sampler == kSobol) {
-    uint64_t idx = sobol_interval_to_index(sobol, p.log2_scale, (uint32_t)sample,
-                                           (uint32_t)px, (uint32_t)py);
+    uint32_t v0, v1;
+    if (LOOP_SOBOL) {
+      uint64_t idx = sobol_interval_to_index(sobol, p.log2_scale, (uint32_t)sample,
+                                             (uint32_t)px, (uint32_t)py);
+      v0 = sobol_u32(sobol + kSobolDim0, idx);
+      v1 = sobol_u32(sobol + kSobolDim1, idx);
+    } else {
+      v0 = q.q0 ^ sobol_sample_part(p, 0, (uint32_t)sample);
+      v1 = q.q1 ^ sobol_sample_part(p, 1, (uint32_t)sample);
+    }
     float fscale = (float)(1 << p.log2_scale);
-    float sx = sobol_sample(sobol + kSobolDim0, idx);
-    float sy = sobol_sample(sobol + kSobolDim1, idx);
+    float sx = sobol_unit(v0);
+    float sy = sobol_unit(v1);
     ox = clamp_max(clamp_min(sx * fscale - pxf, 0.0f), kOneMinusEps);
     oy = clamp_max(clamp_min(sy * fscale - pyf, 0.0f), kOneMinusEps);
   } else {
@@ -376,7 +452,7 @@ struct TraceScene {
   const float* ubox;
   const int* ulink;
   int* queue;
-  int q_stride, q_cap;
+  int q_stride, q_cap, q_smem_words;
 };
 
 // Robust slab test (math/aabb.py:aabb_hit) against the running best t.
@@ -506,9 +582,9 @@ __device__ __forceinline__ void tree_walk_queue(const KindTables& k, const Trace
   for (int j = 0; j < sp; ++j) leaf_sweep<KIND>(k, q[j * stride], ray, moving, best, kind, idx);
 }
 
-__device__ __forceinline__ int2* warp_queues() {
-  extern __shared__ int2 zwrt_warp_queue_smem[];
-  return zwrt_warp_queue_smem;
+// kWalkRowQueue's warp queues, after the staged Sobol tables.
+__device__ __forceinline__ int2* warp_queues(const TraceScene& s) {
+  return reinterpret_cast<int2*>(dyn_smem() + s.q_smem_words);
 }
 
 // kWalkRowQueue (_tree_pass_queue, per_row=True): the lanes of ``group``
@@ -528,7 +604,7 @@ __device__ __forceinline__ void tree_walk_warpqueue(const KindTables& k, const T
                                                     const Ray& ray, bool moving, unsigned group,
                                                     float* best, int* kind, int* idx) {
   const unsigned me = 1u << (threadIdx.x % kWarp);
-  int2* q = warp_queues() + (threadIdx.x / kWarp) * s.q_cap;
+  int2* q = warp_queues(s) + (threadIdx.x / kWarp) * s.q_cap;
   const float t_seed = *best;
   int node = 0, sp = 0;
   while (node < k.n_nodes) {
@@ -665,21 +741,23 @@ inline TraceScene read_trace_scene(const int* ints, const void* const* ptrs) {
 
 // Host side: checks a launch's walk against the scene and sets up its leaf
 // queue: ``queue`` holds ``queue_len`` ints, ``q_cap`` entries per thread
-// (kWalkQueue) or per warp (kWalkRowQueue, whose dynamic shared memory per
-// block is returned in *smem).  Returns a cudaError_t: invalid for an
-// unknown walk, a uni walk without the unified tree, or a queue too short.
+// (kWalkQueue) or per warp (kWalkRowQueue, in dynamic shared memory after
+// the ``smem_before`` bytes of staged tables).  *smem is the block's dynamic
+// shared memory in all.  Returns a cudaError_t: invalid for an unknown
+// walk, a uni walk without the unified tree, or a queue too short.
 inline int set_walk(TraceScene* s, int walk, int q_cap, int* queue, int queue_len, int blocks,
-                    int threads, size_t* smem) {
+                    int threads, size_t smem_before, size_t* smem) {
   s->queue = queue;
   s->q_stride = blocks * threads;
   s->q_cap = q_cap;
-  *smem = 0;
+  s->q_smem_words = (int)(smem_before / sizeof(uint32_t));
+  *smem = smem_before;
   if (walk < kWalkCond || walk > kWalkUni || q_cap < 0) return (int)cudaErrorInvalidValue;
   if (walk == kWalkUni && s->u_nodes < 1) return (int)cudaErrorInvalidValue;
   if (walk == kWalkQueue && q_cap > 0 &&
       (queue == nullptr || (long long)queue_len < (long long)q_cap * s->q_stride))
     return (int)cudaErrorInvalidValue;
-  if (walk == kWalkRowQueue) *smem = (size_t)(threads / kWarp) * q_cap * sizeof(int2);
+  if (walk == kWalkRowQueue) *smem += (size_t)(threads / kWarp) * q_cap * sizeof(int2);
   return 0;
 }
 
@@ -708,7 +786,7 @@ inline int allow_smem(K* kernel, size_t smem) {
 }
 
 // ---------------------------------------------------------------------------
-// Light list (render/pdfs.py); geometry from Params::light
+// Light list (render/pdfs.py); geometry from the device table Params::light
 // ---------------------------------------------------------------------------
 
 __device__ __forceinline__ V3 lv(const float* l, int i) { return mk(l[i], l[i + 1], l[i + 2]); }
@@ -716,9 +794,9 @@ __device__ __forceinline__ V3 lv(const float* l, int i) { return mk(l[i], l[i + 
 __device__ __forceinline__ float light_pdf(const Params& p, V3 origin, V3 dir) {
   float total = 0.0f;
   for (int k = 0; k < p.n_lights; ++k) {
-    const float* l = p.light[k];
+    const float* l = p.light + (size_t)k * kLightFloats;
     float pdf = 0.0f;
-    if (p.light_kind[k] == kSphere) {
+    if (__ldg(p.light_kind + k) == kSphere) {
       V3 center = lv(l, 0);
       float radius = l[3];
       float a = dot(dir, dir);
@@ -752,8 +830,8 @@ __device__ __forceinline__ V3 light_sample(const Params& p, V3 origin, float u_c
   int n_l = p.n_lights;
   int chosen = (int)(u_choice * (float)n_l);
   if (chosen > n_l - 1) chosen = n_l - 1;
-  const float* l = p.light[chosen];
-  if (p.light_kind[chosen] == kSphere) {
+  const float* l = p.light + (size_t)chosen * kLightFloats;
+  if (__ldg(p.light_kind + chosen) == kSphere) {
     V3 dir = lv(l, 0) - origin;
     float dist_sq = dot(dir, dir);
     float ctm = sqrtf(clamp_min(1.0f - l[3] * l[3] / dist_sq, 0.0f));
@@ -785,17 +863,18 @@ __device__ __forceinline__ float schlick_reflectance(float cos_theta, float ri) 
 // Image textures (geometry/sphere.py:uv, ops/shade.py, textures.py)
 // ---------------------------------------------------------------------------
 
-constexpr int kMaxImages = 16;
+// One table of images, texels r | g << 8 | b << 16, with a device table of
+// any number of images: ``dims`` (n_images, 4) holds each image's w, h,
+// base and row stride, and texel (x, y) of image i is at texels[base + y *
+// stride + x].  The atlas (n_images, ah, aw) has base = i * ah * aw and
+// stride = aw (textures.py:atlas_flat_index); the texture LUT has each
+// image's own base and stride = w (textures.py:lut_flat_index).
+constexpr int kImageDims = 4;
 
-// One table of images, texels r | g << 8 | b << 16: image i is w[i] x h[i]
-// texels, texel (x, y) at texels[base[i] + y * stride[i] + x].  The atlas
-// (n_images, ah, aw) has base = i * ah * aw and stride = aw
-// (textures.py:atlas_flat_index); the texture LUT has each image's own base
-// and stride = w (textures.py:lut_flat_index).
 struct Images {
   const int* texels;
+  const int* dims;
   int n_images;
-  int w[kMaxImages], h[kMaxImages], base[kMaxImages], stride[kMaxImages];
 };
 
 // Spherical UVs from the object-space outward normal.
@@ -810,19 +889,10 @@ __device__ __forceinline__ void sphere_uv(V3 n, float* u, float* v) {
 // square: textures.py:atlas_flat_index's (or lut_flat_index's) arithmetic,
 // then one 4-byte load.
 __device__ __forceinline__ V3 image_texel(const Images& a, int img, float u, float v) {
-  float wf = 0.0f, hf = 0.0f;
-  int wi = 0, hi = 0, base = 0, stride = 0;
-#pragma unroll
-  for (int i = 0; i < kMaxImages; ++i) {
-    if (i < a.n_images && img == i) {
-      wf = (float)a.w[i];
-      hf = (float)a.h[i];
-      wi = a.w[i];
-      hi = a.h[i];
-      base = a.base[i];
-      stride = a.stride[i];
-    }
-  }
+  img = img < a.n_images ? img : a.n_images - 1;
+  const int4 dim = __ldg(reinterpret_cast<const int4*>(a.dims) + img);
+  const int wi = dim.x, hi = dim.y, base = dim.z, stride = dim.w;
+  const float wf = (float)wi, hf = (float)hi;
   float uc = clamp_max(clamp_min(u, 0.0f), 1.0f);
   float vc = 1.0f - clamp_max(clamp_min(v, 0.0f), 1.0f);
   int x = (int)(uc * wf);
@@ -848,22 +918,48 @@ struct Path {
   int depth;
 };
 
-// One bounce of a live path: closest hit, shade record, texture, the
-// material's scatter.  Returns whether the path goes on (before the depth
-// cutoff).  ``group`` is the warp's lanes that bounce together, read by the
-// kWalkRowQueue trace only.  IMAGES compiles the image fetch: the texel of
-// an image texture (or a checker's image child) replaces the record colour
-// at the hit, before emission and scatter, as the XLA integrator and the
-// JAX whole-render kernel's LUT fetch order it.  Without IMAGES ``images``
-// is never read.
-template <bool IMAGES, int WALK>
-__device__ __forceinline__ bool bounce_step(const Params& p, const TraceScene& scene,
-                                            const float* __restrict__ shade_rows,
-                                            const Images* images, Path& s, unsigned group) {
-  // ---- closest hit: sphere stage, then quad stage (or the unified walk) ----
-  float best;
-  int kind, idx;
-  trace_closest<WALK>(scene, s.o, s.d, s.time, p.t_min, kBig, &best, &kind, &idx, group);
+// Instantiation flags of the drain and the kernels (render_kernels.cuh).
+// kFlagProf: each lane adds clock64() deltas per phase (respawn, trace,
+// shade) and, at each phase's entry, the converged lanes of its warp
+// (__popc(__activemask())) to a Prof; kFlagLoopSobol: the respawn runs the
+// Sobol bit loops, as before the factored tables.  The default instantiations take 0.
+enum DrainFlags { kFlagProf = 1, kFlagLoopSobol = 2 };
+enum ProfPhase { kPhaseRespawn = 0, kPhaseTrace = 1, kPhaseShade = 2, kPhases = 3 };
+// Columns of a lane's profile (int64): cycles, entries and active lanes
+// summed per phase, then the drain's whole cycles.
+constexpr int kProfCols = 3 * kPhases + 1;
+
+struct Prof {
+  long long cycles[kPhases];
+  long long entries[kPhases];
+  long long active[kPhases];
+  long long total;
+};
+
+template <bool PROF>
+__device__ __forceinline__ long long prof_enter(Prof* pr, int phase) {
+  if (!PROF) return 0;
+  pr->entries[phase] += 1;
+  pr->active[phase] += __popc(__activemask());
+  return clock64();
+}
+
+template <bool PROF>
+__device__ __forceinline__ void prof_leave(Prof* pr, int phase, long long t0) {
+  if (PROF) pr->cycles[phase] += clock64() - t0;
+}
+
+// The shading half of a bounce, after the closest hit (best, kind, idx):
+// shade record, texture, the material's scatter.  Returns whether the path
+// goes on (before the depth cutoff).  IMAGES compiles the image fetch: the
+// texel of an image texture (or a checker's image child) replaces the
+// record colour at the hit, before emission and scatter, as the XLA
+// integrator and the JAX whole-render kernel's LUT fetch order it.  Without
+// IMAGES ``images`` is never read.
+template <bool IMAGES>
+__device__ __forceinline__ bool shade_hit(const Params& p, const float* __restrict__ shade_rows,
+                                          const Images* images, Path& s, float best, int kind,
+                                          int idx) {
   if (kind < 0) {
     // ---- miss: background, the path ends ----
     s.rad = s.rad + s.thr * mk(p.bg[0], p.bg[1], p.bg[2]);
@@ -980,17 +1076,45 @@ __device__ __forceinline__ bool bounce_step(const Params& p, const TraceScene& s
   return survives;
 }
 
+// One bounce of a live path: the closest hit (sphere stage, then quad
+// stage, or the unified walk), then shade_hit.  ``group`` is the warp's
+// lanes that bounce together, read by the kWalkRowQueue trace only; PROF
+// times the two halves into ``prof``.
+template <bool IMAGES, int WALK, bool PROF = false>
+__device__ __forceinline__ bool bounce_step(const Params& p, const TraceScene& scene,
+                                            const float* __restrict__ shade_rows,
+                                            const Images* images, Path& s, unsigned group,
+                                            Prof* prof = nullptr) {
+  float best;
+  int kind, idx;
+  long long t0 = prof_enter<PROF>(prof, kPhaseTrace);
+  trace_closest<WALK>(scene, s.o, s.d, s.time, p.t_min, kBig, &best, &kind, &idx, group);
+  prof_leave<PROF>(prof, kPhaseTrace, t0);
+  t0 = prof_enter<PROF>(prof, kPhaseShade);
+  const bool survives = shade_hit<IMAGES>(p, shade_rows, images, s, best, kind, idx);
+  prof_leave<PROF>(prof, kPhaseShade, t0);
+  return survives;
+}
+
 // Runs one lane until its sample window is used up: a dead lane respawns
 // its pixel's next sample (sample += stride, while below ``limit``), every
 // pass counts one unit of work and runs one bounce, and a path ends after
 // p.max_depth bounces.  Under kWalkRowQueue a ballot at the loop head, which
 // every lane of the warp still in the loop reaches, names the lanes that
-// bounce in this pass (the group of tree_walk_warpqueue).
-template <bool IMAGES, int WALK>
+// bounce in this pass (the group of tree_walk_warpqueue).  The lane's Sobol
+// pixel part is computed once, at entry (timed with the respawn phase);
+// FLAGS as DrainFlags, ``prof`` read under kFlagProf only.
+template <bool IMAGES, int WALK, int FLAGS = 0>
 __device__ __forceinline__ void drain(const Params& p, const TraceScene& scene,
                                       const float* __restrict__ shade_rows, const Images* images,
                                       const uint32_t* __restrict__ sobol, int px, int py,
-                                      int limit, Path& s, bool& alive, int& sample, int& work) {
+                                      int limit, Path& s, bool& alive, int& sample, int& work,
+                                      Prof* prof = nullptr) {
+  constexpr bool PROF = (FLAGS & kFlagProf) != 0;
+  constexpr bool LOOP_SOBOL = (FLAGS & kFlagLoopSobol) != 0;
+  const long long t_start = PROF ? clock64() : 0;
+  const SobolPixel q = LOOP_SOBOL ? SobolPixel{0u, 0u} : sobol_pixel(p, sobol, px, py);
+  if (PROF) prof->cycles[kPhaseRespawn] += clock64() - t_start;
   const int stride = p.stride;
   unsigned group = kAllLanes;
   for (;;) {
@@ -998,40 +1122,36 @@ __device__ __forceinline__ void drain(const Params& p, const TraceScene& scene,
     if (WALK == kWalkRowQueue) group = __ballot_sync(group, more);
     if (!more) break;
     if (!alive) {
+      long long t0 = prof_enter<PROF>(prof, kPhaseRespawn);
       sample += stride;
       s.rid = ray_id_of(p, sample, px, py);
-      s.time = generate_ray(p, sobol, s.rid, px, py, sample, &s.o, &s.d);
+      s.time = generate_ray<LOOP_SOBOL>(p, sobol, q, s.rid, px, py, sample, &s.o, &s.d);
       s.thr = mk(1.0f, 1.0f, 1.0f);
       s.depth = 0;
       alive = true;
+      prof_leave<PROF>(prof, kPhaseRespawn, t0);
     }
     work += 1;
-    bool survives = bounce_step<IMAGES, WALK>(p, scene, shade_rows, images, s, group);
+    bool survives = bounce_step<IMAGES, WALK, PROF>(p, scene, shade_rows, images, s, group, prof);
     s.depth += 1;
     alive = survives && s.depth < p.max_depth;
   }
+  if (PROF) prof->total += clock64() - t_start;
 }
 
-// Host side: the image table from [n_images, then w, h, base, stride per
-// image] as the wrappers pack it (ops/fused_render.py:image_args); false when
-// n_images is out of range.
-inline bool read_images(const int* ints, const int* texels, Images* out) {
-  *out = Images{};
-  out->texels = texels;
-  out->n_images = ints[0];
-  if (out->n_images < 1 || out->n_images > kMaxImages) return false;
-  for (int k = 0; k < out->n_images; ++k) {
-    out->w[k] = ints[1 + 4 * k];
-    out->h[k] = ints[2 + 4 * k];
-    out->base[k] = ints[3 + 4 * k];
-    out->stride[k] = ints[4 + 4 * k];
-  }
-  return true;
+// Host side: the image table of ``n_images`` images, ``dims`` (n_images, 4)
+// and ``texels`` device tables as the wrappers pack them
+// (ops/fused_render.py:image_args); false when either is missing.
+inline bool read_images(int n_images, const int* dims, const int* texels, Images* out) {
+  *out = Images{texels, dims, n_images};
+  return n_images >= 1 && dims != nullptr && texels != nullptr;
 }
 
-// Host side: Params from the int32 and float32 arrays the wrappers pack
-// (ops/fused_render.py:_params), in their order.
-inline Params read_params(const int* iparams, const float* fparams) {
+// Host side: Params from the int32 and float32 host arrays the wrappers pack
+// (ops/fused_render.py:launch_params), in their order, and the device
+// tables ``tables``: light kinds, light rows, the factored Sobol tables
+// (null when the launch's sampler is not Sobol).
+inline Params read_params(const int* iparams, const float* fparams, const void* const* tables) {
   Params p;
   int k = 0;
   p.width = iparams[k++];
@@ -1049,7 +1169,10 @@ inline Params read_params(const int* iparams, const float* fparams) {
   p.n_lights = iparams[k++];
   p.needs_gauss = iparams[k++];
   p.has_dof = iparams[k++];
-  for (int l = 0; l < kMaxLights; ++l) p.light_kind[l] = iparams[k++];
+  p.sobol_bytes = iparams[k++];
+  p.light_kind = static_cast<const int*>(tables[0]);
+  p.light = static_cast<const float*>(tables[1]);
+  p.sobol_p = static_cast<const uint32_t*>(tables[2]);
   int f = 0;
   p.t_min = fparams[f++];
   p.strat_recip = fparams[f++];
@@ -1060,8 +1183,6 @@ inline Params read_params(const int* iparams, const float* fparams) {
   for (int c = 0; c < 3; ++c) p.defocus_u[c] = fparams[f++];
   for (int c = 0; c < 3; ++c) p.defocus_v[c] = fparams[f++];
   for (int c = 0; c < 3; ++c) p.bg[c] = fparams[f++];
-  for (int l = 0; l < kMaxLights; ++l)
-    for (int c = 0; c < kLightFloats; ++c) p.light[l][c] = fparams[f++];
   return p;
 }
 

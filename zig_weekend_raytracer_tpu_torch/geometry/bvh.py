@@ -31,17 +31,43 @@ _F = np.float32
 _I = np.int32
 
 
+# The port's leaf span: one group of 8 slots per leaf, so each thread's walk
+# tests boxes and sweeps at most 8 primitives per leaf, up to this many
+# primitives per kind; past it two groups, which halves the leaf queue's
+# device scratch (ops/fused_render.py:queue_capacity) of larger scenes.
+SMALL_SPAN_MAX_PRIMS = 4096
+
+
 def pick_leaf_span(n_prims: int) -> int:
     """Groups of 8 primitive slots per leaf for a kind with ``n_prims``
-    primitives (the JAX package's choice: 64 up to 512 primitives, so balls'
-    485 spheres make one leaf, else 32).  ``ZWRT_LEAF_GROUPS`` overrides it,
-    read at each scene compile."""
+    primitives: the port's own policy, sized for one CUDA thread's walk.
+    ``ZWRT_LEAF_GROUPS`` overrides it, read at each scene compile; set, the
+    trees equal the JAX package's at that span.
+
+    The JAX package takes 64 up to 512 primitives, else 32, swept on a TPU
+    v5e for an (8, 128) tile that walks in lockstep: balls' 485 spheres
+    make one 512-slot leaf.  On the H100 each thread walks alone, and
+    tools/span_sweep.py (NVIDIA H100 80GB HBM3, 700.00 W; Mpaths/s, best of
+    three renders after a warmup) found span 1 fastest under both walks on
+    both scenes it sweeps, each render equal to the JAX-span render on every
+    pixel:
+
+      balls 400x400@128 d10:  span 1 / 2 / 4 / 8 cond 415.43 / 275.58 /
+                              193.08 / 195.02, queue 595.54 / 456.46 /
+                              326.60 / 245.24; JAX span 64 cond 151.18
+      rtw_final 400x400@64 d8 (1,005 spheres, 2,401 quads): cond 317.60 /
+                              256.68 / 192.03 / 143.70, queue 329.40 /
+                              291.27 / 247.14 / 186.25; JAX span 32 cond
+                              77.30
+
+    Scenes past ``SMALL_SPAN_MAX_PRIMS`` (none that the package ships) were
+    not swept."""
     env = os.environ.get("ZWRT_LEAF_GROUPS")
     if env:
         return int(env)
-    if n_prims <= 512:
-        return 64
-    return 32
+    if n_prims <= SMALL_SPAN_MAX_PRIMS:
+        return 1
+    return 2
 
 
 def _prim_bboxes(sph_center, sph_radius, sph_move, quad_start, quad_u, quad_v):

@@ -13,6 +13,11 @@ Any other device raises.  ``bounce.launches`` and ``bounce_regen.launches``
 count kernel launches per tree walk ({walk: launches}; the walk is read at
 each launch, as ``ops/fused_render.py:walk_args`` says).
 
+``bounce_regen_variant`` launches the regenerating mode's measurement
+variants (the phase profile, the earlier Sobol bit-loop respawn), counted
+apart in ``bounce_regen_variant.launches``; no path of the renderer runs
+them.
+
 Image-textured emitters take the kernel with or without a LUT, since the
 texel is read at the hit, before emission (the JAX kernel needs the LUT
 for them).  Nested checkers take no kernel in the JAX package; the port's
@@ -33,7 +38,8 @@ from ..sampling.sampler import SamplerKind, sobol_log2_scale
 from ..scene import CompiledScene
 from . import _build
 from .fused_render import (
-    check_lane_tensor, image_args, launch_params, sobol_table, trace_args, walk_args,
+    FLAG_LOOP_SOBOL, FLAG_PROF, PROF_COLS, VARIANT_WALKS, check_lane_tensor, image_args,
+    launch_params, launch_tables, sobol_smem_bytes, sobol_table, trace_args, walk_args,
 )
 from .trace import WALKS
 
@@ -53,35 +59,43 @@ def supports_fused_render(scene: CompiledScene) -> bool:
     return not scene.has_image_textures or bool(scene.tex_lut_dims)
 
 
-def _launch(scene, params, fstate, istate, lanes, regen, depth) -> str:
-    """One launch of the bounce kernel; returns the tree walk it took."""
+def _launch(scene, params, fstate, istate, lanes, regen, depth, flags=0):
+    """One launch of the bounce kernel; returns the tree walk it took and
+    the phase profile (None without FLAG_PROF)."""
     device = fstate.device
     if scene.device != device:
         raise ValueError(f"scene is on {scene.device}, lanes on {device}")
     n = fstate.shape[1]
     lib = _build.load_library()
-    ints, floats, width, height = params
+    ints, floats, (sampler, width, height, spp) = params
+    tables, _keep = launch_tables(scene, sampler, width, height, spp)
     trace_ints, trace_ptrs, _tables = trace_args(scene)
-    image_ints, texels = image_args(scene)
+    dims, texels = image_args(scene)
     shade_rows = scene.shade_rows.contiguous()
     sobol = sobol_table(device, sobol_log2_scale(width, height))
     px, py, limit = (None, None, None) if lanes is None else (t.data_ptr() for t in lanes)
-    walk, code, cap, queue = walk_args(scene, n)
+    smem = sobol_smem_bytes(sampler, spp) if regen and not flags & FLAG_LOOP_SOBOL else 0
+    walk, code, cap, queue = walk_args(scene, n, smem)
+    if flags and walk not in VARIANT_WALKS:
+        raise ValueError(f"no measurement variant for the {walk} walk; one of {VARIANT_WALKS}")
+    prof = (torch.empty((PROF_COLS, n), dtype=torch.int64, device=device)
+            if flags & FLAG_PROF else None)
     err = lib.zwrt_bounce(
         ints.ctypes.data_as(ctypes.c_void_p),
         floats.ctypes.data_as(ctypes.c_void_p),
+        tables.ctypes.data_as(ctypes.c_void_p),
         trace_ints.ctypes.data_as(ctypes.c_void_p),
         trace_ptrs.ctypes.data_as(ctypes.c_void_p),
-        image_ints.ctypes.data_as(ctypes.c_void_p),
-        texels.data_ptr(), shade_rows.data_ptr(), sobol.data_ptr(),
-        fstate.data_ptr(), istate.data_ptr(), px, py, limit,
-        int(regen), int(depth), code, cap, None if queue is None else queue.data_ptr(),
-        0 if queue is None else queue.numel(), n,
+        dims.shape[0], dims.data_ptr(), texels.data_ptr(), shade_rows.data_ptr(),
+        sobol.data_ptr(), fstate.data_ptr(), istate.data_ptr(), px, py, limit,
+        None if prof is None else prof.data_ptr(), int(regen), int(depth), code, flags, cap,
+        None if queue is None else queue.data_ptr(), 0 if queue is None else queue.numel(), n,
         torch.cuda.current_stream(device).cuda_stream,
     )
     if err != 0:
-        raise RuntimeError(f"bounce_kernel ({walk} walk) launch failed: cudaError {err}")
-    return walk
+        raise RuntimeError(f"bounce_kernel ({walk} walk, flags {flags}) launch failed: "
+                           f"cudaError {err}")
+    return walk, prof
 
 
 def _pack(origin, direction, throughput, radiance, time, ints, device, n):
@@ -131,7 +145,8 @@ def bounce(
         scene, seed, t_min, ((0.0,) * 3,) * 6, SamplerKind.SOBOL, 1, 1, 1,
         1, 1, False,
     )
-    walk = _launch(scene, (ints, floats, 1, 1), fstate, istate, None, False, depth)
+    walk, _ = _launch(scene, (ints, floats, (SamplerKind.SOBOL, 1, 1, 1)), fstate, istate,
+                      None, False, depth)
     bounce.launches[walk] += 1
     f = fstate
     return (
@@ -159,12 +174,46 @@ def bounce_regen(
         height=height, spp=spp, stride=stride, max_depth=max_depth,
         has_dof=has_dof,
     )
-    device = px.device
-    n = px.shape[0]
-    if device.type == "cpu":
+    if px.device.type == "cpu":
         return integrator.bounce_regen_reference(
             scene, state, px, py, sample_limit, seed, t_min, **kw
         )
+    out, _, walk = _regen(scene, state, px, py, sample_limit, seed, t_min, 0, **kw)
+    bounce_regen.launches[walk] += 1
+    return out
+
+
+bounce_regen.launches = dict.fromkeys(WALKS, 0)
+
+
+def bounce_regen_variant(scene: CompiledScene, state: RegenState, px, py, sample_limit, seed,
+                         t_min: float, *, profile: bool = False, loop_sobol: bool = False,
+                         **kw):
+    """``bounce_regen`` through a measurement variant, for the walks of
+    ``VARIANT_WALKS`` (as ``ops/fused_render.py:render_fused_variant``):
+    returns (final state, profile or None).  CPU tensors take the plain
+    version and return no profile.  ``bounce_regen_variant.launches``
+    counts launches per walk."""
+    if px.device.type == "cpu":
+        return integrator.bounce_regen_reference(
+            scene, state, px, py, sample_limit, seed, t_min, **kw), None
+    flags = (FLAG_PROF if profile else 0) | (FLAG_LOOP_SOBOL if loop_sobol else 0)
+    if not flags:
+        raise ValueError("bounce_regen_variant needs profile or loop_sobol; "
+                         "bounce_regen launches the default kernel")
+    out, prof, walk = _regen(scene, state, px, py, sample_limit, seed, t_min, flags, **kw)
+    bounce_regen_variant.launches[walk] += 1
+    return out, prof
+
+
+bounce_regen_variant.launches = dict.fromkeys(VARIANT_WALKS, 0)
+
+
+def _regen(scene, state, px, py, sample_limit, seed, t_min, flags, *, camera_consts, sampler,
+           width, height, spp, stride, max_depth, has_dof):
+    """One regenerating launch: (final state, profile or None, walk)."""
+    device = px.device
+    n = px.shape[0]
     if device.type != "cuda":
         raise ValueError(f"bounce_regen runs on cuda or cpu tensors, not {device}")
     for name, t in (("px", px), ("py", py), ("sample_limit", sample_limit),
@@ -183,16 +232,13 @@ def bounce_regen(
         scene, seed, t_min, camera_consts, sampler, width, height, spp,
         stride, max_depth, has_dof,
     )
-    walk = _launch(scene, (ints, floats, width, height), fstate, istate,
-                   (px, py, sample_limit), True, 0)
-    bounce_regen.launches[walk] += 1
+    walk, prof = _launch(scene, (ints, floats, (sampler, width, height, spp)), fstate, istate,
+                         (px, py, sample_limit), True, 0, flags)
     f, s = fstate, istate
-    return RegenState(
+    out = RegenState(
         origin=V3(f[0], f[1], f[2]), direction=V3(f[3], f[4], f[5]),
         time=f[12], ray_id=s[0].to(torch.int64) & 0xFFFFFFFF,
         throughput=V3(f[6], f[7], f[8]), radiance=V3(f[9], f[10], f[11]),
         alive=s[1] != 0, sample=s[2], bounce=s[3], work=s[4],
     )
-
-
-bounce_regen.launches = dict.fromkeys(WALKS, 0)
+    return out, prof, walk

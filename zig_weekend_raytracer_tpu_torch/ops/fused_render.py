@@ -12,9 +12,16 @@ per tree walk ({walk: launches}).
 ``kernel_tables`` and ``trace_args`` pack the scene for the kernels' shared
 trace (``trace_closest``), which ``ops/closest_hit.py`` launches too;
 ``image_args`` packs its image table (the texture LUT, or else the atlas)
-for the kernels' shared texel fetch.  The kernel takes image scenes that
-have a texture LUT (instantiated with the fetch) and scenes without
-images (instantiated without it).
+for the kernels' shared texel fetch, ``light_table`` its light list and
+``sobol_p_table`` the factored Sobol sampler's byte tables, all device
+tables of any length.  The kernel takes image scenes that have a texture
+LUT (instantiated with the fetch) and scenes without images (instantiated
+without it).
+
+``render_fused_variant`` launches the kernel's measurement variants
+(``csrc/render_kernels.cuh``): the per-lane phase profile and the earlier
+Sobol bit-loop respawn.  No path of the renderer launches them, and
+``render_fused_variant.launches`` counts them apart.
 
 Each launch of the render and bounce kernels takes the tree walk of
 ``ops/trace.py:walk_of`` as it reads then (the unified tree when the scene
@@ -42,10 +49,13 @@ from ..textures import image_table
 from . import _build
 from .trace import WALKS, WARP, walk_of
 
-# Must match csrc/zwrt_device.cuh.
-MAX_IMAGES = 16
-MAX_LIGHTS = 8
+# Must match csrc/zwrt_device.cuh and csrc/render_kernels.cuh.
 LIGHT_FLOATS = 17
+IMAGE_DIMS = 4          # w, h, base, row stride per image
+PROF_PHASES = ("respawn", "trace", "shade")
+PROF_COLS = 3 * len(PROF_PHASES) + 1  # cycles, entries, active lanes; total
+FLAG_PROF, FLAG_LOOP_SOBOL = 1, 2     # DrainFlags
+VARIANT_WALKS = ("cond", "queue")     # the walks the variants are built for
 THREADS = 128           # threads per block of every launcher
 SMEM_LIMIT = 232448     # dynamic shared memory a block can have (227 KB)
 _SAMPLER_CODE = {
@@ -72,6 +82,54 @@ def sobol_table(device: torch.device, log2_scale: int) -> torch.Tensor:
         [d["sobol32"][0], d["sobol32"][1], vdc, inv_lo, inv_hi]
     ).astype(np.uint32)
     return torch.from_numpy(tab.view(np.int32).copy()).to(device)
+
+
+@functools.lru_cache(maxsize=16)
+def sobol_p_table(device: torch.device, log2_scale: int, n_bytes: int) -> torch.Tensor:
+    """The factored sampler's byte tables (``sampling/sobol.py:
+    sobol_p_tables``), (2 * n_bytes * 256,) int32 bit patterns, uploaded once
+    per (device, scale, bytes); the kernels stage them in shared memory."""
+    tab = _sobol.sobol_p_tables(log2_scale, n_bytes).reshape(-1)
+    tab = torch.where(tab >= 2**31, tab - 2**32, tab).to(torch.int32)
+    return tab.to(device)
+
+
+_LIGHT_CACHE: "weakref.WeakKeyDictionary" = weakref.WeakKeyDictionary()
+
+
+def light_table(scene: CompiledScene):
+    """(kinds (L,) int32, rows (L, 17) float32) of the scene's light list on
+    its device, cached per scene: each light's kind and its parameters,
+    zero-padded on the right (``light_pdf`` and ``light_sample`` read
+    them); any number of lights."""
+    cached = _LIGHT_CACHE.get(scene)
+    if cached is not None:
+        return cached
+    n_l = len(scene.light_params)
+    rows = np.zeros((max(n_l, 1), LIGHT_FLOATS), np.float32)
+    kinds = np.zeros((max(n_l, 1),), np.int32)
+    for k, (kind, p) in enumerate(scene.light_params):
+        if kind not in (PRIM_SPHERE, PRIM_QUAD):
+            raise ValueError(f"unknown light kind {kind}")
+        kinds[k] = kind
+        rows[k, : len(p)] = p
+    out = (torch.from_numpy(kinds).to(scene.device), torch.from_numpy(rows).to(scene.device))
+    _LIGHT_CACHE[scene] = out
+    return out
+
+
+def launch_tables(scene: CompiledScene, sampler: SamplerKind, width: int, height: int,
+                  spp: int):
+    """(ptrs, tensors): the host array of device pointers the launchers
+    read beside ``launch_params`` (light kinds, light rows, the factored
+    Sobol tables or 0 for another sampler) and the tensors behind them."""
+    kinds, rows = light_table(scene)
+    tensors = [kinds, rows]
+    if sampler == SamplerKind.SOBOL:
+        tensors.append(sobol_p_table(scene.device, sobol_log2_scale(width, height),
+                                     _sobol.sobol_sample_bytes(spp)))
+    ptrs = np.array([t.data_ptr() for t in tensors] + [0] * (3 - len(tensors)), np.uint64)
+    return ptrs, tuple(tensors)
 
 
 def kernel_tables(scene: CompiledScene):
@@ -174,13 +232,14 @@ def queue_capacity(scene: CompiledScene, walk: str) -> int:
     return max(((n + 1) // 2 + 1 for n in nodes), default=0)
 
 
-def walk_args(scene: CompiledScene, n: int):
+def walk_args(scene: CompiledScene, n: int, smem_before: int = 0):
     """(walk, walk code, queue capacity, queue tensor or None) of a launch
     over ``n`` lanes, the walk as ``walk_of`` reads it now.  ``queue`` keeps
     a lane-major int32 queue per thread of the launch; ``rowqueue`` keeps
-    one per warp in shared memory.  Raises when the queue does not fit:
-    past 2**31 - 1 entries (the kernel indexes it with 32-bit ints), or
-    past a block's 227 KB of shared memory."""
+    one per warp in shared memory, after ``smem_before`` bytes of staged
+    tables.  Raises when the queue does not fit: past 2**31 - 1 entries (the
+    kernel indexes it with 32-bit ints), or past a block's 227 KB of shared
+    memory."""
     walk = walk_of(scene)
     cap = queue_capacity(scene, walk)
     queue = None
@@ -192,59 +251,64 @@ def walk_args(scene: CompiledScene, n: int):
                 "past the kernel's 32-bit queue index"
             )
         queue = torch.empty((cap * threads,), dtype=torch.int32, device=scene.device)
-    if walk == "rowqueue" and THREADS // WARP * cap * 8 > SMEM_LIMIT:
+    if walk == "rowqueue" and smem_before + THREADS // WARP * cap * 8 > SMEM_LIMIT:
         raise ValueError(
             f"the rowqueue walk needs {THREADS // WARP * cap * 8} bytes of shared memory per "
-            f"block ({cap} leaf entries per warp), past the card's {SMEM_LIMIT}"
+            f"block ({cap} leaf entries per warp) after {smem_before} bytes of tables, past "
+            f"the card's {SMEM_LIMIT}"
         )
     return walk, WALKS.index(walk), cap, queue
 
 
+_IMAGE_CACHE: "weakref.WeakKeyDictionary" = weakref.WeakKeyDictionary()
+
+
 def image_args(scene: CompiledScene):
-    """(ints, texels) of the kernels' image table: ``ints`` (int32) is
-    [n_images, then width, height, base, row stride per image] and
-    ``texels`` the int32 table on the scene's device.  The texture LUT when
-    the scene has one (each image at its own base, stride its width), else
-    the atlas (image i at i * ah * aw, stride aw)."""
+    """(dims, texels) of the kernels' image table on the scene's device,
+    cached per scene: ``dims`` (n_images, 4) int32 holds each image's
+    width, height, base and row stride, ``texels`` the int32 table.  The
+    texture LUT when the scene has one (each image at its own base, stride
+    its width), else the atlas (image i at i * ah * aw, stride aw).  Any
+    number of images."""
+    cached = _IMAGE_CACHE.get(scene)
+    if cached is not None:
+        return cached
     dims, texels = image_table(scene)
-    if len(dims) > MAX_IMAGES:
-        raise NotImplementedError(
-            f"the kernels take at most {MAX_IMAGES} images, got {len(dims)}"
-        )
-    ints = np.array([len(dims), *(v for d in dims for v in d)], np.int32)
-    return ints, texels.contiguous()
+    table = torch.tensor(np.array(dims, np.int32).reshape(-1, IMAGE_DIMS), dtype=torch.int32)
+    out = (table.to(texels.device).contiguous(), texels.contiguous())
+    _IMAGE_CACHE[scene] = out
+    return out
 
 
 def launch_params(scene, seed, t_min, camera_consts, sampler, width, height,
                   spp, stride, max_depth, has_dof):
-    """Host arrays (int32, float32) in the order the C launcher reads them."""
-    n_l = len(scene.light_params)
-    if n_l > MAX_LIGHTS:
-        raise NotImplementedError(
-            f"the fused kernel takes at most {MAX_LIGHTS} lights, got {n_l}"
-        )
+    """Host arrays (int32, float32) in the order the C launcher reads them
+    (zwrt_device.cuh:read_params); the light list and the Sobol tables go
+    as device tables (``launch_tables``)."""
     strat_sqrt = max(1, int(np.sqrt(spp)))
-    kinds = [k for k, _ in scene.light_params] + [0] * (MAX_LIGHTS - n_l)
     ints = np.array(
         [width, height, spp, stride, max_depth, _SAMPLER_CODE[sampler],
          sobol_log2_scale(width, height), strat_sqrt, int(seed) & 0xFFFFFFFF,
-         scene.n_spheres, scene.n_quads, scene.shade_rows.shape[0], n_l,
-         int(bool(scene.needs_gauss)), int(bool(has_dof)), *kinds],
+         scene.n_spheres, scene.n_quads, scene.shade_rows.shape[0],
+         len(scene.light_params), int(bool(scene.needs_gauss)), int(bool(has_dof)),
+         _sobol.sobol_sample_bytes(spp)],
         dtype=np.int64,
     ).astype(np.uint32).view(np.int32)
-    lights = np.zeros((MAX_LIGHTS, LIGHT_FLOATS), np.float32)
-    for k, (kind, p) in enumerate(scene.light_params):
-        lights[k, : len(p)] = p
-        if kind not in (PRIM_SPHERE, PRIM_QUAD):
-            raise ValueError(f"unknown light kind {kind}")
     position, pixel00, du, dv, defocus_u, defocus_v = camera_consts
     floats = np.concatenate([
         np.array([t_min, 1.0 / strat_sqrt], np.float32),
         *(np.asarray(v, np.float32)
           for v in (position, pixel00, du, dv, defocus_u, defocus_v)),
-        np.asarray(scene.background_rgb, np.float32), lights.reshape(-1),
+        np.asarray(scene.background_rgb, np.float32),
     ]).astype(np.float32)
     return np.ascontiguousarray(ints), np.ascontiguousarray(floats)
+
+
+def sobol_smem_bytes(sampler: SamplerKind, spp: int) -> int:
+    """Shared memory per block of the staged Sobol tables."""
+    if sampler != SamplerKind.SOBOL:
+        return 0
+    return 2 * _sobol.sobol_sample_bytes(spp) * 256 * 4
 
 
 def check_lane_tensor(name, t, device, n, dtype=torch.int32):
@@ -273,20 +337,66 @@ def render_fused(
     An image scene needs a texture LUT: without one it raises, since the
     kernel reads no atlas (``trace_paths_regen`` sends such scenes to
     ``ops/bounce.py:bounce_regen``)."""
+    kw = dict(camera_consts=camera_consts, sampler=sampler, width=width, height=height,
+              spp=spp, stride=stride, max_depth=max_depth, has_dof=has_dof)
+    if px.device.type == "cpu":
+        _check_supported(scene)
+        return render_fused_reference(scene, px, py, s0, s1, seed, t_min,
+                                      want_work=want_work, **kw)
+    rad, work, _, walk = _launch(scene, px, py, s0, s1, seed, t_min, 0, want_work, **kw)
+    render_fused.launches[walk] += 1
+    if want_work:
+        return rad, work
+    return rad
+
+
+render_fused.launches = dict.fromkeys(WALKS, 0)
+
+
+def render_fused_variant(
+    scene: CompiledScene, px, py, s0, s1, seed: int, t_min: float, *,
+    profile: bool = False, loop_sobol: bool = False, **kw,
+):
+    """``render_fused`` through a measurement variant, for the walks of
+    ``VARIANT_WALKS``: ``loop_sobol`` respawns through the Sobol bit loops
+    (the kernel before the factored tables), ``profile`` also returns each lane's phase
+    profile, (PROF_COLS, N) int64: per phase of ``PROF_PHASES`` the clock64
+    cycles, the entries and the converged lanes at entry summed, then the
+    drain's whole cycles.  Returns (radiance, work, profile or None).  CPU
+    tensors take the plain version and return no profile.
+    ``render_fused_variant.launches`` counts launches per walk."""
+    if px.device.type == "cpu":
+        _check_supported(scene)
+        rad, work = render_fused_reference(scene, px, py, s0, s1, seed, t_min,
+                                           want_work=True, **kw)
+        return rad, work, None
+    flags = (FLAG_PROF if profile else 0) | (FLAG_LOOP_SOBOL if loop_sobol else 0)
+    if not flags:
+        raise ValueError("render_fused_variant needs profile or loop_sobol; "
+                         "render_fused launches the default kernel")
+    rad, work, prof, walk = _launch(scene, px, py, s0, s1, seed, t_min, flags, True, **kw)
+    render_fused_variant.launches[walk] += 1
+    return rad, work, prof
+
+
+render_fused_variant.launches = dict.fromkeys(VARIANT_WALKS, 0)
+
+
+def _check_supported(scene):
     if scene.has_image_textures and not scene.tex_lut_dims:
         raise NotImplementedError(
             "render_fused takes an image-texture scene only with a texture "
             "LUT; trace_paths_regen sends the others to the bounce kernel "
             "(ops/bounce.py)"
         )
+
+
+def _launch(scene, px, py, s0, s1, seed, t_min, flags, want_work, *, camera_consts,
+            sampler, width, height, spp, stride, max_depth, has_dof):
+    """One launch of the render kernel's instantiation for ``flags``;
+    returns (radiance, work or None, profile or None, walk)."""
+    _check_supported(scene)
     device = px.device
-    if device.type == "cpu":
-        return render_fused_reference(
-            scene, px, py, s0, s1, seed, t_min,
-            camera_consts=camera_consts, sampler=sampler, width=width,
-            height=height, spp=spp, stride=stride, max_depth=max_depth,
-            has_dof=has_dof, want_work=want_work,
-        )
     if device.type != "cuda":
         raise ValueError(f"render_fused runs on cuda or cpu tensors, not {device}")
     n = px.shape[0]
@@ -300,36 +410,35 @@ def render_fused(
         scene, seed, t_min, camera_consts, sampler, width, height, spp,
         stride, max_depth, has_dof,
     )
+    tables, _keep = launch_tables(scene, sampler, width, height, spp)
     trace_ints, trace_ptrs, _tables = trace_args(scene)
-    image_ints = texels = None
+    dims = texels = None
     if scene.has_image_textures:
-        image_ints, texels = image_args(scene)
+        dims, texels = image_args(scene)
     shade_rows = scene.shade_rows.contiguous()
     sobol = sobol_table(device, sobol_log2_scale(width, height))
-    walk, code, cap, queue = walk_args(scene, n)
+    smem = 0 if flags & FLAG_LOOP_SOBOL else sobol_smem_bytes(sampler, spp)
+    walk, code, cap, queue = walk_args(scene, n, smem)
+    if flags and walk not in VARIANT_WALKS:
+        raise ValueError(f"no measurement variant for the {walk} walk; one of {VARIANT_WALKS}")
     rad = torch.empty((3, n), dtype=real, device=device)
     work = torch.empty((n,), dtype=torch.int32, device=device) if want_work else None
+    prof = (torch.empty((PROF_COLS, n), dtype=torch.int64, device=device)
+            if flags & FLAG_PROF else None)
     stream = torch.cuda.current_stream(device).cuda_stream
+    ptr = lambda t: None if t is None else t.data_ptr()
     err = lib.zwrt_fused_render(
         ints.ctypes.data_as(ctypes.c_void_p),
         floats.ctypes.data_as(ctypes.c_void_p),
+        tables.ctypes.data_as(ctypes.c_void_p),
         trace_ints.ctypes.data_as(ctypes.c_void_p),
         trace_ptrs.ctypes.data_as(ctypes.c_void_p),
-        None if image_ints is None else image_ints.ctypes.data_as(ctypes.c_void_p),
-        None if texels is None else texels.data_ptr(),
+        0 if dims is None else dims.shape[0], ptr(dims), ptr(texels),
         px.data_ptr(), py.data_ptr(), s0.data_ptr(), s1.data_ptr(),
-        shade_rows.data_ptr(), sobol.data_ptr(), rad.data_ptr(),
-        work.data_ptr() if want_work else None,
-        code, cap, None if queue is None else queue.data_ptr(),
-        0 if queue is None else queue.numel(), n, stream,
+        shade_rows.data_ptr(), sobol.data_ptr(), rad.data_ptr(), ptr(work), ptr(prof),
+        code, flags, cap, ptr(queue), 0 if queue is None else queue.numel(), n, stream,
     )
     if err != 0:
-        raise RuntimeError(f"fused_render_kernel ({walk} walk) launch failed: cudaError {err}")
-    render_fused.launches[walk] += 1
-    radiance = V3(rad[0], rad[1], rad[2])
-    if want_work:
-        return radiance, work
-    return radiance
-
-
-render_fused.launches = dict.fromkeys(WALKS, 0)
+        raise RuntimeError(f"fused_render_kernel ({walk} walk, flags {flags}) launch failed: "
+                           f"cudaError {err}")
+    return V3(rad[0], rad[1], rad[2]), work, prof, walk

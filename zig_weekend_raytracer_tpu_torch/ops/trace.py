@@ -320,13 +320,22 @@ def _uni_tree_stage(scene, o: V3, d: V3, tm, t_min, walking, best: Hit) -> Hit:
     return best
 
 
+# The walk when ZWRT_TRAV is unset.  The JAX package walks cond; on the
+# H100 the queue walk beat cond at the port's leaf span on both scenes that
+# tools/span_sweep.py times, in 5 of 5 alternating pairs each (NVIDIA H100
+# 80GB HBM3, 700.00 W; render medians: balls 400x400@128 d10 0.0343 vs
+# 0.0509 s, rtw_final 400x400@64 d8 0.0302 vs 0.0327 s).
+DEFAULT_WALK = "queue"
+
+
 def walk_of(scene: CompiledScene) -> str:
     """The tree walk the kernels take for ``scene``: ``uni`` when it has
-    the unified tree, else ``ZWRT_TRAV`` as read now (``cond`` when unset;
-    an unknown value walks ``queue``, as in the JAX package)."""
+    the unified tree, else ``ZWRT_TRAV`` as read now (``DEFAULT_WALK`` when
+    unset; ``ZWRT_TRAV=cond`` gives the JAX package's walk; an unknown
+    value walks ``queue``, as in the JAX package)."""
     if scene.has_uni_tree:
         return "uni"
-    trav = os.environ.get("ZWRT_TRAV", "cond")
+    trav = os.environ.get("ZWRT_TRAV", DEFAULT_WALK)
     return trav if trav in ("cond", "rowqueue", "spec") else "queue"
 
 

@@ -152,6 +152,70 @@ def sobol_interval_to_index(
     return index ^ _xor_columns(b, vdc_inv[: 2 * log2_scale])
 
 
+def sobol_pixel_u32(log2_scale: int, sample_idx, px, py, dim: int) -> torch.Tensor:
+    """The pixel sampler's raw u32 of dimension ``dim`` (0 or 1) for the
+    ``sample_idx``-th sample of pixel (px, py): the bit loops of
+    ``sobol_interval_to_index`` and ``sobol_sample_u32``."""
+    return sobol_sample_u32(sobol_interval_to_index(log2_scale, sample_idx, px, py), dim)
+
+
+# The factored sampler.  Every step above is an XOR of table columns, so
+# the u32 is linear over GF(2) in the sample's bits and in the pixel's bits
+# (pixel bits (px << L) | py with px, py < 2^L, as every pixel of the image
+# has): with L = log2_scale and C_d the 52 columns of dimension d,
+#   v_d(s, px, py) = P_d(s) ^ Q_d(px, py),
+#   P_d(s) = C_d ((s << 2L) ^ Inv VdC s) = v_d(s, 0, 0),
+#   Q_d(px, py) = C_d Inv ((px << L) | py) = v_d(0, px, py),
+# and when L = 0, Q_d = 0 and P_d(s) = C_d s.  P_d is linear in s, so it is
+# the XOR of one table entry per byte of s.  The CUDA kernels read P_d's
+# byte tables from shared memory and compute Q_d once per lane
+# (csrc/zwrt_device.cuh:SobolPixel).
+
+
+def sobol_sample_bytes(spp: int) -> int:
+    """Bytes of the sample index that samples 0 .. spp - 1 use (at least
+    one)."""
+    return max(1, -(-max(int(spp) - 1, 0).bit_length() // 8))
+
+
+def sobol_p_tables(log2_scale: int, n_bytes: int, device="cpu") -> torch.Tensor:
+    """(2, n_bytes, 256) int64 u32 values: entry [d, k, b] is P_d(b << 8k),
+    for dimensions 0 and 1."""
+    byte = torch.arange(256, dtype=torch.int64, device=device)
+    zero = torch.zeros_like(byte)
+    return torch.stack([
+        torch.stack([sobol_pixel_u32(log2_scale, byte << (8 * k), zero, zero, d)
+                     for k in range(n_bytes)])
+        for d in (0, 1)
+    ])
+
+
+def sobol_p(tables: torch.Tensor, sample_idx) -> torch.Tensor:
+    """(2, N) P_d of u32 sample indices below 2^(8 n_bytes): one table
+    entry per byte of the index, XORed."""
+    s = torch.as_tensor(sample_idx).to(torch.int64) & U32_MASK
+    n_bytes = tables.shape[1]
+    if bool((s >> (8 * n_bytes)).any()):
+        raise ValueError(f"a sample index needs more than the tables' {n_bytes} bytes")
+    v = torch.zeros((2,) + tuple(s.shape), dtype=torch.int64, device=s.device)
+    for k in range(n_bytes):
+        v = v ^ tables[:, k][:, (s >> (8 * k)) & 0xFF]
+    return v
+
+
+def sobol_q(log2_scale: int, px, py) -> torch.Tensor:
+    """(2, N) Q_d of pixels (px, py): the pixel part, once per pixel."""
+    px = torch.as_tensor(px).to(torch.int64)
+    zero = torch.zeros_like(px)
+    return torch.stack([sobol_pixel_u32(log2_scale, zero, px, py, d) for d in (0, 1)])
+
+
+def sobol_pixel_u32_factored(tables, log2_scale: int, sample_idx, px, py) -> torch.Tensor:
+    """(2, N) u32 of dimensions 0 and 1, as P_d(s) ^ Q_d(px, py): bitwise
+    ``sobol_pixel_u32`` of each dimension."""
+    return sobol_p(tables, sample_idx) ^ sobol_q(log2_scale, px, py)
+
+
 def ceil_pow2(x: int) -> int:
     p = 1
     while p < x:

@@ -15,6 +15,9 @@ its time is the card's issue limit for that class:
                                        quadratic chain with no closed form,
                                        the check that the affine chains
                                        were not folded
+  * ``int``:    a = (a * m + k) ^ x    2 lane-operations (IMAD, LOP3) on
+                                       u32, m, k and x from the bits of c;
+                                       0 FLOPs
 
 ``c`` is read at run time, so no chain folds.  Each class is swept over
 (blocks per SM, chains, unroll) shapes, every grid a multiple of the SM
@@ -24,8 +27,9 @@ time must scale with ``iters`` at a fixed shape (1x, 2x, 4x: the 4x / 1x
 time ratio within [3, 5]), and no rate may exceed 105% of the physics
 bound, SMs x 128 FP32 lanes x the maximum SM clock (``nvidia-smi
 --query-gpu=clocks.max.sm``), x 2 for FLOPs.  The ``add`` rate is the
-lane-operation rate that ``utils/roofline.py`` divides the kernels'
-operation counts by.
+lane-operation rate that ``utils/roofline.py`` divides the kernels' FP32
+operation counts by; ``select`` prices their compares and selects and
+``int`` their integer operations (``rates``).
 
 Prints one JSON line; exits 1 when a check fails and 2 without a card.
 ``chain_reference`` is the kernel's plain PyTorch version, which ``chain``
@@ -42,9 +46,11 @@ import torch
 
 from ..ops import _build
 
-OPS = ("fma", "add", "select", "newton")  # csrc/fp32_peak.cu:ChainOp order
-OPS_PER_ELEM = {"fma": 1, "add": 1, "select": 2, "newton": 2}
-FLOPS_PER_ELEM = {"fma": 2, "add": 1, "select": 0, "newton": 3}
+OPS = ("fma", "add", "select", "newton", "int")  # csrc/fp32_peak.cu:ChainOp order
+OPS_PER_ELEM = {"fma": 1, "add": 1, "select": 2, "newton": 2, "int": 2}
+FLOPS_PER_ELEM = {"fma": 2, "add": 1, "select": 0, "newton": 3, "int": 0}
+# utils/roofline.py's operation classes and the chain that measures each
+RATE_OF_CLASS = {"fp": "add", "cmp": "select", "int": "int"}
 LANE = 128        # multipliers, indexed by thread % 128
 THREADS = 128     # threads per block
 CHAINS = (4, 8)
@@ -73,12 +79,34 @@ def _fma(a, b, c):
     return (a.double() * b.double() + c.double()).float()
 
 
+def int_constants(c: torch.Tensor):
+    """(m, k, x) of the int chain from the bits of float32 ``c``, as int64
+    tensors of u32 values (csrc/fp32_peak.cu:int_constants)."""
+    b = c.view(torch.int32).to(torch.int64) & 0xFFFFFFFF
+    k = b >> 3
+    return b | 1, k, 0x9E3779B9 ^ k
+
+
+def _int_chain(cv, iters, chains, unroll):
+    m, k, x = int_constants(cv)
+    mask = 0xFFFFFFFF
+    acc = (1 + torch.arange(chains, dtype=torch.int64, device=cv.device))[:, None]
+    acc = acc.expand(chains, cv.shape[0])
+    for _ in range(iters * unroll):
+        acc = ((acc * m + k) & mask) ^ x
+    total = acc.sum(0) & mask
+    return torch.where(total >= 2**31, total - 2**32, total).to(torch.int32).view(torch.float32)
+
+
 def chain_reference(op: str, c: torch.Tensor, n: int, iters: int, chains: int,
                     unroll: int = 1) -> torch.Tensor:
     """Plain PyTorch version of ``chain_kernel``: (n,) float32, thread i's
-    chains with multiplier c[i % 128], summed in chain order."""
+    chains with multiplier c[i % 128], summed in chain order (the int
+    chain: the bits of its u32 sum)."""
     const = lambda v: torch.tensor(v, dtype=torch.float32, device=c.device)
     cv = c[torch.arange(n, device=c.device) % LANE]
+    if op == "int":
+        return _int_chain(cv, iters, chains, unroll)
     d, two = const(D_VALUE), const(2.0)
     k = torch.arange(chains, dtype=torch.float32, device=c.device)[:, None]
     acc = (const(1.0) + const(0.001) * k).expand(chains, n)
@@ -184,7 +212,8 @@ def physics_bound() -> dict:
 def run(iters: int = ITERS) -> dict:
     """The sweep, the scaling check and the physics bound; ``ok`` is False
     when a rate passes 105% of the bound or the scaling ratio leaves
-    [3, 5].  ``add_gops`` is the rate the roofline divides by."""
+    [3, 5].  ``add_gops`` is the rate the roofline divides FP32 operations
+    by, ``rates`` the lane-operations per second of each of its classes."""
     sweep = [measure(op, b, ch, u, iters) for op in OPS for b, ch, u in SWEEP]
     best = {op: max((r for r in sweep if r["op"] == op), key=lambda r: r["gops"]) for op in OPS}
     scaling = iters_scaling("fma", iters)
@@ -199,6 +228,7 @@ def run(iters: int = ITERS) -> dict:
         "best_shape": {op: [best[op][k] for k in ("blocks_per_sm", "chains", "unroll")]
                        for op in OPS},
         "add_gops": best["add"]["gops"],
+        "rates": {cls: best[op]["gops"] * 1e9 for cls, op in RATE_OF_CLASS.items()},
         "physics_bound": phys,
         "over_physics": over,
         "iters_scaling": scaling,
