@@ -13,11 +13,21 @@
      package's writer's for a seeded framebuffer; a failed write raises.
   6. ``--profile=host`` prints the zone table; the device table's zones are
      the kernels' names.
+  7. ``--aov`` writes three PNGs whose pixels (decoded with PIL, here only)
+     equal those the JAX package's ``write_aovs`` writes for the same
+     buffers; ``--denoise`` runs the AOV pass and the filter; ``--stats``
+     counts the AOV pass's paths as the JAX package's tests/test_aov.py
+     expects; the PNG encoder's files decode to their pixels; and the port
+     never imports PIL (nor JAX) on these paths.
 """
 
 import dataclasses
 import enum
 import logging
+import os
+import subprocess
+import sys
+import textwrap
 
 import numpy as np
 import pytest
@@ -32,6 +42,7 @@ from zig_weekend_raytracer_tpu_torch.utils import profiler
 from zig_weekend_raytracer_tpu_torch.utils.argparser import ArgParser, ParseArgsError
 
 STAGES = ("scene initialized", "scene rendered", "scene written to file")
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
 def _values(args) -> dict:
@@ -102,7 +113,7 @@ def test_bad_profile_mode_exits_1(capsys):
 
 @pytest.mark.parametrize("flag,n", [
     ("--shard=samples", 6), ("--adaptive=1", 5), ("--checkpoint=c.npz", 5),
-    ("--denoise=1", 5), ("--aov=true", 5), ("--supersample=2", 5),
+    ("--supersample=2", 5),
     ("--scene_file=s.json", 5), ("--russian_roulette=3", 5),
     ("--clamp_indirect=1.5", 5),
 ])
@@ -113,6 +124,17 @@ def test_later_slice_flags_exit_1(flag, n, tmp_path, capsys):
     name = flag[2:].split("=")[0]
     assert f"error: --{name} is slice {n} of the port (ROADMAP.md)" in capsys.readouterr().err
     assert not out.exists()
+
+
+@pytest.mark.parametrize("ext", ["jpg", "jpeg", "BMP"])
+def test_refused_image_formats_exit_1_before_the_render(ext, tmp_path, capsys, caplog):
+    out = tmp_path / f"x.{ext}"
+    argv = ["--image_width=4", "--image_height=4", f"--image_out_path={out}", "--aov=true"]
+    with caplog.at_level(logging.INFO, logger="zwrt"):
+        assert tcli.main(argv, device="cpu") == 1
+    assert "the port writes .png and PPM images" in capsys.readouterr().err
+    assert not [r for r in caplog.records if r.name == "zwrt"]
+    assert not list(tmp_path.iterdir())
 
 
 # ---- 4. renders ----
@@ -190,3 +212,125 @@ def test_device_zones_are_kernel_names():
                    "closest_hit_kernel": (1, 0.1)}
     table = profiler.format_device_summary(agg)
     assert table.splitlines()[1].startswith("fused_render_kernel") and "TOTAL" in table
+
+
+# ---- 7. the AOV pass, the denoiser and PNG output ----
+
+def _png(path) -> np.ndarray:
+    from PIL import Image
+
+    return np.asarray(Image.open(path))
+
+
+def test_aov_flag_writes_jax_pngs(tmp_path, caplog):
+    from zig_weekend_raytracer_tpu.render import aov as jaov
+    from zig_weekend_raytracer_tpu_torch.render.aov import render_aovs
+
+    out = tmp_path / "a.ppm"
+    argv = ["--image_width=12", "--image_height=10", "--samples_per_pixel=1",
+            "--ray_bounce_max_depth=2", "--scene=cornell_box", "--aov=true",
+            f"--image_out_path={out}"]
+    with caplog.at_level(logging.INFO, logger="zwrt"):
+        assert tcli.main(argv, device="cpu") == 0
+    stages = [r.getMessage().split("\t")[-1] for r in caplog.records if r.name == "zwrt"]
+    assert stages == ["scene initialized", "scene rendered", "aovs rendered (4 spp)",
+                      "scene written to file", "aovs written"]
+    scene = tcli.load_scene("cornell_box", device="cpu")
+    aovs = {k: v.numpy() for k, v in render_aovs(scene, 12, 10, spp=4).items()}
+    want = jaov.write_aovs(str(tmp_path / "j.ppm"), aovs)
+    for name, ref in zip(("albedo", "normal", "depth"), want):
+        got = _png(f"{out}.{name}.png")
+        assert got.shape == ((10, 12, 3) if name != "depth" else (10, 12))
+        np.testing.assert_array_equal(got, _png(ref), err_msg=name)
+    assert _read_ppm(out).shape == (10, 12, 3)
+
+
+def test_denoise_flag_runs(tmp_path, caplog):
+    out = tmp_path / "d.png"
+    argv = ["--image_width=16", "--image_height=16", "--samples_per_pixel=2",
+            "--ray_bounce_max_depth=3", "--scene=cornell_box", "--denoise=2",
+            f"--image_out_path={out}"]
+    with caplog.at_level(logging.INFO, logger="zwrt"):
+        assert tcli.main(argv, device="cpu") == 0
+    stages = [r.getMessage().split("\t")[-1] for r in caplog.records if r.name == "zwrt"]
+    assert "aovs rendered (4 spp)" in stages and "denoised" in stages
+    img = _png(out)
+    assert img.shape == (16, 16, 3) and img.max() > 0
+    assert not (tmp_path / "d.png.albedo.png").exists()
+
+
+@pytest.mark.parametrize("flags,total,split", [
+    (["--denoise=1"], "384", True), (["--aov=true"], "384", True), ([], "128", False),
+])
+def test_stats_counts_the_aov_pass(flags, total, split, tmp_path, capsys):
+    argv = ["--image_width=8", "--image_height=8", "--samples_per_pixel=2",
+            "--ray_bounce_max_depth=2", "--scene=cornell_box", "--stats=true",
+            f"--image_out_path={tmp_path / 's.ppm'}", *flags]
+    assert tcli.main(argv, device="cpu") == 0
+    stats = [ln for ln in capsys.readouterr().out.splitlines() if ln.startswith("stats:")]
+    assert len(stats) == 1
+    # 8 x 8 x 2 beauty paths, plus 8 x 8 x 4 of the AOV pass
+    assert stats[0].startswith(f"stats: {total} paths in ")
+    assert ("aov pass 256 paths" in stats[0] and "beauty 128 paths" in stats[0]) == split
+
+
+@pytest.mark.parametrize("shape", [(5, 7, 3), (6, 4), (1, 1, 3)])
+def test_png_encoder_decodes_to_its_pixels(shape, tmp_path):
+    from zig_weekend_raytracer_tpu_torch.io import png
+
+    px = np.random.default_rng(len(shape)).integers(0, 256, shape, dtype=np.uint8)
+    png.write_png(str(tmp_path / "p.png"), px)
+    np.testing.assert_array_equal(_png(tmp_path / "p.png"), px)
+    with pytest.raises(ValueError, match="uint8"):
+        png.encode_png(px.astype(np.float32))
+
+
+def test_write_image_png_and_refused_formats(tmp_path):
+    fb = np.random.default_rng(3).uniform(0, 1, (4, 5, 3)).astype(np.float32)
+    tppm.write_image(str(tmp_path / "w.png"), fb)
+    np.testing.assert_array_equal(_png(tmp_path / "w.png"), jppm.encode_pixels(fb))
+    for ext in ("jpg", "jpeg", "bmp"):
+        with pytest.raises(ValueError, match="png"):
+            tppm.write_image(str(tmp_path / f"w.{ext}"), fb)
+
+
+_NO_PIL = textwrap.dedent(
+    """
+    import importlib, importlib.abc, pkgutil, sys
+
+    BLOCKED = ("PIL", "jax", "jaxlib", "zig_weekend_raytracer_tpu")
+
+    class Block(importlib.abc.MetaPathFinder):
+        def find_spec(self, name, path=None, target=None):
+            if name.split(".")[0] in BLOCKED:
+                raise ImportError(f"blocked import: {name}")
+            return None
+
+    sys.meta_path.insert(0, Block())
+    import zig_weekend_raytracer_tpu_torch as pkg
+    for mod in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + "."):
+        importlib.import_module(mod.name)
+    from zig_weekend_raytracer_tpu_torch import cli
+    out = sys.argv[1]
+    rc = cli.main(["--image_width=6", "--image_height=6", "--samples_per_pixel=1",
+                   "--ray_bounce_max_depth=2", "--scene=cornell_box", "--aov=true",
+                   "--denoise=1", "--image_out_path=" + out], device="cpu")
+    assert rc == 0, rc
+    leaked = [m for m in sys.modules if m.split(".")[0] in BLOCKED]
+    assert not leaked, leaked
+    print("ok")
+    """
+)
+
+
+def test_port_never_imports_pil(tmp_path):
+    env = dict(os.environ)
+    env["PYTHONPATH"] = REPO + os.pathsep + env.get("PYTHONPATH", "")
+    proc = subprocess.run(
+        [sys.executable, "-c", _NO_PIL, str(tmp_path / "n.png")], cwd=REPO, env=env,
+        capture_output=True, text=True, timeout=300,
+    )
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip().splitlines()[-1] == "ok"
+    assert sorted(p.name for p in tmp_path.iterdir()) == [
+        "n.png", "n.png.albedo.png", "n.png.depth.png", "n.png.normal.png"]

@@ -7,7 +7,9 @@ io/, utils/, models/) and never imports it or JAX.  Renders go through
 hand-written CUDA kernels: ``csrc/fused_render.cu`` (the whole render of
 a scene without images, or of an image scene with a texture LUT),
 ``csrc/bounce.cu`` (the bounce of image-texture scenes) and
-``csrc/closest_hit.cu`` (the first-hit probe of tree scenes); the render
+``csrc/closest_hit.cu`` (the first-hit probe of tree scenes and the
+first-hit AOV pass, ``render/aov.py``, which guides the denoiser,
+``render/denoise.py``); the render
 and bounce kernels take the tree walk that ``ZWRT_TRAV`` (queue, rowqueue,
 spec) or a scene compiled with ``ZWRT_UNI_TREE=1`` asks for.  Scenes live
 on the card unless built with ``device="cpu"``, where the same entry

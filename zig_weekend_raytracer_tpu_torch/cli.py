@@ -21,7 +21,7 @@ import time
 
 import torch
 
-from .io.ppm import write_image
+from .io.ppm import REFUSED_EXTENSIONS, extension, write_image
 from .models import DEFAULT_ASSET_DIR, SceneType, load_scene
 from .render.renderer import Renderer
 from .sampling.sampler import SamplerKind
@@ -56,7 +56,8 @@ class UserArgs:
     # progressive rendering with checkpoint/resume (slice 5)
     checkpoint: str = ""
     checkpoint_batch_spp: int = 16
-    # a-trous denoise iterations, 0 = off (slice 5)
+    # a-trous denoise iterations, 0 = off: guided by the first-hit AOV pass
+    # (render/denoise.py)
     denoise: int = 0
     # supersampling factor, 1 = off (slice 5)
     supersample: int = 1
@@ -66,7 +67,8 @@ class UserArgs:
     texture_lut: int = 0
     # print paths traced, wall-clock and Mpaths/s after the render
     stats: bool = False
-    # first-hit AOV buffers (slice 5)
+    # first-hit AOV buffers (render/aov.py), written as
+    # <image_out_path>.{albedo,normal,depth}.png
     aov: bool = False
     # zone tables after the render: host (wall-clock per named_zone) or
     # device (per-kernel device ms from a torch.profiler capture)
@@ -78,8 +80,6 @@ _LATER_SLICE_FLAGS = (
     ("shard", 6, lambda a: a.shard != "none"),
     ("adaptive", 5, lambda a: a.adaptive != 0),
     ("checkpoint", 5, lambda a: a.checkpoint != ""),
-    ("denoise", 5, lambda a: a.denoise != 0),
-    ("aov", 5, lambda a: a.aov),
     ("supersample", 5, lambda a: a.supersample > 1),
     ("scene_file", 5, lambda a: a.scene_file != ""),
     ("russian_roulette", 5, lambda a: a.russian_roulette != 0),
@@ -140,6 +140,10 @@ def main(argv=None, device="cuda") -> int:
     if why is not None:
         print(f"error: {why}", file=sys.stderr)
         return 1
+    if extension(args.image_out_path) in REFUSED_EXTENSIONS:
+        print(f"error: --image_out_path={args.image_out_path}: the port writes .png and PPM "
+              "images; .jpg, .jpeg and .bmp are a later slice (ROADMAP.md)", file=sys.stderr)
+        return 1
     if torch.device(device).type == "cuda" and not torch.cuda.is_available():
         print("error: CUDA is not available: the port's CLI renders on the card",
               file=sys.stderr)
@@ -184,16 +188,54 @@ def _run(args: UserArgs, device, profile_mode: str, timer: Timer) -> int:
     render_s = time.perf_counter() - t_render0
     timer.log_info_elapsed("scene rendered")
 
+    aovs = None
+    aov_s = 0.0
+    aov_spp = 0
+    if args.aov or args.denoise:
+        from .render.aov import render_aovs
+
+        # a separate first-hit pass at 4 spp (the regenerating kernels keep
+        # no per-pixel first bounce to reuse); its time and paths count in
+        # --stats
+        aov_spp = 4
+        t_aov0 = time.perf_counter()
+        aovs = render_aovs(scene, args.image_width, args.image_height, spp=aov_spp,
+                           seed=args.seed, sampler=args.sampler)
+        if scene.compiled.device.type == "cuda":
+            torch.cuda.synchronize()
+        aov_s = time.perf_counter() - t_aov0
+        timer.log_info_elapsed(f"aovs rendered ({aov_spp} spp)")
+    if args.denoise:
+        from .render.denoise import denoise
+
+        fb = denoise(torch.as_tensor(fb, device=scene.compiled.device), aovs,
+                     iterations=args.denoise).cpu().numpy()
+        timer.log_info_elapsed("denoised")
+
     write_image(args.image_out_path, fb, n_threads=args.thread_pool_size)
     timer.log_info_elapsed("scene written to file")
 
+    if args.aov:
+        from .render.aov import write_aovs
+
+        for p in write_aovs(args.image_out_path, aovs):
+            logging.info("aov written: %s", p)
+        timer.log_info_elapsed("aovs written")
+
     if args.stats:
-        paths = args.image_width * args.image_height * args.samples_per_pixel
-        print(
-            f"stats: {paths:,} paths in {render_s:.3f} s "
+        px = args.image_width * args.image_height
+        paths = px * args.samples_per_pixel
+        total_paths = paths + px * aov_spp
+        total_s = render_s + aov_s
+        line = (
+            f"stats: {total_paths:,} paths in {total_s:.3f} s "
             f"(incl. compile on first run) = "
-            f"{paths / render_s / 1e6:.2f} Mpaths/s"
+            f"{total_paths / total_s / 1e6:.2f} Mpaths/s"
         )
+        if aov_spp:
+            line += (f" [beauty {paths:,} paths / {render_s:.3f} s"
+                     f" + aov pass {px * aov_spp:,} paths / {aov_s:.3f} s]")
+        print(line)
 
     if profiler.profiling_enabled():
         print(profiler.format_zone_summary())

@@ -10,7 +10,8 @@ other device raises.  ``render_fused.launches`` counts kernel launches,
 per tree walk ({walk: launches}).
 
 ``kernel_tables`` and ``trace_args`` pack the scene for the kernels' shared
-trace (``trace_closest``), which ``ops/closest_hit.py`` launches too;
+trace (``trace_closest``), whose stages the closest-hit kernel
+(``ops/closest_hit.py``) walks too;
 ``image_args`` packs its image table (the texture LUT, or else the atlas)
 for the kernels' shared texel fetch, ``light_table`` its light list and
 ``sobol_p_table`` the factored Sobol sampler's byte tables, all device

@@ -92,6 +92,9 @@ OPS = {
     "light_pdf_quad": _ops(62, 11),
     "light_sample_sphere": _ops(72, 5),
     "light_sample_quad": _ops(15),
+    # the AOV pass's work per first hit past the trace: the hit point and
+    # facing, the dielectric, miss and normal selects, the three sums
+    "aov_hit": _ops(19, 9, 0),
 }
 
 
@@ -185,6 +188,35 @@ def trace_bytes(scene) -> int:
         else:
             n += n_prims * width * 4
     return n
+
+
+def hit_bytes(scene, n_rays: int) -> int:
+    """Bytes of a closest-hit launch: each ray's origin, direction and time
+    in (28) and its (t, kind, idx) out (12), and the trace's tables."""
+    return n_rays * (28 + 12) + trace_bytes(scene)
+
+
+def hit_bound_ms(counts, scene, n_rays: int, ops_rate=None):
+    """(ms, by) of the closest-hit kernel on ``n_rays`` rays whose plain
+    version counted ``counts`` (``bound_ms``)."""
+    return bound_ms(trace_ops(counts), hit_bytes(scene, n_rays), ops_rate)
+
+
+def aov_bound_ms(counts, scene, n_rays: int, hits: int, sphere_hits: int, pixels: int,
+                 has_dof: bool, sobol=None, ops_rate=None):
+    """(ms, by) of the first-hit AOV pass (render/aov.py) over ``n_rays``
+    camera rays on ``pixels`` pixels: the camera rays (``sobol`` as in
+    ``render_ops``), their closest hits (``counts``), per hit ``aov_hit``
+    and per sphere hit its normal; bytes are the trace's tables, the shade
+    records and the four float32 buffers (8 floats a pixel) written once.
+    The checker and texel work of textured hits is not counted, so the
+    bound is low on such scenes."""
+    camera = add(OPS["camera_ray"], OPS["camera_dof"] if has_dof else _ops(),
+                 sobol_ops(*sobol) if sobol else _ops())
+    ops = add(times(camera, n_rays), trace_ops(counts), times(OPS["aov_hit"], hits),
+              times(OPS["hit_sphere"], sphere_hits))
+    nbytes = trace_bytes(scene) + scene.shade_rows.numel() * 4 + pixels * 8 * 4
+    return bound_ms(ops, nbytes, ops_rate)
 
 
 def image_table_bytes(scene) -> int:
