@@ -30,9 +30,9 @@ Phases (any failure exits nonzero):
      phase and the plain version did not run;
   4. kernel against plain at the main path's lanes: the plain version at
      the sorted plan's 160,000 lanes with the largest spp <= 1024 expected
-     to finish in about 10 s, beside the kernel at the same spp (its work
+     to finish in about 5 s, beside the kernel at the same spp (its work
      counts give the bound); both on a spread slice of 4,096 of those
-     lanes, each rendering one 64-sample window of the 1024, the windows
+     lanes, each rendering one 32-sample window of the 1024, the windows
      together covering every sample index (every Sobol sample bit); and
      both on a spread slice of 256 lanes, each draining all 1024 samples
      of its pixel as the main path's lanes do (every respawn of the sample
@@ -116,19 +116,24 @@ Phases (any failure exits nonzero):
      render kernel only (sorted plan), Mpaths/s; its region gates at 200x200
      (scene_regions.json) and 64x64 (tests/golden/emissive.npz); the render
      kernel's time at the sorted plan and its bound;
- 16. the CLI (python -m zig_weekend_raytracer_tpu_torch.cli) as
+ 16. the CLI (python -m zig_weekend_raytracer_tpu_torch.cli) as six
      subprocesses started together: emissive 96x96, 16 spp, depth 10 and
      rtw_final with --texture_lut=32768 at 64x64, 4 spp, depth 10, each
      exiting 0 with the three stage log lines and the stats line, its PPM
      byte-equal to write_ppm of the same render made in this process;
      --scene=bogus exiting 1 with the usage text; --profile=device on cornell printing a
-     device table that names fused_render_kernel;
+     device table that names fused_render_kernel; at cornell 64x64, 16
+     spp, depth 10, --scene_file=<the port's cornell_box.json> --adaptive=1
+     --russian_roulette=3 --clamp_indirect=10, its PPM byte-equal to the
+     in-process adaptive render of the built-in cornell_box, and
+     --checkpoint resuming a checkpoint of 8 of the 16 spp written in this
+     process, its PPM byte-equal to the uninterrupted progressive render;
  17. the tree walks (kernel K4: ZWRT_TRAV=cond|queue|rowqueue|spec, and
      the unified tree of ZWRT_UNI_TREE=1) against their plain versions,
      with the tolerances of phases 2 and 9, all on scenes at leaf span 2:
-     for each walk the render kernel on balls, 32x32, 2 spp, depth 10 (not
+     for each walk the render kernel on balls, 32x32, 2 spp, depth 5 (not
      under uni: balls has no quads), the bounce kernel's regenerating mode
-     on rtw_final 32x32, 2 spp, depth 8 and its one-bounce mode on
+     on rtw_final 32x32, 2 spp, depth 4 and its one-bounce mode on
      rtw_final's 160,000 camera rays, all of them live and with every other
      lane dead (the warp's lanes diverge at the trace), and under cond and
      uni the render kernel with a native-budget LUT on rtw_final; each
@@ -184,7 +189,33 @@ Phases (any failure exits nonzero):
      pass at 64x64@4 bitwise against the plain path on the card; the
      denoiser on the card against the CPU at 64x64 (rtol 1e-5 / atol 1e-6
      on >= 99.9% of values) and its time at 400x400; the CLI's entry point
-     (cli.main, in this process) with --aov --denoise=3 --stats on balls.
+     (cli.main, in this process) with --aov --denoise=3 --stats on balls;
+ 23. the estimator instantiations (Russian roulette from bounce 3, the
+     indirect clamp at 10, each alone and both) against their plain
+     versions with phase 2's tolerances: the render kernel on cornell 32x32
+     8 spp d10, balls 32x32 8 spp d10 (tree, lens) and rtw_final 32x32 4
+     spp d8 with a native LUT; the bounce kernel's one-bounce mode with both
+     on cornell's 160,000 camera rays through bounces 0-3 with phase 9's;
+     the bounce kernel's regenerating mode on rtw_final (atlas) 32x32 with
+     both options bitwise the render without, the estimator never launched
+     (the gate); the Sobol tables past spp: the render kernel at cornell
+     32x32, spp 64, in 8-sample windows reaching sample 8,192;
+ 24. the drivers at the main path's configuration, cornell 400x400@1024
+     d10, Sobol, seed 0, each path with its counts set to 0 just before and
+     read just after (the render kernel launched, no plain version), one
+     render that builds the plan and three timed, Mpaths/s beside the card,
+     each framebuffer through the region gate of phase 3: (a) the balanced
+     driver (balance_min_spp=1), within rtol 1e-5 / atol 1e-6 of phase 3's
+     sorted render on >= 99.9% of pixels; (b) render_adaptive with the
+     default pilot, its sample counts summing to 400 x 400 x 1024, and balls
+     400x400@128 d10 adaptive gated on scene_regions.json; (c)
+     ProgressiveRenderer in 256-sample batches, interrupted after two and
+     resumed from its checkpoint, bitwise the uninterrupted progressive
+     render and within (a)'s tolerance of phase 3's; (d)
+     render_supersampled(k=2); (e) russian_roulette=3 (the estimator
+     instantiation launched), its bounces against rr = 0's; then the render
+     kernel's estimator and default instantiations at the rr3 plan in 3
+     alternating pairs.
 
 The record has one entry per kernel and mode: the render kernel on brute
 scenes (cornell, emissive), on tree scenes (balls) and with the texture LUT
@@ -194,7 +225,11 @@ and its regenerating mode (rtw_final), and the closest-hit kernel (its launches 
 the AOV passes; the ray sets, designs and AOV passes of phase 22); then one
 per walk other than the default of the render kernel (cond, rowqueue and
 spec on balls at span 2, uni with the LUT on rtw_final) and of the bounce
-kernel's regenerating mode (rtw_final), and the FP32-peak chain kernel.
+kernel's regenerating mode (rtw_final), the estimator instantiations of
+the render kernel (its launches on phase 24's russian_roulette=3 path, its
+time at that path's plan, every driver of phase 24 beside it) and of the
+bounce kernel (parity only: the atlas gate keeps it off every path), and
+the FP32-peak chain kernel.
 The measurement variants of phases 20 and 22 are not kernels of any path: their
 launches are counted apart (``variant_launches``).  Each carries its registers
 and spill from the build, its times, its launches on its path and its
@@ -237,7 +272,13 @@ HIT_REPLACES = (
 )
 BOUNCE_SOURCE = "zig_weekend_raytracer_tpu_torch/csrc/bounce.cu"
 BOUNCE_REPLACES = "zig_weekend_raytracer_tpu/ops/pallas_bounce.py:842 (_bounce_kernel)"
-PLAIN_BUDGET_S = 10.0
+EST_SOURCE = "zig_weekend_raytracer_tpu_torch/csrc/fused_render_estimator.cu"
+EST_BOUNCE_SOURCE = "zig_weekend_raytracer_tpu_torch/csrc/bounce_estimator.cu"
+CORNELL_FILE = os.path.join(REPO, "zig_weekend_raytracer_tpu_torch", "models", "cornell_box.json")
+PLAIN_BUDGET_S = 5.0
+# phase 4's slice of the main path's lanes: one window of this many samples
+# per lane, the windows together covering every sample index
+MAIN_WINDOW = 32
 SLICE_LANES = 4096
 # the tree scenes' plan slices: each lane renders one window of this many
 # samples, the windows together covering every sample index (the plain
@@ -249,8 +290,10 @@ PLAN_WINDOW = 8
 # (about 4.5 passes per sample at depth 10: 226 s on an H100), so the slice
 # runs at one bounce per sample
 FULL_DRAIN_LANES, FULL_DRAIN_DEPTH = 256, 1
-# phase 17's parity renders: 32x32 at this spp
+# phase 17's parity renders: 32x32 at this spp, balls at WALK_DEPTH and
+# rtw_final at WALK_RTW_DEPTH (the plain versions' time grows with depth)
 WALK_SPP = 2
+WALK_DEPTH, WALK_RTW_DEPTH = 5, 4
 BALLS_SPP = 128
 RTW_SPP, RTW_DEPTH = 64, 8
 # rtw_final's 32x32 parity renders (phases 10 and 13): its plain walk at the
@@ -298,6 +341,18 @@ CHAIN_RTOL = 1e-6
 # iters x unroll of each parity run: the sweep's own instantiations and
 # grids, with iters cut so that the plain version stays short
 CHAIN_STEPS = 256
+# estimator options of phases 23 and 24: Russian roulette's first bounce
+# and the indirect clamp
+RR_START, CLAMP = 3, 10.0
+EST_OPTS = (("rr3", {"rr_start": RR_START}), ("clamp10", {"clamp": CLAMP}),
+            ("rr3+clamp10", {"rr_start": RR_START, "clamp": CLAMP}))
+# phase 23's Sobol check: lanes of 32x32 at spp 64 in 8-sample windows that
+# reach sample 4,096 (two bytes of sample index where spp needs one)
+SOBOL_SPP, SOBOL_WINDOW = 64, 8
+# phase 24: a driver's render must equal the sorted driver's (phase 3) on
+# this share of pixels within rtol 1e-5 / atol 1e-6; the progressive batch
+PIXEL_RTOL, PIXEL_ATOL, PIXEL_AGREE = 1e-5, 1e-6, 0.999
+PROG_BATCH = 256
 # registers and spill bytes of the default walk's instantiations and of
 # the cond walk's, as this build gives them (the factored Sobol respawn and
 # the device light and image tables; the previous slice's cond walk:
@@ -411,11 +466,14 @@ def trav(walk):
 
 
 def render_parity(zt, fused, integrator, torch, scene, tag, depth=10, plains=None,
-                  spp=8, sampler=None) -> dict:
+                  spp=8, sampler=None, window=None, **opts) -> dict:
     """Kernel vs plain version on the card at 32x32, ``spp`` spp, depth 10
     (or ``depth``), with the scene's own depth of field, under ``sampler``
-    (Sobol when None); both timed by CUDA events.  ``plains``, a list,
-    collects the plain version's output and its work counts."""
+    (Sobol when None) and the estimator options ``opts`` (rr_start,
+    clamp); both timed by CUDA events.  With ``window`` lane i renders only
+    the samples [i * window, (i + 1) * window), which may pass spp.
+    ``plains``, a list, collects the plain version's output and its work
+    counts."""
     from zig_weekend_raytracer_tpu_torch.render.camera import camera_consts
     from zig_weekend_raytracer_tpu_torch.utils import workcount
 
@@ -428,11 +486,14 @@ def render_parity(zt, fused, integrator, torch, scene, tag, depth=10, plains=Non
     py = ys.reshape(-1).to(i32).contiguous()
     s0 = torch.zeros_like(px)
     s1 = torch.full_like(px, spp)
+    if window:
+        s0 = (torch.arange(w * h, dtype=i32, device="cuda") * window).contiguous()
+        s1 = (s0 + window).contiguous()
     kw = dict(
         camera_consts=camera_consts(scene.camera, w, h),
         sampler=sampler or zt.sampling.SamplerKind.SOBOL, width=w, height=h, spp=spp,
         stride=1, max_depth=depth, has_dof=scene.camera.has_depth_of_field,
-        want_work=True,
+        want_work=True, **opts,
     )
     t_min = zt.dtypes.T_MIN
     ms_k, out_k = cuda_time_ms(
@@ -624,6 +685,7 @@ def reset_counts(fused, integrator, ch, ttrace, tb) -> None:
     integrator.trace_paths_regen.bands = 0
     for host in (fused.render_fused, tb.bounce, tb.bounce_regen):
         host.launches = dict.fromkeys(host.launches, 0)
+        host.estimator_launches = 0
 
 
 def launched(host) -> int:
@@ -752,14 +814,14 @@ def compare_bounce(tag, out_k, out_p) -> dict:
 
 
 def one_bounce_parity(zt, tb, integrator, torch, scene, name, depths, plains=None,
-                      alive0=None) -> list:
+                      alive0=None, **opts) -> list:
     """bounce_kernel's one-bounce mode vs integrator.bounce on 400x400
     camera rays through the chained ``depths`` (each bounce starts both
     from the plain version's state), every lane live at first or those of
     the mask ``alive0``.  The first bounce also carries its roofline bound,
     from the plain version's work counts: lanes read and write 13 float and
     2 int state rows.  ``plains``, a list, collects the plain version's
-    outputs."""
+    outputs; ``opts`` are the estimator options of both."""
     from zig_weekend_raytracer_tpu_torch.math.v3 import V3
     from zig_weekend_raytracer_tpu_torch.utils import roofline, workcount
 
@@ -777,10 +839,11 @@ def one_bounce_parity(zt, tb, integrator, torch, scene, name, depths, plains=Non
         o, d, thr, rad, alive = state
         dep = torch.full((n,), depth, dtype=torch.int64, device="cuda")
         ms_k, out_k = cuda_time_ms(
-            lambda: tb.bounce(cs, 0, t_min, depth, o, d, tm, rid, thr, rad, alive), 3)
+            lambda: tb.bounce(cs, 0, t_min, depth, o, d, tm, rid, thr, rad, alive, **opts), 3)
         with workcount.counting() as counts:
             ms_p, out_p = cuda_time_ms(
-                lambda: integrator.bounce(cs, 0, t_min, dep, o, d, tm, rid, thr, rad, alive))
+                lambda: integrator.bounce(cs, 0, t_min, dep, o, d, tm, rid, thr, rad, alive,
+                                          **opts))
         check = compare_bounce(f"{name} 400x400 camera rays, depth {depth}", out_k, out_p)
         bound, by = roofline.bound_ms(roofline.render_ops(dict(counts), cs, False),
                                       n * 15 * 4 * 2 + roofline.render_table_bytes(cs),
@@ -815,7 +878,7 @@ def kernel_resources(build_log: str) -> dict:
     from zig_weekend_raytracer_tpu_torch.ops.trace import WALKS
     from zig_weekend_raytracer_tpu_torch.tools.fp32_peak import OPS
 
-    flag_names = {1: "prof", 2: "loop_sobol", 3: "prof, loop_sobol"}
+    flag_names = {1: "prof", 2: "loop_sobol", 3: "prof, loop_sobol", 4: "estimator"}
 
     def name_of(mangled):
         m = re.search(r"(fused_render_kernel|bounce_kernel)ILb([01])ELi(\d)ELi(\d)E", mangled)
@@ -1053,14 +1116,76 @@ def cli_render_check(zt, tmp, done, scene_name, w, spp, depth, lut=0) -> dict:
     return {"check": tag, "wall_s": wall, "stats": stats[0]}
 
 
+def cli_slice_args(tmp) -> tuple:
+    """The flags of phase 16's two renders of the estimator and driver
+    flags (cornell 64x64, 16 spp, depth 10): the adaptive render with
+    Russian roulette and the clamp, of the scene file of cornell; and the
+    progressive render that resumes ``<tmp>/ck.npz``."""
+    base = ["--image_width=64", "--image_height=64", "--samples_per_pixel=16",
+            "--ray_bounce_max_depth=10"]
+    adaptive = base + [f"--scene_file={CORNELL_FILE}", "--adaptive=1",
+                       f"--russian_roulette={RR_START}", f"--clamp_indirect={CLAMP}",
+                       f"--image_out_path={os.path.join(tmp, 'adaptive.ppm')}"]
+    resume = base + ["--scene=cornell_box", f"--checkpoint={os.path.join(tmp, 'ck.npz')}",
+                     "--checkpoint_batch_spp=4",
+                     f"--image_out_path={os.path.join(tmp, 'resume.ppm')}"]
+    return adaptive, resume
+
+
+def cli_slice_checks(zt, tmp, done_adaptive, done_resume, want_adaptive, want_resume) -> list:
+    """Both renders of cli_slice_args exit 0 and write the PPM of the same
+    render made in this process; the progressive one logs its resume."""
+    from zig_weekend_raytracer_tpu_torch.io.ppm import write_ppm
+
+    out = []
+    for (proc, wall), name, want, tag in (
+            (done_adaptive, "adaptive", want_adaptive,
+             "cli --scene_file=cornell_box.json --adaptive=1 --russian_roulette=3 "
+             "--clamp_indirect=10 64x64 spp16 d10"),
+            (done_resume, "resume", want_resume,
+             "cli --checkpoint resumed at 8 of 16 spp, cornell 64x64 d10")):
+        if proc.returncode != 0:
+            raise AssertionError(f"{tag}: exit {proc.returncode}\n{proc.stderr[-2000:]}")
+        ref = os.path.join(tmp, f"{name}.ref.ppm")
+        write_ppm(ref, want)
+        with open(os.path.join(tmp, f"{name}.ppm"), "rb") as a, open(ref, "rb") as b:
+            same = a.read() == b.read()
+        resumed = "resuming render from checkpoint: 8/16" in proc.stderr
+        log(f"{tag}: exit 0 in {wall:.1f} s; PPM byte-equal to the in-process render: {same}"
+            + (f"; resumed: {resumed}" if name == "resume" else ""))
+        if not same or (name == "resume" and not resumed):
+            raise AssertionError(f"{tag}: the CLI's render is not the in-process one")
+        out.append({"check": tag, "wall_s": wall, "byte_equal": same})
+    return out
+
+
 def phase_cli(zt, torch) -> list:
-    """Phase 16: the CLI as four subprocesses, started together (each
+    """Phase 16: the CLI as six subprocesses, started together (each
     spends most of its time starting up) and then checked in turn."""
     import tempfile
+
+    from zig_weekend_raytracer_tpu_torch.render.progressive import ProgressiveRenderer
 
     renders = (("emissive", 96, 16, 10, 0), ("rtw_final", 64, 4, 10, LUT_32K))
     checks = []
     with tempfile.TemporaryDirectory() as tmp:
+        # the checkpoint that the progressive CLI render resumes: 8 of 16 spp
+        cornell = zt.models.load_scene("cornell_box", device="cuda")
+        r16 = zt.render.Renderer(samples_per_pixel=16, max_ray_bounce_depth=10)
+
+        class Stop(Exception):
+            pass
+
+        def stop_at_8(done, _):
+            if done == 8:
+                raise Stop
+
+        try:
+            ProgressiveRenderer(r16, os.path.join(tmp, "ck.npz")).render(
+                cornell, 64, 64, batch_spp=4, on_batch=stop_at_8)
+        except Stop:
+            pass
+        adaptive_args, resume_args = cli_slice_args(tmp)
         t0 = time.perf_counter()
         procs = [start_cli(cli_render_args(tmp, *r)) for r in renders]
         procs.append(start_cli(["--image_width=8", "--image_height=8", "--scene=bogus"]))
@@ -1068,6 +1193,13 @@ def phase_cli(zt, torch) -> list:
                                 "--ray_bounce_max_depth=10", "--scene=cornell_box",
                                 "--profile=device",
                                 f"--image_out_path={os.path.join(tmp, 'c.ppm')}"]))
+        procs += [start_cli(adaptive_args), start_cli(resume_args)]
+        # what those two must write, rendered here while they start
+        r_est = zt.render.Renderer(samples_per_pixel=16, max_ray_bounce_depth=10,
+                                   russian_roulette=RR_START, clamp_indirect=CLAMP)
+        want_adaptive = r_est.render_adaptive(cornell, 64, 64).cpu().numpy()
+        want_resume = ProgressiveRenderer(r16, os.path.join(tmp, "whole.npz")).render(
+            cornell, 64, 64, batch_spp=4)
         try:
             done = [finish_cli(p, t0) for p in procs]
         finally:
@@ -1092,6 +1224,7 @@ def phase_cli(zt, torch) -> list:
         log("cli --profile=device on cornell 64x64: " + " | ".join(
             ln for ln in proc.stdout.splitlines() if ln.strip() and not ln.startswith("stats")))
         checks.append({"check": "cli --profile=device", "row": rows[0]})
+        checks += cli_slice_checks(zt, tmp, done[4], done[5], want_adaptive, want_resume)
     return checks
 
 
@@ -1441,20 +1574,20 @@ def phase_walk_parity(zt, fused, tb, integrator, torch, sc) -> dict:
         if walk != "uni":  # balls has no quads, so no unified tree
             plains = []
             check = render_parity(zt, fused, integrator, torch, sc["balls2"],
-                                  f"{walk} walk: balls span 2 32x32 spp{WALK_SPP} d{DEPTH}",
-                                  plains=plains, spp=WALK_SPP)
+                                  f"{walk} walk: balls span 2 32x32 spp{WALK_SPP} d{WALK_DEPTH}",
+                                  depth=WALK_DEPTH, plains=plains, spp=WALK_SPP)
             out["K1 balls"] = (check, *plains[0])
         plains = []
-        check, counts, _ = regen_parity(zt, tb, integrator, torch, rtw, 32, WALK_SPP, RTW_DEPTH,
+        check, counts, _ = regen_parity(zt, tb, integrator, torch, rtw, 32, WALK_SPP, WALK_RTW_DEPTH,
                                         f"{walk} walk: rtw_final 32x32 spp{WALK_SPP} "
-                                        f"d{RTW_DEPTH}", plains=plains)
+                                        f"d{WALK_RTW_DEPTH}", plains=plains)
         out["K2 regen"] = (check, plains[0], counts)
         if walk in ("uni", "cond"):
             plains = []
             check = render_parity(zt, fused, integrator, torch,
                                   sc["rtw_uni_lut" if walk == "uni" else "rtw_lut"],
-                                  f"{walk} walk: rtw_final LUT 32x32 spp{WALK_SPP} d{RTW_DEPTH}",
-                                  RTW_DEPTH, plains=plains, spp=WALK_SPP)
+                                  f"{walk} walk: rtw_final LUT 32x32 spp{WALK_SPP} d{WALK_RTW_DEPTH}",
+                                  WALK_RTW_DEPTH, plains=plains, spp=WALK_SPP)
             out["K1 LUT"] = (check, *plains[0])
         plains = []
         check = one_bounce_parity(zt, tb, integrator, torch, rtw, f"{walk} walk: rtw_final",
@@ -1814,6 +1947,246 @@ def phase_hit_design(zt, ch, ttrace, torch, card, scenes, fb_cornell) -> dict:
             "flat_launches": ch.closest_hit_flat.launches}
 
 
+def phase_estimator(zt, fused, tb, integrator, torch, scenes, card) -> dict:
+    """Phase 23: the estimator instantiations of the render and bounce
+    kernels against their plain versions, with phase 2's (render) and
+    phase 9's (one bounce) tolerances; the atlas gate; the Sobol tables
+    past spp.  Returns {"checks", "plain" (cornell rr3's plain output and
+    counts), "one_bounce" (the one-bounce checks)}."""
+    cornell, balls, rtw, rtw_lut = (scenes[k] for k in ("cornell", "balls", "rtw", "rtw_lut"))
+    checks, plains = [], []
+    before = fused.render_fused.estimator_launches
+    for name, scene, spp, depth in (("cornell", cornell, 8, DEPTH), ("balls", balls, 8, DEPTH),
+                                    ("rtw_final LUT", rtw_lut, RTW_SMALL_SPP, RTW_DEPTH)):
+        for tag, opts in EST_OPTS:
+            keep = plains if (name, tag) == ("cornell", "rr3") else None
+            checks.append(render_parity(zt, fused, integrator, torch, scene,
+                                        f"{name} 32x32 spp{spp} d{depth} {tag}", depth=depth,
+                                        spp=spp, plains=keep, **opts))
+    launched_est = fused.render_fused.estimator_launches - before
+    log(f"estimator: render kernel's estimator instantiation launched {launched_est} times")
+    if launched_est < 3 * len(EST_OPTS):
+        raise AssertionError("the render kernel's estimator instantiation did not launch")
+    # the bounce kernel's one-bounce mode with both options on cornell rays
+    before = tb.bounce.estimator_launches
+    one = one_bounce_parity(zt, tb, integrator, torch, cornell, "cornell rr3+clamp10",
+                            (0, 1, 2, 3), rr_start=RR_START, clamp=CLAMP)
+    if tb.bounce.estimator_launches - before < 4:
+        raise AssertionError("the bounce kernel's estimator instantiation did not launch")
+    checks += one
+    # the atlas gate: the regenerating mode on rtw_final without a LUT
+    # ignores both options, bitwise
+    ys, xs = torch.meshgrid(torch.arange(32, device="cuda"), torch.arange(32, device="cuda"),
+                            indexing="ij")
+    px = xs.reshape(-1).to(torch.int32).contiguous()
+    py = ys.reshape(-1).to(torch.int32).contiguous()
+    lim = torch.full_like(px, RTW_SMALL_SPP)
+    from zig_weekend_raytracer_tpu_torch.render.camera import camera_consts
+
+    kw = dict(camera_consts=camera_consts(rtw.camera, 32, 32),
+              sampler=zt.sampling.SamplerKind.SOBOL, width=32, height=32,
+              spp=RTW_SMALL_SPP, stride=1, max_depth=RTW_DEPTH, has_dof=False)
+    st0 = integrator.initial_regen_state(torch.zeros_like(px), 1)
+    before = tb.bounce_regen.estimator_launches
+    st_off = tb.bounce_regen(rtw.compiled, st0, px, py, lim, 0, zt.dtypes.T_MIN, **kw)
+    st_on = tb.bounce_regen(rtw.compiled, st0, px, py, lim, 0, zt.dtypes.T_MIN,
+                            rr_start=RR_START, clamp=CLAMP, **kw)
+    same = (torch.equal(st_off.radiance.to_array(), st_on.radiance.to_array())
+            and torch.equal(st_off.work, st_on.work))
+    log(f"estimator gate: rtw_final (atlas) regenerating 32x32 spp{RTW_SMALL_SPP} "
+        f"d{RTW_DEPTH} with rr3+clamp10 bitwise the render without: {same}; estimator "
+        f"launches {tb.bounce_regen.estimator_launches - before}")
+    if not same or tb.bounce_regen.estimator_launches != before:
+        raise AssertionError("the bounce kernel applied an estimator option on an atlas scene")
+    checks.append({"check": "rtw_final atlas gate", "bitwise": True, "max_abs_err": 0.0})
+    # the Sobol tables past spp: lanes whose windows reach sample 4,096
+    sob = render_parity(zt, fused, integrator, torch, cornell,
+                        f"cornell 32x32 spp{SOBOL_SPP} d{DEPTH}, {SOBOL_WINDOW}-sample windows "
+                        f"to sample {32 * 32 * SOBOL_WINDOW}", spp=SOBOL_SPP,
+                        window=SOBOL_WINDOW)
+    checks.append(sob)
+    return {"checks": checks, "plain": plains[0], "one_bounce": one}
+
+
+def driver_check(tag, fb, fb_ref, ref) -> dict:
+    """A driver's framebuffer: finite, (H, W, 3), the cornell region gate,
+    and against the sorted driver's render ``fb_ref`` (None: not compared)
+    within PIXEL_RTOL / PIXEL_ATOL on >= PIXEL_AGREE of the pixels."""
+    import numpy as np
+
+    if tuple(fb.shape) != (H, W, 3):
+        raise AssertionError(f"{tag}: framebuffer shape {tuple(fb.shape)}")
+    out = {"check": tag, "region_gate": gate(tag, fb, ref["mean"], ref["region_means"])}
+    if fb_ref is not None:
+        a, b = fb.cpu().numpy(), fb_ref.cpu().numpy()
+        close = np.isclose(a, b, rtol=PIXEL_RTOL, atol=PIXEL_ATOL).all(-1).mean()
+        out["agree"] = float(close)
+        out["max_abs_err"] = float(np.abs(a - b).max())
+        log(f"{tag}: {close:.6f} of pixels within rtol {PIXEL_RTOL}/atol {PIXEL_ATOL} of the "
+            f"sorted driver's render, max |diff| {out['max_abs_err']:.3e}")
+        if close < PIXEL_AGREE:
+            raise AssertionError(f"{tag}: differs from the sorted driver's render")
+    return out
+
+
+def path_counts(fused, integrator, ch, ttrace, tb, tag, hit=False, est=False) -> dict:
+    """The counts of the path just run: the render kernel launched (its
+    estimator instantiation with ``est``, the closest-hit kernel with
+    ``hit``), no plain version ran."""
+    k1, k1_est = launched(fused.render_fused), fused.render_fused.estimator_launches
+    k3, n_plain = ch.closest_hit.launches, plain_calls(integrator, ttrace)
+    log(f"{tag}: render kernel launches {k1} (estimator {k1_est}), closest-hit {k3}, "
+        f"plain-version calls {n_plain}")
+    if k1 < 1 or n_plain or (hit and k3 < 1) or (est and k1_est < 1):
+        raise AssertionError(f"{tag}: the path did not run through its kernels alone")
+    return {"k1": k1, "k1_estimator": k1_est, "k3": k3}
+
+
+def phase_drivers(zt, fused, tb, integrator, ch, ttrace, torch, scenes, fb_sorted, card) -> dict:
+    """Phase 24: the drivers at the main path's configuration, cornell
+    400x400@1024 d10 (Sobol, seed 0), each path with its counts set to 0
+    just before and read just after; Mpaths/s beside the card."""
+    import tempfile
+
+    import numpy as np
+
+    from zig_weekend_raytracer_tpu_torch.render.progressive import ProgressiveRenderer
+    from zig_weekend_raytracer_tpu_torch.render.renderer import _render_band_regen
+    from zig_weekend_raytracer_tpu_torch.render.camera import camera_consts
+
+    cornell, balls = scenes["cornell"], scenes["balls"]
+    with open(GOLDEN) as f:
+        ref = json.load(f)
+    out = {}
+    mk = lambda **kw: zt.render.Renderer(samples_per_pixel=SPP, max_ray_bounce_depth=DEPTH, **kw)
+
+    def timed(tag, renderer, scene, render=None, paths=W * H * SPP, **count_kw):
+        reset_counts(fused, integrator, ch, ttrace, tb)
+        render = render or (lambda: renderer.render_device(scene, W, H))
+        times, fb = [], None
+        for _ in range(4):  # the first builds the driver's plan
+            t0 = time.perf_counter()
+            fb = render()
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        counts = path_counts(fused, integrator, ch, ttrace, tb, tag, **count_kw)
+        best = min(times[1:])
+        mp = paths / best / 1e6
+        log(f"{tag}: first {times[0]:.4f} s, then {[round(t, 4) for t in times[1:]]} s, best "
+            f"{best:.4f} s = {mp:.2f} Mpaths/s ({card})")
+        return fb, {"render_s": times, "best_s": best, "mpaths_per_s": mp, **counts}
+
+    # (a) the balanced driver
+    fb, rec = timed("balanced driver cornell 400x400@1024 d10", mk(balance_min_spp=1), cornell)
+    out["balanced"] = {**rec, **driver_check("balanced driver", fb, fb_sorted, ref)}
+
+    # (b) adaptive, the default pilot; balls 400x400@128 d10 adaptive
+    r = mk()
+    fb, rec = timed("adaptive cornell 400x400@1024 d10", r, cornell,
+                    render=lambda: r.render_adaptive(cornell, W, H))
+    fb, stats = r.render_adaptive(cornell, W, H, return_stats=True)
+    total = int(stats["n_samples"].sum())
+    log(f"adaptive: pilot {stats['pilot']}, samples {total} (budget {W * H * SPP}), per pixel "
+        f"{int(stats['n_samples'].min())}..{int(stats['n_samples'].max())}")
+    if total != W * H * SPP:
+        raise AssertionError(f"adaptive: {total} samples, not the budget {W * H * SPP}")
+    out["adaptive"] = {**rec, "samples": total, "pilot": stats["pilot"],
+                       **driver_check("adaptive", fb, None, ref)}
+    rb = zt.render.Renderer(samples_per_pixel=BALLS_SPP, max_ray_bounce_depth=DEPTH)
+    fb_b, rec = timed("adaptive balls 400x400@128 d10", rb, balls,
+                      render=lambda: rb.render_adaptive(balls, W, H), paths=W * H * BALLS_SPP,
+                      hit=False)
+    with open(SCENE_REGIONS) as f:
+        breg = json.load(f)["scenes"]["balls"]
+    out["adaptive_balls"] = {**rec, "region_gate": gate("adaptive balls 400x400@128 d10", fb_b,
+                                                        breg["mean"], breg["region_means"])}
+
+    # (c) progressive in 256-sample batches, interrupted after two and resumed
+    class Stop(Exception):
+        pass
+
+    def stop_after_two(done, _):
+        if done == 2 * PROG_BATCH:
+            raise Stop
+
+    with tempfile.TemporaryDirectory() as tmp:
+        reset_counts(fused, integrator, ch, ttrace, tb)
+        t0 = time.perf_counter()
+        whole = ProgressiveRenderer(mk(), os.path.join(tmp, "whole.npz")).render(
+            cornell, W, H, batch_spp=PROG_BATCH)
+        whole_s = time.perf_counter() - t0
+        ck = os.path.join(tmp, "ck.npz")
+        try:
+            ProgressiveRenderer(mk(), ck).render(cornell, W, H, batch_spp=PROG_BATCH,
+                                                 on_batch=stop_after_two)
+            raise AssertionError("progressive: the interrupt did not happen")
+        except Stop:
+            pass
+        done_at_stop = int(np.load(ck)["samples_done"])
+        resumed = ProgressiveRenderer(mk(), ck).render(cornell, W, H, batch_spp=PROG_BATCH)
+        counts = path_counts(fused, integrator, ch, ttrace, tb, "progressive")
+    bitwise = bool(np.array_equal(whole, resumed))
+    log(f"progressive: checkpoint at {done_at_stop} spp, resumed render bitwise the "
+        f"uninterrupted one: {bitwise}; uninterrupted {whole_s:.4f} s = "
+        f"{W * H * SPP / whole_s / 1e6:.2f} Mpaths/s ({card})")
+    if done_at_stop != 2 * PROG_BATCH or not bitwise:
+        raise AssertionError("progressive: the resumed render is not the uninterrupted one")
+    out["progressive"] = {"resume_bitwise": bitwise, "checkpoint_spp": done_at_stop,
+                          "render_s": whole_s, "mpaths_per_s": W * H * SPP / whole_s / 1e6,
+                          **counts, **driver_check("progressive", torch.as_tensor(whole),
+                                                   fb_sorted, ref)}
+
+    # (d) supersampled, k = 2
+    r = mk()
+    fb, rec = timed("supersampled k=2 cornell 400x400@1024 d10", r, cornell,
+                    render=lambda: r.render_supersampled(cornell, W, H, k=2))
+    out["supersampled"] = {**rec, **driver_check("supersampled k=2", fb, None, ref)}
+
+    # (e) Russian roulette from bounce 3, and its work against rr = 0
+    r = mk(russian_roulette=RR_START)
+    fb, rec = timed("russian_roulette=3 cornell 400x400@1024 d10", r, cornell, est=True)
+    cam_c = camera_consts(cornell.camera, W, H)
+    work = {}
+    for rr in (0, RR_START):
+        _, w_lanes = _render_band_regen(
+            cornell, 0, 0, 0, width=W, height=H, band_rows=H, s_par=1, spp=SPP,
+            sample_limit=SPP, max_depth=DEPTH, sampler=zt.sampling.SamplerKind.SOBOL,
+            has_dof=False, cam_consts=cam_c, want_work=True, rr=rr)
+        work[rr] = int(w_lanes.sum())
+    ratio = work[RR_START] / work[0]
+    log(f"russian_roulette=3: bounces {work[RR_START]} against {work[0]} without, ratio "
+        f"{ratio:.4f}")
+    out["russian_roulette"] = {**rec, "work": work[RR_START], "work_rr0": work[0],
+                               "work_ratio": ratio, **driver_check("russian_roulette=3", fb,
+                                                                   None, ref)}
+    out["rr_renderer"] = r
+    return out
+
+
+def est_kernel_times(zt, fused, torch, renderer, scene, card) -> dict:
+    """The render kernel at the sorted plan of ``renderer`` (cornell
+    400x400@1024 d10): the estimator instantiation (rr3) and the default
+    one on the same lanes, in 3 alternating pairs; the estimator's work."""
+    from zig_weekend_raytracer_tpu_torch.render.camera import camera_consts
+
+    key = (W, H, 0, SPP, DEPTH, renderer.sampler, renderer.seed)
+    px, py, s0, s1 = renderer._plan_cache[scene.compiled][key]["plan"]
+    kw = dict(camera_consts=camera_consts(scene.camera, W, H), sampler=renderer.sampler,
+              width=W, height=H, spp=SPP, stride=1, max_depth=DEPTH, has_dof=False,
+              want_work=True)
+    run = lambda **o: fused.render_fused(scene.compiled, px, py, s0, s1, 0, zt.dtypes.T_MIN,
+                                         **kw, **o)
+    est, dflt, work = [], [], None
+    for _ in range(3):
+        ms, (_, work) = cuda_time_ms(lambda: run(rr_start=RR_START), 1)
+        est.append(ms)
+        dflt.append(cuda_time_ms(lambda: run(), 1)[0])
+    log(f"render kernel at the rr3 plan ({px.shape[0]} lanes): estimator instantiation "
+        f"{[round(t, 3) for t in est]} ms, default {[round(t, 3) for t in dflt]} ms ({card})")
+    return {"ms": min(est), "default_ms": min(dflt), "pairs_ms": list(zip(est, dflt)),
+            "work": int(work.sum()), "lanes": int(px.shape[0])}
+
+
 def main() -> int:
     try:
         import torch
@@ -1858,8 +2231,9 @@ def main() -> int:
         log(f"  {name}: {res['registers']} registers, {res['spill_bytes']} bytes spill stores")
     n_chain = 5 * 2 * 4  # ops x chain counts x unrolls
     # per kernel: 2 modes x 5 walks, and 3 variants for 2 walks (K1 in both
-    # modes, K2's regenerating mode)
-    n_render = 2 * 5 + 2 * 2 * 3 + 2 * 5 + 2 * 3
+    # modes, K2's regenerating mode), and the estimator instantiations (2
+    # modes x 5 walks per kernel)
+    n_render = 2 * 5 + 2 * 2 * 3 + 2 * 5 + 2 * 3 + 2 * (2 * 5)
     # closest_hit_kernel and its first design
     if len(resources) != n_render + 2 + n_chain or any(
             r["registers"] is None for r in resources.values()):
@@ -1955,10 +2329,10 @@ def main() -> int:
     )
     checks.append(compare(f"main-path lanes {plain_spp} spp d{DEPTH}", out_k, out_p))
     # every sample bit of the main path: a slice spread over the cost-sorted
-    # plan, its lanes in 64-sample windows that together cover the full spp
+    # plan, its lanes in 32-sample windows that together cover the full spp
     # (the Sobol scale comes from W and H)
     checks.append(plan_parity(zt, fused, integrator, cornell, plan, SPP, card, "main-path",
-                              window=64)[0])
+                              window=MAIN_WINDOW)[0])
     # each lane's accumulation over the full 1024 samples, on a smaller
     # slice at a cut depth
     checks.append(plan_parity(zt, fused, integrator, cornell, plan, SPP, card, "main-path",
@@ -2314,6 +2688,25 @@ def main() -> int:
                               {"cornell_box": cornell, "balls": balls, "rtw_final": rtw}, fb)
     aov_launches = {f"aov {k}": v["launches"] for k, v in hits22["aov_pass"].items()}
 
+    # ---- 23. the estimator instantiations against their plain versions ----
+    phase("23")
+    reset_counts(fused, integrator, ch, ttrace, tb)
+    scenes23 = {"cornell": cornell, "balls": balls, "rtw": rtw, "rtw_lut": rtw_lut}
+    est = phase_estimator(zt, fused, tb, integrator, torch, scenes23, card)
+
+    # ---- 24. the drivers at the main path's configuration ----
+    phase("24")
+    drivers = phase_drivers(zt, fused, tb, integrator, ch, ttrace, torch, scenes23, fb, card)
+    rr_renderer = drivers.pop("rr_renderer")
+    est_times = est_kernel_times(zt, fused, torch, rr_renderer, cornell, card)
+    est_plain, est_counts = est["plain"]
+    est_bound = render_bound(zt, cornell, est_counts, est_times["work"],
+                             est_times["lanes"] * (16 + 16), False, SPP)
+    est_render = [c for c in est["checks"] if c["check"].endswith(("rr3", "clamp10"))]
+    est_cornell = next(c for c in est_render if c["check"].startswith("cornell 32x32 spp8 d10 rr3"))
+    est_one = est["one_bounce"]
+    est_launches = drivers["russian_roulette"]["k1_estimator"]
+
     b_hit = hit_checks[1]
     k2_first = k2_one[0]
     k2_lut_first = k2_lut[0]
@@ -2425,6 +2818,20 @@ def main() -> int:
               denoise_400_ms=hits22["denoise_400_ms"], cli_aov=hits22["cli"],
               note="ms: the kernel alone on the balls probe's 160,000 rays (phase 5); every "
                    "ray set's rounds of the kernel and its first design in ray_sets"),
+        entry("fused_render_kernel (estimator: Russian roulette, indirect clamp)",
+              EST_SOURCE, KERNEL_REPLACES, f"fused_render_kernel<false, {DEFAULT_WALK}, estimator>",
+              est_launches, {"cornell russian_roulette=3": est_launches}, est_render,
+              est_times["ms"], est_cornell["plain_ms"], est_bound, render_tol,
+              plain_lanes=32 * 32, default_kernel_ms_same_lanes=est_times["default_ms"],
+              pairs_ms=est_times["pairs_ms"], sobol_past_spp=est["checks"][-1],
+              atlas_gate=est["checks"][-2], drivers=drivers,
+              note="ms: the estimator instantiation (rr3) at the rr3 render's sorted plan, "
+                   "cornell 400x400@1024 d10; plain_ms: cornell rr3 at 32x32, 8 spp"),
+        entry("bounce_kernel (one bounce, estimator)", EST_BOUNCE_SOURCE, BOUNCE_REPLACES,
+              f"bounce_kernel<false, {DEFAULT_WALK}, estimator>", 0, {}, est_one,
+              est_one[0]["ms"], est_one[0]["plain_ms"], bound_of(est_one[0]), bounce_tol,
+              note="parity only: no main path runs the bounce kernel with the estimator "
+                   "options (atlas scenes gate them off); cornell camera rays, rr3+clamp10"),
         *(walk_entry(kernel, walk) for kernel in ("K1", "K2") for walk in OTHER_WALKS),
         {"name": "chain_kernel (fp32 peak)", "route": "cuda", "source": PEAK_SOURCE,
          "replaces": PEAK_REPLACES, "launches": peak["launches"],

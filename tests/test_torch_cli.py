@@ -4,7 +4,14 @@
      (enums by value), and the usage text is identical.
   2. ``--help`` exits 0 and bad flags exit 1, both with the usage text on
      stderr.
-  3. Each flag of a later slice exits 1 with its error and writes nothing.
+  3. ``--shard``, a later slice, exits 1 with its error and writes
+     nothing; the JAX CLI's combination rules exit 1 with its messages.
+     The estimator and driver flags (``--russian_roulette``,
+     ``--clamp_indirect``, ``--adaptive``, ``--checkpoint``,
+     ``--supersample``) write the PPM of the same render made in process,
+     byte for byte; ``--checkpoint`` run twice resumes; a ``--scene_file``
+     of cornell writes ``--scene=cornell_box``'s bytes, and a bad file
+     exits 1 with the JAX CLI's message.
   4. ``main([... emissive 16x16 ...], device="cpu")`` logs the three stage
      lines and the ``stats:`` line, and writes a PPM whose pixels equal
      those of the JAX CLI's PPM for the same flags, to +-1 level on at most
@@ -109,14 +116,12 @@ def test_bad_profile_mode_exits_1(capsys):
     assert "unknown --profile mode" in capsys.readouterr().err
 
 
-# ---- 3. flags of later slices ----
+# ---- 3. flags of later slices, combination rules, the freed flags ----
 
-@pytest.mark.parametrize("flag,n", [
-    ("--shard=samples", 6), ("--adaptive=1", 5), ("--checkpoint=c.npz", 5),
-    ("--supersample=2", 5),
-    ("--scene_file=s.json", 5), ("--russian_roulette=3", 5),
-    ("--clamp_indirect=1.5", 5),
-])
+CORNELL_FILE = os.path.join(REPO, "zig_weekend_raytracer_tpu_torch", "models", "cornell_box.json")
+
+
+@pytest.mark.parametrize("flag,n", [("--shard=samples", 6)])
 def test_later_slice_flags_exit_1(flag, n, tmp_path, capsys):
     out = tmp_path / "x.ppm"
     argv = ["--image_width=4", "--image_height=4", f"--image_out_path={out}", flag]
@@ -124,6 +129,101 @@ def test_later_slice_flags_exit_1(flag, n, tmp_path, capsys):
     name = flag[2:].split("=")[0]
     assert f"error: --{name} is slice {n} of the port (ROADMAP.md)" in capsys.readouterr().err
     assert not out.exists()
+
+
+@pytest.mark.parametrize("flags", [
+    ["--checkpoint=c.npz", "--adaptive=1"],
+    ["--checkpoint=c.npz", "--checkpoint_batch_spp=0"],
+    ["--supersample=0"],
+    ["--supersample=2", "--adaptive=1"],
+    ["--supersample=2", "--checkpoint=c.npz"],
+    ["--supersample=2", "--shard=rows"],
+    ["--supersample=3", "--samples_per_pixel=8"],
+])
+def test_combination_rules_exit_1_as_jax(flags, tmp_path, capsys):
+    argv = ["--image_width=4", "--image_height=4", "--samples_per_pixel=4",
+            f"--image_out_path={tmp_path / 'x.ppm'}"] + flags
+    assert tcli.main(argv, device="cpu") == 1
+    got = [ln for ln in capsys.readouterr().err.splitlines() if ln.startswith("error:")]
+    assert jcli.main(argv) == 1
+    want = [ln for ln in capsys.readouterr().err.splitlines() if ln.startswith("error:")]
+    assert got == want and len(got) == 1
+    assert not (tmp_path / "x.ppm").exists()
+
+
+def _in_process(flag, tmp_path):
+    """The framebuffer the CLI's render of ``flag`` must write: the same
+    render made in this process (cornell 8x8, 8 spp, depth 4)."""
+    from zig_weekend_raytracer_tpu_torch import models
+    from zig_weekend_raytracer_tpu_torch.render import Renderer
+    from zig_weekend_raytracer_tpu_torch.render.progressive import ProgressiveRenderer
+
+    scene = models.load_scene("cornell_box", device="cpu")
+    name, _, value = flag[2:].partition("=")
+    opts = {}
+    if name == "russian_roulette":
+        opts = {"russian_roulette": int(value)}
+    if name == "clamp_indirect":
+        opts = {"clamp_indirect": float(value)}
+    r = Renderer(samples_per_pixel=8, max_ray_bounce_depth=4, **opts)
+    if name == "adaptive":
+        return r.render_adaptive(scene, 8, 8).numpy()
+    if name == "checkpoint":
+        return ProgressiveRenderer(r, str(tmp_path / "ref.npz")).render(scene, 8, 8, batch_spp=4)
+    if name == "supersample":
+        return r.render_supersampled(scene, 8, 8, k=int(value)).numpy()
+    return r.render(scene, 8, 8)
+
+
+@pytest.mark.parametrize("flag", [
+    "--russian_roulette=2", "--clamp_indirect=0.5", "--adaptive=1", "--checkpoint",
+    "--supersample=2",
+])
+def test_freed_flags_write_the_in_process_render(flag, tmp_path):
+    out = tmp_path / "t.ppm"
+    argv = ["--image_width=8", "--image_height=8", "--samples_per_pixel=8",
+            "--ray_bounce_max_depth=4", "--scene=cornell_box", f"--image_out_path={out}"]
+    if flag == "--checkpoint":
+        argv += [f"--checkpoint={tmp_path / 'c.npz'}", "--checkpoint_batch_spp=4"]
+    else:
+        argv.append(flag)
+    assert tcli.main(argv, device="cpu") == 0
+    tppm.write_ppm(str(tmp_path / "want.ppm"), _in_process(flag, tmp_path))
+    assert out.read_bytes() == (tmp_path / "want.ppm").read_bytes()
+
+
+def test_checkpoint_flag_resumes(tmp_path, caplog):
+    ck = tmp_path / "c.npz"
+    argv = ["--image_width=8", "--image_height=8", "--samples_per_pixel=8",
+            "--ray_bounce_max_depth=4", "--scene=cornell_box", f"--checkpoint={ck}",
+            "--checkpoint_batch_spp=4"]
+    assert tcli.main(argv + [f"--image_out_path={tmp_path / 'a.ppm'}"], device="cpu") == 0
+    assert int(np.load(ck)["samples_done"]) == 8
+    with caplog.at_level(logging.INFO, logger="zwrt"):
+        assert tcli.main(argv + [f"--image_out_path={tmp_path / 'b.ppm'}"], device="cpu") == 0
+    assert any("resuming render from checkpoint: 8/8" in r.getMessage() for r in caplog.records)
+    assert (tmp_path / "a.ppm").read_bytes() == (tmp_path / "b.ppm").read_bytes()
+
+
+def test_scene_file_flag_writes_the_builtin_scene(tmp_path):
+    argv = ["--image_width=8", "--image_height=8", "--samples_per_pixel=4",
+            "--ray_bounce_max_depth=4"]
+    assert tcli.main(argv + [f"--scene_file={CORNELL_FILE}",
+                             f"--image_out_path={tmp_path / 'f.ppm'}"], device="cpu") == 0
+    assert tcli.main(argv + ["--scene=cornell_box", f"--image_out_path={tmp_path / 'b.ppm'}"],
+                     device="cpu") == 0
+    assert (tmp_path / "f.ppm").read_bytes() == (tmp_path / "b.ppm").read_bytes()
+
+
+def test_scene_file_error_is_clean_as_jax(tmp_path, capsys):
+    argv = ["--image_width=4", "--image_height=4", f"--scene_file={tmp_path}/missing.json",
+            f"--image_out_path={tmp_path / 'x.ppm'}"]
+    assert tcli.main(argv, device="cpu") == 1
+    got = capsys.readouterr().err
+    assert jcli.main(argv) == 1
+    want = capsys.readouterr().err
+    assert got.startswith(f"error: --scene_file {tmp_path}/missing.json: ") and got == want
+    assert not (tmp_path / "x.ppm").exists()
 
 
 @pytest.mark.parametrize("ext", ["jpg", "jpeg", "BMP"])

@@ -262,9 +262,10 @@ def test_kernel_tables_and_params(cornell):
         1024, 1, 10, False,
     )
     assert ints.dtype == np.int32 and floats.dtype == np.float32
-    # the last int is the Sobol tables' bytes per dimension: samples < 1024
-    assert list(ints) == [400, 400, 1024, 1, 10, 2, 9, 32, 0, 1, 12, 13, 2, 0, 0, 2]
-    assert len(floats) == 23
+    # then the Sobol tables' bytes per dimension (samples < 1024) and
+    # Russian roulette's first bounce (0: off); the last float is the clamp
+    assert list(ints) == [400, 400, 1024, 1, 10, 2, 9, 32, 0, 1, 12, 13, 2, 0, 0, 2, 0]
+    assert len(floats) == 24 and floats[-1] == 0.0
     # the light list is a device table: the sphere light, then the ceiling quad
     kinds, rows = fused_render.light_table(cs)
     assert kinds.tolist() == [k for k, _ in cs.light_params]

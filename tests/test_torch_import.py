@@ -4,8 +4,10 @@ A subprocess installs a meta-path hook that refuses ``jax``, ``jaxlib``,
 ``zig_weekend_raytracer_tpu`` and the repository's JAX ``tools`` before
 anything is imported, then imports ``zig_weekend_raytracer_tpu_torch``,
 every module in it, and ``chip_smoke``.  The modules of the tree-scene,
-image-texture, CLI and FP32-peak slices are named, so that the walk cannot
-miss them."""
+image-texture, CLI, FP32-peak and sample-allocation slices are named, so
+that the walk cannot miss them.  A second subprocess runs the entry points
+that import lazily (the adaptive, progressive and supersampled renders, the
+scene-file loader, the CLI's freed flags) with the same hook."""
 
 import os
 import subprocess
@@ -14,23 +16,25 @@ import textwrap
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
-_SCRIPT = textwrap.dedent(
-    """
-    import importlib, importlib.abc, pkgutil, sys
+_BLOCK = """
+import importlib, importlib.abc, pkgutil, sys
 
-    BLOCKED = ("jax", "jaxlib", "zig_weekend_raytracer_tpu", "tools")
+BLOCKED = ("jax", "jaxlib", "zig_weekend_raytracer_tpu", "tools")
 
-    class Block(importlib.abc.MetaPathFinder):
-        def find_spec(self, name, path=None, target=None):
-            if name.split(".")[0] in BLOCKED:
-                raise ImportError(f"blocked import: {name}")
-            return None
-
-    sys.meta_path.insert(0, Block())
-    for name in list(sys.modules):
+class Block(importlib.abc.MetaPathFinder):
+    def find_spec(self, name, path=None, target=None):
         if name.split(".")[0] in BLOCKED:
-            del sys.modules[name]
+            raise ImportError(f"blocked import: {name}")
+        return None
 
+sys.meta_path.insert(0, Block())
+for name in list(sys.modules):
+    if name.split(".")[0] in BLOCKED:
+        del sys.modules[name]
+"""
+
+_SCRIPT = _BLOCK + textwrap.dedent(
+    """
     import zig_weekend_raytracer_tpu_torch as pkg
     names = [pkg.__name__]
     for mod in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + "."):
@@ -42,7 +46,8 @@ _SCRIPT = textwrap.dedent(
                  "models.shrek_quads", "models.rtw_final", "utils.workcount",
                  "utils.roofline", "cli", "utils.profiler", "utils.argparser",
                  "utils.timer", "io.ppm", "models.emissive", "tools",
-                 "tools.fp32_peak"):
+                 "tools.fp32_peak", "render.progressive", "render.adaptive",
+                 "render.adaptive_device", "models.scenefile"):
         assert pkg.__name__ + "." + name in names, name
     import chip_smoke
     leaked = [m for m in sys.modules if m.split(".")[0] in BLOCKED]
@@ -52,13 +57,49 @@ _SCRIPT = textwrap.dedent(
 )
 
 
-def test_port_imports_with_jax_blocked():
+_RUN = _BLOCK + textwrap.dedent(
+    """
+    import os, tempfile
+    import zig_weekend_raytracer_tpu_torch as zt
+    from zig_weekend_raytracer_tpu_torch import cli
+    from zig_weekend_raytracer_tpu_torch.render.progressive import ProgressiveRenderer
+
+    scene = zt.models.load_scene_file(os.path.join(
+        "zig_weekend_raytracer_tpu_torch", "models", "cornell_box.json"), device="cpu")
+    r = zt.render.Renderer(samples_per_pixel=8, max_ray_bounce_depth=3, russian_roulette=1,
+                           clamp_indirect=2.0, balance_min_spp=1, regen_min_wave=1)
+    r.render(scene, 4, 4)
+    r.render_adaptive(scene, 4, 4)
+    r.render_supersampled(scene, 4, 4, k=2)
+    with tempfile.TemporaryDirectory() as tmp:
+        ProgressiveRenderer(r, os.path.join(tmp, "c.npz")).render(scene, 4, 4, batch_spp=4)
+        assert cli.main(["--image_width=4", "--image_height=4", "--samples_per_pixel=4",
+                         "--adaptive=1", "--russian_roulette=1",
+                         "--image_out_path=" + os.path.join(tmp, "a.ppm")], device="cpu") == 0
+    leaked = [m for m in sys.modules if m.split(".")[0] in BLOCKED]
+    assert not leaked, leaked
+    print("ran")
+    """
+)
+
+
+def _run(script):
     env = dict(os.environ)
     env["PYTHONPATH"] = REPO + os.pathsep + env.get("PYTHONPATH", "")
-    proc = subprocess.run(
-        [sys.executable, "-c", _SCRIPT], cwd=REPO, env=env,
+    return subprocess.run(
+        [sys.executable, "-c", script], cwd=REPO, env=env,
         capture_output=True, text=True, timeout=120,
     )
+
+
+def test_port_imports_with_jax_blocked():
+    proc = _run(_SCRIPT)
     assert proc.returncode == 0, proc.stderr
     # the package, its subpackages and every module in them
     assert int(proc.stdout.strip().splitlines()[-1]) >= 30, proc.stdout
+
+
+def test_slice_entry_points_run_with_jax_blocked():
+    proc = _run(_RUN)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip().splitlines()[-1] == "ran"

@@ -94,8 +94,10 @@ def test_sorted_plan_render_matches_first(cornell):
 def test_renderer_guards(cornell):
     with pytest.raises(ValueError, match="exceeds u32"):
         zt.render.Renderer(samples_per_pixel=1 << 16).render_device(cornell, 256, 256)
-    with pytest.raises(NotImplementedError, match="slice 5"):
-        zt.render.Renderer(russian_roulette=3)
+    # sharded progressive batches are slice 6
+    from zig_weekend_raytracer_tpu_torch.render.progressive import ProgressiveRenderer
+    with pytest.raises(NotImplementedError, match="slice 6"):
+        ProgressiveRenderer(zt.render.Renderer(), "c.npz", shard="rows")
     with pytest.raises(ValueError, match="differs"):
         zt.render.Renderer(device="meta").render_device(cornell, 4, 4)
 

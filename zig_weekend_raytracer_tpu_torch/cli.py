@@ -5,9 +5,11 @@ The same flags, defaults and usage text as the JAX package's ``UserArgs``,
 and the same three stage log lines (src/main.zig:94,97,105) and ``--stats``
 line.  The command line renders on the card through the hand-written
 kernels; ``main(argv, device="cpu")`` runs the same path on the kernels'
-plain versions (the tests' way in).  Flags whose features are later slices
-of the port exit 1 with an error naming the slice; they never render
-something else.
+plain versions (the tests' way in).  ``--adaptive``, ``--checkpoint``,
+``--supersample``, ``--scene_file``, ``--russian_roulette`` and
+``--clamp_indirect`` render as the JAX CLI's do, with its combination
+rules and messages; ``--shard``, a later slice of the port, exits 1 with
+an error naming the slice and never renders something else.
 
 Run:  python -m zig_weekend_raytracer_tpu_torch.cli --image_width=400 --image_height=400
 """
@@ -43,23 +45,32 @@ class UserArgs:
     sampler: SamplerKind = SamplerKind.SOBOL
     seed: int = 0
     asset_dir: str = DEFAULT_ASSET_DIR
-    # declarative JSON scene (slice 5 of the port)
+    # declarative JSON scene (models/scenefile.py); overrides --scene
     scene_file: str = ""
     # none | samples | rows: multi-device sharding (slice 6)
     shard: str = "none"
-    # Russian roulette start bounce, 0 = off (slice 5)
+    # Russian roulette's first bounce, 0 = off: unbiased path-tail
+    # termination, ignored on image scenes without a texture LUT
     russian_roulette: int = 0
-    # indirect luminance clamp, 0 = off (slice 5)
+    # indirect luminance clamp, 0 = off: contributions landed at bounce >= 1
+    # scaled to at most this luminance; the same gate
     clamp_indirect: float = 0.0
-    # variance-guided adaptive sampling, 0 = off (slice 5)
+    # variance-guided adaptive sampling (render/adaptive.py): 1 with an
+    # automatic pilot, N >= 2 a pilot of N spp; the uniform render's budget;
+    # sobol and independent samplers only
     adaptive: int = 0
-    # progressive rendering with checkpoint/resume (slice 5)
+    # progressive rendering (render/progressive.py) checkpointed to this
+    # .npz after every batch; an interrupted render resumes from it bitwise;
+    # not with --adaptive
     checkpoint: str = ""
+    # samples per progressive batch (with --checkpoint)
     checkpoint_batch_spp: int = 16
     # a-trous denoise iterations, 0 = off: guided by the first-hit AOV pass
     # (render/denoise.py)
     denoise: int = 0
-    # supersampling factor, 1 = off (slice 5)
+    # supersampling factor, 1 = off: K times the resolution at spp / K^2
+    # per subpixel, box-filtered (Renderer.render_supersampled); spp must
+    # divide by K^2; only with the plain render
     supersample: int = 1
     # texture LUT texel budget, 0 = off: every image box-downsampled to at
     # most this many texels and read by the whole-render kernel
@@ -78,12 +89,6 @@ class UserArgs:
 # Later-slice flags: (flag, slice, is the flag set).
 _LATER_SLICE_FLAGS = (
     ("shard", 6, lambda a: a.shard != "none"),
-    ("adaptive", 5, lambda a: a.adaptive != 0),
-    ("checkpoint", 5, lambda a: a.checkpoint != ""),
-    ("supersample", 5, lambda a: a.supersample > 1),
-    ("scene_file", 5, lambda a: a.scene_file != ""),
-    ("russian_roulette", 5, lambda a: a.russian_roulette != 0),
-    ("clamp_indirect", 5, lambda a: a.clamp_indirect != 0.0),
 )
 
 
@@ -115,6 +120,27 @@ def later_slice_error(args: UserArgs) -> str | None:
     return None
 
 
+def combination_error(args: UserArgs) -> str | None:
+    """The JAX CLI's error for flags that do not combine, or None."""
+    if args.checkpoint and args.adaptive:
+        # the adaptive plan depends on the pilot's noise map, which the
+        # checkpoint cannot reproduce
+        return "--checkpoint is a uniform render (drop --adaptive)"
+    if args.checkpoint and args.checkpoint_batch_spp < 1:
+        return "--checkpoint_batch_spp must be >= 1"
+    if args.supersample < 1:
+        return "--supersample must be >= 1"
+    if args.supersample > 1:
+        k2 = args.supersample * args.supersample
+        if args.adaptive or args.checkpoint or args.shard != "none":
+            return ("--supersample combines only with the plain render "
+                    "(drop --adaptive/--checkpoint/--shard)")
+        if args.samples_per_pixel % k2:
+            return (f"--samples_per_pixel={args.samples_per_pixel} "
+                    f"must be divisible by supersample^2={k2}")
+    return None
+
+
 def main(argv=None, device="cuda") -> int:
     """Run the CLI on ``argv`` (default: the command line); renders on
     ``device``, the card unless a caller asks for the CPU."""
@@ -133,10 +159,7 @@ def main(argv=None, device="cuda") -> int:
         print(f"error: unknown --profile mode {args.profile!r} "
               "(off | host | device)", file=sys.stderr)
         return 1
-    if args.supersample < 1:
-        print("error: --supersample must be >= 1", file=sys.stderr)
-        return 1
-    why = later_slice_error(args)
+    why = combination_error(args) or later_slice_error(args)
     if why is not None:
         print(f"error: {why}", file=sys.stderr)
         return 1
@@ -164,8 +187,19 @@ def _run(args: UserArgs, device, profile_mode: str, timer: Timer) -> int:
     """Load, render, write and report, after the flags were checked."""
     from .utils import profiler
 
-    scene = load_scene(args.scene, seed=args.seed, asset_dir=args.asset_dir,
-                       device=device, texture_lut=args.texture_lut)
+    if args.scene_file:
+        from .models import load_scene_file
+
+        try:
+            scene = load_scene_file(args.scene_file, device=device,
+                                    texture_lut=args.texture_lut)
+        except (OSError, ValueError, KeyError, TypeError, AttributeError,
+                NotImplementedError) as e:
+            print(f"error: --scene_file {args.scene_file}: {e}", file=sys.stderr)
+            return 1
+    else:
+        scene = load_scene(args.scene, seed=args.seed, asset_dir=args.asset_dir,
+                           device=device, texture_lut=args.texture_lut)
     timer.log_info_elapsed("scene initialized")
 
     renderer = Renderer(
@@ -173,10 +207,24 @@ def _run(args: UserArgs, device, profile_mode: str, timer: Timer) -> int:
         max_ray_bounce_depth=args.ray_bounce_max_depth,
         sampler=args.sampler,
         seed=args.seed,
+        russian_roulette=args.russian_roulette,
+        clamp_indirect=args.clamp_indirect,
     )
+    w, h = args.image_width, args.image_height
 
     def do_render():
-        return renderer.render(scene, args.image_width, args.image_height)
+        if args.adaptive:
+            return renderer.render_adaptive(
+                scene, w, h, pilot_spp=args.adaptive if args.adaptive >= 2 else 0,
+            ).cpu().numpy()
+        if args.checkpoint:
+            from .render.progressive import ProgressiveRenderer
+
+            return ProgressiveRenderer(renderer, checkpoint_path=args.checkpoint).render(
+                scene, w, h, batch_spp=args.checkpoint_batch_spp)
+        if args.supersample > 1:
+            return renderer.render_supersampled(scene, w, h, k=args.supersample).cpu().numpy()
+        return renderer.render(scene, w, h)
 
     device_table = None
     t_render0 = time.perf_counter()

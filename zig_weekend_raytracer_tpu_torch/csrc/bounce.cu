@@ -58,8 +58,9 @@
 // the regenerating mode (``regen`` != 0), ``depth`` only in the one-bounce
 // mode.  ``walk`` picks the tree walk, ``q_cap`` and ``queue``
 // (``queue_len`` ints) its leaf queue (zwrt_device.cuh:set_walk); ``flags``
-// a measurement variant of the regenerating mode (render_kernels.cuh), 0 by
-// default.  Launches on ``stream`` and returns the launch's cudaError_t.
+// the instantiation (render_kernels.cuh): 0 by default, kFlagEstimator for
+// Russian roulette and the indirect clamp in either mode, or a measurement
+// variant of the regenerating mode.  Launches on ``stream`` and returns the launch's cudaError_t.
 extern "C" int zwrt_bounce(const int* iparams, const float* fparams, const void* const* tables,
                            const int* trace_ints, const void* const* trace_ptrs, int n_images,
                            const int* image_dims, const int* image_texels,
@@ -75,6 +76,8 @@ extern "C" int zwrt_bounce(const int* iparams, const float* fparams, const void*
                         image_dims, image_texels, shade_rows, sobol, walk, q_cap, queue,
                         queue_len, n, stream);
   if (err != 0) return err;
+  if (flags == kFlagEstimator)
+    return bounce_estimator(L, fstate, istate, px, py, limit, regen, depth);
   if (flags != 0) {
     if (!regen) return (int)cudaErrorInvalidValue;
     return bounce_variant(flags, L, fstate, istate, px, py, limit, out_prof);

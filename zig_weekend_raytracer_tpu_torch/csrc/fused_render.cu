@@ -75,8 +75,10 @@
 // 4) on the card) and ``image_texels`` are the texture LUT of an image
 // scene (n_images 0 and both null for a scene without images).  ``walk``
 // picks the tree walk, ``q_cap`` and ``queue`` (``queue_len`` ints) its leaf
-// queue (zwrt_device.cuh:set_walk); ``flags`` a measurement variant
-// (render_kernels.cuh), 0 by default, whose kFlagProf writes ``out_prof``.
+// queue (zwrt_device.cuh:set_walk); ``flags`` the instantiation
+// (render_kernels.cuh): 0 by default, kFlagEstimator for Russian roulette
+// and the indirect clamp, or a measurement variant, whose kFlagProf writes
+// ``out_prof``.
 // Launches on ``stream`` and returns the launch's cudaError_t.
 extern "C" int zwrt_fused_render(
     const int* iparams, const float* fparams, const void* const* tables, const int* trace_ints,
@@ -91,6 +93,8 @@ extern "C" int zwrt_fused_render(
                         image_dims, image_texels, shade_rows, sobol, walk, q_cap, queue,
                         queue_len, n, stream);
   if (err != 0) return err;
+  if (flags == kFlagEstimator)
+    return fused_render_estimator(L, px, py, s0, s1, out_rad, out_work);
   if (flags != 0) return fused_render_variant(flags, L, px, py, s0, s1, out_rad, out_work, out_prof);
   return launch_fused_render<0>(L, px, py, s0, s1, out_rad, out_work, nullptr);
 }

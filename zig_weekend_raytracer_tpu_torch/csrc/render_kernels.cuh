@@ -6,10 +6,13 @@
 // fused_render.cu and bounce.cu.
 //
 // FLAGS (zwrt_device.cuh:DrainFlags) is 0 in every instantiation the
-// wrappers launch by default.  The variants, for the walks kWalkCond and
-// kWalkQueue only: kFlagProf writes each lane's phase profile (kProfCols
-// int64 columns) to ``out_prof``; kFlagLoopSobol keeps the Sobol bit loops
-// in the respawn and stages no tables.
+// wrappers launch by default.  kFlagEstimator, instantiated for every walk
+// and both kernels' modes (fused_render_estimator.cu, bounce_estimator.cu),
+// applies Russian roulette and the indirect clamp; the wrappers launch it
+// when either option is on.  The variants, for the walks kWalkCond and
+// kWalkQueue only and without the estimator: kFlagProf writes each lane's
+// phase profile (kProfCols int64 columns) to ``out_prof``; kFlagLoopSobol
+// keeps the Sobol bit loops in the respawn and stages no tables.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -101,7 +104,8 @@ __global__ void __launch_bounds__(kThreads) bounce_kernel(
     const unsigned group = WALK == kWalkRowQueue ? __ballot_sync(kAllLanes, alive) : kAllLanes;
     if (alive) {
       s.depth = depth;
-      alive = bounce_step<true, WALK>(p, scene, shade_rows, &images, s, group);
+      alive = bounce_step<true, WALK, false, (FLAGS & kFlagEstimator) != 0>(p, scene, shade_rows,
+                                                                           &images, s, group);
     }
   }
   f[0] = s.o.x;
@@ -136,10 +140,11 @@ struct RenderLaunch {
 };
 
 // f(std::integral_constant<int, W>{}) for the walk W: every walk for the
-// default instantiations, kWalkCond and kWalkQueue for the variants.
+// default and estimator instantiations, kWalkCond and kWalkQueue for the
+// variants.
 template <int FLAGS, typename F>
 inline int dispatch_flags_walk(int walk, F f) {
-  if constexpr (FLAGS == 0) {
+  if constexpr (FLAGS == 0 || FLAGS == kFlagEstimator) {
     return dispatch_walk(walk, f);
   } else {
     switch (walk) {
@@ -177,7 +182,7 @@ int launch_fused_render(const RenderLaunch& L, const int* px, const int* py, con
 template <int FLAGS>
 int launch_bounce(const RenderLaunch& L, float* fstate, int* istate, const int* px,
                   const int* py, const int* limit, long long* out_prof, int regen, int depth) {
-  if (FLAGS != 0 && !regen) return (int)cudaErrorInvalidValue;
+  if ((FLAGS & ~kFlagEstimator) != 0 && !regen) return (int)cudaErrorInvalidValue;
   if ((FLAGS & kFlagProf) && out_prof == nullptr) return (int)cudaErrorInvalidValue;
   const int blocks = (L.n + kThreads - 1) / kThreads;
   TraceScene scene = L.scene;
@@ -189,8 +194,8 @@ int launch_bounce(const RenderLaunch& L, float* fstate, int* istate, const int* 
   return dispatch_flags_walk<FLAGS>(L.walk, [&](auto w) {
     constexpr int W = decltype(w)::value;
     auto kernel = bounce_kernel<true, W, FLAGS>;
-    if constexpr (FLAGS == 0) {
-      if (!regen) kernel = bounce_kernel<false, W, 0>;
+    if constexpr ((FLAGS & ~kFlagEstimator) == 0) {
+      if (!regen) kernel = bounce_kernel<false, W, FLAGS>;
     }
     int e = allow_smem(kernel, smem);
     if (e != 0) return e;
@@ -236,5 +241,11 @@ int fused_render_variant(int flags, const RenderLaunch& L, const int* px, const 
                          long long* out_prof);
 int bounce_variant(int flags, const RenderLaunch& L, float* fstate, int* istate, const int* px,
                    const int* py, const int* limit, long long* out_prof);
+// The estimator instantiations, defined in fused_render_estimator.cu and
+// bounce_estimator.cu.
+int fused_render_estimator(const RenderLaunch& L, const int* px, const int* py, const int* s0,
+                           const int* s1, float* out_rad, int* out_work);
+int bounce_estimator(const RenderLaunch& L, float* fstate, int* istate, const int* px,
+                     const int* py, const int* limit, int regen, int depth);
 
 }  // namespace zwrt

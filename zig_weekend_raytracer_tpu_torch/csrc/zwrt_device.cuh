@@ -5,7 +5,8 @@
 // materials, the light-list PDF, sphere and quad UVs with the image texel
 // fetch (from the atlas or the texture LUT), and the bounce step and
 // regenerating drain that the render and bounce kernels share
-// (render_kernels.cuh).  All three kernels trace through trace_closest, a
+// (render_kernels.cuh), with the estimator options (Russian roulette, the
+// indirect clamp) compiled into their kFlagEstimator instantiations.  All three kernels trace through trace_closest, a
 // template on the tree walk (Walk):
 // the default per-thread walk, the leaf queue per thread, the leaf queue
 // per warp, the speculative two-successor walk, or the unified tree.
@@ -92,19 +93,29 @@ constexpr float kInv4Pi = 0.07957747154594767f;
 constexpr float kOneMinusEps = 0.99999994f;
 constexpr float kTMinPdf = 1e-3f;
 constexpr float kQuadParallelEps = 1e-8f;
+// Rec.709 luminance weights (dtypes.py) and Russian roulette's survival
+// floor (sampling/hashrng.py:RR_P_MIN).
+constexpr float kLumR = 0.2126f;
+constexpr float kLumG = 0.7152f;
+constexpr float kLumB = 0.0722f;
+constexpr float kRrPMin = 0.05f;
 
 // Everything a launch needs besides the scene tables, passed by value: the
 // light list is a device table of any length (``light_kind`` (n_lights,),
 // ``light`` (n_lights, kLightFloats)), and ``sobol_p`` the factored
 // sampler's (2, sobol_bytes, 256) u32 tables, which the kernels stage in
-// shared memory (stage_sobol).
+// shared memory (stage_sobol), for every sample index the launch renders.
+// ``rr_start`` (Russian roulette's first bounce) and ``clamp`` (the
+// indirect luminance clamp), 0 for off, are read by the kFlagEstimator
+// instantiations only.
 struct Params {
   int width, height, spp, stride, max_depth;
   int sampler, log2_scale, strat_sqrt;
   uint32_t seed;
-  int n_sph, n_quad, n_rows, n_lights, needs_gauss, has_dof, sobol_bytes;
+  int n_sph, n_quad, n_rows, n_lights, needs_gauss, has_dof, sobol_bytes, rr_start;
   float t_min, strat_recip;
   float cam_pos[3], pixel00[3], du[3], dv[3], defocus_u[3], defocus_v[3], bg[3];
+  float clamp;
   const int* light_kind;
   const float* light;
   const uint32_t* sobol_p;
@@ -922,8 +933,10 @@ struct Path {
 // kFlagProf: each lane adds clock64() deltas per phase (respawn, trace,
 // shade) and, at each phase's entry, the converged lanes of its warp
 // (__popc(__activemask())) to a Prof; kFlagLoopSobol: the respawn runs the
-// Sobol bit loops, as before the factored tables.  The default instantiations take 0.
-enum DrainFlags { kFlagProf = 1, kFlagLoopSobol = 2 };
+// Sobol bit loops, as before the factored tables; kFlagEstimator: the
+// shading applies Params' rr_start and clamp (shade_hit).  The default
+// instantiations take 0.
+enum DrainFlags { kFlagProf = 1, kFlagLoopSobol = 2, kFlagEstimator = 4 };
 enum ProfPhase { kPhaseRespawn = 0, kPhaseTrace = 1, kPhaseShade = 2, kPhases = 3 };
 // Columns of a lane's profile (int64): cycles, entries and active lanes
 // summed per phase, then the drain's whole cycles.
@@ -949,20 +962,65 @@ __device__ __forceinline__ void prof_leave(Prof* pr, int phase, long long t0) {
   if (PROF) pr->cycles[phase] += clock64() - t0;
 }
 
+// A radiance contribution landed at bounce ``depth``, scaled where depth >=
+// 1 so that its luminance is at most ``clamp`` (the indirect clamp,
+// render/integrator.py:_clamp_contrib); scaling by 1 leaves it exact.
+__device__ __forceinline__ V3 clamp_contrib(V3 c, int depth, float clamp) {
+  float lum = kLumR * c.x + kLumG * c.y + kLumB * c.z;
+  float scale = (depth >= 1 && lum > clamp) ? clamp / clamp_min(lum, 1e-20f) : 1.0f;
+  return c * scale;
+}
+
+// The estimator options of one live path's bounce (EST): whether Russian
+// roulette applies at this bounce, its survival probability p from the
+// incoming throughput, and whether the clamp is on.
+struct Estimator {
+  bool rr, clamp;
+  float p;
+};
+
+template <bool EST>
+__device__ __forceinline__ Estimator estimator_of(const Params& p, const Path& s) {
+  Estimator e{false, false, 1.0f};
+  if (EST) {
+    e.rr = p.rr_start != 0 && s.depth >= p.rr_start;
+    e.clamp = p.clamp != 0.0f;
+    e.p = clamp_max(clamp_min(nan_max(s.thr.x, nan_max(s.thr.y, s.thr.z)), kRrPMin), 1.0f);
+  }
+  return e;
+}
+
+template <bool EST>
+__device__ __forceinline__ V3 contrib(const Params& p, const Estimator& e, const Path& s, V3 c) {
+  return (EST && e.clamp) ? clamp_contrib(c, s.depth, p.clamp) : c;
+}
+
+// Russian roulette's weight on the throughput at the end of a bounce where
+// it applies (every live path's, as the plain version scales it).
+template <bool EST>
+__device__ __forceinline__ void rr_weight(const Estimator& e, Path& s) {
+  if (EST && e.rr) s.thr = s.thr * (1.0f / e.p);
+}
+
 // The shading half of a bounce, after the closest hit (best, kind, idx):
 // shade record, texture, the material's scatter.  Returns whether the path
 // goes on (before the depth cutoff).  IMAGES compiles the image fetch: the
 // texel of an image texture (or a checker's image child) replaces the
 // record colour at the hit, before emission and scatter, as the XLA
 // integrator and the JAX whole-render kernel's LUT fetch order it.  Without
-// IMAGES ``images`` is never read.
-template <bool IMAGES>
+// IMAGES ``images`` is never read.  EST compiles the estimator options
+// (render/integrator.py:bounce, in its order): the clamp on the background
+// and the emission, and Russian roulette against the site-3 draw after the
+// scatter, its 1 / p weight on the throughput.
+template <bool IMAGES, bool EST = false>
 __device__ __forceinline__ bool shade_hit(const Params& p, const float* __restrict__ shade_rows,
                                           const Images* images, Path& s, float best, int kind,
                                           int idx) {
+  const Estimator est = estimator_of<EST>(p, s);
   if (kind < 0) {
     // ---- miss: background, the path ends ----
-    s.rad = s.rad + s.thr * mk(p.bg[0], p.bg[1], p.bg[2]);
+    s.rad = s.rad + contrib<EST>(p, est, s, s.thr * mk(p.bg[0], p.bg[1], p.bg[2]));
+    rr_weight<EST>(est, s);
     return false;
   }
 
@@ -1021,7 +1079,7 @@ __device__ __forceinline__ bool shade_hit(const Params& p, const float* __restri
   V3 new_dir = s.d;
   if (mat == kDiffuseLight) {
     // ---- emission on front faces; the path ends ----
-    if (front) s.rad = s.rad + s.thr * tex_rgb;
+    if (front) s.rad = s.rad + contrib<EST>(p, est, s, s.thr * tex_rgb);
   } else if (mat == kMetal) {
     V3 metal_dir = reflect(s.d, normal);
     if (p.needs_gauss) {
@@ -1071,16 +1129,20 @@ __device__ __forceinline__ bool shade_hit(const Params& p, const float* __restri
     s.thr = s.thr * mult;
     survives = (s.thr.x != 0.0f) || (s.thr.y != 0.0f) || (s.thr.z != 0.0f);
   }
+  if (EST && est.rr) {
+    survives = survives && !(uniform4(p.seed, s.rid, site + 3u).x >= est.p);
+    rr_weight<EST>(est, s);
+  }
   s.o = point;
   s.d = new_dir;
   return survives;
 }
 
 // One bounce of a live path: the closest hit (sphere stage, then quad
-// stage, or the unified walk), then shade_hit.  ``group`` is the warp's
-// lanes that bounce together, read by the kWalkRowQueue trace only; PROF
-// times the two halves into ``prof``.
-template <bool IMAGES, int WALK, bool PROF = false>
+// stage, or the unified walk), then shade_hit (EST: with the estimator
+// options).  ``group`` is the warp's lanes that bounce together, read by
+// the kWalkRowQueue trace only; PROF times the two halves into ``prof``.
+template <bool IMAGES, int WALK, bool PROF = false, bool EST = false>
 __device__ __forceinline__ bool bounce_step(const Params& p, const TraceScene& scene,
                                             const float* __restrict__ shade_rows,
                                             const Images* images, Path& s, unsigned group,
@@ -1091,7 +1153,7 @@ __device__ __forceinline__ bool bounce_step(const Params& p, const TraceScene& s
   trace_closest<WALK>(scene, s.o, s.d, s.time, p.t_min, kBig, &best, &kind, &idx, group);
   prof_leave<PROF>(prof, kPhaseTrace, t0);
   t0 = prof_enter<PROF>(prof, kPhaseShade);
-  const bool survives = shade_hit<IMAGES>(p, shade_rows, images, s, best, kind, idx);
+  const bool survives = shade_hit<IMAGES, EST>(p, shade_rows, images, s, best, kind, idx);
   prof_leave<PROF>(prof, kPhaseShade, t0);
   return survives;
 }
@@ -1112,6 +1174,7 @@ __device__ __forceinline__ void drain(const Params& p, const TraceScene& scene,
                                       Prof* prof = nullptr) {
   constexpr bool PROF = (FLAGS & kFlagProf) != 0;
   constexpr bool LOOP_SOBOL = (FLAGS & kFlagLoopSobol) != 0;
+  constexpr bool EST = (FLAGS & kFlagEstimator) != 0;
   const long long t_start = PROF ? clock64() : 0;
   const SobolPixel q = LOOP_SOBOL ? SobolPixel{0u, 0u} : sobol_pixel(p, sobol, px, py);
   if (PROF) prof->cycles[kPhaseRespawn] += clock64() - t_start;
@@ -1132,7 +1195,8 @@ __device__ __forceinline__ void drain(const Params& p, const TraceScene& scene,
       prof_leave<PROF>(prof, kPhaseRespawn, t0);
     }
     work += 1;
-    bool survives = bounce_step<IMAGES, WALK, PROF>(p, scene, shade_rows, images, s, group, prof);
+    bool survives =
+        bounce_step<IMAGES, WALK, PROF, EST>(p, scene, shade_rows, images, s, group, prof);
     s.depth += 1;
     alive = survives && s.depth < p.max_depth;
   }
@@ -1150,7 +1214,8 @@ inline bool read_images(int n_images, const int* dims, const int* texels, Images
 // Host side: Params from the int32 and float32 host arrays the wrappers pack
 // (ops/fused_render.py:launch_params), in their order, and the device
 // tables ``tables``: light kinds, light rows, the factored Sobol tables
-// (null when the launch's sampler is not Sobol).
+// (null when the launch's sampler is not Sobol).  The estimator options
+// close each array: rr_start after sobol_bytes, clamp after the background.
 inline Params read_params(const int* iparams, const float* fparams, const void* const* tables) {
   Params p;
   int k = 0;
@@ -1170,6 +1235,7 @@ inline Params read_params(const int* iparams, const float* fparams, const void* 
   p.needs_gauss = iparams[k++];
   p.has_dof = iparams[k++];
   p.sobol_bytes = iparams[k++];
+  p.rr_start = iparams[k++];
   p.light_kind = static_cast<const int*>(tables[0]);
   p.light = static_cast<const float*>(tables[1]);
   p.sobol_p = static_cast<const uint32_t*>(tables[2]);
@@ -1183,6 +1249,7 @@ inline Params read_params(const int* iparams, const float* fparams, const void* 
   for (int c = 0; c < 3; ++c) p.defocus_u[c] = fparams[f++];
   for (int c = 0; c < 3; ++c) p.defocus_v[c] = fparams[f++];
   for (int c = 0; c < 3; ++c) p.bg[c] = fparams[f++];
+  p.clamp = fparams[f++];
   return p;
 }
 

@@ -1,6 +1,7 @@
 """The scene library (counterpart of ``models/__init__.py``): the six
-built-in scenes, constant for constant, and ``SceneType``, the CLI's
-``--scene`` choices in the JAX package's order."""
+built-in scenes, constant for constant, ``SceneType``, the CLI's
+``--scene`` choices in the JAX package's order, and ``load_scene_file``,
+the JSON scene files of ``--scene_file``."""
 
 from __future__ import annotations
 
@@ -14,6 +15,7 @@ from .cornell_box import load_scene_cornell_box
 from .earth import load_scene_earth
 from .emissive import load_scene_emissive
 from .rtw_final import load_scene_rtw_final
+from .scenefile import load_scene_file
 from .shrek_quads import load_scene_shrek_quads
 
 # The repository's image assets (wap.jpg, me.jpg, earth.png).

@@ -11,7 +11,15 @@ and from the atlas otherwise; for CPU tensors they run its plain PyTorch
 versions, ``render/integrator.py:bounce`` and ``bounce_regen_reference``.
 Any other device raises.  ``bounce.launches`` and ``bounce_regen.launches``
 count kernel launches per tree walk ({walk: launches}; the walk is read at
-each launch, as ``ops/fused_render.py:walk_args`` says).
+each launch, as ``ops/fused_render.py:walk_args`` says), and their
+``estimator_launches`` those that took the estimator instantiation.
+
+Both modes take Russian roulette and the indirect clamp (``rr_start``,
+``clamp``) through the kernel's estimator instantiation, after the gate of
+``render/integrator.py:estimator_options``: on an atlas scene (image
+textures, no LUT) both are off, as in the JAX kernel.  A regenerating
+launch's Sobol tables cover its sample indices below the largest
+``sample_limit``.
 
 ``bounce_regen_variant`` launches the regenerating mode's measurement
 variants (the phase profile, the earlier Sobol bit-loop respawn), counted
@@ -38,8 +46,9 @@ from ..sampling.sampler import SamplerKind, sobol_log2_scale
 from ..scene import CompiledScene
 from . import _build
 from .fused_render import (
-    FLAG_LOOP_SOBOL, FLAG_PROF, PROF_COLS, VARIANT_WALKS, check_lane_tensor, image_args,
-    launch_params, launch_tables, sobol_smem_bytes, sobol_table, trace_args, walk_args,
+    FLAG_LOOP_SOBOL, FLAG_PROF, PROF_COLS, VARIANT_WALKS, check_flags, check_lane_tensor, estimator_flags,
+    image_args, launch_params, launch_sample_end, launch_tables, sobol_smem_bytes, sobol_table,
+    trace_args, walk_args,
 )
 from .trace import WALKS
 
@@ -61,23 +70,23 @@ def supports_fused_render(scene: CompiledScene) -> bool:
 
 def _launch(scene, params, fstate, istate, lanes, regen, depth, flags=0):
     """One launch of the bounce kernel; returns the tree walk it took and
-    the phase profile (None without FLAG_PROF)."""
+    the phase profile (None without FLAG_PROF).  ``params`` is
+    (ints, floats, (sampler, width, height, sample_end))."""
     device = fstate.device
     if scene.device != device:
         raise ValueError(f"scene is on {scene.device}, lanes on {device}")
     n = fstate.shape[1]
     lib = _build.load_library()
-    ints, floats, (sampler, width, height, spp) = params
-    tables, _keep = launch_tables(scene, sampler, width, height, spp)
+    ints, floats, (sampler, width, height, sample_end) = params
+    tables, _keep = launch_tables(scene, sampler, width, height, sample_end)
     trace_ints, trace_ptrs, _tables = trace_args(scene)
     dims, texels = image_args(scene)
     shade_rows = scene.shade_rows.contiguous()
     sobol = sobol_table(device, sobol_log2_scale(width, height))
     px, py, limit = (None, None, None) if lanes is None else (t.data_ptr() for t in lanes)
-    smem = sobol_smem_bytes(sampler, spp) if regen and not flags & FLAG_LOOP_SOBOL else 0
+    smem = sobol_smem_bytes(sampler, sample_end) if regen and not flags & FLAG_LOOP_SOBOL else 0
     walk, code, cap, queue = walk_args(scene, n, smem)
-    if flags and walk not in VARIANT_WALKS:
-        raise ValueError(f"no measurement variant for the {walk} walk; one of {VARIANT_WALKS}")
+    check_flags(walk, flags)
     prof = (torch.empty((PROF_COLS, n), dtype=torch.int64, device=device)
             if flags & FLAG_PROF else None)
     err = lib.zwrt_bounce(
@@ -117,21 +126,22 @@ def _u32_bits(ray_id):
 def bounce(
     scene: CompiledScene, seed, t_min: float, depth: int,
     origin: V3, direction: V3, time, ray_id, throughput: V3, radiance: V3,
-    alive,
+    alive, rr_start: int = 0, clamp: float = 0.0,
 ):
     """One bounce of every lane at bounce index ``depth``: trace, shade,
     texture and scatter (one-bounce mode, the counterpart of
     ``bounce_pallas`` with its atlas multiply, or with its in-kernel LUT
-    fetch when the scene has a texture LUT).  ``ray_id`` is (N,) int64
-    holding u32 values, ``alive`` (N,) bool.  Returns (origin', direction',
-    throughput', radiance', alive')."""
+    fetch when the scene has a texture LUT), with Russian roulette from
+    bounce ``rr_start`` and the indirect ``clamp`` (0: off).  ``ray_id`` is
+    (N,) int64 holding u32 values, ``alive`` (N,) bool.  Returns (origin',
+    direction', throughput', radiance', alive')."""
     device = origin.x.device
     n = origin.shape[0]
     if device.type == "cpu":
         d = torch.full((n,), int(depth), dtype=torch.int64, device=device)
         return integrator.bounce(
             scene, seed, t_min, d, origin, direction, time, ray_id,
-            throughput, radiance, alive,
+            throughput, radiance, alive, rr_start, clamp,
         )
     if device.type != "cuda":
         raise ValueError(f"bounce runs on cuda or cpu tensors, not {device}")
@@ -141,13 +151,15 @@ def bounce(
         origin, direction, throughput, radiance, time,
         (_u32_bits(ray_id), alive), device, n,
     )
+    flags, rr_start, clamp = estimator_flags(scene, rr_start, clamp)
     ints, floats = launch_params(
         scene, seed, t_min, ((0.0,) * 3,) * 6, SamplerKind.SOBOL, 1, 1, 1,
-        1, 1, False,
+        1, 1, False, 1, rr_start, clamp,
     )
     walk, _ = _launch(scene, (ints, floats, (SamplerKind.SOBOL, 1, 1, 1)), fstate, istate,
-                      None, False, depth)
+                      None, False, depth, flags)
     bounce.launches[walk] += 1
+    bounce.estimator_launches += bool(flags)
     f = fstate
     return (
         V3(f[0], f[1], f[2]), V3(f[3], f[4], f[5]), V3(f[6], f[7], f[8]),
@@ -156,34 +168,40 @@ def bounce(
 
 
 bounce.launches = dict.fromkeys(WALKS, 0)
+bounce.estimator_launches = 0
 
 
 def bounce_regen(
     scene: CompiledScene, state: RegenState, px, py, sample_limit, seed,
     t_min: float, *, camera_consts, sampler: SamplerKind, width: int,
     height: int, spp: int, stride: int, max_depth: int, has_dof: bool,
+    rr_start: int = 0, clamp: float = 0.0,
 ) -> RegenState:
     """The regenerating mode (counterpart of ``bounce_pallas_regen`` with
     its atlas fold): from ``state``, each lane renders its pixel's samples
     ``state.sample + stride``, ... below ``sample_limit``, respawning the
     next one in-kernel as a path ends, and the final state is returned
     (every lane dead, its window used up).  ``px``, ``py`` and
-    ``sample_limit`` are (N,) int32."""
+    ``sample_limit`` are (N,) int32; ``rr_start`` and ``clamp`` as
+    ``bounce`` takes them."""
     kw = dict(
         camera_consts=camera_consts, sampler=sampler, width=width,
         height=height, spp=spp, stride=stride, max_depth=max_depth,
-        has_dof=has_dof,
+        has_dof=has_dof, rr_start=rr_start, clamp=clamp,
     )
     if px.device.type == "cpu":
         return integrator.bounce_regen_reference(
             scene, state, px, py, sample_limit, seed, t_min, **kw
         )
-    out, _, walk = _regen(scene, state, px, py, sample_limit, seed, t_min, 0, **kw)
+    flags, kw["rr_start"], kw["clamp"] = estimator_flags(scene, rr_start, clamp)
+    out, _, walk = _regen(scene, state, px, py, sample_limit, seed, t_min, flags, **kw)
     bounce_regen.launches[walk] += 1
+    bounce_regen.estimator_launches += bool(flags)
     return out
 
 
 bounce_regen.launches = dict.fromkeys(WALKS, 0)
+bounce_regen.estimator_launches = 0
 
 
 def bounce_regen_variant(scene: CompiledScene, state: RegenState, px, py, sample_limit, seed,
@@ -201,7 +219,10 @@ def bounce_regen_variant(scene: CompiledScene, state: RegenState, px, py, sample
     if not flags:
         raise ValueError("bounce_regen_variant needs profile or loop_sobol; "
                          "bounce_regen launches the default kernel")
-    out, prof, walk = _regen(scene, state, px, py, sample_limit, seed, t_min, flags, **kw)
+    est, kw["rr_start"], kw["clamp"] = estimator_flags(
+        scene, kw.get("rr_start", 0), kw.get("clamp", 0.0))
+    out, prof, walk = _regen(scene, state, px, py, sample_limit, seed, t_min, flags | est,
+                             **kw)
     bounce_regen_variant.launches[walk] += 1
     return out, prof
 
@@ -210,7 +231,7 @@ bounce_regen_variant.launches = dict.fromkeys(VARIANT_WALKS, 0)
 
 
 def _regen(scene, state, px, py, sample_limit, seed, t_min, flags, *, camera_consts, sampler,
-           width, height, spp, stride, max_depth, has_dof):
+           width, height, spp, stride, max_depth, has_dof, rr_start=0, clamp=0.0):
     """One regenerating launch: (final state, profile or None, walk)."""
     device = px.device
     n = px.shape[0]
@@ -228,12 +249,13 @@ def _regen(scene, state, px, py, sample_limit, seed, t_min, flags, *, camera_con
         (_u32_bits(state.ray_id), state.alive, state.sample, state.bounce, state.work),
         device, n,
     )
+    sample_end = launch_sample_end(sample_limit)
     ints, floats = launch_params(
         scene, seed, t_min, camera_consts, sampler, width, height, spp,
-        stride, max_depth, has_dof,
+        stride, max_depth, has_dof, sample_end, rr_start, clamp,
     )
-    walk, prof = _launch(scene, (ints, floats, (sampler, width, height, spp)), fstate, istate,
-                         (px, py, sample_limit), True, 0, flags)
+    walk, prof = _launch(scene, (ints, floats, (sampler, width, height, sample_end)), fstate,
+                         istate, (px, py, sample_limit), True, 0, flags)
     f, s = fstate, istate
     out = RegenState(
         origin=V3(f[0], f[1], f[2]), direction=V3(f[3], f[4], f[5]),

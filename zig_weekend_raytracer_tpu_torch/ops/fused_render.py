@@ -7,7 +7,8 @@
 in ``csrc/zwrt_device.cuh``); for CPU tensors it runs the kernel's plain
 PyTorch version, ``render/integrator.py:render_fused_reference``.  Any
 other device raises.  ``render_fused.launches`` counts kernel launches,
-per tree walk ({walk: launches}).
+per tree walk ({walk: launches}); ``render_fused.estimator_launches``
+those of them that took the estimator instantiation.
 
 ``kernel_tables`` and ``trace_args`` pack the scene for the kernels' shared
 trace (``trace_closest``), whose stages the closest-hit kernel
@@ -18,6 +19,14 @@ for the kernels' shared texel fetch, ``light_table`` its light list and
 tables of any length.  The kernel takes image scenes that have a texture
 LUT (instantiated with the fetch) and scenes without images (instantiated
 without it).
+
+With Russian roulette or the indirect clamp on (``rr_start``, ``clamp``,
+gated by ``render/integrator.py:estimator_options``) a launch takes the
+kernel's estimator instantiation (``FLAG_ESTIMATOR``), built for every
+walk; without them the default one, which compiles as it did before the
+options.  The factored Sobol tables cover the sample indices the launch
+renders: up to the largest window end ``s1``, which may pass ``spp``
+(the adaptive driver's extra samples).
 
 ``render_fused_variant`` launches the kernel's measurement variants
 (``csrc/render_kernels.cuh``): the per-lane phase profile and the earlier
@@ -42,7 +51,7 @@ import torch
 
 from ..dtypes import real
 from ..math.v3 import V3
-from ..render.integrator import render_fused_reference
+from ..render.integrator import estimator_options, render_fused_reference
 from ..sampling import sobol as _sobol
 from ..sampling.sampler import SamplerKind, sobol_log2_scale
 from ..scene import PRIM_QUAD, PRIM_SPHERE, CompiledScene
@@ -55,7 +64,7 @@ LIGHT_FLOATS = 17
 IMAGE_DIMS = 4          # w, h, base, row stride per image
 PROF_PHASES = ("respawn", "trace", "shade")
 PROF_COLS = 3 * len(PROF_PHASES) + 1  # cycles, entries, active lanes; total
-FLAG_PROF, FLAG_LOOP_SOBOL = 1, 2     # DrainFlags
+FLAG_PROF, FLAG_LOOP_SOBOL, FLAG_ESTIMATOR = 1, 2, 4  # DrainFlags
 VARIANT_WALKS = ("cond", "queue")     # the walks the variants are built for
 THREADS = 128           # threads per block of every launcher
 SMEM_LIMIT = 232448     # dynamic shared memory a block can have (227 KB)
@@ -120,15 +129,16 @@ def light_table(scene: CompiledScene):
 
 
 def launch_tables(scene: CompiledScene, sampler: SamplerKind, width: int, height: int,
-                  spp: int):
+                  sample_end: int):
     """(ptrs, tensors): the host array of device pointers the launchers
     read beside ``launch_params`` (light kinds, light rows, the factored
-    Sobol tables or 0 for another sampler) and the tensors behind them."""
+    Sobol tables for sample indices below ``sample_end``, or 0 for another
+    sampler) and the tensors behind them."""
     kinds, rows = light_table(scene)
     tensors = [kinds, rows]
     if sampler == SamplerKind.SOBOL:
         tensors.append(sobol_p_table(scene.device, sobol_log2_scale(width, height),
-                                     _sobol.sobol_sample_bytes(spp)))
+                                     _sobol.sobol_sample_bytes(sample_end)))
     ptrs = np.array([t.data_ptr() for t in tensors] + [0] * (3 - len(tensors)), np.uint64)
     return ptrs, tuple(tensors)
 
@@ -282,17 +292,20 @@ def image_args(scene: CompiledScene):
 
 
 def launch_params(scene, seed, t_min, camera_consts, sampler, width, height,
-                  spp, stride, max_depth, has_dof):
+                  spp, stride, max_depth, has_dof, sample_end=None, rr_start=0, clamp=0.0):
     """Host arrays (int32, float32) in the order the C launcher reads them
     (zwrt_device.cuh:read_params); the light list and the Sobol tables go
-    as device tables (``launch_tables``)."""
+    as device tables (``launch_tables``).  The Sobol tables cover sample
+    indices below ``sample_end`` (default ``spp``); ``rr_start`` and
+    ``clamp`` are the estimator options as the launch applies them."""
     strat_sqrt = max(1, int(np.sqrt(spp)))
     ints = np.array(
         [width, height, spp, stride, max_depth, _SAMPLER_CODE[sampler],
          sobol_log2_scale(width, height), strat_sqrt, int(seed) & 0xFFFFFFFF,
          scene.n_spheres, scene.n_quads, scene.shade_rows.shape[0],
          len(scene.light_params), int(bool(scene.needs_gauss)), int(bool(has_dof)),
-         _sobol.sobol_sample_bytes(spp)],
+         _sobol.sobol_sample_bytes(spp if sample_end is None else sample_end),
+         int(rr_start)],
         dtype=np.int64,
     ).astype(np.uint32).view(np.int32)
     position, pixel00, du, dv, defocus_u, defocus_v = camera_consts
@@ -301,15 +314,43 @@ def launch_params(scene, seed, t_min, camera_consts, sampler, width, height,
         *(np.asarray(v, np.float32)
           for v in (position, pixel00, du, dv, defocus_u, defocus_v)),
         np.asarray(scene.background_rgb, np.float32),
+        np.array([clamp], np.float32),
     ]).astype(np.float32)
     return np.ascontiguousarray(ints), np.ascontiguousarray(floats)
 
 
-def sobol_smem_bytes(sampler: SamplerKind, spp: int) -> int:
-    """Shared memory per block of the staged Sobol tables."""
+def sobol_smem_bytes(sampler: SamplerKind, sample_end: int) -> int:
+    """Shared memory per block of the staged Sobol tables for sample
+    indices below ``sample_end``."""
     if sampler != SamplerKind.SOBOL:
         return 0
-    return 2 * _sobol.sobol_sample_bytes(spp) * 256 * 4
+    return 2 * _sobol.sobol_sample_bytes(sample_end) * 256 * 4
+
+
+def launch_sample_end(limit: torch.Tensor) -> int:
+    """The end of the sample indices a regenerating launch renders: the
+    largest window end (``s1``, ``sample_limit``) over its lanes, at least
+    1.  A lane renders indices below its window end only."""
+    return max(1, int(limit.max())) if limit.numel() else 1
+
+
+def check_flags(walk: str, flags: int) -> None:
+    """Raises for flags that no instantiation has: the measurement variants
+    exist for the walks of ``VARIANT_WALKS`` and without the estimator
+    options; the estimator instantiation exists for every walk."""
+    variant = flags & (FLAG_PROF | FLAG_LOOP_SOBOL)
+    if variant and flags & FLAG_ESTIMATOR:
+        raise ValueError("the measurement variants have no Russian roulette or indirect "
+                         "clamp: launch them with rr_start = 0 and clamp = 0")
+    if variant and walk not in VARIANT_WALKS:
+        raise ValueError(f"no measurement variant for the {walk} walk; one of {VARIANT_WALKS}")
+
+
+def estimator_flags(scene: CompiledScene, rr_start, clamp):
+    """(flags, rr_start, clamp) of a launch: FLAG_ESTIMATOR when either
+    option is on after the gate (``estimator_options``), else 0."""
+    rr_start, clamp = estimator_options(scene, rr_start, clamp)
+    return (FLAG_ESTIMATOR if rr_start or clamp else 0), rr_start, clamp
 
 
 def check_lane_tensor(name, t, device, n, dtype=torch.int32):
@@ -329,29 +370,35 @@ def render_fused(
     seed: int, t_min: float, *,
     camera_consts, sampler: SamplerKind, width: int, height: int, spp: int,
     stride: int, max_depth: int, has_dof: bool, want_work: bool = False,
+    rr_start: int = 0, clamp: float = 0.0,
 ):
     """Render each lane's samples s0, s0 + stride, ... below s1 of pixel
     (px, py).  Lane tensors are (N,) int32.  Returns the per-lane radiance
     sums as V3 of (N,) float32, plus the per-lane work count (int32: loop
     passes in which the lane's path was alive) when ``want_work``.  With
-    ``has_dof`` camera rays start on the defocus disk of ``camera_consts``.
-    An image scene needs a texture LUT: without one it raises, since the
-    kernel reads no atlas (``trace_paths_regen`` sends such scenes to
-    ``ops/bounce.py:bounce_regen``)."""
+    ``has_dof`` camera rays start on the defocus disk of ``camera_consts``;
+    ``rr_start`` and ``clamp`` are Russian roulette's first bounce and the
+    indirect clamp (0: off).  An image scene needs a texture LUT: without
+    one it raises, since the kernel reads no atlas (``trace_paths_regen``
+    sends such scenes to ``ops/bounce.py:bounce_regen``)."""
     kw = dict(camera_consts=camera_consts, sampler=sampler, width=width, height=height,
-              spp=spp, stride=stride, max_depth=max_depth, has_dof=has_dof)
+              spp=spp, stride=stride, max_depth=max_depth, has_dof=has_dof,
+              rr_start=rr_start, clamp=clamp)
     if px.device.type == "cpu":
         _check_supported(scene)
         return render_fused_reference(scene, px, py, s0, s1, seed, t_min,
                                       want_work=want_work, **kw)
-    rad, work, _, walk = _launch(scene, px, py, s0, s1, seed, t_min, 0, want_work, **kw)
+    flags, kw["rr_start"], kw["clamp"] = estimator_flags(scene, rr_start, clamp)
+    rad, work, _, walk = _launch(scene, px, py, s0, s1, seed, t_min, flags, want_work, **kw)
     render_fused.launches[walk] += 1
+    render_fused.estimator_launches += bool(flags)
     if want_work:
         return rad, work
     return rad
 
 
 render_fused.launches = dict.fromkeys(WALKS, 0)
+render_fused.estimator_launches = 0
 
 
 def render_fused_variant(
@@ -375,7 +422,10 @@ def render_fused_variant(
     if not flags:
         raise ValueError("render_fused_variant needs profile or loop_sobol; "
                          "render_fused launches the default kernel")
-    rad, work, prof, walk = _launch(scene, px, py, s0, s1, seed, t_min, flags, True, **kw)
+    est, kw["rr_start"], kw["clamp"] = estimator_flags(
+        scene, kw.get("rr_start", 0), kw.get("clamp", 0.0))
+    rad, work, prof, walk = _launch(scene, px, py, s0, s1, seed, t_min, flags | est, True,
+                                    **kw)
     render_fused_variant.launches[walk] += 1
     return rad, work, prof
 
@@ -393,7 +443,7 @@ def _check_supported(scene):
 
 
 def _launch(scene, px, py, s0, s1, seed, t_min, flags, want_work, *, camera_consts,
-            sampler, width, height, spp, stride, max_depth, has_dof):
+            sampler, width, height, spp, stride, max_depth, has_dof, rr_start=0, clamp=0.0):
     """One launch of the render kernel's instantiation for ``flags``;
     returns (radiance, work or None, profile or None, walk)."""
     _check_supported(scene)
@@ -407,21 +457,21 @@ def _launch(scene, px, py, s0, s1, seed, t_min, flags, want_work, *, camera_cons
         raise ValueError(f"scene is on {scene.device}, lanes on {device}")
 
     lib = _build.load_library()
+    sample_end = launch_sample_end(s1)
     ints, floats = launch_params(
         scene, seed, t_min, camera_consts, sampler, width, height, spp,
-        stride, max_depth, has_dof,
+        stride, max_depth, has_dof, sample_end, rr_start, clamp,
     )
-    tables, _keep = launch_tables(scene, sampler, width, height, spp)
+    tables, _keep = launch_tables(scene, sampler, width, height, sample_end)
     trace_ints, trace_ptrs, _tables = trace_args(scene)
     dims = texels = None
     if scene.has_image_textures:
         dims, texels = image_args(scene)
     shade_rows = scene.shade_rows.contiguous()
     sobol = sobol_table(device, sobol_log2_scale(width, height))
-    smem = 0 if flags & FLAG_LOOP_SOBOL else sobol_smem_bytes(sampler, spp)
+    smem = 0 if flags & FLAG_LOOP_SOBOL else sobol_smem_bytes(sampler, sample_end)
     walk, code, cap, queue = walk_args(scene, n, smem)
-    if flags and walk not in VARIANT_WALKS:
-        raise ValueError(f"no measurement variant for the {walk} walk; one of {VARIANT_WALKS}")
+    check_flags(walk, flags)
     rad = torch.empty((3, n), dtype=real, device=device)
     work = torch.empty((n,), dtype=torch.int32, device=device) if want_work else None
     prof = (torch.empty((PROF_COLS, n), dtype=torch.int64, device=device)

@@ -33,16 +33,29 @@ tree, in the walk that ``ZWRT_TRAV`` names at each call, as the kernels'
 ``trace_closest<WALK>``); camera rays start on the defocus disk when the
 camera has depth of field.  All randomness is content-addressed by
 (seed, ray id, site): bounce d draws at sites 8 + 4d + k
-(k = 0 scatter, 1 light mixture, 2 gaussian triple).
+(k = 0 scatter, 1 light mixture, 2 gaussian triple, 3 Russian roulette).
+
+Two estimator options, both off by default (the reference's semantics),
+follow the JAX package's kernels (``ops/pallas_bounce.py:_bounce_core``)
+and their gate (``_base_cfg``: off on an image scene without a texture
+LUT; ``estimator_options``):
+
+  * Russian roulette from bounce ``rr_start`` on: a live path continues
+    with p = clamp(max(incoming throughput), RR_P_MIN, 1) against the
+    site-3 draw, and its throughput carries 1 / p;
+  * the indirect clamp: a contribution landed at bounce d >= 1 (the
+    background at a miss, emission at a hit) is scaled so that its
+    luminance is at most ``clamp``.
 """
 
 from __future__ import annotations
 
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
-from ..dtypes import INF, T_MIN, real
+from ..dtypes import INF, LUM_B, LUM_G, LUM_R, T_MIN, real
 from ..materials import schlick_reflectance, scattering_pdf
 from ..math import v3
 from ..math.v3 import V3
@@ -87,6 +100,24 @@ def texture_rgb(scene: CompiledScene, det):
     return V3.where(img_id >= 0, img_rgb, rgb), img_id
 
 
+def estimator_options(scene: CompiledScene, rr_start, clamp):
+    """(rr_start, clamp) as the kernels apply them: both off (0, 0.0) on
+    an image scene without a texture LUT, as the JAX kernels' config gates
+    them (pallas_bounce.py:_base_cfg); ``clamp`` as its float32 value."""
+    if scene.has_image_textures and not scene.tex_lut_dims:
+        return 0, 0.0
+    return int(rr_start), float(np.float32(clamp))
+
+
+def _clamp_contrib(c: V3, depth, clamp: float) -> V3:
+    """A radiance contribution landed at bounce ``depth``, scaled where
+    depth >= 1 so that its luminance is at most ``clamp``."""
+    lum = LUM_R * c.x + LUM_G * c.y + LUM_B * c.z
+    scale = torch.where((depth >= 1) & (lum > clamp),
+                        clamp / torch.clamp(lum, min=1e-20), 1.0)
+    return c * scale
+
+
 def _count_bounce(alive, missed, hitmask, hit, det, img_id):
     workcount.add("bounce", alive.sum())
     workcount.add("miss", missed.sum())
@@ -104,13 +135,15 @@ def _count_bounce(alive, missed, hitmask, hit, det, img_id):
 def bounce(
     scene: CompiledScene, seed, t_min, depth: torch.Tensor,
     origin: V3, direction: V3, time, ray_id, throughput: V3, radiance: V3,
-    alive: torch.Tensor,
+    alive: torch.Tensor, rr_start: int = 0, clamp: float = 0.0,
 ):
     """One masked integrator bounce for every lane: the plain version of
     the bounce kernel's one-bounce mode.  ``depth`` is each lane's bounce
-    index.  Returns (origin', direction', throughput', radiance',
-    survives)."""
+    index; ``rr_start`` and ``clamp`` the estimator options, gated by
+    ``estimator_options``.  Returns (origin', direction', throughput',
+    radiance', survives)."""
     bounce.calls += 1
+    rr_start, clamp = estimator_options(scene, rr_start, clamp)
     n = origin.shape[0]
     dev = origin.x.device
     site = BOUNCE_BASE + depth.to(torch.int64) * SITES_PER_BOUNCE
@@ -119,6 +152,8 @@ def bounce(
         u4, u5, u6, _ = hashrng.uniform4(seed, ray_id, site + 1)
     if scene.needs_gauss:
         gauss = hashrng.gauss3(seed, ray_id, site + 2)
+    if rr_start:
+        u_rr = hashrng.uniform1(seed, ray_id, site + 3)
 
     hit = closest_hit(scene, origin, direction, time, t_min, INF, active=alive)
     det = shade_attrs(scene, hit, origin, direction, time)
@@ -127,7 +162,9 @@ def bounce(
     hitmask = alive & hit_any
     missed = alive & ~hit_any
     zeros = V3.zeros((n,), dev)
-    radiance = radiance + V3.where(missed, throughput * scene.background, zeros)
+    contrib = ((lambda c: _clamp_contrib(c, depth, clamp)) if clamp
+               else (lambda c: c))
+    radiance = radiance + V3.where(missed, contrib(throughput * scene.background), zeros)
 
     mat_type = det.mat_type
     tex_rgb, img_id = texture_rgb(scene, det)
@@ -137,7 +174,7 @@ def bounce(
     # ---- emission ----
     is_emissive = mat_type == MAT_DIFFUSE_LIGHT
     emits = hitmask & is_emissive & det.front
-    radiance = V3.where(emits, radiance + throughput * tex_rgb, radiance)
+    radiance = V3.where(emits, radiance + contrib(throughput * tex_rgb), radiance)
 
     # ---- metal ----
     reflected = v3.reflect(direction, det.normal)
@@ -198,9 +235,19 @@ def bounce(
     mult = V3.where(is_metal, det.rgb, V3.where(is_diel, one, diffuse_mult))
 
     survives = hitmask & ~is_emissive & ~(is_metal & ~metal_ok)
+    incoming = throughput
     throughput = V3.where(survives, throughput * mult, throughput)
     nonzero = (throughput.x != 0.0) | (throughput.y != 0.0) | (throughput.z != 0.0)
     survives = survives & nonzero
+    if rr_start:
+        # p from the incoming throughput; survivors carry 1 / p
+        p_rr = torch.clamp(
+            torch.maximum(incoming.x, torch.maximum(incoming.y, incoming.z)),
+            hashrng.RR_P_MIN, 1.0,
+        )
+        apply_rr = alive & (depth >= rr_start)
+        survives = survives & ~(apply_rr & (u_rr >= p_rr))
+        throughput = throughput * torch.where(apply_rr, 1.0 / p_rr, 1.0)
     return (
         V3.where(hitmask, det.point, origin),
         V3.where(hitmask, new_dir, direction),
@@ -254,7 +301,7 @@ def initial_regen_state(first_sample: torch.Tensor, stride: int) -> RegenState:
 def _drain(
     scene: CompiledScene, st: RegenState, px, py, limit, seed, t_min, *,
     camera_consts, sampler, width: int, height: int, spp: int, stride: int,
-    max_depth: int, has_dof: bool,
+    max_depth: int, has_dof: bool, rr_start: int = 0, clamp: float = 0.0,
 ) -> RegenState:
     """Run every lane until its window is used up: respawn, work, bounce."""
     cam = camera_params_from_consts(camera_consts)
@@ -290,7 +337,7 @@ def _drain(
 
         origin, direction, throughput, radiance, survives = bounce(
             scene, seed, t_min, depth, origin, direction, time, ray_id,
-            throughput, radiance, alive,
+            throughput, radiance, alive, rr_start, clamp,
         )
         depth = depth + 1
         alive = survives & (depth < max_depth)
@@ -307,6 +354,7 @@ def render_fused_reference(
     seed: int, t_min: float, *,
     camera_consts, sampler, width: int, height: int, spp: int, stride: int,
     max_depth: int, has_dof: bool, want_work: bool = False,
+    rr_start: int = 0, clamp: float = 0.0,
 ):
     """Plain PyTorch version of the fused render kernel.  Per lane, renders
     samples s0, s0 + stride, ... below s1 of pixel (px, py) and returns the
@@ -317,7 +365,7 @@ def render_fused_reference(
         scene, initial_regen_state(s0, stride), px, py, s1, seed, t_min,
         camera_consts=camera_consts, sampler=sampler, width=width,
         height=height, spp=spp, stride=stride, max_depth=max_depth,
-        has_dof=has_dof,
+        has_dof=has_dof, rr_start=rr_start, clamp=clamp,
     )
     if want_work:
         return st.radiance, st.work
@@ -330,7 +378,8 @@ render_fused_reference.calls = 0
 def bounce_regen_reference(
     scene: CompiledScene, state: RegenState, px, py, sample_limit, seed,
     t_min, *, camera_consts, sampler, width: int, height: int, spp: int,
-    stride: int, max_depth: int, has_dof: bool,
+    stride: int, max_depth: int, has_dof: bool, rr_start: int = 0,
+    clamp: float = 0.0,
 ) -> RegenState:
     """Plain PyTorch version of the bounce kernel's regenerating mode: from
     ``state``, drains every lane's samples below ``sample_limit``
@@ -341,7 +390,7 @@ def bounce_regen_reference(
         scene, state, px, py, sample_limit, seed, t_min,
         camera_consts=camera_consts, sampler=sampler, width=width,
         height=height, spp=spp, stride=stride, max_depth=max_depth,
-        has_dof=has_dof,
+        has_dof=has_dof, rr_start=rr_start, clamp=clamp,
     )
 
 
@@ -351,7 +400,8 @@ bounce_regen_reference.calls = 0
 def trace_paths_regen(
     scene: CompiledScene, camera_consts, seed, px, py, first_sample,
     sample_limit, *, sampler, width: int, height: int, spp: int, stride: int,
-    max_depth: int, has_dof: bool, want_work: bool = False,
+    max_depth: int, has_dof: bool, want_work: bool = False, rr_start: int = 0,
+    clamp: float = 0.0,
 ):
     """Render each lane's samples first_sample, + stride, ... below
     sample_limit of pixel (px, py); lane tensors are (N,) int32.  Returns
@@ -359,14 +409,16 @@ def trace_paths_regen(
     ``want_work``).  Scenes the whole-render kernel takes
     (``supports_fused_render``: no images, or a texture LUT) go there; other
     image scenes take the bounce kernel's regenerating mode under the
-    driver loop, whose passes ``trace_paths_regen.passes`` counts."""
+    driver loop, whose passes ``trace_paths_regen.passes`` counts.
+    ``rr_start`` and ``clamp`` are the estimator options (module
+    docstring), off on the bounce kernel's atlas scenes."""
     from ..ops.bounce import bounce_regen, supports_fused_render
     from ..ops.fused_render import render_fused
 
     kw = dict(
         camera_consts=camera_consts, sampler=sampler, width=width,
         height=height, spp=spp, stride=stride, max_depth=max_depth,
-        has_dof=has_dof,
+        has_dof=has_dof, rr_start=rr_start, clamp=clamp,
     )
     if supports_fused_render(scene):
         return render_fused(

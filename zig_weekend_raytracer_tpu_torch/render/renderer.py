@@ -12,7 +12,18 @@ lanes follow a cached plan:
     holds lanes of similar cost;
   * tree scenes: pixels are ordered by the first hit of their sample-0
     camera ray (``_first_hit_probe``, through the closest-hit kernel), so
-    the threads of a warp start in the same part of the tree.
+    the threads of a warp start in the same part of the tree;
+  * with ``balance_min_spp`` set and reached: a two-pass balanced render,
+    an estimation pass whose work counts size a cost-proportional split
+    of each pixel's remaining samples over lanes (``build_balance_plan``).
+
+``ZWRT_NO_BALANCE``, ``ZWRT_NO_SORT`` and ``ZWRT_COHERENT=0`` opt out of
+the balanced, sorted and coherent plans, read at each render as the JAX
+package reads them (without the sorted or coherent plan the plain lane
+layout renders).  Every plan runs
+the same kernels: ``render_supersampled`` renders a k-times larger image
+and box-filters it, ``render/adaptive.py`` and ``render/progressive.py``
+hand them per-lane sample windows of their own.
 
 Lane sums are scatter-added into the band.  The content-addressed RNG makes
 the image invariant to how samples are assigned to lanes.  Profiler zones
@@ -24,6 +35,7 @@ from __future__ import annotations
 
 import dataclasses
 import logging
+import os
 import weakref
 from typing import Optional
 
@@ -32,6 +44,7 @@ import torch
 
 from ..dtypes import real
 from ..ops.closest_hit import closest_hit
+from ..ops.fused_render import THREADS
 from ..sampling.sampler import SamplerKind
 from ..scene import Scene
 from ..utils.profiler import named_zone
@@ -109,10 +122,12 @@ def _render_band_regen(
     scene: Scene, seed: int, band_y0: int, sample0: int, *,
     width: int, height: int, band_rows: int, s_par: int, spp: int,
     sample_limit: int, max_depth: int, sampler: SamplerKind, has_dof: bool,
-    cam_consts, want_work: bool = False,
+    cam_consts, want_work: bool = False, rr: int = 0, clamp: float = 0.0,
 ):
     """Regenerating band render: each of band_rows * width * s_par lanes
-    traces its pixel's samples {sample0 + k + j * s_par} < sample_limit.
+    traces its pixel's samples {sample0 + k + j * s_par} < sample_limit,
+    with Russian roulette from bounce ``rr`` and the indirect ``clamp``
+    (0: off).  ``spp`` is the render's total (the samplers' geometry).
     Returns the (band_rows, width, 3) radiance sum, plus the per-lane work
     counts (lane order) when ``want_work``."""
     cs = scene.compiled
@@ -127,6 +142,7 @@ def _render_band_regen(
             cs, cam_consts, seed, px.to(i32), py.to(i32), sidx.to(i32), limit,
             sampler=sampler, width=width, height=height, spp=spp, stride=s_par,
             max_depth=max_depth, has_dof=has_dof, want_work=want_work,
+            rr_start=rr, clamp=clamp,
         )
     radiance = out[0] if want_work else out
     fb = unflatten_radiance(
@@ -158,23 +174,79 @@ def _first_hit_probe(
 def _render_band_balanced(
     scene: Scene, seed: int, band_y0: int, px, py, s0, s1, *,
     width: int, height: int, band_rows: int, spp: int, max_depth: int,
-    sampler: SamplerKind, has_dof: bool, cam_consts,
+    sampler: SamplerKind, has_dof: bool, cam_consts, rr: int = 0, clamp: float = 0.0,
 ):
-    """Plan render: lanes carry explicit (pixel, sample-range) work items;
-    per-lane radiance sums are scatter-added into the band framebuffer.
-    Each (pixel, sample) pair belongs to one lane, so the sum is the same
+    """Plan render: lanes carry explicit (pixel, sample-range) work items
+    ((M,) int32 on the scene's device; s1 <= s0: a dead lane); per-lane
+    radiance sums are scatter-added into the band framebuffer.  Each
+    (pixel, sample) pair belongs to one lane, so the sum is the same
     whatever the lane order."""
     cs = scene.compiled
     with named_zone("rayColorLine"):
         radiance = trace_paths_regen(
             cs, cam_consts, seed, px, py, s0, s1, sampler=sampler, width=width,
             height=height, spp=spp, stride=1, max_depth=max_depth,
-            has_dof=has_dof,
+            has_dof=has_dof, rr_start=rr, clamp=clamp,
         )
     pixflat = ((py - band_y0) * width + px).to(torch.int64)
     fb = torch.zeros((band_rows * width, 3), dtype=real, device=cs.device)
     fb.index_add_(0, pixflat, radiance.to_array())
     return fb.reshape(band_rows, width, 3)
+
+
+def balance_lane_budget(band_rows: int, width: int, overprovision: float,
+                        blk: int = THREADS) -> int:
+    """Lanes of a balanced band: ``overprovision`` times its pixels,
+    rounded up to a multiple of ``blk`` (the render kernel's block; the
+    JAX package's is its wavefront block, rows * 128)."""
+    budget = int(overprovision * band_rows * width)
+    return -(-budget // blk) * blk
+
+
+def build_balance_plan(work_px: np.ndarray, band_y0: int, spp_est: int, spp: int,
+                       budget_lanes: int, tile):
+    """Profile-guided lane plan (the JAX package's, lane for lane): each
+    pixel's remaining samples [spp_est, spp) split over about
+    cost-proportional lane counts, so that every lane carries about equal
+    predicted work (cost x samples).  ``work_px`` (rows, width) is each
+    pixel's cost from the estimation pass.  Pixels in tile order, a pixel's
+    lanes adjacent.  Returns (px, py, s0, s1) int32 arrays of
+    ``budget_lanes``; surplus lanes are dead (s1 == s0 == 0)."""
+    rows, width = work_px.shape
+    lane_idx = tile_order_lane_index(width, rows, tile).reshape(-1)
+    order = np.argsort(lane_idx, kind="stable")
+
+    cost = np.maximum(work_px.reshape(-1).astype(np.float64), 1.0)[order]
+    ys = (np.repeat(np.arange(rows), width) + band_y0)[order]
+    xs = np.tile(np.arange(width), rows)[order]
+
+    n_pix = cost.size
+    r = spp - spp_est
+    extra = max(0, budget_lanes - n_pix)
+    share = extra * cost / cost.sum()
+    k = 1 + np.floor(share).astype(np.int64)
+    rem = budget_lanes - int(k.sum())
+    if rem > 0:
+        frac_order = np.argsort(-(share - np.floor(share)), kind="stable")
+        k[frac_order[:rem]] += 1
+    k = np.minimum(k, max(r, 1))  # never more lanes than samples
+
+    total = int(k.sum())
+    px = np.repeat(xs, k)
+    py = np.repeat(ys, k)
+    starts = np.cumsum(k) - k
+    j = np.arange(total) - np.repeat(starts, k)
+    kk = np.repeat(k, k)
+    s0 = spp_est + (j * r) // kk
+    s1 = spp_est + ((j + 1) * r) // kk
+
+    pad = budget_lanes - total
+    if pad:
+        px = np.concatenate([px, np.zeros(pad, np.int64)])
+        py = np.concatenate([py, np.full(pad, band_y0, np.int64)])
+        s0 = np.concatenate([s0, np.zeros(pad, np.int64)])
+        s1 = np.concatenate([s1, np.zeros(pad, np.int64)])
+    return tuple(a.astype(np.int32) for a in (px, py, s0, s1))
 
 
 @dataclasses.dataclass
@@ -191,14 +263,22 @@ class Renderer:
     max_rays_per_chunk: int = 1 << 21
     # Unused by the port (it has no XLA BVH path); kept for field parity.
     max_rays_per_chunk_bvh: int = 1 << 17
-    # Russian roulette and the indirect clamp are slice 5 (ROADMAP.md);
-    # only the reference semantics (0 = off) are accepted.
+    # Russian roulette from this bounce index (0 = off, the reference's
+    # semantics): from bounce d >= russian_roulette a path goes on with
+    # p = clamp(max(throughput), RR_P_MIN, 1) and carries 1 / p.  Ignored
+    # on image scenes without a texture LUT (render/integrator.py).
     russian_roulette: int = 0
+    # The indirect luminance clamp (0 = off): a contribution landed at
+    # bounce >= 1 is scaled to at most this luminance.  The same gate.
     clamp_indirect: float = 0.0
     # Minimum lanes in flight; beyond it fewer samples per pixel run in
     # parallel (s_par), each lane walking its pixel's samples in sequence.
     regen_min_wave: int = 1 << 17
-    # Two-pass profile-guided balancing is not ported (0 = off).
+    # Two-pass profile-guided balancing from this spp on (0 = off): an
+    # estimation pass (spp / 16 samples, which count in the image) measures
+    # each pixel's cost, then the rest of its samples are split over about
+    # cost-proportional lane counts, balance_overprovision times the
+    # pixels in all.  ZWRT_NO_BALANCE=1 turns it off.
     balance_min_spp: int = 0
     balance_overprovision: float = 1.3
     device: Optional[str] = None
@@ -210,15 +290,6 @@ class Renderer:
     _plan_cache_max_configs: int = 8
 
     def __post_init__(self):
-        if self.russian_roulette or self.clamp_indirect:
-            raise NotImplementedError(
-                "Russian roulette and the indirect clamp are slice 5 of the "
-                "port (ROADMAP.md)"
-            )
-        if self.balance_min_spp:
-            raise NotImplementedError(
-                "two-pass balanced rendering is not ported (ROADMAP.md)"
-            )
         if self.device is not None:
             dev = torch.device(self.device)
             if dev.type == "cuda" and not torch.cuda.is_available():
@@ -233,6 +304,38 @@ class Renderer:
         s_par = max(1, min(spp, -(-self.regen_min_wave // pixels)))
         band_rows = max(1, min(height, self.max_rays_per_chunk // (width * s_par)))
         return s_par, band_rows
+
+    def _estimator(self) -> dict:
+        """The estimator options as the band renders take them."""
+        return {"rr": self.russian_roulette, "clamp": self.clamp_indirect}
+
+    def _render_band_balanced_driver(
+        self, scene: Scene, seed: int, band_y0: int, rows_eff: int,
+        band_rows: int, width: int, height: int, spp: int, has_dof, cam_c,
+    ):
+        """Two-pass balanced band render: the estimation pass renders each
+        pixel's first spp_est samples (they count in the image) and
+        measures its cost; the balanced plan renders the rest."""
+        # clamped to spp: with spp <= 2 the estimation pass is the render
+        spp_est = min(spp, max(2, spp // 16))
+        tile = pick_tile(width, band_rows)
+        fb_est, work = _render_band_regen(
+            scene, seed, band_y0, 0, width=width, height=height,
+            band_rows=band_rows, s_par=1, spp=spp, sample_limit=spp_est,
+            max_depth=self.max_ray_bounce_depth, sampler=self.sampler,
+            has_dof=has_dof, cam_consts=cam_c, want_work=True, **self._estimator(),
+        )
+        lane_idx = tile_order_lane_index(width, band_rows, tile)
+        work_px = work.cpu().numpy()[lane_idx.reshape(-1)].reshape(band_rows, width)[:rows_eff]
+        budget = balance_lane_budget(band_rows, width, self.balance_overprovision)
+        plan = build_balance_plan(work_px, band_y0, spp_est, spp, budget, tile)
+        px, py, s0, s1 = (torch.as_tensor(a, device=scene.compiled.device) for a in plan)
+        out = _render_band_balanced(
+            scene, seed, band_y0, px, py, s0, s1, width=width, height=height,
+            band_rows=band_rows, spp=spp, max_depth=self.max_ray_bounce_depth,
+            sampler=self.sampler, has_dof=has_dof, cam_consts=cam_c, **self._estimator(),
+        )
+        return fb_est + out
 
     def _render_band_sorted_driver(
         self, scene: Scene, seed: int, band_y0: int, rows_eff: int,
@@ -256,7 +359,7 @@ class Renderer:
                 scene, seed, band_y0, 0, width=width, height=height,
                 band_rows=band_rows, s_par=1, spp=spp, sample_limit=spp,
                 max_depth=self.max_ray_bounce_depth, sampler=self.sampler,
-                has_dof=has_dof, cam_consts=cam_c, want_work=True,
+                has_dof=has_dof, cam_consts=cam_c, want_work=True, **self._estimator(),
             )
             while len(scene_cache) >= self._plan_cache_max_configs:
                 scene_cache.pop(next(iter(scene_cache)))
@@ -278,7 +381,7 @@ class Renderer:
         return _render_band_balanced(
             scene, seed, band_y0, px, py, s0, s1, width=width, height=height,
             band_rows=band_rows, spp=spp, max_depth=self.max_ray_bounce_depth,
-            sampler=self.sampler, has_dof=has_dof, cam_consts=cam_c,
+            sampler=self.sampler, has_dof=has_dof, cam_consts=cam_c, **self._estimator(),
         )
 
     def _render_band_coherent_driver(
@@ -327,8 +430,50 @@ class Renderer:
         return _render_band_balanced(
             scene, seed, band_y0, px, py, s0, s1, width=width, height=height,
             band_rows=band_rows, spp=spp, max_depth=self.max_ray_bounce_depth,
-            sampler=self.sampler, has_dof=has_dof, cam_consts=cam_c,
+            sampler=self.sampler, has_dof=has_dof, cam_consts=cam_c, **self._estimator(),
         )
+
+    def render_supersampled(self, scene: Scene, width: int, height: int,
+                            k: int = 2) -> torch.Tensor:
+        """Renders at (k * width, k * height) with spp / k^2 samples per
+        subpixel and box-filters to (height, width, 3) on the device: each
+        pixel still averages ``samples_per_pixel`` rays over its area, the
+        k^2 subpixels stratifying it (not bitwise ``render``: other sample
+        positions)."""
+        if k < 1:
+            raise ValueError(f"supersample factor must be >= 1, got {k}")
+        if k == 1:
+            return self.render_device(scene, width, height)
+        spp = self.samples_per_pixel
+        if spp % (k * k):
+            raise ValueError(
+                f"samples_per_pixel={spp} must be divisible by k^2={k * k} "
+                "for supersampled rendering (each subpixel renders "
+                "spp/k^2 samples)"
+            )
+        sub = dataclasses.replace(self, samples_per_pixel=spp // (k * k))
+        if self.sampler == SamplerKind.SOBOL:
+            # Sobol's pixel offsets lie in [0, 1) from pixel00 (the
+            # reference's raster convention), an anchor of half a pixel
+            # that scales with the resolution: shift the k-times grid by
+            # (k - 1) / 2 subpixels so that the k^2 subpixels tile each
+            # pixel's own area
+            s = (k - 1) / 2.0
+            shift = scene.camera.raster_shift
+            scene = dataclasses.replace(scene, camera=dataclasses.replace(
+                scene.camera, raster_shift=(shift[0] + s, shift[1] + s)))
+        fb = sub.render_device(scene, width * k, height * k)
+        return fb.reshape(height, k, width, k, 3).mean(dim=(1, 3))
+
+    def render_adaptive(self, scene: Scene, width: int, height: int, *,
+                        pilot_spp: int = 0, return_stats: bool = False):
+        """Variance-guided adaptive render at the same total sample budget
+        as ``render`` (render/adaptive.py); the averaged (H, W, 3) tensor
+        on the scene's device, plus a stats dict with ``return_stats``."""
+        from .adaptive import render_adaptive
+
+        return render_adaptive(self, scene, width, height, pilot_spp=pilot_spp,
+                               return_stats=return_stats)
 
     def render(self, scene: Scene, width: int, height: int) -> np.ndarray:
         """Renders and returns the linear-space framebuffer (H, W, 3) f32
@@ -361,13 +506,23 @@ class Renderer:
         n_bands = -(-height // band_rows)
         fb = torch.zeros((n_bands * band_rows, width, 3), dtype=real, device=cs.device)
         cam_c = camera_consts(scene.camera, width, height)
-        # s_par = 1: coherence-sorted lanes for tree scenes, cost-sorted
-        # lanes for brute scenes; otherwise the plain lane layout
+        # s_par = 1: the balanced plan when asked for, else coherence-sorted
+        # lanes for tree scenes and cost-sorted lanes for brute scenes,
+        # unless opted out; otherwise the plain lane layout
         tree = cs.has_sph_tree or cs.has_quad_tree
-        planned = self._render_band_coherent_driver if tree else self._render_band_sorted_driver
+        balance = (s_par == 1 and self.balance_min_spp > 0 and spp >= self.balance_min_spp
+                   and not os.environ.get("ZWRT_NO_BALANCE"))
+        if balance:
+            planned = self._render_band_balanced_driver
+        elif s_par == 1 and tree and os.environ.get("ZWRT_COHERENT", "1") not in ("", "0"):
+            planned = self._render_band_coherent_driver
+        elif s_par == 1 and not tree and not os.environ.get("ZWRT_NO_SORT"):
+            planned = self._render_band_sorted_driver
+        else:
+            planned = None
         for b in range(n_bands):
             y0 = b * band_rows
-            if s_par == 1:
+            if planned is not None:
                 out = planned(
                     scene, self.seed, y0, min(band_rows, height - y0),
                     band_rows, width, height, spp, has_dof, cam_c,
@@ -378,6 +533,7 @@ class Renderer:
                     band_rows=band_rows, s_par=s_par, spp=spp,
                     sample_limit=spp, max_depth=self.max_ray_bounce_depth,
                     sampler=self.sampler, has_dof=has_dof, cam_consts=cam_c,
+                    **self._estimator(),
                 )
             fb[y0 : y0 + band_rows] += out
         return fb[:height] / spp

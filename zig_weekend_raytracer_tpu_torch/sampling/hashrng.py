@@ -24,6 +24,11 @@ _ADD = 1013904223
 _D_INIT = 0x9E3779B9
 TWO_PI = 6.283185307179586
 
+# Russian roulette's survival floor (the JAX package's
+# sampling/hashrng.py:RR_P_MIN): p = clamp(max(throughput), RR_P_MIN, 1)
+# bounds a survivor's weight at 1 / RR_P_MIN.
+RR_P_MIN = 0.05
+
 
 def as_u32(v, like: torch.Tensor) -> torch.Tensor:
     """Int / tensor -> int64 tensor of u32 values, broadcast to ``like``."""
