@@ -215,13 +215,37 @@ Phases (any failure exits nonzero):
      render_supersampled(k=2); (e) russian_roulette=3 (the estimator
      instantiation launched), its bounces against rr = 0's; then the render
      kernel's estimator and default instantiations at the rr3 plan in 3
-     alternating pairs.
+     alternating pairs;
+ 25. the sharded paths (parallel/), each with its counts set to 0 just
+     before and read just after (the render or bounce kernel launched, no
+     plain version), Mpaths/s beside phase 3's: (a) render_sharded at
+     cornell 400x400@1024 d10 on make_mesh() (one card: bitwise phase 3's
+     framebuffer, both modes, first render and last) and on (cuda:0,)*4
+     (both modes within rtol 1e-5 / atol 1e-6 of phase 3's on >= 99.9% of
+     pixels), each region-gated; (b) render_sharded at cornell 32x32@8 d10
+     on (cuda:0,)*4 through the render kernel against the same call with
+     its plain version in the kernel's place on the card (bitwise), and on
+     (cpu,)*4 through the plain version, both modes, with phase 2's
+     tolerances per pixel, the pixels outside them the same as those of the
+     unsharded render on the card against the CPU; (c) balls 400x400@128 d10 rows on (cuda:0,)*4
+     (the tree walk) and rtw_final 400x400@64 d8 samples on (cuda:0,)*2 (the
+     bounce kernel), each within (a)'s tolerance of phases 7 and 11, and the
+     same shards at scene_regions.json's 200x200 configuration through its
+     region gate (phases 8 and 12's 200x200 gate);
+     (d) render_adaptive_sharded at cornell 400x400@1024, pilot 128, both
+     modes on (cuda:0,)*4: gated, 163,840,000 samples, and in samples mode
+     the sample map equal to render_adaptive's; (e) a progressive 4 x 256
+     render on (cuda:0,)*2 interrupted after two batches and resumed:
+     bitwise the uninterrupted one; (f) the CLI's --shard=samples at
+     cornell 200x200@64 d10, its PPM byte-equal to the in-process render.
 
 The record has one entry per kernel and mode: the render kernel on brute
-scenes (cornell, emissive), on tree scenes (balls) and with the texture LUT
-(rtw_final), the bounce kernel's one-bounce mode with the atlas and with
-the LUT (parity checks only: no main path runs it, so its launches are 0)
-and its regenerating mode (rtw_final), and the closest-hit kernel (its launches on the probe and
+scenes (cornell, emissive, and phase 25's cornell paths), on tree scenes
+(balls, and phase 25's balls rows) and with the texture LUT (rtw_final), the
+bounce kernel's one-bounce mode with the atlas and with the LUT (parity
+checks only: no main path runs it, so its launches are 0) and its
+regenerating mode (rtw_final, and phase 25's rtw_final samples), and the
+closest-hit kernel (its launches on the probe and
 the AOV passes; the ray sets, designs and AOV passes of phase 22); then one
 per walk other than the default of the render kernel (cond, rowqueue and
 spec on balls at span 2, uni with the LUT on rtw_final) and of the bounce
@@ -353,6 +377,11 @@ SOBOL_SPP, SOBOL_WINDOW = 64, 8
 # this share of pixels within rtol 1e-5 / atol 1e-6; the progressive batch
 PIXEL_RTOL, PIXEL_ATOL, PIXEL_AGREE = 1e-5, 1e-6, 0.999
 PROG_BATCH = 256
+# phase 25: the adaptive pilot (pick_pilot of 1024), the plain-version
+# parity renders' size, the CLI render's size
+ADAPTIVE_PILOT = 128
+SHARD_PARITY_W, SHARD_PARITY_SPP = 32, 8
+CLI_SHARD_W, CLI_SHARD_SPP = 200, 64
 # registers and spill bytes of the default walk's instantiations and of
 # the cond walk's, as this build gives them (the factored Sobol respawn and
 # the device light and image tables; the previous slice's cond walk:
@@ -2008,24 +2037,27 @@ def phase_estimator(zt, fused, tb, integrator, torch, scenes, card) -> dict:
     return {"checks": checks, "plain": plains[0], "one_bounce": one}
 
 
-def driver_check(tag, fb, fb_ref, ref) -> dict:
-    """A driver's framebuffer: finite, (H, W, 3), the cornell region gate,
-    and against the sorted driver's render ``fb_ref`` (None: not compared)
-    within PIXEL_RTOL / PIXEL_ATOL on >= PIXEL_AGREE of the pixels."""
+def driver_check(tag, fb, fb_ref, ref, ref_name="the sorted driver's render") -> dict:
+    """A driver's framebuffer: finite, (H, W, 3), the region gate of ``ref``
+    (None: not gated), and against ``fb_ref`` (the sorted driver's render
+    unless named; None: not compared) within PIXEL_RTOL / PIXEL_ATOL on >=
+    PIXEL_AGREE of the pixels."""
     import numpy as np
 
-    if tuple(fb.shape) != (H, W, 3):
-        raise AssertionError(f"{tag}: framebuffer shape {tuple(fb.shape)}")
-    out = {"check": tag, "region_gate": gate(tag, fb, ref["mean"], ref["region_means"])}
+    if tuple(fb.shape) != (H, W, 3) or not bool(fb.isfinite().all()):
+        raise AssertionError(f"{tag}: framebuffer shape {tuple(fb.shape)} or not finite")
+    out = {"check": tag}
+    if ref is not None:
+        out["region_gate"] = gate(tag, fb, ref["mean"], ref["region_means"])
     if fb_ref is not None:
         a, b = fb.cpu().numpy(), fb_ref.cpu().numpy()
         close = np.isclose(a, b, rtol=PIXEL_RTOL, atol=PIXEL_ATOL).all(-1).mean()
         out["agree"] = float(close)
         out["max_abs_err"] = float(np.abs(a - b).max())
-        log(f"{tag}: {close:.6f} of pixels within rtol {PIXEL_RTOL}/atol {PIXEL_ATOL} of the "
-            f"sorted driver's render, max |diff| {out['max_abs_err']:.3e}")
+        log(f"{tag}: {close:.6f} of pixels within rtol {PIXEL_RTOL}/atol {PIXEL_ATOL} of "
+            f"{ref_name}, max |diff| {out['max_abs_err']:.3e}")
         if close < PIXEL_AGREE:
-            raise AssertionError(f"{tag}: differs from the sorted driver's render")
+            raise AssertionError(f"{tag}: differs from {ref_name}")
     return out
 
 
@@ -2160,6 +2192,300 @@ def phase_drivers(zt, fused, tb, integrator, ch, ttrace, torch, scenes, fb_sorte
                                "work_ratio": ratio, **driver_check("russian_roulette=3", fb,
                                                                    None, ref)}
     out["rr_renderer"] = r
+    return out
+
+
+def sharded_parity(tag, fb_k, fb_p) -> dict:
+    """A sharded render through the kernels against the same call through
+    the plain versions, per pixel with phase 2's tolerances: radiance within
+    rtol 1e-4 / atol 1e-5 on >= 99% of pixels, means within 1e-4
+    relative."""
+    import numpy as np
+
+    a, b = fb_k.cpu().numpy(), fb_p.cpu().numpy()
+    n = a.shape[0] * a.shape[1]
+    bad = int((~np.isclose(a, b, rtol=1e-4, atol=1e-5).all(-1)).sum())
+    mean_rel = abs(float(a.mean()) - float(b.mean())) / max(abs(float(b.mean())), 1e-12)
+    max_abs = float(np.abs(a - b).max())
+    log(f"parity {tag}: {n} pixels, radiance outside rtol 1e-4/atol 1e-5 on {bad}, mean rel "
+        f"diff {mean_rel:.3e}, max |diff| {max_abs:.3e}")
+    if not np.isfinite(a).all() or bad > 0.01 * n or mean_rel > 1e-4:
+        raise AssertionError(f"parity {tag}: the kernels disagree with their plain versions")
+    return {"check": tag, "pixels": n, "rad_diff": bad, "mean_rel": mean_rel,
+            "max_abs_err": max_abs}
+
+
+def plain_in_place(integrator):
+    """A stand-in for the render kernel's wrapper that runs its plain
+    version on the tensors it is given (on the card), counting no launch."""
+    def plain(scene, px, py, s0, s1, seed, t_min, **kw):
+        return integrator.render_fused_reference(scene, px, py, s0, s1, seed, t_min, **kw)
+    return plain
+
+
+def cpu_outliers(fb_a, fb_b) -> list:
+    """(x, y, max |diff|) of the pixels of two framebuffers outside phase
+    2's rtol 1e-4 / atol 1e-5, in image order."""
+    import numpy as np
+
+    a, b = fb_a.cpu().numpy(), fb_b.cpu().numpy()
+    ys, xs = np.nonzero(~np.isclose(a, b, rtol=1e-4, atol=1e-5).all(-1))
+    return [(int(x), int(y), float(np.abs(a[y, x] - b[y, x]).max())) for y, x in zip(ys, xs)]
+
+
+def phase_sharded(zt, fused, tb, integrator, ch, ttrace, torch, scenes, fbs, mpaths_main,
+                  card) -> dict:
+    """Phase 25: the sharded paths (parallel/), each with its counts set to 0
+    just before and read just after (the render or bounce kernel launched,
+    no plain version): (a) cornell 400x400@1024 d10 on make_mesh() and on
+    (cuda:0,)*4, both modes, one plan-building render and three timed; (b)
+    render_sharded through the render kernel against its plain version in
+    the kernel's place on the card (bitwise) and on (cpu,)*4, beside the
+    unsharded render card against CPU; (c) balls rows on (cuda:0,)*4,
+    rtw_final samples on (cuda:0,)*2; (d) render_adaptive_sharded, both
+    modes; (e) a sharded progressive render resumed; (f) the CLI's
+    --shard=samples."""
+    import dataclasses
+    import tempfile
+
+    import numpy as np
+
+    from zig_weekend_raytracer_tpu_torch import parallel
+    from zig_weekend_raytracer_tpu_torch.io.ppm import write_ppm
+    from zig_weekend_raytracer_tpu_torch.render.progressive import ProgressiveRenderer
+    from zig_weekend_raytracer_tpu_torch.scene import compiled_on
+
+    t_phase = time.perf_counter()
+    cornell, balls, rtw = scenes["cornell"], scenes["balls"], scenes["rtw"]
+    fb_main, fb_balls, fb_rtw = fbs
+    with open(GOLDEN) as f:
+        ref = json.load(f)
+    with open(SCENE_REGIONS) as f:
+        regions = json.load(f)["scenes"]
+    cards = parallel.make_mesh()
+    rep = lambda n: (torch.device("cuda", 0),) * n
+    modes = ("samples", "rows")
+    out = {"mesh": [str(d) for d in cards], "launches": {"K1 brute": {}, "K1 tree": {},
+                                                         "K2 regen": {}}}
+
+    def counted(tag, kernel, fn, record=True):
+        """fn() with the counts set to 0 before and read after: the kernel
+        launched, no plain version ran; its launches recorded under
+        ``kernel`` unless the run is a comparison's."""
+        reset_counts(fused, integrator, ch, ttrace, tb)
+        res = fn()
+        torch.cuda.synchronize()
+        host = tb.bounce_regen if kernel == "K2 regen" else fused.render_fused
+        n_k, n_plain = launched(host), plain_calls(integrator, ttrace)
+        log(f"{tag}: {kernel} launches {n_k}, plain-version calls {n_plain}")
+        if n_k < 1 or n_plain:
+            raise AssertionError(f"{tag}: the path did not run through its kernels alone")
+        if record:
+            out["launches"][kernel][tag] = n_k
+        return res
+
+    def timed(tag, fn, paths, kernel="K1 brute"):
+        """One plan-building run and three timed; (first result, last
+        result, record)."""
+        def runs():
+            times, res = [], []
+            for _ in range(4):
+                t0 = time.perf_counter()
+                res.append(fn())
+                torch.cuda.synchronize()
+                times.append(time.perf_counter() - t0)
+            return times, res
+        times, res = counted(tag, kernel, runs)
+        best = min(times[1:])
+        mp = paths / best / 1e6
+        log(f"{tag}: first {times[0]:.4f} s, then {[round(t, 4) for t in times[1:]]} s, best "
+            f"{best:.4f} s = {mp:.2f} Mpaths/s (phase 3, unsharded: {mpaths_main:.2f}; {card})")
+        return res[0], res[-1], {"render_s": times, "best_s": best, "mpaths_per_s": mp,
+                                 "launches": out["launches"][kernel][tag]}
+
+    # (a) cornell at the main path's configuration: the card(s), then four
+    # shards on card 0
+    for label, mesh in (("make_mesh()", cards), ("(cuda:0,)*4", rep(4))):
+        for shard in modes:
+            tag = f"sharded {shard} {label} cornell {W}x{H}@{SPP} d{DEPTH}"
+            first, fb, rec = timed(tag, lambda: parallel.render_sharded(
+                cornell, W, H, SPP, DEPTH, mesh=mesh, shard=shard), W * H * SPP)
+            if len(mesh) == 1:
+                same = bool(torch.equal(first, fb_main) and torch.equal(fb, fb_main))
+                log(f"{tag}: first and last render bitwise phase 3's framebuffer: {same}")
+                if not same:
+                    raise AssertionError(f"{tag}: a one-device mesh is not the unsharded render")
+                rec["bitwise_phase3"] = same
+            out[tag] = {**rec, **driver_check(tag, fb, fb_main, ref, "phase 3's render")}
+
+    # (c) balls rows through the tree walk, rtw_final samples through the
+    # bounce kernel: each against its unsharded main path (phases 7, 11),
+    # and region-gated at scene_regions.json's own configuration (200x200,
+    # the gate of phases 8 and 12: its reference holds too few samples per
+    # region to gate a 400x400 render of other sample positions)
+    for name, scene, spp, depth, shard, n, fb_ref, kernel in (
+            ("balls", balls, BALLS_SPP, DEPTH, "rows", 4, fb_balls, "K1 tree"),
+            ("rtw_final", rtw, RTW_SPP, RTW_DEPTH, "samples", 2, fb_rtw, "K2 regen")):
+        tag = f"sharded {shard} (cuda:0,)*{n} {name} {W}x{H}@{spp} d{depth}"
+        _, fb, rec = timed(tag, lambda: parallel.render_sharded(
+            scene, W, H, spp, depth, mesh=rep(n), shard=shard), W * H * spp, kernel)
+        reg = regions[name]
+        tag_200 = (f"sharded {shard} (cuda:0,)*{n} {name} {reg['width']}x{reg['height']}"
+                   f"@{reg['spp']} d{reg['depth']}")
+        fb_200 = counted(tag_200, kernel, lambda: parallel.render_sharded(
+            scene, reg["width"], reg["height"], reg["spp"], reg["depth"], mesh=rep(n),
+            shard=shard))
+        out[tag] = {**rec, **driver_check(tag, fb, fb_ref, None, f"the unsharded {name} render"),
+                    "region_gate_200": gate(tag_200, fb_200, reg["mean"], reg["region_means"])}
+
+    # (d) adaptive, pilot 128: the sample map of samples mode is the
+    # single-device plan's
+    single = zt.render.Renderer(samples_per_pixel=SPP, max_ray_bounce_depth=DEPTH)
+    want_counts = single.render_adaptive(cornell, W, H, pilot_spp=ADAPTIVE_PILOT,
+                                         return_stats=True)[1]["n_samples"]
+    for shard in modes:
+        tag = f"sharded adaptive {shard} (cuda:0,)*4 cornell {W}x{H}@{SPP} d{DEPTH}"
+        _, (fb, stats), rec = timed(tag, lambda: parallel.render_adaptive_sharded(
+            cornell, W, H, SPP, DEPTH, mesh=rep(4), shard=shard, pilot_spp=ADAPTIVE_PILOT,
+            return_stats=True), W * H * SPP)
+        total = int(stats["n_samples"].sum())
+        equal = bool(np.array_equal(stats["n_samples"], want_counts))
+        log(f"{tag}: pilot {stats['pilot']}, samples {total} (budget {W * H * SPP}); sample map "
+            f"equal to the single-device render_adaptive's: {equal}")
+        if total != W * H * SPP or stats["pilot"] != ADAPTIVE_PILOT:
+            raise AssertionError(f"{tag}: {total} samples, not the budget")
+        if shard == "samples" and not equal:
+            raise AssertionError(f"{tag}: the sample map is not the single-device plan's")
+        out[tag] = {**rec, "samples": total, "map_equals_single": equal,
+                    **driver_check(tag, fb, None, ref)}
+
+    # (e) progressive in 256-sample batches on two shards, interrupted after
+    # two and resumed
+    class Stop(Exception):
+        pass
+
+    def stop_after_two(done, _):
+        if done == 2 * PROG_BATCH:
+            raise Stop
+
+    mk = lambda: zt.render.Renderer(samples_per_pixel=SPP, max_ray_bounce_depth=DEPTH)
+    tag = f"sharded progressive samples (cuda:0,)*2 cornell {W}x{H}@{SPP} d{DEPTH}"
+    with tempfile.TemporaryDirectory() as tmp:
+        def progressive():
+            t0 = time.perf_counter()
+            whole = ProgressiveRenderer(mk(), os.path.join(tmp, "whole.npz"), shard="samples",
+                                        mesh=rep(2)).render(cornell, W, H, batch_spp=PROG_BATCH)
+            whole_s = time.perf_counter() - t0
+            ck = os.path.join(tmp, "ck.npz")
+            try:
+                ProgressiveRenderer(mk(), ck, shard="samples", mesh=rep(2)).render(
+                    cornell, W, H, batch_spp=PROG_BATCH, on_batch=stop_after_two)
+                raise AssertionError(f"{tag}: the interrupt did not happen")
+            except Stop:
+                pass
+            at_stop = int(np.load(ck)["samples_done"])
+            resumed = ProgressiveRenderer(mk(), ck, shard="samples", mesh=rep(2)).render(
+                cornell, W, H, batch_spp=PROG_BATCH)
+            return whole, whole_s, at_stop, resumed
+        whole, whole_s, at_stop, resumed = counted(tag, "K1 brute", progressive)
+    bitwise = bool(np.array_equal(whole, resumed))
+    log(f"{tag}: checkpoint at {at_stop} spp, resumed render bitwise the uninterrupted one: "
+        f"{bitwise}; uninterrupted {whole_s:.4f} s = {W * H * SPP / whole_s / 1e6:.2f} "
+        f"Mpaths/s ({card})")
+    if at_stop != 2 * PROG_BATCH or not bitwise:
+        raise AssertionError(f"{tag}: the resumed render is not the uninterrupted one")
+    out[tag] = {"resume_bitwise": bitwise, "checkpoint_spp": at_stop, "render_s": whole_s,
+                "mpaths_per_s": W * H * SPP / whole_s / 1e6,
+                **driver_check(tag, torch.as_tensor(whole), fb_main, ref, "phase 3's render")}
+
+    # (f) the CLI's --shard=samples, started here; (b) runs meanwhile on the
+    # CPU, then the CLI's PPM against the in-process render
+    with tempfile.TemporaryDirectory() as tmp:
+        cli_out = os.path.join(tmp, "shard.ppm")
+        t0 = time.perf_counter()
+        proc = start_cli([f"--image_width={CLI_SHARD_W}", f"--image_height={CLI_SHARD_W}",
+                          f"--samples_per_pixel={CLI_SHARD_SPP}",
+                          f"--ray_bounce_max_depth={DEPTH}", "--scene=cornell_box",
+                          "--shard=samples", f"--image_out_path={cli_out}", "--stats=true"])
+        try:
+            # (b) the kernels on per-shard windows against their plain
+            # versions: the same call with the plain version in the
+            # kernel's place on the card (bitwise, as phase 2), and on four
+            # CPU entries (phase 2's tolerances), beside the witness of the
+            # CPU's share: the unsharded render, card against CPU
+            pw = SHARD_PARITY_W
+            single = zt.render.Renderer(samples_per_pixel=SHARD_PARITY_SPP,
+                                        max_ray_bounce_depth=DEPTH)
+            fb_single_k = counted("unsharded cornell (parity witness)", "K1 brute",
+                                  lambda: single.render_device(cornell, pw, pw), record=False)
+            cornell_cpu = dataclasses.replace(
+                cornell, compiled=compiled_on(cornell.compiled, torch.device("cpu")))
+            fb_single_p = single.render_device(cornell_cpu, pw, pw)
+            witness = cpu_outliers(fb_single_k, fb_single_p)
+            log(f"witness: the unsharded cornell {pw}x{pw}@{SHARD_PARITY_SPP} d{DEPTH}, card "
+                f"against CPU, outside rtol 1e-4/atol 1e-5 at (x, y, max |diff|) "
+                f"{witness}")
+            out["parity"], out["parity_cpu"] = [], []
+            for shard in modes:
+                tag = (f"render_sharded {shard} (cuda:0,)*4 cornell {pw}x{pw} "
+                       f"spp{SHARD_PARITY_SPP} d{DEPTH}")
+                call = lambda mesh: parallel.render_sharded(
+                    cornell, pw, pw, SHARD_PARITY_SPP, DEPTH, mesh=mesh, shard=shard)
+                fb_k = counted(tag + " (kernels)", "K1 brute", lambda: call(rep(4)), record=False)
+                kernel = fused.render_fused
+                reset_counts(fused, integrator, ch, ttrace, tb)
+                fused.render_fused = plain_in_place(integrator)
+                try:
+                    fb_pc = call(rep(4))
+                finally:
+                    fused.render_fused = kernel
+                torch.cuda.synchronize()
+                if integrator.render_fused_reference.calls < 1 or launched(kernel):
+                    raise AssertionError(f"{tag}: the plain version did not run on the card")
+                check = sharded_parity(tag + " vs the plain version on the card", fb_k, fb_pc)
+                bitwise = bool(torch.equal(fb_k, fb_pc))
+                log(f"parity {tag} vs the plain version on the card: bitwise {bitwise}")
+                if not bitwise:
+                    raise AssertionError(f"{tag}: the kernel is not its plain version on the card")
+                out["parity"].append({**check, "bitwise": bitwise})
+                reset_counts(fused, integrator, ch, ttrace, tb)
+                fb_p = call((torch.device("cpu"),) * 4)
+                if plain_calls(integrator, ttrace) < 1 or launched(fused.render_fused):
+                    raise AssertionError(f"{tag}: the CPU mesh did not run the plain versions")
+                check_cpu = sharded_parity(tag + " vs (cpu,)*4", fb_k, fb_p)
+                outliers = cpu_outliers(fb_k, fb_p)
+                same = [xy[:2] for xy in outliers] == [xy[:2] for xy in witness]
+                log(f"parity {tag} vs (cpu,)*4: outside at {outliers}; the witness's pixels: "
+                    f"{same}")
+                if not same:
+                    raise AssertionError(f"{tag}: the card and the CPU differ on other pixels "
+                                         "than the unsharded render's")
+                out["parity_cpu"].append({**check_cpu, "outliers": outliers,
+                                          "witness_outliers": witness})
+            done, wall = finish_cli(proc, t0)
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        tag = (f"cli --shard=samples cornell {CLI_SHARD_W}x{CLI_SHARD_W} spp{CLI_SHARD_SPP} "
+               f"d{DEPTH} on {len(cards)} card(s)")
+        if done.returncode != 0:
+            raise AssertionError(f"{tag}: exit {done.returncode}\n{done.stderr[-2000:]}")
+        want = counted(tag + " (in process)", "K1 brute", lambda: parallel.render_sharded(
+            cornell, CLI_SHARD_W, CLI_SHARD_W, CLI_SHARD_SPP, DEPTH, mesh=cards,
+            shard="samples"))
+        ref_ppm = os.path.join(tmp, "want.ppm")
+        write_ppm(ref_ppm, want.cpu().numpy())
+        with open(cli_out, "rb") as a, open(ref_ppm, "rb") as b:
+            same = a.read() == b.read()
+        stats = [ln for ln in done.stdout.splitlines() if ln.startswith("stats: ")]
+        log(f"{tag}: exit 0 in {wall:.1f} s, {stats!r}; PPM byte-equal to the in-process "
+            f"render: {same}")
+        if not same:
+            raise AssertionError(f"{tag}: the CLI's PPM differs from the in-process render's")
+        out["cli"] = {"check": tag, "wall_s": wall, "byte_equal": same, "stats": stats}
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"phase 25: {out['seconds']:.1f} s")
     return out
 
 
@@ -2707,6 +3033,14 @@ def main() -> int:
     est_one = est["one_bounce"]
     est_launches = drivers["russian_roulette"]["k1_estimator"]
 
+    # ---- 25. the sharded paths ----
+    phase("25")
+    sharded = phase_sharded(zt, fused, tb, integrator, ch, ttrace, torch,
+                            {"cornell": cornell, "balls": balls, "rtw": rtw}, (fb, b_fb, r_fb),
+                            mpaths, card)
+    checks += sharded["parity"]
+    sh_launches = sharded["launches"]
+
     b_hit = hit_checks[1]
     k2_first = k2_one[0]
     k2_lut_first = k2_lut[0]
@@ -2767,16 +3101,19 @@ def main() -> int:
 
     record = {"kernels": [
         entry("fused_render_kernel (brute)", KERNEL_SOURCE, KERNEL_REPLACES,
-              f"fused_render_kernel<false, {DEFAULT_WALK}>", launches + e_k1,
-              {"cornell": launches, "emissive": e_k1}, checks, kernel_ms, plain_ms, k1_bound,
+              f"fused_render_kernel<false, {DEFAULT_WALK}>",
+              launches + e_k1 + sum(sh_launches["K1 brute"].values()),
+              {"cornell": launches, "emissive": e_k1, **sh_launches["K1 brute"]}, checks,
+              kernel_ms, plain_ms, k1_bound,
               render_tol, plain_spp=plain_spp, kernel_ms_at_plain_spp=kernel_ms_same,
               render_s_best=best, mpaths_per_s=mpaths, region_gate=verdict,
               emissive_render_s_best=e_best, emissive_mpaths_per_s=e_mpaths,
               emissive_region_gates=emissive_gates, emissive_ms=e_kernel_ms,
               emissive_bound_ms=e_bound["bound_ms"], emissive_bound_by=e_bound["bound_by"]),
         entry("fused_render_kernel (tree)", KERNEL_SOURCE, KERNEL_REPLACES,
-              f"fused_render_kernel<false, {DEFAULT_WALK}>", b_launches, {"balls": b_launches},
-              tree_checks,
+              f"fused_render_kernel<false, {DEFAULT_WALK}>",
+              b_launches + sum(sh_launches["K1 tree"].values()),
+              {"balls": b_launches, **sh_launches["K1 tree"]}, tree_checks,
               b_kernel_ms, b_slice["plain_ms"], k1_tree_bound, render_tol,
               plain_lanes=SLICE_LANES, kernel_ms_at_plain_lanes=b_slice["ms"],
               balls_render_s_best=b_best, balls_mpaths_per_s=b_mpaths,
@@ -2801,7 +3138,9 @@ def main() -> int:
               k2_lut_first["plain_ms"], bound_of(k2_lut_first), bounce_tol,
               note="parity only: no main path runs the one-bounce mode"),
         entry("bounce_kernel (regenerating)", BOUNCE_SOURCE, BOUNCE_REPLACES,
-              f"bounce_kernel<true, {DEFAULT_WALK}>", r_k2, {"rtw_final": r_k2}, k2_checks, k2_ms,
+              f"bounce_kernel<true, {DEFAULT_WALK}>",
+              r_k2 + sum(sh_launches["K2 regen"].values()),
+              {"rtw_final": r_k2, **sh_launches["K2 regen"]}, k2_checks, k2_ms,
               k2_slice["plain_ms"], k2_bound, render_tol, plain_lanes=SLICE_LANES,
               kernel_ms_at_plain_lanes=k2_slice["ms"],
               driver_passes_per_band=passes / max(bands, 1), rtw_final_render_s_best=r_best,
@@ -2848,7 +3187,7 @@ def main() -> int:
                  f"where the kernel took {peak['kernel_ms_at_plain_shape']:.4f} ms",
          **{k: peak[k] for k in ("gops", "gflops", "best_shape", "physics_bound",
                                  "time_ratio_4x", "sass")}},
-    ], "cli": cli_checks, "ops_rates": OPS_RATE["rate"],
+    ], "cli": cli_checks, "sharded": sharded, "ops_rates": OPS_RATE["rate"],
         "default_walk_balls_span2": b_default, "samplers": sampler_checks, "design": design,
         "variant_launches": {**variant_launches,
                              "closest_hit_flat": hits22["flat_launches"]},

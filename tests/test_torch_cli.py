@@ -4,12 +4,18 @@
      (enums by value), and the usage text is identical.
   2. ``--help`` exits 0 and bad flags exit 1, both with the usage text on
      stderr.
-  3. ``--shard``, a later slice, exits 1 with its error and writes
-     nothing; the JAX CLI's combination rules exit 1 with its messages.
-     The estimator and driver flags (``--russian_roulette``,
-     ``--clamp_indirect``, ``--adaptive``, ``--checkpoint``,
-     ``--supersample``) write the PPM of the same render made in process,
-     byte for byte; ``--checkpoint`` run twice resumes; a ``--scene_file``
+  3. ``--shard=samples`` and ``--shard=rows`` on ``ZWRT_CPU_DEVICES=8``
+     write the PPM of the in-process ``render_sharded`` on 8 CPU entries,
+     byte for byte, and pixels within +-1 level on at most 1% of those of
+     the JAX CLI's PPM for the same flags (its 8 virtual CPU devices;
+     emissive 16x16 as in 4.); with ``--adaptive`` and ``--checkpoint``
+     ``--shard=samples`` writes the in-process sharded renders' bytes
+     (cornell 8x8); an unknown mode exits 1.  The JAX CLI's
+     combination rules exit 1 with its messages.  The estimator and
+     driver flags (``--russian_roulette``, ``--clamp_indirect``,
+     ``--adaptive``, ``--checkpoint``, ``--supersample``) write the PPM of
+     the same render made in process, byte for byte; ``--checkpoint`` run
+     twice resumes; a ``--scene_file``
      of cornell writes ``--scene=cornell_box``'s bytes, and a bad file
      exits 1 with the JAX CLI's message.
   4. ``main([... emissive 16x16 ...], device="cpu")`` logs the three stage
@@ -116,19 +122,65 @@ def test_bad_profile_mode_exits_1(capsys):
     assert "unknown --profile mode" in capsys.readouterr().err
 
 
-# ---- 3. flags of later slices, combination rules, the freed flags ----
+# ---- 3. --shard, combination rules, the freed flags ----
 
 CORNELL_FILE = os.path.join(REPO, "zig_weekend_raytracer_tpu_torch", "models", "cornell_box.json")
 
 
-@pytest.mark.parametrize("flag,n", [("--shard=samples", 6)])
-def test_later_slice_flags_exit_1(flag, n, tmp_path, capsys):
-    out = tmp_path / "x.ppm"
-    argv = ["--image_width=4", "--image_height=4", f"--image_out_path={out}", flag]
+SHARD_FLAGS = ["--image_width=16", "--image_height=16", "--samples_per_pixel=2",
+               "--ray_bounce_max_depth=3"]
+
+
+@pytest.mark.parametrize("flag,n", [("--shard=samples", 8), ("--shard=rows", 8)])
+def test_later_slice_flags_exit_1(flag, n, tmp_path, monkeypatch):
+    """``--shard`` renders (the name is the test's from when it exited 1)."""
+    from zig_weekend_raytracer_tpu_torch import models
+    from zig_weekend_raytracer_tpu_torch.parallel import make_mesh, render_sharded
+
+    monkeypatch.setenv("ZWRT_CPU_DEVICES", str(n))
+    out = tmp_path / "t.ppm"
+    assert tcli.main(SHARD_FLAGS + [flag, f"--image_out_path={out}"], device="cpu") == 0
+    want = render_sharded(models.load_scene("emissive", device="cpu"), 16, 16, 2, 3,
+                          mesh=make_mesh(n, device="cpu"), shard=flag.split("=")[1])
+    tppm.write_ppm(str(tmp_path / "want.ppm"), want.numpy())
+    assert out.read_bytes() == (tmp_path / "want.ppm").read_bytes()
+    assert jcli.main(SHARD_FLAGS + [flag, f"--image_out_path={tmp_path / 'j.ppm'}"]) == 0
+    got, jax_px = _read_ppm(out), _read_ppm(tmp_path / "j.ppm")
+    diff = np.abs(got - jax_px).max(-1)
+    assert diff.max() <= 1 and (diff > 0).mean() <= 0.01
+
+
+@pytest.mark.parametrize("flag", ["--adaptive=4", "--checkpoint"])
+def test_shard_flag_combines_with_drivers(flag, tmp_path, monkeypatch):
+    from zig_weekend_raytracer_tpu_torch import models
+    from zig_weekend_raytracer_tpu_torch.parallel import make_mesh, render_adaptive_sharded
+    from zig_weekend_raytracer_tpu_torch.render import Renderer
+    from zig_weekend_raytracer_tpu_torch.render.progressive import ProgressiveRenderer
+
+    monkeypatch.setenv("ZWRT_CPU_DEVICES", "3")
+    scene = models.load_scene("cornell_box", device="cpu")
+    mesh = make_mesh(3, device="cpu")
+    argv = ["--image_width=8", "--image_height=8", "--samples_per_pixel=8",
+            "--ray_bounce_max_depth=4", "--scene=cornell_box", "--shard=samples",
+            f"--image_out_path={tmp_path / 't.ppm'}"]
+    if flag == "--checkpoint":
+        argv += [f"--checkpoint={tmp_path / 'c.npz'}", "--checkpoint_batch_spp=4"]
+        r = Renderer(samples_per_pixel=8, max_ray_bounce_depth=4)
+        want = ProgressiveRenderer(r, str(tmp_path / "ref.npz"), shard="samples",
+                                   mesh=mesh).render(scene, 8, 8, batch_spp=4)
+    else:
+        argv.append(flag)
+        want = render_adaptive_sharded(scene, 8, 8, 8, 4, mesh=mesh, pilot_spp=4).numpy()
+    assert tcli.main(argv, device="cpu") == 0
+    tppm.write_ppm(str(tmp_path / "want.ppm"), want)
+    assert (tmp_path / "t.ppm").read_bytes() == (tmp_path / "want.ppm").read_bytes()
+
+
+def test_unknown_shard_mode_exits_1(tmp_path, capsys):
+    argv = SHARD_FLAGS + ["--shard=tiles", f"--image_out_path={tmp_path / 'x.ppm'}"]
     assert tcli.main(argv, device="cpu") == 1
-    name = flag[2:].split("=")[0]
-    assert f"error: --{name} is slice {n} of the port (ROADMAP.md)" in capsys.readouterr().err
-    assert not out.exists()
+    assert "error: unknown --shard mode 'tiles'" in capsys.readouterr().err
+    assert not (tmp_path / "x.ppm").exists()
 
 
 @pytest.mark.parametrize("flags", [

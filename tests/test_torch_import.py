@@ -4,10 +4,11 @@ A subprocess installs a meta-path hook that refuses ``jax``, ``jaxlib``,
 ``zig_weekend_raytracer_tpu`` and the repository's JAX ``tools`` before
 anything is imported, then imports ``zig_weekend_raytracer_tpu_torch``,
 every module in it, and ``chip_smoke``.  The modules of the tree-scene,
-image-texture, CLI, FP32-peak and sample-allocation slices are named, so
-that the walk cannot miss them.  A second subprocess runs the entry points
-that import lazily (the adaptive, progressive and supersampled renders, the
-scene-file loader, the CLI's freed flags) with the same hook."""
+image-texture, CLI, FP32-peak, sample-allocation and sharding slices are
+named, so that the walk cannot miss them.  A second subprocess runs the
+entry points that import lazily (the adaptive, progressive and
+supersampled renders, the scene-file loader, the CLI's freed flags, the
+sharded renders and ``--shard``) with the same hook."""
 
 import os
 import subprocess
@@ -47,7 +48,8 @@ _SCRIPT = _BLOCK + textwrap.dedent(
                  "utils.roofline", "cli", "utils.profiler", "utils.argparser",
                  "utils.timer", "io.ppm", "models.emissive", "tools",
                  "tools.fp32_peak", "render.progressive", "render.adaptive",
-                 "render.adaptive_device", "models.scenefile"):
+                 "render.adaptive_device", "models.scenefile", "parallel",
+                 "parallel.mesh", "parallel.render"):
         assert pkg.__name__ + "." + name in names, name
     import chip_smoke
     leaked = [m for m in sys.modules if m.split(".")[0] in BLOCKED]
@@ -71,11 +73,20 @@ _RUN = _BLOCK + textwrap.dedent(
     r.render(scene, 4, 4)
     r.render_adaptive(scene, 4, 4)
     r.render_supersampled(scene, 4, 4, k=2)
+    mesh = zt.parallel.make_mesh(2, device="cpu")
+    for shard in ("samples", "rows"):
+        zt.parallel.render_sharded(scene, 4, 4, 8, max_depth=3, mesh=mesh, shard=shard)
+        zt.parallel.render_adaptive_sharded(scene, 4, 4, 8, max_depth=3, mesh=mesh, shard=shard)
     with tempfile.TemporaryDirectory() as tmp:
         ProgressiveRenderer(r, os.path.join(tmp, "c.npz")).render(scene, 4, 4, batch_spp=4)
+        ProgressiveRenderer(r, os.path.join(tmp, "s.npz"), shard="rows", mesh=mesh).render(
+            scene, 4, 4, batch_spp=4)
         assert cli.main(["--image_width=4", "--image_height=4", "--samples_per_pixel=4",
                          "--adaptive=1", "--russian_roulette=1",
                          "--image_out_path=" + os.path.join(tmp, "a.ppm")], device="cpu") == 0
+        assert cli.main(["--image_width=4", "--image_height=4", "--samples_per_pixel=4",
+                         "--shard=samples", "--image_out_path=" + os.path.join(tmp, "s.ppm")],
+                        device="cpu") == 0
     leaked = [m for m in sys.modules if m.split(".")[0] in BLOCKED]
     assert not leaked, leaked
     print("ran")

@@ -12,7 +12,13 @@ against the JAX package and its tests (tests/test_progressive.py).
   3. A progressive render against JAX's (Pallas interpret) within rtol
      1e-5 / atol 1e-6 at cornell 12x12, 8 spp, depth 3, independent
      sampler (its jitter keeps off test_torch_fused_render's edge rays).
-  4. ``shard`` other than "none" is slice 6: it raises.
+  4. The batches of a brute scene at one sample in flight per pixel follow
+     the cost-sorted plan from the second on, bitwise the plain lanes.
+  5. ``shard``: a sharded progressive render (2 CPU entries, samples)
+     interrupted after 2 batches and resumed is bitwise the uninterrupted
+     sharded render, within rtol 1e-5 / atol 1e-7 of the unsharded one; its
+     fingerprint names the mode and mesh size, so a checkpoint of another
+     mesh size is not resumed; an unknown mode raises.
 """
 
 import numpy as np
@@ -107,6 +113,64 @@ def test_progressive_matches_jax(pallas_interpret, scene, tmp_path):
     np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-6)
 
 
-def test_shard_is_a_later_slice():
-    with pytest.raises(NotImplementedError, match="slice 6"):
-        ProgressiveRenderer(zt.render.Renderer(), "c.npz", shard="samples")
+def test_batches_follow_the_sorted_plan(scene, tmp_path, monkeypatch):
+    """At one sample in flight per pixel a brute scene's batches after the
+    first render the cost-sorted plan, bitwise the plain lanes'
+    (ZWRT_NO_SORT)."""
+    from zig_weekend_raytracer_tpu_torch.parallel import render as prender
+
+    base = zt.render.Renderer(samples_per_pixel=8, max_ray_bounce_depth=3, seed=2,
+                              regen_min_wave=1)
+    planned = []
+    band = prender._render_band_balanced
+    monkeypatch.setattr(prender, "_render_band_balanced",
+                        lambda *a, **k: planned.append(a[2]) or band(*a, **k))
+    prender._plan_cache.pop(scene.compiled, None)
+    fb = ProgressiveRenderer(base, str(tmp_path / "a.npz")).render(scene, 12, 12, batch_spp=2)
+    assert len(planned) == 3  # batches 2 to 4, one band each
+    monkeypatch.setenv("ZWRT_NO_SORT", "1")
+    plain = ProgressiveRenderer(base, str(tmp_path / "b.npz")).render(scene, 12, 12,
+                                                                      batch_spp=2)
+    assert len(planned) == 3
+    np.testing.assert_array_equal(fb, plain)
+
+
+def test_shard_is_a_later_slice(scene, tmp_path, caplog):
+    """Sharded batches render (the name is the test's from when they were a
+    later slice of the port)."""
+    import logging
+
+    from zig_weekend_raytracer_tpu_torch.parallel import make_mesh
+
+    base = zt.render.Renderer(samples_per_pixel=8, max_ray_bounce_depth=3, seed=2)
+    two = make_mesh(2, device="cpu")
+    whole = ProgressiveRenderer(base, str(tmp_path / "whole.npz"), shard="samples",
+                                mesh=two).render(scene, 12, 12, batch_spp=2)
+    np.testing.assert_allclose(whole, base.render(scene, 12, 12), rtol=RTOL, atol=ATOL)
+    ck = str(tmp_path / "ck.npz")
+
+    class Stop(Exception):
+        pass
+
+    def bail(done, _img):
+        if done >= 4:
+            raise Stop
+
+    with pytest.raises(Stop):
+        ProgressiveRenderer(base, ck, shard="samples", mesh=two).render(
+            scene, 12, 12, batch_spp=2, on_batch=bail)
+    z = np.load(ck)
+    assert int(z["samples_done"]) == 4
+    assert str(z["fingerprint"]) == _fingerprint(scene, 12, 12, base) + ":shard-samples-2"
+    with caplog.at_level(logging.INFO, logger="zwrt"):
+        fb = ProgressiveRenderer(base, ck, shard="samples", mesh=two).render(
+            scene, 12, 12, batch_spp=2)
+    assert any("resuming render from checkpoint: 4/8" in r.getMessage() for r in caplog.records)
+    np.testing.assert_array_equal(fb, whole)
+    caplog.clear()
+    with caplog.at_level(logging.INFO, logger="zwrt"):
+        ProgressiveRenderer(base, ck, shard="samples", mesh=make_mesh(3, device="cpu")).render(
+            scene, 12, 12, batch_spp=4)
+    assert any("fingerprint mismatch" in r.getMessage() for r in caplog.records)
+    with pytest.raises(ValueError, match="unknown shard mode"):
+        ProgressiveRenderer(base, ck, shard="tiles")

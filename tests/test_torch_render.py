@@ -91,13 +91,42 @@ def test_sorted_plan_render_matches_first(cornell):
     np.testing.assert_allclose(fb2, fb1, rtol=2e-5, atol=2e-6)
 
 
+def test_sorted_plan_pads_with_dead_items():
+    from zig_weekend_raytracer_tpu_torch.render.renderer import sorted_plan
+
+    # 3 x 4 band at y0 = 5, two rows valid; flat lane order (no tile)
+    work = np.array([1, 7, 3, 7, 2, 9, 0, 4, 8, 8, 8, 8], np.int32)
+    px, py, live = sorted_plan(work, 4, 3, 2, 5, 16)
+    assert all(a.dtype == np.int32 and a.shape == (16,) for a in (px, py, live))
+    # descending cost, ties in image order: 9, 7, 7, 4, 3, 2, 1, 0
+    assert list(zip(px[:8], py[:8])) == [(1, 6), (1, 5), (3, 5), (3, 6), (2, 5), (0, 6),
+                                         (0, 5), (2, 6)]
+    assert live.tolist() == [1] * 8 + [0] * 8
+    assert (px[8:] == 0).all() and (py[8:] == 5).all()
+
+
+def test_memo_plan_entry_evicts_the_oldest_config(cornell):
+    import weakref
+
+    from zig_weekend_raytracer_tpu_torch.render.renderer import memo_plan_entry
+
+    cache = weakref.WeakKeyDictionary()
+    first = memo_plan_entry(cache, cornell.compiled, 0, 2)
+    first["plan"] = 1
+    assert memo_plan_entry(cache, cornell.compiled, 0, 2) is first
+    memo_plan_entry(cache, cornell.compiled, 1, 2)
+    memo_plan_entry(cache, cornell.compiled, 2, 2)
+    assert list(cache[cornell.compiled]) == [1, 2]
+    assert memo_plan_entry(cache, cornell.compiled, 0, 2) == {}
+
+
 def test_renderer_guards(cornell):
     with pytest.raises(ValueError, match="exceeds u32"):
         zt.render.Renderer(samples_per_pixel=1 << 16).render_device(cornell, 256, 256)
-    # sharded progressive batches are slice 6
+    # a shard mode that no renderer takes
     from zig_weekend_raytracer_tpu_torch.render.progressive import ProgressiveRenderer
-    with pytest.raises(NotImplementedError, match="slice 6"):
-        ProgressiveRenderer(zt.render.Renderer(), "c.npz", shard="rows")
+    with pytest.raises(ValueError, match="unknown shard mode"):
+        ProgressiveRenderer(zt.render.Renderer(), "c.npz", shard="columns")
     with pytest.raises(ValueError, match="differs"):
         zt.render.Renderer(device="meta").render_device(cornell, 4, 4)
 

@@ -3,7 +3,7 @@ CUDA for one NVIDIA H100.
 
 The JAX package ``zig_weekend_raytracer_tpu`` is the reference; this
 package mirrors its layout (math/, sampling/, geometry/, render/, ops/,
-io/, utils/, models/) and never imports it or JAX.  Renders go through
+io/, utils/, models/, parallel/) and never imports it or JAX.  Renders go through
 hand-written CUDA kernels: ``csrc/fused_render.cu`` (the whole render of
 a scene without images, or of an image scene with a texture LUT),
 ``csrc/bounce.cu`` (the bounce of image-texture scenes) and
@@ -13,7 +13,9 @@ first-hit AOV pass, ``render/aov.py``, which guides the denoiser,
 and bounce kernels take the tree walk that ``ZWRT_TRAV`` (queue, rowqueue,
 spec) or a scene compiled with ``ZWRT_UNI_TREE=1`` asks for.  Scenes live
 on the card unless built with ``device="cpu"``, where the same entry
-points run the kernels' plain PyTorch versions.  The command line is
+points run the kernels' plain PyTorch versions.  ``parallel/`` renders
+across a mesh of devices (``make_mesh``: every card, or the CPU repeated),
+sharding an image's samples or rows from one process.  The command line is
 ``python -m zig_weekend_raytracer_tpu_torch.cli`` (``cli.py``);
 ``python -m zig_weekend_raytracer_tpu_torch.tools.fp32_peak`` measures the
 card's FP32 peak (``csrc/fp32_peak.cu``), the roofline's rate.
@@ -36,6 +38,7 @@ from . import scene
 from . import models
 from . import render
 from . import ops
+from . import parallel
 from . import io
 from . import utils
 

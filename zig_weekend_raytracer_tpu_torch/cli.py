@@ -8,8 +8,9 @@ kernels; ``main(argv, device="cpu")`` runs the same path on the kernels'
 plain versions (the tests' way in).  ``--adaptive``, ``--checkpoint``,
 ``--supersample``, ``--scene_file``, ``--russian_roulette`` and
 ``--clamp_indirect`` render as the JAX CLI's do, with its combination
-rules and messages; ``--shard``, a later slice of the port, exits 1 with
-an error naming the slice and never renders something else.
+rules and messages.  ``--shard=samples|rows`` renders across every device
+of the CLI's kind (``parallel/``: all cards; on the CPU ``ZWRT_CPU_DEVICES``
+entries), alone, with ``--adaptive`` and with ``--checkpoint``.
 
 Run:  python -m zig_weekend_raytracer_tpu_torch.cli --image_width=400 --image_height=400
 """
@@ -25,6 +26,7 @@ import torch
 
 from .io.ppm import REFUSED_EXTENSIONS, extension, write_image
 from .models import DEFAULT_ASSET_DIR, SceneType, load_scene
+from .parallel import SHARD_MODES, make_mesh, render_adaptive_sharded, render_sharded
 from .render.renderer import Renderer
 from .sampling.sampler import SamplerKind
 from .utils.argparser import ArgParser, HelpPassedInArgs, ParseArgsError
@@ -47,7 +49,7 @@ class UserArgs:
     asset_dir: str = DEFAULT_ASSET_DIR
     # declarative JSON scene (models/scenefile.py); overrides --scene
     scene_file: str = ""
-    # none | samples | rows: multi-device sharding (slice 6)
+    # none | samples | rows: sharding over every device (parallel/)
     shard: str = "none"
     # Russian roulette's first bounce, 0 = off: unbiased path-tail
     # termination, ignored on image scenes without a texture LUT
@@ -86,12 +88,6 @@ class UserArgs:
     profile: str = "off"
 
 
-# Later-slice flags: (flag, slice, is the flag set).
-_LATER_SLICE_FLAGS = (
-    ("shard", 6, lambda a: a.shard != "none"),
-)
-
-
 def normalize_profile_mode(text: str) -> str | None:
     """--profile value -> 'off' | 'host' | 'device', or None if invalid
     (the legacy bool spellings included)."""
@@ -112,16 +108,11 @@ def parse_user_args(argv) -> UserArgs:
         raise
 
 
-def later_slice_error(args: UserArgs) -> str | None:
-    """The error of the first set flag whose feature is a later slice."""
-    for flag, n, is_set in _LATER_SLICE_FLAGS:
-        if is_set(args):
-            return f"--{flag} is slice {n} of the port (ROADMAP.md)"
-    return None
-
-
 def combination_error(args: UserArgs) -> str | None:
-    """The JAX CLI's error for flags that do not combine, or None."""
+    """The JAX CLI's error for flags that do not combine, or None; and an
+    unknown ``--shard`` mode, which the JAX CLI reports only at the render."""
+    if args.shard != "none" and args.shard not in SHARD_MODES:
+        return f"unknown --shard mode {args.shard!r} (none | samples | rows)"
     if args.checkpoint and args.adaptive:
         # the adaptive plan depends on the pilot's noise map, which the
         # checkpoint cannot reproduce
@@ -159,7 +150,7 @@ def main(argv=None, device="cuda") -> int:
         print(f"error: unknown --profile mode {args.profile!r} "
               "(off | host | device)", file=sys.stderr)
         return 1
-    why = combination_error(args) or later_slice_error(args)
+    why = combination_error(args)
     if why is not None:
         print(f"error: {why}", file=sys.stderr)
         return 1
@@ -211,19 +202,31 @@ def _run(args: UserArgs, device, profile_mode: str, timer: Timer) -> int:
         clamp_indirect=args.clamp_indirect,
     )
     w, h = args.image_width, args.image_height
+    pilot = args.adaptive if args.adaptive >= 2 else 0
+    mesh = None
+    if args.shard != "none":
+        mesh = make_mesh(device=torch.device(device).type)
+        sharded = dict(sampler=args.sampler, mesh=mesh, shard=args.shard, seed=args.seed,
+                       rr=args.russian_roulette, clamp=args.clamp_indirect)
 
     def do_render():
         if args.adaptive:
-            return renderer.render_adaptive(
-                scene, w, h, pilot_spp=args.adaptive if args.adaptive >= 2 else 0,
-            ).cpu().numpy()
+            if mesh is not None:
+                return render_adaptive_sharded(
+                    scene, w, h, args.samples_per_pixel, args.ray_bounce_max_depth,
+                    pilot_spp=pilot, **sharded).cpu().numpy()
+            return renderer.render_adaptive(scene, w, h, pilot_spp=pilot).cpu().numpy()
         if args.checkpoint:
             from .render.progressive import ProgressiveRenderer
 
-            return ProgressiveRenderer(renderer, checkpoint_path=args.checkpoint).render(
+            return ProgressiveRenderer(renderer, checkpoint_path=args.checkpoint,
+                                       shard=args.shard, mesh=mesh).render(
                 scene, w, h, batch_spp=args.checkpoint_batch_spp)
         if args.supersample > 1:
             return renderer.render_supersampled(scene, w, h, k=args.supersample).cpu().numpy()
+        if mesh is not None:
+            return render_sharded(scene, w, h, args.samples_per_pixel,
+                                  args.ray_bounce_max_depth, **sharded).cpu().numpy()
         return renderer.render(scene, w, h)
 
     device_table = None

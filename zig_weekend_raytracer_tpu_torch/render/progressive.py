@@ -6,9 +6,12 @@ sum and the count of samples done are the whole checkpoint: a plain
 ``.npz`` (``fb_sum`` float32, ``samples_done``, ``total_spp``,
 ``fingerprint``).  The content-addressed RNG makes a resumed render
 bitwise the uninterrupted one.  A batch renders its sample range through
-``renderer._render_band_regen`` (the render kernel, or the bounce kernel's
-regenerating mode on atlas scenes) with the render's total spp, so the
-samplers see the geometry of one uninterrupted render.
+``parallel/render.py:render_batch_sharded`` with the render's total spp,
+so the samplers see the geometry of one uninterrupted render: on a mesh
+of the scene's own device, or with ``shard`` across ``mesh``.  So the
+render kernel runs (the bounce kernel's regenerating mode on atlas
+scenes), and brute scenes at one sample in flight per pixel follow the
+cost-sorted plan from their second batch on.
 """
 
 from __future__ import annotations
@@ -19,12 +22,10 @@ import os
 from typing import Callable, Optional
 
 import numpy as np
-import torch
 
-from ..dtypes import real
+from ..parallel import SHARD_MODES, render_batch_sharded, resolve_mesh
 from ..scene import Scene
-from .camera import camera_consts
-from .renderer import Renderer, _render_band_regen
+from .renderer import Renderer
 
 log = logging.getLogger("zwrt")
 
@@ -46,20 +47,21 @@ def _fingerprint(scene: Scene, width, height, renderer: Renderer) -> str:
 @dataclasses.dataclass
 class ProgressiveRenderer:
     """Renders in sample batches, writing the checkpoint after every
-    ``checkpoint_every`` batches and after the last.  ``shard`` other than
-    "none" (batches across devices) is a later slice of the port."""
+    ``checkpoint_every`` batches and after the last.  ``shard`` ("samples"
+    or "rows", as ``render_sharded`` takes it) renders each batch across
+    ``mesh`` (default: ``make_mesh`` of the scene's device type); the
+    fingerprint then names the mode and the mesh size, whose float32 sums
+    differ, so a checkpoint of another mesh size is not resumed."""
 
     renderer: Renderer
     checkpoint_path: str
     checkpoint_every: int = 1
-    shard: str = "none"
+    shard: str = "none"  # none | samples | rows
+    mesh: Optional[tuple] = None
 
     def __post_init__(self):
-        if self.shard != "none":
-            raise NotImplementedError(
-                f"ProgressiveRenderer(shard={self.shard!r}): sharded batches are slice 6 of "
-                "the port (ROADMAP.md); use shard='none'"
-            )
+        if self.shard != "none" and self.shard not in SHARD_MODES:
+            raise ValueError(f"unknown shard mode: {self.shard}")
 
     def render(self, scene: Scene, width: int, height: int, batch_spp: int = 16,
                on_batch: Optional[Callable[[int, np.ndarray], None]] = None) -> np.ndarray:
@@ -68,6 +70,11 @@ class ProgressiveRenderer:
         total match; returns the averaged (H, W, 3) float32 framebuffer."""
         total_spp = self.renderer.samples_per_pixel
         fp = _fingerprint(scene, width, height, self.renderer)
+        if self.shard == "none":
+            mesh, shard = (scene.compiled.device,), "samples"
+        else:
+            mesh, shard = resolve_mesh(self.mesh, scene.compiled.device), self.shard
+            fp += f":shard-{shard}-{len(mesh)}"
         fb_sum = np.zeros((height, width, 3), np.float32)
         done = 0
         if os.path.exists(self.checkpoint_path):
@@ -82,8 +89,14 @@ class ProgressiveRenderer:
         batch_idx = 0
         while done < total_spp:
             spp_now = min(batch_spp, total_spp - done)
-            fb_sum += _render_batch(self.renderer, scene, width, height, done,
-                                    spp_now).cpu().numpy()
+            r = self.renderer
+            batch = render_batch_sharded(
+                scene, width, height, total_spp, done, spp_now,
+                max_depth=r.max_ray_bounce_depth, sampler=r.sampler, mesh=mesh, shard=shard,
+                seed=r.seed, max_rays_per_chunk=r.max_rays_per_chunk, rr=r.russian_roulette,
+                clamp=r.clamp_indirect, regen_min_wave=r.regen_min_wave,
+            )
+            fb_sum += batch.cpu().numpy()
             done += spp_now
             batch_idx += 1
             if batch_idx % self.checkpoint_every == 0 or done >= total_spp:
@@ -96,26 +109,3 @@ class ProgressiveRenderer:
         tmp = self.checkpoint_path + ".tmp.npz"
         np.savez(tmp, fb_sum=fb_sum, samples_done=done, total_spp=total_spp, fingerprint=fp)
         os.replace(tmp, self.checkpoint_path)  # atomic swap
-
-
-def _render_batch(renderer: Renderer, scene: Scene, width, height, sample0: int,
-                  spp_now: int) -> torch.Tensor:
-    """The radiance sum over samples [sample0, sample0 + spp_now), (H, W, 3)
-    on the scene's device."""
-    cs = scene.compiled
-    total_spp = renderer.samples_per_pixel
-    s_par, band_rows = renderer.regen_geometry(width, height, spp_now)
-    n_bands = -(-height // band_rows)
-    fb = torch.zeros((n_bands * band_rows, width, 3), dtype=real, device=cs.device)
-    cam_c = camera_consts(scene.camera, width, height)
-    for b in range(n_bands):
-        y0 = b * band_rows
-        fb[y0 : y0 + band_rows] += _render_band_regen(
-            scene, renderer.seed, y0, sample0, width=width, height=height,
-            band_rows=band_rows, s_par=s_par, spp=total_spp,
-            sample_limit=min(sample0 + spp_now, total_spp),
-            max_depth=renderer.max_ray_bounce_depth, sampler=renderer.sampler,
-            has_dof=scene.camera.has_depth_of_field, cam_consts=cam_c,
-            rr=renderer.russian_roulette, clamp=renderer.clamp_indirect,
-        )
-    return fb[:height]

@@ -118,6 +118,40 @@ def tile_order_lane_index(width, band_rows, tile):
     return (((by * nbx + bx) * tile + iy) * tile) + ix
 
 
+def memo_plan_entry(cache, compiled, key, max_configs: int) -> dict:
+    """The entry of ``key`` among ``compiled``'s plans in ``cache`` (a weak
+    map from compiled scene to a {config: entry} dict, so that entries die
+    with their scene), made empty when missing; a scene keeps at most
+    ``max_configs`` entries, the oldest evicted first."""
+    per = cache.get(compiled)
+    if per is None:
+        per = cache.setdefault(compiled, {})
+    entry = per.get(key)
+    if entry is None:
+        while len(per) >= max_configs:
+            per.pop(next(iter(per)))
+        entry = per[key] = {}
+    return entry
+
+
+def sorted_plan(work_lane: np.ndarray, width, band_rows, rows_eff, band_y0, n_items):
+    """(px, py, live) int32 arrays of one band's cost-sorted plan: its
+    pixels in descending order of the work measured by their lanes
+    (``work_lane`` in tiled lane order, s_par = 1; a stable sort, ties in
+    image order), padded to ``n_items`` with dead items (live 0, pixel
+    (0, band_y0)), to which the caller gives an empty sample range."""
+    lane_idx = tile_order_lane_index(width, band_rows, pick_tile(width, band_rows))
+    cost = work_lane[lane_idx.reshape(-1)].reshape(band_rows, width)[:max(rows_eff, 0)]
+    cost = cost.reshape(-1)
+    ys, xs = np.divmod(np.arange(cost.size), width)
+    order = np.argsort(-cost, kind="stable")
+    pad = n_items - cost.size
+    px = np.concatenate([xs[order], np.zeros(pad, np.int64)])
+    py = np.concatenate([ys[order] + band_y0, np.full(pad, band_y0, np.int64)])
+    live = np.concatenate([np.ones(cost.size, np.int64), np.zeros(pad, np.int64)])
+    return tuple(a.astype(np.int32) for a in (px, py, live))
+
+
 def _render_band_regen(
     scene: Scene, seed: int, band_y0: int, sample0: int, *,
     width: int, height: int, band_rows: int, s_par: int, spp: int,
@@ -346,36 +380,26 @@ class Renderer:
         as a side output and caches it; later renders sort pixels by that
         cost (a pure pixel permutation)."""
         cs = scene.compiled
-        scene_cache = self._plan_cache.get(cs)
-        if scene_cache is None:
-            scene_cache = self._plan_cache.setdefault(cs, {})
         key = (
             width, height, band_y0, spp,
             self.max_ray_bounce_depth, self.sampler, self.seed,
         )
-        entry = scene_cache.get(key)
-        if entry is None:
+        entry = memo_plan_entry(self._plan_cache, cs, key, self._plan_cache_max_configs)
+        if not entry:
             fb, work = _render_band_regen(
                 scene, seed, band_y0, 0, width=width, height=height,
                 band_rows=band_rows, s_par=1, spp=spp, sample_limit=spp,
                 max_depth=self.max_ray_bounce_depth, sampler=self.sampler,
                 has_dof=has_dof, cam_consts=cam_c, want_work=True, **self._estimator(),
             )
-            while len(scene_cache) >= self._plan_cache_max_configs:
-                scene_cache.pop(next(iter(scene_cache)))
-            scene_cache[key] = {"work": work}
+            entry["work"] = work
             return fb
         if "plan" not in entry:
-            tile = pick_tile(width, band_rows)
-            lane_idx = tile_order_lane_index(width, band_rows, tile)
-            w = entry.pop("work").cpu().numpy()
-            cost = w[lane_idx.reshape(-1)].reshape(band_rows, width)[:rows_eff].reshape(-1)
-            ys, xs = np.divmod(np.arange(cost.size), width)
-            order = np.argsort(-cost, kind="stable")
+            px, py, live = sorted_plan(entry.pop("work").cpu().numpy(), width, band_rows,
+                                       rows_eff, band_y0, rows_eff * width)
             entry["plan"] = tuple(
-                torch.as_tensor(np.asarray(a, np.int32), device=cs.device)
-                for a in (xs[order], ys[order] + band_y0, np.zeros(cost.size),
-                          np.full(cost.size, spp))
+                torch.as_tensor(a, device=cs.device)
+                for a in (px, py, np.zeros_like(live), live * np.int32(spp))
             )
         px, py, s0, s1 = entry["plan"]
         return _render_band_balanced(
@@ -395,15 +419,12 @@ class Renderer:
         The plan is cached per (scene, size, config); a pure pixel
         permutation."""
         cs = scene.compiled
-        scene_cache = self._plan_cache.get(cs)
-        if scene_cache is None:
-            scene_cache = self._plan_cache.setdefault(cs, {})
         key = (
             "coh", width, height, band_y0, spp,
             self.max_ray_bounce_depth, self.sampler, self.seed,
         )
-        entry = scene_cache.get(key)
-        if entry is None:
+        entry = memo_plan_entry(self._plan_cache, cs, key, self._plan_cache_max_configs)
+        if "plan" not in entry:
             ys, xs = np.divmod(np.arange(rows_eff * width), width)
             i64 = lambda a: torch.as_tensor(a.astype(np.int64), device=cs.device)
             kind, idx = _first_hit_probe(
@@ -417,15 +438,11 @@ class Renderer:
             tile = pick_tile(width, band_rows)
             lane_ord = tile_order_lane_index(width, band_rows, tile)[:rows_eff].reshape(-1)
             order = np.lexsort((lane_ord, hit_key))
-            while len(scene_cache) >= self._plan_cache_max_configs:
-                scene_cache.pop(next(iter(scene_cache)))
-            entry = scene_cache[key] = {
-                "plan": tuple(
-                    torch.as_tensor(np.asarray(a, np.int32), device=cs.device)
-                    for a in (xs[order], ys[order] + band_y0, np.zeros(order.size),
-                              np.full(order.size, spp))
-                )
-            }
+            entry["plan"] = tuple(
+                torch.as_tensor(np.asarray(a, np.int32), device=cs.device)
+                for a in (xs[order], ys[order] + band_y0, np.zeros(order.size),
+                          np.full(order.size, spp))
+            )
         px, py, s0, s1 = entry["plan"]
         return _render_band_balanced(
             scene, seed, band_y0, px, py, s0, s1, width=width, height=height,

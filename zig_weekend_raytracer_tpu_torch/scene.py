@@ -28,7 +28,8 @@ from __future__ import annotations
 
 import math as _math
 import os
-from dataclasses import dataclass, field
+import weakref
+from dataclasses import dataclass, field, fields
 from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -396,6 +397,38 @@ def compiled_from_arrays(fields: dict, static: dict, device) -> CompiledScene:
     kw["image_dims"] = tuple((int(w), int(h)) for w, h in kw["image_dims"])
     # the tensors' device carries the index ("cuda" -> "cuda:0")
     return CompiledScene(device=kw["shade_rows"].device, **kw)
+
+
+# Copies made by ``compiled_on``, keyed weakly on the source scene: each a
+# {device: CompiledScene} dict that dies with its scene.
+_ON_DEVICE: "weakref.WeakKeyDictionary" = weakref.WeakKeyDictionary()
+
+
+def _to_device(value, device):
+    if isinstance(value, torch.Tensor):
+        return value.to(device)
+    if isinstance(value, V3):
+        return V3(*(_to_device(v, device) for v in value))
+    if isinstance(value, tuple):
+        return tuple(_to_device(v, device) for v in value)
+    return value
+
+
+def compiled_on(cs: CompiledScene, device: torch.device) -> CompiledScene:
+    """``cs`` with every tensor on ``device`` (an indexed device, as
+    ``CompiledScene.device`` is) and every other field as it is: ``cs``
+    itself on its own device, else a copy made once per (scene, device)."""
+    if device == cs.device:
+        return cs
+    per = _ON_DEVICE.get(cs)
+    if per is None:
+        per = _ON_DEVICE.setdefault(cs, {})
+    out = per.get(device)
+    if out is None:
+        kw = {f.name: _to_device(getattr(cs, f.name), device) for f in fields(cs)}
+        kw["device"] = device
+        out = per[device] = CompiledScene(**kw)
+    return out
 
 
 # ---------------------------------------------------------------------------
