@@ -237,7 +237,36 @@ Phases (any failure exits nonzero):
      the sample map equal to render_adaptive's; (e) a progressive 4 x 256
      render on (cuda:0,)*2 interrupted after two batches and resumed:
      bitwise the uninterrupted one; (f) the CLI's --shard=samples at
-     cornell 200x200@64 d10, its PPM byte-equal to the in-process render.
+     cornell 200x200@64 d10, its PPM byte-equal to the in-process render;
+ 26. the fixed-depth path (render/renderer.py:_render_band over
+     render/integrator.py:trace_paths: the closest-hit kernel at every
+     bounce, eager PyTorch shading), the path of scenes with nested
+     checkers: (a) a scene built here (96 spheres and a large one in a
+     sphere tree, a ground textured with a checker of checkers, a checker
+     of a seeded image, a quad lamp) through Renderer(samples_per_pixel=64,
+     max_ray_bounce_depth=10).render_device at 400x400, one warmup and
+     three timed renders, counts set to 0 just before and read just after:
+     the closest-hit kernel launched once per bounce, the plain trace and
+     every other kernel and plain version never; Mpaths/s, and from
+     torch.profiler over the render's first chunk the kernel's device time
+     per launch and the device idle share;
+     (b) (a)'s first chunk once more with the kernel's wrapper wrapped:
+     each launch's live lanes, and the rays of bounce 0 and of a later,
+     masked bounce at (a)'s 2,249,728 lanes, on which the kernel is
+     bitwise the plain trace (ops/trace.py, the cond walk); at 64x64@8 d10
+     the render bitwise the render with the plain trace in the kernel's
+     place on the card, and within rtol 1e-5 / atol 1e-6 of the CPU's
+     render on >= 99.9% of pixels; the plain trace's work counts per
+     traced ray and the chunk's live lanes give the kernel's bound; (c)
+     the six goldens (tests/golden/<scene>.npz, 64x64@32 d10) through the
+     path, each through its region gate
+     (rtw_final on 4x4 regions), the share of pixels within rtol 1e-5 of
+     the golden printed; (d) cornell 400x400@64 d10 through the path and
+     through the render kernel's sorted plan, Mpaths/s (not gated); (e)
+     phase 3's framebuffer written as .bmp and .jpg and read back by
+     io/native.py: the BMP equal to its pixels, the JPEG at >= 30 dB PSNR;
+     (f) python -m zig_weekend_raytracer_tpu_torch.tools.golden_check in a
+     subprocess (overlapping (c) and (e)), every scene passing.
 
 The record has one entry per kernel and mode: the render kernel on brute
 scenes (cornell, emissive, and phase 25's cornell paths), on tree scenes
@@ -245,8 +274,9 @@ scenes (cornell, emissive, and phase 25's cornell paths), on tree scenes
 bounce kernel's one-bounce mode with the atlas and with the LUT (parity
 checks only: no main path runs it, so its launches are 0) and its
 regenerating mode (rtw_final, and phase 25's rtw_final samples), and the
-closest-hit kernel (its launches on the probe and
-the AOV passes; the ray sets, designs and AOV passes of phase 22); then one
+closest-hit kernel (its launches on the probe, the AOV passes and phase
+26's fixed-depth path; the ray sets, designs and AOV passes of phase 22,
+and phase 26's render against the plain trace); then one
 per walk other than the default of the render kernel (cond, rowqueue and
 spec on balls at span 2, uni with the LUT on rtw_final) and of the bounce
 kernel's regenerating mode (rtw_final), the estimator instantiations of
@@ -382,6 +412,13 @@ PROG_BATCH = 256
 ADAPTIVE_PILOT = 128
 SHARD_PARITY_W, SHARD_PARITY_SPP = 32, 8
 CLI_SHARD_W, CLI_SHARD_SPP = 200, 64
+# phase 26: the nested-checker scene's main path and its parity render,
+# the goldens' size through the fixed-depth path, and a JPEG's PSNR floor
+NESTED_SPP, NESTED_PARITY_W, NESTED_PARITY_SPP = 64, 64, 8
+# the later bounce of the main path's first chunk whose rays phase 26 keeps
+NESTED_HELD_BOUNCE = 3
+FIXED_COST_SPP = 64
+JPEG_MIN_PSNR = 30.0
 # registers and spill bytes of the default walk's instantiations and of
 # the cond walk's, as this build gives them (the factored Sobol respawn and
 # the device light and image tables; the previous slice's cond walk:
@@ -604,7 +641,7 @@ def compare_hits(tag: str, hit_k, hit_p) -> dict:
             "max_abs_err": max_abs}
 
 
-def hit_launcher(ch, cs, rays, t_min, flat=False):
+def hit_launcher(ch, cs, rays, t_min, flat=False, t_max=float("inf"), active=None):
     """A launch of the closest-hit kernel (``flat``: its first design) with
     no wrapper around it: the wrapper's checked arguments
     (ops/closest_hit.py:launch_args) handed to the library's launcher on
@@ -612,7 +649,7 @@ def hit_launcher(ch, cs, rays, t_min, flat=False):
     the Hit."""
     from zig_weekend_raytracer_tpu_torch.ops import _build
 
-    args, hit, keep = ch.launch_args(cs, *rays, t_min, flat=flat)
+    args, hit, keep = ch.launch_args(cs, *rays, t_min, t_max, active, flat=flat)
     name = "zwrt_closest_hit_flat" if flat else "zwrt_closest_hit"
     fn = getattr(_build.load_library(), name)
 
@@ -1068,17 +1105,18 @@ def emitter_scene(zt, budget):
     return b.compile(name="image_lamp", device="cuda", texture_lut=budget)
 
 
-def start_cli(args):
-    """The port's CLI as a subprocess from the repository root, started and
-    not waited for; its output goes to temporary files (a full pipe would
-    stall it while another is waited for)."""
+def start_cli(args, module="zig_weekend_raytracer_tpu_torch.cli"):
+    """The port's CLI (or another of its ``module``s) as a subprocess from
+    the repository root, started and not waited for; its output goes to
+    temporary files (a full pipe would stall it while another is waited
+    for)."""
     import tempfile
 
     env = dict(os.environ)
     env["PYTHONPATH"] = REPO + os.pathsep + env.get("PYTHONPATH", "")
     files = (tempfile.TemporaryFile("w+"), tempfile.TemporaryFile("w+"))
     proc = subprocess.Popen(
-        [sys.executable, "-m", "zig_weekend_raytracer_tpu_torch.cli", *args],
+        [sys.executable, "-m", module, *args],
         cwd=REPO, env=env, stdout=files[0], stderr=files[1], text=True,
     )
     proc.files = files
@@ -2489,6 +2527,307 @@ def phase_sharded(zt, fused, tb, integrator, ch, ttrace, torch, scenes, fbs, mpa
     return out
 
 
+def nested_scene(zt, device):
+    """Phase 26's scene, built with the port's SceneBuilder: 96 spheres (a
+    sphere tree for the closest-hit kernel) on a ground quad textured with
+    a checker of checkers, one large sphere textured with a checker of a
+    seeded image (the general walk's atlas fetch), glass and metal
+    spheres, a quad lamp in the light list.  The ground lies at y = -0.2,
+    off both checkers' lattice planes (y = k / 2 and y = k / 0.32): on a
+    plane a hit's parity would hang on the sign of a rounding residual,
+    which the card's and the CPU's transcendentals round apart."""
+    import numpy as np
+
+    rng = np.random.default_rng(26)
+    b = zt.scene.SceneBuilder()
+    inner = b.checkerboard(2.0, b.solid_color((0.8, 0.25, 0.1)), b.solid_color((0.9, 0.9, 0.85)))
+    ground = b.checkerboard(0.32, inner, b.solid_color((0.1, 0.3, 0.6)))
+    b.add(b.quad((-12, -0.2, -12), (24, 0, 0), (0, 0, 24), b.lambertian(ground)))
+    image = rng.integers(0, 256, (48, 64, 3), dtype=np.uint8)
+    pictured = b.checkerboard(3.0, b.image_texture(image), b.solid_color((0.7, 0.7, 0.2)))
+    b.add(b.sphere((0.0, 1.0, 0.0), 1.2, b.lambertian(pictured)))
+    mats = [b.lambertian(b.solid_color(tuple(rng.uniform(0.1, 0.9, 3)))) for _ in range(6)]
+    mats += [b.metal((0.8, 0.8, 0.9), 0.05), b.dielectric(1.5)]
+    for i in range(96):
+        x, z = rng.uniform(-6.0, 6.0, 2)
+        if x * x + z * z < 2.5:
+            x += 3.0
+        b.add(b.sphere((float(x), 0.05, float(z)), 0.25, mats[i % len(mats)]))
+    lamp = b.add(b.quad((-1.5, 5.0, -1.5), (3, 0, 0), (0, 0, 3),
+                        b.diffuse_light(b.solid_color((7.0, 7.0, 7.0)))))
+    b.set_lights([lamp])
+    b.set_background((0.15, 0.2, 0.3))
+    b.set_camera(zt.scene.Camera(look_from=(0.0, 3.0, 9.0), look_at=(0.0, 0.5, 0.0),
+                                 vfov_degrees=40.0))
+    b.use_bvh(True)
+    return b.compile("nested_checkers", device=device)
+
+
+def fixed_counts(fused, integrator, ch, ttrace, tb) -> dict:
+    """The counts of the fixed-depth path: the closest-hit kernel's
+    launches, the plain trace's calls, the path's bounces and every other
+    kernel's launches and plain version's calls."""
+    return {"k3": ch.closest_hit.launches, "plain_trace": ttrace.closest_hit.calls,
+            "bounces": integrator.trace_paths.bounces,
+            "k1": launched(fused.render_fused), "k2": launched(tb.bounce) + launched(tb.bounce_regen),
+            "plain_kernels": (integrator.render_fused_reference.calls
+                              + integrator.bounce_regen_reference.calls)}
+
+
+def phase_fixed_depth(zt, fused, tb, integrator, ch, ttrace, torch, cornell, fb_main, card) -> dict:
+    """Phase 26, the fixed-depth path (render/renderer.py:_render_band over
+    render/integrator.py:trace_paths, the closest-hit kernel at every
+    bounce): (a) the nested-checker scene at 400x400@64 d10 through
+    Renderer.render_device, counts set to 0 just before and read just
+    after (the kernel launched, the plain trace and every other kernel
+    never), Mpaths/s, and over the render's first chunk the kernel's
+    device time per launch and the device idle share (1 - device ms /
+    best wall ms, torch.profiler); (b) (a)'s first chunk once more with
+    the kernel's wrapper wrapped, which counts each launch's live lanes
+    and keeps the rays of bounce 0 and of bounce NESTED_HELD_BOUNCE
+    (masked), on which the kernel is then held bitwise to the plain trace
+    (ops/trace.py, the cond walk) on the same card tensors; at 64x64@8 d10
+    the render bitwise the render with the plain trace in the kernel's
+    place on the card, and the card's render against the CPU's within
+    rtol 1e-5 / atol 1e-6 on >= 99.9% of pixels; the plain trace's work
+    counts per traced ray and the chunk's live lanes give the kernel's
+    bound; (c) the six goldens (tests/golden/<scene>.npz, 64x64@32 d10)
+    through the path and utils/goldengate.py, rtw_final on 4x4 regions;
+    (d) cornell 400x400@64 d10 through the path and through the render
+    kernel's sorted plan, Mpaths/s (not gated); (e) phase 3's framebuffer
+    written as .bmp and .jpg and read back by io/native.py; (f)
+    tools/golden_check.py in a subprocess, every scene passing."""
+    import tempfile
+
+    import numpy as np
+
+    from zig_weekend_raytracer_tpu_torch.io import native
+    from zig_weekend_raytracer_tpu_torch.ops.bounce import supports_bounce_kernel
+    from zig_weekend_raytracer_tpu_torch.render.renderer import _render_band
+    from zig_weekend_raytracer_tpu_torch.utils import profiler, roofline, workcount
+
+    out = {}
+    scene = nested_scene(zt, "cuda")
+    cs = scene.compiled
+    if not (cs.has_nested_checker and cs.has_image_textures and cs.has_sph_tree):
+        raise AssertionError("phase 26's scene lost its nested checker, image or sphere tree")
+    if supports_bounce_kernel(cs):
+        raise AssertionError("a nested-checker scene would take the render kernels")
+    renderer = zt.render.Renderer(samples_per_pixel=NESTED_SPP, max_ray_bounce_depth=DEPTH)
+    spp_chunk, band_rows = renderer.chunk_geometry(scene, W, H, NESTED_SPP)
+
+    # (a) the path at full width
+    reset_counts(fused, integrator, ch, ttrace, tb)
+    integrator.trace_paths.bounces = 0
+    warm_s, times, fb = timed_renders(renderer, scene, torch, W, H)
+    counts = fixed_counts(fused, integrator, ch, ttrace, tb)
+    if counts["k3"] < 1 or counts["k3"] != counts["bounces"]:
+        raise AssertionError(f"fixed-depth path: {counts}: the kernel did not take every bounce")
+    if counts["plain_trace"] or counts["k1"] or counts["k2"] or counts["plain_kernels"]:
+        raise AssertionError(f"fixed-depth path ran something but the closest-hit kernel: {counts}")
+    fbn = fb.cpu().numpy()
+    if fbn.shape != (H, W, 3) or not np.isfinite(fbn).all() or not fbn.mean() > 0:
+        raise AssertionError("fixed-depth path: bad framebuffer")
+    best = min(times)
+    mpaths = W * H * NESTED_SPP / best / 1e6
+    # the device split and idle share of the render's first chunk (a trace
+    # of the whole render's 44,000 kernels takes the profiler 20 s): its
+    # best untraced wall time of three, then one traced run
+    chunk = lambda: _render_band(scene, 0, 0, 0, width=W, height=H, band_rows=band_rows,
+                                 spp_chunk=spp_chunk, spp=NESTED_SPP, max_depth=DEPTH,
+                                 sampler=renderer.sampler,
+                                 has_dof=scene.camera.has_depth_of_field)
+    chunk_walls = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        chunk()
+        torch.cuda.synchronize()
+        chunk_walls.append(time.perf_counter() - t0)
+    _, agg = profiler.run_with_device_trace(chunk)
+    k3_n, k3_ms = agg.get("closest_hit_kernel", (0, 0.0))
+    device_ms = sum(v[1] for v in agg.values())
+    idle = 1.0 - device_ms / (min(chunk_walls) * 1e3)
+    per_launch = k3_ms / max(k3_n, 1)
+    launches_per_render = counts["k3"] // 4
+    log(f"fixed-depth nested {W}x{H}@{NESTED_SPP} d{DEPTH}: warmup {warm_s:.3f} s, renders "
+        f"{[round(t, 4) for t in times]} s, best {best:.4f} s = {mpaths:.2f} Mpaths/s; "
+        f"{spp_chunk} spp x {band_rows} rows a chunk; closest-hit launches {counts['k3']} over 4 "
+        f"renders ({launches_per_render} a render), plain trace 0; its first chunk: best wall "
+        f"{min(chunk_walls) * 1e3:.3f} ms, device {device_ms:.3f} ms in "
+        f"{sum(v[0] for v in agg.values())} kernels, closest_hit_kernel {k3_ms:.3f} ms in {k3_n} "
+        f"launches ({per_launch:.4f} ms a launch, {k3_ms / max(device_ms, 1e-12):.1%} of device "
+        f"time), idle share {idle:.1%} ({card})")
+    out["main"] = {"render_s": times, "render_s_best": best, "warmup_s": warm_s,
+                   "mpaths_per_s": mpaths, "launches": counts["k3"],
+                   "launches_per_render": launches_per_render, "spp_chunk": spp_chunk,
+                   "band_rows": band_rows, "chunk_wall_ms": [t * 1e3 for t in chunk_walls],
+                   "chunk_device_ms": device_ms, "chunk_kernels": sum(v[0] for v in agg.values()),
+                   "k3_device_ms": k3_ms, "k3_chunk_launches": k3_n,
+                   "k3_ms_per_launch": per_launch, "idle_share": idle,
+                   "top_kernels": sorted(agg.items(), key=lambda kv: -kv[1][1])[:8]}
+
+    # (b) the kernel against the plain trace at the main path's shape: the
+    # first chunk again, its launches counted by live lanes and the rays of
+    # two bounces kept; then the 64x64 render against the plain trace's and
+    # the CPU's
+    t_part = time.perf_counter()
+    kernel_trace = ch.closest_hit
+    sizes, lives, held = [], [], {}
+
+    def keeping(cs_, o, d, tm, t_min, t_max=float("inf"), active=None):
+        b = len(lives)
+        sizes.append(o.x.numel())
+        lives.append(sizes[-1] if active is None else int(active.sum()))
+        if b in (0, NESTED_HELD_BOUNCE):
+            held[b] = (type(o)(*(x.clone() for x in o)), type(d)(*(x.clone() for x in d)),
+                       tm.clone(), t_min, t_max, None if active is None else active.clone())
+        return kernel_trace(cs_, o, d, tm, t_min, t_max, active=active)
+
+    # the kernel's wrapper counts its launches on the module's name, here
+    # this function: these launches are the check's and count nothing
+    keeping.launches = 0
+    ch.closest_hit = keeping
+    try:
+        chunk()
+    finally:
+        ch.closest_hit = kernel_trace
+    if NESTED_HELD_BOUNCE not in held or not 0 < lives[NESTED_HELD_BOUNCE] < sizes[0]:
+        raise AssertionError(f"fixed-depth path: the first chunk's live lanes {lives} give no "
+                             f"masked bounce {NESTED_HELD_BOUNCE}")
+    checks = []
+    for b, (o, d, tm, t_min, t_max, active) in sorted(held.items()):
+        rays = (o, d, tm)
+        hit_k = kernel_trace(cs, *rays, t_min, t_max, active=active)
+        ms_k = kernel_alone_ms(torch, hit_launcher(ch, cs, rays, t_min, t_max=t_max,
+                                                   active=active))
+        ms_p, hit_p = cuda_time_ms(lambda: ttrace.closest_hit(cs, *rays, t_min, t_max,
+                                                              active=active, walk="cond"))
+        tag = (f"fixed-depth nested {W}x{H}, chunk 0 ({spp_chunk} spp) bounce {b}: "
+               f"{lives[b]} of {sizes[b]} lanes live")
+        check = compare_hits(tag, hit_k, hit_p)
+        log(f"closest hit {tag}: kernel alone {ms_k:.4f} ms, plain {ms_p:.1f} ms")
+        checks.append({**check, "bounce": b, "live": lives[b], "ms": ms_k, "plain_ms": ms_p})
+    del held
+    t_small = time.perf_counter()
+    small = zt.render.Renderer(samples_per_pixel=NESTED_PARITY_SPP, max_ray_bounce_depth=DEPTH)
+    wp = NESTED_PARITY_W
+    ms_k, fb_k = cuda_time_ms(lambda: small.render_device(scene, wp, wp))
+    ch.closest_hit = (lambda cs_, o, d, tm, t_min, t_max=float("inf"), active=None:
+                      ttrace.closest_hit(cs_, o, d, tm, t_min, t_max, active=active, walk="cond"))
+    try:
+        with workcount.counting() as work:
+            ms_p, fb_p = cuda_time_ms(lambda: small.render_device(scene, wp, wp))
+    finally:
+        ch.closest_hit = kernel_trace
+    same = bool(torch.equal(fb_k, fb_p))
+    diff = float((fb_k - fb_p).abs().max())
+    t_cpu = time.perf_counter()
+    fb_cpu = small.render_device(nested_scene(zt, "cpu"), wp, wp).numpy()
+    log(f"fixed-depth path: (b) the chunk's bounces on the card {t_small - t_part:.1f} s, the "
+        f"64x64 renders {t_cpu - t_small:.1f} s, the CPU render {time.perf_counter() - t_cpu:.1f} s")
+    fk = fb_k.cpu().numpy()
+    agree = float(np.isclose(fk, fb_cpu, rtol=PIXEL_RTOL, atol=PIXEL_ATOL).all(-1).mean())
+    log(f"fixed-depth nested {wp}x{wp}@{NESTED_PARITY_SPP} d{DEPTH}: the kernel's render bitwise "
+        f"the plain trace's: {same} (max |diff| {diff:.3e}; {ms_k:.1f} ms vs {ms_p:.1f} ms); "
+        f"card vs CPU: {agree:.4%} of pixels within rtol 1e-5 / atol 1e-6, max |diff| "
+        f"{float(np.abs(fk - fb_cpu).max()):.3e}")
+    if not same:
+        raise AssertionError("fixed-depth path: the kernel's render differs from the plain trace's")
+    if agree < PIXEL_AGREE:
+        raise AssertionError(f"fixed-depth path: card vs CPU agree on {agree:.4%} of pixels")
+    out["parity"] = checks + [{
+        "check": f"fixed-depth nested {wp}x{wp}@{NESTED_PARITY_SPP} d{DEPTH}, kernel vs plain "
+                 "trace on the card (bitwise)",
+        "max_abs_err": diff, "ms": ms_k, "plain_ms": ms_p, "cpu_agree": agree}]
+    # the bound of one launch of (a), averaged over its first chunk's
+    # launches: the plain walk's counts per traced ray of the 64x64 render
+    # times the chunk's live lanes a launch; bytes by live and dead lanes
+    lanes, live = sum(sizes) / len(sizes), sum(lives) / len(lives)
+    per = {k: v * live / work["trace"] for k, v in work.items()}
+    bound, by = roofline.hit_bound_ms(per, cs, lanes, OPS_RATE["rate"], live=live)
+    out["bound_ms"], out["bound_by"] = bound, by
+    out["lanes"], out["live_lanes"] = sizes, lives
+    log(f"closest_hit_kernel on the fixed-depth path: {per_launch:.4f} ms a launch against a "
+        f"bound of {bound:.4f} ms ({by}; {lanes:.0f} lanes a launch, {live:.0f} live on "
+        f"average over the first chunk's {len(lives)} launches: {lives})")
+
+    # (f) starts now and overlaps (c) and (e)
+    t_golden = time.perf_counter()
+    golden_proc = start_cli([], module="zig_weekend_raytracer_tpu_torch.tools.golden_check")
+    try:
+        # (c) the goldens through the path that made them
+        gates = {}
+        for name in ("cornell_box", "balls", "emissive", "earth", "shrek_quads", "rtw_final"):
+            golden = np.load(os.path.join(REPO, "tests", "golden", f"{name}.npz"))
+            sc = zt.models.load_scene(name, device="cuda")
+            r = zt.render.Renderer(samples_per_pixel=int(golden["spp"]),
+                                   max_ray_bounce_depth=int(golden["depth"]),
+                                   seed=int(golden["seed"]))
+            fb_g = r._render_fixed_depth(sc, int(golden["width"]), int(golden["height"]))
+            grid = 4 if name == "rtw_final" else 8
+            ref = golden["fb"]
+            close = float(np.isclose(fb_g.cpu().numpy(), ref, rtol=PIXEL_RTOL,
+                                     atol=PIXEL_ATOL).all(-1).mean())
+            from zig_weekend_raytracer_tpu_torch.utils.goldengate import region_means
+
+            verdict = gate(f"fixed-depth {name} {ref.shape[1]}x{ref.shape[0]} "
+                           f"spp{int(golden['spp'])} d{int(golden['depth'])}, {grid}x{grid} "
+                           "regions", fb_g, ref.mean(), region_means(ref, grid))
+            log(f"fixed-depth {name}: {close:.2%} of pixels within rtol 1e-5 / atol 1e-6 of "
+                "the golden")
+            gates[name] = {"verdict": verdict, "pixels_close": close}
+        out["goldens"] = gates
+        log(f"fixed-depth path: (c) {time.perf_counter() - t_golden:.1f} s")
+
+        # (d) the cost of the general path on cornell
+        costs = {}
+        general = zt.render.Renderer(samples_per_pixel=FIXED_COST_SPP, max_ray_bounce_depth=DEPTH)
+        for tag, run in (("fixed-depth", lambda: general._render_fixed_depth(cornell, W, H)),
+                         ("render kernel, sorted plan",
+                          lambda: general.render_device(cornell, W, H))):
+            run()
+            torch.cuda.synchronize()
+            ts = []
+            for _ in range(2):
+                t0 = time.perf_counter()
+                run()
+                torch.cuda.synchronize()
+                ts.append(time.perf_counter() - t0)
+            costs[tag] = {"render_s": ts, "mpaths_per_s": W * H * FIXED_COST_SPP / min(ts) / 1e6}
+        log(f"cornell {W}x{H}@{FIXED_COST_SPP} d{DEPTH}: fixed-depth path "
+            f"{costs['fixed-depth']['mpaths_per_s']:.2f} Mpaths/s, render kernel (sorted plan) "
+            f"{costs['render kernel, sorted plan']['mpaths_per_s']:.2f} Mpaths/s ({card})")
+        out["cornell_cost"] = costs
+        log(f"fixed-depth path: (c) and (d) {time.perf_counter() - t_golden:.1f} s")
+
+        # (e) the writers, read back by the port's own decoder
+        want = zt.io.encode_pixels(fb_main.cpu().numpy())
+        with tempfile.TemporaryDirectory() as tmp:
+            paths = {ext: os.path.join(tmp, f"phase3.{ext}") for ext in ("bmp", "jpg")}
+            for path in paths.values():
+                zt.io.write_image(path, fb_main.cpu().numpy())
+            got = {ext: native.decode_image(open(path, "rb").read())
+                   for ext, path in paths.items()}
+        bmp_equal = bool(np.array_equal(got["bmp"], want))
+        mse = float(np.mean((got["jpg"].astype(np.float64) - want.astype(np.float64)) ** 2))
+        psnr = 10.0 * np.log10(255.0 ** 2 / max(mse, 1e-12))
+        log(f"writers: phase 3's {W}x{H} framebuffer as .bmp read back equal: {bmp_equal}; as "
+            f".jpg read back at {psnr:.2f} dB PSNR")
+        if not bmp_equal or psnr < JPEG_MIN_PSNR:
+            raise AssertionError(f"writers: bmp equal {bmp_equal}, jpeg {psnr:.2f} dB")
+        out["writers"] = {"bmp_equal": bmp_equal, "jpeg_psnr_db": psnr}
+    finally:
+        done, golden_s = finish_cli(golden_proc, t_golden)
+    lines = done.stdout.strip().splitlines()
+    for line in lines:
+        log(f"golden_check: {line}")
+    if done.returncode != 0 or len(lines) != 6 or not all(": pass" in x for x in lines):
+        raise AssertionError(f"tools/golden_check.py exited {done.returncode}: {done.stderr[-2000:]}")
+    log(f"fixed-depth path: (f) golden_check took {golden_s:.1f} s from its start")
+    out["golden_check"] = {"rc": done.returncode, "lines": lines, "wall_s": golden_s}
+    return out
+
+
 def est_kernel_times(zt, fused, torch, renderer, scene, card) -> dict:
     """The render kernel at the sorted plan of ``renderer`` (cornell
     400x400@1024 d10): the estimator instantiation (rr3) and the default
@@ -3041,6 +3380,10 @@ def main() -> int:
     checks += sharded["parity"]
     sh_launches = sharded["launches"]
 
+    # ---- 26. the fixed-depth path ----
+    phase("26")
+    fixed = phase_fixed_depth(zt, fused, tb, integrator, ch, ttrace, torch, cornell, fb, card)
+
     b_hit = hit_checks[1]
     k2_first = k2_one[0]
     k2_lut_first = k2_lut[0]
@@ -3147,14 +3490,17 @@ def main() -> int:
               rtw_final_mpaths_per_s=r_mpaths, rtw_final_peak_mib=peak_mb,
               region_gates=image_gates),
         entry("closest_hit_kernel", HIT_SOURCE, HIT_REPLACES, "closest_hit_kernel",
-              b_hit_launches + r_hit + l_hit + sum(aov_launches.values()),
+              b_hit_launches + r_hit + l_hit + sum(aov_launches.values())
+              + fixed["main"]["launches"],
               {"balls": b_hit_launches, "rtw_final": r_hit, "rtw_final LUT": l_hit,
-               **aov_launches}, hit_checks + hits22["checks"],
+               **aov_launches, "fixed-depth nested 400x400@64": fixed["main"]["launches"]},
+              hit_checks + hits22["checks"] + fixed["parity"],
               b_hit["ms"], b_hit["plain_ms"], bound_of(b_hit),
               "(kind, idx) and t bitwise equal on every ray; the AOV buffers bitwise",
               wrapper_ms=b_hit["wrapper_ms"], ray_sets=hits22["sets"],
               aov_pass=hits22["aov_pass"], denoise=hits22["denoise"],
               denoise_400_ms=hits22["denoise_400_ms"], cli_aov=hits22["cli"],
+              fixed_depth={k: v for k, v in fixed.items() if k != "parity"},
               note="ms: the kernel alone on the balls probe's 160,000 rays (phase 5); every "
                    "ray set's rounds of the kernel and its first design in ray_sets"),
         entry("fused_render_kernel (estimator: Russian roulette, indirect clamp)",

@@ -24,6 +24,9 @@
      1% of pixels; a ``--texture_lut`` render takes the whole-render path.
   5. The native writer's bytes equal the numpy encoder's and the JAX
      package's writer's for a seeded framebuffer; a failed write raises.
+     ``--image_out_path=x.jpg|x.jpeg|x.BMP`` writes the image, which the
+     port's decoder reads back: a BMP to the PPM's pixels, a JPEG to
+     within its loss; ``write_image`` writes .png, .jpg, .jpeg and .bmp.
   6. ``--profile=host`` prints the zone table; the device table's zones are
      the kernels' names.
   7. ``--aov`` writes three PNGs whose pixels (decoded with PIL, here only)
@@ -280,13 +283,25 @@ def test_scene_file_error_is_clean_as_jax(tmp_path, capsys):
 
 @pytest.mark.parametrize("ext", ["jpg", "jpeg", "BMP"])
 def test_refused_image_formats_exit_1_before_the_render(ext, tmp_path, capsys, caplog):
+    """.jpg, .jpeg and .bmp in any case are written (the name is the
+    test's from when the CLI refused them): exit 0 with the three stage
+    lines, and the file decodes (the port's stb_image) to the pixels of
+    the same render's PPM, exactly for a BMP, within a JPEG's loss."""
     out = tmp_path / f"x.{ext}"
-    argv = ["--image_width=4", "--image_height=4", f"--image_out_path={out}", "--aov=true"]
+    flags = ["--image_width=16", "--image_height=16", "--samples_per_pixel=2",
+             "--ray_bounce_max_depth=3"]
     with caplog.at_level(logging.INFO, logger="zwrt"):
-        assert tcli.main(argv, device="cpu") == 1
-    assert "the port writes .png and PPM images" in capsys.readouterr().err
-    assert not [r for r in caplog.records if r.name == "zwrt"]
-    assert not list(tmp_path.iterdir())
+        assert tcli.main(flags + [f"--image_out_path={out}"], device="cpu") == 0
+    assert [r.getMessage().split("\t")[1] for r in caplog.records
+            if r.name == "zwrt"] == list(STAGES)
+    assert tcli.main(flags + [f"--image_out_path={tmp_path / 'x.ppm'}"], device="cpu") == 0
+    want = _read_ppm(tmp_path / "x.ppm")
+    got = tnative.decode_image(out.read_bytes()).astype(np.int32)
+    assert got.shape == want.shape == (16, 16, 3)
+    if ext == "BMP":
+        np.testing.assert_array_equal(got, want)
+    else:
+        assert out.read_bytes()[:3] == b"\xff\xd8\xff" and np.abs(got - want).mean() < 8
 
 
 # ---- 4. renders ----
@@ -438,12 +453,18 @@ def test_png_encoder_decodes_to_its_pixels(shape, tmp_path):
 
 
 def test_write_image_png_and_refused_formats(tmp_path):
+    """Every format of the JAX package's write_image (the name is the
+    test's from when the port refused three): .png and .bmp decode to the
+    encoded pixels, .jpg and .jpeg to a JPEG of them."""
     fb = np.random.default_rng(3).uniform(0, 1, (4, 5, 3)).astype(np.float32)
     tppm.write_image(str(tmp_path / "w.png"), fb)
     np.testing.assert_array_equal(_png(tmp_path / "w.png"), jppm.encode_pixels(fb))
-    for ext in ("jpg", "jpeg", "bmp"):
-        with pytest.raises(ValueError, match="png"):
-            tppm.write_image(str(tmp_path / f"w.{ext}"), fb)
+    tppm.write_image(str(tmp_path / "w.bmp"), fb)
+    np.testing.assert_array_equal(_png(tmp_path / "w.bmp"), jppm.encode_pixels(fb))
+    for ext in ("jpg", "jpeg"):
+        tppm.write_image(str(tmp_path / f"w.{ext}"), fb)
+        got = _png(tmp_path / f"w.{ext}")
+        assert got.shape == (4, 5, 3) and got.dtype == np.uint8
 
 
 _NO_PIL = textwrap.dedent(

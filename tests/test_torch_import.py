@@ -8,7 +8,9 @@ image-texture, CLI, FP32-peak, sample-allocation and sharding slices are
 named, so that the walk cannot miss them.  A second subprocess runs the
 entry points that import lazily (the adaptive, progressive and
 supersampled renders, the scene-file loader, the CLI's freed flags, the
-sharded renders and ``--shard``) with the same hook."""
+sharded renders and ``--shard``, the fixed-depth wavefront of a nested
+checker scene, ``texture_value``, and the .bmp and .jpg writers) with the
+same hook."""
 
 import os
 import subprocess
@@ -49,7 +51,8 @@ _SCRIPT = _BLOCK + textwrap.dedent(
                  "utils.timer", "io.ppm", "models.emissive", "tools",
                  "tools.fp32_peak", "render.progressive", "render.adaptive",
                  "render.adaptive_device", "models.scenefile", "parallel",
-                 "parallel.mesh", "parallel.render"):
+                 "parallel.mesh", "parallel.render", "io.bmp", "io.jpeg",
+                 "tools.golden_check"):
         assert pkg.__name__ + "." + name in names, name
     import chip_smoke
     leaked = [m for m in sys.modules if m.split(".")[0] in BLOCKED]
@@ -62,6 +65,8 @@ _SCRIPT = _BLOCK + textwrap.dedent(
 _RUN = _BLOCK + textwrap.dedent(
     """
     import os, tempfile
+    import numpy as np
+    import torch
     import zig_weekend_raytracer_tpu_torch as zt
     from zig_weekend_raytracer_tpu_torch import cli
     from zig_weekend_raytracer_tpu_torch.render.progressive import ProgressiveRenderer
@@ -77,7 +82,23 @@ _RUN = _BLOCK + textwrap.dedent(
     for shard in ("samples", "rows"):
         zt.parallel.render_sharded(scene, 4, 4, 8, max_depth=3, mesh=mesh, shard=shard)
         zt.parallel.render_adaptive_sharded(scene, 4, 4, 8, max_depth=3, mesh=mesh, shard=shard)
+    b = zt.scene.SceneBuilder()
+    img = b.image_texture(np.full((2, 2, 3), 200, np.uint8))
+    inner = b.checkerboard(2.0, b.solid_color((1, 0, 0)), img)
+    b.add(b.quad((-4, -4, 0), (8, 0, 0), (0, 8, 0),
+                 b.lambertian(b.checkerboard(0.25, inner, b.solid_color((0, 0, 1))))))
+    b.set_camera(zt.scene.Camera(look_from=(0, 0, 9), look_at=(0, 0, 0)))
+    b.set_background((1.0, 1.0, 1.0))
+    nested = b.compile(device="cpu")
+    bounces = zt.render.integrator.trace_paths.bounces
+    fb = zt.render.Renderer(samples_per_pixel=2, max_ray_bounce_depth=2).render(nested, 4, 4)
+    assert zt.render.integrator.trace_paths.bounces > bounces
+    zero = torch.zeros(3)
+    zt.textures.texture_value(nested.compiled, torch.tensor([0, 1, 2], dtype=torch.int32),
+                              zero, zero, zt.math.v3.V3(zero, zero, zero))
     with tempfile.TemporaryDirectory() as tmp:
+        for ext in ("bmp", "jpg"):
+            zt.io.write_image(os.path.join(tmp, "n." + ext), fb)
         ProgressiveRenderer(r, os.path.join(tmp, "c.npz")).render(scene, 4, 4, batch_spp=4)
         ProgressiveRenderer(r, os.path.join(tmp, "s.npz"), shard="rows", mesh=mesh).render(
             scene, 4, 4, batch_spp=4)

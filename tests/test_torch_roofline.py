@@ -7,7 +7,8 @@ plain versions did on the CPU.
      one trace per bounce with every primitive tested, hits by material
      adding up to the bounces that hit.
   2. The tree walk on rtw_final's camera rays: slab tests, leaf visits and
-     leaf-slot tests by kind, each slot test a whole leaf's 8 x span slots.
+     leaf-slot tests by kind, each slot test a whole leaf's 8 x span slots;
+     a masked launch's traces and bytes by live and dead rays.
   3. The bound: operations from the per-unit table, bytes, and which of
      the two bounds it; each operation class at its own rate.
   4. A texture-LUT render: the fetch's operations and the LUT's bytes.
@@ -86,6 +87,32 @@ def test_tree_walk_counts():
     assert c["sphere_test"] + c["quad_test"] <= c["leaf_visit"] * spans
     assert (roofline.total(roofline.trace_ops(c))
             > c["slab_test"] * roofline.total(roofline.OPS["slab_test"]))
+
+
+def test_masked_hit_bytes_count_dead_rays_apart():
+    """A masked closest-hit launch: the plain walk counts the live rays'
+    traces, and the bytes are every ray's mask and hit plus a live ray's
+    origin, direction and time; a dead ray reads nothing else."""
+    sc = zt.models.load_scene("rtw_final", device="cpu")
+    cs = sc.compiled
+    w = 16
+    ys, xs = torch.meshgrid(torch.arange(w), torch.arange(w), indexing="ij")
+    px, py = xs.reshape(-1), ys.reshape(-1)
+    o, d, tm = tcam.generate_rays(
+        tcam.camera_params_from_consts(tcam.camera_consts(sc.camera, w, w)), False,
+        zt.sampling.SamplerKind.SOBOL, 0, py * w + px, px, py, torch.zeros_like(px), 1, w, w)
+    active = torch.from_numpy(np.random.default_rng(3).random(w * w) < 0.3)
+    with workcount.counting() as c:
+        ttrace.closest_hit(cs, o, d, tm, zt.dtypes.T_MIN, active=active)
+    live = int(active.sum())
+    assert c["trace"] == live < w * w
+    tables = roofline.trace_bytes(cs)
+    assert roofline.hit_bytes(cs, w * w, live) == w * w * 13 + live * 28 + tables
+    assert roofline.hit_bytes(cs, w * w, w * w) == roofline.hit_bytes(cs, w * w) + w * w
+    assert roofline.hit_bytes(cs, w * w, 0) == w * w * 13 + tables
+    ms, _ = roofline.hit_bound_ms(c, cs, w * w, live=live)
+    assert ms == pytest.approx(roofline.bound_ms(
+        roofline.trace_ops(c), roofline.hit_bytes(cs, w * w, live))[0])
 
 
 @pytest.mark.parametrize("ops,nbytes,by", [(33.5e12, 1.0, "operations"), (1.0, 3.35e12, "bytes")])

@@ -2,9 +2,9 @@
 
 Both builds are host numpy, so every table must be equal exactly, field by
 field, the image atlas included; ``compiled_from_arrays`` of the JAX
-scene's tables must give the same scene.  Nested checkers, a later slice,
-raise NotImplementedError; the unified tree (``ZWRT_UNI_TREE``) compiles and
-carries across.  Group trees are held to JAX's in test_torch_bvh.py and,
+scene's tables must give the same scene.  Nested checkers compile, with
+JAX's tables and flag, and carry across; the unified tree
+(``ZWRT_UNI_TREE``) compiles and carries across.  Group trees are held to JAX's in test_torch_bvh.py and,
 for the image scenes, here."""
 
 import numpy as np
@@ -68,14 +68,28 @@ def test_compiled_from_arrays_of_jax_tables(cornell_j):
         assert all(c.dtype == torch.float32 for c in getattr(got, f)), f
 
 
+def _nested_checker(pkg):
+    b = pkg.scene.SceneBuilder()
+    inner = b.checkerboard(2.0, b.solid_color((1.0, 0.0, 0.0)), b.solid_color((0.0, 1.0, 0.0)))
+    outer = b.checkerboard(0.25, inner, b.solid_color((0.0, 0.0, 1.0)))
+    b.add(b.quad((-4, -4, 0), (8, 0, 0), (0, 8, 0), b.lambertian(outer)))
+    return b
+
+
 def test_compiled_from_arrays_refuses_later_slices(cornell_j, monkeypatch):
-    """Nested checkers are refused; a JAX scene with the unified tree
-    carries across with its tree."""
+    """Nested checkers carry across with their flag (the name is the
+    test's from when the port refused them); a JAX scene with the unified
+    tree carries across with its tree."""
     cs = cornell_j.compiled
     fields = {f: np.asarray(getattr(cs, f)) for f in ARRAY_FIELDS}
     static = {f: getattr(cs, f) for f in STATIC_FIELDS}
-    with pytest.raises(NotImplementedError, match="slice"):
-        compiled_from_arrays(fields, {**static, "has_nested_checker": True}, "cpu")
+    assert compiled_from_arrays(fields, {**static, "has_nested_checker": True},
+                                "cpu").has_nested_checker
+    nj = _nested_checker(zj).compile().compiled
+    carried = compiled_from_arrays({f: np.asarray(getattr(nj, f)) for f in ARRAY_FIELDS},
+                                   {f: getattr(nj, f) for f in STATIC_FIELDS}, "cpu")
+    assert carried.has_nested_checker
+    _assert_same(carried, nj)
     monkeypatch.setenv("ZWRT_UNI_TREE", "1")
     cu = random_scene(zj, 11, 70, 70)[0]
     assert cu.has_uni_tree
@@ -142,22 +156,32 @@ def test_default_device_is_the_card():
 
 
 def test_builder_refuses_images_and_trees(monkeypatch):
-    """Images build into the atlas and image emitters compile, while
-    nested checkers raise (a later slice); use_bvh builds group trees from
-    TREE_MIN_PRIMS primitives of a kind on, and with ZWRT_UNI_TREE the
-    unified tree as well, once both kinds have trees."""
+    """Images build into the atlas and image emitters compile, and so do
+    nested checkers (the name is the test's from when they raised), their
+    record slots of the nested child neutral and unread, every table
+    JAX's; use_bvh builds group trees from TREE_MIN_PRIMS primitives of a
+    kind on, and with ZWRT_UNI_TREE the unified tree as well, once both
+    kinds have trees."""
     for nested in (False, True):
-        b = SceneBuilder()
-        img = b.image_texture(np.zeros((2, 2, 3), np.uint8))
-        solid = b.solid_color((0.5, 0.5, 0.5))
-        tex = b.checkerboard(1.0, b.checkerboard(1.0, solid, img), solid) if nested else img
-        b.add(b.sphere((0, 0, 0), 1.0, b.diffuse_light(tex) if not nested else b.lambertian(tex)))
+        def build(pkg):
+            b = pkg.scene.SceneBuilder()
+            img = b.image_texture(np.zeros((2, 2, 3), np.uint8))
+            solid = b.solid_color((0.5, 0.5, 0.5))
+            tex = b.checkerboard(1.0, b.checkerboard(1.0, solid, img), solid) if nested else img
+            b.add(b.sphere((0, 0, 0), 1.0,
+                           b.diffuse_light(tex) if not nested else b.lambertian(tex)))
+            return b
+
+        cs = build(zt).compile(device="cpu").compiled
+        assert cs.has_image_textures and cs.has_nested_checker == nested
         if nested:
-            with pytest.raises(NotImplementedError, match="nested checkers"):
-                b.compile(device="cpu")
+            assert not cs.has_emissive_image and not zt.ops.bounce.supports_bounce_kernel(cs)
+            row = cs.shade_rows[0].tolist()
+            assert row[17] == zt.scene.TEX_CHECKER and (row[18], row[28]) == (-1.0, -1.0)
+            assert row[19:22] == [1.0, 1.0, 1.0] and row[29] == 3.0  # the outer checker
+            _assert_same(cs, build(zj).compile().compiled)
         else:
-            cs = b.compile(device="cpu").compiled
-            assert cs.has_emissive_image and cs.has_image_textures
+            assert cs.has_emissive_image
     b = SceneBuilder()
     chk = b.checkerboard(1.0, b.solid_color((0.5, 0.5, 0.5)), b.image_texture(np.zeros((2, 3, 3), np.uint8)))
     b.add(b.sphere((0, 0, 0), 1.0, b.lambertian(chk)))

@@ -9,8 +9,8 @@
      a file scene renders bitwise as the Python scene does.
   2. Image paths resolve relative to the file.
   3. Each schema error raises JAX's exception type with JAX's message.
-  4. A checker of checkers, which JAX's loader accepts, is refused by the
-     port's scene compile (a later slice).
+  4. A checker of checkers, which JAX's loader accepts, compiles to JAX's
+     tables with the nested flag (the fixed-depth path renders it).
 """
 
 import json
@@ -197,6 +197,7 @@ def test_checker_of_checkers_is_a_later_slice(tmp_path):
     doc["textures"]["check2"] = {"checker": {"inv_scale": 1.0, "even": "check", "odd": "red"}}
     doc["materials"]["floor"] = {"lambertian": "check2"}
     path = _write(tmp_path, doc)
-    jload(path)  # the JAX package renders it on XLA
-    with pytest.raises(NotImplementedError, match="nested checkers"):
-        load_scene_file(path, device="cpu")
+    want = jload(path)  # the JAX package renders it on XLA
+    got = load_scene_file(path, device="cpu")
+    assert got.compiled.has_nested_checker and want.compiled.has_nested_checker
+    _assert_same(got.compiled, want.compiled)

@@ -15,7 +15,8 @@ same budget (JAX's XLA integrator reads the atlas).
      ``compiled_from_arrays`` carries them.
   4. Routing: ``supports_fused_render`` and ``supports_bounce_kernel`` on
      scenes without images, image scenes with and without a LUT, image
-     emitters with and without one, and nested checkers (refused); the
+     emitters with and without one, and nested checkers (neither kernel:
+     the fixed-depth path, tests/test_torch_fixed_depth.py); the
      kernels' packed image table (``image_args``) is the table the plain
      fetch reads.
   5. Renders of tests/test_texlut.py's image scene at 16x16, 4 spp, depth
@@ -259,8 +260,10 @@ def test_routing_matches_jax(kind, budget, fused):
 
 
 def test_nested_checker_is_refused():
-    """A checker of checkers: the JAX package renders it on XLA only; the
-    port refuses it at compile and when carried across."""
+    """A checker of checkers with a LUT: the JAX package renders it on XLA
+    only, and so does the port, on the fixed-depth path; it compiles to
+    JAX's tables, LUT included, and carries across (the name is the test's
+    from when the port refused it)."""
     def build(mod):
         b = mod.scene.SceneBuilder()
         solid = b.solid_color((0.5, 0.5, 0.5))
@@ -270,13 +273,16 @@ def test_nested_checker_is_refused():
 
     cj = _jax_compile(lambda: build(zj).compile(), NATIVE).compiled
     assert cj.has_nested_checker and not jpb.supports_bounce_kernel(cj)
-    with pytest.raises(NotImplementedError, match="nested checkers"):
-        build(zt).compile(device="cpu", texture_lut=NATIVE)
+    ct = build(zt).compile(device="cpu", texture_lut=NATIVE).compiled
     fields = {f: np.asarray(getattr(cj, f)) for f in ARRAY_FIELDS}
     fields["tex_lut_tab"] = np.asarray(cj.tex_lut_tab)
     static = {f: getattr(cj, f) for f in STATIC_FIELDS + ("has_nested_checker",)}
-    with pytest.raises(NotImplementedError, match="nested checkers"):
-        compiled_from_arrays(fields, static, "cpu")
+    carried = compiled_from_arrays(fields, static, "cpu")
+    for cs in (ct, carried):
+        assert cs.has_nested_checker and cs.tex_lut_dims == cj.tex_lut_dims
+        assert not tbounce.supports_bounce_kernel(cs) and not tbounce.supports_fused_render(cs)
+        np.testing.assert_array_equal(cs.tex_lut_tab.numpy(), np.asarray(cj.tex_lut_tab).reshape(-1))
+        np.testing.assert_array_equal(cs.shade_rows.numpy(), np.asarray(cj.shade_rows))
 
 
 @pytest.mark.parametrize("budget", [NATIVE, 8, 0])

@@ -9,7 +9,8 @@ a scene without images, or of an image scene with a texture LUT),
 ``csrc/bounce.cu`` (the bounce of image-texture scenes) and
 ``csrc/closest_hit.cu`` (the first-hit probe of tree scenes and the
 first-hit AOV pass, ``render/aov.py``, which guides the denoiser,
-``render/denoise.py``); the render
+``render/denoise.py``, and every bounce of the fixed-depth wavefront that
+renders scenes with nested checkers, ``render/integrator.py:trace_paths``); the render
 and bounce kernels take the tree walk that ``ZWRT_TRAV`` (queue, rowqueue,
 spec) or a scene compiled with ``ZWRT_UNI_TREE=1`` asks for.  Scenes live
 on the card unless built with ``device="cpu"``, where the same entry

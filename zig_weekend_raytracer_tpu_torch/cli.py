@@ -24,7 +24,7 @@ import time
 
 import torch
 
-from .io.ppm import REFUSED_EXTENSIONS, extension, write_image
+from .io.ppm import write_image
 from .models import DEFAULT_ASSET_DIR, SceneType, load_scene
 from .parallel import SHARD_MODES, make_mesh, render_adaptive_sharded, render_sharded
 from .render.renderer import Renderer
@@ -153,10 +153,6 @@ def main(argv=None, device="cuda") -> int:
     why = combination_error(args)
     if why is not None:
         print(f"error: {why}", file=sys.stderr)
-        return 1
-    if extension(args.image_out_path) in REFUSED_EXTENSIONS:
-        print(f"error: --image_out_path={args.image_out_path}: the port writes .png and PPM "
-              "images; .jpg, .jpeg and .bmp are a later slice (ROADMAP.md)", file=sys.stderr)
         return 1
     if torch.device(device).type == "cuda" and not torch.cuda.is_available():
         print("error: CUDA is not available: the port's CLI renders on the card",

@@ -90,7 +90,7 @@ def write_ppm(path: str, pixels_u8: np.ndarray, n_threads: int = 0) -> None:
 
 
 def decode_image(data: bytes) -> np.ndarray:
-    """Decode JPG/PNG bytes to (H, W, 3) uint8 with stb_image; raises
+    """Decode JPG/PNG/BMP bytes to (H, W, 3) uint8 with stb_image; raises
     ``ValueError`` when stb_image cannot decode them."""
     lib = load_library()
     w, h, c = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()

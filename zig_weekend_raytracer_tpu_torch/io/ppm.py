@@ -39,25 +39,29 @@ def write_ppm(path: str, fb, n_threads: int = 0) -> None:
     native.write_ppm(path, encode_pixels(fb), n_threads=n_threads)
 
 
-# formats the JAX package writes through PIL, which the port does not carry
-REFUSED_EXTENSIONS = ("jpg", "jpeg", "bmp")
-
-
 def extension(path: str) -> str:
     """The lower-case extension of ``path``, "" when it has none."""
     return path.rsplit(".", 1)[-1].lower() if "." in path else ""
 
 
 def write_image(path: str, fb, n_threads: int = 0) -> None:
-    """Write a linear-space framebuffer, the format chosen by extension:
-    ``.png`` encodes the same pixel bytes as a PNG (``io/png.py``);
-    ``REFUSED_EXTENSIONS`` raise; anything else is a P3 PPM."""
+    """Write a linear-space framebuffer, the format chosen by extension
+    (case-blind) as the JAX package chooses it: ``.png``, ``.jpg`` /
+    ``.jpeg`` and ``.bmp`` encode the same pixel bytes (``io/png.py``,
+    ``io/jpeg.py``, ``io/bmp.py``, no imaging package); anything else is a
+    P3 PPM."""
     ext = extension(path)
     if ext == "png":
         from .png import write_png
 
         write_png(path, encode_pixels(fb))
-    elif ext in REFUSED_EXTENSIONS:
-        raise ValueError(f"cannot write {path}: the port writes .png and PPM images")
+    elif ext in ("jpg", "jpeg"):
+        from .jpeg import write_jpeg
+
+        write_jpeg(path, encode_pixels(fb))
+    elif ext == "bmp":
+        from .bmp import write_bmp
+
+        write_bmp(path, encode_pixels(fb))
     else:
         write_ppm(path, fb, n_threads=n_threads)

@@ -3,8 +3,8 @@
 as data, through the builder the built-in scenes use, so every feature
 (textures, materials, instancing, trees, light lists) is reachable.  The
 schema, and the exceptions and messages of a schema error, are the JAX
-package's; a checker of checkers is refused by the scene compile, as
-every port scene refuses it.
+package's; a checker of checkers (its inner checker declared first)
+renders on the fixed-depth wavefront, as every port scene with one does.
 
 Schema (all vectors are 3-element lists; names are user-chosen keys):
 

@@ -28,8 +28,10 @@ them.
 
 Image-textured emitters take the kernel with or without a LUT, since the
 texel is read at the hit, before emission (the JAX kernel needs the LUT
-for them).  Nested checkers take no kernel in the JAX package; the port's
-scene compile refuses them.
+for them).  Nested checkers take neither this kernel nor the whole-render
+kernel, as in the JAX package: their colours do not fit one shade record,
+so the renderer takes the fixed-depth wavefront
+(``render/integrator.py:trace_paths``) for them.
 """
 
 from __future__ import annotations
@@ -54,18 +56,19 @@ from .trace import WALKS
 
 
 def supports_bounce_kernel(scene: CompiledScene) -> bool:
-    """True for every scene the port compiles.  Image emitters read their
-    texel at the hit, LUT or not, where JAX's gate lifts only with a LUT
-    (pallas_bounce.py:1626-1635); nested checkers, which would not fit one
-    shade record, are refused by the scene compile."""
-    return True
+    """True unless the scene has nested checkers, which do not fit one
+    shade record (pallas_bounce.py:1626-1635).  Image emitters read their
+    texel at the hit, LUT or not, where JAX's gate lifts only with a LUT."""
+    return not scene.has_nested_checker
 
 
 def supports_fused_render(scene: CompiledScene) -> bool:
     """The whole-render kernel reads images only from a texture LUT: scenes
-    without images, or with a LUT (pallas_bounce.py:1638-1644); other image
-    scenes take the bounce kernel's regenerating mode."""
-    return not scene.has_image_textures or bool(scene.tex_lut_dims)
+    without images, or with a LUT (pallas_bounce.py:1638-1644), and without
+    nested checkers; other image scenes take the bounce kernel's
+    regenerating mode."""
+    return supports_bounce_kernel(scene) and (
+        not scene.has_image_textures or bool(scene.tex_lut_dims))
 
 
 def _launch(scene, params, fstate, istate, lanes, regen, depth, flags=0):
@@ -75,6 +78,11 @@ def _launch(scene, params, fstate, istate, lanes, regen, depth, flags=0):
     device = fstate.device
     if scene.device != device:
         raise ValueError(f"scene is on {scene.device}, lanes on {device}")
+    if not supports_bounce_kernel(scene):
+        raise NotImplementedError(
+            "bounce_kernel does not take nested checkers: the renderer sends them "
+            "to the fixed-depth wavefront (render/integrator.py:trace_paths)"
+        )
     n = fstate.shape[1]
     lib = _build.load_library()
     ints, floats, (sampler, width, height, sample_end) = params

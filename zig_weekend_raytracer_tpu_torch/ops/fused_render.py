@@ -434,6 +434,11 @@ render_fused_variant.launches = dict.fromkeys(VARIANT_WALKS, 0)
 
 
 def _check_supported(scene):
+    if scene.has_nested_checker:
+        raise NotImplementedError(
+            "render_fused does not take nested checkers: the renderer sends them "
+            "to the fixed-depth wavefront (render/integrator.py:trace_paths)"
+        )
     if scene.has_image_textures and not scene.tex_lut_dims:
         raise NotImplementedError(
             "render_fused takes an image-texture scene only with a texture "

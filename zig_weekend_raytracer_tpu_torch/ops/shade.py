@@ -55,6 +55,7 @@ class ShadeAttrs(NamedTuple):
     refract: torch.Tensor
     img: torch.Tensor     # atlas image id of the texture (-1 = none)
     img2: torch.Tensor    # a checker's odd-child image id (-1 = none)
+    texid: torch.Tensor   # the material's texture id (the general walk's start)
 
 
 def build_shade_rows(
@@ -148,4 +149,5 @@ def shade_attrs(
         refract=cols[C_REFRACT],
         img=cols[C_IMG].to(torch.int32),
         img2=cols[C_IMG2].to(torch.int32),
+        texid=cols[C_TEXID].to(torch.int32),
     )

@@ -20,6 +20,12 @@ scene's gets a copy of its tables (``scene.compiled_on``).
     rows_local), rows_local = ceil(height / n); padded rows render clamped
     duplicates and are sliced off; the blocks are concatenated.
 
+Scenes that no render kernel takes (nested checkers) shard the fixed-depth
+wavefront instead, as the JAX package does: each device renders bands x
+sample chunks of ``_render_band`` over its slice, a chunk grid that
+overshoots a device's sample slice counting nothing past its cap
+(min(end, slice start + spp_local)), and the same reduction follows.
+
 The RNG is content-addressed by global ray id, so the sharded render is the
 single-device render up to float32 summation order; a one-device mesh is
 bitwise ``Renderer.render`` of a brute scene.  Brute scenes at one sample
@@ -33,6 +39,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import logging
 import os
 import weakref
 from typing import Optional
@@ -41,6 +48,7 @@ import numpy as np
 import torch
 
 from ..dtypes import real
+from ..ops.bounce import supports_bounce_kernel
 from ..ops.fused_render import THREADS
 from ..render.camera import camera_consts
 from ..render.renderer import (
@@ -55,6 +63,8 @@ from ..render.renderer import (
 from ..sampling.sampler import SamplerKind
 from ..scene import Scene, compiled_on
 from .mesh import SHARD_MODES, resolve_mesh
+
+log = logging.getLogger("zwrt")
 
 # Cost-sorted plans keyed weakly on the CompiledScene object (the policy of
 # ``render/renderer.py:memo_plan_entry``).  An entry's "plans" are
@@ -123,10 +133,15 @@ def render_sharded(
     s_end = min(sample0 + spp_now, spp)
     chunker = Renderer(
         samples_per_pixel=spp, max_rays_per_chunk=max_rays_per_chunk,
-        max_ray_bounce_depth=max_depth, sampler=sampler,
+        max_ray_bounce_depth=max_depth, sampler=sampler, seed=seed, russian_roulette=rr,
+        clamp_indirect=clamp,
         **({"regen_min_wave": regen_min_wave} if regen_min_wave is not None else {}),
     )
     cs = scene.compiled
+    if not supports_bounce_kernel(cs):
+        fbs, rows_local = _fixed_depth_shards(scene, chunker, width, height, sample0, spp_now,
+                                              s_end, mesh, shard)
+        return _gather(fbs, shard, height, rows_local, mesh) / (spp if normalize else 1)
     cam_c = camera_consts(scene.camera, width, height)
 
     if shard == "samples":
@@ -192,11 +207,39 @@ def render_sharded(
         entry["plans"] = [[tuple(torch.as_tensor(a, device=dev) for a in p) for p in bands]
                           for dev, bands in zip(mesh, per_dev)]
 
-    if shard == "samples":
-        fb = _reduce_sum([f[:height] for f in fbs], mesh[0])
-    else:
-        fb = torch.cat([f[:rows_local].to(mesh[0]) for f in fbs])[:height]
+    fb = _gather(fbs, shard, height, None if shard == "samples" else rows_local, mesh)
     return fb / spp if normalize else fb
+
+
+def _gather(fbs, shard: str, height: int, rows_local, mesh) -> torch.Tensor:
+    """The devices' framebuffers as one on ``mesh[0]``: in samples mode
+    their sum in device order, in rows mode their first ``rows_local`` rows
+    stacked."""
+    if shard == "samples":
+        return _reduce_sum([f[:height] for f in fbs], mesh[0])
+    return torch.cat([f[:rows_local].to(mesh[0]) for f in fbs])[:height]
+
+
+def _fixed_depth_shards(scene: Scene, chunker: Renderer, width: int, height: int,
+                        sample0: int, spp_now: int, s_end: int, mesh, shard: str):
+    """Each device's radiance-sum framebuffer of the fixed-depth wavefront
+    over its slice (``Renderer._fixed_depth_fb``); and the rows of a
+    device's slice in rows mode (None in samples mode)."""
+    n_dev = len(mesh)
+    if shard == "samples":
+        rows_local = None
+        spp_local = _cdiv(spp_now, n_dev)
+        starts = [sample0 + d * spp_local for d in range(n_dev)]
+        # the per-device cap: a chunk past a device's slice counts nothing
+        slices = [(0, height, s, spp_local, min(s_end, s + spp_local)) for s in starts]
+    else:
+        rows_local = _cdiv(height, n_dev)
+        slices = [(d * rows_local, rows_local, sample0, spp_now, s_end) for d in range(n_dev)]
+    fbs = []
+    for d, sc in enumerate(_scenes_on(scene, mesh)):
+        with _on(mesh[d]):
+            fbs.append(chunker._fixed_depth_fb(sc, *slices[d], width, height))
+    return fbs, rows_local
 
 
 def render_batch_sharded(
@@ -239,7 +282,7 @@ def render_adaptive_sharded(
 
     Returns the (H, W, 3) float32 tensor on ``mesh[0]``, and with
     ``return_stats`` a dict: ``n_samples`` (H, W) int64 and ``pilot``."""
-    from ..render.adaptive import pick_pilot
+    from ..render.adaptive import ADAPTIVE_UNIFORM, pick_pilot
     from ..render.adaptive_device import (
         allocate_extra_dev,
         build_adaptive_plan_dev,
@@ -262,6 +305,9 @@ def render_adaptive_sharded(
     pilot = pilot_spp or pick_pilot(spp)
     pilot = max(2, min(pilot, spp))
     pilot += pilot & 1  # two equal halves
+    if not supports_bounce_kernel(scene.compiled):
+        log.warning(ADAPTIVE_UNIFORM, spp)
+        pilot = spp
     if pilot >= spp:
         fb = render_sharded(scene, width, height, spp, max_depth=max_depth, sampler=sampler,
                             mesh=mesh, shard=shard, seed=seed,

@@ -21,6 +21,10 @@ Samplers: Sobol and independent; the stratified sampler's strata are fixed
 by spp, so it raises.  Ray ids are sample-major ((sample * H + py) * W +
 px), so a pixel's indices past spp never meet another pixel's stream; the
 u32 bound is checked against the largest index a pixel may reach.
+
+Scenes with nested checkers take no regenerating kernel: as in the JAX
+package, the adaptive render logs ``ADAPTIVE_UNIFORM`` and renders
+uniformly at spp (the fixed-depth wavefront), its count map uniform.
 """
 
 from __future__ import annotations
@@ -35,6 +39,10 @@ from ..dtypes import LUM_B, LUM_G, LUM_R, real
 from ..ops.fused_render import THREADS
 
 log = logging.getLogger("zwrt")
+# logged when a scene takes no regenerating kernel (nested checkers): the
+# render is the uniform one, as in the JAX package
+ADAPTIVE_UNIFORM = ("adaptive sampling needs the regenerating render path, which nested "
+                    "checkers leave; rendering uniformly at %d spp")
 
 # Half-width of the box that smooths the noise map: one pixel's
 # half-difference is chi-distributed (a lucky agreement reads as no noise),
@@ -160,6 +168,7 @@ def render_adaptive(renderer, scene, width: int, height: int, *, pilot_spp: int 
     proportion to its measured noise.  Returns the averaged (H, W, 3)
     float32 tensor on the scene's device (and with ``return_stats`` a dict:
     ``n_samples``, the (H, W) int64 count map, and ``pilot``)."""
+    from ..ops.bounce import supports_bounce_kernel
     from ..sampling.sampler import SamplerKind
     from .adaptive_device import plan_pipeline, plan_lane_budget, reserve_base
     from .camera import camera_consts
@@ -176,6 +185,9 @@ def render_adaptive(renderer, scene, width: int, height: int, *, pilot_spp: int 
     pilot = pilot_spp or pick_pilot(spp)
     pilot = max(2, min(pilot, spp))
     pilot += pilot & 1  # two equal halves
+    if not supports_bounce_kernel(scene.compiled):
+        log.warning(ADAPTIVE_UNIFORM, spp)
+        pilot = spp
     if pilot >= spp:
         fb = renderer.render_device(scene, width, height)
         if return_stats:

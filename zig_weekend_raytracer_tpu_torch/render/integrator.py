@@ -1,6 +1,5 @@
-"""The regenerating wavefront integrator (counterpart of
-``render/integrator.py``) and the plain PyTorch versions of the render
-kernels.
+"""The wavefront integrators (counterpart of ``render/integrator.py``) and
+the plain PyTorch versions of the render kernels.
 
 ``trace_paths_regen`` renders a lane plan: scenes without image textures,
 and image scenes with a texture LUT, go to the whole-render kernel
@@ -35,6 +34,15 @@ camera has depth of field.  All randomness is content-addressed by
 (seed, ray id, site): bounce d draws at sites 8 + 4d + k
 (k = 0 scatter, 1 light mixture, 2 gaussian triple, 3 Russian roulette).
 
+``trace_paths`` is the fixed-depth wavefront, the path of scenes that
+no render kernel takes (nested checkers: ``ops/bounce.py:
+supports_bounce_kernel``): one camera ray per lane, all lanes bouncing
+together while any is alive, up to ``max_depth`` bounces.  Each bounce is
+``bounce`` with the closest-hit kernel as its trace
+(``ops/closest_hit.py``: K3 on the card, its plain cond walk on the CPU);
+the rest of the bounce, the general texture walk of nested scenes
+included, is eager PyTorch, as the JAX package shades this path in XLA.
+
 Two estimator options, both off by default (the reference's semantics),
 follow the JAX package's kernels (``ops/pallas_bounce.py:_bounce_core``)
 and their gate (``_base_cfg``: off on an image scene without a texture
@@ -46,6 +54,9 @@ LUT; ``estimator_options``):
   * the indirect clamp: a contribution landed at bounce d >= 1 (the
     background at a miss, emission at a hit) is scaled so that its
     luminance is at most ``clamp``.
+
+``trace_paths`` gates both as the JAX package's does
+(``integrator.py:trace_paths``): off on every image scene, LUT or not.
 """
 
 from __future__ import annotations
@@ -71,7 +82,7 @@ from ..scene import (
     PRIM_SPHERE,
     CompiledScene,
 )
-from ..textures import checker_parity, image_lookup
+from ..textures import checker_parity, image_lookup, texture_value
 from ..utils import workcount
 from .camera import camera_params_from_consts, generate_rays
 from .pdfs import light_pdf_value, sample_light_direction
@@ -90,7 +101,13 @@ def texture_rgb(scene: CompiledScene, det):
     -> the lattice parity picks rgb / rgb2 or an image child; image -> the
     texel at (u, v), from the texture LUT when the scene has one (as the
     JAX whole-render kernel fetches it, pallas_bounce.py:1391-1401) and
-    from the atlas otherwise.  Returns (colour, image id or -1)."""
+    from the atlas otherwise.  Nested checkers do not fit the record: their
+    scenes take the general walk from the record's texture id
+    (``textures.py:texture_value``, the atlas texel, as in the JAX
+    package).  Returns (colour, image id or -1; None without record
+    images)."""
+    if scene.has_nested_checker:
+        return texture_value(scene, det.texid, det.u, det.v, det.point), None
     odd = (det.tex_kind == 1) & (checker_parity(det.inv_scale, det.point) != 0)
     rgb = V3.where(odd, det.rgb2, det.rgb)
     if not scene.has_image_textures:
@@ -135,12 +152,14 @@ def _count_bounce(alive, missed, hitmask, hit, det, img_id):
 def bounce(
     scene: CompiledScene, seed, t_min, depth: torch.Tensor,
     origin: V3, direction: V3, time, ray_id, throughput: V3, radiance: V3,
-    alive: torch.Tensor, rr_start: int = 0, clamp: float = 0.0,
+    alive: torch.Tensor, rr_start: int = 0, clamp: float = 0.0, *, trace=closest_hit,
 ):
     """One masked integrator bounce for every lane: the plain version of
     the bounce kernel's one-bounce mode.  ``depth`` is each lane's bounce
-    index; ``rr_start`` and ``clamp`` the estimator options, gated by
-    ``estimator_options``.  Returns (origin', direction', throughput',
+    index (or one for all); ``rr_start`` and ``clamp`` the estimator
+    options, gated by ``estimator_options``.  ``trace`` finds the hits
+    (``ops/trace.py:closest_hit``; ``trace_paths`` passes the closest-hit
+    kernel's wrapper).  Returns (origin', direction', throughput',
     radiance', survives)."""
     bounce.calls += 1
     rr_start, clamp = estimator_options(scene, rr_start, clamp)
@@ -155,7 +174,7 @@ def bounce(
     if rr_start:
         u_rr = hashrng.uniform1(seed, ray_id, site + 3)
 
-    hit = closest_hit(scene, origin, direction, time, t_min, INF, active=alive)
+    hit = trace(scene, origin, direction, time, t_min, INF, active=alive)
     det = shade_attrs(scene, hit, origin, direction, time)
 
     hit_any = hit.kind >= 0
@@ -258,6 +277,40 @@ def bounce(
 
 
 bounce.calls = 0
+
+
+def trace_paths(
+    scene: CompiledScene, origin: V3, direction: V3, time, seed, ray_id, max_depth: int,
+    rr_start: int = 0, clamp: float = 0.0,
+) -> V3:
+    """The fixed-depth wavefront (module doc): radiance of each ray of
+    (N,) ``origin``, ``direction``, ``time`` and u32 ``ray_id`` (int64),
+    bouncing every live lane together until none is alive or ``max_depth``
+    bounces have run.  Russian roulette from bounce ``rr_start`` and the
+    indirect ``clamp`` (0: off) are off on image scenes, as in the JAX
+    package's ``trace_paths``.  ``trace_paths.bounces`` counts bounces."""
+    from ..ops.closest_hit import closest_hit as closest_hit_kernel
+
+    if scene.has_image_textures:
+        rr_start, clamp = 0, 0.0
+    n = origin.shape[0]
+    dev = origin.x.device
+    throughput = V3.full((n,), 1.0, 1.0, 1.0, dev)
+    radiance = V3.zeros((n,), dev)
+    alive = torch.ones((n,), dtype=torch.bool, device=dev)
+    depth = 0
+    while depth < max_depth and bool(alive.any()):
+        trace_paths.bounces += 1
+        origin, direction, throughput, radiance, alive = bounce(
+            scene, seed, T_MIN, torch.tensor(depth, dtype=torch.int64, device=dev), origin,
+            direction, time, ray_id, throughput, radiance, alive, rr_start, clamp,
+            trace=closest_hit_kernel,
+        )
+        depth += 1
+    return radiance
+
+
+trace_paths.bounces = 0
 
 
 class RegenState(NamedTuple):
@@ -412,8 +465,12 @@ def trace_paths_regen(
     driver loop, whose passes ``trace_paths_regen.passes`` counts.
     ``rr_start`` and ``clamp`` are the estimator options (module
     docstring), off on the bounce kernel's atlas scenes."""
-    from ..ops.bounce import bounce_regen, supports_fused_render
+    from ..ops.bounce import bounce_regen, supports_bounce_kernel, supports_fused_render
     from ..ops.fused_render import render_fused
+
+    if not supports_bounce_kernel(scene):
+        raise ValueError("nested checkers take the fixed-depth wavefront (trace_paths), "
+                         "not the regenerating one")
 
     kw = dict(
         camera_consts=camera_consts, sampler=sampler, width=width,

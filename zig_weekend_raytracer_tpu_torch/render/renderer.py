@@ -1,4 +1,12 @@
-"""Render driver (counterpart of ``render/renderer.py``, regenerating path).
+"""Render driver (counterpart of ``render/renderer.py``).
+
+Scenes that no render kernel takes (nested checkers: ``ops/bounce.py:
+supports_bounce_kernel``) render on the fixed-depth wavefront, as in the
+JAX package: row bands times sample chunks (``Renderer.chunk_geometry``),
+each chunk one ``_render_band``, one camera ray per (pixel, sample) lane
+traced by ``render/integrator.py:trace_paths`` (the closest-hit kernel at
+every bounce on the card).  Every other scene renders on the regenerating
+path below.
 
 An image renders as row bands; each band is one call of
 ``render/integrator.py:trace_paths_regen`` over lanes that each own one
@@ -43,13 +51,14 @@ import numpy as np
 import torch
 
 from ..dtypes import real
+from ..ops.bounce import supports_bounce_kernel
 from ..ops.closest_hit import closest_hit
 from ..ops.fused_render import THREADS
 from ..sampling.sampler import SamplerKind
 from ..scene import Scene
 from ..utils.profiler import named_zone
-from .camera import camera_consts, camera_params_from_consts, generate_rays
-from .integrator import trace_paths_regen
+from .camera import camera_consts, camera_params, camera_params_from_consts, generate_rays
+from .integrator import trace_paths, trace_paths_regen
 
 log = logging.getLogger("zwrt")
 
@@ -150,6 +159,35 @@ def sorted_plan(work_lane: np.ndarray, width, band_rows, rows_eff, band_y0, n_it
     py = np.concatenate([ys[order] + band_y0, np.full(pad, band_y0, np.int64)])
     live = np.concatenate([np.ones(cost.size, np.int64), np.zeros(pad, np.int64)])
     return tuple(a.astype(np.int32) for a in (px, py, live))
+
+
+def _render_band(
+    scene: Scene, seed: int, band_y0: int, sample0: int, *, width: int, height: int,
+    band_rows: int, spp_chunk: int, spp: int, max_depth: int, sampler: SamplerKind,
+    has_dof: bool, sample_limit: Optional[int] = None, rr: int = 0, clamp: float = 0.0,
+) -> torch.Tensor:
+    """One (row band x sample chunk) of the fixed-depth wavefront: the
+    camera rays of samples [sample0, sample0 + spp_chunk) of the band's
+    pixels, traced by ``trace_paths`` with Russian roulette from bounce
+    ``rr`` and the indirect ``clamp`` (its gate: off on image scenes).
+    ``spp`` is the render's total (the samplers' geometry); sample indices
+    at or past ``sample_limit`` (default ``spp``) count nothing.  Returns
+    the (band_rows, width, 3) radiance sum over the chunk."""
+    cs = scene.compiled
+    tile = pick_tile(width, band_rows)
+    px, py, sidx, ray_id = ray_grid(
+        width, height, band_y0, band_rows, sample0, spp_chunk, tile, device=cs.device
+    )
+    origin, direction, time = generate_rays(
+        camera_params(scene.camera, width, height), has_dof, sampler, seed, ray_id, px, py,
+        sidx, spp, width, height,
+    )
+    with named_zone("rayColorLine"):
+        radiance = trace_paths(cs, origin, direction, time, seed, ray_id, max_depth,
+                               rr_start=rr, clamp=clamp)
+    valid = sidx < (spp if sample_limit is None else sample_limit)
+    rad = radiance.to_array() * valid[:, None]
+    return unflatten_radiance(rad, width, band_rows, spp_chunk, tile).sum(dim=0)
 
 
 def _render_band_regen(
@@ -330,6 +368,16 @@ class Renderer:
                 raise RuntimeError(
                     f"Renderer(device={self.device!r}): CUDA is not available"
                 )
+
+    def chunk_geometry(self, scene: Scene, width: int, height: int, spp_req: int):
+        """(spp_chunk, band_rows) of the fixed-depth wavefront: as many
+        samples per chunk as ``max_rays_per_chunk`` lanes hold, then rows
+        split if one sample of the image is still larger.  The JAX package
+        caps scenes on its XLA BVH at ``max_rays_per_chunk_bvh``; the port
+        has no XLA BVH, so that cap stays unused."""
+        spp_chunk = max(1, min(spp_req, self.max_rays_per_chunk // max(width * height, 1)))
+        band_rows = max(1, min(height, self.max_rays_per_chunk // (width * spp_chunk)))
+        return spp_chunk, band_rows
 
     def regen_geometry(self, width: int, height: int, spp: int):
         """(s_par, band_rows): just enough samples in flight per pixel to
@@ -519,6 +567,8 @@ class Renderer:
                 f"ray id space {width}x{height}x{spp} exceeds u32; reduce spp"
             )
         has_dof = scene.camera.has_depth_of_field
+        if not supports_bounce_kernel(cs):
+            return self._render_fixed_depth(scene, width, height)
         s_par, band_rows = self.regen_geometry(width, height, spp)
         n_bands = -(-height // band_rows)
         fb = torch.zeros((n_bands * band_rows, width, 3), dtype=real, device=cs.device)
@@ -554,3 +604,30 @@ class Renderer:
                 )
             fb[y0 : y0 + band_rows] += out
         return fb[:height] / spp
+
+    def _render_fixed_depth(self, scene: Scene, width: int, height: int) -> torch.Tensor:
+        """The fixed-depth wavefront of the whole image, averaged."""
+        spp = self.samples_per_pixel
+        return self._fixed_depth_fb(scene, 0, height, 0, spp, spp, width, height)[:height] / spp
+
+    def _fixed_depth_fb(self, scene: Scene, y0: int, rows: int, sample0: int, n_samples: int,
+                        sample_limit: int, width: int, height: int) -> torch.Tensor:
+        """The radiance-sum framebuffer of rows [y0, y0 + rows) over samples
+        [sample0, sample0 + n_samples) of the fixed-depth wavefront: bands x
+        chunks of ``_render_band``, sample indices at or past
+        ``sample_limit`` counting nothing.  (n_bands * band_rows, width, 3)
+        on the scene's device, its padded rows included."""
+        spp_chunk, band_rows = self.chunk_geometry(scene, width, rows, n_samples)
+        n_bands = -(-rows // band_rows)
+        fb = torch.zeros((n_bands * band_rows, width, 3), dtype=real,
+                         device=scene.compiled.device)
+        for b in range(n_bands):
+            for c in range(-(-n_samples // spp_chunk)):
+                fb[b * band_rows : (b + 1) * band_rows] += _render_band(
+                    scene, self.seed, y0 + b * band_rows, sample0 + c * spp_chunk,
+                    width=width, height=height, band_rows=band_rows, spp_chunk=spp_chunk,
+                    spp=self.samples_per_pixel, max_depth=self.max_ray_bounce_depth,
+                    sampler=self.sampler, has_dof=scene.camera.has_depth_of_field,
+                    sample_limit=sample_limit, **self._estimator(),
+                )
+        return fb

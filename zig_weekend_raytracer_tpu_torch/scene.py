@@ -19,9 +19,11 @@ emitters are ordinary materials.  With ``ZWRT_UNI_TREE`` set at compile,
 a scene whose two kinds both have trees also gets the unified both-kind
 tree (``uni_tree_*``), which the render and bounce kernels then walk in
 place of the two per-kind trees; the per-kind trees stay for the
-first-hit probe.  Out of scope (ROADMAP.md): nested checkers, which the
-JAX package renders only on XLA; asking for one raises
-``NotImplementedError``.
+first-hit probe.  A checker of checkers cannot flatten into one shade
+record: the scene sets ``has_nested_checker``, the record's ``texid``
+column names its texture and the renderer takes the fixed-depth wavefront
+(``render/renderer.py:_render_band``), whose shading walks the texture
+table (``textures.py:texture_value``).
 """
 
 from __future__ import annotations
@@ -57,12 +59,6 @@ TREE_MIN_PRIMS = 64
 
 _F = real_np
 _I = np.int32
-
-_SLICE_NESTED = (
-    "nested checkers (a checker of checkers) are a later slice of the port: "
-    "the JAX package renders them only on XLA, never in a kernel (ROADMAP.md)"
-)
-
 
 # ---------------------------------------------------------------------------
 # Camera (host-side)
@@ -181,13 +177,14 @@ ARRAY_FIELDS = (
     "quad_start", "quad_u", "quad_v", "quad_normal", "quad_w", "quad_offset",
     "quad_area", "quad_mat",
     "mat_type", "mat_tex", "mat_albedo", "mat_fuzz", "mat_refract",
-    "tex_type", "tex_rgb", "tex_inv_scale", "tex_even", "tex_odd",
+    "tex_type", "tex_rgb", "tex_inv_scale", "tex_even", "tex_odd", "tex_img",
     "background", "shade_rows", "atlas_packed", "atlas_wh",
 )
 STATIC_FIELDS = (
     "n_spheres", "n_quads", "n_materials", "n_textures", "has_moving",
     "needs_gauss", "lights", "light_params", "background_rgb",
     "has_image_textures", "image_dims", "has_emissive_image", "tex_lut_dims",
+    "has_nested_checker",
 )
 # Per-kind group trees (``CompiledScene.sph_tree_*`` / ``quad_tree_*``):
 # node boxes, links and the leaf-slot attribute tuple (7 sphere or 13 quad
@@ -204,12 +201,6 @@ TREE_STATIC_FIELDS = (
 # leaf-slot attribute tuple, laid out as the per-kind trees' attributes.
 UNI_FIELDS = ("uni_tree_box", "uni_tree_link", "uni_sph_attrs", "uni_quad_attrs")
 UNI_STATIC_FIELDS = ("has_uni_tree", "uni_leaf_span")
-# Feature flags of the JAX scene that the port cannot render when set.
-_UNSUPPORTED_FLAGS = {
-    "has_nested_checker": _SLICE_NESTED,
-}
-
-
 @dataclass(frozen=True, eq=False)
 class CompiledScene:
     """SoA scene tables as tensors on ``device``, plus static metadata.
@@ -241,6 +232,8 @@ class CompiledScene:
     tex_inv_scale: torch.Tensor
     tex_even: torch.Tensor
     tex_odd: torch.Tensor
+    # each texture's atlas image id (0 unless an image)
+    tex_img: torch.Tensor
     background: V3
     # (n_spheres + n_quads, 32) per-prim shading records (ops/shade.py)
     shade_rows: torch.Tensor
@@ -298,6 +291,9 @@ class CompiledScene:
     # 128-aligned, and its static (width, height, base offset)
     tex_lut_tab: Optional[torch.Tensor] = None
     tex_lut_dims: Tuple[Tuple[int, int, int], ...] = ()
+    # True iff a checker has a checker child: the kernels' shade record
+    # cannot hold its colours, so the fixed-depth wavefront renders it
+    has_nested_checker: bool = False
     has_sph_tree: bool = False
     has_quad_tree: bool = False
     # Leaf spans in groups of 8 slots (geometry/bvh.py:pick_leaf_span),
@@ -335,10 +331,7 @@ def compiled_from_arrays(fields: dict, static: dict, device) -> CompiledScene:
     (R, 128) table is taken flat).  ``static`` maps each name in
     ``STATIC_FIELDS`` to its value, may carry ``TREE_STATIC_FIELDS`` and
     ``UNI_STATIC_FIELDS``, and may carry the JAX scene's other feature
-    flags, which are checked.  A CUDA ``device`` without a GPU raises."""
-    for flag, why in _UNSUPPORTED_FLAGS.items():
-        if static.get(flag):
-            raise NotImplementedError(why)
+    flags, which are ignored.  A CUDA ``device`` without a GPU raises."""
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
@@ -394,6 +387,7 @@ def compiled_from_arrays(fields: dict, static: dict, device) -> CompiledScene:
     )
     kw["background_rgb"] = tuple(float(v) for v in kw["background_rgb"])
     kw["has_image_textures"] = bool(kw["has_image_textures"])
+    kw["has_nested_checker"] = bool(kw["has_nested_checker"])
     kw["image_dims"] = tuple((int(w), int(h)) for w, h in kw["image_dims"])
     # the tensors' device carries the index ("cuda" -> "cuda:0")
     return CompiledScene(device=kw["shade_rows"].device, **kw)
@@ -705,10 +699,13 @@ def _shade_block(materials, textures, mat_id: int) -> list:
 
             def child_rgb_img(tid):
                 # an image child gets the neutral albedo and its image id;
-                # the atlas colour replaces it at the hit
+                # the atlas colour replaces it at the hit.  A checker child
+                # leaves its slots unread: the general walk shades it
                 child = textures[tid]
                 if child["kind"] == TEX_IMAGE:
                     return (1.0, 1.0, 1.0), child["img"]
+                if child["kind"] == TEX_CHECKER:
+                    return (1.0, 1.0, 1.0), -1
                 return child["rgb"], -1
 
             rgb, img = child_rgb_img(t["even"])
@@ -881,10 +878,6 @@ def _compile_tables(
     spheres, quads, materials, textures, images, light_entries, background,
     device, build_trees, lut_budget,
 ) -> CompiledScene:
-    # a checker of checkers cannot flatten into one shade record
-    if any(c["kind"] == TEX_CHECKER for t in textures for c in _checker_children(textures, t)):
-        raise NotImplementedError(_SLICE_NESTED)
-
     spheres, sph_perm = _morton_sort(
         spheres, lambda s: np.asarray(s["center"], np.float64)
     )
@@ -959,6 +952,7 @@ def _compile_tables(
     tex_inv_scale = np.zeros((n_t,), _F)
     tex_even = np.zeros((n_t,), _I)
     tex_odd = np.zeros((n_t,), _I)
+    tex_img = np.zeros((n_t,), _I)
     for i, t in enumerate(textures):
         tex_type[i] = t["kind"]
         if t["kind"] == TEX_SOLID:
@@ -967,6 +961,8 @@ def _compile_tables(
             tex_inv_scale[i] = t["inv_scale"]
             tex_even[i] = t["even"]
             tex_odd[i] = t["odd"]
+        else:
+            tex_img[i] = t["img"]
 
     from .ops.shade import SHADE_BLOCK, build_shade_rows, dedupe_material_ids
 
@@ -1045,7 +1041,7 @@ def _compile_tables(
         "mat_fuzz": mat_fuzz, "mat_refract": mat_refract,
         "tex_type": tex_type, "tex_rgb": tex_rgb.T,
         "tex_inv_scale": tex_inv_scale, "tex_even": tex_even,
-        "tex_odd": tex_odd,
+        "tex_odd": tex_odd, "tex_img": tex_img,
         "background": bg, "shade_rows": shade_rows,
         "atlas_packed": atlas_packed, "atlas_wh": atlas_wh,
         "tex_lut_tab": tex_lut_tab,
@@ -1081,6 +1077,9 @@ def _compile_tables(
             for m in materials
         ),
         "tex_lut_dims": tex_lut_dims,
+        "has_nested_checker": any(
+            c["kind"] == TEX_CHECKER for t in textures for c in _checker_children(textures, t)
+        ),
         **{k: trees[k] for k in TREE_STATIC_FIELDS + UNI_STATIC_FIELDS},
     }
     return compiled_from_arrays(fields, static, device)

@@ -3,8 +3,13 @@ straight from the shade record; a checker picks one of its two record
 colours by the 3D lattice parity of the hit point; an image is a
 nearest-texel fetch, byte -> linear by the gamma-2 square, from the
 scene's packed atlas (``atlas_*``) or, when the scene has one, from its
-texture LUT (``lut_*``).  The general walk of nested checkers belongs to a
-later slice (ROADMAP.md)."""
+texture LUT (``lut_*``).
+
+``texture_value`` is the general walk over the texture table, which
+scenes with nested checkers (a checker of checkers) shade with: checkers
+resolve to their parity-selected child for ``_CHECKER_MAX_DEPTH`` levels,
+then the texture gives its solid colour or its texel, always from the
+atlas (the LUT is a lossy copy), as the JAX package's walk does."""
 
 from __future__ import annotations
 
@@ -12,8 +17,12 @@ import torch
 
 from .dtypes import real
 from .math.v3 import V3
+from .scene import TEX_CHECKER, TEX_IMAGE
 
 _INV_255 = float(torch.tensor(1.0 / 255.0, dtype=real))
+# checker levels the general walk resolves (the reference recurses; real
+# scenes nest a checker in a checker at most)
+_CHECKER_MAX_DEPTH = 4
 
 
 def checker_parity(inv_scale, point: V3) -> torch.Tensor:
@@ -115,3 +124,25 @@ def lut_lookup(scene, img_id, u, v) -> V3:
     """Nearest-texel fetch of image ``img_id`` at (u, v) from the scene's
     texture LUT."""
     return _lookup(_lut_dims(scene.tex_lut_dims), scene.tex_lut_tab, img_id, u, v)
+
+
+def _resolve_checker(scene, tex_id, point: V3) -> torch.Tensor:
+    """Each checker texture id redirected to its parity-selected child,
+    ``_CHECKER_MAX_DEPTH`` times; other ids stay."""
+    for _ in range(_CHECKER_MAX_DEPTH):
+        t = tex_id.to(torch.int64)
+        parity = checker_parity(scene.tex_inv_scale[t], point)
+        child = torch.where(parity == 0, scene.tex_even[t], scene.tex_odd[t])
+        tex_id = torch.where(scene.tex_type[t] == TEX_CHECKER, child, tex_id)
+    return tex_id
+
+
+def texture_value(scene, tex_id, u, v, point: V3) -> V3:
+    """Linear colour of texture ``tex_id`` ((N,) int32) at each hit: the
+    general walk (module doc).  An image texel comes from the atlas."""
+    t = _resolve_checker(scene, tex_id, point).to(torch.int64)
+    solid = V3(*(c[t] for c in scene.tex_rgb))
+    if not scene.has_image_textures:
+        return solid
+    image = atlas_lookup(scene, scene.tex_img[t], u, v)
+    return V3.where(scene.tex_type[t] == TEX_IMAGE, image, solid)

@@ -190,16 +190,22 @@ def trace_bytes(scene) -> int:
     return n
 
 
-def hit_bytes(scene, n_rays: int) -> int:
-    """Bytes of a closest-hit launch: each ray's origin, direction and time
-    in (28) and its (t, kind, idx) out (12), and the trace's tables."""
-    return n_rays * (28 + 12) + trace_bytes(scene)
+def hit_bytes(scene, n_rays: int, live=None) -> float:
+    """Bytes of a closest-hit launch and the trace's tables.  Unmasked
+    (``live`` None): each ray's origin, direction and time in (28) and its
+    (t, kind, idx) out (12).  Masked, ``live`` of the ``n_rays`` rays alive:
+    every ray's mask byte in and its hit out (13), and a live ray's origin,
+    direction and time (28); a dead ray reads nothing else."""
+    if live is None:
+        return n_rays * (28 + 12) + trace_bytes(scene)
+    return n_rays * (1 + 12) + live * 28 + trace_bytes(scene)
 
 
-def hit_bound_ms(counts, scene, n_rays: int, ops_rate=None):
+def hit_bound_ms(counts, scene, n_rays: int, ops_rate=None, live=None):
     """(ms, by) of the closest-hit kernel on ``n_rays`` rays whose plain
-    version counted ``counts`` (``bound_ms``)."""
-    return bound_ms(trace_ops(counts), hit_bytes(scene, n_rays), ops_rate)
+    version counted ``counts`` (``bound_ms``); ``live`` as in
+    ``hit_bytes``."""
+    return bound_ms(trace_ops(counts), hit_bytes(scene, n_rays, live), ops_rate)
 
 
 def aov_bound_ms(counts, scene, n_rays: int, hits: int, sphere_hits: int, pixels: int,
