@@ -266,7 +266,21 @@ Phases (any failure exits nonzero):
      phase 3's framebuffer written as .bmp and .jpg and read back by
      io/native.py: the BMP equal to its pixels, the JPEG at >= 30 dB PSNR;
      (f) python -m zig_weekend_raytracer_tpu_torch.tools.golden_check in a
-     subprocess (overlapping (c) and (e)), every scene passing.
+     subprocess (overlapping (c) and (e)), every scene passing;
+ 27. the user tools of zig_weekend_raytracer_tpu_torch/tools/ in this
+     process through their entry points, each with its counts set to 0
+     just before and read just after (its kernels launched, no plain
+     version): (a) scenebench balls 400 400 128 10 and rtw_final 400 400 64
+     8, each framebuffer bitwise phase 7's and 11's, then cornell 400x400@1024
+     d10 with --rr=3, --clamp=10, --adaptive, --shard=samples (one card:
+     bitwise phase 3's), --supersample=2 and --denoise=3; nan=False, the
+     Mpaths/s beside phases 3, 7 and 11; (b) shard_overhead at its defaults
+     (exit 0); (c) lut_quality on shrek_quads at its defaults and on
+     rtw_final at 32768 texels (LUT active, every figure finite; rtw_final's
+     delta beside phase 14's); (d) quality_prodres at its defaults, one
+     scene a call (four rows, finite MSE ratios); (e) imgdiff on phase 3's
+     framebuffer as PPM against itself (mse 0) and as .jpg against the PPM,
+     in process and as the command line, and a missing path (exit 1).
 
 The record has one entry per kernel and mode: the render kernel on brute
 scenes (cornell, emissive, and phase 25's cornell paths), on tree scenes
@@ -284,6 +298,8 @@ the render kernel (its launches on phase 24's russian_roulette=3 path, its
 time at that path's plan, every driver of phase 24 beside it) and of the
 bounce kernel (parity only: the atlas gate keeps it off every path), and
 the FP32-peak chain kernel.
+Phase 27's tools add their launches to the entries of the kernels and modes
+they ran (``launches_by_path`` names each tool run).
 The measurement variants of phases 20 and 22 are not kernels of any path: their
 launches are counted apart (``variant_launches``).  Each carries its registers
 and spill from the build, its times, its launches on its path and its
@@ -2828,6 +2844,179 @@ def phase_fixed_depth(zt, fused, tb, integrator, ch, ttrace, torch, cornell, fb_
     return out
 
 
+def phase_tools(zt, fused, tb, integrator, ch, ttrace, torch, fbs, figures, card) -> dict:
+    """Phase 27: the user tools of ``zig_weekend_raytracer_tpu_torch/tools/``
+    on the card, in this process through their entry points, each with its
+    counts set to 0 just before and read just after (the kernels it must
+    launch launched, no plain version ran): (a) scenebench: balls 400x400@128
+    d10 and rtw_final 400x400@64 d8 (their framebuffers bitwise phases 7 and
+    11's render_device), then cornell 400x400@1024 d10 with --rr=3,
+    --clamp=10, --adaptive, --shard=samples (one card: bitwise phase 3's),
+    --supersample=2 and --denoise=3, every line nan=False, Mpaths/s beside
+    phases 3, 7 and 11; (b) shard_overhead at its defaults, exit 0; (c)
+    lut_quality on shrek_quads at its defaults and on rtw_final at 32768
+    texels, the LUT active, every figure finite; (d) quality_prodres at its
+    defaults, one scene a call, four rows with finite MSE ratios; (e)
+    imgdiff: phase 3's framebuffer as PPM against itself (mse 0) and as
+    .jpg (written as phase 26(e) writes it) against the PPM, in process
+    and as the command line; a missing path exits 1."""
+    import io
+    import tempfile
+
+    import numpy as np
+
+    from zig_weekend_raytracer_tpu_torch.tools import (
+        imgdiff, lut_quality, quality_prodres, scenebench, shard_overhead)
+
+    t_phase = time.perf_counter()
+    fb_main, fb_balls, fb_rtw = fbs
+    out = {"runs": {}, "launches": {k: {} for k in (
+        "K1 brute", "K1 tree", "K1 LUT", "K1 estimator", "K2 regen", "K3")}}
+
+    def run(tag, fn, need, joins):
+        """fn() with the counts set to 0 before and read after, its stdout
+        and stderr kept; ``need`` the counts that must be positive,
+        ``joins`` {record key: count key} of the launches it adds."""
+        reset_counts(fused, integrator, ch, ttrace, tb)
+        so, se = io.StringIO(), io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(so), contextlib.redirect_stderr(se):
+            res = fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = {"k1": launched(fused.render_fused),
+                  "k1_estimator": fused.render_fused.estimator_launches,
+                  "k2": launched(tb.bounce_regen), "k2_one_bounce": launched(tb.bounce),
+                  "k3": ch.closest_hit.launches, "plain": plain_calls(integrator, ttrace)}
+        for line in (so.getvalue() + se.getvalue()).splitlines():
+            log(f"  {tag}: {line}")
+        log(f"{tag}: {wall:.1f} s; counts {counts}")
+        if counts["plain"] or counts["k2_one_bounce"] or any(counts[k] < 1 for k in need):
+            raise AssertionError(f"{tag}: the tool did not run through its kernels alone "
+                                 f"(needs {need}): {counts}")
+        for key, c in joins.items():
+            out["launches"][key][tag] = counts[c]
+        out["runs"][tag] = {"wall_s": wall, "counts": counts, "stdout": so.getvalue(),
+                            "stderr": se.getvalue()}
+        return res, so.getvalue()
+
+    # (a) scenebench
+    bench = {}
+    cases = (
+        ("balls", ["balls", "400", "400", "128", "10"], ("k1", "k3"),
+         {"K1 tree": "k1", "K3": "k3"}, fb_balls, figures["balls"]),
+        ("rtw_final", ["rtw_final", "400", "400", "64", "8"], ("k2", "k3"),
+         {"K2 regen": "k2", "K3": "k3"}, fb_rtw, figures["rtw_final"]),
+        ("--rr=3", ["cornell_box", "400", "400", "1024", "10", "--rr=3"], ("k1_estimator",),
+         {"K1 estimator": "k1_estimator"}, None, figures["cornell"]),
+        ("--clamp=10", ["cornell_box", "400", "400", "1024", "10", "--clamp=10"],
+         ("k1_estimator",), {"K1 estimator": "k1_estimator"}, None, figures["cornell"]),
+        ("--adaptive", ["cornell_box", "400", "400", "1024", "10", "--adaptive"], ("k1",),
+         {"K1 brute": "k1"}, None, figures["cornell"]),
+        ("--shard=samples", ["cornell_box", "400", "400", "1024", "10", "--shard=samples"],
+         ("k1",), {"K1 brute": "k1"},
+         fb_main if torch.cuda.device_count() == 1 else None, figures["cornell"]),
+        ("--supersample=2", ["cornell_box", "400", "400", "1024", "10", "--supersample=2"],
+         ("k1",), {"K1 brute": "k1"}, None, figures["cornell"]),
+        ("--denoise=3", ["cornell_box", "400", "400", "1024", "10", "--denoise=3"],
+         ("k1", "k3"), {"K1 brute": "k1", "K3": "k3"}, None, figures["cornell"]),
+    )
+    for tag, argv, need, joins, want, beside in cases:
+        res, text = run(f"scenebench {tag}", lambda: scenebench.bench(argv), need, joins)
+        lines = text.splitlines()
+        head = lines[0]
+        mp = float(head.split(" Mpaths/s)")[0].rsplit("(", 1)[1])
+        if "nan=False" not in head or not bool(torch.isfinite(res["fb"]).all()):
+            raise AssertionError(f"scenebench {tag}: {head}")
+        bitwise = None if want is None else bool(torch.equal(res["fb"], want))
+        log(f"scenebench {tag}: {mp:.1f} Mpaths/s beside the main path's {beside:.2f} "
+            f"(phases 3, 7, 11); bitwise the same configuration's render_device: {bitwise} "
+            f"({card})")
+        if bitwise is False:
+            raise AssertionError(f"scenebench {tag}: not the render_device framebuffer")
+        if tag == "--denoise=3" and (len(lines) != 2 or res["denoised"] is None
+                                     or not bool(torch.isfinite(res["denoised"]).all())):
+            raise AssertionError(f"scenebench {tag}: no denoise line or a bad image")
+        bench[tag] = {"lines": lines, "mpaths_per_s": mp, "phase_mpaths_per_s": beside,
+                      "bitwise_render_device": bitwise}
+    out["scenebench"] = bench
+
+    # (b) shard_overhead at its defaults
+    rc, text = run("shard_overhead", lambda: shard_overhead.main([]), ("k1",),
+                   {"K1 brute": "k1"})
+    line = json.loads(text.splitlines()[-1])
+    log(f"shard_overhead: exit {rc}; overhead samples {line['overhead_samples']}, rows "
+        f"{line['overhead_rows']} ({card})")
+    if rc != 0 or not (line["agree_samples"] and line["agree_rows"]):
+        raise AssertionError(f"shard_overhead: exit {rc}, {line}")
+    out["shard_overhead"] = line
+
+    # (c) lut_quality
+    luts = {}
+    for tag, argv in (("shrek_quads", ["shrek_quads"]), ("rtw_final 32768", ["rtw_final", "32768"])):
+        rc, text = run(f"lut_quality {tag}", lambda: lut_quality.main(argv), ("k1", "k2"),
+                       {"K1 LUT": "k1", "K2 regen": "k2"})
+        summary = json.loads(text.splitlines()[-1])
+        figs = [v for r in summary["rows"] for k, v in r.items()
+                if k not in ("budget", "lut_active")]
+        if rc != 0 or not all(r["lut_active"] for r in summary["rows"]) or not all(
+                v is not None and np.isfinite(v) for v in figs):
+            raise AssertionError(f"lut_quality {tag}: exit {rc}, {summary}")
+        luts[tag] = summary
+    rtw_row = luts["rtw_final 32768"]["rows"][0]
+    log(f"lut_quality rtw_final 32768 texels (400x400@64 d10): mse {rtw_row['mse_vs_exact']}, "
+        f"max |diff| {rtw_row['max_abs']} against the exact (atlas) render; beside phase 14's "
+        f"mean |diff| {figures['lut_32k_mean_abs_diff']:.4e} against the native-budget render "
+        f"(400x400@64 d8; not compared: other references and depths; {card})")
+    out["lut_quality"] = luts
+
+    # (d) quality_prodres at its defaults, one scene a call
+    rows = []
+    for scene_name, joins in (("cornell_box", {"K1 brute": "k1", "K3": "k3"}),
+                              ("balls", {"K1 tree": "k1", "K3": "k3"})):
+        rc, text = run(f"quality_prodres {scene_name}",
+                       lambda: quality_prodres.main([scene_name]), ("k1", "k3"), joins)
+        if rc != 0:
+            raise AssertionError(f"quality_prodres {scene_name}: exit {rc}")
+        rows += [json.loads(x) for x in text.splitlines()[:-1]]
+    if len(rows) != 4 or not all(np.isfinite(v) for r in rows for v in r["mse_ratio"].values()):
+        raise AssertionError(f"quality_prodres: {rows}")
+    for r in rows:
+        log(f"quality_prodres {r['scene']} {r['size']}x{r['size']}@{r['spp']} (ref "
+            f"{r['ref_spp']}, {r['seeds']} seeds): mse uniform {r['mse_uniform']}, ratios "
+            f"{r['mse_ratio']}, wall {r['wall_s']} s ({card})")
+    out["quality_prodres"] = rows
+
+    # (e) imgdiff on phase 3's framebuffer; no kernel
+    with tempfile.TemporaryDirectory() as tmp:
+        ppm, jpg = os.path.join(tmp, "phase3.ppm"), os.path.join(tmp, "phase3.jpg")
+        host = fb_main.cpu().numpy()
+        zt.io.write_image(ppm, host)
+        zt.io.write_image(jpg, host)
+        missing = os.path.join(tmp, "missing.png")
+        t0 = time.perf_counter()
+        cli = {k: start_cli(a, module="zig_weekend_raytracer_tpu_torch.tools.imgdiff")
+               for k, a in (("jpg", [jpg, ppm]), ("missing", [missing, ppm]))}
+        so = io.StringIO()
+        with contextlib.redirect_stdout(so):
+            rc_same = imgdiff.main([ppm, ppm])
+            rc_jpg = imgdiff.main([jpg, ppm])
+        same, vs_jpg = so.getvalue().splitlines()
+        done = {k: finish_cli(p, t0)[0] for k, p in cli.items()}
+    log(f"imgdiff: {same} (exit {rc_same}); {vs_jpg} (exit {rc_jpg}); command line: "
+        f"{done['jpg'].stdout.strip()} (exit {done['jpg'].returncode}); a missing path: exit "
+        f"{done['missing'].returncode}, {done['missing'].stderr.strip()!r}")
+    if (rc_same, rc_jpg, done["jpg"].returncode) != (0, 0, 0) or "mse=0.000e+00" not in same \
+            or done["jpg"].stdout.split(": ", 1)[1].strip() != vs_jpg.split(": ", 1)[1] \
+            or done["missing"].returncode == 0:
+        raise AssertionError("imgdiff: wrong exit codes or statistics")
+    out["imgdiff"] = {"same": same, "jpg": vs_jpg, "cli_jpg": done["jpg"].stdout.strip(),
+                      "missing_rc": done["missing"].returncode}
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"phase 27: {out['seconds']:.1f} s")
+    return out
+
+
 def est_kernel_times(zt, fused, torch, renderer, scene, card) -> dict:
     """The render kernel at the sorted plan of ``renderer`` (cornell
     400x400@1024 d10): the estimator instantiation (rr3) and the default
@@ -3384,6 +3573,13 @@ def main() -> int:
     phase("26")
     fixed = phase_fixed_depth(zt, fused, tb, integrator, ch, ttrace, torch, cornell, fb, card)
 
+    # ---- 27. the user tools ----
+    phase("27")
+    tools = phase_tools(zt, fused, tb, integrator, ch, ttrace, torch, (fb, b_fb, r_fb),
+                        {"cornell": mpaths, "balls": b_mpaths, "rtw_final": r_mpaths,
+                         "lut_32k_mean_abs_diff": s_diff}, card)
+    tl = tools["launches"]
+
     b_hit = hit_checks[1]
     k2_first = k2_one[0]
     k2_lut_first = k2_lut[0]
@@ -3445,8 +3641,10 @@ def main() -> int:
     record = {"kernels": [
         entry("fused_render_kernel (brute)", KERNEL_SOURCE, KERNEL_REPLACES,
               f"fused_render_kernel<false, {DEFAULT_WALK}>",
-              launches + e_k1 + sum(sh_launches["K1 brute"].values()),
-              {"cornell": launches, "emissive": e_k1, **sh_launches["K1 brute"]}, checks,
+              launches + e_k1 + sum(sh_launches["K1 brute"].values())
+              + sum(tl["K1 brute"].values()),
+              {"cornell": launches, "emissive": e_k1, **sh_launches["K1 brute"],
+               **tl["K1 brute"]}, checks,
               kernel_ms, plain_ms, k1_bound,
               render_tol, plain_spp=plain_spp, kernel_ms_at_plain_spp=kernel_ms_same,
               render_s_best=best, mpaths_per_s=mpaths, region_gate=verdict,
@@ -3455,15 +3653,15 @@ def main() -> int:
               emissive_bound_ms=e_bound["bound_ms"], emissive_bound_by=e_bound["bound_by"]),
         entry("fused_render_kernel (tree)", KERNEL_SOURCE, KERNEL_REPLACES,
               f"fused_render_kernel<false, {DEFAULT_WALK}>",
-              b_launches + sum(sh_launches["K1 tree"].values()),
-              {"balls": b_launches, **sh_launches["K1 tree"]}, tree_checks,
+              b_launches + sum(sh_launches["K1 tree"].values()) + sum(tl["K1 tree"].values()),
+              {"balls": b_launches, **sh_launches["K1 tree"], **tl["K1 tree"]}, tree_checks,
               b_kernel_ms, b_slice["plain_ms"], k1_tree_bound, render_tol,
               plain_lanes=SLICE_LANES, kernel_ms_at_plain_lanes=b_slice["ms"],
               balls_render_s_best=b_best, balls_mpaths_per_s=b_mpaths,
               balls_region_gates=balls_gates),
         entry("fused_render_kernel (texture LUT)", KERNEL_SOURCE, KERNEL_LUT_REPLACES,
-              f"fused_render_kernel<true, {DEFAULT_WALK}>", l_k1, {"rtw_final LUT": l_k1},
-              lut_checks,
+              f"fused_render_kernel<true, {DEFAULT_WALK}>", l_k1 + sum(tl["K1 LUT"].values()),
+              {"rtw_final LUT": l_k1, **tl["K1 LUT"]}, lut_checks,
               l_kernel_ms, l_slice["plain_ms"], k1_lut_bound, render_tol,
               plain_lanes=SLICE_LANES // 2, kernel_ms_at_plain_lanes=l_slice["ms"],
               rtw_final_render_s_best=l_best, rtw_final_mpaths_per_s=l_mpaths,
@@ -3482,8 +3680,8 @@ def main() -> int:
               note="parity only: no main path runs the one-bounce mode"),
         entry("bounce_kernel (regenerating)", BOUNCE_SOURCE, BOUNCE_REPLACES,
               f"bounce_kernel<true, {DEFAULT_WALK}>",
-              r_k2 + sum(sh_launches["K2 regen"].values()),
-              {"rtw_final": r_k2, **sh_launches["K2 regen"]}, k2_checks, k2_ms,
+              r_k2 + sum(sh_launches["K2 regen"].values()) + sum(tl["K2 regen"].values()),
+              {"rtw_final": r_k2, **sh_launches["K2 regen"], **tl["K2 regen"]}, k2_checks, k2_ms,
               k2_slice["plain_ms"], k2_bound, render_tol, plain_lanes=SLICE_LANES,
               kernel_ms_at_plain_lanes=k2_slice["ms"],
               driver_passes_per_band=passes / max(bands, 1), rtw_final_render_s_best=r_best,
@@ -3491,9 +3689,10 @@ def main() -> int:
               region_gates=image_gates),
         entry("closest_hit_kernel", HIT_SOURCE, HIT_REPLACES, "closest_hit_kernel",
               b_hit_launches + r_hit + l_hit + sum(aov_launches.values())
-              + fixed["main"]["launches"],
+              + fixed["main"]["launches"] + sum(tl["K3"].values()),
               {"balls": b_hit_launches, "rtw_final": r_hit, "rtw_final LUT": l_hit,
-               **aov_launches, "fixed-depth nested 400x400@64": fixed["main"]["launches"]},
+               **aov_launches, "fixed-depth nested 400x400@64": fixed["main"]["launches"],
+               **tl["K3"]},
               hit_checks + hits22["checks"] + fixed["parity"],
               b_hit["ms"], b_hit["plain_ms"], bound_of(b_hit),
               "(kind, idx) and t bitwise equal on every ray; the AOV buffers bitwise",
@@ -3505,7 +3704,8 @@ def main() -> int:
                    "ray set's rounds of the kernel and its first design in ray_sets"),
         entry("fused_render_kernel (estimator: Russian roulette, indirect clamp)",
               EST_SOURCE, KERNEL_REPLACES, f"fused_render_kernel<false, {DEFAULT_WALK}, estimator>",
-              est_launches, {"cornell russian_roulette=3": est_launches}, est_render,
+              est_launches + sum(tl["K1 estimator"].values()),
+              {"cornell russian_roulette=3": est_launches, **tl["K1 estimator"]}, est_render,
               est_times["ms"], est_cornell["plain_ms"], est_bound, render_tol,
               plain_lanes=32 * 32, default_kernel_ms_same_lanes=est_times["default_ms"],
               pairs_ms=est_times["pairs_ms"], sobol_past_spp=est["checks"][-1],
@@ -3533,7 +3733,7 @@ def main() -> int:
                  f"where the kernel took {peak['kernel_ms_at_plain_shape']:.4f} ms",
          **{k: peak[k] for k in ("gops", "gflops", "best_shape", "physics_bound",
                                  "time_ratio_4x", "sass")}},
-    ], "cli": cli_checks, "sharded": sharded, "ops_rates": OPS_RATE["rate"],
+    ], "cli": cli_checks, "sharded": sharded, "tools": tools, "ops_rates": OPS_RATE["rate"],
         "default_walk_balls_span2": b_default, "samplers": sampler_checks, "design": design,
         "variant_launches": {**variant_launches,
                              "closest_hit_flat": hits22["flat_launches"]},

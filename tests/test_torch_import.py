@@ -9,8 +9,9 @@ named, so that the walk cannot miss them.  A second subprocess runs the
 entry points that import lazily (the adaptive, progressive and
 supersampled renders, the scene-file loader, the CLI's freed flags, the
 sharded renders and ``--shard``, the fixed-depth wavefront of a nested
-checker scene, ``texture_value``, and the .bmp and .jpg writers) with the
-same hook."""
+checker scene, ``texture_value``, the .bmp and .jpg writers, and the user
+tools ``scenebench``, ``shard_overhead``, ``lut_quality``,
+``quality_prodres`` and ``imgdiff``) with the same hook."""
 
 import os
 import subprocess
@@ -52,7 +53,8 @@ _SCRIPT = _BLOCK + textwrap.dedent(
                  "tools.fp32_peak", "render.progressive", "render.adaptive",
                  "render.adaptive_device", "models.scenefile", "parallel",
                  "parallel.mesh", "parallel.render", "io.bmp", "io.jpeg",
-                 "tools.golden_check"):
+                 "tools.golden_check", "tools.scenebench", "tools.shard_overhead",
+                 "tools.lut_quality", "tools.quality_prodres", "tools.imgdiff"):
         assert pkg.__name__ + "." + name in names, name
     import chip_smoke
     leaked = [m for m in sys.modules if m.split(".")[0] in BLOCKED]
@@ -108,6 +110,16 @@ _RUN = _BLOCK + textwrap.dedent(
         assert cli.main(["--image_width=4", "--image_height=4", "--samples_per_pixel=4",
                          "--shard=samples", "--image_out_path=" + os.path.join(tmp, "s.ppm")],
                         device="cpu") == 0
+        from zig_weekend_raytracer_tpu_torch.tools import (
+            imgdiff, lut_quality, quality_prodres, scenebench, shard_overhead)
+        tiny = ["4", "4", "2", "2", "1", "--device=cpu"]
+        assert scenebench.main(["cornell_box", *tiny, "--denoise=1"]) == 0
+        assert shard_overhead.main(tiny) == 0
+        assert lut_quality.main(["shrek_quads", "64", "--spp=2", "--size=4", "--depth=2",
+                                 "--device=cpu"]) == 0
+        assert quality_prodres.main(["cornell_box", "--size=4", "--spp=2", "--seeds=1",
+                                     "--ref_spp=2", "--device=cpu"]) == 0
+        assert imgdiff.main([os.path.join(tmp, "a.ppm"), os.path.join(tmp, "s.ppm")]) == 0
     leaked = [m for m in sys.modules if m.split(".")[0] in BLOCKED]
     assert not leaked, leaked
     print("ran")

@@ -5,7 +5,8 @@ Encoding (reference: src/writer/writer.zig:68-94): NaN scrub to 0, gamma-2
 sqrt, clamp to [0, 0.999], * 256 truncated to u8, one "r g b" line per
 pixel.  ``write_ppm`` formats the text with the native threaded writer
 (``io/native.py``); a failed build or write raises.  ``encode_ppm_bytes``
-is its plain numpy version, which the tests hold the native bytes to.
+is its plain numpy version, which the tests hold the native bytes to;
+``decode_ppm_bytes`` reads the P3 file back.
 """
 
 from __future__ import annotations
@@ -29,6 +30,23 @@ def encode_ppm_bytes(pixels_u8: np.ndarray) -> bytes:
     flat = pixels_u8.reshape(-1, 3)
     lines = lut[flat[:, 0]] + b" " + lut[flat[:, 1]] + b" " + lut[flat[:, 2]] + b"\n"
     return f"P3\n{w} {h}\n255\n".encode() + b"".join(lines.tolist())
+
+
+def decode_ppm_bytes(data: bytes) -> np.ndarray:
+    """(H, W, 3) uint8 pixels of a P3 (plain text) PPM with maxval 255, the
+    format ``write_ppm`` writes and stb_image does not read; '#' comments
+    are skipped.  Raises ``ValueError`` on any other file."""
+    lines = [ln.split(b"#", 1)[0] for ln in data.splitlines()]
+    tokens = b" ".join(lines).split()
+    if len(tokens) < 4 or tokens[0] != b"P3":
+        raise ValueError("not a P3 PPM")
+    w, h, maxval = (int(t) for t in tokens[1:4])
+    if maxval != 255 or len(tokens) != 4 + 3 * w * h:
+        raise ValueError(f"P3 PPM of {w}x{h}, maxval {maxval}: {len(tokens) - 4} samples")
+    px = np.array(tokens[4:], dtype=np.int64)
+    if px.min(initial=0) < 0 or px.max(initial=0) > 255:
+        raise ValueError("P3 PPM sample outside [0, 255]")
+    return px.astype(np.uint8).reshape(h, w, 3)
 
 
 def write_ppm(path: str, fb, n_threads: int = 0) -> None:

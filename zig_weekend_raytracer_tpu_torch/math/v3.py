@@ -59,6 +59,10 @@ class V3(NamedTuple):
 
     # -- constructors ----------------------------------------------------------
     @staticmethod
+    def of(x, y, z) -> "V3":
+        return V3(torch.as_tensor(x), torch.as_tensor(y), torch.as_tensor(z))
+
+    @staticmethod
     def full(shape, vx, vy, vz, device) -> "V3":
         return V3(
             torch.full(shape, vx, dtype=real, device=device),
@@ -70,6 +74,11 @@ class V3(NamedTuple):
     def zeros(shape, device) -> "V3":
         z = torch.zeros(shape, dtype=real, device=device)
         return V3(z, z, z)
+
+    @staticmethod
+    def from_array(a: torch.Tensor) -> "V3":
+        """(..., 3) -> V3 of (...,) components."""
+        return V3(a[..., 0], a[..., 1], a[..., 2])
 
     def to_array(self) -> torch.Tensor:
         """V3 -> (..., 3)."""
@@ -96,6 +105,14 @@ def cross(a: V3, b: V3) -> V3:
     )
 
 
+def length_squared(a: V3) -> torch.Tensor:
+    return dot(a, a)
+
+
+def length(a: V3) -> torch.Tensor:
+    return torch.sqrt(dot(a, a))
+
+
 def normalize(a: V3) -> V3:
     return a * torch.rsqrt(dot(a, a))
 
@@ -111,6 +128,10 @@ def refract(vn: V3, n: V3, index) -> V3:
     r_out_perp = (vn + n * cos_theta) * index
     r_out_parallel = n * (-torch.sqrt(torch.abs(1.0 - dot(r_out_perp, r_out_perp))))
     return r_out_perp + r_out_parallel
+
+
+def lerp(a: V3, b: V3, t) -> V3:
+    return a + (b - a) * t
 
 
 class OrthoBasisV(NamedTuple):

@@ -304,6 +304,10 @@ class CompiledScene:
     uni_leaf_span: int = 32
 
     @property
+    def n_lights(self) -> int:
+        return len(self.lights)
+
+    @property
     def has_lights(self) -> bool:
         return len(self.lights) > 0
 
