@@ -137,7 +137,14 @@ Phases (any failure exits nonzero):
      rtw_final's 160,000 camera rays, all of them live and with every other
      lane dead (the warp's lanes diverge at the trace), and under cond and
      uni the render kernel with a native-budget LUT on rtw_final; each
-     walk's plain version against the cond walk's on the same inputs;
+     walk's plain version against the cond walk's on the same inputs; the
+     unified tree at the port's span (the bounce kernel's regenerating
+     mode and the render kernel with the LUT); the uni kernels at both
+     spans against the plain cond walk of the unified tree
+     (ops/trace.py:uni_cond_walk), whose work counts price the uni walk's
+     bounds, as the cond walk's price the spec walk's (walk_bound_counts);
+     and a launch of the queue, spec and uni walks with a queue one entry
+     short of the tree's leaves, refused (short_queue_refused);
  18. the walks on the slice's path at full width and a cut spp, on phase
      17's scenes at leaf span 2, each with its counts set to 0 just before
      and read just after: rtw_final 400x400@16 d8 under the default walk
@@ -150,7 +157,14 @@ Phases (any failure exits nonzero):
      version, the kernel's time at the plan's lanes, each framebuffer within
      rtol 1e-5 / atol 1e-6 of the default walk's render of the same scene
      on >= 99.9% of pixels, and rtw_final's region gates of phase 12 on the
-     unified-tree render;
+     unified-tree render; then rtw_final at the port's span under the
+     default walk and under uni, both kernels; then each redesigned walk
+     (spec: K1 balls, K2 rtw_final; uni: K1 LUT and K2 on rtw_final, at
+     span 2 and at the port's span) against its first design (the
+     kFlagFirstWalk variant) at its path's plan in 5 alternating rounds,
+     at the port's span the default walk's kernel in the rounds too, the
+     outputs held to the new design's with phase 2's tolerances: times,
+     wins, the bound, registers and spills of both instantiations;
  19. the respawn under every sampler: the render kernel on the
      all-materials scene (a moving sphere, an isotropic medium) and the
      bounce kernel's regenerating mode on it with an image quad, at 32x32,
@@ -173,7 +187,8 @@ Phases (any failure exits nonzero):
      Mpaths/s, kernel time and peak device memory, every render against the
      JAX-span cond render (differing pixels counted); rtw_final with the
      LUT at the winning setting; cond against queue at the port's span in
-     5 alternating pairs on both scenes;
+     5 alternating pairs on both scenes; the uni walk on rtw_final at each
+     span, and uni against queue at the port's span in 5 pairs;
  22. the closest-hit kernel's redesign and the AOV pass: on the first-hit
      probe's 160,000 rays of balls and rtw_final and the AOV pass's 692,224
      rays (400x400@4 in 32x32 tiles, padded) of cornell, balls and
@@ -840,12 +855,13 @@ def plan_parity(zt, fused, integrator, scene, plan, spp, card, tag, depth=DEPTH,
 
 
 def render_bound(zt, scene, counts, kernel_work, lane_bytes, has_dof, spp,
-                 loop_sobol=False) -> dict:
+                 loop_sobol=False, walk=None) -> dict:
     """The roofline bound of a render-kernel run at W x H, ``spp`` spp,
     whose lanes did ``kernel_work`` bounces in all, from the plain
     version's ``counts`` on a slice scaled by that bounce count, the Sobol
     respawn in its factored form (or its bit loops); ``lane_bytes`` is what
-    the lanes read and write.  Each operation class at phase 1b's rate."""
+    the lanes read and write, beside the tables the trace reads under
+    ``walk``.  Each operation class at phase 1b's rate."""
     from zig_weekend_raytracer_tpu_torch.sampling.sampler import sobol_log2_scale
     from zig_weekend_raytracer_tpu_torch.sampling.sobol import sobol_sample_bytes
     from zig_weekend_raytracer_tpu_torch.utils import roofline
@@ -854,7 +870,8 @@ def render_bound(zt, scene, counts, kernel_work, lane_bytes, has_dof, spp,
     n_bytes = sobol_sample_bytes(spp)
     ops = roofline.render_ops(roofline.scaled(counts, factor), scene.compiled, has_dof,
                               sobol=(sobol_log2_scale(W, H), n_bytes, loop_sobol))
-    nbytes = lane_bytes + roofline.render_table_bytes(scene.compiled, 0 if loop_sobol else n_bytes)
+    nbytes = lane_bytes + roofline.render_table_bytes(scene.compiled, 0 if loop_sobol else n_bytes,
+                                                      walk)
     ms, by = roofline.bound_ms(ops, nbytes, OPS_RATE["rate"])
     source = roofline.peak_source(OPS_RATE["rate"])
     log(f"bound: {float(kernel_work):.0f} bounces, operations "
@@ -953,21 +970,27 @@ def kernel_resources(build_log: str) -> dict:
     """{kernel instantiation: {"registers", "spill_bytes"}} from ptxas -v:
     fused_render_kernel<IMAGES, walk> (without and with the image fetch)
     and bounce_kernel<REGEN, walk> (one-bounce and regenerating modes) for
-    each tree walk, closest_hit_kernel and closest_hit_flat_kernel (its
-    first design), and chain_kernel<op, chains, unroll>."""
+    each tree walk, the first designs of the spec and uni walks
+    (<IMAGES, walk, first design>), closest_hit_kernel and
+    closest_hit_flat_kernel (its first design), and chain_kernel<op,
+    chains, unroll>."""
     import re
 
     from zig_weekend_raytracer_tpu_torch.ops.trace import WALKS
     from zig_weekend_raytracer_tpu_torch.tools.fp32_peak import OPS
 
-    flag_names = {1: "prof", 2: "loop_sobol", 3: "prof, loop_sobol", 4: "estimator"}
+    flag_names = {1: "prof", 2: "loop_sobol", 3: "prof, loop_sobol", 4: "estimator",
+                  8: "first design"}
+    # zwrt_device.cuh:Walk, then kWalkSpecFirst and kWalkUniFirst
+    walk_names = WALKS + ("spec", "uni")
 
     def name_of(mangled):
         m = re.search(r"(fused_render_kernel|bounce_kernel)ILb([01])ELi(\d)ELi(\d)E", mangled)
         if m:
             flags = int(m.group(4))
             return (f"{m.group(1)}<{'true' if m.group(2) == '1' else 'false'}, "
-                    f"{WALKS[int(m.group(3))]}" + (f", {flag_names[flags]}>" if flags else ">"))
+                    f"{walk_names[int(m.group(3))]}"
+                    + (f", {flag_names[flags]}>" if flags else ">"))
         m = re.search(r"chain_kernelILi(\d)ELi(\d+)ELi(\d+)E", mangled)
         if m:
             return f"chain_kernel<{OPS[int(m.group(1))]}, {m.group(2)}, {m.group(3)}>"
@@ -1595,11 +1618,13 @@ def leaf_spans(cs):
 def phase_sweep(zt, card) -> dict:
     """Phase 21: tools/span_sweep.py on the card: leaf spans 1, 2, 4, 8
     under the cond and queue walks on balls 400x400@128 d10 (render
-    kernel) and rtw_final 400x400@64 d8 (bounce kernel), each render
-    against the JAX-span cond render of this run (differing pixels counted
-    and printed); rtw_final with the LUT (render kernel) at the winning
-    setting; then cond against queue at the port's span in 5 alternating
-    pairs on both scenes, which decide the default walk."""
+    kernel) and rtw_final 400x400@64 d8 (bounce kernel), and under the uni
+    walk (the unified tree) on rtw_final, each render against the JAX-span
+    cond render of this run (differing pixels counted and printed);
+    rtw_final with the LUT (render kernel) at the winning setting; then
+    cond against queue at the port's span in 5 alternating pairs on both
+    scenes, which decide the default walk, and uni against queue on
+    rtw_final at the port's span."""
     from zig_weekend_raytracer_tpu_torch.geometry.bvh import pick_leaf_span
     from zig_weekend_raytracer_tpu_torch.tools import span_sweep
 
@@ -1610,6 +1635,7 @@ def phase_sweep(zt, card) -> dict:
     lut = span_sweep.lut_cell(int(span), walk, res["rtw_final"]["ref_fb"], log)
     pairs = {name: span_sweep.pairs(name, (("cond", None, "cond"), ("queue", None, "queue")),
                                     log=log) for name in span_sweep.SCENES}
+    pairs["rtw_final uni"] = span_sweep.uni_pairs(log)
     for r in res.values():
         r.pop("ref_fb")
     log(f"sweep ({card}): best cell per scene {best}; the port's spans: balls "
@@ -1617,27 +1643,34 @@ def phase_sweep(zt, card) -> dict:
     return {"sweep": res, "best": best, "lut": lut, "walk_pairs": pairs}
 
 
-def walk_scenes(zt) -> dict:
-    """The scenes of phases 17 and 18, all at leaf span 2 (the plain walks'
+def walk_scenes(zt, rtw, rtw_lut) -> dict:
+    """The scenes of phases 17 and 18, at leaf span 2 (the plain walks'
     time grows with the tree's nodes): balls, rtw_final with the atlas,
     and rtw_final compiled with ZWRT_UNI_TREE=1 with the atlas and with a
-    native-budget texture LUT."""
-    out = {}
+    native-budget texture LUT; and at the port's span (""), rtw_final with
+    the unified tree, with the atlas and with the LUT, beside the main
+    paths' per-kind ``rtw`` and ``rtw_lut``."""
+    out = {"rtw_port": rtw, "rtw_lut_port": rtw_lut}
+    for span, suffix in ((2, ""), (None, "_port")):
+        with leaf_span(span), env("ZWRT_UNI_TREE", "1"):
+            out["rtw_uni" + suffix] = zt.models.load_scene("rtw_final", device="cuda")
+            out["rtw_uni_lut" + suffix] = zt.models.load_scene("rtw_final", device="cuda",
+                                                               texture_lut=LUT_NATIVE)
     with leaf_span(2):
         out["balls2"] = zt.models.load_scene("balls", device="cuda")
         out["rtw"] = zt.models.load_scene("rtw_final", device="cuda")
-        with env("ZWRT_UNI_TREE", "1"):
-            out["rtw_uni"] = zt.models.load_scene("rtw_final", device="cuda")
-            out["rtw_uni_lut"] = zt.models.load_scene("rtw_final", device="cuda",
-                                                      texture_lut=LUT_NATIVE)
         out["rtw_lut"] = zt.models.load_scene("rtw_final", device="cuda",
                                               texture_lut=LUT_NATIVE)
-    cu = out["rtw_uni"].compiled
-    log(f"unified tree of rtw_final: {cu.uni_tree_box.shape[0]} nodes at leaf span "
-        f"{cu.uni_leaf_span} (per-kind trees {cu.sph_tree_box.shape[0]} + "
-        f"{cu.quad_tree_box.shape[0]} nodes)")
-    if not (cu.has_uni_tree and out["rtw_uni_lut"].compiled.has_uni_tree):
-        raise AssertionError("rtw_final compiled without its unified tree under ZWRT_UNI_TREE=1")
+    for key in ("rtw_uni", "rtw_uni_port"):
+        cu = out[key].compiled
+        log(f"unified tree of rtw_final: {cu.uni_tree_box.shape[0]} nodes at leaf span "
+            f"{cu.uni_leaf_span} (per-kind trees {cu.sph_tree_box.shape[0]} + "
+            f"{cu.quad_tree_box.shape[0]} nodes)")
+        if not (cu.has_uni_tree and out[key.replace("uni", "uni_lut")].compiled.has_uni_tree):
+            raise AssertionError("rtw_final compiled without its unified tree under "
+                                 "ZWRT_UNI_TREE=1")
+    if out["rtw_uni_port"].compiled.uni_leaf_span == 2:
+        raise AssertionError("the port's span of rtw_final's unified tree is phase 17's span 2")
     return out
 
 
@@ -1687,6 +1720,46 @@ def phase_walk_parity(zt, fused, tb, integrator, torch, sc) -> dict:
         return out
 
     result, default = {"plain": []}, None
+    # the unified tree at the port's span: its K2 and K1 LUT parity, whose
+    # plain work counts give phase 18's port-span bounds, and the default
+    # walk's K2 on the per-kind trees there, whose counts phase 18 prints
+    # beside uni's
+    port = {}
+    plains = []
+    port["K2 regen"] = regen_parity(
+        zt, tb, integrator, torch, sc["rtw_uni_port"], 32, WALK_SPP, WALK_RTW_DEPTH,
+        f"uni walk, port's span: rtw_final 32x32 spp{WALK_SPP} d{WALK_RTW_DEPTH}")[:2]
+    check = render_parity(zt, fused, integrator, torch, sc["rtw_uni_lut_port"],
+                          f"uni walk, port's span: rtw_final LUT 32x32 spp{WALK_SPP} "
+                          f"d{WALK_RTW_DEPTH}", WALK_RTW_DEPTH, plains=plains, spp=WALK_SPP)
+    port["K1 LUT"] = (check, plains[0][1])
+    with trav(DEFAULT_WALK):
+        port["K2 regen, default walk"] = regen_parity(
+            zt, tb, integrator, torch, sc["rtw_port"], 32, WALK_SPP, WALK_RTW_DEPTH,
+            f"{DEFAULT_WALK} walk, port's span: rtw_final 32x32 spp{WALK_SPP} "
+            f"d{WALK_RTW_DEPTH}")[:2]
+    result["uni port span"] = port
+    # the unified tree walked as its first design (ops/trace.py:
+    # uni_cond_walk, one cond walk that culls with the running t): its
+    # plain work counts price the uni walk's bounds (walk_bound_counts), and
+    # the kernel is held to it as well, since the hits are the same
+    from zig_weekend_raytracer_tpu_torch.ops.trace import uni_cond_walk
+
+    culled = {}
+    with uni_cond_walk():
+        for key, suffix, where in (("uni", "", ""), ("uni port span", "_port", ", port's span")):
+            plains = []
+            regen = regen_parity(
+                zt, tb, integrator, torch, sc["rtw_uni" + suffix], 32, WALK_SPP, WALK_RTW_DEPTH,
+                f"uni walk vs its plain first design{where}: rtw_final 32x32 spp{WALK_SPP} "
+                f"d{WALK_RTW_DEPTH}")[:2]
+            check = render_parity(zt, fused, integrator, torch, sc["rtw_uni_lut" + suffix],
+                                  f"uni walk vs its plain first design{where}: rtw_final LUT "
+                                  f"32x32 spp{WALK_SPP} d{WALK_RTW_DEPTH}", WALK_RTW_DEPTH,
+                                  plains=plains, spp=WALK_SPP)
+            culled[key] = {"K2 regen": regen, "K1 LUT": (check, plains[0][1])}
+    result["uni cond"] = culled
+    result["short queue"] = short_queue_refused(zt, fused, torch, sc)
     for walk in ("cond",) + NEW_WALKS:
         with trav(walk):
             got = cases(walk)
@@ -1707,17 +1780,108 @@ def phase_walk_parity(zt, fused, tb, integrator, torch, sc) -> dict:
     return result
 
 
+def short_queue_refused(zt, fused, torch, sc) -> list:
+    """A render-kernel launch of each per-thread queue walk (queue and
+    spec on balls at span 2, uni on rtw_final with the LUT) whose queue
+    capacity is one below the leaves its tree may hold ((n + 1) / 2 of n
+    nodes) is refused with cudaErrorInvalidValue (1), before it runs, and
+    counts no launch (zwrt_device.cuh:set_walk)."""
+    from zig_weekend_raytracer_tpu_torch.render.camera import camera_consts
+
+    out = []
+    lane = torch.arange(64, dtype=torch.int32, device="cuda")
+    px, py = (lane % 8).contiguous(), (lane // 8).contiguous()
+    zero = torch.zeros_like(lane)
+    real_walk_args = fused.walk_args
+    for walk, name in (("queue", "balls2"), ("spec", "balls2"), ("uni", "rtw_uni_lut")):
+        cs = sc[name].compiled
+        nodes = cs.uni_tree_box.shape[0] if walk == "uni" else cs.sph_tree_box.shape[0]
+        short = (nodes + 1) // 2 - 1
+
+        def shortened(scene, n, smem_before=0):
+            walk_, code, cap, queue = real_walk_args(scene, n, smem_before)
+            return walk_, code, short, queue
+
+        launches = dict(fused.render_fused.launches)
+        fused.walk_args = shortened
+        try:
+            with trav(walk):
+                fused.render_fused(cs, px, py, zero, zero + 1, 0, zt.dtypes.T_MIN,
+                                   camera_consts=camera_consts(sc[name].camera, 8, 8),
+                                   sampler=zt.sampling.SamplerKind.SOBOL, width=8, height=8,
+                                   spp=1, stride=1, max_depth=2,
+                                   has_dof=sc[name].camera.has_depth_of_field)
+            torch.cuda.synchronize()
+            raise AssertionError(f"the {walk} walk launched with a queue of {short} entries "
+                                 f"for a tree of {nodes} nodes")
+        except RuntimeError as e:
+            if "cudaError 1" not in str(e):
+                raise
+        finally:
+            fused.walk_args = real_walk_args
+        if fused.render_fused.launches != launches:
+            raise AssertionError(f"the refused {walk} launch was counted")
+        log(f"{walk} walk: a queue of {short} entries for {nodes} nodes is refused "
+            "(cudaErrorInvalidValue)")
+        out.append({"walk": walk, "nodes": nodes, "q_cap": short, "refused": True})
+    return out
+
+
+def walk_bound_counts(wpar, walk, pcase, ccase) -> dict:
+    """Phase 17's plain work counts that price the bound of the spec or uni
+    walk on case ``ccase`` of ``pcase``: the cond walk's on the same tree
+    (the per-kind trees for spec, the unified tree's first-design form for
+    uni), not the redesigned walk's own, which culls with the seed t and so
+    tests more boxes and sweeps more leaves than the closest hit needs."""
+    if walk == "uni":
+        return wpar["uni cond"][pcase][ccase][1]
+    return wpar["cond"][ccase][1]
+
+
+def plan_kernel(zt, fused, integrator, tb, scene, renderer, spp, depth, first=False):
+    """A call of the scene's kernel at ``renderer``'s coherent plan (the
+    render kernel where it takes the scene, else the bounce kernel's
+    regenerating mode) under the walk the environment names, returning
+    (radiance, work); ``first``: through the walk's first design (the
+    measurement variant, counted apart from the paths)."""
+    from zig_weekend_raytracer_tpu_torch.ops.bounce import supports_fused_render
+    from zig_weekend_raytracer_tpu_torch.render.camera import camera_consts
+
+    cs = scene.compiled
+    plans = renderer._plan_cache[cs]
+    plan = plans[next(k for k in plans if k[0] == "coh")]["plan"]
+    kw = dict(camera_consts=camera_consts(scene.camera, W, H), sampler=renderer.sampler,
+              width=W, height=H, spp=spp, stride=1, max_depth=depth,
+              has_dof=scene.camera.has_depth_of_field)
+    t_min = zt.dtypes.T_MIN
+    if supports_fused_render(cs):
+        if first:
+            return lambda: fused.render_fused_variant(cs, *plan, 0, t_min, first_walk=True,
+                                                      **kw)[:2]
+        return lambda: fused.render_fused(cs, *plan, 0, t_min, want_work=True, **kw)
+    st0 = integrator.initial_regen_state(plan[2], 1)
+
+    def run():
+        if first:
+            st = tb.bounce_regen_variant(cs, st0, plan[0], plan[1], plan[3], 0, t_min,
+                                         first_walk=True, **kw)[0]
+        else:
+            st = tb.bounce_regen(cs, st0, plan[0], plan[1], plan[3], 0, t_min, **kw)
+        return st.radiance, st.work
+
+    return run
+
+
 def walk_render(zt, fused, integrator, ch, ttrace, tb, torch, scene, spp, depth, walk, card,
-                ref_fb=None) -> dict:
+                ref_fb=None):
     """Phase 18, one path: ``scene`` at 400x400 under ``walk`` (one warmup
     render, three timed), with the counts set to 0 just before and read just
     after; the walk's instantiation of K1 (scenes it takes) or K2 must have
     launched and nothing else of the kind, no plain version; then the
     kernel's time at the coherent plan's lanes (its work), and the
     framebuffer against ``ref_fb`` within rtol 1e-5 / atol 1e-6 on >= 99.9%
-    of pixels."""
+    of pixels.  Returns (record, framebuffer, renderer)."""
     from zig_weekend_raytracer_tpu_torch.ops.bounce import supports_fused_render
-    from zig_weekend_raytracer_tpu_torch.render.camera import camera_consts
 
     cs = scene.compiled
     k1 = supports_fused_render(cs)
@@ -1740,23 +1904,13 @@ def walk_render(zt, fused, integrator, ch, ttrace, tb, torch, scene, spp, depth,
         if tuple(fb.shape) != (H, W, 3) or not bool(torch.isfinite(fb).all()):
             raise AssertionError(f"{tag}: bad framebuffer")
         plans = renderer._plan_cache[cs]
-        plan = plans[next(k for k in plans if k[0] == "coh")]["plan"]
-        kw = dict(camera_consts=camera_consts(scene.camera, W, H), sampler=renderer.sampler,
-                  width=W, height=H, spp=spp, stride=1, max_depth=depth,
-                  has_dof=scene.camera.has_depth_of_field)
-        t_min = zt.dtypes.T_MIN
-        if k1:
-            ms, (_, work) = cuda_time_ms(
-                lambda: fused.render_fused(cs, *plan, 0, t_min, want_work=True, **kw), 3)
-        else:
-            st0 = integrator.initial_regen_state(plan[2], 1)
-            ms, st = cuda_time_ms(
-                lambda: tb.bounce_regen(cs, st0, plan[0], plan[1], plan[3], 0, t_min, **kw), 3)
-            work = st.work
+        lanes = int(plans[next(k for k in plans if k[0] == "coh")]["plan"][0].shape[0])
+        ms, (_, work) = cuda_time_ms(
+            plan_kernel(zt, fused, integrator, tb, scene, renderer, spp, depth), 3)
     best = min(times)
     mpaths = W * H * spp / best / 1e6
     out = {"render_s_best": best, "mpaths_per_s": mpaths, "launches": launches, "ms": ms,
-           "work": int(work.sum().item()), "lanes": int(plan[0].shape[0]), "spp": spp}
+           "work": int(work.sum().item()), "lanes": lanes, "spp": spp}
     msg = f"{tag}: best {best:.4f} s = {mpaths:.2f} Mpaths/s; kernel at the plan {ms:.3f} ms"
     if ref_fb is not None:
         close = torch.isclose(fb, ref_fb, rtol=1e-5, atol=1e-6).all(-1).float().mean().item()
@@ -1766,7 +1920,126 @@ def walk_render(zt, fused, integrator, ch, ttrace, tb, torch, scene, spp, depth,
         if close < 0.999:
             raise AssertionError(f"{tag}: disagrees with the default walk's render")
     log(f"{msg} ({card})")
-    return out, fb
+    return out, fb, renderer
+
+
+def design_rounds(torch, runs, tag, card, n=DESIGN_PAIRS) -> dict:
+    """The kernels of ``runs`` ({label: (walk, call)}, the redesigned walk
+    first) at one plan in ``n`` rounds, the order reversed every other
+    round, each the best of three CUDA-event runs; every other label's
+    output held to the first's with phase 2's tolerances.  Returns the
+    times, their medians and the first label's wins against each other."""
+    labels = list(runs)
+    times, outs = {k: [] for k in labels}, {}
+    for i in range(n):
+        for k in (labels if i % 2 == 0 else labels[::-1]):
+            walk, call = runs[k]
+            with trav(walk):
+                ms, outs[k] = cuda_time_ms(call, 3)
+            times[k].append(ms)
+    med = {k: sorted(v)[n // 2] for k, v in times.items()}
+    new = labels[0]
+    wins = {k: sum(a < b for a, b in zip(times[new], times[k])) for k in labels[1:]}
+    checks = [compare(f"{tag}: {k} against {new} at the plan", outs[k], outs[new])
+              for k in labels[1:]]
+    log(f"{tag}, {n} alternating rounds at the plan (ms; {card}): "
+        + "; ".join(f"{k} {[round(t, 3) for t in times[k]]} median {med[k]:.3f}" for k in labels)
+        + f"; {new} faster in " + ", ".join(f"{wins[k]} of {n} against {k}" for k in wins))
+    return {"times_ms": times, "median_ms": med, "wins": wins, "checks": checks}
+
+
+def walk_lane_bytes(kernel, lut, lanes) -> int:
+    """What a phase 18 path's lanes read and write: K1 its lane table (16
+    bytes) and its radiance (12) or, with the LUT, radiance and work (16);
+    K2's regenerating mode its state in (84) and out (72)."""
+    if kernel == "K1":
+        return lanes * (16 + (16 if lut else 12))
+    return lanes * (84 + 72)
+
+
+# phase 18's redesign cases: (kernel, path key, scene of walk_scenes, the
+# default walk's scene at the same span or None, phase 17's counts)
+DESIGN_CASES = (
+    ("K1", "spec", "balls2", None, ("spec", "K1 balls")),
+    ("K2", "spec", "rtw", None, ("spec", "K2 regen")),
+    ("K1", "uni", "rtw_uni_lut", None, ("uni", "K1 LUT")),
+    ("K2", "uni", "rtw_uni", None, ("uni", "K2 regen")),
+    ("K1", "uni port", "rtw_uni_lut_port", "rtw_lut_port", ("uni port span", "K1 LUT")),
+    ("K2", "uni port", "rtw_uni_port", "rtw_port", ("uni port span", "K2 regen")),
+)
+
+
+def phase_walk_designs(zt, fused, integrator, tb, torch, sc, wpar, paths, renderers, resources,
+                       card) -> dict:
+    """Phase 18's redesign check: each redesigned walk (spec, uni) against
+    its first design (the kFlagFirstWalk variant) at the coherent plan of
+    its phase 18 path, in DESIGN_PAIRS alternating rounds (design_rounds):
+    K1 and K2 at span 2, and uni at the port's span beside the default
+    walk's kernel on the per-kind scene at that span.  Each with its bound
+    (walk_bound_counts scaled to the path's bounces; the bound the walk's
+    own plain counts would give beside it, as a diagnostic), the
+    registers and spills of both instantiations and the path's render
+    against the default walk's.  Returns {"<kernel> <path key>": record}."""
+    out = {}
+    for kernel, key, name, default_name, (pcase, ccase) in DESIGN_CASES:
+        walk = key.split()[0]
+        scene, spp, depth = sc[name], *((WALK18_BALLS_SPP, DEPTH) if name == "balls2"
+                                        else (WALK18_RTW_SPP, RTW_DEPTH))
+        lut = scene.compiled.has_image_textures and bool(scene.compiled.tex_lut_dims)
+        run = lambda first, sc_=scene, rnd=renderers[(kernel, key)]: plan_kernel(
+            zt, fused, integrator, tb, sc_, rnd, spp, depth, first)
+        runs = {"new": (walk, run(False)), "first design": (walk, run(True))}
+        if default_name:
+            runs[DEFAULT_WALK] = (DEFAULT_WALK, plan_kernel(
+                zt, fused, integrator, tb, sc[default_name], renderers[(kernel, "queue port")],
+                spp, depth))
+        cs = scene.compiled
+        span = cs.uni_leaf_span if walk == "uni" else cs.sph_leaf_span
+        tag = f"{kernel} {walk} walk, {scene.name}{' LUT' if lut else ''} span {span}"
+        rounds = design_rounds(torch, runs, tag, card)
+        counts = wpar[pcase][ccase][1]
+        per_bounce = {k: counts.get(k, 0) / max(counts.get("bounce", 0), 1)
+                      for k in ("slab_test", "leaf_visit", "sphere_test", "quad_test")}
+        log(f"{tag}: the plain walk's work a bounce at 32x32 (phase 17): "
+            + ", ".join(f"{k} {v:.2f}" for k, v in per_bounce.items()))
+        if default_name and kernel == "K2":
+            ref = wpar["uni port span"]["K2 regen, default walk"][1]
+            log(f"{tag}: the plain {DEFAULT_WALK} walk's work a bounce on the per-kind trees: "
+                + ", ".join(f"{k} {ref.get(k, 0) / max(ref.get('bounce', 0), 1):.2f}"
+                            for k in per_bounce))
+        cond = walk_bound_counts(wpar, walk, pcase, ccase)
+        log(f"{tag}: the plain cond walk's work a bounce on the same tree (the bound's): "
+            + ", ".join(f"{k} {cond.get(k, 0) / max(cond.get('bounce', 0), 1):.2f}"
+                        for k in per_bounce))
+        path = paths[(kernel, key)]
+        bound_at = lambda c: render_bound(zt, scene, c, path["work"],
+                                          walk_lane_bytes(kernel, lut, path["lanes"]),
+                                          scene.camera.has_depth_of_field, spp, walk=walk)
+        bound = bound_at(cond)
+        own = bound_at(counts)["bound_ms"]
+        log(f"{tag}: diagnostic only, the redesigned walk's own work would give a bound of "
+            f"{own:.3f} ms")
+        base = ("fused_render_kernel" if kernel == "K1" else "bounce_kernel") + \
+            f"<{'true' if lut or kernel == 'K2' else 'false'}, {walk}"
+        res = {d: resources[base + suffix] for d, suffix in (("new", ">"),
+                                                            ("first design", ", first design>"))}
+        med = rounds["median_ms"]
+        log(f"{tag} ({card}): new {med['new']:.3f} ms, first design {med['first design']:.3f} ms"
+            f" (new faster in {rounds['wins']['first design']} of {DESIGN_PAIRS}), "
+            + (f"default {DEFAULT_WALK} walk {med[DEFAULT_WALK]:.3f} ms (uni faster in "
+               f"{rounds['wins'][DEFAULT_WALK]}), " if default_name else "")
+            + f"bound {bound['bound_ms']:.3f} ms ({bound['bound_by']}): "
+            f"{bound['bound_ms'] / med['new']:.1%} of the new, "
+            f"{bound['bound_ms'] / med['first design']:.1%} of the first; registers/spill "
+            f"bytes new {res['new']['registers']}/{res['new']['spill_bytes']}, first "
+            f"{res['first design']['registers']}/{res['first design']['spill_bytes']}; "
+            f"its render against the default walk's {path['default_agree']:.4%} of pixels "
+            f"within rtol 1e-5/atol 1e-6 (max |diff| {path['default_max_abs_diff']:.3e})")
+        out[f"{kernel} {key}"] = {**rounds, **bound, "span": span, "resources": res,
+                                  "default_agree": path["default_agree"],
+                                  "plain_work_per_bounce": per_bounce,
+                                  "own_work_bound_ms": own}
+    return out
 
 
 def hit_ray_sets(zt, torch, scenes) -> list:
@@ -3085,9 +3358,10 @@ def main() -> int:
         log(f"  {name}: {res['registers']} registers, {res['spill_bytes']} bytes spill stores")
     n_chain = 5 * 2 * 4  # ops x chain counts x unrolls
     # per kernel: 2 modes x 5 walks, and 3 variants for 2 walks (K1 in both
-    # modes, K2's regenerating mode), and the estimator instantiations (2
-    # modes x 5 walks per kernel)
-    n_render = 2 * 5 + 2 * 2 * 3 + 2 * 5 + 2 * 3 + 2 * (2 * 5)
+    # modes, K2's regenerating mode), the first designs of 2 walks (K1 in
+    # both modes, K2's regenerating mode), and the estimator instantiations
+    # (2 modes x 5 walks per kernel)
+    n_render = 2 * 5 + 2 * 2 * 3 + 2 * 5 + 2 * 3 + 2 * 2 + 2 + 2 * (2 * 5)
     # closest_hit_kernel and its first design
     if len(resources) != n_render + 2 + n_chain or any(
             r["registers"] is None for r in resources.values()):
@@ -3481,31 +3755,49 @@ def main() -> int:
 
     # ---- 17. the tree walks against their plain versions ----
     phase("17")
-    wsc = walk_scenes(zt)
+    wsc = walk_scenes(zt, rtw, rtw_lut)
     wpar = phase_walk_parity(zt, fused, tb, integrator, torch, wsc)
 
     # ---- 18. the walks on the slice's path at full width, cut spp ----
     phase("18")
     wr = lambda scene, spp, depth, walk, ref=None: walk_render(
         zt, fused, integrator, ch, ttrace, tb, torch, scene, spp, depth, walk, card, ref)
-    paths = {}
-    b_default, b2_fb = wr(wsc["balls2"], WALK18_BALLS_SPP, DEPTH, DEFAULT_WALK)
+    paths, renderers = {}, {}
+    b_default, b2_fb, renderers[("K1", DEFAULT_WALK)] = wr(wsc["balls2"], WALK18_BALLS_SPP,
+                                                            DEPTH, DEFAULT_WALK)
     b_default.update(render_bound(zt, wsc["balls2"], wpar[DEFAULT_WALK]["K1 balls"][1],
                                   b_default["work"], b_default["lanes"] * (16 + 12), True,
                                   WALK18_BALLS_SPP))
-    r18_default, r18_fb = wr(wsc["rtw"], WALK18_RTW_SPP, RTW_DEPTH, DEFAULT_WALK)
-    l18_default, l18_fb = wr(wsc["rtw_lut"], WALK18_RTW_SPP, RTW_DEPTH, DEFAULT_WALK)
+    r18_default, r18_fb, _ = wr(wsc["rtw"], WALK18_RTW_SPP, RTW_DEPTH, DEFAULT_WALK)
+    l18_default, l18_fb, _ = wr(wsc["rtw_lut"], WALK18_RTW_SPP, RTW_DEPTH, DEFAULT_WALK)
     for walk in OTHER_WALKS[:-1]:
-        paths[("K1", walk)] = wr(wsc["balls2"], WALK18_BALLS_SPP, DEPTH, walk, b2_fb)[0]
-        paths[("K2", walk)] = wr(wsc["rtw"], WALK18_RTW_SPP, RTW_DEPTH, walk, r18_fb)[0]
-    paths[("K2", "uni")], uni_fb = wr(wsc["rtw_uni"], WALK18_RTW_SPP, RTW_DEPTH, "uni", r18_fb)
-    paths[("K1", "uni")] = wr(wsc["rtw_uni_lut"], WALK18_RTW_SPP, RTW_DEPTH, "uni", l18_fb)[0]
+        paths[("K1", walk)], _, renderers[("K1", walk)] = wr(
+            wsc["balls2"], WALK18_BALLS_SPP, DEPTH, walk, b2_fb)
+        paths[("K2", walk)], _, renderers[("K2", walk)] = wr(
+            wsc["rtw"], WALK18_RTW_SPP, RTW_DEPTH, walk, r18_fb)
+    paths[("K2", "uni")], uni_fb, renderers[("K2", "uni")] = wr(
+        wsc["rtw_uni"], WALK18_RTW_SPP, RTW_DEPTH, "uni", r18_fb)
+    paths[("K1", "uni")], _, renderers[("K1", "uni")] = wr(
+        wsc["rtw_uni_lut"], WALK18_RTW_SPP, RTW_DEPTH, "uni", l18_fb)
     uni_gates = region_gates(zt, np, wsc["rtw_uni"], "rtw_final", grid64=4)
+    # the port's span: the default walk's renders and the unified tree's
+    port_default, port_fb, renderers[("K2", "queue port")] = wr(
+        wsc["rtw_port"], WALK18_RTW_SPP, RTW_DEPTH, DEFAULT_WALK)
+    port_lut_default, port_lut_fb, renderers[("K1", "queue port")] = wr(
+        wsc["rtw_lut_port"], WALK18_RTW_SPP, RTW_DEPTH, DEFAULT_WALK)
+    paths[("K2", "uni port")], _, renderers[("K2", "uni port")] = wr(
+        wsc["rtw_uni_port"], WALK18_RTW_SPP, RTW_DEPTH, "uni", port_fb)
+    paths[("K1", "uni port")], _, renderers[("K1", "uni port")] = wr(
+        wsc["rtw_uni_lut_port"], WALK18_RTW_SPP, RTW_DEPTH, "uni", port_lut_fb)
     log("walks at full width, span 2, balls at " + str(WALK18_BALLS_SPP) + " spp, rtw_final at "
         + str(WALK18_RTW_SPP) + " spp (Mpaths/s; " + card + "): " + ", ".join(
             f"{k} {w} {v['mpaths_per_s']:.2f}" for (k, w), v in paths.items())
         + f"; default walk: balls {b_default['mpaths_per_s']:.2f}, rtw_final (K2) "
-        f"{r18_default['mpaths_per_s']:.2f}, rtw_final LUT (K1) {l18_default['mpaths_per_s']:.2f}")
+        f"{r18_default['mpaths_per_s']:.2f}, rtw_final LUT (K1) {l18_default['mpaths_per_s']:.2f}"
+        f"; at the port's span rtw_final (K2) {port_default['mpaths_per_s']:.2f}, LUT (K1) "
+        f"{port_lut_default['mpaths_per_s']:.2f}")
+    designs = phase_walk_designs(zt, fused, integrator, tb, torch, wsc, wpar, paths, renderers,
+                                 resources, card)
 
     # ---- 19. the three samplers and nine lights ----
     phase("19")
@@ -3605,8 +3897,8 @@ def main() -> int:
 
     def walk_entry(kernel, walk):
         """The record of one walk's instantiation on its phase 18 path; its
-        bound from phase 17's plain work counts (32x32) scaled to the
-        kernel's bounces at the plan."""
+        bound from phase 17's plain work counts (32x32; walk_bound_counts
+        for spec and uni) scaled to the kernel's bounces at the plan."""
         path = paths[(kernel, walk)]
         checks = wpar[walk]
         if kernel == "K1":
@@ -3615,7 +3907,6 @@ def main() -> int:
             name = f"fused_render_kernel ({walk} walk" + (", texture LUT)" if walk == "uni" else ")")
             res = f"fused_render_kernel<{'true' if walk == 'uni' else 'false'}, {walk}>"
             parity = [checks[case][0]]
-            lane_bytes = path["lanes"] * (16 + (16 if walk == "uni" else 12))
             src, by_path = KERNEL_SOURCE, {scene.name + (" uni LUT" if walk == "uni" else
                                                          " span 2"): path["launches"]}
         else:
@@ -3625,17 +3916,32 @@ def main() -> int:
             res = f"bounce_kernel<true, {walk}>"
             parity = [checks[c][0] for c in ("K2 regen", "K2 one bounce",
                                              "K2 one bounce, half dead")]
-            lane_bytes = path["lanes"] * (84 + 72)
             src, by_path = BOUNCE_SOURCE, {"rtw_final" + (" uni" if walk == "uni" else ""):
                                            path["launches"]}
-        bound = render_bound(zt, scene, checks[case][1], path["work"], lane_bytes,
-                             scene.camera.has_depth_of_field, path["spp"])
-        return entry(name, src, WALK_REPLACES[walk], res, path["launches"], by_path, parity,
+        lane_bytes = walk_lane_bytes(kernel, walk == "uni", path["lanes"])
+        counts = (walk_bound_counts(wpar, walk, walk, case) if walk in ("spec", "uni")
+                  else checks[case][1])
+        bound = render_bound(zt, scene, counts, path["work"], lane_bytes,
+                             scene.camera.has_depth_of_field, path["spp"], walk=walk)
+        launches = path["launches"]
+        extra = {}
+        if walk in ("spec", "uni"):
+            extra["design"] = designs[f"{kernel} {walk}"]
+        if walk == "uni":
+            port = paths[(kernel, "uni port")]
+            by_path[f"{scene.name} uni, port's span"] = port["launches"]
+            launches += port["launches"]
+            extra["port_span"] = {**designs[f"{kernel} uni port"],
+                                  **{k: port[k] for k in ("ms", "mpaths_per_s", "render_s_best")}}
+            parity = parity + [wpar["uni port span"][case][0]] + [
+                wpar["uni cond"][k][case][0] for k in ("uni", "uni port span")]
+        return entry(name, src, WALK_REPLACES[walk], res, launches, by_path, parity,
                      path["ms"], parity[0]["plain_ms"], bound, render_tol,
                      plain_lanes=32 * 32, render_s_best=path["render_s_best"],
                      mpaths_per_s=path["mpaths_per_s"],
                      default_agree=path.get("default_agree"),
                      plain_vs_default_plain=[c for c in wpar["plain"] if f" {walk} walk" in c["check"]],
+                     **extra,
                      **({"region_gates": uni_gates} if (kernel, walk) == ("K2", "uni") else {}))
 
     record = {"kernels": [

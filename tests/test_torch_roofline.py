@@ -11,7 +11,9 @@ plain versions did on the CPU.
      a masked launch's traces and bytes by live and dead rays.
   3. The bound: operations from the per-unit table, bytes, and which of
      the two bounds it; each operation class at its own rate.
-  4. A texture-LUT render: the fetch's operations and the LUT's bytes.
+  4. A texture-LUT render: the fetch's operations and the LUT's bytes; the
+     unified tree's tables, which the uni walk reads instead of the
+     per-kind trees.
   5. The per-unit table against its earlier FP32 counts, and the Sobol
      sampler's integer work in its two forms.
 """
@@ -113,6 +115,21 @@ def test_masked_hit_bytes_count_dead_rays_apart():
     ms, _ = roofline.hit_bound_ms(c, cs, w * w, live=live)
     assert ms == pytest.approx(roofline.bound_ms(
         roofline.trace_ops(c), roofline.hit_bytes(cs, w * w, live))[0])
+
+
+def test_uni_walk_reads_the_unified_tree(monkeypatch):
+    """Under the uni walk a trace reads the unified tree alone: its nodes
+    packed in 32 bytes each and its leaf slots with their original
+    indices (spheres 8 + 1 words, quads 16 + 1)."""
+    monkeypatch.setenv("ZWRT_UNI_TREE", "1")
+    cs = zt.models.load_scene("rtw_final", device="cpu").compiled
+    want = (cs.uni_tree_box.shape[0] * 32 + cs.uni_sph_attrs[-1].numel() * 9 * 4
+            + cs.uni_quad_attrs[-1].numel() * 17 * 4)
+    assert roofline.trace_bytes(cs, "uni") == want
+    for walk in (None, "cond", "queue", "spec"):
+        assert roofline.trace_bytes(cs, walk) == roofline.trace_bytes(cs)
+    assert (roofline.render_table_bytes(cs, 1, "uni") - roofline.render_table_bytes(cs, 1)
+            == want - roofline.trace_bytes(cs))
 
 
 @pytest.mark.parametrize("ops,nbytes,by", [(33.5e12, 1.0, "operations"), (1.0, 3.35e12, "bytes")])

@@ -8,9 +8,11 @@ against the JAX package and against the default walk, on the CPU.
      package default.
   2. Each plain walk (``ops/trace.py``: queue, rowqueue, spec, uni) against
      the default walk on seeded random rays in a scene of 100 spheres and
-     600 quads: (t, kind, idx) bitwise.  The unified walk may resolve a
-     sphere and a quad at exactly equal t otherwise (its leaves come in
-     preorder, not spheres first); such tie lanes are named and counted.
+     600 quads: (t, kind, idx) bitwise.  The unified walk sweeps its
+     sphere leaves before its quad leaves, so a sphere keeps a tie with a
+     quad as in the per-kind stages, but two leaves of one kind at exactly
+     equal t resolve by the unified tree's preorder; such tie lanes would
+     be named and counted (tests/test_torch_walks_redesign.py finds none).
   3. The work each walk counts (``utils/workcount.py``) is the work it does.
   4. The wrappers' walk selection, queue capacities and refusals, and the
      trace tables of a scene with the unified tree, reached directly (the
@@ -158,7 +160,7 @@ def test_plain_walk_matches_default(big_scene, walk):
     assert (ref.kind >= 0).sum() > 1000 and (ref.kind[~active] == -1).all()
     differ = (hit.kind != ref.kind) | (hit.idx != ref.idx)
     if walk == "uni":
-        # tie lanes: a sphere and a quad at exactly the same t
+        # tie lanes: two leaves at exactly the same t
         ties = torch.nonzero(differ).squeeze(1).tolist()
         assert torch.equal(hit.t[differ], ref.t[differ]), f"non-tie lanes {ties}"
         assert len(ties) <= 2, f"tie lanes {ties}"
@@ -223,11 +225,13 @@ def test_probe_keeps_the_default_walk(monkeypatch, big_scene):
 
 def test_walk_args_and_queue_capacity(monkeypatch, big_scene):
     """The launch's walk, its code and its leaf queue, read at each launch:
-    per thread for queue (lane-major, every thread of the launch's blocks),
-    per warp in shared memory for rowqueue, none for the others."""
+    per thread for queue, spec and uni (lane-major, every thread of the
+    launch's blocks; uni's over the unified tree's nodes), per warp in
+    shared memory for rowqueue, none for cond."""
     per_kind, uni, _ = big_scene
     n_s, n_q = per_kind.sph_tree_box.shape[0], per_kind.quad_tree_box.shape[0]
     cap = (max(n_s, n_q) + 1) // 2 + 1  # a skip-link tree's most leaves, plus one
+    u_cap = (uni.uni_tree_box.shape[0] + 1) // 2 + 1
     for value, code in (("queue", 1), ("rowqueue", 2), ("spec", 3), ("cond", 0), (None, 1)):
         if value is None:
             monkeypatch.delenv("ZWRT_TRAV", raising=False)
@@ -235,12 +239,14 @@ def test_walk_args_and_queue_capacity(monkeypatch, big_scene):
             monkeypatch.setenv("ZWRT_TRAV", value)
         walk, got_code, got_cap, queue = fused_render.walk_args(per_kind, 300)
         assert got_code == code == ttrace.WALKS.index(walk)
-        assert got_cap == (cap if walk in ("queue", "rowqueue") else 0)
-        if walk == "queue":
+        assert got_cap == (cap if walk in ("queue", "rowqueue", "spec") else 0)
+        if walk in ("queue", "spec"):
             assert queue.dtype == torch.int32 and queue.numel() == cap * 384
         else:
             assert queue is None
-        assert fused_render.walk_args(uni, 300)[:3] == ("uni", 4, 0)
+        walk, got_code, got_cap, queue = fused_render.walk_args(uni, 300)
+        assert (walk, got_code, got_cap) == ("uni", 4, u_cap)
+        assert queue.dtype == torch.int32 and queue.numel() == u_cap * 384
 
 
 def test_walk_args_refuses_queues_that_do_not_fit(monkeypatch, big_scene):

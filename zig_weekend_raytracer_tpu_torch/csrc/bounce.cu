@@ -51,7 +51,8 @@
 
 // Host launcher with a plain C interface (loaded with ctypes).  ``iparams``,
 // ``fparams``, ``tables``, ``trace_ints`` and ``trace_ptrs`` as
-// zwrt_fused_render takes them; ``image_dims`` ((n_images, 4) on the card)
+// zwrt_fused_render takes them, and ``nodes`` as it does; ``image_dims``
+// ((n_images, 4) on the card)
 // and ``image_texels`` are the image table, the atlas or the texture LUT
 // (ops/fused_render.py:image_args).  ``fstate`` (13, n) and ``istate`` (2 or
 // 5, n) are updated in place; ``px``, ``py`` and ``limit`` are read only in
@@ -62,7 +63,8 @@
 // Russian roulette and the indirect clamp in either mode, or a measurement
 // variant of the regenerating mode.  Launches on ``stream`` and returns the launch's cudaError_t.
 extern "C" int zwrt_bounce(const int* iparams, const float* fparams, const void* const* tables,
-                           const int* trace_ints, const void* const* trace_ptrs, int n_images,
+                           const int* trace_ints, const void* const* trace_ptrs,
+                           const void* const* nodes, int n_images,
                            const int* image_dims, const int* image_texels,
                            const float* shade_rows, const uint32_t* sobol, float* fstate,
                            int* istate, const int* px, const int* py, const int* limit,
@@ -72,7 +74,7 @@ extern "C" int zwrt_bounce(const int* iparams, const float* fparams, const void*
   if (n <= 0) return 0;
   if (n_images < 1) return (int)cudaErrorInvalidValue;
   RenderLaunch L;
-  int err = read_launch(&L, iparams, fparams, tables, trace_ints, trace_ptrs, n_images,
+  int err = read_launch(&L, iparams, fparams, tables, trace_ints, trace_ptrs, nodes, n_images,
                         image_dims, image_texels, shade_rows, sobol, walk, q_cap, queue,
                         queue_len, n, stream);
   if (err != 0) return err;

@@ -1,7 +1,8 @@
 // The bounce kernel's measurement variants of its regenerating mode
-// (render_kernels.cuh), for the walks kWalkCond and kWalkQueue: the phase
-// profile (kFlagProf), the earlier respawn through the Sobol bit
-// loops (kFlagLoopSobol), and both.  Only ops/bounce.py:bounce_regen_variant
+// (render_kernels.cuh): for the walks kWalkCond and kWalkQueue the phase
+// profile (kFlagProf), the earlier respawn through the Sobol bit loops
+// (kFlagLoopSobol), and both; for the walks kWalkSpec and kWalkUni their
+// first designs (kFlagFirstWalk).  Only ops/bounce.py:bounce_regen_variant
 // launches them; no path of the renderer does.  A file of their own, so
 // that nvcc builds them beside the default instantiations of bounce.cu.
 
@@ -19,6 +20,8 @@ int bounce_variant(int flags, const RenderLaunch& L, float* fstate, int* istate,
     case kFlagProf | kFlagLoopSobol:
       return launch_bounce<kFlagProf | kFlagLoopSobol>(L, fstate, istate, px, py, limit, out_prof,
                                                        1, 0);
+    case kFlagFirstWalk:
+      return launch_bounce<kFlagFirstWalk>(L, fstate, istate, px, py, limit, out_prof, 1, 0);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -1,6 +1,9 @@
-// The render kernel's measurement variants (render_kernels.cuh), for the
-// walks kWalkCond and kWalkQueue: the phase profile (kFlagProf), the Sobol
-// earlier bit-loop respawn (kFlagLoopSobol), and both.  Only
+// The render kernel's measurement variants (render_kernels.cuh): for the
+// walks kWalkCond and kWalkQueue the phase profile (kFlagProf), the Sobol
+// earlier bit-loop respawn (kFlagLoopSobol), and both; for the walks
+// kWalkSpec and kWalkUni their first designs (kFlagFirstWalk:
+// zwrt_device.cuh:tree_walk_spec_first, uni_tree_walk_first), which
+// chip_smoke.py times against the redesigned walks.  Only
 // ops/fused_render.py:render_fused_variant launches them; no path of the
 // renderer does.  A file of their own, so that nvcc builds them beside the
 // default instantiations of fused_render.cu.
@@ -20,6 +23,8 @@ int fused_render_variant(int flags, const RenderLaunch& L, const int* px, const 
     case kFlagProf | kFlagLoopSobol:
       return launch_fused_render<kFlagProf | kFlagLoopSobol>(L, px, py, s0, s1, out_rad, out_work,
                                                              out_prof);
+    case kFlagFirstWalk:
+      return launch_fused_render<kFlagFirstWalk>(L, px, py, s0, s1, out_rad, out_work, out_prof);
     default: return (int)cudaErrorInvalidValue;
   }
 }

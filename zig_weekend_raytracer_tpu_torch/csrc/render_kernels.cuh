@@ -9,10 +9,13 @@
 // wrappers launch by default.  kFlagEstimator, instantiated for every walk
 // and both kernels' modes (fused_render_estimator.cu, bounce_estimator.cu),
 // applies Russian roulette and the indirect clamp; the wrappers launch it
-// when either option is on.  The variants, for the walks kWalkCond and
-// kWalkQueue only and without the estimator: kFlagProf writes each lane's
-// phase profile (kProfCols int64 columns) to ``out_prof``; kFlagLoopSobol
-// keeps the Sobol bit loops in the respawn and stages no tables.
+// when either option is on.  The variants, without the estimator: for the
+// walks kWalkCond and kWalkQueue, kFlagProf writes each lane's phase
+// profile (kProfCols int64 columns) to ``out_prof`` and kFlagLoopSobol
+// keeps the Sobol bit loops in the respawn and stages no tables; for the
+// walks kWalkSpec and kWalkUni, kFlagFirstWalk walks their first designs
+// (kWalkSpecFirst, kWalkUniFirst), the render kernel with and without the
+// image fetch and the bounce kernel's regenerating mode.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -140,12 +143,19 @@ struct RenderLaunch {
 };
 
 // f(std::integral_constant<int, W>{}) for the walk W: every walk for the
-// default and estimator instantiations, kWalkCond and kWalkQueue for the
+// default and estimator instantiations, the first design of kWalkSpec or
+// kWalkUni for kFlagFirstWalk, kWalkCond and kWalkQueue for the other
 // variants.
 template <int FLAGS, typename F>
 inline int dispatch_flags_walk(int walk, F f) {
   if constexpr (FLAGS == 0 || FLAGS == kFlagEstimator) {
     return dispatch_walk(walk, f);
+  } else if constexpr (FLAGS == kFlagFirstWalk) {
+    switch (walk) {
+      case kWalkSpec: return f(std::integral_constant<int, kWalkSpecFirst>{});
+      case kWalkUni: return f(std::integral_constant<int, kWalkUniFirst>{});
+      default: return (int)cudaErrorInvalidValue;
+    }
   } else {
     switch (walk) {
       case kWalkCond: return f(std::integral_constant<int, kWalkCond>{});
@@ -208,11 +218,13 @@ int launch_bounce(const RenderLaunch& L, float* fstate, int* istate, const int* 
 
 // The launch from the wrappers' arrays (ops/fused_render.py packs them):
 // ``iparams``/``fparams`` and the device ``tables`` as read_params takes
-// them, the trace as read_trace_scene, the image table as read_images
-// (n_images 0: none).  Returns a cudaError_t.
+// them, the trace as read_trace_scene and its packed nodes as set_nodes,
+// the image table as read_images (n_images 0: none).  Returns a
+// cudaError_t.
 inline int read_launch(RenderLaunch* L, const int* iparams, const float* fparams,
                        const void* const* tables, const int* trace_ints,
-                       const void* const* trace_ptrs, int n_images, const int* image_dims,
+                       const void* const* trace_ptrs, const void* const* nodes,
+                       int n_images, const int* image_dims,
                        const int* image_texels, const float* shade_rows, const uint32_t* sobol,
                        int walk, int q_cap, int* queue, int queue_len, int n, void* stream) {
   L->p = read_params(iparams, fparams, tables);
@@ -221,6 +233,7 @@ inline int read_launch(RenderLaunch* L, const int* iparams, const float* fparams
   if (L->p.sampler == kSobol && (L->p.sobol_p == nullptr || L->p.sobol_bytes < 1))
     return (int)cudaErrorInvalidValue;
   L->scene = read_trace_scene(trace_ints, trace_ptrs);
+  set_nodes(&L->scene, nodes);
   L->images = Images{};
   if (n_images != 0 && !read_images(n_images, image_dims, image_texels, &L->images))
     return (int)cudaErrorInvalidValue;

@@ -79,8 +79,13 @@ constexpr int kBigIdx = 1 << 30;
 constexpr float kAabbMaxMult = 1.00000024f;
 constexpr int kGroup = 8;  // slots per leaf group (the JAX kernels' sublanes)
 enum TraceMode { kTraceNone = 0, kTraceBrute = 1, kTraceTree = 2 };
-// Tree walks (ops/trace.py:WALKS, in its order).
-enum Walk { kWalkCond = 0, kWalkQueue = 1, kWalkRowQueue = 2, kWalkSpec = 3, kWalkUni = 4 };
+// Tree walks (ops/trace.py:WALKS, in its order), then the first designs of
+// the spec and uni walks, which only their measurement variants take
+// (kFlagFirstWalk): never a launch's walk code.
+enum Walk {
+  kWalkCond = 0, kWalkQueue = 1, kWalkRowQueue = 2, kWalkSpec = 3, kWalkUni = 4,
+  kWalkSpecFirst = 5, kWalkUniFirst = 6
+};
 constexpr int kWarp = 32;
 constexpr unsigned kAllLanes = 0xffffffffu;
 
@@ -441,18 +446,39 @@ __device__ __forceinline__ float nan_max(float a, float b) { return (a > b || a 
 // ``box`` (n_nodes, 6) [min xyz, max xyz], ``link`` (n_nodes, 2) [miss
 // link, first leaf group or -1], ``tab`` one row per leaf slot and ``oi``
 // each slot's original index.  Rows: spheres kSphereCols, quads kQuadCols.
+// ``nodes`` is the tree's packed node table (PackedNode), set only for a
+// launch of the kWalkSpec walk (null otherwise).
 struct KindTables {
   int mode, n_prims, n_nodes, span;
   const float* tab;
   const float* box;
   const int* link;
   const int* oi;
+  const float4* nodes;
 };
+
+// A tree node packed into 32 bytes, two float4 (ops/fused_render.py:
+// pack_nodes): lo = [min x y z, miss link], hi = [max x y z, leaf word],
+// the two ints as their bits.  The leaf word is the first leaf group times
+// 2 plus the leaf's kind (the unified tree's; 0 in a per-kind tree), or -1
+// for an interior node.  The kWalkSpec and kWalkUni walks read it with two
+// 16-byte loads a step, where ``box`` and ``link`` take nine scattered words.
+struct PackedNode {
+  float4 lo, hi;
+};
+
+__device__ __forceinline__ PackedNode load_node(const float4* nodes, int node) {
+  return PackedNode{__ldg(nodes + 2 * node), __ldg(nodes + 2 * node + 1)};
+}
+__device__ __forceinline__ int miss_of(const PackedNode& n) { return __float_as_int(n.lo.w); }
+__device__ __forceinline__ int leaf_word_of(const PackedNode& n) { return __float_as_int(n.hi.w); }
 
 // ``usph`` and ``uquad`` are the unified tree's leaf tables (tab, oi and
 // span read), ``ubox`` (u_nodes, 6) and ``ulink`` (u_nodes, 3) [miss
-// link, first leaf group or -1, leaf kind] its nodes.  ``queue`` is the
-// per-thread leaf queue of kWalkQueue, lane-major: entry j of thread t at
+// link, first leaf group or -1, leaf kind] its nodes, which the first
+// design reads, and ``unodes`` the same nodes packed (kWalkUni; null for
+// a launch of another walk).  ``queue`` is the per-thread leaf queue of
+// kWalkQueue, kWalkSpec and kWalkUni, lane-major: entry j of thread t at
 // queue[j * q_stride + t], q_stride the launch's thread count;
 // kWalkRowQueue keeps q_cap entries per warp in dynamic shared memory.
 struct TraceScene {
@@ -462,23 +488,38 @@ struct TraceScene {
   int u_nodes;
   const float* ubox;
   const int* ulink;
+  const float4* unodes;
   int* queue;
   int q_stride, q_cap, q_smem_words;
 };
 
-// Robust slab test (math/aabb.py:aabb_hit) against the running best t.
-__device__ __forceinline__ bool slab_hit(const float* b, V3 o, V3 inv_d, float t_min, float t) {
-  float tx0 = (b[0] - o.x) * inv_d.x;
-  float tx1 = (b[3] - o.x) * inv_d.x;
-  float ty0 = (b[1] - o.y) * inv_d.y;
-  float ty1 = (b[4] - o.y) * inv_d.y;
-  float tz0 = (b[2] - o.z) * inv_d.z;
-  float tz1 = (b[5] - o.z) * inv_d.z;
+// Robust slab test (math/aabb.py:aabb_hit) of the box [lo, hi] against
+// the running best t: the one copy of the NaN-ordered arithmetic, which
+// every walk's bitwise parity rests on.
+__device__ __forceinline__ bool slab_test(float lx, float ly, float lz, float hx, float hy,
+                                          float hz, V3 o, V3 inv_d, float t_min, float t) {
+  float tx0 = (lx - o.x) * inv_d.x;
+  float tx1 = (hx - o.x) * inv_d.x;
+  float ty0 = (ly - o.y) * inv_d.y;
+  float ty1 = (hy - o.y) * inv_d.y;
+  float tz0 = (lz - o.z) * inv_d.z;
+  float tz1 = (hz - o.z) * inv_d.z;
   float near = nan_max(nan_max(nan_min(tx0, tx1), nan_min(ty0, ty1)),
                        nan_max(nan_min(tz0, tz1), t_min));
   float far = nan_min(nan_min(nan_max(tx0, tx1), nan_max(ty0, ty1)),
                       nan_min(nan_max(tz0, tz1), t)) * kAabbMaxMult;
   return far > near;
+}
+
+// slab_test of a node's six floats [min xyz, max xyz].
+__device__ __forceinline__ bool slab_hit(const float* b, V3 o, V3 inv_d, float t_min, float t) {
+  return slab_test(b[0], b[1], b[2], b[3], b[4], b[5], o, inv_d, t_min, t);
+}
+
+// slab_test of a packed node's box.
+__device__ __forceinline__ bool slab_hit_packed(const PackedNode& n, V3 o, V3 inv_d, float t_min,
+                                                float t) {
+  return slab_test(n.lo.x, n.lo.y, n.lo.z, n.hi.x, n.hi.y, n.hi.z, o, inv_d, t_min, t);
 }
 
 // A ray with its derived values.
@@ -632,14 +673,102 @@ __device__ __forceinline__ void tree_walk_warpqueue(const KindTables& k, const T
   __syncwarp(group);
 }
 
-// kWalkSpec (_tree_pass_spec): the default walk, but each step loads and
-// slab-tests both successors (node + 1 and the miss link, clamped for the
-// load only) against the t from before this step's leaf sweep, so the box
-// loads are in flight while the sweep runs.  A stale t only admits more
-// boxes; the sweep always uses the fresh t.
+// The per-thread leaf queue of this thread (kWalkQueue, kWalkSpec,
+// kWalkUni), lane-major.
+__device__ __forceinline__ int* thread_queue(const TraceScene& s) {
+  return s.queue + blockIdx.x * blockDim.x + threadIdx.x;
+}
+
+// kWalkSpec, replacing pallas_bounce.py:_tree_pass_spec (:640).  Bound on
+// this card: operations, the slab tests and leaf rows that the cond walk
+// needs on the same trees, at K5's rates (utils/roofline.py prices the
+// plain cond walk's counts, ops/trace.py); its packed nodes and leaf rows
+// stay in L1 and L2, so bytes do not bound it.  chip_smoke.py phase 18 on
+// an NVIDIA H100 80GB HBM3 at 700 W, leaf span 2: the bounce kernel on
+// rtw_final 400x400@16 d8 takes 9.612 ms against a bound of 0.481 ms, the
+// render kernel on balls 400x400@32 d10 12.275 against 1.151 (the first
+// design: 11.525 and 19.320 ms).  Design: each step issues the loads of
+// both successors (node + 1 and the miss link, clamped for the load only)
+// and slab-tests them against the stage's seed t, so the next node's box is
+// in flight while this step's test and branch resolve, and the loop carries
+// only (node, its miss link and leaf word, its hit, cursor).  A hit leaf is
+// pushed to the per-thread queue in preorder and the queue is swept after
+// the walk with the fresh t, as tree_walk_queue does: the walk loop has no
+// sweep to wait behind, and the hits are bitwise the cond walk's (a stale t
+// only admits more leaves; only a strictly closer hit replaces the best).
+// Each step reads two packed 32-byte nodes (PackedNode).  The queue holds
+// at most (n_nodes + 1) / 2 leaves, which the wrapper's capacity covers.
 template <int KIND>
-__device__ __forceinline__ void tree_walk_spec(const KindTables& k, const Ray& ray, bool moving,
-                                               float* best, int* kind, int* idx) {
+__device__ __forceinline__ void tree_walk_spec(const KindTables& k, const TraceScene& s,
+                                               const Ray& ray, bool moving, float* best,
+                                               int* kind, int* idx) {
+  int* q = thread_queue(s);
+  const int stride = s.q_stride;
+  const float t_seed = *best;
+  const int last = k.n_nodes - 1;
+  PackedNode cur = load_node(k.nodes, 0);
+  bool hit = slab_hit_packed(cur, ray.o, ray.inv_d, ray.t_min, t_seed);
+  int miss = miss_of(cur), leaf = leaf_word_of(cur);
+  int node = 0, sp = 0;
+  while (node < k.n_nodes) {
+    const PackedNode desc_n = load_node(k.nodes, node + 1 < last ? node + 1 : last);
+    const PackedNode miss_n = load_node(k.nodes, miss < last ? miss : last);
+    const bool hit_desc = slab_hit_packed(desc_n, ray.o, ray.inv_d, ray.t_min, t_seed);
+    const bool hit_miss = slab_hit_packed(miss_n, ray.o, ray.inv_d, ray.t_min, t_seed);
+    if (hit && leaf >= 0) q[(sp++) * stride] = leaf >> 1;
+    const bool desc = hit && leaf < 0;
+    node = desc ? node + 1 : miss;
+    hit = desc ? hit_desc : hit_miss;
+    miss = desc ? miss_of(desc_n) : miss_of(miss_n);
+    leaf = desc ? leaf_word_of(desc_n) : leaf_word_of(miss_n);
+  }
+  for (int j = 0; j < sp; ++j) leaf_sweep<KIND>(k, q[j * stride], ray, moving, best, kind, idx);
+}
+
+// kWalkUni, replacing pallas_bounce.py:_uni_tree_pass (:713).  Bound on
+// this card: operations, as tree_walk_spec, from the cond walk of the
+// unified tree (ops/trace.py:uni_cond_walk); on rtw_final 400x400@16 d8
+// (chip_smoke.py phase 18, NVIDIA H100 80GB HBM3, 700 W) the bounce kernel
+// takes 10.220 ms against 0.490 at leaf span 2 and 8.397 against 0.390 at
+// the port's span 1 (the first design: 16.324 and 9.597 ms; the per-kind
+// queue walk at span 1: 7.792).  Design: one walk of the
+// unified tree with the stage's seed t and only (node, cursors) live, over
+// packed 32-byte nodes (two 16-byte loads a step); the loop has no
+// leaf-kind branch and no sweep: a hit leaf is pushed to the per-thread
+// queue, spheres from its front and quads from its back, each in preorder.
+// The sweep then takes every sphere leaf and then every quad leaf with the
+// fresh t, so a warp runs one kind's leaf_sweep at a time instead of both
+// kinds' one after the other on every mixed step.  Only a strictly closer
+// hit replaces the best, so a sphere keeps a tie with a quad, as in the
+// per-kind stages (sphere stage, then quad stage).  The two ends together
+// hold at most (u_nodes + 1) / 2 leaves, within the wrapper's capacity.
+__device__ __forceinline__ void uni_tree_walk(const TraceScene& s, const Ray& ray, bool moving,
+                                              float* best, int* kind, int* idx) {
+  int* q = thread_queue(s);
+  const int stride = s.q_stride;
+  const float t_seed = *best;
+  int node = 0, n_sph = 0, quad0 = s.q_cap;
+  while (node < s.u_nodes) {
+    const PackedNode n = load_node(s.unodes, node);
+    const bool hit = slab_hit_packed(n, ray.o, ray.inv_d, ray.t_min, t_seed);
+    const int leaf = leaf_word_of(n);
+    if (hit && leaf >= 0) q[((leaf & 1) ? --quad0 : n_sph++) * stride] = leaf >> 1;
+    node = (hit && leaf < 0) ? node + 1 : miss_of(n);
+  }
+  for (int j = 0; j < n_sph; ++j)
+    leaf_sweep<kSphere>(s.usph, q[j * stride], ray, moving, best, kind, idx);
+  for (int j = s.q_cap - 1; j >= quad0; --j)
+    leaf_sweep<kQuad>(s.uquad, q[j * stride], ray, false, best, kind, idx);
+}
+
+// The first design of kWalkSpec, kept for measurement only
+// (kWalkSpecFirst, the kFlagFirstWalk variants): the cond walk that loads
+// and slab-tests both successors against the t from before this step's
+// leaf sweep, and sweeps a hit leaf inline.
+template <int KIND>
+__device__ __forceinline__ void tree_walk_spec_first(const KindTables& k, const Ray& ray,
+                                                     bool moving, float* best, int* kind,
+                                                     int* idx) {
   const int last = k.n_nodes - 1;
   bool hit = slab_hit(k.box, ray.o, ray.inv_d, ray.t_min, *best);
   int node = 0;
@@ -657,10 +786,12 @@ __device__ __forceinline__ void tree_walk_spec(const KindTables& k, const Ray& r
   }
 }
 
-// kWalkUni (_uni_tree_pass): one default walk over the unified tree, each
-// kind-pure leaf swept by its kind.
-__device__ __forceinline__ void uni_tree_walk(const TraceScene& s, const Ray& ray, bool moving,
-                                              float* best, int* kind, int* idx) {
+// The first design of kWalkUni, kept for measurement only
+// (kWalkUniFirst): one cond walk over the unified tree's ``ubox`` and
+// ``ulink``, each kind-pure leaf swept inline by its kind.
+__device__ __forceinline__ void uni_tree_walk_first(const TraceScene& s, const Ray& ray,
+                                                    bool moving, float* best, int* kind,
+                                                    int* idx) {
   int node = 0;
   while (node < s.u_nodes) {
     bool hit = slab_hit(s.ubox + (size_t)node * 6, ray.o, ray.inv_d, ray.t_min, *best);
@@ -673,8 +804,8 @@ __device__ __forceinline__ void uni_tree_walk(const TraceScene& s, const Ray& ra
   }
 }
 
-// One kind's tree stage in the walk WALK (not kWalkUni); ``group`` as
-// tree_walk_warpqueue takes it.
+// One kind's tree stage in the walk WALK (not kWalkUni nor kWalkUniFirst);
+// ``group`` as tree_walk_warpqueue takes it.
 template <int KIND, int WALK>
 __device__ __forceinline__ void tree_stage(const KindTables& k, const TraceScene& s,
                                            const Ray& ray, bool moving, unsigned group,
@@ -682,7 +813,8 @@ __device__ __forceinline__ void tree_stage(const KindTables& k, const TraceScene
   if (WALK == kWalkQueue) tree_walk_queue<KIND>(k, s, ray, moving, best, kind, idx);
   else if (WALK == kWalkRowQueue)
     tree_walk_warpqueue<KIND>(k, s, ray, moving, group, best, kind, idx);
-  else if (WALK == kWalkSpec) tree_walk_spec<KIND>(k, ray, moving, best, kind, idx);
+  else if (WALK == kWalkSpec) tree_walk_spec<KIND>(k, s, ray, moving, best, kind, idx);
+  else if (WALK == kWalkSpecFirst) tree_walk_spec_first<KIND>(k, ray, moving, best, kind, idx);
   else tree_walk<KIND>(k, ray, moving, best, kind, idx);
 }
 
@@ -707,8 +839,9 @@ __device__ __forceinline__ void trace_closest(const TraceScene& s, V3 o, V3 d, f
   *kind = -1;
   *idx = 0;
   const bool moving = s.has_moving != 0;
-  if (WALK == kWalkUni) {
-    uni_tree_walk(s, ray, moving, best, kind, idx);
+  if (WALK == kWalkUni || WALK == kWalkUniFirst) {
+    if (WALK == kWalkUni) uni_tree_walk(s, ray, moving, best, kind, idx);
+    else uni_tree_walk_first(s, ray, moving, best, kind, idx);
     return;
   }
   if (s.sph.mode == kTraceBrute) brute_stage<kSphere>(s.sph, ray, moving, best, kind, idx);
@@ -750,12 +883,28 @@ inline TraceScene read_trace_scene(const int* ints, const void* const* ptrs) {
   return s;
 }
 
+// Host side: the packed node tables (PackedNode) of a kWalkSpec or
+// kWalkUni launch from the host array the wrappers pack
+// (ops/fused_render.py:node_args): the sphere tree's, the quad tree's and
+// the unified tree's (null where the scene has no such tree); ``nodes``
+// null for a launch of another walk, which reads none.
+inline void set_nodes(TraceScene* s, const void* const* nodes) {
+  if (nodes == nullptr) return;
+  s->sph.nodes = static_cast<const float4*>(nodes[0]);
+  s->quad.nodes = static_cast<const float4*>(nodes[1]);
+  s->unodes = static_cast<const float4*>(nodes[2]);
+}
+
 // Host side: checks a launch's walk against the scene and sets up its leaf
 // queue: ``queue`` holds ``queue_len`` ints, ``q_cap`` entries per thread
-// (kWalkQueue) or per warp (kWalkRowQueue, in dynamic shared memory after
-// the ``smem_before`` bytes of staged tables).  *smem is the block's dynamic
-// shared memory in all.  Returns a cudaError_t: invalid for an unknown
-// walk, a uni walk without the unified tree, or a queue too short.
+// (kWalkQueue, kWalkSpec, kWalkUni) or per warp (kWalkRowQueue, in dynamic
+// shared memory after the ``smem_before`` bytes of staged tables).  *smem
+// is the block's dynamic shared memory in all.  Returns a cudaError_t:
+// invalid for an unknown walk, a uni walk without the unified tree, a spec
+// or uni walk without its packed nodes, a queue walk whose capacity does
+// not cover the leaves of the trees it walks (a tree of n nodes has at
+// most (n + 1) / 2; the walks push without a check, and the uni walk fills
+// its queue from both ends), or a queue too short for the capacity.
 inline int set_walk(TraceScene* s, int walk, int q_cap, int* queue, int queue_len, int blocks,
                     int threads, size_t smem_before, size_t* smem) {
   s->queue = queue;
@@ -764,8 +913,17 @@ inline int set_walk(TraceScene* s, int walk, int q_cap, int* queue, int queue_le
   s->q_smem_words = (int)(smem_before / sizeof(uint32_t));
   *smem = smem_before;
   if (walk < kWalkCond || walk > kWalkUni || q_cap < 0) return (int)cudaErrorInvalidValue;
-  if (walk == kWalkUni && s->u_nodes < 1) return (int)cudaErrorInvalidValue;
-  if (walk == kWalkQueue && q_cap > 0 &&
+  if (walk == kWalkUni &&
+      (s->u_nodes < 1 || s->unodes == nullptr || q_cap < (s->u_nodes + 1) / 2))
+    return (int)cudaErrorInvalidValue;
+  const KindTables* kinds[2] = {&s->sph, &s->quad};
+  for (const KindTables* k : kinds) {
+    if (walk == kWalkCond || walk == kWalkUni || k->mode != kTraceTree) continue;
+    if (q_cap < (k->n_nodes + 1) / 2 || (walk == kWalkSpec && k->nodes == nullptr))
+      return (int)cudaErrorInvalidValue;
+  }
+  const bool per_thread = walk == kWalkQueue || walk == kWalkSpec || walk == kWalkUni;
+  if (per_thread && q_cap > 0 &&
       (queue == nullptr || (long long)queue_len < (long long)q_cap * s->q_stride))
     return (int)cudaErrorInvalidValue;
   if (walk == kWalkRowQueue) *smem += (size_t)(threads / kWarp) * q_cap * sizeof(int2);
@@ -934,9 +1092,12 @@ struct Path {
 // shade) and, at each phase's entry, the converged lanes of its warp
 // (__popc(__activemask())) to a Prof; kFlagLoopSobol: the respawn runs the
 // Sobol bit loops, as before the factored tables; kFlagEstimator: the
-// shading applies Params' rr_start and clamp (shade_hit).  The default
-// instantiations take 0.
-enum DrainFlags { kFlagProf = 1, kFlagLoopSobol = 2, kFlagEstimator = 4 };
+// shading applies Params' rr_start and clamp (shade_hit); kFlagFirstWalk:
+// the drain is the default's, and the kernel walks kWalkSpecFirst or
+// kWalkUniFirst, the first designs of the spec and uni walks, where the
+// launch names kWalkSpec or kWalkUni (render_kernels.cuh:
+// dispatch_flags_walk).  The default instantiations take 0.
+enum DrainFlags { kFlagProf = 1, kFlagLoopSobol = 2, kFlagEstimator = 4, kFlagFirstWalk = 8 };
 enum ProfPhase { kPhaseRespawn = 0, kPhaseTrace = 1, kPhaseShade = 2, kPhases = 3 };
 // Columns of a lane's profile (int64): cycles, entries and active lanes
 // summed per phase, then the drain's whole cycles.

@@ -22,9 +22,9 @@ launch's Sobol tables cover its sample indices below the largest
 ``sample_limit``.
 
 ``bounce_regen_variant`` launches the regenerating mode's measurement
-variants (the phase profile, the earlier Sobol bit-loop respawn), counted
-apart in ``bounce_regen_variant.launches``; no path of the renderer runs
-them.
+variants (the phase profile, the earlier Sobol bit-loop respawn, the first
+designs of the spec and uni walks), counted apart in
+``bounce_regen_variant.launches``; no path of the renderer runs them.
 
 Image-textured emitters take the kernel with or without a LUT, since the
 texel is read at the hit, before emission (the JAX kernel needs the LUT
@@ -48,9 +48,9 @@ from ..sampling.sampler import SamplerKind, sobol_log2_scale
 from ..scene import CompiledScene
 from . import _build
 from .fused_render import (
-    FLAG_LOOP_SOBOL, FLAG_PROF, PROF_COLS, VARIANT_WALKS, check_flags, check_lane_tensor, estimator_flags,
-    image_args, launch_params, launch_sample_end, launch_tables, sobol_smem_bytes, sobol_table,
-    trace_args, walk_args,
+    FIRST_DESIGN_WALKS, FLAG_FIRST_WALK, FLAG_LOOP_SOBOL, FLAG_PROF, PROF_COLS, VARIANT_WALKS,
+    check_flags, check_lane_tensor, estimator_flags, image_args, launch_params, launch_sample_end,
+    launch_tables, node_args, sobol_smem_bytes, sobol_table, trace_args, walk_args,
 )
 from .trace import WALKS
 
@@ -95,6 +95,7 @@ def _launch(scene, params, fstate, istate, lanes, regen, depth, flags=0):
     smem = sobol_smem_bytes(sampler, sample_end) if regen and not flags & FLAG_LOOP_SOBOL else 0
     walk, code, cap, queue = walk_args(scene, n, smem)
     check_flags(walk, flags)
+    nodes, _nodes = node_args(scene, walk)
     prof = (torch.empty((PROF_COLS, n), dtype=torch.int64, device=device)
             if flags & FLAG_PROF else None)
     err = lib.zwrt_bounce(
@@ -103,8 +104,8 @@ def _launch(scene, params, fstate, istate, lanes, regen, depth, flags=0):
         tables.ctypes.data_as(ctypes.c_void_p),
         trace_ints.ctypes.data_as(ctypes.c_void_p),
         trace_ptrs.ctypes.data_as(ctypes.c_void_p),
-        dims.shape[0], dims.data_ptr(), texels.data_ptr(), shade_rows.data_ptr(),
-        sobol.data_ptr(), fstate.data_ptr(), istate.data_ptr(), px, py, limit,
+        None if nodes is None else nodes.ctypes.data_as(ctypes.c_void_p),
+        dims.shape[0], dims.data_ptr(), texels.data_ptr(), shade_rows.data_ptr(), sobol.data_ptr(), fstate.data_ptr(), istate.data_ptr(), px, py, limit,
         None if prof is None else prof.data_ptr(), int(regen), int(depth), code, flags, cap,
         None if queue is None else queue.data_ptr(), 0 if queue is None else queue.numel(), n,
         torch.cuda.current_stream(device).cuda_stream,
@@ -214,18 +215,21 @@ bounce_regen.estimator_launches = 0
 
 def bounce_regen_variant(scene: CompiledScene, state: RegenState, px, py, sample_limit, seed,
                          t_min: float, *, profile: bool = False, loop_sobol: bool = False,
-                         **kw):
-    """``bounce_regen`` through a measurement variant, for the walks of
-    ``VARIANT_WALKS`` (as ``ops/fused_render.py:render_fused_variant``):
-    returns (final state, profile or None).  CPU tensors take the plain
+                         first_walk: bool = False, **kw):
+    """``bounce_regen`` through a measurement variant, as
+    ``ops/fused_render.py:render_fused_variant`` takes them (``profile`` and
+    ``loop_sobol`` for the walks of ``VARIANT_WALKS``, ``first_walk`` for
+    those of ``FIRST_DESIGN_WALKS``): returns (final state, profile or
+    None).  CPU tensors take the plain
     version and return no profile.  ``bounce_regen_variant.launches``
     counts launches per walk."""
     if px.device.type == "cpu":
         return integrator.bounce_regen_reference(
             scene, state, px, py, sample_limit, seed, t_min, **kw), None
-    flags = (FLAG_PROF if profile else 0) | (FLAG_LOOP_SOBOL if loop_sobol else 0)
+    flags = ((FLAG_PROF if profile else 0) | (FLAG_LOOP_SOBOL if loop_sobol else 0)
+             | (FLAG_FIRST_WALK if first_walk else 0))
     if not flags:
-        raise ValueError("bounce_regen_variant needs profile or loop_sobol; "
+        raise ValueError("bounce_regen_variant needs profile, loop_sobol or first_walk; "
                          "bounce_regen launches the default kernel")
     est, kw["rr_start"], kw["clamp"] = estimator_flags(
         scene, kw.get("rr_start", 0), kw.get("clamp", 0.0))
@@ -235,7 +239,7 @@ def bounce_regen_variant(scene: CompiledScene, state: RegenState, px, py, sample
     return out, prof
 
 
-bounce_regen_variant.launches = dict.fromkeys(VARIANT_WALKS, 0)
+bounce_regen_variant.launches = dict.fromkeys(VARIANT_WALKS + FIRST_DESIGN_WALKS, 0)
 
 
 def _regen(scene, state, px, py, sample_limit, seed, t_min, flags, *, camera_consts, sampler,

@@ -30,13 +30,15 @@ renders: up to the largest window end ``s1``, which may pass ``spp``
 
 ``render_fused_variant`` launches the kernel's measurement variants
 (``csrc/render_kernels.cuh``): the per-lane phase profile and the earlier
-Sobol bit-loop respawn.  No path of the renderer launches them, and
+Sobol bit-loop respawn, and the first designs of the spec and uni walks.
+No path of the renderer launches them, and
 ``render_fused_variant.launches`` counts them apart.
 
 Each launch of the render and bounce kernels takes the tree walk of
 ``ops/trace.py:walk_of`` as it reads then (the unified tree when the scene
 has one, else ``ZWRT_TRAV``) and the instantiation compiled for that walk;
-``walk_args`` allocates the walk's leaf queue.  The walk is never cached
+``walk_args`` allocates the walk's leaf queue, and ``node_args`` gives the
+spec and uni walks their packed node tables.  The walk is never cached
 with the scene, so one process can launch every walk.
 """
 
@@ -64,8 +66,11 @@ LIGHT_FLOATS = 17
 IMAGE_DIMS = 4          # w, h, base, row stride per image
 PROF_PHASES = ("respawn", "trace", "shade")
 PROF_COLS = 3 * len(PROF_PHASES) + 1  # cycles, entries, active lanes; total
-FLAG_PROF, FLAG_LOOP_SOBOL, FLAG_ESTIMATOR = 1, 2, 4  # DrainFlags
-VARIANT_WALKS = ("cond", "queue")     # the walks the variants are built for
+FLAG_PROF, FLAG_LOOP_SOBOL, FLAG_ESTIMATOR, FLAG_FIRST_WALK = 1, 2, 4, 8  # DrainFlags
+VARIANT_WALKS = ("cond", "queue")     # the walks the profile variants are built for
+# the walks redesigned for Hopper: they read packed nodes, and their first
+# designs are kept as measurement variants
+FIRST_DESIGN_WALKS = ("spec", "uni")
 THREADS = 128           # threads per block of every launcher
 SMEM_LIMIT = 232448     # dynamic shared memory a block can have (227 KB)
 _SAMPLER_CODE = {
@@ -232,33 +237,73 @@ def trace_args(scene: CompiledScene):
 
 
 def queue_capacity(scene: CompiledScene, walk: str) -> int:
-    """Leaf-queue entries of the queue walks, per thread (``queue``) or per
-    warp (``rowqueue``): a skip-link tree of n nodes has at most
-    (n + 1) // 2 leaves, plus one as in pallas_bounce.py:_queue_cap, over
-    the kinds that have trees; 0 for the other walks."""
-    if walk not in ("queue", "rowqueue"):
+    """Leaf-queue entries of the queue walks, per thread (``queue``,
+    ``spec``, ``uni``) or per warp (``rowqueue``): a skip-link tree of n
+    nodes has at most (n + 1) // 2 leaves, plus one as in
+    pallas_bounce.py:_queue_cap, over the kinds that have trees, or of the
+    unified tree under ``uni``; 0 for ``cond``."""
+    if walk == "uni":
+        return (scene.uni_tree_box.shape[0] + 1) // 2 + 1
+    if walk not in ("queue", "rowqueue", "spec"):
         return 0
     nodes = [getattr(scene, f"{k}_tree_box").shape[0] for k in ("sph", "quad")
              if getattr(scene, f"has_{k}_tree")]
     return max(((n + 1) // 2 + 1 for n in nodes), default=0)
 
 
+def pack_nodes(box: torch.Tensor, link: torch.Tensor) -> torch.Tensor:
+    """A tree's nodes as the spec and uni walks read them
+    (``zwrt_device.cuh:PackedNode``): (n, 8) float32, 32 bytes a node, [min
+    x y z, miss link] and [max x y z, leaf word], the two ints stored as
+    their bits.  The leaf word is the first leaf group times 2 plus the
+    leaf's kind (``link`` column 2 of the unified tree; 0 in a per-kind
+    tree, whose ``link`` has two columns), or -1 for an interior node."""
+    bits = box.contiguous().view(torch.int32)
+    leaf = link[:, 1]
+    kind = link[:, 2] if link.shape[1] > 2 else torch.zeros_like(leaf)
+    word = torch.where(leaf >= 0, leaf * 2 + kind, -1)
+    packed = torch.cat([bits[:, :3], link[:, :1], bits[:, 3:], word[:, None]], dim=1)
+    return packed.to(torch.int32).contiguous().view(torch.float32)
+
+
+_NODE_CACHE: "weakref.WeakKeyDictionary" = weakref.WeakKeyDictionary()
+
+
+def node_args(scene: CompiledScene, walk: str):
+    """(ptrs, tensors) of the packed node tables a launch of ``walk`` reads:
+    ``ptrs`` (uint64) the sphere tree's, the quad tree's and the unified
+    tree's (``pack_nodes``; 0 where the scene has no such tree); None and
+    () for a walk outside ``FIRST_DESIGN_WALKS``, which reads none.  Built the first
+    time a launch takes spec or uni and cached per scene beside
+    ``trace_args``, so default renders neither build nor carry them."""
+    if walk not in FIRST_DESIGN_WALKS:
+        return None, ()
+    cached = _NODE_CACHE.get(scene)
+    if cached is None:
+        tabs = [pack_nodes(getattr(scene, f"{k}_tree_box"), getattr(scene, f"{k}_tree_link"))
+                if getattr(scene, f"has_{k}_tree") else None for k in ("sph", "quad", "uni")]
+        ptrs = np.array([0 if t is None else t.data_ptr() for t in tabs], np.uint64)
+        cached = (ptrs, tuple(t for t in tabs if t is not None))
+        _NODE_CACHE[scene] = cached
+    return cached
+
+
 def walk_args(scene: CompiledScene, n: int, smem_before: int = 0):
     """(walk, walk code, queue capacity, queue tensor or None) of a launch
-    over ``n`` lanes, the walk as ``walk_of`` reads it now.  ``queue`` keeps
-    a lane-major int32 queue per thread of the launch; ``rowqueue`` keeps
-    one per warp in shared memory, after ``smem_before`` bytes of staged
-    tables.  Raises when the queue does not fit: past 2**31 - 1 entries (the
+    over ``n`` lanes, the walk as ``walk_of`` reads it now.  ``queue``,
+    ``spec`` and ``uni`` keep a lane-major int32 queue per thread of the
+    launch; ``rowqueue`` keeps one per warp in shared memory, after
+    ``smem_before`` bytes of staged tables.  Raises when the queue does not fit: past 2**31 - 1 entries (the
     kernel indexes it with 32-bit ints), or past a block's 227 KB of shared
     memory."""
     walk = walk_of(scene)
     cap = queue_capacity(scene, walk)
     queue = None
-    if walk == "queue" and cap:
+    if walk in ("queue", "spec", "uni") and cap:
         threads = -(-n // THREADS) * THREADS
         if cap * threads > 2**31 - 1:
             raise ValueError(
-                f"the queue walk needs {cap} leaf entries for each of {threads} threads, "
+                f"the {walk} walk needs {cap} leaf entries for each of {threads} threads, "
                 "past the kernel's 32-bit queue index"
             )
         queue = torch.empty((cap * threads,), dtype=torch.int32, device=scene.device)
@@ -335,14 +380,21 @@ def launch_sample_end(limit: torch.Tensor) -> int:
 
 
 def check_flags(walk: str, flags: int) -> None:
-    """Raises for flags that no instantiation has: the measurement variants
-    exist for the walks of ``VARIANT_WALKS`` and without the estimator
-    options; the estimator instantiation exists for every walk."""
-    variant = flags & (FLAG_PROF | FLAG_LOOP_SOBOL)
+    """Raises for flags that no instantiation has: the profile and Sobol
+    variants exist for the walks of ``VARIANT_WALKS``, the first-design
+    variant for those of ``FIRST_DESIGN_WALKS``, each alone and without the
+    estimator options; the estimator instantiation exists for every walk."""
+    variant = flags & (FLAG_PROF | FLAG_LOOP_SOBOL | FLAG_FIRST_WALK)
     if variant and flags & FLAG_ESTIMATOR:
         raise ValueError("the measurement variants have no Russian roulette or indirect "
                          "clamp: launch them with rr_start = 0 and clamp = 0")
-    if variant and walk not in VARIANT_WALKS:
+    if flags & FLAG_FIRST_WALK:
+        if variant != FLAG_FIRST_WALK:
+            raise ValueError("the first-design variant has no phase profile or Sobol bit loops")
+        if walk not in FIRST_DESIGN_WALKS:
+            raise ValueError(f"no first design kept for the {walk} walk; one of "
+                             f"{FIRST_DESIGN_WALKS}")
+    elif variant and walk not in VARIANT_WALKS:
         raise ValueError(f"no measurement variant for the {walk} walk; one of {VARIANT_WALKS}")
 
 
@@ -403,24 +455,26 @@ render_fused.estimator_launches = 0
 
 def render_fused_variant(
     scene: CompiledScene, px, py, s0, s1, seed: int, t_min: float, *,
-    profile: bool = False, loop_sobol: bool = False, **kw,
+    profile: bool = False, loop_sobol: bool = False, first_walk: bool = False, **kw,
 ):
-    """``render_fused`` through a measurement variant, for the walks of
-    ``VARIANT_WALKS``: ``loop_sobol`` respawns through the Sobol bit loops
-    (the kernel before the factored tables), ``profile`` also returns each lane's phase
-    profile, (PROF_COLS, N) int64: per phase of ``PROF_PHASES`` the clock64
-    cycles, the entries and the converged lanes at entry summed, then the
-    drain's whole cycles.  Returns (radiance, work, profile or None).  CPU
-    tensors take the plain version and return no profile.
-    ``render_fused_variant.launches`` counts launches per walk."""
+    """``render_fused`` through a measurement variant: for the walks of
+    ``VARIANT_WALKS``, ``loop_sobol`` respawns through the Sobol bit loops
+    (the kernel before the factored tables), ``profile`` also returns each
+    lane's phase profile, (PROF_COLS, N) int64: per phase of ``PROF_PHASES``
+    the clock64 cycles, the entries and the converged lanes at entry summed,
+    then the drain's whole cycles; for the walks of ``FIRST_DESIGN_WALKS``,
+    ``first_walk`` walks the walk's first design.  Returns (radiance, work,
+    profile or None).  CPU tensors take the plain version and return no
+    profile.  ``render_fused_variant.launches`` counts launches per walk."""
     if px.device.type == "cpu":
         _check_supported(scene)
         rad, work = render_fused_reference(scene, px, py, s0, s1, seed, t_min,
                                            want_work=True, **kw)
         return rad, work, None
-    flags = (FLAG_PROF if profile else 0) | (FLAG_LOOP_SOBOL if loop_sobol else 0)
+    flags = ((FLAG_PROF if profile else 0) | (FLAG_LOOP_SOBOL if loop_sobol else 0)
+             | (FLAG_FIRST_WALK if first_walk else 0))
     if not flags:
-        raise ValueError("render_fused_variant needs profile or loop_sobol; "
+        raise ValueError("render_fused_variant needs profile, loop_sobol or first_walk; "
                          "render_fused launches the default kernel")
     est, kw["rr_start"], kw["clamp"] = estimator_flags(
         scene, kw.get("rr_start", 0), kw.get("clamp", 0.0))
@@ -430,7 +484,7 @@ def render_fused_variant(
     return rad, work, prof
 
 
-render_fused_variant.launches = dict.fromkeys(VARIANT_WALKS, 0)
+render_fused_variant.launches = dict.fromkeys(VARIANT_WALKS + FIRST_DESIGN_WALKS, 0)
 
 
 def _check_supported(scene):
@@ -477,6 +531,7 @@ def _launch(scene, px, py, s0, s1, seed, t_min, flags, want_work, *, camera_cons
     smem = 0 if flags & FLAG_LOOP_SOBOL else sobol_smem_bytes(sampler, sample_end)
     walk, code, cap, queue = walk_args(scene, n, smem)
     check_flags(walk, flags)
+    nodes, _nodes = node_args(scene, walk)
     rad = torch.empty((3, n), dtype=real, device=device)
     work = torch.empty((n,), dtype=torch.int32, device=device) if want_work else None
     prof = (torch.empty((PROF_COLS, n), dtype=torch.int64, device=device)
@@ -489,6 +544,7 @@ def _launch(scene, px, py, s0, s1, seed, t_min, flags, want_work, *, camera_cons
         tables.ctypes.data_as(ctypes.c_void_p),
         trace_ints.ctypes.data_as(ctypes.c_void_p),
         trace_ptrs.ctypes.data_as(ctypes.c_void_p),
+        None if nodes is None else nodes.ctypes.data_as(ctypes.c_void_p),
         0 if dims is None else dims.shape[0], ptr(dims), ptr(texels),
         px.data_ptr(), py.data_ptr(), s0.data_ptr(), s1.data_ptr(),
         shade_rows.data_ptr(), sobol.data_ptr(), rad.data_ptr(), ptr(work), ptr(prof),

@@ -32,19 +32,26 @@ one walk of the kernels' shared trace (``csrc/zwrt_device.cuh``):
     pointer, descending when any walking lane of the group hits; a hit
     leaf is queued with the group's mask of lanes that hit it, and each
     lane sweeps only the leaves its bit marks (a warp of the kernel);
-  * ``spec``: the ``cond`` walk that slab-tests both successors of a node
-    with the t from before its leaf sweep;
-  * ``uni``: one ``cond`` walk over the unified tree, whose kind-pure
-    leaves are swept by their kind; a sphere and a quad at exactly equal t
-    may then resolve otherwise than in the per-kind stages.
+  * ``spec``: the ``queue`` walk that slab-tests, at each node, both of
+    its successors with the seed t (the box of each step's node is tested
+    at its parent), then sweeps its queue with the fresh t;
+  * ``uni``: one ``queue`` walk over the unified tree, whose kind-pure
+    leaves are then swept by their kind: every sphere leaf in preorder,
+    then every quad leaf in preorder, as the kernel's two-ended queue
+    holds them.  A sphere keeps a tie with a quad, as in the per-kind
+    stages; two leaves of one kind at exactly equal t resolve by the
+    unified tree's preorder.
 
-All of them keep the tie rules above.  ``closest_hit`` takes the unified
+All of them keep the tie rules above; their hits are the ``cond`` walk's,
+since a stale t only admits more leaves and only a strictly closer hit
+replaces the best.  ``closest_hit`` takes the unified
 walk when the scene has that tree and otherwise reads ``ZWRT_TRAV`` at
 each call (an unknown value walks ``queue``, as in the JAX package).
 """
 
 from __future__ import annotations
 
+import contextlib
 import os
 from typing import NamedTuple
 
@@ -211,16 +218,17 @@ def _slab(box, nd, o: V3, inv_d: V3, t_min, t, lanes):
     )
 
 
-def _walk_cond(box, link, o, d, t_min, walking, best, sweep, spec=False):
-    """Per-lane skip-link walk: a lane tests its node's box against its
-    running best t; a hit leaf is swept at once by ``sweep(lanes, node)``,
+def _walk_cond(box, link, o, d, t_min, walking, t_best, sweep, spec=False):
+    """Per-lane skip-link walk: a lane tests its node's box against its t
+    in ``t_best`` (N,); a hit leaf goes to ``sweep(lanes, node)`` at once,
     a hit interior node descends to node + 1, anything else jumps to the
-    miss link.  ``spec`` tests the box of each step's node while at its
-    parent, both successors at once, with the parent's t from before its
+    miss link.  A ``sweep`` that updates ``t_best`` in place culls the rest
+    of the walk with it (the cond walk).  ``spec`` tests the box of each
+    step's node while at its parent, both successors at once (clamped to
+    the last node for the test), with the parent's t from before its
     sweep."""
-    t_best = best.t
     n_nodes = box.shape[0]
-    node = torch.zeros_like(best.kind, dtype=torch.int64)
+    node = torch.zeros_like(walking, dtype=torch.int64)
     inv_d = V3(1.0 / d.x, 1.0 / d.y, 1.0 / d.z)
     walking = walking.clone()
     if spec:
@@ -292,31 +300,67 @@ def _tree_stage(code, box, link, attrs, span, o: V3, d: V3, tm, t_min, walking, 
     best = Hit(*(x.clone() for x in best))
     sweep = lambda lanes, nd: _sweep_into(code, attrs, span, lanes, link[nd, 1], o, d, tm,
                                           t_min, best)
-    if walk in ("cond", "spec"):
-        _walk_cond(box, link, o, d, t_min, walking, best, sweep, spec=walk == "spec")
+    if walk == "cond":
+        _walk_cond(box, link, o, d, t_min, walking, best.t, sweep)
+        return best
+    if walk == "spec":
+        queue = []
+        _walk_cond(box, link, o, d, t_min, walking, best.t.clone(),
+                   lambda lanes, nd: queue.append((lanes, nd)), spec=True)
     else:
-        for lanes, nd in _walk_queue(box, link, o, d, t_min, walking, best.t.clone(),
-                                     per_warp=walk == "rowqueue"):
-            sweep(lanes, nd)
+        queue = _walk_queue(box, link, o, d, t_min, walking, best.t.clone(),
+                            per_warp=walk == "rowqueue")
+    for lanes, nd in queue:
+        sweep(lanes, nd)
     return best
 
 
+_uni_cond = False
+
+
+@contextlib.contextmanager
+def uni_cond_walk():
+    """Inside the block the plain ``uni`` walk takes its first design's
+    form: one ``cond`` walk of the unified tree that sweeps each hit leaf
+    at once by its kind and culls the rest of the walk with the running t.
+    Its hits are the deferred walk's but for a sphere and a quad at exactly
+    equal t, which it resolves by preorder; its work counts, the culling
+    walk's, price the uni walk's roofline bound (chip_smoke.py)."""
+    global _uni_cond
+    prev, _uni_cond = _uni_cond, True
+    try:
+        yield
+    finally:
+        _uni_cond = prev
+
+
 def _uni_tree_stage(scene, o: V3, d: V3, tm, t_min, walking, best: Hit) -> Hit:
-    """One per-lane walk of the unified tree: a hit leaf is swept by its
-    kind (link column 2) with that kind's leaf slots."""
+    """One per-lane queue walk of the unified tree with the seed t, then
+    its queue swept by kind (link column 2) with that kind's leaf slots:
+    every sphere leaf in walk order, then every quad leaf in walk order
+    (inside ``uni_cond_walk``, one cond walk that sweeps each leaf at
+    once)."""
     best = Hit(*(x.clone() for x in best))
     link = scene.uni_tree_link
     span = scene.uni_leaf_span
+    kinds = ((PRIM_SPHERE, scene.uni_sph_attrs, tm), (PRIM_QUAD, scene.uni_quad_attrs, None))
 
-    def sweep(lanes, nd):
-        kinds = link[nd, 2]
-        for code, attrs, tmv in ((PRIM_SPHERE, scene.uni_sph_attrs, tm),
-                                 (PRIM_QUAD, scene.uni_quad_attrs, None)):
-            mine = kinds == code
-            _sweep_into(code, attrs, span, lanes[mine], link[nd[mine], 1], o, d, tmv, t_min,
-                        best)
+    def sweep(code, attrs, tmv, lanes, nd):
+        mine = link[nd, 2] == code
+        _sweep_into(code, attrs, span, lanes[mine], link[nd[mine], 1], o, d, tmv, t_min, best)
 
-    _walk_cond(scene.uni_tree_box, link, o, d, t_min, walking, best, sweep)
+    if _uni_cond:
+        def sweep_both(lanes, nd):
+            for k in kinds:
+                sweep(*k, lanes, nd)
+
+        _walk_cond(scene.uni_tree_box, link, o, d, t_min, walking, best.t, sweep_both)
+        return best
+    queue = _walk_queue(scene.uni_tree_box, link, o, d, t_min, walking, best.t.clone(),
+                        per_warp=False)
+    for k in kinds:
+        for lanes, nd in queue:
+            sweep(*k, lanes, nd)
     return best
 
 

@@ -5,14 +5,18 @@
 Cells: each leaf span of ``SPANS`` (``ZWRT_LEAF_GROUPS`` at scene compile,
 for both primitive kinds) under each walk of ``WALKS`` (``ZWRT_TRAV`` at
 launch), on balls 400x400@128 d10 (the render kernel) and rtw_final
-400x400@64 d8 (the bounce kernel with the atlas).  Each cell: one warmup
+400x400@64 d8 (the bounce kernel with the atlas), and on rtw_final, which
+has both kinds, under the ``uni`` walk too (the unified tree,
+``ZWRT_UNI_TREE=1`` at scene compile, at the same span).  Each cell: one warmup
 render (it builds the coherent plan), the best of three timed renders
 (Mpaths/s), the kernel's time at the plan's lanes (best of three CUDA-event
 runs), the peak device memory of the renders, and the framebuffer against
 the JAX-span ``cond`` render of the same run (span 64 for balls' 485
 spheres, 32 for rtw_final's 1,005 spheres and 2,401 quads): every pixel
 that differs at all is counted.  ``pairs`` times two settings of one scene
-in alternating pairs.  Prints one JSON line; exits 2 without a card.
+in alternating pairs: cond against queue at each scene's best span, and
+uni against queue on rtw_final at the package's span.  Prints one JSON
+line; exits 2 without a card.
 """
 
 from __future__ import annotations
@@ -30,6 +34,8 @@ WALKS = ("cond", "queue")
 W = H = 400
 # (scene, spp, depth, the JAX package's leaf span for its trees)
 SCENES = {"balls": (128, 10, 64), "rtw_final": (64, 8, 32)}
+# the scenes swept under the unified tree's walk too
+UNI_SCENES = ("rtw_final",)
 LUT_NATIVE = 1 << 23
 
 
@@ -49,13 +55,19 @@ def env(**values):
                 os.environ[k] = old[k]
 
 
-def load(name, span=None, lut=None):
+def load(name, span=None, lut=None, walk=None):
     """``name`` on the card, its trees at leaf span ``span`` (None: the
-    package's policy)."""
+    package's policy), with the unified tree when ``walk`` is "uni"."""
     from ..models import load_scene
 
-    with env(ZWRT_LEAF_GROUPS=span):
+    with env(ZWRT_LEAF_GROUPS=span, ZWRT_UNI_TREE=1 if walk == "uni" else None):
         return load_scene(name, device="cuda", texture_lut=lut)
+
+
+def trav(walk):
+    """``ZWRT_TRAV`` for ``walk``: unset for uni, which the scene's
+    unified tree selects."""
+    return None if walk == "uni" else walk
 
 
 def render_best(scene, spp, depth, walk, reps=3):
@@ -64,7 +76,7 @@ def render_best(scene, spp, depth, walk, reps=3):
     from ..render import Renderer
 
     renderer = Renderer(samples_per_pixel=spp, max_ray_bounce_depth=depth)
-    with env(ZWRT_TRAV=walk):
+    with env(ZWRT_TRAV=trav(walk)):
         renderer.render_device(scene, W, H)
         torch.cuda.synchronize()
         best, fb = float("inf"), None
@@ -98,7 +110,7 @@ def kernel_ms(scene, renderer, spp, depth, walk):
         st0 = integrator.initial_regen_state(plan[2], 1)
         fn = lambda: tb.bounce_regen(cs, st0, plan[0], plan[1], plan[3], 0, dtypes.T_MIN, **kw)
     best = float("inf")
-    with env(ZWRT_TRAV=walk):
+    with env(ZWRT_TRAV=trav(walk)):
         for _ in range(3):
             start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
             start.record()
@@ -125,8 +137,9 @@ def cell(scene, spp, depth, walk, ref_fb=None) -> tuple:
 
 
 def sweep(log=print, spans=SPANS, walks=WALKS) -> dict:
-    """Every (scene, span, walk) cell and the JAX-span reference cell;
-    {scene: {"ref": record, "cells": {"span,walk": record}}}."""
+    """Every (scene, span, walk) cell, uni too on ``UNI_SCENES``, and the
+    JAX-span reference cell; {scene: {"ref": record, "cells": {"span,walk":
+    record}}}."""
     out = {}
     for name, (spp, depth, jax_span) in SCENES.items():
         ref, ref_fb = cell(load(name, jax_span), spp, depth, "cond")
@@ -134,10 +147,13 @@ def sweep(log=print, spans=SPANS, walks=WALKS) -> dict:
             f"kernel {ref['kernel_ms']:.3f} ms, peak {ref['peak_mib']:.1f} MiB")
         cells = {}
         for span in spans:
-            scene = load(name, span)
-            nodes = [getattr(scene.compiled, f"{k}_tree_box").shape[0] for k in ("sph", "quad")
-                     if getattr(scene.compiled, f"has_{k}_tree")]
-            for walk in walks:
+            per_kind = load(name, span)
+            uni = load(name, span, walk="uni") if name in UNI_SCENES else None
+            for walk in walks + (("uni",) if uni else ()):
+                scene = uni if walk == "uni" else per_kind
+                trees = ("uni",) if walk == "uni" else ("sph", "quad")
+                nodes = [getattr(scene.compiled, f"{k}_tree_box").shape[0] for k in trees
+                         if getattr(scene.compiled, f"has_{k}_tree")]
                 rec, _ = cell(scene, spp, depth, walk, ref_fb)
                 rec["tree_nodes"] = nodes
                 cells[f"{span},{walk}"] = rec
@@ -153,7 +169,7 @@ def lut_cell(span, walk, ref_fb, log=print) -> dict:
     """rtw_final with a native-budget texture LUT (the render kernel) at
     ``span`` under ``walk``, against the atlas reference framebuffer."""
     spp, depth, _ = SCENES["rtw_final"]
-    rec, _ = cell(load("rtw_final", span, LUT_NATIVE), spp, depth, walk, ref_fb)
+    rec, _ = cell(load("rtw_final", span, LUT_NATIVE, walk), spp, depth, walk, ref_fb)
     log(f"sweep rtw_final LUT span {span}, {walk}: {rec['mpaths_per_s']:.2f} Mpaths/s, kernel "
         f"{rec['kernel_ms']:.3f} ms, pixels differing from the JAX-span cond atlas render "
         f"{rec['pixels_differ']}")
@@ -166,7 +182,7 @@ def pairs(name, settings, n=5, log=print) -> dict:
     three renders; the order flips every pair.  Returns the times, the
     wins of the first setting and the medians."""
     spp, depth, _ = SCENES[name]
-    scenes = [load(name, span) for _, span, _ in settings]
+    scenes = [load(name, span, walk=walk) for _, span, walk in settings]
     for scene, (_, _, walk) in zip(scenes, settings):
         render_best(scene, spp, depth, walk, reps=1)  # warm both plans
     times = []
@@ -186,6 +202,12 @@ def pairs(name, settings, n=5, log=print) -> dict:
     return {"labels": labels, "times_s": times, "first_wins": wins, "medians_s": med}
 
 
+def uni_pairs(log=print) -> dict:
+    """The unified tree's walk against the default queue walk on rtw_final
+    at the package's leaf span, in alternating pairs."""
+    return pairs("rtw_final", (("uni", None, "uni"), ("queue", None, "queue")), log=log)
+
+
 def main(argv=None) -> int:
     if not torch.cuda.is_available():
         print("span_sweep: CUDA is not available", file=sys.stderr)
@@ -200,6 +222,7 @@ def main(argv=None) -> int:
     for name, key in best.items():
         span = int(key.split(",")[0])
         pr[name] = pairs(name, (("cond", span, "cond"), ("queue", span, "queue")), log=log)
+    pr["rtw_final uni"] = uni_pairs(log)
     for r in res.values():
         r.pop("ref_fb")
     print(json.dumps({"device": torch.cuda.get_device_name(0), "sweep": res, "best": best,

@@ -176,9 +176,15 @@ def scaled(counts, factor: float) -> dict:
     return {k: v * factor for k, v in counts.items()}
 
 
-def trace_bytes(scene) -> int:
+def trace_bytes(scene, walk=None) -> int:
     """Bytes of the tables a trace reads: per kind the brute rows or the
-    tree (boxes, links, leaf slots and their original indices)."""
+    tree (boxes, links, leaf slots and their original indices); under the
+    ``uni`` walk the unified tree alone (its nodes, packed in 32 bytes
+    each, and its leaf slots with their original indices)."""
+    if walk == "uni":
+        return (scene.uni_tree_box.shape[0] * 32
+                + scene.uni_sph_attrs[-1].numel() * (8 + 1) * 4
+                + scene.uni_quad_attrs[-1].numel() * (16 + 1) * 4)
     n = 0
     for kind, n_prims, width in (("sph", scene.n_spheres, 8), ("quad", scene.n_quads, 16)):
         if getattr(scene, f"has_{kind}_tree"):
@@ -233,11 +239,12 @@ def image_table_bytes(scene) -> int:
     return image_table(scene)[1].numel() * 4
 
 
-def render_table_bytes(scene, sobol_bytes: int = 0) -> int:
-    """Bytes of the tables a render kernel reads: the trace's, the shade
-    records, the Sobol table, the factored Sobol tables (2 x ``sobol_bytes``
-    x 256 u32; 0 without) and, for an image scene, its image table."""
-    return (trace_bytes(scene) + scene.shade_rows.numel() * 4 + 5 * 52 * 4
+def render_table_bytes(scene, sobol_bytes: int = 0, walk=None) -> int:
+    """Bytes of the tables a render kernel reads: the trace's under
+    ``walk`` (``trace_bytes``), the shade records, the Sobol table, the
+    factored Sobol tables (2 x ``sobol_bytes`` x 256 u32; 0 without) and,
+    for an image scene, its image table."""
+    return (trace_bytes(scene, walk) + scene.shade_rows.numel() * 4 + 5 * 52 * 4
             + 2 * sobol_bytes * 256 * 4 + image_table_bytes(scene))
 
 
