@@ -142,9 +142,14 @@ Phases (any failure exits nonzero):
      mode and the render kernel with the LUT); the uni kernels at both
      spans against the plain cond walk of the unified tree
      (ops/trace.py:uni_cond_walk), whose work counts price the uni walk's
-     bounds, as the cond walk's price the spec walk's (walk_bound_counts);
-     and a launch of the queue, spec and uni walks with a queue one entry
-     short of the tree's leaves, refused (short_queue_refused);
+     bounds, as the cond walk's price the other walks' (walk_bound_counts);
+     the rowqueue walk at the port's span, where a block stages only part
+     of the quad tree's nodes, through the bounce kernel's regenerating
+     mode and the render kernel with the LUT, and the cond walk's bounce
+     kernel there (its counts price rowqueue's bound); every rowqueue
+     kernel bitwise its plain version; and a launch of the queue, rowqueue,
+     spec and uni walks with a queue one entry short of the tree's leaves,
+     refused (short_queue_refused);
  18. the walks on the slice's path at full width and a cut spp, on phase
      17's scenes at leaf span 2, each with its counts set to 0 just before
      and read just after: rtw_final 400x400@16 d8 under the default walk
@@ -158,13 +163,18 @@ Phases (any failure exits nonzero):
      rtol 1e-5 / atol 1e-6 of the default walk's render of the same scene
      on >= 99.9% of pixels, and rtw_final's region gates of phase 12 on the
      unified-tree render; then rtw_final at the port's span under the
-     default walk and under uni, both kernels; then each redesigned walk
-     (spec: K1 balls, K2 rtw_final; uni: K1 LUT and K2 on rtw_final, at
-     span 2 and at the port's span) against its first design (the
-     kFlagFirstWalk variant) at its path's plan in 5 alternating rounds,
-     at the port's span the default walk's kernel in the rounds too, the
-     outputs held to the new design's with phase 2's tolerances: times,
-     wins, the bound, registers and spills of both instantiations;
+     default walk, rowqueue (bounce kernel) and uni (both kernels); the
+     default walk's kernel time and bound (from the cond walk's counts)
+     at the span-2 plans; then each redesigned walk (rowqueue: K1 balls,
+     K2 rtw_final, and K2 at the port's span; spec: K1 balls, K2
+     rtw_final; uni: K1 LUT and K2 on rtw_final, at span 2 and at the
+     port's span) against its first design (the kFlagFirstWalk variant)
+     at its path's plan in 5 alternating rounds, the default walk's kernel
+     in the rounds of rowqueue and of uni at the port's span, the outputs
+     held to the new design's with phase 2's tolerances (rowqueue's
+     bitwise): times, wins, the bound from the cond walk's counts and the
+     walk's own beside it, registers and spills of both instantiations,
+     their blocks per SM and shared memory a block at the plan;
  19. the respawn under every sampler: the render kernel on the
      all-materials scene (a moving sphere, an isotropic medium) and the
      bounce kernel's regenerating mode on it with an image quad, at 32x32,
@@ -308,7 +318,10 @@ closest-hit kernel (its launches on the probe, the AOV passes and phase
 and phase 26's render against the plain trace); then one
 per walk other than the default of the render kernel (cond, rowqueue and
 spec on balls at span 2, uni with the LUT on rtw_final) and of the bounce
-kernel's regenerating mode (rtw_final), the estimator instantiations of
+kernel's regenerating mode (rtw_final; rowqueue's at the port's span
+too), each priced from the cond walk's counts on the same tree (the tree
+and regenerating entries carry the default walk's span-2 time and bound
+as ``queue_walk_span2``), the estimator instantiations of
 the render kernel (its launches on phase 24's russian_roulette=3 path, its
 time at that path's plan, every driver of phase 24 beside it) and of the
 bounce kernel (parity only: the atlas gate keeps it off every path), and
@@ -970,7 +983,7 @@ def kernel_resources(build_log: str) -> dict:
     """{kernel instantiation: {"registers", "spill_bytes"}} from ptxas -v:
     fused_render_kernel<IMAGES, walk> (without and with the image fetch)
     and bounce_kernel<REGEN, walk> (one-bounce and regenerating modes) for
-    each tree walk, the first designs of the spec and uni walks
+    each tree walk, the first designs of the rowqueue, spec and uni walks
     (<IMAGES, walk, first design>), closest_hit_kernel and
     closest_hit_flat_kernel (its first design), and chain_kernel<op,
     chains, unroll>."""
@@ -981,8 +994,9 @@ def kernel_resources(build_log: str) -> dict:
 
     flag_names = {1: "prof", 2: "loop_sobol", 3: "prof, loop_sobol", 4: "estimator",
                   8: "first design"}
-    # zwrt_device.cuh:Walk, then kWalkSpecFirst and kWalkUniFirst
-    walk_names = WALKS + ("spec", "uni")
+    # zwrt_device.cuh:Walk, then kWalkSpecFirst, kWalkUniFirst and
+    # kWalkRowQueueFirst
+    walk_names = WALKS + ("spec", "uni", "rowqueue")
 
     def name_of(mangled):
         m = re.search(r"(fused_render_kernel|bounce_kernel)ILb([01])ELi(\d)ELi(\d)E", mangled)
@@ -1739,6 +1753,33 @@ def phase_walk_parity(zt, fused, tb, integrator, torch, sc) -> dict:
             f"{DEFAULT_WALK} walk, port's span: rtw_final 32x32 spp{WALK_SPP} "
             f"d{WALK_RTW_DEPTH}")[:2]
     result["uni port span"] = port
+    # the rowqueue walk at the port's span, where a block stages only a
+    # preorder prefix of the quad tree in shared memory (the wrapper's
+    # budget, ops/fused_render.py:rowqueue_staged_nodes): its K2 and K1 LUT
+    # against their plain versions, and the cond walk's K2 there, whose
+    # plain work counts price the rowqueue walk's bound at that span
+    for key in ("rtw", "rtw_port"):
+        cs = sc[key].compiled
+        staged = fused.rowqueue_staged_nodes(cs)
+        trees = {k: getattr(cs, f"{k}_tree_box").shape[0] for k in staged}
+        log(f"rowqueue walk on rtw_final at leaf span {cs.sph_leaf_span}: a block stages "
+            f"{staged} of the trees' {trees} nodes in shared memory ("
+            + ("in part" if staged != trees else "whole") + ")")
+    rq = {}
+    with trav("rowqueue"):
+        rq["K2 regen"] = regen_parity(
+            zt, tb, integrator, torch, sc["rtw_port"], 32, WALK_SPP, WALK_RTW_DEPTH,
+            f"rowqueue walk, port's span: rtw_final 32x32 spp{WALK_SPP} d{WALK_RTW_DEPTH}")[:2]
+        plains = []
+        check = render_parity(zt, fused, integrator, torch, sc["rtw_lut_port"],
+                              f"rowqueue walk, port's span: rtw_final LUT 32x32 spp{WALK_SPP} "
+                              f"d{WALK_RTW_DEPTH}", WALK_RTW_DEPTH, plains=plains, spp=WALK_SPP)
+        rq["K1 LUT"] = (check, plains[0][1])
+    with trav("cond"):
+        rq["K2 regen, cond walk"] = regen_parity(
+            zt, tb, integrator, torch, sc["rtw_port"], 32, WALK_SPP, WALK_RTW_DEPTH,
+            f"cond walk, port's span: rtw_final 32x32 spp{WALK_SPP} d{WALK_RTW_DEPTH}")[:2]
+    result["rowqueue port span"] = rq
     # the unified tree walked as its first design (ops/trace.py:
     # uni_cond_walk, one cond walk that culls with the running t): its
     # plain work counts price the uni walk's bounds (walk_bound_counts), and
@@ -1777,15 +1818,27 @@ def phase_walk_parity(zt, fused, tb, integrator, torch, sc) -> dict:
                                                (ref.radiance, ref.work)))
             else:
                 result["plain"].append(compare(tag, mine, ref))
+    bitwise([c for c, _ in result["rowqueue"].values()]
+            + [result["rowqueue port span"][k][0] for k in ("K2 regen", "K1 LUT")],
+            "the rowqueue walk's kernels against their plain versions")
     return result
 
 
+def bitwise(checks, what) -> None:
+    """Raises unless each check of compare or compare_bounce found its
+    kernel's output bitwise the plain version's."""
+    for c in checks:
+        if c["max_abs_err"] != 0.0 or c.get("work_diff", 0) or c.get("alive_diff", 0):
+            raise AssertionError(f"{what}: {c['check']} is not bitwise")
+    log(f"{what}: bitwise in {len(checks)} cases")
+
+
 def short_queue_refused(zt, fused, torch, sc) -> list:
-    """A render-kernel launch of each per-thread queue walk (queue and
-    spec on balls at span 2, uni on rtw_final with the LUT) whose queue
-    capacity is one below the leaves its tree may hold ((n + 1) / 2 of n
-    nodes) is refused with cudaErrorInvalidValue (1), before it runs, and
-    counts no launch (zwrt_device.cuh:set_walk)."""
+    """A render-kernel launch of each queue walk (queue, rowqueue and spec
+    on balls at span 2, uni on rtw_final with the LUT) whose queue capacity
+    is one below the leaves its tree may hold ((n + 1) / 2 of n nodes) is
+    refused with cudaErrorInvalidValue (1), before it runs, and counts no
+    launch (zwrt_device.cuh:set_walk)."""
     from zig_weekend_raytracer_tpu_torch.render.camera import camera_consts
 
     out = []
@@ -1793,7 +1846,8 @@ def short_queue_refused(zt, fused, torch, sc) -> list:
     px, py = (lane % 8).contiguous(), (lane // 8).contiguous()
     zero = torch.zeros_like(lane)
     real_walk_args = fused.walk_args
-    for walk, name in (("queue", "balls2"), ("spec", "balls2"), ("uni", "rtw_uni_lut")):
+    for walk, name in (("queue", "balls2"), ("rowqueue", "balls2"), ("spec", "balls2"),
+                       ("uni", "rtw_uni_lut")):
         cs = sc[name].compiled
         nodes = cs.uni_tree_box.shape[0] if walk == "uni" else cs.sph_tree_box.shape[0]
         short = (nodes + 1) // 2 - 1
@@ -1828,22 +1882,28 @@ def short_queue_refused(zt, fused, torch, sc) -> list:
 
 
 def walk_bound_counts(wpar, walk, pcase, ccase) -> dict:
-    """Phase 17's plain work counts that price the bound of the spec or uni
-    walk on case ``ccase`` of ``pcase``: the cond walk's on the same tree
-    (the per-kind trees for spec, the unified tree's first-design form for
-    uni), not the redesigned walk's own, which culls with the seed t and so
-    tests more boxes and sweeps more leaves than the closest hit needs."""
+    """Phase 17's plain work counts that price the bound of a walk on case
+    ``ccase`` of ``pcase``: the cond walk's on the same tree (the per-kind
+    trees for queue, rowqueue and spec, at the port's span for "rowqueue
+    port span"; the unified tree's first-design form for uni), not the
+    walk's own, which culls with the seed t and so tests more boxes (and,
+    but for rowqueue, sweeps more leaves) than the closest hit needs."""
     if walk == "uni":
         return wpar["uni cond"][pcase][ccase][1]
+    if pcase == "rowqueue port span":
+        return wpar[pcase][f"{ccase}, cond walk"][1]
     return wpar["cond"][ccase][1]
 
 
-def plan_kernel(zt, fused, integrator, tb, scene, renderer, spp, depth, first=False):
+def plan_kernel(zt, fused, integrator, tb, scene, renderer, spp, depth, first=False,
+                occupancy=False):
     """A call of the scene's kernel at ``renderer``'s coherent plan (the
     render kernel where it takes the scene, else the bounce kernel's
     regenerating mode) under the walk the environment names, returning
     (radiance, work); ``first``: through the walk's first design (the
-    measurement variant, counted apart from the paths)."""
+    measurement variant, counted apart from the paths); ``occupancy``: a
+    call that launches nothing and returns the instantiation's (blocks per
+    SM, dynamic shared memory bytes) at the plan instead."""
     from zig_weekend_raytracer_tpu_torch.ops.bounce import supports_fused_render
     from zig_weekend_raytracer_tpu_torch.render.camera import camera_consts
 
@@ -1854,6 +1914,13 @@ def plan_kernel(zt, fused, integrator, tb, scene, renderer, spp, depth, first=Fa
               width=W, height=H, spp=spp, stride=1, max_depth=depth,
               has_dof=scene.camera.has_depth_of_field)
     t_min = zt.dtypes.T_MIN
+    if occupancy:
+        if supports_fused_render(cs):
+            return lambda: fused.render_fused_occupancy(cs, *plan, 0, t_min, first_walk=first,
+                                                        **kw)
+        return lambda: tb.bounce_regen_occupancy(
+            cs, integrator.initial_regen_state(plan[2], 1), plan[0], plan[1], plan[3], 0, t_min,
+            first_walk=first, **kw)
     if supports_fused_render(cs):
         if first:
             return lambda: fused.render_fused_variant(cs, *plan, 0, t_min, first_walk=True,
@@ -1958,51 +2025,75 @@ def walk_lane_bytes(kernel, lut, lanes) -> int:
 
 
 # phase 18's redesign cases: (kernel, path key, scene of walk_scenes, the
-# default walk's scene at the same span or None, phase 17's counts)
+# default walk's scene at the same span and its path's renderer key, or
+# None, phase 17's counts)
 DESIGN_CASES = (
+    ("K1", "rowqueue", "balls2", ("balls2", ("K1", DEFAULT_WALK)), ("rowqueue", "K1 balls")),
+    ("K2", "rowqueue", "rtw", ("rtw", ("K2", DEFAULT_WALK)), ("rowqueue", "K2 regen")),
+    ("K2", "rowqueue port", "rtw_port", ("rtw_port", ("K2", "queue port")),
+     ("rowqueue port span", "K2 regen")),
     ("K1", "spec", "balls2", None, ("spec", "K1 balls")),
     ("K2", "spec", "rtw", None, ("spec", "K2 regen")),
     ("K1", "uni", "rtw_uni_lut", None, ("uni", "K1 LUT")),
     ("K2", "uni", "rtw_uni", None, ("uni", "K2 regen")),
-    ("K1", "uni port", "rtw_uni_lut_port", "rtw_lut_port", ("uni port span", "K1 LUT")),
-    ("K2", "uni port", "rtw_uni_port", "rtw_port", ("uni port span", "K2 regen")),
+    ("K1", "uni port", "rtw_uni_lut_port", ("rtw_lut_port", ("K1", "queue port")),
+     ("uni port span", "K1 LUT")),
+    ("K2", "uni port", "rtw_uni_port", ("rtw_port", ("K2", "queue port")),
+     ("uni port span", "K2 regen")),
 )
 
 
 def phase_walk_designs(zt, fused, integrator, tb, torch, sc, wpar, paths, renderers, resources,
                        card) -> dict:
-    """Phase 18's redesign check: each redesigned walk (spec, uni) against
-    its first design (the kFlagFirstWalk variant) at the coherent plan of
-    its phase 18 path, in DESIGN_PAIRS alternating rounds (design_rounds):
-    K1 and K2 at span 2, and uni at the port's span beside the default
-    walk's kernel on the per-kind scene at that span.  Each with its bound
-    (walk_bound_counts scaled to the path's bounces; the bound the walk's
-    own plain counts would give beside it, as a diagnostic), the
-    registers and spills of both instantiations and the path's render
-    against the default walk's.  Returns {"<kernel> <path key>": record}."""
+    """Phase 18's redesign check: each redesigned walk (rowqueue, spec,
+    uni) against its first design (the kFlagFirstWalk variant) at the
+    coherent plan of its phase 18 path, in DESIGN_PAIRS alternating rounds
+    (design_rounds): K1 and K2 at span 2, and rowqueue's K2 and uni at the
+    port's span; the default walk's kernel at the same plan on the per-kind
+    scene of the same span runs in the rounds of rowqueue and of uni at the
+    port's span.  Each with its bound (walk_bound_counts scaled to the
+    path's bounces; the bound the walk's own plain counts would give beside
+    it, as a diagnostic), the registers and spills of both instantiations,
+    each instantiation's blocks per SM and shared memory per block at the
+    plan, and the path's render against the default walk's.  Returns
+    {"<kernel> <path key>": record}."""
     out = {}
-    for kernel, key, name, default_name, (pcase, ccase) in DESIGN_CASES:
+    for kernel, key, name, default, (pcase, ccase) in DESIGN_CASES:
         walk = key.split()[0]
         scene, spp, depth = sc[name], *((WALK18_BALLS_SPP, DEPTH) if name == "balls2"
                                         else (WALK18_RTW_SPP, RTW_DEPTH))
         lut = scene.compiled.has_image_textures and bool(scene.compiled.tex_lut_dims)
-        run = lambda first, sc_=scene, rnd=renderers[(kernel, key)]: plan_kernel(
-            zt, fused, integrator, tb, sc_, rnd, spp, depth, first)
+        run = lambda first, occ=False, sc_=scene, rnd=renderers[(kernel, key)]: plan_kernel(
+            zt, fused, integrator, tb, sc_, rnd, spp, depth, first, occ)
         runs = {"new": (walk, run(False)), "first design": (walk, run(True))}
-        if default_name:
-            runs[DEFAULT_WALK] = (DEFAULT_WALK, plan_kernel(
-                zt, fused, integrator, tb, sc[default_name], renderers[(kernel, "queue port")],
-                spp, depth))
+        occupancy = {"new": (walk, run(False, True)), "first design": (walk, run(True, True))}
+        if default:
+            call = lambda occ, dname=default[0], rkey=default[1]: plan_kernel(
+                zt, fused, integrator, tb, sc[dname], renderers[rkey], spp, depth,
+                occupancy=occ)
+            runs[DEFAULT_WALK] = (DEFAULT_WALK, call(False))
+            occupancy[DEFAULT_WALK] = (DEFAULT_WALK, call(True))
         cs = scene.compiled
         span = cs.uni_leaf_span if walk == "uni" else cs.sph_leaf_span
         tag = f"{kernel} {walk} walk, {scene.name}{' LUT' if lut else ''} span {span}"
+        occ = {}
+        for label, (w, call) in occupancy.items():
+            with trav(w):
+                blocks, smem = call()
+            occ[label] = {"blocks_per_sm": blocks, "smem_bytes": smem}
+        log(f"{tag}: blocks per SM and dynamic shared memory a block at the plan "
+            "(cudaOccupancyMaxActiveBlocksPerMultiprocessor): " + "; ".join(
+                f"{k} {v['blocks_per_sm']}, {v['smem_bytes']} bytes" for k, v in occ.items()))
         rounds = design_rounds(torch, runs, tag, card)
+        if walk == "rowqueue":
+            bitwise(rounds["checks"], f"{tag}: the first design's and the default walk's "
+                                      "outputs at the plan against the new design's")
         counts = wpar[pcase][ccase][1]
         per_bounce = {k: counts.get(k, 0) / max(counts.get("bounce", 0), 1)
                       for k in ("slab_test", "leaf_visit", "sphere_test", "quad_test")}
         log(f"{tag}: the plain walk's work a bounce at 32x32 (phase 17): "
             + ", ".join(f"{k} {v:.2f}" for k, v in per_bounce.items()))
-        if default_name and kernel == "K2":
+        if "port" in key and kernel == "K2":
             ref = wpar["uni port span"]["K2 regen, default walk"][1]
             log(f"{tag}: the plain {DEFAULT_WALK} walk's work a bounce on the per-kind trees: "
                 + ", ".join(f"{k} {ref.get(k, 0) / max(ref.get('bounce', 0), 1):.2f}"
@@ -2026,8 +2117,8 @@ def phase_walk_designs(zt, fused, integrator, tb, torch, sc, wpar, paths, render
         med = rounds["median_ms"]
         log(f"{tag} ({card}): new {med['new']:.3f} ms, first design {med['first design']:.3f} ms"
             f" (new faster in {rounds['wins']['first design']} of {DESIGN_PAIRS}), "
-            + (f"default {DEFAULT_WALK} walk {med[DEFAULT_WALK]:.3f} ms (uni faster in "
-               f"{rounds['wins'][DEFAULT_WALK]}), " if default_name else "")
+            + (f"default {DEFAULT_WALK} walk {med[DEFAULT_WALK]:.3f} ms ({walk} faster in "
+               f"{rounds['wins'][DEFAULT_WALK]}), " if default else "")
             + f"bound {bound['bound_ms']:.3f} ms ({bound['bound_by']}): "
             f"{bound['bound_ms'] / med['new']:.1%} of the new, "
             f"{bound['bound_ms'] / med['first design']:.1%} of the first; registers/spill "
@@ -2036,7 +2127,7 @@ def phase_walk_designs(zt, fused, integrator, tb, torch, sc, wpar, paths, render
             f"its render against the default walk's {path['default_agree']:.4%} of pixels "
             f"within rtol 1e-5/atol 1e-6 (max |diff| {path['default_max_abs_diff']:.3e})")
         out[f"{kernel} {key}"] = {**rounds, **bound, "span": span, "resources": res,
-                                  "default_agree": path["default_agree"],
+                                  "occupancy": occ, "default_agree": path["default_agree"],
                                   "plain_work_per_bounce": per_bounce,
                                   "own_work_bound_ms": own}
     return out
@@ -3358,10 +3449,10 @@ def main() -> int:
         log(f"  {name}: {res['registers']} registers, {res['spill_bytes']} bytes spill stores")
     n_chain = 5 * 2 * 4  # ops x chain counts x unrolls
     # per kernel: 2 modes x 5 walks, and 3 variants for 2 walks (K1 in both
-    # modes, K2's regenerating mode), the first designs of 2 walks (K1 in
+    # modes, K2's regenerating mode), the first designs of 3 walks (K1 in
     # both modes, K2's regenerating mode), and the estimator instantiations
     # (2 modes x 5 walks per kernel)
-    n_render = 2 * 5 + 2 * 2 * 3 + 2 * 5 + 2 * 3 + 2 * 2 + 2 + 2 * (2 * 5)
+    n_render = 2 * 5 + 2 * 2 * 3 + 2 * 5 + 2 * 3 + 2 * 3 + 3 + 2 * (2 * 5)
     # closest_hit_kernel and its first design
     if len(resources) != n_render + 2 + n_chain or any(
             r["registers"] is None for r in resources.values()):
@@ -3765,10 +3856,22 @@ def main() -> int:
     paths, renderers = {}, {}
     b_default, b2_fb, renderers[("K1", DEFAULT_WALK)] = wr(wsc["balls2"], WALK18_BALLS_SPP,
                                                             DEPTH, DEFAULT_WALK)
-    b_default.update(render_bound(zt, wsc["balls2"], wpar[DEFAULT_WALK]["K1 balls"][1],
-                                  b_default["work"], b_default["lanes"] * (16 + 12), True,
-                                  WALK18_BALLS_SPP))
-    r18_default, r18_fb, _ = wr(wsc["rtw"], WALK18_RTW_SPP, RTW_DEPTH, DEFAULT_WALK)
+    r18_default, r18_fb, renderers[("K2", DEFAULT_WALK)] = wr(wsc["rtw"], WALK18_RTW_SPP,
+                                                               RTW_DEPTH, DEFAULT_WALK)
+    # the default walk's bounds at these plans, from the cond walk's plain
+    # counts on the same trees (its own counts give the diagnostic beside)
+    for rec, kernel, case, scene, spp in (
+            (b_default, "K1", "K1 balls", wsc["balls2"], WALK18_BALLS_SPP),
+            (r18_default, "K2", "K2 regen", wsc["rtw"], WALK18_RTW_SPP)):
+        at = lambda counts: render_bound(
+            zt, scene, counts, rec["work"], walk_lane_bytes(kernel, False, rec["lanes"]),
+            scene.camera.has_depth_of_field, spp, walk=DEFAULT_WALK)
+        rec.update(at(walk_bound_counts(wpar, DEFAULT_WALK, DEFAULT_WALK, case)))
+        rec["own_work_bound_ms"] = at(wpar[DEFAULT_WALK][case][1])["bound_ms"]
+        log(f"{kernel} {DEFAULT_WALK} walk, {scene.name} span 2 ({card}): kernel at the plan "
+            f"{rec['ms']:.3f} ms, bound {rec['bound_ms']:.3f} ms ({rec['bound_by']}, the cond "
+            f"walk's counts): {rec['bound_ms'] / rec['ms']:.1%}; diagnostic only, its own "
+            f"counts would give {rec['own_work_bound_ms']:.3f} ms")
     l18_default, l18_fb, _ = wr(wsc["rtw_lut"], WALK18_RTW_SPP, RTW_DEPTH, DEFAULT_WALK)
     for walk in OTHER_WALKS[:-1]:
         paths[("K1", walk)], _, renderers[("K1", walk)] = wr(
@@ -3783,6 +3886,8 @@ def main() -> int:
     # the port's span: the default walk's renders and the unified tree's
     port_default, port_fb, renderers[("K2", "queue port")] = wr(
         wsc["rtw_port"], WALK18_RTW_SPP, RTW_DEPTH, DEFAULT_WALK)
+    paths[("K2", "rowqueue port")], _, renderers[("K2", "rowqueue port")] = wr(
+        wsc["rtw_port"], WALK18_RTW_SPP, RTW_DEPTH, "rowqueue", port_fb)
     port_lut_default, port_lut_fb, renderers[("K1", "queue port")] = wr(
         wsc["rtw_lut_port"], WALK18_RTW_SPP, RTW_DEPTH, DEFAULT_WALK)
     paths[("K2", "uni port")], _, renderers[("K2", "uni port")] = wr(
@@ -3897,8 +4002,9 @@ def main() -> int:
 
     def walk_entry(kernel, walk):
         """The record of one walk's instantiation on its phase 18 path; its
-        bound from phase 17's plain work counts (32x32; walk_bound_counts
-        for spec and uni) scaled to the kernel's bounces at the plan."""
+        bound from phase 17's plain work counts of the cond walk on the same
+        tree (32x32; walk_bound_counts) scaled to the kernel's bounces at
+        the plan, the walk's own counts' bound beside it."""
         path = paths[(kernel, walk)]
         checks = wpar[walk]
         if kernel == "K1":
@@ -3919,14 +4025,25 @@ def main() -> int:
             src, by_path = BOUNCE_SOURCE, {"rtw_final" + (" uni" if walk == "uni" else ""):
                                            path["launches"]}
         lane_bytes = walk_lane_bytes(kernel, walk == "uni", path["lanes"])
-        counts = (walk_bound_counts(wpar, walk, walk, case) if walk in ("spec", "uni")
-                  else checks[case][1])
-        bound = render_bound(zt, scene, counts, path["work"], lane_bytes,
-                             scene.camera.has_depth_of_field, path["spp"], walk=walk)
+        bound_at = lambda counts: render_bound(zt, scene, counts, path["work"], lane_bytes,
+                                               scene.camera.has_depth_of_field, path["spp"],
+                                               walk=walk)
+        bound = bound_at(walk_bound_counts(wpar, walk, walk, case))
         launches = path["launches"]
-        extra = {}
-        if walk in ("spec", "uni"):
+        extra = {"own_work_bound_ms": bound["bound_ms"] if walk == "cond"
+                 else bound_at(checks[case][1])["bound_ms"]}
+        if walk != "cond":
             extra["design"] = designs[f"{kernel} {walk}"]
+        if walk == "rowqueue":
+            rq = wpar["rowqueue port span"]
+            parity = parity + [rq["K2 regen" if kernel == "K2" else "K1 LUT"][0]]
+            if kernel == "K2":
+                port = paths[(kernel, "rowqueue port")]
+                by_path["rtw_final, port's span"] = port["launches"]
+                launches += port["launches"]
+                extra["port_span"] = {**designs["K2 rowqueue port"],
+                                      **{k: port[k] for k in ("ms", "mpaths_per_s",
+                                                              "render_s_best")}}
         if walk == "uni":
             port = paths[(kernel, "uni port")]
             by_path[f"{scene.name} uni, port's span"] = port["launches"]
@@ -3963,6 +4080,7 @@ def main() -> int:
               {"balls": b_launches, **sh_launches["K1 tree"], **tl["K1 tree"]}, tree_checks,
               b_kernel_ms, b_slice["plain_ms"], k1_tree_bound, render_tol,
               plain_lanes=SLICE_LANES, kernel_ms_at_plain_lanes=b_slice["ms"],
+              queue_walk_span2=b_default,
               balls_render_s_best=b_best, balls_mpaths_per_s=b_mpaths,
               balls_region_gates=balls_gates),
         entry("fused_render_kernel (texture LUT)", KERNEL_SOURCE, KERNEL_LUT_REPLACES,
@@ -3989,7 +4107,7 @@ def main() -> int:
               r_k2 + sum(sh_launches["K2 regen"].values()) + sum(tl["K2 regen"].values()),
               {"rtw_final": r_k2, **sh_launches["K2 regen"], **tl["K2 regen"]}, k2_checks, k2_ms,
               k2_slice["plain_ms"], k2_bound, render_tol, plain_lanes=SLICE_LANES,
-              kernel_ms_at_plain_lanes=k2_slice["ms"],
+              kernel_ms_at_plain_lanes=k2_slice["ms"], queue_walk_span2=r18_default,
               driver_passes_per_band=passes / max(bands, 1), rtw_final_render_s_best=r_best,
               rtw_final_mpaths_per_s=r_mpaths, rtw_final_peak_mib=peak_mb,
               region_gates=image_gates),
@@ -4040,7 +4158,7 @@ def main() -> int:
          **{k: peak[k] for k in ("gops", "gflops", "best_shape", "physics_bound",
                                  "time_ratio_4x", "sass")}},
     ], "cli": cli_checks, "sharded": sharded, "tools": tools, "ops_rates": OPS_RATE["rate"],
-        "default_walk_balls_span2": b_default, "samplers": sampler_checks, "design": design,
+        "samplers": sampler_checks, "design": design,
         "variant_launches": {**variant_launches,
                              "closest_hit_flat": hits22["flat_launches"]},
         "sweep": sweep, "resources": resources}

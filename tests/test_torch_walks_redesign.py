@@ -177,12 +177,15 @@ def test_packed_nodes_round_trip(cases, tree):
 
 
 def test_node_args_only_for_spec_and_uni():
+    """Only the redesigned walks (rowqueue, spec, uni) read packed nodes,
+    all the same tables."""
     cs = _with_env(_random_scene, ZWRT_LEAF_GROUPS=2, ZWRT_UNI_TREE=1)
-    for walk in ("cond", "queue", "rowqueue"):
+    for walk in ("cond", "queue"):
         assert fused_render.node_args(cs, walk) == (None, ())
     assert cs not in fused_render._NODE_CACHE
     ptrs, tables = fused_render.node_args(cs, "spec")
     assert cs in fused_render._NODE_CACHE and fused_render.node_args(cs, "uni")[1] is tables
+    assert fused_render.node_args(cs, "rowqueue")[1] is tables
     assert ptrs.dtype == np.uint64 and ptrs.shape == (3,) and (ptrs != 0).all()
     assert [t.data_ptr() for t in tables] == ptrs.tolist()
     for t, tree in zip(tables, ("sph", "quad", "uni")):
@@ -238,14 +241,18 @@ def test_queue_capacity_covers_the_walks_leaves(cases, walk):
 
 
 def test_first_designs_are_variants_of_spec_and_uni_only():
+    """The redesigned walks (rowqueue, spec, uni) keep their first designs
+    as variants; cond and queue have none."""
     first = fused_render.FLAG_FIRST_WALK
+    assert fused_render.FIRST_DESIGN_WALKS == ("rowqueue", "spec", "uni")
     for walk in fused_render.FIRST_DESIGN_WALKS:
         fused_render.check_flags(walk, first)
-    for walk in ("cond", "queue", "rowqueue"):
+    for walk in ("cond", "queue"):
         with pytest.raises(ValueError, match="no first design"):
             fused_render.check_flags(walk, first)
     with pytest.raises(ValueError, match="no phase profile"):
         fused_render.check_flags("spec", first | fused_render.FLAG_PROF)
     with pytest.raises(ValueError, match="Russian roulette"):
         fused_render.check_flags("uni", first | fused_render.FLAG_ESTIMATOR)
-    assert set(fused_render.render_fused_variant.launches) == {"cond", "queue", "spec", "uni"}
+    assert set(fused_render.render_fused_variant.launches) == {
+        "cond", "queue", "rowqueue", "spec", "uni"}

@@ -61,7 +61,10 @@
 // (``queue_len`` ints) its leaf queue (zwrt_device.cuh:set_walk); ``flags``
 // the instantiation (render_kernels.cuh): 0 by default, kFlagEstimator for
 // Russian roulette and the indirect clamp in either mode, or a measurement
-// variant of the regenerating mode.  Launches on ``stream`` and returns the launch's cudaError_t.
+// variant of the regenerating mode.  Launches on ``stream`` and returns the
+// launch's cudaError_t; with ``occupancy`` set it launches nothing and
+// writes there the instantiation's blocks per SM and dynamic shared memory
+// (render_kernels.cuh:RenderLaunch).
 extern "C" int zwrt_bounce(const int* iparams, const float* fparams, const void* const* tables,
                            const int* trace_ints, const void* const* trace_ptrs,
                            const void* const* nodes, int n_images,
@@ -69,14 +72,15 @@ extern "C" int zwrt_bounce(const int* iparams, const float* fparams, const void*
                            const float* shade_rows, const uint32_t* sobol, float* fstate,
                            int* istate, const int* px, const int* py, const int* limit,
                            long long* out_prof, int regen, int depth, int walk, int flags,
-                           int q_cap, int* queue, int queue_len, int n, void* stream) {
+                           int q_cap, int* queue, int queue_len, int n, int* occupancy,
+                           void* stream) {
   using namespace zwrt;
   if (n <= 0) return 0;
   if (n_images < 1) return (int)cudaErrorInvalidValue;
   RenderLaunch L;
   int err = read_launch(&L, iparams, fparams, tables, trace_ints, trace_ptrs, nodes, n_images,
                         image_dims, image_texels, shade_rows, sobol, walk, q_cap, queue,
-                        queue_len, n, stream);
+                        queue_len, n, occupancy, stream);
   if (err != 0) return err;
   if (flags == kFlagEstimator)
     return bounce_estimator(L, fstate, istate, px, py, limit, regen, depth);

@@ -72,8 +72,8 @@
 // ``fparams``, ``tables`` (device pointers: light kinds, light rows, the
 // factored Sobol tables), ``trace_ints`` and ``trace_ptrs`` are host arrays
 // in the order ops/fused_render.py packs them; ``nodes`` the packed node
-// tables of a spec or uni launch (zwrt_device.cuh:set_nodes; null for
-// another walk); ``image_dims`` ((n_images, 4) on the card) and
+// tables of a spec, uni or rowqueue launch (zwrt_device.cuh:set_nodes;
+// null for another walk); ``image_dims`` ((n_images, 4) on the card) and
 // ``image_texels`` are the texture LUT of an image scene (n_images 0 and
 // both null for a scene without images).  ``walk`` picks the tree walk,
 // ``q_cap`` and ``queue`` (``queue_len`` ints) its leaf queue
@@ -81,20 +81,23 @@
 // (render_kernels.cuh): 0 by default, kFlagEstimator for Russian roulette
 // and the indirect clamp, or a measurement variant, whose kFlagProf writes
 // ``out_prof``.
-// Launches on ``stream`` and returns the launch's cudaError_t.
+// Launches on ``stream`` and returns the launch's cudaError_t; with
+// ``occupancy`` set it launches nothing and writes there the
+// instantiation's blocks per SM and dynamic shared memory
+// (render_kernels.cuh:RenderLaunch).
 extern "C" int zwrt_fused_render(
     const int* iparams, const float* fparams, const void* const* tables, const int* trace_ints,
     const void* const* trace_ptrs, const void* const* nodes, int n_images, const int* image_dims,
     const int* image_texels,
     const int* px, const int* py, const int* s0, const int* s1, const float* shade_rows,
     const uint32_t* sobol, float* out_rad, int* out_work, long long* out_prof, int walk,
-    int flags, int q_cap, int* queue, int queue_len, int n, void* stream) {
+    int flags, int q_cap, int* queue, int queue_len, int n, int* occupancy, void* stream) {
   using namespace zwrt;
   if (n <= 0) return 0;
   RenderLaunch L;
   int err = read_launch(&L, iparams, fparams, tables, trace_ints, trace_ptrs, nodes, n_images,
                         image_dims, image_texels, shade_rows, sobol, walk, q_cap, queue,
-                        queue_len, n, stream);
+                        queue_len, n, occupancy, stream);
   if (err != 0) return err;
   if (flags == kFlagEstimator)
     return fused_render_estimator(L, px, py, s0, s1, out_rad, out_work);

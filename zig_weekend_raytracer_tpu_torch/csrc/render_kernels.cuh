@@ -13,9 +13,12 @@
 // walks kWalkCond and kWalkQueue, kFlagProf writes each lane's phase
 // profile (kProfCols int64 columns) to ``out_prof`` and kFlagLoopSobol
 // keeps the Sobol bit loops in the respawn and stages no tables; for the
-// walks kWalkSpec and kWalkUni, kFlagFirstWalk walks their first designs
-// (kWalkSpecFirst, kWalkUniFirst), the render kernel with and without the
-// image fetch and the bounce kernel's regenerating mode.
+// walks kWalkSpec, kWalkUni and kWalkRowQueue, kFlagFirstWalk walks their
+// first designs (kWalkSpecFirst, kWalkUniFirst, kWalkRowQueueFirst), the
+// render kernel with and without the image fetch and the bounce kernel's
+// regenerating mode.  kWalkRowQueue's current design stages packed tree
+// nodes in shared memory (zwrt_device.cuh:stage_nodes) at every block's
+// start, beside the Sobol tables.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -45,6 +48,7 @@ __global__ void __launch_bounds__(kThreads) fused_render_kernel(
     const uint32_t* __restrict__ sobol, float* __restrict__ out_rad,
     int* __restrict__ out_work, long long* __restrict__ out_prof, int n) {
   if (!(FLAGS & kFlagLoopSobol)) stage_sobol(p);
+  if (WALK == kWalkRowQueue) stage_nodes(scene);
   int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
   Path s;
@@ -78,6 +82,7 @@ __global__ void __launch_bounds__(kThreads) bounce_kernel(
     const int* __restrict__ lane_px, const int* __restrict__ lane_py,
     const int* __restrict__ lane_limit, long long* __restrict__ out_prof, int depth, int n) {
   if (REGEN && !(FLAGS & kFlagLoopSobol)) stage_sobol(p);
+  if (WALK == kWalkRowQueue) stage_nodes(scene);
   int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
   float* f = fstate + i;
@@ -103,8 +108,8 @@ __global__ void __launch_bounds__(kThreads) bounce_kernel(
     st[4 * n] = work;
     if (FLAGS & kFlagProf) write_prof(out_prof, prof, i, n);
   } else {
-    // the live lanes of this warp, for the kWalkRowQueue trace
-    const unsigned group = WALK == kWalkRowQueue ? __ballot_sync(kAllLanes, alive) : kAllLanes;
+    // the live lanes of this warp, for the rowqueue walks' trace
+    const unsigned group = warp_walk(WALK) ? __ballot_sync(kAllLanes, alive) : kAllLanes;
     if (alive) {
       s.depth = depth;
       alive = bounce_step<true, WALK, false, (FLAGS & kFlagEstimator) != 0>(p, scene, shade_rows,
@@ -131,6 +136,9 @@ __global__ void __launch_bounds__(kThreads) bounce_kernel(
 // ---------------------------------------------------------------------------
 
 // What a launch of either kernel reads, from the wrappers' host arrays.
+// ``occupancy``, when set, asks for no launch: the launcher writes there the
+// blocks per SM that the instantiation and its dynamic shared memory allow
+// (cudaOccupancyMaxActiveBlocksPerMultiprocessor) and those bytes.
 struct RenderLaunch {
   Params p;
   TraceScene scene;
@@ -139,13 +147,29 @@ struct RenderLaunch {
   const uint32_t* sobol;
   int walk, q_cap, queue_len, n;
   int* queue;
+  int* occupancy;
   cudaStream_t stream;
 };
 
+// Launches ``kernel`` as RenderLaunch ``L`` asks, or reports its occupancy.
+template <typename K, typename... Args>
+inline int launch_or_report(const RenderLaunch& L, K* kernel, int blocks, size_t smem,
+                            Args... args) {
+  int e = allow_smem(kernel, smem);
+  if (e != 0) return e;
+  if (L.occupancy) {
+    L.occupancy[1] = (int)smem;
+    return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(L.occupancy, kernel, kThreads,
+                                                              smem);
+  }
+  kernel<<<blocks, kThreads, smem, L.stream>>>(args...);
+  return (int)cudaGetLastError();
+}
+
 // f(std::integral_constant<int, W>{}) for the walk W: every walk for the
-// default and estimator instantiations, the first design of kWalkSpec or
-// kWalkUni for kFlagFirstWalk, kWalkCond and kWalkQueue for the other
-// variants.
+// default and estimator instantiations, the first design of kWalkSpec,
+// kWalkUni or kWalkRowQueue for kFlagFirstWalk, kWalkCond and kWalkQueue
+// for the other variants.
 template <int FLAGS, typename F>
 inline int dispatch_flags_walk(int walk, F f) {
   if constexpr (FLAGS == 0 || FLAGS == kFlagEstimator) {
@@ -154,6 +178,7 @@ inline int dispatch_flags_walk(int walk, F f) {
     switch (walk) {
       case kWalkSpec: return f(std::integral_constant<int, kWalkSpecFirst>{});
       case kWalkUni: return f(std::integral_constant<int, kWalkUniFirst>{});
+      case kWalkRowQueue: return f(std::integral_constant<int, kWalkRowQueueFirst>{});
       default: return (int)cudaErrorInvalidValue;
     }
   } else {
@@ -174,18 +199,14 @@ int launch_fused_render(const RenderLaunch& L, const int* px, const int* py, con
   size_t smem = 0;
   const size_t tables = (FLAGS & kFlagLoopSobol) ? 0 : sobol_smem_bytes(L.p);
   int err = set_walk(&scene, L.walk, L.q_cap, L.queue, L.queue_len, blocks, kThreads, tables,
-                     &smem);
+                     (FLAGS & kFlagFirstWalk) != 0, &smem);
   if (err != 0) return err;
   return dispatch_flags_walk<FLAGS>(L.walk, [&](auto w) {
     constexpr int W = decltype(w)::value;
     auto kernel = fused_render_kernel<false, W, FLAGS>;
     if (L.images.texels) kernel = fused_render_kernel<true, W, FLAGS>;
-    int e = allow_smem(kernel, smem);
-    if (e != 0) return e;
-    kernel<<<blocks, kThreads, smem, L.stream>>>(L.p, px, py, s0, s1, scene, L.images,
-                                                 L.shade_rows, L.sobol, out_rad, out_work,
-                                                 out_prof, L.n);
-    return (int)cudaGetLastError();
+    return launch_or_report(L, kernel, blocks, smem, L.p, px, py, s0, s1, scene, L.images,
+                            L.shade_rows, L.sobol, out_rad, out_work, out_prof, L.n);
   });
 }
 
@@ -199,7 +220,7 @@ int launch_bounce(const RenderLaunch& L, float* fstate, int* istate, const int* 
   size_t smem = 0;
   const size_t tables = (regen && !(FLAGS & kFlagLoopSobol)) ? sobol_smem_bytes(L.p) : 0;
   int err = set_walk(&scene, L.walk, L.q_cap, L.queue, L.queue_len, blocks, kThreads, tables,
-                     &smem);
+                     (FLAGS & kFlagFirstWalk) != 0, &smem);
   if (err != 0) return err;
   return dispatch_flags_walk<FLAGS>(L.walk, [&](auto w) {
     constexpr int W = decltype(w)::value;
@@ -207,26 +228,23 @@ int launch_bounce(const RenderLaunch& L, float* fstate, int* istate, const int* 
     if constexpr ((FLAGS & ~kFlagEstimator) == 0) {
       if (!regen) kernel = bounce_kernel<false, W, FLAGS>;
     }
-    int e = allow_smem(kernel, smem);
-    if (e != 0) return e;
-    kernel<<<blocks, kThreads, smem, L.stream>>>(L.p, scene, L.images, L.shade_rows, L.sobol,
-                                                 fstate, istate, px, py, limit, out_prof, depth,
-                                                 L.n);
-    return (int)cudaGetLastError();
+    return launch_or_report(L, kernel, blocks, smem, L.p, scene, L.images, L.shade_rows,
+                            L.sobol, fstate, istate, px, py, limit, out_prof, depth, L.n);
   });
 }
 
 // The launch from the wrappers' arrays (ops/fused_render.py packs them):
 // ``iparams``/``fparams`` and the device ``tables`` as read_params takes
 // them, the trace as read_trace_scene and its packed nodes as set_nodes,
-// the image table as read_images (n_images 0: none).  Returns a
-// cudaError_t.
+// the image table as read_images (n_images 0: none), ``occupancy`` as
+// RenderLaunch takes it.  Returns a cudaError_t.
 inline int read_launch(RenderLaunch* L, const int* iparams, const float* fparams,
                        const void* const* tables, const int* trace_ints,
                        const void* const* trace_ptrs, const void* const* nodes,
                        int n_images, const int* image_dims,
                        const int* image_texels, const float* shade_rows, const uint32_t* sobol,
-                       int walk, int q_cap, int* queue, int queue_len, int n, void* stream) {
+                       int walk, int q_cap, int* queue, int queue_len, int n, int* occupancy,
+                       void* stream) {
   L->p = read_params(iparams, fparams, tables);
   if (L->p.n_lights > 0 && (L->p.light_kind == nullptr || L->p.light == nullptr))
     return (int)cudaErrorInvalidValue;
@@ -243,6 +261,7 @@ inline int read_launch(RenderLaunch* L, const int* iparams, const float* fparams
   L->q_cap = q_cap;
   L->queue = queue;
   L->queue_len = queue_len;
+  L->occupancy = occupancy;
   L->n = n;
   L->stream = (cudaStream_t)stream;
   return 0;

@@ -80,12 +80,25 @@ constexpr float kAabbMaxMult = 1.00000024f;
 constexpr int kGroup = 8;  // slots per leaf group (the JAX kernels' sublanes)
 enum TraceMode { kTraceNone = 0, kTraceBrute = 1, kTraceTree = 2 };
 // Tree walks (ops/trace.py:WALKS, in its order), then the first designs of
-// the spec and uni walks, which only their measurement variants take
-// (kFlagFirstWalk): never a launch's walk code.
+// the spec, uni and rowqueue walks, which only their measurement variants
+// take (kFlagFirstWalk): never a launch's walk code.
 enum Walk {
   kWalkCond = 0, kWalkQueue = 1, kWalkRowQueue = 2, kWalkSpec = 3, kWalkUni = 4,
-  kWalkSpecFirst = 5, kWalkUniFirst = 6
+  kWalkSpecFirst = 5, kWalkUniFirst = 6, kWalkRowQueueFirst = 7
 };
+// The walks whose lanes walk a warp's node pointer together: they read the
+// group of lanes that trace together (trace_closest's ``group``).
+__host__ __device__ constexpr bool warp_walk(int walk) {
+  return walk == kWalkRowQueue || walk == kWalkRowQueueFirst;
+}
+// Shared memory of a block that kWalkRowQueue fills with packed tree nodes
+// (ops/fused_render.py:ROWQUEUE_NODE_BYTES): 448 nodes of 32 bytes, so that
+// with the staged Sobol tables of up to 65,536 samples and the warp queues
+// of rtw_final at the port's leaf span a block of 64 registers a thread
+// keeps its 8 blocks per SM (228 KB of shared memory, 1 KB reserved a
+// block).  Registers, not this, set the render kernel's rowqueue
+// instantiation at 6 blocks per SM: ptxas gives it 80 registers.
+constexpr int kRowQueueNodeBytes = 14336;
 constexpr int kWarp = 32;
 constexpr unsigned kAllLanes = 0xffffffffu;
 
@@ -282,7 +295,8 @@ __device__ __forceinline__ float sobol_unit(uint32_t v) {
 }
 
 // The dynamic shared memory of a block: the factored Sobol tables first
-// (stage_sobol), then kWalkRowQueue's warp queues (warp_queues).
+// (stage_sobol), then kWalkRowQueue's staged tree nodes (stage_nodes) and
+// its warp queues (warp_queues).
 __device__ __forceinline__ uint32_t* dyn_smem() {
   extern __shared__ __align__(16) uint32_t zwrt_dyn_smem[];
   return zwrt_dyn_smem;
@@ -447,9 +461,12 @@ __device__ __forceinline__ float nan_max(float a, float b) { return (a > b || a 
 // link, first leaf group or -1], ``tab`` one row per leaf slot and ``oi``
 // each slot's original index.  Rows: spheres kSphereCols, quads kQuadCols.
 // ``nodes`` is the tree's packed node table (PackedNode), set only for a
-// launch of the kWalkSpec walk (null otherwise).
+// launch of the kWalkSpec or kWalkRowQueue walk (null otherwise).  Under
+// kWalkRowQueue the block stages the first ``n_staged`` nodes (in preorder)
+// in its dynamic shared memory from word ``staged_word`` (stage_nodes); 0
+// for every other walk.
 struct KindTables {
-  int mode, n_prims, n_nodes, span;
+  int mode, n_prims, n_nodes, span, n_staged, staged_word;
   const float* tab;
   const float* box;
   const int* link;
@@ -480,7 +497,8 @@ __device__ __forceinline__ int leaf_word_of(const PackedNode& n) { return __floa
 // a launch of another walk).  ``queue`` is the per-thread leaf queue of
 // kWalkQueue, kWalkSpec and kWalkUni, lane-major: entry j of thread t at
 // queue[j * q_stride + t], q_stride the launch's thread count;
-// kWalkRowQueue keeps q_cap entries per warp in dynamic shared memory.
+// kWalkRowQueue keeps q_cap entries per warp in dynamic shared memory
+// (warp_queues).
 struct TraceScene {
   KindTables sph, quad;
   int has_moving;
@@ -634,27 +652,104 @@ __device__ __forceinline__ void tree_walk_queue(const KindTables& k, const Trace
   for (int j = 0; j < sp; ++j) leaf_sweep<KIND>(k, q[j * stride], ray, moving, best, kind, idx);
 }
 
-// kWalkRowQueue's warp queues, after the staged Sobol tables.
+// kWalkRowQueue's warp queues, after the staged Sobol tables and nodes.
 __device__ __forceinline__ int2* warp_queues(const TraceScene& s) {
   return reinterpret_cast<int2*>(dyn_smem() + s.q_smem_words);
 }
 
-// kWalkRowQueue (_tree_pass_queue, per_row=True): the lanes of ``group``
-// walk one node pointer, descending when any of them hits with its seed t.
-// ``group`` names the lanes of this warp that trace in this step, and the
-// caller takes it with a ballot that all of them reach (drain's loop head,
-// the one-bounce mode's entry): __activemask() would name only the lanes
-// that happen to run converged, which independent thread scheduling does
-// not promise, and two such subsets would share the warp's queue.  Each
-// __ballot_sync(group, ...) makes the group meet.  A hit leaf goes to the
-// warp's queue in shared memory with the ballot of the lanes that hit it;
-// every lane writes the same entry, so each reads back its own write.  Each
-// lane then sweeps, in queue order, only the leaves its bit marks, and the
-// group meets before the queue is reused.
+// Copies the first n_staged packed nodes of each kind's tree to the block's
+// dynamic shared memory (set_walk places them after the Sobol tables).
+// Every thread of the block calls it before any returns.
+__device__ __forceinline__ void stage_kind_nodes(const KindTables& k) {
+  float4* dst = reinterpret_cast<float4*>(dyn_smem() + k.staged_word);
+  for (int j = threadIdx.x; j < 2 * k.n_staged; j += blockDim.x) dst[j] = __ldg(k.nodes + j);
+}
+
+__device__ __forceinline__ void stage_nodes(const TraceScene& s) {
+  stage_kind_nodes(s.sph);
+  stage_kind_nodes(s.quad);
+  if (s.sph.n_staged + s.quad.n_staged > 0) __syncthreads();
+}
+
+// Node ``node`` of a kWalkRowQueue walk: from shared memory when staged, a
+// broadcast read where the warp's lanes agree on ``node``, else two __ldg.
+__device__ __forceinline__ PackedNode walk_node(const KindTables& k, int node) {
+  if (node < k.n_staged) {
+    const float4* n = reinterpret_cast<const float4*>(dyn_smem() + k.staged_word) + 2 * node;
+    return PackedNode{n[0], n[1]};
+  }
+  return load_node(k.nodes, node);
+}
+
+// kWalkRowQueue, replacing pallas_bounce.py:_tree_pass_queue with
+// per_row=True (:466; its row mask :507-520, its per-row drain :544-594).
+// Bound on this card: operations, the slab tests and leaf rows that the
+// cond walk needs on the same trees, at K5's rates (utils/roofline.py,
+// chip_smoke.py:walk_bound_counts); its nodes sit in shared memory and its
+// leaf rows in L1 and L2, so bytes do not bound it.  chip_smoke.py phase
+// 18 on an NVIDIA H100 80GB HBM3 at 700 W, leaf span 2: the render kernel
+// on balls 400x400@32 d10 takes 13.693 ms against a bound of 1.159 ms, the
+// bounce kernel on rtw_final 400x400@16 d8 12.971 against 0.485 (the first
+// design: 15.030 and 15.078 ms; the per-thread queue walk: 11.761 and
+// 9.331).  The lockstep walk's union of its lanes' paths is what it loses
+// to the queue walk: 1.6 to 3.5 times the cond walk's slab tests.  The
+// lanes of ``group`` walk one node pointer, descending when any of them
+// hits the node's box with its seed t, so the warp follows the union of
+// their paths.  ``group`` names the lanes of this warp that trace in this step,
+// and the caller takes it with a ballot that all of them reach (drain's
+// loop head, the one-bounce mode's entry): __activemask() would name only
+// the lanes that happen to run converged, which independent thread
+// scheduling does not promise, and two such subsets would share the warp's
+// queue.  Each __ballot_sync(group, ...) makes the group meet.  Design: (a)
+// every step reads one packed 32-byte node at a warp-uniform index, from
+// the block's staged copy (stage_nodes: a broadcast read from shared
+// memory, no bank conflict) or, past the staged preorder prefix, through
+// __ldg; (b) a hit leaf goes to the warp's queue as (its node, the ballot
+// of the lanes that hit it), every lane writing the same entry, so each
+// reads back its own write; (c) before sweeping an entry, each marked lane
+// re-tests the leaf's box against its fresh t, and the warp skips an entry
+// that no lane still hits: a leaf that cannot give a strictly closer hit
+// is never swept, so each lane sweeps the cond walk's leaves (a parent's
+// box holds its children's and the slab test is monotone in t) and the
+// hits are bitwise the cond walk's.  The group meets before the queue is
+// reused.
 template <int KIND>
 __device__ __forceinline__ void tree_walk_warpqueue(const KindTables& k, const TraceScene& s,
                                                     const Ray& ray, bool moving, unsigned group,
                                                     float* best, int* kind, int* idx) {
+  const unsigned me = 1u << (threadIdx.x % kWarp);
+  int2* q = warp_queues(s) + (threadIdx.x / kWarp) * s.q_cap;
+  const float t_seed = *best;
+  int node = 0, sp = 0;
+  while (node < k.n_nodes) {
+    const PackedNode n = walk_node(k, node);
+    const bool hit = slab_hit_packed(n, ray.o, ray.inv_d, ray.t_min, t_seed);
+    const unsigned bits = __ballot_sync(group, hit);
+    const int leaf = leaf_word_of(n);
+    if (bits != 0u && leaf >= 0) q[sp++] = make_int2(node, (int)bits);
+    node = (bits != 0u && leaf < 0) ? node + 1 : miss_of(n);
+  }
+  for (int j = 0; j < sp; ++j) {
+    const int2 e = q[j];
+    const PackedNode n = walk_node(k, e.x);
+    const bool again =
+        ((unsigned)e.y & me) && slab_hit_packed(n, ray.o, ray.inv_d, ray.t_min, *best);
+    if (__ballot_sync(group, again) == 0u) continue;
+    if (again) leaf_sweep<KIND>(k, leaf_word_of(n) >> 1, ray, moving, best, kind, idx);
+  }
+  __syncwarp(group);
+}
+
+// The first design of kWalkRowQueue, kept for measurement only
+// (kWalkRowQueueFirst, the kFlagFirstWalk variants): the same lockstep
+// walk over the unpacked ``box`` and ``link`` (nine scattered words a
+// step), each hit leaf queued as (its first group, the lanes' ballot) and
+// swept by every marked lane with no second test.
+template <int KIND>
+__device__ __forceinline__ void tree_walk_warpqueue_first(const KindTables& k,
+                                                          const TraceScene& s, const Ray& ray,
+                                                          bool moving, unsigned group,
+                                                          float* best, int* kind, int* idx) {
   const unsigned me = 1u << (threadIdx.x % kWarp);
   int2* q = warp_queues(s) + (threadIdx.x / kWarp) * s.q_cap;
   const float t_seed = *best;
@@ -813,6 +908,8 @@ __device__ __forceinline__ void tree_stage(const KindTables& k, const TraceScene
   if (WALK == kWalkQueue) tree_walk_queue<KIND>(k, s, ray, moving, best, kind, idx);
   else if (WALK == kWalkRowQueue)
     tree_walk_warpqueue<KIND>(k, s, ray, moving, group, best, kind, idx);
+  else if (WALK == kWalkRowQueueFirst)
+    tree_walk_warpqueue_first<KIND>(k, s, ray, moving, group, best, kind, idx);
   else if (WALK == kWalkSpec) tree_walk_spec<KIND>(k, s, ray, moving, best, kind, idx);
   else if (WALK == kWalkSpecFirst) tree_walk_spec_first<KIND>(k, ray, moving, best, kind, idx);
   else tree_walk<KIND>(k, ray, moving, best, kind, idx);
@@ -820,8 +917,8 @@ __device__ __forceinline__ void tree_stage(const KindTables& k, const TraceScene
 
 // The closest hit of one ray below ``t_start``; kind -1 on a miss, with
 // *best then still t_start.  WALK picks the tree walk at compile time;
-// kWalkRowQueue reads ``group``, the lanes of the warp that call it
-// together (tree_walk_warpqueue).
+// kWalkRowQueue and its first design read ``group``, the lanes of the warp
+// that call it together (tree_walk_warpqueue).
 template <int WALK>
 __device__ __forceinline__ void trace_closest(const TraceScene& s, V3 o, V3 d, float time,
                                               float t_min, float t_start, float* best,
@@ -883,8 +980,8 @@ inline TraceScene read_trace_scene(const int* ints, const void* const* ptrs) {
   return s;
 }
 
-// Host side: the packed node tables (PackedNode) of a kWalkSpec or
-// kWalkUni launch from the host array the wrappers pack
+// Host side: the packed node tables (PackedNode) of a kWalkSpec, kWalkUni
+// or kWalkRowQueue launch from the host array the wrappers pack
 // (ops/fused_render.py:node_args): the sphere tree's, the quad tree's and
 // the unified tree's (null where the scene has no such tree); ``nodes``
 // null for a launch of another walk, which reads none.
@@ -898,34 +995,46 @@ inline void set_nodes(TraceScene* s, const void* const* nodes) {
 // Host side: checks a launch's walk against the scene and sets up its leaf
 // queue: ``queue`` holds ``queue_len`` ints, ``q_cap`` entries per thread
 // (kWalkQueue, kWalkSpec, kWalkUni) or per warp (kWalkRowQueue, in dynamic
-// shared memory after the ``smem_before`` bytes of staged tables).  *smem
-// is the block's dynamic shared memory in all.  Returns a cudaError_t:
-// invalid for an unknown walk, a uni walk without the unified tree, a spec
-// or uni walk without its packed nodes, a queue walk whose capacity does
-// not cover the leaves of the trees it walks (a tree of n nodes has at
-// most (n + 1) / 2; the walks push without a check, and the uni walk fills
-// its queue from both ends), or a queue too short for the capacity.
+// shared memory after the ``smem_before`` bytes of staged tables).  A
+// kWalkRowQueue launch of the walk's current design (``first`` false)
+// stages, between those tables and the warp queues, the first nodes in
+// preorder of the sphere tree and then of the quad tree, as many as
+// kRowQueueNodeBytes holds (stage_nodes).  *smem is the block's dynamic
+// shared memory in all.  Returns a cudaError_t: invalid for an unknown
+// walk, a uni walk without the unified tree, a spec, uni or rowqueue walk
+// without its packed nodes, a queue walk whose capacity does not cover the
+// leaves of the trees it walks (a tree of n nodes has at most (n + 1) / 2;
+// the walks push without a check, and the uni walk fills its queue from
+// both ends), or a queue too short for the capacity.
 inline int set_walk(TraceScene* s, int walk, int q_cap, int* queue, int queue_len, int blocks,
-                    int threads, size_t smem_before, size_t* smem) {
+                    int threads, size_t smem_before, bool first, size_t* smem) {
   s->queue = queue;
   s->q_stride = blocks * threads;
   s->q_cap = q_cap;
-  s->q_smem_words = (int)(smem_before / sizeof(uint32_t));
   *smem = smem_before;
   if (walk < kWalkCond || walk > kWalkUni || q_cap < 0) return (int)cudaErrorInvalidValue;
   if (walk == kWalkUni &&
       (s->u_nodes < 1 || s->unodes == nullptr || q_cap < (s->u_nodes + 1) / 2))
     return (int)cudaErrorInvalidValue;
-  const KindTables* kinds[2] = {&s->sph, &s->quad};
-  for (const KindTables* k : kinds) {
+  KindTables* kinds[2] = {&s->sph, &s->quad};
+  int room = kRowQueueNodeBytes / (int)sizeof(PackedNode);
+  for (KindTables* k : kinds) {
     if (walk == kWalkCond || walk == kWalkUni || k->mode != kTraceTree) continue;
-    if (q_cap < (k->n_nodes + 1) / 2 || (walk == kWalkSpec && k->nodes == nullptr))
+    const bool packed = walk == kWalkSpec || walk == kWalkRowQueue;
+    if (q_cap < (k->n_nodes + 1) / 2 || (packed && k->nodes == nullptr))
       return (int)cudaErrorInvalidValue;
+    if (walk == kWalkRowQueue && !first) {
+      k->n_staged = k->n_nodes < room ? k->n_nodes : room;
+      k->staged_word = (int)(*smem / sizeof(uint32_t));
+      room -= k->n_staged;
+      *smem += (size_t)k->n_staged * sizeof(PackedNode);
+    }
   }
   const bool per_thread = walk == kWalkQueue || walk == kWalkSpec || walk == kWalkUni;
   if (per_thread && q_cap > 0 &&
       (queue == nullptr || (long long)queue_len < (long long)q_cap * s->q_stride))
     return (int)cudaErrorInvalidValue;
+  s->q_smem_words = (int)(*smem / sizeof(uint32_t));
   if (walk == kWalkRowQueue) *smem += (size_t)(threads / kWarp) * q_cap * sizeof(int2);
   return 0;
 }
@@ -1093,10 +1202,11 @@ struct Path {
 // (__popc(__activemask())) to a Prof; kFlagLoopSobol: the respawn runs the
 // Sobol bit loops, as before the factored tables; kFlagEstimator: the
 // shading applies Params' rr_start and clamp (shade_hit); kFlagFirstWalk:
-// the drain is the default's, and the kernel walks kWalkSpecFirst or
-// kWalkUniFirst, the first designs of the spec and uni walks, where the
-// launch names kWalkSpec or kWalkUni (render_kernels.cuh:
-// dispatch_flags_walk).  The default instantiations take 0.
+// the drain is the default's, and the kernel walks kWalkSpecFirst,
+// kWalkUniFirst or kWalkRowQueueFirst, the first designs of the spec, uni
+// and rowqueue walks, where the launch names kWalkSpec, kWalkUni or
+// kWalkRowQueue (render_kernels.cuh: dispatch_flags_walk).  The default
+// instantiations take 0.
 enum DrainFlags { kFlagProf = 1, kFlagLoopSobol = 2, kFlagEstimator = 4, kFlagFirstWalk = 8 };
 enum ProfPhase { kPhaseRespawn = 0, kPhaseTrace = 1, kPhaseShade = 2, kPhases = 3 };
 // Columns of a lane's profile (int64): cycles, entries and active lanes
@@ -1302,7 +1412,7 @@ __device__ __forceinline__ bool shade_hit(const Params& p, const float* __restri
 // One bounce of a live path: the closest hit (sphere stage, then quad
 // stage, or the unified walk), then shade_hit (EST: with the estimator
 // options).  ``group`` is the warp's lanes that bounce together, read by
-// the kWalkRowQueue trace only; PROF times the two halves into ``prof``.
+// the rowqueue walks' trace only; PROF times the two halves into ``prof``.
 template <bool IMAGES, int WALK, bool PROF = false, bool EST = false>
 __device__ __forceinline__ bool bounce_step(const Params& p, const TraceScene& scene,
                                             const float* __restrict__ shade_rows,
@@ -1322,9 +1432,10 @@ __device__ __forceinline__ bool bounce_step(const Params& p, const TraceScene& s
 // Runs one lane until its sample window is used up: a dead lane respawns
 // its pixel's next sample (sample += stride, while below ``limit``), every
 // pass counts one unit of work and runs one bounce, and a path ends after
-// p.max_depth bounces.  Under kWalkRowQueue a ballot at the loop head, which
-// every lane of the warp still in the loop reaches, names the lanes that
-// bounce in this pass (the group of tree_walk_warpqueue).  The lane's Sobol
+// p.max_depth bounces.  Under the rowqueue walks (warp_walk) a ballot at
+// the loop head, which every lane of the warp still in the loop reaches,
+// names the lanes that bounce in this pass (the group of
+// tree_walk_warpqueue).  The lane's Sobol
 // pixel part is computed once, at entry (timed with the respawn phase);
 // FLAGS as DrainFlags, ``prof`` read under kFlagProf only.
 template <bool IMAGES, int WALK, int FLAGS = 0>
@@ -1343,7 +1454,7 @@ __device__ __forceinline__ void drain(const Params& p, const TraceScene& scene,
   unsigned group = kAllLanes;
   for (;;) {
     const bool more = alive || sample + stride < limit;
-    if (WALK == kWalkRowQueue) group = __ballot_sync(group, more);
+    if (warp_walk(WALK)) group = __ballot_sync(group, more);
     if (!more) break;
     if (!alive) {
       long long t0 = prof_enter<PROF>(prof, kPhaseRespawn);

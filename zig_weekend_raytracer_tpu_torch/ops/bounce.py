@@ -23,8 +23,10 @@ launch's Sobol tables cover its sample indices below the largest
 
 ``bounce_regen_variant`` launches the regenerating mode's measurement
 variants (the phase profile, the earlier Sobol bit-loop respawn, the first
-designs of the spec and uni walks), counted apart in
+designs of the rowqueue, spec and uni walks), counted apart in
 ``bounce_regen_variant.launches``; no path of the renderer runs them.
+``bounce_regen_occupancy`` launches nothing: it reports the blocks per SM
+and the shared memory of the instantiation a launch would take.
 
 Image-textured emitters take the kernel with or without a LUT, since the
 texel is read at the hit, before emission (the JAX kernel needs the LUT
@@ -38,6 +40,7 @@ from __future__ import annotations
 
 import ctypes
 
+import numpy as np
 import torch
 
 from ..dtypes import real
@@ -71,10 +74,12 @@ def supports_fused_render(scene: CompiledScene) -> bool:
         not scene.has_image_textures or bool(scene.tex_lut_dims))
 
 
-def _launch(scene, params, fstate, istate, lanes, regen, depth, flags=0):
+def _launch(scene, params, fstate, istate, lanes, regen, depth, flags=0, occupancy=None):
     """One launch of the bounce kernel; returns the tree walk it took and
     the phase profile (None without FLAG_PROF).  ``params`` is
-    (ints, floats, (sampler, width, height, sample_end))."""
+    (ints, floats, (sampler, width, height, sample_end)); with ``occupancy``
+    (a host int32 array of 2) nothing is launched, and the launcher writes
+    the instantiation's blocks per SM and shared memory there."""
     device = fstate.device
     if scene.device != device:
         raise ValueError(f"scene is on {scene.device}, lanes on {device}")
@@ -108,6 +113,7 @@ def _launch(scene, params, fstate, istate, lanes, regen, depth, flags=0):
         dims.shape[0], dims.data_ptr(), texels.data_ptr(), shade_rows.data_ptr(), sobol.data_ptr(), fstate.data_ptr(), istate.data_ptr(), px, py, limit,
         None if prof is None else prof.data_ptr(), int(regen), int(depth), code, flags, cap,
         None if queue is None else queue.data_ptr(), 0 if queue is None else queue.numel(), n,
+        None if occupancy is None else occupancy.ctypes.data_as(ctypes.c_void_p),
         torch.cuda.current_stream(device).cuda_stream,
     )
     if err != 0:
@@ -242,9 +248,26 @@ def bounce_regen_variant(scene: CompiledScene, state: RegenState, px, py, sample
 bounce_regen_variant.launches = dict.fromkeys(VARIANT_WALKS + FIRST_DESIGN_WALKS, 0)
 
 
+def bounce_regen_occupancy(scene: CompiledScene, state: RegenState, px, py, sample_limit, seed,
+                           t_min: float, *, first_walk: bool = False, **kw):
+    """(blocks per SM, dynamic shared memory bytes a block) of the
+    regenerating instantiation that ``bounce_regen`` on these CUDA lanes
+    would launch, or with ``first_walk`` the walk's first-design variant
+    (cudaOccupancyMaxActiveBlocksPerMultiprocessor); launches nothing and
+    counts nothing."""
+    est, kw["rr_start"], kw["clamp"] = estimator_flags(
+        scene, kw.get("rr_start", 0), kw.get("clamp", 0.0))
+    occ = np.zeros(2, np.int32)
+    _regen(scene, state, px, py, sample_limit, seed, t_min,
+           (FLAG_FIRST_WALK if first_walk else 0) | est, occupancy=occ, **kw)
+    return int(occ[0]), int(occ[1])
+
+
 def _regen(scene, state, px, py, sample_limit, seed, t_min, flags, *, camera_consts, sampler,
-           width, height, spp, stride, max_depth, has_dof, rr_start=0, clamp=0.0):
-    """One regenerating launch: (final state, profile or None, walk)."""
+           width, height, spp, stride, max_depth, has_dof, rr_start=0, clamp=0.0,
+           occupancy=None):
+    """One regenerating launch: (final state, profile or None, walk);
+    ``occupancy`` as ``_launch`` takes it."""
     device = px.device
     n = px.shape[0]
     if device.type != "cuda":
@@ -267,7 +290,7 @@ def _regen(scene, state, px, py, sample_limit, seed, t_min, flags, *, camera_con
         stride, max_depth, has_dof, sample_end, rr_start, clamp,
     )
     walk, prof = _launch(scene, (ints, floats, (sampler, width, height, sample_end)), fstate,
-                         istate, (px, py, sample_limit), True, 0, flags)
+                         istate, (px, py, sample_limit), True, 0, flags, occupancy)
     f, s = fstate, istate
     out = RegenState(
         origin=V3(f[0], f[1], f[2]), direction=V3(f[3], f[4], f[5]),

@@ -30,15 +30,18 @@ renders: up to the largest window end ``s1``, which may pass ``spp``
 
 ``render_fused_variant`` launches the kernel's measurement variants
 (``csrc/render_kernels.cuh``): the per-lane phase profile and the earlier
-Sobol bit-loop respawn, and the first designs of the spec and uni walks.
-No path of the renderer launches them, and
+Sobol bit-loop respawn, and the first designs of the rowqueue, spec and
+uni walks.  No path of the renderer launches them, and
 ``render_fused_variant.launches`` counts them apart.
+``render_fused_occupancy`` launches nothing: it reports the blocks per SM
+and the shared memory of the instantiation a launch would take.
 
 Each launch of the render and bounce kernels takes the tree walk of
 ``ops/trace.py:walk_of`` as it reads then (the unified tree when the scene
 has one, else ``ZWRT_TRAV``) and the instantiation compiled for that walk;
 ``walk_args`` allocates the walk's leaf queue, and ``node_args`` gives the
-spec and uni walks their packed node tables.  The walk is never cached
+rowqueue, spec and uni walks their packed node tables (rowqueue stages
+the first ``ROWQUEUE_NODE_BYTES`` of them in each block's shared memory).  The walk is never cached
 with the scene, so one process can launch every walk.
 """
 
@@ -70,9 +73,13 @@ FLAG_PROF, FLAG_LOOP_SOBOL, FLAG_ESTIMATOR, FLAG_FIRST_WALK = 1, 2, 4, 8  # Drai
 VARIANT_WALKS = ("cond", "queue")     # the walks the profile variants are built for
 # the walks redesigned for Hopper: they read packed nodes, and their first
 # designs are kept as measurement variants
-FIRST_DESIGN_WALKS = ("spec", "uni")
+FIRST_DESIGN_WALKS = ("rowqueue", "spec", "uni")
 THREADS = 128           # threads per block of every launcher
 SMEM_LIMIT = 232448     # dynamic shared memory a block can have (227 KB)
+NODE_BYTES = 32         # a packed node (zwrt_device.cuh:PackedNode)
+# shared memory of a block that the rowqueue walk fills with packed nodes
+# (zwrt_device.cuh:kRowQueueNodeBytes, which says how it was sized)
+ROWQUEUE_NODE_BYTES = 14336
 _SAMPLER_CODE = {
     SamplerKind.INDEPENDENT: 0, SamplerKind.STRATIFIED: 1, SamplerKind.SOBOL: 2,
 }
@@ -273,9 +280,10 @@ def node_args(scene: CompiledScene, walk: str):
     """(ptrs, tensors) of the packed node tables a launch of ``walk`` reads:
     ``ptrs`` (uint64) the sphere tree's, the quad tree's and the unified
     tree's (``pack_nodes``; 0 where the scene has no such tree); None and
-    () for a walk outside ``FIRST_DESIGN_WALKS``, which reads none.  Built the first
-    time a launch takes spec or uni and cached per scene beside
-    ``trace_args``, so default renders neither build nor carry them."""
+    () for a walk outside ``FIRST_DESIGN_WALKS``, which reads none.  Built
+    the first time a launch takes rowqueue, spec or uni and cached per
+    scene beside ``trace_args``, so default renders neither build nor carry
+    them."""
     if walk not in FIRST_DESIGN_WALKS:
         return None, ()
     cached = _NODE_CACHE.get(scene)
@@ -288,14 +296,29 @@ def node_args(scene: CompiledScene, walk: str):
     return cached
 
 
+def rowqueue_staged_nodes(scene: CompiledScene) -> dict:
+    """{tree: nodes} that a block of a rowqueue launch stages in shared
+    memory (zwrt_device.cuh:set_walk): the first nodes in preorder of the
+    sphere tree, then of the quad tree, as many as ``ROWQUEUE_NODE_BYTES``
+    holds."""
+    room = ROWQUEUE_NODE_BYTES // NODE_BYTES
+    out = {}
+    for k in ("sph", "quad"):
+        if getattr(scene, f"has_{k}_tree"):
+            out[k] = min(getattr(scene, f"{k}_tree_box").shape[0], room)
+            room -= out[k]
+    return out
+
+
 def walk_args(scene: CompiledScene, n: int, smem_before: int = 0):
     """(walk, walk code, queue capacity, queue tensor or None) of a launch
     over ``n`` lanes, the walk as ``walk_of`` reads it now.  ``queue``,
     ``spec`` and ``uni`` keep a lane-major int32 queue per thread of the
     launch; ``rowqueue`` keeps one per warp in shared memory, after
-    ``smem_before`` bytes of staged tables.  Raises when the queue does not fit: past 2**31 - 1 entries (the
-    kernel indexes it with 32-bit ints), or past a block's 227 KB of shared
-    memory."""
+    ``smem_before`` bytes of staged tables and its staged nodes
+    (``rowqueue_staged_nodes``).  Raises when the queue does not fit: past
+    2**31 - 1 entries (the kernel indexes it with 32-bit ints), or past a
+    block's 227 KB of shared memory."""
     walk = walk_of(scene)
     cap = queue_capacity(scene, walk)
     queue = None
@@ -307,12 +330,14 @@ def walk_args(scene: CompiledScene, n: int, smem_before: int = 0):
                 "past the kernel's 32-bit queue index"
             )
         queue = torch.empty((cap * threads,), dtype=torch.int32, device=scene.device)
-    if walk == "rowqueue" and smem_before + THREADS // WARP * cap * 8 > SMEM_LIMIT:
-        raise ValueError(
-            f"the rowqueue walk needs {THREADS // WARP * cap * 8} bytes of shared memory per "
-            f"block ({cap} leaf entries per warp) after {smem_before} bytes of tables, past "
-            f"the card's {SMEM_LIMIT}"
-        )
+    if walk == "rowqueue":
+        nodes = sum(rowqueue_staged_nodes(scene).values()) * NODE_BYTES
+        if smem_before + nodes + THREADS // WARP * cap * 8 > SMEM_LIMIT:
+            raise ValueError(
+                f"the rowqueue walk needs {THREADS // WARP * cap * 8} bytes of shared memory "
+                f"per block ({cap} leaf entries per warp) after {smem_before} bytes of tables "
+                f"and {nodes} of staged nodes, past the card's {SMEM_LIMIT}"
+            )
     return walk, WALKS.index(walk), cap, queue
 
 
@@ -487,6 +512,21 @@ def render_fused_variant(
 render_fused_variant.launches = dict.fromkeys(VARIANT_WALKS + FIRST_DESIGN_WALKS, 0)
 
 
+def render_fused_occupancy(scene: CompiledScene, px, py, s0, s1, seed: int, t_min: float, *,
+                           first_walk: bool = False, **kw):
+    """(blocks per SM, dynamic shared memory bytes a block) of the
+    instantiation that ``render_fused`` on these CUDA lanes would launch,
+    or with ``first_walk`` the walk's first-design variant
+    (cudaOccupancyMaxActiveBlocksPerMultiprocessor); launches nothing and
+    counts nothing."""
+    est, kw["rr_start"], kw["clamp"] = estimator_flags(
+        scene, kw.get("rr_start", 0), kw.get("clamp", 0.0))
+    occ = np.zeros(2, np.int32)
+    _launch(scene, px, py, s0, s1, seed, t_min, (FLAG_FIRST_WALK if first_walk else 0) | est,
+            False, occupancy=occ, **kw)
+    return int(occ[0]), int(occ[1])
+
+
 def _check_supported(scene):
     if scene.has_nested_checker:
         raise NotImplementedError(
@@ -502,9 +542,13 @@ def _check_supported(scene):
 
 
 def _launch(scene, px, py, s0, s1, seed, t_min, flags, want_work, *, camera_consts,
-            sampler, width, height, spp, stride, max_depth, has_dof, rr_start=0, clamp=0.0):
+            sampler, width, height, spp, stride, max_depth, has_dof, rr_start=0, clamp=0.0,
+            occupancy=None):
     """One launch of the render kernel's instantiation for ``flags``;
-    returns (radiance, work or None, profile or None, walk)."""
+    returns (radiance, work or None, profile or None, walk).  With
+    ``occupancy`` (a host int32 array of 2) nothing is launched: the
+    launcher writes the instantiation's blocks per SM and shared memory
+    there."""
     _check_supported(scene)
     device = px.device
     if device.type != "cuda":
@@ -548,7 +592,8 @@ def _launch(scene, px, py, s0, s1, seed, t_min, flags, want_work, *, camera_cons
         0 if dims is None else dims.shape[0], ptr(dims), ptr(texels),
         px.data_ptr(), py.data_ptr(), s0.data_ptr(), s1.data_ptr(),
         shade_rows.data_ptr(), sobol.data_ptr(), rad.data_ptr(), ptr(work), ptr(prof),
-        code, flags, cap, ptr(queue), 0 if queue is None else queue.numel(), n, stream,
+        code, flags, cap, ptr(queue), 0 if queue is None else queue.numel(), n,
+        None if occupancy is None else occupancy.ctypes.data_as(ctypes.c_void_p), stream,
     )
     if err != 0:
         raise RuntimeError(f"fused_render_kernel ({walk} walk, flags {flags}) launch failed: "

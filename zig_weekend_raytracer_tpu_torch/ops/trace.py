@@ -29,9 +29,12 @@ one walk of the kernels' shared trace (``csrc/zwrt_device.cuh``):
   * ``queue``: each lane walks with the stage's seed t, queues its hit
     leaves in preorder, then sweeps them with the fresh t;
   * ``rowqueue``: lanes in groups of 32 consecutive indices walk one node
-    pointer, descending when any walking lane of the group hits; a hit
-    leaf is queued with the group's mask of lanes that hit it, and each
-    lane sweeps only the leaves its bit marks (a warp of the kernel);
+    pointer with the seed t, descending when any walking lane of the group
+    hits; a hit leaf is queued with the group's mask of lanes that hit it
+    (a warp of the kernel); then, for each entry in preorder, each marked
+    lane tests the leaf's box again against its running t (one more
+    ``slab_test``) and sweeps the leaf only where that test passes, so it
+    sweeps the ``cond`` walk's leaves;
   * ``spec``: the ``queue`` walk that slab-tests, at each node, both of
     its successors with the seed t (the box of each step's node is tested
     at its parent), then sweeps its queue with the fresh t;
@@ -310,7 +313,12 @@ def _tree_stage(code, box, link, attrs, span, o: V3, d: V3, tm, t_min, walking, 
     else:
         queue = _walk_queue(box, link, o, d, t_min, walking, best.t.clone(),
                             per_warp=walk == "rowqueue")
+    if walk == "rowqueue":
+        inv_d = V3(1.0 / d.x, 1.0 / d.y, 1.0 / d.z)
     for lanes, nd in queue:
+        if walk == "rowqueue":
+            again = _slab(box, nd, o, inv_d, t_min, best.t[lanes], lanes)
+            lanes, nd = lanes[again], nd[again]
         sweep(lanes, nd)
     return best
 
