@@ -82,7 +82,9 @@ Phases (any failure exits nonzero):
      loop's passes per band, Mpaths/s beside the card, bounce_kernel's time
      at the coherent plan, the kernel against its plain version on a spread
      slice of 4,096 plan lanes in 8-sample windows of the 64 (every sample
-     index), and the peak device memory;
+     index), the peak device memory, and the device memory that one launch
+     at the plan allocates, beside the default walk's first design's
+     (launch_mib: its device leaf queue);
  12. the region gates of earth, shrek_quads and rtw_final on the card:
      200x200 against tests/golden/scene_regions.json (rtw_final at 32 spp,
      depth 8; the others at their recorded spp and depth 10), and 64x64,
@@ -102,7 +104,8 @@ Phases (any failure exits nonzero):
      over the four renders the render kernel launched 4 times, the bounce
      kernel and every plain version never, the closest-hit kernel built
      the coherent plan; Mpaths/s, the render kernel's time at the plan's
-     lanes, peak device memory; the framebuffer against phase 11's atlas
+     lanes, peak device memory, a launch's device memory as phase 11's;
+     the framebuffer against phase 11's atlas
      render (same texels, same drain) within rtol 1e-5 / atol 1e-6 on >=
      99.9% of pixels; the render kernel with the LUT and the bounce kernel
      with the atlas timed on the same lanes in 10 alternating pairs; the
@@ -147,8 +150,18 @@ Phases (any failure exits nonzero):
      of the quad tree's nodes, through the bounce kernel's regenerating
      mode and the render kernel with the LUT, and the cond walk's bounce
      kernel there (its counts price rowqueue's bound); every rowqueue
-     kernel bitwise its plain version; and a launch of the queue, rowqueue,
-     spec and uni walks with a queue one entry short of the tree's leaves,
+     kernel bitwise its plain version; the default queue walk at the port's
+     span, the main paths' trees: the render kernel on balls and with the
+     LUT on rtw_final against their plain versions, and the cond walk's
+     plain counts there (they price phase 18's port-span bounds of the
+     queue walk); every queue kernel bitwise its plain version, the plain
+     queue walk's outputs bitwise the plain cond walk's, and its hits on
+     balls' and rtw_final's 64x64 camera rays bitwise the cond walk's, its
+     slab tests and leaf visits between the cond walk's and its first
+     design's (plain_queue_hits); and a launch of the queue walk's first
+     design, rowqueue, spec and uni with a queue one entry short of the
+     tree's leaves, of the queue walk with a capacity other than the
+     kernel's, and of the queue walk without its packed nodes, each
      refused (short_queue_refused);
  18. the walks on the slice's path at full width and a cut spp, on phase
      17's scenes at leaf span 2, each with its counts set to 0 just before
@@ -163,18 +176,25 @@ Phases (any failure exits nonzero):
      rtol 1e-5 / atol 1e-6 of the default walk's render of the same scene
      on >= 99.9% of pixels, and rtw_final's region gates of phase 12 on the
      unified-tree render; then rtw_final at the port's span under the
-     default walk, rowqueue (bounce kernel) and uni (both kernels); the
-     default walk's kernel time and bound (from the cond walk's counts)
-     at the span-2 plans; then each redesigned walk (rowqueue: K1 balls,
-     K2 rtw_final, and K2 at the port's span; spec: K1 balls, K2
-     rtw_final; uni: K1 LUT and K2 on rtw_final, at span 2 and at the
-     port's span) against its first design (the kFlagFirstWalk variant)
-     at its path's plan in 5 alternating rounds, the default walk's kernel
-     in the rounds of rowqueue and of uni at the port's span, the outputs
-     held to the new design's with phase 2's tolerances (rowqueue's
-     bitwise): times, wins, the bound from the cond walk's counts and the
-     walk's own beside it, registers and spills of both instantiations,
-     their blocks per SM and shared memory a block at the plan;
+     default walk, rowqueue (bounce kernel) and uni (both kernels), and
+     balls at the port's span under the default walk; the default walk's
+     kernel time and bound (from the cond walk's counts) at the span-2
+     plans; then each redesigned walk (queue: K1 balls, K2 rtw_final and K1
+     rtw_final with the LUT at the port's span, K1 balls and K2 rtw_final
+     at span 2; rowqueue: K1 balls, K2 rtw_final, and K2 at the port's
+     span; spec: K1 balls, K2 rtw_final; uni: K1 LUT and K2 on rtw_final,
+     at span 2 and at the port's span) against its first design (the
+     kFlagFirstWalk variant) at its path's plan in 5 alternating rounds,
+     the default walk's kernel in the rounds of rowqueue and of uni at the
+     port's span, the outputs held to the new design's with phase 2's
+     tolerances (queue's and rowqueue's bitwise): times, wins, the bound
+     from the cond walk's counts and the walk's own beside it, registers
+     and spills of both instantiations, their blocks per SM and shared
+     memory a block at the plan; and the render kernel on the tree-less
+     cornell and emissive at their main paths' sorted plans under the
+     default walk's instantiation, its first design's and the cond walk's
+     in 5 alternating rounds, bitwise, with their blocks per SM (what the
+     walk's registers cost a kernel that walks no tree);
  19. the respawn under every sampler: the render kernel on the
      all-materials scene (a moving sphere, an isotropic medium) and the
      bounce kernel's regenerating mode on it with an image quad, at 32x32,
@@ -321,7 +341,9 @@ spec on balls at span 2, uni with the LUT on rtw_final) and of the bounce
 kernel's regenerating mode (rtw_final; rowqueue's at the port's span
 too), each priced from the cond walk's counts on the same tree (the tree
 and regenerating entries carry the default walk's span-2 time and bound
-as ``queue_walk_span2``), the estimator instantiations of
+as ``queue_walk_span2``, and with the LUT and brute entries its rounds
+against its first design as ``queue_walk_designs``), the estimator
+instantiations of
 the render kernel (its launches on phase 24's russian_roulette=3 path, its
 time at that path's plan, every driver of phase 24 beside it) and of the
 bounce kernel (parity only: the atlas gate keeps it off every path), and
@@ -465,12 +487,12 @@ FIXED_COST_SPP = 64
 JPEG_MIN_PSNR = 30.0
 # registers and spill bytes of the default walk's instantiations and of
 # the cond walk's, as this build gives them (the factored Sobol respawn and
-# the device light and image tables; the previous slice's cond walk:
-# 64/32, 64/28, 64/0, 64/12), and of the closest-hit kernel and its first
-# design
+# the device light and image tables; the queue walk's first design: 64/28,
+# 64/28, 64/0, 64/56, at 8 blocks per SM where the current design's 72
+# registers give 7), and of the closest-hit kernel and its first design
 DEFAULT_RESOURCES = {
-    "fused_render_kernel<false, queue>": (64, 28), "fused_render_kernel<true, queue>": (64, 28),
-    "bounce_kernel<false, queue>": (64, 0), "bounce_kernel<true, queue>": (64, 56),
+    "fused_render_kernel<false, queue>": (72, 0), "fused_render_kernel<true, queue>": (72, 0),
+    "bounce_kernel<false, queue>": (68, 0), "bounce_kernel<true, queue>": (72, 8),
     "fused_render_kernel<false, cond>": (64, 52), "fused_render_kernel<true, cond>": (64, 52),
     "bounce_kernel<false, cond>": (64, 0), "bounce_kernel<true, cond>": (64, 80),
     "closest_hit_kernel": (56, 0), "closest_hit_flat_kernel": (56, 0),
@@ -983,8 +1005,8 @@ def kernel_resources(build_log: str) -> dict:
     """{kernel instantiation: {"registers", "spill_bytes"}} from ptxas -v:
     fused_render_kernel<IMAGES, walk> (without and with the image fetch)
     and bounce_kernel<REGEN, walk> (one-bounce and regenerating modes) for
-    each tree walk, the first designs of the rowqueue, spec and uni walks
-    (<IMAGES, walk, first design>), closest_hit_kernel and
+    each tree walk, the first designs of the queue, rowqueue, spec and uni
+    walks (<IMAGES, walk, first design>), closest_hit_kernel and
     closest_hit_flat_kernel (its first design), and chain_kernel<op,
     chains, unroll>."""
     import re
@@ -994,9 +1016,9 @@ def kernel_resources(build_log: str) -> dict:
 
     flag_names = {1: "prof", 2: "loop_sobol", 3: "prof, loop_sobol", 4: "estimator",
                   8: "first design"}
-    # zwrt_device.cuh:Walk, then kWalkSpecFirst, kWalkUniFirst and
-    # kWalkRowQueueFirst
-    walk_names = WALKS + ("spec", "uni", "rowqueue")
+    # zwrt_device.cuh:Walk, then kWalkSpecFirst, kWalkUniFirst,
+    # kWalkRowQueueFirst and kWalkQueueFirst
+    walk_names = WALKS + ("spec", "uni", "rowqueue", "queue")
 
     def name_of(mangled):
         m = re.search(r"(fused_render_kernel|bounce_kernel)ILb([01])ELi(\d)ELi(\d)E", mangled)
@@ -1657,14 +1679,14 @@ def phase_sweep(zt, card) -> dict:
     return {"sweep": res, "best": best, "lut": lut, "walk_pairs": pairs}
 
 
-def walk_scenes(zt, rtw, rtw_lut) -> dict:
+def walk_scenes(zt, rtw, rtw_lut, balls) -> dict:
     """The scenes of phases 17 and 18, at leaf span 2 (the plain walks'
     time grows with the tree's nodes): balls, rtw_final with the atlas,
     and rtw_final compiled with ZWRT_UNI_TREE=1 with the atlas and with a
     native-budget texture LUT; and at the port's span (""), rtw_final with
     the unified tree, with the atlas and with the LUT, beside the main
-    paths' per-kind ``rtw`` and ``rtw_lut``."""
-    out = {"rtw_port": rtw, "rtw_lut_port": rtw_lut}
+    paths' per-kind ``rtw``, ``rtw_lut`` and ``balls``."""
+    out = {"rtw_port": rtw, "rtw_lut_port": rtw_lut, "balls_port": balls}
     for span, suffix in ((2, ""), (None, "_port")):
         with leaf_span(span), env("ZWRT_UNI_TREE", "1"):
             out["rtw_uni" + suffix] = zt.models.load_scene("rtw_final", device="cuda")
@@ -1780,6 +1802,25 @@ def phase_walk_parity(zt, fused, tb, integrator, torch, sc) -> dict:
             zt, tb, integrator, torch, sc["rtw_port"], 32, WALK_SPP, WALK_RTW_DEPTH,
             f"cond walk, port's span: rtw_final 32x32 spp{WALK_SPP} d{WALK_RTW_DEPTH}")[:2]
     result["rowqueue port span"] = rq
+    # the queue walk at the port's span, the main paths' trees: its K1 on
+    # balls and K1 with the LUT on rtw_final against their plain versions,
+    # and the cond walk's plain counts there, which price phase 18's
+    # port-span bounds of the queue walk (its K2 there is the unified-tree
+    # block's default-walk case, the cond walk's K2 the rowqueue block's)
+    qp = {"K2 regen": port["K2 regen, default walk"],
+          "K2 regen, cond walk": rq["K2 regen, cond walk"]}
+    for walk, suffix in ((DEFAULT_WALK, ""), ("cond", ", cond walk")):
+        with trav(walk):
+            for case, key, depth in (("K1 balls", "balls_port", WALK_DEPTH),
+                                     ("K1 LUT", "rtw_lut_port", WALK_RTW_DEPTH)):
+                plains = []
+                check = render_parity(
+                    zt, fused, integrator, torch, sc[key],
+                    f"{walk} walk, port's span: {sc[key].name}{' LUT' if case == 'K1 LUT' else ''} "
+                    f"32x32 spp{WALK_SPP} d{depth}", depth, plains=plains, spp=WALK_SPP)
+                qp[case + suffix] = (check, plains[0][1])
+    result["queue port span"] = qp
+    result["queue hits"] = plain_queue_hits(zt, torch, sc)
     # the unified tree walked as its first design (ops/trace.py:
     # uni_cond_walk, one cond walk that culls with the running t): its
     # plain work counts price the uni walk's bounds (walk_bound_counts), and
@@ -1810,7 +1851,7 @@ def phase_walk_parity(zt, fused, tb, integrator, torch, sc) -> dict:
             continue
         for name, (_, mine, _) in got.items():
             ref = default[name][1]
-            tag = f"plain {walk} walk vs plain default walk: {name}"
+            tag = f"plain {walk} walk vs plain cond walk: {name}"
             if name.startswith("K2 one bounce"):
                 result["plain"].append(compare_bounce(tag, mine, ref))
             elif name == "K2 regen":
@@ -1821,7 +1862,47 @@ def phase_walk_parity(zt, fused, tb, integrator, torch, sc) -> dict:
     bitwise([c for c, _ in result["rowqueue"].values()]
             + [result["rowqueue port span"][k][0] for k in ("K2 regen", "K1 LUT")],
             "the rowqueue walk's kernels against their plain versions")
+    bitwise([c for c, _ in result[DEFAULT_WALK].values()]
+            + [result["queue port span"][k][0] for k in ("K1 balls", "K1 LUT", "K2 regen")],
+            f"the {DEFAULT_WALK} walk's kernels against their plain versions")
+    bitwise([c for c in result["plain"] if c["check"].startswith(f"plain {DEFAULT_WALK} walk")],
+            f"the plain {DEFAULT_WALK} walk's outputs against the plain cond walk's")
     return result
+
+
+def plain_queue_hits(zt, torch, sc) -> list:
+    """The plain queue walk's hits (t, kind, idx) bitwise the plain cond
+    walk's on the card, on the 64x64 camera rays of balls and rtw_final at
+    the port's span, and the work each walk counts: the queue walk's slab
+    tests and leaf visits at least the cond walk's and at most its first
+    design's (ops/trace.py:queue_first_design)."""
+    from zig_weekend_raytracer_tpu_torch.ops import trace as ttrace
+    from zig_weekend_raytracer_tpu_torch.utils import workcount
+
+    out = []
+    for key in ("balls_port", "rtw_port"):
+        scene = sc[key]
+        rays = camera_rays(zt, torch, scene, 64, 64, 1)
+        got = {}
+        for form in ("cond", DEFAULT_WALK, "first design"):
+            first = (ttrace.queue_first_design() if form == "first design"
+                     else contextlib.nullcontext())
+            with workcount.counting() as c, first:
+                hit = ttrace.closest_hit(scene.compiled, *rays, zt.dtypes.T_MIN,
+                                         walk="cond" if form == "cond" else DEFAULT_WALK)
+            got[form] = (hit, {k: c[k] for k in ("slab_test", "leaf_visit")})
+        check = compare_hits(f"plain {DEFAULT_WALK} walk vs plain cond walk, {scene.name} "
+                             "64x64 camera rays", got[DEFAULT_WALK][0], got["cond"][0])
+        counts = {form: c for form, (_, c) in got.items()}
+        log(f"{scene.name} 64x64 camera rays, work of the plain walks (slab tests, leaf "
+            "visits): " + "; ".join(f"{f} {c['slab_test']}, {c['leaf_visit']}"
+                                   for f, c in counts.items()))
+        for k in ("slab_test", "leaf_visit"):
+            if not counts["cond"][k] <= counts[DEFAULT_WALK][k] <= counts["first design"][k]:
+                raise AssertionError(f"{scene.name}: the {DEFAULT_WALK} walk's {k} is not "
+                                     "between the cond walk's and its first design's")
+        out.append({**check, "counts": counts})
+    return out
 
 
 def bitwise(checks, what) -> None:
@@ -1834,50 +1915,64 @@ def bitwise(checks, what) -> None:
 
 
 def short_queue_refused(zt, fused, torch, sc) -> list:
-    """A render-kernel launch of each queue walk (queue, rowqueue and spec
-    on balls at span 2, uni on rtw_final with the LUT) whose queue capacity
-    is one below the leaves its tree may hold ((n + 1) / 2 of n nodes) is
-    refused with cudaErrorInvalidValue (1), before it runs, and counts no
-    launch (zwrt_device.cuh:set_walk)."""
+    """A render-kernel launch of each walk with a device or per-warp queue
+    (the queue walk's first design, rowqueue and spec on balls at span 2,
+    uni on rtw_final with the LUT) whose queue capacity is one below the
+    leaves its tree may hold ((n + 1) / 2 of n nodes), a launch of the queue
+    walk's current design whose capacity is not the kernel's kQueueCap, and
+    one without its packed node tables, are each refused with
+    cudaErrorInvalidValue (1), before they run, and count no launch
+    (zwrt_device.cuh:set_walk)."""
     from zig_weekend_raytracer_tpu_torch.render.camera import camera_consts
 
     out = []
     lane = torch.arange(64, dtype=torch.int32, device="cuda")
     px, py = (lane % 8).contiguous(), (lane // 8).contiguous()
     zero = torch.zeros_like(lane)
-    real_walk_args = fused.walk_args
-    for walk, name in (("queue", "balls2"), ("rowqueue", "balls2"), ("spec", "balls2"),
-                       ("uni", "rtw_uni_lut")):
+    real_walk_args, real_node_args = fused.walk_args, fused.node_args
+    for walk, name, first, what in (
+            ("queue", "balls2", True, "short"), ("rowqueue", "balls2", False, "short"),
+            ("spec", "balls2", False, "short"), ("uni", "rtw_uni_lut", False, "short"),
+            ("queue", "balls2", False, "short"), ("queue", "balls2", False, "no nodes")):
         cs = sc[name].compiled
         nodes = cs.uni_tree_box.shape[0] if walk == "uni" else cs.sph_tree_box.shape[0]
-        short = (nodes + 1) // 2 - 1
+        short = fused.QUEUE_CAP - 1 if walk == "queue" and not first else (nodes + 1) // 2 - 1
 
-        def shortened(scene, n, smem_before=0):
-            walk_, code, cap, queue = real_walk_args(scene, n, smem_before)
+        def shortened(scene, n, smem_before=0, first=False):
+            walk_, code, cap, queue = real_walk_args(scene, n, smem_before, first)
             return walk_, code, short, queue
 
-        launches = dict(fused.render_fused.launches)
-        fused.walk_args = shortened
+        host = fused.render_fused_variant if first else fused.render_fused
+        launches = dict(host.launches)
+        if what == "short":
+            fused.walk_args = shortened
+        else:
+            fused.node_args = lambda scene, walk: (None, ())
+        design = "'s first design" if first else ""
+        label = (f"the {walk} walk{design}: "
+                 + (f"a queue of {short} entries for {nodes} nodes" if what == "short"
+                    else "a launch without its packed nodes"))
         try:
             with trav(walk):
-                fused.render_fused(cs, px, py, zero, zero + 1, 0, zt.dtypes.T_MIN,
-                                   camera_consts=camera_consts(sc[name].camera, 8, 8),
-                                   sampler=zt.sampling.SamplerKind.SOBOL, width=8, height=8,
-                                   spp=1, stride=1, max_depth=2,
-                                   has_dof=sc[name].camera.has_depth_of_field)
+                kw = dict(camera_consts=camera_consts(sc[name].camera, 8, 8),
+                          sampler=zt.sampling.SamplerKind.SOBOL, width=8, height=8, spp=1,
+                          stride=1, max_depth=2, has_dof=sc[name].camera.has_depth_of_field)
+                if first:
+                    host(cs, px, py, zero, zero + 1, 0, zt.dtypes.T_MIN, first_walk=True, **kw)
+                else:
+                    host(cs, px, py, zero, zero + 1, 0, zt.dtypes.T_MIN, **kw)
             torch.cuda.synchronize()
-            raise AssertionError(f"the {walk} walk launched with a queue of {short} entries "
-                                 f"for a tree of {nodes} nodes")
+            raise AssertionError(f"{label} was launched")
         except RuntimeError as e:
             if "cudaError 1" not in str(e):
                 raise
         finally:
-            fused.walk_args = real_walk_args
-        if fused.render_fused.launches != launches:
-            raise AssertionError(f"the refused {walk} launch was counted")
-        log(f"{walk} walk: a queue of {short} entries for {nodes} nodes is refused "
-            "(cudaErrorInvalidValue)")
-        out.append({"walk": walk, "nodes": nodes, "q_cap": short, "refused": True})
+            fused.walk_args, fused.node_args = real_walk_args, real_node_args
+        if host.launches != launches:
+            raise AssertionError(f"{label}: the refused launch was counted")
+        log(f"{label}: refused (cudaErrorInvalidValue)")
+        out.append({"walk": walk, "first_design": first, "nodes": nodes, "q_cap": short,
+                    "packed_nodes": what != "no nodes", "refused": True})
     return out
 
 
@@ -1885,12 +1980,13 @@ def walk_bound_counts(wpar, walk, pcase, ccase) -> dict:
     """Phase 17's plain work counts that price the bound of a walk on case
     ``ccase`` of ``pcase``: the cond walk's on the same tree (the per-kind
     trees for queue, rowqueue and spec, at the port's span for "rowqueue
-    port span"; the unified tree's first-design form for uni), not the
-    walk's own, which culls with the seed t and so tests more boxes (and,
-    but for rowqueue, sweeps more leaves) than the closest hit needs."""
+    port span" and "queue port span"; the unified tree's first-design form
+    for uni), not the walk's own, which culls with a stale t and so tests
+    more boxes (and, but for rowqueue, sweeps more leaves) than the closest
+    hit needs."""
     if walk == "uni":
         return wpar["uni cond"][pcase][ccase][1]
-    if pcase == "rowqueue port span":
+    if pcase in ("rowqueue port span", "queue port span"):
         return wpar[pcase][f"{ccase}, cond walk"][1]
     return wpar["cond"][ccase][1]
 
@@ -1937,6 +2033,26 @@ def plan_kernel(zt, fused, integrator, tb, scene, renderer, spp, depth, first=Fa
         return st.radiance, st.work
 
     return run
+
+
+def launch_mib(zt, fused, integrator, tb, torch, scene, renderer, spp, depth, tag) -> dict:
+    """MiB of device memory that one launch of the scene's kernel at
+    ``renderer``'s coherent plan allocates above what was allocated before
+    it, outputs included, under the default walk and under its first design
+    (a measurement variant, counted apart), whose leaf queue is a device
+    array of (n_nodes + 1) // 2 + 1 ints a thread."""
+    out = {}
+    for label, first in (("new", False), ("first design", True)):
+        call = plan_kernel(zt, fused, integrator, tb, scene, renderer, spp, depth, first)
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        call()
+        torch.cuda.synchronize()
+        out[label] = (torch.cuda.max_memory_allocated() - base) / 2**20
+    log(f"{tag}: a launch at the plan allocates {out['new']:.1f} MiB of device memory "
+        f"(the {DEFAULT_WALK} walk's first design: {out['first design']:.1f} MiB)")
+    return out
 
 
 def walk_render(zt, fused, integrator, ch, ttrace, tb, torch, scene, spp, depth, walk, card,
@@ -2028,6 +2144,11 @@ def walk_lane_bytes(kernel, lut, lanes) -> int:
 # default walk's scene at the same span and its path's renderer key, or
 # None, phase 17's counts)
 DESIGN_CASES = (
+    ("K1", "queue balls port", "balls_port", None, ("queue port span", "K1 balls")),
+    ("K2", "queue port", "rtw_port", None, ("queue port span", "K2 regen")),
+    ("K1", "queue port", "rtw_lut_port", None, ("queue port span", "K1 LUT")),
+    ("K1", "queue", "balls2", None, ("queue", "K1 balls")),
+    ("K2", "queue", "rtw", None, ("queue", "K2 regen")),
     ("K1", "rowqueue", "balls2", ("balls2", ("K1", DEFAULT_WALK)), ("rowqueue", "K1 balls")),
     ("K2", "rowqueue", "rtw", ("rtw", ("K2", DEFAULT_WALK)), ("rowqueue", "K2 regen")),
     ("K2", "rowqueue port", "rtw_port", ("rtw_port", ("K2", "queue port")),
@@ -2045,22 +2166,24 @@ DESIGN_CASES = (
 
 def phase_walk_designs(zt, fused, integrator, tb, torch, sc, wpar, paths, renderers, resources,
                        card) -> dict:
-    """Phase 18's redesign check: each redesigned walk (rowqueue, spec,
-    uni) against its first design (the kFlagFirstWalk variant) at the
+    """Phase 18's redesign check: each redesigned walk (queue, rowqueue,
+    spec, uni) against its first design (the kFlagFirstWalk variant) at the
     coherent plan of its phase 18 path, in DESIGN_PAIRS alternating rounds
-    (design_rounds): K1 and K2 at span 2, and rowqueue's K2 and uni at the
-    port's span; the default walk's kernel at the same plan on the per-kind
-    scene of the same span runs in the rounds of rowqueue and of uni at the
-    port's span.  Each with its bound (walk_bound_counts scaled to the
-    path's bounces; the bound the walk's own plain counts would give beside
-    it, as a diagnostic), the registers and spills of both instantiations,
-    each instantiation's blocks per SM and shared memory per block at the
-    plan, and the path's render against the default walk's.  Returns
-    {"<kernel> <path key>": record}."""
+    (design_rounds): K1 and K2 at span 2, and queue's three main paths
+    (K1 balls, K2 rtw_final, K1 rtw_final with the LUT), rowqueue's K2 and
+    uni at the port's span; the default walk's kernel at the same plan on
+    the per-kind scene of the same span runs in the rounds of rowqueue and
+    of uni at the port's span.  Each with its bound (walk_bound_counts
+    scaled to the path's bounces; the bound the walk's own plain counts
+    would give beside it, as a diagnostic), the registers and spills of
+    both instantiations, each instantiation's blocks per SM and shared
+    memory per block at the plan, and, but for the default walk, the
+    path's render against the default walk's.  Returns {"<kernel> <path
+    key>": record}."""
     out = {}
     for kernel, key, name, default, (pcase, ccase) in DESIGN_CASES:
         walk = key.split()[0]
-        scene, spp, depth = sc[name], *((WALK18_BALLS_SPP, DEPTH) if name == "balls2"
+        scene, spp, depth = sc[name], *((WALK18_BALLS_SPP, DEPTH) if name.startswith("balls")
                                         else (WALK18_RTW_SPP, RTW_DEPTH))
         lut = scene.compiled.has_image_textures and bool(scene.compiled.tex_lut_dims)
         run = lambda first, occ=False, sc_=scene, rnd=renderers[(kernel, key)]: plan_kernel(
@@ -2085,7 +2208,7 @@ def phase_walk_designs(zt, fused, integrator, tb, torch, sc, wpar, paths, render
             "(cudaOccupancyMaxActiveBlocksPerMultiprocessor): " + "; ".join(
                 f"{k} {v['blocks_per_sm']}, {v['smem_bytes']} bytes" for k, v in occ.items()))
         rounds = design_rounds(torch, runs, tag, card)
-        if walk == "rowqueue":
+        if walk in ("queue", "rowqueue"):
             bitwise(rounds["checks"], f"{tag}: the first design's and the default walk's "
                                       "outputs at the plan against the new design's")
         counts = wpar[pcase][ccase][1]
@@ -2093,7 +2216,7 @@ def phase_walk_designs(zt, fused, integrator, tb, torch, sc, wpar, paths, render
                       for k in ("slab_test", "leaf_visit", "sphere_test", "quad_test")}
         log(f"{tag}: the plain walk's work a bounce at 32x32 (phase 17): "
             + ", ".join(f"{k} {v:.2f}" for k, v in per_bounce.items()))
-        if "port" in key and kernel == "K2":
+        if "port" in key and kernel == "K2" and walk != DEFAULT_WALK:
             ref = wpar["uni port span"]["K2 regen, default walk"][1]
             log(f"{tag}: the plain {DEFAULT_WALK} walk's work a bounce on the per-kind trees: "
                 + ", ".join(f"{k} {ref.get(k, 0) / max(ref.get('bounce', 0), 1):.2f}"
@@ -2123,13 +2246,55 @@ def phase_walk_designs(zt, fused, integrator, tb, torch, sc, wpar, paths, render
             f"{bound['bound_ms'] / med['new']:.1%} of the new, "
             f"{bound['bound_ms'] / med['first design']:.1%} of the first; registers/spill "
             f"bytes new {res['new']['registers']}/{res['new']['spill_bytes']}, first "
-            f"{res['first design']['registers']}/{res['first design']['spill_bytes']}; "
-            f"its render against the default walk's {path['default_agree']:.4%} of pixels "
-            f"within rtol 1e-5/atol 1e-6 (max |diff| {path['default_max_abs_diff']:.3e})")
+            f"{res['first design']['registers']}/{res['first design']['spill_bytes']}"
+            + (f"; its render against the default walk's {path['default_agree']:.4%} of "
+               f"pixels within rtol 1e-5/atol 1e-6 (max |diff| "
+               f"{path['default_max_abs_diff']:.3e})" if walk != DEFAULT_WALK else ""))
         out[f"{kernel} {key}"] = {**rounds, **bound, "span": span, "resources": res,
-                                  "occupancy": occ, "default_agree": path["default_agree"],
+                                  "occupancy": occ, "default_agree": path.get("default_agree"),
                                   "plain_work_per_bounce": per_bounce,
                                   "own_work_bound_ms": own}
+    return out
+
+
+def phase_brute_walks(zt, fused, torch, cases, card) -> dict:
+    """Phase 18's tree-less scenes: the render kernel at the sorted plans of
+    cornell's and emissive's main paths (phases 3 and 15) under the default
+    walk's instantiation, its first design's and the cond walk's, in
+    DESIGN_PAIRS alternating rounds, the outputs bitwise the default's, and
+    each instantiation's blocks per SM and shared memory a block.  No tree
+    is walked there, so they differ only in what the walk's code costs the
+    whole kernel: its registers and spills."""
+    from zig_weekend_raytracer_tpu_torch.render.camera import camera_consts
+
+    out = {}
+    t_min = zt.dtypes.T_MIN
+    for name, scene, renderer, spp in cases:
+        cs = scene.compiled
+        plan = plan_of(renderer, cs)
+        kw = dict(camera_consts=camera_consts(scene.camera, W, H), sampler=renderer.sampler,
+                  width=W, height=H, spp=spp, stride=1, max_depth=DEPTH,
+                  has_dof=scene.camera.has_depth_of_field)
+        default = lambda: fused.render_fused(cs, *plan, 0, t_min, want_work=True, **kw)
+        first = lambda: fused.render_fused_variant(cs, *plan, 0, t_min, first_walk=True,
+                                                   **kw)[:2]
+        runs = {"new": (DEFAULT_WALK, default), "first design": (DEFAULT_WALK, first),
+                "cond": ("cond", default)}
+        occ = {}
+        for label, walk, first_walk in (("new", DEFAULT_WALK, False),
+                                        ("first design", DEFAULT_WALK, True),
+                                        ("cond", "cond", False)):
+            with trav(walk):
+                blocks, smem = fused.render_fused_occupancy(cs, *plan, 0, t_min,
+                                                            first_walk=first_walk, **kw)
+            occ[label] = {"blocks_per_sm": blocks, "smem_bytes": smem}
+        tag = f"K1 {name} (no tree), the {DEFAULT_WALK} walk's instantiation"
+        rounds = design_rounds(torch, runs, tag, card)
+        bitwise(rounds["checks"], f"{tag}: the first design's and the cond walk's outputs "
+                                  "against the new design's")
+        log(f"{tag}: blocks per SM and shared memory a block " + "; ".join(
+            f"{k} {v['blocks_per_sm']}, {v['smem_bytes']} bytes" for k, v in occ.items()))
+        out[name] = {**rounds, "occupancy": occ}
     return out
 
 
@@ -3449,10 +3614,10 @@ def main() -> int:
         log(f"  {name}: {res['registers']} registers, {res['spill_bytes']} bytes spill stores")
     n_chain = 5 * 2 * 4  # ops x chain counts x unrolls
     # per kernel: 2 modes x 5 walks, and 3 variants for 2 walks (K1 in both
-    # modes, K2's regenerating mode), the first designs of 3 walks (K1 in
+    # modes, K2's regenerating mode), the first designs of 4 walks (K1 in
     # both modes, K2's regenerating mode), and the estimator instantiations
     # (2 modes x 5 walks per kernel)
-    n_render = 2 * 5 + 2 * 2 * 3 + 2 * 5 + 2 * 3 + 2 * 3 + 3 + 2 * (2 * 5)
+    n_render = 2 * 5 + 2 * 2 * 3 + 2 * 5 + 2 * 3 + 2 * 4 + 4 + 2 * (2 * 5)
     # closest_hit_kernel and its first design
     if len(resources) != n_render + 2 + n_chain or any(
             r["registers"] is None for r in resources.values()):
@@ -3680,6 +3845,8 @@ def main() -> int:
                                 **r_kw), 3)
     log(f"bounce kernel at the coherent plan ({r_plan[0].shape[0]} lanes, {RTW_SPP} spp): "
         f"{k2_ms:.3f} ms ({card})")
+    r_launch_mib = launch_mib(zt, fused, integrator, tb, torch, rtw, r_renderer, RTW_SPP,
+                              RTW_DEPTH, "rtw_final main path's bounce kernel")
     step = max(1, r_plan[0].shape[0] // SLICE_LANES)
     slice_lanes = tuple(a[::step][:SLICE_LANES].contiguous() for a in r_plan[:2])
     k2_slice, k2_counts, _ = regen_parity(
@@ -3767,6 +3934,8 @@ def main() -> int:
     log(f"render kernel with the LUT at the coherent plan ({l_plan[0].shape[0]} lanes, "
         f"{RTW_SPP} spp): {l_kernel_ms:.3f} ms; bounce kernel with the atlas: {k2_ms:.3f} ms "
         f"({card})")
+    l_launch_mib = launch_mib(zt, fused, integrator, tb, torch, rtw_lut, l_renderer, RTW_SPP,
+                              RTW_DEPTH, "rtw_final LUT main path's render kernel")
     # Does the LUT, which fits the 50 MB L2, make the image path cheaper
     # than the atlas, which does not?  One best-of-3 pair is within the
     # run-to-run spread, so time both kernels on the same lanes in
@@ -3846,7 +4015,7 @@ def main() -> int:
 
     # ---- 17. the tree walks against their plain versions ----
     phase("17")
-    wsc = walk_scenes(zt, rtw, rtw_lut)
+    wsc = walk_scenes(zt, rtw, rtw_lut, balls)
     wpar = phase_walk_parity(zt, fused, tb, integrator, torch, wsc)
 
     # ---- 18. the walks on the slice's path at full width, cut spp ----
@@ -3890,6 +4059,8 @@ def main() -> int:
         wsc["rtw_port"], WALK18_RTW_SPP, RTW_DEPTH, "rowqueue", port_fb)
     port_lut_default, port_lut_fb, renderers[("K1", "queue port")] = wr(
         wsc["rtw_lut_port"], WALK18_RTW_SPP, RTW_DEPTH, DEFAULT_WALK)
+    balls_port_default, _, renderers[("K1", "queue balls port")] = wr(
+        wsc["balls_port"], WALK18_BALLS_SPP, DEPTH, DEFAULT_WALK)
     paths[("K2", "uni port")], _, renderers[("K2", "uni port")] = wr(
         wsc["rtw_uni_port"], WALK18_RTW_SPP, RTW_DEPTH, "uni", port_fb)
     paths[("K1", "uni port")], _, renderers[("K1", "uni port")] = wr(
@@ -3900,9 +4071,16 @@ def main() -> int:
         + f"; default walk: balls {b_default['mpaths_per_s']:.2f}, rtw_final (K2) "
         f"{r18_default['mpaths_per_s']:.2f}, rtw_final LUT (K1) {l18_default['mpaths_per_s']:.2f}"
         f"; at the port's span rtw_final (K2) {port_default['mpaths_per_s']:.2f}, LUT (K1) "
-        f"{port_lut_default['mpaths_per_s']:.2f}")
+        f"{port_lut_default['mpaths_per_s']:.2f}, balls {balls_port_default['mpaths_per_s']:.2f}")
+    # the default walk's paths, each timed against its first design
+    paths.update({("K1", DEFAULT_WALK): b_default, ("K2", DEFAULT_WALK): r18_default,
+                  ("K2", "queue port"): port_default, ("K1", "queue port"): port_lut_default,
+                  ("K1", "queue balls port"): balls_port_default})
     designs = phase_walk_designs(zt, fused, integrator, tb, torch, wsc, wpar, paths, renderers,
                                  resources, card)
+    brute_walks = phase_brute_walks(zt, fused, torch, (
+        ("cornell", cornell, renderer, SPP), ("emissive", emissive, e_renderer, EMISSIVE_SPP)),
+        card)
 
     # ---- 19. the three samplers and nine lights ----
     phase("19")
@@ -4057,7 +4235,8 @@ def main() -> int:
                      plain_lanes=32 * 32, render_s_best=path["render_s_best"],
                      mpaths_per_s=path["mpaths_per_s"],
                      default_agree=path.get("default_agree"),
-                     plain_vs_default_plain=[c for c in wpar["plain"] if f" {walk} walk" in c["check"]],
+                     plain_vs_cond_plain=[c for c in wpar["plain"]
+                                         if c["check"].startswith(f"plain {walk} walk")],
                      **extra,
                      **({"region_gates": uni_gates} if (kernel, walk) == ("K2", "uni") else {}))
 
@@ -4073,7 +4252,8 @@ def main() -> int:
               render_s_best=best, mpaths_per_s=mpaths, region_gate=verdict,
               emissive_render_s_best=e_best, emissive_mpaths_per_s=e_mpaths,
               emissive_region_gates=emissive_gates, emissive_ms=e_kernel_ms,
-              emissive_bound_ms=e_bound["bound_ms"], emissive_bound_by=e_bound["bound_by"]),
+              emissive_bound_ms=e_bound["bound_ms"], emissive_bound_by=e_bound["bound_by"],
+              queue_walk_designs=brute_walks),
         entry("fused_render_kernel (tree)", KERNEL_SOURCE, KERNEL_REPLACES,
               f"fused_render_kernel<false, {DEFAULT_WALK}>",
               b_launches + sum(sh_launches["K1 tree"].values()) + sum(tl["K1 tree"].values()),
@@ -4081,6 +4261,8 @@ def main() -> int:
               b_kernel_ms, b_slice["plain_ms"], k1_tree_bound, render_tol,
               plain_lanes=SLICE_LANES, kernel_ms_at_plain_lanes=b_slice["ms"],
               queue_walk_span2=b_default,
+              queue_walk_designs={"balls port's span": designs["K1 queue balls port"],
+                                  "balls span 2": designs["K1 queue"]},
               balls_render_s_best=b_best, balls_mpaths_per_s=b_mpaths,
               balls_region_gates=balls_gates),
         entry("fused_render_kernel (texture LUT)", KERNEL_SOURCE, KERNEL_LUT_REPLACES,
@@ -4089,10 +4271,12 @@ def main() -> int:
               l_kernel_ms, l_slice["plain_ms"], k1_lut_bound, render_tol,
               plain_lanes=SLICE_LANES // 2, kernel_ms_at_plain_lanes=l_slice["ms"],
               rtw_final_render_s_best=l_best, rtw_final_mpaths_per_s=l_mpaths,
-              rtw_final_peak_mib=l_peak_mb, atlas_render_agree=l_close,
+              rtw_final_peak_mib=l_peak_mb, rtw_final_launch_mib=l_launch_mib,
+              atlas_render_agree=l_close,
               atlas_render_max_abs_diff=l_vs_atlas, region_gates=lut_gates,
               lut_32k_mpaths_per_s=s_mpaths, lut_32k_mean_abs_diff=s_diff,
-              lut_vs_atlas_pairs_ms=lut_pairs, lut_vs_atlas_same_lanes=lut_same_lanes),
+              lut_vs_atlas_pairs_ms=lut_pairs, lut_vs_atlas_same_lanes=lut_same_lanes,
+              queue_walk_designs={"rtw_final LUT port's span": designs["K1 queue port"]}),
         entry("bounce_kernel (one bounce)", BOUNCE_SOURCE, BOUNCE_REPLACES,
               f"bounce_kernel<false, {DEFAULT_WALK}>",
               0, {}, k2_one, k2_first["ms"], k2_first["plain_ms"], bound_of(k2_first), bounce_tol,
@@ -4108,8 +4292,11 @@ def main() -> int:
               {"rtw_final": r_k2, **sh_launches["K2 regen"], **tl["K2 regen"]}, k2_checks, k2_ms,
               k2_slice["plain_ms"], k2_bound, render_tol, plain_lanes=SLICE_LANES,
               kernel_ms_at_plain_lanes=k2_slice["ms"], queue_walk_span2=r18_default,
+              queue_walk_designs={"rtw_final port's span": designs["K2 queue port"],
+                                  "rtw_final span 2": designs["K2 queue"]},
               driver_passes_per_band=passes / max(bands, 1), rtw_final_render_s_best=r_best,
               rtw_final_mpaths_per_s=r_mpaths, rtw_final_peak_mib=peak_mb,
+              rtw_final_launch_mib=r_launch_mib,
               region_gates=image_gates),
         entry("closest_hit_kernel", HIT_SOURCE, HIT_REPLACES, "closest_hit_kernel",
               b_hit_launches + r_hit + l_hit + sum(aov_launches.values())

@@ -9,12 +9,13 @@ plain versions on the CPU.
   2. The packed node table (``ops/fused_render.py:pack_nodes``, 32 bytes a
      node) round-trips to ``uni_tree_box`` / ``uni_tree_link`` and to each
      per-kind ``*_tree_box`` / ``*_tree_link``: boxes bitwise, links and
-     kinds equal; ``node_args`` builds the tables only for spec and uni,
+     kinds equal; ``node_args`` builds the tables for every walk but cond,
      once per scene, and ``trace_args`` does not carry them.
   3. ``queue_capacity`` covers the unified tree's leaves under uni and the
      per-kind trees' under spec, and every lane's queue of the random rays
      at span 1.
-  4. The first designs are measurement variants of spec and uni only.
+  4. The first designs are measurement variants of the redesigned walks
+     (queue, rowqueue, spec and uni) only.
   5. The plain uni walk inside ``ops/trace.py:uni_cond_walk`` (the cond
      walk of the unified tree, whose counts price the uni walk's bound)
      gives the same hits with fewer node tests.
@@ -177,15 +178,15 @@ def test_packed_nodes_round_trip(cases, tree):
 
 
 def test_node_args_only_for_spec_and_uni():
-    """Only the redesigned walks (rowqueue, spec, uni) read packed nodes,
-    all the same tables."""
+    """Only the redesigned walks (queue, rowqueue, spec, uni) read packed
+    nodes, all the same tables; cond reads none."""
     cs = _with_env(_random_scene, ZWRT_LEAF_GROUPS=2, ZWRT_UNI_TREE=1)
-    for walk in ("cond", "queue"):
-        assert fused_render.node_args(cs, walk) == (None, ())
+    assert fused_render.node_args(cs, "cond") == (None, ())
     assert cs not in fused_render._NODE_CACHE
     ptrs, tables = fused_render.node_args(cs, "spec")
     assert cs in fused_render._NODE_CACHE and fused_render.node_args(cs, "uni")[1] is tables
     assert fused_render.node_args(cs, "rowqueue")[1] is tables
+    assert fused_render.node_args(cs, "queue")[1] is tables
     assert ptrs.dtype == np.uint64 and ptrs.shape == (3,) and (ptrs != 0).all()
     assert [t.data_ptr() for t in tables] == ptrs.tolist()
     for t, tree in zip(tables, ("sph", "quad", "uni")):
@@ -241,15 +242,14 @@ def test_queue_capacity_covers_the_walks_leaves(cases, walk):
 
 
 def test_first_designs_are_variants_of_spec_and_uni_only():
-    """The redesigned walks (rowqueue, spec, uni) keep their first designs
-    as variants; cond and queue have none."""
+    """The redesigned walks (queue, rowqueue, spec, uni) keep their first
+    designs as variants; cond has none."""
     first = fused_render.FLAG_FIRST_WALK
-    assert fused_render.FIRST_DESIGN_WALKS == ("rowqueue", "spec", "uni")
+    assert fused_render.FIRST_DESIGN_WALKS == ("queue", "rowqueue", "spec", "uni")
     for walk in fused_render.FIRST_DESIGN_WALKS:
         fused_render.check_flags(walk, first)
-    for walk in ("cond", "queue"):
-        with pytest.raises(ValueError, match="no first design"):
-            fused_render.check_flags(walk, first)
+    with pytest.raises(ValueError, match="no first design"):
+        fused_render.check_flags("cond", first)
     with pytest.raises(ValueError, match="no phase profile"):
         fused_render.check_flags("spec", first | fused_render.FLAG_PROF)
     with pytest.raises(ValueError, match="Russian roulette"):

@@ -1,10 +1,11 @@
 // The bounce kernel's measurement variants of its regenerating mode
 // (render_kernels.cuh): for the walks kWalkCond and kWalkQueue the phase
 // profile (kFlagProf), the earlier respawn through the Sobol bit loops
-// (kFlagLoopSobol), and both; for the walks kWalkSpec, kWalkUni and
-// kWalkRowQueue their first designs (kFlagFirstWalk).  Only ops/bounce.py:bounce_regen_variant
-// launches them; no path of the renderer does.  A file of their own, so
-// that nvcc builds them beside the default instantiations of bounce.cu.
+// (kFlagLoopSobol), and both; for the walks kWalkQueue, kWalkSpec, kWalkUni
+// and kWalkRowQueue their first designs (kFlagFirstWalk).  Only
+// ops/bounce.py:bounce_regen_variant launches them; no path of the renderer
+// does.  A file of their own, so that nvcc builds them beside the default
+// instantiations of bounce.cu.
 
 #include "render_kernels.cuh"
 

@@ -25,11 +25,14 @@
 //     ends, and each sweep tightens the t the walk culls with.  The walk's
 //     loop then holds only slab tests, so a warp's threads stay together
 //     through it and meet again in the sweeps.  Its scratch is 4 KB a
-//     block, whatever the ray count or the tree (the render kernels' queue
-//     walk keeps (n_nodes + 1) / 2 ints per thread in device memory).
-//     Leaves are swept in the order the per-thread walk (tree_walk: sweep
-//     each hit leaf at once) sweeps them, and a sweep replaces the best only
-//     at a strictly smaller t, so the result is that walk's, bitwise;
+//     block, whatever the ray count or the tree.  The render and bounce
+//     kernels' queue walk (zwrt_device.cuh:tree_walk_queue) is this walk
+//     over the packed 32-byte nodes, with its queue in dynamic shared
+//     memory after the Sobol tables; this one reads the unpacked node
+//     arrays, so it keeps its own copy.  Leaves are swept in the order
+//     the per-thread walk (tree_walk: sweep each hit leaf at once) sweeps
+//     them, and a sweep replaces the best only at a strictly smaller t, so
+//     the result is that walk's, bitwise;
 //   * the ray rows are read through their own pointers: no stacked copy of
 //     the rays before the launch, and a bool mask taken as it is.
 // Staging the node arrays in shared memory per block, and a persistent grid

@@ -60,8 +60,9 @@
 // It also replaces the TPU traversal variants that K1 hosts (kernel K4:
 // _tree_pass_queue, _tree_pass_spec, _uni_tree_pass), as one instantiation
 // per walk (zwrt_device.cuh:Walk), chosen at launch: WALK is a template
-// parameter, not a runtime branch, so the default walk's code (64
-// registers under __launch_bounds__(128)) does not carry the others'.
+// parameter, not a runtime branch, so the default walk's code (72
+// registers under __launch_bounds__(128), 7 blocks per SM) does not carry
+// the others'.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -72,8 +73,8 @@
 // ``fparams``, ``tables`` (device pointers: light kinds, light rows, the
 // factored Sobol tables), ``trace_ints`` and ``trace_ptrs`` are host arrays
 // in the order ops/fused_render.py packs them; ``nodes`` the packed node
-// tables of a spec, uni or rowqueue launch (zwrt_device.cuh:set_nodes;
-// null for another walk); ``image_dims`` ((n_images, 4) on the card) and
+// tables of a launch of any walk but cond (zwrt_device.cuh:set_nodes;
+// null for cond); ``image_dims`` ((n_images, 4) on the card) and
 // ``image_texels`` are the texture LUT of an image scene (n_images 0 and
 // both null for a scene without images).  ``walk`` picks the tree walk,
 // ``q_cap`` and ``queue`` (``queue_len`` ints) its leaf queue

@@ -1,10 +1,10 @@
 // The render kernel's measurement variants (render_kernels.cuh): for the
 // walks kWalkCond and kWalkQueue the phase profile (kFlagProf), the Sobol
 // earlier bit-loop respawn (kFlagLoopSobol), and both; for the walks
-// kWalkSpec, kWalkUni and kWalkRowQueue their first designs
-// (kFlagFirstWalk: zwrt_device.cuh:tree_walk_spec_first,
-// uni_tree_walk_first, tree_walk_warpqueue_first), which chip_smoke.py
-// times against the redesigned walks.  Only
+// kWalkQueue, kWalkSpec, kWalkUni and kWalkRowQueue their first designs
+// (kFlagFirstWalk: zwrt_device.cuh:tree_walk_queue_first,
+// tree_walk_spec_first, uni_tree_walk_first, tree_walk_warpqueue_first),
+// which chip_smoke.py times against the redesigned walks.  Only
 // ops/fused_render.py:render_fused_variant launches them; no path of the
 // renderer does.  A file of their own, so that nvcc builds them beside the
 // default instantiations of fused_render.cu.

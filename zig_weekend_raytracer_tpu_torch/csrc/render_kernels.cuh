@@ -13,12 +13,14 @@
 // walks kWalkCond and kWalkQueue, kFlagProf writes each lane's phase
 // profile (kProfCols int64 columns) to ``out_prof`` and kFlagLoopSobol
 // keeps the Sobol bit loops in the respawn and stages no tables; for the
-// walks kWalkSpec, kWalkUni and kWalkRowQueue, kFlagFirstWalk walks their
-// first designs (kWalkSpecFirst, kWalkUniFirst, kWalkRowQueueFirst), the
-// render kernel with and without the image fetch and the bounce kernel's
-// regenerating mode.  kWalkRowQueue's current design stages packed tree
-// nodes in shared memory (zwrt_device.cuh:stage_nodes) at every block's
-// start, beside the Sobol tables.
+// walks redesigned for Hopper, kWalkQueue, kWalkSpec, kWalkUni and
+// kWalkRowQueue, kFlagFirstWalk walks their first designs (kWalkQueueFirst,
+// kWalkSpecFirst, kWalkUniFirst, kWalkRowQueueFirst), the render kernel
+// with and without the image fetch and the bounce kernel's regenerating
+// mode.  Beside the Sobol tables in the block's dynamic shared memory,
+// kWalkQueue keeps its per-thread leaf queues (zwrt_device.cuh:
+// bounded_queue), and kWalkRowQueue's current design stages packed tree
+// nodes (stage_nodes) at every block's start and keeps its warp queues.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -27,8 +29,6 @@
 #include "zwrt_device.cuh"
 
 namespace zwrt {
-
-constexpr int kThreads = 128;  // threads per block of every launcher
 
 __device__ __forceinline__ void write_prof(long long* out, const Prof& pr, int i, int n) {
   for (int ph = 0; ph < kPhases; ++ph) {
@@ -167,15 +167,16 @@ inline int launch_or_report(const RenderLaunch& L, K* kernel, int blocks, size_t
 }
 
 // f(std::integral_constant<int, W>{}) for the walk W: every walk for the
-// default and estimator instantiations, the first design of kWalkSpec,
-// kWalkUni or kWalkRowQueue for kFlagFirstWalk, kWalkCond and kWalkQueue
-// for the other variants.
+// default and estimator instantiations, the first design of kWalkQueue,
+// kWalkSpec, kWalkUni or kWalkRowQueue for kFlagFirstWalk, kWalkCond and
+// kWalkQueue for the other variants.
 template <int FLAGS, typename F>
 inline int dispatch_flags_walk(int walk, F f) {
   if constexpr (FLAGS == 0 || FLAGS == kFlagEstimator) {
     return dispatch_walk(walk, f);
   } else if constexpr (FLAGS == kFlagFirstWalk) {
     switch (walk) {
+      case kWalkQueue: return f(std::integral_constant<int, kWalkQueueFirst>{});
       case kWalkSpec: return f(std::integral_constant<int, kWalkSpecFirst>{});
       case kWalkUni: return f(std::integral_constant<int, kWalkUniFirst>{});
       case kWalkRowQueue: return f(std::integral_constant<int, kWalkRowQueueFirst>{});

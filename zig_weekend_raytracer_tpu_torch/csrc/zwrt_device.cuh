@@ -80,12 +80,24 @@ constexpr float kAabbMaxMult = 1.00000024f;
 constexpr int kGroup = 8;  // slots per leaf group (the JAX kernels' sublanes)
 enum TraceMode { kTraceNone = 0, kTraceBrute = 1, kTraceTree = 2 };
 // Tree walks (ops/trace.py:WALKS, in its order), then the first designs of
-// the spec, uni and rowqueue walks, which only their measurement variants
-// take (kFlagFirstWalk): never a launch's walk code.
+// the spec, uni, rowqueue and queue walks, which only their measurement
+// variants take (kFlagFirstWalk): never a launch's walk code.
 enum Walk {
   kWalkCond = 0, kWalkQueue = 1, kWalkRowQueue = 2, kWalkSpec = 3, kWalkUni = 4,
-  kWalkSpecFirst = 5, kWalkUniFirst = 6, kWalkRowQueueFirst = 7
+  kWalkSpecFirst = 5, kWalkUniFirst = 6, kWalkRowQueueFirst = 7, kWalkQueueFirst = 8
 };
+// Threads per block of the render and bounce launchers
+// (ops/fused_render.py:THREADS).
+constexpr int kThreads = 128;
+// Leaf entries of kWalkQueue's per-thread queue in shared memory
+// (ops/trace.py:QUEUE_CAP): the walk sweeps them when it holds this many.
+// Chosen on an NVIDIA H100 80GB HBM3 at 700 W from 4, 8 and 16 by
+// tools/queue_cap_sweep.py at chip_smoke.py phase 18's five plans
+// (PERF.md): 8 was the fastest summed over the three main paths and the
+// only one ahead of the first design on all five; 4 ran the rtw_final
+// paths 1-8% faster but balls 6% slower (behind the first design), 16
+// balls 1-3% faster but rtw_final 12-21% slower.
+constexpr int kQueueCap = 8;
 // The walks whose lanes walk a warp's node pointer together: they read the
 // group of lanes that trace together (trace_closest's ``group``).
 __host__ __device__ constexpr bool warp_walk(int walk) {
@@ -460,8 +472,8 @@ __device__ __forceinline__ float nan_max(float a, float b) { return (a > b || a 
 // ``box`` (n_nodes, 6) [min xyz, max xyz], ``link`` (n_nodes, 2) [miss
 // link, first leaf group or -1], ``tab`` one row per leaf slot and ``oi``
 // each slot's original index.  Rows: spheres kSphereCols, quads kQuadCols.
-// ``nodes`` is the tree's packed node table (PackedNode), set only for a
-// launch of the kWalkSpec or kWalkRowQueue walk (null otherwise).  Under
+// ``nodes`` is the tree's packed node table (PackedNode), set for a launch
+// of every walk but kWalkCond and kWalkUni (null for those).  Under
 // kWalkRowQueue the block stages the first ``n_staged`` nodes (in preorder)
 // in its dynamic shared memory from word ``staged_word`` (stage_nodes); 0
 // for every other walk.
@@ -478,8 +490,9 @@ struct KindTables {
 // pack_nodes): lo = [min x y z, miss link], hi = [max x y z, leaf word],
 // the two ints as their bits.  The leaf word is the first leaf group times
 // 2 plus the leaf's kind (the unified tree's; 0 in a per-kind tree), or -1
-// for an interior node.  The kWalkSpec and kWalkUni walks read it with two
-// 16-byte loads a step, where ``box`` and ``link`` take nine scattered words.
+// for an interior node.  The kWalkQueue, kWalkRowQueue, kWalkSpec and
+// kWalkUni walks read it with two 16-byte loads a step, where ``box`` and
+// ``link`` take nine scattered words.
 struct PackedNode {
   float4 lo, hi;
 };
@@ -494,10 +507,12 @@ __device__ __forceinline__ int leaf_word_of(const PackedNode& n) { return __floa
 // span read), ``ubox`` (u_nodes, 6) and ``ulink`` (u_nodes, 3) [miss
 // link, first leaf group or -1, leaf kind] its nodes, which the first
 // design reads, and ``unodes`` the same nodes packed (kWalkUni; null for
-// a launch of another walk).  ``queue`` is the per-thread leaf queue of
-// kWalkQueue, kWalkSpec and kWalkUni, lane-major: entry j of thread t at
-// queue[j * q_stride + t], q_stride the launch's thread count;
-// kWalkRowQueue keeps q_cap entries per warp in dynamic shared memory
+// a launch of another walk).  ``queue`` is the per-thread leaf queue in
+// device memory of kWalkSpec, kWalkUni and kWalkQueueFirst, lane-major:
+// entry j of thread t at queue[j * q_stride + t], q_stride the launch's
+// thread count.  The others keep theirs in the block's dynamic shared
+// memory from word ``q_smem_words``: kWalkQueue kQueueCap entries per
+// thread (bounded_queue), kWalkRowQueue q_cap entries per warp
 // (warp_queues).
 struct TraceScene {
   KindTables sph, quad;
@@ -630,15 +645,73 @@ __device__ __forceinline__ void tree_walk(const KindTables& k, const Ray& ray, b
   }
 }
 
-// kWalkQueue (pallas_bounce.py:_tree_pass_queue, per_row=False): walk with
-// the stage's seed t and only (node, cursor) live, push each hit leaf to
-// this thread's queue in preorder, then sweep the queue with the fresh t.
-// A tree of n nodes has at most (n + 1) / 2 leaves, which the wrapper's
-// capacity covers, so a push never overflows.
+// kWalkQueue's leaf queue of this thread: kQueueCap entries in the block's
+// dynamic shared memory after the staged Sobol tables, lane-major (entry j
+// of thread t at word j * kThreads + t), so that a warp's 32 lanes fall in
+// 32 banks whatever entry each of them is at.
+__device__ __forceinline__ int* bounded_queue(const TraceScene& s) {
+  return reinterpret_cast<int*>(dyn_smem() + s.q_smem_words) + threadIdx.x;
+}
+
+// kWalkQueue, replacing pallas_bounce.py:_tree_pass_queue with
+// per_row=False (:466).  Bound on this card: operations, the slab tests and
+// leaf rows that the cond walk needs on the same trees, at K5's rates
+// (utils/roofline.py, chip_smoke.py:walk_bound_counts); its packed nodes and
+// leaf rows stay in L1 and L2, and its queue in shared memory, so bytes do
+// not bound it.  chip_smoke.py phase 18 on an NVIDIA H100 80GB HBM3 at
+// 700 W, at the port's leaf span: the bounce kernel on rtw_final
+// 400x400@16 d8 takes 6.542 ms against a bound of 0.402 ms, the render
+// kernel with the texture LUT 6.485, on balls 400x400@32 d10 9.301 against
+// 0.961 (the first design: 7.983, 7.697 and 9.110 ms); ptxas gives the
+// render and regenerating bounce instantiations 72 registers, so 7 blocks
+// a SM where the first design's 64 give 8.  Its first design
+// (tree_walk_queue_first) walked with the stage's seed t, pushed every hit
+// leaf to a queue of (n_nodes + 1) / 2 ints a thread in device memory, each
+// push and read-back its own 32-byte sector, and read the unpacked nodes
+// (nine scattered words a step).
+// Design, K3's bounded queue walk (closest_hit.cu:tree_walk_bounded) over
+// packed nodes: (a) each step reads one packed 32-byte node (two 16-byte
+// loads) and culls with the thread's running best t; (b) a hit leaf goes to
+// this thread's kQueueCap entries of shared memory (bounded_queue) in
+// preorder; (c) when the queue holds kQueueCap leaves, or the walk has
+// ended, the thread sweeps them in order, and the walk goes on from the node
+// where it stopped under the t the sweep tightened.  The walk's loop holds
+// only slab tests, so a warp's threads stay together through it and meet
+// again in the sweeps.  Leaves are swept in the order the cond walk sweeps
+// them and only a strictly closer hit replaces the best, so the hits are the
+// cond walk's, bitwise: a leaf that a stale t admits gives no strictly
+// closer hit (a parent's box holds its children's and the slab test is
+// monotone in t).
 template <int KIND>
 __device__ __forceinline__ void tree_walk_queue(const KindTables& k, const TraceScene& s,
                                                 const Ray& ray, bool moving, float* best,
                                                 int* kind, int* idx) {
+  int* q = bounded_queue(s);
+  int node = 0;
+  do {
+    int sp = 0;
+    while (node < k.n_nodes && sp < kQueueCap) {
+      const PackedNode n = load_node(k.nodes, node);
+      const bool hit = slab_hit_packed(n, ray.o, ray.inv_d, ray.t_min, *best);
+      const int leaf = leaf_word_of(n);
+      if (hit && leaf >= 0) q[(sp++) * kThreads] = leaf >> 1;
+      node = (hit && leaf < 0) ? node + 1 : miss_of(n);
+    }
+    for (int j = 0; j < sp; ++j)
+      leaf_sweep<KIND>(k, q[j * kThreads], ray, moving, best, kind, idx);
+  } while (node < k.n_nodes);
+}
+
+// The first design of kWalkQueue, kept for measurement only
+// (kWalkQueueFirst, the kFlagFirstWalk variants): walk with the stage's
+// seed t and only (node, cursor) live, push each hit leaf to this thread's
+// queue in device memory in preorder, then sweep the queue with the fresh
+// t.  A tree of n nodes has at most (n + 1) / 2 leaves, which the wrapper's
+// capacity covers, so a push never overflows.
+template <int KIND>
+__device__ __forceinline__ void tree_walk_queue_first(const KindTables& k, const TraceScene& s,
+                                                      const Ray& ray, bool moving, float* best,
+                                                      int* kind, int* idx) {
   int* q = s.queue + blockIdx.x * blockDim.x + threadIdx.x;
   const int stride = s.q_stride;
   const float t_seed = *best;
@@ -690,7 +763,7 @@ __device__ __forceinline__ PackedNode walk_node(const KindTables& k, int node) {
 // 18 on an NVIDIA H100 80GB HBM3 at 700 W, leaf span 2: the render kernel
 // on balls 400x400@32 d10 takes 13.693 ms against a bound of 1.159 ms, the
 // bounce kernel on rtw_final 400x400@16 d8 12.971 against 0.485 (the first
-// design: 15.030 and 15.078 ms; the per-thread queue walk: 11.761 and
+// design: 15.030 and 15.078 ms; the queue walk's first design: 11.761 and
 // 9.331).  The lockstep walk's union of its lanes' paths is what it loses
 // to the queue walk: 1.6 to 3.5 times the cond walk's slab tests.  The
 // lanes of ``group`` walk one node pointer, descending when any of them
@@ -768,7 +841,7 @@ __device__ __forceinline__ void tree_walk_warpqueue_first(const KindTables& k,
   __syncwarp(group);
 }
 
-// The per-thread leaf queue of this thread (kWalkQueue, kWalkSpec,
+// The per-thread leaf queue of this thread in device memory (kWalkSpec,
 // kWalkUni), lane-major.
 __device__ __forceinline__ int* thread_queue(const TraceScene& s) {
   return s.queue + blockIdx.x * blockDim.x + threadIdx.x;
@@ -788,7 +861,7 @@ __device__ __forceinline__ int* thread_queue(const TraceScene& s) {
 // in flight while this step's test and branch resolve, and the loop carries
 // only (node, its miss link and leaf word, its hit, cursor).  A hit leaf is
 // pushed to the per-thread queue in preorder and the queue is swept after
-// the walk with the fresh t, as tree_walk_queue does: the walk loop has no
+// the walk with the fresh t, as tree_walk_queue_first does: the walk loop has no
 // sweep to wait behind, and the hits are bitwise the cond walk's (a stale t
 // only admits more leaves; only a strictly closer hit replaces the best).
 // Each step reads two packed 32-byte nodes (PackedNode).  The queue holds
@@ -826,7 +899,7 @@ __device__ __forceinline__ void tree_walk_spec(const KindTables& k, const TraceS
 // (chip_smoke.py phase 18, NVIDIA H100 80GB HBM3, 700 W) the bounce kernel
 // takes 10.220 ms against 0.490 at leaf span 2 and 8.397 against 0.390 at
 // the port's span 1 (the first design: 16.324 and 9.597 ms; the per-kind
-// queue walk at span 1: 7.792).  Design: one walk of the
+// queue walk's first design at span 1: 7.792).  Design: one walk of the
 // unified tree with the stage's seed t and only (node, cursors) live, over
 // packed 32-byte nodes (two 16-byte loads a step); the loop has no
 // leaf-kind branch and no sweep: a hit leaf is pushed to the per-thread
@@ -906,6 +979,8 @@ __device__ __forceinline__ void tree_stage(const KindTables& k, const TraceScene
                                            const Ray& ray, bool moving, unsigned group,
                                            float* best, int* kind, int* idx) {
   if (WALK == kWalkQueue) tree_walk_queue<KIND>(k, s, ray, moving, best, kind, idx);
+  else if (WALK == kWalkQueueFirst)
+    tree_walk_queue_first<KIND>(k, s, ray, moving, best, kind, idx);
   else if (WALK == kWalkRowQueue)
     tree_walk_warpqueue<KIND>(k, s, ray, moving, group, best, kind, idx);
   else if (WALK == kWalkRowQueueFirst)
@@ -980,11 +1055,11 @@ inline TraceScene read_trace_scene(const int* ints, const void* const* ptrs) {
   return s;
 }
 
-// Host side: the packed node tables (PackedNode) of a kWalkSpec, kWalkUni
-// or kWalkRowQueue launch from the host array the wrappers pack
+// Host side: the packed node tables (PackedNode) of a launch of any walk
+// but kWalkCond from the host array the wrappers pack
 // (ops/fused_render.py:node_args): the sphere tree's, the quad tree's and
 // the unified tree's (null where the scene has no such tree); ``nodes``
-// null for a launch of another walk, which reads none.
+// null for a kWalkCond launch, which reads none.
 inline void set_nodes(TraceScene* s, const void* const* nodes) {
   if (nodes == nullptr) return;
   s->sph.nodes = static_cast<const float4*>(nodes[0]);
@@ -993,19 +1068,23 @@ inline void set_nodes(TraceScene* s, const void* const* nodes) {
 }
 
 // Host side: checks a launch's walk against the scene and sets up its leaf
-// queue: ``queue`` holds ``queue_len`` ints, ``q_cap`` entries per thread
-// (kWalkQueue, kWalkSpec, kWalkUni) or per warp (kWalkRowQueue, in dynamic
-// shared memory after the ``smem_before`` bytes of staged tables).  A
-// kWalkRowQueue launch of the walk's current design (``first`` false)
-// stages, between those tables and the warp queues, the first nodes in
-// preorder of the sphere tree and then of the quad tree, as many as
-// kRowQueueNodeBytes holds (stage_nodes).  *smem is the block's dynamic
-// shared memory in all.  Returns a cudaError_t: invalid for an unknown
-// walk, a uni walk without the unified tree, a spec, uni or rowqueue walk
-// without its packed nodes, a queue walk whose capacity does not cover the
+// queue.  The walk's current design (``first`` false) or, under
+// kFlagFirstWalk, its first design.  kWalkQueue keeps kQueueCap entries per
+// thread (``q_cap`` must say so: the wrapper priced that queue) in the
+// block's dynamic shared memory after the ``smem_before`` bytes of staged
+// tables, where its scene has a tree; kWalkRowQueue ``q_cap`` entries per
+// warp there, after, for its current design, the first nodes in preorder
+// of the sphere tree and then of the quad tree, as many as
+// kRowQueueNodeBytes holds (stage_nodes); kWalkSpec, kWalkUni and
+// kWalkQueue's first design ``q_cap`` entries per thread in ``queue``
+// (``queue_len`` ints).  *smem is the block's dynamic shared memory in
+// all.  Returns a cudaError_t: invalid for an unknown walk, a uni walk
+// without the unified tree, a walk other than cond without its packed
+// nodes, a per-thread or per-warp queue whose capacity does not cover the
 // leaves of the trees it walks (a tree of n nodes has at most (n + 1) / 2;
-// the walks push without a check, and the uni walk fills its queue from
-// both ends), or a queue too short for the capacity.
+// those walks push without a check, and the uni walk fills its queue from
+// both ends), a device queue too short for the capacity, or a kWalkQueue
+// launch whose ``q_cap`` is not kQueueCap.
 inline int set_walk(TraceScene* s, int walk, int q_cap, int* queue, int queue_len, int blocks,
                     int threads, size_t smem_before, bool first, size_t* smem) {
   s->queue = queue;
@@ -1016,13 +1095,15 @@ inline int set_walk(TraceScene* s, int walk, int q_cap, int* queue, int queue_le
   if (walk == kWalkUni &&
       (s->u_nodes < 1 || s->unodes == nullptr || q_cap < (s->u_nodes + 1) / 2))
     return (int)cudaErrorInvalidValue;
+  const bool bounded = walk == kWalkQueue && !first;
   KindTables* kinds[2] = {&s->sph, &s->quad};
   int room = kRowQueueNodeBytes / (int)sizeof(PackedNode);
+  bool trees = false;
   for (KindTables* k : kinds) {
     if (walk == kWalkCond || walk == kWalkUni || k->mode != kTraceTree) continue;
-    const bool packed = walk == kWalkSpec || walk == kWalkRowQueue;
-    if (q_cap < (k->n_nodes + 1) / 2 || (packed && k->nodes == nullptr))
-      return (int)cudaErrorInvalidValue;
+    trees = true;
+    const bool covered = bounded ? q_cap == kQueueCap : q_cap >= (k->n_nodes + 1) / 2;
+    if (!covered || k->nodes == nullptr) return (int)cudaErrorInvalidValue;
     if (walk == kWalkRowQueue && !first) {
       k->n_staged = k->n_nodes < room ? k->n_nodes : room;
       k->staged_word = (int)(*smem / sizeof(uint32_t));
@@ -1030,12 +1111,13 @@ inline int set_walk(TraceScene* s, int walk, int q_cap, int* queue, int queue_le
       *smem += (size_t)k->n_staged * sizeof(PackedNode);
     }
   }
-  const bool per_thread = walk == kWalkQueue || walk == kWalkSpec || walk == kWalkUni;
+  const bool per_thread = (walk == kWalkQueue && first) || walk == kWalkSpec || walk == kWalkUni;
   if (per_thread && q_cap > 0 &&
       (queue == nullptr || (long long)queue_len < (long long)q_cap * s->q_stride))
     return (int)cudaErrorInvalidValue;
   s->q_smem_words = (int)(*smem / sizeof(uint32_t));
   if (walk == kWalkRowQueue) *smem += (size_t)(threads / kWarp) * q_cap * sizeof(int2);
+  if (bounded && trees) *smem += (size_t)kQueueCap * kThreads * sizeof(int);
   return 0;
 }
 

@@ -23,7 +23,7 @@ launch's Sobol tables cover its sample indices below the largest
 
 ``bounce_regen_variant`` launches the regenerating mode's measurement
 variants (the phase profile, the earlier Sobol bit-loop respawn, the first
-designs of the rowqueue, spec and uni walks), counted apart in
+designs of the queue, rowqueue, spec and uni walks), counted apart in
 ``bounce_regen_variant.launches``; no path of the renderer runs them.
 ``bounce_regen_occupancy`` launches nothing: it reports the blocks per SM
 and the shared memory of the instantiation a launch would take.
@@ -98,7 +98,7 @@ def _launch(scene, params, fstate, istate, lanes, regen, depth, flags=0, occupan
     sobol = sobol_table(device, sobol_log2_scale(width, height))
     px, py, limit = (None, None, None) if lanes is None else (t.data_ptr() for t in lanes)
     smem = sobol_smem_bytes(sampler, sample_end) if regen and not flags & FLAG_LOOP_SOBOL else 0
-    walk, code, cap, queue = walk_args(scene, n, smem)
+    walk, code, cap, queue = walk_args(scene, n, smem, first=bool(flags & FLAG_FIRST_WALK))
     check_flags(walk, flags)
     nodes, _nodes = node_args(scene, walk)
     prof = (torch.empty((PROF_COLS, n), dtype=torch.int64, device=device)

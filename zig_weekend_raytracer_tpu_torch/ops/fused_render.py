@@ -30,8 +30,8 @@ renders: up to the largest window end ``s1``, which may pass ``spp``
 
 ``render_fused_variant`` launches the kernel's measurement variants
 (``csrc/render_kernels.cuh``): the per-lane phase profile and the earlier
-Sobol bit-loop respawn, and the first designs of the rowqueue, spec and
-uni walks.  No path of the renderer launches them, and
+Sobol bit-loop respawn, and the first designs of the queue, rowqueue, spec
+and uni walks.  No path of the renderer launches them, and
 ``render_fused_variant.launches`` counts them apart.
 ``render_fused_occupancy`` launches nothing: it reports the blocks per SM
 and the shared memory of the instantiation a launch would take.
@@ -39,10 +39,12 @@ and the shared memory of the instantiation a launch would take.
 Each launch of the render and bounce kernels takes the tree walk of
 ``ops/trace.py:walk_of`` as it reads then (the unified tree when the scene
 has one, else ``ZWRT_TRAV``) and the instantiation compiled for that walk;
-``walk_args`` allocates the walk's leaf queue, and ``node_args`` gives the
-rowqueue, spec and uni walks their packed node tables (rowqueue stages
-the first ``ROWQUEUE_NODE_BYTES`` of them in each block's shared memory).  The walk is never cached
-with the scene, so one process can launch every walk.
+``walk_args`` sizes the walk's leaf queue (in the block's shared memory
+for queue and rowqueue, in device memory for spec, uni and the queue
+walk's first design) and ``node_args`` gives every walk but cond its
+packed node tables (rowqueue stages the first ``ROWQUEUE_NODE_BYTES`` of
+them in each block's shared memory).  The walk is never cached with the
+scene, so one process can launch every walk.
 """
 
 from __future__ import annotations
@@ -62,7 +64,7 @@ from ..sampling.sampler import SamplerKind, sobol_log2_scale
 from ..scene import PRIM_QUAD, PRIM_SPHERE, CompiledScene
 from ..textures import image_table
 from . import _build
-from .trace import WALKS, WARP, walk_of
+from .trace import QUEUE_CAP, WALKS, WARP, walk_of
 
 # Must match csrc/zwrt_device.cuh and csrc/render_kernels.cuh.
 LIGHT_FLOATS = 17
@@ -73,9 +75,12 @@ FLAG_PROF, FLAG_LOOP_SOBOL, FLAG_ESTIMATOR, FLAG_FIRST_WALK = 1, 2, 4, 8  # Drai
 VARIANT_WALKS = ("cond", "queue")     # the walks the profile variants are built for
 # the walks redesigned for Hopper: they read packed nodes, and their first
 # designs are kept as measurement variants
-FIRST_DESIGN_WALKS = ("rowqueue", "spec", "uni")
-THREADS = 128           # threads per block of every launcher
+FIRST_DESIGN_WALKS = ("queue", "rowqueue", "spec", "uni")
+THREADS = 128           # threads per block of every launcher (zwrt_device.cuh:kThreads)
 SMEM_LIMIT = 232448     # dynamic shared memory a block can have (227 KB)
+# shared memory of a block that the queue walk's leaf queues take: QUEUE_CAP
+# int32 entries for each thread (zwrt_device.cuh:bounded_queue)
+QUEUE_SMEM_BYTES = QUEUE_CAP * THREADS * 4
 NODE_BYTES = 32         # a packed node (zwrt_device.cuh:PackedNode)
 # shared memory of a block that the rowqueue walk fills with packed nodes
 # (zwrt_device.cuh:kRowQueueNodeBytes, which says how it was sized)
@@ -244,11 +249,13 @@ def trace_args(scene: CompiledScene):
 
 
 def queue_capacity(scene: CompiledScene, walk: str) -> int:
-    """Leaf-queue entries of the queue walks, per thread (``queue``,
-    ``spec``, ``uni``) or per warp (``rowqueue``): a skip-link tree of n
-    nodes has at most (n + 1) // 2 leaves, plus one as in
-    pallas_bounce.py:_queue_cap, over the kinds that have trees, or of the
-    unified tree under ``uni``; 0 for ``cond``."""
+    """Leaf-queue entries that hold every leaf a walk may queue, per thread
+    (the ``queue`` walk's first design, ``spec``, ``uni``) or per warp
+    (``rowqueue``): a skip-link tree of n nodes has at most (n + 1) // 2
+    leaves, plus one as in pallas_bounce.py:_queue_cap, over the kinds that
+    have trees, or of the unified tree under ``uni``; 0 for ``cond``.  The
+    ``queue`` walk's current design holds ``QUEUE_CAP`` instead
+    (``walk_args``)."""
     if walk == "uni":
         return (scene.uni_tree_box.shape[0] + 1) // 2 + 1
     if walk not in ("queue", "rowqueue", "spec"):
@@ -280,10 +287,10 @@ def node_args(scene: CompiledScene, walk: str):
     """(ptrs, tensors) of the packed node tables a launch of ``walk`` reads:
     ``ptrs`` (uint64) the sphere tree's, the quad tree's and the unified
     tree's (``pack_nodes``; 0 where the scene has no such tree); None and
-    () for a walk outside ``FIRST_DESIGN_WALKS``, which reads none.  Built
-    the first time a launch takes rowqueue, spec or uni and cached per
-    scene beside ``trace_args``, so default renders neither build nor carry
-    them."""
+    () for cond, the one walk outside ``FIRST_DESIGN_WALKS``, which reads
+    none.  Built the first time a launch takes another walk (the default
+    queue walk's first launch) and cached per scene beside
+    ``trace_args``."""
     if walk not in FIRST_DESIGN_WALKS:
         return None, ()
     cached = _NODE_CACHE.get(scene)
@@ -310,19 +317,30 @@ def rowqueue_staged_nodes(scene: CompiledScene) -> dict:
     return out
 
 
-def walk_args(scene: CompiledScene, n: int, smem_before: int = 0):
+def walk_args(scene: CompiledScene, n: int, smem_before: int = 0, first: bool = False):
     """(walk, walk code, queue capacity, queue tensor or None) of a launch
-    over ``n`` lanes, the walk as ``walk_of`` reads it now.  ``queue``,
-    ``spec`` and ``uni`` keep a lane-major int32 queue per thread of the
-    launch; ``rowqueue`` keeps one per warp in shared memory, after
-    ``smem_before`` bytes of staged tables and its staged nodes
-    (``rowqueue_staged_nodes``).  Raises when the queue does not fit: past
-    2**31 - 1 entries (the kernel indexes it with 32-bit ints), or past a
-    block's 227 KB of shared memory."""
+    over ``n`` lanes, the walk as ``walk_of`` reads it now; ``first``: of
+    its first-design variant.  ``queue`` keeps ``QUEUE_CAP`` entries per
+    thread in shared memory after ``smem_before`` bytes of staged tables,
+    where the scene has a tree, and no device queue; ``rowqueue`` one queue
+    per warp in shared memory, after those tables and its staged nodes
+    (``rowqueue_staged_nodes``); ``spec``, ``uni`` and the ``queue`` walk's
+    first design a lane-major int32 queue per thread of the launch in device
+    memory.  Raises when the queue does not fit: past 2**31 - 1 entries (the
+    kernel indexes it with 32-bit ints), or past a block's 227 KB of shared
+    memory."""
     walk = walk_of(scene)
-    cap = queue_capacity(scene, walk)
+    bounded = walk == "queue" and not first
+    cap = QUEUE_CAP if bounded else queue_capacity(scene, walk)
     queue = None
-    if walk in ("queue", "spec", "uni") and cap:
+    trees = scene.has_sph_tree or scene.has_quad_tree
+    if bounded and trees and smem_before + QUEUE_SMEM_BYTES > SMEM_LIMIT:
+        raise ValueError(
+            f"the queue walk needs {QUEUE_SMEM_BYTES} bytes of shared memory per block "
+            f"({QUEUE_CAP} leaf entries per thread) after {smem_before} bytes of tables, "
+            f"past the card's {SMEM_LIMIT}"
+        )
+    if walk in ("queue", "spec", "uni") and cap and not bounded:
         threads = -(-n // THREADS) * THREADS
         if cap * threads > 2**31 - 1:
             raise ValueError(
@@ -573,7 +591,7 @@ def _launch(scene, px, py, s0, s1, seed, t_min, flags, want_work, *, camera_cons
     shade_rows = scene.shade_rows.contiguous()
     sobol = sobol_table(device, sobol_log2_scale(width, height))
     smem = 0 if flags & FLAG_LOOP_SOBOL else sobol_smem_bytes(sampler, sample_end)
-    walk, code, cap, queue = walk_args(scene, n, smem)
+    walk, code, cap, queue = walk_args(scene, n, smem, first=bool(flags & FLAG_FIRST_WALK))
     check_flags(walk, flags)
     nodes, _nodes = node_args(scene, walk)
     rad = torch.empty((3, n), dtype=real, device=device)

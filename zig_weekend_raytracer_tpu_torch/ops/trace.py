@@ -26,8 +26,12 @@ one walk of the kernels' shared trace (``csrc/zwrt_device.cuh``):
 
   * ``cond`` (the default): each lane follows its own node pointer and
     sweeps a hit leaf at once, so its running t culls the rest of the walk;
-  * ``queue``: each lane walks with the stage's seed t, queues its hit
-    leaves in preorder, then sweeps them with the fresh t;
+  * ``queue``: each lane culls with its running t and queues the leaves
+    it hits in preorder, at most ``QUEUE_CAP`` of them; when its queue is
+    full or its walk has ended it sweeps them in order, and the rest of
+    its walk culls with the t the sweep tightened.  Inside
+    ``queue_first_design()`` it takes its first design's form: the whole
+    walk with the stage's seed t, then every queued leaf swept;
   * ``rowqueue``: lanes in groups of 32 consecutive indices walk one node
     pointer with the seed t, descending when any walking lane of the group
     hits; a hit leaf is queued with the group's mask of lanes that hit it
@@ -72,6 +76,9 @@ NO_HIT = -1
 # Tree walks, as the kernels' trace number them (zwrt_device.cuh:Walk).
 WALKS = ("cond", "queue", "rowqueue", "spec", "uni")
 WARP = 32  # lanes that walk together in ``rowqueue``
+# leaf entries a lane of the ``queue`` walk holds before it sweeps them
+# (zwrt_device.cuh:kQueueCap)
+QUEUE_CAP = 8
 # workcount keys of one primitive test per kind
 _TEST = {PRIM_SPHERE: "sphere_test", PRIM_QUAD: "quad_test"}
 # Leaf sweeps handle at most this many (lane, slot) pairs at once.
@@ -191,22 +198,35 @@ def _leaf_sweep(code, attrs, span, group0, o: V3, d: V3, tm, t_min):
 def _sweep_into(code, attrs, span, lanes, group0, o: V3, d: V3, tm, t_min, best: Hit):
     """Sweep leaf ``group0`` (k,) for ``lanes`` (k,), each lane at most once,
     and keep a strictly closer hit in ``best`` (in place)."""
+    _sweep_entries(code, attrs, span, [(lanes, group0)], o, d, tm, t_min, best)
+
+
+def _sweep_entries(code, attrs, span, entries, o: V3, d: V3, tm, t_min, best: Hit):
+    """``_sweep_into`` of each (lanes, group0) of ``entries`` in turn.  A
+    leaf's hit does not depend on the running t, so every entry's leaves
+    are swept in one batch, and each entry then keeps its strictly closer
+    hits in order."""
     t_best, kind, idx = best
+    every = torch.cat([lanes for lanes, _ in entries])
     if workcount.enabled():
-        workcount.add("leaf_visit", lanes.numel())
-        workcount.add(_TEST[code], lanes.numel() * span * 8)
-    if lanes.numel() == 0:
+        workcount.add("leaf_visit", every.numel())
+        workcount.add(_TEST[code], every.numel() * span * 8)
+    if every.numel() == 0:
         return
-    t_row, i_row = _leaf_sweep(
-        code, attrs, span, group0,
-        V3(o.x[lanes], o.y[lanes], o.z[lanes]), V3(d.x[lanes], d.y[lanes], d.z[lanes]),
-        None if tm is None else tm[lanes],
-        t_min[lanes] if torch.is_tensor(t_min) else t_min,
+    t_rows, i_rows = _leaf_sweep(
+        code, attrs, span, torch.cat([group0 for _, group0 in entries]),
+        V3(o.x[every], o.y[every], o.z[every]), V3(d.x[every], d.y[every], d.z[every]),
+        None if tm is None else tm[every],
+        t_min[every] if torch.is_tensor(t_min) else t_min,
     )
-    better = t_row < t_best[lanes]
-    t_best[lanes] = torch.where(better, t_row, t_best[lanes])
-    kind[lanes] = torch.where(better, code, kind[lanes])
-    idx[lanes] = torch.where(better, i_row.to(torch.int32), idx[lanes])
+    at = 0
+    for lanes, _ in entries:
+        t_row, i_row = t_rows[at:at + lanes.numel()], i_rows[at:at + lanes.numel()]
+        at += lanes.numel()
+        better = t_row < t_best[lanes]
+        t_best[lanes] = torch.where(better, t_row, t_best[lanes])
+        kind[lanes] = torch.where(better, code, kind[lanes])
+        idx[lanes] = torch.where(better, i_row.to(torch.int32), idx[lanes])
 
 
 def _slab(box, nd, o: V3, inv_d: V3, t_min, t, lanes):
@@ -297,6 +317,43 @@ def _walk_queue(box, link, o, d, t_min, walking, t_seed, per_warp):
     return queue
 
 
+def _walk_bounded(box, link, o, d, t_min, walking, t_best, sweep):
+    """The ``queue`` walk: each lane culls with its running t in ``t_best``
+    (N,) and pushes its hit leaves in preorder to a queue of ``QUEUE_CAP``
+    entries (read at each call); when a lane's queue is full or its walk has
+    ended, ``sweep(entries)`` gets the queue, a list of (lanes, nodes) in
+    queue order with each lane at most once in an entry, and the lane's walk
+    goes on from where it stopped under the t the sweep tightened (in
+    place in ``t_best``)."""
+    cap = QUEUE_CAP
+    n_nodes = box.shape[0]
+    inv_d = V3(1.0 / d.x, 1.0 / d.y, 1.0 / d.z)
+    node = torch.zeros_like(walking, dtype=torch.int64)
+    queue = torch.zeros((walking.shape[0], cap), dtype=torch.int64, device=walking.device)
+    size = torch.zeros_like(node)
+    walking = walking.clone()
+    while True:
+        lanes = torch.nonzero(walking).squeeze(1)
+        if lanes.numel():
+            nd = node[lanes]
+            hit = _slab(box, nd, o, inv_d, t_min, t_best[lanes], lanes)
+            leaf = link[nd, 1]
+            push = hit & (leaf >= 0)
+            pushed = lanes[push]
+            queue[pushed, size[pushed]] = nd[push]
+            size[pushed] += 1
+            nxt = torch.where(hit & (leaf < 0), nd + 1, link[nd, 0].to(torch.int64))
+            node[lanes] = nxt
+            walking[lanes] = nxt < n_nodes
+        full = torch.nonzero((size == cap) | (~walking & (size > 0))).squeeze(1)
+        if full.numel():
+            held = size[full]
+            sweep([(full[held > j], queue[full[held > j], j]) for j in range(int(held.max()))])
+            size[full] = 0
+        elif lanes.numel() == 0:
+            return
+
+
 def _tree_stage(code, box, link, attrs, span, o: V3, d: V3, tm, t_min, walking, best: Hit,
                 walk) -> Hit:
     """One kind's group tree, walked as ``walk`` says (module doc)."""
@@ -305,6 +362,11 @@ def _tree_stage(code, box, link, attrs, span, o: V3, d: V3, tm, t_min, walking, 
                                           t_min, best)
     if walk == "cond":
         _walk_cond(box, link, o, d, t_min, walking, best.t, sweep)
+        return best
+    if walk == "queue" and not _queue_first:
+        _walk_bounded(box, link, o, d, t_min, walking, best.t, lambda entries: _sweep_entries(
+            code, attrs, span, [(lanes, link[nd, 1]) for lanes, nd in entries], o, d, tm,
+            t_min, best))
         return best
     if walk == "spec":
         queue = []
@@ -321,6 +383,25 @@ def _tree_stage(code, box, link, attrs, span, o: V3, d: V3, tm, t_min, walking, 
             lanes, nd = lanes[again], nd[again]
         sweep(lanes, nd)
     return best
+
+
+_queue_first = False
+
+
+@contextlib.contextmanager
+def queue_first_design():
+    """Inside the block the plain ``queue`` walk takes its first design's
+    form (the kernels' measurement variant ``kWalkQueueFirst``): each lane
+    walks the whole tree with the stage's seed t, queueing every hit leaf in
+    preorder, then sweeps its queue with the fresh t.  Its hits are the
+    bounded walk's; its work counts are that design's: at least the bounded
+    walk's, and equal to them where ``QUEUE_CAP`` holds every leaf."""
+    global _queue_first
+    prev, _queue_first = _queue_first, True
+    try:
+        yield
+    finally:
+        _queue_first = prev
 
 
 _uni_cond = False
