@@ -191,10 +191,13 @@ Phases (any failure exits nonzero):
      from the cond walk's counts and the walk's own beside it, registers
      and spills of both instantiations, their blocks per SM and shared
      memory a block at the plan; and the render kernel on the tree-less
-     cornell and emissive at their main paths' sorted plans under the
-     default walk's instantiation, its first design's and the cond walk's
-     in 5 alternating rounds, bitwise, with their blocks per SM (what the
-     walk's registers cost a kernel that walks no tree);
+     cornell and emissive at their main paths' sorted plans as the default
+     walk and the cond walk launch it (both the tree-less instantiation,
+     kWalkNoTree) and as the queue walk's first design, in 5 alternating
+     rounds, bitwise, with their registers and blocks per SM (what a
+     walk's registers would cost a kernel that walks no tree; no launch
+     past MAX_BLOCKS_PER_SM, 8: the launchers raise the tree-less
+     instantiation's shared memory to hold it there);
  19. the respawn under every sampler: the render kernel on the
      all-materials scene (a moving sphere, an isotropic medium) and the
      bounce kernel's regenerating mode on it with an image quad, at 32x32,
@@ -485,14 +488,19 @@ NESTED_SPP, NESTED_PARITY_W, NESTED_PARITY_SPP = 64, 64, 8
 NESTED_HELD_BOUNCE = 3
 FIXED_COST_SPP = 64
 JPEG_MIN_PSNR = 30.0
-# registers and spill bytes of the default walk's instantiations and of
-# the cond walk's, as this build gives them (the factored Sobol respawn and
-# the device light and image tables; the queue walk's first design: 64/28,
-# 64/28, 64/0, 64/56, at 8 blocks per SM where the current design's 72
-# registers give 7), and of the closest-hit kernel and its first design
+# registers and spill bytes of the default walk's instantiations, of the
+# tree-less ones that every walk but uni launches on a scene without trees,
+# and of the cond walk's, as this build gives them (the factored Sobol
+# respawn and the device light and image tables; the queue walk's first
+# design: 64/28, 64/28, 64/0, 64/56, at 8 blocks per SM where the current
+# design's 72 registers give 7; the tree-less render kernel's 56 would give
+# 9, which the launchers cap at 8), and of the closest-hit kernel and its
+# first design
 DEFAULT_RESOURCES = {
     "fused_render_kernel<false, queue>": (72, 0), "fused_render_kernel<true, queue>": (72, 0),
     "bounce_kernel<false, queue>": (68, 0), "bounce_kernel<true, queue>": (72, 8),
+    "fused_render_kernel<false, no tree>": (56, 16), "fused_render_kernel<true, no tree>": (62, 0),
+    "bounce_kernel<false, no tree>": (48, 0), "bounce_kernel<true, no tree>": (64, 0),
     "fused_render_kernel<false, cond>": (64, 52), "fused_render_kernel<true, cond>": (64, 52),
     "bounce_kernel<false, cond>": (64, 0), "bounce_kernel<true, cond>": (64, 80),
     "closest_hit_kernel": (56, 0), "closest_hit_flat_kernel": (56, 0),
@@ -1005,7 +1013,7 @@ def kernel_resources(build_log: str) -> dict:
     """{kernel instantiation: {"registers", "spill_bytes"}} from ptxas -v:
     fused_render_kernel<IMAGES, walk> (without and with the image fetch)
     and bounce_kernel<REGEN, walk> (one-bounce and regenerating modes) for
-    each tree walk, the first designs of the queue, rowqueue, spec and uni
+    each tree walk and "no tree" (kWalkNoTree), the first designs of the queue, rowqueue, spec and uni
     walks (<IMAGES, walk, first design>), closest_hit_kernel and
     closest_hit_flat_kernel (its first design), and chain_kernel<op,
     chains, unroll>."""
@@ -1017,8 +1025,8 @@ def kernel_resources(build_log: str) -> dict:
     flag_names = {1: "prof", 2: "loop_sobol", 3: "prof, loop_sobol", 4: "estimator",
                   8: "first design"}
     # zwrt_device.cuh:Walk, then kWalkSpecFirst, kWalkUniFirst,
-    # kWalkRowQueueFirst and kWalkQueueFirst
-    walk_names = WALKS + ("spec", "uni", "rowqueue", "queue")
+    # kWalkRowQueueFirst and kWalkQueueFirst, then kWalkNoTree
+    walk_names = WALKS + ("spec", "uni", "rowqueue", "queue", "no tree")
 
     def name_of(mangled):
         m = re.search(r"(fused_render_kernel|bounce_kernel)ILb([01])ELi(\d)ELi(\d)E", mangled)
@@ -1875,8 +1883,11 @@ def plain_queue_hits(zt, torch, sc) -> list:
     walk's on the card, on the 64x64 camera rays of balls and rtw_final at
     the port's span, and the work each walk counts: the queue walk's slab
     tests and leaf visits at least the cond walk's and at most its first
-    design's (ops/trace.py:queue_first_design)."""
+    design's (the plain queue walk at the first design's device-queue
+    capacity, ops/fused_render.py:queue_capacity, never sweeps before its
+    walk's end)."""
     from zig_weekend_raytracer_tpu_torch.ops import trace as ttrace
+    from zig_weekend_raytracer_tpu_torch.ops.fused_render import queue_capacity
     from zig_weekend_raytracer_tpu_torch.utils import workcount
 
     out = []
@@ -1884,12 +1895,13 @@ def plain_queue_hits(zt, torch, sc) -> list:
         scene = sc[key]
         rays = camera_rays(zt, torch, scene, 64, 64, 1)
         got = {}
+        cap = {"cond": ttrace.QUEUE_CAP, DEFAULT_WALK: ttrace.QUEUE_CAP,
+               "first design": queue_capacity(scene.compiled, DEFAULT_WALK)}
         for form in ("cond", DEFAULT_WALK, "first design"):
-            first = (ttrace.queue_first_design() if form == "first design"
-                     else contextlib.nullcontext())
-            with workcount.counting() as c, first:
+            with workcount.counting() as c:
                 hit = ttrace.closest_hit(scene.compiled, *rays, zt.dtypes.T_MIN,
-                                         walk="cond" if form == "cond" else DEFAULT_WALK)
+                                         walk="cond" if form == "cond" else DEFAULT_WALK,
+                                         queue_cap=cap[form])
             got[form] = (hit, {k: c[k] for k in ("slab_test", "leaf_visit")})
         check = compare_hits(f"plain {DEFAULT_WALK} walk vs plain cond walk, {scene.name} "
                              "64x64 camera rays", got[DEFAULT_WALK][0], got["cond"][0])
@@ -2257,14 +2269,16 @@ def phase_walk_designs(zt, fused, integrator, tb, torch, sc, wpar, paths, render
     return out
 
 
-def phase_brute_walks(zt, fused, torch, cases, card) -> dict:
+def phase_brute_walks(zt, fused, torch, cases, resources, card) -> dict:
     """Phase 18's tree-less scenes: the render kernel at the sorted plans of
-    cornell's and emissive's main paths (phases 3 and 15) under the default
-    walk's instantiation, its first design's and the cond walk's, in
-    DESIGN_PAIRS alternating rounds, the outputs bitwise the default's, and
-    each instantiation's blocks per SM and shared memory a block.  No tree
-    is walked there, so they differ only in what the walk's code costs the
-    whole kernel: its registers and spills."""
+    cornell's and emissive's main paths (phases 3 and 15) as the default
+    walk launches it and as the cond walk does (both the tree-less
+    instantiation, kWalkNoTree: render_kernels.cuh:dispatch_flags_walk),
+    and as the queue walk's first design (kFlagFirstWalk, whose variant
+    keeps its walk's code), in DESIGN_PAIRS alternating rounds, the outputs
+    bitwise the default's, and each one's registers, spills, blocks per SM
+    and shared memory a block.  No tree is walked there, so they differ
+    only in what a walk's code costs the whole kernel."""
     from zig_weekend_raytracer_tpu_torch.render.camera import camera_consts
 
     out = {}
@@ -2280,6 +2294,9 @@ def phase_brute_walks(zt, fused, torch, cases, card) -> dict:
                                                    **kw)[:2]
         runs = {"new": (DEFAULT_WALK, default), "first design": (DEFAULT_WALK, first),
                 "cond": ("cond", default)}
+        res = {"new": "fused_render_kernel<false, no tree>",
+               "first design": f"fused_render_kernel<false, {DEFAULT_WALK}, first design>",
+               "cond": "fused_render_kernel<false, no tree>"}
         occ = {}
         for label, walk, first_walk in (("new", DEFAULT_WALK, False),
                                         ("first design", DEFAULT_WALK, True),
@@ -2287,13 +2304,20 @@ def phase_brute_walks(zt, fused, torch, cases, card) -> dict:
             with trav(walk):
                 blocks, smem = fused.render_fused_occupancy(cs, *plan, 0, t_min,
                                                             first_walk=first_walk, **kw)
-            occ[label] = {"blocks_per_sm": blocks, "smem_bytes": smem}
-        tag = f"K1 {name} (no tree), the {DEFAULT_WALK} walk's instantiation"
+            occ[label] = {"blocks_per_sm": blocks, "smem_bytes": smem,
+                          "registers": resources[res[label]]["registers"],
+                          "spill_bytes": resources[res[label]]["spill_bytes"]}
+        tag = f"K1 {name} (no tree), the {DEFAULT_WALK} walk's launch"
+        over = {k: v["blocks_per_sm"] for k, v in occ.items()
+                if v["blocks_per_sm"] > fused.MAX_BLOCKS_PER_SM}
+        if over:
+            raise AssertionError(f"{tag}: more than {fused.MAX_BLOCKS_PER_SM} blocks a SM: {over}")
         rounds = design_rounds(torch, runs, tag, card)
         bitwise(rounds["checks"], f"{tag}: the first design's and the cond walk's outputs "
                                   "against the new design's")
-        log(f"{tag}: blocks per SM and shared memory a block " + "; ".join(
-            f"{k} {v['blocks_per_sm']}, {v['smem_bytes']} bytes" for k, v in occ.items()))
+        log(f"{tag}: registers/spill bytes, blocks per SM and shared memory a block "
+            + "; ".join(f"{k} {v['registers']}/{v['spill_bytes']}, {v['blocks_per_sm']}, "
+                        f"{v['smem_bytes']} bytes" for k, v in occ.items()))
         out[name] = {**rounds, "occupancy": occ}
     return out
 
@@ -3613,11 +3637,11 @@ def main() -> int:
     for name, res in resources.items():
         log(f"  {name}: {res['registers']} registers, {res['spill_bytes']} bytes spill stores")
     n_chain = 5 * 2 * 4  # ops x chain counts x unrolls
-    # per kernel: 2 modes x 5 walks, and 3 variants for 2 walks (K1 in both
-    # modes, K2's regenerating mode), the first designs of 4 walks (K1 in
-    # both modes, K2's regenerating mode), and the estimator instantiations
-    # (2 modes x 5 walks per kernel)
-    n_render = 2 * 5 + 2 * 2 * 3 + 2 * 5 + 2 * 3 + 2 * 4 + 4 + 2 * (2 * 5)
+    # per kernel: 2 modes x 6 walks (5 and the tree-less kWalkNoTree), and 3
+    # variants for 2 walks (K1 in both modes, K2's regenerating mode), the
+    # first designs of 4 walks (K1 in both modes, K2's regenerating mode),
+    # and the estimator instantiations (2 modes x 6 walks per kernel)
+    n_render = 2 * 6 + 2 * 2 * 3 + 2 * 6 + 2 * 3 + 2 * 4 + 4 + 2 * (2 * 6)
     # closest_hit_kernel and its first design
     if len(resources) != n_render + 2 + n_chain or any(
             r["registers"] is None for r in resources.values()):
@@ -4080,7 +4104,7 @@ def main() -> int:
                                  resources, card)
     brute_walks = phase_brute_walks(zt, fused, torch, (
         ("cornell", cornell, renderer, SPP), ("emissive", emissive, e_renderer, EMISSIVE_SPP)),
-        card)
+        resources, card)
 
     # ---- 19. the three samplers and nine lights ----
     phase("19")
@@ -4242,7 +4266,7 @@ def main() -> int:
 
     record = {"kernels": [
         entry("fused_render_kernel (brute)", KERNEL_SOURCE, KERNEL_REPLACES,
-              f"fused_render_kernel<false, {DEFAULT_WALK}>",
+              "fused_render_kernel<false, no tree>",
               launches + e_k1 + sum(sh_launches["K1 brute"].values())
               + sum(tl["K1 brute"].values()),
               {"cornell": launches, "emissive": e_k1, **sh_launches["K1 brute"],
@@ -4314,7 +4338,7 @@ def main() -> int:
               note="ms: the kernel alone on the balls probe's 160,000 rays (phase 5); every "
                    "ray set's rounds of the kernel and its first design in ray_sets"),
         entry("fused_render_kernel (estimator: Russian roulette, indirect clamp)",
-              EST_SOURCE, KERNEL_REPLACES, f"fused_render_kernel<false, {DEFAULT_WALK}, estimator>",
+              EST_SOURCE, KERNEL_REPLACES, "fused_render_kernel<false, no tree, estimator>",
               est_launches + sum(tl["K1 estimator"].values()),
               {"cornell russian_roulette=3": est_launches, **tl["K1 estimator"]}, est_render,
               est_times["ms"], est_cornell["plain_ms"], est_bound, render_tol,
@@ -4324,7 +4348,7 @@ def main() -> int:
               note="ms: the estimator instantiation (rr3) at the rr3 render's sorted plan, "
                    "cornell 400x400@1024 d10; plain_ms: cornell rr3 at 32x32, 8 spp"),
         entry("bounce_kernel (one bounce, estimator)", EST_BOUNCE_SOURCE, BOUNCE_REPLACES,
-              f"bounce_kernel<false, {DEFAULT_WALK}, estimator>", 0, {}, est_one,
+              "bounce_kernel<false, no tree, estimator>", 0, {}, est_one,
               est_one[0]["ms"], est_one[0]["plain_ms"], bound_of(est_one[0]), bounce_tol,
               note="parity only: no main path runs the bounce kernel with the estimator "
                    "options (atlas scenes gate them off); cornell camera rays, rr3+clamp10"),

@@ -179,8 +179,9 @@ def test_walk_work_counts(big_scene):
     lane's running t, so it sweeps the cond walk's leaves."""
     per_kind, uni, rays = big_scene
     c = {w: _trace(per_kind, rays, w)[1] for w in ("cond", "queue", "rowqueue", "spec")}
-    with ttrace.queue_first_design():
-        first = _trace(per_kind, rays, "queue")[1]
+    with workcount.counting() as first:
+        ttrace.closest_hit(per_kind, *rays, zt.dtypes.T_MIN, walk="queue",
+                           queue_cap=fused_render.queue_capacity(per_kind, "queue"))
     for key in ("slab_test", "leaf_visit"):
         assert c["cond"][key] <= c["queue"][key] <= first[key], key
     n = rays[2].shape[0]

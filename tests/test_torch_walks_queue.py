@@ -11,18 +11,21 @@ version on the CPU.
      every other lane dead.  Tolerance: none, bitwise.
   2. Its work counts (``slab_test``, ``leaf_visit``) are bracketed: at a
      capacity of 1 they are the cond walk's exactly (each hit leaf is swept
-     before the next node test), at a capacity of the tree's leaves or more
-     its first design's exactly (``queue_first_design``: the whole walk with
-     the seed t), and at ``QUEUE_CAP`` between the two.  Exact counts.
-  3. ``QUEUE_CAP`` and the launchers' thread count equal the header's
-     constants, read out of ``csrc/zwrt_device.cuh``.
+     before the next node test), at a capacity of the tree's leaves its
+     first design's exactly (the whole walk with the seed t, as at the
+     first design's device-queue capacity, ``queue_capacity``), and at
+     ``QUEUE_CAP`` between the two.  Exact counts.
+  3. ``QUEUE_CAP``, the launchers' thread count and their blocks a SM at
+     most equal the headers' constants, read out of ``csrc/``.
   4. ``walk_args`` gives the queue walk no device queue, only its
      ``QUEUE_SMEM_BYTES`` of shared memory a block (refused past
      ``SMEM_LIMIT``), and gives its first-design variant the device queue;
      ``check_flags`` accepts the first-design flag for queue; ``node_args``
      builds the packed node tables for queue.
-  5. ``tools/queue_cap_sweep.py`` finds in the header what it rewrites and
-     reads ptxas's registers, and exits 2 without a card.
+  5. The walk codes a launch passes are the header's, and on a scene
+     without trees every walk but uni traces the cond walk's brute stages
+     (hits and counts bitwise), which is what lets the kernels launch one
+     tree-less instantiation (``kWalkNoTree``) for all of them.
 
 The CUDA walk and its first design are held against this plain version
 on the card by chip_smoke.py (phases 17 and 18).
@@ -75,28 +78,22 @@ def _leaves(cs):
 
 
 def _trace(cases, traced, name, span, lanes, form):
-    """``form``: "cond", "first" (the queue walk's first design), or a
-    queue capacity ("1", "cap" for QUEUE_CAP, "leaves" for the tree's
-    leaves) for the bounded queue walk."""
+    """``form``: "cond", or a capacity of the queue walk: "1", "cap" for
+    QUEUE_CAP, "leaves" for the tree's leaves, "first" for its first
+    design's device queue ((n_nodes + 1) // 2 + 1 of the larger tree)."""
     key = (name, span, lanes, form)
     if key not in traced:
         cs, rays = cases[(name, span)]
         n = rays[2].shape[0]
         active = None if lanes == "all" else torch.arange(n) % 2 == 1
-        cap = {"1": 1, "cap": ttrace.QUEUE_CAP, "leaves": _leaves(cs)}.get(form)
-        saved = ttrace.QUEUE_CAP
-        ttrace.QUEUE_CAP = cap or saved
-        try:
-            with workcount.counting() as c:
-                walk = "cond" if form == "cond" else "queue"
-                if form == "first":
-                    with ttrace.queue_first_design():
-                        hit = ttrace.closest_hit(cs, *rays, zt.dtypes.T_MIN, active=active,
-                                                 walk=walk)
-                else:
-                    hit = ttrace.closest_hit(cs, *rays, zt.dtypes.T_MIN, active=active, walk=walk)
-        finally:
-            ttrace.QUEUE_CAP = saved
+        cap = {"1": 1, "cap": ttrace.QUEUE_CAP, "leaves": _leaves(cs),
+               "first": fused_render.queue_capacity(cs, "queue")}.get(form)
+        with workcount.counting() as c:
+            if form == "cond":
+                hit = ttrace.closest_hit(cs, *rays, zt.dtypes.T_MIN, active=active, walk="cond")
+            else:
+                hit = ttrace.closest_hit(cs, *rays, zt.dtypes.T_MIN, active=active,
+                                         walk="queue", queue_cap=cap)
         traced[key] = (hit, dict(c))
     return traced[key]
 
@@ -114,7 +111,6 @@ def test_queue_hits_are_the_cond_walks(cases, traced, name, span, lanes):
         assert (ref.kind[::2] == ttrace.NO_HIT).all()
     for got, want in zip(hit, ref):
         assert torch.equal(got, want)
-    assert not ttrace._queue_first
 
 
 @pytest.mark.parametrize("form", ["1", "cap", "leaves"])
@@ -147,21 +143,23 @@ def test_queue_counts_are_bracketed(cases, traced, name, span, lanes, form):
         assert c_cond["leaf_visit"] < c["leaf_visit"] < c_first["leaf_visit"]
 
 
-def _header_int(name):
-    with open(HEADER) as f:
+def _header_int(name, header=HEADER):
+    with open(header) as f:
         m = re.search(rf"constexpr int {name} = (\d+);", f.read())
     assert m, name
     return int(m.group(1))
 
 
 def test_queue_cap_equals_the_headers():
-    """The Python mirrors of the header's constants: the queue walk's
-    capacity, the launchers' threads a block, and the rowqueue walk's
-    staged-node budget."""
+    """The Python mirrors of the headers' constants: the queue walk's
+    capacity, the launchers' threads a block and blocks a SM at most, and
+    the rowqueue walk's staged-node budget."""
     assert ttrace.QUEUE_CAP == _header_int("kQueueCap")
     assert fused_render.THREADS == _header_int("kThreads")
     assert fused_render.ROWQUEUE_NODE_BYTES == _header_int("kRowQueueNodeBytes")
     assert fused_render.QUEUE_SMEM_BYTES == ttrace.QUEUE_CAP * fused_render.THREADS * 4
+    kernels = os.path.join(os.path.dirname(HEADER), "render_kernels.cuh")
+    assert fused_render.MAX_BLOCKS_PER_SM == _header_int("kMaxBlocksPerSM", kernels)
 
 
 def test_walk_args_gives_queue_no_device_queue(cases, monkeypatch):
@@ -214,35 +212,36 @@ def test_node_args_builds_packed_tables_for_queue():
         assert torch.equal(t.view(torch.int32), want.view(torch.int32))
 
 
-def test_queue_cap_sweep_finds_what_it_rewrites():
-    """tools/queue_cap_sweep.py rewrites a copy of the header: its capacity
-    constant and the queue walk's packed node step must each be there once,
-    and ptxas's lines name the queue walk's default instantiations."""
-    from zig_weekend_raytracer_tpu_torch.tools import queue_cap_sweep as qs
-
+def test_walk_codes_equal_the_headers():
+    """A launch passes ``WALKS.index(walk)`` (``walk_args``): the header's
+    Walk enum numbers the walks in that order, and its compile-time-only
+    walks (the first designs, ``kWalkNoTree``) come after them."""
     with open(HEADER) as f:
-        src = f.read()
-    assert src.count(qs.PACKED_STEP) == 1
-    assert len(re.findall(r"constexpr int kQueueCap = \d+;", src)) == 1
-    assert ttrace.QUEUE_CAP in qs.CAPS
-    log = "\n".join([
-        "ptxas info    : Compiling entry function "
-        "'_ZN4zwrt19fused_render_kernelILb0ELi1ELi0EEEvNS_6ParamsE'",
-        "ptxas info    : Used 72 registers, 0 bytes spill stores",
-        "ptxas info    : Compiling entry function '_ZN4zwrt13bounce_kernelILb1ELi1ELi8EEEvv'",
-        "ptxas info    : Used 64 registers",
-        "ptxas info    : Compiling entry function '_ZN4zwrt13bounce_kernelILb1ELi1ELi0EEEvv'",
-        "    8 bytes stack frame, 8 bytes spill stores, 8 bytes spill loads",
-        "ptxas info    : Used 72 registers",
-    ])
-    assert qs.queue_resources(log) == {"fused_render_kernel<false, queue>": [72, 0],
-                                       "bounce_kernel<true, queue>": [72, 8]}
+        codes = {k: int(v) for k, v in re.findall(r"\b(kWalk\w+) = (\d+)", f.read())}
+    names = {"cond": "kWalkCond", "queue": "kWalkQueue", "rowqueue": "kWalkRowQueue",
+             "spec": "kWalkSpec", "uni": "kWalkUni"}
+    assert [codes[names[w]] for w in ttrace.WALKS] == list(range(len(ttrace.WALKS)))
+    rest = sorted(v for k, v in codes.items() if k not in names.values())
+    assert "kWalkNoTree" in codes and rest == list(range(len(ttrace.WALKS), len(codes)))
 
 
-def test_queue_cap_sweep_needs_a_card(capsys):
-    from zig_weekend_raytracer_tpu_torch.tools import queue_cap_sweep as qs
+@pytest.fixture(scope="module")
+def treeless():
+    scene = zt.models.load_scene("cornell_box", device="cpu")
+    cs = scene.compiled
+    assert not (cs.has_sph_tree or cs.has_quad_tree or cs.has_uni_tree)
+    return cs, _camera_rays(scene, 32)
 
-    if torch.cuda.is_available():
-        pytest.skip("this machine has a card: the tool would run")
-    assert qs.main([]) == 2
-    assert "CUDA is not available" in capsys.readouterr().err
+
+@pytest.mark.parametrize("walk", ["queue", "rowqueue", "spec"])
+def test_treeless_scene_traces_alike_under_every_walk(treeless, walk):
+    cs, rays = treeless
+    out = {}
+    for w in ("cond", walk):
+        with workcount.counting() as c:
+            out[w] = (ttrace.closest_hit(cs, *rays, zt.dtypes.T_MIN, walk=w), dict(c))
+    for got, want in zip(out[walk][0], out["cond"][0]):
+        assert torch.equal(got, want)
+    assert out[walk][1] == out["cond"][1]
+    assert "slab_test" not in out[walk][1] and out[walk][1]["sphere_test"] > 0
+    assert int((out[walk][0].kind >= 0).sum()) > 32 * 32 // 2

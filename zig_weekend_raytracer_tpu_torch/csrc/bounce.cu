@@ -37,7 +37,8 @@
 // It also replaces the TPU traversal variants that K2 hosts (kernel K4:
 // _tree_pass_queue, _tree_pass_spec, _uni_tree_pass), as one instantiation
 // per walk (zwrt_device.cuh:Walk) and mode, chosen at launch; WALK is a
-// template parameter so that the default walk's code stays as it was.
+// template parameter so that the default walk's code stays as it was, and
+// a scene without trees takes kWalkNoTree, which carries no walk's code.
 //
 // Redesigned for Hopper, with K1 (fused_render.cu): leaves sized
 // for one thread's walk, and a regenerating mode whose respawn reads the

@@ -62,7 +62,9 @@
 // per walk (zwrt_device.cuh:Walk), chosen at launch: WALK is a template
 // parameter, not a runtime branch, so the default walk's code (72
 // registers under __launch_bounds__(128), 7 blocks per SM) does not carry
-// the others'.
+// the others', and a scene without trees (cornell, emissive) takes
+// kWalkNoTree, which carries no walk's code (render_kernels.cuh:
+// dispatch_flags_walk).
 
 #include <cuda_runtime.h>
 #include <stdint.h>

@@ -6,7 +6,8 @@
 // fused_render.cu and bounce.cu.
 //
 // FLAGS (zwrt_device.cuh:DrainFlags) is 0 in every instantiation the
-// wrappers launch by default.  kFlagEstimator, instantiated for every walk
+// wrappers launch by default: one per walk, and kWalkNoTree, which every
+// walk but uni takes on a scene without trees (dispatch_flags_walk).  kFlagEstimator, instantiated for every walk
 // and both kernels' modes (fused_render_estimator.cu, bounce_estimator.cu),
 // applies Russian roulette and the indirect clamp; the wrappers launch it
 // when either option is on.  The variants, without the estimator: for the
@@ -151,11 +152,41 @@ struct RenderLaunch {
   cudaStream_t stream;
 };
 
-// Launches ``kernel`` as RenderLaunch ``L`` asks, or reports its occupancy.
+// At most this many blocks of a render or bounce kernel share an SM: where
+// an instantiation's registers and shared memory let more in (the render
+// kernel's tree-less instantiation, 56 registers: 9), cap_blocks_per_sm
+// raises the block's dynamic shared memory until no more fit.  On an NVIDIA
+// H100 80GB HBM3 at 700 W that instantiation took, at cornell's
+// 400x400@1024 d10 plan, 76.9 ms at 9 blocks a SM, 69.8 at 8 and 75.1 at 7
+// (the same code, the blocks set by shared memory), and emissive's 6.0-6.2
+// ms at each (PERF.md).
+constexpr int kMaxBlocksPerSM = 8;
+
+// Host side: raises ``*smem`` so that at most kMaxBlocksPerSM blocks of
+// ``kernel`` fit an SM (an SM's shared memory over kMaxBlocksPerSM, less
+// the shared memory reserved for each block); returns a cudaError_t.
+template <typename K>
+inline int cap_blocks_per_sm(K* kernel, size_t* smem) {
+  int blocks = 0, dev = 0, per_sm = 0, reserved = 0;
+  int e = (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel, kThreads, *smem);
+  if (e != 0 || blocks <= kMaxBlocksPerSM) return e;
+  if ((e = (int)cudaGetDevice(&dev)) != 0) return e;
+  e = (int)cudaDeviceGetAttribute(&per_sm, cudaDevAttrMaxSharedMemoryPerMultiprocessor, dev);
+  if (e != 0) return e;
+  e = (int)cudaDeviceGetAttribute(&reserved, cudaDevAttrReservedSharedMemoryPerBlock, dev);
+  if (e != 0) return e;
+  *smem = (size_t)(per_sm / kMaxBlocksPerSM - reserved);
+  return 0;
+}
+
+// Launches ``kernel`` as RenderLaunch ``L`` asks, or reports its occupancy,
+// at most kMaxBlocksPerSM blocks a SM.
 template <typename K, typename... Args>
 inline int launch_or_report(const RenderLaunch& L, K* kernel, int blocks, size_t smem,
                             Args... args) {
   int e = allow_smem(kernel, smem);
+  if (e == 0) e = cap_blocks_per_sm(kernel, &smem);
+  if (e == 0) e = allow_smem(kernel, smem);
   if (e != 0) return e;
   if (L.occupancy) {
     L.occupancy[1] = (int)smem;
@@ -167,12 +198,16 @@ inline int launch_or_report(const RenderLaunch& L, K* kernel, int blocks, size_t
 }
 
 // f(std::integral_constant<int, W>{}) for the walk W: every walk for the
-// default and estimator instantiations, the first design of kWalkQueue,
-// kWalkSpec, kWalkUni or kWalkRowQueue for kFlagFirstWalk, kWalkCond and
-// kWalkQueue for the other variants.
+// default and estimator instantiations, and kWalkNoTree for every walk but
+// uni where ``scene`` has no per-kind tree, so that a tree-less scene
+// (cornell, emissive) carries no walk's registers; the first design of
+// kWalkQueue, kWalkSpec, kWalkUni or kWalkRowQueue for kFlagFirstWalk,
+// kWalkCond and kWalkQueue for the other variants.
 template <int FLAGS, typename F>
-inline int dispatch_flags_walk(int walk, F f) {
+inline int dispatch_flags_walk(const TraceScene& scene, int walk, F f) {
   if constexpr (FLAGS == 0 || FLAGS == kFlagEstimator) {
+    if (walk >= kWalkCond && walk < kWalkUni && !has_kind_tree(scene))
+      return f(std::integral_constant<int, kWalkNoTree>{});
     return dispatch_walk(walk, f);
   } else if constexpr (FLAGS == kFlagFirstWalk) {
     switch (walk) {
@@ -202,7 +237,7 @@ int launch_fused_render(const RenderLaunch& L, const int* px, const int* py, con
   int err = set_walk(&scene, L.walk, L.q_cap, L.queue, L.queue_len, blocks, kThreads, tables,
                      (FLAGS & kFlagFirstWalk) != 0, &smem);
   if (err != 0) return err;
-  return dispatch_flags_walk<FLAGS>(L.walk, [&](auto w) {
+  return dispatch_flags_walk<FLAGS>(scene, L.walk, [&](auto w) {
     constexpr int W = decltype(w)::value;
     auto kernel = fused_render_kernel<false, W, FLAGS>;
     if (L.images.texels) kernel = fused_render_kernel<true, W, FLAGS>;
@@ -223,7 +258,7 @@ int launch_bounce(const RenderLaunch& L, float* fstate, int* istate, const int* 
   int err = set_walk(&scene, L.walk, L.q_cap, L.queue, L.queue_len, blocks, kThreads, tables,
                      (FLAGS & kFlagFirstWalk) != 0, &smem);
   if (err != 0) return err;
-  return dispatch_flags_walk<FLAGS>(L.walk, [&](auto w) {
+  return dispatch_flags_walk<FLAGS>(scene, L.walk, [&](auto w) {
     constexpr int W = decltype(w)::value;
     auto kernel = bounce_kernel<true, W, FLAGS>;
     if constexpr ((FLAGS & ~kFlagEstimator) == 0) {

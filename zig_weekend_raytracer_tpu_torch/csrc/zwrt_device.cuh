@@ -81,22 +81,27 @@ constexpr int kGroup = 8;  // slots per leaf group (the JAX kernels' sublanes)
 enum TraceMode { kTraceNone = 0, kTraceBrute = 1, kTraceTree = 2 };
 // Tree walks (ops/trace.py:WALKS, in its order), then the first designs of
 // the spec, uni, rowqueue and queue walks, which only their measurement
-// variants take (kFlagFirstWalk): never a launch's walk code.
+// variants take (kFlagFirstWalk), and kWalkNoTree, which the default and
+// estimator launches of every walk but uni take on a scene where neither
+// kind has a tree (render_kernels.cuh:dispatch_flags_walk): two brute
+// stages, no walk's code or state.  The last five are never a launch's walk
+// code.
 enum Walk {
   kWalkCond = 0, kWalkQueue = 1, kWalkRowQueue = 2, kWalkSpec = 3, kWalkUni = 4,
-  kWalkSpecFirst = 5, kWalkUniFirst = 6, kWalkRowQueueFirst = 7, kWalkQueueFirst = 8
+  kWalkSpecFirst = 5, kWalkUniFirst = 6, kWalkRowQueueFirst = 7, kWalkQueueFirst = 8,
+  kWalkNoTree = 9
 };
 // Threads per block of the render and bounce launchers
 // (ops/fused_render.py:THREADS).
 constexpr int kThreads = 128;
 // Leaf entries of kWalkQueue's per-thread queue in shared memory
 // (ops/trace.py:QUEUE_CAP): the walk sweeps them when it holds this many.
-// Chosen on an NVIDIA H100 80GB HBM3 at 700 W from 4, 8 and 16 by
-// tools/queue_cap_sweep.py at chip_smoke.py phase 18's five plans
-// (PERF.md): 8 was the fastest summed over the three main paths and the
-// only one ahead of the first design on all five; 4 ran the rtw_final
-// paths 1-8% faster but balls 6% slower (behind the first design), 16
-// balls 1-3% faster but rtw_final 12-21% slower.
+// Chosen on an NVIDIA H100 80GB HBM3 at 700 W from 4, 8 and 16, each a
+// throwaway build timed at chip_smoke.py phase 18's five plans (PERF.md):
+// 8 was the fastest summed over the three main paths and the only one
+// ahead of the first design on all five; 4 ran the rtw_final paths 1-8%
+// faster but balls 6% slower (behind the first design), 16 balls 1-3%
+// faster but rtw_final 12-21% slower.
 constexpr int kQueueCap = 8;
 // The walks whose lanes walk a warp's node pointer together: they read the
 // group of lanes that trace together (trace_closest's ``group``).
@@ -991,9 +996,10 @@ __device__ __forceinline__ void tree_stage(const KindTables& k, const TraceScene
 }
 
 // The closest hit of one ray below ``t_start``; kind -1 on a miss, with
-// *best then still t_start.  WALK picks the tree walk at compile time;
-// kWalkRowQueue and its first design read ``group``, the lanes of the warp
-// that call it together (tree_walk_warpqueue).
+// *best then still t_start.  WALK picks the tree walk at compile time
+// (kWalkNoTree: none, for a scene without trees); kWalkRowQueue and its
+// first design read ``group``, the lanes of the warp that call it together
+// (tree_walk_warpqueue).
 template <int WALK>
 __device__ __forceinline__ void trace_closest(const TraceScene& s, V3 o, V3 d, float time,
                                               float t_min, float t_start, float* best,
@@ -1017,11 +1023,17 @@ __device__ __forceinline__ void trace_closest(const TraceScene& s, V3 o, V3 d, f
     return;
   }
   if (s.sph.mode == kTraceBrute) brute_stage<kSphere>(s.sph, ray, moving, best, kind, idx);
-  else if (s.sph.mode == kTraceTree)
+  else if (WALK != kWalkNoTree && s.sph.mode == kTraceTree)
     tree_stage<kSphere, WALK>(s.sph, s, ray, moving, group, best, kind, idx);
   if (s.quad.mode == kTraceBrute) brute_stage<kQuad>(s.quad, ray, false, best, kind, idx);
-  else if (s.quad.mode == kTraceTree)
+  else if (WALK != kWalkNoTree && s.quad.mode == kTraceTree)
     tree_stage<kQuad, WALK>(s.quad, s, ray, false, group, best, kind, idx);
+}
+
+// Whether a launch's scene has a per-kind tree: without one, every walk but
+// uni traces as kWalkNoTree does.
+inline bool has_kind_tree(const TraceScene& s) {
+  return s.sph.mode == kTraceTree || s.quad.mode == kTraceTree;
 }
 
 // Host side: the TraceScene from the ints and pointers the wrappers pack

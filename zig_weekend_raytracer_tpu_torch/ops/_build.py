@@ -30,13 +30,13 @@ NVCC_FLAGS = (
 )
 
 
-def _sources(csrc_dir):
-    return sorted(glob.glob(os.path.join(csrc_dir, "*.cu")))
+def _sources():
+    return sorted(glob.glob(os.path.join(CSRC_DIR, "*.cu")))
 
 
-def _source_hash(csrc_dir) -> str:
+def _source_hash() -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for path in sorted(glob.glob(os.path.join(csrc_dir, "*.cu*"))):
+    for path in sorted(glob.glob(os.path.join(CSRC_DIR, "*.cu*"))):
         h.update(os.path.basename(path).encode())
         with open(path, "rb") as f:
             h.update(f.read())
@@ -62,27 +62,24 @@ def find_nvcc() -> str:
     )
 
 
-def build(csrc_dir: str | None = None, build_dir: str | None = None) -> dict:
-    """Compile the kernels of ``csrc_dir`` (default ``CSRC_DIR``, the
-    package's sources; a tool may pass a rewritten copy) into ``build_dir``
-    (default ``BUILD_DIR``) if this source hash has no library there yet.
+def build() -> dict:
+    """Compile the kernels if this source hash has no library yet.
     Returns {"path", "log", "seconds", "cached"}; ``log`` holds nvcc's
     output, ``-Xptxas -v`` register and spill counts included."""
-    csrc_dir, build_dir = csrc_dir or CSRC_DIR, build_dir or BUILD_DIR
-    digest = _source_hash(csrc_dir)
-    lib = os.path.join(build_dir, f"libzwrt_kernels_{digest}.so")
+    digest = _source_hash()
+    lib = os.path.join(BUILD_DIR, f"libzwrt_kernels_{digest}.so")
     log_path = lib + ".log"
     if os.path.exists(lib):
         with open(log_path) as f:
             return {"path": lib, "log": f.read(), "seconds": 0.0, "cached": True}
     nvcc = find_nvcc()
-    os.makedirs(build_dir, exist_ok=True)
+    os.makedirs(BUILD_DIR, exist_ok=True)
     tmp = f"{lib}.{os.getpid()}.tmp"
     t0 = time.perf_counter()
     objs, procs = [], []
-    for src in _sources(csrc_dir):
+    for src in _sources():
         obj = f"{tmp}.{os.path.basename(src)}.o"
-        cmd = [nvcc, *NVCC_FLAGS, "-I", csrc_dir, "-c", "-o", obj, src]
+        cmd = [nvcc, *NVCC_FLAGS, "-I", CSRC_DIR, "-c", "-o", obj, src]
         objs.append(obj)
         procs.append((cmd, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
@@ -114,14 +111,9 @@ def build(csrc_dir: str | None = None, build_dir: str | None = None) -> dict:
 
 @functools.lru_cache(maxsize=1)
 def load_library() -> ctypes.CDLL:
-    """Build (if needed) and load the package's kernel library."""
-    return open_library(build()["path"])
-
-
-def open_library(path: str) -> ctypes.CDLL:
-    """The kernel library at ``path``, with ``argtypes`` and ``restype``
-    declared for every launcher."""
-    lib = ctypes.CDLL(path)
+    """Build (if needed) and load the kernel library, with ``argtypes`` and
+    ``restype`` declared for every launcher."""
+    lib = ctypes.CDLL(build()["path"])
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.zwrt_fused_render.argtypes = [p] * 6 + [i] + [p] * 11 + [i, i, i, p, i, i, p, p]
     lib.zwrt_fused_render.restype = ctypes.c_int

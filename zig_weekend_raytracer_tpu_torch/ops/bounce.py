@@ -253,8 +253,10 @@ def bounce_regen_occupancy(scene: CompiledScene, state: RegenState, px, py, samp
     """(blocks per SM, dynamic shared memory bytes a block) of the
     regenerating instantiation that ``bounce_regen`` on these CUDA lanes
     would launch, or with ``first_walk`` the walk's first-design variant
-    (cudaOccupancyMaxActiveBlocksPerMultiprocessor); launches nothing and
-    counts nothing."""
+    (cudaOccupancyMaxActiveBlocksPerMultiprocessor, after the launcher has
+    raised the shared memory of an instantiation that more than
+    ``MAX_BLOCKS_PER_SM`` blocks would fit); launches nothing and counts
+    nothing."""
     est, kw["rr_start"], kw["clamp"] = estimator_flags(
         scene, kw.get("rr_start", 0), kw.get("clamp", 0.0))
     occ = np.zeros(2, np.int32)

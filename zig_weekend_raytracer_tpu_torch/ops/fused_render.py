@@ -82,6 +82,9 @@ SMEM_LIMIT = 232448     # dynamic shared memory a block can have (227 KB)
 # int32 entries for each thread (zwrt_device.cuh:bounded_queue)
 QUEUE_SMEM_BYTES = QUEUE_CAP * THREADS * 4
 NODE_BYTES = 32         # a packed node (zwrt_device.cuh:PackedNode)
+# blocks of a render or bounce kernel that share an SM at most
+# (render_kernels.cuh:kMaxBlocksPerSM, which says why)
+MAX_BLOCKS_PER_SM = 8
 # shared memory of a block that the rowqueue walk fills with packed nodes
 # (zwrt_device.cuh:kRowQueueNodeBytes, which says how it was sized)
 ROWQUEUE_NODE_BYTES = 14336
@@ -535,8 +538,10 @@ def render_fused_occupancy(scene: CompiledScene, px, py, s0, s1, seed: int, t_mi
     """(blocks per SM, dynamic shared memory bytes a block) of the
     instantiation that ``render_fused`` on these CUDA lanes would launch,
     or with ``first_walk`` the walk's first-design variant
-    (cudaOccupancyMaxActiveBlocksPerMultiprocessor); launches nothing and
-    counts nothing."""
+    (cudaOccupancyMaxActiveBlocksPerMultiprocessor, after the launcher has
+    raised the shared memory of an instantiation that more than
+    ``MAX_BLOCKS_PER_SM`` blocks would fit); launches nothing and counts
+    nothing."""
     est, kw["rr_start"], kw["clamp"] = estimator_flags(
         scene, kw.get("rr_start", 0), kw.get("clamp", 0.0))
     occ = np.zeros(2, np.int32)

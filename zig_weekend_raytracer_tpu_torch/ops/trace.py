@@ -29,9 +29,10 @@ one walk of the kernels' shared trace (``csrc/zwrt_device.cuh``):
   * ``queue``: each lane culls with its running t and queues the leaves
     it hits in preorder, at most ``QUEUE_CAP`` of them; when its queue is
     full or its walk has ended it sweeps them in order, and the rest of
-    its walk culls with the t the sweep tightened.  Inside
-    ``queue_first_design()`` it takes its first design's form: the whole
-    walk with the stage's seed t, then every queued leaf swept;
+    its walk culls with the t the sweep tightened.  At a capacity of the
+    tree's leaves or more (``closest_hit``'s ``queue_cap``) no queue fills
+    before its walk's end, so the whole walk culls with the stage's seed t:
+    its first design's work;
   * ``rowqueue``: lanes in groups of 32 consecutive indices walk one node
     pointer with the seed t, descending when any walking lane of the group
     hits; a hit leaf is queued with the group's mask of lanes that hit it
@@ -317,15 +318,14 @@ def _walk_queue(box, link, o, d, t_min, walking, t_seed, per_warp):
     return queue
 
 
-def _walk_bounded(box, link, o, d, t_min, walking, t_best, sweep):
+def _walk_bounded(box, link, o, d, t_min, walking, t_best, cap, sweep):
     """The ``queue`` walk: each lane culls with its running t in ``t_best``
-    (N,) and pushes its hit leaves in preorder to a queue of ``QUEUE_CAP``
-    entries (read at each call); when a lane's queue is full or its walk has
-    ended, ``sweep(entries)`` gets the queue, a list of (lanes, nodes) in
-    queue order with each lane at most once in an entry, and the lane's walk
-    goes on from where it stopped under the t the sweep tightened (in
-    place in ``t_best``)."""
-    cap = QUEUE_CAP
+    (N,) and pushes its hit leaves in preorder to a queue of ``cap``
+    entries; when a lane's queue is full or its walk has ended,
+    ``sweep(entries)`` gets the queue, a list of (lanes, nodes) in queue
+    order with each lane at most once in an entry, and the lane's walk goes
+    on from where it stopped under the t the sweep tightened (in place in
+    ``t_best``)."""
     n_nodes = box.shape[0]
     inv_d = V3(1.0 / d.x, 1.0 / d.y, 1.0 / d.z)
     node = torch.zeros_like(walking, dtype=torch.int64)
@@ -355,18 +355,20 @@ def _walk_bounded(box, link, o, d, t_min, walking, t_best, sweep):
 
 
 def _tree_stage(code, box, link, attrs, span, o: V3, d: V3, tm, t_min, walking, best: Hit,
-                walk) -> Hit:
-    """One kind's group tree, walked as ``walk`` says (module doc)."""
+                walk, queue_cap) -> Hit:
+    """One kind's group tree, walked as ``walk`` says (module doc); the
+    ``queue`` walk holds ``queue_cap`` leaves a lane."""
     best = Hit(*(x.clone() for x in best))
     sweep = lambda lanes, nd: _sweep_into(code, attrs, span, lanes, link[nd, 1], o, d, tm,
                                           t_min, best)
     if walk == "cond":
         _walk_cond(box, link, o, d, t_min, walking, best.t, sweep)
         return best
-    if walk == "queue" and not _queue_first:
-        _walk_bounded(box, link, o, d, t_min, walking, best.t, lambda entries: _sweep_entries(
-            code, attrs, span, [(lanes, link[nd, 1]) for lanes, nd in entries], o, d, tm,
-            t_min, best))
+    if walk == "queue":
+        _walk_bounded(box, link, o, d, t_min, walking, best.t, queue_cap,
+                      lambda entries: _sweep_entries(
+                          code, attrs, span, [(lanes, link[nd, 1]) for lanes, nd in entries],
+                          o, d, tm, t_min, best))
         return best
     if walk == "spec":
         queue = []
@@ -383,25 +385,6 @@ def _tree_stage(code, box, link, attrs, span, o: V3, d: V3, tm, t_min, walking, 
             lanes, nd = lanes[again], nd[again]
         sweep(lanes, nd)
     return best
-
-
-_queue_first = False
-
-
-@contextlib.contextmanager
-def queue_first_design():
-    """Inside the block the plain ``queue`` walk takes its first design's
-    form (the kernels' measurement variant ``kWalkQueueFirst``): each lane
-    walks the whole tree with the stage's seed t, queueing every hit leaf in
-    preorder, then sweeps its queue with the fresh t.  Its hits are the
-    bounded walk's; its work counts are that design's: at least the bounded
-    walk's, and equal to them where ``QUEUE_CAP`` holds every leaf."""
-    global _queue_first
-    prev, _queue_first = _queue_first, True
-    try:
-        yield
-    finally:
-        _queue_first = prev
 
 
 _uni_cond = False
@@ -474,13 +457,16 @@ def walk_of(scene: CompiledScene) -> str:
 
 def closest_hit(
     scene: CompiledScene, origin: V3, direction: V3, time, t_min,
-    t_max=INF, active=None, walk=None,
+    t_max=INF, active=None, walk=None, queue_cap=QUEUE_CAP,
 ) -> Hit:
     """Closest hit of each ray: the sphere stage (brute or tree), then the
     quad stage seeded with it, or one walk of the unified tree.  ``time``
     is (N,); ``t_min`` a float or (N,) tensor; ``active`` an optional (N,)
     bool mask whose False rays report no hit; ``walk`` one of ``WALKS``,
-    ``walk_of(scene)`` when None."""
+    ``walk_of(scene)`` when None; ``queue_cap`` the leaves a lane of the
+    ``queue`` walk holds before it sweeps them (the kernels'; at the
+    tree's leaves or more, such as ``fused_render.queue_capacity``, the
+    work of its first design, ``kWalkQueueFirst``)."""
     closest_hit.calls += 1
     walk = walk_of(scene) if walk is None else walk
     if walk not in WALKS:
@@ -512,7 +498,7 @@ def closest_hit(
                 best = _tree_stage(
                     code, getattr(scene, f"{kind}_tree_box"), getattr(scene, f"{kind}_tree_link"),
                     getattr(scene, f"{kind}_tree_attrs"), getattr(scene, f"{kind}_leaf_span"),
-                    origin, direction, tmv, t_min, alive, best, walk,
+                    origin, direction, tmv, t_min, alive, best, walk, queue_cap,
                 )
             else:
                 best = _brute_stage(scene, code, origin, direction, time, t_min, best)
