@@ -2830,13 +2830,13 @@ def plain_in_place(integrator):
     return plain
 
 
-def cpu_outliers(fb_a, fb_b) -> list:
-    """(x, y, max |diff|) of the pixels of two framebuffers outside phase
-    2's rtol 1e-4 / atol 1e-5, in image order."""
+def cpu_outliers(fb_a, fb_b, rtol: float = 1e-4, atol: float = 1e-5) -> list:
+    """(x, y, max |diff|) of the pixels of two framebuffers outside rtol /
+    atol (by default phase 2's 1e-4 / 1e-5), in image order."""
     import numpy as np
 
     a, b = fb_a.cpu().numpy(), fb_b.cpu().numpy()
-    ys, xs = np.nonzero(~np.isclose(a, b, rtol=1e-4, atol=1e-5).all(-1))
+    ys, xs = np.nonzero(~np.isclose(a, b, rtol=rtol, atol=atol).all(-1))
     return [(int(x), int(y), float(np.abs(a[y, x] - b[y, x]).max())) for y, x in zip(ys, xs)]
 
 
@@ -3158,7 +3158,8 @@ def phase_fixed_depth(zt, fused, tb, integrator, ch, ttrace, torch, cornell, fb_
     (ops/trace.py, the cond walk) on the same card tensors; at 64x64@8 d10
     the render bitwise the render with the plain trace in the kernel's
     place on the card, and the card's render against the CPU's within
-    rtol 1e-5 / atol 1e-6 on >= 99.9% of pixels; the plain trace's work
+    rtol 1e-5 / atol 1e-6 on >= 99.9% of pixels, the pixels outside
+    printed as (x, y, max |diff|); the plain trace's work
     counts per traced ray and the chunk's live lanes give the kernel's
     bound; (c) the six goldens (tests/golden/<scene>.npz, 64x64@32 d10)
     through the path and utils/goldengate.py, rtw_final on 4x4 regions;
@@ -3296,10 +3297,14 @@ def phase_fixed_depth(zt, fused, tb, integrator, ch, ttrace, torch, cornell, fb_
         f"64x64 renders {t_cpu - t_small:.1f} s, the CPU render {time.perf_counter() - t_cpu:.1f} s")
     fk = fb_k.cpu().numpy()
     agree = float(np.isclose(fk, fb_cpu, rtol=PIXEL_RTOL, atol=PIXEL_ATOL).all(-1).mean())
+    outliers = cpu_outliers(fb_k, torch.from_numpy(fb_cpu), rtol=PIXEL_RTOL, atol=PIXEL_ATOL)
     log(f"fixed-depth nested {wp}x{wp}@{NESTED_PARITY_SPP} d{DEPTH}: the kernel's render bitwise "
         f"the plain trace's: {same} (max |diff| {diff:.3e}; {ms_k:.1f} ms vs {ms_p:.1f} ms); "
         f"card vs CPU: {agree:.4%} of pixels within rtol 1e-5 / atol 1e-6, max |diff| "
         f"{float(np.abs(fk - fb_cpu).max()):.3e}")
+    log(f"fixed-depth nested {wp}x{wp}@{NESTED_PARITY_SPP} d{DEPTH}, card vs CPU: "
+        f"{len(outliers)} pixels outside rtol 1e-5 / atol 1e-6 at (x, y, max |diff|) "
+        f"{outliers} ({card})")
     if not same:
         raise AssertionError("fixed-depth path: the kernel's render differs from the plain trace's")
     if agree < PIXEL_AGREE:
@@ -3307,7 +3312,8 @@ def phase_fixed_depth(zt, fused, tb, integrator, ch, ttrace, torch, cornell, fb_
     out["parity"] = checks + [{
         "check": f"fixed-depth nested {wp}x{wp}@{NESTED_PARITY_SPP} d{DEPTH}, kernel vs plain "
                  "trace on the card (bitwise)",
-        "max_abs_err": diff, "ms": ms_k, "plain_ms": ms_p, "cpu_agree": agree}]
+        "max_abs_err": diff, "ms": ms_k, "plain_ms": ms_p, "cpu_agree": agree,
+        "cpu_outliers": outliers}]
     # the bound of one launch of (a), averaged over its first chunk's
     # launches: the plain walk's counts per traced ray of the 64x64 render
     # times the chunk's live lanes a launch; bytes by live and dead lanes

@@ -20,6 +20,7 @@ on the CPU (``Renderer(balance_min_spp=N)``, ``ZWRT_NO_BALANCE``,
 import numpy as np
 import pytest
 
+from test_torch_reference_native import reference_decodes_with_stb  # noqa: F401
 import zig_weekend_raytracer_tpu as zj
 import zig_weekend_raytracer_tpu_torch as zt
 from zig_weekend_raytracer_tpu.render import renderer as jr

@@ -17,6 +17,7 @@ import numpy as np
 import pytest
 import torch
 
+from test_torch_reference_native import reference_decodes_with_stb  # noqa: F401
 import zig_weekend_raytracer_tpu as zj
 import zig_weekend_raytracer_tpu_torch as zt
 from zig_weekend_raytracer_tpu.geometry import bvh as jbvh

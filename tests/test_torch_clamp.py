@@ -33,6 +33,7 @@ import pytest
 import zig_weekend_raytracer_tpu as zj
 import zig_weekend_raytracer_tpu_torch as zt
 from test_torch_fused_render import EDGE_LANES
+from test_torch_reference_native import reference_decodes_with_stb  # noqa: F401
 from test_torch_russian_roulette import RTOL, ATOL, cornell_rays, one_bounce_pair, render_pair
 from zig_weekend_raytracer_tpu_torch.render import integrator
 from zig_weekend_raytracer_tpu_torch.scene import Camera, SceneBuilder

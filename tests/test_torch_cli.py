@@ -48,6 +48,7 @@ import textwrap
 import numpy as np
 import pytest
 
+from test_torch_reference_native import reference_decodes_with_stb  # noqa: F401
 from zig_weekend_raytracer_tpu import cli as jcli
 from zig_weekend_raytracer_tpu.io import ppm as jppm
 from zig_weekend_raytracer_tpu_torch import cli as tcli

@@ -19,6 +19,7 @@ import pytest
 import torch
 
 import zig_weekend_raytracer_tpu_torch as zt
+from test_torch_reference_native import reference_decodes_with_stb  # noqa: F401
 from zig_weekend_raytracer_tpu.render import denoise as jd
 from zig_weekend_raytracer_tpu_torch.render import denoise as td
 from zig_weekend_raytracer_tpu_torch.render.aov import render_aovs

@@ -40,6 +40,7 @@ import torch
 
 import zig_weekend_raytracer_tpu as zj
 import zig_weekend_raytracer_tpu_torch as zt
+from test_torch_reference_native import reference_decodes_with_stb  # noqa: F401
 from test_torch_render import EDGE_PIXELS
 from test_torch_texlut import _jax_compile
 from zig_weekend_raytracer_tpu.math.v3 import V3 as JV3

@@ -46,6 +46,7 @@ import numpy as np
 import pytest
 import torch
 
+from test_torch_reference_native import reference_decodes_with_stb  # noqa: F401
 import zig_weekend_raytracer_tpu as zj
 import zig_weekend_raytracer_tpu_torch as zt
 from zig_weekend_raytracer_tpu import textures as jtex

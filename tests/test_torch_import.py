@@ -18,6 +18,8 @@ import subprocess
 import sys
 import textwrap
 
+from test_torch_reference_native import reference_decodes_with_stb  # noqa: F401
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 _BLOCK = """

@@ -23,6 +23,7 @@ import pytest
 import torch
 
 import zig_weekend_raytracer_tpu_torch as zt
+from test_torch_reference_native import reference_decodes_with_stb  # noqa: F401
 from zig_weekend_raytracer_tpu_torch.ops import trace as ttrace
 from zig_weekend_raytracer_tpu_torch.render import camera as tcam
 from zig_weekend_raytracer_tpu_torch.render import integrator

@@ -36,6 +36,7 @@ import torch
 import zig_weekend_raytracer_tpu as zj
 import zig_weekend_raytracer_tpu_torch as zt
 from test_torch_fused_render import EDGE_LANES, _jax_regen_lanes
+from test_torch_reference_native import reference_decodes_with_stb  # noqa: F401
 from zig_weekend_raytracer_tpu.math.v3 import V3 as JV3
 from zig_weekend_raytracer_tpu.ops import pallas_bounce
 from zig_weekend_raytracer_tpu.render import camera as jcam

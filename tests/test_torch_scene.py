@@ -15,6 +15,7 @@ import zig_weekend_raytracer_tpu as zj
 import zig_weekend_raytracer_tpu_torch as zt
 from test_torch_bvh import assert_same_trees
 from test_torch_bvh import random_scene
+from test_torch_reference_native import reference_decodes_with_stb  # noqa: F401
 from zig_weekend_raytracer_tpu_torch.scene import (
     ARRAY_FIELDS,
     STATIC_FIELDS,

@@ -20,6 +20,7 @@ import numpy as np
 import pytest
 
 import zig_weekend_raytracer_tpu_torch as zt
+from test_torch_reference_native import reference_decodes_with_stb  # noqa: F401
 from test_torch_scene import _assert_same
 from zig_weekend_raytracer_tpu.models import load_scene_file as jload
 from zig_weekend_raytracer_tpu_torch.models import load_scene_file

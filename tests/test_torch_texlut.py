@@ -47,6 +47,7 @@ import torch
 import zig_weekend_raytracer_tpu as zj
 import zig_weekend_raytracer_tpu_torch as zt
 from test_torch_images import _uv_cases
+from test_torch_reference_native import reference_decodes_with_stb  # noqa: F401
 from test_torch_scene import _assert_same
 from zig_weekend_raytracer_tpu import scene as jscene
 from zig_weekend_raytracer_tpu import textures as jtex

@@ -19,6 +19,7 @@ import numpy as np
 import pytest
 
 import zig_weekend_raytracer_tpu_torch as zt
+from test_torch_reference_native import reference_decodes_with_stb  # noqa: F401
 from tools import imgdiff as jtool
 from zig_weekend_raytracer_tpu_torch.tools import imgdiff as ttool
 

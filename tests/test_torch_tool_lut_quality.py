@@ -24,6 +24,7 @@ import numpy as np
 import pytest
 import torch
 
+from test_torch_reference_native import reference_decodes_with_stb  # noqa: F401
 from tools import lut_quality as jtool
 from zig_weekend_raytracer_tpu_torch.tools import lut_quality as ttool
 

@@ -33,6 +33,7 @@ import numpy as np
 import pytest
 import torch
 
+from test_torch_reference_native import reference_decodes_with_stb  # noqa: F401
 import zig_weekend_raytracer_tpu as zj
 from tools import scenebench as jtool
 from zig_weekend_raytracer_tpu.parallel import make_mesh as jmesh

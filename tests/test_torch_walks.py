@@ -26,6 +26,7 @@ import torch
 import zig_weekend_raytracer_tpu as zj
 import zig_weekend_raytracer_tpu_torch as zt
 from test_torch_bvh import random_scene
+from test_torch_reference_native import reference_decodes_with_stb  # noqa: F401
 from zig_weekend_raytracer_tpu.geometry import bvh as jbvh
 from zig_weekend_raytracer_tpu_torch.geometry import bvh as tbvh
 from zig_weekend_raytracer_tpu_torch.math.v3 import V3

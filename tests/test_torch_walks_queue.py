@@ -39,6 +39,7 @@ import pytest
 import torch
 
 import zig_weekend_raytracer_tpu_torch as zt
+from test_torch_reference_native import reference_decodes_with_stb  # noqa: F401
 from test_torch_walks_redesign import _camera_rays, _random_rays, _random_scene, _with_env
 from zig_weekend_raytracer_tpu_torch.ops import bounce
 from zig_weekend_raytracer_tpu_torch.ops import fused_render

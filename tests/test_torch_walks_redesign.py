@@ -31,6 +31,7 @@ import pytest
 import torch
 
 import zig_weekend_raytracer_tpu_torch as zt
+from test_torch_reference_native import reference_decodes_with_stb  # noqa: F401
 from zig_weekend_raytracer_tpu_torch.math.v3 import V3
 from zig_weekend_raytracer_tpu_torch.ops import fused_render
 from zig_weekend_raytracer_tpu_torch.ops import trace as ttrace
