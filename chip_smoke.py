@@ -328,7 +328,15 @@ Phases (any failure exits nonzero):
      delta beside phase 14's); (d) quality_prodres at its defaults, one
      scene a call (four rows, finite MSE ratios); (e) imgdiff on phase 3's
      framebuffer as PPM against itself (mse 0) and as .jpg against the PPM,
-     in process and as the command line, and a missing path (exit 1).
+     in process and as the command line, and a missing path (exit 1);
+ 28. the north-star harness, python -m zig_weekend_raytracer_tpu_torch.tools.bench,
+     in a subprocess of its own session: once at the north star and once
+     at balls 400 400 32 10; each must exit 0 with a last line whose
+     correctness starts with "pass", on this card, having launched K1 and
+     K5 (and K3 on balls); the north star's value must be within 10% of
+     phase 3's Mpaths/s and its kernel_ms and bound_ms within 5% of phase
+     4's kernel time and bound; each line is logged and kept in the record
+     (``harness``).
 
 The record has one entry per kernel and mode: the render kernel on brute
 scenes (cornell, emissive, and phase 25's cornell paths), on tree scenes
@@ -374,6 +382,7 @@ from __future__ import annotations
 import contextlib
 import json
 import os
+import signal
 import subprocess
 import sys
 import time
@@ -505,6 +514,11 @@ DEFAULT_RESOURCES = {
     "bounce_kernel<false, cond>": (64, 0), "bounce_kernel<true, cond>": (64, 80),
     "closest_hit_kernel": (56, 0), "closest_hit_flat_kernel": (56, 0),
 }
+# phase 28: the harness's runs (its arguments), each one's time limit, and
+# how far the north star's figures may stray from phases 3 and 4's
+HARNESS_RUNS = ((), ("balls", "400", "400", "32", "10"))
+HARNESS_TIMEOUT_S = 300
+HARNESS_VALUE_AGREE, HARNESS_KERNEL_AGREE = 0.10, 0.05
 # the measured rates (lane-operations per second) of the roofline's classes
 # (fp: the add chain, cmp: select, int: the int chain), which every bound
 # divides by once phase 1b has run
@@ -523,30 +537,12 @@ def phase(name: str) -> None:
     log(f"==== phase {name} at {time.perf_counter() - START:.1f} s")
 
 
-def gpu_info() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60, check=True,
-    )
-    return out.stdout.strip().splitlines()[0]
-
-
 def cuda_time_ms(fn, repeats: int = 1):
     """Best device time of ``fn`` over ``repeats`` runs, by CUDA events,
-    and the last run's result."""
-    import torch
+    and the last run's result (the harness's, tools/bench.py)."""
+    from zig_weekend_raytracer_tpu_torch.tools.bench import cuda_time_ms as best_ms
 
-    best = float("inf")
-    out = None
-    for _ in range(repeats):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        out = fn()
-        end.record()
-        torch.cuda.synchronize()
-        best = min(best, start.elapsed_time(end))
-    return best, out
+    return best_ms(fn, repeats)
 
 
 def compare(tag: str, out_k, out_p) -> dict:
@@ -839,19 +835,11 @@ def plain_calls(integrator, ttrace) -> int:
 
 
 def timed_renders(renderer, scene, torch, w, h):
-    """One warmup render and three timed renders; (warmup s, times, fb)."""
-    t0 = time.perf_counter()
-    renderer.render_device(scene, w, h)
-    torch.cuda.synchronize()
-    warm_s = time.perf_counter() - t0
-    times = []
-    fb = None
-    for _ in range(3):
-        t0 = time.perf_counter()
-        fb = renderer.render_device(scene, w, h)
-        torch.cuda.synchronize()
-        times.append(time.perf_counter() - t0)
-    return warm_s, times, fb
+    """One warmup render and three timed renders (the harness's,
+    tools/bench.py:timed_renders); (warmup s, times, fb)."""
+    from zig_weekend_raytracer_tpu_torch.tools.bench import timed_renders as harness_renders
+
+    return harness_renders(renderer, scene, w, h, torch.cuda.synchronize)
 
 
 def plan_parity(zt, fused, integrator, scene, plan, spp, card, tag, depth=DEPTH,
@@ -904,24 +892,16 @@ def render_bound(zt, scene, counts, kernel_work, lane_bytes, has_dof, spp,
     version's ``counts`` on a slice scaled by that bounce count, the Sobol
     respawn in its factored form (or its bit loops); ``lane_bytes`` is what
     the lanes read and write, beside the tables the trace reads under
-    ``walk``.  Each operation class at phase 1b's rate."""
-    from zig_weekend_raytracer_tpu_torch.sampling.sampler import sobol_log2_scale
-    from zig_weekend_raytracer_tpu_torch.sampling.sobol import sobol_sample_bytes
+    ``walk`` (utils/roofline.py:render_bound, logged).  Each operation class
+    at phase 1b's rate."""
     from zig_weekend_raytracer_tpu_torch.utils import roofline
 
-    factor = float(kernel_work) / max(counts.get("bounce", 0), 1)
-    n_bytes = sobol_sample_bytes(spp)
-    ops = roofline.render_ops(roofline.scaled(counts, factor), scene.compiled, has_dof,
-                              sobol=(sobol_log2_scale(W, H), n_bytes, loop_sobol))
-    nbytes = lane_bytes + roofline.render_table_bytes(scene.compiled, 0 if loop_sobol else n_bytes,
-                                                      walk)
-    ms, by = roofline.bound_ms(ops, nbytes, OPS_RATE["rate"])
-    source = roofline.peak_source(OPS_RATE["rate"])
+    out = roofline.render_bound(scene.compiled, counts, kernel_work, lane_bytes, has_dof, spp,
+                                W, H, loop_sobol, walk, OPS_RATE["rate"])
     log(f"bound: {float(kernel_work):.0f} bounces, operations "
-        f"{ {k: f'{v:.4g}' for k, v in ops.items()} }, {nbytes:.4g} bytes -> {ms:.3f} ms "
-        f"({by}, {source} rates)")
-    return {"bound_ms": ms, "bound_by": by, "bound_ops": ops, "bound_bytes": nbytes,
-            "peak_source": source}
+        f"{ {k: f'{v:.4g}' for k, v in out['bound_ops'].items()} }, {out['bound_bytes']:.4g} "
+        f"bytes -> {out['bound_ms']:.3f} ms ({out['bound_by']}, {out['peak_source']} rates)")
+    return out
 
 
 def compare_bounce(tag, out_k, out_p) -> dict:
@@ -2003,24 +1983,25 @@ def walk_bound_counts(wpar, walk, pcase, ccase) -> dict:
     return wpar["cond"][ccase][1]
 
 
-def plan_kernel(zt, fused, integrator, tb, scene, renderer, spp, depth, first=False,
-                occupancy=False):
+def plan_kernel(zt, fused, integrator, tb, scene, renderer, first=False, occupancy=False):
     """A call of the scene's kernel at ``renderer``'s coherent plan (the
     render kernel where it takes the scene, else the bounce kernel's
-    regenerating mode) under the walk the environment names, returning
-    (radiance, work); ``first``: through the walk's first design (the
-    measurement variant, counted apart from the paths); ``occupancy``: a
-    call that launches nothing and returns the instantiation's (blocks per
-    SM, dynamic shared memory bytes) at the plan instead."""
+    regenerating mode: Renderer.kernel_call) under the walk the environment
+    names, returning (radiance, work); ``first``: through the walk's first
+    design (the measurement variant, counted apart from the paths);
+    ``occupancy``: a call that launches nothing and returns the
+    instantiation's (blocks per SM, dynamic shared memory bytes) at the
+    plan instead."""
     from zig_weekend_raytracer_tpu_torch.ops.bounce import supports_fused_render
     from zig_weekend_raytracer_tpu_torch.render.camera import camera_consts
 
+    if not (first or occupancy):
+        return renderer.kernel_call(scene, W, H)
     cs = scene.compiled
-    plans = renderer._plan_cache[cs]
-    plan = plans[next(k for k in plans if k[0] == "coh")]["plan"]
+    plan = renderer.render_lanes(scene, W, H)[:4]
     kw = dict(camera_consts=camera_consts(scene.camera, W, H), sampler=renderer.sampler,
-              width=W, height=H, spp=spp, stride=1, max_depth=depth,
-              has_dof=scene.camera.has_depth_of_field)
+              width=W, height=H, spp=renderer.samples_per_pixel, stride=1,
+              max_depth=renderer.max_ray_bounce_depth, has_dof=scene.camera.has_depth_of_field)
     t_min = zt.dtypes.T_MIN
     if occupancy:
         if supports_fused_render(cs):
@@ -2030,24 +2011,19 @@ def plan_kernel(zt, fused, integrator, tb, scene, renderer, spp, depth, first=Fa
             cs, integrator.initial_regen_state(plan[2], 1), plan[0], plan[1], plan[3], 0, t_min,
             first_walk=first, **kw)
     if supports_fused_render(cs):
-        if first:
-            return lambda: fused.render_fused_variant(cs, *plan, 0, t_min, first_walk=True,
-                                                      **kw)[:2]
-        return lambda: fused.render_fused(cs, *plan, 0, t_min, want_work=True, **kw)
+        return lambda: fused.render_fused_variant(cs, *plan, 0, t_min, first_walk=True,
+                                                  **kw)[:2]
     st0 = integrator.initial_regen_state(plan[2], 1)
 
     def run():
-        if first:
-            st = tb.bounce_regen_variant(cs, st0, plan[0], plan[1], plan[3], 0, t_min,
-                                         first_walk=True, **kw)[0]
-        else:
-            st = tb.bounce_regen(cs, st0, plan[0], plan[1], plan[3], 0, t_min, **kw)
+        st = tb.bounce_regen_variant(cs, st0, plan[0], plan[1], plan[3], 0, t_min,
+                                     first_walk=True, **kw)[0]
         return st.radiance, st.work
 
     return run
 
 
-def launch_mib(zt, fused, integrator, tb, torch, scene, renderer, spp, depth, tag) -> dict:
+def launch_mib(zt, fused, integrator, tb, torch, scene, renderer, tag) -> dict:
     """MiB of device memory that one launch of the scene's kernel at
     ``renderer``'s coherent plan allocates above what was allocated before
     it, outputs included, under the default walk and under its first design
@@ -2055,7 +2031,7 @@ def launch_mib(zt, fused, integrator, tb, torch, scene, renderer, spp, depth, ta
     array of (n_nodes + 1) // 2 + 1 ints a thread."""
     out = {}
     for label, first in (("new", False), ("first design", True)):
-        call = plan_kernel(zt, fused, integrator, tb, scene, renderer, spp, depth, first)
+        call = plan_kernel(zt, fused, integrator, tb, scene, renderer, first)
         torch.cuda.synchronize()
         base = torch.cuda.memory_allocated()
         torch.cuda.reset_peak_memory_stats()
@@ -2101,7 +2077,7 @@ def walk_render(zt, fused, integrator, ch, ttrace, tb, torch, scene, spp, depth,
         plans = renderer._plan_cache[cs]
         lanes = int(plans[next(k for k in plans if k[0] == "coh")]["plan"][0].shape[0])
         ms, (_, work) = cuda_time_ms(
-            plan_kernel(zt, fused, integrator, tb, scene, renderer, spp, depth), 3)
+            plan_kernel(zt, fused, integrator, tb, scene, renderer), 3)
     best = min(times)
     mpaths = W * H * spp / best / 1e6
     out = {"render_s_best": best, "mpaths_per_s": mpaths, "launches": launches, "ms": ms,
@@ -2195,17 +2171,16 @@ def phase_walk_designs(zt, fused, integrator, tb, torch, sc, wpar, paths, render
     out = {}
     for kernel, key, name, default, (pcase, ccase) in DESIGN_CASES:
         walk = key.split()[0]
-        scene, spp, depth = sc[name], *((WALK18_BALLS_SPP, DEPTH) if name.startswith("balls")
-                                        else (WALK18_RTW_SPP, RTW_DEPTH))
+        scene = sc[name]
+        spp = WALK18_BALLS_SPP if name.startswith("balls") else WALK18_RTW_SPP
         lut = scene.compiled.has_image_textures and bool(scene.compiled.tex_lut_dims)
         run = lambda first, occ=False, sc_=scene, rnd=renderers[(kernel, key)]: plan_kernel(
-            zt, fused, integrator, tb, sc_, rnd, spp, depth, first, occ)
+            zt, fused, integrator, tb, sc_, rnd, first, occ)
         runs = {"new": (walk, run(False)), "first design": (walk, run(True))}
         occupancy = {"new": (walk, run(False, True)), "first design": (walk, run(True, True))}
         if default:
             call = lambda occ, dname=default[0], rkey=default[1]: plan_kernel(
-                zt, fused, integrator, tb, sc[dname], renderers[rkey], spp, depth,
-                occupancy=occ)
+                zt, fused, integrator, tb, sc[dname], renderers[rkey], occupancy=occ)
             runs[DEFAULT_WALK] = (DEFAULT_WALK, call(False))
             occupancy[DEFAULT_WALK] = (DEFAULT_WALK, call(True))
         cs = scene.compiled
@@ -3576,6 +3551,62 @@ def phase_tools(zt, fused, tb, integrator, ch, ttrace, torch, fbs, figures, card
     return out
 
 
+def run_harness(args, timeout=HARNESS_TIMEOUT_S):
+    """python -m zig_weekend_raytracer_tpu_torch.tools.bench ``args`` from
+    the repository root in a session of its own, killed with its children
+    past ``timeout`` s: (exit code, stdout, stderr, wall s)."""
+    env = dict(os.environ)
+    env["PYTHONPATH"] = REPO + os.pathsep + env.get("PYTHONPATH", "")
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "zig_weekend_raytracer_tpu_torch.tools.bench", *args],
+        cwd=REPO, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+        start_new_session=True,
+    )
+    try:
+        out, err = proc.communicate(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGKILL)
+        proc.communicate()
+        raise
+    return proc.returncode, out, err, time.perf_counter() - t0
+
+
+def phase_harness(card, mpaths, kernel_ms, bound) -> dict:
+    """Phase 28: the harness at each of HARNESS_RUNS; its north-star line
+    against phase 3's Mpaths/s and phase 4's kernel time and bound."""
+    out = {}
+    for args in HARNESS_RUNS:
+        tag = " ".join(args) or "north star"
+        rc, stdout, stderr, wall = run_harness(args)
+        for line in stderr.strip().splitlines()[-10:]:
+            log(f"  harness {tag} stderr: {line}")
+        lines = stdout.strip().splitlines()
+        log(f"harness {tag}: exit {rc} in {wall:.1f} s: {lines[-1] if lines else '(no line)'}")
+        if rc != 0 or not lines:
+            raise AssertionError(f"harness {tag}: exit {rc}, {len(lines)} lines")
+        rec = json.loads(lines[-1])
+        need = ("K1", "K5", "K3") if args else ("K1", "K5")
+        if (not str(rec["correctness"]).startswith("pass") or rec["device"] != card
+                or any(rec["launches"][k] < 1 for k in need)
+                or not all(rec[k] > 0 for k in ("value", "kernel_ms", "bound_ms",
+                                                "iters_per_path", "warmup_s"))):
+            raise AssertionError(f"harness {tag}: not a passing run on {card}: {rec}")
+        out[tag] = {**rec, "exit": rc, "wall_s": wall}
+    ns = out["north star"]
+    log(f"harness north star {ns['value']:.2f} Mpaths/s beside phase 3's {mpaths:.2f}; kernel "
+        f"{ns['kernel_ms']:.3f} ms beside phase 4's {kernel_ms:.3f}; bound {ns['bound_ms']:.3f} "
+        f"ms ({ns['peak_source']}) beside phase 4's {bound:.3f}; host {ns['host_ms']:.3f} ms; "
+        f"warmup {ns['warmup_s']:.3f} s ({card})")
+    for what, got, want, tol in (("value", ns["value"], mpaths, HARNESS_VALUE_AGREE),
+                                 ("kernel_ms", ns["kernel_ms"], kernel_ms, HARNESS_KERNEL_AGREE),
+                                 ("bound_ms", ns["bound_ms"], bound, HARNESS_KERNEL_AGREE)):
+        if abs(got - want) > tol * want:
+            raise AssertionError(f"harness north star {what} {got} is not within {tol:.0%} of "
+                                 f"{want}")
+    return out
+
+
 def est_kernel_times(zt, fused, torch, renderer, scene, card) -> dict:
     """The render kernel at the sorted plan of ``renderer`` (cornell
     400x400@1024 d10): the estimator instantiation (rr3) and the default
@@ -3620,6 +3651,7 @@ def main() -> int:
         from zig_weekend_raytracer_tpu_torch.ops import fused_render as fused
         from zig_weekend_raytracer_tpu_torch.ops import trace as ttrace
         from zig_weekend_raytracer_tpu_torch.render import integrator
+        from zig_weekend_raytracer_tpu_torch.tools.bench import card_name
         from zig_weekend_raytracer_tpu_torch.utils import workcount
     except ImportError as e:
         print(f"chip_smoke: the port is not importable here: {e}", file=sys.stderr)
@@ -3630,7 +3662,7 @@ def main() -> int:
 
     # ---- 1. device and build ----
     phase("1")
-    card = gpu_info()
+    card = card_name()
     kind = torch.cuda.get_device_name(0)
     log(f"gpu: {card}")
     log(f"torch {torch.__version__} cuda {torch.version.cuda} device {kind}")
@@ -3875,8 +3907,8 @@ def main() -> int:
                                 **r_kw), 3)
     log(f"bounce kernel at the coherent plan ({r_plan[0].shape[0]} lanes, {RTW_SPP} spp): "
         f"{k2_ms:.3f} ms ({card})")
-    r_launch_mib = launch_mib(zt, fused, integrator, tb, torch, rtw, r_renderer, RTW_SPP,
-                              RTW_DEPTH, "rtw_final main path's bounce kernel")
+    r_launch_mib = launch_mib(zt, fused, integrator, tb, torch, rtw, r_renderer,
+                              "rtw_final main path's bounce kernel")
     step = max(1, r_plan[0].shape[0] // SLICE_LANES)
     slice_lanes = tuple(a[::step][:SLICE_LANES].contiguous() for a in r_plan[:2])
     k2_slice, k2_counts, _ = regen_parity(
@@ -3964,8 +3996,8 @@ def main() -> int:
     log(f"render kernel with the LUT at the coherent plan ({l_plan[0].shape[0]} lanes, "
         f"{RTW_SPP} spp): {l_kernel_ms:.3f} ms; bounce kernel with the atlas: {k2_ms:.3f} ms "
         f"({card})")
-    l_launch_mib = launch_mib(zt, fused, integrator, tb, torch, rtw_lut, l_renderer, RTW_SPP,
-                              RTW_DEPTH, "rtw_final LUT main path's render kernel")
+    l_launch_mib = launch_mib(zt, fused, integrator, tb, torch, rtw_lut, l_renderer,
+                              "rtw_final LUT main path's render kernel")
     # Does the LUT, which fits the 50 MB L2, make the image path cheaper
     # than the atlas, which does not?  One best-of-3 pair is within the
     # run-to-run spread, so time both kernels on the same lanes in
@@ -4185,6 +4217,10 @@ def main() -> int:
                          "lut_32k_mean_abs_diff": s_diff}, card)
     tl = tools["launches"]
 
+    # ---- 28. the north-star harness ----
+    phase("28")
+    harness = phase_harness(card, mpaths, kernel_ms, k1_bound["bound_ms"])
+
     b_hit = hit_checks[1]
     k2_first = k2_one[0]
     k2_lut_first = k2_lut[0]
@@ -4378,7 +4414,7 @@ def main() -> int:
         "samplers": sampler_checks, "design": design,
         "variant_launches": {**variant_launches,
                              "closest_hit_flat": hits22["flat_launches"]},
-        "sweep": sweep, "resources": resources}
+        "sweep": sweep, "resources": resources, "harness": harness}
     log(f"script: {time.perf_counter() - START:.1f} s")
     print(card, flush=True)
     print(json.dumps(record), flush=True)

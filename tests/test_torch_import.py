@@ -56,7 +56,8 @@ _SCRIPT = _BLOCK + textwrap.dedent(
                  "render.adaptive_device", "models.scenefile", "parallel",
                  "parallel.mesh", "parallel.render", "io.bmp", "io.jpeg",
                  "tools.golden_check", "tools.scenebench", "tools.shard_overhead",
-                 "tools.lut_quality", "tools.quality_prodres", "tools.imgdiff"):
+                 "tools.lut_quality", "tools.quality_prodres", "tools.imgdiff",
+                 "tools.bench"):
         assert pkg.__name__ + "." + name in names, name
     import chip_smoke
     leaked = [m for m in sys.modules if m.split(".")[0] in BLOCKED]

@@ -50,7 +50,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from ..dtypes import real
+from ..dtypes import T_MIN, real
 from ..ops.bounce import supports_bounce_kernel
 from ..ops.closest_hit import closest_hit
 from ..ops.fused_render import THREADS
@@ -498,6 +498,85 @@ class Renderer:
             sampler=self.sampler, has_dof=has_dof, cam_consts=cam_c, **self._estimator(),
         )
 
+    def _plan_kind(self, cs, s_par: int) -> Optional[str]:
+        """The lane plan of a regenerating render at ``s_par``: with one
+        sample in flight per pixel the balanced plan when asked for, else
+        coherence-sorted lanes for tree scenes and cost-sorted lanes for
+        brute scenes, unless opted out; otherwise None, the plain lane
+        layout."""
+        if s_par != 1:
+            return None
+        if (self.balance_min_spp > 0 and self.samples_per_pixel >= self.balance_min_spp
+                and not os.environ.get("ZWRT_NO_BALANCE")):
+            return "balanced"
+        if cs.has_sph_tree or cs.has_quad_tree:
+            return "coherent" if os.environ.get("ZWRT_COHERENT", "1") not in ("", "0") else None
+        return None if os.environ.get("ZWRT_NO_SORT") else "sorted"
+
+    def render_lanes(self, scene: Scene, width: int, height: int):
+        """(px, py, s0, s1, stride) of the lanes that ``render_device``
+        hands the render kernel for ``scene`` at ``width`` x ``height``:
+        its cached cost-sorted or coherent plan (after the renders that
+        build it: two for a cost-sorted plan, one for a coherent plan),
+        else the plain lane layout.  Lane tensors are (N,) int32 on the
+        scene's device.  Raises for a render of more than one band, the
+        balanced driver (its plan is not kept), a plan not built yet, or a
+        scene that no render kernel takes."""
+        cs = scene.compiled
+        if not supports_bounce_kernel(cs):
+            raise ValueError("nested checkers render on the fixed-depth wavefront, which "
+                             "has no render-kernel lanes")
+        spp = self.samples_per_pixel
+        s_par, band_rows = self.regen_geometry(width, height, spp)
+        if band_rows < height:
+            raise ValueError(f"{width}x{height}@{spp} renders in more than one band")
+        kind = self._plan_kind(cs, s_par)
+        if kind == "balanced":
+            raise ValueError("the balanced driver keeps no lane plan")
+        if kind is None:
+            px, py, sidx, _ = ray_grid(width, height, 0, band_rows, 0, s_par,
+                                       pick_tile(width, band_rows), device=cs.device)
+            i32 = lambda a: a.to(torch.int32).contiguous()
+            return i32(px), i32(py), i32(sidx), i32(torch.full_like(px, spp)), s_par
+        key = (width, height, 0, spp, self.max_ray_bounce_depth, self.sampler, self.seed)
+        if kind == "coherent":
+            key = ("coh", *key)
+        entry = self._plan_cache.get(cs, {}).get(key, {})
+        if "plan" not in entry:
+            raise ValueError(f"no {kind} plan of {width}x{height}@{spp} is cached yet: "
+                             "render first")
+        return (*entry["plan"], 1)
+
+    def kernel_call(self, scene: Scene, width: int, height: int):
+        """A call that runs the scene's render kernel once over
+        ``render_lanes`` and returns (radiance V3, work) per lane: the
+        fused render kernel (``ops/fused_render.py``) where it takes the
+        scene, else the bounce kernel's regenerating mode
+        (``ops/bounce.py``) from fresh lanes, which drains every window in
+        one launch; the walk is the one the environment names at the call.
+        On CPU tensors each runs its plain version."""
+        from ..ops.bounce import bounce_regen, supports_fused_render
+        from ..ops.fused_render import render_fused
+        from .integrator import initial_regen_state
+
+        cs = scene.compiled
+        px, py, s0, s1, stride = self.render_lanes(scene, width, height)
+        kw = dict(camera_consts=camera_consts(scene.camera, width, height), sampler=self.sampler,
+                  width=width, height=height, spp=self.samples_per_pixel, stride=stride,
+                  max_depth=self.max_ray_bounce_depth,
+                  has_dof=scene.camera.has_depth_of_field,
+                  rr_start=self.russian_roulette, clamp=self.clamp_indirect)
+        if supports_fused_render(cs):
+            return lambda: render_fused(cs, px, py, s0, s1, self.seed, T_MIN, want_work=True,
+                                        **kw)
+        st0 = initial_regen_state(s0, stride)
+
+        def run():
+            st = bounce_regen(cs, st0, px, py, s1, self.seed, T_MIN, **kw)
+            return st.radiance, st.work
+
+        return run
+
     def render_supersampled(self, scene: Scene, width: int, height: int,
                             k: int = 2) -> torch.Tensor:
         """Renders at (k * width, k * height) with spp / k^2 samples per
@@ -573,20 +652,11 @@ class Renderer:
         n_bands = -(-height // band_rows)
         fb = torch.zeros((n_bands * band_rows, width, 3), dtype=real, device=cs.device)
         cam_c = camera_consts(scene.camera, width, height)
-        # s_par = 1: the balanced plan when asked for, else coherence-sorted
-        # lanes for tree scenes and cost-sorted lanes for brute scenes,
-        # unless opted out; otherwise the plain lane layout
-        tree = cs.has_sph_tree or cs.has_quad_tree
-        balance = (s_par == 1 and self.balance_min_spp > 0 and spp >= self.balance_min_spp
-                   and not os.environ.get("ZWRT_NO_BALANCE"))
-        if balance:
-            planned = self._render_band_balanced_driver
-        elif s_par == 1 and tree and os.environ.get("ZWRT_COHERENT", "1") not in ("", "0"):
-            planned = self._render_band_coherent_driver
-        elif s_par == 1 and not tree and not os.environ.get("ZWRT_NO_SORT"):
-            planned = self._render_band_sorted_driver
-        else:
-            planned = None
+        planned = {
+            "balanced": self._render_band_balanced_driver,
+            "coherent": self._render_band_coherent_driver,
+            "sorted": self._render_band_sorted_driver,
+        }.get(self._plan_kind(cs, s_par))
         for b in range(n_bands):
             y0 = b * band_rows
             if planned is not None:

@@ -60,6 +60,10 @@ UNROLLS = (1, 4, 16, 64)
 # chains, unroll) sweep
 SWEEP = ((8, 8, 1), (8, 8, 4), (8, 8, 16), (8, 8, 64), (16, 8, 64), (8, 4, 64))
 SCALING_SHAPE = (8, 8, 64)
+# the sweep's best (blocks per SM, chains, unroll) of the chains that price
+# the roofline's classes on an NVIDIA H100 80GB HBM3 at 700 W (chip_smoke.py
+# phase 1b): the shapes at which ``class_rates`` measures them
+BEST_SHAPES = {"add": (16, 8, 64), "select": (16, 8, 64), "int": (8, 8, 4)}
 ITERS, ITERS_QUICK = 400_000, 50_000
 C_VALUE = 0.999
 D_VALUE = 0.0005
@@ -235,6 +239,15 @@ def run(iters: int = ITERS) -> dict:
         "ok": not over and scaling["linear"],
         "sweep": sweep,
     }
+
+
+def class_rates(iters: int = ITERS_QUICK) -> dict:
+    """The roofline's class rates without the sweep: the ``add``,
+    ``select`` and ``int`` chains, each at its ``BEST_SHAPES`` shape (a
+    warmup launch and the best of three), as lane-operations per second by
+    class, the form ``rates`` of ``run`` takes."""
+    best = {op: measure(op, *BEST_SHAPES[op], iters) for op in RATE_OF_CLASS.values()}
+    return {cls: best[op]["gops"] * 1e9 for cls, op in RATE_OF_CLASS.items()}
 
 
 def main(argv=None) -> int:

@@ -28,13 +28,14 @@ REGIONS = os.path.join(os.path.dirname(os.path.dirname(os.path.dirname(os.path.a
     __file__)))), "tests", "golden", "scene_regions.json")
 
 
-def check_scene(name: str, ref: dict, device: str) -> str:
-    """The gate's verdict on ``name`` rendered at ``ref``'s configuration."""
+def check_scene(name: str, ref: dict, device: str, texture_lut=None) -> str:
+    """The gate's verdict on ``name`` rendered at ``ref``'s configuration
+    (``texture_lut`` as ``models.load_scene`` takes it)."""
     from ..models import load_scene
     from ..render.renderer import Renderer
     from ..utils.goldengate import check_framebuffer
 
-    scene = load_scene(name, device=device)
+    scene = load_scene(name, device=device, texture_lut=texture_lut)
     fb = Renderer(samples_per_pixel=ref["spp"], max_ray_bounce_depth=ref["depth"],
                   seed=0).render(scene, ref["width"], ref["height"])
     return check_framebuffer(fb, ref["mean"], np.asarray(ref["region_means"]))

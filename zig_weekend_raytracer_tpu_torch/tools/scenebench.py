@@ -28,18 +28,17 @@ from . import card_missing, synchronizer
 FLAGS = ("rr", "clamp", "adaptive", "denoise", "shard", "supersample", "device")
 
 
-def parse(argv):
+def parse(argv, flags=FLAGS):
     """(positional arguments, {flag: value}) with the JAX tool's checks and
-    messages; a bare ``--flag`` is "1"."""
+    messages; a bare ``--flag`` is "1"; ``flags`` are the flags taken."""
     args = [a for a in argv if not a.startswith("--")]
     opts = dict(a[2:].split("=", 1) if "=" in a else (a[2:], "1")
                 for a in argv if a.startswith("--"))
-    unknown = set(opts) - set(FLAGS)
+    unknown = set(opts) - set(flags)
     if unknown:
         raise SystemExit(
             f"unknown flags {sorted(unknown)} "
-            "(valid: --rr --clamp --adaptive --denoise --shard "
-            "--supersample --device)"
+            f"(valid: {' '.join('--' + f for f in flags)})"
         )
     return args, opts
 

@@ -32,7 +32,8 @@ same inputs, or on a slice of them scaled to the kernel's own bounce count.
 
 from __future__ import annotations
 
-from ..sampling.sobol import MAX_SPP_LOG2, SOBOL_MATRIX_SIZE
+from ..sampling.sampler import sobol_log2_scale
+from ..sampling.sobol import MAX_SPP_LOG2, SOBOL_MATRIX_SIZE, sobol_sample_bytes
 from ..scene import PRIM_SPHERE
 from ..textures import image_table
 
@@ -43,6 +44,11 @@ PEAK_FP32_OPS = 33.5e12
 PEAK_BYTES = 3.35e12     # HBM3 bytes per second
 CLASSES = ("fp", "cmp", "int")
 DATA_SHEET_RATES = {"fp": PEAK_FP32_OPS, "cmp": PEAK_FP32_OPS / 2, "int": PEAK_FP32_OPS / 2}
+# bytes a lane of a render-kernel run reads and writes beside the tables:
+# K1 its lane table (px, py, s0, s1) in and its radiance and work out; K2's
+# regenerating mode 13 float and 5 int state rows and (px, py, limit) in
+# and the 18 state rows out
+LANE_BYTES = {"K1": 16 + 16, "K2": 84 + 72}
 
 
 def _ops(fp=0, cmp=0, int=0):
@@ -281,3 +287,24 @@ def bound_ms(ops, nbytes: float, ops_rate=None):
     rate, or None for the data sheet's), ``nbytes`` over ``PEAK_BYTES``."""
     t_ops, t_bytes = ops_seconds(ops, ops_rate), nbytes / PEAK_BYTES
     return (max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes")
+
+
+def render_bound(scene, counts, kernel_work, lane_bytes, has_dof: bool, spp: int, width: int,
+                 height: int, loop_sobol: bool = False, walk=None, ops_rate=None) -> dict:
+    """The bound of a render-kernel run (K1, or K2's regenerating mode) at
+    ``width`` x ``height`` and ``spp`` whose lanes did ``kernel_work``
+    bounces in all: the plain version's ``counts`` (on a slice) scaled to
+    that bounce count, the Sobol respawn in its factored form (or its bit
+    loops, ``loop_sobol``), at ``ops_rate`` (``bound_ms``); bytes are
+    ``lane_bytes`` (what the lanes read and write) and the tables the
+    kernel reads, the trace's under ``walk``.  Returns ``bound_ms``,
+    ``bound_by``, the operations by class (``bound_ops``), the bytes
+    (``bound_bytes``) and ``peak_source``."""
+    factor = float(kernel_work) / max(counts.get("bounce", 0), 1)
+    n_bytes = sobol_sample_bytes(spp)
+    ops = render_ops(scaled(counts, factor), scene, has_dof,
+                     sobol=(sobol_log2_scale(width, height), n_bytes, loop_sobol))
+    nbytes = lane_bytes + render_table_bytes(scene, 0 if loop_sobol else n_bytes, walk)
+    ms, by = bound_ms(ops, nbytes, ops_rate)
+    return {"bound_ms": ms, "bound_by": by, "bound_ops": ops, "bound_bytes": nbytes,
+            "peak_source": peak_source(ops_rate)}
