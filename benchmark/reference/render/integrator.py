@@ -1,0 +1,363 @@
+"""The plain PyTorch integrator: the estimator that the render kernel K1
+computes, bounce for bounce, on (N,) tensors.
+
+``render_fused_reference`` renders a lane plan.  Each lane owns one pixel
+and a sample window [s0, s1) walked with ``stride``; a lane whose path
+ended respawns its pixel's next sample, so a pass of the drain loop is:
+respawn, ``work += alive``, trace, shade, scatter (``bounce``).
+
+Semantics (the upstream rayColor, unrolled into a throughput product):
+miss -> background and the path ends; emission on front faces; emissive
+hits and absorbed metal end the path; specular materials multiply by their
+attenuation; diffuse scatter uses the 50/50 mixture of the light-list PDF
+and the material PDF when the scene has lights; a zero-probability sample
+or a path whose throughput hits exactly zero ends; a path ends after
+``max_depth`` bounces.  The trace is ``ops/trace.py:closest_hit`` (brute
+scan, or the cond walk of each kind's group tree); camera rays start on
+the defocus disk when the camera has depth of field.  All randomness is
+content-addressed by (seed, ray id, site): bounce d draws at sites
+8 + 4d + k (k = 0 scatter, 1 light mixture, 2 gaussian triple, 3 Russian
+roulette).
+
+Two estimator options, both off unless asked for: Russian roulette from
+bounce ``rr_start`` on (a live path continues with p = clamp(max(incoming
+throughput), RR_P_MIN, 1) against the site-3 draw and carries 1 / p), and
+the indirect clamp (a contribution landed at bounce d >= 1 is scaled so
+that its luminance is at most ``clamp``); both are off on an image scene
+without a texture LUT.  ``utils/workcount.py`` counts what a pass does,
+for the roofline bound (``benchmark/roofline.py``).
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from ..dtypes import INF, LUM_B, LUM_G, LUM_R, T_MIN, real
+from ..materials import schlick_reflectance, scattering_pdf
+from ..math import v3
+from ..math.v3 import V3
+from ..ops.shade import shade_attrs
+from ..ops.trace import closest_hit
+from ..sampling import hashrng
+from ..scene import (
+    MAT_DIELECTRIC,
+    MAT_DIFFUSE_LIGHT,
+    MAT_ISOTROPIC,
+    MAT_LAMBERTIAN,
+    MAT_METAL,
+    PRIM_SPHERE,
+    CompiledScene,
+)
+from ..textures import checker_parity, image_lookup, texture_value
+from ..utils import workcount
+from .camera import camera_params_from_consts, generate_rays
+from .pdfs import light_pdf_value, sample_light_direction
+
+
+BOUNCE_BASE = 8
+SITES_PER_BOUNCE = 4
+_MATERIALS = (
+    (MAT_LAMBERTIAN, "lambertian"), (MAT_ISOTROPIC, "isotropic"), (MAT_METAL, "metal"),
+    (MAT_DIELECTRIC, "dielectric"), (MAT_DIFFUSE_LIGHT, "emissive"),
+)
+
+
+def texture_rgb(scene: CompiledScene, det):
+    """Texture value at a hit from its shade record: solid -> rgb; checker
+    -> the lattice parity picks rgb / rgb2 or an image child; image -> the
+    texel at (u, v), from the texture LUT when the scene has one (as the
+    JAX whole-render kernel fetches it, pallas_bounce.py:1391-1401) and
+    from the atlas otherwise.  Nested checkers do not fit the record: their
+    scenes take the general walk from the record's texture id
+    (``textures.py:texture_value``, the atlas texel, as in the JAX
+    package).  Returns (colour, image id or -1; None without record
+    images)."""
+    if scene.has_nested_checker:
+        return texture_value(scene, det.texid, det.u, det.v, det.point), None
+    odd = (det.tex_kind == 1) & (checker_parity(det.inv_scale, det.point) != 0)
+    rgb = V3.where(odd, det.rgb2, det.rgb)
+    if not scene.has_image_textures:
+        return rgb, None
+    img_id = torch.where(odd, det.img2, det.img)
+    img_rgb = image_lookup(scene, torch.clamp(img_id, min=0), det.u, det.v)
+    return V3.where(img_id >= 0, img_rgb, rgb), img_id
+
+
+def estimator_options(scene: CompiledScene, rr_start, clamp):
+    """(rr_start, clamp) as the kernels apply them: both off (0, 0.0) on
+    an image scene without a texture LUT, as the JAX kernels' config gates
+    them (pallas_bounce.py:_base_cfg); ``clamp`` as its float32 value."""
+    if scene.has_image_textures and not scene.tex_lut_dims:
+        return 0, 0.0
+    return int(rr_start), float(np.float32(clamp))
+
+
+def _clamp_contrib(c: V3, depth, clamp: float) -> V3:
+    """A radiance contribution landed at bounce ``depth``, scaled where
+    depth >= 1 so that its luminance is at most ``clamp``."""
+    lum = LUM_R * c.x + LUM_G * c.y + LUM_B * c.z
+    scale = torch.where((depth >= 1) & (lum > clamp),
+                        clamp / torch.clamp(lum, min=1e-20), 1.0)
+    return c * scale
+
+
+def _count_bounce(alive, missed, hitmask, hit, det, img_id):
+    workcount.add("bounce", alive.sum())
+    workcount.add("miss", missed.sum())
+    for code, name in _MATERIALS:
+        workcount.add(f"hit_{name}", (hitmask & (det.mat_type == code)).sum())
+    workcount.add("checker", (hitmask & (det.tex_kind == 1)).sum())
+    is_sphere = hit.kind == PRIM_SPHERE
+    workcount.add("hit_sphere", (hitmask & is_sphere).sum())
+    if img_id is not None:
+        texel = hitmask & (img_id >= 0)
+        workcount.add("texel_sphere", (texel & is_sphere).sum())
+        workcount.add("texel_quad", (texel & ~is_sphere).sum())
+
+
+def bounce(
+    scene: CompiledScene, seed, t_min, depth: torch.Tensor,
+    origin: V3, direction: V3, time, ray_id, throughput: V3, radiance: V3,
+    alive: torch.Tensor, rr_start: int = 0, clamp: float = 0.0, *, trace=closest_hit,
+):
+    """One masked integrator bounce for every lane: the plain version of
+    the bounce kernel's one-bounce mode.  ``depth`` is each lane's bounce
+    index (or one for all); ``rr_start`` and ``clamp`` the estimator
+    options, gated by ``estimator_options``.  ``trace`` finds the hits
+    (``ops/trace.py:closest_hit``; ``trace_paths`` passes the closest-hit
+    kernel's wrapper).  Returns (origin', direction', throughput',
+    radiance', survives)."""
+    bounce.calls += 1
+    rr_start, clamp = estimator_options(scene, rr_start, clamp)
+    n = origin.shape[0]
+    dev = origin.x.device
+    site = BOUNCE_BASE + depth.to(torch.int64) * SITES_PER_BOUNCE
+    u0, u1, u2, u3 = hashrng.uniform4(seed, ray_id, site)
+    if scene.has_lights:
+        u4, u5, u6, _ = hashrng.uniform4(seed, ray_id, site + 1)
+    if scene.needs_gauss:
+        gauss = hashrng.gauss3(seed, ray_id, site + 2)
+    if rr_start:
+        u_rr = hashrng.uniform1(seed, ray_id, site + 3)
+
+    hit = trace(scene, origin, direction, time, t_min, INF, active=alive)
+    det = shade_attrs(scene, hit, origin, direction, time)
+
+    hit_any = hit.kind >= 0
+    hitmask = alive & hit_any
+    missed = alive & ~hit_any
+    zeros = V3.zeros((n,), dev)
+    contrib = ((lambda c: _clamp_contrib(c, depth, clamp)) if clamp
+               else (lambda c: c))
+    radiance = radiance + V3.where(missed, contrib(throughput * scene.background), zeros)
+
+    mat_type = det.mat_type
+    tex_rgb, img_id = texture_rgb(scene, det)
+    if workcount.enabled():
+        _count_bounce(alive, missed, hitmask, hit, det, img_id)
+
+    # ---- emission ----
+    is_emissive = mat_type == MAT_DIFFUSE_LIGHT
+    emits = hitmask & is_emissive & det.front
+    radiance = V3.where(emits, radiance + contrib(throughput * tex_rgb), radiance)
+
+    # ---- metal ----
+    reflected = v3.reflect(direction, det.normal)
+    if scene.needs_gauss:
+        fuzz = torch.clamp(det.fuzz, 0.0, 1.0)
+        metal_dir = reflected + hashrng.unit_sphere(gauss) * fuzz
+    else:
+        metal_dir = reflected
+    metal_ok = v3.dot(metal_dir, det.normal) > 0.0
+
+    # ---- dielectric ----
+    ri = det.refract
+    index = torch.where(det.front, 1.0 / ri, ri)
+    unit_in = v3.normalize(direction)
+    cos_theta = torch.clamp(v3.dot(-unit_in, det.normal), max=1.0)
+    sin_theta = torch.sqrt(torch.clamp(1.0 - cos_theta * cos_theta, min=0.0))
+    must_reflect = (index * sin_theta > 1.0) | (schlick_reflectance(cos_theta, ri) > u0)
+    diel_dir = V3.where(
+        must_reflect,
+        v3.reflect(unit_in, det.normal),
+        v3.refract(unit_in, det.normal, index),
+    )
+
+    # ---- diffuse sampling (lambertian cosine / isotropic sphere) ----
+    basis = v3.ortho_basis(det.normal)
+    cosine_dir = v3.onb_transform(basis, hashrng.cosine_direction_z(u1, u2))
+    if scene.needs_gauss:
+        is_iso = mat_type == MAT_ISOTROPIC
+        mat_sample_dir = V3.where(is_iso, hashrng.unit_sphere(gauss), cosine_dir)
+    else:
+        mat_sample_dir = cosine_dir
+
+    if scene.has_lights:
+        light_dir = sample_light_direction(scene, det.point, u4, u5, u6)
+        diff_dir = V3.where(u3 < 0.5, light_dir, mat_sample_dir)
+        mat_pdf = scattering_pdf(mat_type, det.normal, diff_dir)
+        l_pdf = light_pdf_value(scene, det.point, diff_dir)
+        sample_pdf = 0.5 * l_pdf + 0.5 * mat_pdf
+        scatter_pdf = mat_pdf
+    else:
+        diff_dir = mat_sample_dir
+        scatter_pdf = scattering_pdf(mat_type, det.normal, diff_dir)
+        sample_pdf = scatter_pdf
+
+    pdf_ok = sample_pdf > 0.0
+    pdf_ratio = torch.where(
+        pdf_ok, scatter_pdf / torch.where(pdf_ok, sample_pdf, 1.0), 0.0
+    )
+    diffuse_mult = tex_rgb * pdf_ratio
+
+    # ---- combine by material type ----
+    is_metal = mat_type == MAT_METAL
+    is_diel = mat_type == MAT_DIELECTRIC
+    new_dir = V3.where(
+        is_metal | is_diel, V3.where(is_metal, metal_dir, diel_dir), diff_dir
+    )
+    one = V3.full((n,), 1.0, 1.0, 1.0, dev)
+    mult = V3.where(is_metal, det.rgb, V3.where(is_diel, one, diffuse_mult))
+
+    survives = hitmask & ~is_emissive & ~(is_metal & ~metal_ok)
+    incoming = throughput
+    throughput = V3.where(survives, throughput * mult, throughput)
+    nonzero = (throughput.x != 0.0) | (throughput.y != 0.0) | (throughput.z != 0.0)
+    survives = survives & nonzero
+    if rr_start:
+        # p from the incoming throughput; survivors carry 1 / p
+        p_rr = torch.clamp(
+            torch.maximum(incoming.x, torch.maximum(incoming.y, incoming.z)),
+            hashrng.RR_P_MIN, 1.0,
+        )
+        apply_rr = alive & (depth >= rr_start)
+        survives = survives & ~(apply_rr & (u_rr >= p_rr))
+        throughput = throughput * torch.where(apply_rr, 1.0 / p_rr, 1.0)
+    return (
+        V3.where(hitmask, det.point, origin),
+        V3.where(hitmask, new_dir, direction),
+        throughput,
+        radiance,
+        survives,
+    )
+
+
+bounce.calls = 0
+
+
+class RegenState(NamedTuple):
+    """Per-lane state of the regenerating drain.  ``ray_id`` holds u32
+    values in int64; ``sample`` is the lane's current sample, ``bounce``
+    its path's bounce index and ``work`` the count of loop passes in which
+    the lane was alive (int32)."""
+
+    origin: V3
+    direction: V3
+    time: torch.Tensor
+    ray_id: torch.Tensor
+    throughput: V3
+    radiance: V3
+    alive: torch.Tensor
+    sample: torch.Tensor
+    bounce: torch.Tensor
+    work: torch.Tensor
+
+
+def initial_regen_state(first_sample: torch.Tensor, stride: int) -> RegenState:
+    """Every lane dead, one stride before its first sample, so that the
+    first pass respawns it."""
+    n = first_sample.shape[0]
+    dev = first_sample.device
+    i32 = lambda: torch.zeros((n,), dtype=torch.int32, device=dev)
+    return RegenState(
+        origin=V3.zeros((n,), dev),
+        direction=V3.full((n,), 0.0, 0.0, 1.0, dev),
+        time=torch.zeros((n,), dtype=real, device=dev),
+        ray_id=torch.zeros((n,), dtype=torch.int64, device=dev),
+        throughput=V3.full((n,), 1.0, 1.0, 1.0, dev),
+        radiance=V3.zeros((n,), dev),
+        alive=torch.zeros((n,), dtype=torch.bool, device=dev),
+        sample=(first_sample.to(torch.int64) - stride).to(torch.int32),
+        bounce=i32(),
+        work=i32(),
+    )
+
+
+def _drain(
+    scene: CompiledScene, st: RegenState, px, py, limit, seed, t_min, *,
+    camera_consts, sampler, width: int, height: int, spp: int, stride: int,
+    max_depth: int, has_dof: bool, rr_start: int = 0, clamp: float = 0.0,
+) -> RegenState:
+    """Run every lane until its window is used up: respawn, work, bounce."""
+    cam = camera_params_from_consts(camera_consts)
+    px = px.to(torch.int64)
+    py = py.to(torch.int64)
+    limit = limit.to(torch.int64)
+    sample = st.sample.to(torch.int64)
+    depth = st.bounce.to(torch.int64)
+    origin, direction, time, ray_id = st.origin, st.direction, st.time, st.ray_id
+    throughput, radiance, alive, work = st.throughput, st.radiance, st.alive, st.work
+    one = V3.full((px.shape[0],), 1.0, 1.0, 1.0, px.device)
+
+    while bool(torch.any(alive | (sample + stride < limit))):
+        # respawn: dead lanes take their pixel's next sample
+        next_sample = sample + stride
+        respawn = ~alive & (next_sample < limit)
+        if workcount.enabled():
+            workcount.add("camera_ray", respawn.sum())
+        sample = torch.where(respawn, next_sample, sample)
+        new_rid = ((sample * height + py) * width + px) & hashrng.U32_MASK
+        ray_id = torch.where(respawn, new_rid, ray_id)
+        o_new, d_new, t_new = generate_rays(
+            cam, has_dof, sampler, seed, new_rid, px, py, sample,
+            spp, width, height,
+        )
+        origin = V3.where(respawn, o_new, origin)
+        direction = V3.where(respawn, d_new, direction)
+        time = torch.where(respawn, t_new, time)
+        throughput = V3.where(respawn, one, throughput)
+        depth = torch.where(respawn, 0, depth)
+        alive = alive | respawn
+        work = work + alive.to(torch.int32)
+
+        origin, direction, throughput, radiance, survives = bounce(
+            scene, seed, t_min, depth, origin, direction, time, ray_id,
+            throughput, radiance, alive, rr_start, clamp,
+        )
+        depth = depth + 1
+        alive = survives & (depth < max_depth)
+
+    return RegenState(
+        origin, direction, time, ray_id, throughput, radiance, alive,
+        sample.to(torch.int32), depth.to(torch.int32), work,
+    )
+
+
+def render_fused_reference(
+    scene: CompiledScene,
+    px: torch.Tensor, py: torch.Tensor, s0: torch.Tensor, s1: torch.Tensor,
+    seed: int, t_min: float, *,
+    camera_consts, sampler, width: int, height: int, spp: int, stride: int,
+    max_depth: int, has_dof: bool, want_work: bool = False,
+    rr_start: int = 0, clamp: float = 0.0,
+):
+    """Plain PyTorch version of the fused render kernel.  Per lane, renders
+    samples s0, s0 + stride, ... below s1 of pixel (px, py) and returns the
+    radiance sum as V3 (+ the per-lane count of loop passes in which the
+    lane was alive, int32, when ``want_work``)."""
+    render_fused_reference.calls += 1
+    st = _drain(
+        scene, initial_regen_state(s0, stride), px, py, s1, seed, t_min,
+        camera_consts=camera_consts, sampler=sampler, width=width,
+        height=height, spp=spp, stride=stride, max_depth=max_depth,
+        has_dof=has_dof, rr_start=rr_start, clamp=clamp,
+    )
+    if want_work:
+        return st.radiance, st.work
+    return st.radiance
+
+
+render_fused_reference.calls = 0
