@@ -2377,7 +2377,7 @@ def aov_pass(zt, torch, ch, ttrace, scene, card) -> dict:
             raise AssertionError(f"AOV pass {scene.name}: bad {k} buffer")
     if not 0.0 < float(out["coverage"].mean()) <= 1.0:
         raise AssertionError(f"AOV pass {scene.name}: nothing hit")
-    _, agg = profiler.run_with_device_trace(run)
+    _, agg, _ = profiler.run_with_device_trace(run)
     k3_ms = agg.get("closest_hit_kernel", (0, 0.0))[1]
     device_ms = sum(v[1] for v in agg.values())
     kernels = sum(v[0] for v in agg.values())
@@ -3188,7 +3188,7 @@ def phase_fixed_depth(zt, fused, tb, integrator, ch, ttrace, torch, cornell, fb_
         chunk()
         torch.cuda.synchronize()
         chunk_walls.append(time.perf_counter() - t0)
-    _, agg = profiler.run_with_device_trace(chunk)
+    _, agg, _ = profiler.run_with_device_trace(chunk)
     k3_n, k3_ms = agg.get("closest_hit_kernel", (0, 0.0))
     device_ms = sum(v[1] for v in agg.values())
     idle = 1.0 - device_ms / (min(chunk_walls) * 1e3)

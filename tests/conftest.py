@@ -31,6 +31,10 @@ jax.config.update("jax_threefry_partitionable", True)
 assert len(jax.devices()) == 8, jax.devices()
 
 
+def pytest_configure(config):
+    config.addinivalue_line("markers", "card: needs a CUDA card; skipped without one")
+
+
 @pytest.fixture()
 def pallas_interpret():
     """Force the Pallas kernel path (interpret mode) for one test — the

@@ -83,8 +83,9 @@ class UserArgs:
     # first-hit AOV buffers (render/aov.py), written as
     # <image_out_path>.{albedo,normal,depth}.png
     aov: bool = False
-    # zone tables after the render: host (wall-clock per named_zone) or
-    # device (per-kernel device ms from a torch.profiler capture)
+    # tables after the render: host (wall-clock per span, then the
+    # counters) or device (per-kernel device ms from a torch.profiler
+    # capture, then the device's idle ms by span)
     profile: str = "off"
 
 
@@ -228,8 +229,9 @@ def _run(args: UserArgs, device, profile_mode: str, timer: Timer) -> int:
     device_table = None
     t_render0 = time.perf_counter()
     if profile_mode == "device":
-        fb, agg = profiler.run_with_device_trace(do_render)
-        device_table = profiler.format_device_summary(agg)
+        fb, agg, idle = profiler.run_with_device_trace(do_render)
+        device_table = (profiler.format_device_summary(agg) + "\n"
+                        + profiler.format_idle_summary(idle))
     else:
         fb = do_render()
     render_s = time.perf_counter() - t_render0

@@ -83,7 +83,9 @@
 // (zwrt_device.cuh:set_walk); ``flags`` the instantiation
 // (render_kernels.cuh): 0 by default, kFlagEstimator for Russian roulette
 // and the indirect clamp, or a measurement variant, whose kFlagProf writes
-// ``out_prof``.
+// ``out_prof``.  ``out_blocks``, null or a zeroed buffer of kBlockStampCols
+// uint64 a block, takes the default and estimator instantiations' block
+// stamps (render_kernels.cuh:stamp_block_start); the variants take none.
 // Launches on ``stream`` and returns the launch's cudaError_t; with
 // ``occupancy`` set it launches nothing and writes there the
 // instantiation's blocks per SM and dynamic shared memory
@@ -93,7 +95,8 @@ extern "C" int zwrt_fused_render(
     const void* const* trace_ptrs, const void* const* nodes, int n_images, const int* image_dims,
     const int* image_texels,
     const int* px, const int* py, const int* s0, const int* s1, const float* shade_rows,
-    const uint32_t* sobol, float* out_rad, int* out_work, long long* out_prof, int walk,
+    const uint32_t* sobol, float* out_rad, int* out_work, long long* out_prof,
+    unsigned long long* out_blocks, int walk,
     int flags, int q_cap, int* queue, int queue_len, int n, int* occupancy, void* stream) {
   using namespace zwrt;
   if (n <= 0) return 0;
@@ -103,7 +106,7 @@ extern "C" int zwrt_fused_render(
                         queue_len, n, occupancy, stream);
   if (err != 0) return err;
   if (flags == kFlagEstimator)
-    return fused_render_estimator(L, px, py, s0, s1, out_rad, out_work);
+    return fused_render_estimator(L, px, py, s0, s1, out_rad, out_work, out_blocks);
   if (flags != 0) return fused_render_variant(flags, L, px, py, s0, s1, out_rad, out_work, out_prof);
-  return launch_fused_render<0>(L, px, py, s0, s1, out_rad, out_work, nullptr);
+  return launch_fused_render<0>(L, px, py, s0, s1, out_rad, out_work, nullptr, out_blocks);
 }

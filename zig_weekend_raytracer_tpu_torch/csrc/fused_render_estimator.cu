@@ -11,8 +11,10 @@
 namespace zwrt {
 
 int fused_render_estimator(const RenderLaunch& L, const int* px, const int* py, const int* s0,
-                           const int* s1, float* out_rad, int* out_work) {
-  return launch_fused_render<kFlagEstimator>(L, px, py, s0, s1, out_rad, out_work, nullptr);
+                           const int* s1, float* out_rad, int* out_work,
+                           unsigned long long* out_blocks) {
+  return launch_fused_render<kFlagEstimator>(L, px, py, s0, s1, out_rad, out_work, nullptr,
+                                             out_blocks);
 }
 
 }  // namespace zwrt

@@ -18,14 +18,17 @@ int fused_render_variant(int flags, const RenderLaunch& L, const int* px, const 
                          long long* out_prof) {
   switch (flags) {
     case kFlagProf:
-      return launch_fused_render<kFlagProf>(L, px, py, s0, s1, out_rad, out_work, out_prof);
+      return launch_fused_render<kFlagProf>(L, px, py, s0, s1, out_rad, out_work, out_prof,
+                                            nullptr);
     case kFlagLoopSobol:
-      return launch_fused_render<kFlagLoopSobol>(L, px, py, s0, s1, out_rad, out_work, out_prof);
+      return launch_fused_render<kFlagLoopSobol>(L, px, py, s0, s1, out_rad, out_work,
+                                                 out_prof, nullptr);
     case kFlagProf | kFlagLoopSobol:
       return launch_fused_render<kFlagProf | kFlagLoopSobol>(L, px, py, s0, s1, out_rad, out_work,
-                                                             out_prof);
+                                                             out_prof, nullptr);
     case kFlagFirstWalk:
-      return launch_fused_render<kFlagFirstWalk>(L, px, py, s0, s1, out_rad, out_work, out_prof);
+      return launch_fused_render<kFlagFirstWalk>(L, px, py, s0, s1, out_rad, out_work,
+                                                 out_prof, nullptr);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -22,6 +22,12 @@
 // kWalkQueue keeps its per-thread leaf queues (zwrt_device.cuh:
 // bounded_queue), and kWalkRowQueue's current design stages packed tree
 // nodes (stage_nodes) at every block's start and keeps its warp queues.
+//
+// The render kernel's ``out_blocks``, when not null, takes kBlockStampCols
+// uint64 a block (stamp_block_start, stamp_block_end); the production
+// launches pass null, ops/fused_render.py:render_fused passes a zeroed
+// buffer while the port's profiler records.  Like ``out_work`` it is a
+// runtime argument, so it adds no instantiation.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -40,6 +46,37 @@ __device__ __forceinline__ void write_prof(long long* out, const Prof& pr, int i
   out[(size_t)(3 * kPhases) * n + i] = pr.total;
 }
 
+// A block's stamps, kBlockStampCols uint64 zeroed by the caller: its SM, and
+// %globaltimer (the card's nanosecond clock) when thread 0 has staged the
+// block's tables and when the block's last live thread has finished (the
+// largest of its threads' ends, a reduction that returns nothing).  Placed
+// so that no default or estimator instantiation takes another register
+// (chip_smoke.py:DEFAULT_RESOURCES; stamping the start at the kernel's
+// entry cost the queue walk's estimator eight).
+constexpr int kBlockStampCols = 3;
+
+__device__ __forceinline__ unsigned long long global_ns() {
+  unsigned long long t;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+  return t;
+}
+
+__device__ __forceinline__ unsigned long long* stamp_row(unsigned long long* b) {
+  return b + (size_t)kBlockStampCols * blockIdx.x;
+}
+
+__device__ __forceinline__ void stamp_block_start(unsigned long long* b) {
+  stamp_row(b)[1] = global_ns();
+}
+
+__device__ __forceinline__ void stamp_block_end(unsigned long long* b) {
+  unsigned sm;
+  asm volatile("mov.u32 %0, %%smid;" : "=r"(sm));
+  b = stamp_row(b);
+  b[0] = sm;
+  atomicMax(b + 2, global_ns());
+}
+
 template <bool IMAGES, int WALK, int FLAGS>
 __global__ void __launch_bounds__(kThreads) fused_render_kernel(
     const __grid_constant__ Params p, const int* __restrict__ lane_px,
@@ -47,11 +84,13 @@ __global__ void __launch_bounds__(kThreads) fused_render_kernel(
     const int* __restrict__ lane_s1, const __grid_constant__ TraceScene scene,
     const __grid_constant__ Images images, const float* __restrict__ shade_rows,
     const uint32_t* __restrict__ sobol, float* __restrict__ out_rad,
-    int* __restrict__ out_work, long long* __restrict__ out_prof, int n) {
+    int* __restrict__ out_work, long long* __restrict__ out_prof,
+    unsigned long long* __restrict__ out_blocks, int n) {
   if (!(FLAGS & kFlagLoopSobol)) stage_sobol(p);
   if (WALK == kWalkRowQueue) stage_nodes(scene);
   int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
+  if (out_blocks && threadIdx.x == 0) stamp_block_start(out_blocks);
   Path s;
   s.o = mk(0.0f, 0.0f, 0.0f);
   s.d = mk(0.0f, 0.0f, 1.0f);
@@ -70,6 +109,7 @@ __global__ void __launch_bounds__(kThreads) fused_render_kernel(
   out_rad[2 * n + i] = s.rad.z;
   if (out_work) out_work[i] = work;
   if (FLAGS & kFlagProf) write_prof(out_prof, prof, i, n);
+  if (out_blocks) stamp_block_end(out_blocks);
 }
 
 // State rows, as ops/bounce.py packs them: floats ox oy oz dx dy dz thx
@@ -228,7 +268,8 @@ inline int dispatch_flags_walk(const TraceScene& scene, int walk, F f) {
 
 template <int FLAGS>
 int launch_fused_render(const RenderLaunch& L, const int* px, const int* py, const int* s0,
-                        const int* s1, float* out_rad, int* out_work, long long* out_prof) {
+                        const int* s1, float* out_rad, int* out_work, long long* out_prof,
+                        unsigned long long* out_blocks) {
   if ((FLAGS & kFlagProf) && out_prof == nullptr) return (int)cudaErrorInvalidValue;
   const int blocks = (L.n + kThreads - 1) / kThreads;
   TraceScene scene = L.scene;
@@ -242,7 +283,8 @@ int launch_fused_render(const RenderLaunch& L, const int* px, const int* py, con
     auto kernel = fused_render_kernel<false, W, FLAGS>;
     if (L.images.texels) kernel = fused_render_kernel<true, W, FLAGS>;
     return launch_or_report(L, kernel, blocks, smem, L.p, px, py, s0, s1, scene, L.images,
-                            L.shade_rows, L.sobol, out_rad, out_work, out_prof, L.n);
+                            L.shade_rows, L.sobol, out_rad, out_work, out_prof, out_blocks,
+                            L.n);
   });
 }
 
@@ -312,7 +354,8 @@ int bounce_variant(int flags, const RenderLaunch& L, float* fstate, int* istate,
 // The estimator instantiations, defined in fused_render_estimator.cu and
 // bounce_estimator.cu.
 int fused_render_estimator(const RenderLaunch& L, const int* px, const int* py, const int* s0,
-                           const int* s1, float* out_rad, int* out_work);
+                           const int* s1, float* out_rad, int* out_work,
+                           unsigned long long* out_blocks);
 int bounce_estimator(const RenderLaunch& L, float* fstate, int* istate, const int* px,
                      const int* py, const int* limit, int regen, int depth);
 

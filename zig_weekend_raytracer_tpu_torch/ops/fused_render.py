@@ -36,6 +36,14 @@ and uni walks.  No path of the renderer launches them, and
 ``render_fused_occupancy`` launches nothing: it reports the blocks per SM
 and the shared memory of the instantiation a launch would take.
 
+While ``utils/profiler.py`` records, ``render_fused`` asks every launch
+for its work counts and, on the card, for its blocks' stamps (the
+launcher's ``out_blocks``: each block's SM and its start and end on the
+card's global nanosecond clock), and counts on the card ``k1.lane_work``
+and ``k1.warp_work`` (``lane_sums``), ``k1.block_ns`` and ``k1.slot_ns``
+(``block_sums``); nothing waits for the card until the profiler's
+``snapshot`` reads them.  Recording changes no output.
+
 Each launch of the render and bounce kernels takes the tree walk of
 ``ops/trace.py:walk_of`` as it reads then (the unified tree when the scene
 has one, else ``ZWRT_TRAV``) and the instantiation compiled for that walk;
@@ -63,11 +71,13 @@ from ..sampling import sobol as _sobol
 from ..sampling.sampler import SamplerKind, sobol_log2_scale
 from ..scene import PRIM_QUAD, PRIM_SPHERE, CompiledScene
 from ..textures import image_table
+from ..utils import profiler
 from . import _build
 from .trace import QUEUE_CAP, WALKS, WARP, walk_of
 
 # Must match csrc/zwrt_device.cuh and csrc/render_kernels.cuh.
 LIGHT_FLOATS = 17
+BLOCK_STAMP_COLS = 3    # a block's SM, start ns, end ns (render_kernels.cuh:kBlockStampCols)
 IMAGE_DIMS = 4          # w, h, base, row stride per image
 PROF_PHASES = ("respawn", "trace", "shade")
 PROF_COLS = 3 * len(PROF_PHASES) + 1  # cycles, entries, active lanes; total
@@ -482,14 +492,32 @@ def render_fused(
     kw = dict(camera_consts=camera_consts, sampler=sampler, width=width, height=height,
               spp=spp, stride=stride, max_depth=max_depth, has_dof=has_dof,
               rr_start=rr_start, clamp=clamp)
+    record = profiler.recording()
     if px.device.type == "cpu":
         _check_supported(scene)
-        return render_fused_reference(scene, px, py, s0, s1, seed, t_min,
-                                      want_work=want_work, **kw)
-    flags, kw["rr_start"], kw["clamp"] = estimator_flags(scene, rr_start, clamp)
-    rad, work, _, walk = _launch(scene, px, py, s0, s1, seed, t_min, flags, want_work, **kw)
-    render_fused.launches[walk] += 1
-    render_fused.estimator_launches += bool(flags)
+        rad, work = render_fused_reference(scene, px, py, s0, s1, seed, t_min,
+                                           want_work=True, **kw)
+    else:
+        stamps = slots = None
+        if record and px.shape[0]:
+            blocks_per_sm, _ = render_fused_occupancy(scene, px, py, s0, s1, seed, t_min, **kw)
+            slots = blocks_per_sm * torch.cuda.get_device_properties(
+                px.device).multi_processor_count
+            stamps = torch.zeros((-(-px.shape[0] // THREADS), BLOCK_STAMP_COLS),
+                                 dtype=torch.int64, device=px.device)
+        flags, kw["rr_start"], kw["clamp"] = estimator_flags(scene, rr_start, clamp)
+        rad, work, _, walk = _launch(scene, px, py, s0, s1, seed, t_min, flags,
+                                     want_work or record, out_blocks=stamps, **kw)
+        render_fused.launches[walk] += 1
+        render_fused.estimator_launches += bool(flags)
+        if stamps is not None:
+            block_ns, slot_ns = block_sums(stamps, slots)
+            profiler.count("k1.block_ns", block_ns)
+            profiler.count("k1.slot_ns", slot_ns)
+    if record and work.numel():
+        lane_work, warp_work = lane_sums(work)
+        profiler.count("k1.lane_work", lane_work)
+        profiler.count("k1.warp_work", warp_work)
     if want_work:
         return rad, work
     return rad
@@ -497,6 +525,27 @@ def render_fused(
 
 render_fused.launches = dict.fromkeys(WALKS, 0)
 render_fused.estimator_launches = 0
+
+
+def lane_sums(work: torch.Tensor):
+    """(sum of the lanes' work counts, sum over warps of WARP times the
+    warp's largest count) as int64 scalars on ``work``'s device: lanes i
+    and j share a warp when i // WARP == j // WARP, the last warp padded
+    with idle lanes.  Their ratio is the share of the warps' lane passes
+    that did work."""
+    w = torch.nn.functional.pad(work.to(torch.int64), (0, -work.numel() % WARP))
+    return w.sum(), w.view(-1, WARP).amax(dim=1).sum() * WARP
+
+
+def block_sums(stamps: torch.Tensor, slots: int):
+    """(sum of the blocks' times, ``slots`` times the launch's time from
+    its first block's start to its last block's end) in ns, as int64
+    scalars on ``stamps``' device; ``stamps`` holds a row of
+    ``BLOCK_STAMP_COLS`` per block (SM, start, end) and ``slots`` the
+    blocks that the card holds at once.  Their ratio is the share of the
+    card's block slots that the launch filled."""
+    start, end = stamps[:, 1], stamps[:, 2]
+    return (end - start).sum(), (end.max() - start.min()) * slots
 
 
 def render_fused_variant(
@@ -566,12 +615,13 @@ def _check_supported(scene):
 
 def _launch(scene, px, py, s0, s1, seed, t_min, flags, want_work, *, camera_consts,
             sampler, width, height, spp, stride, max_depth, has_dof, rr_start=0, clamp=0.0,
-            occupancy=None):
+            occupancy=None, out_blocks=None):
     """One launch of the render kernel's instantiation for ``flags``;
     returns (radiance, work or None, profile or None, walk).  With
     ``occupancy`` (a host int32 array of 2) nothing is launched: the
     launcher writes the instantiation's blocks per SM and shared memory
-    there."""
+    there.  ``out_blocks``, a zeroed int64 tensor of (blocks,
+    ``BLOCK_STAMP_COLS``) on the card, takes each block's stamps."""
     _check_supported(scene)
     device = px.device
     if device.type != "cuda":
@@ -579,6 +629,9 @@ def _launch(scene, px, py, s0, s1, seed, t_min, flags, want_work, *, camera_cons
     n = px.shape[0]
     for name, t in (("px", px), ("py", py), ("s0", s0), ("s1", s1)):
         check_lane_tensor(name, t, device, n)
+    if out_blocks is not None:
+        check_lane_tensor("out_blocks", out_blocks.view(-1), device,
+                          -(-n // THREADS) * BLOCK_STAMP_COLS, torch.int64)
     if scene.device != device:
         raise ValueError(f"scene is on {scene.device}, lanes on {device}")
 
@@ -615,7 +668,7 @@ def _launch(scene, px, py, s0, s1, seed, t_min, flags, want_work, *, camera_cons
         0 if dims is None else dims.shape[0], ptr(dims), ptr(texels),
         px.data_ptr(), py.data_ptr(), s0.data_ptr(), s1.data_ptr(),
         shade_rows.data_ptr(), sobol.data_ptr(), rad.data_ptr(), ptr(work), ptr(prof),
-        code, flags, cap, ptr(queue), 0 if queue is None else queue.numel(), n,
+        ptr(out_blocks), code, flags, cap, ptr(queue), 0 if queue is None else queue.numel(), n,
         None if occupancy is None else occupancy.ctypes.data_as(ctypes.c_void_p), stream,
     )
     if err != 0:

@@ -34,9 +34,17 @@ and box-filters it, ``render/adaptive.py`` and ``render/progressive.py``
 hand them per-lane sample windows of their own.
 
 Lane sums are scatter-added into the band.  The content-addressed RNG makes
-the image invariant to how samples are assigned to lanes.  Profiler zones
-(``utils/profiler.py``, off by default): ``Renderer::render`` around a
-render, ``rayColorLine`` around each band's trace.
+the image invariant to how samples are assigned to lanes.
+
+Spans (``utils/profiler.py``, recorded only while its recording is on):
+``Renderer::render`` around a render (the image's span), ``rayColorLine``
+around each band's trace, ``render.plan`` around building a lane plan
+with its stages ``render.plan.probe`` (the coherent plan's camera rays
+and first-hit probe), ``render.plan.fetch`` (the copies to the host, where
+the host waits for the card), ``render.plan.sort`` and
+``render.plan.upload``, and ``render.accumulate`` around summing a band
+into the framebuffer and averaging it; counters ``plan.hit.<kind>`` and
+``plan.miss.<kind>`` of the cost-sorted and coherent plans' cache.
 """
 
 from __future__ import annotations
@@ -56,7 +64,7 @@ from ..ops.closest_hit import closest_hit
 from ..ops.fused_render import THREADS
 from ..sampling.sampler import SamplerKind
 from ..scene import Scene
-from ..utils.profiler import named_zone
+from ..utils.profiler import count, named_zone
 from .camera import camera_consts, camera_params, camera_params_from_consts, generate_rays
 from .integrator import trace_paths, trace_paths_regen
 
@@ -127,15 +135,19 @@ def tile_order_lane_index(width, band_rows, tile):
     return (((by * nbx + bx) * tile + iy) * tile) + ix
 
 
-def memo_plan_entry(cache, compiled, key, max_configs: int) -> dict:
+def memo_plan_entry(cache, compiled, key, max_configs: int,
+                    kind: Optional[str] = None) -> dict:
     """The entry of ``key`` among ``compiled``'s plans in ``cache`` (a weak
     map from compiled scene to a {config: entry} dict, so that entries die
     with their scene), made empty when missing; a scene keeps at most
-    ``max_configs`` entries, the oldest evicted first."""
+    ``max_configs`` entries, the oldest evicted first.  With ``kind`` it
+    counts ``plan.hit.<kind>`` or ``plan.miss.<kind>``."""
     per = cache.get(compiled)
     if per is None:
         per = cache.setdefault(compiled, {})
     entry = per.get(key)
+    if kind is not None:
+        count(f"plan.{'miss' if entry is None else 'hit'}.{kind}")
     if entry is None:
         while len(per) >= max_configs:
             per.pop(next(iter(per)))
@@ -432,7 +444,8 @@ class Renderer:
             width, height, band_y0, spp,
             self.max_ray_bounce_depth, self.sampler, self.seed,
         )
-        entry = memo_plan_entry(self._plan_cache, cs, key, self._plan_cache_max_configs)
+        entry = memo_plan_entry(self._plan_cache, cs, key, self._plan_cache_max_configs,
+                                "sorted")
         if not entry:
             fb, work = _render_band_regen(
                 scene, seed, band_y0, 0, width=width, height=height,
@@ -443,12 +456,17 @@ class Renderer:
             entry["work"] = work
             return fb
         if "plan" not in entry:
-            px, py, live = sorted_plan(entry.pop("work").cpu().numpy(), width, band_rows,
-                                       rows_eff, band_y0, rows_eff * width)
-            entry["plan"] = tuple(
-                torch.as_tensor(a, device=cs.device)
-                for a in (px, py, np.zeros_like(live), live * np.int32(spp))
-            )
+            with named_zone("render.plan"):
+                with named_zone("render.plan.fetch"):
+                    work = entry.pop("work").cpu().numpy()
+                with named_zone("render.plan.sort"):
+                    px, py, live = sorted_plan(work, width, band_rows, rows_eff, band_y0,
+                                               rows_eff * width)
+                with named_zone("render.plan.upload"):
+                    entry["plan"] = tuple(
+                        torch.as_tensor(a, device=cs.device)
+                        for a in (px, py, np.zeros_like(live), live * np.int32(spp))
+                    )
         px, py, s0, s1 = entry["plan"]
         return _render_band_balanced(
             scene, seed, band_y0, px, py, s0, s1, width=width, height=height,
@@ -471,26 +489,32 @@ class Renderer:
             "coh", width, height, band_y0, spp,
             self.max_ray_bounce_depth, self.sampler, self.seed,
         )
-        entry = memo_plan_entry(self._plan_cache, cs, key, self._plan_cache_max_configs)
+        entry = memo_plan_entry(self._plan_cache, cs, key, self._plan_cache_max_configs,
+                                "coherent")
         if "plan" not in entry:
-            ys, xs = np.divmod(np.arange(rows_eff * width), width)
-            i64 = lambda a: torch.as_tensor(a.astype(np.int64), device=cs.device)
-            kind, idx = _first_hit_probe(
-                scene, seed, i64(xs), i64(ys + band_y0), width=width,
-                height=height, spp=spp, sampler=self.sampler, has_dof=has_dof,
-                cam_consts=cam_c,
-            )
-            kind = kind.cpu().numpy().astype(np.int64)
-            idx = idx.cpu().numpy().astype(np.int64)
-            hit_key = np.where(kind < 0, -1, (kind << 24) + idx)
-            tile = pick_tile(width, band_rows)
-            lane_ord = tile_order_lane_index(width, band_rows, tile)[:rows_eff].reshape(-1)
-            order = np.lexsort((lane_ord, hit_key))
-            entry["plan"] = tuple(
-                torch.as_tensor(np.asarray(a, np.int32), device=cs.device)
-                for a in (xs[order], ys[order] + band_y0, np.zeros(order.size),
-                          np.full(order.size, spp))
-            )
+            with named_zone("render.plan"):
+                with named_zone("render.plan.probe"):
+                    ys, xs = np.divmod(np.arange(rows_eff * width), width)
+                    i64 = lambda a: torch.as_tensor(a.astype(np.int64), device=cs.device)
+                    kind, idx = _first_hit_probe(
+                        scene, seed, i64(xs), i64(ys + band_y0), width=width,
+                        height=height, spp=spp, sampler=self.sampler, has_dof=has_dof,
+                        cam_consts=cam_c,
+                    )
+                with named_zone("render.plan.fetch"):
+                    kind = kind.cpu().numpy().astype(np.int64)
+                    idx = idx.cpu().numpy().astype(np.int64)
+                with named_zone("render.plan.sort"):
+                    hit_key = np.where(kind < 0, -1, (kind << 24) + idx)
+                    tile = pick_tile(width, band_rows)
+                    lane_ord = tile_order_lane_index(width, band_rows, tile)[:rows_eff]
+                    order = np.lexsort((lane_ord.reshape(-1), hit_key))
+                with named_zone("render.plan.upload"):
+                    entry["plan"] = tuple(
+                        torch.as_tensor(np.asarray(a, np.int32), device=cs.device)
+                        for a in (xs[order], ys[order] + band_y0, np.zeros(order.size),
+                                  np.full(order.size, spp))
+                    )
         px, py, s0, s1 = entry["plan"]
         return _render_band_balanced(
             scene, seed, band_y0, px, py, s0, s1, width=width, height=height,
@@ -626,7 +650,7 @@ class Renderer:
 
     def render_device(self, scene: Scene, width: int, height: int) -> torch.Tensor:
         """Renders on the scene's device; returns the (H, W, 3) f32 tensor."""
-        with named_zone("Renderer::render"):
+        with named_zone("Renderer::render", image=True):
             return self._render_device(scene, width, height)
 
     def _render_device(self, scene: Scene, width: int, height: int) -> torch.Tensor:
@@ -672,8 +696,10 @@ class Renderer:
                     sampler=self.sampler, has_dof=has_dof, cam_consts=cam_c,
                     **self._estimator(),
                 )
-            fb[y0 : y0 + band_rows] += out
-        return fb[:height] / spp
+            with named_zone("render.accumulate"):
+                fb[y0 : y0 + band_rows] += out
+        with named_zone("render.accumulate"):
+            return fb[:height] / spp
 
     def _render_fixed_depth(self, scene: Scene, width: int, height: int) -> torch.Tensor:
         """The fixed-depth wavefront of the whole image, averaged."""
