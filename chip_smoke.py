@@ -53,13 +53,23 @@ Phases (any failure exits nonzero):
      at span 2, with phase 2's tolerances; both times printed;
   7. the balls main path: Renderer(samples_per_pixel=128,
      max_ray_bounce_depth=10).render_device(load_scene("balls",
-     device="cuda"), 400, 400), one warmup render (its first-hit probe
-     builds the coherent plan) and three timed renders; over those four
-     renders the coherent driver ran, closest_hit_kernel and
-     fused_render_kernel each launched, and neither plain version ran;
+     device="cuda"), 400, 400), one warmup render (coherent_keys_kernel
+     and a device sort build the coherent plan) and three timed renders;
+     over those four renders the coherent driver ran, closest_hit.cu's
+     coherent_keys_kernel and fused_render_kernel each launched (the
+     closest-hit kernel's launches counted apart), and neither plain
+     version ran;
      Mpaths/s printed beside the card; then the kernel against its plain
      version on a spread slice of 4,096 lanes of the coherent plan, each
-     rendering one 8-sample window of the 128 (every sample index);
+     rendering one 8-sample window of the 128 (every sample index); then
+     coherent_keys_kernel at the render's seed and sampler on all 160,000
+     pixels against the eager first-hit probe (torch camera rays, then
+     closest_hit_kernel) and the plain probe (the cond walk): lane words
+     bitwise, first-hit keys differing on at most 0.1% of pixels (the
+     count printed), the eager probe bitwise the plain one; the kernel
+     alone, its wrapper and the plain probe timed, its bound from the
+     plain probe's counts and each pixel's camera ray
+     (utils/roofline.py:keys_bound_ms);
   8. the balls region gates on the card, both through utils/goldengate.py:
      200x200, 32 spp, depth 10 against tests/golden/scene_regions.json,
      and 64x64, 32 spp, depth 10 against tests/golden/balls.npz;
@@ -77,14 +87,15 @@ Phases (any failure exits nonzero):
  11. the rtw_final main path: Renderer(samples_per_pixel=64,
      max_ray_bounce_depth=8).render_device(load_scene("rtw_final"), 400,
      400), one warmup render and three timed; over the four renders the
-     coherent plan was built, closest_hit_kernel and bounce_kernel launched,
+     coherent plan was built, coherent_keys_kernel and bounce_kernel launched,
      fused_render_kernel did not and no plain version ran; the driver
      loop's passes per band, Mpaths/s beside the card, bounce_kernel's time
      at the coherent plan, the kernel against its plain version on a spread
      slice of 4,096 plan lanes in 8-sample windows of the 64 (every sample
      index), the peak device memory, and the device memory that one launch
      at the plan allocates, beside the default walk's first design's
-     (launch_mib: its device leaf queue);
+     (launch_mib: its device leaf queue); then coherent_keys_kernel against
+     the probes as in phase 7, on rtw_final's pixels;
  12. the region gates of earth, shrek_quads and rtw_final on the card:
      200x200 against tests/golden/scene_regions.json (rtw_final at 32 spp,
      depth 8; the others at their recorded spp and depth 10), and 64x64,
@@ -102,7 +113,7 @@ Phases (any failure exits nonzero):
      max_ray_bounce_depth=8).render_device(load_scene("rtw_final",
      texture_lut=<native>), 400, 400), one warmup render and three timed;
      over the four renders the render kernel launched 4 times, the bounce
-     kernel and every plain version never, the closest-hit kernel built
+     kernel and every plain version never, coherent_keys_kernel built
      the coherent plan; Mpaths/s, the render kernel's time at the plan's
      lanes, peak device memory, a launch's device memory as phase 11's;
      the framebuffer against phase 11's atlas
@@ -333,7 +344,8 @@ Phases (any failure exits nonzero):
      in a subprocess of its own session: once at the north star and once
      at balls 400 400 32 10; each must exit 0 with a last line whose
      correctness starts with "pass", on this card, having launched K1 and
-     K5 (and K3 on balls); the north star's value must be within 10% of
+     K5 (and K3c, the coherent plan's keys, on balls); the north star's
+     value must be within 10% of
      phase 3's Mpaths/s and its kernel_ms and bound_ms within 5% of phase
      4's kernel time and bound; each line is logged and kept in the record
      (``harness``).
@@ -344,9 +356,12 @@ scenes (cornell, emissive, and phase 25's cornell paths), on tree scenes
 bounce kernel's one-bounce mode with the atlas and with the LUT (parity
 checks only: no main path runs it, so its launches are 0) and its
 regenerating mode (rtw_final, and phase 25's rtw_final samples), and the
-closest-hit kernel (its launches on the probe, the AOV passes and phase
-26's fixed-depth path; the ray sets, designs and AOV passes of phase 22,
-and phase 26's render against the plain trace); then one
+closest-hit kernel (its launches on the AOV passes and phase 26's
+fixed-depth path; the ray sets, designs and AOV passes of phase 22, and
+phase 26's render against the plain trace), coherent_keys_kernel (its
+launches on the tree paths of phases 7, 11 and 14 and of the tools; phase
+7's and 11's checks against the probes, its time and bound on balls;
+``max_abs_err`` null: its outputs are integers); then one
 per walk other than the default of the render kernel (cond, rowqueue and
 spec on balls at span 2, uni with the LUT on rtw_final) and of the bounce
 kernel's regenerating mode (rtw_final; rowqueue's at the port's span
@@ -402,6 +417,10 @@ HIT_REPLACES = (
     "zig_weekend_raytracer_tpu/ops/pallas_trace.py:300 (_sphere_kernel), "
     ":371 (_quad_kernel), :432 (_tree_kernel)"
 )
+# no TPU kernel: the JAX package's coherent plan probes on the host's
+# side of the launch (eager camera rays, _tree_kernel) and sorts there
+KEYS_REPLACES = ("zig_weekend_raytracer_tpu/render/renderer.py:289 (_first_hit_probe) and "
+                 ":631-644 (its keys and np.lexsort)")
 BOUNCE_SOURCE = "zig_weekend_raytracer_tpu_torch/csrc/bounce.cu"
 BOUNCE_REPLACES = "zig_weekend_raytracer_tpu/ops/pallas_bounce.py:842 (_bounce_kernel)"
 EST_SOURCE = "zig_weekend_raytracer_tpu_torch/csrc/fused_render_estimator.cu"
@@ -435,6 +454,10 @@ HIT_RTOL, HIT_ATOL, HIT_AGREE = 1e-5, 1e-6, 0.999
 # a closest-hit time: this many launches behind a device sleep of this many
 # cycles (about 10 ms), over which the host enqueues them
 HIT_LAUNCHES, SLEEP_CYCLES = 20, 20_000_000
+# the coherent plan's keys (phases 7 and 11): the share of pixels whose
+# first-hit key may differ between coherent_keys_kernel's camera ray and
+# the eager ops' (FMA contraction at silhouettes)
+KEYS_DIFFER = 1e-3
 # phase 22: the AOV pass's spp (the CLI's), its slice against the plain
 # path, the closest-hit designs (the kernel and its first design) in
 # alternating rounds, and the denoiser on the card against the CPU (CUDA's
@@ -503,8 +526,8 @@ JPEG_MIN_PSNR = 30.0
 # respawn and the device light and image tables; the queue walk's first
 # design: 64/28, 64/28, 64/0, 64/56, at 8 blocks per SM where the current
 # design's 72 registers give 7; the tree-less render kernel's 56 would give
-# 9, which the launchers cap at 8), and of the closest-hit kernel and its
-# first design
+# 9, which the launchers cap at 8), and of the closest-hit kernel, its
+# first design and its coherent-plan keys
 DEFAULT_RESOURCES = {
     "fused_render_kernel<false, queue>": (72, 0), "fused_render_kernel<true, queue>": (72, 0),
     "bounce_kernel<false, queue>": (68, 0), "bounce_kernel<true, queue>": (72, 8),
@@ -513,6 +536,7 @@ DEFAULT_RESOURCES = {
     "fused_render_kernel<false, cond>": (64, 52), "fused_render_kernel<true, cond>": (64, 52),
     "bounce_kernel<false, cond>": (64, 0), "bounce_kernel<true, cond>": (64, 80),
     "closest_hit_kernel": (56, 0), "closest_hit_flat_kernel": (56, 0),
+    "coherent_keys_kernel": (56, 0),
 }
 # phase 28: the harness's runs (its arguments), each one's time limit, and
 # how far the north star's figures may stray from phases 3 and 4's
@@ -733,6 +757,85 @@ def hit_launcher(ch, cs, rays, t_min, flat=False, t_max=float("inf"), active=Non
     return run
 
 
+def keys_launcher(ch, cs, seed, rows, kw):
+    """A launch of coherent_keys_kernel over rows [0, rows) with no wrapper
+    around it (ops/closest_hit.py:keys_launch_args' checked arguments),
+    as ``hit_launcher``'s; ``run()`` returns the keys' high words."""
+    from zig_weekend_raytracer_tpu_torch.ops import _build
+    from zig_weekend_raytracer_tpu_torch.render.renderer import PROBE_T_MIN
+
+    args, keys, keep = ch.keys_launch_args(cs, seed, 0, rows, PROBE_T_MIN, **kw)
+    fn = _build.load_library().zwrt_coherent_keys
+
+    def run():
+        err = fn(*args)
+        if err != 0:
+            raise RuntimeError(f"zwrt_coherent_keys launch failed: cudaError {err}")
+        return keys
+
+    run.keep = keep
+    return run
+
+
+def keys_check(zt, ch, ttrace, torch, scene, renderer, tag, card) -> dict:
+    """coherent_keys_kernel at a main path's image (one band of W x H, the
+    renderer's seed and sampler) against its plain version: the keys that
+    render/renderer.py:coherent_plan_keys makes on the card against those
+    of the eager first-hit probe (camera rays by torch ops, then
+    closest_hit_kernel) and of the plain probe (the same rays through
+    ops/trace.py's cond walk, whose work counts give the bound); the lane
+    words bitwise, the first-hit keys differing on at most KEYS_DIFFER of
+    the pixels (the kernel's camera ray against the eager ops' rounding)
+    and the eager probe's keys bitwise the plain probe's; the kernel alone,
+    its wrapper and the plain probe timed."""
+    from zig_weekend_raytracer_tpu_torch.render import renderer as rmod
+    from zig_weekend_raytracer_tpu_torch.render.camera import (
+        camera_consts, camera_params_from_consts, generate_rays)
+    from zig_weekend_raytracer_tpu_torch.utils import roofline, workcount
+
+    cs, n = scene.compiled, W * H
+    has_dof = scene.camera.has_depth_of_field
+    cam = camera_consts(scene.camera, W, H)
+    kw = dict(width=W, height=H, spp=renderer.samples_per_pixel, sampler=renderer.sampler,
+              has_dof=has_dof)
+    tile, seed = rmod.pick_tile(W, H), renderer.seed
+    keys = rmod.coherent_plan_keys(scene, seed, 0, H, tile, cam_consts=cam, **kw)
+    pix = torch.arange(n, device="cuda")
+    px, py = pix % W, pix // W
+    kind, idx = rmod._first_hit_probe(scene, seed, px, py, cam_consts=cam, **kw)
+    eager = torch.where(kind < 0, -1, (kind.long() << 24) + idx)
+
+    def plain():
+        rays = generate_rays(camera_params_from_consts(cam), has_dof, renderer.sampler, seed,
+                             py * W + px, px, py, torch.zeros_like(px), kw["spp"], W, H)
+        hit = ttrace.closest_hit(cs, *rays, rmod.PROBE_T_MIN, walk="cond")
+        return torch.where(hit.kind < 0, -1, (hit.kind.long() << 24) + hit.idx)
+
+    with workcount.counting() as counts:
+        plain_ms, plain_key = cuda_time_ms(plain)
+    lane = rmod.tile_order_lane_index(W, H, tile).reshape(-1)
+    lane_bad = int(((keys & 0xFFFFFFFF).cpu().numpy() != lane).sum())
+    differ = int(((keys >> 32) - 1 != eager).sum())
+    eager_bad = int((eager != plain_key).sum())
+    kkw = {**kw, "camera_consts": cam}
+    ms = kernel_alone_ms(torch, keys_launcher(ch, cs, seed, H, kkw))
+    ms_w = wrapper_ms(torch, lambda: ch.coherent_keys(cs, seed, 0, H, rmod.PROBE_T_MIN, **kkw))
+    bound, by = roofline.keys_bound_ms(counts, cs, n, renderer.sampler, has_dof, W, H,
+                                       OPS_RATE["rate"])
+    log(f"coherent keys {tag}: {n} pixels ({renderer.sampler.name}, depth of field "
+        f"{has_dof}), lane words differ on {lane_bad}, first-hit keys differ from the eager "
+        f"probe's on {differ}, the eager probe's from the plain probe's on {eager_bad}; "
+        f"kernel alone {ms:.4f} ms, wrapper {ms_w:.4f} ms, plain probe {plain_ms:.1f} ms, "
+        f"bound {bound:.4f} ms ({by}; {card})")
+    if lane_bad or eager_bad or differ > KEYS_DIFFER * n:
+        raise AssertionError(f"coherent keys {tag}: the kernel's keys disagree with the probe")
+    return {"check": f"coherent keys {tag}", "pixels": n, "sampler": renderer.sampler.name,
+            "has_dof": has_dof, "lane_bad": lane_bad, "hit_key_diff": differ,
+            "eager_vs_plain_diff": eager_bad, "max_abs_err": 0.0, "ms": ms,
+            "wrapper_ms": ms_w, "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
+            "peak_source": roofline.peak_source(OPS_RATE["rate"])}
+
+
 def kernel_alone_ms(torch, run, launches=None) -> float:
     """Device time of one launch of ``run`` (hit_launcher's, no wrapper
     around it): ``launches`` launches enqueued behind a device sleep
@@ -814,6 +917,7 @@ def reset_counts(fused, integrator, ch, ttrace, tb) -> None:
     integrator.render_fused_reference.calls = 0
     ch.closest_hit.launches = 0
     ch.closest_hit_flat.launches = 0
+    ch.coherent_keys.launches = 0
     ttrace.closest_hit.calls = 0
     integrator.bounce.calls = 0
     integrator.bounce_regen_reference.calls = 0
@@ -994,8 +1098,9 @@ def kernel_resources(build_log: str) -> dict:
     fused_render_kernel<IMAGES, walk> (without and with the image fetch)
     and bounce_kernel<REGEN, walk> (one-bounce and regenerating modes) for
     each tree walk and "no tree" (kWalkNoTree), the first designs of the queue, rowqueue, spec and uni
-    walks (<IMAGES, walk, first design>), closest_hit_kernel and
-    closest_hit_flat_kernel (its first design), and chain_kernel<op,
+    walks (<IMAGES, walk, first design>), closest_hit_kernel,
+    closest_hit_flat_kernel (its first design) and coherent_keys_kernel,
+    and chain_kernel<op,
     chains, unroll>."""
     import re
 
@@ -1018,7 +1123,7 @@ def kernel_resources(build_log: str) -> dict:
         m = re.search(r"chain_kernelILi(\d)ELi(\d+)ELi(\d+)E", mangled)
         if m:
             return f"chain_kernel<{OPS[int(m.group(1))]}, {m.group(2)}, {m.group(3)}>"
-        for name in ("closest_hit_kernel", "closest_hit_flat_kernel"):
+        for name in ("closest_hit_kernel", "closest_hit_flat_kernel", "coherent_keys_kernel"):
             if re.search(rf"\d{name}E", mangled):
                 return name
         return None
@@ -3405,7 +3510,7 @@ def phase_tools(zt, fused, tb, integrator, ch, ttrace, torch, fbs, figures, card
     t_phase = time.perf_counter()
     fb_main, fb_balls, fb_rtw = fbs
     out = {"runs": {}, "launches": {k: {} for k in (
-        "K1 brute", "K1 tree", "K1 LUT", "K1 estimator", "K2 regen", "K3")}}
+        "K1 brute", "K1 tree", "K1 LUT", "K1 estimator", "K2 regen", "K3", "K3 keys")}}
 
     def run(tag, fn, need, joins):
         """fn() with the counts set to 0 before and read after, its stdout
@@ -3421,7 +3526,8 @@ def phase_tools(zt, fused, tb, integrator, ch, ttrace, torch, fbs, figures, card
         counts = {"k1": launched(fused.render_fused),
                   "k1_estimator": fused.render_fused.estimator_launches,
                   "k2": launched(tb.bounce_regen), "k2_one_bounce": launched(tb.bounce),
-                  "k3": ch.closest_hit.launches, "plain": plain_calls(integrator, ttrace)}
+                  "k3": ch.closest_hit.launches, "keys": ch.coherent_keys.launches,
+                  "plain": plain_calls(integrator, ttrace)}
         for line in (so.getvalue() + se.getvalue()).splitlines():
             log(f"  {tag}: {line}")
         log(f"{tag}: {wall:.1f} s; counts {counts}")
@@ -3437,10 +3543,10 @@ def phase_tools(zt, fused, tb, integrator, ch, ttrace, torch, fbs, figures, card
     # (a) scenebench
     bench = {}
     cases = (
-        ("balls", ["balls", "400", "400", "128", "10"], ("k1", "k3"),
-         {"K1 tree": "k1", "K3": "k3"}, fb_balls, figures["balls"]),
-        ("rtw_final", ["rtw_final", "400", "400", "64", "8"], ("k2", "k3"),
-         {"K2 regen": "k2", "K3": "k3"}, fb_rtw, figures["rtw_final"]),
+        ("balls", ["balls", "400", "400", "128", "10"], ("k1", "keys"),
+         {"K1 tree": "k1", "K3": "k3", "K3 keys": "keys"}, fb_balls, figures["balls"]),
+        ("rtw_final", ["rtw_final", "400", "400", "64", "8"], ("k2", "keys"),
+         {"K2 regen": "k2", "K3": "k3", "K3 keys": "keys"}, fb_rtw, figures["rtw_final"]),
         ("--rr=3", ["cornell_box", "400", "400", "1024", "10", "--rr=3"], ("k1_estimator",),
          {"K1 estimator": "k1_estimator"}, None, figures["cornell"]),
         ("--clamp=10", ["cornell_box", "400", "400", "1024", "10", "--clamp=10"],
@@ -3489,7 +3595,7 @@ def phase_tools(zt, fused, tb, integrator, ch, ttrace, torch, fbs, figures, card
     luts = {}
     for tag, argv in (("shrek_quads", ["shrek_quads"]), ("rtw_final 32768", ["rtw_final", "32768"])):
         rc, text = run(f"lut_quality {tag}", lambda: lut_quality.main(argv), ("k1", "k2"),
-                       {"K1 LUT": "k1", "K2 regen": "k2"})
+                       {"K1 LUT": "k1", "K2 regen": "k2", "K3 keys": "keys"})
         summary = json.loads(text.splitlines()[-1])
         figs = [v for r in summary["rows"] for k, v in r.items()
                 if k not in ("budget", "lut_active")]
@@ -3506,10 +3612,11 @@ def phase_tools(zt, fused, tb, integrator, ch, ttrace, torch, fbs, figures, card
 
     # (d) quality_prodres at its defaults, one scene a call
     rows = []
-    for scene_name, joins in (("cornell_box", {"K1 brute": "k1", "K3": "k3"}),
-                              ("balls", {"K1 tree": "k1", "K3": "k3"})):
+    for scene_name, need, joins in (
+            ("cornell_box", ("k1", "k3"), {"K1 brute": "k1", "K3": "k3"}),
+            ("balls", ("k1", "k3", "keys"), {"K1 tree": "k1", "K3": "k3", "K3 keys": "keys"})):
         rc, text = run(f"quality_prodres {scene_name}",
-                       lambda: quality_prodres.main([scene_name]), ("k1", "k3"), joins)
+                       lambda: quality_prodres.main([scene_name]), need, joins)
         if rc != 0:
             raise AssertionError(f"quality_prodres {scene_name}: exit {rc}")
         rows += [json.loads(x) for x in text.splitlines()[:-1]]
@@ -3586,7 +3693,7 @@ def phase_harness(card, mpaths, kernel_ms, bound) -> dict:
         if rc != 0 or not lines:
             raise AssertionError(f"harness {tag}: exit {rc}, {len(lines)} lines")
         rec = json.loads(lines[-1])
-        need = ("K1", "K5", "K3") if args else ("K1", "K5")
+        need = ("K1", "K5", "K3c") if args else ("K1", "K5")
         if (not str(rec["correctness"]).startswith("pass") or rec["device"] != card
                 or any(rec["launches"][k] < 1 for k in need)
                 or not all(rec[k] > 0 for k in ("value", "kernel_ms", "bound_ms",
@@ -3680,8 +3787,8 @@ def main() -> int:
     # first designs of 4 walks (K1 in both modes, K2's regenerating mode),
     # and the estimator instantiations (2 modes x 6 walks per kernel)
     n_render = 2 * 6 + 2 * 2 * 3 + 2 * 6 + 2 * 3 + 2 * 4 + 4 + 2 * (2 * 6)
-    # closest_hit_kernel and its first design
-    if len(resources) != n_render + 2 + n_chain or any(
+    # closest_hit_kernel, its first design and coherent_keys_kernel
+    if len(resources) != n_render + 3 + n_chain or any(
             r["registers"] is None for r in resources.values()):
         raise AssertionError(f"ptxas did not report every kernel: {sorted(resources)}")
     for name, (regs, spill) in DEFAULT_RESOURCES.items():
@@ -3809,14 +3916,15 @@ def main() -> int:
     b_warm_s, b_times, b_fb = timed_renders(b_renderer, balls, torch, W, H)
     b_launches = launched(fused.render_fused)
     b_hit_launches = ch.closest_hit.launches
+    b_keys = ch.coherent_keys.launches
     b_plain = plain_calls(integrator, ttrace)
     plans = b_renderer._plan_cache[balls.compiled]
     coherent = [k for k in plans if k[0] == "coh"]
     log(f"balls main path: warmup {b_warm_s:.3f} s, renders {[round(t, 4) for t in b_times]} s")
-    log(f"balls main path: render kernel launches {b_launches}, closest-hit kernel "
-        f"launches {b_hit_launches}, plain-version calls {b_plain}, coherent plans "
-        f"{len(coherent)}")
-    if b_launches < 1 or b_hit_launches < 1:
+    log(f"balls main path: render kernel launches {b_launches}, coherent-keys kernel "
+        f"launches {b_keys}, closest-hit kernel launches {b_hit_launches}, plain-version "
+        f"calls {b_plain}, coherent plans {len(coherent)}")
+    if b_launches < 1 or b_keys < 1:
         raise AssertionError("the balls main path did not launch both kernels")
     if b_plain != 0:
         raise AssertionError("the balls main path ran a plain version")
@@ -3843,6 +3951,7 @@ def main() -> int:
     tree_checks.append(b_slice)
     k1_tree_bound = render_bound(zt, balls, b_counts, b_work.sum().item(),
                                  b_plan[0].shape[0] * (16 + 12), True, BALLS_SPP)
+    b_keys_check = keys_check(zt, ch, ttrace, torch, balls, b_renderer, "balls 400x400", card)
 
     # ---- 8. the balls region gates ----
     phase("8")
@@ -3873,17 +3982,18 @@ def main() -> int:
     peak_mb = torch.cuda.max_memory_allocated() / 2**20
     r_k2 = launched(tb.bounce_regen) + launched(tb.bounce)
     r_hit = ch.closest_hit.launches
+    r_keys = ch.coherent_keys.launches
     r_k1 = launched(fused.render_fused)
     r_plain = plain_calls(integrator, ttrace)
     passes, bands = integrator.trace_paths_regen.passes, integrator.trace_paths_regen.bands
     plans = r_renderer._plan_cache[rtw.compiled]
     coherent = [k for k in plans if k[0] == "coh"]
     log(f"rtw_final main path: warmup {r_warm_s:.3f} s, renders {[round(t, 4) for t in r_times]} s")
-    log(f"rtw_final main path: bounce kernel launches {r_k2}, closest-hit kernel launches "
-        f"{r_hit}, render kernel launches {r_k1}, plain-version calls {r_plain}, coherent "
-        f"plans {len(coherent)}; driver loop {passes} passes over {bands} bands "
-        f"({passes / max(bands, 1):.2f} per band)")
-    if r_k2 < 1 or r_hit < 1:
+    log(f"rtw_final main path: bounce kernel launches {r_k2}, coherent-keys kernel launches "
+        f"{r_keys}, closest-hit kernel launches {r_hit}, render kernel launches {r_k1}, "
+        f"plain-version calls {r_plain}, coherent plans {len(coherent)}; driver loop "
+        f"{passes} passes over {bands} bands ({passes / max(bands, 1):.2f} per band)")
+    if r_k2 < 1 or r_keys < 1:
         raise AssertionError("the rtw_final main path did not launch both kernels")
     if r_k1 != 0 or r_plain != 0:
         raise AssertionError("the rtw_final main path ran the render kernel or a plain version")
@@ -3920,6 +4030,8 @@ def main() -> int:
     # write the 18 state rows
     k2_bound = render_bound(zt, rtw, k2_counts, k2_state.work.sum().item(),
                             r_plan[0].shape[0] * (84 + 72), False, RTW_SPP)
+    r_keys_check = keys_check(zt, ch, ttrace, torch, rtw, r_renderer, "rtw_final 400x400",
+                              card)
 
     # ---- 12. the image scenes' region gates ----
     phase("12")
@@ -3965,15 +4077,16 @@ def main() -> int:
     l_k1 = launched(fused.render_fused)
     l_k2 = launched(tb.bounce_regen) + launched(tb.bounce)
     l_hit = ch.closest_hit.launches
+    l_keys = ch.coherent_keys.launches
     l_plain = plain_calls(integrator, ttrace)
     plans = l_renderer._plan_cache[lc]
     coherent = [k for k in plans if k[0] == "coh"]
     log(f"rtw_final LUT main path: warmup {l_warm_s:.3f} s, renders "
         f"{[round(t, 4) for t in l_times]} s")
     log(f"rtw_final LUT main path: render kernel launches {l_k1}, bounce kernel launches "
-        f"{l_k2}, closest-hit kernel launches {l_hit}, plain-version calls {l_plain}, "
-        f"coherent plans {len(coherent)}")
-    if l_k1 != 4 or l_k2 != 0 or l_plain != 0 or l_hit < 1:
+        f"{l_k2}, coherent-keys kernel launches {l_keys}, closest-hit kernel launches "
+        f"{l_hit}, plain-version calls {l_plain}, coherent plans {len(coherent)}")
+    if l_k1 != 4 or l_k2 != 0 or l_plain != 0 or l_keys < 1:
         raise AssertionError("the LUT main path did not run the render kernel alone "
                              "(4 launches, no bounce kernel, no plain version)")
     if len(coherent) != 1 or len(plans) != 1:
@@ -4046,7 +4159,8 @@ def main() -> int:
     reset_counts(fused, integrator, ch, ttrace, tb)
     e_warm_s, e_times, e_fb = timed_renders(e_renderer, emissive, torch, W, H)
     e_k1 = launched(fused.render_fused)
-    e_other = launched(tb.bounce) + launched(tb.bounce_regen) + ch.closest_hit.launches
+    e_other = (launched(tb.bounce) + launched(tb.bounce_regen) + ch.closest_hit.launches
+               + ch.coherent_keys.launches)
     e_plain = plain_calls(integrator, ttrace)
     log(f"emissive main path: warmup {e_warm_s:.3f} s, renders {[round(t, 4) for t in e_times]} "
         f"s; render kernel launches {e_k1}, other kernels {e_other}, plain-version calls "
@@ -4379,6 +4493,17 @@ def main() -> int:
               fixed_depth={k: v for k, v in fixed.items() if k != "parity"},
               note="ms: the kernel alone on the balls probe's 160,000 rays (phase 5); every "
                    "ray set's rounds of the kernel and its first design in ray_sets"),
+        {**entry("coherent_keys_kernel", HIT_SOURCE, KEYS_REPLACES, "coherent_keys_kernel",
+                 b_keys + r_keys + l_keys + sum(tl["K3 keys"].values()),
+                 {"balls": b_keys, "rtw_final": r_keys, "rtw_final LUT": l_keys,
+                  **tl["K3 keys"]},
+                 [b_keys_check, r_keys_check], b_keys_check["ms"], b_keys_check["plain_ms"],
+                 bound_of(b_keys_check),
+                 f"lane words bitwise; first-hit keys differ on <= {KEYS_DIFFER:.1%} of pixels",
+                 wrapper_ms=b_keys_check["wrapper_ms"],
+                 note="ms: the kernel alone on balls' 160,000 pixels (phase 7); plain_ms: the "
+                      "plain probe (torch camera rays, the cond walk) on the same pixels"),
+         "max_abs_err": None},
         entry("fused_render_kernel (estimator: Russian roulette, indirect clamp)",
               EST_SOURCE, KERNEL_REPLACES, "fused_render_kernel<false, no tree, estimator>",
               est_launches + sum(tl["K1 estimator"].values()),

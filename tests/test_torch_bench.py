@@ -217,7 +217,7 @@ def test_keys_and_cpu_fields(run):
     for k in ("value", "vs_baseline", "kernel_ms", "roofline_share", "host_ms", "warmup_s",
               "times_s"):
         assert out[k] is None, k
-    assert out["launches"] == {"K1": 0, "K2": 0, "K3": 0, "K5": 0}
+    assert out["launches"] == {"K1": 0, "K2": 0, "K3": 0, "K3c": 0, "K5": 0}
     assert out["peak_source"] == "data_sheet" and out["bound_by"] in ("operations", "bytes")
     assert bench.parse([]).metric == (
         "cornell_box 400x400 @1024spp depth10 path throughput (1 GPU; north-star config)")

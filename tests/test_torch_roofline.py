@@ -16,6 +16,8 @@ plain versions did on the CPU.
      per-kind trees.
   5. The per-unit table against its earlier FP32 counts, and the Sobol
      sampler's integer work in its two forms.
+  6. The coherent plan's key launch: the probe's closest hits and each
+     pixel's camera ray by sampler, with and without depth of field.
 """
 
 import numpy as np
@@ -27,6 +29,7 @@ from test_torch_reference_native import reference_decodes_with_stb  # noqa: F401
 from zig_weekend_raytracer_tpu_torch.ops import trace as ttrace
 from zig_weekend_raytracer_tpu_torch.render import camera as tcam
 from zig_weekend_raytracer_tpu_torch.render import integrator
+from zig_weekend_raytracer_tpu_torch.sampling.sampler import SamplerKind, sobol_log2_scale
 from zig_weekend_raytracer_tpu_torch.utils import roofline, workcount
 
 
@@ -245,3 +248,38 @@ def test_slab_and_sobol_integer_counts():
     with_loop = roofline.render_ops(counts, sc.compiled, False, sobol=(9, 2, True))
     plain = roofline.render_ops(counts, sc.compiled, False)
     assert with_loop["int"] - plain["int"] == 10 * loop["int"]
+
+
+@pytest.mark.parametrize("has_dof", [False, True])
+@pytest.mark.parametrize("sampler", list(SamplerKind))
+def test_keys_bound_counts_the_camera_ray_and_the_probe(sampler, has_dof):
+    """6. coherent_keys_kernel's bound: the plain probe's closest hits (one
+    trace a pixel) and, per pixel, the camera ray of the sampler, the lens
+    with depth of field, and the key; Sobol adds its bit loops once for
+    the pixel part and its tables for sample 0."""
+    from zig_weekend_raytracer_tpu_torch.render import renderer as rmod
+
+    scene = zt.models.load_scene("balls", device="cpu")
+    w = h = 16
+    pix = torch.arange(w * h)
+    with workcount.counting() as counts:
+        rmod._first_hit_probe(scene, 3, pix % w, pix // w, width=w, height=h, spp=8,
+                              sampler=sampler, has_dof=has_dof,
+                              cam_consts=tcam.camera_consts(scene.camera, w, h))
+    assert counts["trace"] == w * h and counts["slab_test"] > 0
+    pixel = roofline.keys_pixel_ops(sampler, has_dof, w, h)
+    lens = roofline.KEYS_OPS["dof"] if has_dof else roofline._ops()
+    bits = roofline._ops()
+    if sampler == SamplerKind.SOBOL:
+        log2_scale = sobol_log2_scale(w, h)
+        bits = roofline.add(roofline.sobol_ops(log2_scale, 0, loop=True),
+                            roofline.sobol_ops(log2_scale, 1, loop=False))
+    assert pixel == roofline.add(roofline.KEYS_OPS["common"], roofline.KEYS_OPS[sampler],
+                                 lens, bits)
+    # each sampler draws its offset: a PCG4D at least, or the Sobol bits
+    assert pixel["int"] >= roofline.KEYS_OPS["common"]["int"] + 20
+    ops = roofline.add(roofline.times(pixel, w * h), roofline.trace_ops(counts))
+    sobol_bytes = 5 * 52 * 4 + 2 * 256 * 4 if sampler == SamplerKind.SOBOL else 0
+    nbytes = roofline.trace_bytes(scene.compiled) + sobol_bytes + w * h * 8
+    ms, by = roofline.keys_bound_ms(counts, scene.compiled, w * h, sampler, has_dof, w, h)
+    assert (ms, by) == roofline.bound_ms(ops, nbytes) and ms > 0

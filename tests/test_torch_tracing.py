@@ -17,6 +17,9 @@ from zig_weekend_raytracer_tpu_torch.utils import profiler
 
 PLAN_STAGES = ("render.plan.probe", "render.plan.fetch", "render.plan.sort",
                "render.plan.upload")
+# the coherent plan's stages: its keys and their sort, with no copy between
+# host and card
+COHERENT_STAGES = ("render.plan.probe", "render.plan.sort")
 
 
 @pytest.fixture(autouse=True)
@@ -83,12 +86,14 @@ def test_coherent_plan_spans_nest_in_one_image(balls):
     assert snap["images"] == 1
     assert snap["counters"]["plan.miss.coherent"] == 1
     assert "plan.hit.coherent" not in snap["counters"]
+    # built by the plain version on the CPU, not by the card's launch
+    assert "plan.card.coherent" not in snap["counters"]
     (image,) = _by_name(snap, "Renderer::render")
     (plan,) = _by_name(snap, "render.plan")
     spans = snap["spans"]
     assert spans[plan["parent"]] is image
     stages = [s for s in spans if s["parent"] >= 0 and spans[s["parent"]] is plan]
-    assert [s["name"] for s in stages] == list(PLAN_STAGES)
+    assert [s["name"] for s in stages] == list(COHERENT_STAGES)
     assert {s["image_id"] for s in spans} == {0}
     for child, parent in [(plan, image)] + [(s, plan) for s in stages]:
         assert parent["start_ns"] <= child["start_ns"] <= child["end_ns"] <= parent["end_ns"]
@@ -283,3 +288,22 @@ def test_block_stamps_on_the_card(card):
     assert bool((s[:, 1] > 0).all()) and bool((s[:, 1] <= s[:, 2]).all())
     # every block ran inside the launch's span, on more than one SM
     assert int(s[:, 2].max() - s[:, 1].min()) < 60e9 and len(set(s[:, 0].tolist())) > 1
+
+
+@pytest.mark.card
+def test_coherent_plans_on_the_card_are_counted(card):
+    scene = zt.models.load_scene("balls", device="cuda")
+    r = zt.render.Renderer(samples_per_pixel=8, max_ray_bounce_depth=5, seed=5,
+                           regen_min_wave=1)    # one sample in flight a pixel
+    r.render_device(scene, 64, 64)              # builds the launch's tables
+    for seed in (6, 7):
+        r.seed = seed
+        _under_profiler(lambda: r.render_device(scene, 64, 64))
+    snap = profiler.snapshot()
+    assert snap["counters"]["plan.card.coherent"] == snap["counters"]["plan.miss.coherent"] == 2
+    plans = _by_name(snap, "render.plan")
+    assert len(plans) == 2
+    for plan in plans:
+        stages = [s["name"] for s in snap["spans"] if s["parent"] >= 0
+                  and snap["spans"][s["parent"]] is plan]
+        assert stages == list(COHERENT_STAGES)

@@ -43,6 +43,11 @@
 // closest_hit_flat_kernel is the first design, kept to measure the new one
 // against: the per-thread walk, rays from a stacked (7, n) array and an int
 // mask.  No path launches it.
+//
+// coherent_keys_kernel (below) runs the same walk on each pixel's sample-0
+// camera ray, made in the kernel, and writes the first-hit part of the
+// coherent lane plan's sort keys: the renderer's plan of tree scenes never
+// leaves the card.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -120,6 +125,46 @@ __global__ void __launch_bounds__(kHitThreads) closest_hit_kernel(
   out_idx[i] = idx;
 }
 
+// coherent_keys_kernel: the first-hit part of each pixel's sort key in
+// the renderer's coherent lane plan, one thread per pixel of a band
+// (band-local index i = y * width + x).  The pixel's sample-0 camera ray as
+// the render kernel makes it (generate_ray, from the launch's Params), its
+// closest hit through hit_stage as closest_hit_kernel finds it, and
+// (hit_key + 1) << 32: hit_key is (kind << 24) + idx, or -1 on a miss.  The
+// renderer ORs each pixel's lane index into the low word
+// (render/renderer.py:coherent_plan_keys), so the keys are unique and any
+// sort of them orders the pixels by first hit, ties in lane order.
+//
+// It replaces no TPU kernel: the JAX package builds these keys on the host
+// from eager camera rays and _tree_kernel's probe, then sorts them there;
+// here the keys never leave the card and a device sort follows.  What
+// bounds it is closest_hit_kernel's walk, plus one camera ray a pixel; it
+// writes 8 bytes a pixel and reads no ray.  The Sobol sampler's tables are
+// staged as the render kernel stages them, for the same bits.
+__global__ void __launch_bounds__(kHitThreads) coherent_keys_kernel(
+    const __grid_constant__ Params p, const __grid_constant__ TraceScene scene,
+    const uint32_t* __restrict__ sobol, int band_y0, long long* __restrict__ out_key, int n) {
+  __shared__ int queue[kHitQueueCap * kHitThreads];
+  stage_sobol(p);
+  const int i = blockIdx.x * kHitThreads + threadIdx.x;
+  if (i >= n) return;
+  const int x = i % p.width, py = band_y0 + i / p.width;
+  Ray ray;
+  const SobolPixel sq = sobol_pixel(p, sobol, x, py);
+  ray.time = generate_ray<false>(p, sobol, sq, ray_id_of(p, 0, x, py), x, py, 0, &ray.o, &ray.d);
+  ray.inv_d = mk(1.0f / ray.d.x, 1.0f / ray.d.y, 1.0f / ray.d.z);
+  ray.a = dot(ray.d, ray.d);
+  ray.inv_a = 1.0f / ray.a;
+  ray.t_min = p.t_min;
+  float best = kBig;
+  int kind = -1, idx = 0;
+  int* q = queue + threadIdx.x;
+  hit_stage<kSphere>(scene.sph, q, ray, scene.has_moving != 0, &best, &kind, &idx);
+  hit_stage<kQuad>(scene.quad, q, ray, false, &best, &kind, &idx);
+  const long long hit_key = kind < 0 ? -1 : ((long long)kind << 24) + idx;
+  out_key[i] = (hit_key + 1) << 32;
+}
+
 __global__ void __launch_bounds__(128) closest_hit_flat_kernel(
     const __grid_constant__ TraceScene scene, const float* __restrict__ rays,
     const int* __restrict__ active, float t_min, float t_start, float* __restrict__ out_t,
@@ -157,6 +202,25 @@ extern "C" int zwrt_closest_hit(const int* trace_ints, const void* const* trace_
   const int blocks = (n + kHitThreads - 1) / kHitThreads;
   closest_hit_kernel<<<blocks, kHitThreads, 0, (cudaStream_t)stream>>>(
       scene, rays, active, t_min, t_start, out_t, out_kind, out_idx, n);
+  return (int)cudaGetLastError();
+}
+
+// The first-hit part of the coherent plan's keys of the ``n`` pixels of
+// rows band_y0 ... of the image, in row order: ``iparams``, ``fparams`` and
+// ``tables`` as the render kernel's launcher reads them
+// (ops/fused_render.py:launch_params, launch_tables; t_min the probe's),
+// ``sobol`` its Sobol table; ``out_key`` (n,) int64.
+extern "C" int zwrt_coherent_keys(const int* iparams, const float* fparams,
+                                  const void* const* tables, const int* trace_ints,
+                                  const void* const* trace_ptrs, const uint32_t* sobol,
+                                  int band_y0, long long* out_key, int n, void* stream) {
+  using namespace zwrt;
+  if (n <= 0) return 0;
+  const Params p = read_params(iparams, fparams, tables);
+  const TraceScene scene = read_trace_scene(trace_ints, trace_ptrs);
+  const int blocks = (n + kHitThreads - 1) / kHitThreads;
+  coherent_keys_kernel<<<blocks, kHitThreads, sobol_smem_bytes(p), (cudaStream_t)stream>>>(
+      p, scene, sobol, band_y0, out_key, n);
   return (int)cudaGetLastError();
 }
 

@@ -119,6 +119,8 @@ def load_library() -> ctypes.CDLL:
     lib.zwrt_fused_render.restype = ctypes.c_int
     lib.zwrt_closest_hit.argtypes = [p] * 4 + [f, f] + [p] * 3 + [i, p]
     lib.zwrt_closest_hit.restype = ctypes.c_int
+    lib.zwrt_coherent_keys.argtypes = [p] * 6 + [i, p, i, p]
+    lib.zwrt_coherent_keys.restype = ctypes.c_int
     lib.zwrt_closest_hit_flat.argtypes = [p] * 4 + [f, f] + [p] * 3 + [i, p]
     lib.zwrt_closest_hit_flat.restype = ctypes.c_int
     lib.zwrt_bounce.argtypes = [p] * 6 + [i] + [p] * 10 + [i] * 5 + [p, i, i, p, p]

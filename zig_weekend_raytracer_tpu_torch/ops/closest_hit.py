@@ -10,6 +10,13 @@ raises.  ``closest_hit.launches`` counts kernel launches.  Like the TPU's
 ``_tree_kernel`` it walks the per-kind trees, whatever ``ZWRT_TRAV`` or the
 unified tree ask of the render and bounce kernels.
 
+``coherent_keys`` launches ``coherent_keys_kernel`` (the same source): each
+pixel's sample-0 camera ray made in the kernel as the render kernel makes
+it, its closest hit, and the first-hit part of the renderer's coherent-plan
+sort key, for CUDA scenes only (``render/renderer.py:coherent_plan_keys``
+adds the lane index, and on the CPU runs the plain version);
+``coherent_keys.launches`` counts its launches.
+
 ``closest_hit_flat`` launches the kernel's first design on the same rays,
 for measurement only (one thread per ray and the per-thread walk, rays
 stacked into a (7, n) copy); its launches are counted apart in
@@ -26,10 +33,11 @@ import torch
 
 from ..dtypes import BIG, INF, real
 from ..math.v3 import V3
+from ..sampling.sampler import SamplerKind, sobol_log2_scale
 from ..scene import CompiledScene
 from . import _build
 from . import trace as _trace
-from .fused_render import trace_args
+from .fused_render import launch_params, launch_tables, sobol_table, trace_args
 
 
 def launch_args(
@@ -109,6 +117,53 @@ def closest_hit(
 
 
 closest_hit.launches = 0
+
+
+def keys_launch_args(
+    scene: CompiledScene, seed: int, band_y0: int, rows: int, t_min: float, *,
+    camera_consts, sampler: SamplerKind, width: int, height: int, spp: int, has_dof: bool,
+):
+    """The checked arguments of one ``zwrt_coherent_keys`` launch over
+    rows [band_y0, band_y0 + rows) of a ``width`` x ``height`` image:
+    ``(args, keys, keep)``, ``keys`` the (rows * width,) int64 tensor the
+    launch writes and ``keep`` what ``args`` point into."""
+    device = scene.device
+    if device.type != "cuda":
+        raise ValueError(f"coherent_keys_kernel runs on cuda scenes, not {device}")
+    n = rows * width
+    ints, floats = launch_params(scene, seed, t_min, camera_consts, sampler, width, height,
+                                 spp, 1, 1, has_dof, sample_end=1)
+    tables, keep_tables = launch_tables(scene, sampler, width, height, 1)
+    trace_ints, trace_ptrs, trace_tables = trace_args(scene)
+    sobol = sobol_table(device, sobol_log2_scale(width, height))
+    keys = torch.empty((n,), dtype=torch.int64, device=device)
+    host = lambda a: a.ctypes.data_as(ctypes.c_void_p)
+    args = (host(ints), host(floats), host(tables), host(trace_ints), host(trace_ptrs),
+            sobol.data_ptr(), band_y0, keys.data_ptr(), n,
+            torch.cuda.current_stream(device).cuda_stream)
+    keep = (ints, floats, tables, keep_tables, trace_ints, trace_ptrs, trace_tables, sobol)
+    return args, keys, keep
+
+
+def coherent_keys(
+    scene: CompiledScene, seed: int, band_y0: int, rows: int, t_min: float, *,
+    camera_consts, sampler: SamplerKind, width: int, height: int, spp: int, has_dof: bool,
+) -> torch.Tensor:
+    """(rows * width,) int64 on the scene's CUDA device, in row order: the
+    first-hit part (hit_key + 1) << 32 of the coherent-plan key of each
+    pixel of rows [band_y0, band_y0 + rows), hit_key = (kind << 24) + idx
+    of the closest hit above ``t_min`` of its sample-0 camera ray (-1 on a
+    miss); the low word is left 0 for the pixel's lane index.  One launch;
+    nothing waits for the card."""
+    args, keys, _keep = keys_launch_args(
+        scene, seed, band_y0, rows, t_min, camera_consts=camera_consts, sampler=sampler,
+        width=width, height=height, spp=spp, has_dof=has_dof)
+    _launch("zwrt_coherent_keys", args)
+    coherent_keys.launches += 1
+    return keys
+
+
+coherent_keys.launches = 0
 
 
 def closest_hit_flat(

@@ -19,8 +19,9 @@ lanes follow a cached plan:
     lane's work count; later renders sort pixels by that cost, so each warp
     holds lanes of similar cost;
   * tree scenes: pixels are ordered by the first hit of their sample-0
-    camera ray (``_first_hit_probe``, through the closest-hit kernel), so
-    the threads of a warp start in the same part of the tree;
+    camera ray (``coherent_plan``: on the card one launch makes the keys
+    and a device sort orders them, with no host round trip), so the
+    threads of a warp start in the same part of the tree;
   * with ``balance_min_spp`` set and reached: a two-pass balanced render,
     an estimation pass whose work counts size a cost-proportional split
     of each pixel's remaining samples over lanes (``build_balance_plan``).
@@ -39,17 +40,21 @@ the image invariant to how samples are assigned to lanes.
 Spans (``utils/profiler.py``, recorded only while its recording is on):
 ``Renderer::render`` around a render (the image's span), ``rayColorLine``
 around each band's trace, ``render.plan`` around building a lane plan
-with its stages ``render.plan.probe`` (the coherent plan's camera rays
-and first-hit probe), ``render.plan.fetch`` (the copies to the host, where
-the host waits for the card), ``render.plan.sort`` and
-``render.plan.upload``, and ``render.accumulate`` around summing a band
-into the framebuffer and averaging it; counters ``plan.hit.<kind>`` and
-``plan.miss.<kind>`` of the cost-sorted and coherent plans' cache.
+with its stages: the coherent plan's ``render.plan.probe`` (its keys:
+the camera rays and first-hit probe) and ``render.plan.sort`` (the sort
+and the lane tensors), the sorted plan's ``render.plan.fetch`` (the
+copies to the host, where the host waits for the card),
+``render.plan.sort`` and ``render.plan.upload``; ``render.accumulate``
+around summing a band into the framebuffer and averaging it; counters
+``plan.hit.<kind>`` and ``plan.miss.<kind>`` of the cost-sorted and
+coherent plans' cache, and ``plan.card.coherent`` for each coherent plan
+built on the card.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 import logging
 import os
 import weakref
@@ -60,7 +65,7 @@ import torch
 
 from ..dtypes import T_MIN, real
 from ..ops.bounce import supports_bounce_kernel
-from ..ops.closest_hit import closest_hit
+from ..ops.closest_hit import closest_hit, coherent_keys
 from ..ops.fused_render import THREADS
 from ..sampling.sampler import SamplerKind
 from ..scene import Scene
@@ -71,6 +76,7 @@ from .integrator import trace_paths, trace_paths_regen
 log = logging.getLogger("zwrt")
 
 TILE = 32  # pixel-block side for tiled lane order
+PROBE_T_MIN = float(np.float32(1e-4))  # the first-hit probe's t_min
 
 
 def pick_tile(width: int, band_rows: int) -> Optional[int]:
@@ -122,17 +128,27 @@ def unflatten_radiance(rad, width, band_rows, spp_chunk, tile):
     return rad[:, :band_rows, :width]
 
 
-def tile_order_lane_index(width, band_rows, tile):
-    """(band_rows, width) array of each pixel's lane index in the tiled
-    ray_grid order (s_par = 1), accounting for tile padding."""
+def tile_order_lane_index(width, band_rows, tile, device=None):
+    """(band_rows, width) int64 of each pixel's lane index in the tiled
+    ray_grid order (s_par = 1), accounting for tile padding: a NumPy array,
+    or with ``device`` a tensor made there (no copy from the host)."""
+    if device is None:
+        y, x = np.arange(band_rows)[:, None], np.arange(width)[None, :]
+    else:
+        y = torch.arange(band_rows, device=device)[:, None]
+        x = torch.arange(width, device=device)[None, :]
     if tile is None:
-        return np.arange(band_rows * width).reshape(band_rows, width)
+        return y * width + x
     nbx = -(-width // tile)
-    y = np.arange(band_rows)[:, None]
-    x = np.arange(width)[None, :]
     by, iy = y // tile, y % tile
     bx, ix = x // tile, x % tile
     return (((by * nbx + bx) * tile + iy) * tile) + ix
+
+
+@functools.lru_cache(maxsize=8)
+def _lane_index_on(device: torch.device, width: int, rows: int, tile) -> torch.Tensor:
+    """``tile_order_lane_index`` flat on ``device``, made once per shape."""
+    return tile_order_lane_index(width, rows, tile, device).reshape(-1)
 
 
 def memo_plan_entry(cache, compiled, key, max_configs: int,
@@ -251,8 +267,57 @@ def _first_hit_probe(
         camera_params_from_consts(cam_consts), has_dof, sampler, seed, ray_id,
         px, py, sidx, spp, width, height,
     )
-    hit = closest_hit(cs, origin, direction, time, float(np.float32(1e-4)))
+    hit = closest_hit(cs, origin, direction, time, PROBE_T_MIN)
     return hit.kind, hit.idx
+
+
+def coherent_plan_keys(
+    scene: Scene, seed: int, band_y0: int, rows: int, tile, *, width: int, height: int,
+    spp: int, sampler: SamplerKind, has_dof: bool, cam_consts,
+) -> torch.Tensor:
+    """(rows * width,) int64 sort keys of the coherent plan, in row order:
+    ((hit_key + 1) << 32) | lane for each pixel of rows [band_y0, band_y0 +
+    rows), hit_key = (kind << 24) + idx of its sample-0 ray's first hit (-1
+    on a miss), lane its index in the band's lane order with ``tile``
+    (``tile_order_lane_index``).  The keys are unique, so sorting them is a
+    lexsort of (lane, hit_key).  On the card one launch of
+    ``ops/closest_hit.py:coherent_keys`` makes the camera rays and the high
+    word; on the CPU its plain version, the eager ``_first_hit_probe``."""
+    cs = scene.compiled
+    if cs.device.type == "cuda":
+        high = coherent_keys(cs, seed, band_y0, rows, PROBE_T_MIN, camera_consts=cam_consts,
+                             sampler=sampler, width=width, height=height, spp=spp,
+                             has_dof=has_dof)
+    else:
+        pix = torch.arange(rows * width, dtype=torch.int64, device=cs.device)
+        kind, idx = _first_hit_probe(
+            scene, seed, pix % width, pix // width + band_y0, width=width, height=height,
+            spp=spp, sampler=sampler, has_dof=has_dof, cam_consts=cam_consts,
+        )
+        high = (torch.where(kind < 0, -1, (kind.to(torch.int64) << 24) + idx) + 1) << 32
+    return high | _lane_index_on(cs.device, width, rows, tile)
+
+
+def coherent_plan(
+    scene: Scene, seed: int, band_y0: int, rows_eff: int, band_rows: int, *, width: int,
+    height: int, spp: int, sampler: SamplerKind, has_dof: bool, cam_consts,
+):
+    """(px, py, s0, s1), (rows_eff * width,) int32 on the scene's device:
+    one band's coherent plan, its pixels in the order of their
+    ``coherent_plan_keys``, each lane a pixel's whole sample range [0,
+    spp).  On the card the keys and their sort stay there: nothing waits
+    for it."""
+    with named_zone("render.plan.probe"):
+        keys = coherent_plan_keys(scene, seed, band_y0, rows_eff, pick_tile(width, band_rows),
+                                  width=width, height=height, spp=spp, sampler=sampler,
+                                  has_dof=has_dof, cam_consts=cam_consts)
+        if keys.device.type == "cuda":
+            count("plan.card.coherent")
+    with named_zone("render.plan.sort"):
+        order = torch.argsort(keys)
+        px = (order % width).to(torch.int32)
+        py = (order // width + band_y0).to(torch.int32)
+        return px, py, torch.zeros_like(px), torch.full_like(px, spp)
 
 
 def _render_band_balanced(
@@ -493,28 +558,10 @@ class Renderer:
                                 "coherent")
         if "plan" not in entry:
             with named_zone("render.plan"):
-                with named_zone("render.plan.probe"):
-                    ys, xs = np.divmod(np.arange(rows_eff * width), width)
-                    i64 = lambda a: torch.as_tensor(a.astype(np.int64), device=cs.device)
-                    kind, idx = _first_hit_probe(
-                        scene, seed, i64(xs), i64(ys + band_y0), width=width,
-                        height=height, spp=spp, sampler=self.sampler, has_dof=has_dof,
-                        cam_consts=cam_c,
-                    )
-                with named_zone("render.plan.fetch"):
-                    kind = kind.cpu().numpy().astype(np.int64)
-                    idx = idx.cpu().numpy().astype(np.int64)
-                with named_zone("render.plan.sort"):
-                    hit_key = np.where(kind < 0, -1, (kind << 24) + idx)
-                    tile = pick_tile(width, band_rows)
-                    lane_ord = tile_order_lane_index(width, band_rows, tile)[:rows_eff]
-                    order = np.lexsort((lane_ord.reshape(-1), hit_key))
-                with named_zone("render.plan.upload"):
-                    entry["plan"] = tuple(
-                        torch.as_tensor(np.asarray(a, np.int32), device=cs.device)
-                        for a in (xs[order], ys[order] + band_y0, np.zeros(order.size),
-                                  np.full(order.size, spp))
-                    )
+                entry["plan"] = coherent_plan(
+                    scene, seed, band_y0, rows_eff, band_rows, width=width, height=height,
+                    spp=spp, sampler=self.sampler, has_dof=has_dof, cam_consts=cam_c,
+                )
         px, py, s0, s1 = entry["plan"]
         return _render_band_balanced(
             scene, seed, band_y0, px, py, s0, s1, width=width, height=height,

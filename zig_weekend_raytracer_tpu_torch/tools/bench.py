@@ -50,7 +50,7 @@ The last line of standard output is one JSON object: ``metric``,
 ``kernel`` ("K1" or "K2 regenerating"), ``kernel_ms``, ``bound_ms``,
 ``bound_by``, ``roofline_share``, ``peak_source``, ``host_ms``,
 ``warmup_s``, ``times_s``, ``launches`` (the run's kernel launches by
-kernel) and ``device`` (the card's name and power limit as ``nvidia-smi``
+kernel: K3c is the coherent plan's key launch beside K3's closest hits) and ``device`` (the card's name and power limit as ``nvidia-smi``
 gives them); an error adds ``error`` and ``detail``.  ``vs_baseline`` is
 ``value`` / 160 Mpaths/s, the goal that ``BASELINE.json`` states (400 x
 400 x 1000 paths in one second): a target, not a measurement of any device.
@@ -292,7 +292,8 @@ def _launch_counters():
     from . import fp32_peak
 
     return {"K1": (fused_render.render_fused,), "K2": (bounce.bounce, bounce.bounce_regen),
-            "K3": (closest_hit.closest_hit,), "K5": (fp32_peak.chain,)}
+            "K3": (closest_hit.closest_hit,), "K3c": (closest_hit.coherent_keys,),
+            "K5": (fp32_peak.chain,)}
 
 
 def reset_launches() -> None:

@@ -32,7 +32,7 @@ same inputs, or on a slice of them scaled to the kernel's own bounce count.
 
 from __future__ import annotations
 
-from ..sampling.sampler import sobol_log2_scale
+from ..sampling.sampler import SamplerKind, sobol_log2_scale
 from ..sampling.sobol import MAX_SPP_LOG2, SOBOL_MATRIX_SIZE, sobol_sample_bytes
 from ..scene import PRIM_SPHERE
 from ..textures import image_table
@@ -235,6 +235,58 @@ def aov_bound_ms(counts, scene, n_rays: int, hits: int, sphere_hits: int, pixels
               times(OPS["hit_sphere"], sphere_hits))
     nbytes = trace_bytes(scene) + scene.shade_rows.numel() * 4 + pixels * 8 * 4
     return bound_ms(ops, nbytes, ops_rate)
+
+
+# coherent_keys_kernel's work for one pixel beside its closest hit
+# (trace_ops), counted from csrc/closest_hit.cu and
+# zwrt_device.cuh:generate_ray<false> at sample 0, one lane-operation per
+# operator of the source and a multiply-add one, as OPS counts
+KEYS_OPS = {
+    # the pixel's coordinates from the thread index (4 int), the ray id
+    # (2), pxf and pyf, the viewport point and the direction (19 fp), the
+    # time draw (one PCG4D, to_unit) and the key: the miss select, the
+    # shift and add of (kind, idx), +1 and the shift into the high word
+    "common": _ops(21, 1, 31),
+    # the pixel offset of each sampler: a PCG4D draw, two to_unit and two
+    # offsets; stratified adds the stratum's division and remainder, their
+    # conversions and scales; Sobol the float part of its two dimensions
+    # (fscale, sobol_unit, the clamped offsets; sobol_ops counts the bits:
+    # the pixel part by the bit loops, the sample part from the tables)
+    SamplerKind.INDEPENDENT: _ops(6, 0, 22),
+    SamplerKind.STRATIFIED: _ops(12, 0, 24),
+    SamplerKind.SOBOL: _ops(9, 6, 1),
+    # the defocus disk: two PCG4D draws (ud; gauss2 with its log, sqrt, cos
+    # and sin), the normalisation and the lens offset of the origin
+    "dof": _ops(34, 2, 43),
+}
+
+
+def keys_pixel_ops(sampler: SamplerKind, has_dof: bool, width: int, height: int) -> dict:
+    """coherent_keys_kernel's operations for one pixel of a ``width`` x
+    ``height`` image beside its closest hit (``KEYS_OPS``)."""
+    parts = [KEYS_OPS["common"], KEYS_OPS[sampler]]
+    if has_dof:
+        parts.append(KEYS_OPS["dof"])
+    if sampler == SamplerKind.SOBOL:
+        log2_scale = sobol_log2_scale(width, height)
+        parts += [sobol_ops(log2_scale, 0, True), sobol_ops(log2_scale, sobol_sample_bytes(1),
+                                                            False)]
+    return add(*parts)
+
+
+def keys_bound_ms(counts, scene, n_pixels: int, sampler: SamplerKind, has_dof: bool,
+                  width: int, height: int, ops_rate=None):
+    """(ms, by) of one coherent_keys_kernel launch over ``n_pixels`` pixels
+    whose sample-0 rays' closest hits the plain version counted as
+    ``counts``: ``keys_pixel_ops`` per pixel and ``trace_ops``; bytes are
+    the trace's tables, the Sobol tables the launch stages (the sampler's
+    52-column table and the factored tables of sample 0) and 8 bytes of
+    key a pixel written once."""
+    ops = add(times(keys_pixel_ops(sampler, has_dof, width, height), n_pixels),
+              trace_ops(counts))
+    sobol = 5 * 52 * 4 + 2 * sobol_sample_bytes(1) * 256 * 4 \
+        if sampler == SamplerKind.SOBOL else 0
+    return bound_ms(ops, trace_bytes(scene) + sobol + n_pixels * 8, ops_rate)
 
 
 def image_table_bytes(scene) -> int:
