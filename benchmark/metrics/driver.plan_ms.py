@@ -1,9 +1,11 @@
 """driver.plan_ms: the render driver's host time building lane plans, in
-ms an image: the port's ``render.plan`` spans (its first-hit probe, the
-copies to the host, the sort and the upload; ``utils/profiler.py``)
-summed over the traced window, over the images the program recorded
-there.  Nothing to read when the program recorded no image: the control,
-or a program without the spans."""
+ms an image: the port's ``render.plan`` spans (on tree scenes the
+coherent plan built on the card: the enqueue of the key launch, which
+makes each pixel's first-hit key from its camera ray, and of the device
+sort and the lane tensors; ``utils/profiler.py``) summed over the traced
+window, over the images the program recorded there.  Nothing to read when
+the program recorded no image: the control, or a program without the
+spans."""
 
 import sys
 

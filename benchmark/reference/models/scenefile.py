@@ -1,7 +1,9 @@
 """Declarative JSON scene files over ``SceneBuilder``: the benchmark's
 scene data, which the port reads through its own scene-file entry
 (``models/scenefile.py:load_scene_file``), compiled here by the reference.
-Image textures are refused: the reference decodes no images.
+An image texture names a file beside the scene file, which the reference
+decodes itself (``io/decode.py``); a file it cannot decode, or a missing
+one, raises ``ValueError``.
 
 Schema (all vectors are 3-element lists; names are user-chosen keys):
 
@@ -13,6 +15,7 @@ Schema (all vectors are 3-element lists; names are user-chosen keys):
       "textures": {
         "red":   {"solid": [0.65, 0.05, 0.05]},
         "check": {"checker": {"inv_scale": 0.32, "even": "red", "odd": "w"}},
+        "earth": {"image": "earth.png"}         // path, relative to the file
       },
       "materials": {
         "wall":  {"lambertian": "red"},         // texture name
@@ -41,6 +44,7 @@ from __future__ import annotations
 import json
 import os
 
+from ..io.decode import decode_image
 from ..scene import Camera, Scene, SceneBuilder
 
 
@@ -62,7 +66,7 @@ def _build_textures(b: SceneBuilder, spec: dict, base_dir: str) -> dict:
         if kind == "solid":
             ids[name] = b.solid_color(_vec(val, f"texture {name!r} solid"))
         elif kind == "image":
-            raise ValueError(f"texture {name!r}: the reference decodes no images")
+            ids[name] = b.image_texture(decode_image(os.path.join(base_dir, str(val))))
         elif kind == "checker":
             checkers.append((name, val))
         else:

@@ -30,6 +30,7 @@ from __future__ import annotations
 from .reference.sampling.sampler import sobol_log2_scale
 from .reference.sampling.sobol import MAX_SPP_LOG2, SOBOL_MATRIX_SIZE, sobol_sample_bytes
 from .reference.scene import PRIM_SPHERE
+from .reference.textures import image_table
 
 # FP32 lane-operations per second, CUDA cores: NVIDIA's data sheet (H100
 # SXM, 700 W) gives 67 TFLOP/s counting an FMA as two FLOPs, one FP32
@@ -185,11 +186,23 @@ def trace_bytes(scene) -> int:
     return n
 
 
+def image_table_bytes(scene) -> int:
+    """Bytes of the image table the kernels' texel fetch reads
+    (``reference/textures.py:image_table``): the texture LUT when the scene
+    has one, else the atlas as it is laid out, every image padded to the
+    largest; none without images."""
+    if not scene.has_image_textures:
+        return 0
+    return image_table(scene)[1].numel() * 4
+
+
 def render_table_bytes(scene, sobol_bytes: int) -> int:
-    """Bytes of the tables the render kernel reads on a scene without
-    images: the trace's, the shade records, the Sobol table and the
-    factored Sobol tables (2 x ``sobol_bytes`` x 256 u32)."""
-    return trace_bytes(scene) + scene.shade_rows.numel() * 4 + 5 * 52 * 4 + 2 * sobol_bytes * 256 * 4
+    """Bytes of the tables the render kernel reads: the trace's, the shade
+    records, the Sobol table, the factored Sobol tables (2 x
+    ``sobol_bytes`` x 256 u32) and, on a scene with images, its image
+    table (``image_table_bytes``)."""
+    return (trace_bytes(scene) + scene.shade_rows.numel() * 4 + 5 * 52 * 4
+            + 2 * sobol_bytes * 256 * 4 + image_table_bytes(scene))
 
 
 def ops_seconds(ops: dict) -> float:
@@ -211,7 +224,13 @@ def k1_bound(scene, counts, n_pixels_counted: int, has_dof: bool, spp: int, widt
     ``spp``, one lane a pixel: the reference's ``counts`` over
     ``n_pixels_counted`` pixels (every sample of each) scaled to the
     image's pixels, the Sobol respawn in its factored form; bytes are the
-    lanes' and the tables'.  Returns {"ms", "by", "ops", "bytes"}."""
+    lanes' and the tables'.  Returns {"ms", "by", "ops", "bytes"}.
+
+    It bounds the render's work, whichever render kernel runs it: K1, or
+    the bounce kernel K2 in its regenerating mode, which the program sends
+    scenes with an image atlas to.  The reference counts the same paths
+    either way, so a reader of K2's share divides this same bound by K2's
+    device time an image."""
     pixels = width * height
     n_bytes = sobol_sample_bytes(spp)
     ops = render_ops(scaled(counts, pixels / n_pixels_counted), scene, has_dof,
