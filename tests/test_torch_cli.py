@@ -27,8 +27,9 @@
      ``--image_out_path=x.jpg|x.jpeg|x.BMP`` writes the image, which the
      port's decoder reads back: a BMP to the PPM's pixels, a JPEG to
      within its loss; ``write_image`` writes .png, .jpg, .jpeg and .bmp.
-  6. ``--profile=host`` prints the zone table; the device table's zones are
-     the kernels' names.
+  6. ``--profile=host`` prints the zone table, with the bounce kernel's
+     counters and driver spans on an image scene without a LUT; the device
+     table's zones are the kernels' names.
   7. ``--aov`` writes three PNGs whose pixels (decoded with PIL, here only)
      equal those the JAX package's ``write_aovs`` writes for the same
      buffers; ``--denoise`` runs the AOV pass and the filter; ``--stats``
@@ -39,6 +40,7 @@
 
 import dataclasses
 import enum
+import json
 import logging
 import os
 import subprocess
@@ -54,6 +56,7 @@ from zig_weekend_raytracer_tpu.io import ppm as jppm
 from zig_weekend_raytracer_tpu_torch import cli as tcli
 from zig_weekend_raytracer_tpu_torch.io import native as tnative
 from zig_weekend_raytracer_tpu_torch.io import ppm as tppm
+from zig_weekend_raytracer_tpu_torch.io.jpeg import write_jpeg
 from zig_weekend_raytracer_tpu_torch.render import integrator
 from zig_weekend_raytracer_tpu_torch.utils import profiler
 from zig_weekend_raytracer_tpu_torch.utils.argparser import ArgParser, ParseArgsError
@@ -366,6 +369,32 @@ def test_profile_host_prints_zones(tmp_path, capsys):
     assert out.splitlines()[0].split()[:2] == ["zone", "count"]
     assert "Renderer::render" in out and "rayColorLine" in out
     assert not profiler.profiling_enabled()  # restored after the run
+    profiler.reset_zones()
+
+
+def test_profile_host_prints_k2_counters_and_regen_spans(tmp_path, capsys):
+    # an image-textured sphere (a seeded image, no LUT: the bounce kernel's
+    # regenerating mode) under a quad light, as a scene file
+    img = np.random.default_rng(22).integers(0, 256, (6, 5, 3), dtype=np.uint8)
+    write_jpeg(str(tmp_path / "tex.jpg"), img)
+    doc = {"background": [0.2, 0.2, 0.3],
+           "camera": {"look_from": [0, 0.5, 4], "look_at": [0, 0, 0]},
+           "textures": {"tex": {"image": "tex.jpg"}, "lamp": {"solid": [4, 4, 4]}},
+           "materials": {"tex": {"lambertian": "tex"}, "lamp": {"diffuse_light": "lamp"}},
+           "entities": [
+               {"sphere": {"center": [0, 0, 0], "radius": 1, "material": "tex"}},
+               {"quad": {"start": [-1, 2, -1], "edge_u": [2, 0, 0], "edge_v": [0, 0, 2],
+                         "material": "lamp"}, "light": True}]}
+    (tmp_path / "atlas.json").write_text(json.dumps(doc))
+    profiler.reset_zones()
+    argv = ["--image_width=8", "--image_height=8", "--samples_per_pixel=2",
+            "--ray_bounce_max_depth=2", f"--scene_file={tmp_path / 'atlas.json'}",
+            f"--image_out_path={tmp_path / 'a.ppm'}", "--profile=host"]
+    assert tcli.main(argv, device="cpu") == 0
+    out = capsys.readouterr().out
+    for name in ("render.regen.launch", "render.regen.launch.wait", "render.regen.poll",
+                 "k2.launches", "k2.lane_work", "k2.warp_work"):
+        assert name in out, name
     profiler.reset_zones()
 
 

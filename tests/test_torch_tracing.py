@@ -1,18 +1,22 @@
 """The port's tracing (``utils/profiler.py``) and what records it: the
-render driver's spans and plan-cache counters (``render/renderer.py``) and
-K1's lane and block counters (``ops/fused_render.py``), on the CPU at
-tiny sizes; the block stamps of the CUDA kernel on the card (the ``card``
-test, skipped without one: ``python -m pytest --noconftest -m card
-tests/test_torch_tracing.py`` there, since this directory's conftest
-imports JAX)."""
+render driver's spans and plan-cache counters (``render/renderer.py``),
+the bounce kernel's driver spans (``render/integrator.py``) and K1's and
+K2's lane and block counters (``ops/fused_render.py``, ``ops/bounce.py``),
+on the CPU at tiny sizes; the block stamps of the CUDA kernels on the card
+(the ``card`` tests, skipped without one: ``python -m pytest --noconftest
+-m card tests/test_torch_tracing.py`` there, since this directory's
+conftest imports JAX)."""
 
 import json
 
+import numpy as np
 import pytest
 import torch
 
 import zig_weekend_raytracer_tpu_torch as zt
+from zig_weekend_raytracer_tpu_torch.ops import bounce
 from zig_weekend_raytracer_tpu_torch.ops import fused_render as fused
+from zig_weekend_raytracer_tpu_torch.render import integrator
 from zig_weekend_raytracer_tpu_torch.utils import profiler
 
 PLAN_STAGES = ("render.plan.probe", "render.plan.fetch", "render.plan.sort",
@@ -42,6 +46,28 @@ def cornell():
     return zt.models.load_scene("cornell_box", device="cpu")
 
 
+def _atlas_scene(device):
+    """An image-textured sphere (a seeded 6x5 image on the atlas, no LUT,
+    so the bounce kernel's regenerating mode renders it) under one quad
+    light."""
+    b = zt.scene.SceneBuilder()
+    img = np.random.default_rng(22).integers(0, 256, (6, 5, 3), dtype=np.uint8)
+    b.add(b.sphere((0, 0, 0), 1.0, b.lambertian(b.image_texture(img))))
+    light = b.add(b.quad((-1, 2, -1), (2, 0, 0), (0, 0, 2),
+                         b.diffuse_light(b.solid_color((4, 4, 4)))))
+    b.set_lights([light])
+    b.set_background((0.2, 0.2, 0.3))
+    b.set_camera(zt.scene.Camera(look_from=(0, 0.5, 4), look_at=(0, 0, 0)))
+    return b.compile(name="atlas", device=device)
+
+
+@pytest.fixture(scope="module")
+def atlas():
+    scene = _atlas_scene("cpu")
+    assert scene.compiled.has_image_textures and not scene.compiled.tex_lut_dims
+    return scene
+
+
 def _renderer(seed=0):
     # one sample in flight a pixel at 8x8, so the lane plans are built
     return zt.render.Renderer(samples_per_pixel=2, max_ray_bounce_depth=3, seed=seed,
@@ -58,13 +84,15 @@ def _by_name(snap, name):
     return [s for s in snap["spans"] if s["name"] == name]
 
 
-def test_nothing_is_recorded_while_off(cornell, monkeypatch):
+@pytest.mark.parametrize("scene", ["cornell", "atlas"])
+def test_nothing_is_recorded_while_off(scene, request, monkeypatch):
     def refuse(name):
         raise AssertionError(f"record_function({name!r}) entered while recording is off")
 
+    scene = request.getfixturevalue(scene)
     monkeypatch.setattr(torch.profiler, "record_function", refuse)
     assert not profiler.recording()
-    _renderer().render_device(cornell, 8, 8)
+    _renderer().render_device(scene, 8, 8)
     profiler.count("plan.hit.sorted")
     profiler.count("k1.lane_work", torch.tensor(3))
     assert profiler.snapshot() == {"spans": [], "counters": {}, "images": 0}
@@ -133,11 +161,12 @@ def test_a_new_seed_misses_the_plan(balls):
     assert counters["plan.miss.coherent"] == 2 and "plan.hit.coherent" not in counters
 
 
-def test_recording_changes_no_image(balls, cornell):
-    for scene in (balls, cornell):
-        off = _renderer(7).render_device(scene, 8, 8)
-        on, _ = _under_profiler(lambda: _renderer(7).render_device(scene, 8, 8))
-        assert torch.equal(off, on)
+@pytest.mark.parametrize("scene", ["balls", "cornell", "atlas"])
+def test_recording_changes_no_image(scene, request):
+    scene = request.getfixturevalue(scene)
+    off = _renderer(7).render_device(scene, 8, 8)
+    on, _ = _under_profiler(lambda: _renderer(7).render_device(scene, 8, 8))
+    assert torch.equal(off, on)
 
 
 def test_lane_counters_sum_the_launch_work(cornell):
@@ -149,6 +178,74 @@ def test_lane_counters_sum_the_launch_work(cornell):
     lane, warp = fused.lane_sums(entry["work"])
     assert counters["k1.lane_work"] == int(entry["work"].sum()) == int(lane) > 0
     assert counters["k1.warp_work"] == int(warp) >= int(lane)
+
+
+def test_k2_counters_count_the_passes_and_their_work(atlas):
+    r = _renderer()
+    passes = integrator.trace_paths_regen.passes
+    _under_profiler(lambda: r.render_device(atlas, 8, 8))
+    counters = profiler.snapshot()["counters"]
+    assert counters["k2.launches"] == integrator.trace_paths_regen.passes - passes > 0
+    # the sorted driver's first render keeps the work counts of its passes,
+    # each of which started from no work
+    (entry,) = r._plan_cache[atlas.compiled].values()
+    lane, warp = fused.lane_sums(entry["work"])
+    assert counters["k2.lane_work"] == int(lane) > 0
+    assert counters["k2.warp_work"] == int(warp) >= int(lane)
+    # K2's counters, not K1's; no block stamps off the card
+    assert not {"k1.lane_work", "k2.block_ns", "k2.slot_ns"} & set(counters)
+
+
+def test_k2_lane_work_counts_each_pass_once(atlas):
+    # a second pass from the first one's final state adds only its own work
+    cs = atlas.compiled
+    r = _renderer(3)
+    lane = torch.arange(64, dtype=torch.int32)
+    px, py = lane % 8, lane // 8
+    s0, s1 = torch.zeros_like(lane), torch.full_like(lane, r.samples_per_pixel)
+    kw = dict(camera_consts=zt.render.camera.camera_consts(atlas.camera, 8, 8),
+              sampler=r.sampler, width=8, height=8, spp=r.samples_per_pixel, stride=1,
+              max_depth=r.max_ray_bounce_depth, has_dof=False)
+    st0 = integrator.initial_regen_state(s0, 1)
+    profiler.set_profiling(True)
+    half = bounce.bounce_regen(cs, st0, px, py, s0 + 1, r.seed, zt.dtypes.T_MIN, **kw)
+    end = bounce.bounce_regen(cs, half, px, py, s1, r.seed, zt.dtypes.T_MIN, **kw)
+    counters = profiler.snapshot()["counters"]
+    first, second = fused.lane_sums(half.work), fused.lane_sums(end.work - half.work)
+    assert counters["k2.launches"] == 2
+    assert counters["k2.lane_work"] == int(first[0] + second[0]) == int(end.work.sum())
+    assert counters["k2.warp_work"] == int(first[1] + second[1])
+    assert len(_by_name(profiler.snapshot(), "render.regen.launch.wait")) == 2
+
+
+def test_regen_spans_nest_in_the_band(atlas):
+    _under_profiler(lambda: _renderer().render_device(atlas, 8, 8))
+    snap = profiler.snapshot()
+    spans = snap["spans"]
+
+    def within(child, parent):
+        return parent["start_ns"] <= child["start_ns"] <= child["end_ns"] <= parent["end_ns"]
+
+    def children(parent):
+        return [s for s in spans if s["parent"] >= 0 and spans[s["parent"]] is parent]
+
+    (image,) = _by_name(snap, "Renderer::render")
+    bands = _by_name(snap, "rayColorLine")
+    assert bands and {s["image_id"] for s in spans} == {0}
+    launches = 0
+    for band in bands:
+        assert within(band, image)
+        # the band's loop: a poll before each pass and one that ends it
+        loop = children(band)
+        k = len(loop) // 2
+        assert k >= 1 and [s["name"] for s in loop] == (
+            ["render.regen.poll", "render.regen.launch"] * k + ["render.regen.poll"])
+        for launch in loop[1::2]:
+            assert within(launch, band)
+            (wait,) = children(launch)
+            assert wait["name"] == "render.regen.launch.wait" and within(wait, launch)
+        launches += k
+    assert len(_by_name(snap, "render.regen.launch.wait")) == launches
 
 
 @pytest.mark.parametrize("work, lane, warp", [
@@ -307,3 +404,47 @@ def test_coherent_plans_on_the_card_are_counted(card):
         stages = [s["name"] for s in snap["spans"] if s["parent"] >= 0
                   and snap["spans"][s["parent"]] is plan]
         assert stages == list(COHERENT_STAGES)
+
+
+@pytest.mark.card
+def test_k2_block_stamps_on_the_card(card):
+    from zig_weekend_raytracer_tpu_torch.render.camera import camera_consts
+
+    scene = _atlas_scene("cuda")
+    cs = scene.compiled
+    w = h = 400                                 # one sample in flight a pixel
+    r = zt.render.Renderer(samples_per_pixel=8, max_ray_bounce_depth=5, seed=3)
+    off = r.render_device(scene, w, h)          # builds the coherent plan
+    on, _ = _under_profiler(lambda: r.render_device(scene, w, h))
+    assert torch.equal(off, on)
+    counters = profiler.snapshot()["counters"]
+    assert counters["k2.launches"] >= 1 and "k1.lane_work" not in counters
+    assert 0 < counters["k2.block_ns"] <= counters["k2.slot_ns"]
+    assert 0 < counters["k2.lane_work"] <= counters["k2.warp_work"]
+
+    px, py, s0, s1, stride = r.render_lanes(scene, w, h)
+    n = px.shape[0]
+    kw = dict(camera_consts=camera_consts(scene.camera, w, h), sampler=r.sampler, width=w,
+              height=h, spp=r.samples_per_pixel, stride=stride, max_depth=r.max_ray_bounce_depth,
+              has_dof=scene.camera.has_depth_of_field)
+    st0 = integrator.initial_regen_state(s0, stride)
+    end = fused.launch_sample_end(s1)
+    stamps = torch.zeros((-(-n // fused.THREADS), fused.BLOCK_STAMP_COLS), dtype=torch.int64,
+                         device="cuda")
+    out, _, _, slots = bounce._regen(cs, st0, px, py, s1, end, r.seed, zt.dtypes.T_MIN, 0,
+                                     out_blocks=stamps, **kw)
+    plain, _, _, none = bounce._regen(cs, st0, px, py, s1, end, r.seed, zt.dtypes.T_MIN, 0, **kw)
+    assert none is None
+    for a, b in zip(out, plain):
+        a, b = (a.to_array(), b.to_array()) if hasattr(a, "to_array") else (a, b)
+        assert torch.equal(a, b)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    blocks_per_sm, _ = bounce.bounce_regen_occupancy(cs, st0, px, py, s1, r.seed,
+                                                     zt.dtypes.T_MIN, **kw)
+    assert slots == blocks_per_sm * sms > 0
+    s = stamps.cpu()
+    assert s.shape == (-(-n // fused.THREADS), fused.BLOCK_STAMP_COLS)
+    assert bool((s[:, 0] >= 0).all()) and bool((s[:, 0] < sms).all())
+    assert bool((s[:, 1] > 0).all()) and bool((s[:, 1] <= s[:, 2]).all())
+    # every block ran inside the launch's span, on more than one SM
+    assert int(s[:, 2].max() - s[:, 1].min()) < 60e9 and len(set(s[:, 0].tolist())) > 1

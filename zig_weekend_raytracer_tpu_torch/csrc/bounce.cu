@@ -62,7 +62,10 @@
 // (``queue_len`` ints) its leaf queue (zwrt_device.cuh:set_walk); ``flags``
 // the instantiation (render_kernels.cuh): 0 by default, kFlagEstimator for
 // Russian roulette and the indirect clamp in either mode, or a measurement
-// variant of the regenerating mode.  Launches on ``stream`` and returns the
+// variant of the regenerating mode.  ``out_blocks``, null or a zeroed buffer
+// of kBlockStampCols uint64 a block, takes the default and estimator
+// instantiations' block stamps (render_kernels.cuh:stamp_block_start); the
+// variants take none.  Launches on ``stream`` and returns the
 // launch's cudaError_t; with ``occupancy`` set it launches nothing and
 // writes there the instantiation's blocks per SM and dynamic shared memory
 // (render_kernels.cuh:RenderLaunch).
@@ -72,7 +75,8 @@ extern "C" int zwrt_bounce(const int* iparams, const float* fparams, const void*
                            const int* image_dims, const int* image_texels,
                            const float* shade_rows, const uint32_t* sobol, float* fstate,
                            int* istate, const int* px, const int* py, const int* limit,
-                           long long* out_prof, int regen, int depth, int walk, int flags,
+                           long long* out_prof, unsigned long long* out_blocks, int regen,
+                           int depth, int walk, int flags,
                            int q_cap, int* queue, int queue_len, int n, int* occupancy,
                            void* stream) {
   using namespace zwrt;
@@ -84,10 +88,10 @@ extern "C" int zwrt_bounce(const int* iparams, const float* fparams, const void*
                         queue_len, n, occupancy, stream);
   if (err != 0) return err;
   if (flags == kFlagEstimator)
-    return bounce_estimator(L, fstate, istate, px, py, limit, regen, depth);
+    return bounce_estimator(L, fstate, istate, px, py, limit, out_blocks, regen, depth);
   if (flags != 0) {
     if (!regen) return (int)cudaErrorInvalidValue;
     return bounce_variant(flags, L, fstate, istate, px, py, limit, out_prof);
   }
-  return launch_bounce<0>(L, fstate, istate, px, py, limit, nullptr, regen, depth);
+  return launch_bounce<0>(L, fstate, istate, px, py, limit, nullptr, out_blocks, regen, depth);
 }

@@ -11,8 +11,10 @@
 namespace zwrt {
 
 int bounce_estimator(const RenderLaunch& L, float* fstate, int* istate, const int* px,
-                     const int* py, const int* limit, int regen, int depth) {
-  return launch_bounce<kFlagEstimator>(L, fstate, istate, px, py, limit, nullptr, regen, depth);
+                     const int* py, const int* limit, unsigned long long* out_blocks, int regen,
+                     int depth) {
+  return launch_bounce<kFlagEstimator>(L, fstate, istate, px, py, limit, nullptr, out_blocks,
+                                       regen, depth);
 }
 
 }  // namespace zwrt

@@ -15,14 +15,16 @@ int bounce_variant(int flags, const RenderLaunch& L, float* fstate, int* istate,
                    const int* py, const int* limit, long long* out_prof) {
   switch (flags) {
     case kFlagProf:
-      return launch_bounce<kFlagProf>(L, fstate, istate, px, py, limit, out_prof, 1, 0);
+      return launch_bounce<kFlagProf>(L, fstate, istate, px, py, limit, out_prof, nullptr, 1, 0);
     case kFlagLoopSobol:
-      return launch_bounce<kFlagLoopSobol>(L, fstate, istate, px, py, limit, out_prof, 1, 0);
+      return launch_bounce<kFlagLoopSobol>(L, fstate, istate, px, py, limit, out_prof, nullptr, 1,
+                                           0);
     case kFlagProf | kFlagLoopSobol:
       return launch_bounce<kFlagProf | kFlagLoopSobol>(L, fstate, istate, px, py, limit, out_prof,
-                                                       1, 0);
+                                                       nullptr, 1, 0);
     case kFlagFirstWalk:
-      return launch_bounce<kFlagFirstWalk>(L, fstate, istate, px, py, limit, out_prof, 1, 0);
+      return launch_bounce<kFlagFirstWalk>(L, fstate, istate, px, py, limit, out_prof, nullptr, 1,
+                                           0);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -23,11 +23,11 @@
 // bounded_queue), and kWalkRowQueue's current design stages packed tree
 // nodes (stage_nodes) at every block's start and keeps its warp queues.
 //
-// The render kernel's ``out_blocks``, when not null, takes kBlockStampCols
-// uint64 a block (stamp_block_start, stamp_block_end); the production
-// launches pass null, ops/fused_render.py:render_fused passes a zeroed
-// buffer while the port's profiler records.  Like ``out_work`` it is a
-// runtime argument, so it adds no instantiation.
+// Each kernel's ``out_blocks``, when not null, takes kBlockStampCols uint64
+// a block (stamp_block_start, stamp_block_end); the production launches
+// pass null, ops/fused_render.py:render_fused and ops/bounce.py:
+// bounce_regen pass a zeroed buffer while the port's profiler records.
+// Like ``out_work`` it is a runtime argument, so it adds no instantiation.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -121,11 +121,13 @@ __global__ void __launch_bounds__(kThreads) bounce_kernel(
     const __grid_constant__ Images images, const float* __restrict__ shade_rows,
     const uint32_t* __restrict__ sobol, float* __restrict__ fstate, int* __restrict__ istate,
     const int* __restrict__ lane_px, const int* __restrict__ lane_py,
-    const int* __restrict__ lane_limit, long long* __restrict__ out_prof, int depth, int n) {
+    const int* __restrict__ lane_limit, long long* __restrict__ out_prof,
+    unsigned long long* __restrict__ out_blocks, int depth, int n) {
   if (REGEN && !(FLAGS & kFlagLoopSobol)) stage_sobol(p);
   if (WALK == kWalkRowQueue) stage_nodes(scene);
   int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
+  if (out_blocks && threadIdx.x == 0) stamp_block_start(out_blocks);
   float* f = fstate + i;
   int* st = istate + i;
   Path s;
@@ -170,6 +172,7 @@ __global__ void __launch_bounds__(kThreads) bounce_kernel(
   f[10 * n] = s.rad.y;
   f[11 * n] = s.rad.z;
   st[n] = alive ? 1 : 0;
+  if (out_blocks) stamp_block_end(out_blocks);
 }
 
 // ---------------------------------------------------------------------------
@@ -290,7 +293,8 @@ int launch_fused_render(const RenderLaunch& L, const int* px, const int* py, con
 
 template <int FLAGS>
 int launch_bounce(const RenderLaunch& L, float* fstate, int* istate, const int* px,
-                  const int* py, const int* limit, long long* out_prof, int regen, int depth) {
+                  const int* py, const int* limit, long long* out_prof,
+                  unsigned long long* out_blocks, int regen, int depth) {
   if ((FLAGS & ~kFlagEstimator) != 0 && !regen) return (int)cudaErrorInvalidValue;
   if ((FLAGS & kFlagProf) && out_prof == nullptr) return (int)cudaErrorInvalidValue;
   const int blocks = (L.n + kThreads - 1) / kThreads;
@@ -307,7 +311,8 @@ int launch_bounce(const RenderLaunch& L, float* fstate, int* istate, const int* 
       if (!regen) kernel = bounce_kernel<false, W, FLAGS>;
     }
     return launch_or_report(L, kernel, blocks, smem, L.p, scene, L.images, L.shade_rows,
-                            L.sobol, fstate, istate, px, py, limit, out_prof, depth, L.n);
+                            L.sobol, fstate, istate, px, py, limit, out_prof, out_blocks, depth,
+                            L.n);
   });
 }
 
@@ -357,6 +362,7 @@ int fused_render_estimator(const RenderLaunch& L, const int* px, const int* py, 
                            const int* s1, float* out_rad, int* out_work,
                            unsigned long long* out_blocks);
 int bounce_estimator(const RenderLaunch& L, float* fstate, int* istate, const int* px,
-                     const int* py, const int* limit, int regen, int depth);
+                     const int* py, const int* limit, unsigned long long* out_blocks, int regen,
+                     int depth);
 
 }  // namespace zwrt

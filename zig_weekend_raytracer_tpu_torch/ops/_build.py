@@ -123,7 +123,7 @@ def load_library() -> ctypes.CDLL:
     lib.zwrt_coherent_keys.restype = ctypes.c_int
     lib.zwrt_closest_hit_flat.argtypes = [p] * 4 + [f, f] + [p] * 3 + [i, p]
     lib.zwrt_closest_hit_flat.restype = ctypes.c_int
-    lib.zwrt_bounce.argtypes = [p] * 6 + [i] + [p] * 10 + [i] * 5 + [p, i, i, p, p]
+    lib.zwrt_bounce.argtypes = [p] * 6 + [i] + [p] * 11 + [i] * 5 + [p, i, i, p, p]
     lib.zwrt_bounce.restype = ctypes.c_int
     lib.zwrt_fp32_chain.argtypes = [i, i, i, p, p, i, i, p]
     lib.zwrt_fp32_chain.restype = ctypes.c_int

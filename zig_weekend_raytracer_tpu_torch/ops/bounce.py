@@ -21,6 +21,20 @@ textures, no LUT) both are off, as in the JAX kernel.  A regenerating
 launch's Sobol tables cover its sample indices below the largest
 ``sample_limit``.
 
+While ``utils/profiler.py`` records, ``bounce_regen`` counts each
+regenerating launch (``k2.launches``) and, on the lanes' work counts over
+the launch (the final state's ``work`` less the state it was given),
+``k2.lane_work`` and ``k2.warp_work`` (``ops/fused_render.py:lane_sums``);
+on the card it asks the launch for its blocks' stamps (the launcher's
+``out_blocks``, as K1's) and counts ``k2.block_ns`` and ``k2.slot_ns``
+(``block_sums``, over the block slots of the instantiation's blocks per
+SM, which ``bounce_regen_occupancy`` reports).  Its read of the window
+ends (``launch_sample_end``), where the host waits for the card, is the
+span ``render.regen.launch.wait``, read on either device so that the span
+lies where the card's launch reads it.  Nothing waits for the card until
+the profiler's ``snapshot`` reads the counters, and recording changes no
+output.
+
 ``bounce_regen_variant`` launches the regenerating mode's measurement
 variants (the phase profile, the earlier Sobol bit-loop respawn, the first
 designs of the queue, rowqueue, spec and uni walks), counted apart in
@@ -49,11 +63,13 @@ from ..render import integrator
 from ..render.integrator import RegenState
 from ..sampling.sampler import SamplerKind, sobol_log2_scale
 from ..scene import CompiledScene
+from ..utils import profiler
 from . import _build
 from .fused_render import (
-    FIRST_DESIGN_WALKS, FLAG_FIRST_WALK, FLAG_LOOP_SOBOL, FLAG_PROF, PROF_COLS, VARIANT_WALKS,
-    check_flags, check_lane_tensor, estimator_flags, image_args, launch_params, launch_sample_end,
-    launch_tables, node_args, sobol_smem_bytes, sobol_table, trace_args, walk_args,
+    BLOCK_STAMP_COLS, FIRST_DESIGN_WALKS, FLAG_FIRST_WALK, FLAG_LOOP_SOBOL, FLAG_PROF, PROF_COLS,
+    THREADS, VARIANT_WALKS, block_sums, check_flags, check_lane_tensor, estimator_flags,
+    image_args, lane_sums, launch_params, launch_sample_end, launch_tables, node_args,
+    sobol_smem_bytes, sobol_table, trace_args, walk_args,
 )
 from .trace import WALKS
 
@@ -74,12 +90,16 @@ def supports_fused_render(scene: CompiledScene) -> bool:
         not scene.has_image_textures or bool(scene.tex_lut_dims))
 
 
-def _launch(scene, params, fstate, istate, lanes, regen, depth, flags=0, occupancy=None):
-    """One launch of the bounce kernel; returns the tree walk it took and
-    the phase profile (None without FLAG_PROF).  ``params`` is
-    (ints, floats, (sampler, width, height, sample_end)); with ``occupancy``
-    (a host int32 array of 2) nothing is launched, and the launcher writes
-    the instantiation's blocks per SM and shared memory there."""
+def _launch(scene, params, fstate, istate, lanes, regen, depth, flags=0, occupancy=None,
+            out_blocks=None):
+    """One launch of the bounce kernel; returns the tree walk it took, the
+    phase profile (None without FLAG_PROF) and, with ``out_blocks``, the
+    card's block slots for the instantiation (its blocks per SM times the
+    SMs; else None).  ``params`` is (ints, floats, (sampler, width, height,
+    sample_end)); with ``occupancy`` (a host int32 array of 2) nothing is
+    launched, and the launcher writes the instantiation's blocks per SM and
+    shared memory there.  ``out_blocks``, a zeroed int64 tensor of (blocks,
+    ``BLOCK_STAMP_COLS``) on the card, takes each block's stamps."""
     device = fstate.device
     if scene.device != device:
         raise ValueError(f"scene is on {scene.device}, lanes on {device}")
@@ -89,6 +109,9 @@ def _launch(scene, params, fstate, istate, lanes, regen, depth, flags=0, occupan
             "to the fixed-depth wavefront (render/integrator.py:trace_paths)"
         )
     n = fstate.shape[1]
+    if out_blocks is not None:
+        check_lane_tensor("out_blocks", out_blocks.view(-1), device,
+                          -(-n // THREADS) * BLOCK_STAMP_COLS, torch.int64)
     lib = _build.load_library()
     ints, floats, (sampler, width, height, sample_end) = params
     tables, _keep = launch_tables(scene, sampler, width, height, sample_end)
@@ -103,23 +126,30 @@ def _launch(scene, params, fstate, istate, lanes, regen, depth, flags=0, occupan
     nodes, _nodes = node_args(scene, walk)
     prof = (torch.empty((PROF_COLS, n), dtype=torch.int64, device=device)
             if flags & FLAG_PROF else None)
-    err = lib.zwrt_bounce(
-        ints.ctypes.data_as(ctypes.c_void_p),
-        floats.ctypes.data_as(ctypes.c_void_p),
-        tables.ctypes.data_as(ctypes.c_void_p),
-        trace_ints.ctypes.data_as(ctypes.c_void_p),
-        trace_ptrs.ctypes.data_as(ctypes.c_void_p),
-        None if nodes is None else nodes.ctypes.data_as(ctypes.c_void_p),
-        dims.shape[0], dims.data_ptr(), texels.data_ptr(), shade_rows.data_ptr(), sobol.data_ptr(), fstate.data_ptr(), istate.data_ptr(), px, py, limit,
-        None if prof is None else prof.data_ptr(), int(regen), int(depth), code, flags, cap,
-        None if queue is None else queue.data_ptr(), 0 if queue is None else queue.numel(), n,
-        None if occupancy is None else occupancy.ctypes.data_as(ctypes.c_void_p),
-        torch.cuda.current_stream(device).cuda_stream,
-    )
-    if err != 0:
-        raise RuntimeError(f"bounce_kernel ({walk} walk, flags {flags}) launch failed: "
-                           f"cudaError {err}")
-    return walk, prof
+    ptr = lambda t: None if t is None else t.data_ptr()
+    host = lambda a: None if a is None else a.ctypes.data_as(ctypes.c_void_p)
+
+    def call(occ):
+        err = lib.zwrt_bounce(
+            host(ints), host(floats), host(tables), host(trace_ints), host(trace_ptrs),
+            host(nodes), dims.shape[0], dims.data_ptr(), texels.data_ptr(),
+            shade_rows.data_ptr(), sobol.data_ptr(), fstate.data_ptr(), istate.data_ptr(), px,
+            py, limit, ptr(prof), ptr(out_blocks), int(regen), int(depth), code, flags, cap,
+            ptr(queue), 0 if queue is None else queue.numel(), n, host(occ),
+            torch.cuda.current_stream(device).cuda_stream,
+        )
+        if err != 0:
+            raise RuntimeError(f"bounce_kernel ({walk} walk, flags {flags}) launch failed: "
+                               f"cudaError {err}")
+
+    slots = None
+    if out_blocks is not None:
+        # the launch's block slots: the same call asked for its occupancy
+        occ = np.zeros(2, np.int32)
+        call(occ)
+        slots = int(occ[0]) * torch.cuda.get_device_properties(device).multi_processor_count
+    call(occupancy)
+    return walk, prof, slots
 
 
 def _pack(origin, direction, throughput, radiance, time, ints, device, n):
@@ -171,8 +201,8 @@ def bounce(
         scene, seed, t_min, ((0.0,) * 3,) * 6, SamplerKind.SOBOL, 1, 1, 1,
         1, 1, False, 1, rr_start, clamp,
     )
-    walk, _ = _launch(scene, (ints, floats, (SamplerKind.SOBOL, 1, 1, 1)), fstate, istate,
-                      None, False, depth, flags)
+    walk, _, _ = _launch(scene, (ints, floats, (SamplerKind.SOBOL, 1, 1, 1)), fstate, istate,
+                         None, False, depth, flags)
     bounce.launches[walk] += 1
     bounce.estimator_launches += bool(flags)
     f = fstate
@@ -204,14 +234,35 @@ def bounce_regen(
         height=height, spp=spp, stride=stride, max_depth=max_depth,
         has_dof=has_dof, rr_start=rr_start, clamp=clamp,
     )
+    if px.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"bounce_regen runs on cuda or cpu tensors, not {px.device}")
+    record = profiler.recording()
+    with profiler.named_zone("render.regen.launch.wait"):
+        sample_end = launch_sample_end(sample_limit)
     if px.device.type == "cpu":
-        return integrator.bounce_regen_reference(
+        out = integrator.bounce_regen_reference(
             scene, state, px, py, sample_limit, seed, t_min, **kw
         )
-    flags, kw["rr_start"], kw["clamp"] = estimator_flags(scene, rr_start, clamp)
-    out, _, walk = _regen(scene, state, px, py, sample_limit, seed, t_min, flags, **kw)
-    bounce_regen.launches[walk] += 1
-    bounce_regen.estimator_launches += bool(flags)
+    else:
+        stamps = None
+        if record and px.shape[0]:
+            stamps = torch.zeros((-(-px.shape[0] // THREADS), BLOCK_STAMP_COLS),
+                                 dtype=torch.int64, device=px.device)
+        flags, kw["rr_start"], kw["clamp"] = estimator_flags(scene, rr_start, clamp)
+        out, _, walk, slots = _regen(scene, state, px, py, sample_limit, sample_end, seed, t_min,
+                                     flags, out_blocks=stamps, **kw)
+        bounce_regen.launches[walk] += 1
+        bounce_regen.estimator_launches += bool(flags)
+        if stamps is not None:
+            block_ns, slot_ns = block_sums(stamps, slots)
+            profiler.count("k2.block_ns", block_ns)
+            profiler.count("k2.slot_ns", slot_ns)
+    if record:
+        profiler.count("k2.launches")
+        if px.shape[0]:
+            lane_work, warp_work = lane_sums(out.work - state.work)
+            profiler.count("k2.lane_work", lane_work)
+            profiler.count("k2.warp_work", warp_work)
     return out
 
 
@@ -239,8 +290,8 @@ def bounce_regen_variant(scene: CompiledScene, state: RegenState, px, py, sample
                          "bounce_regen launches the default kernel")
     est, kw["rr_start"], kw["clamp"] = estimator_flags(
         scene, kw.get("rr_start", 0), kw.get("clamp", 0.0))
-    out, prof, walk = _regen(scene, state, px, py, sample_limit, seed, t_min, flags | est,
-                             **kw)
+    out, prof, walk, _ = _regen(scene, state, px, py, sample_limit,
+                                launch_sample_end(sample_limit), seed, t_min, flags | est, **kw)
     bounce_regen_variant.launches[walk] += 1
     return out, prof
 
@@ -260,16 +311,18 @@ def bounce_regen_occupancy(scene: CompiledScene, state: RegenState, px, py, samp
     est, kw["rr_start"], kw["clamp"] = estimator_flags(
         scene, kw.get("rr_start", 0), kw.get("clamp", 0.0))
     occ = np.zeros(2, np.int32)
-    _regen(scene, state, px, py, sample_limit, seed, t_min,
+    _regen(scene, state, px, py, sample_limit, launch_sample_end(sample_limit), seed, t_min,
            (FLAG_FIRST_WALK if first_walk else 0) | est, occupancy=occ, **kw)
     return int(occ[0]), int(occ[1])
 
 
-def _regen(scene, state, px, py, sample_limit, seed, t_min, flags, *, camera_consts, sampler,
-           width, height, spp, stride, max_depth, has_dof, rr_start=0, clamp=0.0,
-           occupancy=None):
-    """One regenerating launch: (final state, profile or None, walk);
-    ``occupancy`` as ``_launch`` takes it."""
+def _regen(scene, state, px, py, sample_limit, sample_end, seed, t_min, flags, *,
+           camera_consts, sampler, width, height, spp, stride, max_depth, has_dof, rr_start=0,
+           clamp=0.0, occupancy=None, out_blocks=None):
+    """One regenerating launch over the sample indices below ``sample_end``
+    (``launch_sample_end`` of ``sample_limit``): (final state, profile or
+    None, walk, block slots or None); ``occupancy`` and ``out_blocks`` as
+    ``_launch`` takes them."""
     device = px.device
     n = px.shape[0]
     if device.type != "cuda":
@@ -286,13 +339,13 @@ def _regen(scene, state, px, py, sample_limit, seed, t_min, flags, *, camera_con
         (_u32_bits(state.ray_id), state.alive, state.sample, state.bounce, state.work),
         device, n,
     )
-    sample_end = launch_sample_end(sample_limit)
     ints, floats = launch_params(
         scene, seed, t_min, camera_consts, sampler, width, height, spp,
         stride, max_depth, has_dof, sample_end, rr_start, clamp,
     )
-    walk, prof = _launch(scene, (ints, floats, (sampler, width, height, sample_end)), fstate,
-                         istate, (px, py, sample_limit), True, 0, flags, occupancy)
+    walk, prof, slots = _launch(scene, (ints, floats, (sampler, width, height, sample_end)),
+                                fstate, istate, (px, py, sample_limit), True, 0, flags,
+                                occupancy, out_blocks)
     f, s = fstate, istate
     out = RegenState(
         origin=V3(f[0], f[1], f[2]), direction=V3(f[3], f[4], f[5]),
@@ -300,4 +353,4 @@ def _regen(scene, state, px, py, sample_limit, seed, t_min, flags, *, camera_con
         throughput=V3(f[6], f[7], f[8]), radiance=V3(f[9], f[10], f[11]),
         alive=s[1] != 0, sample=s[2], bounce=s[3], work=s[4],
     )
-    return out, prof, walk
+    return out, prof, walk, slots

@@ -7,7 +7,12 @@ and image scenes with a texture LUT, go to the whole-render kernel
 regenerating mode (``ops/bounce.py``) under the driver's
 ``while any(alive | sample + stride < limit)`` loop.  That kernel
 reads the texel at the hit and drains every lane's window in one launch,
-so the loop runs one pass per band (``trace_paths_regen.passes``).
+so the loop runs one pass per band (``trace_paths_regen.passes``).  While
+``utils/profiler.py`` records, each pass's ``bounce_regen`` call is the
+span ``render.regen.launch`` (the host's checks, packing and enqueue, with
+the read of the window ends inside it, ``render.regen.launch.wait``) and
+each read of the loop's condition, where the host waits for the launch
+before, ``render.regen.poll``.
 
 ``render_fused_reference`` (the fused render kernel's plain version),
 ``bounce_regen_reference`` (the bounce kernel's regenerating mode) and
@@ -84,6 +89,7 @@ from ..scene import (
 )
 from ..textures import checker_parity, image_lookup, texture_value
 from ..utils import workcount
+from ..utils.profiler import named_zone
 from .camera import camera_params_from_consts, generate_rays
 from .pdfs import light_pdf_value, sample_light_direction
 
@@ -485,9 +491,14 @@ def trace_paths_regen(
     trace_paths_regen.bands += 1
     st = initial_regen_state(first_sample, stride)
     limit = sample_limit.to(torch.int64)
-    while bool(torch.any(st.alive | (st.sample.to(torch.int64) + stride < limit))):
+    while True:
+        with named_zone("render.regen.poll"):
+            more = bool(torch.any(st.alive | (st.sample.to(torch.int64) + stride < limit)))
+        if not more:
+            break
         trace_paths_regen.passes += 1
-        st = bounce_regen(scene, st, px, py, sample_limit, seed, T_MIN, **kw)
+        with named_zone("render.regen.launch"):
+            st = bounce_regen(scene, st, px, py, sample_limit, seed, T_MIN, **kw)
     if want_work:
         return st.radiance, st.work
     return st.radiance

@@ -45,10 +45,18 @@ the camera rays and first-hit probe) and ``render.plan.sort`` (the sort
 and the lane tensors), the sorted plan's ``render.plan.fetch`` (the
 copies to the host, where the host waits for the card),
 ``render.plan.sort`` and ``render.plan.upload``; ``render.accumulate``
-around summing a band into the framebuffer and averaging it; counters
-``plan.hit.<kind>`` and ``plan.miss.<kind>`` of the cost-sorted and
-coherent plans' cache, and ``plan.card.coherent`` for each coherent plan
-built on the card.
+around summing a band into the framebuffer and averaging it; on image
+scenes without a LUT, inside ``rayColorLine``, the bounce kernel's driver
+loop (``render/integrator.py:trace_paths_regen``): ``render.regen.launch``
+around each regenerating launch's host side, ``render.regen.launch.wait``
+inside it around the read of the window ends, and ``render.regen.poll``
+around each read of the loop's condition; counters ``plan.hit.<kind>``
+and ``plan.miss.<kind>`` of the cost-sorted and coherent plans' cache,
+and ``plan.card.coherent`` for each coherent plan built on the card.  The
+kernels count their own: K1's ``k1.lane_work``, ``k1.warp_work``,
+``k1.block_ns`` and ``k1.slot_ns`` (``ops/fused_render.py``), K2's
+``k2.launches``, ``k2.lane_work``, ``k2.warp_work``, ``k2.block_ns`` and
+``k2.slot_ns`` (``ops/bounce.py``).
 """
 
 from __future__ import annotations
