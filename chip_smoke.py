@@ -525,15 +525,16 @@ JPEG_MIN_PSNR = 30.0
 # and of the cond walk's, as this build gives them (the factored Sobol
 # respawn and the device light and image tables; the queue walk's first
 # design: 64/28, 64/28, 64/0, 64/56, at 8 blocks per SM where the current
-# design's 72 registers give 7; the tree-less render kernel's 56 would give
-# 9, which the launchers cap at 8), and of the closest-hit kernel, its
-# first design and its coherent-plan keys
+# design's 72 registers give 7), and of the closest-hit kernel, its first
+# design and its coherent-plan keys.  The render kernel's, fed from the
+# work queue, are held by __launch_bounds__ to 8 blocks per SM without
+# trees and 7 on a tree walk (render_kernels.cuh:k1_min_blocks)
 DEFAULT_RESOURCES = {
     "fused_render_kernel<false, queue>": (72, 0), "fused_render_kernel<true, queue>": (72, 0),
     "bounce_kernel<false, queue>": (68, 0), "bounce_kernel<true, queue>": (72, 8),
-    "fused_render_kernel<false, no tree>": (56, 16), "fused_render_kernel<true, no tree>": (62, 0),
+    "fused_render_kernel<false, no tree>": (62, 0), "fused_render_kernel<true, no tree>": (62, 0),
     "bounce_kernel<false, no tree>": (48, 0), "bounce_kernel<true, no tree>": (64, 0),
-    "fused_render_kernel<false, cond>": (64, 52), "fused_render_kernel<true, cond>": (64, 52),
+    "fused_render_kernel<false, cond>": (72, 0), "fused_render_kernel<true, cond>": (72, 0),
     "bounce_kernel<false, cond>": (64, 0), "bounce_kernel<true, cond>": (64, 80),
     "closest_hit_kernel": (56, 0), "closest_hit_flat_kernel": (56, 0),
     "coherent_keys_kernel": (56, 0),
@@ -661,7 +662,7 @@ def render_parity(zt, fused, integrator, torch, scene, tag, depth=10, plains=Non
     )
     with workcount.counting() if plains is not None else contextlib.nullcontext({}) as counts:
         ms_p, out_p = cuda_time_ms(
-            lambda: integrator.render_fused_reference(scene.compiled, px, py, s0, s1, 0, t_min, **kw)
+            lambda: plain_k1(fused, integrator, scene.compiled, px, py, s0, s1, 0, t_min, **kw)
         )
     check = compare(tag, out_k, out_p)
     log(f"parity {tag}: kernel {ms_k:.3f} ms, plain {ms_p:.1f} ms")
@@ -979,7 +980,7 @@ def plan_parity(zt, fused, integrator, scene, plan, spp, card, tag, depth=DEPTH,
     t_min = zt.dtypes.T_MIN
     with workcount.counting() as counts:
         ms_p, out_p = cuda_time_ms(
-            lambda: integrator.render_fused_reference(scene.compiled, px, py, s0, lim, 0, t_min, **kw)
+            lambda: plain_k1(fused, integrator, scene.compiled, px, py, s0, lim, 0, t_min, **kw)
         )
     ms_k, out_k = cuda_time_ms(
         lambda: fused.render_fused(scene.compiled, px, py, s0, lim, 0, t_min, **kw)
@@ -1095,7 +1096,9 @@ def phase_one_bounce(zt, tb, integrator, torch, scenes) -> list:
 
 def kernel_resources(build_log: str) -> dict:
     """{kernel instantiation: {"registers", "spill_bytes"}} from ptxas -v:
-    fused_render_kernel<IMAGES, walk> (without and with the image fetch)
+    fused_render_kernel<IMAGES, walk> (without and with the image fetch;
+    its default and estimator instantiations, fed from the work queue,
+    under the names they had before it)
     and bounce_kernel<REGEN, walk> (one-bounce and regenerating modes) for
     each tree walk and "no tree" (kWalkNoTree), the first designs of the queue, rowqueue, spec and uni
     walks (<IMAGES, walk, first design>), closest_hit_kernel,
@@ -1109,14 +1112,15 @@ def kernel_resources(build_log: str) -> dict:
 
     flag_names = {1: "prof", 2: "loop_sobol", 3: "prof, loop_sobol", 4: "estimator",
                   8: "first design"}
+    pull = 16   # zwrt_device.cuh:kFlagPull, which K1's default and estimator ones take
     # zwrt_device.cuh:Walk, then kWalkSpecFirst, kWalkUniFirst,
     # kWalkRowQueueFirst and kWalkQueueFirst, then kWalkNoTree
     walk_names = WALKS + ("spec", "uni", "rowqueue", "queue", "no tree")
 
     def name_of(mangled):
-        m = re.search(r"(fused_render_kernel|bounce_kernel)ILb([01])ELi(\d)ELi(\d)E", mangled)
+        m = re.search(r"(fused_render_kernel|bounce_kernel)ILb([01])ELi(\d)ELi(\d+)E", mangled)
         if m:
-            flags = int(m.group(4))
+            flags = int(m.group(4)) & ~pull
             return (f"{m.group(1)}<{'true' if m.group(2) == '1' else 'false'}, "
                     f"{walk_names[int(m.group(3))]}"
                     + (f", {flag_names[flags]}>" if flags else ">"))
@@ -1679,6 +1683,11 @@ def phase_design(zt, fused, tb, integrator, torch, configs, card) -> dict:
                             r, _, pr = fused.render_fused_variant(
                                 cs, *plan, 0, t_min, profile=True, loop_sobol=loop, **kw)
                             return r.to_array(), pr
+                        if variant == "prof items":
+                            prof = lambda *a, **k: fused.render_fused_variant(
+                                *a, profile=True, loop_sobol=loop, **k)[:2]
+                            return over_items(fused, integrator, prof, cs, *plan, 0, t_min,
+                                              **kw)[0].to_array()
                         if loop:
                             return fused.render_fused_variant(cs, *plan, 0, t_min,
                                                               loop_sobol=True, **kw)[0].to_array()
@@ -1700,6 +1709,10 @@ def phase_design(zt, fused, tb, integrator, torch, configs, card) -> dict:
             rad_p, prof = run("prof")
             summ = prof_summary(prof)
             runs[design] = {"run": run, "plan": plan, "prof": summ, "rad": run("time")}
+            if k1 and not loop:
+                # the timed kernel is fed from the work queue: the variant
+                # over its items, summed as it sums them
+                rad_p = run("prof items")
             if not torch.equal(rad_p, runs[design]["rad"]):
                 raise AssertionError(f"{name} {design}: the instrumented kernel's radiance "
                                      "differs from the timed kernel's")
@@ -2088,12 +2101,14 @@ def walk_bound_counts(wpar, walk, pcase, ccase) -> dict:
     return wpar["cond"][ccase][1]
 
 
-def plan_kernel(zt, fused, integrator, tb, scene, renderer, first=False, occupancy=False):
+def plan_kernel(zt, fused, integrator, tb, scene, renderer, first=False, occupancy=False,
+                items=False):
     """A call of the scene's kernel at ``renderer``'s coherent plan (the
     render kernel where it takes the scene, else the bounce kernel's
     regenerating mode: Renderer.kernel_call) under the walk the environment
     names, returning (radiance, work); ``first``: through the walk's first
-    design (the measurement variant, counted apart from the paths);
+    design (the measurement variant, counted apart from the paths), with
+    ``items`` for the render kernel over its work-queue items (over_items);
     ``occupancy``: a call that launches nothing and returns the
     instantiation's (blocks per SM, dynamic shared memory bytes) at the
     plan instead."""
@@ -2116,8 +2131,10 @@ def plan_kernel(zt, fused, integrator, tb, scene, renderer, first=False, occupan
             cs, integrator.initial_regen_state(plan[2], 1), plan[0], plan[1], plan[3], 0, t_min,
             first_walk=first, **kw)
     if supports_fused_render(cs):
-        return lambda: fused.render_fused_variant(cs, *plan, 0, t_min, first_walk=True,
-                                                  **kw)[:2]
+        variant = lambda *a, **k: fused.render_fused_variant(*a, first_walk=True, **k)[:2]
+        if items:
+            return lambda: over_items(fused, integrator, variant, cs, *plan, 0, t_min, **kw)
+        return lambda: variant(cs, *plan, 0, t_min, **kw)
     st0 = integrator.initial_regen_state(plan[2], 1)
 
     def run():
@@ -2200,19 +2217,25 @@ def walk_render(zt, fused, integrator, ch, ttrace, tb, torch, scene, spp, depth,
 
 
 def design_rounds(torch, runs, tag, card, n=DESIGN_PAIRS) -> dict:
-    """The kernels of ``runs`` ({label: (walk, call)}, the redesigned walk
-    first) at one plan in ``n`` rounds, the order reversed every other
-    round, each the best of three CUDA-event runs; every other label's
-    output held to the first's with phase 2's tolerances.  Returns the
-    times, their medians and the first label's wins against each other."""
+    """The kernels of ``runs`` ({label: (walk, call) or (walk, call,
+    exact)}, the redesigned walk first) at one plan in ``n`` rounds, the
+    order reversed every other round, each the best of three CUDA-event
+    runs; every other label's output (``exact``'s, where given: the same
+    kernel over the render kernel's work-queue items, over_items) held to
+    the first's with phase 2's tolerances.  Returns the times, their
+    medians and the first label's wins against each other."""
     labels = list(runs)
     times, outs = {k: [] for k in labels}, {}
     for i in range(n):
         for k in (labels if i % 2 == 0 else labels[::-1]):
-            walk, call = runs[k]
+            walk, call = runs[k][:2]
             with trav(walk):
                 ms, outs[k] = cuda_time_ms(call, 3)
             times[k].append(ms)
+    for k in labels:
+        if len(runs[k]) > 2:
+            with trav(runs[k][0]):
+                outs[k] = runs[k][2]()
     med = {k: sorted(v)[n // 2] for k, v in times.items()}
     new = labels[0]
     wins = {k: sum(a < b for a, b in zip(times[new], times[k])) for k in labels[1:]}
@@ -2279,9 +2302,9 @@ def phase_walk_designs(zt, fused, integrator, tb, torch, sc, wpar, paths, render
         scene = sc[name]
         spp = WALK18_BALLS_SPP if name.startswith("balls") else WALK18_RTW_SPP
         lut = scene.compiled.has_image_textures and bool(scene.compiled.tex_lut_dims)
-        run = lambda first, occ=False, sc_=scene, rnd=renderers[(kernel, key)]: plan_kernel(
-            zt, fused, integrator, tb, sc_, rnd, first, occ)
-        runs = {"new": (walk, run(False)), "first design": (walk, run(True))}
+        run = lambda first, occ=False, items=False, sc_=scene, rnd=renderers[(kernel, key)]: \
+            plan_kernel(zt, fused, integrator, tb, sc_, rnd, first, occ, items)
+        runs = {"new": (walk, run(False)), "first design": (walk, run(True), run(True, items=True))}
         occupancy = {"new": (walk, run(False, True)), "first design": (walk, run(True, True))}
         if default:
             call = lambda occ, dname=default[0], rkey=default[1]: plan_kernel(
@@ -2359,6 +2382,7 @@ def phase_brute_walks(zt, fused, torch, cases, resources, card) -> dict:
     bitwise the default's, and each one's registers, spills, blocks per SM
     and shared memory a block.  No tree is walked there, so they differ
     only in what a walk's code costs the whole kernel."""
+    from zig_weekend_raytracer_tpu_torch.render import integrator
     from zig_weekend_raytracer_tpu_torch.render.camera import camera_consts
 
     out = {}
@@ -2370,9 +2394,10 @@ def phase_brute_walks(zt, fused, torch, cases, resources, card) -> dict:
                   width=W, height=H, spp=spp, stride=1, max_depth=DEPTH,
                   has_dof=scene.camera.has_depth_of_field)
         default = lambda: fused.render_fused(cs, *plan, 0, t_min, want_work=True, **kw)
-        first = lambda: fused.render_fused_variant(cs, *plan, 0, t_min, first_walk=True,
-                                                   **kw)[:2]
-        runs = {"new": (DEFAULT_WALK, default), "first design": (DEFAULT_WALK, first),
+        variant = lambda *a, **k: fused.render_fused_variant(*a, first_walk=True, **k)[:2]
+        first = lambda: variant(cs, *plan, 0, t_min, **kw)
+        first_items = lambda: over_items(fused, integrator, variant, cs, *plan, 0, t_min, **kw)
+        runs = {"new": (DEFAULT_WALK, default), "first design": (DEFAULT_WALK, first, first_items),
                 "cond": ("cond", default)}
         res = {"new": "fused_render_kernel<false, no tree>",
                "first design": f"fused_render_kernel<false, {DEFAULT_WALK}, first design>",
@@ -2902,11 +2927,38 @@ def sharded_parity(tag, fb_k, fb_p) -> dict:
             "max_abs_err": max_abs}
 
 
+def plain_k1(fused, integrator, scene, px, py, s0, s1, seed, t_min, want_work=False, **kw):
+    """The render kernel's plain version on the card over the work queue
+    that ``render_fused`` would launch on these lanes: its items at
+    ``launch_chunk``'s chunk, each lane's sums added in the kernel's chunk
+    order (``render_fused_items_reference``), so that the comparison stays
+    exact wherever the kernel follows its plain version exactly."""
+    chunk = fused.launch_chunk(scene, px, py, s0, s1, seed, t_min, **kw)
+    return integrator.render_fused_items_reference(scene, px, py, s0, s1, seed, t_min,
+                                                   chunk=chunk, want_work=want_work, **kw)
+
+
+def over_items(fused, integrator, render, scene, px, py, s0, s1, seed, t_min, **kw):
+    """``render`` (a (radiance, work) call of the render kernel on lanes: a
+    measurement variant, which runs one thread a lane) over the items of
+    the work queue that ``render_fused`` would launch on these lanes, each
+    lane's sums added in the kernel's chunk order
+    (``render_fused_items_reference``): comparable bit for bit with the
+    queue kernel's output."""
+    chunk = fused.launch_chunk(scene, px, py, s0, s1, seed, t_min, **kw)
+    return integrator.render_fused_items_reference(
+        scene, px, py, s0, s1, seed, t_min, chunk=chunk, want_work=True,
+        render=lambda *a, want_work, **k: render(*a, **k), **kw)
+
+
 def plain_in_place(integrator):
     """A stand-in for the render kernel's wrapper that runs its plain
-    version on the tensors it is given (on the card), counting no launch."""
+    version on the tensors it is given (on the card) over the kernel's
+    items (``plain_k1``), counting no launch."""
+    from zig_weekend_raytracer_tpu_torch.ops import fused_render as fused
+
     def plain(scene, px, py, s0, s1, seed, t_min, **kw):
-        return integrator.render_fused_reference(scene, px, py, s0, s1, seed, t_min, **kw)
+        return plain_k1(fused, integrator, scene, px, py, s0, s1, seed, t_min, **kw)
     return plain
 
 
@@ -3853,9 +3905,8 @@ def main() -> int:
     def plain(lanes, spp, want_work=False):
         lim = torch.full_like(lanes[3], spp)
         return cuda_time_ms(
-            lambda: integrator.render_fused_reference(
-                cornell.compiled, *lanes[:3], lim, 0, t_min, want_work=want_work, **kw
-            )
+            lambda: plain_k1(fused, integrator, cornell.compiled, *lanes[:3], lim, 0, t_min,
+                             want_work=want_work, **kw)
         )
 
     def kernel(lanes, spp, repeats):

@@ -272,6 +272,36 @@ def test_block_sums_on_hand_made_stamps(rows, slots, block_ns, slot_ns):
     assert [int(v) for v in got] == [block_ns, slot_ns]
 
 
+# a persistent grid's threads: a plan lane no longer owns a warp, so the
+# counts are per thread and the warps the grid's (threads t, u share one
+# when t // 32 == u // 32)
+@pytest.mark.parametrize("blocks, thread_work, lane, warp", [
+    # every thread busy to the end but one warp's last thread, two passes short
+    (1, [10] * 127 + [8], 10 * 127 + 8, 4 * 32 * 10),
+    # the second block's last warp took no item: its threads add nothing
+    (2, [5] * 224 + [0] * 32, 5 * 224, 7 * 32 * 5),
+    # one thread of a warp drew a long item at the end
+    (1, [3] * 32 + [3] * 31 + [9] + [3] * 64, 3 * 127 + 9, 32 * (3 + 9 + 3 + 3)),
+])
+def test_lane_sums_over_the_threads_of_a_persistent_grid(blocks, thread_work, lane, warp):
+    work = torch.tensor(thread_work, dtype=torch.int32)
+    assert work.numel() == blocks * fused.THREADS
+    assert [int(v) for v in fused.lane_sums(work)] == [lane, warp]
+
+
+@pytest.mark.parametrize("chunks, n, threads, items, pulls", [
+    # the north star's split: 7 chunks of 173,056 lanes on 1,056 blocks of 128
+    (7, 173056, 135168, 1211392, 1211392 - 135168),
+    # whole windows, more lanes than threads: each thread past its first lane
+    (1, 173056, 135168, 173056, 173056 - 135168),
+    # fewer items than threads (the grid shrinks to them): no pulls
+    (4, 100, 512, 400, 0),
+    (1, 0, 128, 0, 0),
+])
+def test_queue_counts_of_a_known_split(chunks, n, threads, items, pulls):
+    assert fused.queue_counts(chunks, n, threads) == (items, pulls)
+
+
 def test_device_counters_sum_until_the_snapshot():
     profiler.set_profiling(True)
     for v in (3, 4):
@@ -367,18 +397,22 @@ def test_block_stamps_on_the_card(card):
     assert 0 < counters["k1.block_ns"] <= counters["k1.slot_ns"]
     assert 0 < counters["k1.lane_work"] <= counters["k1.warp_work"]
 
+    assert counters["k1.items"] > counters["k1.pulls"] > 0
+
     px, py, s0, s1, stride = r.render_lanes(scene, w, h)
-    n = px.shape[0]
-    stamps = torch.zeros((-(-n // fused.THREADS), fused.BLOCK_STAMP_COLS), dtype=torch.int64,
-                         device="cuda")
     kw = dict(camera_consts=camera_consts(scene.camera, w, h), sampler=r.sampler, width=w,
               height=h, spp=r.samples_per_pixel, stride=stride, max_depth=r.max_ray_bounce_depth,
               has_dof=scene.camera.has_depth_of_field)
-    rad, _, _, _ = fused._launch(scene.compiled, px, py, s0, s1, r.seed, zt.dtypes.T_MIN, 0,
-                                 False, out_blocks=stamps, **kw)
-    plain, _, _, _ = fused._launch(scene.compiled, px, py, s0, s1, r.seed, zt.dtypes.T_MIN, 0,
-                                   False, **kw)
-    assert torch.equal(rad.to_array(), plain.to_array())
+    out = fused._launch(scene.compiled, px, py, s0, s1, r.seed, zt.dtypes.T_MIN, 0, False,
+                        record=True, **kw)
+    plain = fused._launch(scene.compiled, px, py, s0, s1, r.seed, zt.dtypes.T_MIN, 0, False, **kw)
+    assert torch.equal(out.rad.to_array(), plain.rad.to_array())
+    q = out.queue
+    stamps = q.stamps
+    # the grid is the card's block slots, or the blocks the items fill
+    assert q.grid == min(q.slots, -(-q.chunks * px.shape[0] // fused.THREADS))
+    assert stamps.shape == (q.grid, fused.BLOCK_STAMP_COLS)
+    assert int(q.thread_work.sum()) > 0
     s = stamps.cpu()
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     assert bool((s[:, 0] >= 0).all()) and bool((s[:, 0] < sms).all())

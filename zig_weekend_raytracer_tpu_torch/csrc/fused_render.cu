@@ -1,6 +1,7 @@
-// fused_render_kernel: the whole regenerating path-tracing render, one
-// thread per lane, for brute-trace and group-tree scenes, with depth of
-// field in the camera, and for image scenes with a texture LUT.
+// fused_render_kernel: the whole regenerating path-tracing render, its
+// persistent threads fed (lane, sample chunk) items from a work queue, for
+// brute-trace and group-tree scenes, with depth of field in the camera,
+// and for image scenes with a texture LUT.
 //
 // Replaces the TPU kernel zig_weekend_raytracer_tpu/ops/pallas_bounce.py:
 // _fused_render_kernel (driven by render_fused), including its per-kind
@@ -34,16 +35,32 @@
 // lockstep over the union of its rays' nodes.
 //
 // What the design does about that: each thread loops on its own until its
-// sample window [s0, s1) is used up, respawning its pixel's next sample as
-// soon as a path ends, so a lane never idles waiting for a tile as the TPU
-// kernel's (8, 128) tiles do; the caller orders lanes by their measured cost
+// sample window is used up, respawning its pixel's next sample as soon as
+// a path ends, so a lane never idles waiting for a tile as the TPU
+// kernel's (8, 128) tiles do.  The kernel is persistent and fed from a
+// work queue (kFlagPull, zwrt_device.cuh:Items): the grid is the blocks
+// the card holds at once (blocks a SM times SMs), and the work is items
+// of (plan lane, sample chunk), each lane's window [s0, s1) cut into
+// chunks of at most ``chunk`` samples, numbered chunk-major so that
+// threads taking items together get neighbouring lanes of the plan.
+// Thread t starts on item t; a thread whose item is used up writes the
+// item's sums to its own slot and takes the next item inside the drain
+// loop, one atomic on a device counter for the warp's threads that take
+// items together (pull_item).  So threads refill one by one and never wait
+// for their warp's longest pixel, and blocks never end before the queue is
+// empty, where one thread a lane drained the card as its unequal blocks
+// ended.  item_sum_kernel then adds each lane's item sums in chunk order,
+// so that a seed renders the same image bit for bit on every run.
+// ops/fused_render.py:item_chunk sizes the chunks from the render's lanes
+// (width x height x stride, whatever the plan), the longest window and the
+// threads the card holds: several items a thread, or whole windows where
+// the lanes alone outnumber the threads several times.  The caller orders lanes by their measured cost
 // (renderer's sorted plan) so the threads of a warp run similar path
 // counts, or for tree scenes by their first hit (coherent plan) so the
 // threads of a warp walk the same nodes.  Scene tables are read with
 // uniform addresses across the warp wherever its threads agree (brute
 // scans, a leaf they all visit: broadcast loads); the shade record is one
-// indexed row read.  No shared-memory staging of leaves, packets,
-// persistent blocks or work queues yet.
+// indexed row read.  No shared-memory staging of leaves or packets yet.
 //
 // Redesigned for Hopper.  (1) Each thread walks its tree alone, so
 // the port sizes leaves for one thread's walk (geometry/bvh.py:
@@ -61,10 +78,11 @@
 // _tree_pass_queue, _tree_pass_spec, _uni_tree_pass), as one instantiation
 // per walk (zwrt_device.cuh:Walk), chosen at launch: WALK is a template
 // parameter, not a runtime branch, so the default walk's code (72
-// registers under __launch_bounds__(128), 7 blocks per SM) does not carry
-// the others', and a scene without trees (cornell, emissive) takes
-// kWalkNoTree, which carries no walk's code (render_kernels.cuh:
-// dispatch_flags_walk).
+// registers, 7 blocks per SM, to which __launch_bounds__ holds every tree
+// walk's instantiation fed from the work queue: render_kernels.cuh:
+// k1_min_blocks) does not carry the others', and a scene without trees
+// (cornell, emissive) takes kWalkNoTree, which carries no walk's code
+// (render_kernels.cuh: dispatch_flags_walk) and is held to 8 blocks per SM.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -86,6 +104,10 @@
 // ``out_prof``.  ``out_blocks``, null or a zeroed buffer of kBlockStampCols
 // uint64 a block, takes the default and estimator instantiations' block
 // stamps (render_kernels.cuh:stamp_block_start); the variants take none.
+// The default and estimator instantiations are fed from the work queue
+// that ``grid``, ``chunk``, ``chunks``, ``next``, ``part_rad``,
+// ``part_work`` and ``thread_work`` describe (render_kernels.cuh:
+// QueueLaunch); the variants ignore them and run one thread a lane.
 // Launches on ``stream`` and returns the launch's cudaError_t; with
 // ``occupancy`` set it launches nothing and writes there the
 // instantiation's blocks per SM and dynamic shared memory
@@ -97,7 +119,9 @@ extern "C" int zwrt_fused_render(
     const int* px, const int* py, const int* s0, const int* s1, const float* shade_rows,
     const uint32_t* sobol, float* out_rad, int* out_work, long long* out_prof,
     unsigned long long* out_blocks, int walk,
-    int flags, int q_cap, int* queue, int queue_len, int n, int* occupancy, void* stream) {
+    int flags, int q_cap, int* queue, int queue_len, int n, int grid, int chunk, int chunks,
+    int* next, float* part_rad, int* part_work, int* thread_work, int* occupancy,
+    void* stream) {
   using namespace zwrt;
   if (n <= 0) return 0;
   RenderLaunch L;
@@ -105,8 +129,10 @@ extern "C" int zwrt_fused_render(
                         image_dims, image_texels, shade_rows, sobol, walk, q_cap, queue,
                         queue_len, n, occupancy, stream);
   if (err != 0) return err;
+  const QueueLaunch Q{grid, chunk, chunks, next, part_rad, part_work, thread_work};
   if (flags == kFlagEstimator)
-    return fused_render_estimator(L, px, py, s0, s1, out_rad, out_work, out_blocks);
+    return fused_render_estimator(L, px, py, s0, s1, out_rad, out_work, out_blocks, &Q);
   if (flags != 0) return fused_render_variant(flags, L, px, py, s0, s1, out_rad, out_work, out_prof);
-  return launch_fused_render<0>(L, px, py, s0, s1, out_rad, out_work, nullptr, out_blocks);
+  return launch_fused_render<kFlagPull>(L, px, py, s0, s1, out_rad, out_work, nullptr, out_blocks,
+                                        &Q);
 }

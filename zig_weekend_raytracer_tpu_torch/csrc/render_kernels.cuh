@@ -5,10 +5,15 @@
 // compile in separate nvcc processes.  The design notes are in
 // fused_render.cu and bounce.cu.
 //
-// FLAGS (zwrt_device.cuh:DrainFlags) is 0 in every instantiation the
-// wrappers launch by default: one per walk, and kWalkNoTree, which every
-// walk but uni takes on a scene without trees (dispatch_flags_walk).  kFlagEstimator, instantiated for every walk
-// and both kernels' modes (fused_render_estimator.cu, bounce_estimator.cu),
+// FLAGS (zwrt_device.cuh:DrainFlags) is 0 in every bounce kernel
+// instantiation the wrapper launches by default, and kFlagPull in the
+// render kernel's: one per walk, and kWalkNoTree, which every walk but uni
+// takes on a scene without trees (dispatch_flags_walk).  kFlagPull makes
+// the render kernel persistent: its grid is the blocks the card holds at
+// once, and its threads take (lane, sample chunk) items from a work queue
+// (zwrt_device.cuh:Items), whose sums item_sum_kernel adds up per lane.
+// kFlagEstimator, instantiated for every walk and both kernels' modes
+// (fused_render_estimator.cu, with kFlagPull; bounce_estimator.cu),
 // applies Russian roulette and the indirect clamp; the wrappers launch it
 // when either option is on.  The variants, without the estimator: for the
 // walks kWalkCond and kWalkQueue, kFlagProf writes each lane's phase
@@ -77,19 +82,21 @@ __device__ __forceinline__ void stamp_block_end(unsigned long long* b) {
   atomicMax(b + 2, global_ns());
 }
 
+// The render kernel's body: one thread a lane, or under kFlagPull
+// (render_kernels.cuh's notes) items from the work queue.
 template <bool IMAGES, int WALK, int FLAGS>
-__global__ void __launch_bounds__(kThreads) fused_render_kernel(
-    const __grid_constant__ Params p, const int* __restrict__ lane_px,
-    const int* __restrict__ lane_py, const int* __restrict__ lane_s0,
-    const int* __restrict__ lane_s1, const __grid_constant__ TraceScene scene,
-    const __grid_constant__ Images images, const float* __restrict__ shade_rows,
+__device__ __forceinline__ void render_lanes(
+    const Params& p, const int* __restrict__ lane_px, const int* __restrict__ lane_py,
+    const int* __restrict__ lane_s0, const int* __restrict__ lane_s1, const TraceScene& scene,
+    const Images& images, const float* __restrict__ shade_rows,
     const uint32_t* __restrict__ sobol, float* __restrict__ out_rad,
     int* __restrict__ out_work, long long* __restrict__ out_prof,
-    unsigned long long* __restrict__ out_blocks, int n) {
+    unsigned long long* __restrict__ out_blocks, int n, const Items& items) {
+  constexpr bool PULL = (FLAGS & kFlagPull) != 0;
   if (!(FLAGS & kFlagLoopSobol)) stage_sobol(p);
   if (WALK == kWalkRowQueue) stage_nodes(scene);
   int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
+  if (!PULL && i >= n) return;
   if (out_blocks && threadIdx.x == 0) stamp_block_start(out_blocks);
   Path s;
   s.o = mk(0.0f, 0.0f, 0.0f);
@@ -100,16 +107,98 @@ __global__ void __launch_bounds__(kThreads) fused_render_kernel(
   s.rid = 0;
   s.depth = 0;
   bool alive = false;
-  int sample = lane_s0[i] - p.stride, work = 0;
+  int work = 0;
   Prof prof = {};
-  drain<IMAGES, WALK, FLAGS>(p, scene, shade_rows, &images, sobol, lane_px[i], lane_py[i],
-                             lane_s1[i], s, alive, sample, work, &prof);
-  out_rad[i] = s.rad.x;
-  out_rad[n + i] = s.rad.y;
-  out_rad[2 * n + i] = s.rad.z;
-  if (out_work) out_work[i] = work;
-  if (FLAGS & kFlagProf) write_prof(out_prof, prof, i, n);
+  if constexpr (PULL) {
+    // thread i starts on item i, or past the queue's end on an empty
+    // window, so that every thread of a warp reaches drain's ballots;
+    // drain writes every item's sums
+    int px = 0, py = 0, sample = -p.stride, limit = 0;
+    if (i < items.total) item_window(p, items, i, px, py, sample, limit);
+    drain<IMAGES, WALK, FLAGS>(p, scene, shade_rows, &images, sobol, px, py, limit, s, alive,
+                               sample, work, &prof, &items, i);
+  } else {
+    int sample = lane_s0[i] - p.stride;
+    drain<IMAGES, WALK, FLAGS>(p, scene, shade_rows, &images, sobol, lane_px[i], lane_py[i],
+                               lane_s1[i], s, alive, sample, work, &prof);
+    out_rad[i] = s.rad.x;
+    out_rad[n + i] = s.rad.y;
+    out_rad[2 * n + i] = s.rad.z;
+    if (out_work) out_work[i] = work;
+    if (FLAGS & kFlagProf) write_prof(out_prof, prof, i, n);
+  }
   if (out_blocks) stamp_block_end(out_blocks);
+}
+
+// Blocks a SM that the render kernel's instantiations fed from the work
+// queue are held to: the tree-less one to kMaxBlocksPerSM (8), as
+// launch_or_report holds every launch, and a tree walk's to 7, the queue
+// walk's blocks a SM before the queue (72 registers at most: 65,536 / (7 *
+// kThreads) is 73), so that ptxas keeps each in its bucket.
+constexpr int k1_min_blocks(int walk) { return walk == kWalkNoTree ? 8 : 7; }
+
+// The render kernel's default and estimator instantiations (kFlagPull).
+template <bool IMAGES, int WALK, int FLAGS>
+__global__ void __launch_bounds__(kThreads, k1_min_blocks(WALK)) fused_render_kernel(
+    const __grid_constant__ Params p, const int* __restrict__ lane_px,
+    const int* __restrict__ lane_py, const int* __restrict__ lane_s0,
+    const int* __restrict__ lane_s1, const __grid_constant__ TraceScene scene,
+    const __grid_constant__ Images images, const float* __restrict__ shade_rows,
+    const uint32_t* __restrict__ sobol, float* __restrict__ out_rad,
+    int* __restrict__ out_work, long long* __restrict__ out_prof,
+    unsigned long long* __restrict__ out_blocks, int n, const __grid_constant__ Items items) {
+  render_lanes<IMAGES, WALK, FLAGS>(p, lane_px, lane_py, lane_s0, lane_s1, scene, images,
+                                    shade_rows, sobol, out_rad, out_work, out_prof, out_blocks,
+                                    n, items);
+}
+
+namespace variant {
+
+// The render kernel's measurement variants, one thread a lane, with the
+// bare bound: a minimum of blocks a SM, even of 1, changes the registers
+// ptxas gives them.
+template <bool IMAGES, int WALK, int FLAGS>
+__global__ void __launch_bounds__(kThreads) fused_render_kernel(
+    const __grid_constant__ Params p, const int* __restrict__ lane_px,
+    const int* __restrict__ lane_py, const int* __restrict__ lane_s0,
+    const int* __restrict__ lane_s1, const __grid_constant__ TraceScene scene,
+    const __grid_constant__ Images images, const float* __restrict__ shade_rows,
+    const uint32_t* __restrict__ sobol, float* __restrict__ out_rad,
+    int* __restrict__ out_work, long long* __restrict__ out_prof,
+    unsigned long long* __restrict__ out_blocks, int n, const __grid_constant__ Items items) {
+  render_lanes<IMAGES, WALK, FLAGS>(p, lane_px, lane_py, lane_s0, lane_s1, scene, images,
+                                    shade_rows, sobol, out_rad, out_work, out_prof, out_blocks,
+                                    n, items);
+}
+
+}  // namespace variant
+
+// The render kernel that an instantiation launches: fed from the work
+// queue (kFlagPull) or a measurement variant.
+template <bool IMAGES, int WALK, int FLAGS>
+constexpr auto render_kernel() {
+  if constexpr ((FLAGS & kFlagPull) != 0) return fused_render_kernel<IMAGES, WALK, FLAGS>;
+  else return variant::fused_render_kernel<IMAGES, WALK, FLAGS>;
+}
+
+// A lane's sums over its items, in chunk order from zero, so that a seed
+// renders the same image on every run whatever order the items ran in:
+// radiance from K1's ``part_rad`` (chunks, 3, n) into ``out_rad`` (3, n),
+// and, when ``out_work`` is set, passes from ``part_work`` (chunks, n).
+static __global__ void __launch_bounds__(kThreads) item_sum_kernel(
+    const float* __restrict__ part_rad, const int* __restrict__ part_work,
+    float* __restrict__ out_rad, int* __restrict__ out_work, int n, int chunks) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  for (int k = 0; k < 3; ++k) {
+    float acc = 0.0f;
+    for (int c = 0; c < chunks; ++c) acc += part_rad[((size_t)c * 3 + k) * n + i];
+    out_rad[(size_t)k * n + i] = acc;
+  }
+  if (!out_work) return;
+  int w = 0;
+  for (int c = 0; c < chunks; ++c) w += part_work[(size_t)c * n + i];
+  out_work[i] = w;
 }
 
 // State rows, as ops/bounce.py packs them: floats ox oy oz dx dy dz thx
@@ -241,14 +330,14 @@ inline int launch_or_report(const RenderLaunch& L, K* kernel, int blocks, size_t
 }
 
 // f(std::integral_constant<int, W>{}) for the walk W: every walk for the
-// default and estimator instantiations, and kWalkNoTree for every walk but
+// default and estimator instantiations (with or without kFlagPull), and kWalkNoTree for every walk but
 // uni where ``scene`` has no per-kind tree, so that a tree-less scene
 // (cornell, emissive) carries no walk's registers; the first design of
 // kWalkQueue, kWalkSpec, kWalkUni or kWalkRowQueue for kFlagFirstWalk,
 // kWalkCond and kWalkQueue for the other variants.
 template <int FLAGS, typename F>
 inline int dispatch_flags_walk(const TraceScene& scene, int walk, F f) {
-  if constexpr (FLAGS == 0 || FLAGS == kFlagEstimator) {
+  if constexpr ((FLAGS & ~kFlagPull) == 0 || (FLAGS & ~kFlagPull) == kFlagEstimator) {
     if (walk >= kWalkCond && walk < kWalkUni && !has_kind_tree(scene))
       return f(std::integral_constant<int, kWalkNoTree>{});
     return dispatch_walk(walk, f);
@@ -269,26 +358,67 @@ inline int dispatch_flags_walk(const TraceScene& scene, int walk, F f) {
   }
 }
 
+// The render kernel's work queue as the wrapper sizes it (kFlagPull,
+// ops/fused_render.py:render_fused): ``grid`` blocks, ``chunk`` samples an
+// item and ``chunks`` items a lane (Items); ``next`` one int, zeroed on the
+// stream before the launch; for more than one chunk ``part_rad`` (chunks,
+// 3, n) floats and, where the launch counts work, ``part_work`` (chunks, n)
+// ints, which item_sum_kernel sums into the outputs after the launch (with
+// one chunk the items write the outputs); ``thread_work`` null or grid *
+// kThreads zeroed ints.
+struct QueueLaunch {
+  int grid, chunk, chunks;
+  int* next;
+  float* part_rad;
+  int* part_work;
+  int* thread_work;
+};
+
 template <int FLAGS>
 int launch_fused_render(const RenderLaunch& L, const int* px, const int* py, const int* s0,
                         const int* s1, float* out_rad, int* out_work, long long* out_prof,
-                        unsigned long long* out_blocks) {
+                        unsigned long long* out_blocks, const QueueLaunch* Q = nullptr) {
+  constexpr bool PULL = (FLAGS & kFlagPull) != 0;
   if ((FLAGS & kFlagProf) && out_prof == nullptr) return (int)cudaErrorInvalidValue;
-  const int blocks = (L.n + kThreads - 1) / kThreads;
+  int blocks = (L.n + kThreads - 1) / kThreads;
+  Items items{};
+  if (PULL) {
+    if (Q == nullptr || Q->grid < 1 || Q->chunk < 1 || Q->chunks < 1)
+      return (int)cudaErrorInvalidValue;
+    const long long total = (long long)Q->chunks * L.n;
+    const bool parts = Q->chunks > 1;
+    if (total > 2147483647LL || (long long)Q->grid * kThreads > 2147483647LL)
+      return (int)cudaErrorInvalidValue;
+    if (!L.occupancy && (Q->next == nullptr || (parts && Q->part_rad == nullptr) ||
+                         (parts && out_work && Q->part_work == nullptr)))
+      return (int)cudaErrorInvalidValue;
+    blocks = Q->grid;
+    items = Items{px, py, s0, s1, Q->next, parts ? Q->part_rad : out_rad,
+                  out_work ? (parts ? Q->part_work : out_work) : nullptr, Q->thread_work,
+                  L.n, Q->chunk, (int)total, blocks * kThreads};
+  }
   TraceScene scene = L.scene;
   size_t smem = 0;
   const size_t tables = (FLAGS & kFlagLoopSobol) ? 0 : sobol_smem_bytes(L.p);
   int err = set_walk(&scene, L.walk, L.q_cap, L.queue, L.queue_len, blocks, kThreads, tables,
                      (FLAGS & kFlagFirstWalk) != 0, &smem);
   if (err != 0) return err;
-  return dispatch_flags_walk<FLAGS>(scene, L.walk, [&](auto w) {
+  if (PULL && !L.occupancy) {
+    err = (int)cudaMemsetAsync(Q->next, 0, sizeof(int), L.stream);
+    if (err != 0) return err;
+  }
+  err = dispatch_flags_walk<FLAGS>(scene, L.walk, [&](auto w) {
     constexpr int W = decltype(w)::value;
-    auto kernel = fused_render_kernel<false, W, FLAGS>;
-    if (L.images.texels) kernel = fused_render_kernel<true, W, FLAGS>;
+    auto kernel = render_kernel<false, W, FLAGS>();
+    if (L.images.texels) kernel = render_kernel<true, W, FLAGS>();
     return launch_or_report(L, kernel, blocks, smem, L.p, px, py, s0, s1, scene, L.images,
                             L.shade_rows, L.sobol, out_rad, out_work, out_prof, out_blocks,
-                            L.n);
+                            L.n, items);
   });
+  if (err != 0 || !PULL || L.occupancy || Q->chunks == 1) return err;
+  item_sum_kernel<<<(L.n + kThreads - 1) / kThreads, kThreads, 0, L.stream>>>(
+      Q->part_rad, items.work ? Q->part_work : nullptr, out_rad, out_work, L.n, Q->chunks);
+  return (int)cudaGetLastError();
 }
 
 template <int FLAGS>
@@ -360,7 +490,7 @@ int bounce_variant(int flags, const RenderLaunch& L, float* fstate, int* istate,
 // bounce_estimator.cu.
 int fused_render_estimator(const RenderLaunch& L, const int* px, const int* py, const int* s0,
                            const int* s1, float* out_rad, int* out_work,
-                           unsigned long long* out_blocks);
+                           unsigned long long* out_blocks, const QueueLaunch* Q);
 int bounce_estimator(const RenderLaunch& L, float* fstate, int* istate, const int* px,
                      const int* py, const int* limit, unsigned long long* out_blocks, int regen,
                      int depth);

@@ -1299,9 +1299,13 @@ struct Path {
 // the drain is the default's, and the kernel walks kWalkSpecFirst,
 // kWalkUniFirst or kWalkRowQueueFirst, the first designs of the spec, uni
 // and rowqueue walks, where the launch names kWalkSpec, kWalkUni or
-// kWalkRowQueue (render_kernels.cuh: dispatch_flags_walk).  The default
-// instantiations take 0.
-enum DrainFlags { kFlagProf = 1, kFlagLoopSobol = 2, kFlagEstimator = 4, kFlagFirstWalk = 8 };
+// kWalkRowQueue (render_kernels.cuh: dispatch_flags_walk); kFlagPull: the
+// drain takes its windows from the render kernel's work queue (Items,
+// next_item).  The bounce kernel's instantiations take 0, the render
+// kernel's default ones kFlagPull.
+enum DrainFlags {
+  kFlagProf = 1, kFlagLoopSobol = 2, kFlagEstimator = 4, kFlagFirstWalk = 8, kFlagPull = 16
+};
 enum ProfPhase { kPhaseRespawn = 0, kPhaseTrace = 1, kPhaseShade = 2, kPhases = 3 };
 // Columns of a lane's profile (int64): cycles, entries and active lanes
 // summed per phase, then the drain's whole cycles.
@@ -1523,35 +1527,189 @@ __device__ __forceinline__ bool bounce_step(const Params& p, const TraceScene& s
   return survives;
 }
 
+// The render kernel's work queue (kFlagPull).  An item is (plan lane,
+// chunk): chunk c of lane l renders the samples s0 + stride * (c * chunk +
+// j), j < chunk, below the lane's s1, so its window is its pixel's samples
+// [s0 + stride * c * chunk, min(s1, s0 + stride * (c + 1) * chunk)).  Items
+// are numbered chunk-major, item = c * n + l, ``total`` of them: chunk 0 of
+// every lane in plan order, then chunk 1, so that threads taking items
+// together get neighbouring lanes.  Thread t of the grid starts on item t;
+// the ``first`` = grid threads' items after that are taken from ``next``
+// (zeroed before the launch).  Item k's radiance sum goes to ``rad``
+// (chunks, 3, n) at c * 3n + channel * n + l, its passes to ``work``
+// (chunks, n) when set; ``thread_work``, when set, adds each item's passes
+// to the row of the thread that rendered it (grid threads, zeroed).
+struct Items {
+  const int* px;
+  const int* py;
+  const int* s0;
+  const int* s1;
+  int* next;
+  float* rad;
+  int* work;
+  int* thread_work;
+  int n, chunk, total, first;
+};
+
+// ``item``'s pixel and window: ``sample`` one stride before its first
+// sample, ``limit`` its end.
+__device__ __forceinline__ void item_window(const Params& p, const Items& q, int item, int& px,
+                                            int& py, int& sample, int& limit) {
+  const int c = item / q.n, lane = item - c * q.n;
+  const int start = q.s0[lane] + p.stride * c * q.chunk;
+  px = q.px[lane];
+  py = q.py[lane];
+  limit = min(q.s1[lane], start + p.stride * q.chunk);
+  sample = start - p.stride;
+}
+
+// The end of ``item``'s window, 0 past the queue's end, and its pixel:
+// read again where a tree walk's drain needs them (a dead path's test and
+// its respawn), so that only the item and the sample stay in registers
+// across the trace (the queue walk's 72, 7 blocks a SM, with no spill).
+__device__ __forceinline__ int item_limit(const Params& p, const Items& q, int item) {
+  if (item >= q.total) return 0;
+  const int c = item / q.n, lane = item - c * q.n;
+  return min(q.s1[lane], q.s0[lane] + p.stride * (c + 1) * q.chunk);
+}
+
+__device__ __forceinline__ void item_pixel(const Items& q, int item, int& px, int& py) {
+  const int lane = item % q.n;
+  px = q.px[lane];
+  py = q.py[lane];
+}
+
+// Writes ``item``'s sums, where it is an item, and starts the next item's
+// from zero.
+__device__ __forceinline__ void flush_item(const Items& q, int item, V3& rad, int& work) {
+  if (item >= q.total) return;
+  const int c = item / q.n, lane = item - c * q.n;
+  float* r = q.rad + (size_t)c * 3 * q.n + lane;
+  r[0] = rad.x;
+  r[q.n] = rad.y;
+  r[2 * q.n] = rad.z;
+  if (q.work) q.work[(size_t)c * q.n + lane] = work;
+  if (q.thread_work) q.thread_work[blockIdx.x * blockDim.x + threadIdx.x] += work;
+  rad = mk(0.0f, 0.0f, 0.0f);
+  work = 0;
+}
+
+// Starts the thread on ``item`` (item_window), ``sp`` its pixel's Sobol
+// part; whether it has a sample to render.
+__device__ __forceinline__ bool start_item(const Params& p, const Items& q,
+                                           const uint32_t* __restrict__ sobol, int item, int& px,
+                                           int& py, int& sample, int& limit, SobolPixel& sp) {
+  item_window(p, q, item, px, py, sample, limit);
+  if (sample + p.stride >= limit) return false;
+  sp = sobol_pixel(p, sobol, px, py);
+  return true;
+}
+
+// The next item for each calling thread: one atomic for the warp's threads
+// that call together, which take consecutive items in lane order.
+__device__ __forceinline__ int pull_item(const Items& q) {
+  const unsigned m = __activemask();
+  const int me = (int)(threadIdx.x & (kWarp - 1)), leader = __ffs(m) - 1;
+  int base = 0;
+  if (me == leader) base = atomicAdd(q.next, __popc(m));
+  base = __shfl_sync(m, base, leader);
+  return q.first + base + __popc(m & ((1u << me) - 1u));
+}
+
+// Lane-level refills: a thread's item is used up: writes its sums and
+// takes items until one has a sample to render (start_item); false, its
+// sums written, when the queue is empty.
+__device__ __forceinline__ bool next_item(const Params& p, const Items& q,
+                                          const uint32_t* __restrict__ sobol, int& item,
+                                          Path& s, int& work, int& px, int& py, int& sample,
+                                          int& limit, SobolPixel& sp) {
+  for (;;) {
+    flush_item(q, item, s.rad, work);
+    item = pull_item(q);
+    if (item >= q.total) return false;
+    if (start_item(p, q, sobol, item, px, py, sample, limit, sp)) return true;
+  }
+}
+
+// Warp-level refills: every item of the warp is used up: each thread
+// writes its sums, and the warp takes the next kWarp items, thread k of
+// the warp the k-th, so that its threads hold neighbouring lanes of the
+// plan again (an item past the queue's end is an empty window); false,
+// for every thread of the warp, when the queue is empty.
+__device__ __forceinline__ bool refill_warp(const Params& p, const Items& q,
+                                            const uint32_t* __restrict__ sobol, int& item,
+                                            Path& s, int& work, int& sample, SobolPixel& sp) {
+  flush_item(q, item, s.rad, work);
+  const int me = (int)(threadIdx.x & (kWarp - 1));
+  int base = 0;
+  if (me == 0) base = atomicAdd(q.next, kWarp);
+  base = q.first + __shfl_sync(kAllLanes, base, 0);
+  if (base >= q.total) return false;
+  item = base + me;
+  sample = -p.stride;
+  int px, py, limit;
+  if (item < q.total) start_item(p, q, sobol, item, px, py, sample, limit, sp);
+  return true;
+}
+
 // Runs one lane until its sample window is used up: a dead lane respawns
 // its pixel's next sample (sample += stride, while below ``limit``), every
 // pass counts one unit of work and runs one bounce, and a path ends after
-// p.max_depth bounces.  Under the rowqueue walks (warp_walk) a ballot at
+// p.max_depth bounces.  Under kFlagPull the window is that of ``item`` of
+// ``items`` (an empty one past the queue's end), the thread runs on until
+// the queue is empty, and its sums go to the item's slots.  Without trees
+// (kWalkNoTree) a thread whose window is used up takes the next item at
+// once (next_item), so that it never waits for its warp's longest pixel;
+// a tree walk's warp takes kWarp items when all of its threads' windows are
+// used up (refill_warp), so that its threads walk neighbouring lanes of
+// the coherent plan (on an H100, PERF.md: balls took 23.2 ms an image with
+// warp-level refills against 33.7 with lane-level ones, while cornell took
+// 73.6 with lane-level refills against 75.5).  A ballot at
 // the loop head, which every lane of the warp still in the loop reaches,
-// names the lanes that bounce in this pass (the group of
-// tree_walk_warpqueue).  The lane's Sobol
-// pixel part is computed once, at entry (timed with the respawn phase);
-// FLAGS as DrainFlags, ``prof`` read under kFlagProf only.
+// names the lanes that bounce in this pass: the group of the rowqueue
+// walks (warp_walk, tree_walk_warpqueue), and under kFlagPull the point
+// where the warp's threads converge again each pass (without it a thread
+// that refilled alone ran on out of step with its warp).  The lane's Sobol
+// pixel part is computed once a pixel, at entry (timed with the respawn
+// phase) or at a pull; FLAGS as DrainFlags, ``prof`` read under kFlagProf
+// only.
 template <bool IMAGES, int WALK, int FLAGS = 0>
 __device__ __forceinline__ void drain(const Params& p, const TraceScene& scene,
                                       const float* __restrict__ shade_rows, const Images* images,
                                       const uint32_t* __restrict__ sobol, int px, int py,
                                       int limit, Path& s, bool& alive, int& sample, int& work,
-                                      Prof* prof = nullptr) {
+                                      Prof* prof = nullptr, const Items* items = nullptr,
+                                      int item = 0) {
   constexpr bool PROF = (FLAGS & kFlagProf) != 0;
   constexpr bool LOOP_SOBOL = (FLAGS & kFlagLoopSobol) != 0;
   constexpr bool EST = (FLAGS & kFlagEstimator) != 0;
+  constexpr bool PULL = (FLAGS & kFlagPull) != 0;
+  constexpr bool LANE_PULL = PULL && WALK == kWalkNoTree;
+  constexpr bool WARP_PULL = PULL && WALK != kWalkNoTree;
   const long long t_start = PROF ? clock64() : 0;
-  const SobolPixel q = LOOP_SOBOL ? SobolPixel{0u, 0u} : sobol_pixel(p, sobol, px, py);
+  SobolPixel q = LOOP_SOBOL ? SobolPixel{0u, 0u} : sobol_pixel(p, sobol, px, py);
   if (PROF) prof->cycles[kPhaseRespawn] += clock64() - t_start;
   const int stride = p.stride;
   unsigned group = kAllLanes;
   for (;;) {
-    const bool more = alive || sample + stride < limit;
-    if (warp_walk(WALK)) group = __ballot_sync(group, more);
-    if (!more) break;
+    bool more = alive || sample + stride < (WARP_PULL ? item_limit(p, *items, item) : limit);
+    if (LANE_PULL && !more)
+      more = next_item(p, *items, sobol, item, s, work, px, py, sample, limit, q);
+    if (WARP_PULL) {
+      group = __ballot_sync(kAllLanes, more);
+      if (group == 0u) {
+        if (!refill_warp(p, *items, sobol, item, s, work, sample, q)) break;
+        more = sample + stride < item_limit(p, *items, item);
+        group = __ballot_sync(kAllLanes, more);
+      }
+      if (!more) continue;
+    } else {
+      if (warp_walk(WALK) || LANE_PULL) group = __ballot_sync(group, more);
+      if (!more) break;
+    }
     if (!alive) {
       long long t0 = prof_enter<PROF>(prof, kPhaseRespawn);
+      if (WARP_PULL) item_pixel(*items, item, px, py);
       sample += stride;
       s.rid = ray_id_of(p, sample, px, py);
       s.time = generate_ray<LOOP_SOBOL>(p, sobol, q, s.rid, px, py, sample, &s.o, &s.d);

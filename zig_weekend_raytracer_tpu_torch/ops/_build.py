@@ -115,7 +115,8 @@ def load_library() -> ctypes.CDLL:
     ``restype`` declared for every launcher."""
     lib = ctypes.CDLL(build()["path"])
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.zwrt_fused_render.argtypes = [p] * 6 + [i] + [p] * 12 + [i, i, i, p, i, i, p, p]
+    lib.zwrt_fused_render.argtypes = ([p] * 6 + [i] + [p] * 12 + [i, i, i, p, i, i, i, i, i]
+                                      + [p] * 6)
     lib.zwrt_fused_render.restype = ctypes.c_int
     lib.zwrt_closest_hit.argtypes = [p] * 4 + [f, f] + [p] * 3 + [i, p]
     lib.zwrt_closest_hit.restype = ctypes.c_int

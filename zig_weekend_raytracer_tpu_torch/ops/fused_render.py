@@ -6,7 +6,13 @@
 ``fused_render_kernel`` (``csrc/fused_render.cu`` over the device functions
 in ``csrc/zwrt_device.cuh``); for CPU tensors it runs the kernel's plain
 PyTorch version, ``render/integrator.py:render_fused_reference``.  Any
-other device raises.  ``render_fused.launches`` counts kernel launches,
+other device raises.  The kernel is persistent: its grid is the blocks
+the card holds at once, and its threads take (lane, sample chunk) items
+from a work queue, each window cut into chunks of ``item_chunk`` samples;
+each lane's sum adds its items' in chunk order, as
+``render/integrator.py:render_fused_items_reference`` does at
+``launch_chunk``'s chunk, so that a seed renders the same image on every
+run.  ``render_fused.launches`` counts kernel launches,
 per tree walk ({walk: launches}); ``render_fused.estimator_launches``
 those of them that took the estimator instantiation.
 
@@ -37,12 +43,17 @@ and uni walks.  No path of the renderer launches them, and
 and the shared memory of the instantiation a launch would take.
 
 While ``utils/profiler.py`` records, ``render_fused`` asks every launch
-for its work counts and, on the card, for its blocks' stamps (the
-launcher's ``out_blocks``: each block's SM and its start and end on the
-card's global nanosecond clock), and counts on the card ``k1.lane_work``
-and ``k1.warp_work`` (``lane_sums``), ``k1.block_ns`` and ``k1.slot_ns``
-(``block_sums``); nothing waits for the card until the profiler's
-``snapshot`` reads them.  Recording changes no output.
+on the card for its blocks' stamps (the launcher's ``out_blocks``: each
+block's SM and its start and end on the card's global nanosecond clock)
+and each thread's passes, and counts on the card ``k1.lane_work`` and
+``k1.warp_work`` (``lane_sums`` over the threads of the grid, whose warps
+are the physical ones: a lane of the plan no longer belongs to one warp),
+``k1.block_ns`` and ``k1.slot_ns`` (``block_sums``), and on the host
+``k1.items`` and ``k1.pulls`` (``queue_counts``: the items of the launch
+and those taken after a thread's first); on the CPU ``k1.lane_work`` and
+``k1.warp_work`` over the plain version's lanes.  Nothing waits for the
+card until the profiler's ``snapshot`` reads them.  Recording changes no
+output.
 
 Each launch of the render and bounce kernels takes the tree walk of
 ``ops/trace.py:walk_of`` as it reads then (the unified tree when the scene
@@ -60,6 +71,7 @@ from __future__ import annotations
 import ctypes
 import functools
 import weakref
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -98,6 +110,11 @@ MAX_BLOCKS_PER_SM = 8
 # shared memory of a block that the rowqueue walk fills with packed nodes
 # (zwrt_device.cuh:kRowQueueNodeBytes, which says how it was sized)
 ROWQUEUE_NODE_BYTES = 14336
+# items of the render kernel's work queue that item_chunk aims at for each
+# thread the card holds (picked on an H100 from 4, 8, 16, 24 and 32: PERF.md)
+ITEMS_PER_THREAD = 16
+# the measurement variants' flags: they run one thread a lane, with no queue
+VARIANT_FLAGS = FLAG_PROF | FLAG_LOOP_SOBOL | FLAG_FIRST_WALK
 _SAMPLER_CODE = {
     SamplerKind.INDEPENDENT: 0, SamplerKind.STRATIFIED: 1, SamplerKind.SOBOL: 2,
 }
@@ -435,6 +452,54 @@ def launch_sample_end(limit: torch.Tensor) -> int:
     return max(1, int(limit.max())) if limit.numel() else 1
 
 
+def launch_windows(s0: torch.Tensor, s1: torch.Tensor, stride: int):
+    """(``launch_sample_end`` of ``s1``, the longest window: the most
+    samples a lane renders, ceil((s1 - s0) / stride) at its largest, 0
+    without lanes), in one read of the card."""
+    if not s1.numel():
+        return 1, 0
+    end, span = torch.stack([s1.max(), (s1 - s0).max()]).tolist()
+    return max(1, end), max(0, -(-span // stride))
+
+
+def item_chunk(lanes: int, longest: int, threads: int) -> int:
+    """Samples an item of the render kernel's work queue takes at most
+    (``zwrt_device.cuh:Items``): ``lanes`` windows of up to ``longest``
+    samples cut into as many chunks as make ``ITEMS_PER_THREAD`` items for
+    each of the ``threads`` the card holds at once, so that threads that
+    finish early take more items while the others drain; the whole window
+    where the lanes alone are that many.  At least 1.  A launch counts the
+    render's own lanes, width x height x stride (``launch_lanes``)."""
+    if longest < 2 or lanes >= ITEMS_PER_THREAD * threads:
+        return max(1, longest)
+    chunks = min(longest, -(-ITEMS_PER_THREAD * threads // max(lanes, 1)))
+    return -(-longest // chunks)
+
+
+def launch_lanes(width: int, height: int, stride: int) -> int:
+    """The lanes that ``item_chunk`` sizes a launch's items by: the
+    render's, one a pixel and sample in flight, whatever plan the launch
+    carries (the tiled first pass with its padding, the sorted or coherent
+    plan, a band, a shard).  So every plan of one render cuts a pixel's
+    samples at the same chunks, and its float32 sums, added in chunk
+    order, do not depend on the plan: a seed's image is bitwise the same
+    on the first pass and on the sorted plan that follows it."""
+    return width * height * stride
+
+
+def queue_counts(chunks: int, n: int, threads: int):
+    """(items, pulls) of a launch of the work queue: ``chunks`` items for
+    each of ``n`` lanes, and those of them that a thread of the grid's
+    ``threads`` takes after its first (each thread starts on one item, and
+    every later item is taken once)."""
+    items = chunks * n
+    return items, max(0, items - threads)
+
+
+def sm_count(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
 def check_flags(walk: str, flags: int) -> None:
     """Raises for flags that no instantiation has: the profile and Sobol
     variants exist for the walks of ``VARIANT_WALKS``, the first-design
@@ -498,22 +563,22 @@ def render_fused(
         rad, work = render_fused_reference(scene, px, py, s0, s1, seed, t_min,
                                            want_work=True, **kw)
     else:
-        stamps = slots = None
-        if record and px.shape[0]:
-            blocks_per_sm, _ = render_fused_occupancy(scene, px, py, s0, s1, seed, t_min, **kw)
-            slots = blocks_per_sm * torch.cuda.get_device_properties(
-                px.device).multi_processor_count
-            stamps = torch.zeros((-(-px.shape[0] // THREADS), BLOCK_STAMP_COLS),
-                                 dtype=torch.int64, device=px.device)
         flags, kw["rr_start"], kw["clamp"] = estimator_flags(scene, rr_start, clamp)
-        rad, work, _, walk = _launch(scene, px, py, s0, s1, seed, t_min, flags,
-                                     want_work or record, out_blocks=stamps, **kw)
-        render_fused.launches[walk] += 1
+        out = _launch(scene, px, py, s0, s1, seed, t_min, flags, want_work, record=record, **kw)
+        rad, work, q = out.rad, out.work, out.queue
+        render_fused.launches[out.walk] += 1
         render_fused.estimator_launches += bool(flags)
-        if stamps is not None:
-            block_ns, slot_ns = block_sums(stamps, slots)
+        if record and q is not None:
+            block_ns, slot_ns = block_sums(q.stamps, q.slots)
             profiler.count("k1.block_ns", block_ns)
             profiler.count("k1.slot_ns", slot_ns)
+            lane_work, warp_work = lane_sums(q.thread_work)
+            profiler.count("k1.lane_work", lane_work)
+            profiler.count("k1.warp_work", warp_work)
+            items, pulls = queue_counts(q.chunks, px.shape[0], q.grid * THREADS)
+            profiler.count("k1.items", items)
+            profiler.count("k1.pulls", pulls)
+        return (rad, work) if want_work else rad
     if record and work.numel():
         lane_work, warp_work = lane_sums(work)
         profiler.count("k1.lane_work", lane_work)
@@ -573,10 +638,9 @@ def render_fused_variant(
                          "render_fused launches the default kernel")
     est, kw["rr_start"], kw["clamp"] = estimator_flags(
         scene, kw.get("rr_start", 0), kw.get("clamp", 0.0))
-    rad, work, prof, walk = _launch(scene, px, py, s0, s1, seed, t_min, flags | est, True,
-                                    **kw)
-    render_fused_variant.launches[walk] += 1
-    return rad, work, prof
+    out = _launch(scene, px, py, s0, s1, seed, t_min, flags | est, True, **kw)
+    render_fused_variant.launches[out.walk] += 1
+    return out.rad, out.work, out.prof
 
 
 render_fused_variant.launches = dict.fromkeys(VARIANT_WALKS + FIRST_DESIGN_WALKS, 0)
@@ -599,6 +663,17 @@ def render_fused_occupancy(scene: CompiledScene, px, py, s0, s1, seed: int, t_mi
     return int(occ[0]), int(occ[1])
 
 
+def launch_chunk(scene: CompiledScene, px, py, s0, s1, seed: int, t_min: float, **kw) -> int:
+    """The samples an item takes (``item_chunk``) in the work queue that
+    ``render_fused`` would launch over these CUDA lanes: what
+    ``integrator.render_fused_items_reference`` needs to sum as the kernel
+    does."""
+    blocks, _ = render_fused_occupancy(scene, px, py, s0, s1, seed, t_min, **kw)
+    _, longest = launch_windows(s0, s1, kw["stride"])
+    return item_chunk(launch_lanes(kw["width"], kw["height"], kw["stride"]), longest,
+                      blocks * sm_count(px.device) * THREADS)
+
+
 def _check_supported(scene):
     if scene.has_nested_checker:
         raise NotImplementedError(
@@ -613,15 +688,46 @@ def _check_supported(scene):
         )
 
 
+class QueueRun(NamedTuple):
+    """A launch's work queue: ``grid`` blocks of the ``slots`` the card
+    holds at once, items of at most ``chunk`` samples, ``chunks`` a lane;
+    while recording the blocks' stamps ((grid, BLOCK_STAMP_COLS) int64) and
+    each thread's passes ((grid * THREADS,) int32), else None."""
+    grid: int
+    slots: int
+    chunk: int
+    chunks: int
+    stamps: Optional[torch.Tensor]
+    thread_work: Optional[torch.Tensor]
+
+
+class Launch(NamedTuple):
+    rad: V3
+    work: Optional[torch.Tensor]
+    prof: Optional[torch.Tensor]
+    walk: str
+    queue: Optional[QueueRun]
+
+
+# the blocks the card holds at once of each instantiation a scene's
+# launches take, {(device, walk, flags, shared memory): blocks}
+_RESIDENT_CACHE: "weakref.WeakKeyDictionary" = weakref.WeakKeyDictionary()
+
+
 def _launch(scene, px, py, s0, s1, seed, t_min, flags, want_work, *, camera_consts,
             sampler, width, height, spp, stride, max_depth, has_dof, rr_start=0, clamp=0.0,
-            occupancy=None, out_blocks=None):
-    """One launch of the render kernel's instantiation for ``flags``;
-    returns (radiance, work or None, profile or None, walk).  With
-    ``occupancy`` (a host int32 array of 2) nothing is launched: the
-    launcher writes the instantiation's blocks per SM and shared memory
-    there.  ``out_blocks``, a zeroed int64 tensor of (blocks,
-    ``BLOCK_STAMP_COLS``) on the card, takes each block's stamps."""
+            occupancy=None, record=False):
+    """One launch of the render kernel's instantiation for ``flags``
+    (a Launch).  The default and estimator instantiations are fed from the
+    work queue: the grid is the blocks the card holds at once of the
+    instantiation (asked once per scene and instantiation), or fewer where
+    the items are fewer, and ``item_chunk`` sizes the items from the
+    render's lanes (``launch_lanes``), the longest window and those blocks'
+    threads; with ``record``
+    they stamp their blocks and count each thread's passes.  The variants
+    run one thread a lane.  With ``occupancy`` (a host int32 array of 2)
+    nothing is launched: the launcher writes the instantiation's blocks per
+    SM and shared memory there."""
     _check_supported(scene)
     device = px.device
     if device.type != "cuda":
@@ -629,14 +735,11 @@ def _launch(scene, px, py, s0, s1, seed, t_min, flags, want_work, *, camera_cons
     n = px.shape[0]
     for name, t in (("px", px), ("py", py), ("s0", s0), ("s1", s1)):
         check_lane_tensor(name, t, device, n)
-    if out_blocks is not None:
-        check_lane_tensor("out_blocks", out_blocks.view(-1), device,
-                          -(-n // THREADS) * BLOCK_STAMP_COLS, torch.int64)
     if scene.device != device:
         raise ValueError(f"scene is on {scene.device}, lanes on {device}")
 
     lib = _build.load_library()
-    sample_end = launch_sample_end(s1)
+    sample_end, longest = launch_windows(s0, s1, stride)
     ints, floats = launch_params(
         scene, seed, t_min, camera_consts, sampler, width, height, spp,
         stride, max_depth, has_dof, sample_end, rr_start, clamp,
@@ -649,29 +752,64 @@ def _launch(scene, px, py, s0, s1, seed, t_min, flags, want_work, *, camera_cons
     shade_rows = scene.shade_rows.contiguous()
     sobol = sobol_table(device, sobol_log2_scale(width, height))
     smem = 0 if flags & FLAG_LOOP_SOBOL else sobol_smem_bytes(sampler, sample_end)
-    walk, code, cap, queue = walk_args(scene, n, smem, first=bool(flags & FLAG_FIRST_WALK))
-    check_flags(walk, flags)
-    nodes, _nodes = node_args(scene, walk)
+    first = bool(flags & FLAG_FIRST_WALK)
+    ptr = lambda t: None if t is None else t.data_ptr()
+    host = lambda a: None if a is None else a.ctypes.data_as(ctypes.c_void_p)
+
+    def call(grid, outs, queue_args=(1, 1, None, None, None, None), occ=None):
+        walk, code, cap, queue = walk_args(scene, grid * THREADS, smem, first=first)
+        check_flags(walk, flags)
+        nodes, _nodes = node_args(scene, walk)
+        rad, work, prof, stamps = outs
+        chunk, chunks, nxt, part_rad, part_work, thread_work = queue_args
+        err = lib.zwrt_fused_render(
+            host(ints), host(floats), host(tables), host(trace_ints), host(trace_ptrs),
+            host(nodes), 0 if dims is None else dims.shape[0], ptr(dims), ptr(texels),
+            px.data_ptr(), py.data_ptr(), s0.data_ptr(), s1.data_ptr(),
+            shade_rows.data_ptr(), sobol.data_ptr(), ptr(rad), ptr(work), ptr(prof),
+            ptr(stamps), code, flags, cap, ptr(queue), 0 if queue is None else queue.numel(),
+            n, grid, chunk, chunks, ptr(nxt), ptr(part_rad), ptr(part_work), ptr(thread_work),
+            host(occ), torch.cuda.current_stream(device).cuda_stream,
+        )
+        if err != 0:
+            raise RuntimeError(f"fused_render_kernel ({walk} walk, flags {flags}) launch failed: "
+                               f"cudaError {err}")
+        return walk
+
+    lane_blocks = -(-n // THREADS)
+    if occupancy is not None:
+        call(max(lane_blocks, 1), (None,) * 4, occ=occupancy)
+        return None
     rad = torch.empty((3, n), dtype=real, device=device)
     work = torch.empty((n,), dtype=torch.int32, device=device) if want_work else None
     prof = (torch.empty((PROF_COLS, n), dtype=torch.int64, device=device)
             if flags & FLAG_PROF else None)
-    stream = torch.cuda.current_stream(device).cuda_stream
-    ptr = lambda t: None if t is None else t.data_ptr()
-    err = lib.zwrt_fused_render(
-        ints.ctypes.data_as(ctypes.c_void_p),
-        floats.ctypes.data_as(ctypes.c_void_p),
-        tables.ctypes.data_as(ctypes.c_void_p),
-        trace_ints.ctypes.data_as(ctypes.c_void_p),
-        trace_ptrs.ctypes.data_as(ctypes.c_void_p),
-        None if nodes is None else nodes.ctypes.data_as(ctypes.c_void_p),
-        0 if dims is None else dims.shape[0], ptr(dims), ptr(texels),
-        px.data_ptr(), py.data_ptr(), s0.data_ptr(), s1.data_ptr(),
-        shade_rows.data_ptr(), sobol.data_ptr(), rad.data_ptr(), ptr(work), ptr(prof),
-        ptr(out_blocks), code, flags, cap, ptr(queue), 0 if queue is None else queue.numel(), n,
-        None if occupancy is None else occupancy.ctypes.data_as(ctypes.c_void_p), stream,
-    )
-    if err != 0:
-        raise RuntimeError(f"fused_render_kernel ({walk} walk, flags {flags}) launch failed: "
-                           f"cudaError {err}")
-    return V3(rad[0], rad[1], rad[2]), work, prof, walk
+    if flags & VARIANT_FLAGS or n == 0:
+        return Launch(V3(rad[0], rad[1], rad[2]), work, prof,
+                      call(lane_blocks, (rad, work, prof, None)), None)
+
+    per_scene = _RESIDENT_CACHE.setdefault(scene, {})
+    key = (device, walk_of(scene), flags, smem)
+    slots = per_scene.get(key)
+    if slots is None:
+        occ = np.zeros(2, np.int32)
+        call(lane_blocks, (None,) * 4, occ=occ)
+        slots = per_scene[key] = int(occ[0]) * sm_count(device)
+    chunk = item_chunk(launch_lanes(width, height, stride), longest, slots * THREADS)
+    chunks = max(1, -(-longest // chunk))
+    if chunks * n > 2**31 - 1:
+        raise ValueError(f"{chunks} chunks of {n} lanes pass the kernel's 32-bit item index")
+    grid = min(slots, -(-chunks * n // THREADS))
+    nxt = torch.empty((1,), dtype=torch.int32, device=device)
+    part_rad = part_work = stamps = thread_work = None
+    if chunks > 1:
+        part_rad = torch.empty((chunks, 3, n), dtype=real, device=device)
+        if work is not None:
+            part_work = torch.empty((chunks, n), dtype=torch.int32, device=device)
+    if record:
+        stamps = torch.zeros((grid, BLOCK_STAMP_COLS), dtype=torch.int64, device=device)
+        thread_work = torch.zeros((grid * THREADS,), dtype=torch.int32, device=device)
+    walk = call(grid, (rad, work, None, stamps),
+                (chunk, chunks, nxt, part_rad, part_work, thread_work))
+    return Launch(V3(rad[0], rad[1], rad[2]), work, None, walk,
+                  QueueRun(grid, slots, chunk, chunks, stamps, thread_work))

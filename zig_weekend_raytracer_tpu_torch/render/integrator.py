@@ -17,7 +17,9 @@ before, ``render.regen.poll``.
 ``render_fused_reference`` (the fused render kernel's plain version),
 ``bounce_regen_reference`` (the bounce kernel's regenerating mode) and
 ``bounce`` (its one-bounce mode) are the same estimator, bounce for
-bounce, on (N,) tensors.  Each lane owns one pixel and a sample window
+bounce, on (N,) tensors.  ``render_fused_items_reference`` runs the first
+over the fused kernel's work queue (``item_windows``: each lane's window
+cut into chunks) and sums each lane's chunks in the kernel's order.  Each lane owns one pixel and a sample window
 [s0, s1) walked with ``stride``; a lane whose path ended respawns its
 pixel's next sample, so a pass of the drain loop is: respawn,
 ``work += alive``, trace, shade, scatter.
@@ -432,6 +434,56 @@ def render_fused_reference(
 
 
 render_fused_reference.calls = 0
+
+
+def item_windows(s0: torch.Tensor, s1: torch.Tensor, stride: int, chunk: int):
+    """The items of the fused render kernel's work queue over lanes with
+    windows [s0, s1) at ``stride``, ``chunk`` samples an item at most
+    (``ops/fused_render.py:item_chunk``): (lane, first, end, chunks), the
+    first three (chunks * N,) in the kernel's order, chunk-major.  Item
+    c * N + l is chunk c of lane l: its samples from s0 + stride * c * chunk
+    below min(s1, s0 + stride * (c + 1) * chunk), empty past the lane's
+    window; ``chunks`` is what the longest window takes, at least 1."""
+    n = s0.shape[0]
+    s0, s1 = s0.to(torch.int64), s1.to(torch.int64)
+    span = int((s1 - s0).max()) if n else 0
+    chunks = max(1, -(-max(0, -(-span // stride)) // chunk))
+    c = torch.arange(chunks, dtype=torch.int64, device=s0.device)[:, None]
+    first = s0[None] + stride * chunk * c
+    end = torch.minimum(s1[None], first + stride * chunk)
+    lane = torch.arange(n, device=s0.device).repeat(chunks)
+    i32 = torch.int32
+    return lane, first.reshape(-1).to(i32), end.reshape(-1).to(i32), chunks
+
+
+def render_fused_items_reference(
+    scene: CompiledScene,
+    px: torch.Tensor, py: torch.Tensor, s0: torch.Tensor, s1: torch.Tensor,
+    seed: int, t_min: float, *, chunk: int, want_work: bool = False, render=None, **kw,
+):
+    """``render_fused_reference`` over the fused render kernel's work queue
+    (``item_windows`` at ``chunk``), as the kernel sums it: each item
+    rendered from zero, each lane's radiance its items' sums added in chunk
+    order from zero, its work count theirs.  The same samples as the
+    unsplit render; only float32 rounding of the sums differs.  ``render``,
+    a call that takes ``render_fused_reference``'s arguments and returns
+    (radiance, work), renders the items in its place (a kernel variant that
+    runs one thread a lane, made comparable bit for bit with the queue)."""
+    n = px.shape[0]
+    lane, first, end, chunks = item_windows(s0, s1, kw["stride"], chunk)
+    rad, work = (render or render_fused_reference)(
+        scene, px[lane].contiguous(), py[lane].contiguous(), first, end, seed, t_min,
+        want_work=True, **kw)
+    sums = []
+    for part in (rad.x, rad.y, rad.z):
+        acc = torch.zeros((n,), dtype=part.dtype, device=part.device)
+        for c in range(chunks):
+            acc = acc + part[c * n:(c + 1) * n]
+        sums.append(acc)
+    rad = V3(*sums)
+    if want_work:
+        return rad, work.view(chunks, n).sum(dim=0, dtype=torch.int32)
+    return rad
 
 
 def bounce_regen_reference(
