@@ -6,9 +6,9 @@
 Phases (any failure exits nonzero):
   1. device: the card's name and power limit, then the kernel build from
      zig_weekend_raytracer_tpu_torch/csrc/ (seconds, registers, spills of
-     every instantiation, the measurement variants included); the default
-     and cond walks' instantiations must have the recorded registers and
-     spill (DEFAULT_RESOURCES);
+     every instantiation, the phase profile's included); the default and
+     cond walks' instantiations must have the recorded registers and spill
+     (DEFAULT_RESOURCES);
  1b. the FP32 peak (tools/fp32_peak.py, kernel K5): chain_kernel against
      its plain version on the card for the five ops at every (blocks per
      SM, chains, unroll) of the sweep, on the sweep's own grid with 256
@@ -93,8 +93,7 @@ Phases (any failure exits nonzero):
      at the coherent plan, the kernel against its plain version on a spread
      slice of 4,096 plan lanes in 8-sample windows of the 64 (every sample
      index), the peak device memory, and the device memory that one launch
-     at the plan allocates, beside the default walk's first design's
-     (launch_mib: its device leaf queue); then coherent_keys_kernel against
+     at the plan allocates (launch_mib); then coherent_keys_kernel against
      the probes as in phase 7, on rtw_final's pixels;
  12. the region gates of earth, shrek_quads and rtw_final on the card:
      200x200 against tests/golden/scene_regions.json (rtw_final at 32 spp,
@@ -168,12 +167,12 @@ Phases (any failure exits nonzero):
      queue walk); every queue kernel bitwise its plain version, the plain
      queue walk's outputs bitwise the plain cond walk's, and its hits on
      balls' and rtw_final's 64x64 camera rays bitwise the cond walk's, its
-     slab tests and leaf visits between the cond walk's and its first
-     design's (plain_queue_hits); and a launch of the queue walk's first
-     design, rowqueue, spec and uni with a queue one entry short of the
-     tree's leaves, of the queue walk with a capacity other than the
-     kernel's, and of the queue walk without its packed nodes, each
-     refused (short_queue_refused);
+     slab tests and leaf visits between the cond walk's and those of the
+     whole walk with the seed t (plain_queue_hits); and a launch of
+     rowqueue, spec and uni with a queue one entry short of the tree's
+     leaves, of the queue walk with a capacity other than the kernel's, and
+     of the queue walk without its packed nodes, each refused
+     (short_queue_refused);
  18. the walks on the slice's path at full width and a cut spp, on phase
      17's scenes at leaf span 2, each with its counts set to 0 just before
      and read just after: rtw_final 400x400@16 d8 under the default walk
@@ -181,51 +180,40 @@ Phases (any failure exits nonzero):
      the default walk (render kernel), and compiled with the unified tree
      through the bounce kernel and through the render kernel with the LUT;
      balls 400x400@32 d10 under the default walk and each of cond, rowqueue
-     and spec (render kernel); one warmup and three timed renders each, Mpaths/s, the
-     walk's instantiation launched and nothing else of the kind, no plain
-     version, the kernel's time at the plan's lanes, each framebuffer within
+     and spec (render kernel); one warmup and three timed renders each,
+     Mpaths/s, the walk's instantiation launched and nothing else of the
+     kind, no plain version, the kernel's time at the plan's lanes, its
+     blocks per SM and shared memory a block there, each framebuffer within
      rtol 1e-5 / atol 1e-6 of the default walk's render of the same scene
      on >= 99.9% of pixels, and rtw_final's region gates of phase 12 on the
      unified-tree render; then rtw_final at the port's span under the
      default walk, rowqueue (bounce kernel) and uni (both kernels), and
      balls at the port's span under the default walk; the default walk's
      kernel time and bound (from the cond walk's counts) at the span-2
-     plans; then each redesigned walk (queue: K1 balls, K2 rtw_final and K1
-     rtw_final with the LUT at the port's span, K1 balls and K2 rtw_final
-     at span 2; rowqueue: K1 balls, K2 rtw_final, and K2 at the port's
-     span; spec: K1 balls, K2 rtw_final; uni: K1 LUT and K2 on rtw_final,
-     at span 2 and at the port's span) against its first design (the
-     kFlagFirstWalk variant) at its path's plan in 5 alternating rounds,
-     the default walk's kernel in the rounds of rowqueue and of uni at the
-     port's span, the outputs held to the new design's with phase 2's
-     tolerances (queue's and rowqueue's bitwise): times, wins, the bound
-     from the cond walk's counts and the walk's own beside it, registers
-     and spills of both instantiations, their blocks per SM and shared
-     memory a block at the plan; and the render kernel on the tree-less
-     cornell and emissive at their main paths' sorted plans as the default
-     walk and the cond walk launch it (both the tree-less instantiation,
-     kWalkNoTree) and as the queue walk's first design, in 5 alternating
-     rounds, bitwise, with their registers and blocks per SM (what a
-     walk's registers would cost a kernel that walks no tree; no launch
-     past MAX_BLOCKS_PER_SM, 8: the launchers raise the tree-less
-     instantiation's shared memory to hold it there);
+     plans; rowqueue's kernels (K1 balls and K2 rtw_final at span 2, K2 at
+     the port's span) and uni's at the port's span against the default
+     walk's kernel at the same plan, with phase 2's tolerances, rowqueue's
+     bitwise (walks_against_default); and the render kernel's tree-less
+     instantiation (kWalkNoTree) as the default and the cond walk launch
+     it at cornell's and emissive's main-path plans: one instantiation,
+     its registers and blocks per SM, no launch past MAX_BLOCKS_PER_SM, 8
+     (the launchers raise its shared memory to hold it there);
  19. the respawn under every sampler: the render kernel on the
      all-materials scene (a moving sphere, an isotropic medium) and the
      bounce kernel's regenerating mode on it with an image quad, at 32x32,
      8 spp, depth 10, under the independent, stratified and Sobol samplers,
      and the render kernel on a 9-light scene, each against its plain
      version with phase 2's tolerances;
- 20. the redesign of the render and bounce kernels, measured inside them,
-     for cornell, balls, rtw_final through the bounce kernel, rtw_final
-     with the LUT through the render kernel, and emissive at their main
-     paths' configurations: the old design (the JAX package's leaf span,
-     the cond walk, the Sobol bit loops in the respawn) and the new (the
-     port's span and default walk, the factored Sobol tables in shared
-     memory), each at its own plan: the instrumented variant's cycle share
-     of respawn, trace and shade, the warp-time share and the mean
-     converged lanes per warp entering each phase; the two designs' default
-     builds in 5 alternating pairs (Mpaths/s from the kernel's time at the
-     plan), and the lanes whose radiance differs;
+ 20. the phase profile of the kernels the renders launch (the work-queue
+     K1 and the regenerating K2 instrumented, kFlagProf): at the north
+     star (cornell 400x400@1024 d10) and the benchmark's ref_10k50 (cornell
+     400x400@10000 d50) over a first render's lanes, balls 400x400@128 d10
+     and rtw_final 400x400@64 d8 (K2, and K1 with the LUT) over their
+     coherent plans, and emissive 400x400@256 d10: each phase's cycle
+     share (respawn, trace, shade, and the rest: pulls and the loop head),
+     the warp-time share and the mean converged lanes per warp entering
+     each; the profiled kernel's radiance bitwise that of the kernel the
+     render launches on the same lanes (render_fused, bounce_regen);
  21. tools/span_sweep.py: leaf spans 1, 2, 4 and 8 under the cond and
      queue walks on balls 400x400@128 d10 and rtw_final 400x400@64 d8,
      Mpaths/s, kernel time and peak device memory, every render against the
@@ -233,14 +221,13 @@ Phases (any failure exits nonzero):
      LUT at the winning setting; cond against queue at the port's span in
      5 alternating pairs on both scenes; the uni walk on rtw_final at each
      span, and uni against queue at the port's span in 5 pairs;
- 22. the closest-hit kernel's redesign and the AOV pass: on the first-hit
+ 22. the closest-hit kernel's ray sets and the AOV pass: on the first-hit
      probe's 160,000 rays of balls and rtw_final and the AOV pass's 692,224
      rays (400x400@4 in 32x32 tiles, padded) of cornell, balls and
-     rtw_final, the kernel (the bounded leaf queue) and its first design
-     (the per-thread walk), each bitwise against the plain cond walk;
-     their bounds; the bytes a launch allocates (its outputs, never a
-     queue per ray); the two designs in 5 rounds of alternating order,
-     the kernel alone and its wrapper; the AOV pass (render/aov.py) at
+     rtw_final, the kernel (the bounded leaf queue) bitwise against the
+     plain cond walk; its bounds; the bytes a launch allocates (its
+     outputs, never a queue per ray); the kernel alone and its wrapper
+     timed; the AOV pass (render/aov.py) at
      400x400@4 on cornell, balls and rtw_final, its counts set to 0 just
      before and read just after (one kernel launch a pass, no plain
      version), wall time, the device time of the kernel and of the rest
@@ -357,7 +344,7 @@ bounce kernel's one-bounce mode with the atlas and with the LUT (parity
 checks only: no main path runs it, so its launches are 0) and its
 regenerating mode (rtw_final, and phase 25's rtw_final samples), and the
 closest-hit kernel (its launches on the AOV passes and phase 26's
-fixed-depth path; the ray sets, designs and AOV passes of phase 22, and
+fixed-depth path; the ray sets and AOV passes of phase 22, and
 phase 26's render against the plain trace), coherent_keys_kernel (its
 launches on the tree paths of phases 7, 11 and 14 and of the tools; phase
 7's and 11's checks against the probes, its time and bound on balls;
@@ -365,10 +352,10 @@ launches on the tree paths of phases 7, 11 and 14 and of the tools; phase
 per walk other than the default of the render kernel (cond, rowqueue and
 spec on balls at span 2, uni with the LUT on rtw_final) and of the bounce
 kernel's regenerating mode (rtw_final; rowqueue's at the port's span
-too), each priced from the cond walk's counts on the same tree (the tree
-and regenerating entries carry the default walk's span-2 time and bound
-as ``queue_walk_span2``, and with the LUT and brute entries its rounds
-against its first design as ``queue_walk_designs``), the estimator
+too), each priced from the cond walk's counts on the same tree (the tree,
+LUT and regenerating entries carry the default walk's span-2 path, time
+and bound as ``queue_walk_span2``, and its path at the port's span; the
+brute entry its tree-less instantiation's ``occupancy``), the estimator
 instantiations of
 the render kernel (its launches on phase 24's russian_roulette=3 path, its
 time at that path's plan, every driver of phase 24 beside it) and of the
@@ -376,8 +363,8 @@ bounce kernel (parity only: the atlas gate keeps it off every path), and
 the FP32-peak chain kernel.
 Phase 27's tools add their launches to the entries of the kernels and modes
 they ran (``launches_by_path`` names each tool run).
-The measurement variants of phases 20 and 22 are not kernels of any path: their
-launches are counted apart (``variant_launches``).  Each carries its registers
+Phase 20's phase profiles are not kernels of any path: their launches are
+counted apart (``profile_launches``).  Each entry carries its registers
 and spill from the build, its times, its launches on its path and its
 roofline bound: lane-operations by class (utils/roofline.py's per-unit
 counts times the work that the plain version counted on a parity run of
@@ -459,20 +446,20 @@ HIT_LAUNCHES, SLEEP_CYCLES = 20, 20_000_000
 # the eager ops' (FMA contraction at silhouettes)
 KEYS_DIFFER = 1e-3
 # phase 22: the AOV pass's spp (the CLI's), its slice against the plain
-# path, the closest-hit designs (the kernel and its first design) in
-# alternating rounds, and the denoiser on the card against the CPU (CUDA's
-# expf and powf round otherwise than the CPU's by an ulp or two: at most
-# 3.965e-06 relative on an H100)
-AOV_SPP, AOV_SLICE, HIT_PAIRS = 4, 64, 5
-HIT_DESIGNS = ("new", "flat")
+# path, and the denoiser on the card against the CPU (CUDA's expf and powf
+# round otherwise than the CPU's by an ulp or two: at most 3.965e-06
+# relative on an H100)
+AOV_SPP, AOV_SLICE = 4, 64
 DENOISE_RTOL, DENOISE_ATOL, DENOISE_AGREE = 1e-5, 1e-6, 0.999
 LIBRARY_NOTE = "none: no single PyTorch call computes path radiance, a bounce or a closest hit"
 # texel budgets of the texture LUT: native holds rtw_final's images
 # unpadded (7,151,808 + 87,600 texels), the others box-downsample them
 LUT_NATIVE, LUT_32K, LUT_8K = 1 << 23, 32768, 8192
 EMISSIVE_SPP = 256
+# phase 20's second cornell plan: the benchmark's converged reference
+# (benchmark/traffic/ref_10k50.json)
+REF_SPP, REF_DEPTH = 10000, 50
 LUT_PAIRS = 10
-DESIGN_PAIRS = 5
 # phase 18's renders: every walk at full width, at a cut spp
 WALK18_BALLS_SPP, WALK18_RTW_SPP = 32, 16
 STAGES = ("scene initialized", "scene rendered", "scene written to file")
@@ -523,10 +510,8 @@ JPEG_MIN_PSNR = 30.0
 # registers and spill bytes of the default walk's instantiations, of the
 # tree-less ones that every walk but uni launches on a scene without trees,
 # and of the cond walk's, as this build gives them (the factored Sobol
-# respawn and the device light and image tables; the queue walk's first
-# design: 64/28, 64/28, 64/0, 64/56, at 8 blocks per SM where the current
-# design's 72 registers give 7), and of the closest-hit kernel, its first
-# design and its coherent-plan keys.  The render kernel's, fed from the
+# respawn and the device light and image tables), and of the closest-hit
+# kernel and its coherent-plan keys.  The render kernel's, fed from the
 # work queue, are held by __launch_bounds__ to 8 blocks per SM without
 # trees and 7 on a tree walk (render_kernels.cuh:k1_min_blocks)
 DEFAULT_RESOURCES = {
@@ -536,8 +521,7 @@ DEFAULT_RESOURCES = {
     "bounce_kernel<false, no tree>": (48, 0), "bounce_kernel<true, no tree>": (64, 0),
     "fused_render_kernel<false, cond>": (72, 0), "fused_render_kernel<true, cond>": (72, 0),
     "bounce_kernel<false, cond>": (64, 0), "bounce_kernel<true, cond>": (64, 80),
-    "closest_hit_kernel": (56, 0), "closest_hit_flat_kernel": (56, 0),
-    "coherent_keys_kernel": (56, 0),
+    "closest_hit_kernel": (56, 0), "coherent_keys_kernel": (56, 0),
 }
 # phase 28: the harness's runs (its arguments), each one's time limit, and
 # how far the north star's figures may stray from phases 3 and 4's
@@ -736,22 +720,20 @@ def compare_hits(tag: str, hit_k, hit_p) -> dict:
             "max_abs_err": max_abs}
 
 
-def hit_launcher(ch, cs, rays, t_min, flat=False, t_max=float("inf"), active=None):
-    """A launch of the closest-hit kernel (``flat``: its first design) with
-    no wrapper around it: the wrapper's checked arguments
-    (ops/closest_hit.py:launch_args) handed to the library's launcher on
-    each call, which counts nothing.  Returns ``run``; ``run()`` returns
-    the Hit."""
+def hit_launcher(ch, cs, rays, t_min, t_max=float("inf"), active=None):
+    """A launch of the closest-hit kernel with no wrapper around it: the
+    wrapper's checked arguments (ops/closest_hit.py:launch_args) handed to
+    the library's launcher on each call, which counts nothing.  Returns
+    ``run``; ``run()`` returns the Hit."""
     from zig_weekend_raytracer_tpu_torch.ops import _build
 
-    args, hit, keep = ch.launch_args(cs, *rays, t_min, t_max, active, flat=flat)
-    name = "zwrt_closest_hit_flat" if flat else "zwrt_closest_hit"
-    fn = getattr(_build.load_library(), name)
+    args, hit, keep = ch.launch_args(cs, *rays, t_min, t_max, active)
+    fn = _build.load_library().zwrt_closest_hit
 
     def run():
         err = fn(*args)
         if err != 0:
-            raise RuntimeError(f"{name} launch failed: cudaError {err}")
+            raise RuntimeError(f"zwrt_closest_hit launch failed: cudaError {err}")
         return hit
 
     run.keep = keep
@@ -917,7 +899,6 @@ def phase_closest_hit(zt, ch, ttrace, torch) -> list:
 def reset_counts(fused, integrator, ch, ttrace, tb) -> None:
     integrator.render_fused_reference.calls = 0
     ch.closest_hit.launches = 0
-    ch.closest_hit_flat.launches = 0
     ch.coherent_keys.launches = 0
     ttrace.closest_hit.calls = 0
     integrator.bounce.calls = 0
@@ -990,19 +971,18 @@ def plan_parity(zt, fused, integrator, scene, plan, spp, card, tag, depth=DEPTH,
     return {**check, "ms": ms_k, "plain_ms": ms_p}, dict(counts)
 
 
-def render_bound(zt, scene, counts, kernel_work, lane_bytes, has_dof, spp,
-                 loop_sobol=False, walk=None) -> dict:
-    """The roofline bound of a render-kernel run at W x H, ``spp`` spp,
-    whose lanes did ``kernel_work`` bounces in all, from the plain
-    version's ``counts`` on a slice scaled by that bounce count, the Sobol
-    respawn in its factored form (or its bit loops); ``lane_bytes`` is what
-    the lanes read and write, beside the tables the trace reads under
-    ``walk`` (utils/roofline.py:render_bound, logged).  Each operation class
-    at phase 1b's rate."""
+def render_bound(zt, scene, counts, kernel_work, lane_bytes, has_dof, spp, walk=None) -> dict:
+    """The roofline bound of a render-kernel run at ``spp`` spp, whose
+    lanes did ``kernel_work`` bounces in all, from the plain version's
+    ``counts`` on a slice scaled by that bounce count, the Sobol respawn in
+    its factored form; ``lane_bytes`` is what the lanes read and write,
+    beside the tables the trace reads under ``walk``
+    (utils/roofline.py:render_bound, logged).  Each operation class at
+    phase 1b's rate."""
     from zig_weekend_raytracer_tpu_torch.utils import roofline
 
     out = roofline.render_bound(scene.compiled, counts, kernel_work, lane_bytes, has_dof, spp,
-                                W, H, loop_sobol, walk, OPS_RATE["rate"])
+                                walk, OPS_RATE["rate"])
     log(f"bound: {float(kernel_work):.0f} bounces, operations "
         f"{ {k: f'{v:.4g}' for k, v in out['bound_ops'].items()} }, {out['bound_bytes']:.4g} "
         f"bytes -> {out['bound_ms']:.3f} ms ({out['bound_by']}, {out['peak_source']} rates)")
@@ -1097,25 +1077,20 @@ def phase_one_bounce(zt, tb, integrator, torch, scenes) -> list:
 def kernel_resources(build_log: str) -> dict:
     """{kernel instantiation: {"registers", "spill_bytes"}} from ptxas -v:
     fused_render_kernel<IMAGES, walk> (without and with the image fetch;
-    its default and estimator instantiations, fed from the work queue,
-    under the names they had before it)
-    and bounce_kernel<REGEN, walk> (one-bounce and regenerating modes) for
-    each tree walk and "no tree" (kWalkNoTree), the first designs of the queue, rowqueue, spec and uni
-    walks (<IMAGES, walk, first design>), closest_hit_kernel,
-    closest_hit_flat_kernel (its first design) and coherent_keys_kernel,
-    and chain_kernel<op,
-    chains, unroll>."""
+    every instantiation fed from the work queue, under the names they had
+    before it) and bounce_kernel<REGEN, walk> (one-bounce and regenerating
+    modes) for each tree walk and "no tree" (kWalkNoTree), each with its
+    flags but kFlagPull (<..., estimator>, <..., prof>),
+    closest_hit_kernel, coherent_keys_kernel, and chain_kernel<op, chains,
+    unroll>."""
     import re
 
     from zig_weekend_raytracer_tpu_torch.ops.trace import WALKS
     from zig_weekend_raytracer_tpu_torch.tools.fp32_peak import OPS
 
-    flag_names = {1: "prof", 2: "loop_sobol", 3: "prof, loop_sobol", 4: "estimator",
-                  8: "first design"}
-    pull = 16   # zwrt_device.cuh:kFlagPull, which K1's default and estimator ones take
-    # zwrt_device.cuh:Walk, then kWalkSpecFirst, kWalkUniFirst,
-    # kWalkRowQueueFirst and kWalkQueueFirst, then kWalkNoTree
-    walk_names = WALKS + ("spec", "uni", "rowqueue", "queue", "no tree")
+    flag_names = {1: "prof", 2: "estimator"}
+    pull = 4   # zwrt_device.cuh:kFlagPull, which every K1 instantiation takes
+    walk_names = WALKS + ("no tree",)   # zwrt_device.cuh:Walk
 
     def name_of(mangled):
         m = re.search(r"(fused_render_kernel|bounce_kernel)ILb([01])ELi(\d)ELi(\d+)E", mangled)
@@ -1127,7 +1102,7 @@ def kernel_resources(build_log: str) -> dict:
         m = re.search(r"chain_kernelILi(\d)ELi(\d+)ELi(\d+)E", mangled)
         if m:
             return f"chain_kernel<{OPS[int(m.group(1))]}, {m.group(2)}, {m.group(3)}>"
-        for name in ("closest_hit_kernel", "closest_hit_flat_kernel", "coherent_keys_kernel"):
+        for name in ("closest_hit_kernel", "coherent_keys_kernel"):
             if re.search(rf"\d{name}E", mangled):
                 return name
         return None
@@ -1647,101 +1622,55 @@ def prof_summary(prof) -> dict:
             "entries": entries}
 
 
-def phase_design(zt, fused, tb, integrator, torch, configs, card) -> dict:
-    """Phase 20, the redesign of K1 and K2 measured inside the kernels:
-    for each configuration (name, new scene, old scene, spp, depth), the old
-    design (the JAX package's leaf span, the cond walk, the Sobol bit loops
-    in the respawn) and the new (the port's span and default walk, the
-    factored Sobol tables), each at its own plan: (1) the instrumented
-    kernel's cycle share of respawn, trace and shade and the mean converged
-    lanes per warp entering each; (2) the two default-build kernels in
-    PAIRS alternating pairs (Mpaths/s from their CUDA-event times at the
-    plan), and the lanes where their radiance differs."""
+def phase_profile(zt, fused, tb, integrator, torch, configs, card) -> dict:
+    """Phase 20, the phase profile of K1 and K2 at each configuration (name,
+    scene, spp, depth) over the lanes its renders take (Renderer.
+    render_lanes: a brute scene's first render, whose plain layout every
+    request with a new seed takes, and a tree scene's coherent plan): the
+    profiled kernel's cycle share of respawn, trace and shade, the
+    warp-time share and the mean converged lanes per warp entering each
+    phase, K1's over the threads of its work-queue kernel; its radiance bit
+    for bit that of the kernel the render launches (render_fused over the
+    same grid and items, bounce_regen)."""
     from zig_weekend_raytracer_tpu_torch.ops.bounce import supports_fused_render
     from zig_weekend_raytracer_tpu_torch.render.camera import camera_consts
 
     t_min = zt.dtypes.T_MIN
     out = {}
-    for name, new, old, spp, depth in configs:
+    for name, scene, spp, depth in configs:
+        cs = scene.compiled
         renderer = zt.render.Renderer(samples_per_pixel=spp, max_ray_bounce_depth=depth)
-        k1 = supports_fused_render(new.compiled)
-        kw = dict(camera_consts=camera_consts(new.camera, W, H), sampler=renderer.sampler,
-                  width=W, height=H, spp=spp, stride=1, max_depth=depth,
-                  has_dof=new.camera.has_depth_of_field)
-        runs = {}
-        for design, scene, walk in (("old", old, "cond"), ("new", new, None)):
-            cs = scene.compiled
-            with trav(walk):
-                for _ in range(2):
-                    renderer.render_device(scene, W, H)
-            plan = plan_of(renderer, cs)
-            loop = design == "old"
-            if k1:
-                def run(variant, cs=cs, plan=plan, loop=loop, walk=walk):
-                    with trav(walk):
-                        if variant == "prof":
-                            r, _, pr = fused.render_fused_variant(
-                                cs, *plan, 0, t_min, profile=True, loop_sobol=loop, **kw)
-                            return r.to_array(), pr
-                        if variant == "prof items":
-                            prof = lambda *a, **k: fused.render_fused_variant(
-                                *a, profile=True, loop_sobol=loop, **k)[:2]
-                            return over_items(fused, integrator, prof, cs, *plan, 0, t_min,
-                                              **kw)[0].to_array()
-                        if loop:
-                            return fused.render_fused_variant(cs, *plan, 0, t_min,
-                                                              loop_sobol=True, **kw)[0].to_array()
-                        return fused.render_fused(cs, *plan, 0, t_min, **kw).to_array()
-            else:
-                st0 = integrator.initial_regen_state(plan[2], 1)
-
-                def run(variant, cs=cs, plan=plan, loop=loop, walk=walk, st0=st0):
-                    args = (cs, st0, plan[0], plan[1], plan[3], 0, t_min)
-                    with trav(walk):
-                        if variant == "prof":
-                            st, pr = tb.bounce_regen_variant(*args, profile=True, loop_sobol=loop,
-                                                             **kw)
-                            return st.radiance.to_array(), pr
-                        if loop:
-                            return tb.bounce_regen_variant(*args, loop_sobol=True,
-                                                           **kw)[0].radiance.to_array()
-                        return tb.bounce_regen(*args, **kw).radiance.to_array()
-            rad_p, prof = run("prof")
-            summ = prof_summary(prof)
-            runs[design] = {"run": run, "plan": plan, "prof": summ, "rad": run("time")}
-            if k1 and not loop:
-                # the timed kernel is fed from the work queue: the variant
-                # over its items, summed as it sums them
-                rad_p = run("prof items")
-            if not torch.equal(rad_p, runs[design]["rad"]):
-                raise AssertionError(f"{name} {design}: the instrumented kernel's radiance "
-                                     "differs from the timed kernel's")
-            log(f"design {name} {design} ({'K1' if k1 else 'K2'}, {ttrace_walk(zt, cs, walk)} "
-                f"walk, leaf spans {leaf_spans(cs)}): cycle share "
-                f"{ {k: round(v, 4) for k, v in summ['cycle_share'].items()} }, warp-time share "
-                f"{ {k: round(v, 4) for k, v in summ['warp_time_share'].items()} }, mean active "
-                f"lanes per warp entering { {k: round(v, 2) for k, v in summ['active_lanes'].items()} }, "
-                f"entries {summ['entries']}")
-        same_plan = all(torch.equal(a, b) for a, b in zip(runs["old"]["plan"], runs["new"]["plan"]))
-        differ = (int((runs["old"]["rad"] != runs["new"]["rad"]).any(1).sum().item())
-                  if same_plan else None)
-        pairs = []
-        for i in range(DESIGN_PAIRS):
-            order = ("new", "old") if i % 2 == 0 else ("old", "new")
-            t = {d: cuda_time_ms(lambda: runs[d]["run"]("time"))[0] for d in order}
-            pairs.append((t["old"], t["new"]))
-        mp = lambda ms: W * H * spp / (ms / 1e3) / 1e6
-        med = [sorted(ts)[DESIGN_PAIRS // 2] for ts in zip(*pairs)]
-        new_wins = sum(b < a for a, b in pairs)
-        log(f"design {name} old vs new, {DESIGN_PAIRS} alternating pairs of the kernel at the "
-            f"plan: new faster in {new_wins}; medians {med[0]:.3f} vs {med[1]:.3f} ms = "
-            f"{mp(med[0]):.2f} vs {mp(med[1]):.2f} Mpaths/s; pairs (old, new) ms "
-            f"{[(round(a, 3), round(b, 3)) for a, b in pairs]}; same plan {same_plan}, lanes "
-            f"whose radiance differs {differ} ({card})")
-        out[name] = {"old_prof": runs["old"]["prof"], "new_prof": runs["new"]["prof"],
-                     "pairs_ms": pairs, "new_wins": new_wins, "median_ms": med,
-                     "median_mpaths_per_s": [mp(m) for m in med], "same_plan": same_plan,
-                     "lanes_differ": differ}
+        with env("ZWRT_NO_SORT", "1"):
+            if cs.has_sph_tree or cs.has_quad_tree:
+                renderer.render_device(scene, W, H)
+            *plan, stride = renderer.render_lanes(scene, W, H)
+        kw = dict(camera_consts=camera_consts(scene.camera, W, H), sampler=renderer.sampler,
+                  width=W, height=H, spp=spp, stride=stride, max_depth=depth,
+                  has_dof=scene.camera.has_depth_of_field)
+        seed = renderer.seed
+        if supports_fused_render(cs):
+            kernel = "K1"
+            (rad_p, _), prof = fused.render_fused_profile(cs, *plan, seed, t_min, **kw)
+            rad = fused.render_fused(cs, *plan, seed, t_min, **kw)
+        else:
+            kernel = "K2"
+            args = (cs, integrator.initial_regen_state(plan[2], stride), plan[0], plan[1],
+                    plan[3], seed, t_min)
+            st, prof = tb.bounce_regen_profile(*args, **kw)
+            rad_p, rad = st.radiance, tb.bounce_regen(*args, **kw).radiance
+        if not torch.equal(rad_p.to_array(), rad.to_array()):
+            raise AssertionError(f"{name}: the profiled kernel's radiance differs from the "
+                                 "render's kernel's")
+        summ = prof_summary(prof)
+        walk = ttrace_walk(zt, cs, None)
+        log(f"profile {name} ({kernel}, {walk} walk, {plan[0].shape[0]} lanes, "
+            f"{prof.shape[1]} threads; {card}): cycle share "
+            f"{ {k: round(v, 4) for k, v in summ['cycle_share'].items()} }, warp-time share "
+            f"{ {k: round(v, 4) for k, v in summ['warp_time_share'].items()} }, mean active "
+            f"lanes per warp entering { {k: round(v, 2) for k, v in summ['active_lanes'].items()} }, "
+            f"entries {summ['entries']}; radiance bitwise the render's kernel's")
+        out[name] = {"kernel": kernel, "walk": walk, "lanes": plan[0].shape[0],
+                     "threads": prof.shape[1], **summ}
     return out
 
 
@@ -1750,11 +1679,6 @@ def ttrace_walk(zt, cs, walk):
 
     with trav(walk):
         return walk_of(cs)
-
-
-def leaf_spans(cs):
-    return {k: getattr(cs, f"{k}_leaf_span") for k in ("sph", "quad")
-            if getattr(cs, f"has_{k}_tree")}
 
 
 def phase_sweep(zt, card) -> dict:
@@ -1980,10 +1904,10 @@ def plain_queue_hits(zt, torch, sc) -> list:
     """The plain queue walk's hits (t, kind, idx) bitwise the plain cond
     walk's on the card, on the 64x64 camera rays of balls and rtw_final at
     the port's span, and the work each walk counts: the queue walk's slab
-    tests and leaf visits at least the cond walk's and at most its first
-    design's (the plain queue walk at the first design's device-queue
-    capacity, ops/fused_render.py:queue_capacity, never sweeps before its
-    walk's end)."""
+    tests and leaf visits at least the cond walk's and at most those of the
+    whole walk with the seed t (the plain queue walk at a capacity that
+    holds every leaf, ops/fused_render.py:queue_capacity, never sweeps
+    before its walk's end)."""
     from zig_weekend_raytracer_tpu_torch.ops import trace as ttrace
     from zig_weekend_raytracer_tpu_torch.ops.fused_render import queue_capacity
     from zig_weekend_raytracer_tpu_torch.utils import workcount
@@ -1994,8 +1918,8 @@ def plain_queue_hits(zt, torch, sc) -> list:
         rays = camera_rays(zt, torch, scene, 64, 64, 1)
         got = {}
         cap = {"cond": ttrace.QUEUE_CAP, DEFAULT_WALK: ttrace.QUEUE_CAP,
-               "first design": queue_capacity(scene.compiled, DEFAULT_WALK)}
-        for form in ("cond", DEFAULT_WALK, "first design"):
+               "seed t": queue_capacity(scene.compiled, "spec")}
+        for form in ("cond", DEFAULT_WALK, "seed t"):
             with workcount.counting() as c:
                 hit = ttrace.closest_hit(scene.compiled, *rays, zt.dtypes.T_MIN,
                                          walk="cond" if form == "cond" else DEFAULT_WALK,
@@ -2008,9 +1932,9 @@ def plain_queue_hits(zt, torch, sc) -> list:
             "visits): " + "; ".join(f"{f} {c['slab_test']}, {c['leaf_visit']}"
                                    for f, c in counts.items()))
         for k in ("slab_test", "leaf_visit"):
-            if not counts["cond"][k] <= counts[DEFAULT_WALK][k] <= counts["first design"][k]:
+            if not counts["cond"][k] <= counts[DEFAULT_WALK][k] <= counts["seed t"][k]:
                 raise AssertionError(f"{scene.name}: the {DEFAULT_WALK} walk's {k} is not "
-                                     "between the cond walk's and its first design's")
+                                     "between the cond walk's and the seed-t walk's")
         out.append({**check, "counts": counts})
     return out
 
@@ -2026,13 +1950,12 @@ def bitwise(checks, what) -> None:
 
 def short_queue_refused(zt, fused, torch, sc) -> list:
     """A render-kernel launch of each walk with a device or per-warp queue
-    (the queue walk's first design, rowqueue and spec on balls at span 2,
-    uni on rtw_final with the LUT) whose queue capacity is one below the
-    leaves its tree may hold ((n + 1) / 2 of n nodes), a launch of the queue
-    walk's current design whose capacity is not the kernel's kQueueCap, and
-    one without its packed node tables, are each refused with
-    cudaErrorInvalidValue (1), before they run, and count no launch
-    (zwrt_device.cuh:set_walk)."""
+    (rowqueue and spec on balls at span 2, uni on rtw_final with the LUT)
+    whose queue capacity is one below the leaves its tree may hold ((n +
+    1) / 2 of n nodes), a launch of the queue walk whose capacity is not
+    the kernel's kQueueCap, and one without its packed node tables, are
+    each refused with cudaErrorInvalidValue (1), before they run, and count
+    no launch (zwrt_device.cuh:set_walk)."""
     from zig_weekend_raytracer_tpu_torch.render.camera import camera_consts
 
     out = []
@@ -2040,26 +1963,24 @@ def short_queue_refused(zt, fused, torch, sc) -> list:
     px, py = (lane % 8).contiguous(), (lane // 8).contiguous()
     zero = torch.zeros_like(lane)
     real_walk_args, real_node_args = fused.walk_args, fused.node_args
-    for walk, name, first, what in (
-            ("queue", "balls2", True, "short"), ("rowqueue", "balls2", False, "short"),
-            ("spec", "balls2", False, "short"), ("uni", "rtw_uni_lut", False, "short"),
-            ("queue", "balls2", False, "short"), ("queue", "balls2", False, "no nodes")):
+    for walk, name, what in (
+            ("rowqueue", "balls2", "short"), ("spec", "balls2", "short"),
+            ("uni", "rtw_uni_lut", "short"), ("queue", "balls2", "short"),
+            ("queue", "balls2", "no nodes")):
         cs = sc[name].compiled
         nodes = cs.uni_tree_box.shape[0] if walk == "uni" else cs.sph_tree_box.shape[0]
-        short = fused.QUEUE_CAP - 1 if walk == "queue" and not first else (nodes + 1) // 2 - 1
+        short = fused.QUEUE_CAP - 1 if walk == "queue" else (nodes + 1) // 2 - 1
 
-        def shortened(scene, n, smem_before=0, first=False):
-            walk_, code, cap, queue = real_walk_args(scene, n, smem_before, first)
+        def shortened(scene, n, smem_before=0):
+            walk_, code, cap, queue = real_walk_args(scene, n, smem_before)
             return walk_, code, short, queue
 
-        host = fused.render_fused_variant if first else fused.render_fused
-        launches = dict(host.launches)
+        launches = dict(fused.render_fused.launches)
         if what == "short":
             fused.walk_args = shortened
         else:
             fused.node_args = lambda scene, walk: (None, ())
-        design = "'s first design" if first else ""
-        label = (f"the {walk} walk{design}: "
+        label = (f"the {walk} walk: "
                  + (f"a queue of {short} entries for {nodes} nodes" if what == "short"
                     else "a launch without its packed nodes"))
         try:
@@ -2067,10 +1988,7 @@ def short_queue_refused(zt, fused, torch, sc) -> list:
                 kw = dict(camera_consts=camera_consts(sc[name].camera, 8, 8),
                           sampler=zt.sampling.SamplerKind.SOBOL, width=8, height=8, spp=1,
                           stride=1, max_depth=2, has_dof=sc[name].camera.has_depth_of_field)
-                if first:
-                    host(cs, px, py, zero, zero + 1, 0, zt.dtypes.T_MIN, first_walk=True, **kw)
-                else:
-                    host(cs, px, py, zero, zero + 1, 0, zt.dtypes.T_MIN, **kw)
+                fused.render_fused(cs, px, py, zero, zero + 1, 0, zt.dtypes.T_MIN, **kw)
             torch.cuda.synchronize()
             raise AssertionError(f"{label} was launched")
         except RuntimeError as e:
@@ -2078,10 +1996,10 @@ def short_queue_refused(zt, fused, torch, sc) -> list:
                 raise
         finally:
             fused.walk_args, fused.node_args = real_walk_args, real_node_args
-        if host.launches != launches:
+        if fused.render_fused.launches != launches:
             raise AssertionError(f"{label}: the refused launch was counted")
         log(f"{label}: refused (cudaErrorInvalidValue)")
-        out.append({"walk": walk, "first_design": first, "nodes": nodes, "q_cap": short,
+        out.append({"walk": walk, "nodes": nodes, "q_cap": short,
                     "packed_nodes": what != "no nodes", "refused": True})
     return out
 
@@ -2101,68 +2019,40 @@ def walk_bound_counts(wpar, walk, pcase, ccase) -> dict:
     return wpar["cond"][ccase][1]
 
 
-def plan_kernel(zt, fused, integrator, tb, scene, renderer, first=False, occupancy=False,
-                items=False):
-    """A call of the scene's kernel at ``renderer``'s coherent plan (the
-    render kernel where it takes the scene, else the bounce kernel's
-    regenerating mode: Renderer.kernel_call) under the walk the environment
-    names, returning (radiance, work); ``first``: through the walk's first
-    design (the measurement variant, counted apart from the paths), with
-    ``items`` for the render kernel over its work-queue items (over_items);
-    ``occupancy``: a call that launches nothing and returns the
-    instantiation's (blocks per SM, dynamic shared memory bytes) at the
-    plan instead."""
+def plan_occupancy(zt, fused, integrator, tb, scene, renderer):
+    """(blocks per SM, dynamic shared memory bytes a block) of the
+    instantiation that the scene's kernel takes at ``renderer``'s plan
+    (render_lanes: the render kernel where it takes the scene, else the
+    bounce kernel's regenerating mode) under the walk the environment
+    names; launches nothing."""
     from zig_weekend_raytracer_tpu_torch.ops.bounce import supports_fused_render
     from zig_weekend_raytracer_tpu_torch.render.camera import camera_consts
 
-    if not (first or occupancy):
-        return renderer.kernel_call(scene, W, H)
     cs = scene.compiled
     plan = renderer.render_lanes(scene, W, H)[:4]
     kw = dict(camera_consts=camera_consts(scene.camera, W, H), sampler=renderer.sampler,
               width=W, height=H, spp=renderer.samples_per_pixel, stride=1,
               max_depth=renderer.max_ray_bounce_depth, has_dof=scene.camera.has_depth_of_field)
     t_min = zt.dtypes.T_MIN
-    if occupancy:
-        if supports_fused_render(cs):
-            return lambda: fused.render_fused_occupancy(cs, *plan, 0, t_min, first_walk=first,
-                                                        **kw)
-        return lambda: tb.bounce_regen_occupancy(
-            cs, integrator.initial_regen_state(plan[2], 1), plan[0], plan[1], plan[3], 0, t_min,
-            first_walk=first, **kw)
     if supports_fused_render(cs):
-        variant = lambda *a, **k: fused.render_fused_variant(*a, first_walk=True, **k)[:2]
-        if items:
-            return lambda: over_items(fused, integrator, variant, cs, *plan, 0, t_min, **kw)
-        return lambda: variant(cs, *plan, 0, t_min, **kw)
-    st0 = integrator.initial_regen_state(plan[2], 1)
-
-    def run():
-        st = tb.bounce_regen_variant(cs, st0, plan[0], plan[1], plan[3], 0, t_min,
-                                     first_walk=True, **kw)[0]
-        return st.radiance, st.work
-
-    return run
+        return fused.render_fused_occupancy(cs, *plan, 0, t_min, **kw)
+    return tb.bounce_regen_occupancy(cs, integrator.initial_regen_state(plan[2], 1), plan[0],
+                                     plan[1], plan[3], 0, t_min, **kw)
 
 
-def launch_mib(zt, fused, integrator, tb, torch, scene, renderer, tag) -> dict:
+def launch_mib(torch, scene, renderer, tag) -> float:
     """MiB of device memory that one launch of the scene's kernel at
-    ``renderer``'s coherent plan allocates above what was allocated before
-    it, outputs included, under the default walk and under its first design
-    (a measurement variant, counted apart), whose leaf queue is a device
-    array of (n_nodes + 1) // 2 + 1 ints a thread."""
-    out = {}
-    for label, first in (("new", False), ("first design", True)):
-        call = plan_kernel(zt, fused, integrator, tb, scene, renderer, first)
-        torch.cuda.synchronize()
-        base = torch.cuda.memory_allocated()
-        torch.cuda.reset_peak_memory_stats()
-        call()
-        torch.cuda.synchronize()
-        out[label] = (torch.cuda.max_memory_allocated() - base) / 2**20
-    log(f"{tag}: a launch at the plan allocates {out['new']:.1f} MiB of device memory "
-        f"(the {DEFAULT_WALK} walk's first design: {out['first design']:.1f} MiB)")
-    return out
+    ``renderer``'s coherent plan (Renderer.kernel_call) allocates above what
+    was allocated before it, outputs included."""
+    call = renderer.kernel_call(scene, W, H)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    call()
+    torch.cuda.synchronize()
+    mib = (torch.cuda.max_memory_allocated() - base) / 2**20
+    log(f"{tag}: a launch at the plan allocates {mib:.1f} MiB of device memory")
+    return mib
 
 
 def walk_render(zt, fused, integrator, ch, ttrace, tb, torch, scene, spp, depth, walk, card,
@@ -2171,7 +2061,8 @@ def walk_render(zt, fused, integrator, ch, ttrace, tb, torch, scene, spp, depth,
     render, three timed), with the counts set to 0 just before and read just
     after; the walk's instantiation of K1 (scenes it takes) or K2 must have
     launched and nothing else of the kind, no plain version; then the
-    kernel's time at the coherent plan's lanes (its work), and the
+    kernel's time at the coherent plan's lanes (its work), the
+    instantiation's blocks per SM and shared memory a block there, and the
     framebuffer against ``ref_fb`` within rtol 1e-5 / atol 1e-6 on >= 99.9%
     of pixels.  Returns (record, framebuffer, renderer)."""
     from zig_weekend_raytracer_tpu_torch.ops.bounce import supports_fused_render
@@ -2198,13 +2089,15 @@ def walk_render(zt, fused, integrator, ch, ttrace, tb, torch, scene, spp, depth,
             raise AssertionError(f"{tag}: bad framebuffer")
         plans = renderer._plan_cache[cs]
         lanes = int(plans[next(k for k in plans if k[0] == "coh")]["plan"][0].shape[0])
-        ms, (_, work) = cuda_time_ms(
-            plan_kernel(zt, fused, integrator, tb, scene, renderer), 3)
+        ms, (_, work) = cuda_time_ms(renderer.kernel_call(scene, W, H), 3)
+        blocks, smem = plan_occupancy(zt, fused, integrator, tb, scene, renderer)
     best = min(times)
     mpaths = W * H * spp / best / 1e6
     out = {"render_s_best": best, "mpaths_per_s": mpaths, "launches": launches, "ms": ms,
-           "work": int(work.sum().item()), "lanes": lanes, "spp": spp}
-    msg = f"{tag}: best {best:.4f} s = {mpaths:.2f} Mpaths/s; kernel at the plan {ms:.3f} ms"
+           "work": int(work.sum().item()), "lanes": lanes, "spp": spp,
+           "blocks_per_sm": blocks, "smem_bytes": smem}
+    msg = (f"{tag}: best {best:.4f} s = {mpaths:.2f} Mpaths/s; kernel at the plan {ms:.3f} ms, "
+           f"{blocks} blocks per SM, {smem} bytes of shared memory a block")
     if ref_fb is not None:
         close = torch.isclose(fb, ref_fb, rtol=1e-5, atol=1e-6).all(-1).float().mean().item()
         out.update(default_agree=close, default_max_abs_diff=(fb - ref_fb).abs().max().item())
@@ -2216,37 +2109,6 @@ def walk_render(zt, fused, integrator, ch, ttrace, tb, torch, scene, spp, depth,
     return out, fb, renderer
 
 
-def design_rounds(torch, runs, tag, card, n=DESIGN_PAIRS) -> dict:
-    """The kernels of ``runs`` ({label: (walk, call) or (walk, call,
-    exact)}, the redesigned walk first) at one plan in ``n`` rounds, the
-    order reversed every other round, each the best of three CUDA-event
-    runs; every other label's output (``exact``'s, where given: the same
-    kernel over the render kernel's work-queue items, over_items) held to
-    the first's with phase 2's tolerances.  Returns the times, their
-    medians and the first label's wins against each other."""
-    labels = list(runs)
-    times, outs = {k: [] for k in labels}, {}
-    for i in range(n):
-        for k in (labels if i % 2 == 0 else labels[::-1]):
-            walk, call = runs[k][:2]
-            with trav(walk):
-                ms, outs[k] = cuda_time_ms(call, 3)
-            times[k].append(ms)
-    for k in labels:
-        if len(runs[k]) > 2:
-            with trav(runs[k][0]):
-                outs[k] = runs[k][2]()
-    med = {k: sorted(v)[n // 2] for k, v in times.items()}
-    new = labels[0]
-    wins = {k: sum(a < b for a, b in zip(times[new], times[k])) for k in labels[1:]}
-    checks = [compare(f"{tag}: {k} against {new} at the plan", outs[k], outs[new])
-              for k in labels[1:]]
-    log(f"{tag}, {n} alternating rounds at the plan (ms; {card}): "
-        + "; ".join(f"{k} {[round(t, 3) for t in times[k]]} median {med[k]:.3f}" for k in labels)
-        + f"; {new} faster in " + ", ".join(f"{wins[k]} of {n} against {k}" for k in wins))
-    return {"times_ms": times, "median_ms": med, "wins": wins, "checks": checks}
-
-
 def walk_lane_bytes(kernel, lut, lanes) -> int:
     """What a phase 18 path's lanes read and write: K1 its lane table (16
     bytes) and its radiance (12) or, with the LUT, radiance and work (16);
@@ -2256,174 +2118,68 @@ def walk_lane_bytes(kernel, lut, lanes) -> int:
     return lanes * (84 + 72)
 
 
-# phase 18's redesign cases: (kernel, path key, scene of walk_scenes, the
-# default walk's scene at the same span and its path's renderer key, or
-# None, phase 17's counts)
-DESIGN_CASES = (
-    ("K1", "queue balls port", "balls_port", None, ("queue port span", "K1 balls")),
-    ("K2", "queue port", "rtw_port", None, ("queue port span", "K2 regen")),
-    ("K1", "queue port", "rtw_lut_port", None, ("queue port span", "K1 LUT")),
-    ("K1", "queue", "balls2", None, ("queue", "K1 balls")),
-    ("K2", "queue", "rtw", None, ("queue", "K2 regen")),
-    ("K1", "rowqueue", "balls2", ("balls2", ("K1", DEFAULT_WALK)), ("rowqueue", "K1 balls")),
-    ("K2", "rowqueue", "rtw", ("rtw", ("K2", DEFAULT_WALK)), ("rowqueue", "K2 regen")),
-    ("K2", "rowqueue port", "rtw_port", ("rtw_port", ("K2", "queue port")),
-     ("rowqueue port span", "K2 regen")),
-    ("K1", "spec", "balls2", None, ("spec", "K1 balls")),
-    ("K2", "spec", "rtw", None, ("spec", "K2 regen")),
-    ("K1", "uni", "rtw_uni_lut", None, ("uni", "K1 LUT")),
-    ("K2", "uni", "rtw_uni", None, ("uni", "K2 regen")),
-    ("K1", "uni port", "rtw_uni_lut_port", ("rtw_lut_port", ("K1", "queue port")),
-     ("uni port span", "K1 LUT")),
-    ("K2", "uni port", "rtw_uni_port", ("rtw_port", ("K2", "queue port")),
-     ("uni port span", "K2 regen")),
+# phase 18's walks that run beside the default walk at the same coherent
+# plan: (kernel, path key, scene of walk_scenes, the default walk's scene
+# at the same span and its path's renderer key)
+AGAINST_DEFAULT = (
+    ("K1", "rowqueue", "balls2", "balls2", ("K1", DEFAULT_WALK)),
+    ("K2", "rowqueue", "rtw", "rtw", ("K2", DEFAULT_WALK)),
+    ("K2", "rowqueue port", "rtw_port", "rtw_port", ("K2", "queue port")),
+    ("K1", "uni port", "rtw_uni_lut_port", "rtw_lut_port", ("K1", "queue port")),
+    ("K2", "uni port", "rtw_uni_port", "rtw_port", ("K2", "queue port")),
 )
 
 
-def phase_walk_designs(zt, fused, integrator, tb, torch, sc, wpar, paths, renderers, resources,
-                       card) -> dict:
-    """Phase 18's redesign check: each redesigned walk (queue, rowqueue,
-    spec, uni) against its first design (the kFlagFirstWalk variant) at the
-    coherent plan of its phase 18 path, in DESIGN_PAIRS alternating rounds
-    (design_rounds): K1 and K2 at span 2, and queue's three main paths
-    (K1 balls, K2 rtw_final, K1 rtw_final with the LUT), rowqueue's K2 and
-    uni at the port's span; the default walk's kernel at the same plan on
-    the per-kind scene of the same span runs in the rounds of rowqueue and
-    of uni at the port's span.  Each with its bound (walk_bound_counts
-    scaled to the path's bounces; the bound the walk's own plain counts
-    would give beside it, as a diagnostic), the registers and spills of
-    both instantiations, each instantiation's blocks per SM and shared
-    memory per block at the plan, and, but for the default walk, the
-    path's render against the default walk's.  Returns {"<kernel> <path
-    key>": record}."""
-    out = {}
-    for kernel, key, name, default, (pcase, ccase) in DESIGN_CASES:
+def walks_against_default(torch, sc, renderers) -> list:
+    """Phase 18: the rowqueue walk's kernels (span 2; K2 at the port's span
+    too) and the uni walk's at the port's span against the default walk's
+    kernel at the same coherent plan, on the per-kind scene of the same
+    span, with phase 2's tolerances, rowqueue's bitwise."""
+    checks = []
+    for kernel, key, name, dname, dkey in AGAINST_DEFAULT:
         walk = key.split()[0]
-        scene = sc[name]
-        spp = WALK18_BALLS_SPP if name.startswith("balls") else WALK18_RTW_SPP
-        lut = scene.compiled.has_image_textures and bool(scene.compiled.tex_lut_dims)
-        run = lambda first, occ=False, items=False, sc_=scene, rnd=renderers[(kernel, key)]: \
-            plan_kernel(zt, fused, integrator, tb, sc_, rnd, first, occ, items)
-        runs = {"new": (walk, run(False)), "first design": (walk, run(True), run(True, items=True))}
-        occupancy = {"new": (walk, run(False, True)), "first design": (walk, run(True, True))}
-        if default:
-            call = lambda occ, dname=default[0], rkey=default[1]: plan_kernel(
-                zt, fused, integrator, tb, sc[dname], renderers[rkey], occupancy=occ)
-            runs[DEFAULT_WALK] = (DEFAULT_WALK, call(False))
-            occupancy[DEFAULT_WALK] = (DEFAULT_WALK, call(True))
-        cs = scene.compiled
-        span = cs.uni_leaf_span if walk == "uni" else cs.sph_leaf_span
-        tag = f"{kernel} {walk} walk, {scene.name}{' LUT' if lut else ''} span {span}"
-        occ = {}
-        for label, (w, call) in occupancy.items():
-            with trav(w):
-                blocks, smem = call()
-            occ[label] = {"blocks_per_sm": blocks, "smem_bytes": smem}
-        log(f"{tag}: blocks per SM and dynamic shared memory a block at the plan "
-            "(cudaOccupancyMaxActiveBlocksPerMultiprocessor): " + "; ".join(
-                f"{k} {v['blocks_per_sm']}, {v['smem_bytes']} bytes" for k, v in occ.items()))
-        rounds = design_rounds(torch, runs, tag, card)
-        if walk in ("queue", "rowqueue"):
-            bitwise(rounds["checks"], f"{tag}: the first design's and the default walk's "
-                                      "outputs at the plan against the new design's")
-        counts = wpar[pcase][ccase][1]
-        per_bounce = {k: counts.get(k, 0) / max(counts.get("bounce", 0), 1)
-                      for k in ("slab_test", "leaf_visit", "sphere_test", "quad_test")}
-        log(f"{tag}: the plain walk's work a bounce at 32x32 (phase 17): "
-            + ", ".join(f"{k} {v:.2f}" for k, v in per_bounce.items()))
-        if "port" in key and kernel == "K2" and walk != DEFAULT_WALK:
-            ref = wpar["uni port span"]["K2 regen, default walk"][1]
-            log(f"{tag}: the plain {DEFAULT_WALK} walk's work a bounce on the per-kind trees: "
-                + ", ".join(f"{k} {ref.get(k, 0) / max(ref.get('bounce', 0), 1):.2f}"
-                            for k in per_bounce))
-        cond = walk_bound_counts(wpar, walk, pcase, ccase)
-        log(f"{tag}: the plain cond walk's work a bounce on the same tree (the bound's): "
-            + ", ".join(f"{k} {cond.get(k, 0) / max(cond.get('bounce', 0), 1):.2f}"
-                        for k in per_bounce))
-        path = paths[(kernel, key)]
-        bound_at = lambda c: render_bound(zt, scene, c, path["work"],
-                                          walk_lane_bytes(kernel, lut, path["lanes"]),
-                                          scene.camera.has_depth_of_field, spp, walk=walk)
-        bound = bound_at(cond)
-        own = bound_at(counts)["bound_ms"]
-        log(f"{tag}: diagnostic only, the redesigned walk's own work would give a bound of "
-            f"{own:.3f} ms")
-        base = ("fused_render_kernel" if kernel == "K1" else "bounce_kernel") + \
-            f"<{'true' if lut or kernel == 'K2' else 'false'}, {walk}"
-        res = {d: resources[base + suffix] for d, suffix in (("new", ">"),
-                                                            ("first design", ", first design>"))}
-        med = rounds["median_ms"]
-        log(f"{tag} ({card}): new {med['new']:.3f} ms, first design {med['first design']:.3f} ms"
-            f" (new faster in {rounds['wins']['first design']} of {DESIGN_PAIRS}), "
-            + (f"default {DEFAULT_WALK} walk {med[DEFAULT_WALK]:.3f} ms ({walk} faster in "
-               f"{rounds['wins'][DEFAULT_WALK]}), " if default else "")
-            + f"bound {bound['bound_ms']:.3f} ms ({bound['bound_by']}): "
-            f"{bound['bound_ms'] / med['new']:.1%} of the new, "
-            f"{bound['bound_ms'] / med['first design']:.1%} of the first; registers/spill "
-            f"bytes new {res['new']['registers']}/{res['new']['spill_bytes']}, first "
-            f"{res['first design']['registers']}/{res['first design']['spill_bytes']}"
-            + (f"; its render against the default walk's {path['default_agree']:.4%} of "
-               f"pixels within rtol 1e-5/atol 1e-6 (max |diff| "
-               f"{path['default_max_abs_diff']:.3e})" if walk != DEFAULT_WALK else ""))
-        out[f"{kernel} {key}"] = {**rounds, **bound, "span": span, "resources": res,
-                                  "occupancy": occ, "default_agree": path.get("default_agree"),
-                                  "plain_work_per_bounce": per_bounce,
-                                  "own_work_bound_ms": own}
-    return out
+        with trav(walk):
+            got = renderers[(kernel, key)].kernel_call(sc[name], W, H)()
+        with trav(DEFAULT_WALK):
+            want = renderers[dkey].kernel_call(sc[dname], W, H)()
+        check = compare(f"{kernel} {key} walk, {sc[name].name}: against the {DEFAULT_WALK} "
+                        "walk's kernel at the plan", got, want)
+        checks.append(check)
+        if walk == "rowqueue":
+            bitwise([check], f"{kernel} {key} walk at the plan")
+    return checks
 
 
-def phase_brute_walks(zt, fused, torch, cases, resources, card) -> dict:
-    """Phase 18's tree-less scenes: the render kernel at the sorted plans of
-    cornell's and emissive's main paths (phases 3 and 15) as the default
-    walk launches it and as the cond walk does (both the tree-less
-    instantiation, kWalkNoTree: render_kernels.cuh:dispatch_flags_walk),
-    and as the queue walk's first design (kFlagFirstWalk, whose variant
-    keeps its walk's code), in DESIGN_PAIRS alternating rounds, the outputs
-    bitwise the default's, and each one's registers, spills, blocks per SM
-    and shared memory a block.  No tree is walked there, so they differ
-    only in what a walk's code costs the whole kernel."""
-    from zig_weekend_raytracer_tpu_torch.render import integrator
+def treeless_occupancy(zt, fused, cases, resources) -> dict:
+    """Phase 18's tree-less scenes: the render kernel's instantiation at
+    the sorted plans of cornell's and emissive's main paths (phases 3 and
+    15) as the default and the cond walk launch it (both kWalkNoTree:
+    render_kernels.cuh:dispatch_flags_walk), its registers, spills, blocks
+    per SM and shared memory a block; no launch past MAX_BLOCKS_PER_SM."""
     from zig_weekend_raytracer_tpu_torch.render.camera import camera_consts
 
     out = {}
-    t_min = zt.dtypes.T_MIN
+    res = resources["fused_render_kernel<false, no tree>"]
     for name, scene, renderer, spp in cases:
         cs = scene.compiled
         plan = plan_of(renderer, cs)
         kw = dict(camera_consts=camera_consts(scene.camera, W, H), sampler=renderer.sampler,
                   width=W, height=H, spp=spp, stride=1, max_depth=DEPTH,
                   has_dof=scene.camera.has_depth_of_field)
-        default = lambda: fused.render_fused(cs, *plan, 0, t_min, want_work=True, **kw)
-        variant = lambda *a, **k: fused.render_fused_variant(*a, first_walk=True, **k)[:2]
-        first = lambda: variant(cs, *plan, 0, t_min, **kw)
-        first_items = lambda: over_items(fused, integrator, variant, cs, *plan, 0, t_min, **kw)
-        runs = {"new": (DEFAULT_WALK, default), "first design": (DEFAULT_WALK, first, first_items),
-                "cond": ("cond", default)}
-        res = {"new": "fused_render_kernel<false, no tree>",
-               "first design": f"fused_render_kernel<false, {DEFAULT_WALK}, first design>",
-               "cond": "fused_render_kernel<false, no tree>"}
         occ = {}
-        for label, walk, first_walk in (("new", DEFAULT_WALK, False),
-                                        ("first design", DEFAULT_WALK, True),
-                                        ("cond", "cond", False)):
+        for walk in (DEFAULT_WALK, "cond"):
             with trav(walk):
-                blocks, smem = fused.render_fused_occupancy(cs, *plan, 0, t_min,
-                                                            first_walk=first_walk, **kw)
-            occ[label] = {"blocks_per_sm": blocks, "smem_bytes": smem,
-                          "registers": resources[res[label]]["registers"],
-                          "spill_bytes": resources[res[label]]["spill_bytes"]}
-        tag = f"K1 {name} (no tree), the {DEFAULT_WALK} walk's launch"
-        over = {k: v["blocks_per_sm"] for k, v in occ.items()
-                if v["blocks_per_sm"] > fused.MAX_BLOCKS_PER_SM}
-        if over:
-            raise AssertionError(f"{tag}: more than {fused.MAX_BLOCKS_PER_SM} blocks a SM: {over}")
-        rounds = design_rounds(torch, runs, tag, card)
-        bitwise(rounds["checks"], f"{tag}: the first design's and the cond walk's outputs "
-                                  "against the new design's")
-        log(f"{tag}: registers/spill bytes, blocks per SM and shared memory a block "
-            + "; ".join(f"{k} {v['registers']}/{v['spill_bytes']}, {v['blocks_per_sm']}, "
-                        f"{v['smem_bytes']} bytes" for k, v in occ.items()))
-        out[name] = {**rounds, "occupancy": occ}
+                blocks, smem = fused.render_fused_occupancy(cs, *plan, 0, zt.dtypes.T_MIN, **kw)
+            occ[walk] = {"blocks_per_sm": blocks, "smem_bytes": smem, **res}
+        tag = f"K1 {name} (no tree)"
+        log(f"{tag}: registers/spill bytes {res['registers']}/{res['spill_bytes']}; blocks per "
+            "SM and shared memory a block " + "; ".join(
+                f"{k} walk {v['blocks_per_sm']}, {v['smem_bytes']} bytes" for k, v in occ.items()))
+        if occ[DEFAULT_WALK] != occ["cond"]:
+            raise AssertionError(f"{tag}: the walks launch different instantiations: {occ}")
+        if occ["cond"]["blocks_per_sm"] > fused.MAX_BLOCKS_PER_SM:
+            raise AssertionError(f"{tag}: more than {fused.MAX_BLOCKS_PER_SM} blocks a SM")
+        out[name] = occ
     return out
 
 
@@ -2448,28 +2204,6 @@ def hit_ray_sets(zt, torch, scenes) -> list:
                              has_dof=sc.camera.has_depth_of_field)
         sets.append((f"{name} AOV {W}x{H}@{AOV_SPP}", sc, rays, zt.dtypes.T_MIN))
     return sets
-
-
-def hit_design_pairs(torch, ch, cs, rays, t_min) -> dict:
-    """The closest-hit designs (HIT_DESIGNS: the kernel and its first
-    design) on the same rays in HIT_PAIRS rounds, the order reversed every
-    other round: each round the kernel alone and its wrapper (the first
-    design's wrapper stacks the rays)."""
-    launch = {d: hit_launcher(ch, cs, rays, t_min, flat=d == "flat") for d in HIT_DESIGNS}
-    call = {"new": lambda: ch.closest_hit(cs, *rays, t_min),
-            "flat": lambda: ch.closest_hit_flat(cs, *rays, t_min)}
-    alone, wrapped = {d: [] for d in HIT_DESIGNS}, {d: [] for d in HIT_DESIGNS}
-    for i in range(HIT_PAIRS):
-        for d in (HIT_DESIGNS if i % 2 == 0 else HIT_DESIGNS[::-1]):
-            alone[d].append(kernel_alone_ms(torch, launch[d]))
-            wrapped[d].append(wrapper_ms(torch, call[d]))
-    med = lambda ts: sorted(ts)[len(ts) // 2]
-    return {
-        "kernel_ms": alone, "wrapper_ms": wrapped,
-        "kernel_median_ms": {d: med(t) for d, t in alone.items()},
-        "wrapper_median_ms": {d: med(t) for d, t in wrapped.items()},
-        "new_faster_than_flat": sum(a < b for a, b in zip(alone["new"], alone["flat"])),
-    }
 
 
 def aov_pass(zt, torch, ch, ttrace, scene, card) -> dict:
@@ -2618,17 +2352,16 @@ def cli_aov_check(tmp) -> dict:
             "stats": stats[0]}
 
 
-def phase_hit_design(zt, ch, ttrace, torch, card, scenes, fb_cornell) -> dict:
-    """Phase 22: the closest-hit kernel's designs on the probe and AOV ray
-    sets (bitwise against the plain cond walk, bounds, alternating rounds,
-    the memory a launch allocates), the AOV pass on three scenes, the pass
-    against the plain path, the denoiser on the card against the CPU and at
-    400x400, and the CLI with --aov --denoise."""
+def phase_hit_sets(zt, ch, ttrace, torch, card, scenes, fb_cornell) -> dict:
+    """Phase 22: the closest-hit kernel on the probe and AOV ray sets
+    (bitwise against the plain cond walk, bounds, the kernel alone and its
+    wrapper, the memory a launch allocates), the AOV pass on three scenes,
+    the pass against the plain path, the denoiser on the card against the
+    CPU and at 400x400, and the CLI with --aov --denoise."""
     import tempfile
 
     from zig_weekend_raytracer_tpu_torch.render.aov import render_aovs
     from zig_weekend_raytracer_tpu_torch.render.denoise import denoise
-    from zig_weekend_raytracer_tpu_torch.sampling.sampler import sobol_log2_scale
     from zig_weekend_raytracer_tpu_torch.sampling.sobol import sobol_sample_bytes
     from zig_weekend_raytracer_tpu_torch.utils import roofline, workcount
 
@@ -2639,9 +2372,7 @@ def phase_hit_design(zt, ch, ttrace, torch, card, scenes, fb_cornell) -> dict:
         n = rays[2].numel()
         with workcount.counting() as counts:
             plain_ms, ref = cuda_time_ms(lambda: ttrace.closest_hit(cs, *rays, t_min, walk="cond"))
-        for d in HIT_DESIGNS:
-            checks.append(compare_hits(f"{tag}, {d}",
-                                       hit_launcher(ch, cs, rays, t_min, flat=d == "flat")(), ref))
+        checks.append(compare_hits(tag, hit_launcher(ch, cs, rays, t_min)(), ref))
         bound, by = roofline.hit_bound_ms(counts, cs, n, rate)
         # the memory one launch allocates: its three outputs, never a
         # per-ray queue of tree leaves
@@ -2653,23 +2384,22 @@ def phase_hit_design(zt, ch, ttrace, torch, card, scenes, fb_cornell) -> dict:
         launch_bytes = torch.cuda.max_memory_allocated() - base
         if launch_bytes > 16 * n:
             raise AssertionError(f"{tag}: a launch allocated {launch_bytes} bytes")
-        pairs = hit_design_pairs(torch, ch, cs, rays, t_min)
-        km, wm = pairs["kernel_median_ms"], pairs["wrapper_median_ms"]
+        ms = kernel_alone_ms(torch, hit_launcher(ch, cs, rays, t_min))
+        ms_w = wrapper_ms(torch, lambda: ch.closest_hit(cs, *rays, t_min))
         hits = int((ref.kind >= 0).sum())
         entry = {"set": tag, "rays": n, "hits": hits, "bound_ms": bound, "bound_by": by,
-                 "plain_ms": plain_ms, "launch_bytes": launch_bytes, **pairs}
+                 "plain_ms": plain_ms, "launch_bytes": launch_bytes, "ms": ms,
+                 "wrapper_ms": ms_w}
         if "AOV" in tag:
             entry["aov_bound_ms"], entry["aov_bound_by"] = roofline.aov_bound_ms(
                 counts, cs, n, hits, int((ref.kind == 0).sum()), W * H,
                 sc.camera.has_depth_of_field,
-                (sobol_log2_scale(W, H), sobol_sample_bytes(AOV_SPP), False), rate)
+                sobol_sample_bytes(AOV_SPP), rate)
             log(f"AOV pass {tag}: bound {entry['aov_bound_ms']:.4f} ms ({entry['aov_bound_by']}; "
                 f"camera rays, closest hits, the per-hit tail, the buffers)")
-        log(f"closest hit {tag}: kernel alone, median of {HIT_PAIRS} rounds: new {km['new']:.4f} "
-            f"ms, first design {km['flat']:.4f}; wrappers {wm['new']:.4f} / {wm['flat']:.4f} ms; "
-            f"new faster than the first design in {pairs['new_faster_than_flat']} of "
-            f"{HIT_PAIRS}; bound {bound:.4f} ms ({by}); plain "
-            f"{plain_ms:.1f} ms; a launch allocates {launch_bytes} bytes ({card})")
+        log(f"closest hit {tag}: kernel alone {ms:.4f} ms, wrapper {ms_w:.4f} ms; bound "
+            f"{bound:.4f} ms ({by}); plain {plain_ms:.1f} ms; a launch allocates {launch_bytes} "
+            f"bytes ({card})")
         sets.append(entry)
     passes = {}
     for name, sc in scenes.items():
@@ -2684,8 +2414,7 @@ def phase_hit_design(zt, ch, ttrace, torch, card, scenes, fb_cornell) -> dict:
     with tempfile.TemporaryDirectory() as tmp:
         cli = cli_aov_check(tmp)
     return {"sets": sets, "checks": checks, "aov_pass": passes, "denoise": denoise_checks,
-            "denoise_400_ms": dn_ms, "cli": cli,
-            "flat_launches": ch.closest_hit_flat.launches}
+            "denoise_400_ms": dn_ms, "cli": cli}
 
 
 def phase_estimator(zt, fused, tb, integrator, torch, scenes, card) -> dict:
@@ -2804,13 +2533,13 @@ def phase_drivers(zt, fused, tb, integrator, ch, ttrace, torch, scenes, fb_sorte
     out = {}
     mk = lambda **kw: zt.render.Renderer(samples_per_pixel=SPP, max_ray_bounce_depth=DEPTH, **kw)
 
-    def timed(tag, renderer, scene, render=None, paths=W * H * SPP, **count_kw):
+    def timed(tag, renderer, scene, draw=None, paths=W * H * SPP, **count_kw):
         reset_counts(fused, integrator, ch, ttrace, tb)
-        render = render or (lambda: renderer.render_device(scene, W, H))
+        draw = draw or (lambda: renderer.render_device(scene, W, H))
         times, fb = [], None
         for _ in range(4):  # the first builds the driver's plan
             t0 = time.perf_counter()
-            fb = render()
+            fb = draw()
             torch.cuda.synchronize()
             times.append(time.perf_counter() - t0)
         counts = path_counts(fused, integrator, ch, ttrace, tb, tag, **count_kw)
@@ -2827,7 +2556,7 @@ def phase_drivers(zt, fused, tb, integrator, ch, ttrace, torch, scenes, fb_sorte
     # (b) adaptive, the default pilot; balls 400x400@128 d10 adaptive
     r = mk()
     fb, rec = timed("adaptive cornell 400x400@1024 d10", r, cornell,
-                    render=lambda: r.render_adaptive(cornell, W, H))
+                    draw=lambda: r.render_adaptive(cornell, W, H))
     fb, stats = r.render_adaptive(cornell, W, H, return_stats=True)
     total = int(stats["n_samples"].sum())
     log(f"adaptive: pilot {stats['pilot']}, samples {total} (budget {W * H * SPP}), per pixel "
@@ -2838,7 +2567,7 @@ def phase_drivers(zt, fused, tb, integrator, ch, ttrace, torch, scenes, fb_sorte
                        **driver_check("adaptive", fb, None, ref)}
     rb = zt.render.Renderer(samples_per_pixel=BALLS_SPP, max_ray_bounce_depth=DEPTH)
     fb_b, rec = timed("adaptive balls 400x400@128 d10", rb, balls,
-                      render=lambda: rb.render_adaptive(balls, W, H), paths=W * H * BALLS_SPP,
+                      draw=lambda: rb.render_adaptive(balls, W, H), paths=W * H * BALLS_SPP,
                       hit=False)
     with open(SCENE_REGIONS) as f:
         breg = json.load(f)["scenes"]["balls"]
@@ -2883,7 +2612,7 @@ def phase_drivers(zt, fused, tb, integrator, ch, ttrace, torch, scenes, fb_sorte
     # (d) supersampled, k = 2
     r = mk()
     fb, rec = timed("supersampled k=2 cornell 400x400@1024 d10", r, cornell,
-                    render=lambda: r.render_supersampled(cornell, W, H, k=2))
+                    draw=lambda: r.render_supersampled(cornell, W, H, k=2))
     out["supersampled"] = {**rec, **driver_check("supersampled k=2", fb, None, ref)}
 
     # (e) Russian roulette from bounce 3, and its work against rr = 0
@@ -2936,19 +2665,6 @@ def plain_k1(fused, integrator, scene, px, py, s0, s1, seed, t_min, want_work=Fa
     chunk = fused.launch_chunk(scene, px, py, s0, s1, seed, t_min, **kw)
     return integrator.render_fused_items_reference(scene, px, py, s0, s1, seed, t_min,
                                                    chunk=chunk, want_work=want_work, **kw)
-
-
-def over_items(fused, integrator, render, scene, px, py, s0, s1, seed, t_min, **kw):
-    """``render`` (a (radiance, work) call of the render kernel on lanes: a
-    measurement variant, which runs one thread a lane) over the items of
-    the work queue that ``render_fused`` would launch on these lanes, each
-    lane's sums added in the kernel's chunk order
-    (``render_fused_items_reference``): comparable bit for bit with the
-    queue kernel's output."""
-    chunk = fused.launch_chunk(scene, px, py, s0, s1, seed, t_min, **kw)
-    return integrator.render_fused_items_reference(
-        scene, px, py, s0, s1, seed, t_min, chunk=chunk, want_work=True,
-        render=lambda *a, want_work, **k: render(*a, **k), **kw)
 
 
 def plain_in_place(integrator):
@@ -3834,13 +3550,13 @@ def main() -> int:
     for name, res in resources.items():
         log(f"  {name}: {res['registers']} registers, {res['spill_bytes']} bytes spill stores")
     n_chain = 5 * 2 * 4  # ops x chain counts x unrolls
-    # per kernel: 2 modes x 6 walks (5 and the tree-less kWalkNoTree), and 3
-    # variants for 2 walks (K1 in both modes, K2's regenerating mode), the
-    # first designs of 4 walks (K1 in both modes, K2's regenerating mode),
-    # and the estimator instantiations (2 modes x 6 walks per kernel)
-    n_render = 2 * 6 + 2 * 2 * 3 + 2 * 6 + 2 * 3 + 2 * 4 + 4 + 2 * (2 * 6)
-    # closest_hit_kernel, its first design and coherent_keys_kernel
-    if len(resources) != n_render + 3 + n_chain or any(
+    # per kernel: 2 modes x 6 walks (5 and the tree-less kWalkNoTree) and
+    # the estimator instantiations (2 modes x 6 walks), and the phase
+    # profile: K1 in both modes for cond, queue and kWalkNoTree, K2's
+    # regenerating mode for cond and queue
+    n_render = 2 * (2 * 6 + 2 * 6) + 2 * 3 + 2
+    # closest_hit_kernel and coherent_keys_kernel
+    if len(resources) != n_render + 2 + n_chain or any(
             r["registers"] is None for r in resources.values()):
         raise AssertionError(f"ptxas did not report every kernel: {sorted(resources)}")
     for name, (regs, spill) in DEFAULT_RESOURCES.items():
@@ -4068,8 +3784,7 @@ def main() -> int:
                                 **r_kw), 3)
     log(f"bounce kernel at the coherent plan ({r_plan[0].shape[0]} lanes, {RTW_SPP} spp): "
         f"{k2_ms:.3f} ms ({card})")
-    r_launch_mib = launch_mib(zt, fused, integrator, tb, torch, rtw, r_renderer,
-                              "rtw_final main path's bounce kernel")
+    r_launch_mib = launch_mib(torch, rtw, r_renderer, "rtw_final main path's bounce kernel")
     step = max(1, r_plan[0].shape[0] // SLICE_LANES)
     slice_lanes = tuple(a[::step][:SLICE_LANES].contiguous() for a in r_plan[:2])
     k2_slice, k2_counts, _ = regen_parity(
@@ -4160,7 +3875,7 @@ def main() -> int:
     log(f"render kernel with the LUT at the coherent plan ({l_plan[0].shape[0]} lanes, "
         f"{RTW_SPP} spp): {l_kernel_ms:.3f} ms; bounce kernel with the atlas: {k2_ms:.3f} ms "
         f"({card})")
-    l_launch_mib = launch_mib(zt, fused, integrator, tb, torch, rtw_lut, l_renderer,
+    l_launch_mib = launch_mib(torch, rtw_lut, l_renderer,
                               "rtw_final LUT main path's render kernel")
     # Does the LUT, which fits the 50 MB L2, make the image path cheaper
     # than the atlas, which does not?  One best-of-3 pair is within the
@@ -4286,7 +4001,7 @@ def main() -> int:
         wsc["rtw_port"], WALK18_RTW_SPP, RTW_DEPTH, "rowqueue", port_fb)
     port_lut_default, port_lut_fb, renderers[("K1", "queue port")] = wr(
         wsc["rtw_lut_port"], WALK18_RTW_SPP, RTW_DEPTH, DEFAULT_WALK)
-    balls_port_default, _, renderers[("K1", "queue balls port")] = wr(
+    balls_port_default, _, _ = wr(
         wsc["balls_port"], WALK18_BALLS_SPP, DEPTH, DEFAULT_WALK)
     paths[("K2", "uni port")], _, renderers[("K2", "uni port")] = wr(
         wsc["rtw_uni_port"], WALK18_RTW_SPP, RTW_DEPTH, "uni", port_fb)
@@ -4299,48 +4014,39 @@ def main() -> int:
         f"{r18_default['mpaths_per_s']:.2f}, rtw_final LUT (K1) {l18_default['mpaths_per_s']:.2f}"
         f"; at the port's span rtw_final (K2) {port_default['mpaths_per_s']:.2f}, LUT (K1) "
         f"{port_lut_default['mpaths_per_s']:.2f}, balls {balls_port_default['mpaths_per_s']:.2f}")
-    # the default walk's paths, each timed against its first design
-    paths.update({("K1", DEFAULT_WALK): b_default, ("K2", DEFAULT_WALK): r18_default,
-                  ("K2", "queue port"): port_default, ("K1", "queue port"): port_lut_default,
-                  ("K1", "queue balls port"): balls_port_default})
-    designs = phase_walk_designs(zt, fused, integrator, tb, torch, wsc, wpar, paths, renderers,
-                                 resources, card)
-    brute_walks = phase_brute_walks(zt, fused, torch, (
+    against_default = walks_against_default(torch, wsc, renderers)
+    treeless = treeless_occupancy(zt, fused, (
         ("cornell", cornell, renderer, SPP), ("emissive", emissive, e_renderer, EMISSIVE_SPP)),
-        resources, card)
+        resources)
 
     # ---- 19. the three samplers and nine lights ----
     phase("19")
     sampler_checks = phase_samplers(zt, fused, tb, integrator, torch)
 
-    # ---- 20. the redesign, measured inside the kernels ----
+    # ---- 20. the phase profile of the kernels the renders launch ----
     phase("20")
-    with leaf_span(64):
-        balls_jax = zt.models.load_scene("balls", device="cuda")
-    with leaf_span(32):
-        rtw_jax = zt.models.load_scene("rtw_final", device="cuda")
-        rtw_lut_jax = zt.models.load_scene("rtw_final", device="cuda", texture_lut=LUT_NATIVE)
-    fused.render_fused_variant.launches = dict.fromkeys(fused.render_fused_variant.launches, 0)
-    tb.bounce_regen_variant.launches = dict.fromkeys(tb.bounce_regen_variant.launches, 0)
-    design = phase_design(zt, fused, tb, integrator, torch, (
-        ("cornell", cornell, cornell, SPP, DEPTH),
-        ("balls", balls, balls_jax, BALLS_SPP, DEPTH),
-        ("rtw_final K2", rtw, rtw_jax, RTW_SPP, RTW_DEPTH),
-        ("rtw_final LUT K1", rtw_lut, rtw_lut_jax, RTW_SPP, RTW_DEPTH),
-        ("emissive", emissive, emissive, EMISSIVE_SPP, DEPTH),
+    fused.render_fused_profile.launches = dict.fromkeys(fused.render_fused_profile.launches, 0)
+    tb.bounce_regen_profile.launches = dict.fromkeys(tb.bounce_regen_profile.launches, 0)
+    profiles = phase_profile(zt, fused, tb, integrator, torch, (
+        ("cornell north star", cornell, SPP, DEPTH),
+        ("cornell ref_10k50", cornell, REF_SPP, REF_DEPTH),
+        ("balls canonical", balls, BALLS_SPP, DEPTH),
+        ("rtw_final K2", rtw, RTW_SPP, RTW_DEPTH),
+        ("rtw_final LUT K1", rtw_lut, RTW_SPP, RTW_DEPTH),
+        ("emissive", emissive, EMISSIVE_SPP, DEPTH),
     ), card)
-    variant_launches = {"render_fused_variant": dict(fused.render_fused_variant.launches),
-                        "bounce_regen_variant": dict(tb.bounce_regen_variant.launches)}
-    log(f"measurement variants launched (apart from every path): {variant_launches}")
+    profile_launches = {"render_fused_profile": dict(fused.render_fused_profile.launches),
+                        "bounce_regen_profile": dict(tb.bounce_regen_profile.launches)}
+    log(f"phase profiles launched (apart from every path): {profile_launches}")
 
     # ---- 21. leaf span x walk sweep ----
     phase("21")
     sweep = phase_sweep(zt, card)
 
-    # ---- 22. the closest-hit kernel's redesign and the AOV pass ----
+    # ---- 22. the closest-hit kernel's ray sets and the AOV pass ----
     phase("22")
     reset_counts(fused, integrator, ch, ttrace, tb)
-    hits22 = phase_hit_design(zt, ch, ttrace, torch, card,
+    hits22 = phase_hit_sets(zt, ch, ttrace, torch, card,
                               {"cornell_box": cornell, "balls": balls, "rtw_final": rtw}, fb)
     aov_launches = {f"aov {k}": v["launches"] for k, v in hits22["aov_pass"].items()}
 
@@ -4441,8 +4147,20 @@ def main() -> int:
         launches = path["launches"]
         extra = {"own_work_bound_ms": bound["bound_ms"] if walk == "cond"
                  else bound_at(checks[case][1])["bound_ms"]}
-        if walk != "cond":
-            extra["design"] = designs[f"{kernel} {walk}"]
+        against = [c for c, (k, key, *_) in zip(against_default, AGAINST_DEFAULT)
+                   if k == kernel and key.split()[0] == walk]
+
+        def port_span(pcase, pscene):
+            """The walk's path at the port's span, priced as phase 17's
+            counts there say (walk_bound_counts)."""
+            port = paths[(kernel, f"{walk} port")]
+            pbound = render_bound(zt, pscene, walk_bound_counts(wpar, walk, pcase, case),
+                                  port["work"], walk_lane_bytes(kernel, walk == "uni",
+                                                                port["lanes"]),
+                                  pscene.camera.has_depth_of_field, port["spp"], walk=walk)
+            return {**{k: port[k] for k in ("ms", "mpaths_per_s", "render_s_best",
+                                             "blocks_per_sm", "smem_bytes")}, **pbound}
+
         if walk == "rowqueue":
             rq = wpar["rowqueue port span"]
             parity = parity + [rq["K2 regen" if kernel == "K2" else "K1 LUT"][0]]
@@ -4450,22 +4168,21 @@ def main() -> int:
                 port = paths[(kernel, "rowqueue port")]
                 by_path["rtw_final, port's span"] = port["launches"]
                 launches += port["launches"]
-                extra["port_span"] = {**designs["K2 rowqueue port"],
-                                      **{k: port[k] for k in ("ms", "mpaths_per_s",
-                                                              "render_s_best")}}
+                extra["port_span"] = port_span("rowqueue port span", wsc["rtw_port"])
         if walk == "uni":
             port = paths[(kernel, "uni port")]
             by_path[f"{scene.name} uni, port's span"] = port["launches"]
             launches += port["launches"]
-            extra["port_span"] = {**designs[f"{kernel} uni port"],
-                                  **{k: port[k] for k in ("ms", "mpaths_per_s", "render_s_best")}}
+            extra["port_span"] = port_span(
+                "uni port span", wsc["rtw_uni_lut_port" if kernel == "K1" else "rtw_uni_port"])
             parity = parity + [wpar["uni port span"][case][0]] + [
                 wpar["uni cond"][k][case][0] for k in ("uni", "uni port span")]
         return entry(name, src, WALK_REPLACES[walk], res, launches, by_path, parity,
                      path["ms"], parity[0]["plain_ms"], bound, render_tol,
                      plain_lanes=32 * 32, render_s_best=path["render_s_best"],
                      mpaths_per_s=path["mpaths_per_s"],
-                     default_agree=path.get("default_agree"),
+                     default_agree=path.get("default_agree"), against_default=against,
+                     blocks_per_sm=path["blocks_per_sm"], smem_bytes=path["smem_bytes"],
                      plain_vs_cond_plain=[c for c in wpar["plain"]
                                          if c["check"].startswith(f"plain {walk} walk")],
                      **extra,
@@ -4484,16 +4201,14 @@ def main() -> int:
               emissive_render_s_best=e_best, emissive_mpaths_per_s=e_mpaths,
               emissive_region_gates=emissive_gates, emissive_ms=e_kernel_ms,
               emissive_bound_ms=e_bound["bound_ms"], emissive_bound_by=e_bound["bound_by"],
-              queue_walk_designs=brute_walks),
+              occupancy=treeless),
         entry("fused_render_kernel (tree)", KERNEL_SOURCE, KERNEL_REPLACES,
               f"fused_render_kernel<false, {DEFAULT_WALK}>",
               b_launches + sum(sh_launches["K1 tree"].values()) + sum(tl["K1 tree"].values()),
               {"balls": b_launches, **sh_launches["K1 tree"], **tl["K1 tree"]}, tree_checks,
               b_kernel_ms, b_slice["plain_ms"], k1_tree_bound, render_tol,
               plain_lanes=SLICE_LANES, kernel_ms_at_plain_lanes=b_slice["ms"],
-              queue_walk_span2=b_default,
-              queue_walk_designs={"balls port's span": designs["K1 queue balls port"],
-                                  "balls span 2": designs["K1 queue"]},
+              queue_walk_span2=b_default, queue_walk_balls_port_span=balls_port_default,
               balls_render_s_best=b_best, balls_mpaths_per_s=b_mpaths,
               balls_region_gates=balls_gates),
         entry("fused_render_kernel (texture LUT)", KERNEL_SOURCE, KERNEL_LUT_REPLACES,
@@ -4507,7 +4222,7 @@ def main() -> int:
               atlas_render_max_abs_diff=l_vs_atlas, region_gates=lut_gates,
               lut_32k_mpaths_per_s=s_mpaths, lut_32k_mean_abs_diff=s_diff,
               lut_vs_atlas_pairs_ms=lut_pairs, lut_vs_atlas_same_lanes=lut_same_lanes,
-              queue_walk_designs={"rtw_final LUT port's span": designs["K1 queue port"]}),
+              queue_walk_span2=l18_default, queue_walk_port_span=port_lut_default),
         entry("bounce_kernel (one bounce)", BOUNCE_SOURCE, BOUNCE_REPLACES,
               f"bounce_kernel<false, {DEFAULT_WALK}>",
               0, {}, k2_one, k2_first["ms"], k2_first["plain_ms"], bound_of(k2_first), bounce_tol,
@@ -4523,8 +4238,7 @@ def main() -> int:
               {"rtw_final": r_k2, **sh_launches["K2 regen"], **tl["K2 regen"]}, k2_checks, k2_ms,
               k2_slice["plain_ms"], k2_bound, render_tol, plain_lanes=SLICE_LANES,
               kernel_ms_at_plain_lanes=k2_slice["ms"], queue_walk_span2=r18_default,
-              queue_walk_designs={"rtw_final port's span": designs["K2 queue port"],
-                                  "rtw_final span 2": designs["K2 queue"]},
+              queue_walk_port_span=port_default,
               driver_passes_per_band=passes / max(bands, 1), rtw_final_render_s_best=r_best,
               rtw_final_mpaths_per_s=r_mpaths, rtw_final_peak_mib=peak_mb,
               rtw_final_launch_mib=r_launch_mib,
@@ -4543,7 +4257,7 @@ def main() -> int:
               denoise_400_ms=hits22["denoise_400_ms"], cli_aov=hits22["cli"],
               fixed_depth={k: v for k, v in fixed.items() if k != "parity"},
               note="ms: the kernel alone on the balls probe's 160,000 rays (phase 5); every "
-                   "ray set's rounds of the kernel and its first design in ray_sets"),
+                   "ray set's kernel alone and wrapper in ray_sets"),
         {**entry("coherent_keys_kernel", HIT_SOURCE, KEYS_REPLACES, "coherent_keys_kernel",
                  b_keys + r_keys + l_keys + sum(tl["K3 keys"].values()),
                  {"balls": b_keys, "rtw_final": r_keys, "rtw_final LUT": l_keys,
@@ -4587,9 +4301,7 @@ def main() -> int:
          **{k: peak[k] for k in ("gops", "gflops", "best_shape", "physics_bound",
                                  "time_ratio_4x", "sass")}},
     ], "cli": cli_checks, "sharded": sharded, "tools": tools, "ops_rates": OPS_RATE["rate"],
-        "samplers": sampler_checks, "design": design,
-        "variant_launches": {**variant_launches,
-                             "closest_hit_flat": hits22["flat_launches"]},
+        "samplers": sampler_checks, "profiles": profiles, "profile_launches": profile_launches,
         "sweep": sweep, "resources": resources, "harness": harness}
     log(f"script: {time.perf_counter() - START:.1f} s")
     print(card, flush=True)

@@ -191,17 +191,13 @@ def test_cpu_pass_launches_no_kernel():
     assert ch.closest_hit.launches == launches
 
 
-@pytest.mark.parametrize("flat", [False, True])
-def test_kernel_entry_points_refuse_cpu_rays(flat):
+def test_kernel_entry_points_refuse_cpu_rays():
     scene = zt.models.load_scene("cornell_box", device="cpu")
     v = lambda: zt.math.v3.V3(*(torch.zeros(4) for _ in range(3)))
-    launches = (ch.closest_hit.launches, ch.closest_hit_flat.launches)
+    launches = ch.closest_hit.launches
     with pytest.raises(ValueError, match="cuda"):
-        ch.launch_args(scene.compiled, v(), v(), torch.zeros(4), 1e-3, flat=flat)
-    if flat:
-        with pytest.raises(ValueError, match="cuda"):
-            ch.closest_hit_flat(scene.compiled, v(), v(), torch.zeros(4), 1e-3)
-    assert (ch.closest_hit.launches, ch.closest_hit_flat.launches) == launches
+        ch.launch_args(scene.compiled, v(), v(), torch.zeros(4), 1e-3)
+    assert ch.closest_hit.launches == launches
 
 
 def test_hit_and_aov_bounds_count_the_pass():

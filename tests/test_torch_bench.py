@@ -44,7 +44,6 @@ from test_torch_fixed_depth import _nested
 from test_torch_import import _BLOCK
 from test_torch_writers import cut_regions  # noqa: F401
 from zig_weekend_raytracer_tpu_torch.render.camera import camera_params, generate_rays
-from zig_weekend_raytracer_tpu_torch.sampling.sampler import sobol_log2_scale
 from zig_weekend_raytracer_tpu_torch.sampling.sobol import sobol_sample_bytes
 from zig_weekend_raytracer_tpu_torch.tools import bench
 from zig_weekend_raytracer_tpu_torch.utils import roofline
@@ -223,33 +222,30 @@ def test_keys_and_cpu_fields(run):
         "cornell_box 400x400 @1024spp depth10 path throughput (1 GPU; north-star config)")
 
 
-def _old_render_bound(scene, counts, kernel_work, lane_bytes, has_dof, spp, w, h,
-                      loop_sobol=False, walk=None, ops_rate=None):
-    """chip_smoke.py's render_bound before the move, its W and H passed."""
+def _old_render_bound(scene, counts, kernel_work, lane_bytes, has_dof, spp, walk=None,
+                      ops_rate=None):
+    """chip_smoke.py's render_bound before the move."""
     factor = float(kernel_work) / max(counts.get("bounce", 0), 1)
     n_bytes = sobol_sample_bytes(spp)
     ops = roofline.render_ops(roofline.scaled(counts, factor), scene.compiled, has_dof,
-                              sobol=(sobol_log2_scale(w, h), n_bytes, loop_sobol))
-    nbytes = lane_bytes + roofline.render_table_bytes(scene.compiled, 0 if loop_sobol else n_bytes,
-                                                      walk)
+                              sobol=n_bytes)
+    nbytes = lane_bytes + roofline.render_table_bytes(scene.compiled, n_bytes, walk)
     ms, by = roofline.bound_ms(ops, nbytes, ops_rate)
     return {"bound_ms": ms, "bound_by": by, "bound_ops": ops, "bound_bytes": nbytes,
             "peak_source": roofline.peak_source(ops_rate)}
 
 
-@pytest.mark.parametrize("variant", ["harness", "loop_sobol", "measured_rates"])
+@pytest.mark.parametrize("variant", ["harness", "measured_rates"])
 def test_bound_is_chip_smokes_before_the_move(run, variant):
     out, _, details = run
     scene = zt.models.load_scene("cornell_box", device="cpu")
     counts, work, lane_bytes = (details[k] for k in ("counts", "kernel_work", "lane_bytes"))
     assert counts["bounce"] > 0 and work > 0
     assert lane_bytes == SIZE * SIZE * SPP * roofline.LANE_BYTES["K1"]  # s_par 4 at 16x16
-    kw = {"loop_sobol": variant == "loop_sobol",
-          "ops_rate": ({"fp": 3.3e13, "cmp": 1.7e13, "int": 2.3e13}
+    kw = {"ops_rate": ({"fp": 3.3e13, "cmp": 1.7e13, "int": 2.3e13}
                        if variant == "measured_rates" else None)}
-    want = _old_render_bound(scene, counts, work, lane_bytes, False, SPP, SIZE, SIZE, **kw)
-    got = roofline.render_bound(scene.compiled, counts, work, lane_bytes, False, SPP, SIZE, SIZE,
-                                **kw)
+    want = _old_render_bound(scene, counts, work, lane_bytes, False, SPP, **kw)
+    got = roofline.render_bound(scene.compiled, counts, work, lane_bytes, False, SPP, **kw)
     assert got == want
     if variant == "harness":
         assert (out["bound_ms"], out["bound_by"], out["peak_source"]) == (

@@ -234,20 +234,22 @@ def test_ops_split_keeps_the_fp32_counts(unit):
 def test_slab_and_sobol_integer_counts():
     slab = roofline.OPS["slab_test"]
     assert slab["fp"] == 13 and slab["cmp"] == 2 * 12 + 1
-    # the bit loops: 28 VdC columns, 2L inverse columns, 2 x 52 generator columns
-    loop = roofline.sobol_ops(9, 2, loop=True)
-    assert loop == {"fp": 0, "cmp": 0, "int": 3 * 28 + 6 * 18 + 8 * 52}
-    assert roofline.sobol_ops(0, 2, loop=True)["int"] == 8 * 52
-    # the factored form: three per byte and dimension, two XORs with Q
-    table = roofline.sobol_ops(9, 2, loop=False)
-    assert table["int"] == 14 < loop["int"] / 40
+    # a pixel's part by the bit loops: 28 VdC columns, 2L inverse columns,
+    # 2 x 52 generator columns
+    pixel = roofline.sobol_pixel_ops(9)
+    assert pixel == {"fp": 0, "cmp": 0, "int": 3 * 28 + 6 * 18 + 8 * 52}
+    assert roofline.sobol_pixel_ops(0)["int"] == 8 * 52
+    # a sample in the factored form: three per byte and dimension, two XORs
+    # with the pixel's part
+    table = roofline.sobol_ops(2)
+    assert table == {"fp": 0, "cmp": 0, "int": 14} and 14 < pixel["int"] / 40
     pcg = roofline.OPS["shade"]["int"]
     assert pcg >= 20  # one PCG4D draw per bounce
     counts = {"camera_ray": 10, "bounce": 0}
     sc = zt.models.load_scene("cornell_box", device="cpu")
-    with_loop = roofline.render_ops(counts, sc.compiled, False, sobol=(9, 2, True))
+    with_sobol = roofline.render_ops(counts, sc.compiled, False, sobol=2)
     plain = roofline.render_ops(counts, sc.compiled, False)
-    assert with_loop["int"] - plain["int"] == 10 * loop["int"]
+    assert with_sobol["int"] - plain["int"] == 10 * table["int"]
 
 
 @pytest.mark.parametrize("has_dof", [False, True])
@@ -272,8 +274,7 @@ def test_keys_bound_counts_the_camera_ray_and_the_probe(sampler, has_dof):
     bits = roofline._ops()
     if sampler == SamplerKind.SOBOL:
         log2_scale = sobol_log2_scale(w, h)
-        bits = roofline.add(roofline.sobol_ops(log2_scale, 0, loop=True),
-                            roofline.sobol_ops(log2_scale, 1, loop=False))
+        bits = roofline.add(roofline.sobol_pixel_ops(log2_scale), roofline.sobol_ops(1))
     assert pixel == roofline.add(roofline.KEYS_OPS["common"], roofline.KEYS_OPS[sampler],
                                  lens, bits)
     # each sampler draws its offset: a PCG4D at least, or the Sobol bits

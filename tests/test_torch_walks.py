@@ -174,17 +174,17 @@ def test_walk_work_counts(big_scene):
     """spec slab-tests both successors at every step (after one root test
     per lane and stage); the queue walk culls with a t that only its sweeps
     of QUEUE_CAP leaves tighten, so it tests and sweeps at least the cond
-    walk's nodes and leaves and at most its first design's, which culls
-    with the seed t; rowqueue tests every node its 32-lane group walks for
+    walk's nodes and leaves and at most those of the whole walk with the
+    seed t (a queue that holds every leaf); rowqueue tests every node its 32-lane group walks for
     each lane of the group, then re-tests each queued leaf against the
     lane's running t, so it sweeps the cond walk's leaves."""
     per_kind, uni, rays = big_scene
     c = {w: _trace(per_kind, rays, w)[1] for w in ("cond", "queue", "rowqueue", "spec")}
-    with workcount.counting() as first:
+    with workcount.counting() as seed_t:
         ttrace.closest_hit(per_kind, *rays, zt.dtypes.T_MIN, walk="queue",
-                           queue_cap=fused_render.queue_capacity(per_kind, "queue"))
+                           queue_cap=fused_render.queue_capacity(per_kind, "spec"))
     for key in ("slab_test", "leaf_visit"):
-        assert c["cond"][key] <= c["queue"][key] <= first[key], key
+        assert c["cond"][key] <= c["queue"][key] <= seed_t[key], key
     n = rays[2].shape[0]
     assert all(c[w]["trace"] == n for w in c)
     assert (c["spec"]["slab_test"] - 2 * n) % 2 == 0
@@ -235,10 +235,9 @@ def test_probe_keeps_the_default_walk(monkeypatch, big_scene):
 def test_walk_args_and_queue_capacity(monkeypatch, big_scene):
     """The launch's walk, its code and its leaf queue, read at each launch:
     QUEUE_CAP entries per thread in shared memory and no device queue for
-    queue; per thread in device memory for the queue walk's first design,
-    spec and uni (lane-major, every thread of the launch's blocks; uni's over
-    the unified tree's nodes), per warp in shared memory for rowqueue, none
-    for cond."""
+    queue; per thread in device memory for spec and uni (lane-major, every
+    thread of the launch's blocks; uni's over the unified tree's nodes), per
+    warp in shared memory for rowqueue, none for cond."""
     per_kind, uni, _ = big_scene
     n_s, n_q = per_kind.sph_tree_box.shape[0], per_kind.quad_tree_box.shape[0]
     cap = (max(n_s, n_q) + 1) // 2 + 1  # a skip-link tree's most leaves, plus one
@@ -252,8 +251,6 @@ def test_walk_args_and_queue_capacity(monkeypatch, big_scene):
         assert got_code == code == ttrace.WALKS.index(walk)
         if walk == "queue":
             assert (got_cap, queue) == (ttrace.QUEUE_CAP, None)
-            _, _, got_cap, queue = fused_render.walk_args(per_kind, 300, first=True)
-            assert got_cap == cap and queue.dtype == torch.int32 and queue.numel() == cap * 384
         else:
             assert got_cap == (cap if walk in ("rowqueue", "spec") else 0)
         if walk == "spec":
@@ -267,9 +264,9 @@ def test_walk_args_and_queue_capacity(monkeypatch, big_scene):
 
 def test_walk_args_refuses_queues_that_do_not_fit(monkeypatch, big_scene):
     per_kind, _, _ = big_scene
-    monkeypatch.setenv("ZWRT_TRAV", "queue")
+    monkeypatch.setenv("ZWRT_TRAV", "spec")
     with pytest.raises(ValueError, match="32-bit queue index"):
-        fused_render.walk_args(per_kind, 2**31 // 8, first=True)
+        fused_render.walk_args(per_kind, 2**31 // 8)
     monkeypatch.setenv("ZWRT_TRAV", "rowqueue")
     cap = fused_render.queue_capacity(per_kind, "rowqueue")
     monkeypatch.setattr(fused_render, "SMEM_LIMIT", 4 * cap * 8 - 1)

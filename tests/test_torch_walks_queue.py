@@ -11,24 +11,23 @@ version on the CPU.
      every other lane dead.  Tolerance: none, bitwise.
   2. Its work counts (``slab_test``, ``leaf_visit``) are bracketed: at a
      capacity of 1 they are the cond walk's exactly (each hit leaf is swept
-     before the next node test), at a capacity of the tree's leaves its
-     first design's exactly (the whole walk with the seed t, as at the
-     first design's device-queue capacity, ``queue_capacity``), and at
+     before the next node test), at a capacity of the tree's leaves those
+     of the whole walk with the seed t exactly (as at the capacity of a
+     device queue that holds every leaf, ``queue_capacity``), and at
      ``QUEUE_CAP`` between the two.  Exact counts.
   3. ``QUEUE_CAP``, the launchers' thread count and their blocks a SM at
      most equal the headers' constants, read out of ``csrc/``.
   4. ``walk_args`` gives the queue walk no device queue, only its
      ``QUEUE_SMEM_BYTES`` of shared memory a block (refused past
-     ``SMEM_LIMIT``), and gives its first-design variant the device queue;
-     ``check_flags`` accepts the first-design flag for queue; ``node_args``
-     builds the packed node tables for queue.
+     ``SMEM_LIMIT``); ``node_args`` builds the packed node tables for
+     queue.
   5. The walk codes a launch passes are the header's, and on a scene
      without trees every walk but uni traces the cond walk's brute stages
      (hits and counts bitwise), which is what lets the kernels launch one
      tree-less instantiation (``kWalkNoTree``) for all of them.
 
-The CUDA walk and its first design are held against this plain version
-on the card by chip_smoke.py (phases 17 and 18).
+The CUDA walk is held against this plain version on the card by
+chip_smoke.py (phases 17 and 18).
 """
 
 import os
@@ -41,7 +40,6 @@ import torch
 import zig_weekend_raytracer_tpu_torch as zt
 from test_torch_reference_native import reference_decodes_with_stb  # noqa: F401
 from test_torch_walks_redesign import _camera_rays, _random_rays, _random_scene, _with_env
-from zig_weekend_raytracer_tpu_torch.ops import bounce
 from zig_weekend_raytracer_tpu_torch.ops import fused_render
 from zig_weekend_raytracer_tpu_torch.ops import trace as ttrace
 from zig_weekend_raytracer_tpu_torch.utils import workcount
@@ -80,15 +78,15 @@ def _leaves(cs):
 
 def _trace(cases, traced, name, span, lanes, form):
     """``form``: "cond", or a capacity of the queue walk: "1", "cap" for
-    QUEUE_CAP, "leaves" for the tree's leaves, "first" for its first
-    design's device queue ((n_nodes + 1) // 2 + 1 of the larger tree)."""
+    QUEUE_CAP, "leaves" for the tree's leaves, "device" for a device queue
+    that holds every leaf ((n_nodes + 1) // 2 + 1 of the larger tree)."""
     key = (name, span, lanes, form)
     if key not in traced:
         cs, rays = cases[(name, span)]
         n = rays[2].shape[0]
         active = None if lanes == "all" else torch.arange(n) % 2 == 1
         cap = {"1": 1, "cap": ttrace.QUEUE_CAP, "leaves": _leaves(cs),
-               "first": fused_render.queue_capacity(cs, "queue")}.get(form)
+               "device": fused_render.queue_capacity(cs, "spec")}.get(form)
         with workcount.counting() as c:
             if form == "cond":
                 hit = ttrace.closest_hit(cs, *rays, zt.dtypes.T_MIN, active=active, walk="cond")
@@ -121,27 +119,27 @@ def test_queue_hits_are_the_cond_walks(cases, traced, name, span, lanes):
 def test_queue_counts_are_bracketed(cases, traced, name, span, lanes, form):
     """Capacity 1 sweeps each hit leaf before the next node test, as the
     cond walk does; a capacity that holds every leaf never sweeps before
-    the walk's end, so the whole walk culls with the seed t, as the first
-    design does; QUEUE_CAP lies between.  Every form's hits are the cond
-    walk's."""
+    the walk's end, so the whole walk culls with the seed t, whatever the
+    capacity past the leaves; QUEUE_CAP lies between.  Every form's hits
+    are the cond walk's."""
     cond, c_cond = _trace(cases, traced, name, span, lanes, "cond")
-    first, c_first = _trace(cases, traced, name, span, lanes, "first")
+    seed_t, c_seed = _trace(cases, traced, name, span, lanes, "device")
     hit, c = _trace(cases, traced, name, span, lanes, form)
     for got, want in zip(hit, cond):
         assert torch.equal(got, want)
-    for got, want in zip(first, cond):
+    for got, want in zip(seed_t, cond):
         assert torch.equal(got, want)
     keys = ("slab_test", "leaf_visit", "sphere_test", "quad_test")
     if form == "1":
         assert {k: c[k] for k in keys} == {k: c_cond[k] for k in keys}
     elif form == "leaves":
-        assert {k: c[k] for k in keys} == {k: c_first[k] for k in keys}
+        assert {k: c[k] for k in keys} == {k: c_seed[k] for k in keys}
     else:
         for k in ("slab_test", "leaf_visit"):
-            assert c_cond[k] <= c[k] <= c_first[k], k
+            assert c_cond[k] <= c[k] <= c_seed[k], k
         # on these rays the queue's sweeps do cull: fewer leaves than the
-        # first design, more than the cond walk
-        assert c_cond["leaf_visit"] < c["leaf_visit"] < c_first["leaf_visit"]
+        # whole walk with the seed t, more than the cond walk
+        assert c_cond["leaf_visit"] < c["leaf_visit"] < c_seed["leaf_visit"]
 
 
 def _header_int(name, header=HEADER):
@@ -164,18 +162,13 @@ def test_queue_cap_equals_the_headers():
 
 
 def test_walk_args_gives_queue_no_device_queue(cases, monkeypatch):
-    """The queue walk's current design keeps QUEUE_CAP entries a thread in
-    shared memory: no device queue at any lane count, and a launch refused
-    where the queues do not fit beside the staged tables; its first design
-    keeps (n_nodes + 1) // 2 + 1 entries a thread in device memory."""
+    """The queue walk keeps QUEUE_CAP entries a thread in shared memory: no
+    device queue at any lane count, and a launch refused where the queues
+    do not fit beside the staged tables."""
     monkeypatch.setenv("ZWRT_TRAV", "queue")
     cs, _ = cases[("rtw_final", 1)]
     for n in (1, 1000, 160_000, 2**31 // 8):
         assert fused_render.walk_args(cs, n) == ("queue", 1, ttrace.QUEUE_CAP, None)
-    cap = (cs.quad_tree_box.shape[0] + 1) // 2 + 1
-    walk, code, got_cap, queue = fused_render.walk_args(cs, 1000, first=True)
-    assert (walk, code, got_cap) == ("queue", 1, cap)
-    assert queue.dtype == torch.int32 and queue.numel() == cap * 1024
     room = fused_render.SMEM_LIMIT - fused_render.QUEUE_SMEM_BYTES
     assert fused_render.walk_args(cs, 1000, room)[3] is None
     with pytest.raises(ValueError, match=f"{ttrace.QUEUE_CAP} leaf entries per thread"):
@@ -184,19 +177,6 @@ def test_walk_args_gives_queue_no_device_queue(cases, monkeypatch):
     cornell = zt.models.load_scene("cornell_box", device="cpu").compiled
     assert not (cornell.has_sph_tree or cornell.has_quad_tree)
     assert fused_render.walk_args(cornell, 1000, fused_render.SMEM_LIMIT)[3] is None
-
-
-def test_first_design_flag_is_accepted_for_queue():
-    first = fused_render.FLAG_FIRST_WALK
-    assert "queue" in fused_render.FIRST_DESIGN_WALKS
-    fused_render.check_flags("queue", first)
-    fused_render.check_flags("queue", fused_render.FLAG_PROF)
-    with pytest.raises(ValueError, match="no phase profile"):
-        fused_render.check_flags("queue", first | fused_render.FLAG_PROF)
-    with pytest.raises(ValueError, match="Russian roulette"):
-        fused_render.check_flags("queue", first | fused_render.FLAG_ESTIMATOR)
-    for variant in (fused_render.render_fused_variant, bounce.bounce_regen_variant):
-        assert "queue" in variant.launches
 
 
 def test_node_args_builds_packed_tables_for_queue():
@@ -216,7 +196,7 @@ def test_node_args_builds_packed_tables_for_queue():
 def test_walk_codes_equal_the_headers():
     """A launch passes ``WALKS.index(walk)`` (``walk_args``): the header's
     Walk enum numbers the walks in that order, and its compile-time-only
-    walks (the first designs, ``kWalkNoTree``) come after them."""
+    walk (``kWalkNoTree``) comes after them."""
     with open(HEADER) as f:
         codes = {k: int(v) for k, v in re.findall(r"\b(kWalk\w+) = (\d+)", f.read())}
     names = {"cond": "kWalkCond", "queue": "kWalkQueue", "rowqueue": "kWalkRowQueue",
@@ -224,6 +204,34 @@ def test_walk_codes_equal_the_headers():
     assert [codes[names[w]] for w in ttrace.WALKS] == list(range(len(ttrace.WALKS)))
     rest = sorted(v for k, v in codes.items() if k not in names.values())
     assert "kWalkNoTree" in codes and rest == list(range(len(ttrace.WALKS), len(codes)))
+
+
+def test_walk_enum_is_walks_then_no_tree():
+    """The header's Walk enum, read in its order, is ``WALKS`` and then
+    ``kWalkNoTree``, numbered from 0, with no other code: every walk has
+    one design."""
+    with open(HEADER) as f:
+        body = re.search(r"enum Walk \{([^}]*)\};", f.read())
+    assert body
+    enum = re.findall(r"\b(kWalk\w+) = (\d+)", body.group(1))
+    names = ["kWalk" + {"rowqueue": "RowQueue"}.get(w, w.capitalize()) for w in ttrace.WALKS]
+    assert [k for k, _ in enum] == names + ["kWalkNoTree"]
+    assert [int(v) for _, v in enum] == list(range(len(ttrace.WALKS) + 1))
+
+
+@pytest.mark.parametrize("walk", ttrace.WALKS)
+def test_phase_profile_flags(walk):
+    """``check_flags``: the phase profile exists for cond and queue only,
+    and never with the estimator options."""
+    if walk in ("cond", "queue"):
+        fused_render.check_flags(walk, fused_render.FLAG_PROF)
+    else:
+        with pytest.raises(ValueError, match="no phase profile"):
+            fused_render.check_flags(walk, fused_render.FLAG_PROF)
+    with pytest.raises(ValueError, match="Russian roulette"):
+        fused_render.check_flags(walk, fused_render.FLAG_PROF | fused_render.FLAG_ESTIMATOR)
+    fused_render.check_flags(walk, fused_render.FLAG_ESTIMATOR)
+    fused_render.check_flags(walk, 0)
 
 
 @pytest.fixture(scope="module")

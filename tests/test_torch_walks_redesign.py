@@ -14,9 +14,7 @@ plain versions on the CPU.
   3. ``queue_capacity`` covers the unified tree's leaves under uni and the
      per-kind trees' under spec, and every lane's queue of the random rays
      at span 1.
-  4. The first designs are measurement variants of the redesigned walks
-     (queue, rowqueue, spec and uni) only.
-  5. The plain uni walk inside ``ops/trace.py:uni_cond_walk`` (the cond
+  4. The plain uni walk inside ``ops/trace.py:uni_cond_walk`` (the cond
      walk of the unified tree, whose counts price the uni walk's bound)
      gives the same hits with fewer node tests.
 
@@ -234,26 +232,7 @@ def test_queue_capacity_covers_the_walks_leaves(cases, walk):
         trees = ("uni",) if walk == "uni" else ("sph", "quad")
         leaves = max(int((getattr(cs, f"{t}_tree_link")[:, 1] >= 0).sum()) for t in trees)
         assert cap >= leaves + 1, (name, span)
-        if walk == "uni":
-            assert cap == (cs.uni_tree_box.shape[0] + 1) // 2 + 1
-        else:
-            assert cap == fused_render.queue_capacity(cs, "queue")
+        nodes = max(getattr(cs, f"{t}_tree_box").shape[0] for t in trees)
+        assert cap == (nodes + 1) // 2 + 1
     cs, rays = cases[("random", 1)]
     assert int(_queue_lengths(cs, rays, walk).max()) < fused_render.queue_capacity(cs, walk)
-
-
-def test_first_designs_are_variants_of_spec_and_uni_only():
-    """The redesigned walks (queue, rowqueue, spec, uni) keep their first
-    designs as variants; cond has none."""
-    first = fused_render.FLAG_FIRST_WALK
-    assert fused_render.FIRST_DESIGN_WALKS == ("queue", "rowqueue", "spec", "uni")
-    for walk in fused_render.FIRST_DESIGN_WALKS:
-        fused_render.check_flags(walk, first)
-    with pytest.raises(ValueError, match="no first design"):
-        fused_render.check_flags("cond", first)
-    with pytest.raises(ValueError, match="no phase profile"):
-        fused_render.check_flags("spec", first | fused_render.FLAG_PROF)
-    with pytest.raises(ValueError, match="Russian roulette"):
-        fused_render.check_flags("uni", first | fused_render.FLAG_ESTIMATOR)
-    assert set(fused_render.render_fused_variant.launches) == {
-        "cond", "queue", "rowqueue", "spec", "uni"}

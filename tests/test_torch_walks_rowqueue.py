@@ -17,11 +17,9 @@ on the CPU.
      of the sphere tree and then of the quad tree within
      ``ROWQUEUE_NODE_BYTES``; ``walk_args`` counts those nodes in its
      shared-memory check and raises past ``SMEM_LIMIT``.
-  4. ``check_flags`` accepts the first-design flag for rowqueue, whose
-     first design is a measurement variant.
 
-The CUDA walk and its first design are held against this plain version
-on the card by chip_smoke.py (phases 17 and 18).
+The CUDA walk is held against this plain version on the card by
+chip_smoke.py (phases 17 and 18).
 """
 
 import numpy as np
@@ -152,17 +150,3 @@ def test_walk_args_counts_the_staged_nodes(cases, monkeypatch):
     assert (walk, code, got_cap, queue) == ("rowqueue", ttrace.WALKS.index("rowqueue"), cap, None)
     with pytest.raises(ValueError, match=f"and {nodes} of staged nodes, past the card's"):
         fused_render.walk_args(cs, 1000, room + 1)
-
-
-def test_first_design_flag_is_accepted_for_rowqueue():
-    first = fused_render.FLAG_FIRST_WALK
-    assert "rowqueue" in fused_render.FIRST_DESIGN_WALKS
-    fused_render.check_flags("rowqueue", first)
-    with pytest.raises(ValueError, match="no phase profile"):
-        fused_render.check_flags("rowqueue", first | fused_render.FLAG_LOOP_SOBOL)
-    with pytest.raises(ValueError, match="Russian roulette"):
-        fused_render.check_flags("rowqueue", first | fused_render.FLAG_ESTIMATOR)
-    from zig_weekend_raytracer_tpu_torch.ops import bounce
-
-    for variant in (fused_render.render_fused_variant, bounce.bounce_regen_variant):
-        assert "rowqueue" in variant.launches

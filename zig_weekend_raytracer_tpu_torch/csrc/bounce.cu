@@ -61,11 +61,12 @@
 // mode.  ``walk`` picks the tree walk, ``q_cap`` and ``queue``
 // (``queue_len`` ints) its leaf queue (zwrt_device.cuh:set_walk); ``flags``
 // the instantiation (render_kernels.cuh): 0 by default, kFlagEstimator for
-// Russian roulette and the indirect clamp in either mode, or a measurement
-// variant of the regenerating mode.  ``out_blocks``, null or a zeroed buffer
-// of kBlockStampCols uint64 a block, takes the default and estimator
+// Russian roulette and the indirect clamp in either mode, or kFlagProf for
+// the regenerating mode's phase profile, which writes kProfCols rows of n
+// int64 to ``out_prof``.  ``out_blocks``, null or a zeroed buffer of
+// kBlockStampCols uint64 a block, takes the default and estimator
 // instantiations' block stamps (render_kernels.cuh:stamp_block_start); the
-// variants take none.  Launches on ``stream`` and returns the
+// profile takes none.  Launches on ``stream`` and returns the
 // launch's cudaError_t; with ``occupancy`` set it launches nothing and
 // writes there the instantiation's blocks per SM and dynamic shared memory
 // (render_kernels.cuh:RenderLaunch).
@@ -89,9 +90,8 @@ extern "C" int zwrt_bounce(const int* iparams, const float* fparams, const void*
   if (err != 0) return err;
   if (flags == kFlagEstimator)
     return bounce_estimator(L, fstate, istate, px, py, limit, out_blocks, regen, depth);
-  if (flags != 0) {
-    if (!regen) return (int)cudaErrorInvalidValue;
-    return bounce_variant(flags, L, fstate, istate, px, py, limit, out_prof);
-  }
+  if (flags == kFlagProf && regen)
+    return bounce_profile(L, fstate, istate, px, py, limit, out_prof);
+  if (flags != 0) return (int)cudaErrorInvalidValue;
   return launch_bounce<0>(L, fstate, istate, px, py, limit, nullptr, out_blocks, regen, depth);
 }

@@ -40,9 +40,8 @@
 // without them: the nodes stay in L1, and the staging's copy and a
 // persistent grid's uneven last round cost more than they saved.
 //
-// closest_hit_flat_kernel is the first design, kept to measure the new one
-// against: the per-thread walk, rays from a stacked (7, n) array and an int
-// mask.  No path launches it.
+// It replaced a first design (PERF.md: the per-thread walk, rays from a
+// stacked (7, n) copy and an int mask), which it beat on every ray set.
 //
 // coherent_keys_kernel (below) runs the same walk on each pixel's sample-0
 // camera ray, made in the kernel, and writes the first-hit part of the
@@ -151,7 +150,7 @@ __global__ void __launch_bounds__(kHitThreads) coherent_keys_kernel(
   const int x = i % p.width, py = band_y0 + i / p.width;
   Ray ray;
   const SobolPixel sq = sobol_pixel(p, sobol, x, py);
-  ray.time = generate_ray<false>(p, sobol, sq, ray_id_of(p, 0, x, py), x, py, 0, &ray.o, &ray.d);
+  ray.time = generate_ray(p, sq, ray_id_of(p, 0, x, py), x, py, 0, &ray.o, &ray.d);
   ray.inv_d = mk(1.0f / ray.d.x, 1.0f / ray.d.y, 1.0f / ray.d.z);
   ray.a = dot(ray.d, ray.d);
   ray.inv_a = 1.0f / ray.a;
@@ -163,24 +162,6 @@ __global__ void __launch_bounds__(kHitThreads) coherent_keys_kernel(
   hit_stage<kQuad>(scene.quad, q, ray, false, &best, &kind, &idx);
   const long long hit_key = kind < 0 ? -1 : ((long long)kind << 24) + idx;
   out_key[i] = (hit_key + 1) << 32;
-}
-
-__global__ void __launch_bounds__(128) closest_hit_flat_kernel(
-    const __grid_constant__ TraceScene scene, const float* __restrict__ rays,
-    const int* __restrict__ active, float t_min, float t_start, float* __restrict__ out_t,
-    int* __restrict__ out_kind, int* __restrict__ out_idx, int n) {
-  int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  float best = t_start;
-  int kind = -1, idx = 0;
-  if (active == nullptr || active[i] != 0) {
-    V3 o = mk(rays[i], rays[n + i], rays[2 * n + i]);
-    V3 d = mk(rays[3 * n + i], rays[4 * n + i], rays[5 * n + i]);
-    trace_closest<kWalkCond>(scene, o, d, rays[6 * n + i], t_min, t_start, &best, &kind, &idx);
-  }
-  out_t[i] = kind < 0 ? INFINITY : best;
-  out_kind[i] = kind;
-  out_idx[i] = idx;
 }
 
 }  // namespace zwrt
@@ -221,21 +202,5 @@ extern "C" int zwrt_coherent_keys(const int* iparams, const float* fparams,
   const int blocks = (n + kHitThreads - 1) / kHitThreads;
   coherent_keys_kernel<<<blocks, kHitThreads, sobol_smem_bytes(p), (cudaStream_t)stream>>>(
       p, scene, sobol, band_y0, out_key, n);
-  return (int)cudaGetLastError();
-}
-
-// The first design's launcher: ``rays`` the (7, n) device array ox oy oz
-// dx dy dz time, ``active`` an (n,) int mask or null.
-extern "C" int zwrt_closest_hit_flat(const int* trace_ints, const void* const* trace_ptrs,
-                                     const float* rays, const int* active, float t_min,
-                                     float t_start, float* out_t, int* out_kind, int* out_idx,
-                                     int n, void* stream) {
-  using namespace zwrt;
-  if (n <= 0) return 0;
-  TraceScene scene = read_trace_scene(trace_ints, trace_ptrs);
-  const int threads = 128;
-  const int blocks = (n + threads - 1) / threads;
-  closest_hit_flat_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(
-      scene, rays, active, t_min, t_start, out_t, out_kind, out_idx, n);
   return (int)cudaGetLastError();
 }

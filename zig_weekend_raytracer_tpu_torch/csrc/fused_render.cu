@@ -100,15 +100,14 @@
 // ``q_cap`` and ``queue`` (``queue_len`` ints) its leaf queue
 // (zwrt_device.cuh:set_walk); ``flags`` the instantiation
 // (render_kernels.cuh): 0 by default, kFlagEstimator for Russian roulette
-// and the indirect clamp, or a measurement variant, whose kFlagProf writes
-// ``out_prof``.  ``out_blocks``, null or a zeroed buffer of kBlockStampCols
-// uint64 a block, takes the default and estimator instantiations' block
-// stamps (render_kernels.cuh:stamp_block_start); the variants take none.
-// The default and estimator instantiations are fed from the work queue
-// that ``grid``, ``chunk``, ``chunks``, ``next``, ``part_rad``,
-// ``part_work`` and ``thread_work`` describe (render_kernels.cuh:
-// QueueLaunch); the variants ignore them and run one thread a lane.
-// Launches on ``stream`` and returns the launch's cudaError_t; with
+// and the indirect clamp, or kFlagProf for the phase profile, which writes
+// kProfCols rows of grid * kThreads int64 to ``out_prof``.  ``out_blocks``,
+// null or a zeroed buffer of kBlockStampCols uint64 a block, takes the
+// default and estimator instantiations' block stamps (render_kernels.cuh:
+// stamp_block_start); the profile takes none.  Every instantiation is fed
+// from the work queue that ``grid``, ``chunk``, ``chunks``, ``next``,
+// ``part_rad``, ``part_work`` and ``thread_work`` describe
+// (render_kernels.cuh:QueueLaunch).  Launches on ``stream`` and returns the launch's cudaError_t; with
 // ``occupancy`` set it launches nothing and writes there the
 // instantiation's blocks per SM and dynamic shared memory
 // (render_kernels.cuh:RenderLaunch).
@@ -132,7 +131,9 @@ extern "C" int zwrt_fused_render(
   const QueueLaunch Q{grid, chunk, chunks, next, part_rad, part_work, thread_work};
   if (flags == kFlagEstimator)
     return fused_render_estimator(L, px, py, s0, s1, out_rad, out_work, out_blocks, &Q);
-  if (flags != 0) return fused_render_variant(flags, L, px, py, s0, s1, out_rad, out_work, out_prof);
+  if (flags == kFlagProf)
+    return fused_render_profile(L, px, py, s0, s1, out_rad, out_work, out_prof, &Q);
+  if (flags != 0) return (int)cudaErrorInvalidValue;
   return launch_fused_render<kFlagPull>(L, px, py, s0, s1, out_rad, out_work, nullptr, out_blocks,
                                         &Q);
 }

@@ -1,31 +1,28 @@
 // The render kernel (fused_render_kernel, K1) and the bounce kernel
 // (bounce_kernel, K2) as templates, with their host-side launch helpers, so
-// that the default instantiations (fused_render.cu, bounce.cu) and the
-// measurement variants (fused_render_variants.cu, bounce_variants.cu)
-// compile in separate nvcc processes.  The design notes are in
-// fused_render.cu and bounce.cu.
+// that the default instantiations (fused_render.cu, bounce.cu), the
+// estimator instantiations (*_estimator.cu) and the phase profile
+// (*_variants.cu) compile in separate nvcc processes.  The design notes are
+// in fused_render.cu and bounce.cu.
 //
 // FLAGS (zwrt_device.cuh:DrainFlags) is 0 in every bounce kernel
-// instantiation the wrapper launches by default, and kFlagPull in the
-// render kernel's: one per walk, and kWalkNoTree, which every walk but uni
-// takes on a scene without trees (dispatch_flags_walk).  kFlagPull makes
-// the render kernel persistent: its grid is the blocks the card holds at
-// once, and its threads take (lane, sample chunk) items from a work queue
-// (zwrt_device.cuh:Items), whose sums item_sum_kernel adds up per lane.
-// kFlagEstimator, instantiated for every walk and both kernels' modes
-// (fused_render_estimator.cu, with kFlagPull; bounce_estimator.cu),
-// applies Russian roulette and the indirect clamp; the wrappers launch it
-// when either option is on.  The variants, without the estimator: for the
-// walks kWalkCond and kWalkQueue, kFlagProf writes each lane's phase
-// profile (kProfCols int64 columns) to ``out_prof`` and kFlagLoopSobol
-// keeps the Sobol bit loops in the respawn and stages no tables; for the
-// walks redesigned for Hopper, kWalkQueue, kWalkSpec, kWalkUni and
-// kWalkRowQueue, kFlagFirstWalk walks their first designs (kWalkQueueFirst,
-// kWalkSpecFirst, kWalkUniFirst, kWalkRowQueueFirst), the render kernel
-// with and without the image fetch and the bounce kernel's regenerating
-// mode.  Beside the Sobol tables in the block's dynamic shared memory,
-// kWalkQueue keeps its per-thread leaf queues (zwrt_device.cuh:
-// bounded_queue), and kWalkRowQueue's current design stages packed tree
+// instantiation the wrapper launches by default, and kFlagPull in every
+// render kernel instantiation: one per walk, and kWalkNoTree, which every
+// walk but uni takes on a scene without trees (dispatch_flags_walk).
+// kFlagPull makes the render kernel persistent: its grid is the blocks the
+// card holds at once, and its threads take (lane, sample chunk) items from
+// a work queue (zwrt_device.cuh:Items), whose sums item_sum_kernel adds up
+// per lane.  kFlagEstimator, instantiated for every walk and both kernels'
+// modes (fused_render_estimator.cu; bounce_estimator.cu), applies Russian
+// roulette and the indirect clamp; the wrappers launch it when either
+// option is on.  kFlagProf, without the estimator, for the walks kWalkCond
+// and kWalkQueue (and kWalkNoTree, where the render kernel's launches take
+// it) and the bounce kernel's regenerating mode, writes each thread's phase
+// profile (kProfCols int64 columns) to ``out_prof``: no render path
+// launches it (ops/fused_render.py:render_fused_profile, ops/bounce.py:
+// bounce_regen_profile).  Beside the Sobol tables in the block's dynamic
+// shared memory, kWalkQueue keeps its per-thread leaf queues
+// (zwrt_device.cuh:bounded_queue), and kWalkRowQueue stages packed tree
 // nodes (stage_nodes) at every block's start and keeps its warp queues.
 //
 // Each kernel's ``out_blocks``, when not null, takes kBlockStampCols uint64
@@ -82,21 +79,33 @@ __device__ __forceinline__ void stamp_block_end(unsigned long long* b) {
   atomicMax(b + 2, global_ns());
 }
 
-// The render kernel's body: one thread a lane, or under kFlagPull
-// (render_kernels.cuh's notes) items from the work queue.
+// Blocks a SM that the render kernel's instantiations are held to: the
+// tree-less one to kMaxBlocksPerSM (8), as launch_or_report holds every
+// launch, and a tree walk's to 7, the queue walk's blocks a SM before the
+// work queue (72 registers at most: 65,536 / (7 * kThreads) is 73), so that
+// ptxas keeps each in its bucket.
+constexpr int k1_min_blocks(int walk) { return walk == kWalkNoTree ? 8 : 7; }
+
+// The render kernel, persistent and fed from the work queue (kFlagPull):
+// thread i of the grid starts on item i, or past the queue's end on an
+// empty window, so that every thread of a warp reaches drain's ballots;
+// drain writes every item's sums.  Under kFlagProf each thread writes the
+// Prof it accumulated over all of its items to column i of ``out_prof``
+// (kProfCols rows of grid * kThreads).  ``lane_px`` to ``out_work`` and
+// ``n`` keep the parameter's layout: the items carry the lanes.
 template <bool IMAGES, int WALK, int FLAGS>
-__device__ __forceinline__ void render_lanes(
-    const Params& p, const int* __restrict__ lane_px, const int* __restrict__ lane_py,
-    const int* __restrict__ lane_s0, const int* __restrict__ lane_s1, const TraceScene& scene,
-    const Images& images, const float* __restrict__ shade_rows,
+__global__ void __launch_bounds__(kThreads, k1_min_blocks(WALK)) fused_render_kernel(
+    const __grid_constant__ Params p, const int* __restrict__ lane_px,
+    const int* __restrict__ lane_py, const int* __restrict__ lane_s0,
+    const int* __restrict__ lane_s1, const __grid_constant__ TraceScene scene,
+    const __grid_constant__ Images images, const float* __restrict__ shade_rows,
     const uint32_t* __restrict__ sobol, float* __restrict__ out_rad,
     int* __restrict__ out_work, long long* __restrict__ out_prof,
-    unsigned long long* __restrict__ out_blocks, int n, const Items& items) {
-  constexpr bool PULL = (FLAGS & kFlagPull) != 0;
-  if (!(FLAGS & kFlagLoopSobol)) stage_sobol(p);
+    unsigned long long* __restrict__ out_blocks, int n, const __grid_constant__ Items items) {
+  static_assert((FLAGS & kFlagPull) != 0, "the render kernel is fed from the work queue");
+  stage_sobol(p);
   if (WALK == kWalkRowQueue) stage_nodes(scene);
-  int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (!PULL && i >= n) return;
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (out_blocks && threadIdx.x == 0) stamp_block_start(out_blocks);
   Path s;
   s.o = mk(0.0f, 0.0f, 0.0f);
@@ -109,76 +118,12 @@ __device__ __forceinline__ void render_lanes(
   bool alive = false;
   int work = 0;
   Prof prof = {};
-  if constexpr (PULL) {
-    // thread i starts on item i, or past the queue's end on an empty
-    // window, so that every thread of a warp reaches drain's ballots;
-    // drain writes every item's sums
-    int px = 0, py = 0, sample = -p.stride, limit = 0;
-    if (i < items.total) item_window(p, items, i, px, py, sample, limit);
-    drain<IMAGES, WALK, FLAGS>(p, scene, shade_rows, &images, sobol, px, py, limit, s, alive,
-                               sample, work, &prof, &items, i);
-  } else {
-    int sample = lane_s0[i] - p.stride;
-    drain<IMAGES, WALK, FLAGS>(p, scene, shade_rows, &images, sobol, lane_px[i], lane_py[i],
-                               lane_s1[i], s, alive, sample, work, &prof);
-    out_rad[i] = s.rad.x;
-    out_rad[n + i] = s.rad.y;
-    out_rad[2 * n + i] = s.rad.z;
-    if (out_work) out_work[i] = work;
-    if (FLAGS & kFlagProf) write_prof(out_prof, prof, i, n);
-  }
+  int px = 0, py = 0, sample = -p.stride, limit = 0;
+  if (i < items.total) item_window(p, items, i, px, py, sample, limit);
+  drain<IMAGES, WALK, FLAGS>(p, scene, shade_rows, &images, sobol, px, py, limit, s, alive,
+                             sample, work, &prof, &items, i);
+  if (FLAGS & kFlagProf) write_prof(out_prof, prof, i, items.first);
   if (out_blocks) stamp_block_end(out_blocks);
-}
-
-// Blocks a SM that the render kernel's instantiations fed from the work
-// queue are held to: the tree-less one to kMaxBlocksPerSM (8), as
-// launch_or_report holds every launch, and a tree walk's to 7, the queue
-// walk's blocks a SM before the queue (72 registers at most: 65,536 / (7 *
-// kThreads) is 73), so that ptxas keeps each in its bucket.
-constexpr int k1_min_blocks(int walk) { return walk == kWalkNoTree ? 8 : 7; }
-
-// The render kernel's default and estimator instantiations (kFlagPull).
-template <bool IMAGES, int WALK, int FLAGS>
-__global__ void __launch_bounds__(kThreads, k1_min_blocks(WALK)) fused_render_kernel(
-    const __grid_constant__ Params p, const int* __restrict__ lane_px,
-    const int* __restrict__ lane_py, const int* __restrict__ lane_s0,
-    const int* __restrict__ lane_s1, const __grid_constant__ TraceScene scene,
-    const __grid_constant__ Images images, const float* __restrict__ shade_rows,
-    const uint32_t* __restrict__ sobol, float* __restrict__ out_rad,
-    int* __restrict__ out_work, long long* __restrict__ out_prof,
-    unsigned long long* __restrict__ out_blocks, int n, const __grid_constant__ Items items) {
-  render_lanes<IMAGES, WALK, FLAGS>(p, lane_px, lane_py, lane_s0, lane_s1, scene, images,
-                                    shade_rows, sobol, out_rad, out_work, out_prof, out_blocks,
-                                    n, items);
-}
-
-namespace variant {
-
-// The render kernel's measurement variants, one thread a lane, with the
-// bare bound: a minimum of blocks a SM, even of 1, changes the registers
-// ptxas gives them.
-template <bool IMAGES, int WALK, int FLAGS>
-__global__ void __launch_bounds__(kThreads) fused_render_kernel(
-    const __grid_constant__ Params p, const int* __restrict__ lane_px,
-    const int* __restrict__ lane_py, const int* __restrict__ lane_s0,
-    const int* __restrict__ lane_s1, const __grid_constant__ TraceScene scene,
-    const __grid_constant__ Images images, const float* __restrict__ shade_rows,
-    const uint32_t* __restrict__ sobol, float* __restrict__ out_rad,
-    int* __restrict__ out_work, long long* __restrict__ out_prof,
-    unsigned long long* __restrict__ out_blocks, int n, const __grid_constant__ Items items) {
-  render_lanes<IMAGES, WALK, FLAGS>(p, lane_px, lane_py, lane_s0, lane_s1, scene, images,
-                                    shade_rows, sobol, out_rad, out_work, out_prof, out_blocks,
-                                    n, items);
-}
-
-}  // namespace variant
-
-// The render kernel that an instantiation launches: fed from the work
-// queue (kFlagPull) or a measurement variant.
-template <bool IMAGES, int WALK, int FLAGS>
-constexpr auto render_kernel() {
-  if constexpr ((FLAGS & kFlagPull) != 0) return fused_render_kernel<IMAGES, WALK, FLAGS>;
-  else return variant::fused_render_kernel<IMAGES, WALK, FLAGS>;
 }
 
 // A lane's sums over its items, in chunk order from zero, so that a seed
@@ -212,7 +157,7 @@ __global__ void __launch_bounds__(kThreads) bounce_kernel(
     const int* __restrict__ lane_px, const int* __restrict__ lane_py,
     const int* __restrict__ lane_limit, long long* __restrict__ out_prof,
     unsigned long long* __restrict__ out_blocks, int depth, int n) {
-  if (REGEN && !(FLAGS & kFlagLoopSobol)) stage_sobol(p);
+  if (REGEN) stage_sobol(p);
   if (WALK == kWalkRowQueue) stage_nodes(scene);
   int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
@@ -330,31 +275,24 @@ inline int launch_or_report(const RenderLaunch& L, K* kernel, int blocks, size_t
 }
 
 // f(std::integral_constant<int, W>{}) for the walk W: every walk for the
-// default and estimator instantiations (with or without kFlagPull), and kWalkNoTree for every walk but
-// uni where ``scene`` has no per-kind tree, so that a tree-less scene
-// (cornell, emissive) carries no walk's registers; the first design of
-// kWalkQueue, kWalkSpec, kWalkUni or kWalkRowQueue for kFlagFirstWalk,
-// kWalkCond and kWalkQueue for the other variants.
+// default and estimator instantiations, kWalkCond and kWalkQueue for the
+// profile (kFlagProf), and kWalkNoTree for every walk but uni where
+// ``scene`` has no per-kind tree, so that a tree-less scene (cornell,
+// emissive) carries no walk's registers; the bounce kernel's profile, which
+// no render path's kernel shares a drain with, keeps its walk's.
 template <int FLAGS, typename F>
 inline int dispatch_flags_walk(const TraceScene& scene, int walk, F f) {
-  if constexpr ((FLAGS & ~kFlagPull) == 0 || (FLAGS & ~kFlagPull) == kFlagEstimator) {
+  constexpr bool PROF = (FLAGS & kFlagProf) != 0;
+  if (PROF && walk != kWalkCond && walk != kWalkQueue) return (int)cudaErrorInvalidValue;
+  if constexpr (!PROF || (FLAGS & kFlagPull) != 0) {
     if (walk >= kWalkCond && walk < kWalkUni && !has_kind_tree(scene))
       return f(std::integral_constant<int, kWalkNoTree>{});
-    return dispatch_walk(walk, f);
-  } else if constexpr (FLAGS == kFlagFirstWalk) {
-    switch (walk) {
-      case kWalkQueue: return f(std::integral_constant<int, kWalkQueueFirst>{});
-      case kWalkSpec: return f(std::integral_constant<int, kWalkSpecFirst>{});
-      case kWalkUni: return f(std::integral_constant<int, kWalkUniFirst>{});
-      case kWalkRowQueue: return f(std::integral_constant<int, kWalkRowQueueFirst>{});
-      default: return (int)cudaErrorInvalidValue;
-    }
+  }
+  if constexpr (PROF) {
+    if (walk == kWalkCond) return f(std::integral_constant<int, kWalkCond>{});
+    return f(std::integral_constant<int, kWalkQueue>{});
   } else {
-    switch (walk) {
-      case kWalkCond: return f(std::integral_constant<int, kWalkCond>{});
-      case kWalkQueue: return f(std::integral_constant<int, kWalkQueue>{});
-      default: return (int)cudaErrorInvalidValue;
-    }
+    return dispatch_walk(walk, f);
   }
 }
 
@@ -377,45 +315,40 @@ struct QueueLaunch {
 template <int FLAGS>
 int launch_fused_render(const RenderLaunch& L, const int* px, const int* py, const int* s0,
                         const int* s1, float* out_rad, int* out_work, long long* out_prof,
-                        unsigned long long* out_blocks, const QueueLaunch* Q = nullptr) {
-  constexpr bool PULL = (FLAGS & kFlagPull) != 0;
-  if ((FLAGS & kFlagProf) && out_prof == nullptr) return (int)cudaErrorInvalidValue;
-  int blocks = (L.n + kThreads - 1) / kThreads;
-  Items items{};
-  if (PULL) {
-    if (Q == nullptr || Q->grid < 1 || Q->chunk < 1 || Q->chunks < 1)
-      return (int)cudaErrorInvalidValue;
-    const long long total = (long long)Q->chunks * L.n;
-    const bool parts = Q->chunks > 1;
-    if (total > 2147483647LL || (long long)Q->grid * kThreads > 2147483647LL)
-      return (int)cudaErrorInvalidValue;
-    if (!L.occupancy && (Q->next == nullptr || (parts && Q->part_rad == nullptr) ||
-                         (parts && out_work && Q->part_work == nullptr)))
-      return (int)cudaErrorInvalidValue;
-    blocks = Q->grid;
-    items = Items{px, py, s0, s1, Q->next, parts ? Q->part_rad : out_rad,
-                  out_work ? (parts ? Q->part_work : out_work) : nullptr, Q->thread_work,
-                  L.n, Q->chunk, (int)total, blocks * kThreads};
-  }
+                        unsigned long long* out_blocks, const QueueLaunch* Q) {
+  if ((FLAGS & kFlagProf) && out_prof == nullptr && !L.occupancy)
+    return (int)cudaErrorInvalidValue;
+  if (Q == nullptr || Q->grid < 1 || Q->chunk < 1 || Q->chunks < 1)
+    return (int)cudaErrorInvalidValue;
+  const long long total = (long long)Q->chunks * L.n;
+  const bool parts = Q->chunks > 1;
+  if (total > 2147483647LL || (long long)Q->grid * kThreads > 2147483647LL)
+    return (int)cudaErrorInvalidValue;
+  if (!L.occupancy && (Q->next == nullptr || (parts && Q->part_rad == nullptr) ||
+                       (parts && out_work && Q->part_work == nullptr)))
+    return (int)cudaErrorInvalidValue;
+  const int blocks = Q->grid;
+  const Items items{px, py, s0, s1, Q->next, parts ? Q->part_rad : out_rad,
+                    out_work ? (parts ? Q->part_work : out_work) : nullptr, Q->thread_work,
+                    L.n, Q->chunk, (int)total, blocks * kThreads};
   TraceScene scene = L.scene;
   size_t smem = 0;
-  const size_t tables = (FLAGS & kFlagLoopSobol) ? 0 : sobol_smem_bytes(L.p);
-  int err = set_walk(&scene, L.walk, L.q_cap, L.queue, L.queue_len, blocks, kThreads, tables,
-                     (FLAGS & kFlagFirstWalk) != 0, &smem);
+  int err = set_walk(&scene, L.walk, L.q_cap, L.queue, L.queue_len, blocks, kThreads,
+                     sobol_smem_bytes(L.p), &smem);
   if (err != 0) return err;
-  if (PULL && !L.occupancy) {
+  if (!L.occupancy) {
     err = (int)cudaMemsetAsync(Q->next, 0, sizeof(int), L.stream);
     if (err != 0) return err;
   }
   err = dispatch_flags_walk<FLAGS>(scene, L.walk, [&](auto w) {
     constexpr int W = decltype(w)::value;
-    auto kernel = render_kernel<false, W, FLAGS>();
-    if (L.images.texels) kernel = render_kernel<true, W, FLAGS>();
+    auto kernel = fused_render_kernel<false, W, FLAGS>;
+    if (L.images.texels) kernel = fused_render_kernel<true, W, FLAGS>;
     return launch_or_report(L, kernel, blocks, smem, L.p, px, py, s0, s1, scene, L.images,
                             L.shade_rows, L.sobol, out_rad, out_work, out_prof, out_blocks,
                             L.n, items);
   });
-  if (err != 0 || !PULL || L.occupancy || Q->chunks == 1) return err;
+  if (err != 0 || L.occupancy || Q->chunks == 1) return err;
   item_sum_kernel<<<(L.n + kThreads - 1) / kThreads, kThreads, 0, L.stream>>>(
       Q->part_rad, items.work ? Q->part_work : nullptr, out_rad, out_work, L.n, Q->chunks);
   return (int)cudaGetLastError();
@@ -430,9 +363,9 @@ int launch_bounce(const RenderLaunch& L, float* fstate, int* istate, const int* 
   const int blocks = (L.n + kThreads - 1) / kThreads;
   TraceScene scene = L.scene;
   size_t smem = 0;
-  const size_t tables = (regen && !(FLAGS & kFlagLoopSobol)) ? sobol_smem_bytes(L.p) : 0;
+  const size_t tables = regen ? sobol_smem_bytes(L.p) : 0;
   int err = set_walk(&scene, L.walk, L.q_cap, L.queue, L.queue_len, blocks, kThreads, tables,
-                     (FLAGS & kFlagFirstWalk) != 0, &smem);
+                     &smem);
   if (err != 0) return err;
   return dispatch_flags_walk<FLAGS>(scene, L.walk, [&](auto w) {
     constexpr int W = decltype(w)::value;
@@ -480,11 +413,12 @@ inline int read_launch(RenderLaunch* L, const int* iparams, const float* fparams
   return 0;
 }
 
-// The variants, defined in fused_render_variants.cu and bounce_variants.cu.
-int fused_render_variant(int flags, const RenderLaunch& L, const int* px, const int* py,
-                         const int* s0, const int* s1, float* out_rad, int* out_work,
-                         long long* out_prof);
-int bounce_variant(int flags, const RenderLaunch& L, float* fstate, int* istate, const int* px,
+// The phase profile's instantiations, defined in fused_render_variants.cu
+// and bounce_variants.cu.
+int fused_render_profile(const RenderLaunch& L, const int* px, const int* py, const int* s0,
+                         const int* s1, float* out_rad, int* out_work, long long* out_prof,
+                         const QueueLaunch* Q);
+int bounce_profile(const RenderLaunch& L, float* fstate, int* istate, const int* px,
                    const int* py, const int* limit, long long* out_prof);
 // The estimator instantiations, defined in fused_render_estimator.cu and
 // bounce_estimator.cu.

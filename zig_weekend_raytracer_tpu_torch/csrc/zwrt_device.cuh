@@ -79,17 +79,13 @@ constexpr int kBigIdx = 1 << 30;
 constexpr float kAabbMaxMult = 1.00000024f;
 constexpr int kGroup = 8;  // slots per leaf group (the JAX kernels' sublanes)
 enum TraceMode { kTraceNone = 0, kTraceBrute = 1, kTraceTree = 2 };
-// Tree walks (ops/trace.py:WALKS, in its order), then the first designs of
-// the spec, uni, rowqueue and queue walks, which only their measurement
-// variants take (kFlagFirstWalk), and kWalkNoTree, which the default and
-// estimator launches of every walk but uni take on a scene where neither
-// kind has a tree (render_kernels.cuh:dispatch_flags_walk): two brute
-// stages, no walk's code or state.  The last five are never a launch's walk
-// code.
+// Tree walks (ops/trace.py:WALKS, in its order), then kWalkNoTree, which
+// the launches of every walk but uni take on a scene where neither kind has
+// a tree (render_kernels.cuh:dispatch_flags_walk): two brute stages, no
+// walk's code or state.  kWalkNoTree is never a launch's walk code.
 enum Walk {
   kWalkCond = 0, kWalkQueue = 1, kWalkRowQueue = 2, kWalkSpec = 3, kWalkUni = 4,
-  kWalkSpecFirst = 5, kWalkUniFirst = 6, kWalkRowQueueFirst = 7, kWalkQueueFirst = 8,
-  kWalkNoTree = 9
+  kWalkNoTree = 5
 };
 // Threads per block of the render and bounce launchers
 // (ops/fused_render.py:THREADS).
@@ -97,17 +93,15 @@ constexpr int kThreads = 128;
 // Leaf entries of kWalkQueue's per-thread queue in shared memory
 // (ops/trace.py:QUEUE_CAP): the walk sweeps them when it holds this many.
 // Chosen on an NVIDIA H100 80GB HBM3 at 700 W from 4, 8 and 16, each a
-// throwaway build timed at chip_smoke.py phase 18's five plans (PERF.md):
-// 8 was the fastest summed over the three main paths and the only one
-// ahead of the first design on all five; 4 ran the rtw_final paths 1-8%
-// faster but balls 6% slower (behind the first design), 16 balls 1-3%
-// faster but rtw_final 12-21% slower.
+// throwaway build timed at five plans of balls and rtw_final (PERF.md): 8
+// was the fastest summed over the three main paths and the only one ahead
+// of the design it replaced on all five; 4 ran the rtw_final paths 1-8%
+// faster but balls 6% slower, 16 balls 1-3% faster but rtw_final 12-21%
+// slower.
 constexpr int kQueueCap = 8;
 // The walks whose lanes walk a warp's node pointer together: they read the
 // group of lanes that trace together (trace_closest's ``group``).
-__host__ __device__ constexpr bool warp_walk(int walk) {
-  return walk == kWalkRowQueue || walk == kWalkRowQueueFirst;
-}
+__host__ __device__ constexpr bool warp_walk(int walk) { return walk == kWalkRowQueue; }
 // Shared memory of a block that kWalkRowQueue fills with packed tree nodes
 // (ops/fused_render.py:ROWQUEUE_NODE_BYTES): 448 nodes of 32 bytes, so that
 // with the staged Sobol tables of up to 65,536 samples and the warp queues
@@ -368,27 +362,16 @@ __device__ __forceinline__ uint32_t ray_id_of(const Params& p, int sample, int p
   return ((uint32_t)sample * (uint32_t)p.height + (uint32_t)py) * (uint32_t)p.width + (uint32_t)px;
 }
 
-// Camera ray of one (pixel, sample); returns the time draw.  LOOP_SOBOL
-// takes the Sobol u32s from the bit loops over ``sobol`` (the respawn up
-// before the factored tables, kept for measurement: kFlagLoopSobol), else from the factored
-// tables and this lane's ``q``: the same bits.
-template <bool LOOP_SOBOL>
-__device__ __forceinline__ float generate_ray(
-    const Params& p, const uint32_t* sobol, SobolPixel q, uint32_t rid, int px, int py,
-    int sample, V3* origin, V3* direction) {
+// Camera ray of one (pixel, sample); returns the time draw.  The Sobol
+// u32s come from the factored tables and this lane's pixel part ``q``.
+__device__ __forceinline__ float generate_ray(const Params& p, SobolPixel q, uint32_t rid,
+                                              int px, int py, int sample, V3* origin,
+                                              V3* direction) {
   float pxf = (float)px, pyf = (float)py;
   float ox, oy;
   if (p.sampler == kSobol) {
-    uint32_t v0, v1;
-    if (LOOP_SOBOL) {
-      uint64_t idx = sobol_interval_to_index(sobol, p.log2_scale, (uint32_t)sample,
-                                             (uint32_t)px, (uint32_t)py);
-      v0 = sobol_u32(sobol + kSobolDim0, idx);
-      v1 = sobol_u32(sobol + kSobolDim1, idx);
-    } else {
-      v0 = q.q0 ^ sobol_sample_part(p, 0, (uint32_t)sample);
-      v1 = q.q1 ^ sobol_sample_part(p, 1, (uint32_t)sample);
-    }
+    const uint32_t v0 = q.q0 ^ sobol_sample_part(p, 0, (uint32_t)sample);
+    const uint32_t v1 = q.q1 ^ sobol_sample_part(p, 1, (uint32_t)sample);
     float fscale = (float)(1 << p.log2_scale);
     float sx = sobol_unit(v0);
     float sy = sobol_unit(v1);
@@ -510,10 +493,11 @@ __device__ __forceinline__ int leaf_word_of(const PackedNode& n) { return __floa
 
 // ``usph`` and ``uquad`` are the unified tree's leaf tables (tab, oi and
 // span read), ``ubox`` (u_nodes, 6) and ``ulink`` (u_nodes, 3) [miss
-// link, first leaf group or -1, leaf kind] its nodes, which the first
-// design reads, and ``unodes`` the same nodes packed (kWalkUni; null for
-// a launch of another walk).  ``queue`` is the per-thread leaf queue in
-// device memory of kWalkSpec, kWalkUni and kWalkQueueFirst, lane-major:
+// link, first leaf group or -1, leaf kind] its nodes as the wrappers pack
+// them (no device walk reads them: they keep the parameter's layout), and
+// ``unodes`` the same nodes packed (kWalkUni; null for a launch of another
+// walk).  ``queue`` is the per-thread leaf queue in device memory of
+// kWalkSpec and kWalkUni, lane-major:
 // entry j of thread t at queue[j * q_stride + t], q_stride the launch's
 // thread count.  The others keep theirs in the block's dynamic shared
 // memory from word ``q_smem_words``: kWalkQueue kQueueCap entries per
@@ -667,13 +651,13 @@ __device__ __forceinline__ int* bounded_queue(const TraceScene& s) {
 // 700 W, at the port's leaf span: the bounce kernel on rtw_final
 // 400x400@16 d8 takes 6.542 ms against a bound of 0.402 ms, the render
 // kernel with the texture LUT 6.485, on balls 400x400@32 d10 9.301 against
-// 0.961 (the first design: 7.983, 7.697 and 9.110 ms); ptxas gives the
-// render and regenerating bounce instantiations 72 registers, so 7 blocks
-// a SM where the first design's 64 give 8.  Its first design
-// (tree_walk_queue_first) walked with the stage's seed t, pushed every hit
-// leaf to a queue of (n_nodes + 1) / 2 ints a thread in device memory, each
-// push and read-back its own 32-byte sector, and read the unpacked nodes
-// (nine scattered words a step).
+// 0.961 (the design it replaced: 7.983, 7.697 and 9.110 ms, PERF.md); ptxas
+// gives the render and regenerating bounce instantiations 72 registers, so
+// 7 blocks a SM where the replaced design's 64 gave 8.  That design walked
+// with the stage's seed t, pushed every hit leaf to a queue of (n_nodes +
+// 1) / 2 ints a thread in device memory, each push and read-back its own
+// 32-byte sector, and read the unpacked nodes (nine scattered words a
+// step).
 // Design, K3's bounded queue walk (closest_hit.cu:tree_walk_bounded) over
 // packed nodes: (a) each step reads one packed 32-byte node (two 16-byte
 // loads) and culls with the thread's running best t; (b) a hit leaf goes to
@@ -705,29 +689,6 @@ __device__ __forceinline__ void tree_walk_queue(const KindTables& k, const Trace
     for (int j = 0; j < sp; ++j)
       leaf_sweep<KIND>(k, q[j * kThreads], ray, moving, best, kind, idx);
   } while (node < k.n_nodes);
-}
-
-// The first design of kWalkQueue, kept for measurement only
-// (kWalkQueueFirst, the kFlagFirstWalk variants): walk with the stage's
-// seed t and only (node, cursor) live, push each hit leaf to this thread's
-// queue in device memory in preorder, then sweep the queue with the fresh
-// t.  A tree of n nodes has at most (n + 1) / 2 leaves, which the wrapper's
-// capacity covers, so a push never overflows.
-template <int KIND>
-__device__ __forceinline__ void tree_walk_queue_first(const KindTables& k, const TraceScene& s,
-                                                      const Ray& ray, bool moving, float* best,
-                                                      int* kind, int* idx) {
-  int* q = s.queue + blockIdx.x * blockDim.x + threadIdx.x;
-  const int stride = s.q_stride;
-  const float t_seed = *best;
-  int node = 0, sp = 0;
-  while (node < k.n_nodes) {
-    bool hit = slab_hit(k.box + (size_t)node * 6, ray.o, ray.inv_d, ray.t_min, t_seed);
-    int miss = k.link[2 * node], leaf = k.link[2 * node + 1];
-    if (hit && leaf >= 0) q[(sp++) * stride] = leaf;
-    node = (hit && leaf < 0) ? node + 1 : miss;
-  }
-  for (int j = 0; j < sp; ++j) leaf_sweep<KIND>(k, q[j * stride], ray, moving, best, kind, idx);
 }
 
 // kWalkRowQueue's warp queues, after the staged Sobol tables and nodes.
@@ -767,9 +728,9 @@ __device__ __forceinline__ PackedNode walk_node(const KindTables& k, int node) {
 // leaf rows in L1 and L2, so bytes do not bound it.  chip_smoke.py phase
 // 18 on an NVIDIA H100 80GB HBM3 at 700 W, leaf span 2: the render kernel
 // on balls 400x400@32 d10 takes 13.693 ms against a bound of 1.159 ms, the
-// bounce kernel on rtw_final 400x400@16 d8 12.971 against 0.485 (the first
-// design: 15.030 and 15.078 ms; the queue walk's first design: 11.761 and
-// 9.331).  The lockstep walk's union of its lanes' paths is what it loses
+// bounce kernel on rtw_final 400x400@16 d8 12.971 against 0.485 (the
+// design it replaced, the same lockstep walk over the unpacked nodes with
+// no second test before the sweep: 15.030 and 15.078 ms; PERF.md).  The lockstep walk's union of its lanes' paths is what it loses
 // to the queue walk: 1.6 to 3.5 times the cond walk's slab tests.  The
 // lanes of ``group`` walk one node pointer, descending when any of them
 // hits the node's box with its seed t, so the warp follows the union of
@@ -818,34 +779,6 @@ __device__ __forceinline__ void tree_walk_warpqueue(const KindTables& k, const T
   __syncwarp(group);
 }
 
-// The first design of kWalkRowQueue, kept for measurement only
-// (kWalkRowQueueFirst, the kFlagFirstWalk variants): the same lockstep
-// walk over the unpacked ``box`` and ``link`` (nine scattered words a
-// step), each hit leaf queued as (its first group, the lanes' ballot) and
-// swept by every marked lane with no second test.
-template <int KIND>
-__device__ __forceinline__ void tree_walk_warpqueue_first(const KindTables& k,
-                                                          const TraceScene& s, const Ray& ray,
-                                                          bool moving, unsigned group,
-                                                          float* best, int* kind, int* idx) {
-  const unsigned me = 1u << (threadIdx.x % kWarp);
-  int2* q = warp_queues(s) + (threadIdx.x / kWarp) * s.q_cap;
-  const float t_seed = *best;
-  int node = 0, sp = 0;
-  while (node < k.n_nodes) {
-    bool hit = slab_hit(k.box + (size_t)node * 6, ray.o, ray.inv_d, ray.t_min, t_seed);
-    unsigned bits = __ballot_sync(group, hit);
-    int miss = k.link[2 * node], leaf = k.link[2 * node + 1];
-    if (bits != 0u && leaf >= 0) q[sp++] = make_int2(leaf, (int)bits);
-    node = (bits != 0u && leaf < 0) ? node + 1 : miss;
-  }
-  for (int j = 0; j < sp; ++j) {
-    int2 e = q[j];
-    if ((unsigned)e.y & me) leaf_sweep<KIND>(k, e.x, ray, moving, best, kind, idx);
-  }
-  __syncwarp(group);
-}
-
 // The per-thread leaf queue of this thread in device memory (kWalkSpec,
 // kWalkUni), lane-major.
 __device__ __forceinline__ int* thread_queue(const TraceScene& s) {
@@ -859,14 +792,15 @@ __device__ __forceinline__ int* thread_queue(const TraceScene& s) {
 // stay in L1 and L2, so bytes do not bound it.  chip_smoke.py phase 18 on
 // an NVIDIA H100 80GB HBM3 at 700 W, leaf span 2: the bounce kernel on
 // rtw_final 400x400@16 d8 takes 9.612 ms against a bound of 0.481 ms, the
-// render kernel on balls 400x400@32 d10 12.275 against 1.151 (the first
-// design: 11.525 and 19.320 ms).  Design: each step issues the loads of
+// render kernel on balls 400x400@32 d10 12.275 against 1.151 (the design
+// it replaced, which swept each hit leaf inline over the unpacked nodes:
+// 11.525 and 19.320 ms; PERF.md).  Design: each step issues the loads of
 // both successors (node + 1 and the miss link, clamped for the load only)
 // and slab-tests them against the stage's seed t, so the next node's box is
 // in flight while this step's test and branch resolve, and the loop carries
 // only (node, its miss link and leaf word, its hit, cursor).  A hit leaf is
 // pushed to the per-thread queue in preorder and the queue is swept after
-// the walk with the fresh t, as tree_walk_queue_first does: the walk loop has no
+// the walk with the fresh t: the walk loop has no
 // sweep to wait behind, and the hits are bitwise the cond walk's (a stale t
 // only admits more leaves; only a strictly closer hit replaces the best).
 // Each step reads two packed 32-byte nodes (PackedNode).  The queue holds
@@ -903,8 +837,8 @@ __device__ __forceinline__ void tree_walk_spec(const KindTables& k, const TraceS
 // unified tree (ops/trace.py:uni_cond_walk); on rtw_final 400x400@16 d8
 // (chip_smoke.py phase 18, NVIDIA H100 80GB HBM3, 700 W) the bounce kernel
 // takes 10.220 ms against 0.490 at leaf span 2 and 8.397 against 0.390 at
-// the port's span 1 (the first design: 16.324 and 9.597 ms; the per-kind
-// queue walk's first design at span 1: 7.792).  Design: one walk of the
+// the port's span 1 (the design it replaced, one cond walk of the unified
+// tree that swept each leaf inline: 16.324 and 9.597 ms; PERF.md).  Design: one walk of the
 // unified tree with the stage's seed t and only (node, cursors) live, over
 // packed 32-byte nodes (two 16-byte loads a step); the loop has no
 // leaf-kind branch and no sweep: a hit leaf is pushed to the per-thread
@@ -934,71 +868,23 @@ __device__ __forceinline__ void uni_tree_walk(const TraceScene& s, const Ray& ra
     leaf_sweep<kQuad>(s.uquad, q[j * stride], ray, false, best, kind, idx);
 }
 
-// The first design of kWalkSpec, kept for measurement only
-// (kWalkSpecFirst, the kFlagFirstWalk variants): the cond walk that loads
-// and slab-tests both successors against the t from before this step's
-// leaf sweep, and sweeps a hit leaf inline.
-template <int KIND>
-__device__ __forceinline__ void tree_walk_spec_first(const KindTables& k, const Ray& ray,
-                                                     bool moving, float* best, int* kind,
-                                                     int* idx) {
-  const int last = k.n_nodes - 1;
-  bool hit = slab_hit(k.box, ray.o, ray.inv_d, ray.t_min, *best);
-  int node = 0;
-  while (node < k.n_nodes) {
-    int miss = k.link[2 * node], leaf = k.link[2 * node + 1];
-    const float t_pre = *best;
-    const int desc_node = node + 1 < last ? node + 1 : last;
-    const int miss_node = miss < last ? miss : last;
-    bool hit_desc = slab_hit(k.box + (size_t)desc_node * 6, ray.o, ray.inv_d, ray.t_min, t_pre);
-    bool hit_miss = slab_hit(k.box + (size_t)miss_node * 6, ray.o, ray.inv_d, ray.t_min, t_pre);
-    if (hit && leaf >= 0) leaf_sweep<KIND>(k, leaf, ray, moving, best, kind, idx);
-    bool desc = hit && leaf < 0;
-    node = desc ? node + 1 : miss;
-    hit = desc ? hit_desc : hit_miss;
-  }
-}
-
-// The first design of kWalkUni, kept for measurement only
-// (kWalkUniFirst): one cond walk over the unified tree's ``ubox`` and
-// ``ulink``, each kind-pure leaf swept inline by its kind.
-__device__ __forceinline__ void uni_tree_walk_first(const TraceScene& s, const Ray& ray,
-                                                    bool moving, float* best, int* kind,
-                                                    int* idx) {
-  int node = 0;
-  while (node < s.u_nodes) {
-    bool hit = slab_hit(s.ubox + (size_t)node * 6, ray.o, ray.inv_d, ray.t_min, *best);
-    int miss = s.ulink[3 * node], leaf = s.ulink[3 * node + 1];
-    if (hit && leaf >= 0) {
-      if (s.ulink[3 * node + 2] == kSphere) leaf_sweep<kSphere>(s.usph, leaf, ray, moving, best, kind, idx);
-      else leaf_sweep<kQuad>(s.uquad, leaf, ray, false, best, kind, idx);
-    }
-    node = (hit && leaf < 0) ? node + 1 : miss;
-  }
-}
-
-// One kind's tree stage in the walk WALK (not kWalkUni nor kWalkUniFirst);
-// ``group`` as tree_walk_warpqueue takes it.
+// One kind's tree stage in the walk WALK (not kWalkUni); ``group`` as
+// tree_walk_warpqueue takes it.
 template <int KIND, int WALK>
 __device__ __forceinline__ void tree_stage(const KindTables& k, const TraceScene& s,
                                            const Ray& ray, bool moving, unsigned group,
                                            float* best, int* kind, int* idx) {
   if (WALK == kWalkQueue) tree_walk_queue<KIND>(k, s, ray, moving, best, kind, idx);
-  else if (WALK == kWalkQueueFirst)
-    tree_walk_queue_first<KIND>(k, s, ray, moving, best, kind, idx);
   else if (WALK == kWalkRowQueue)
     tree_walk_warpqueue<KIND>(k, s, ray, moving, group, best, kind, idx);
-  else if (WALK == kWalkRowQueueFirst)
-    tree_walk_warpqueue_first<KIND>(k, s, ray, moving, group, best, kind, idx);
   else if (WALK == kWalkSpec) tree_walk_spec<KIND>(k, s, ray, moving, best, kind, idx);
-  else if (WALK == kWalkSpecFirst) tree_walk_spec_first<KIND>(k, ray, moving, best, kind, idx);
   else tree_walk<KIND>(k, ray, moving, best, kind, idx);
 }
 
 // The closest hit of one ray below ``t_start``; kind -1 on a miss, with
 // *best then still t_start.  WALK picks the tree walk at compile time
-// (kWalkNoTree: none, for a scene without trees); kWalkRowQueue and its
-// first design read ``group``, the lanes of the warp that call it together
+// (kWalkNoTree: none, for a scene without trees); kWalkRowQueue reads
+// ``group``, the lanes of the warp that call it together
 // (tree_walk_warpqueue).
 template <int WALK>
 __device__ __forceinline__ void trace_closest(const TraceScene& s, V3 o, V3 d, float time,
@@ -1017,9 +903,8 @@ __device__ __forceinline__ void trace_closest(const TraceScene& s, V3 o, V3 d, f
   *kind = -1;
   *idx = 0;
   const bool moving = s.has_moving != 0;
-  if (WALK == kWalkUni || WALK == kWalkUniFirst) {
-    if (WALK == kWalkUni) uni_tree_walk(s, ray, moving, best, kind, idx);
-    else uni_tree_walk_first(s, ray, moving, best, kind, idx);
+  if (WALK == kWalkUni) {
+    uni_tree_walk(s, ray, moving, best, kind, idx);
     return;
   }
   if (s.sph.mode == kTraceBrute) brute_stage<kSphere>(s.sph, ray, moving, best, kind, idx);
@@ -1080,25 +965,22 @@ inline void set_nodes(TraceScene* s, const void* const* nodes) {
 }
 
 // Host side: checks a launch's walk against the scene and sets up its leaf
-// queue.  The walk's current design (``first`` false) or, under
-// kFlagFirstWalk, its first design.  kWalkQueue keeps kQueueCap entries per
-// thread (``q_cap`` must say so: the wrapper priced that queue) in the
-// block's dynamic shared memory after the ``smem_before`` bytes of staged
-// tables, where its scene has a tree; kWalkRowQueue ``q_cap`` entries per
-// warp there, after, for its current design, the first nodes in preorder
-// of the sphere tree and then of the quad tree, as many as
-// kRowQueueNodeBytes holds (stage_nodes); kWalkSpec, kWalkUni and
-// kWalkQueue's first design ``q_cap`` entries per thread in ``queue``
-// (``queue_len`` ints).  *smem is the block's dynamic shared memory in
-// all.  Returns a cudaError_t: invalid for an unknown walk, a uni walk
-// without the unified tree, a walk other than cond without its packed
-// nodes, a per-thread or per-warp queue whose capacity does not cover the
-// leaves of the trees it walks (a tree of n nodes has at most (n + 1) / 2;
-// those walks push without a check, and the uni walk fills its queue from
-// both ends), a device queue too short for the capacity, or a kWalkQueue
-// launch whose ``q_cap`` is not kQueueCap.
+// queue.  kWalkQueue keeps kQueueCap entries per thread (``q_cap`` must say
+// so: the wrapper priced that queue) in the block's dynamic shared memory
+// after the ``smem_before`` bytes of staged tables, where its scene has a
+// tree; kWalkRowQueue ``q_cap`` entries per warp there, after the first
+// nodes in preorder of the sphere tree and then of the quad tree, as many
+// as kRowQueueNodeBytes holds (stage_nodes); kWalkSpec and kWalkUni
+// ``q_cap`` entries per thread in ``queue`` (``queue_len`` ints).  *smem is
+// the block's dynamic shared memory in all.  Returns a cudaError_t: invalid
+// for an unknown walk, a uni walk without the unified tree, a walk other
+// than cond without its packed nodes, a per-thread or per-warp queue whose
+// capacity does not cover the leaves of the trees it walks (a tree of n
+// nodes has at most (n + 1) / 2; those walks push without a check, and the
+// uni walk fills its queue from both ends), a device queue too short for
+// the capacity, or a kWalkQueue launch whose ``q_cap`` is not kQueueCap.
 inline int set_walk(TraceScene* s, int walk, int q_cap, int* queue, int queue_len, int blocks,
-                    int threads, size_t smem_before, bool first, size_t* smem) {
+                    int threads, size_t smem_before, size_t* smem) {
   s->queue = queue;
   s->q_stride = blocks * threads;
   s->q_cap = q_cap;
@@ -1107,7 +989,7 @@ inline int set_walk(TraceScene* s, int walk, int q_cap, int* queue, int queue_le
   if (walk == kWalkUni &&
       (s->u_nodes < 1 || s->unodes == nullptr || q_cap < (s->u_nodes + 1) / 2))
     return (int)cudaErrorInvalidValue;
-  const bool bounded = walk == kWalkQueue && !first;
+  const bool bounded = walk == kWalkQueue;
   KindTables* kinds[2] = {&s->sph, &s->quad};
   int room = kRowQueueNodeBytes / (int)sizeof(PackedNode);
   bool trees = false;
@@ -1116,14 +998,14 @@ inline int set_walk(TraceScene* s, int walk, int q_cap, int* queue, int queue_le
     trees = true;
     const bool covered = bounded ? q_cap == kQueueCap : q_cap >= (k->n_nodes + 1) / 2;
     if (!covered || k->nodes == nullptr) return (int)cudaErrorInvalidValue;
-    if (walk == kWalkRowQueue && !first) {
+    if (walk == kWalkRowQueue) {
       k->n_staged = k->n_nodes < room ? k->n_nodes : room;
       k->staged_word = (int)(*smem / sizeof(uint32_t));
       room -= k->n_staged;
       *smem += (size_t)k->n_staged * sizeof(PackedNode);
     }
   }
-  const bool per_thread = (walk == kWalkQueue && first) || walk == kWalkSpec || walk == kWalkUni;
+  const bool per_thread = walk == kWalkSpec || walk == kWalkUni;
   if (per_thread && q_cap > 0 &&
       (queue == nullptr || (long long)queue_len < (long long)q_cap * s->q_stride))
     return (int)cudaErrorInvalidValue;
@@ -1291,23 +1173,16 @@ struct Path {
 };
 
 // Instantiation flags of the drain and the kernels (render_kernels.cuh).
-// kFlagProf: each lane adds clock64() deltas per phase (respawn, trace,
+// kFlagProf: each thread adds clock64() deltas per phase (respawn, trace,
 // shade) and, at each phase's entry, the converged lanes of its warp
-// (__popc(__activemask())) to a Prof; kFlagLoopSobol: the respawn runs the
-// Sobol bit loops, as before the factored tables; kFlagEstimator: the
-// shading applies Params' rr_start and clamp (shade_hit); kFlagFirstWalk:
-// the drain is the default's, and the kernel walks kWalkSpecFirst,
-// kWalkUniFirst or kWalkRowQueueFirst, the first designs of the spec, uni
-// and rowqueue walks, where the launch names kWalkSpec, kWalkUni or
-// kWalkRowQueue (render_kernels.cuh: dispatch_flags_walk); kFlagPull: the
-// drain takes its windows from the render kernel's work queue (Items,
-// next_item).  The bounce kernel's instantiations take 0, the render
-// kernel's default ones kFlagPull.
-enum DrainFlags {
-  kFlagProf = 1, kFlagLoopSobol = 2, kFlagEstimator = 4, kFlagFirstWalk = 8, kFlagPull = 16
-};
+// (__popc(__activemask())) to a Prof; kFlagEstimator: the shading applies
+// Params' rr_start and clamp (shade_hit); kFlagPull: the drain takes its
+// windows from the render kernel's work queue (Items, next_item).  The
+// bounce kernel's default instantiations take 0, the render kernel's
+// kFlagPull.
+enum DrainFlags { kFlagProf = 1, kFlagEstimator = 2, kFlagPull = 4 };
 enum ProfPhase { kPhaseRespawn = 0, kPhaseTrace = 1, kPhaseShade = 2, kPhases = 3 };
-// Columns of a lane's profile (int64): cycles, entries and active lanes
+// Columns of a thread's profile (int64): cycles, entries and active lanes
 // summed per phase, then the drain's whole cycles.
 constexpr int kProfCols = 3 * kPhases + 1;
 
@@ -1681,13 +1556,12 @@ __device__ __forceinline__ void drain(const Params& p, const TraceScene& scene,
                                       Prof* prof = nullptr, const Items* items = nullptr,
                                       int item = 0) {
   constexpr bool PROF = (FLAGS & kFlagProf) != 0;
-  constexpr bool LOOP_SOBOL = (FLAGS & kFlagLoopSobol) != 0;
   constexpr bool EST = (FLAGS & kFlagEstimator) != 0;
   constexpr bool PULL = (FLAGS & kFlagPull) != 0;
   constexpr bool LANE_PULL = PULL && WALK == kWalkNoTree;
   constexpr bool WARP_PULL = PULL && WALK != kWalkNoTree;
   const long long t_start = PROF ? clock64() : 0;
-  SobolPixel q = LOOP_SOBOL ? SobolPixel{0u, 0u} : sobol_pixel(p, sobol, px, py);
+  SobolPixel q = sobol_pixel(p, sobol, px, py);
   if (PROF) prof->cycles[kPhaseRespawn] += clock64() - t_start;
   const int stride = p.stride;
   unsigned group = kAllLanes;
@@ -1712,7 +1586,7 @@ __device__ __forceinline__ void drain(const Params& p, const TraceScene& scene,
       if (WARP_PULL) item_pixel(*items, item, px, py);
       sample += stride;
       s.rid = ray_id_of(p, sample, px, py);
-      s.time = generate_ray<LOOP_SOBOL>(p, sobol, q, s.rid, px, py, sample, &s.o, &s.d);
+      s.time = generate_ray(p, q, s.rid, px, py, sample, &s.o, &s.d);
       s.thr = mk(1.0f, 1.0f, 1.0f);
       s.depth = 0;
       alive = true;

@@ -35,10 +35,9 @@ lies where the card's launch reads it.  Nothing waits for the card until
 the profiler's ``snapshot`` reads the counters, and recording changes no
 output.
 
-``bounce_regen_variant`` launches the regenerating mode's measurement
-variants (the phase profile, the earlier Sobol bit-loop respawn, the first
-designs of the queue, rowqueue, spec and uni walks), counted apart in
-``bounce_regen_variant.launches``; no path of the renderer runs them.
+``bounce_regen_profile`` launches the regenerating mode's phase profile
+(``FLAG_PROF``), counted apart in ``bounce_regen_profile.launches``; no
+path of the renderer runs it.
 ``bounce_regen_occupancy`` launches nothing: it reports the blocks per SM
 and the shared memory of the instantiation a launch would take.
 
@@ -66,10 +65,9 @@ from ..scene import CompiledScene
 from ..utils import profiler
 from . import _build
 from .fused_render import (
-    BLOCK_STAMP_COLS, FIRST_DESIGN_WALKS, FLAG_FIRST_WALK, FLAG_LOOP_SOBOL, FLAG_PROF, PROF_COLS,
-    THREADS, VARIANT_WALKS, block_sums, check_flags, check_lane_tensor, estimator_flags,
-    image_args, lane_sums, launch_params, launch_sample_end, launch_tables, node_args,
-    sobol_smem_bytes, sobol_table, trace_args, walk_args,
+    BLOCK_STAMP_COLS, FLAG_PROF, PROF_COLS, PROFILE_WALKS, THREADS, block_sums, check_flags,
+    check_lane_tensor, estimator_flags, image_args, lane_sums, launch_params, launch_sample_end,
+    launch_tables, node_args, sobol_smem_bytes, sobol_table, trace_args, walk_args,
 )
 from .trace import WALKS
 
@@ -120,8 +118,8 @@ def _launch(scene, params, fstate, istate, lanes, regen, depth, flags=0, occupan
     shade_rows = scene.shade_rows.contiguous()
     sobol = sobol_table(device, sobol_log2_scale(width, height))
     px, py, limit = (None, None, None) if lanes is None else (t.data_ptr() for t in lanes)
-    smem = sobol_smem_bytes(sampler, sample_end) if regen and not flags & FLAG_LOOP_SOBOL else 0
-    walk, code, cap, queue = walk_args(scene, n, smem, first=bool(flags & FLAG_FIRST_WALK))
+    smem = sobol_smem_bytes(sampler, sample_end) if regen else 0
+    walk, code, cap, queue = walk_args(scene, n, smem)
     check_flags(walk, flags)
     nodes, _nodes = node_args(scene, walk)
     prof = (torch.empty((PROF_COLS, n), dtype=torch.int64, device=device)
@@ -270,49 +268,42 @@ bounce_regen.launches = dict.fromkeys(WALKS, 0)
 bounce_regen.estimator_launches = 0
 
 
-def bounce_regen_variant(scene: CompiledScene, state: RegenState, px, py, sample_limit, seed,
-                         t_min: float, *, profile: bool = False, loop_sobol: bool = False,
-                         first_walk: bool = False, **kw):
-    """``bounce_regen`` through a measurement variant, as
-    ``ops/fused_render.py:render_fused_variant`` takes them (``profile`` and
-    ``loop_sobol`` for the walks of ``VARIANT_WALKS``, ``first_walk`` for
-    those of ``FIRST_DESIGN_WALKS``): returns (final state, profile or
-    None).  CPU tensors take the plain
-    version and return no profile.  ``bounce_regen_variant.launches``
-    counts launches per walk."""
+def bounce_regen_profile(scene: CompiledScene, state: RegenState, px, py, sample_limit, seed,
+                         t_min: float, **kw):
+    """``bounce_regen`` through the regenerating mode's phase profile, for
+    the walks of ``PROFILE_WALKS``: returns (final state, profile), the
+    profile (PROF_COLS, N) int64, one column a lane, as
+    ``ops/fused_render.py:render_fused_profile`` describes its columns.
+    CPU tensors take the plain version and return no profile.
+    ``bounce_regen_profile.launches`` counts launches per walk."""
     if px.device.type == "cpu":
         return integrator.bounce_regen_reference(
             scene, state, px, py, sample_limit, seed, t_min, **kw), None
-    flags = ((FLAG_PROF if profile else 0) | (FLAG_LOOP_SOBOL if loop_sobol else 0)
-             | (FLAG_FIRST_WALK if first_walk else 0))
-    if not flags:
-        raise ValueError("bounce_regen_variant needs profile, loop_sobol or first_walk; "
-                         "bounce_regen launches the default kernel")
     est, kw["rr_start"], kw["clamp"] = estimator_flags(
         scene, kw.get("rr_start", 0), kw.get("clamp", 0.0))
     out, prof, walk, _ = _regen(scene, state, px, py, sample_limit,
-                                launch_sample_end(sample_limit), seed, t_min, flags | est, **kw)
-    bounce_regen_variant.launches[walk] += 1
+                                launch_sample_end(sample_limit), seed, t_min, FLAG_PROF | est,
+                                **kw)
+    bounce_regen_profile.launches[walk] += 1
     return out, prof
 
 
-bounce_regen_variant.launches = dict.fromkeys(VARIANT_WALKS + FIRST_DESIGN_WALKS, 0)
+bounce_regen_profile.launches = dict.fromkeys(PROFILE_WALKS, 0)
 
 
 def bounce_regen_occupancy(scene: CompiledScene, state: RegenState, px, py, sample_limit, seed,
-                           t_min: float, *, first_walk: bool = False, **kw):
+                           t_min: float, **kw):
     """(blocks per SM, dynamic shared memory bytes a block) of the
     regenerating instantiation that ``bounce_regen`` on these CUDA lanes
-    would launch, or with ``first_walk`` the walk's first-design variant
-    (cudaOccupancyMaxActiveBlocksPerMultiprocessor, after the launcher has
-    raised the shared memory of an instantiation that more than
-    ``MAX_BLOCKS_PER_SM`` blocks would fit); launches nothing and counts
-    nothing."""
+    would launch (cudaOccupancyMaxActiveBlocksPerMultiprocessor, after the
+    launcher has raised the shared memory of an instantiation that more
+    than ``MAX_BLOCKS_PER_SM`` blocks would fit); launches nothing and
+    counts nothing."""
     est, kw["rr_start"], kw["clamp"] = estimator_flags(
         scene, kw.get("rr_start", 0), kw.get("clamp", 0.0))
     occ = np.zeros(2, np.int32)
     _regen(scene, state, px, py, sample_limit, launch_sample_end(sample_limit), seed, t_min,
-           (FLAG_FIRST_WALK if first_walk else 0) | est, occupancy=occ, **kw)
+           est, occupancy=occ, **kw)
     return int(occ[0]), int(occ[1])
 
 

@@ -17,11 +17,8 @@ sort key, for CUDA scenes only (``render/renderer.py:coherent_plan_keys``
 adds the lane index, and on the CPU runs the plain version);
 ``coherent_keys.launches`` counts its launches.
 
-``closest_hit_flat`` launches the kernel's first design on the same rays,
-for measurement only (one thread per ray and the per-thread walk, rays
-stacked into a (7, n) copy); its launches are counted apart in
-``closest_hit_flat.launches``.  ``launch_args`` packs a launch's checked
-arguments and launches nothing; both wrappers launch through it.
+``launch_args`` packs a launch's checked arguments and launches nothing;
+``closest_hit`` launches through it.
 """
 
 from __future__ import annotations
@@ -42,11 +39,10 @@ from .fused_render import launch_params, launch_tables, sobol_table, trace_args
 
 def launch_args(
     scene: CompiledScene, origin: V3, direction: V3, time, t_min: float,
-    t_max: float = INF, active=None, flat: bool = False,
+    t_max: float = INF, active=None,
 ):
-    """The checked arguments of one launch on CUDA rays, of
-    ``zwrt_closest_hit`` or (``flat``) of ``zwrt_closest_hit_flat``:
-    ``(args, hit, keep)``, ``hit`` the ``Hit`` the launch writes and
+    """The checked arguments of one launch of ``zwrt_closest_hit`` on CUDA
+    rays: ``(args, hit, keep)``, ``hit`` the ``Hit`` the launch writes and
     ``keep`` the tensors and host arrays that ``args`` point into."""
     device = origin.x.device
     if device.type != "cuda":
@@ -66,26 +62,21 @@ def launch_args(
     if active is not None and (active.device != device or active.shape != (n,)):
         raise ValueError(f"active must be ({n},) on {device}")
     ints, ptrs, tables = trace_args(scene)
-    if flat:
-        rays = torch.stack(parts).contiguous()
-        ray_arg = rays.data_ptr()
-        mask = None if active is None else active.to(torch.int32).contiguous()
-    else:
-        rays = tuple(t.contiguous() for t in parts)
-        ray_ptrs = np.array([t.data_ptr() for t in rays], np.uint64)
-        ray_arg = ray_ptrs.ctypes.data_as(ctypes.c_void_p)
-        mask = None if active is None else active.to(torch.bool).contiguous()
+    rays = tuple(t.contiguous() for t in parts)
+    ray_ptrs = np.array([t.data_ptr() for t in rays], np.uint64)
+    mask = None if active is None else active.to(torch.bool).contiguous()
     hit = _trace.Hit(
         torch.empty((n,), dtype=real, device=device),
         torch.empty((n,), dtype=torch.int32, device=device),
         torch.empty((n,), dtype=torch.int32, device=device),
     )
     args = (
-        ints.ctypes.data_as(ctypes.c_void_p), ptrs.ctypes.data_as(ctypes.c_void_p), ray_arg,
+        ints.ctypes.data_as(ctypes.c_void_p), ptrs.ctypes.data_as(ctypes.c_void_p),
+        ray_ptrs.ctypes.data_as(ctypes.c_void_p),
         None if mask is None else mask.data_ptr(), float(t_min), min(float(t_max), BIG),
         *(x.data_ptr() for x in hit), n, torch.cuda.current_stream(device).cuda_stream,
     )
-    keep = (ints, ptrs, tables, rays, mask, None if flat else ray_ptrs)
+    keep = (ints, ptrs, tables, rays, mask, ray_ptrs)
     return args, hit, keep
 
 
@@ -165,18 +156,3 @@ def coherent_keys(
 
 coherent_keys.launches = 0
 
-
-def closest_hit_flat(
-    scene: CompiledScene, origin: V3, direction: V3, time, t_min: float,
-    t_max: float = INF, active=None,
-) -> _trace.Hit:
-    """``closest_hit`` through the kernel's first design, for measurement;
-    CUDA tensors only."""
-    args, hit, _keep = launch_args(scene, origin, direction, time, t_min, t_max, active,
-                                   flat=True)
-    _launch("zwrt_closest_hit_flat", args)
-    closest_hit_flat.launches += 1
-    return hit
-
-
-closest_hit_flat.launches = 0

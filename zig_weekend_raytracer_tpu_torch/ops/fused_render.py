@@ -34,11 +34,11 @@ options.  The factored Sobol tables cover the sample indices the launch
 renders: up to the largest window end ``s1``, which may pass ``spp``
 (the adaptive driver's extra samples).
 
-``render_fused_variant`` launches the kernel's measurement variants
-(``csrc/render_kernels.cuh``): the per-lane phase profile and the earlier
-Sobol bit-loop respawn, and the first designs of the queue, rowqueue, spec
-and uni walks.  No path of the renderer launches them, and
-``render_fused_variant.launches`` counts them apart.
+``render_fused_profile`` launches the kernel's phase profile
+(``csrc/render_kernels.cuh``, ``FLAG_PROF``): the same work-queue kernel,
+grid and items as ``render_fused``, each thread timing its phases over
+all of its items.  No path of the renderer launches it, and
+``render_fused_profile.launches`` counts it apart.
 ``render_fused_occupancy`` launches nothing: it reports the blocks per SM
 and the shared memory of the instantiation a launch would take.
 
@@ -59,8 +59,8 @@ Each launch of the render and bounce kernels takes the tree walk of
 ``ops/trace.py:walk_of`` as it reads then (the unified tree when the scene
 has one, else ``ZWRT_TRAV``) and the instantiation compiled for that walk;
 ``walk_args`` sizes the walk's leaf queue (in the block's shared memory
-for queue and rowqueue, in device memory for spec, uni and the queue
-walk's first design) and ``node_args`` gives every walk but cond its
+for queue and rowqueue, in device memory for spec and uni) and
+``node_args`` gives every walk but cond its
 packed node tables (rowqueue stages the first ``ROWQUEUE_NODE_BYTES`` of
 them in each block's shared memory).  The walk is never cached with the
 scene, so one process can launch every walk.
@@ -93,11 +93,8 @@ BLOCK_STAMP_COLS = 3    # a block's SM, start ns, end ns (render_kernels.cuh:kBl
 IMAGE_DIMS = 4          # w, h, base, row stride per image
 PROF_PHASES = ("respawn", "trace", "shade")
 PROF_COLS = 3 * len(PROF_PHASES) + 1  # cycles, entries, active lanes; total
-FLAG_PROF, FLAG_LOOP_SOBOL, FLAG_ESTIMATOR, FLAG_FIRST_WALK = 1, 2, 4, 8  # DrainFlags
-VARIANT_WALKS = ("cond", "queue")     # the walks the profile variants are built for
-# the walks redesigned for Hopper: they read packed nodes, and their first
-# designs are kept as measurement variants
-FIRST_DESIGN_WALKS = ("queue", "rowqueue", "spec", "uni")
+FLAG_PROF, FLAG_ESTIMATOR = 1, 2      # zwrt_device.cuh:DrainFlags
+PROFILE_WALKS = ("cond", "queue")     # the walks the phase profile is built for
 THREADS = 128           # threads per block of every launcher (zwrt_device.cuh:kThreads)
 SMEM_LIMIT = 232448     # dynamic shared memory a block can have (227 KB)
 # shared memory of a block that the queue walk's leaf queues take: QUEUE_CAP
@@ -113,8 +110,6 @@ ROWQUEUE_NODE_BYTES = 14336
 # items of the render kernel's work queue that item_chunk aims at for each
 # thread the card holds (picked on an H100 from 4, 8, 16, 24 and 32: PERF.md)
 ITEMS_PER_THREAD = 16
-# the measurement variants' flags: they run one thread a lane, with no queue
-VARIANT_FLAGS = FLAG_PROF | FLAG_LOOP_SOBOL | FLAG_FIRST_WALK
 _SAMPLER_CODE = {
     SamplerKind.INDEPENDENT: 0, SamplerKind.STRATIFIED: 1, SamplerKind.SOBOL: 2,
 }
@@ -280,15 +275,14 @@ def trace_args(scene: CompiledScene):
 
 def queue_capacity(scene: CompiledScene, walk: str) -> int:
     """Leaf-queue entries that hold every leaf a walk may queue, per thread
-    (the ``queue`` walk's first design, ``spec``, ``uni``) or per warp
-    (``rowqueue``): a skip-link tree of n nodes has at most (n + 1) // 2
-    leaves, plus one as in pallas_bounce.py:_queue_cap, over the kinds that
-    have trees, or of the unified tree under ``uni``; 0 for ``cond``.  The
-    ``queue`` walk's current design holds ``QUEUE_CAP`` instead
-    (``walk_args``)."""
+    (``spec``, ``uni``) or per warp (``rowqueue``): a skip-link tree of n
+    nodes has at most (n + 1) // 2 leaves, plus one as in
+    pallas_bounce.py:_queue_cap, over the kinds that have trees, or of the
+    unified tree under ``uni``; 0 for ``cond`` and ``queue`` (which holds
+    ``QUEUE_CAP`` instead, ``walk_args``)."""
     if walk == "uni":
         return (scene.uni_tree_box.shape[0] + 1) // 2 + 1
-    if walk not in ("queue", "rowqueue", "spec"):
+    if walk not in ("rowqueue", "spec"):
         return 0
     nodes = [getattr(scene, f"{k}_tree_box").shape[0] for k in ("sph", "quad")
              if getattr(scene, f"has_{k}_tree")]
@@ -317,11 +311,10 @@ def node_args(scene: CompiledScene, walk: str):
     """(ptrs, tensors) of the packed node tables a launch of ``walk`` reads:
     ``ptrs`` (uint64) the sphere tree's, the quad tree's and the unified
     tree's (``pack_nodes``; 0 where the scene has no such tree); None and
-    () for cond, the one walk outside ``FIRST_DESIGN_WALKS``, which reads
-    none.  Built the first time a launch takes another walk (the default
-    queue walk's first launch) and cached per scene beside
-    ``trace_args``."""
-    if walk not in FIRST_DESIGN_WALKS:
+    () for cond, which reads none.  Built the first time a launch takes
+    another walk (the default queue walk's first launch) and cached per
+    scene beside ``trace_args``."""
+    if walk == "cond":
         return None, ()
     cached = _NODE_CACHE.get(scene)
     if cached is None:
@@ -347,20 +340,19 @@ def rowqueue_staged_nodes(scene: CompiledScene) -> dict:
     return out
 
 
-def walk_args(scene: CompiledScene, n: int, smem_before: int = 0, first: bool = False):
+def walk_args(scene: CompiledScene, n: int, smem_before: int = 0):
     """(walk, walk code, queue capacity, queue tensor or None) of a launch
-    over ``n`` lanes, the walk as ``walk_of`` reads it now; ``first``: of
-    its first-design variant.  ``queue`` keeps ``QUEUE_CAP`` entries per
-    thread in shared memory after ``smem_before`` bytes of staged tables,
-    where the scene has a tree, and no device queue; ``rowqueue`` one queue
-    per warp in shared memory, after those tables and its staged nodes
-    (``rowqueue_staged_nodes``); ``spec``, ``uni`` and the ``queue`` walk's
-    first design a lane-major int32 queue per thread of the launch in device
+    over ``n`` lanes, the walk as ``walk_of`` reads it now.  ``queue``
+    keeps ``QUEUE_CAP`` entries per thread in shared memory after
+    ``smem_before`` bytes of staged tables, where the scene has a tree, and
+    no device queue; ``rowqueue`` one queue per warp in shared memory, after
+    those tables and its staged nodes (``rowqueue_staged_nodes``); ``spec``
+    and ``uni`` a lane-major int32 queue per thread of the launch in device
     memory.  Raises when the queue does not fit: past 2**31 - 1 entries (the
     kernel indexes it with 32-bit ints), or past a block's 227 KB of shared
     memory."""
     walk = walk_of(scene)
-    bounded = walk == "queue" and not first
+    bounded = walk == "queue"
     cap = QUEUE_CAP if bounded else queue_capacity(scene, walk)
     queue = None
     trees = scene.has_sph_tree or scene.has_quad_tree
@@ -370,7 +362,7 @@ def walk_args(scene: CompiledScene, n: int, smem_before: int = 0, first: bool = 
             f"({QUEUE_CAP} leaf entries per thread) after {smem_before} bytes of tables, "
             f"past the card's {SMEM_LIMIT}"
         )
-    if walk in ("queue", "spec", "uni") and cap and not bounded:
+    if walk in ("spec", "uni") and cap:
         threads = -(-n // THREADS) * THREADS
         if cap * threads > 2**31 - 1:
             raise ValueError(
@@ -501,22 +493,16 @@ def sm_count(device: torch.device) -> int:
 
 
 def check_flags(walk: str, flags: int) -> None:
-    """Raises for flags that no instantiation has: the profile and Sobol
-    variants exist for the walks of ``VARIANT_WALKS``, the first-design
-    variant for those of ``FIRST_DESIGN_WALKS``, each alone and without the
-    estimator options; the estimator instantiation exists for every walk."""
-    variant = flags & (FLAG_PROF | FLAG_LOOP_SOBOL | FLAG_FIRST_WALK)
-    if variant and flags & FLAG_ESTIMATOR:
-        raise ValueError("the measurement variants have no Russian roulette or indirect "
-                         "clamp: launch them with rr_start = 0 and clamp = 0")
-    if flags & FLAG_FIRST_WALK:
-        if variant != FLAG_FIRST_WALK:
-            raise ValueError("the first-design variant has no phase profile or Sobol bit loops")
-        if walk not in FIRST_DESIGN_WALKS:
-            raise ValueError(f"no first design kept for the {walk} walk; one of "
-                             f"{FIRST_DESIGN_WALKS}")
-    elif variant and walk not in VARIANT_WALKS:
-        raise ValueError(f"no measurement variant for the {walk} walk; one of {VARIANT_WALKS}")
+    """Raises for flags that no instantiation has: the phase profile exists
+    for the walks of ``PROFILE_WALKS``, without the estimator options; the
+    estimator instantiation exists for every walk."""
+    if not flags & FLAG_PROF:
+        return
+    if flags & FLAG_ESTIMATOR:
+        raise ValueError("the phase profile has no Russian roulette or indirect clamp: "
+                         "launch it with rr_start = 0 and clamp = 0")
+    if walk not in PROFILE_WALKS:
+        raise ValueError(f"no phase profile for the {walk} walk; one of {PROFILE_WALKS}")
 
 
 def estimator_flags(scene: CompiledScene, rr_start, clamp):
@@ -613,44 +599,31 @@ def block_sums(stamps: torch.Tensor, slots: int):
     return (end - start).sum(), (end.max() - start.min()) * slots
 
 
-def render_fused_variant(
-    scene: CompiledScene, px, py, s0, s1, seed: int, t_min: float, *,
-    profile: bool = False, loop_sobol: bool = False, first_walk: bool = False, **kw,
-):
-    """``render_fused`` through a measurement variant: for the walks of
-    ``VARIANT_WALKS``, ``loop_sobol`` respawns through the Sobol bit loops
-    (the kernel before the factored tables), ``profile`` also returns each
-    lane's phase profile, (PROF_COLS, N) int64: per phase of ``PROF_PHASES``
-    the clock64 cycles, the entries and the converged lanes at entry summed,
-    then the drain's whole cycles; for the walks of ``FIRST_DESIGN_WALKS``,
-    ``first_walk`` walks the walk's first design.  Returns (radiance, work,
-    profile or None).  CPU tensors take the plain version and return no
-    profile.  ``render_fused_variant.launches`` counts launches per walk."""
+def render_fused_profile(scene: CompiledScene, px, py, s0, s1, seed: int, t_min: float, **kw):
+    """``render_fused`` with its work counts through the kernel's phase
+    profile, for the walks of ``PROFILE_WALKS``: the same work-queue
+    kernel, grid and items, so the same sums bit for bit.  Returns
+    ((radiance, work), profile): (PROF_COLS, grid * THREADS) int64, one
+    column a thread of the launch's grid summed over all of its items, per
+    phase of ``PROF_PHASES`` the clock64 cycles, the entries and the
+    converged lanes at entry, then the thread's whole cycles.  CPU tensors
+    take the plain version and return no profile.
+    ``render_fused_profile.launches`` counts launches per walk."""
     if px.device.type == "cpu":
-        _check_supported(scene)
-        rad, work = render_fused_reference(scene, px, py, s0, s1, seed, t_min,
-                                           want_work=True, **kw)
-        return rad, work, None
-    flags = ((FLAG_PROF if profile else 0) | (FLAG_LOOP_SOBOL if loop_sobol else 0)
-             | (FLAG_FIRST_WALK if first_walk else 0))
-    if not flags:
-        raise ValueError("render_fused_variant needs profile, loop_sobol or first_walk; "
-                         "render_fused launches the default kernel")
+        return render_fused(scene, px, py, s0, s1, seed, t_min, want_work=True, **kw), None
     est, kw["rr_start"], kw["clamp"] = estimator_flags(
         scene, kw.get("rr_start", 0), kw.get("clamp", 0.0))
-    out = _launch(scene, px, py, s0, s1, seed, t_min, flags | est, True, **kw)
-    render_fused_variant.launches[out.walk] += 1
-    return out.rad, out.work, out.prof
+    out = _launch(scene, px, py, s0, s1, seed, t_min, FLAG_PROF | est, True, **kw)
+    render_fused_profile.launches[out.walk] += 1
+    return (out.rad, out.work), out.prof
 
 
-render_fused_variant.launches = dict.fromkeys(VARIANT_WALKS + FIRST_DESIGN_WALKS, 0)
+render_fused_profile.launches = dict.fromkeys(PROFILE_WALKS, 0)
 
 
-def render_fused_occupancy(scene: CompiledScene, px, py, s0, s1, seed: int, t_min: float, *,
-                           first_walk: bool = False, **kw):
+def render_fused_occupancy(scene: CompiledScene, px, py, s0, s1, seed: int, t_min: float, **kw):
     """(blocks per SM, dynamic shared memory bytes a block) of the
-    instantiation that ``render_fused`` on these CUDA lanes would launch,
-    or with ``first_walk`` the walk's first-design variant
+    instantiation that ``render_fused`` on these CUDA lanes would launch
     (cudaOccupancyMaxActiveBlocksPerMultiprocessor, after the launcher has
     raised the shared memory of an instantiation that more than
     ``MAX_BLOCKS_PER_SM`` blocks would fit); launches nothing and counts
@@ -658,8 +631,7 @@ def render_fused_occupancy(scene: CompiledScene, px, py, s0, s1, seed: int, t_mi
     est, kw["rr_start"], kw["clamp"] = estimator_flags(
         scene, kw.get("rr_start", 0), kw.get("clamp", 0.0))
     occ = np.zeros(2, np.int32)
-    _launch(scene, px, py, s0, s1, seed, t_min, (FLAG_FIRST_WALK if first_walk else 0) | est,
-            False, occupancy=occ, **kw)
+    _launch(scene, px, py, s0, s1, seed, t_min, est, False, occupancy=occ, **kw)
     return int(occ[0]), int(occ[1])
 
 
@@ -718,16 +690,16 @@ def _launch(scene, px, py, s0, s1, seed, t_min, flags, want_work, *, camera_cons
             sampler, width, height, spp, stride, max_depth, has_dof, rr_start=0, clamp=0.0,
             occupancy=None, record=False):
     """One launch of the render kernel's instantiation for ``flags``
-    (a Launch).  The default and estimator instantiations are fed from the
-    work queue: the grid is the blocks the card holds at once of the
-    instantiation (asked once per scene and instantiation), or fewer where
-    the items are fewer, and ``item_chunk`` sizes the items from the
-    render's lanes (``launch_lanes``), the longest window and those blocks'
-    threads; with ``record``
-    they stamp their blocks and count each thread's passes.  The variants
-    run one thread a lane.  With ``occupancy`` (a host int32 array of 2)
-    nothing is launched: the launcher writes the instantiation's blocks per
-    SM and shared memory there."""
+    (a Launch), fed from the work queue: the grid is the blocks the card
+    holds at once of the instantiation without the profile (asked once per
+    scene and instantiation; the profile's is held to the same blocks a SM
+    and runs the same grid and items), or fewer where the items are fewer,
+    and ``item_chunk`` sizes the items from the render's lanes
+    (``launch_lanes``), the longest window and those blocks' threads; with
+    ``record`` the launch stamps its blocks and counts each thread's
+    passes.  With ``occupancy`` (a host int32 array of 2) nothing is
+    launched: the launcher writes the instantiation's blocks per SM and
+    shared memory there."""
     _check_supported(scene)
     device = px.device
     if device.type != "cuda":
@@ -751,13 +723,12 @@ def _launch(scene, px, py, s0, s1, seed, t_min, flags, want_work, *, camera_cons
         dims, texels = image_args(scene)
     shade_rows = scene.shade_rows.contiguous()
     sobol = sobol_table(device, sobol_log2_scale(width, height))
-    smem = 0 if flags & FLAG_LOOP_SOBOL else sobol_smem_bytes(sampler, sample_end)
-    first = bool(flags & FLAG_FIRST_WALK)
+    smem = sobol_smem_bytes(sampler, sample_end)
     ptr = lambda t: None if t is None else t.data_ptr()
     host = lambda a: None if a is None else a.ctypes.data_as(ctypes.c_void_p)
 
-    def call(grid, outs, queue_args=(1, 1, None, None, None, None), occ=None):
-        walk, code, cap, queue = walk_args(scene, grid * THREADS, smem, first=first)
+    def call(grid, outs, queue_args=(1, 1, None, None, None, None), occ=None, flags=flags):
+        walk, code, cap, queue = walk_args(scene, grid * THREADS, smem)
         check_flags(walk, flags)
         nodes, _nodes = node_args(scene, walk)
         rad, work, prof, stamps = outs
@@ -782,18 +753,16 @@ def _launch(scene, px, py, s0, s1, seed, t_min, flags, want_work, *, camera_cons
         return None
     rad = torch.empty((3, n), dtype=real, device=device)
     work = torch.empty((n,), dtype=torch.int32, device=device) if want_work else None
-    prof = (torch.empty((PROF_COLS, n), dtype=torch.int64, device=device)
-            if flags & FLAG_PROF else None)
-    if flags & VARIANT_FLAGS or n == 0:
-        return Launch(V3(rad[0], rad[1], rad[2]), work, prof,
-                      call(lane_blocks, (rad, work, prof, None)), None)
+    if n == 0:
+        return Launch(V3(rad[0], rad[1], rad[2]), work, None,
+                      call(lane_blocks, (rad, work, None, None)), None)
 
     per_scene = _RESIDENT_CACHE.setdefault(scene, {})
-    key = (device, walk_of(scene), flags, smem)
+    key = (device, walk_of(scene), flags & ~FLAG_PROF, smem)
     slots = per_scene.get(key)
     if slots is None:
         occ = np.zeros(2, np.int32)
-        call(lane_blocks, (None,) * 4, occ=occ)
+        call(lane_blocks, (None,) * 4, occ=occ, flags=flags & ~FLAG_PROF)
         slots = per_scene[key] = int(occ[0]) * sm_count(device)
     chunk = item_chunk(launch_lanes(width, height, stride), longest, slots * THREADS)
     chunks = max(1, -(-longest // chunk))
@@ -809,7 +778,9 @@ def _launch(scene, px, py, s0, s1, seed, t_min, flags, want_work, *, camera_cons
     if record:
         stamps = torch.zeros((grid, BLOCK_STAMP_COLS), dtype=torch.int64, device=device)
         thread_work = torch.zeros((grid * THREADS,), dtype=torch.int32, device=device)
-    walk = call(grid, (rad, work, None, stamps),
+    prof = (torch.empty((PROF_COLS, grid * THREADS), dtype=torch.int64, device=device)
+            if flags & FLAG_PROF else None)
+    walk = call(grid, (rad, work, prof, stamps),
                 (chunk, chunks, nxt, part_rad, part_work, thread_work))
-    return Launch(V3(rad[0], rad[1], rad[2]), work, None, walk,
+    return Launch(V3(rad[0], rad[1], rad[2]), work, prof, walk,
                   QueueRun(grid, slots, chunk, chunks, stamps, thread_work))

@@ -31,8 +31,8 @@ one walk of the kernels' shared trace (``csrc/zwrt_device.cuh``):
     full or its walk has ended it sweeps them in order, and the rest of
     its walk culls with the t the sweep tightened.  At a capacity of the
     tree's leaves or more (``closest_hit``'s ``queue_cap``) no queue fills
-    before its walk's end, so the whole walk culls with the stage's seed t:
-    its first design's work;
+    before its walk's end, so the whole walk culls with the stage's seed t,
+    as the spec walk's does;
   * ``rowqueue``: lanes in groups of 32 consecutive indices walk one node
     pointer with the seed t, descending when any walking lane of the group
     hits; a hit leaf is queued with the group's mask of lanes that hit it
@@ -466,7 +466,7 @@ def closest_hit(
     ``walk_of(scene)`` when None; ``queue_cap`` the leaves a lane of the
     ``queue`` walk holds before it sweeps them (the kernels'; at the
     tree's leaves or more, such as ``fused_render.queue_capacity``, the
-    work of its first design, ``kWalkQueueFirst``)."""
+    work of the whole walk with the seed t)."""
     closest_hit.calls += 1
     walk = walk_of(scene) if walk is None else walk
     if walk not in WALKS:

@@ -459,19 +459,16 @@ def item_windows(s0: torch.Tensor, s1: torch.Tensor, stride: int, chunk: int):
 def render_fused_items_reference(
     scene: CompiledScene,
     px: torch.Tensor, py: torch.Tensor, s0: torch.Tensor, s1: torch.Tensor,
-    seed: int, t_min: float, *, chunk: int, want_work: bool = False, render=None, **kw,
+    seed: int, t_min: float, *, chunk: int, want_work: bool = False, **kw,
 ):
     """``render_fused_reference`` over the fused render kernel's work queue
     (``item_windows`` at ``chunk``), as the kernel sums it: each item
     rendered from zero, each lane's radiance its items' sums added in chunk
     order from zero, its work count theirs.  The same samples as the
-    unsplit render; only float32 rounding of the sums differs.  ``render``,
-    a call that takes ``render_fused_reference``'s arguments and returns
-    (radiance, work), renders the items in its place (a kernel variant that
-    runs one thread a lane, made comparable bit for bit with the queue)."""
+    unsplit render; only float32 rounding of the sums differs."""
     n = px.shape[0]
     lane, first, end, chunks = item_windows(s0, s1, kw["stride"], chunk)
-    rad, work = (render or render_fused_reference)(
+    rad, work = render_fused_reference(
         scene, px[lane].contiguous(), py[lane].contiguous(), first, end, seed, t_min,
         want_work=True, **kw)
     sums = []

@@ -365,8 +365,8 @@ def measure(cfg: Config) -> tuple:
     kernel_work = int(work.sum(dtype=torch.int64))
     lane_bytes = work.shape[0] * roofline.LANE_BYTES[kernel.split()[0]]
     bound = roofline.render_bound(cs, counts, kernel_work, lane_bytes,
-                                  scene.camera.has_depth_of_field, cfg.spp, cfg.width,
-                                  cfg.height, walk=walk_of(cs), ops_rate=rates)
+                                  scene.camera.has_depth_of_field, cfg.spp, walk=walk_of(cs),
+                                  ops_rate=rates)
     details.update(counts=counts, kernel_work=kernel_work, lane_bytes=lane_bytes)
     out.update(iters_per_path=iters, bound_ms=bound["bound_ms"], bound_by=bound["bound_by"],
                peak_source=bound["peak_source"], launches=launches())

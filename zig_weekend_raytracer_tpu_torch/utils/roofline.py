@@ -16,8 +16,8 @@ the 700 W limit).
     NaN-propagating min or max is a compare and a select).  Rate: K5's
     ``select`` chain, half the add rate on an H100.
   * ``int``: integer work: PCG4D (20 per draw: multiply-adds, shifts,
-    XORs), the Sobol sampler's bit loops or its factored table reads,
-    addresses and indices.  Rate: K5's ``int`` chain (IMAD and LOP3).
+    XORs), the Sobol sampler's factored table reads and its pixel part's
+    bit loops, addresses and indices.  Rate: K5's ``int`` chain (IMAD and LOP3).
 
 Every class passes one dispatch slot per clock per partition (the
 add rate) and runs on its own pipe at its own rate, so the least time of
@@ -104,18 +104,22 @@ OPS = {
 }
 
 
-def sobol_ops(log2_scale: int, n_bytes: int, loop: bool) -> dict:
-    """Integer operations of one Sobol camera sample (both dimensions).
-    ``loop``: the earlier bit loops, 3 per VdC column (28), 6 per 64-bit
-    inverse column (2L) and 4 per generator column (52 per dimension);
-    else the factored form: a byte's extract, address and XOR (3) per byte
-    of the sample index and dimension, and the XOR with the lane's pixel
-    part per dimension."""
-    if loop:
-        inv = 2 * log2_scale if log2_scale else 0
-        delta = MAX_SPP_LOG2 if log2_scale else 0
-        return _ops(int=3 * delta + 6 * inv + 2 * 4 * SOBOL_MATRIX_SIZE)
+def sobol_ops(n_bytes: int) -> dict:
+    """Integer operations of one Sobol camera sample (both dimensions) in
+    the factored form: a byte's extract, address and XOR (3) per byte of
+    the sample index and dimension, and the XOR with the lane's pixel part
+    per dimension."""
     return _ops(int=2 * 3 * n_bytes + 2)
+
+
+def sobol_pixel_ops(log2_scale: int) -> dict:
+    """Integer operations of a pixel's Sobol part (zwrt_device.cuh:
+    sobol_pixel, both dimensions at sample 0), by the bit loops: 3 per VdC
+    column (28), 6 per 64-bit inverse column (2L) and 4 per generator
+    column (52 per dimension)."""
+    inv = 2 * log2_scale if log2_scale else 0
+    delta = MAX_SPP_LOG2 if log2_scale else 0
+    return _ops(int=3 * delta + 6 * inv + 2 * 4 * SOBOL_MATRIX_SIZE)
 
 
 def add(*parts) -> dict:
@@ -158,14 +162,14 @@ def trace_ops(counts) -> dict:
 def render_ops(counts, scene, has_dof: bool, sobol=None) -> dict:
     """Operations by class of a render (or a drain) whose plain version
     counted ``counts``: camera rays, traces, shading and scatter by
-    material.  ``sobol`` = (log2_scale, n_bytes, loop) adds the Sobol
+    material.  ``sobol``, the bytes of the sample index, adds the Sobol
     sampler's integer work per camera ray (``sobol_ops``); None counts
     none (another sampler)."""
     bounces = counts.get("bounce", 0)
     hits = bounces - counts.get("miss", 0)
     metal = "hit_metal_gauss" if scene.needs_gauss else "hit_metal"
     camera = add(OPS["camera_ray"], OPS["camera_dof"] if has_dof else _ops(),
-                 sobol_ops(*sobol) if sobol else _ops())
+                 _ops() if sobol is None else sobol_ops(sobol))
     parts = [trace_ops(counts), times(OPS["shade"], hits),
              times(camera, counts.get("camera_ray", 0))]
     for k in ("hit_sphere", "checker", "miss", "hit_emissive", "hit_lambertian",
@@ -230,7 +234,7 @@ def aov_bound_ms(counts, scene, n_rays: int, hits: int, sphere_hits: int, pixels
     The checker and texel work of textured hits is not counted, so the
     bound is low on such scenes."""
     camera = add(OPS["camera_ray"], OPS["camera_dof"] if has_dof else _ops(),
-                 sobol_ops(*sobol) if sobol else _ops())
+                 _ops() if sobol is None else sobol_ops(sobol))
     ops = add(times(camera, n_rays), trace_ops(counts), times(OPS["aov_hit"], hits),
               times(OPS["hit_sphere"], sphere_hits))
     nbytes = trace_bytes(scene) + scene.shade_rows.numel() * 4 + pixels * 8 * 4
@@ -239,7 +243,7 @@ def aov_bound_ms(counts, scene, n_rays: int, hits: int, sphere_hits: int, pixels
 
 # coherent_keys_kernel's work for one pixel beside its closest hit
 # (trace_ops), counted from csrc/closest_hit.cu and
-# zwrt_device.cuh:generate_ray<false> at sample 0, one lane-operation per
+# zwrt_device.cuh:generate_ray at sample 0, one lane-operation per
 # operator of the source and a multiply-add one, as OPS counts
 KEYS_OPS = {
     # the pixel's coordinates from the thread index (4 int), the ray id
@@ -250,8 +254,9 @@ KEYS_OPS = {
     # the pixel offset of each sampler: a PCG4D draw, two to_unit and two
     # offsets; stratified adds the stratum's division and remainder, their
     # conversions and scales; Sobol the float part of its two dimensions
-    # (fscale, sobol_unit, the clamped offsets; sobol_ops counts the bits:
-    # the pixel part by the bit loops, the sample part from the tables)
+    # (fscale, sobol_unit, the clamped offsets; sobol_pixel_ops and
+    # sobol_ops count the bits: the pixel part by the bit loops, the sample
+    # part from the tables)
     SamplerKind.INDEPENDENT: _ops(6, 0, 22),
     SamplerKind.STRATIFIED: _ops(12, 0, 24),
     SamplerKind.SOBOL: _ops(9, 6, 1),
@@ -269,8 +274,7 @@ def keys_pixel_ops(sampler: SamplerKind, has_dof: bool, width: int, height: int)
         parts.append(KEYS_OPS["dof"])
     if sampler == SamplerKind.SOBOL:
         log2_scale = sobol_log2_scale(width, height)
-        parts += [sobol_ops(log2_scale, 0, True), sobol_ops(log2_scale, sobol_sample_bytes(1),
-                                                            False)]
+        parts += [sobol_pixel_ops(log2_scale), sobol_ops(sobol_sample_bytes(1))]
     return add(*parts)
 
 
@@ -341,22 +345,20 @@ def bound_ms(ops, nbytes: float, ops_rate=None):
     return (max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes")
 
 
-def render_bound(scene, counts, kernel_work, lane_bytes, has_dof: bool, spp: int, width: int,
-                 height: int, loop_sobol: bool = False, walk=None, ops_rate=None) -> dict:
+def render_bound(scene, counts, kernel_work, lane_bytes, has_dof: bool, spp: int, walk=None,
+                 ops_rate=None) -> dict:
     """The bound of a render-kernel run (K1, or K2's regenerating mode) at
-    ``width`` x ``height`` and ``spp`` whose lanes did ``kernel_work``
-    bounces in all: the plain version's ``counts`` (on a slice) scaled to
-    that bounce count, the Sobol respawn in its factored form (or its bit
-    loops, ``loop_sobol``), at ``ops_rate`` (``bound_ms``); bytes are
-    ``lane_bytes`` (what the lanes read and write) and the tables the
-    kernel reads, the trace's under ``walk``.  Returns ``bound_ms``,
+    ``spp`` whose lanes did ``kernel_work`` bounces in all: the plain
+    version's ``counts`` (on a slice) scaled to that bounce count, the
+    Sobol respawn in its factored form, at ``ops_rate`` (``bound_ms``);
+    bytes are ``lane_bytes`` (what the lanes read and write) and the tables
+    the kernel reads, the trace's under ``walk``.  Returns ``bound_ms``,
     ``bound_by``, the operations by class (``bound_ops``), the bytes
     (``bound_bytes``) and ``peak_source``."""
     factor = float(kernel_work) / max(counts.get("bounce", 0), 1)
     n_bytes = sobol_sample_bytes(spp)
-    ops = render_ops(scaled(counts, factor), scene, has_dof,
-                     sobol=(sobol_log2_scale(width, height), n_bytes, loop_sobol))
-    nbytes = lane_bytes + render_table_bytes(scene, 0 if loop_sobol else n_bytes, walk)
+    ops = render_ops(scaled(counts, factor), scene, has_dof, sobol=n_bytes)
+    nbytes = lane_bytes + render_table_bytes(scene, n_bytes, walk)
     ms, by = bound_ms(ops, nbytes, ops_rate)
     return {"bound_ms": ms, "bound_by": by, "bound_ops": ops, "bound_bytes": nbytes,
             "peak_source": peak_source(ops_rate)}
