@@ -212,8 +212,9 @@ Phases (any failure exits nonzero):
      coherent plans, and emissive 400x400@256 d10: each phase's cycle
      share (respawn, trace, shade, and the rest: pulls and the loop head),
      the warp-time share and the mean converged lanes per warp entering
-     each; the profiled kernel's radiance bitwise that of the kernel the
-     render launches on the same lanes (render_fused, bounce_regen);
+     each, over the threads of the work-queue kernel's grid; the profiled
+     kernel's radiance bitwise that of the kernel the render launches on the
+     same lanes (render_fused, bounce_regen: the same grid and items);
  21. tools/span_sweep.py: leaf spans 1, 2, 4 and 8 under the cond and
      queue walks on balls 400x400@128 d10 and rtw_final 400x400@64 d8,
      Mpaths/s, kernel time and peak device memory, every render against the
@@ -511,16 +512,17 @@ JPEG_MIN_PSNR = 30.0
 # tree-less ones that every walk but uni launches on a scene without trees,
 # and of the cond walk's, as this build gives them (the factored Sobol
 # respawn and the device light and image tables), and of the closest-hit
-# kernel and its coherent-plan keys.  The render kernel's, fed from the
-# work queue, are held by __launch_bounds__ to 8 blocks per SM without
-# trees and 7 on a tree walk (render_kernels.cuh:k1_min_blocks)
+# kernel and its coherent-plan keys.  The render kernel's and the bounce
+# kernel's regenerating ones, fed from the work queue, are held by
+# __launch_bounds__ to 8 blocks per SM without trees and 7 on a tree walk
+# (render_kernels.cuh:pull_min_blocks)
 DEFAULT_RESOURCES = {
     "fused_render_kernel<false, queue>": (72, 0), "fused_render_kernel<true, queue>": (72, 0),
-    "bounce_kernel<false, queue>": (68, 0), "bounce_kernel<true, queue>": (72, 8),
+    "bounce_kernel<false, queue>": (68, 0), "bounce_kernel<true, queue>": (72, 0),
     "fused_render_kernel<false, no tree>": (62, 0), "fused_render_kernel<true, no tree>": (62, 0),
-    "bounce_kernel<false, no tree>": (48, 0), "bounce_kernel<true, no tree>": (64, 0),
+    "bounce_kernel<false, no tree>": (48, 0), "bounce_kernel<true, no tree>": (62, 0),
     "fused_render_kernel<false, cond>": (72, 0), "fused_render_kernel<true, cond>": (72, 0),
-    "bounce_kernel<false, cond>": (64, 0), "bounce_kernel<true, cond>": (64, 80),
+    "bounce_kernel<false, cond>": (64, 0), "bounce_kernel<true, cond>": (72, 0),
     "closest_hit_kernel": (56, 0), "coherent_keys_kernel": (56, 0),
 }
 # phase 28: the harness's runs (its arguments), each one's time limit, and
@@ -1079,8 +1081,9 @@ def kernel_resources(build_log: str) -> dict:
     fused_render_kernel<IMAGES, walk> (without and with the image fetch;
     every instantiation fed from the work queue, under the names they had
     before it) and bounce_kernel<REGEN, walk> (one-bounce and regenerating
-    modes) for each tree walk and "no tree" (kWalkNoTree), each with its
-    flags but kFlagPull (<..., estimator>, <..., prof>),
+    modes, the latter fed from the work queue too) for each tree walk and
+    "no tree" (kWalkNoTree), each with its flags but kFlagPull
+    (<..., estimator>, <..., prof>),
     closest_hit_kernel, coherent_keys_kernel, and chain_kernel<op, chains,
     unroll>."""
     import re
@@ -1629,9 +1632,9 @@ def phase_profile(zt, fused, tb, integrator, torch, configs, card) -> dict:
     request with a new seed takes, and a tree scene's coherent plan): the
     profiled kernel's cycle share of respawn, trace and shade, the
     warp-time share and the mean converged lanes per warp entering each
-    phase, K1's over the threads of its work-queue kernel; its radiance bit
-    for bit that of the kernel the render launches (render_fused over the
-    same grid and items, bounce_regen)."""
+    phase, over the threads of K1's or K2's work-queue kernel; its
+    radiance bit for bit that of the kernel the render launches
+    (render_fused, bounce_regen, over the same grid and items)."""
     from zig_weekend_raytracer_tpu_torch.ops.bounce import supports_fused_render
     from zig_weekend_raytracer_tpu_torch.render.camera import camera_consts
 
@@ -3552,9 +3555,9 @@ def main() -> int:
     n_chain = 5 * 2 * 4  # ops x chain counts x unrolls
     # per kernel: 2 modes x 6 walks (5 and the tree-less kWalkNoTree) and
     # the estimator instantiations (2 modes x 6 walks), and the phase
-    # profile: K1 in both modes for cond, queue and kWalkNoTree, K2's
-    # regenerating mode for cond and queue
-    n_render = 2 * (2 * 6 + 2 * 6) + 2 * 3 + 2
+    # profile on the work-queue kernels: K1 in both modes and K2's
+    # regenerating mode, each for cond, queue and kWalkNoTree
+    n_render = 2 * (2 * 6 + 2 * 6) + 2 * 3 + 3
     # closest_hit_kernel and coherent_keys_kernel
     if len(resources) != n_render + 2 + n_chain or any(
             r["registers"] is None for r in resources.values()):

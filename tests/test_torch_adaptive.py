@@ -24,7 +24,7 @@ its tests (tests/test_adaptive.py, tests/test_adaptive_device.py).
      (the bounce kernel's regenerating mode), Russian roulette composed,
      several bands, as JAX's tests.
   5. The Sobol tables of a launch cover its sample indices past spp
-     (``ops/fused_render.py:launch_sample_end``): the factored sampler at
+     (``ops/fused_render.py:launch_windows``): the factored sampler at
      the launch's byte count equals ``sobol_pixel_u32`` at every index an
      adaptive plan's lanes render, where spp's byte count falls short.
 """
@@ -254,7 +254,7 @@ def test_adaptive_multiband(cornell, monkeypatch, host_plan):
 
 def test_sobol_tables_cover_the_plan_past_spp():
     """An adaptive plan at spp 64 on 64x64 reaches sample indices in the
-    thousands: the launch's tables (``launch_sample_end`` of its windows)
+    thousands: the launch's tables (``launch_windows``' end of its windows)
     hold two bytes, where spp's one would not reach them, and the factored
     sampler at that byte count equals the bit loops at every index."""
     spp, width = 64, 64
@@ -263,7 +263,7 @@ def test_sobol_tables_cover_the_plan_past_spp():
     n_extra = np.zeros((width, width), np.int64)
     n_extra[5, 7], n_extra[40, 3] = cap, 100
     px, py, s0, s1 = tad.build_adaptive_plan(n_extra, 0, pilot, None, 2 * (spp - pilot))
-    end = fused_render.launch_sample_end(torch.from_numpy(s1))
+    end, _ = fused_render.launch_windows(torch.from_numpy(s0), torch.from_numpy(s1), 1)
     assert end == pilot + cap > spp
     n_bytes = tsob.sobol_sample_bytes(end)
     assert n_bytes == 2 > tsob.sobol_sample_bytes(spp)

@@ -462,23 +462,75 @@ def test_k2_block_stamps_on_the_card(card):
               height=h, spp=r.samples_per_pixel, stride=stride, max_depth=r.max_ray_bounce_depth,
               has_dof=scene.camera.has_depth_of_field)
     st0 = integrator.initial_regen_state(s0, stride)
-    end = fused.launch_sample_end(s1)
-    stamps = torch.zeros((-(-n // fused.THREADS), fused.BLOCK_STAMP_COLS), dtype=torch.int64,
-                         device="cuda")
-    out, _, _, slots = bounce._regen(cs, st0, px, py, s1, end, r.seed, zt.dtypes.T_MIN, 0,
-                                     out_blocks=stamps, **kw)
-    plain, _, _, none = bounce._regen(cs, st0, px, py, s1, end, r.seed, zt.dtypes.T_MIN, 0, **kw)
-    assert none is None
+    windows = bounce._windows(st0, s1, stride)
+    out, _, _, q = bounce._regen(cs, st0, px, py, s1, windows, r.seed, zt.dtypes.T_MIN, 0,
+                                 record=True, **kw)
+    plain, _, _, q_off = bounce._regen(cs, st0, px, py, s1, windows, r.seed, zt.dtypes.T_MIN, 0,
+                                       **kw)
+    assert q_off.stamps is None and q_off.thread_work is None
     for a, b in zip(out, plain):
         a, b = (a.to_array(), b.to_array()) if hasattr(a, "to_array") else (a, b)
         assert torch.equal(a, b)
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     blocks_per_sm, _ = bounce.bounce_regen_occupancy(cs, st0, px, py, s1, r.seed,
                                                      zt.dtypes.T_MIN, **kw)
-    assert slots == blocks_per_sm * sms > 0
-    s = stamps.cpu()
-    assert s.shape == (-(-n // fused.THREADS), fused.BLOCK_STAMP_COLS)
+    assert q.slots == blocks_per_sm * sms > 0
+    # the grid is the card's block slots, or the blocks the items fill
+    assert q.grid == min(q.slots, -(-q.chunks * n // fused.THREADS))
+    assert int(q.thread_work.sum()) == int(out.work.sum()) > 0
+    s = q.stamps.cpu()
+    assert s.shape == (q.grid, fused.BLOCK_STAMP_COLS)
     assert bool((s[:, 0] >= 0).all()) and bool((s[:, 0] < sms).all())
     assert bool((s[:, 1] > 0).all()) and bool((s[:, 1] <= s[:, 2]).all())
     # every block ran inside the launch's span, on more than one SM
     assert int(s[:, 2].max() - s[:, 1].min()) < 60e9 and len(set(s[:, 0].tolist())) > 1
+
+
+@pytest.mark.card
+def test_k2_work_queue_on_the_card(card):
+    """The bounce kernel's regenerating mode fed from the work queue: one
+    seed's launch is bitwise on two runs, every lane ends dead with its
+    window used up (one pass a band), and while recording ``k2.items`` and
+    ``k2.pulls`` are the launch's ``queue_counts``."""
+    from zig_weekend_raytracer_tpu_torch.render.camera import camera_consts
+
+    scene = _atlas_scene("cuda")
+    cs = scene.compiled
+    w = h = 32
+    r = zt.render.Renderer(samples_per_pixel=16, max_ray_bounce_depth=5, seed=11)
+    bands, passes = integrator.trace_paths_regen.bands, integrator.trace_paths_regen.passes
+    r.render_device(scene, w, h)
+    assert (integrator.trace_paths_regen.passes - passes
+            == integrator.trace_paths_regen.bands - bands > 0)
+
+    # a lane a pixel, each pixel's whole window
+    lane = torch.arange(w * h, dtype=torch.int32, device="cuda")
+    px, py = lane % w, lane // w
+    s0, s1, stride = torch.zeros_like(lane), torch.full_like(lane, r.samples_per_pixel), 1
+    n = px.shape[0]
+    kw = dict(camera_consts=camera_consts(scene.camera, w, h), sampler=r.sampler, width=w,
+              height=h, spp=r.samples_per_pixel, stride=stride, max_depth=r.max_ray_bounce_depth,
+              has_dof=scene.camera.has_depth_of_field)
+    st0 = integrator.initial_regen_state(s0, stride)
+    args = (cs, st0, px, py, s1, r.seed, zt.dtypes.T_MIN)
+    first = bounce.bounce_regen(*args, **kw)
+    profiler.set_profiling(True)
+    second = bounce.bounce_regen(*args, **kw)
+    counters = profiler.snapshot()["counters"]
+    profiler.set_profiling(False)
+    for a, b in zip(first, second):
+        a, b = (a.to_array(), b.to_array()) if hasattr(a, "to_array") else (a, b)
+        assert torch.equal(a, b)
+    assert not bool(first.alive.any())
+    assert not bool((first.sample.to(torch.int64) + stride < s1).any())
+
+    chunk = bounce.launch_chunk(*args, **kw)
+    _, _, longest = bounce._windows(st0, s1, stride)
+    chunks = max(1, -(-longest // chunk))
+    assert chunks > 1                            # the queue cuts the windows
+    blocks_per_sm, _ = bounce.bounce_regen_occupancy(*args, **kw)
+    threads = min(blocks_per_sm * torch.cuda.get_device_properties(0).multi_processor_count,
+                  -(-chunks * n // fused.THREADS)) * fused.THREADS
+    assert (counters["k2.items"], counters.get("k2.pulls", 0)) == fused.queue_counts(
+        chunks, n, threads)
+    assert counters["k2.items"] == chunks * n

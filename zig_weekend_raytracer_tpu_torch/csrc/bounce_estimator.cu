@@ -1,5 +1,6 @@
 // The bounce kernel's estimator instantiations (render_kernels.cuh,
-// kFlagEstimator) for every walk, in both modes: Russian roulette from
+// kFlagEstimator; the regenerating mode's fed from the work queue) for
+// every walk, in both modes: Russian roulette from
 // Params::rr_start and the indirect clamp Params::clamp in the shading
 // (zwrt_device.cuh:shade_hit).  ops/bounce.py launches them when either
 // option is on after the gate (off on atlas scenes); the default
@@ -10,11 +11,12 @@
 
 namespace zwrt {
 
-int bounce_estimator(const RenderLaunch& L, float* fstate, int* istate, const int* px,
-                     const int* py, const int* limit, unsigned long long* out_blocks, int regen,
-                     int depth) {
-  return launch_bounce<kFlagEstimator>(L, fstate, istate, px, py, limit, nullptr, out_blocks,
-                                       regen, depth);
+int bounce_estimator(const RenderLaunch& L, float* fstate, int* istate, const float* fin,
+                     const int* iin, const int* px, const int* py, const int* s0,
+                     const int* limit, unsigned long long* out_blocks, int regen, int depth,
+                     const QueueLaunch* Q) {
+  return launch_bounce<kFlagEstimator>(L, fstate, istate, fin, iin, px, py, s0, limit, nullptr,
+                                       out_blocks, regen, depth, Q);
 }
 
 }  // namespace zwrt

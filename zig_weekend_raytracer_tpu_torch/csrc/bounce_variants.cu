@@ -1,6 +1,8 @@
 // The bounce kernel's phase profile of its regenerating mode
-// (render_kernels.cuh, kFlagProf) for the walks kWalkCond and kWalkQueue,
-// one thread a lane as the regenerating mode runs.  Only ops/bounce.py:
+// (render_kernels.cuh, kFlagProf | kFlagPull) for the walks kWalkCond and
+// kWalkQueue and, on a scene without trees, kWalkNoTree: the work-queue
+// kernel that bounce_regen launches, each thread adding up its clock64()
+// cycles per phase over all of its items.  Only ops/bounce.py:
 // bounce_regen_profile launches it; no path of the renderer does.  A file
 // of its own, so that nvcc builds it beside the default instantiations of
 // bounce.cu.
@@ -9,9 +11,11 @@
 
 namespace zwrt {
 
-int bounce_profile(const RenderLaunch& L, float* fstate, int* istate, const int* px,
-                   const int* py, const int* limit, long long* out_prof) {
-  return launch_bounce<kFlagProf>(L, fstate, istate, px, py, limit, out_prof, nullptr, 1, 0);
+int bounce_profile(const RenderLaunch& L, float* fstate, int* istate, const float* fin,
+                   const int* iin, const int* px, const int* py, const int* s0,
+                   const int* limit, long long* out_prof, const QueueLaunch* Q) {
+  return launch_bounce<kFlagProf>(L, fstate, istate, fin, iin, px, py, s0, limit, out_prof,
+                                  nullptr, 1, 0, Q);
 }
 
 }  // namespace zwrt

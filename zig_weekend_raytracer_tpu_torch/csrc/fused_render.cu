@@ -80,7 +80,7 @@
 // parameter, not a runtime branch, so the default walk's code (72
 // registers, 7 blocks per SM, to which __launch_bounds__ holds every tree
 // walk's instantiation fed from the work queue: render_kernels.cuh:
-// k1_min_blocks) does not carry the others', and a scene without trees
+// pull_min_blocks) does not carry the others', and a scene without trees
 // (cornell, emissive) takes kWalkNoTree, which carries no walk's code
 // (render_kernels.cuh: dispatch_flags_walk) and is held to 8 blocks per SM.
 

@@ -1177,9 +1177,9 @@ struct Path {
 // shade) and, at each phase's entry, the converged lanes of its warp
 // (__popc(__activemask())) to a Prof; kFlagEstimator: the shading applies
 // Params' rr_start and clamp (shade_hit); kFlagPull: the drain takes its
-// windows from the render kernel's work queue (Items, next_item).  The
-// bounce kernel's default instantiations take 0, the render kernel's
-// kFlagPull.
+// windows from a work queue (Items, next_item).  The bounce kernel's
+// one-bounce instantiations take 0; the render kernel's and the bounce
+// kernel's regenerating ones kFlagPull.
 enum DrainFlags { kFlagProf = 1, kFlagEstimator = 2, kFlagPull = 4 };
 enum ProfPhase { kPhaseRespawn = 0, kPhaseTrace = 1, kPhaseShade = 2, kPhases = 3 };
 // Columns of a thread's profile (int64): cycles, entries and active lanes
@@ -1402,7 +1402,8 @@ __device__ __forceinline__ bool bounce_step(const Params& p, const TraceScene& s
   return survives;
 }
 
-// The render kernel's work queue (kFlagPull).  An item is (plan lane,
+// The work queue of the render kernel and of the bounce kernel's
+// regenerating mode (kFlagPull).  An item is (plan lane,
 // chunk): chunk c of lane l renders the samples s0 + stride * (c * chunk +
 // j), j < chunk, below the lane's s1, so its window is its pixel's samples
 // [s0 + stride * c * chunk, min(s1, s0 + stride * (c + 1) * chunk)).  Items
@@ -1469,6 +1470,71 @@ __device__ __forceinline__ void flush_item(const Items& q, int item, V3& rad, in
   work = 0;
 }
 
+// The bounce kernel's lane states in its regenerating mode (the drain's
+// RESUME), as ops/bounce.py packs them: ``fin`` (13, n) floats and ``iin``
+// (5, n) ints, the state each lane was given, which its chunk 0 resumes;
+// ``fout`` and ``iout``, the same rows, take the state its last item
+// leaves (every row but radiance and work, which its items' sums give).
+// Separate buffers, so that a lane's last item never writes a row that its
+// chunk 0 has yet to read.
+struct LaneStates {
+  const float* fin;
+  const int* iin;
+  float* fout;
+  int* iout;
+};
+
+// Chunk 0 of a lane resumes the path, the radiance and the work that the
+// lane was given (its sample is the item's, one stride before the window:
+// item_window); another item starts dead from zero, as K1's do.
+__device__ __forceinline__ void resume_item(const Items& q, const LaneStates& ls, int item,
+                                            Path& s, bool& alive, int& work) {
+  if (item >= q.n) return;
+  const int n = q.n;
+  const float* f = ls.fin + item;
+  const int* st = ls.iin + item;
+  s.o = mk(f[0], f[n], f[2 * n]);
+  s.d = mk(f[3 * n], f[4 * n], f[5 * n]);
+  s.thr = mk(f[6 * n], f[7 * n], f[8 * n]);
+  s.rad = mk(f[9 * n], f[10 * n], f[11 * n]);
+  s.time = f[12 * n];
+  s.rid = (uint32_t)st[0];
+  alive = st[n] != 0;
+  s.depth = st[3 * n];
+  work = st[4 * n];
+}
+
+// Before ``item``'s sums are written (flush_item): where it is its lane's
+// last item (the one with the lane's last sample, or chunk 0 of a lane
+// with none), the path it leaves, dead, becomes the lane's final state; a
+// chunk 0 takes the work its lane was given off the thread's count, so
+// that ``thread_work`` counts the launch's own passes.
+__device__ __forceinline__ void leave_item(const Params& p, const Items& q, const LaneStates& ls,
+                                           int item, const Path& s, int sample) {
+  if (item >= q.total) return;
+  const int n = q.n, c = item / n, lane = item - c * n;
+  if (c == 0 && q.thread_work)
+    q.thread_work[blockIdx.x * blockDim.x + threadIdx.x] -= ls.iin[4 * n + lane];
+  const int span = q.s1[lane] - q.s0[lane];
+  if (span > p.stride * (c + 1) * q.chunk || (c > 0 && p.stride * c * q.chunk >= span)) return;
+  float* f = ls.fout + lane;
+  int* st = ls.iout + lane;
+  f[0] = s.o.x;
+  f[n] = s.o.y;
+  f[2 * n] = s.o.z;
+  f[3 * n] = s.d.x;
+  f[4 * n] = s.d.y;
+  f[5 * n] = s.d.z;
+  f[6 * n] = s.thr.x;
+  f[7 * n] = s.thr.y;
+  f[8 * n] = s.thr.z;
+  f[12 * n] = s.time;
+  st[0] = (int)s.rid;
+  st[n] = 0;
+  st[2 * n] = sample;
+  st[3 * n] = s.depth;
+}
+
 // Starts the thread on ``item`` (item_window), ``sp`` its pixel's Sobol
 // part; whether it has a sample to render.
 __device__ __forceinline__ bool start_item(const Params& p, const Items& q,
@@ -1492,28 +1558,38 @@ __device__ __forceinline__ int pull_item(const Items& q) {
 }
 
 // Lane-level refills: a thread's item is used up: writes its sums and
-// takes items until one has a sample to render (start_item); false, its
-// sums written, when the queue is empty.
+// takes items until one has a sample to render (start_item) or, under
+// RESUME, a live path to go on with (resume_item); false, its sums
+// written, when the queue is empty.
+template <bool RESUME = false>
 __device__ __forceinline__ bool next_item(const Params& p, const Items& q,
                                           const uint32_t* __restrict__ sobol, int& item,
-                                          Path& s, int& work, int& px, int& py, int& sample,
-                                          int& limit, SobolPixel& sp) {
+                                          Path& s, bool& alive, int& work, int& px, int& py,
+                                          int& sample, int& limit, SobolPixel& sp,
+                                          const LaneStates* ls) {
   for (;;) {
+    if constexpr (RESUME) leave_item(p, q, *ls, item, s, sample);
     flush_item(q, item, s.rad, work);
     item = pull_item(q);
     if (item >= q.total) return false;
+    if constexpr (RESUME) resume_item(q, *ls, item, s, alive, work);
     if (start_item(p, q, sobol, item, px, py, sample, limit, sp)) return true;
+    if (RESUME && alive) return true;
   }
 }
 
 // Warp-level refills: every item of the warp is used up: each thread
 // writes its sums, and the warp takes the next kWarp items, thread k of
 // the warp the k-th, so that its threads hold neighbouring lanes of the
-// plan again (an item past the queue's end is an empty window); false,
-// for every thread of the warp, when the queue is empty.
+// plan again (an item past the queue's end is an empty window; under
+// RESUME a chunk 0 resumes its lane's path, resume_item); false, for
+// every thread of the warp, when the queue is empty.
+template <bool RESUME = false>
 __device__ __forceinline__ bool refill_warp(const Params& p, const Items& q,
                                             const uint32_t* __restrict__ sobol, int& item,
-                                            Path& s, int& work, int& sample, SobolPixel& sp) {
+                                            Path& s, bool& alive, int& work, int& sample,
+                                            SobolPixel& sp, const LaneStates* ls) {
+  if constexpr (RESUME) leave_item(p, q, *ls, item, s, sample);
   flush_item(q, item, s.rad, work);
   const int me = (int)(threadIdx.x & (kWarp - 1));
   int base = 0;
@@ -1523,43 +1599,48 @@ __device__ __forceinline__ bool refill_warp(const Params& p, const Items& q,
   item = base + me;
   sample = -p.stride;
   int px, py, limit;
-  if (item < q.total) start_item(p, q, sobol, item, px, py, sample, limit, sp);
+  if (item < q.total) {
+    if constexpr (RESUME) resume_item(q, *ls, item, s, alive, work);
+    start_item(p, q, sobol, item, px, py, sample, limit, sp);
+  }
   return true;
 }
 
-// Runs one lane until its sample window is used up: a dead lane respawns
-// its pixel's next sample (sample += stride, while below ``limit``), every
-// pass counts one unit of work and runs one bounce, and a path ends after
-// p.max_depth bounces.  Under kFlagPull the window is that of ``item`` of
-// ``items`` (an empty one past the queue's end), the thread runs on until
-// the queue is empty, and its sums go to the item's slots.  Without trees
+// Runs a thread of a kernel fed from the work queue (kFlagPull) until the
+// queue is empty, starting on ``item`` of ``items`` (an empty window past
+// the queue's end): a dead path respawns its pixel's next sample (sample
+// += stride, while below the item's window end), every pass counts one
+// unit of work and runs one bounce, a path ends after p.max_depth
+// bounces, and each item's sums go to its slots.  Without trees
 // (kWalkNoTree) a thread whose window is used up takes the next item at
 // once (next_item), so that it never waits for its warp's longest pixel;
 // a tree walk's warp takes kWarp items when all of its threads' windows are
 // used up (refill_warp), so that its threads walk neighbouring lanes of
 // the coherent plan (on an H100, PERF.md: balls took 23.2 ms an image with
 // warp-level refills against 33.7 with lane-level ones, while cornell took
-// 73.6 with lane-level refills against 75.5).  A ballot at
-// the loop head, which every lane of the warp still in the loop reaches,
-// names the lanes that bounce in this pass: the group of the rowqueue
-// walks (warp_walk, tree_walk_warpqueue), and under kFlagPull the point
-// where the warp's threads converge again each pass (without it a thread
-// that refilled alone ran on out of step with its warp).  The lane's Sobol
-// pixel part is computed once a pixel, at entry (timed with the respawn
-// phase) or at a pull; FLAGS as DrainFlags, ``prof`` read under kFlagProf
-// only.
-template <bool IMAGES, int WALK, int FLAGS = 0>
+// 73.6 with lane-level refills against 75.5).  A ballot at the loop head,
+// which every lane of the warp still in the loop reaches, names the lanes
+// that bounce in this pass (the group of the rowqueue walks: warp_walk,
+// tree_walk_warpqueue) and is where the warp's threads converge again each
+// pass (without it a thread that refilled alone ran on out of step with
+// its warp).  RESUME (the bounce kernel's regenerating mode, ``lanes``):
+// a lane's chunk 0 goes on from the state the lane was given, a live path
+// included, and its last item leaves the lane's final state (resume_item,
+// leave_item).  The lane's Sobol pixel part is computed once an item, at
+// entry (timed with the respawn phase) or at a pull; FLAGS as DrainFlags,
+// ``prof`` read under kFlagProf only.
+template <bool IMAGES, int WALK, int FLAGS, bool RESUME = false>
 __device__ __forceinline__ void drain(const Params& p, const TraceScene& scene,
                                       const float* __restrict__ shade_rows, const Images* images,
                                       const uint32_t* __restrict__ sobol, int px, int py,
                                       int limit, Path& s, bool& alive, int& sample, int& work,
-                                      Prof* prof = nullptr, const Items* items = nullptr,
-                                      int item = 0) {
+                                      Prof* prof, const Items* items, int item,
+                                      const LaneStates* lanes = nullptr) {
+  static_assert((FLAGS & kFlagPull) != 0, "the drain is fed from the work queue");
   constexpr bool PROF = (FLAGS & kFlagProf) != 0;
   constexpr bool EST = (FLAGS & kFlagEstimator) != 0;
-  constexpr bool PULL = (FLAGS & kFlagPull) != 0;
-  constexpr bool LANE_PULL = PULL && WALK == kWalkNoTree;
-  constexpr bool WARP_PULL = PULL && WALK != kWalkNoTree;
+  constexpr bool LANE_PULL = WALK == kWalkNoTree;
+  constexpr bool WARP_PULL = WALK != kWalkNoTree;
   const long long t_start = PROF ? clock64() : 0;
   SobolPixel q = sobol_pixel(p, sobol, px, py);
   if (PROF) prof->cycles[kPhaseRespawn] += clock64() - t_start;
@@ -1568,17 +1649,19 @@ __device__ __forceinline__ void drain(const Params& p, const TraceScene& scene,
   for (;;) {
     bool more = alive || sample + stride < (WARP_PULL ? item_limit(p, *items, item) : limit);
     if (LANE_PULL && !more)
-      more = next_item(p, *items, sobol, item, s, work, px, py, sample, limit, q);
+      more = next_item<RESUME>(p, *items, sobol, item, s, alive, work, px, py, sample, limit, q,
+                               lanes);
     if (WARP_PULL) {
       group = __ballot_sync(kAllLanes, more);
       if (group == 0u) {
-        if (!refill_warp(p, *items, sobol, item, s, work, sample, q)) break;
-        more = sample + stride < item_limit(p, *items, item);
+        if (!refill_warp<RESUME>(p, *items, sobol, item, s, alive, work, sample, q, lanes))
+          break;
+        more = (RESUME && alive) || sample + stride < item_limit(p, *items, item);
         group = __ballot_sync(kAllLanes, more);
       }
       if (!more) continue;
     } else {
-      if (warp_walk(WALK) || LANE_PULL) group = __ballot_sync(group, more);
+      group = __ballot_sync(group, more);
       if (!more) break;
     }
     if (!alive) {

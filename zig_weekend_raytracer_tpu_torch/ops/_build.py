@@ -122,7 +122,7 @@ def load_library() -> ctypes.CDLL:
     lib.zwrt_closest_hit.restype = ctypes.c_int
     lib.zwrt_coherent_keys.argtypes = [p] * 6 + [i, p, i, p]
     lib.zwrt_coherent_keys.restype = ctypes.c_int
-    lib.zwrt_bounce.argtypes = [p] * 6 + [i] + [p] * 11 + [i] * 5 + [p, i, i, p, p]
+    lib.zwrt_bounce.argtypes = [p] * 6 + [i] + [p] * 14 + [i] * 5 + [p] + [i] * 5 + [p] * 6
     lib.zwrt_bounce.restype = ctypes.c_int
     lib.zwrt_fp32_chain.argtypes = [i, i, i, p, p, i, i, p]
     lib.zwrt_fp32_chain.restype = ctypes.c_int

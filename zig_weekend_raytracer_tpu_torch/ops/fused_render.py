@@ -437,17 +437,12 @@ def sobol_smem_bytes(sampler: SamplerKind, sample_end: int) -> int:
     return 2 * _sobol.sobol_sample_bytes(sample_end) * 256 * 4
 
 
-def launch_sample_end(limit: torch.Tensor) -> int:
-    """The end of the sample indices a regenerating launch renders: the
-    largest window end (``s1``, ``sample_limit``) over its lanes, at least
-    1.  A lane renders indices below its window end only."""
-    return max(1, int(limit.max())) if limit.numel() else 1
-
-
 def launch_windows(s0: torch.Tensor, s1: torch.Tensor, stride: int):
-    """(``launch_sample_end`` of ``s1``, the longest window: the most
-    samples a lane renders, ceil((s1 - s0) / stride) at its largest, 0
-    without lanes), in one read of the card."""
+    """(the end of the sample indices a launch renders: the largest window
+    end ``s1`` over its lanes, at least 1, since a lane renders indices
+    below its window end only; the longest window: the most samples a lane
+    renders, ceil((s1 - s0) / stride) at its largest, 0 without lanes), in
+    one read of the card."""
     if not s1.numel():
         return 1, 0
     end, span = torch.stack([s1.max(), (s1 - s0).max()]).tolist()
@@ -681,9 +676,54 @@ class Launch(NamedTuple):
     queue: Optional[QueueRun]
 
 
-# the blocks the card holds at once of each instantiation a scene's
-# launches take, {(device, walk, flags, shared memory): blocks}
+# the block slots of the card for each instantiation a scene's launches
+# fed from the work queue take, {(kernel, device, walk, flags, shared
+# memory): slots}
 _RESIDENT_CACHE: "weakref.WeakKeyDictionary" = weakref.WeakKeyDictionary()
+
+
+def queue_plan(scene: CompiledScene, device, key: tuple, ask, n: int, width: int, height: int,
+               stride: int, longest: int):
+    """(grid, slots, chunk, chunks) of a launch fed from the work queue
+    over ``n`` lanes on ``device`` whose longest window is ``longest``
+    samples: ``slots`` the blocks the card holds at once of the
+    instantiation that ``key`` names (``ask(occ)`` writes its blocks per SM into the host int32 array
+    ``occ``; asked once per scene and key), ``item_chunk``'s chunk from
+    the render's lanes (``launch_lanes``) and those blocks' threads, the
+    chunks the longest window takes, and a grid of those slots, or fewer
+    where the items are fewer.  Raises past the kernels' 32-bit item
+    index."""
+    per_scene = _RESIDENT_CACHE.setdefault(scene, {})
+    slots = per_scene.get(key)
+    if slots is None:
+        occ = np.zeros(2, np.int32)
+        ask(occ)
+        slots = per_scene[key] = int(occ[0]) * sm_count(device)
+    chunk = item_chunk(launch_lanes(width, height, stride), longest, slots * THREADS)
+    chunks = max(1, -(-longest // chunk))
+    if chunks * n > 2**31 - 1:
+        raise ValueError(f"{chunks} chunks of {n} lanes pass the kernel's 32-bit item index")
+    return min(slots, -(-chunks * n // THREADS)), slots, chunk, chunks
+
+
+def queue_buffers(grid: int, chunks: int, n: int, device, want_work: bool, record: bool):
+    """(next, part_rad, part_work, stamps, thread_work) of a launch fed from
+    the work queue (``csrc/render_kernels.cuh:QueueLaunch``): the queue's
+    counter; with more than one chunk the items' radiance sums (chunks, 3,
+    n) and, ``want_work``, their passes (chunks, n), which
+    ``item_sum_kernel`` adds up; with ``record`` the blocks' stamps (grid,
+    ``BLOCK_STAMP_COLS``) and each thread's passes (grid * THREADS), zeroed;
+    None where not asked.  All from torch's caching allocator."""
+    nxt = torch.empty((1,), dtype=torch.int32, device=device)
+    part_rad = part_work = stamps = thread_work = None
+    if chunks > 1:
+        part_rad = torch.empty((chunks, 3, n), dtype=real, device=device)
+        if want_work:
+            part_work = torch.empty((chunks, n), dtype=torch.int32, device=device)
+    if record:
+        stamps = torch.zeros((grid, BLOCK_STAMP_COLS), dtype=torch.int64, device=device)
+        thread_work = torch.zeros((grid * THREADS,), dtype=torch.int32, device=device)
+    return nxt, part_rad, part_work, stamps, thread_work
 
 
 def _launch(scene, px, py, s0, s1, seed, t_min, flags, want_work, *, camera_consts,
@@ -757,27 +797,12 @@ def _launch(scene, px, py, s0, s1, seed, t_min, flags, want_work, *, camera_cons
         return Launch(V3(rad[0], rad[1], rad[2]), work, None,
                       call(lane_blocks, (rad, work, None, None)), None)
 
-    per_scene = _RESIDENT_CACHE.setdefault(scene, {})
-    key = (device, walk_of(scene), flags & ~FLAG_PROF, smem)
-    slots = per_scene.get(key)
-    if slots is None:
-        occ = np.zeros(2, np.int32)
-        call(lane_blocks, (None,) * 4, occ=occ, flags=flags & ~FLAG_PROF)
-        slots = per_scene[key] = int(occ[0]) * sm_count(device)
-    chunk = item_chunk(launch_lanes(width, height, stride), longest, slots * THREADS)
-    chunks = max(1, -(-longest // chunk))
-    if chunks * n > 2**31 - 1:
-        raise ValueError(f"{chunks} chunks of {n} lanes pass the kernel's 32-bit item index")
-    grid = min(slots, -(-chunks * n // THREADS))
-    nxt = torch.empty((1,), dtype=torch.int32, device=device)
-    part_rad = part_work = stamps = thread_work = None
-    if chunks > 1:
-        part_rad = torch.empty((chunks, 3, n), dtype=real, device=device)
-        if work is not None:
-            part_work = torch.empty((chunks, n), dtype=torch.int32, device=device)
-    if record:
-        stamps = torch.zeros((grid, BLOCK_STAMP_COLS), dtype=torch.int64, device=device)
-        thread_work = torch.zeros((grid * THREADS,), dtype=torch.int32, device=device)
+    key = ("fused_render", device, walk_of(scene), flags & ~FLAG_PROF, smem)
+    grid, slots, chunk, chunks = queue_plan(
+        scene, device, key, lambda occ: call(lane_blocks, (None,) * 4, occ=occ, flags=flags & ~FLAG_PROF),
+        n, width, height, stride, longest)
+    nxt, part_rad, part_work, stamps, thread_work = queue_buffers(
+        grid, chunks, n, device, work is not None, record)
     prof = (torch.empty((PROF_COLS, grid * THREADS), dtype=torch.int64, device=device)
             if flags & FLAG_PROF else None)
     walk = call(grid, (rad, work, prof, stamps),

@@ -13,7 +13,7 @@ through the same kernels as every other plan (``renderer.
 _render_band_balanced``: the render kernel, or the bounce kernel's
 regenerating mode on atlas scenes); a pixel's windows reach sample indices
 past spp, which the kernels' Sobol tables cover (``ops/fused_render.py:
-launch_sample_end``).  The plan is built on the scene's device
+launch_windows``).  The plan is built on the scene's device
 (``render/adaptive_device.py``) unless ``ZWRT_ADAPTIVE_HOST=1`` asks for
 the host functions of this module, which are its plain versions.
 

@@ -400,7 +400,8 @@ def _drain(
             scene, seed, t_min, depth, origin, direction, time, ray_id,
             throughput, radiance, alive, rr_start, clamp,
         )
-        depth = depth + 1
+        # a dead lane keeps its path's last bounce index while others run
+        depth = depth + alive.to(depth.dtype)
         alive = survives & (depth < max_depth)
 
     return RegenState(
@@ -503,6 +504,45 @@ def bounce_regen_reference(
 
 
 bounce_regen_reference.calls = 0
+
+
+def bounce_regen_items_reference(
+    scene: CompiledScene, state: RegenState, px, py, sample_limit, seed, t_min, *,
+    chunk: int, **kw,
+) -> RegenState:
+    """``bounce_regen_reference`` over the bounce kernel's work queue, as
+    the kernel runs it: each lane's window from ``state.sample + stride``
+    below ``sample_limit`` cut into ``item_windows`` at ``chunk``; a lane's
+    chunk 0 resumes the state the lane was given (its live path, radiance
+    and work), every other item starts dead from zero; each lane's radiance
+    and work add its items' in chunk order from zero, and its other fields
+    are those its last item leaves (the item with its last sample, or
+    chunk 0 where it has none).  The same samples as the unsplit drain; only
+    float32 rounding of the sums differs."""
+    n = px.shape[0]
+    stride = kw["stride"]
+    s0 = (state.sample.to(torch.int64) + stride).to(torch.int32)
+    lane, first, end, chunks = item_windows(s0, sample_limit, stride, chunk)
+    start = initial_regen_state(first, stride)
+    given = [torch.cat([g, f[n:]]) if isinstance(g, torch.Tensor) else
+             V3(*(torch.cat([a, b[n:]]) for a, b in zip(g, f)))
+             for g, f in zip(state, start)]
+    st = _drain(scene, RegenState(*given), px[lane].contiguous(), py[lane].contiguous(), end,
+                seed, t_min, **kw)
+    span = sample_limit.to(torch.int64) - s0.to(torch.int64)
+    last = ((torch.clamp(-(-span // (stride * chunk)), min=1) - 1) * n
+            + torch.arange(n, device=px.device))
+    pick = lambda t: V3(t.x[last], t.y[last], t.z[last]) if isinstance(t, V3) else t[last]
+    out = RegenState(*(pick(t) for t in st))
+
+    def in_order(t):
+        acc = torch.zeros((n,), dtype=t.dtype, device=t.device)
+        for c in range(chunks):
+            acc = acc + t[c * n:(c + 1) * n]
+        return acc
+
+    return out._replace(radiance=V3(*(in_order(t) for t in st.radiance)),
+                        work=in_order(st.work))
 
 
 def trace_paths_regen(
