@@ -48,7 +48,10 @@ def scene():
 def test_fingerprint_equals_jax(opts, scene):
     sampler = opts.pop("sampler", "sobol")
     t = zt.render.Renderer(sampler=zt.sampling.SamplerKind(sampler), **opts)
-    j = zj.render.Renderer(sampler=JKind(sampler), **opts)
+    # the same settings: the port's default chunk is its own
+    # (``MAX_RAYS_PER_CHUNK``, sized to the card; JAX's 1 << 21)
+    j = zj.render.Renderer(sampler=JKind(sampler),
+                           **{"max_rays_per_chunk": t.max_rays_per_chunk, **opts})
     sj = zj.models.load_scene("cornell_box")
     assert _fingerprint(scene, 12, 10, t) == jprog._fingerprint(sj, 12, 10, j)
 

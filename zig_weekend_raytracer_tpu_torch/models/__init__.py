@@ -1,7 +1,8 @@
 """The scene library (counterpart of ``models/__init__.py``): the six
 built-in scenes, constant for constant, ``SceneType``, the CLI's
-``--scene`` choices in the JAX package's order, and ``load_scene_file``,
-the JSON scene files of ``--scene_file``."""
+``--scene`` choices in the JAX package's order, ``load_scene_file``, the
+JSON scene files of ``--scene_file``, and the nested-checker scene
+(``models/nested.py``: ``load_scene`` takes it, ``--scene`` does not)."""
 
 from __future__ import annotations
 
@@ -14,6 +15,7 @@ from .balls import load_scene_balls
 from .cornell_box import load_scene_cornell_box
 from .earth import load_scene_earth
 from .emissive import load_scene_emissive
+from .nested import load_scene_nested
 from .rtw_final import load_scene_rtw_final
 from .scenefile import load_scene_file
 from .shrek_quads import load_scene_shrek_quads
@@ -42,6 +44,7 @@ SCENE_BUILDERS: Dict[str, Callable[..., Scene]] = {
     "cornell_box": load_scene_cornell_box,
     "rtw_final": load_scene_rtw_final,
     "earth": load_scene_earth,
+    "nested": load_scene_nested,
 }
 
 

@@ -1,8 +1,13 @@
 """Book-1 final scene: a random sphere field on a checkered ground, seen
 through a lens with depth of field (counterpart of ``models/balls.py``,
-constant for constant and draw for draw)."""
+constant for constant and draw for draw).  ``balls_builder(seed,
+inner_scale)`` nests a checker of the ground's two colours at
+``inner_scale`` in the ground checker's even cells: the nested-checker
+scene (``models/nested.py``)."""
 
 from __future__ import annotations
+
+from typing import Optional
 
 import numpy as np
 
@@ -11,12 +16,18 @@ from ..scene import Camera, Scene, SceneBuilder
 
 def load_scene_balls(seed: int = 0, asset_dir: str = "", device="cuda",
                      texture_lut=None) -> Scene:
+    return balls_builder(seed).compile(name="balls", device=device, texture_lut=texture_lut)
+
+
+def balls_builder(seed: int = 0, inner_scale: Optional[float] = None) -> SceneBuilder:
     rand = np.random.default_rng(seed)
     b = SceneBuilder()
 
     tex_brown = b.solid_color((0.4, 0.2, 0.1))
     tex_even = b.solid_color((0.2, 0.3, 0.1))
     tex_odd = b.solid_color((0.9, 0.9, 0.9))
+    if inner_scale is not None:
+        tex_even = b.checkerboard(inner_scale, tex_even, tex_odd)
     tex_ground = b.checkerboard(0.32, tex_even, tex_odd)
 
     # ground
@@ -57,4 +68,4 @@ def load_scene_balls(seed: int = 0, asset_dir: str = "", device="cuda",
             defocus_angle_degrees=0.6,
         )
     )
-    return b.compile(name="balls", device=device, texture_lut=texture_lut)
+    return b

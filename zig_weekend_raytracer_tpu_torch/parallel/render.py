@@ -52,6 +52,7 @@ from ..ops.bounce import supports_bounce_kernel
 from ..ops.fused_render import THREADS
 from ..render.camera import camera_consts
 from ..render.renderer import (
+    MAX_RAYS_PER_CHUNK,
     Renderer,
     _render_band_balanced,
     _render_band_regen,
@@ -112,7 +113,7 @@ def _reduce_sum(parts, dest: torch.device) -> torch.Tensor:
 def render_sharded(
     scene: Scene, width: int, height: int, samples_per_pixel: int, max_depth: int = 20,
     sampler: SamplerKind = SamplerKind.SOBOL, mesh=None, shard: str = "samples",
-    seed: int = 0, max_rays_per_chunk: int = 1 << 21, rr: int = 0, clamp: float = 0.0,
+    seed: int = 0, max_rays_per_chunk: int = MAX_RAYS_PER_CHUNK, rr: int = 0, clamp: float = 0.0,
     regen_min_wave: Optional[int] = None, sample0: int = 0,
     sample_count: Optional[int] = None, normalize: bool = True,
 ) -> torch.Tensor:
@@ -245,7 +246,7 @@ def _fixed_depth_shards(scene: Scene, chunker: Renderer, width: int, height: int
 def render_batch_sharded(
     scene: Scene, width: int, height: int, total_spp: int, sample0: int, spp_now: int,
     max_depth: int = 20, sampler: SamplerKind = SamplerKind.SOBOL, mesh=None,
-    shard: str = "samples", seed: int = 0, max_rays_per_chunk: int = 1 << 21, rr: int = 0,
+    shard: str = "samples", seed: int = 0, max_rays_per_chunk: int = MAX_RAYS_PER_CHUNK, rr: int = 0,
     clamp: float = 0.0, regen_min_wave: Optional[int] = None,
 ) -> torch.Tensor:
     """The radiance sum over samples [sample0, sample0 + spp_now) of a
@@ -262,7 +263,7 @@ def render_batch_sharded(
 def render_adaptive_sharded(
     scene: Scene, width: int, height: int, samples_per_pixel: int, max_depth: int = 20,
     sampler: SamplerKind = SamplerKind.SOBOL, mesh=None, shard: str = "samples",
-    seed: int = 0, max_rays_per_chunk: int = 1 << 21, rr: int = 0, clamp: float = 0.0,
+    seed: int = 0, max_rays_per_chunk: int = MAX_RAYS_PER_CHUNK, rr: int = 0, clamp: float = 0.0,
     pilot_spp: int = 0, return_stats: bool = False,
 ):
     """Variance-guided adaptive sampling (``render/adaptive.py``) across

@@ -39,7 +39,7 @@ from ..sampling.sampler import SamplerKind
 from ..scene import MAT_DIELECTRIC
 from .camera import camera_params, generate_rays
 from .integrator import texture_rgb
-from .renderer import pick_tile, ray_grid, unflatten_radiance
+from .renderer import MAX_RAYS_PER_CHUNK, pick_tile, ray_grid, unflatten_radiance
 
 
 def band_rays(scene, cam, seed, band_y0, *, width, height, band_rows, spp, sampler, has_dof):
@@ -81,7 +81,7 @@ def _aov_band(scene, cam, seed, band_y0, *, width, height, band_rows, spp, sampl
 
 def render_aovs(
     scene, width: int, height: int, *, spp: int = 4, seed: int = 0,
-    sampler: SamplerKind = SamplerKind.SOBOL, max_rays_per_chunk: int = 1 << 21,
+    sampler: SamplerKind = SamplerKind.SOBOL, max_rays_per_chunk: int = MAX_RAYS_PER_CHUNK,
 ) -> dict:
     """First-hit AOV buffers of ``scene`` (module doc): albedo (H, W, 3),
     normal (H, W, 3), depth (H, W) and coverage (H, W), float32 tensors on

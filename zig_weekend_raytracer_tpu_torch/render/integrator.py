@@ -91,7 +91,7 @@ from ..scene import (
 )
 from ..textures import checker_parity, image_lookup, texture_value
 from ..utils import workcount
-from ..utils.profiler import named_zone
+from ..utils.profiler import count, named_zone, recording
 from .camera import camera_params_from_consts, generate_rays
 from .pdfs import light_pdf_value, sample_light_direction
 
@@ -296,7 +296,14 @@ def trace_paths(
     bouncing every live lane together until none is alive or ``max_depth``
     bounces have run.  Russian roulette from bounce ``rr_start`` and the
     indirect ``clamp`` (0: off) are off on image scenes, as in the JAX
-    package's ``trace_paths``.  ``trace_paths.bounces`` counts bounces."""
+    package's ``trace_paths``.  ``trace_paths.bounces`` counts bounces.
+    While ``utils/profiler.py`` records, each read of the loop's condition
+    (the host waits for the bounce before) is the span
+    ``render.fixed.sync``, each bounce (its draws, K3's launch and the
+    shading's enqueue) ``render.fixed.bounce``, and the counters
+    ``fixed.bounces``, ``fixed.lane_slots`` (the chunk's lanes, each
+    bounce) and ``fixed.live_lanes`` (the live lanes entering each bounce,
+    read at that sync in the place of ``alive.any()``) add up."""
     from ..ops.closest_hit import closest_hit as closest_hit_kernel
 
     if scene.has_image_textures:
@@ -307,13 +314,26 @@ def trace_paths(
     radiance = V3.zeros((n,), dev)
     alive = torch.ones((n,), dtype=torch.bool, device=dev)
     depth = 0
-    while depth < max_depth and bool(alive.any()):
+    while depth < max_depth:
+        with named_zone("render.fixed.sync"):
+            if recording():  # the live lanes' count in the read's place
+                live = int(alive.sum())
+                more = live > 0
+            else:
+                live, more = None, bool(alive.any())
+        if not more:
+            break
         trace_paths.bounces += 1
-        origin, direction, throughput, radiance, alive = bounce(
-            scene, seed, T_MIN, torch.tensor(depth, dtype=torch.int64, device=dev), origin,
-            direction, time, ray_id, throughput, radiance, alive, rr_start, clamp,
-            trace=closest_hit_kernel,
-        )
+        count("fixed.bounces")
+        count("fixed.lane_slots", n)
+        if live is not None:
+            count("fixed.live_lanes", live)
+        with named_zone("render.fixed.bounce"):
+            origin, direction, throughput, radiance, alive = bounce(
+                scene, seed, T_MIN, torch.tensor(depth, dtype=torch.int64, device=dev), origin,
+                direction, time, ray_id, throughput, radiance, alive, rr_start, clamp,
+                trace=closest_hit_kernel,
+            )
         depth += 1
     return radiance
 

@@ -50,7 +50,12 @@ scenes without a LUT, inside ``rayColorLine``, the bounce kernel's driver
 loop (``render/integrator.py:trace_paths_regen``): ``render.regen.launch``
 around each regenerating launch's host side, ``render.regen.launch.wait``
 inside it around the read of the window ends, and ``render.regen.poll``
-around each read of the loop's condition; counters ``plan.hit.<kind>``
+around each read of the loop's condition; on the fixed-depth wavefront,
+where ``rayColorLine`` is each chunk's ``trace_paths``, inside it
+``render.fixed.sync`` around each read of the loop's condition and
+``render.fixed.bounce`` around each bounce, with the counters
+``fixed.bounces``, ``fixed.lane_slots`` and ``fixed.live_lanes``
+(``render/integrator.py:trace_paths``); counters ``plan.hit.<kind>``
 and ``plan.miss.<kind>`` of the cost-sorted and coherent plans' cache,
 and ``plan.card.coherent`` for each coherent plan built on the card.  The
 kernels count their own: K1's ``k1.lane_work``, ``k1.warp_work``,
@@ -406,18 +411,28 @@ def build_balance_plan(work_px: np.ndarray, band_y0: int, spp_est: int, spp: int
     return tuple(a.astype(np.int32) for a in (px, py, s0, s1))
 
 
+# The fixed-depth wavefront's lanes in flight a chunk, the default of every
+# render that takes the option (``Renderer``, ``parallel/render.py``,
+# ``render/aov.py``).  The JAX package's 1 << 21 fits a TPU chip; on the
+# H100 a chunk that size leaves the card waiting on the host's eager
+# enqueue of each bounce's shading.  A chunk holds about 1.3 KB a lane of
+# state and shading temporaries on its device.
+MAX_RAYS_PER_CHUNK = 1 << 24
+
+
 @dataclasses.dataclass
 class Renderer:
     """User-facing render configuration; field names and defaults are the
-    JAX package's.  ``device`` (default: the scene's) must match the scene's
-    device; a CUDA device without a GPU raises."""
+    JAX package's but ``max_rays_per_chunk``'s (``MAX_RAYS_PER_CHUNK``).  ``device`` (default: the
+    scene's) must match the scene's device; a CUDA device without a GPU
+    raises."""
 
     samples_per_pixel: int = 10
     max_ray_bounce_depth: int = 20
     sampler: SamplerKind = SamplerKind.SOBOL
     seed: int = 0
-    # Max rays in flight per band.
-    max_rays_per_chunk: int = 1 << 21
+    # Max rays in flight per band (a chunk of the fixed-depth wavefront).
+    max_rays_per_chunk: int = MAX_RAYS_PER_CHUNK
     # Unused by the port (it has no XLA BVH path); kept for field parity.
     max_rays_per_chunk_bvh: int = 1 << 17
     # Russian roulette from this bounce index (0 = off, the reference's
